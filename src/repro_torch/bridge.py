@@ -1,0 +1,44 @@
+"""Weight transfer from the JAX package's parameter tree, through numpy.
+
+The JAX package's ``init_lm`` returns a pytree whose per-layer leaves are
+stacked ``[L, ...]``.  :func:`params_from_numpy` takes that tree with every
+leaf converted to a numpy array (``jax.tree.map(np.asarray, params)``) and
+returns the port's parameter dict (one dict per layer), so a test can feed
+both packages exactly the same weights.  Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """numpy -> torch, bf16 included (numpy's ``bfloat16`` extension type
+    has no torch counterpart in ``from_numpy``: go through its bits)."""
+    a = np.array(a)  # a writable copy: torch shares the buffer
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
+    """The JAX package's dense ``init_lm`` tree (numpy leaves) -> the
+    port's params on ``device``."""
+    if cfg.family != "dense":
+        raise ValueError(f"family {cfg.family!r} is not ported yet")
+
+    def conv(node, i=None):
+        if isinstance(node, dict):
+            return {k: conv(v, i) for k, v in node.items()}
+        return tensor_from_numpy(node if i is None else node[i], device)
+
+    params = {"embed": conv(tree["embed"]), "ln_f": conv(tree["ln_f"]),
+              "layers": [conv(tree["layers"], i)
+                         for i in range(cfg.n_layers)]}
+    if "lm_head" in tree:
+        params["lm_head"] = conv(tree["lm_head"])
+    return params

@@ -1,0 +1,127 @@
+"""Build and load the port's CUDA kernels (a plain C interface over ctypes).
+
+Each ``csrc/<name>.cu`` compiles on first use into ``build/lib<name>.so`` at
+the checkout root with::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -I csrc -o build/lib<name>.so csrc/<name>.cu
+
+Only the sources in this package are built.  Every pointer and the stream
+cross the boundary as ``ctypes.c_void_p``; each C entry returns
+``cudaGetLastError()`` and :func:`check` raises when it is not 0.  Nothing
+here runs at import: the tests import every module on hosts with no
+``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+SOURCES = ("pim_gemv", "splitk_gemv")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures: (x, w_t, out, B, K, M, m_blk, k_blk, stream) and the split-K
+# form with the partials buffer and the degree.
+_SIGNATURES = {
+    "pim_gemv": {
+        f"pim_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _P)
+        for t in ("bf16", "f32")
+    },
+    "splitk_gemv": {
+        f"splitk_gemv_{t}": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+        for t in ("bf16", "f32")
+    },
+}
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                           "on this host")
+    return path
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def nvcc_command(name: str, out: Path, compiler: str = "nvcc") -> list[str]:
+    return [compiler, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
+            "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def _stale(name: str) -> bool:
+    lib = library_path(name)
+    if not lib.exists():
+        return True
+    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in deps)
+
+
+def build(names=SOURCES, *, force: bool = False) -> dict[str, dict]:
+    """Compile every stale source with one ``nvcc`` each, all at once.
+
+    Returns ``{name: {"seconds": s, "ptxas": text}}`` for the sources built
+    (``ptxas`` holds the ``-Xptxas -v`` register and spill report).  Raises
+    with the compiler's output when any build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in names if force or _stale(n)]
+    compiler = nvcc() if todo else ""
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        # private output name, renamed into place: concurrent builds
+        # (test workers) never load a half-written library
+        tmp = BUILD_DIR / f".lib{n}.{os.getpid()}.so"
+        procs[n] = (tmp, subprocess.Popen(
+            nvcc_command(n, tmp, compiler), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    report, failed = {}, []
+    for n, (tmp, proc) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {n} (nvcc exit {proc.returncode})\n{text}")
+            continue
+        os.replace(tmp, library_path(n))
+        report[n] = {"seconds": time.perf_counter() - t0, "ptxas": text}
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, built first if missing or stale."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            if _stale(name):
+                build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _I
+            _LIBS[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a C entry reported a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

@@ -1,0 +1,88 @@
+"""CPU ``GemvBackend``: plain PyTorch, the twin of ``backends/cpu.py``.
+
+* ``ref`` — the f32-accumulating product on the K-major weight;
+* ``splitk`` — K cut into ``degree`` chunks, f32 partials summed in order
+  (the paper's split-K reduce in plain form).
+
+The cost constants are the JAX CPU backend's seeds (a DDR-class host).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.backends.base import (
+    DEFAULT_POLICY,
+    CostModel,
+    DispatchPolicy,
+    GemvBackend,
+    register_backend,
+)
+from repro_torch.kernels.gemv_plan import GemvPlan, valid_splitk_degree
+from repro_torch.kernels.ops import PackedWeights
+
+COST_MODEL = CostModel(bandwidth_gbps=51.2, gemv_efficiency=0.55,
+                       launch_us=1.5, program_us=3.0, min_parallel_blocks=8)
+
+
+def plan_cpu_splitk(M: int, K: int) -> GemvPlan | None:
+    """Chunk K at the highest valid split degree."""
+    deg = valid_splitk_degree(K)
+    if deg is None:
+        return None
+    return GemvPlan(m_blk=M, k_blk=K // deg, n_m=1, n_k=1, smem_bytes=0,
+                    split_k=deg)
+
+
+class CpuBackend(GemvBackend):
+    name = "cpu"
+    kernels = ("ref", "splitk")
+    program_modes = ("fused",)
+
+    @property
+    def cost_model(self) -> CostModel:
+        return COST_MODEL
+
+    def estimate_cost_us(self, kernel, M, K, batch, *, x_bytes=2,
+                         plan=None) -> float:
+        if kernel != "splitk" or plan is None:
+            return super().estimate_cost_us(kernel, M, K, batch,
+                                            x_bytes=x_bytes)
+        cm = self.cost_model
+        deg = plan.split_k
+        io = self.io_bytes(M, K, batch, x_bytes=x_bytes)
+        occupancy = min(1.0, deg / cm.min_parallel_blocks)
+        t = io / (cm.bandwidth_bps * occupancy) * 1e6
+        t += cm.launch_us + cm.program_us * deg
+        t += cm.splitk_reduce_factor * deg * batch * M * 4 / cm.bandwidth_bps \
+            * 1e6
+        return t
+
+    def select_kernel(self, M, K, batch, *, x_bytes=2,
+                      policy: DispatchPolicy = DEFAULT_POLICY):
+        if policy.kernel != "auto":
+            self._check_pin(policy.kernel)
+            plan = plan_cpu_splitk(M, K)
+            if policy.kernel == "splitk" and plan is not None:
+                return "splitk", plan
+            return "ref", None
+        if batch > policy.batch_threshold:
+            return "ref", None
+        cands = [("ref", None)]
+        plan = plan_cpu_splitk(M, K)
+        if plan is not None:
+            cands.append(("splitk", plan))
+        return min(cands, key=lambda kp: self.estimate_cost_us(
+            kp[0], M, K, batch, x_bytes=x_bytes, plan=kp[1]))
+
+    def execute(self, kernel: str, x: torch.Tensor, pw: PackedWeights,
+                plan: GemvPlan | None) -> torch.Tensor:
+        if kernel == "splitk":
+            return ref.splitk_gemv_ref(pw.w_t, x, plan.split_k)
+        if kernel == "ref":
+            return ref.gemv_ref(pw.w_t, x)
+        raise ValueError(f"unknown kernel {kernel!r}")
+
+
+BACKEND = register_backend(CpuBackend(), devices=("cpu",))

@@ -1,0 +1,241 @@
+"""GEMV dispatch: programs of requests over pluggable backends.
+
+Counterpart of ``repro/kernels/dispatch.py`` for the slice the port runs.
+Every entry point
+
+1. resolves a backend: ``DispatchPolicy.backend`` when set, else the one
+   serving the input's device (``cuda`` -> ``h100``, ``cpu`` -> ``cpu``);
+2. normalizes the weight into one :class:`PackedWeights` (K-major
+   ``w_t [K, M]``);
+3. delegates selection and program planning to the backend; and
+4. memoizes the decision in a process-level, lock-guarded plan cache keyed
+   on shape + dtype + backend + policy.
+
+Decisions are counted once per plan-cache miss, as in the JAX package:
+``dispatch_stats()`` reports the kernel picks, program modes and the
+``gemv_path`` / ``matmul_fallback`` mix of every fresh (shape, policy).
+Kernel *launches* are counted by the kernel wrappers themselves
+(``pim_gemv.launches``, ``splitk_gemv.launches``).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import threading
+
+import torch
+
+from repro_torch.kernels.backends import (
+    DEFAULT_POLICY,
+    DispatchPolicy,
+    GemvKey,
+    GemvProgram,
+    GemvRequest,
+    ProgramKey,
+    ProgramPlan,
+    resolve_backend,
+)
+from repro_torch.kernels.backends.base import dtype_bytes
+from repro_torch.kernels.gemv_plan import GemvPlan
+from repro_torch.kernels.ops import (
+    PackedWeights,
+    from_transposed,
+    pack_fused,
+    pack_weight,
+)
+
+__all__ = [
+    "DispatchPolicy", "DEFAULT_POLICY", "dispatch_gemv", "dispatch_dense",
+    "dispatch_program", "dispatch_fused", "dispatch_prepacked",
+    "dispatch_stats", "clear_plan_cache",
+]
+
+_LOCK = threading.Lock()
+_PLAN_CACHE: dict[tuple[GemvKey, DispatchPolicy],
+                  tuple[str, GemvPlan | None]] = {}
+_PROGRAM_CACHE: dict[tuple[ProgramKey, DispatchPolicy], ProgramPlan] = {}
+_CACHE_STATS = {"hits": 0, "misses": 0, "program_hits": 0,
+                "program_misses": 0}
+
+
+def _fresh_counters() -> dict:
+    return {
+        "kernel_picks": {},     # "backend:kernel" -> decisions
+        "program_modes": {},    # "backend:mode"   -> decisions
+        "gemv_path": 0,         # decisions with batch <= batch_threshold
+        "matmul_fallback": 0,   # decisions the batch gate sent to ref
+    }
+
+
+_DISPATCH_COUNTERS = _fresh_counters()
+
+
+def dispatch_stats() -> dict:
+    """Snapshot of the decision counters plus the plan-cache stats (one
+    lock hold, deep-copied).  Reset by :func:`clear_plan_cache`."""
+    with _LOCK:
+        return {"plan_cache": dict(_CACHE_STATS),
+                **copy.deepcopy(_DISPATCH_COUNTERS)}
+
+
+def clear_plan_cache() -> None:
+    global _DISPATCH_COUNTERS
+    with _LOCK:
+        _PLAN_CACHE.clear()
+        _PROGRAM_CACHE.clear()
+        _CACHE_STATS.update(hits=0, misses=0, program_hits=0,
+                            program_misses=0)
+        _DISPATCH_COUNTERS = _fresh_counters()
+
+
+def _count_decision(backend_name: str, batch: int, policy: DispatchPolicy,
+                    *, kernel: str | None = None,
+                    mode: str | None = None) -> None:
+    with _LOCK:
+        if kernel is not None:
+            picks = _DISPATCH_COUNTERS["kernel_picks"]
+            k = f"{backend_name}:{kernel}"
+            picks[k] = picks.get(k, 0) + 1
+        if mode is not None:
+            modes = _DISPATCH_COUNTERS["program_modes"]
+            m = f"{backend_name}:{mode}"
+            modes[m] = modes.get(m, 0) + 1
+        if batch > policy.batch_threshold:
+            _DISPATCH_COUNTERS["matmul_fallback"] += 1
+        else:
+            _DISPATCH_COUNTERS["gemv_path"] += 1
+
+
+def _resolve(backend, key: GemvKey,
+             policy: DispatchPolicy) -> tuple[str, GemvPlan | None]:
+    """Memoized (kernel, plan) for one shape under one policy."""
+    with _LOCK:
+        cached = _PLAN_CACHE.get((key, policy))
+        if cached is not None:
+            _CACHE_STATS["hits"] += 1
+            return cached
+        _CACHE_STATS["misses"] += 1
+    # selection is a pure function of (key, policy): two racers compute the
+    # same answer, so no per-key lock is needed
+    decision = backend.select_kernel(
+        key.M, key.K, key.batch,
+        x_bytes=dtype_bytes(key.dtype),
+        policy=policy)
+    with _LOCK:
+        _PLAN_CACHE[(key, policy)] = decision
+    _count_decision(backend.name, key.batch, policy, kernel=decision[0])
+    return decision
+
+
+def _resolve_program(backend, key: ProgramKey,
+                     policy: DispatchPolicy) -> ProgramPlan:
+    """Memoized ProgramPlan for one program shape under one policy."""
+    with _LOCK:
+        cached = _PROGRAM_CACHE.get((key, policy))
+        if cached is not None:
+            _CACHE_STATS["program_hits"] += 1
+            return cached
+        _CACHE_STATS["program_misses"] += 1
+    pplan = backend.plan_program(key, policy=policy)
+    with _LOCK:
+        _PROGRAM_CACHE[(key, policy)] = pplan
+    _count_decision(backend.name, key.batch, policy, mode=pplan.mode)
+    return pplan
+
+
+def _dispatch_request(req: GemvRequest,
+                      policy: DispatchPolicy) -> torch.Tensor:
+    """Execute ONE request: the shared path under every entry point."""
+    backend = resolve_backend(policy, req.x.device)
+    pw = req.weights
+    K, M = pw.shape
+    B = req.x.shape[0]
+    if req.x.shape[1] != K:
+        raise ValueError(f"x {tuple(req.x.shape)} does not match weight "
+                         f"(K, M) = {pw.shape}")
+    key = GemvKey(M=M, K=K, batch=B, dtype=str(req.x.dtype),
+                  backend=backend.name)
+    kernel, plan = _resolve(backend, key, policy)
+    return backend.execute(kernel, req.x.contiguous(), pw, plan)
+
+
+def dispatch_gemv(x: torch.Tensor, weights, *,
+                  policy: DispatchPolicy | None = None) -> torch.Tensor:
+    """Single-GEMV entry point: out[B, M] = x[B, K] @ W.T.
+
+    ``weights`` is a :class:`PackedWeights` or a dense ``[M, K]`` tensor
+    (transposed on every call: prepack once instead on a hot path).
+    """
+    pw = weights if isinstance(weights, PackedWeights) else \
+        pack_weight(weights)
+    return _dispatch_request(GemvRequest(x=x, weights=pw),
+                             policy or DEFAULT_POLICY)
+
+
+def dispatch_dense(x: torch.Tensor, w_t: torch.Tensor, *,
+                   policy: DispatchPolicy | None = None) -> torch.Tensor:
+    """Dense-layer adapter: x [B, S, d_in] @ w_t [d_in, d_out] -> [B, S,
+    d_out].  Model layers store projections K-major already, so this wraps
+    without a transpose and flattens (B, S) into the GEMV batch."""
+    B, S, d = x.shape
+    out = _dispatch_request(
+        GemvRequest(x=x.reshape(B * S, d), weights=from_transposed(w_t)),
+        policy or DEFAULT_POLICY)
+    return out.reshape(B, S, out.shape[-1])
+
+
+def dispatch_program(program: GemvProgram, *,
+                     policy: DispatchPolicy | None = None) -> torch.Tensor:
+    """Execute a fused :class:`GemvProgram`: returns ``[B, sum(Ms)]``.
+
+    The backend plans the group as ONE kernel on the concatenated weight,
+    or as the per-request decomposition when fusing is off.
+    """
+    policy = policy or DEFAULT_POLICY
+    backend = resolve_backend(policy, program.x.device)
+    pplan = _resolve_program(backend, program.key(backend.name), policy)
+    if pplan.mode == "per_request":
+        outs = [_dispatch_request(req, policy) for req in program.requests]
+        return torch.cat(outs, dim=-1)
+    return backend.execute_program(
+        dataclasses.replace(program, x=program.x.contiguous()), pplan)
+
+
+def dispatch_fused(x: torch.Tensor, weights, *,
+                   policy: DispatchPolicy | None = None
+                   ) -> list[torch.Tensor]:
+    """Shared-input projections as one program: ``x`` [B, K], ``weights``
+    K-major ``[K, M_i]`` tensors or :class:`PackedWeights`.  The members
+    are concatenated here, on every call; hot paths prepack instead
+    (:func:`dispatch_prepacked`)."""
+    members = [w if isinstance(w, PackedWeights) else from_transposed(w)
+               for w in weights]
+    fused, splits = pack_fused(members)
+    reqs = tuple(GemvRequest(x=x, weights=pw, tag=f"m{i}")
+                 for i, pw in enumerate(members))
+    program = GemvProgram(kind="fused", x=x, weights=fused, m_splits=splits,
+                          requests=reqs)
+    return program.split(dispatch_program(program, policy=policy))
+
+
+def dispatch_prepacked(x: torch.Tensor, fused, m_splits, *,
+                       policy: DispatchPolicy | None = None
+                       ) -> list[torch.Tensor]:
+    """Fused program over a PREPACKED ``[K, sum(Ms)]`` weight (the decode
+    hot path: the concat was paid once at deployment).  Returns the
+    per-member ``[B, M_i]`` outputs in order."""
+    pw = fused if isinstance(fused, PackedWeights) else from_transposed(fused)
+    splits = tuple(int(m) for m in m_splits)
+    K, M = pw.shape
+    if sum(splits) != M:
+        raise ValueError(f"m_splits {splits} do not tile M={M}")
+    reqs, off = [], 0
+    for i, m in enumerate(splits):
+        reqs.append(GemvRequest(
+            x=x, weights=PackedWeights(w_t=pw.w_t[:, off:off + m]),
+            tag=f"m{i}"))
+        off += m
+    program = GemvProgram(kind="fused", x=x, weights=pw, m_splits=splits,
+                          requests=tuple(reqs))
+    return program.split(dispatch_program(program, policy=policy))

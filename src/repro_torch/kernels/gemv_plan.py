@@ -1,0 +1,100 @@
+"""Tile planning for the Hopper decode GEMV kernels.
+
+The counterpart of ``repro/kernels/tpu_plan.py``.  The paper's Algorithm 1
+sweeps tile height from tall to short until rows distribute evenly over
+banks and the register budget holds.  On Hopper:
+
+    bank            -> one CTA (one column block of m_blk outputs)
+    register budget -> f32 accumulators for B <= MAX_BATCH rows of the
+                       thread's 16-byte column vector, plus the x chunk
+                       staged in shared memory (k_blk columns of x)
+    even bank dist. -> m_blk divides M, k_blk divides the K walk
+    cross-SIMD-lane -> 16-byte vector alignment: each thread owns
+                       VEC_BYTES / elem_bytes neighbouring columns
+
+``plan_gemv`` keeps the sweep: the tallest column block (at most
+``MAX_M_BLK`` columns) that divides M, then the largest K chunk that divides
+the K walk and fits the shared-memory budget.  ``stages`` is the number of
+pipeline stages of the K stream; the kernels in this package have one.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+THREADS = 256                # threads per CTA (csrc/gemv_tile.cuh kThreads)
+VEC_BYTES = 16               # one vector load per thread per K row
+MAX_BATCH = 8                # accumulator rows held in registers (kMaxB)
+MAX_M_BLK = 128              # columns per CTA at most
+MAX_K_BLK = 1024             # K rows of x staged per chunk at most
+X_SMEM_BUDGET = 32 * 1024    # bytes of shared memory for the f32 x chunk
+K_ALIGN = 8                  # K chunks and split-K parts are multiples of 8
+SPLITK_DEGREES = (8, 4, 2)
+
+
+@dataclass(frozen=True)
+class GemvPlan:
+    m_blk: int
+    k_blk: int
+    n_m: int
+    n_k: int
+    smem_bytes: int
+    split_k: int = 1
+    stages: int = 1
+
+
+def vec_elems(elem_bytes: int) -> int:
+    return VEC_BYTES // elem_bytes
+
+
+def kernel_applicable(M: int, K: int, batch: int = 1,
+                      elem_bytes: int = 2) -> bool:
+    """The Hopper twin of ``ops.pallas_applicable``: whole 16-byte column
+    vectors, a K walk of whole 8-row groups, and a batch that fits the
+    register accumulators."""
+    return (M % vec_elems(elem_bytes) == 0 and K % K_ALIGN == 0
+            and 1 <= batch <= MAX_BATCH)
+
+
+def _smem(batch: int, k_blk: int, elem_bytes: int) -> int:
+    return 4 * (batch * k_blk + THREADS * vec_elems(elem_bytes))
+
+
+def plan_gemv(M: int, K: int, batch: int = 1, *,
+              elem_bytes: int = 2) -> GemvPlan:
+    """Algorithm-1 sweep: tallest column block dividing M, then the largest
+    K chunk dividing K that fits the x budget."""
+    if M <= 0 or K <= 0:
+        raise ValueError("M and K must be positive")
+    if not kernel_applicable(M, K, batch, elem_bytes):
+        raise ValueError(f"no Hopper GEMV plan for M={M} K={K} B={batch}")
+    vec = vec_elems(elem_bytes)
+    m_blk = MAX_M_BLK
+    # tall first; a column block spans a power-of-two number of threads so
+    # the CTA splits evenly into row groups
+    while m_blk > vec and (M % m_blk or THREADS % (m_blk // vec)):
+        m_blk //= 2
+    k_cap = min(MAX_K_BLK, X_SMEM_BUDGET // (4 * max(batch, 1)), K)
+    k_blk = next((k for k in range(k_cap, 0, -1)
+                  if K % k == 0 and (k % K_ALIGN == 0 or k == K)), K)
+    return GemvPlan(m_blk=m_blk, k_blk=k_blk, n_m=M // m_blk, n_k=K // k_blk,
+                    smem_bytes=_smem(batch, k_blk, elem_bytes))
+
+
+def valid_splitk_degree(K: int, degrees=SPLITK_DEGREES) -> int | None:
+    """Highest degree that splits K into parts of whole 8-row groups."""
+    for deg in degrees:
+        if K % deg == 0 and (K // deg) % K_ALIGN == 0:
+            return deg
+    return None
+
+
+def plan_splitk(M: int, K: int, batch: int = 1, *, degree: int,
+                elem_bytes: int = 2) -> GemvPlan:
+    """Split-K plan: the output-stationary plan of one K part, replicated
+    over ``degree`` parts (the grid's second axis)."""
+    if K % degree or (K // degree) % K_ALIGN:
+        raise ValueError(f"split-K degree {degree} does not split K={K}")
+    base = plan_gemv(M, K // degree, batch, elem_bytes=elem_bytes)
+    return GemvPlan(m_blk=base.m_blk, k_blk=base.k_blk, n_m=base.n_m,
+                    n_k=base.n_k, smem_bytes=base.smem_bytes, split_k=degree)

@@ -1,0 +1,101 @@
+"""Output-stationary decode GEMV: ``csrc/pim_gemv.cu`` and its plain twin.
+
+Replaces the Pallas TPU kernel ``repro/kernels/pim_gemv.py::pim_gemv``:
+``out[B, M] = x[B, K] @ w_t[K, M]`` with f32 accumulation, output in
+``x.dtype``.
+
+What bounds it on an H100: at decode batch (B <= 8) each weight element
+feeds 2*B flops, so the kernel is bound by the weight bytes over HBM
+bandwidth (3.35 TB/s).  The kernel reads each weight byte once in 16-byte
+coalesced vectors along the contiguous M axis, stages x in shared memory and
+keeps all B accumulators in registers (``csrc/gemv_tile.cuh``).
+
+A CPU tensor takes the plain version (:func:`pim_gemv_plain`); a CUDA tensor
+launches the kernel or raises.  ``pim_gemv.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.gemv_plan import (
+    MAX_BATCH,
+    THREADS,
+    X_SMEM_BUDGET,
+    GemvPlan,
+    vec_elems,
+)
+
+DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def check_inputs(x: torch.Tensor, w_t: torch.Tensor,
+                 plan: GemvPlan) -> tuple[int, int, int]:
+    """Validate what the kernels take; returns (B, K, M).
+
+    ``w_t`` must already be contiguous: copying it here would move a whole
+    weight (206 MB for olmo-1b's tied head) on every call.
+    """
+    if x.ndim != 2 or w_t.ndim != 2:
+        raise ValueError(f"expected x [B, K] and w_t [K, M], got "
+                         f"{tuple(x.shape)} and {tuple(w_t.shape)}")
+    B, K = x.shape
+    K2, M = w_t.shape
+    if K != K2:
+        raise ValueError(f"x {tuple(x.shape)} and w_t {tuple(w_t.shape)} "
+                         f"disagree on K")
+    if x.dtype not in DTYPES or w_t.dtype != x.dtype:
+        raise TypeError(f"x and w_t must share bf16 or f32, got {x.dtype} "
+                        f"and {w_t.dtype}")
+    if x.device != w_t.device:
+        raise ValueError(f"x on {x.device} but w_t on {w_t.device}")
+    if not w_t.is_contiguous():
+        raise ValueError("w_t must be contiguous K-major [K, M]; prepack "
+                         "it once instead of copying it per call")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if w_t.data_ptr() % 16:
+        raise ValueError("w_t must start on a 16-byte boundary (the kernels "
+                         "read it as 16-byte vectors)")
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"batch {B} outside 1..{MAX_BATCH}")
+    vec = vec_elems(x.element_size())
+    deg = plan.split_k
+    if (M % plan.m_blk or plan.n_m * plan.m_blk != M
+            or plan.m_blk % vec or THREADS % (plan.m_blk // vec)):
+        raise ValueError(f"plan {plan} does not tile M={M}")
+    if K % deg or (K // deg) % plan.k_blk:
+        raise ValueError(f"plan {plan} does not tile K={K}")
+    if 4 * B * plan.k_blk > X_SMEM_BUDGET:
+        raise ValueError(f"plan {plan}: x chunk exceeds shared memory at "
+                         f"B={B}")
+    return B, K, M
+
+
+def pim_gemv_plain(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
+    """The same function in plain PyTorch: f32 product, cast to x.dtype."""
+    return torch.matmul(x.float(), w_t.float()).to(x.dtype)
+
+
+def pim_gemv(x: torch.Tensor, w_t: torch.Tensor, *,
+             plan: GemvPlan) -> torch.Tensor:
+    """x [B, K], w_t [K, M] -> [B, M] through the output-stationary kernel."""
+    B, K, M = check_inputs(x, w_t, plan)
+    if plan.split_k != 1:
+        raise ValueError(f"pim_gemv takes a plan with split_k=1, got {plan}")
+    if x.device.type == "cpu":
+        return pim_gemv_plain(x, w_t)
+    if x.device.type != "cuda":
+        raise ValueError(f"pim_gemv runs on cuda or cpu, not {x.device}")
+    lib = _build.load("pim_gemv")
+    out = torch.empty((B, M), dtype=x.dtype, device=x.device)
+    fn = getattr(lib, f"pim_gemv_{DTYPES[x.dtype]}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(fn(x.data_ptr(), w_t.data_ptr(), out.data_ptr(), B, K, M,
+                    plan.m_blk, plan.k_blk, stream), "pim_gemv")
+    pim_gemv.launches += 1
+    return out
+
+
+pim_gemv.launches = 0
