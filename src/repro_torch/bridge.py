@@ -4,7 +4,9 @@ The JAX package's ``init_lm`` returns a pytree whose per-layer leaves are
 stacked ``[L, ...]``.  :func:`params_from_numpy` takes that tree with every
 leaf converted to a numpy array (``jax.tree.map(np.asarray, params)``) and
 returns the port's parameter dict (one dict per layer), so a test can feed
-both packages exactly the same weights.  Nothing here imports JAX.
+both packages exactly the same weights.  :func:`packed_from_numpy` does the
+same for one of the JAX package's ``PackedWeights`` (quantized ones
+included).  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import PackedWeights
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -42,3 +45,15 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
     if "lm_head" in tree:
         params["lm_head"] = conv(tree["lm_head"])
     return params
+
+
+def packed_from_numpy(w_t, scales=None, bits: int = 16, block: int = 32, *,
+                      device) -> PackedWeights:
+    """The JAX package's ``PackedWeights`` fields (numpy ``w_t`` and
+    ``scales``, ``bits``, ``block``) -> the port's, on ``device``: int8
+    codes (packed int4 included) and f32 scales keep their bytes."""
+    return PackedWeights(
+        w_t=tensor_from_numpy(w_t, device).contiguous(),
+        scales=(None if scales is None
+                else tensor_from_numpy(scales, device).contiguous()),
+        bits=int(bits), block=int(block))

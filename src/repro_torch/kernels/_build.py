@@ -26,12 +26,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-SOURCES = ("pim_gemv", "splitk_gemv")
+SOURCES = ("pim_gemv", "splitk_gemv", "quant_gemv")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: (x, w_t, out, B, K, M, m_blk, k_blk, stream) and the split-K
-# form with the partials buffer and the degree.
+# C signatures: (x, w_t, out, B, K, M, m_blk, k_blk, stream), the split-K
+# form with the partials buffer and the degree, and the quant form
+# (x, codes, scales, out, B, K, M, block, m_blk, k_blk, stream).
 _SIGNATURES = {
     "pim_gemv": {
         f"pim_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _P)
@@ -40,6 +41,10 @@ _SIGNATURES = {
     "splitk_gemv": {
         f"splitk_gemv_{t}": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
         for t in ("bf16", "f32")
+    },
+    "quant_gemv": {
+        f"{k}_{t}": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+        for k in ("quant_gemv", "quant4_gemv") for t in ("bf16", "f32")
     },
 }
 

@@ -3,7 +3,9 @@
 Counterpart of ``repro/kernels/backends/base.py`` for the slice the port
 runs: a backend bundles its kernel set and executors, a frozen
 :class:`CostModel`, and the selection and program planning the dispatcher
-delegates to it.  Autotune tables, calibration, grouped and ragged
+delegates to it.  Keys carry the weight's ``bits`` (16 float, 8 int8, 4
+packed int4) and scale ``block``; a quantized weight's ``ref`` path is the
+block-scale dequant oracle.  Autotune tables, calibration, grouped and ragged
 programs and sharding are not ported yet.
 """
 
@@ -56,11 +58,13 @@ DEFAULT_POLICY = DispatchPolicy()
 
 @dataclass(frozen=True)
 class GemvKey:
-    """Plan-cache key: shape + dtype + backend name."""
+    """Plan-cache key: shape + weight storage + dtype + backend name."""
 
     M: int
     K: int
     batch: int
+    bits: int
+    block: int
     dtype: str
     backend: str
 
@@ -82,6 +86,8 @@ class ProgramKey:
     Ms: tuple[int, ...]
     K: int
     batch: int
+    bits: int
+    block: int
     dtype: str
     backend: str
 
@@ -94,8 +100,9 @@ class ProgramKey:
 class GemvProgram:
     """Shared-input GEMVs planned jointly (QKV, MLP gate+up).
 
-    ``weights.w_t`` is the prepacked ``[K, sum(m_splits)]`` concatenation;
-    ``requests`` carries the per-member decomposition.
+    ``weights`` is the prepacked ``[K, sum(m_splits)]`` concatenation
+    (codes and scales for quantized members); ``requests`` carries the
+    per-member decomposition.
     """
 
     kind: str                          # "fused"
@@ -111,6 +118,7 @@ class GemvProgram:
     def key(self, backend_name: str) -> ProgramKey:
         return ProgramKey(kind=self.kind, Ms=self.m_splits,
                           K=self.weights.shape[0], batch=int(self.x.shape[0]),
+                          bits=self.weights.bits, block=self.weights.block,
                           dtype=str(self.x.dtype), backend=backend_name)
 
 
@@ -144,32 +152,50 @@ class GemvBackend:
     # -- cost model ---------------------------------------------------------
 
     @staticmethod
-    def io_bytes(M: int, K: int, batch: int, *, x_bytes: int = 2) -> float:
-        return M * K * x_bytes + batch * K * x_bytes + batch * M * x_bytes
+    def io_bytes(M: int, K: int, batch: int, *, bits: int = 16,
+                 x_bytes: int = 2) -> float:
+        """Weight codes + x + out, as the JAX contract counts them (no
+        scale bytes, so selections stay comparable)."""
+        return M * K * bits / 8 + batch * K * x_bytes + batch * M * x_bytes
 
     def estimate_cost_us(self, kernel: str, M: int, K: int, batch: int, *,
-                         x_bytes: int = 2,
+                         bits: int = 16, x_bytes: int = 2,
                          plan: GemvPlan | None = None) -> float:
         """Default: the memory-bound ref path."""
         cm = self.cost_model
-        io = self.io_bytes(M, K, batch, x_bytes=x_bytes)
+        io = self.io_bytes(M, K, batch, bits=bits, x_bytes=x_bytes)
         return io / (cm.bandwidth_bps * cm.gemv_efficiency) * 1e6
 
     # -- selection / execution ------------------------------------------------
 
-    def select_kernel(self, M: int, K: int, batch: int, *, x_bytes: int = 2,
+    def select_kernel(self, M: int, K: int, batch: int, *, bits: int = 16,
+                      block: int = 32, x_bytes: int = 2,
                       policy: DispatchPolicy = DEFAULT_POLICY
                       ) -> tuple[str, GemvPlan | None]:
         raise NotImplementedError
 
-    def _check_pin(self, name: str) -> None:
+    def _check_pin(self, name: str, bits: int) -> None:
         if name not in self.kernels:
             raise ValueError(f"unknown kernel {name!r} for backend "
                              f"{self.name!r}; expected one of {self.kernels}")
+        if name in ("quant", "quant4") and bits == 16:
+            raise ValueError(f"kernel={name!r} requires int8/int4 weights")
 
     def execute(self, kernel: str, x: torch.Tensor, pw: PackedWeights,
                 plan: GemvPlan | None) -> torch.Tensor:
         raise NotImplementedError
+
+    @staticmethod
+    def _execute_ref(x: torch.Tensor, pw: PackedWeights) -> torch.Tensor:
+        """The shared plain path: the f32 product for float weights, the
+        block-scale dequant oracles for int8 / packed int4."""
+        from repro_torch.kernels import ref
+
+        if pw.bits == 16:
+            return ref.gemv_ref(pw.w_t, x)
+        if pw.bits == 8:
+            return ref.quant_gemv_ref(pw.w_t, pw.scales, x, pw.block)
+        return ref.quant4_gemv_ref(pw.w_t, pw.scales, x, pw.block)
 
     # -- fused programs -------------------------------------------------------
 
@@ -180,6 +206,7 @@ class GemvBackend:
         if not policy.fuse_programs or "fused" not in self.program_modes:
             return ProgramPlan(mode="per_request", n_launches=key.n_requests)
         kernel, plan = self.select_kernel(sum(key.Ms), key.K, key.batch,
+                                          bits=key.bits, block=key.block,
                                           x_bytes=dtype_bytes(key.dtype),
                                           policy=policy)
         return ProgramPlan(mode="fused", n_launches=1, kernel=kernel,

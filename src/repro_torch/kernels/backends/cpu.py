@@ -2,7 +2,9 @@
 
 * ``ref`` — the f32-accumulating product on the K-major weight;
 * ``splitk`` — K cut into ``degree`` chunks, f32 partials summed in order
-  (the paper's split-K reduce in plain form).
+  (the paper's split-K reduce in plain form);
+* ``quant`` / ``quant4`` — the block-scale dequant oracles: every quantized
+  weight takes them, whatever the batch or a kernel pin says.
 
 The cost constants are the JAX CPU backend's seeds (a DDR-class host).
 """
@@ -37,21 +39,21 @@ def plan_cpu_splitk(M: int, K: int) -> GemvPlan | None:
 
 class CpuBackend(GemvBackend):
     name = "cpu"
-    kernels = ("ref", "splitk")
+    kernels = ("ref", "splitk", "quant", "quant4")
     program_modes = ("fused",)
 
     @property
     def cost_model(self) -> CostModel:
         return COST_MODEL
 
-    def estimate_cost_us(self, kernel, M, K, batch, *, x_bytes=2,
+    def estimate_cost_us(self, kernel, M, K, batch, *, bits=16, x_bytes=2,
                          plan=None) -> float:
         if kernel != "splitk" or plan is None:
-            return super().estimate_cost_us(kernel, M, K, batch,
+            return super().estimate_cost_us(kernel, M, K, batch, bits=bits,
                                             x_bytes=x_bytes)
         cm = self.cost_model
         deg = plan.split_k
-        io = self.io_bytes(M, K, batch, x_bytes=x_bytes)
+        io = self.io_bytes(M, K, batch, bits=bits, x_bytes=x_bytes)
         occupancy = min(1.0, deg / cm.min_parallel_blocks)
         t = io / (cm.bandwidth_bps * occupancy) * 1e6
         t += cm.launch_us + cm.program_us * deg
@@ -59,10 +61,15 @@ class CpuBackend(GemvBackend):
             * 1e6
         return t
 
-    def select_kernel(self, M, K, batch, *, x_bytes=2,
+    def select_kernel(self, M, K, batch, *, bits=16, block=32, x_bytes=2,
                       policy: DispatchPolicy = DEFAULT_POLICY):
         if policy.kernel != "auto":
-            self._check_pin(policy.kernel)
+            self._check_pin(policy.kernel, bits)
+        if bits < 16:
+            # quantized weights keep the dequantizing contraction, pinned
+            # or not: there is no lower-traffic path on this backend
+            return ("quant" if bits == 8 else "quant4"), None
+        if policy.kernel != "auto":
             plan = plan_cpu_splitk(M, K)
             if policy.kernel == "splitk" and plan is not None:
                 return "splitk", plan
@@ -74,14 +81,15 @@ class CpuBackend(GemvBackend):
         if plan is not None:
             cands.append(("splitk", plan))
         return min(cands, key=lambda kp: self.estimate_cost_us(
-            kp[0], M, K, batch, x_bytes=x_bytes, plan=kp[1]))
+            kp[0], M, K, batch, bits=bits, x_bytes=x_bytes, plan=kp[1]))
 
     def execute(self, kernel: str, x: torch.Tensor, pw: PackedWeights,
                 plan: GemvPlan | None) -> torch.Tensor:
         if kernel == "splitk":
             return ref.splitk_gemv_ref(pw.w_t, x, plan.split_k)
-        if kernel == "ref":
-            return ref.gemv_ref(pw.w_t, x)
+        if kernel in ("ref", "quant", "quant4"):
+            # quant/quant4 here ARE the dequant oracles, picked by pw.bits
+            return self._execute_ref(x, pw)
         raise ValueError(f"unknown kernel {kernel!r}")
 
 

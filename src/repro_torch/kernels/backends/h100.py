@@ -6,10 +6,20 @@ The counterpart of ``repro/kernels/backends/tpu.py``'s kernel set:
 * ``ref`` — ``torch.matmul`` on the K-major weight (the JAX ``ref`` is
   XLA's dot, outside any Pallas kernel);
 * ``pim`` — ``kernels/pim_gemv.py`` (``csrc/pim_gemv.cu``);
-* ``splitk`` — ``kernels/splitk_gemv.py`` (``csrc/splitk_gemv.cu``).
+* ``splitk`` — ``kernels/splitk_gemv.py`` (``csrc/splitk_gemv.cu``);
+* ``quant`` / ``quant4`` — ``kernels/quant_gemv.py``
+  (``csrc/quant_gemv.cu``) for int8 / packed-int4 weights.
 
-Selection keeps the TPU backend's gates (kernel not applicable, batch above
-``batch_threshold``, weight under ``min_pallas_bytes`` -> ``ref``) and its
+As on the TPU backend, a quantized weight takes ``quant``/``quant4``
+whenever the kernel applies, whatever the batch threshold and
+``min_pallas_bytes`` say (``ref`` would stream the weight dequantized);
+the quantized paths are output-stationary only, and any kernel pin but
+``ref`` on quantized weights resolves to them.  The kernel holds 8 x rows
+and a larger batch runs in row chunks, so the pick does not depend on B.
+
+For float weights selection keeps the TPU backend's gates (kernel not
+applicable, batch above ``batch_threshold``, weight under
+``min_pallas_bytes`` -> ``ref``) and its
 cost form: bytes over HBM bandwidth scaled by grid occupancy, plus the
 launch and per-CTA terms, plus the split-K partial traffic.  The bandwidth
 is the H100 SXM data sheet's 3.35 TB/s; the occupancy target is the SM
@@ -32,11 +42,14 @@ from repro_torch.kernels.gemv_plan import (
     GemvPlan,
     kernel_applicable,
     plan_gemv,
+    plan_quant,
     plan_splitk,
+    quant_applicable,
     valid_splitk_degree,
 )
 from repro_torch.kernels.ops import PackedWeights
 from repro_torch.kernels.pim_gemv import pim_gemv
+from repro_torch.kernels.quant_gemv import quant4_gemv, quant_gemv
 from repro_torch.kernels.splitk_gemv import splitk_gemv
 
 H100_HBM_GBPS = 3350.0     # H100 SXM data sheet
@@ -54,7 +67,7 @@ def sm_count() -> int:
 
 class H100Backend(GemvBackend):
     name = "h100"
-    kernels = ("ref", "pim", "splitk")
+    kernels = ("ref", "pim", "splitk", "quant", "quant4")
     # a fused program runs ONE kernel over the concatenated [K, sum(Ms)]
     # weight: one launch and one read of x for the whole head group
     program_modes = ("fused",)
@@ -77,13 +90,13 @@ class H100Backend(GemvBackend):
 
     # -- cost model ---------------------------------------------------------
 
-    def estimate_cost_us(self, kernel, M, K, batch, *, x_bytes=2,
+    def estimate_cost_us(self, kernel, M, K, batch, *, bits=16, x_bytes=2,
                          plan: GemvPlan | None = None) -> float:
         if kernel == "ref":
-            return super().estimate_cost_us(kernel, M, K, batch,
+            return super().estimate_cost_us(kernel, M, K, batch, bits=bits,
                                             x_bytes=x_bytes)
         cm = self.cost_model
-        io = self.io_bytes(M, K, batch, x_bytes=x_bytes)
+        io = self.io_bytes(M, K, batch, bits=bits, x_bytes=x_bytes)
         ctas = plan.split_k * plan.n_m
         occupancy = min(1.0, ctas / cm.min_parallel_blocks)
         t = io / (cm.bandwidth_bps * occupancy) * 1e6
@@ -96,6 +109,16 @@ class H100Backend(GemvBackend):
 
     # -- planning / selection ---------------------------------------------------
 
+    def quant_plan(self, M, K, batch, bits, block) -> GemvPlan:
+        """The quant kernels' plan, its column block narrowed to fill the
+        card's SMs (the quant path has no split-K).  Off the card the plan
+        only feeds the plain versions' checks, so the target is 1 there
+        unless the backend was given one."""
+        target = self._sms or (sm_count() if torch.cuda.is_available()
+                               else 1)
+        return plan_quant(M, K, batch, bits=bits, block=block,
+                          min_blocks=target)
+
     def candidate_plans(self, M, K, batch, x_bytes=2):
         cands: list[tuple[str, GemvPlan | None]] = [("ref", None)]
         if not kernel_applicable(M, K, batch, x_bytes):
@@ -107,10 +130,13 @@ class H100Backend(GemvBackend):
                                                 elem_bytes=x_bytes)))
         return cands
 
-    def select_kernel(self, M, K, batch, *, x_bytes=2,
+    def select_kernel(self, M, K, batch, *, bits=16, block=32, x_bytes=2,
                       policy: DispatchPolicy = DEFAULT_POLICY):
         if policy.kernel != "auto":
-            return self._pinned(M, K, batch, x_bytes, policy.kernel)
+            return self._pinned(M, K, batch, bits, block, x_bytes,
+                                policy.kernel)
+        if bits < 16:
+            return self._quant_pick(M, K, batch, bits, block)
         if not kernel_applicable(M, K, batch, x_bytes):
             return "ref", None
         if (batch > policy.batch_threshold
@@ -120,9 +146,22 @@ class H100Backend(GemvBackend):
                    key=lambda kp: self.estimate_cost_us(
                        kp[0], M, K, batch, x_bytes=x_bytes, plan=kp[1]))
 
-    def _pinned(self, M, K, batch, x_bytes, name):
-        self._check_pin(name)
-        if name == "ref" or not kernel_applicable(M, K, batch, x_bytes):
+    def _quant_pick(self, M, K, batch, bits, block):
+        if not quant_applicable(M, K, bits=bits, block=block):
+            return "ref", None
+        return ("quant" if bits == 8 else "quant4",
+                self.quant_plan(M, K, batch, bits, block))
+
+    def _pinned(self, M, K, batch, bits, block, x_bytes, name):
+        """A pin cannot override the weight's storage: quantized weights
+        need a dequantizing kernel, and ``quant`` on float weights has no
+        scales (``_check_pin`` refuses it)."""
+        self._check_pin(name, bits)
+        if name == "ref":
+            return "ref", None
+        if bits < 16:
+            return self._quant_pick(M, K, batch, bits, block)
+        if not kernel_applicable(M, K, batch, x_bytes):
             return "ref", None
         if name == "splitk":
             deg = valid_splitk_degree(K)
@@ -137,7 +176,15 @@ class H100Backend(GemvBackend):
     def execute(self, kernel: str, x: torch.Tensor, pw: PackedWeights,
                 plan: GemvPlan | None) -> torch.Tensor:
         if kernel == "ref":
+            if pw.bits < 16:
+                return self._execute_ref(x, pw)
             return torch.matmul(x, pw.w_t)
+        if kernel == "quant":
+            return quant_gemv(x, pw.w_t, pw.scales, block=pw.block,
+                              plan=plan)
+        if kernel == "quant4":
+            return quant4_gemv(x, pw.w_t, pw.scales, block=pw.block,
+                               plan=plan)
         if kernel == "pim":
             return pim_gemv(x, pw.w_t, plan=plan)
         if kernel == "splitk":

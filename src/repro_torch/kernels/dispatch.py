@@ -6,16 +6,18 @@ Every entry point
 1. resolves a backend: ``DispatchPolicy.backend`` when set, else the one
    serving the input's device (``cuda`` -> ``h100``, ``cpu`` -> ``cpu``);
 2. normalizes the weight into one :class:`PackedWeights` (K-major
-   ``w_t [K, M]``);
+   ``w_t [K, M]``, or int8 / packed-int4 codes with block scales);
 3. delegates selection and program planning to the backend; and
 4. memoizes the decision in a process-level, lock-guarded plan cache keyed
    on shape + dtype + backend + policy.
 
 Decisions are counted once per plan-cache miss, as in the JAX package:
 ``dispatch_stats()`` reports the kernel picks, program modes and the
-``gemv_path`` / ``matmul_fallback`` mix of every fresh (shape, policy).
+``gemv_path`` / ``matmul_fallback`` mix of every fresh (shape, policy),
+and (``program_kernels``) the kernel inside each fused program plan.
 Kernel *launches* are counted by the kernel wrappers themselves
-(``pim_gemv.launches``, ``splitk_gemv.launches``).
+(``pim_gemv.launches``, ``splitk_gemv.launches``, ``quant_gemv.launches``,
+``quant4_gemv.launches``).
 """
 
 from __future__ import annotations
@@ -46,9 +48,9 @@ from repro_torch.kernels.ops import (
 )
 
 __all__ = [
-    "DispatchPolicy", "DEFAULT_POLICY", "dispatch_gemv", "dispatch_dense",
-    "dispatch_program", "dispatch_fused", "dispatch_prepacked",
-    "dispatch_stats", "clear_plan_cache",
+    "DispatchPolicy", "DEFAULT_POLICY", "as_packed", "dispatch_gemv",
+    "dispatch_dense", "dispatch_program", "dispatch_fused",
+    "dispatch_prepacked", "dispatch_stats", "clear_plan_cache",
 ]
 
 _LOCK = threading.Lock()
@@ -63,6 +65,7 @@ def _fresh_counters() -> dict:
     return {
         "kernel_picks": {},     # "backend:kernel" -> decisions
         "program_modes": {},    # "backend:mode"   -> decisions
+        "program_kernels": {},  # "backend:kernel" -> fused program plans
         "gemv_path": 0,         # decisions with batch <= batch_threshold
         "matmul_fallback": 0,   # decisions the batch gate sent to ref
     }
@@ -90,17 +93,16 @@ def clear_plan_cache() -> None:
 
 
 def _count_decision(backend_name: str, batch: int, policy: DispatchPolicy,
-                    *, kernel: str | None = None,
-                    mode: str | None = None) -> None:
+                    *, kernel: str | None = None, mode: str | None = None,
+                    program_kernel: str | None = None) -> None:
     with _LOCK:
-        if kernel is not None:
-            picks = _DISPATCH_COUNTERS["kernel_picks"]
-            k = f"{backend_name}:{kernel}"
-            picks[k] = picks.get(k, 0) + 1
-        if mode is not None:
-            modes = _DISPATCH_COUNTERS["program_modes"]
-            m = f"{backend_name}:{mode}"
-            modes[m] = modes.get(m, 0) + 1
+        for section, name in (("kernel_picks", kernel),
+                              ("program_modes", mode),
+                              ("program_kernels", program_kernel)):
+            if name is not None:
+                counts = _DISPATCH_COUNTERS[section]
+                k = f"{backend_name}:{name}"
+                counts[k] = counts.get(k, 0) + 1
         if batch > policy.batch_threshold:
             _DISPATCH_COUNTERS["matmul_fallback"] += 1
         else:
@@ -119,7 +121,7 @@ def _resolve(backend, key: GemvKey,
     # selection is a pure function of (key, policy): two racers compute the
     # same answer, so no per-key lock is needed
     decision = backend.select_kernel(
-        key.M, key.K, key.batch,
+        key.M, key.K, key.batch, bits=key.bits, block=key.block,
         x_bytes=dtype_bytes(key.dtype),
         policy=policy)
     with _LOCK:
@@ -140,7 +142,8 @@ def _resolve_program(backend, key: ProgramKey,
     pplan = backend.plan_program(key, policy=policy)
     with _LOCK:
         _PROGRAM_CACHE[(key, policy)] = pplan
-    _count_decision(backend.name, key.batch, policy, mode=pplan.mode)
+    _count_decision(backend.name, key.batch, policy, mode=pplan.mode,
+                    program_kernel=pplan.kernel or None)
     return pplan
 
 
@@ -154,22 +157,49 @@ def _dispatch_request(req: GemvRequest,
     if req.x.shape[1] != K:
         raise ValueError(f"x {tuple(req.x.shape)} does not match weight "
                          f"(K, M) = {pw.shape}")
-    key = GemvKey(M=M, K=K, batch=B, dtype=str(req.x.dtype),
-                  backend=backend.name)
+    key = GemvKey(M=M, K=K, batch=B, bits=pw.bits, block=pw.block,
+                  dtype=str(req.x.dtype), backend=backend.name)
     kernel, plan = _resolve(backend, key, policy)
     return backend.execute(kernel, req.x.contiguous(), pw, plan)
+
+
+def as_packed(weights) -> PackedWeights:
+    """Normalize any accepted weight form to :class:`PackedWeights`.
+
+    Accepts a :class:`PackedWeights`, a dense ``[M, K]`` tensor (packed on
+    the fly), or a ``(w_q, scales)`` tuple of UNPACKED int8 ``[K, M]``
+    codes with ``[K // block, M]`` block scales.  Nibble-packed int4 is
+    ambiguous in tuple form (K halves, block doubles, and the decode would
+    be silently wrong), so it must come wrapped in PackedWeights.
+    """
+    if isinstance(weights, PackedWeights):
+        return weights
+    if isinstance(weights, tuple) and len(weights) == 2:
+        w_q, scales = weights
+        if w_q.dtype != torch.int8:
+            raise ValueError(f"(w_q, scales) tuples must hold unpacked int8 "
+                             f"weights, got {w_q.dtype}; wrap other forms "
+                             f"in PackedWeights")
+        K = w_q.shape[0]
+        if (scales.ndim != 2 or scales.shape[1] != w_q.shape[1]
+                or K % scales.shape[0]):
+            raise ValueError(f"scales {tuple(scales.shape)} do not tile int8 "
+                             f"weights {tuple(w_q.shape)} as [K // block, M]")
+        return PackedWeights(w_t=w_q, scales=scales, bits=8,
+                             block=K // scales.shape[0])
+    return pack_weight(weights)
 
 
 def dispatch_gemv(x: torch.Tensor, weights, *,
                   policy: DispatchPolicy | None = None) -> torch.Tensor:
     """Single-GEMV entry point: out[B, M] = x[B, K] @ W.T.
 
-    ``weights`` is a :class:`PackedWeights` or a dense ``[M, K]`` tensor
-    (transposed on every call: prepack once instead on a hot path).
+    ``weights`` is anything :func:`as_packed` takes: a
+    :class:`PackedWeights` (float or quantized), an int8 ``(w_q, scales)``
+    tuple, or a dense ``[M, K]`` tensor (transposed on every call: prepack
+    once instead on a hot path).
     """
-    pw = weights if isinstance(weights, PackedWeights) else \
-        pack_weight(weights)
-    return _dispatch_request(GemvRequest(x=x, weights=pw),
+    return _dispatch_request(GemvRequest(x=x, weights=as_packed(weights)),
                              policy or DEFAULT_POLICY)
 
 
@@ -223,8 +253,10 @@ def dispatch_prepacked(x: torch.Tensor, fused, m_splits, *,
                        policy: DispatchPolicy | None = None
                        ) -> list[torch.Tensor]:
     """Fused program over a PREPACKED ``[K, sum(Ms)]`` weight (the decode
-    hot path: the concat was paid once at deployment).  Returns the
-    per-member ``[B, M_i]`` outputs in order."""
+    hot path: the concat was paid once at deployment).  ``fused`` is a
+    K-major tensor or a :class:`PackedWeights` (quantized ones included:
+    each member takes its columns of the codes and of the scales).
+    Returns the per-member ``[B, M_i]`` outputs in order."""
     pw = fused if isinstance(fused, PackedWeights) else from_transposed(fused)
     splits = tuple(int(m) for m in m_splits)
     K, M = pw.shape
@@ -232,9 +264,8 @@ def dispatch_prepacked(x: torch.Tensor, fused, m_splits, *,
         raise ValueError(f"m_splits {splits} do not tile M={M}")
     reqs, off = [], 0
     for i, m in enumerate(splits):
-        reqs.append(GemvRequest(
-            x=x, weights=PackedWeights(w_t=pw.w_t[:, off:off + m]),
-            tag=f"m{i}"))
+        reqs.append(GemvRequest(x=x, weights=pw.columns(off, off + m),
+                                tag=f"m{i}"))
         off += m
     program = GemvProgram(kind="fused", x=x, weights=pw, m_splits=splits,
                           requests=tuple(reqs))

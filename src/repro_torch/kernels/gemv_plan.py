@@ -16,6 +16,13 @@ banks and the register budget holds.  On Hopper:
 ``MAX_M_BLK`` columns) that divides M, then the largest K chunk that divides
 the K walk and fits the shared-memory budget.  ``stages`` is the number of
 pipeline stages of the K stream; the kernels in this package have one.
+
+Quantized weights (``plan_quant``) reckon the vector in bytes of the STORED
+code: one 16-byte vector is 16 int8 columns, or 16 int4 columns times two
+K rows.  Their K chunk is a whole number of scale blocks, and their column
+block may narrow (down to 32 columns, one 32-byte sector per row) until
+the grid has ``min_blocks`` CTAs: the quant path has no split-K to fill
+the card with.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ MAX_K_BLK = 1024             # K rows of x staged per chunk at most
 X_SMEM_BUDGET = 32 * 1024    # bytes of shared memory for the f32 x chunk
 K_ALIGN = 8                  # K chunks and split-K parts are multiples of 8
 SPLITK_DEGREES = (8, 4, 2)
+QUANT_MIN_M_BLK = 32         # narrowest quant column block: one sector/row
 
 
 @dataclass(frozen=True)
@@ -98,3 +106,53 @@ def plan_splitk(M: int, K: int, batch: int = 1, *, degree: int,
     base = plan_gemv(M, K // degree, batch, elem_bytes=elem_bytes)
     return GemvPlan(m_blk=base.m_blk, k_blk=base.k_blk, n_m=base.n_m,
                     n_k=base.n_k, smem_bytes=base.smem_bytes, split_k=degree)
+
+
+# --------------------------------------------------------------------------
+# Quantized weights (csrc/quant_gemv.cu)
+# --------------------------------------------------------------------------
+
+
+def batch_rows(batch: int) -> int:
+    """x rows one quant launch holds: B rounded up to a power of two, at
+    most MAX_BATCH (the wrapper launches larger batches in row chunks)."""
+    return min(1 << max(min(batch, MAX_BATCH) - 1, 0).bit_length(),
+               MAX_BATCH)
+
+
+def quant_applicable(M: int, K: int, *, bits: int, block: int) -> bool:
+    """Whole 16-byte code vectors along M, and a K walk of whole scale
+    blocks (whole byte pairs of K rows for int4)."""
+    return (bits in (8, 4) and block > 0 and M % VEC_BYTES == 0
+            and K % block == 0 and (bits == 8 or block % 2 == 0))
+
+
+def _quant_smem(xb: int, k_blk: int) -> int:
+    # the x chunk [k_blk, xb] f32, reused after the K walk by the row-group
+    # reduce tile [THREADS * 16]; then the second reduce level [THREADS]
+    return 4 * (max(k_blk * xb, THREADS * VEC_BYTES) + THREADS)
+
+
+def plan_quant(M: int, K: int, batch: int = 1, *, bits: int = 8,
+               block: int = 32, min_blocks: int = 1) -> GemvPlan:
+    """Algorithm-1 sweep for the quant kernels: the tallest column block
+    (whole code vectors, a power-of-two number of threads) dividing M,
+    narrowed while the grid has fewer than ``min_blocks`` CTAs; then the
+    largest K chunk of whole scale blocks dividing K that fits the x
+    budget."""
+    if not quant_applicable(M, K, bits=bits, block=block):
+        raise ValueError(f"no quant plan for M={M} K={K} bits={bits} "
+                         f"block={block}")
+    m_blk = MAX_M_BLK
+    while m_blk > VEC_BYTES and (M % m_blk
+                                 or THREADS % (m_blk // VEC_BYTES)):
+        m_blk //= 2
+    while (M // m_blk < min_blocks and m_blk // 2 >= QUANT_MIN_M_BLK
+           and M % (m_blk // 2) == 0):
+        m_blk //= 2
+    xb = batch_rows(batch)
+    k_cap = min(MAX_K_BLK, X_SMEM_BUDGET // (4 * xb), K)
+    k_blk = next((k for k in range(k_cap - k_cap % block, 0, -block)
+                  if K % k == 0), block)
+    return GemvPlan(m_blk=m_blk, k_blk=k_blk, n_m=M // m_blk, n_k=K // k_blk,
+                    smem_bytes=_quant_smem(xb, k_blk))

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.kv_quant import dequantize_page, quantize_page
 
 BIG_NEG = -2.0e9
 
@@ -134,9 +135,9 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def write_kv(cache: torch.Tensor, new: torch.Tensor,
              pos: torch.Tensor) -> None:
-    """Write ``new`` [B, S, Hkv, D] into ``cache`` [B, C, Hkv, D] at each
-    slot's offset ``pos`` [B], IN PLACE (the port keeps one KV buffer
-    instead of returning a fresh cache per step).
+    """Write ``new`` [B, S, ...] into ``cache`` [B, C, ...] (K/V pages, or
+    their scales) at each slot's offset ``pos`` [B], IN PLACE (the port
+    keeps one KV buffer instead of returning a fresh cache per step).
 
     The start clamps to ``[0, C - S]`` exactly as the JAX package's
     ``dynamic_update_slice`` does, so a row whose offset ran past the end
@@ -155,14 +156,19 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor,
                     cache_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
                     cache_pos: torch.Tensor | None = None,
+                    cache_scales: tuple[torch.Tensor, torch.Tensor]
+                    | None = None,
                     gemv=None) -> torch.Tensor:
     """Self-attention with an optional per-slot KV cache.
 
     ``cache_kv`` is ``([B, C, Hkv, D], [B, C, Hkv, D])``; the new K/V are
     written in place at each slot's ``cache_pos`` and attention runs over
-    the cache.  With a ``gemv`` DispatchPolicy and a single-token input
-    the Q/K/V projections run as ONE fused GEMV program (the prepacked
-    ``wqkv`` when present).
+    the cache.  With ``cache_scales`` (``[B, C, Hkv]`` each) the store is
+    quantized: the fresh rope'd pages are encoded (``kv_quant``), codes
+    and scales are written at the same offsets, and the whole cache is
+    dequantized to ``x.dtype`` before ``attention_core``.  With a ``gemv``
+    DispatchPolicy and a single-token input the Q/K/V projections run as
+    ONE fused GEMV program (the prepacked ``wqkv`` when present).
     """
     B, S, d = x.shape
     hd = cfg.hd
@@ -195,9 +201,20 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if cache_kv is not None:
         ck, cv = cache_kv
         pos = cache_pos.expand(B) if cache_pos.ndim == 0 else cache_pos
-        write_kv(ck, k, pos)
-        write_kv(cv, v, pos)
-        out = attention_core(q, ck, cv, q_positions=positions,
+        if cache_scales is not None:
+            ks, vs = cache_scales
+            bits = 8 if ck.shape[-1] == hd else 4
+            for codes, scales, page in ((ck, ks, k), (cv, vs, v)):
+                q_new, s_new = quantize_page(page, bits)
+                write_kv(codes, q_new, pos)
+                write_kv(scales, s_new, pos)
+            kf = dequantize_page(ck, ks, hd=hd, out_dtype=x.dtype)
+            vf = dequantize_page(cv, vs, hd=hd, out_dtype=x.dtype)
+        else:
+            write_kv(ck, k, pos)
+            write_kv(cv, v, pos)
+            kf, vf = ck, cv
+        out = attention_core(q, kf, vf, q_positions=positions,
                              kv_valid_len=pos + S, causal=True)
     else:
         out = attention_core(q, k, v, q_positions=positions,

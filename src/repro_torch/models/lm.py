@@ -5,7 +5,8 @@ Parameters are a plain dict: ``embed [vocab, d]``, ``ln_f``, and
 ``layers``, a list with one dict per layer (the JAX package stacks them
 ``[L, ...]`` for ``lax.scan``; here the layer loop is a Python loop).  The
 cache keeps the JAX layout: ``k``/``v`` are ``[L, B, max_len, Hkv, hd]``
-and ``pos`` is a scalar or a ``[B]`` per-slot vector.
+and ``pos`` is a scalar or a ``[B]`` per-slot vector; a quantized KV store
+adds ``k_scale``/``v_scale`` ``[L, B, max_len, Hkv]``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.kv_quant import stored_head_dim, validate_kv_store
 from repro_torch.models import layers as L
 
 
@@ -68,19 +70,36 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
-               per_slot_pos: bool = False, device=None) -> dict:
+               per_slot_pos: bool = False, kv_store: str = "fp",
+               device=None) -> dict:
     """Decode state: ``pos`` (a scalar, or ``[batch]`` with
-    ``per_slot_pos``) and fp ``k``/``v`` leaves ``[L, batch, max_len, Hkv,
-    hd]`` (the only store this slice ports)."""
+    ``per_slot_pos``) and ``k``/``v`` leaves ``[L, batch, max_len, Hkv,
+    hd]``.
+
+    ``kv_store`` selects the KV storage (``repro_torch.kernels.kv_quant``):
+    ``"fp"`` keeps ``dtype`` leaves; ``"int8"`` / ``"int4"`` store int8
+    codes at ``stored_head_dim`` plus f32 ``k_scale``/``v_scale`` leaves
+    ``[L, batch, max_len, Hkv]`` (all ones: an all-zero page round-trips
+    exactly under scale 1.0).
+    """
+    validate_kv_store(kv_store)
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.param_dtype)
-    kv_shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {
-        "pos": torch.zeros((batch,) if per_slot_pos else (),
-                           dtype=torch.int32, device=device),
-        "k": torch.zeros(kv_shape, dtype=dtype, device=device),
-        "v": torch.zeros(kv_shape, dtype=dtype, device=device),
-    }
+    n, hkv = cfg.n_layers, cfg.n_kv_heads
+    cache = {"pos": torch.zeros((batch,) if per_slot_pos else (),
+                                dtype=torch.int32, device=device)}
+    if kv_store == "fp":
+        kv_shape = (n, batch, max_len, hkv, cfg.hd)
+        cache["k"] = torch.zeros(kv_shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(kv_shape, dtype=dtype, device=device)
+        return cache
+    kv_shape = (n, batch, max_len, hkv, stored_head_dim(kv_store, cfg.hd))
+    for name in ("k", "v"):
+        cache[name] = torch.zeros(kv_shape, dtype=torch.int8, device=device)
+    for name in ("k_scale", "v_scale"):
+        cache[name] = torch.ones((n, batch, max_len, hkv),
+                                 dtype=torch.float32, device=device)
+    return cache
 
 
 # --------------------------------------------------------------------------
@@ -129,8 +148,9 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Returns ``(logits [B, S, vocab], new_cache, aux_loss)``.
 
     With a cache, the new K/V are written into ``cache``'s ``k``/``v``
-    tensors IN PLACE and ``new_cache`` shares them (with ``pos`` advanced
-    by S).  ``gemv_policy`` routes single-token (decode) projections
+    tensors (and, for a quantized store, their codes and ``k_scale`` /
+    ``v_scale``) IN PLACE and ``new_cache`` shares them (with ``pos``
+    advanced by S).  ``gemv_policy`` routes single-token (decode) projections
     through the GEMV dispatcher: QKV and gate+up as fused programs, down
     and the LM head as single requests.  Prefill (S > 1) keeps the plain
     matmul path.
@@ -175,10 +195,13 @@ def _forward_flat(params, cfg, x, positions, cache, gemv=None):
         h = L.apply_norm(p["ln1"], x, cfg)
         cache_kv = (cache["k"][i], cache["v"][i]) if cache is not None \
             else None
+        cache_scales = ((cache["k_scale"][i], cache["v_scale"][i])
+                        if cache is not None and "k_scale" in cache
+                        else None)
         x = x + L.apply_attention(
             p["attn"], h, cfg, positions=positions, cache_kv=cache_kv,
             cache_pos=cache["pos"] if cache is not None else None,
-            gemv=gemv)
+            cache_scales=cache_scales, gemv=gemv)
         h = L.apply_norm(p["ln2"], x, cfg)
         x = x + L.apply_mlp(p["mlp"], h, cfg, gemv=gemv)
     return x

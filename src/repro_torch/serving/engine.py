@@ -15,6 +15,9 @@ Decode is where the GEMV kernels run: with the bucket at or under
 dispatcher -- QKV and gate+up as fused programs over weights prepacked at
 construction, down and the LM head as single requests.
 
+``kv_store="int8"`` / ``"int4"`` keeps the KV cache as quantized pages
+(``repro_torch.kernels.kv_quant``), prefill and decode alike.
+
 Not ported yet: chunked and async prefill, the prefix cache, preemption,
 sharded (mesh) serving and the tracer.
 """
@@ -30,6 +33,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.backends import DispatchPolicy
+from repro_torch.kernels.kv_quant import validate_kv_store
 from repro_torch.models import lm
 from repro_torch.serving.kv_cache import SlotKVCache
 from repro_torch.serving.metrics import ServingMetrics
@@ -90,8 +94,10 @@ class Engine:
                  scheduler: Scheduler | SchedulerConfig | str = "fcfs",
                  max_queue: int = 0,
                  metrics: ServingMetrics | None = None,
+                 kv_store: str = "fp",
                  device=None,
                  clock=time.monotonic):
+        self.kv_store = validate_kv_store(kv_store)
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -120,7 +126,8 @@ class Engine:
                 policy=scheduler, max_queue=max_queue,
                 gemv_batch_threshold=gemv_batch_threshold))
         self.metrics = metrics or ServingMetrics(clock=clock)
-        self.kv = SlotKVCache(cfg, batch_slots, max_len, device=self.device)
+        self.kv = SlotKVCache(cfg, batch_slots, max_len,
+                              kv_store=self.kv_store, device=self.device)
         self.active: dict[int, Request] = {}   # slot -> request
         self.expired: list[Request] = []
         # host copy: one small transfer per decode step instead of one
@@ -203,7 +210,7 @@ class Engine:
             tokens[i, :lengths[i]] = t
             lens[i] = lengths[i]
         sub = lm.init_cache(self.cfg, nb, self.max_len, per_slot_pos=True,
-                            device=self.device)
+                            kv_store=self.kv_store, device=self.device)
         logits, sub, _ = lm.forward(
             self.params, self.cfg,
             torch.from_numpy(tokens).to(self.device), cache=sub)

@@ -3,7 +3,9 @@
 
 The cache dict keeps the JAX layout: ``pos`` is a ``[B]`` int32 vector
 (one write offset / valid-kv length per slot) and every other leaf is
-``[L, B, ...]`` with batch on axis 1.
+``[L, B, ...]`` with batch on axis 1 -- with ``kv_store="int8"`` /
+``"int4"`` that includes the ``k_scale`` / ``v_scale`` leaves, which ride
+through every mutation below exactly like ``k`` / ``v``.
 
 * **alloc/free** -- slots are handed out lowest-first and returned to a
   sorted free list;
@@ -37,13 +39,15 @@ class SlotKVCache:
     """Decode state for ``batch_slots`` concurrent requests."""
 
     def __init__(self, cfg: ModelConfig, batch_slots: int, max_len: int,
-                 dtype=None, *, device):
+                 dtype=None, *, kv_store: str = "fp", device):
         self.cfg = cfg
         self.batch_slots = batch_slots
         self.max_len = max_len
+        self.kv_store = kv_store
         self.device = torch.device(device)
         self.cache = lm.init_cache(cfg, batch_slots, max_len, dtype,
-                                   per_slot_pos=True, device=self.device)
+                                   per_slot_pos=True, kv_store=kv_store,
+                                   device=self.device)
         self._free: list[int] = list(range(batch_slots))
         self._active: set[int] = set()
 

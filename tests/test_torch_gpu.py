@@ -118,3 +118,111 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
             eng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
         done[dev] = {r.rid: r.generated for r in eng.run_until_drained()}
     assert done["cuda"] == done["cpu"]
+
+
+# --------------------------------------------------------------------------
+# quantized weights and KV pages
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K", [(768, 256), (2048, 8192)])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_quant_kernels_match_plain(cuda, M, K, B, bits, dtype):
+    from repro_torch.kernels.gemv_plan import plan_quant
+    from repro_torch.kernels.ops import quantize_weight
+    from repro_torch.kernels.quant_gemv import (
+        quant4_gemv,
+        quant4_gemv_plain,
+        quant_gemv,
+        quant_gemv_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(M + K + B + bits)
+    w = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    x = torch.randn((B, K), generator=g, device=cuda).to(dtype)
+    pw = quantize_weight(w, bits=bits, block=32)
+    assert pw.w_t.device == w.device
+    fn, plain = ((quant_gemv, quant_gemv_plain) if bits == 8
+                 else (quant4_gemv, quant4_gemv_plain))
+    # the kernel and the plain version sum f32 products in other orders;
+    # bf16 output: one bf16 ulp (2^-7 relative)
+    tol = dict(rtol=2.0**-7, atol=1e-2) if dtype == torch.bfloat16 else \
+        dict(rtol=1e-4, atol=1e-3)
+    n0 = fn.launches
+    out = fn(x, pw.w_t, pw.scales, block=32,
+             plan=plan_quant(M, K, B, bits=bits, block=32, min_blocks=132))
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    torch.testing.assert_close(out.float(),
+                               plain(x, pw.w_t, pw.scales, 32).float(),
+                               **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_card_quantizers_are_byte_equal_to_the_cpu(cuda, bits):
+    """The CPU quantizers are byte-equal to the JAX package's
+    (test_torch_quant.py); on the card they must give the same bytes."""
+    from repro_torch.kernels.kv_quant import quantize_page
+    from repro_torch.kernels.ops import quantize_weight
+
+    g = torch.Generator().manual_seed(bits)
+    w = torch.randn((2048, 8192), generator=g).to(torch.bfloat16)
+    on_card = quantize_weight(w.to(cuda), bits=bits)
+    on_host = quantize_weight(w, bits=bits)
+    assert torch.equal(on_card.w_t.cpu(), on_host.w_t)
+    assert torch.equal(on_card.scales.cpu(), on_host.scales)
+    kv = torch.randn((4, 64, 16, 128), generator=g).to(torch.bfloat16)
+    for a, b in zip(quantize_page(kv.to(cuda), bits), quantize_page(kv, bits)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dispatched_quantized_program_matches_the_cpu_backend(cuda, bits):
+    """A fused QKV-like program over quantized members: the h100 backend's
+    quant kernel on the card against the cpu backend's dequant oracle."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.ops import pack_fused, quantize_weight
+    from repro_torch.kernels.quant_gemv import quant4_gemv, quant_gemv
+
+    g = torch.Generator().manual_seed(bits)
+    K, Ms = 512, (512, 256, 256)
+    members = [quantize_weight(torch.randn((m, K), generator=g), bits=bits)
+               for m in Ms]
+    fused, splits = pack_fused(members)
+    x = torch.randn((4, K), generator=g)
+    want = dispatch.dispatch_prepacked(x, fused, splits)
+    on_card = type(fused)(w_t=fused.w_t.to(cuda), scales=fused.scales.to(
+        cuda), bits=bits, block=32)
+    fn = quant_gemv if bits == 8 else quant4_gemv
+    n0 = fn.launches
+    got = dispatch.dispatch_prepacked(x.to(cuda), on_card, splits)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_int8_kv_engine_on_the_card_matches_the_cpu_engine(cuda):
+    import numpy as np
+
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg, cpu_params, gpu_params = _small(cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 9, 3, 12, 7)]
+    done = {}
+    for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+        eng = Engine(cfg, params, batch_slots=4, max_len=64, device=dev,
+                     kv_store="int8")
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+        done[dev] = {r.rid: r.generated for r in eng.run_until_drained()}
+        assert eng.kv.cache["k"].dtype == torch.int8
+    assert done["cuda"] == done["cpu"]

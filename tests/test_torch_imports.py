@@ -26,7 +26,8 @@ def _modules() -> list[str]:
 def test_every_module_imports_with_jax_and_repro_blocked():
     names = _modules()
     assert {"repro_torch.serving.engine", "repro_torch.kernels.dispatch",
-            "repro_torch.bridge"} <= set(names)
+            "repro_torch.bridge", "repro_torch.kernels.quant_gemv",
+            "repro_torch.kernels.kv_quant"} <= set(names)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

@@ -196,6 +196,8 @@ def test_h100_gates_and_pins():
                             policy=DispatchPolicy(kernel="splitk"))[0] \
         == "ref"                                               # no degree
     with pytest.raises(ValueError, match="unknown kernel"):
+        be.select_kernel(256, 256, 1, policy=DispatchPolicy(kernel="grouped"))
+    with pytest.raises(ValueError, match="requires int8/int4"):
         be.select_kernel(256, 256, 1, policy=DispatchPolicy(kernel="quant"))
     cm = be.cost_model
     assert cm.bandwidth_gbps == 3350.0 and cm.min_parallel_blocks == 132
