@@ -88,6 +88,8 @@ L2_BYTES = 50 * 2**20
 KERNEL_RTOL, KERNEL_ATOL = 2.0**-7, 1e-3
 BATCHES = (1, 4, 8)
 SEED = 0
+QUANT_BATCH = 8     # batch of the quantized dispatch pass
+QUANT_ROUNDS = 5    # timed passes of each weight form
 
 # olmo-1b's decode GEMVs (K, M) and how many run per decode step
 SHAPES = {
@@ -421,8 +423,7 @@ def log_profile(p: dict | None) -> None:
         log(f"    {t['ms_per_step']:8.3f} ms/step  {t['name']}")
 
 
-def run_engine(cfg, params, dev, kv_store: str = "fp",
-               profile: bool = True) -> dict:
+def run_engine(cfg, params, dev, kv_store: str = "fp") -> dict:
     # warm-up: first calls of every op and both decode buckets
     warm = serve(cfg, params, dev, [16, 40, 24, 8, 64, 32, 12, 20], 3, 1,
                  kv_store)
@@ -469,12 +470,10 @@ def run_engine(cfg, params, dev, kv_store: str = "fp",
         "launches_per_step": {k: v / steps for k, v in counts.items()},
         "dispatch": dispatch.dispatch_stats(),
     }
-    if profile:
-        # device-time breakdown over three decode steps at batch 8
-        prof_eng = serve(cfg, params, dev, lengths, 8, SEED + 1, kv_store)
-        prof_eng.step()                      # prefill + first decode step
-        res["profile"] = profile_decode(prof_eng,
-                                        doc["per_token_ms"]["p50"])
+    # device-time breakdown over three decode steps at batch 8
+    prof_eng = serve(cfg, params, dev, lengths, 8, SEED + 1, kv_store)
+    prof_eng.step()                          # prefill + first decode step
+    res["profile"] = profile_decode(prof_eng, doc["per_token_ms"]["p50"])
     return res
 
 
@@ -550,20 +549,19 @@ def gemv_pass(layers, head, xs, splits) -> list[torch.Tensor]:
     return outs
 
 
-def run_quant_dispatch(cfg, params, dev, batch: int = 8,
-                       rounds: int = 5) -> dict:
+def run_quant_dispatch(cfg, params, dev) -> dict:
     pp = lm.prepack_decode_params(params, cfg)
     hd, f = cfg.hd, cfg.d_ff
     splits = {"qkv": (cfg.n_heads * hd, cfg.n_kv_heads * hd,
                       cfg.n_kv_heads * hd), "gate_up": (f, f)}
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
-    xs = {name: torch.randn((batch, K), generator=gen, device=dev).to(
+    xs = {name: torch.randn((QUANT_BATCH, K), generator=gen, device=dev).to(
         torch.bfloat16) for name, (K, _, _) in SHAPES.items()}
     n_gemv = sum(n for _, _, n in SHAPES.values())
     weights = {bits: decode_weights(pp, bits) for bits in (16, 8, 4)}
     del pp
     torch.cuda.empty_cache()
-    res = {"batch": batch, "gemvs": n_gemv, "passes": {}}
+    res = {"batch": QUANT_BATCH, "gemvs": n_gemv, "passes": {}}
     for bits, kname in ((16, None), (8, "quant_gemv"), (4, "quant4_gemv")):
         layers, head = weights[bits]
         dispatch.clear_plan_cache()
@@ -575,7 +573,7 @@ def run_quant_dispatch(cfg, params, dev, batch: int = 8,
         moved = sum(pw.w_t.numel() * pw.w_t.element_size()
                     + (0 if pw.scales is None else pw.scales.numel() * 4)
                     for pw in [head] + [w[n] for w in layers for n in w])
-        moved += sum((batch * K + batch * M) * 2 * n
+        moved += sum(QUANT_BATCH * (K + M) * 2 * n
                      for K, M, n in SHAPES.values())
         entry = {"launches": counts, "kernel_picks": stats["kernel_picks"],
                  "program_kernels": stats["program_kernels"],
@@ -615,7 +613,7 @@ def run_quant_dispatch(cfg, params, dev, batch: int = 8,
         del outs
     # wall time of one pass, the three weight forms in turns
     walls = {f"w{bits}": [] for bits in weights}
-    for _ in range(rounds):
+    for _ in range(QUANT_ROUNDS):
         for bits, (layers, head) in weights.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -758,8 +756,8 @@ def main() -> int:
         f"{logits['argmax_agree']}/{logits['batch']})")
 
     n_gemv = sum(n for _, _, n in SHAPES.values())
-    log(f"[quant] every olmo-1b decode GEMV (x{n_gemv}) at batch 8 through "
-        f"the dispatcher, bf16 / int8 / int4 weights")
+    log(f"[quant] every olmo-1b decode GEMV (x{n_gemv}) at batch "
+        f"{QUANT_BATCH} through the dispatcher, bf16 / int8 / int4 weights")
     quant = run_quant_dispatch(cfg, params, dev)
 
     kv = {}

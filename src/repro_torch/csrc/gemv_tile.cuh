@@ -2,6 +2,9 @@
 //
 //   out[B, M] = x[B, K] @ w_t[K, M]      (w_t K-major, B <= kMaxB)
 //
+// w_t's rows lie ld elements apart (ld >= M, ld * sizeof(T) a multiple of 16
+// bytes), so a column slice of a wider prepacked weight runs without a copy.
+//
 // One CTA owns one column block of m_blk columns.  Its threads split into
 // `tcols = m_blk / V` column lanes, each owning V neighbouring columns (one
 // 16-byte vector per K row), and `groups = kThreads / tcols` row groups that
@@ -49,8 +52,8 @@ inline size_t smem_bytes(int B, int k_blk) {
 template <typename T, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 gemv_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 OutT* __restrict__ out, int B, int K, int M, int k_part,
-                 int m_blk, int k_blk) {
+                 OutT* __restrict__ out, int B, int K, int M, int ld,
+                 int k_part, int m_blk, int k_blk) {
   constexpr int V = Vec<T>::n;
   extern __shared__ float smem[];
   float* xs = smem;                 // [B, k_blk]
@@ -85,7 +88,7 @@ gemv_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
         const int r = kk + u * groups;
         if (r < k_blk)
           raw[u] = *reinterpret_cast<const uint4*>(
-              w + static_cast<size_t>(k0 + r) * M + col0);
+              w + static_cast<size_t>(k0 + r) * ld + col0);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -127,13 +130,15 @@ gemv_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 template <typename T, typename OutT>
 inline int launch_tile(const void* x, const void* w, void* out, int B, int K,
-                       int M, int parts, int m_blk, int k_blk,
+                       int M, int ld, int parts, int m_blk, int k_blk,
                        cudaStream_t stream) {
+  if (ld < M || (ld * sizeof(T)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(M / m_blk, parts);
   gemv_tile_kernel<T, OutT><<<grid, kThreads, smem_bytes<T>(B, k_blk),
                               stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<OutT*>(out), B, K, M, K / parts, m_blk, k_blk);
+      static_cast<OutT*>(out), B, K, M, ld, K / parts, m_blk, k_blk);
   return static_cast<int>(cudaGetLastError());
 }
 

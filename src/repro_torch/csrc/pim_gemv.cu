@@ -17,16 +17,20 @@
 // cudaGetLastError() after the launch.
 #include "gemv_tile.cuh"
 
+// (x, w_t, out, B, K, M, ld, m_blk, k_blk, stream); ld is w_t's row stride
+// in elements.
 extern "C" int pim_gemv_bf16(const void* x, const void* w_t, void* out, int B,
-                             int K, int M, int m_blk, int k_blk,
+                             int K, int M, int ld, int m_blk, int k_blk,
                              void* stream) {
   return gemv::launch_tile<__nv_bfloat16, __nv_bfloat16>(
-      x, w_t, out, B, K, M, 1, m_blk, k_blk,
+      x, w_t, out, B, K, M, ld, 1, m_blk, k_blk,
       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pim_gemv_f32(const void* x, const void* w_t, void* out, int B,
-                            int K, int M, int m_blk, int k_blk, void* stream) {
-  return gemv::launch_tile<float, float>(x, w_t, out, B, K, M, 1, m_blk, k_blk,
+                            int K, int M, int ld, int m_blk, int k_blk,
+                            void* stream) {
+  return gemv::launch_tile<float, float>(x, w_t, out, B, K, M, ld, 1, m_blk,
+                                         k_blk,
                                          static_cast<cudaStream_t>(stream));
 }

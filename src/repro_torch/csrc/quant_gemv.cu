@@ -9,7 +9,10 @@
 // K row 2i in the low nibble, K row 2i + 1 in the high nibble, both
 // sign-extended); s holds one f32 scale per (K block, column).  Each weight
 // element is dequantized as q * s in f32 and then multiplied with x, as the
-// TPU kernels do; out is written in x's type.
+// TPU kernels do; out is written in x's type.  The rows of q lie ldw bytes
+// apart and those of s lds floats apart (ldw >= M, ldw a multiple of 16,
+// lds of 4), so a column slice of a wider prepacked weight runs without a
+// copy.
 //
 // Bound on this card: every code byte, the scales (a quarter of the int8
 // code bytes at block 32), x and out each cross HBM once, at 3.35 TB/s.
@@ -77,7 +80,8 @@ template <typename T, int XB, bool kInt4>
 __global__ void __launch_bounds__(kThreads)
 quant_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                   const float* __restrict__ scales, T* __restrict__ out,
-                  int B, int K, int M, int block, int m_blk, int k_blk) {
+                  int B, int K, int M, int ldw, int lds, int block, int m_blk,
+                  int k_blk) {
   constexpr int kRows = kInt4 ? 2 : 1;  // K rows per stored row
   extern __shared__ float smem[];
   float* xs = smem;  // [k_blk, XB]; the reduce tile after the K walk
@@ -115,7 +119,7 @@ quant_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
       const int sb = (k0 + r0 * kRows) / block;
       float s[kVec];
       const float4* sp = reinterpret_cast<const float4*>(
-          scales + static_cast<size_t>(sb) * M + col0);
+          scales + static_cast<size_t>(sb) * lds + col0);
 #pragma unroll
       for (int q = 0; q < kVec / 4; ++q) {
         const float4 v = sp[q];
@@ -130,7 +134,7 @@ quant_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
         for (int u = 0; u < kUnroll; ++u) {
           if (r + u < slab)
             raw[u] = *reinterpret_cast<const uint4*>(
-                w + static_cast<size_t>(row0 + r0 + r + u) * M + col0);
+                w + static_cast<size_t>(row0 + r0 + r + u) * ldw + col0);
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
@@ -200,10 +204,11 @@ quant_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
 
 template <typename T, bool kInt4>
 int launch(const void* x, const void* w, const void* scales, void* out, int B,
-           int K, int M, int block, int m_blk, int k_blk,
+           int K, int M, int ldw, int lds, int block, int m_blk, int k_blk,
            cudaStream_t stream) {
   const int rows = kInt4 ? 2 : 1;
   if (B < 1 || B > kMaxB || block <= 0 || K % block || block % rows ||
+      ldw < M || ldw % kVec || lds < M || lds % 4 ||
       m_blk < kVec || m_blk % kVec || kThreads % m_blk ||
       M % m_blk || k_blk <= 0 || K % k_blk || k_blk % block)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -217,57 +222,60 @@ int launch(const void* x, const void* w, const void* scales, void* out, int B,
   switch (xb) {
     case 1:
       quant_gemv_kernel<T, 1, kInt4><<<grid, kThreads, smem, stream>>>(
-          xp, wp, sp, op, B, K, M, block, m_blk, k_blk);
+          xp, wp, sp, op, B, K, M, ldw, lds, block, m_blk, k_blk);
       break;
     case 2:
       quant_gemv_kernel<T, 2, kInt4><<<grid, kThreads, smem, stream>>>(
-          xp, wp, sp, op, B, K, M, block, m_blk, k_blk);
+          xp, wp, sp, op, B, K, M, ldw, lds, block, m_blk, k_blk);
       break;
     case 4:
       quant_gemv_kernel<T, 4, kInt4><<<grid, kThreads, smem, stream>>>(
-          xp, wp, sp, op, B, K, M, block, m_blk, k_blk);
+          xp, wp, sp, op, B, K, M, ldw, lds, block, m_blk, k_blk);
       break;
     default:
       quant_gemv_kernel<T, 8, kInt4><<<grid, kThreads, smem, stream>>>(
-          xp, wp, sp, op, B, K, M, block, m_blk, k_blk);
+          xp, wp, sp, op, B, K, M, ldw, lds, block, m_blk, k_blk);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// (x, codes, scales, out, B, K, M, block, m_blk, k_blk, stream); K is the
-// logical K (twice the packed rows for int4).
+// (x, codes, scales, out, B, K, M, ldw, lds, block, m_blk, k_blk, stream):
+// K is the logical K (twice the packed rows for int4); ldw and lds are the
+// row strides of the codes and the scales, in elements.
 extern "C" int quant_gemv_bf16(const void* x, const void* w_q,
                                const void* scales, void* out, int B, int K,
-                               int M, int block, int m_blk, int k_blk,
-                               void* stream) {
-  return launch<__nv_bfloat16, false>(x, w_q, scales, out, B, K, M, block,
-                                      m_blk, k_blk,
+                               int M, int ldw, int lds, int block, int m_blk,
+                               int k_blk, void* stream) {
+  return launch<__nv_bfloat16, false>(x, w_q, scales, out, B, K, M, ldw, lds,
+                                      block, m_blk, k_blk,
                                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int quant_gemv_f32(const void* x, const void* w_q,
                               const void* scales, void* out, int B, int K,
-                              int M, int block, int m_blk, int k_blk,
-                              void* stream) {
-  return launch<float, false>(x, w_q, scales, out, B, K, M, block, m_blk,
-                              k_blk, static_cast<cudaStream_t>(stream));
+                              int M, int ldw, int lds, int block, int m_blk,
+                              int k_blk, void* stream) {
+  return launch<float, false>(x, w_q, scales, out, B, K, M, ldw, lds,
+                              block, m_blk, k_blk,
+                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int quant4_gemv_bf16(const void* x, const void* w_q,
                                 const void* scales, void* out, int B, int K,
-                                int M, int block, int m_blk, int k_blk,
-                                void* stream) {
-  return launch<__nv_bfloat16, true>(x, w_q, scales, out, B, K, M, block,
-                                     m_blk, k_blk,
+                                int M, int ldw, int lds, int block, int m_blk,
+                                int k_blk, void* stream) {
+  return launch<__nv_bfloat16, true>(x, w_q, scales, out, B, K, M, ldw, lds,
+                                     block, m_blk, k_blk,
                                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int quant4_gemv_f32(const void* x, const void* w_q,
                                const void* scales, void* out, int B, int K,
-                               int M, int block, int m_blk, int k_blk,
-                               void* stream) {
-  return launch<float, true>(x, w_q, scales, out, B, K, M, block, m_blk,
-                             k_blk, static_cast<cudaStream_t>(stream));
+                               int M, int ldw, int lds, int block, int m_blk,
+                               int k_blk, void* stream) {
+  return launch<float, true>(x, w_q, scales, out, B, K, M, ldw, lds,
+                             block, m_blk, k_blk,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -31,9 +31,10 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ partials,
 
 template <typename T>
 int splitk(const void* x, const void* w_t, void* partials, void* out, int B,
-           int K, int M, int deg, int m_blk, int k_blk, cudaStream_t stream) {
-  int rc = gemv::launch_tile<T, float>(x, w_t, partials, B, K, M, deg, m_blk,
-                                       k_blk, stream);
+           int K, int M, int ld, int deg, int m_blk, int k_blk,
+           cudaStream_t stream) {
+  int rc = gemv::launch_tile<T, float>(x, w_t, partials, B, K, M, ld, deg,
+                                       m_blk, k_blk, stream);
   if (rc != 0) return rc;
   const int n = B * M;
   const int threads = 256;
@@ -44,16 +45,18 @@ int splitk(const void* x, const void* w_t, void* partials, void* out, int B,
 
 }  // namespace
 
+// (x, w_t, partials, out, B, K, M, ld, deg, m_blk, k_blk, stream); ld is
+// w_t's row stride in elements.
 extern "C" int splitk_gemv_bf16(const void* x, const void* w_t, void* partials,
-                                void* out, int B, int K, int M, int deg,
-                                int m_blk, int k_blk, void* stream) {
-  return splitk<__nv_bfloat16>(x, w_t, partials, out, B, K, M, deg, m_blk,
+                                void* out, int B, int K, int M, int ld,
+                                int deg, int m_blk, int k_blk, void* stream) {
+  return splitk<__nv_bfloat16>(x, w_t, partials, out, B, K, M, ld, deg, m_blk,
                                k_blk, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int splitk_gemv_f32(const void* x, const void* w_t, void* partials,
-                               void* out, int B, int K, int M, int deg,
+                               void* out, int B, int K, int M, int ld, int deg,
                                int m_blk, int k_blk, void* stream) {
-  return splitk<float>(x, w_t, partials, out, B, K, M, deg, m_blk, k_blk,
+  return splitk<float>(x, w_t, partials, out, B, K, M, ld, deg, m_blk, k_blk,
                        static_cast<cudaStream_t>(stream));
 }

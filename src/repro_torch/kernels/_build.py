@@ -30,20 +30,21 @@ SOURCES = ("pim_gemv", "splitk_gemv", "quant_gemv")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: (x, w_t, out, B, K, M, m_blk, k_blk, stream), the split-K
-# form with the partials buffer and the degree, and the quant form
-# (x, codes, scales, out, B, K, M, block, m_blk, k_blk, stream).
+# C signatures: (x, w_t, out, B, K, M, ld, m_blk, k_blk, stream), the
+# split-K form with the partials buffer and the degree, and the quant form
+# (x, codes, scales, out, B, K, M, ldw, lds, block, m_blk, k_blk, stream);
+# ld / ldw / lds are row strides in elements.
 _SIGNATURES = {
     "pim_gemv": {
-        f"pim_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _P)
+        f"pim_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
         for t in ("bf16", "f32")
     },
     "splitk_gemv": {
-        f"splitk_gemv_{t}": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+        f"splitk_gemv_{t}": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
         for t in ("bf16", "f32")
     },
     "quant_gemv": {
-        f"{k}_{t}": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+        f"{k}_{t}": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)
         for k in ("quant_gemv", "quant4_gemv") for t in ("bf16", "f32")
     },
 }

@@ -255,8 +255,10 @@ def dispatch_prepacked(x: torch.Tensor, fused, m_splits, *,
     """Fused program over a PREPACKED ``[K, sum(Ms)]`` weight (the decode
     hot path: the concat was paid once at deployment).  ``fused`` is a
     K-major tensor or a :class:`PackedWeights` (quantized ones included:
-    each member takes its columns of the codes and of the scales).
-    Returns the per-member ``[B, M_i]`` outputs in order."""
+    each member takes its columns of the codes and of the scales).  When
+    the program runs per request, each member's kernel reads its columns
+    in place, as a view with the fused weight's row stride.  Returns the
+    per-member ``[B, M_i]`` outputs in order."""
     pw = fused if isinstance(fused, PackedWeights) else from_transposed(fused)
     splits = tuple(int(m) for m in m_splits)
     K, M = pw.shape

@@ -30,13 +30,30 @@ from repro_torch.kernels.gemv_plan import (
 DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
-def check_inputs(x: torch.Tensor, w_t: torch.Tensor,
-                 plan: GemvPlan) -> tuple[int, int, int]:
-    """Validate what the kernels take; returns (B, K, M).
-
-    ``w_t`` must already be contiguous: copying it here would move a whole
-    weight (206 MB for olmo-1b's tied head) on every call.
+def row_stride(t: torch.Tensor, name: str) -> int:
+    """Row stride, in elements, of a ``[rows, M]`` operand the kernels
+    stream as 16-byte vectors.  Its columns must be contiguous and every
+    row must start on a 16-byte boundary; the rows may lie further apart
+    than M, so a column slice of a wider prepacked weight (a fused
+    program's member) runs without a copy.  Copying here instead would
+    move a whole weight (206 MB for olmo-1b's tied head) on every call.
     """
+    ld = t.stride(0) if t.shape[0] > 1 else t.shape[1]
+    if (t.shape[1] > 1 and t.stride(1) != 1) or ld < t.shape[1]:
+        raise ValueError(f"{name} {tuple(t.shape)} with strides "
+                         f"{t.stride()} is not row-major with contiguous "
+                         f"columns; prepack it once instead of copying it "
+                         f"per call")
+    if t.data_ptr() % 16 or ld * t.element_size() % 16:
+        raise ValueError(f"{name} rows must start on 16-byte boundaries "
+                         f"(the kernels read them as 16-byte vectors)")
+    return ld
+
+
+def check_inputs(x: torch.Tensor, w_t: torch.Tensor,
+                 plan: GemvPlan) -> tuple[int, int, int, int]:
+    """Validate what the kernels take; returns (B, K, M, ld), ``ld``
+    being ``w_t``'s row stride (:func:`row_stride`)."""
     if x.ndim != 2 or w_t.ndim != 2:
         raise ValueError(f"expected x [B, K] and w_t [K, M], got "
                          f"{tuple(x.shape)} and {tuple(w_t.shape)}")
@@ -50,14 +67,9 @@ def check_inputs(x: torch.Tensor, w_t: torch.Tensor,
                         f"and {w_t.dtype}")
     if x.device != w_t.device:
         raise ValueError(f"x on {x.device} but w_t on {w_t.device}")
-    if not w_t.is_contiguous():
-        raise ValueError("w_t must be contiguous K-major [K, M]; prepack "
-                         "it once instead of copying it per call")
+    ld = row_stride(w_t, "w_t")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    if w_t.data_ptr() % 16:
-        raise ValueError("w_t must start on a 16-byte boundary (the kernels "
-                         "read it as 16-byte vectors)")
     if not 1 <= B <= MAX_BATCH:
         raise ValueError(f"batch {B} outside 1..{MAX_BATCH}")
     vec = vec_elems(x.element_size())
@@ -70,7 +82,7 @@ def check_inputs(x: torch.Tensor, w_t: torch.Tensor,
     if 4 * B * plan.k_blk > X_SMEM_BUDGET:
         raise ValueError(f"plan {plan}: x chunk exceeds shared memory at "
                          f"B={B}")
-    return B, K, M
+    return B, K, M, ld
 
 
 def pim_gemv_plain(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
@@ -81,7 +93,7 @@ def pim_gemv_plain(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
 def pim_gemv(x: torch.Tensor, w_t: torch.Tensor, *,
              plan: GemvPlan) -> torch.Tensor:
     """x [B, K], w_t [K, M] -> [B, M] through the output-stationary kernel."""
-    B, K, M = check_inputs(x, w_t, plan)
+    B, K, M, ld = check_inputs(x, w_t, plan)
     if plan.split_k != 1:
         raise ValueError(f"pim_gemv takes a plan with split_k=1, got {plan}")
     if x.device.type == "cpu":
@@ -93,7 +105,7 @@ def pim_gemv(x: torch.Tensor, w_t: torch.Tensor, *,
     fn = getattr(lib, f"pim_gemv_{DTYPES[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(x.data_ptr(), w_t.data_ptr(), out.data_ptr(), B, K, M,
-                    plan.m_blk, plan.k_blk, stream), "pim_gemv")
+                    ld, plan.m_blk, plan.k_blk, stream), "pim_gemv")
     pim_gemv.launches += 1
     return out
 

@@ -37,16 +37,19 @@ from repro_torch.kernels.gemv_plan import (
     GemvPlan,
     batch_rows,
 )
-from repro_torch.kernels.pim_gemv import DTYPES
+from repro_torch.kernels.pim_gemv import DTYPES, row_stride
 
 
 def check_quant_inputs(x: torch.Tensor, w_q: torch.Tensor,
                        scales: torch.Tensor, block: int, bits: int,
-                       plan: GemvPlan) -> tuple[int, int, int]:
-    """Validate what the quant kernels take; returns (B, K, M).
+                       plan: GemvPlan) -> tuple[int, int, int, int, int]:
+    """Validate what the quant kernels take; returns (B, K, M, ldw, lds),
+    the row strides of the codes and the scales.
 
-    Nothing is copied: the codes and scales must already be contiguous and
-    start on a 16-byte boundary (the kernel reads them as 16-byte vectors).
+    Nothing is copied: the codes' and scales' rows must already be
+    contiguous and start on 16-byte boundaries (the kernel reads them as
+    16-byte vectors), as a column slice of a prepacked weight's are
+    (:func:`row_stride`).
     """
     if x.ndim != 2 or w_q.ndim != 2 or scales.ndim != 2:
         raise ValueError(f"expected x [B, K], codes [K', M] and scales "
@@ -71,12 +74,9 @@ def check_quant_inputs(x: torch.Tensor, w_q: torch.Tensor,
     if tuple(scales.shape) != (K // block, M):
         raise ValueError(f"scales {tuple(scales.shape)} are not "
                          f"[K / block, M] = {(K // block, M)}")
-    for name, t in (("codes", w_q), ("scales", scales), ("x", x)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous; prepack once "
-                             f"instead of copying per call")
-    if w_q.data_ptr() % 16 or scales.data_ptr() % 16:
-        raise ValueError("codes and scales must start on a 16-byte boundary")
+    ldw, lds = row_stride(w_q, "codes"), row_stride(scales, "scales")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
     if B < 1:
         raise ValueError("empty batch")
     if (plan.split_k != 1 or plan.m_blk % VEC_BYTES
@@ -88,7 +88,7 @@ def check_quant_inputs(x: torch.Tensor, w_q: torch.Tensor,
     if 4 * batch_rows(B) * plan.k_blk > X_SMEM_BUDGET:
         raise ValueError(f"plan {plan}: x chunk exceeds shared memory at "
                          f"B={B}")
-    return B, K, M
+    return B, K, M, ldw, lds
 
 
 def quant_gemv_plain(x: torch.Tensor, w_q: torch.Tensor,
@@ -104,7 +104,8 @@ def quant4_gemv_plain(x: torch.Tensor, w_packed: torch.Tensor,
     return ref.quant4_gemv_ref(w_packed, scales, x, block)
 
 
-def _launch(fn_name: str, counter, x, w_q, scales, block, plan, B, K, M):
+def _launch(fn_name: str, counter, x, w_q, scales, block, plan, B, K, M,
+            ldw, lds):
     lib = _build.load("quant_gemv")
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
     fn = getattr(lib, f"{fn_name}_{DTYPES[x.dtype]}")
@@ -112,8 +113,8 @@ def _launch(fn_name: str, counter, x, w_q, scales, block, plan, B, K, M):
     for b0 in range(0, B, MAX_BATCH):   # rows are contiguous: no copy
         nb = min(MAX_BATCH, B - b0)
         _build.check(fn(x[b0].data_ptr(), w_q.data_ptr(), scales.data_ptr(),
-                        out[b0].data_ptr(), nb, K, M, block, plan.m_blk,
-                        plan.k_blk, stream), fn_name)
+                        out[b0].data_ptr(), nb, K, M, ldw, lds, block,
+                        plan.m_blk, plan.k_blk, stream), fn_name)
         counter.launches += 1
     return out
 
@@ -121,13 +122,13 @@ def _launch(fn_name: str, counter, x, w_q, scales, block, plan, B, K, M):
 def quant_gemv(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor, *,
                block: int, plan: GemvPlan) -> torch.Tensor:
     """x [B, K], int8 codes [K, M], scales [K / block, M] -> [B, M]."""
-    B, K, M = check_quant_inputs(x, w_q, scales, block, 8, plan)
+    B, K, M, ldw, lds = check_quant_inputs(x, w_q, scales, block, 8, plan)
     if x.device.type == "cpu":
         return quant_gemv_plain(x, w_q, scales, block)
     if x.device.type != "cuda":
         raise ValueError(f"quant_gemv runs on cuda or cpu, not {x.device}")
     return _launch("quant_gemv", quant_gemv, x, w_q, scales, block, plan,
-                   B, K, M)
+                   B, K, M, ldw, lds)
 
 
 def quant4_gemv(x: torch.Tensor, w_packed: torch.Tensor,
@@ -135,13 +136,14 @@ def quant4_gemv(x: torch.Tensor, w_packed: torch.Tensor,
                 plan: GemvPlan) -> torch.Tensor:
     """x [B, K], packed int4 codes [K / 2, M], scales [K / block, M] ->
     [B, M]."""
-    B, K, M = check_quant_inputs(x, w_packed, scales, block, 4, plan)
+    B, K, M, ldw, lds = check_quant_inputs(x, w_packed, scales, block, 4,
+                                           plan)
     if x.device.type == "cpu":
         return quant4_gemv_plain(x, w_packed, scales, block)
     if x.device.type != "cuda":
         raise ValueError(f"quant4_gemv runs on cuda or cpu, not {x.device}")
     return _launch("quant4_gemv", quant4_gemv, x, w_packed, scales, block,
-                   plan, B, K, M)
+                   plan, B, K, M, ldw, lds)
 
 
 quant_gemv.launches = 0

@@ -44,7 +44,7 @@ def splitk_gemv_plain(x: torch.Tensor, w_t: torch.Tensor,
 def splitk_gemv(x: torch.Tensor, w_t: torch.Tensor, *,
                 plan: GemvPlan) -> torch.Tensor:
     """x [B, K], w_t [K, M] -> [B, M] through the split-K kernels."""
-    B, K, M = check_inputs(x, w_t, plan)
+    B, K, M, ld = check_inputs(x, w_t, plan)
     deg = plan.split_k
     if deg < 2:
         raise ValueError(f"splitk_gemv takes a plan with split_k >= 2, "
@@ -59,8 +59,8 @@ def splitk_gemv(x: torch.Tensor, w_t: torch.Tensor, *,
     fn = getattr(lib, f"splitk_gemv_{DTYPES[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(x.data_ptr(), w_t.data_ptr(), partials.data_ptr(),
-                    out.data_ptr(), B, K, M, deg, plan.m_blk, plan.k_blk,
-                    stream), "splitk_gemv")
+                    out.data_ptr(), B, K, M, ld, deg, plan.m_blk,
+                    plan.k_blk, stream), "splitk_gemv")
     splitk_gemv.launches += 1
     return out
 

@@ -117,8 +117,7 @@ def prepack_decode_params(params: dict, cfg: ModelConfig) -> dict:
     ``embed.T`` view rather than copy 206 MB per token).
 
     The originals stay, as in the JAX package: prefill and the unfused
-    decode path (``fuse_programs=False``) read them, and the kernels need
-    each weight they are given to be contiguous.  Returns a NEW dict;
+    decode path (``fuse_programs=False``) read them.  Returns a NEW dict;
     ``params``' own tensors are shared, not copied.
     """
     d = cfg.d_model

@@ -43,7 +43,6 @@ class SlotKVCache:
         self.cfg = cfg
         self.batch_slots = batch_slots
         self.max_len = max_len
-        self.kv_store = kv_store
         self.device = torch.device(device)
         self.cache = lm.init_cache(cfg, batch_slots, max_len, dtype,
                                    per_slot_pos=True, kv_store=kv_store,

@@ -126,7 +126,7 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,K", [(768, 256), (2048, 8192)])
+@pytest.mark.parametrize("M,K", [(768, 256), (2048, 8192), (2064, 2048)])
 @pytest.mark.parametrize("B", [1, 8])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -203,6 +203,50 @@ def test_dispatched_quantized_program_matches_the_cpu_backend(cuda, bits):
     got = dispatch.dispatch_prepacked(x.to(cuda), on_card, splits)
     torch.cuda.synchronize()
     assert fn.launches == n0 + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,kernel", [(16, "pim"), (16, "splitk"),
+                                         (8, "auto"), (4, "auto")])
+def test_per_request_programs_on_column_views_match_the_cpu_backend(
+        cuda, bits, kernel):
+    """Fusing off: each member of a prepacked program runs its own kernel
+    on a column view of the fused weight (row stride wider than its M),
+    with no copy, and agrees with the cpu backend's fused result.  The
+    float kernels are pinned: at these small shapes the cost model would
+    send the members to ``torch.matmul``."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.backends import DispatchPolicy
+    from repro_torch.kernels.ops import (
+        pack_fused,
+        pack_weight,
+        quantize_weight,
+    )
+    from repro_torch.kernels.quant_gemv import quant4_gemv, quant_gemv
+
+    g = torch.Generator().manual_seed(bits)
+    K, Ms = 512, (512, 256, 256)
+    ws = [torch.randn((m, K), generator=g) for m in Ms]
+    members = [quantize_weight(w, bits=bits) if bits < 16 else pack_weight(w)
+               for w in ws]
+    fused, splits = pack_fused(members)
+    x = torch.randn((4, K), generator=g)
+    want = dispatch.dispatch_prepacked(x, fused, splits)
+    on_card = type(fused)(
+        w_t=fused.w_t.to(cuda),
+        scales=None if bits == 16 else fused.scales.to(cuda),
+        bits=bits, block=32)
+    fn = {"pim": pim_gemv, "splitk": splitk_gemv}.get(
+        kernel, quant_gemv if bits == 8 else quant4_gemv)
+    n0 = fn.launches
+    got = dispatch.dispatch_prepacked(
+        x.to(cuda), on_card, splits,
+        policy=DispatchPolicy(kernel=kernel, min_pallas_bytes=0,
+                              fuse_programs=False))
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + len(Ms)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-3)
 

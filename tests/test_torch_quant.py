@@ -49,8 +49,10 @@ from repro_torch.kernels.gemv_plan import (
 from repro_torch.kernels.ops import (
     align_plan_to_block,
     pack_fused,
+    pack_weight,
     quantize_weight,
 )
+from repro_torch.kernels.pim_gemv import pim_gemv
 from repro_torch.kernels.quant_gemv import (
     quant4_gemv,
     quant4_gemv_plain,
@@ -280,6 +282,77 @@ def test_quantized_fused_and_prepacked_programs_match_jax(bits):
                                         f"h100:{kernel}": 1}
     assert stats["kernel_picks"] == {f"cpu:{kernel}": 2}   # 256- and 128-
     assert stats["program_modes"]["cpu:per_request"] == 1  # wide members
+
+
+@pytest.mark.parametrize("bits,kernel", [(16, "pim"), (16, "splitk"),
+                                         (8, "auto"), (4, "auto")])
+def test_per_request_programs_hand_the_kernels_column_views(bits, kernel):
+    """With fusing off, ``dispatch_prepacked`` gives each member a column
+    view of the prepacked weight (codes and scales).  The h100 backend's
+    wrappers take the row stride instead of refusing the view: the checks
+    are the ones a launch on the card passes first, and on CPU tensors
+    the plain versions then run on the same views."""
+    rng = np.random.default_rng(bits)
+    K, Ms, B = 256, (256, 128, 128), 3
+    ws = [torch.from_numpy(rng.standard_normal((m, K)).astype(np.float32))
+          for m in Ms]
+    x = torch.from_numpy(rng.standard_normal((B, K)).astype(np.float32))
+    members = [quantize_weight(w, bits=bits) if bits < 16
+               else pack_weight(w) for w in ws]
+    fused, splits = pack_fused(members)
+    expect = dispatch.dispatch_prepacked(x, fused, splits)   # cpu, fused
+    dispatch.clear_plan_cache()
+    got = dispatch.dispatch_prepacked(
+        x, fused, splits, policy=DispatchPolicy(
+            backend="h100", kernel=kernel, min_pallas_bytes=0,
+            fuse_programs=False))
+    for o, e in zip(got, expect):
+        np.testing.assert_allclose(o.numpy(), e.numpy(), **TOL["float32"])
+    stats = dispatch.dispatch_stats()
+    want = kernel if bits == 16 else ("quant" if bits == 8 else "quant4")
+    assert stats["kernel_picks"] == {f"h100:{want}": 2}   # 256-, 128-wide
+    assert stats["program_modes"] == {"h100:per_request": 1}
+    # a view whose rows do not start on 16-byte boundaries is refused
+    view = fused.columns(2, 130)
+    with pytest.raises(ValueError, match="16-byte"):
+        if bits == 16:
+            pim_gemv(x, view.w_t, plan=plan_gemv(128, K, B, elem_bytes=4))
+        else:
+            (quant_gemv if bits == 8 else quant4_gemv)(
+                x, view.w_t, view.scales, block=32,
+                plan=plan_quant(128, K, B, bits=bits, block=32))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_applies_at_m_multiples_of_16_where_the_tpu_gate_does_not(
+        bits):
+    """The one deliberate selection difference on quantized weights: the
+    CUDA quant kernels need M % 16 (one 16-byte code vector), the TPU
+    backend's Pallas gate M % 128.  At M % 128 != 0 the h100 backend
+    still picks the quant kernel and the TPU backend falls back to its
+    dequant oracle (same function); below M % 16 both fall back."""
+    be, tpu = H100Backend(min_parallel_blocks=132), jget_backend("tpu")
+    want = "quant" if bits == 8 else "quant4"
+    for M, K in ((2064, 2048), (1040, 4096), (48, 256)):
+        for B in (1, 8, 16):
+            kernel, plan = be.select_kernel(M, K, B, bits=bits, block=32)
+            assert kernel == want and plan.n_m * plan.m_blk == M
+            assert tpu.select_kernel(M, K, B, bits=bits, block=32)[0] == "ref"
+            assert be.select_kernel(M - 8, K, B, bits=bits, block=32)[0] == \
+                tpu.select_kernel(M - 8, K, B, bits=bits, block=32)[0] == "ref"
+    # and the port's quant path there computes the JAX package's function
+    w = _weight_with_edge_cases(48, 256, seed=bits)
+    x = np.random.default_rng(bits).standard_normal((5, 256)).astype(
+        np.float32)
+    jp = jops.quantize_weight(w, bits=bits, block=32)
+    expect = jdispatch.dispatch_gemv(
+        jnp.asarray(x), jp, policy=jdispatch.DispatchPolicy(backend="tpu"))
+    tp = packed_from_numpy(np.asarray(jp.w_t), np.asarray(jp.scales), bits,
+                           32, device="cpu")
+    got = dispatch.dispatch_gemv(torch.from_numpy(x), tp,
+                                 policy=DispatchPolicy(backend="h100"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(expect),
+                               **TOL["float32"])
 
 
 @pytest.mark.parametrize("bits", [8, 4])
