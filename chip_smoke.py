@@ -31,7 +31,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``"int4"``: every request completes, every logit is finite; reports
    latency, KV bytes per slot and the share of greedy tokens that agree
    with the fp run;
-8. the ``{"kernels": [...]}`` line, the card line, and the last line
+8. moe kernels -- olmo-1b's params are freed; ``ragged_gemv`` and
+   ``grouped_gemv`` at deepseek-moe-16b's expert shapes (gate/up K=2048
+   M=1408, down K=1408 M=2048, E=64) in bf16, each against its plain
+   version, then timed: ragged on four routings (8 tokens top-6, T=48; 1
+   token, T=6; 8 rows on one expert; counts short of T, tail rows), grouped
+   at C=8; the bound counts only the experts that have rows;
+9. moe engine -- deepseek-moe-16b at full width and depth (28 layers), bf16,
+   seed 0, ``Engine(batch_slots=8, max_len=1024)``, the same 8 requests:
+   fails unless ``ragged_gemv`` launched three times per layer on every
+   decode step and every ragged program took the native mode;
+10. moe logits -- one decode step of that engine state through the kernels
+   and through the portable plain path (``kernel="ref"``,
+   ``use_pallas=False``): the max |diff| of the logits and the argmax
+   agreement are reported; each layer's MoE block is held to its tolerance
+   on the inputs the kernel step gave it;
+11. moe grouped -- ``Engine(batch_slots=1, gemv_expert_shape="grouped")``
+   serves 2 of the requests, 16 tokens each: fails unless
+   ``grouped_gemv`` launched; greedy tokens are compared with the ragged
+   engine's;
+12. the ``{"kernels": [...]}`` line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 A fuller report goes to ``chiprun_out/chip_smoke.json``.  Nothing here
@@ -40,12 +59,16 @@ imports JAX or the JAX package.
 
 from __future__ import annotations
 
+import collections
+import gc
 import json
 import math
 import re
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -57,6 +80,14 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build, dispatch  # noqa: E402
 from repro_torch.kernels.backends import DispatchPolicy  # noqa: E402
+from repro_torch.kernels.grouped_gemv import (  # noqa: E402
+    counts_to_offsets,
+    grouped_gemv,
+    grouped_gemv_plain,
+    plan_expert_gemv,
+    ragged_gemv,
+    ragged_gemv_plain,
+)
 from repro_torch.kernels.gemv_plan import (  # noqa: E402
     plan_gemv,
     plan_quant,
@@ -76,6 +107,7 @@ from repro_torch.kernels.splitk_gemv import (  # noqa: E402
     splitk_gemv,
     splitk_gemv_plain,
 )
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 
@@ -116,10 +148,27 @@ KERNELS = {
         fn=quant4_gemv, plain=quant4_gemv_plain, bits=4,
         source="src/repro_torch/csrc/quant_gemv.cu",
         replaces="src/repro/kernels/quant_gemv.py:137"),
+    "grouped_gemv": dict(
+        fn=grouped_gemv, plain=grouped_gemv_plain,
+        source="src/repro_torch/csrc/grouped_gemv.cu",
+        replaces="src/repro/kernels/grouped_gemv.py:137"),
+    "ragged_gemv": dict(
+        fn=ragged_gemv, plain=ragged_gemv_plain,
+        source="src/repro_torch/csrc/grouped_gemv.cu",
+        replaces="src/repro/kernels/grouped_gemv.py:215"),
 }
 FLOAT_KERNELS = ("pim_gemv", "splitk_gemv")     # the bf16 engine's path
 QUANT_KERNELS = ("quant_gemv", "quant4_gemv")
 BLOCK = 32                                      # quant scale block
+MOE_KERNELS = ("grouped_gemv", "ragged_gemv")
+
+MOE_ARCH = "deepseek-moe-16b"
+MOE_E, MOE_TOPK = 64, 6
+# deepseek-moe-16b's expert GEMVs (K, M) and how many run per decode step
+# (gate and up in each of 28 layers, down in each)
+MOE_SHAPES = {"gate_up": (2048, 1408, 56), "down": (1408, 2048, 28)}
+MOE_C = 8          # grouped rows per expert at one decode slot (_capacity)
+MOE_GROUPED_TOKENS = 16
 
 
 def log(*a) -> None:
@@ -347,10 +396,14 @@ def prompts(vocab: int, lengths, seed: int) -> list[np.ndarray]:
     return [rng.integers(0, vocab, n).astype(np.int32) for n in lengths]
 
 
+ENGINE_LENGTHS = [32, 512, 96, 384, 128, 256, 48, 200]
+
+
 def serve(cfg, params, dev, lengths, new_tokens, seed,
-          kv_store: str = "fp") -> Engine:
-    eng = Engine(cfg, params, batch_slots=8, max_len=1024, device=dev,
-                 kv_store=kv_store)
+          kv_store: str = "fp", **engine_kw) -> Engine:
+    kw = dict(batch_slots=8, max_len=1024)
+    kw.update(engine_kw)
+    eng = Engine(cfg, params, device=dev, kv_store=kv_store, **kw)
     for i, p in enumerate(prompts(cfg.vocab, lengths, seed)):
         eng.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
     return eng
@@ -386,10 +439,10 @@ def profile_decode(eng, step_ms: float, steps: int = 3) -> dict | None:
         torch.cuda.synchronize()
     avgs = prof.key_averages()
     on_card = [e for e in avgs if str(e.device_type).endswith("CUDA")]
-    by_name = sorted(((e.key, e.self_device_time_total / 1e3) for e in on_card
-                      if e.self_device_time_total > 0),
+    by_name = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in on_card if e.self_device_time_total > 0),
                      key=lambda kv: -kv[1])
-    busy_ms = sum(ms for _, ms in by_name)
+    busy_ms = sum(ms for _, ms, _ in by_name)
     if busy_ms <= 0:
         return None
     per_step = busy_ms / steps
@@ -402,8 +455,9 @@ def profile_decode(eng, step_ms: float, steps: int = 3) -> dict | None:
             "device_idle_share": max(0.0, 1 - per_step / step_ms),
             "kernels_per_step": sum(e.count for e in on_card) / steps,
             "aten_ops_per_step": sum(e.count for e in aten) / steps,
-            "top": [{"name": n[:120], "ms_per_step": ms / steps}
-                    for n, ms in by_name[:20]],
+            "top": [{"name": n[:120], "ms_per_step": ms / steps,
+                     "calls_per_step": calls / steps}
+                    for n, ms, calls in by_name[:20]],
             "top_host": [{"name": e.key, "calls_per_step": e.count / steps,
                           "self_cpu_ms_per_step":
                               e.self_cpu_time_total / 1e3 / steps}
@@ -429,28 +483,45 @@ def run_engine(cfg, params, dev, kv_store: str = "fp") -> dict:
                  kv_store)
     warm.run_until_drained()
     del warm
+    # an engine whose sampler check_finite_logits wrapped sits in a
+    # reference cycle: collect it, or its state counts in the next peak
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
 
-    lengths = [32, 512, 96, 384, 128, 256, 48, 200]
+    lengths = ENGINE_LENGTHS
     eng = serve(cfg, params, dev, lengths, 64, SEED, kv_store)
     seen = check_finite_logits(eng)
+    dispatch.clear_plan_cache()
     reset_launches()
     t0 = time.perf_counter()
     done = eng.run_until_drained()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = launches()
+    stats = dispatch.dispatch_stats()
     if len(done) != len(lengths) or any(len(r.generated) != 64
                                         for r in done):
         raise AssertionError(
             f"expected {len(lengths)} requests x 64 tokens, got "
             f"{[(r.rid, len(r.generated)) for r in done]}")
-    if not all(counts[n] for n in FLOAT_KERNELS):
+    need = ("ragged_gemv",) if cfg.moe is not None else FLOAT_KERNELS
+    if not all(counts[n] for n in need):
         raise AssertionError(f"a kernel never launched on the main path: "
                              f"{counts}")
     doc = eng.metrics.to_dict(include_steps=False)
     steps = doc["counters"]["decode_steps"]
+    if cfg.moe is not None:
+        # every routed projection of every decode step: gate, up and down
+        # in each layer, each one ragged_gemv launch in the native mode
+        modes = stats["program_modes"]
+        if (counts["ragged_gemv"] != 3 * cfg.n_layers * steps
+                or "h100:ragged" in modes
+                or not modes.get("h100:ragged_cuda")):
+            raise AssertionError(
+                f"{steps} decode steps launched ragged_gemv "
+                f"{counts['ragged_gemv']} times (expected "
+                f"{3 * cfg.n_layers * steps}); program modes {modes}")
     kv_leaves = {n: t for n, t in eng.kv.cache.items() if n != "pos"}
     res = {
         "kv_store": kv_store,
@@ -468,7 +539,7 @@ def run_engine(cfg, params, dev, kv_store: str = "fp") -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
         "launches": counts,
         "launches_per_step": {k: v / steps for k, v in counts.items()},
-        "dispatch": dispatch.dispatch_stats(),
+        "dispatch": stats,
     }
     # device-time breakdown over three decode steps at batch 8
     prof_eng = serve(cfg, params, dev, lengths, 8, SEED + 1, kv_store)
@@ -650,27 +721,356 @@ def token_agreement(fp: dict, other: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 8-11: deepseek-moe-16b, the expert kernels and the MoE engine
+# ---------------------------------------------------------------------------
+
+
+def event_ms(fn, calls: int) -> float:
+    """Device time of one call of a function that cannot be captured in a
+    CUDA graph (it reads on the host): ``calls`` back-to-back calls between
+    CUDA events, after a warm call."""
+    fn(0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(calls):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def moe_routings() -> dict[str, tuple[int, np.ndarray]]:
+    """Row count T and per-expert counts [E] of the four ragged cases:
+    a seeded top-6 routing of 8 tokens (T=48) and of 1 token (T=6), one
+    where every token picks expert 0 (8 rows on it), and one whose counts
+    (6 tokens) sum to 36 < T=48, leaving 12 tail rows."""
+    rng = np.random.default_rng(SEED + 30)
+
+    def route(n_tok, force=None):
+        top = np.stack([rng.permutation(MOE_E)[:MOE_TOPK]
+                        for _ in range(n_tok)])
+        if force is not None:
+            for row in top:
+                if force not in row:
+                    row[-1] = force
+        return np.bincount(top.reshape(-1), minlength=MOE_E)
+
+    return {"top6_b8": (8 * MOE_TOPK, route(8)),
+            "top6_b1": (MOE_TOPK, route(1)),
+            "skewed": (8 * MOE_TOPK, route(8, force=0)),
+            "tail": (8 * MOE_TOPK, route(6))}
+
+
+def moe_bounds(K, M, active, rows, T, x_rows) -> dict:
+    """Bytes (weights of the experts with rows, x and out) and operations
+    (2 * routed rows * K * M) over the card's peaks."""
+    io = active * K * M * 2 + (x_rows * K + T * M) * 2
+    bytes_ms = io / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * rows * K * M / BF16_FLOPS * 1e3
+    return dict(bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def check_moe_kernels(dev) -> list[dict]:
+    """ragged_gemv on the four routings and grouped_gemv at C=8, at
+    deepseek-moe-16b's expert shapes in bf16: each against its plain
+    version, then timed with the stack rotated past the L2 (copies enough
+    that even the 6 experts of one token exceed it twice over)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    routings = moe_routings()
+    rows = []
+    for shape, (K, M, per_step) in MOE_SHAPES.items():
+        plan = plan_expert_gemv(M, K)
+        n_copies = max(2, math.ceil(2 * L2_BYTES / (MOE_TOPK * K * M * 2))
+                       + 1)
+        ws = [(torch.randn((MOE_E, K, M), generator=gen, device=dev)
+               / math.sqrt(K)).to(torch.bfloat16) for _ in range(n_copies)]
+        for name, (T, counts) in routings.items():
+            x = torch.randn((T, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            offsets = counts_to_offsets(torch.tensor(
+                counts, dtype=torch.int32, device=dev))
+            out = ragged_gemv(x, offsets, ws[0], plan=plan)
+            torch.cuda.synchronize()
+            ref = ragged_gemv_plain(x, offsets, ws[0])
+            err = check_close("ragged_gemv", f"{shape} {name}", out, ref)
+            if out[int(counts.sum()):].any():
+                raise AssertionError(f"ragged_gemv {shape} {name}: tail "
+                                     f"rows are not zero")
+            active = np.flatnonzero(counts)
+            # reference point: torch.bmm over the experts with rows, x
+            # padded to the largest count (the gathered stacks are built
+            # outside the timing)
+            xp = torch.zeros((len(active), int(counts.max()), K),
+                             dtype=torch.bfloat16, device=dev)
+            idx = torch.from_numpy(active).to(dev)
+            wa = [w[idx] for w in ws]
+
+            def run(i, x=x, offsets=offsets):
+                ragged_gemv(x, offsets, ws[i % n_copies], plan=plan)
+
+            def run_plain(i, x=x, offsets=offsets):
+                ragged_gemv_plain(x, offsets, ws[i % n_copies])
+
+            def run_bmm(i, xp=xp, wa=wa):
+                torch.bmm(xp, wa[i % n_copies])
+
+            row = dict(kernel="ragged_gemv", shape=shape, routing=name, T=T,
+                       K=K, M=M, per_step=per_step,
+                       experts_with_rows=len(active),
+                       rows=int(counts.sum()),
+                       plan=dict(m_blk=plan.m_blk, k_blk=plan.k_blk),
+                       max_abs_err=err, ms=graph_ms(run, 40),
+                       plain_ms=event_ms(run_plain, 5), library_ms=None,
+                       bmm_ref_ms=graph_ms(run_bmm, 40),
+                       **moe_bounds(K, M, len(active), int(counts.sum()), T,
+                                    T))
+            row["hbm_share"] = row["bound_ms"] / row["ms"]
+            rows.append(row)
+            del wa, xp
+            log(f"  ragged_gemv  {shape:8s} {name:8s} T={T:2d} experts "
+                f"{len(active):2d} err={err:.2e} ms={row['ms']:.4f} "
+                f"bound={row['bound_ms']:.4f} ({row['hbm_share']:.0%}) "
+                f"plain={row['plain_ms']:.4f} "
+                f"bmm ref={row['bmm_ref_ms']:.4f}")
+        xs = torch.randn((MOE_E, MOE_C, K), generator=gen, device=dev).to(
+            torch.bfloat16)
+        out = grouped_gemv(xs, ws[0], plan=plan)
+        torch.cuda.synchronize()
+        err = check_close("grouped_gemv", f"{shape} C={MOE_C}", out,
+                          grouped_gemv_plain(xs, ws[0]))
+
+        def run_g(i):
+            grouped_gemv(xs, ws[i % n_copies], plan=plan)
+
+        def run_g_plain(i):
+            grouped_gemv_plain(xs, ws[i % n_copies])
+
+        def run_g_lib(i):
+            torch.bmm(xs, ws[i % n_copies])
+
+        rows_g = MOE_E * MOE_C
+        row = dict(kernel="grouped_gemv", shape=shape, routing=f"C={MOE_C}",
+                   T=rows_g, K=K, M=M, per_step=per_step,
+                   experts_with_rows=MOE_E, rows=rows_g,
+                   plan=dict(m_blk=plan.m_blk, k_blk=plan.k_blk),
+                   max_abs_err=err, ms=graph_ms(run_g, 20),
+                   plain_ms=graph_ms(run_g_plain, 5),
+                   library_ms=graph_ms(run_g_lib, 20),
+                   **moe_bounds(K, M, MOE_E, rows_g, rows_g, rows_g))
+        row["hbm_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        log(f"  grouped_gemv {shape:8s} C={MOE_C} err={err:.2e} "
+            f"ms={row['ms']:.4f} bound={row['bound_ms']:.4f} "
+            f"({row['hbm_share']:.0%}) plain={row['plain_ms']:.4f} "
+            f"bmm={row['library_ms']:.4f}")
+        del ws, xs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bf16_ulp(absmax: float) -> float:
+    """One bf16 ulp at ``absmax`` (bf16 keeps 8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(absmax)) - 7)
+
+
+def moe_logits_check(cfg, params, dev) -> dict:
+    """One decode step of one engine state through the kernels and through
+    the portable plain path.  A 1-ulp difference in a GEMV can swap a
+    router's 6th and 7th expert where their probabilities nearly tie, and
+    the swapped token's logits then differ by far more than rounding, so
+    the whole-model difference is reported beside one bf16 ulp at the
+    largest logit but not held to it.  What is held: every layer's MoE
+    block on the input the kernel step gave it, where both paths route
+    alike, within 8 bf16 ulps at its largest output (gate, up and down
+    each round once in another f32 order, and six rounded terms are
+    combined)."""
+    eng = serve(cfg, params, dev, [300, 40, 130, 7, 512, 64, 250, 90], 4,
+                SEED + 2)
+    eng.step()                           # prefill + one decode step
+    b = eng.decode_bucket()
+    last = torch.from_numpy(eng.last_tok[:b]).to(dev)
+    ref_pol = DispatchPolicy(kernel="ref", use_pallas=False)
+    inputs, real = [], L.apply_moe
+
+    def spy(p, x, cfg, gemv=None):
+        inputs.append(x)
+        return real(p, x, cfg, gemv=gemv)
+
+    out = {}
+    syncs: collections.Counter = collections.Counter()
+
+    def record_sync(message, category, filename, lineno, file=None,
+                    line=None):
+        """Count a synchronizing CUDA call by the innermost line of this
+        repository's code that led to it."""
+        if "synchroniz" not in str(message).lower():
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if "repro_torch" in f.filename]
+        where = f"{Path(filename).name}:{lineno}"
+        if ours:
+            f = ours[-1]
+            where = (f"{Path(f.filename).parent.name}/"
+                     f"{Path(f.filename).name}:{f.lineno} "
+                     f"({(f.line or '').strip()}) -> {where}")
+        syncs[where] += 1
+
+    for tag, policy in (("kernels", eng.gemv_policy), ("ref", ref_pol)):
+        cache = {k: v.clone() for k, v in eng.kv.slice_prefix(b).items()}
+        torch.cuda.synchronize()
+        reset_launches()
+        L.apply_moe = spy if tag == "kernels" else real
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record_sync
+            if tag == "kernels":
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                logits, _, _ = lm.forward(eng.params, cfg, last,
+                                          cache=cache, gemv_policy=policy)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                L.apply_moe = real
+        torch.cuda.synchronize()
+        out[tag] = (logits[:, -1].float(), launches())
+    (lk, nk), (lr, nr) = out["kernels"], out["ref"]
+    if nk["ragged_gemv"] != 3 * cfg.n_layers or any(nr.values()):
+        raise AssertionError(f"launches: kernels {nk}, ref {nr}")
+    if not (torch.isfinite(lk).all() and torch.isfinite(lr).all()):
+        raise AssertionError("non-finite logits")
+    layers = []
+    for i, (p, x) in enumerate(zip(eng.params["layers"], inputs)):
+        yk, _ = L.apply_moe(p["moe"], x, cfg, gemv=eng.gemv_policy)
+        yr, _ = L.apply_moe(p["moe"], x, cfg, gemv=ref_pol)
+        diff = (yk.float() - yr.float()).abs().max().item()
+        tol = 8 * bf16_ulp(yr.float().abs().max().item())
+        layers.append({"layer": i, "max_abs_diff": diff, "tolerance": tol})
+        if diff > tol:
+            raise AssertionError(f"MoE layer {i}: kernels and ref differ "
+                                 f"by {diff} > {tol}")
+    # the step's bytes floor: every decode weight it reads once (the
+    # prepacked QKV and shared gate+up, wo, shared down, the f32 router,
+    # the head) and the expert stacks its routers picked
+    active = sum(int(torch.unique(L._router(p["moe"], x, cfg)[2]).numel())
+                 for p, x in zip(eng.params["layers"], inputs))
+    dense = sum(t.numel() * t.element_size()
+                for p in eng.params["layers"]
+                for t in (p["attn"]["wqkv"], p["attn"]["wo"],
+                          p["moe"]["router"], p["moe"]["shared"]["w_gateup"],
+                          p["moe"]["shared"]["w_down"]))
+    dense += eng.params["head_t"].numel() * eng.params["head_t"].element_size()
+    per_expert = 3 * cfg.d_model * cfg.moe.d_expert * 2
+    floor_bytes = dense + active * per_expert
+    absmax = lr.abs().max().item()
+    diff = (lk - lr).abs().max().item()
+    return {"batch": b, "max_abs_diff": diff,
+            "experts_with_rows": active,
+            "step_floor_gb": floor_bytes / 1e9,
+            "step_floor_ms": floor_bytes / HBM_BYTES_PER_S * 1e3,
+            "all_experts_floor_ms": (dense + cfg.n_layers * cfg.moe.n_experts
+                                     * per_expert) / HBM_BYTES_PER_S * 1e3,
+            "one_ulp_at_absmax": bf16_ulp(absmax),
+            "within_one_ulp": diff <= bf16_ulp(absmax),
+            "logit_absmax": absmax,
+            "rows_within_one_ulp": int(((lk - lr).abs().amax(-1)
+                                        <= bf16_ulp(absmax)).sum()),
+            "argmax_agree": int((lk.argmax(-1) == lr.argmax(-1)).sum()),
+            "layers": layers,
+            "layer_worst_share": max(r["max_abs_diff"] / r["tolerance"]
+                                     for r in layers),
+            "host_syncs_in_decode_forward": dict(syncs),
+            "launches": nk}
+
+
+def run_moe_grouped(cfg, params, dev, ragged_generated: dict) -> dict:
+    """Two of the engine's requests through one slot with grouped expert
+    programs (C=8 rows per expert, within the batch gate)."""
+    lengths = ENGINE_LENGTHS[:2]
+    eng = serve(cfg, params, dev, lengths, MOE_GROUPED_TOKENS, SEED,
+                batch_slots=1, gemv_expert_shape="grouped")
+    seen = check_finite_logits(eng)
+    dispatch.clear_plan_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = launches()
+    stats = dispatch.dispatch_stats()
+    if len(done) != 2 or any(len(r.generated) != MOE_GROUPED_TOKENS
+                             for r in done):
+        raise AssertionError(f"grouped engine finished "
+                             f"{[(r.rid, len(r.generated)) for r in done]}")
+    if not counts["grouped_gemv"]:
+        raise AssertionError(f"grouped_gemv never launched: {counts}")
+    doc = eng.metrics.to_dict(include_steps=False)
+    steps = doc["counters"]["decode_steps"]
+    gen = {r.rid: list(r.generated) for r in done}
+    agree = token_agreement(
+        gen, {rid: ragged_generated[rid][:MOE_GROUPED_TOKENS]
+              for rid in gen})
+    return {"requests": len(done), "wall_s": wall_s, "decode_steps": steps,
+            "logit_rows_checked": seen["rows"],
+            "per_token_ms": doc["per_token_ms"],
+            "launches": counts,
+            "launches_per_step": {k: v / steps for k, v in counts.items()},
+            "program_modes": stats["program_modes"],
+            "expert_load": stats["expert_load"],
+            "agreement_with_ragged": agree}
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(rows: list[dict], launch_counts: dict) -> dict:
-    """One entry per kernel.  Its top-level times are one olmo-1b decode
-    step at batch 8: the sum over the GEMVs at that batch (each shape
-    weighted by its calls per step) that the h100 backend -- as the TPU
-    backend -- sends to the kernel: for the float kernels the bf16 engine's
-    picks, for the quant kernels every GEMV of the quantized pass.
+    """One entry per kernel.  Its top-level times are one decode step: for
+    the olmo-1b kernels at batch 8, the sum over the GEMVs at that batch
+    (each shape weighted by its calls per step) that the h100 backend --
+    as the TPU backend -- sends to the kernel (for the float kernels the
+    bf16 engine's picks, for the quant kernels every GEMV of the quantized
+    pass); for ``ragged_gemv`` one deepseek-moe-16b step at batch 8 (the
+    top-6 routing of 8 tokens), for ``grouped_gemv`` one at batch 1 (C=8).
     ``launches`` is the count from the run of the kernel's own path."""
     picks = {"pim_gemv": ("gate_up", "head"), "splitk_gemv": ("qkv", "down"),
              "quant_gemv": tuple(SHAPES), "quant4_gemv": tuple(SHAPES)}
+
+    def in_step(name, r):
+        if name == "ragged_gemv":
+            return r["routing"] == "top6_b8"
+        if name == "grouped_gemv":
+            return True
+        return r["B"] == 8 and r["shape"] in picks[name]
+
     out = []
     for name, k in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
-        step = [r for r in mine if r["B"] == 8 and r["shape"] in picks[name]]
+        step = [r for r in mine if in_step(name, r)]
 
         def total(key):
             return sum(r[key] * r["per_step"] for r in step)
 
         bytes_ms, ops_ms = total("bytes_ms"), total("ops_ms")
-        quant = name in QUANT_KERNELS
+        quant, moe = name in QUANT_KERNELS, name in MOE_KERNELS
+        if moe:
+            basis = (f"one {MOE_ARCH} decode step at batch "
+                     f"{8 if name == 'ragged_gemv' else 1}: "
+                     + ", ".join(f"{s} x{n}" for s, (_, _, n)
+                                 in MOE_SHAPES.items()))
+            keys = ("shape", "routing", "T", "K", "M", "experts_with_rows",
+                    "ms", "plain_ms", "library_ms", "bound_ms",
+                    "max_abs_err") + (("bmm_ref_ms",)
+                                      if name == "ragged_gemv" else ())
+        else:
+            basis = ("one olmo-1b decode step at batch 8: "
+                     + ", ".join(f"{s} x{SHAPES[s][2]}"
+                                 for s in picks[name]))
+            keys = ("shape", "K", "M", "B", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "max_abs_err") + (
+                        ("bf16_matmul_ms", "plan") if quant else ())
         entry = {
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
@@ -680,20 +1080,22 @@ def kernels_line(rows: list[dict], launch_counts: dict) -> dict:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             # no single PyTorch call computes a block-scaled int8/int4 GEMV
-            "library_ms": None if quant else total("library_ms"),
-            "basis": "one olmo-1b decode step at batch 8: "
-                     + ", ".join(f"{s} x{SHAPES[s][2]}" for s in picks[name]),
-            "shapes": [{key: r[key] for key in (
-                "shape", "K", "M", "B", "ms", "plain_ms", "library_ms",
-                "bound_ms", "max_abs_err") + (
-                    ("bf16_matmul_ms", "plan") if quant else ())}
-                for r in mine],
+            # or a ragged expert GEMV
+            "library_ms": (None if quant or name == "ragged_gemv"
+                           else total("library_ms")),
+            "basis": basis,
+            "shapes": [{key: r[key] for key in keys} for r in mine],
         }
         if quant:
             entry["bf16_matmul_ms"] = total("bf16_matmul_ms")
             entry["bf16_matmul_note"] = (
                 "torch.matmul on the bf16 weight the codes came from: a "
                 "reference point, not the same function")
+        if name == "ragged_gemv":
+            entry["bmm_ref_ms"] = total("bmm_ref_ms")
+            entry["bmm_ref_note"] = (
+                "torch.bmm over the experts with rows, x padded to the "
+                "largest count: a reference point, not the same function")
         out.append(entry)
     return {"kernels": out}
 
@@ -776,18 +1178,74 @@ def main() -> int:
             f"agreeing with fp {e['agreement_with_fp']}")
         log_profile(e["profile"])
 
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[moe kernels] ragged_gemv and grouped_gemv at deepseek-moe-16b's "
+        "expert shapes, each against its plain version (rtol 2^-7, atol "
+        "1e-3), then timed")
+    rows += check_moe_kernels(dev)
+
+    mcfg = get_config(MOE_ARCH)
+    log(f"[moe engine] {mcfg.name}: {mcfg.n_layers} layers, d={mcfg.d_model}"
+        f", {mcfg.moe.n_experts} experts top-{mcfg.moe.top_k} + "
+        f"{mcfg.moe.n_shared} shared, bf16, seed {SEED}")
+    t0 = time.perf_counter()
+    mparams = lm.init_lm(mcfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"  init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
+    moe = run_engine(mcfg, mparams, dev)
+    pt, ttft = moe["per_token_ms"], moe["ttft_ms"]
+    log(f"  requests {moe['requests']}, tokens {moe['tokens']}, "
+        f"decode {moe['decode_tokens_per_s']:.1f} tok/s, per-token "
+        f"p50 {pt['p50']:.2f} ms p90 {pt['p90']:.2f} ms, TTFT p50 "
+        f"{ttft['p50']:.1f} ms, peak {moe['peak_mem_gb']:.2f} GB")
+    log(f"  launches {moe['launches']} "
+        f"(per decode step {moe['launches_per_step']})")
+    log(f"  program_modes {json.dumps(moe['dispatch']['program_modes'])}; "
+        f"expert_load {json.dumps(moe['dispatch']['expert_load'])}")
+    log_profile(moe["profile"])
+
+    moe_logits = moe_logits_check(mcfg, mparams, dev)
+    log(f"[moe logits] batch {moe_logits['batch']}: max |kernels - ref| "
+        f"{moe_logits['max_abs_diff']:.4f} (one bf16 ulp at |logit| max "
+        f"{moe_logits['logit_absmax']:.2f}: "
+        f"{moe_logits['one_ulp_at_absmax']}; rows within it "
+        f"{moe_logits['rows_within_one_ulp']}/{moe_logits['batch']}); "
+        f"argmax agree {moe_logits['argmax_agree']}/{moe_logits['batch']}; "
+        f"every MoE layer within 8 ulps (worst at "
+        f"{moe_logits['layer_worst_share']:.2f} of its tolerance); "
+        f"synchronizing calls in the decode forward "
+        f"{moe_logits['host_syncs_in_decode_forward']}; the step's "
+        f"routers picked {moe_logits['experts_with_rows']} expert stacks: "
+        f"bytes floor {moe_logits['step_floor_gb']:.3f} GB, "
+        f"{moe_logits['step_floor_ms']:.3f} ms (all experts: "
+        f"{moe_logits['all_experts_floor_ms']:.3f} ms)")
+
+    grouped = run_moe_grouped(mcfg, mparams, dev, moe["generated"])
+    log(f"[moe grouped] 1 slot, {grouped['requests']} requests x "
+        f"{MOE_GROUPED_TOKENS} tokens: per-token p50 "
+        f"{grouped['per_token_ms']['p50']:.2f} ms; launches per decode "
+        f"step {grouped['launches_per_step']}; program_modes "
+        f"{json.dumps(grouped['program_modes'])}; greedy tokens agreeing "
+        f"with the ragged engine {grouped['agreement_with_ragged']}")
+
     launch_counts = {**{n: engine["launches"][n] for n in FLOAT_KERNELS},
                      "quant_gemv":
                          quant["passes"]["w8"]["launches"]["quant_gemv"],
                      "quant4_gemv":
-                         quant["passes"]["w4"]["launches"]["quant4_gemv"]}
+                         quant["passes"]["w4"]["launches"]["quant4_gemv"],
+                     "ragged_gemv": moe["launches"]["ragged_gemv"],
+                     "grouped_gemv": grouped["launches"]["grouped_gemv"]}
     line = kernels_line(rows, launch_counts)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=dict(name=name, count=count, nvidia_smi=card),
         build_s=build_s, kernel_rows=rows, engine=engine, logits=logits,
-        quant_dispatch=quant, kv=kv, kernels=line["kernels"],
+        quant_dispatch=quant, kv=kv, moe_engine=moe, moe_logits=moe_logits,
+        moe_grouped=grouped, kernels=line["kernels"],
         total_s=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))

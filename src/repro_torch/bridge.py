@@ -29,9 +29,11 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
-    """The JAX package's dense ``init_lm`` tree (numpy leaves) -> the
-    port's params on ``device``."""
-    if cfg.family != "dense":
+    """The JAX package's dense or MoE ``init_lm`` tree (numpy leaves) ->
+    the port's params on ``device``.  Every leaf keeps its layout: an MoE
+    layer's f32 ``router [d, E]``, its expert stacks ``w_gate``/``w_up
+    [E, d, f]`` and ``w_down [E, f, d]``, and its ``shared`` MLP."""
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(f"family {cfg.family!r} is not ported yet")
 
     def conv(node, i=None):

@@ -1,7 +1,7 @@
-"""Model configuration (the dense subset the port runs in this slice).
+"""Model configuration (the dense and MoE decoders the port runs).
 
 Counterpart of ``repro/configs/base.py``: the same field names and
-defaults for what a dense decoder needs, ``hd`` and ``reduced()``.
+defaults for what a dense or MoE decoder needs, ``hd`` and ``reduced()``.
 """
 
 from __future__ import annotations
@@ -11,9 +11,19 @@ from dataclasses import dataclass
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    n_shared: int = 0
+    d_expert: int = 0            # per-expert FFN width (= d_ff of the config)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense (the only family ported so far)
+    family: str                  # dense | moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -29,6 +39,7 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     max_seq_len: int = 131_072
+    moe: MoEConfig | None = None
     source: str = ""
 
     @property
@@ -37,7 +48,13 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Small same-family config for CPU tests (the JAX package's
-        ``ModelConfig.reduced`` for a dense model)."""
+        ``ModelConfig.reduced`` for a dense or MoE model)."""
+        mo = None
+        if self.moe is not None:
+            mo = dataclasses.replace(
+                self.moe, n_experts=min(8, self.moe.n_experts),
+                top_k=min(2, self.moe.top_k),
+                n_shared=min(1, self.moe.n_shared), d_expert=128)
         n_heads = min(4, self.n_heads)
         return dataclasses.replace(
             self,
@@ -49,6 +66,7 @@ class ModelConfig:
             head_dim=16,
             d_ff=128,
             vocab=256,
+            moe=mo,
             max_seq_len=128,
             param_dtype="float32",
             compute_dtype="float32",

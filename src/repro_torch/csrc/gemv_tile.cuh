@@ -1,4 +1,5 @@
-// Output-stationary decode GEMV body shared by pim_gemv.cu and splitk_gemv.cu.
+// Output-stationary decode GEMV body shared by pim_gemv.cu, splitk_gemv.cu
+// and grouped_gemv.cu.
 //
 //   out[B, M] = x[B, K] @ w_t[K, M]      (w_t K-major, B <= kMaxB)
 //
@@ -14,9 +15,11 @@
 // K walk.  At the end the row groups are summed through shared memory in a
 // fixed order (group 0, 1, ...), so the result is deterministic.
 //
-// blockIdx.y selects a K part of k_part rows: the output-stationary kernel
+// gemv_tile is that body for one CTA; gemv_tile_kernel launches it with
+// blockIdx.y selecting a K part of k_part rows: the output-stationary kernel
 // runs with one part and writes `out` in x's type; the split-K kernel runs
-// with `deg` parts and writes f32 partials [deg, B, M].
+// with `deg` parts and writes f32 partials [deg, B, M].  The expert kernels
+// (grouped_gemv.cu) call it once per chunk of up to kMaxB rows of a cell.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,13 +52,17 @@ inline size_t smem_bytes(int B, int k_blk) {
                           + static_cast<size_t>(kThreads) * Vec<T>::n);
 }
 
+// One CTA's tile: out rows [0, B) of column block `mb` over the K rows
+// [k_begin, k_begin + k_part).  x rows lie ldx elements apart, w rows ld
+// apart, out rows ldo apart; `o` points at the block's first output column
+// of row 0.  Every thread of the CTA must call this with the same arguments
+// (it synchronises the CTA).  smem holds smem_bytes<T>(kMaxB, k_blk).
 template <typename T, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-gemv_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 OutT* __restrict__ out, int B, int K, int M, int ld,
-                 int k_part, int m_blk, int k_blk) {
+__device__ __forceinline__ void gemv_tile(
+    const T* __restrict__ x, int ldx, const T* __restrict__ w, int ld,
+    OutT* __restrict__ o, int ldo, int B, int k_begin, int k_part, int mb,
+    int m_blk, int k_blk, float* smem) {
   constexpr int V = Vec<T>::n;
-  extern __shared__ float smem[];
   float* xs = smem;                 // [B, k_blk]
   float* red = smem + B * k_blk;    // [groups, m_blk]
 
@@ -64,8 +71,7 @@ gemv_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int tid = threadIdx.x;
   const int g = tid / tcols;
   const int c = tid % tcols;
-  const int col0 = blockIdx.x * m_blk + c * V;
-  const int k_begin = blockIdx.y * k_part;
+  const int col0 = mb * m_blk + c * V;
 
   float acc[kMaxB][V];
 #pragma unroll
@@ -78,7 +84,7 @@ gemv_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int i = tid; i < B * k_blk; i += kThreads) {
       const int b = i / k_blk;
       const int kk = i - b * k_blk;
-      xs[i] = to_f32(x[static_cast<size_t>(b) * K + k0 + kk]);
+      xs[i] = to_f32(x[static_cast<size_t>(b) * ldx + k0 + kk]);
     }
     __syncthreads();
     for (int kk = g; kk < k_blk; kk += groups * kUnroll) {
@@ -110,8 +116,6 @@ gemv_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
     }
   }
 
-  OutT* o = out + static_cast<size_t>(blockIdx.y) * B * M
-            + static_cast<size_t>(blockIdx.x) * m_blk;
 #pragma unroll
   for (int b = 0; b < kMaxB; ++b) {
     if (b < B) {  // B is uniform over the CTA: every thread takes this path
@@ -122,10 +126,22 @@ gemv_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
       for (int i = tid; i < m_blk; i += kThreads) {
         float s = 0.f;
         for (int gg = 0; gg < groups; ++gg) s += red[gg * m_blk + i];
-        store(s, o + static_cast<size_t>(b) * M + i);
+        store(s, o + static_cast<size_t>(b) * ldo + i);
       }
     }
   }
+}
+
+template <typename T, typename OutT>
+__global__ void __launch_bounds__(kThreads)
+gemv_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                 OutT* __restrict__ out, int B, int K, int M, int ld,
+                 int k_part, int m_blk, int k_blk) {
+  extern __shared__ float smem[];
+  OutT* o = out + static_cast<size_t>(blockIdx.y) * B * M
+            + static_cast<size_t>(blockIdx.x) * m_blk;
+  gemv_tile<T, OutT>(x, K, w, ld, o, M, B, blockIdx.y * k_part, k_part,
+                     blockIdx.x, m_blk, k_blk, smem);
 }
 
 template <typename T, typename OutT>

@@ -4,7 +4,10 @@
 * ``splitk`` — K cut into ``degree`` chunks, f32 partials summed in order
   (the paper's split-K reduce in plain form);
 * ``quant`` / ``quant4`` — the block-scale dequant oracles: every quantized
-  weight takes them, whatever the batch or a kernel pin says.
+  weight takes them, whatever the batch or a kernel pin says;
+
+and MoE expert programs through the portable ``grouped`` / ``ragged``
+executors of the base class.
 
 The cost constants are the JAX CPU backend's seeds (a DDR-class host).
 """
@@ -40,7 +43,7 @@ def plan_cpu_splitk(M: int, K: int) -> GemvPlan | None:
 class CpuBackend(GemvBackend):
     name = "cpu"
     kernels = ("ref", "splitk", "quant", "quant4")
-    program_modes = ("fused",)
+    program_modes = ("fused", "grouped", "ragged")
 
     @property
     def cost_model(self) -> CostModel:

@@ -8,7 +8,17 @@ The counterpart of ``repro/kernels/backends/tpu.py``'s kernel set:
 * ``pim`` — ``kernels/pim_gemv.py`` (``csrc/pim_gemv.cu``);
 * ``splitk`` — ``kernels/splitk_gemv.py`` (``csrc/splitk_gemv.cu``);
 * ``quant`` / ``quant4`` — ``kernels/quant_gemv.py``
-  (``csrc/quant_gemv.cu``) for int8 / packed-int4 weights.
+  (``csrc/quant_gemv.cu``) for int8 / packed-int4 weights;
+
+and for MoE expert programs the native modes ``grouped_cuda`` /
+``ragged_cuda`` (``kernels/grouped_gemv.py``, ``csrc/grouped_gemv.cu``),
+the counterparts of the JAX ``gpu`` backend's ``grouped_triton`` /
+``ragged_triton``, under that backend's gates: 16-bit weights,
+``use_pallas``, the per-expert batch within ``batch_threshold``, and
+power-of-two tiles from ``plan_grouped_gemv``; besides, the kernels' own
+16-byte column vectors and a bf16 or f32 type.  A shape that fails a gate
+takes the portable executor (``grouped`` / ``ragged``), as in the JAX
+package.  There is no capability gate: the card always runs the kernels.
 
 As on the TPU backend, a quantized weight takes ``quant``/``quant4``
 whenever the kernel applies, whatever the batch threshold and
@@ -36,6 +46,10 @@ from repro_torch.kernels.backends.base import (
     CostModel,
     DispatchPolicy,
     GemvBackend,
+    GemvProgram,
+    ProgramKey,
+    ProgramPlan,
+    dtype_bytes,
     register_backend,
 )
 from repro_torch.kernels.gemv_plan import (
@@ -47,8 +61,15 @@ from repro_torch.kernels.gemv_plan import (
     quant_applicable,
     valid_splitk_degree,
 )
+from repro_torch.kernels.grouped_gemv import (
+    counts_to_offsets,
+    grouped_gemv,
+    plan_expert_gemv,
+    plan_grouped_gemv,
+    ragged_gemv,
+)
 from repro_torch.kernels.ops import PackedWeights
-from repro_torch.kernels.pim_gemv import pim_gemv
+from repro_torch.kernels.pim_gemv import DTYPES, pim_gemv
 from repro_torch.kernels.quant_gemv import quant4_gemv, quant_gemv
 from repro_torch.kernels.splitk_gemv import splitk_gemv
 
@@ -69,8 +90,10 @@ class H100Backend(GemvBackend):
     name = "h100"
     kernels = ("ref", "pim", "splitk", "quant", "quant4")
     # a fused program runs ONE kernel over the concatenated [K, sum(Ms)]
-    # weight: one launch and one read of x for the whole head group
-    program_modes = ("fused",)
+    # weight: one launch and one read of x for the whole head group;
+    # grouped / ragged are the portable expert executors a shape falls back
+    # to when it fails the native modes' gates
+    program_modes = ("fused", "grouped", "ragged")
 
     def __init__(self, min_parallel_blocks: int | None = None):
         self._sms = min_parallel_blocks
@@ -135,6 +158,8 @@ class H100Backend(GemvBackend):
         if policy.kernel != "auto":
             return self._pinned(M, K, batch, bits, block, x_bytes,
                                 policy.kernel)
+        if not policy.use_pallas:
+            return "ref", None
         if bits < 16:
             return self._quant_pick(M, K, batch, bits, block)
         if not kernel_applicable(M, K, batch, x_bytes):
@@ -170,6 +195,38 @@ class H100Backend(GemvBackend):
             return "splitk", plan_splitk(M, K, batch, degree=deg,
                                          elem_bytes=x_bytes)
         return "pim", plan_gemv(M, K, batch, elem_bytes=x_bytes)
+
+    # -- MoE expert programs ------------------------------------------------
+
+    def plan_program(self, key: ProgramKey, *,
+                     policy: DispatchPolicy = DEFAULT_POLICY) -> ProgramPlan:
+        """Grouped/ragged programs take the native kernels where the JAX
+        ``gpu`` backend's gates let its Pallas kernels run."""
+        if key.kind in ("grouped", "ragged") and policy.fuse_programs:
+            M, K = key.Ms[0], key.K
+            x_bytes = dtype_bytes(key.dtype)
+            cand = plan_grouped_gemv(M, K)
+            if (key.bits == 16 and policy.use_pallas
+                    and key.batch <= policy.batch_threshold
+                    and cand.m_blk & (cand.m_blk - 1) == 0
+                    and cand.k_blk & (cand.k_blk - 1) == 0
+                    and key.dtype in {str(d) for d in DTYPES}
+                    and kernel_applicable(M, K, 1, x_bytes)):
+                return ProgramPlan(
+                    mode=f"{key.kind}_cuda", n_launches=1,
+                    kernel=f"{key.kind}_gemv",
+                    plan=plan_expert_gemv(M, K, elem_bytes=x_bytes))
+        return super().plan_program(key, policy=policy)
+
+    def execute_program(self, program: GemvProgram,
+                        pplan: ProgramPlan) -> torch.Tensor:
+        if pplan.mode == "grouped_cuda":
+            return grouped_gemv(program.x, program.weights.w_t,
+                                plan=pplan.plan)
+        if pplan.mode == "ragged_cuda":
+            return ragged_gemv(program.x, counts_to_offsets(program.counts),
+                               program.weights.w_t, plan=pplan.plan)
+        return super().execute_program(program, pplan)
 
     # -- execution ----------------------------------------------------------
 

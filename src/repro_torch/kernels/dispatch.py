@@ -17,7 +17,10 @@ Decisions are counted once per plan-cache miss, as in the JAX package:
 and (``program_kernels``) the kernel inside each fused program plan.
 Kernel *launches* are counted by the kernel wrappers themselves
 (``pim_gemv.launches``, ``splitk_gemv.launches``, ``quant_gemv.launches``,
-``quant4_gemv.launches``).
+``quant4_gemv.launches``, ``grouped_gemv.launches``,
+``ragged_gemv.launches``).  The MoE layer adds its per-expert load
+statistics (``record_expert_load``) to the ``expert_load`` section, once
+per call.
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ from repro_torch.kernels.ops import (
 __all__ = [
     "DispatchPolicy", "DEFAULT_POLICY", "as_packed", "dispatch_gemv",
     "dispatch_dense", "dispatch_program", "dispatch_fused",
-    "dispatch_prepacked", "dispatch_stats", "clear_plan_cache",
+    "dispatch_prepacked", "dispatch_grouped", "dispatch_ragged",
+    "dispatch_stats", "record_expert_load", "clear_plan_cache",
 ]
 
 _LOCK = threading.Lock()
@@ -68,6 +72,12 @@ def _fresh_counters() -> dict:
         "program_kernels": {},  # "backend:kernel" -> fused program plans
         "gemv_path": 0,         # decisions with batch <= batch_threshold
         "matmul_fallback": 0,   # decisions the batch gate sent to ref
+        # per-expert load of every MoE dispatch (record_expert_load), all
+        # monotonic so serving metrics can delta them: max_tokens sums the
+        # planned per-expert bound, padded_slots the capacity slots the
+        # grouped shape allocates beyond the routed tokens (ragged: 0)
+        "expert_load": {"decisions": 0, "routed_tokens": 0, "experts": 0,
+                        "max_tokens": 0, "padded_slots": 0},
     }
 
 
@@ -90,6 +100,19 @@ def clear_plan_cache() -> None:
         _CACHE_STATS.update(hits=0, misses=0, program_hits=0,
                             program_misses=0)
         _DISPATCH_COUNTERS = _fresh_counters()
+
+
+def record_expert_load(*, routed_tokens: int, experts: int,
+                       max_tokens: int, padded_slots: int) -> None:
+    """Accumulate one MoE dispatch's per-expert load statistics (host
+    integers known from shapes: ``max_tokens`` is the PLANNED bound)."""
+    with _LOCK:
+        el = _DISPATCH_COUNTERS["expert_load"]
+        el["decisions"] += 1
+        el["routed_tokens"] += int(routed_tokens)
+        el["experts"] += int(experts)
+        el["max_tokens"] += int(max_tokens)
+        el["padded_slots"] += int(padded_slots)
 
 
 def _count_decision(backend_name: str, batch: int, policy: DispatchPolicy,
@@ -217,16 +240,21 @@ def dispatch_dense(x: torch.Tensor, w_t: torch.Tensor, *,
 
 def dispatch_program(program: GemvProgram, *,
                      policy: DispatchPolicy | None = None) -> torch.Tensor:
-    """Execute a fused :class:`GemvProgram`: returns ``[B, sum(Ms)]``.
+    """Execute a :class:`GemvProgram`: returns ``[B, sum(Ms)]`` (fused),
+    ``[E, C, M]`` (grouped) or ``[T, M]`` (ragged).
 
-    The backend plans the group as ONE kernel on the concatenated weight,
-    or as the per-request decomposition when fusing is off.
+    The backend plans the group as one joint launch (a kernel on the
+    concatenated weight, an expert kernel or a portable executor), or as
+    the per-request decomposition (never for ragged: its split is data).
     """
     policy = policy or DEFAULT_POLICY
     backend = resolve_backend(policy, program.x.device)
     pplan = _resolve_program(backend, program.key(backend.name), policy)
     if pplan.mode == "per_request":
-        outs = [_dispatch_request(req, policy) for req in program.requests]
+        outs = [_dispatch_request(req, policy)
+                for req in program.decompose()]
+        if program.kind == "grouped":
+            return torch.stack(outs)
         return torch.cat(outs, dim=-1)
     return backend.execute_program(
         dataclasses.replace(program, x=program.x.contiguous()), pplan)
@@ -272,3 +300,26 @@ def dispatch_prepacked(x: torch.Tensor, fused, m_splits, *,
     program = GemvProgram(kind="fused", x=x, weights=pw, m_splits=splits,
                           requests=tuple(reqs))
     return program.split(dispatch_program(program, policy=policy))
+
+
+def dispatch_grouped(xs: torch.Tensor, weights, *,
+                     policy: DispatchPolicy | None = None) -> torch.Tensor:
+    """Expert group: out[E, C, M] = xs[E, C, K] @ W[E, K, M].  ``weights``
+    is a stacked :class:`PackedWeights` or a raw K-major ``[E, K, M]``
+    tensor (the layout MoE layers store)."""
+    if not isinstance(weights, PackedWeights):
+        weights = from_transposed(weights)
+    return dispatch_program(GemvProgram.grouped(xs, weights), policy=policy)
+
+
+def dispatch_ragged(x: torch.Tensor, counts: torch.Tensor, weights, *,
+                    bound: int = 0,
+                    policy: DispatchPolicy | None = None) -> torch.Tensor:
+    """Capacity-free expert group: out[T, M] for ``x [T, K]`` sorted by
+    expert with per-expert row ``counts [E]`` (device data, never read on
+    the host; rows past their sum come back zero).  ``bound`` is the
+    predicted per-expert bound the program is priced at (default T)."""
+    if not isinstance(weights, PackedWeights):
+        weights = from_transposed(weights)
+    program = GemvProgram.ragged(x, counts, weights, bound=bound)
+    return dispatch_program(program, policy=policy)

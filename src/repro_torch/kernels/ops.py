@@ -26,10 +26,12 @@ class PackedWeights:
     Float weights carry ``w_t [K, M]`` and ``bits=16``.  Quantized ones
     carry int8 codes ``w_t [K, M]`` (``bits=8``) or packed int4 codes
     ``[K // 2, M]`` (``bits=4``: row 2i in the low nibble of packed row i,
-    row 2i+1 in the high one) plus f32 ``scales [K // block, M]``.
+    row 2i+1 in the high one) plus f32 ``scales [K // block, M]``.  An
+    expert stack (grouped and ragged programs) carries ``[E, K, M]``.
     """
 
-    w_t: torch.Tensor                    # [K, M], or [K // 2, M] for int4
+    w_t: torch.Tensor                    # [K, M] ([K // 2, M] int4; [E, ...]
+                                         # for an expert stack)
     scales: torch.Tensor | None = None   # [K // block, M] when quantized
     bits: int = 16
     block: int = 32
@@ -41,6 +43,40 @@ class PackedWeights:
         if self.bits == 4:
             K *= 2
         return int(K), int(M)
+
+    @property
+    def group(self) -> int:
+        """Leading stack size of an expert stack; 1 for a single matrix."""
+        return int(self.w_t.shape[0]) if self.w_t.ndim == 3 else 1
+
+    def member(self, e: int) -> "PackedWeights":
+        """The e-th matrix of an ``[E, K, M]`` stack (a view)."""
+        if self.w_t.ndim != 3:
+            raise ValueError("member() requires stacked [E, K, M] weights")
+        return PackedWeights(
+            w_t=self.w_t[e],
+            scales=None if self.scales is None else self.scales[e],
+            bits=self.bits, block=self.block)
+
+    @staticmethod
+    def stack(members: "list[PackedWeights]") -> "PackedWeights":
+        """Stack same-shape members into ``[E, K, M]`` storage (one copy):
+        every member must agree on shape, bits and block."""
+        if not members:
+            raise ValueError("cannot stack an empty weight group")
+        head = members[0]
+        for pw in members[1:]:
+            if (pw.w_t.shape != head.w_t.shape or pw.bits != head.bits
+                    or pw.block != head.block):
+                raise ValueError(
+                    f"grouped weights must share shape/bits/block; got "
+                    f"{tuple(pw.w_t.shape)}/w{pw.bits} vs "
+                    f"{tuple(head.w_t.shape)}/w{head.bits}")
+        return PackedWeights(
+            w_t=torch.stack([pw.w_t for pw in members]),
+            scales=(None if head.scales is None
+                    else torch.stack([pw.scales for pw in members])),
+            bits=head.bits, block=head.block)
 
     def columns(self, lo: int, hi: int) -> "PackedWeights":
         """Columns ``[lo, hi)`` (views of the codes and the scales)."""

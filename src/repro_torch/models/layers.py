@@ -1,10 +1,12 @@
-"""Dense building blocks of the decoder (counterpart of
-``repro/models/layers.py``).
+"""Building blocks of the decoder (counterpart of ``repro/models/layers.py``):
+norms, rotary embedding, attention, the dense FFN and the mixture of
+experts.
 
 Conventions follow the JAX package so the two compare like with like:
 activations are ``[batch, seq, d_model]``; projections are stored K-major
-(``wq [d, H, hd]``, ``w_up [d, f]``); norm and softmax statistics run in
-f32 whatever the compute dtype.  Parameters are plain dicts of tensors.
+(``wq [d, H, hd]``, ``w_up [d, f]``, expert stacks ``w_up [E, d, f]``);
+norm and softmax statistics run in f32 whatever the compute dtype.
+Parameters are plain dicts of tensors.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.backends.base import expert_batch_bound
 from repro_torch.kernels.kv_quant import dequantize_page, quantize_page
 
 BIG_NEG = -2.0e9
@@ -227,8 +230,9 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 # --------------------------------------------------------------------------
 
 
-def init_mlp(generator, cfg: ModelConfig, dtype, device) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(generator, cfg: ModelConfig, dtype, device, *,
+             d_ff: int | None = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     p = {
         "w_up": dense_init(generator, d, (d, f), dtype, device),
         "w_down": dense_init(generator, f, (f, d), dtype, device),
@@ -275,3 +279,253 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     up = mm(x, p["w_up"])
     return mm(F.silu(mm(x, p["w_gate"])) * up, p["w_down"])
+
+
+# --------------------------------------------------------------------------
+# Mixture of experts (sort-based routing; GShard capacity semantics)
+# --------------------------------------------------------------------------
+
+
+def init_moe(generator, cfg: ModelConfig, dtype, device) -> dict:
+    """Router ``[d, E]`` in f32, expert stacks ``w_gate``/``w_up [E, d, f]``
+    and ``w_down [E, f, d]``, and the shared experts as one MLP of width
+    ``n_shared * d_expert``."""
+    e = cfg.moe
+    d, f, E = cfg.d_model, e.d_expert, e.n_experts
+    p = {
+        "router": dense_init(generator, d, (d, E), torch.float32, device),
+        "w_up": dense_init(generator, d, (E, d, f), dtype, device),
+        "w_down": dense_init(generator, f, (E, f, d), dtype, device),
+    }
+    if cfg.act == "silu":
+        p["w_gate"] = dense_init(generator, d, (E, d, f), dtype, device)
+    if e.n_shared:
+        p["shared"] = init_mlp(generator, cfg, dtype, device,
+                               d_ff=e.n_shared * f)
+    return p
+
+
+def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert per sequence (``layers._capacity``): GShard's
+    bound, dropless while ``n_tokens * top_k <= 4096``, a multiple of 8."""
+    e = cfg.moe
+    c = math.ceil(n_tokens * e.top_k * e.capacity_factor / e.n_experts)
+    if n_tokens * e.top_k <= 4096:
+        c = max(c, n_tokens * e.top_k)
+    return max(8, ((c + 7) // 8) * 8)
+
+
+def _route_tokens(top_i: torch.Tensor, top_p: torch.Tensor, n_experts: int,
+                  top_k: int):
+    """Capacity-free routing plan of one flat token chunk (``top_i`` /
+    ``top_p`` ``[T, k]``): ``(st, se, sw, counts)``, the source token,
+    expert and router weight of every (token, expert) pair in stable
+    expert-sorted order, and the int32 per-expert counts ``[E]``.
+
+    Everything stays on the device: the counts come from a search in the
+    sorted experts, not from a host-side bincount.
+    """
+    T = top_i.shape[0]
+    dev = top_i.device
+    flat_t = torch.arange(T * top_k, device=dev) // top_k
+    se, order = torch.sort(top_i.reshape(-1), stable=True)
+    st = flat_t[order]
+    sw = top_p.reshape(-1)[order]
+    edges = torch.arange(n_experts + 1, device=dev)
+    counts = torch.diff(torch.searchsorted(se, edges, out_int32=True))
+    return st, se, sw, counts
+
+
+def _combine(out: torch.Tensor, sw: torch.Tensor, st: torch.Tensor,
+             n_tokens: int, top_k: int) -> torch.Tensor:
+    """``y[t] = sum of out[i] * sw[i] over the pairs i of token t`` in a
+    fixed order: ascending sorted position, each add rounded in
+    ``out.dtype``, from a zero start -- the order of the JAX package's
+    ``.at[st].add``.  A gather and ``top_k`` adds instead of an atomic
+    ``index_add_``, so the sum is the same in every run."""
+    contrib = out * sw[:, None].to(out.dtype)
+    pos = torch.sort(st, stable=True).indices.view(n_tokens, top_k)
+    gathered = contrib[pos]                          # [T, k, d]
+    y = torch.zeros((n_tokens, out.shape[-1]), dtype=out.dtype,
+                    device=out.device)
+    for j in range(top_k):
+        y = y + gathered[:, j]
+    return y
+
+
+def _router(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """``(probs [B, S, E], top_p, top_i [B, S, k])``: the router product of
+    x and the router cast to x's type with f32 accumulation (exact
+    products: the casts to f32 lose nothing), softmax, top-k and
+    renormalisation."""
+    logits = torch.matmul(x.float(), p["router"].to(x.dtype).float())
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    return probs, top_p, top_i
+
+
+def _aux_loss(probs: torch.Tensor, counts: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """Switch-style load-balance loss over all tokens, from the per-expert
+    pair counts of the whole batch (the one-hot sums of the JAX code)."""
+    e = cfg.moe
+    n_tok = probs.shape[0] * probs.shape[1]
+    me = probs.mean(dim=(0, 1))
+    ce = counts.float() / n_tok / e.top_k
+    return e.n_experts * (me * ce).sum() * e.router_aux_weight
+
+
+def _expert_ffn(p: dict, t: torch.Tensor, cfg: ModelConfig, proj):
+    """SwiGLU expert FFN over expert-sorted rows; ``proj(t, w)`` runs one
+    projection of the stack."""
+    if cfg.act != "silu":
+        raise ValueError(f"activation {cfg.act!r} is not ported yet")
+    h = F.silu(proj(t, p["w_gate"])) * proj(t, p["w_up"])
+    return proj(h, p["w_down"])
+
+
+def _moe_ragged_decode(p, x, cfg, gemv, top_i, top_p):
+    """Decode-step expert FFNs through the ragged program shape.
+
+    Tokens flatten to ONE expert-sorted ``[T*k, d]`` buffer (T = B*S): no
+    ``[E, C, ...]`` capacity buffer exists, so padding is zero
+    (``padded_slots=0``).  The three projections share one routing plan
+    and one counts vector, device data from end to end: no host sync.
+    """
+    from repro_torch.kernels.dispatch import dispatch_ragged, \
+        record_expert_load
+
+    e = cfg.moe
+    B, S, d = x.shape
+    st, se, sw, counts = _route_tokens(
+        top_i.reshape(B * S, e.top_k), top_p.reshape(B * S, e.top_k),
+        e.n_experts, e.top_k)
+    xr = x.reshape(B * S, d)[st]                 # [T*k, d], expert-sorted
+    bound = expert_batch_bound(B * S, e.top_k, e.n_experts)
+    record_expert_load(routed_tokens=B * S * e.top_k, experts=e.n_experts,
+                       max_tokens=bound, padded_slots=0)
+
+    def proj(t, w):
+        return dispatch_ragged(t, counts, w, bound=bound, policy=gemv)
+
+    out = _expert_ffn(p, xr, cfg, proj)          # [T*k, d]
+    y = _combine(out, sw, st, B * S, e.top_k)
+    return y.reshape(B, S, d), counts
+
+
+def _capacity_plan(top_i: torch.Tensor, top_p: torch.Tensor, C: int,
+                   n_experts: int):
+    """The per-sequence capacity plan of ``_dispatch_chunk`` for the whole
+    batch at once.  Pairs are sorted stably by (expert, sequence), so each
+    expert's rows are contiguous and, within a sequence, in the JAX
+    package's order; a pair's slot is its rank within its (sequence,
+    expert) and it is kept iff the slot is ``< C``.  Returns ``(st, se, sb,
+    sw, slot, keep, counts)`` (``st`` indexes the flat ``B * S`` tokens,
+    ``counts`` the pairs per expert over the batch)."""
+    B, S, k = top_i.shape
+    dev = top_i.device
+    flat_t = torch.arange(B * S * k, device=dev) // k    # flat token
+    flat_b = flat_t // S
+    key = top_i.reshape(-1) * B + flat_b
+    skey, order = torch.sort(key, stable=True)
+    st, sw = flat_t[order], top_p.reshape(-1)[order]
+    se, sb = skey // B, skey % B
+    starts = torch.searchsorted(
+        skey, torch.arange(n_experts * B + 1, device=dev))
+    rank = torch.arange(B * S * k, device=dev) - starts[skey]
+    keep = rank < C
+    slot = torch.where(keep, rank, C - 1)
+    counts = torch.diff(starts[::B])
+    return st, se, sb, sw, slot, keep, counts
+
+
+def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              gemv=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x ``[B, S, d]`` -> ``(y, aux_loss)``.
+
+    With a ``gemv`` DispatchPolicy, fusing on and a single-token input
+    (decode), ``gemv.expert_shape`` picks the execution shape:
+    ``"ragged"`` (default; :func:`_moe_ragged_decode`) or ``"grouped"``
+    (the capacity-padded ``[E, B*C, d]`` buffers through one grouped
+    program per projection).  Everything else -- prefill, ``"einsum"``,
+    fusing off -- computes the JAX package's per-sequence capacity
+    semantics (GShard slots, drops past ``C``) WITHOUT the ``[B, E, C, d]``
+    buffer: the expert FFN is row-wise, so each kept pair's output is the
+    FFN of its token, computed per expert over the expert-sorted pairs
+    with ``torch.matmul``; a dropped pair contributes zero.  That path
+    reads the per-expert offsets on the host once per layer.
+
+    The shared experts' MLP is added last, through the dispatcher like a
+    dense MLP.
+    """
+    e = cfg.moe
+    B, S, d = x.shape
+    probs, top_p, top_i = _router(p, x, cfg)
+    expert_shape = gemv.expert_shape if gemv is not None else "einsum"
+    if expert_shape not in ("ragged", "grouped", "einsum"):
+        raise ValueError(f"unknown expert_shape {expert_shape!r}")
+    use_programs = (gemv is not None and S == 1 and gemv.fuse_programs
+                    and expert_shape != "einsum")
+    if use_programs and expert_shape == "ragged":
+        y, counts = _moe_ragged_decode(p, x, cfg, gemv, top_i, top_p)
+    elif use_programs:
+        y, counts = _moe_grouped_decode(p, x, cfg, gemv, top_i, top_p)
+    else:
+        y, counts = _moe_capacity(p, x, cfg, top_i, top_p)
+    aux = _aux_loss(probs, counts, cfg)
+    if e.n_shared:
+        y = y + apply_mlp(p["shared"], x, cfg, gemv=gemv)
+    return y, aux
+
+
+def _moe_grouped_decode(p, x, cfg, gemv, top_i, top_p):
+    """Decode through grouped programs: the capacity buffers of the JAX
+    package, laid out ``[E, B*C, d]`` (row ``b*C + slot`` of expert e),
+    one grouped program per projection, then the capacity combine."""
+    from repro_torch.kernels.dispatch import dispatch_grouped, \
+        record_expert_load
+
+    e = cfg.moe
+    B, S, d = x.shape
+    C = _capacity(S, cfg)
+    st, se, sb, sw, slot, keep, counts = _capacity_plan(top_i, top_p, C,
+                                                        e.n_experts)
+    rows = B * C
+    # a dropped pair lands in one spare row past the buffer, never read
+    dest = torch.where(keep, se * rows + sb * C + slot, e.n_experts * rows)
+    buf = torch.zeros((e.n_experts * rows + 1, d), dtype=x.dtype,
+                      device=x.device)
+    buf[dest] = x.reshape(B * S, d)[st]
+    buf = buf[:-1].view(e.n_experts, rows, d)
+    record_expert_load(routed_tokens=B * S * e.top_k, experts=e.n_experts,
+                       max_tokens=C,
+                       padded_slots=max(B * e.n_experts * C
+                                        - B * S * e.top_k, 0))
+
+    def proj(t, w):
+        return dispatch_grouped(t, w, policy=gemv)
+
+    out = _expert_ffn(p, buf, cfg, proj).reshape(e.n_experts * rows, d)
+    kept_w = sw * keep.to(sw.dtype)
+    y = _combine(out[se * rows + sb * C + slot], kept_w, st, B * S, e.top_k)
+    return y.reshape(B, S, d), counts
+
+
+def _moe_capacity(p, x, cfg, top_i, top_p):
+    """The capacity semantics without the capacity buffer (see
+    :func:`apply_moe`)."""
+    e = cfg.moe
+    B, S, d = x.shape
+    st, _, _, sw, _, keep, counts = _capacity_plan(
+        top_i, top_p, _capacity(S, cfg), e.n_experts)
+    xr = x.reshape(B * S, d)[st]
+    offs = [0] + torch.cumsum(counts, 0).tolist()
+    out = torch.zeros_like(xr)
+    for i in range(e.n_experts):
+        lo, hi = offs[i], offs[i + 1]
+        if hi > lo:
+            out[lo:hi] = _expert_ffn(p, xr[lo:hi], cfg,
+                                     lambda t, w, i=i: t @ w[i])
+    y = _combine(out, sw * keep.to(sw.dtype), st, B * S, e.top_k)
+    return y.reshape(B, S, d), counts

@@ -1,5 +1,5 @@
-"""Dense decoder LM: init, cache, decode prepack and forward (counterpart of
-``repro/models/lm.py`` for the dense family).
+"""Decoder LM: init, cache, decode prepack and forward (counterpart of
+``repro/models/lm.py`` for the dense and MoE families).
 
 Parameters are a plain dict: ``embed [vocab, d]``, ``ln_f``, and
 ``layers``, a list with one dict per layer (the JAX package stacks them
@@ -39,7 +39,8 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
     unless one is given); they are NOT the JAX package's draws -- to feed
     both packages the same weights, see :mod:`repro_torch.bridge`.
     """
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe") or (
+            (cfg.family == "moe") != (cfg.moe is not None)):
         raise ValueError(f"family {cfg.family!r} is not ported yet")
     device = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
@@ -55,12 +56,16 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
                                          (cfg.d_model, cfg.vocab), dtype,
                                          device)
     for _ in range(cfg.n_layers):
-        params["layers"].append({
+        layer = {
             "ln1": L.init_norm(cfg, cfg.d_model, dtype, device),
             "ln2": L.init_norm(cfg, cfg.d_model, dtype, device),
             "attn": L.init_attention(g, cfg, dtype, device),
-            "mlp": L.init_mlp(g, cfg, dtype, device),
-        })
+        }
+        if cfg.moe is not None:
+            layer["moe"] = L.init_moe(g, cfg, dtype, device)
+        else:
+            layer["mlp"] = L.init_mlp(g, cfg, dtype, device)
+        params["layers"].append(layer)
     return params
 
 
@@ -112,9 +117,11 @@ def prepack_decode_params(params: dict, cfg: ModelConfig) -> dict:
 
     Per layer, ``wqkv`` is the contiguous ``[d, (H + 2 Hkv) hd]`` concat of
     the flattened Q/K/V projections and ``w_gateup`` the ``[d, 2 f]``
-    concat of gate and up; ``head_t`` is one contiguous K-major ``[d,
-    vocab]`` copy of the tied head (the GEMV kernels refuse the strided
-    ``embed.T`` view rather than copy 206 MB per token).
+    concat of gate and up (of the dense MLP, or of an MoE layer's shared
+    experts; the expert stacks are read in place); ``head_t`` is one
+    contiguous K-major ``[d, vocab]`` copy of the tied head (the GEMV
+    kernels refuse the strided ``embed.T`` view rather than copy 206 MB
+    per token).
 
     The originals stay, as in the JAX package: prefill and the unfused
     decode path (``fuse_programs=False``) read them.  Returns a NEW dict;
@@ -123,13 +130,20 @@ def prepack_decode_params(params: dict, cfg: ModelConfig) -> dict:
     d = cfg.d_model
     packed = dict(params)
     packed["layers"] = []
+    def gateup(m: dict) -> dict:
+        return {**m, "w_gateup": torch.cat([m["w_gate"], m["w_up"]], dim=-1)}
+
     for p in params["layers"]:
-        a, m = dict(p["attn"]), dict(p["mlp"])
+        a = dict(p["attn"])
         a["wqkv"] = torch.cat([a["wq"].reshape(d, -1),
                                a["wk"].reshape(d, -1),
                                a["wv"].reshape(d, -1)], dim=-1)
-        m["w_gateup"] = torch.cat([m["w_gate"], m["w_up"]], dim=-1)
-        packed["layers"].append({**p, "attn": a, "mlp": m})
+        layer = {**p, "attn": a}
+        if "mlp" in p:
+            layer["mlp"] = gateup(p["mlp"])
+        if "shared" in p.get("moe", {}):
+            layer["moe"] = {**p["moe"], "shared": gateup(p["moe"]["shared"])}
+        packed["layers"].append(layer)
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     packed["head_t"] = head.contiguous()
     return packed
@@ -151,8 +165,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``v_scale``) IN PLACE and ``new_cache`` shares them (with ``pos``
     advanced by S).  ``gemv_policy`` routes single-token (decode) projections
     through the GEMV dispatcher: QKV and gate+up as fused programs, down
-    and the LM head as single requests.  Prefill (S > 1) keeps the plain
-    matmul path.
+    and the LM head as single requests, MoE experts as ragged or grouped
+    programs (``gemv_policy.expert_shape``).  Prefill (S > 1) keeps the
+    plain matmul path.  ``aux_loss`` sums the MoE layers' load-balance
+    losses (0 for a dense model).
     """
     B, Sq = tokens.shape
     dtype = torch_dtype(cfg.compute_dtype)
@@ -167,7 +183,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = (pos0.reshape(-1, 1)
                  + torch.arange(Sq, device=x.device)[None, :]).expand(B, Sq)
 
-    x = _forward_flat(params, cfg, x, positions, cache, gemv_policy)
+    x, aux = _forward_flat(params, cfg, x, positions, cache, gemv_policy)
 
     x = L.apply_norm(params["ln_f"], x, cfg)
     if "head_t" in params:
@@ -184,12 +200,14 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     new_cache = None
     if cache is not None:
         new_cache = {**cache, "pos": pos0 + Sq}
-    return logits, new_cache, torch.zeros((), device=x.device)
+    return logits, new_cache, aux
 
 
 def _forward_flat(params, cfg, x, positions, cache, gemv=None):
     """The layer stack as a Python loop (``lax.scan`` in the JAX package):
-    pre-norm attention and FFN blocks with residuals."""
+    pre-norm attention and FFN (or MoE) blocks with residuals; returns
+    ``(x, aux_loss)``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["layers"]):
         h = L.apply_norm(p["ln1"], x, cfg)
         cache_kv = (cache["k"][i], cache["v"][i]) if cache is not None \
@@ -202,5 +220,10 @@ def _forward_flat(params, cfg, x, positions, cache, gemv=None):
             cache_pos=cache["pos"] if cache is not None else None,
             cache_scales=cache_scales, gemv=gemv)
         h = L.apply_norm(p["ln2"], x, cfg)
-        x = x + L.apply_mlp(p["mlp"], h, cfg, gemv=gemv)
-    return x
+        if "moe" in p:
+            ff, aux_l = L.apply_moe(p["moe"], h, cfg, gemv=gemv)
+            aux = aux + aux_l
+        else:
+            ff = L.apply_mlp(p["mlp"], h, cfg, gemv=gemv)
+        x = x + ff
+    return x, aux

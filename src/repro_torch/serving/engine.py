@@ -18,6 +18,12 @@ construction, down and the LM head as single requests.
 ``kv_store="int8"`` / ``"int4"`` keeps the KV cache as quantized pages
 (``repro_torch.kernels.kv_quant``), prefill and decode alike.
 
+On an MoE model the experts of a decode step run as ragged programs
+(``gemv_expert_shape="ragged"``, the default) or grouped ones
+(``"grouped"``); ``"einsum"`` keeps them out of the dispatcher.  The
+scheduler's ``gemv_aware`` admission is expert-aware there and reads the
+dispatcher's ``expert_load`` deltas before each admission.
+
 Not ported yet: chunked and async prefill, the prefix cache, preemption,
 sharded (mesh) serving and the tracer.
 """
@@ -91,6 +97,7 @@ class Engine:
                  gemv_batch_threshold: int = 8,
                  gemv_backend: str | None = None,
                  gemv_fuse_programs: bool = True,
+                 gemv_expert_shape: str = "ragged",
                  scheduler: Scheduler | SchedulerConfig | str = "fcfs",
                  max_queue: int = 0,
                  metrics: ServingMetrics | None = None,
@@ -111,7 +118,8 @@ class Engine:
         self.gemv_policy = (
             DispatchPolicy(batch_threshold=gemv_batch_threshold,
                            backend=gemv_backend,
-                           fuse_programs=gemv_fuse_programs)
+                           fuse_programs=gemv_fuse_programs,
+                           expert_shape=gemv_expert_shape)
             if use_pim_kernels else None)
         # one-time prepack: fused weights and the contiguous head the
         # kernels read (no per-step concat or transpose)
@@ -122,9 +130,14 @@ class Engine:
         elif isinstance(scheduler, SchedulerConfig):
             self.scheduler = Scheduler(scheduler)
         else:
+            # an MoE model makes gemv_aware expert-aware: the scheduler's
+            # per-expert gate shares expert_batch_bound with the ragged
+            # dispatch, so admitted batches price as they are dispatched
             self.scheduler = Scheduler(SchedulerConfig(
                 policy=scheduler, max_queue=max_queue,
-                gemv_batch_threshold=gemv_batch_threshold))
+                gemv_batch_threshold=gemv_batch_threshold,
+                moe_experts=cfg.moe.n_experts if cfg.moe else 0,
+                moe_top_k=cfg.moe.top_k if cfg.moe else 1))
         self.metrics = metrics or ServingMetrics(clock=clock)
         self.kv = SlotKVCache(cfg, batch_slots, max_len,
                               kv_store=self.kv_store, device=self.device)
@@ -162,6 +175,11 @@ class Engine:
         self.expired.extend(expired)
         if expired:
             self.metrics.requests_expired(len(expired))
+        if self.scheduler.config.moe_experts > 1:
+            # refresh the router-skew estimate before deciding how many
+            # slots to fill
+            self.scheduler.observe_expert_load(
+                self.metrics.dispatch_delta().get("expert_load", {}))
         admitted = self.scheduler.select(self.kv.n_free, self.kv.n_active,
                                          t0)
         finished: list[Request] = []

@@ -22,8 +22,9 @@ import time
 import numpy as np
 
 # JSON-document version of the port's layout (the JAX package's v3 minus
-# the prefix-cache and expert-load sections, which are not ported yet).
-SCHEMA_VERSION = 1
+# the prefix-cache section and the derived expert_balance summary, which
+# are not ported yet).  v2: the dispatch counters carry ``expert_load``.
+SCHEMA_VERSION = 2
 
 # Per-step snapshots kept in memory; older entries are dropped (the
 # aggregate histograms/counters keep full fidelity).

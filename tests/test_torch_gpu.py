@@ -270,3 +270,164 @@ def test_int8_kv_engine_on_the_card_matches_the_cpu_engine(cuda):
         done[dev] = {r.rid: r.generated for r in eng.run_until_drained()}
         assert eng.kv.cache["k"].dtype == torch.int8
     assert done["cuda"] == done["cpu"]
+
+
+# --------------------------------------------------------------------------
+# MoE expert kernels (deepseek-moe-16b shapes) and the MoE engine
+# --------------------------------------------------------------------------
+
+MOE_E = 64
+
+
+def _expert_counts(case: str) -> tuple[int, list[int]]:
+    """(T, counts [64]) of one ragged case: a top-6 routing of 8 tokens,
+    of 1 token, all rows on one expert (more than the 8 rows a cell holds
+    in registers), counts short of T (tail rows), and T = 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(len(case))
+
+    def route(n):
+        top = np.stack([rng.permutation(MOE_E)[:6] for _ in range(n)])
+        return np.bincount(top.reshape(-1), minlength=MOE_E).tolist()
+
+    if case == "top6_b8":
+        return 48, route(8)
+    if case == "top6_b1":
+        return 6, route(1)
+    if case == "one_expert_20_rows":
+        return 20, [0] * 7 + [20] + [0] * (MOE_E - 8)
+    if case == "tail_rows":
+        return 48, route(6)
+    return 0, [0] * MOE_E
+
+
+def _bf16_tol(dtype):
+    # one bf16 ulp of the result (relative 2**-7) plus f32 order noise near
+    # zero; f32: order noise only
+    return (dict(rtol=2.0**-7, atol=1e-3) if dtype == torch.bfloat16
+            else dict(rtol=1e-5, atol=1e-4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,M", [(2048, 1408), (1408, 2048)])
+@pytest.mark.parametrize("case", ["top6_b8", "top6_b1", "one_expert_20_rows",
+                                  "tail_rows", "empty"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_ragged_gemv_matches_plain(cuda, K, M, case, dtype):
+    from repro_torch.kernels.grouped_gemv import (
+        counts_to_offsets,
+        plan_expert_gemv,
+        ragged_gemv,
+        ragged_gemv_plain,
+    )
+
+    T, counts = _expert_counts(case)
+    g = torch.Generator(device=cuda).manual_seed(K + T)
+    w = (torch.randn((MOE_E, K, M), generator=g, device=cuda)
+         / K ** 0.5).to(dtype)
+    x = torch.randn((T, K), generator=g, device=cuda).to(dtype)
+    offsets = counts_to_offsets(torch.tensor(counts, dtype=torch.int32,
+                                             device=cuda))
+    plan = plan_expert_gemv(M, K, elem_bytes=x.element_size())
+    n0 = ragged_gemv.launches
+    out = ragged_gemv(x, offsets, w, plan=plan)
+    torch.cuda.synchronize()
+    assert ragged_gemv.launches == n0 + (1 if T else 0)
+    assert out.shape == (T, M)
+    torch.testing.assert_close(out.float(),
+                               ragged_gemv_plain(x, offsets, w).float(),
+                               **_bf16_tol(dtype))
+    assert not out[sum(counts):].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 8, 11])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_grouped_gemv_matches_plain(cuda, C, dtype):
+    from repro_torch.kernels.grouped_gemv import (
+        grouped_gemv,
+        grouped_gemv_plain,
+        plan_expert_gemv,
+    )
+
+    K, M = 2048, 1408
+    g = torch.Generator(device=cuda).manual_seed(C)
+    w = (torch.randn((MOE_E, K, M), generator=g, device=cuda)
+         / K ** 0.5).to(dtype)
+    xs = torch.randn((MOE_E, C, K), generator=g, device=cuda).to(dtype)
+    n0 = grouped_gemv.launches
+    out = grouped_gemv(xs, w, plan=plan_expert_gemv(
+        M, K, elem_bytes=xs.element_size()))
+    torch.cuda.synchronize()
+    assert grouped_gemv.launches == n0 + 1
+    torch.testing.assert_close(out.float(),
+                               grouped_gemv_plain(xs, w).float(),
+                               **_bf16_tol(dtype))
+
+
+@pytest.mark.gpu
+def test_cuda_expert_kernels_read_a_strided_expert_slice(cuda):
+    """A column view of a wider stack (row and expert strides over M) runs
+    in place and matches the contiguous copy bit for bit."""
+    from repro_torch.kernels.grouped_gemv import (
+        counts_to_offsets,
+        grouped_gemv,
+        plan_expert_gemv,
+        ragged_gemv,
+    )
+
+    K, M = 1408, 2048
+    g = torch.Generator(device=cuda).manual_seed(7)
+    wide = torch.randn((8, K, 2 * M), generator=g, device=cuda).to(
+        torch.bfloat16)
+    view = wide[:, :, M:]
+    plan = plan_expert_gemv(M, K)
+    x = torch.randn((12, K), generator=g, device=cuda).to(torch.bfloat16)
+    offsets = counts_to_offsets(torch.tensor([3, 0, 2, 0, 4, 1, 0, 2],
+                                             dtype=torch.int32, device=cuda))
+    assert torch.equal(ragged_gemv(x, offsets, view, plan=plan),
+                       ragged_gemv(x, offsets, view.contiguous(), plan=plan))
+    xs = torch.randn((8, 8, K), generator=g, device=cuda).to(torch.bfloat16)
+    assert torch.equal(grouped_gemv(xs, view, plan=plan),
+                       grouped_gemv(xs, view.contiguous(), plan=plan))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["ragged", "grouped"])
+def test_moe_engine_on_the_card_matches_the_cpu_engine(cuda, shape):
+    """Reduced deepseek-moe-16b (f32): the card's engine launches the
+    expert kernel and gives the CPU engine's greedy tokens."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.grouped_gemv import grouped_gemv, ragged_gemv
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = get_config("deepseek-moe-16b").reduced()
+    cpu_params = lm.init_lm(cfg, seed=0, device="cpu")
+
+    def move(node):
+        if isinstance(node, dict):
+            return {k: move(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [move(v) for v in node]
+        return node.to(cuda)
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 9, 3, 12, 7)]
+    kernel = ragged_gemv if shape == "ragged" else grouped_gemv
+    done = {}
+    for dev, params in (("cpu", cpu_params), ("cuda", move(cpu_params))):
+        eng = Engine(cfg, params, batch_slots=4 if shape == "ragged" else 1,
+                     max_len=64, device=dev, gemv_backend="h100",
+                     gemv_expert_shape=shape)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+        n0 = kernel.launches
+        done[dev] = {r.rid: r.generated for r in eng.run_until_drained()}
+        launched = kernel.launches - n0
+    assert launched > 0
+    assert done["cuda"] == done["cpu"]
