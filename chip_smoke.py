@@ -14,7 +14,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    The quant kernels run at the same shapes and batches on int8 / packed
    int4 codes (block 32) from ``quantize_weight`` of seeded bf16 weights;
    they are timed beside the bf16 weight's ``torch.matmul``, a reference
-   point that is not the same function;
+   point that is not the same function; then ``[gpu kernels]``:
+   ``triton_gemv`` at olmo-1b's four shapes and deepseek-moe-16b's head,
+   batch 1, 3, 8, 11 in bf16, against its plain version and timed beside
+   ``pim_gemv`` and ``torch.matmul``; f32 and a column view at batch 8;
 4. engine  -- olmo-1b at full width, bf16, seeded random weights, through
    ``Engine(batch_slots=8, max_len=1024)``: 8 requests with prompts of 32
    to 512 tokens, 64 greedy tokens each; fails unless every kernel of the
@@ -31,6 +34,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``"int4"``: every request completes, every logit is finite; reports
    latency, KV bytes per slot and the share of greedy tokens that agree
    with the fp run;
+   then ``[gpu engine]``: the same 8 requests on ``Engine(gemv_backend=
+   "gpu")``: fails unless each decode step launches ``triton_gemv`` as
+   often as the gpu backend's picks for the step's GEMVs predict (the
+   head, at least once); greedy tokens are compared with the h100 run;
 8. moe kernels -- olmo-1b's params are freed; ``ragged_gemv`` and
    ``grouped_gemv`` at deepseek-moe-16b's expert shapes (gate/up K=2048
    M=1408, down K=1408 M=2048, E=64) in bf16, each against its plain
@@ -49,8 +56,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 11. moe grouped -- ``Engine(batch_slots=1, gemv_expert_shape="grouped")``
    serves 2 of the requests, 16 tokens each: fails unless
    ``grouped_gemv`` launched; greedy tokens are compared with the ragged
-   engine's;
-12. the ``{"kernels": [...]}`` line, the card line, and the last line
+   engine's; then ``[moe gpu]``: the 8 requests, 16 tokens each, on
+   ``Engine(gemv_backend="gpu")``: fails unless every decode step
+   launches ``ragged_gemv`` three times a layer under mode
+   ``gpu:ragged_triton`` and ``triton_gemv`` as the picks predict;
+12. autotune -- olmo-1b's decode GEMVs at batch 8, a fused QKV program and
+   a ragged expert program, tuned on the h100 and gpu backends into
+   ``build/autotune_smoke.json``; table and plan cache cleared, the file
+   reloaded, and every untuned pick must be the table's winner;
+13. the ``{"kernels": [...]}`` line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 A fuller report goes to ``chiprun_out/chip_smoke.json``.  Nothing here
@@ -79,7 +93,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build, dispatch  # noqa: E402
-from repro_torch.kernels.backends import DispatchPolicy  # noqa: E402
+from repro_torch.kernels.backends import (  # noqa: E402
+    DispatchPolicy,
+    GemvKey,
+    GemvProgram,
+    get_backend,
+)
+from repro_torch.kernels.backends.base import expert_batch_bound  # noqa
+from repro_torch.kernels.backends.gpu import plan_triton_gemv  # noqa: E402
 from repro_torch.kernels.grouped_gemv import (  # noqa: E402
     counts_to_offsets,
     grouped_gemv,
@@ -106,6 +127,10 @@ from repro_torch.kernels.quant_gemv import (  # noqa: E402
 from repro_torch.kernels.splitk_gemv import (  # noqa: E402
     splitk_gemv,
     splitk_gemv_plain,
+)
+from repro_torch.kernels.triton_gemv import (  # noqa: E402
+    triton_gemv,
+    triton_gemv_plain,
 )
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -156,6 +181,10 @@ KERNELS = {
         fn=ragged_gemv, plain=ragged_gemv_plain,
         source="src/repro_torch/csrc/grouped_gemv.cu",
         replaces="src/repro/kernels/grouped_gemv.py:215"),
+    "triton_gemv": dict(
+        fn=triton_gemv, plain=triton_gemv_plain,
+        source="src/repro_torch/csrc/triton_gemv.cu",
+        replaces="src/repro/kernels/triton_gemv.py:78"),
 }
 FLOAT_KERNELS = ("pim_gemv", "splitk_gemv")     # the bf16 engine's path
 QUANT_KERNELS = ("quant_gemv", "quant4_gemv")
@@ -169,6 +198,15 @@ MOE_E, MOE_TOPK = 64, 6
 MOE_SHAPES = {"gate_up": (2048, 1408, 56), "down": (1408, 2048, 28)}
 MOE_C = 8          # grouped rows per expert at one decode slot (_capacity)
 MOE_GROUPED_TOKENS = 16
+MOE_GPU_TOKENS = 16
+
+# triton_gemv: olmo-1b's four decode GEMV shapes and deepseek-moe-16b's
+# head (K, M, calls per decode step on its path; the gpu backend sends
+# only the heads to the kernel), checked at these batches in bf16 and
+# timed at all of them; f32 and a column view are checked at batch 8
+TRITON_SHAPES = {**SHAPES, "moe_head": (2048, 102400, 1)}
+TRITON_BATCHES = (1, 3, 8, 11)
+AUTOTUNE_TABLE = ROOT / "build" / "autotune_smoke.json"
 
 
 def log(*a) -> None:
@@ -386,6 +424,92 @@ def check_quant_kernels(dev, sms: int) -> list[dict]:
     return rows
 
 
+def check_triton_kernels(dev) -> list[dict]:
+    """triton_gemv at olmo-1b's decode GEMV shapes and deepseek-moe-16b's
+    head, batch 1, 3, 8, 11 in bf16: each against its plain version, then
+    timed beside its bound, the plain version, ``pim_gemv`` (where it
+    takes the batch) and ``torch.matmul``; then at batch 8 in f32 and on a
+    column view of a weight twice as wide (checked only)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    rows = []
+    for shape, (K, M, per_step) in TRITON_SHAPES.items():
+        w_bytes = K * M * 2
+        n_copies = max(2, math.ceil(2 * L2_BYTES / w_bytes) + 1)
+        ws = [(torch.randn((K, M), generator=gen, device=dev)
+               / math.sqrt(K)).to(torch.bfloat16) for _ in range(n_copies)]
+        for B in TRITON_BATCHES:
+            x = torch.randn((B, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            plan = plan_triton_gemv(M, K, B)
+            out = triton_gemv(x, ws[0], plan=plan)
+            torch.cuda.synchronize()
+            max_err = check_close("triton_gemv", f"{shape} B={B}", out,
+                                  triton_gemv_plain(x, ws[0], plan.k_blk))
+            calls = 100 if w_bytes < 100e6 else 40
+
+            def run(i, plan=plan, x=x):
+                triton_gemv(x, ws[i % n_copies], plan=plan)
+
+            def run_plain(i, k_blk=plan.k_blk, x=x):
+                triton_gemv_plain(x, ws[i % n_copies], k_blk)
+
+            def run_lib(i, x=x):
+                torch.matmul(x, ws[i % n_copies])
+
+            pim_ms = None
+            if B <= 8:
+                pplan = plan_gemv(M, K, B, elem_bytes=2)
+
+                def run_pim(i, pplan=pplan, x=x):
+                    pim_gemv(x, ws[i % n_copies], plan=pplan)
+
+                pim_ms = graph_ms(run_pim, calls)
+            io_bytes = (K * M + B * K + B * M) * 2
+            row = dict(
+                kernel="triton_gemv", shape=shape, K=K, M=M, B=B,
+                per_step=per_step, plan=dict(m_blk=plan.m_blk,
+                                             k_blk=plan.k_blk,
+                                             ctas=plan.n_m),
+                max_abs_err=max_err, ms=graph_ms(run, calls),
+                plain_ms=graph_ms(run_plain, max(calls // 4, 10)),
+                library_ms=graph_ms(run_lib, calls), pim_ms=pim_ms,
+                bytes_ms=io_bytes / HBM_BYTES_PER_S * 1e3,
+                ops_ms=2 * B * K * M / BF16_FLOPS * 1e3)
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["ops_ms"]
+                               else "operations")
+            row["hbm_share"] = row["bound_ms"] / row["ms"]
+            rows.append(row)
+            log(f"  triton_gemv  {shape:8s} B={B:2d} m_blk={plan.m_blk} "
+                f"ctas={plan.n_m} err={max_err:.2e} ms={row['ms']:.4f} "
+                f"bound={row['bound_ms']:.4f} ({row['hbm_share']:.0%}) "
+                f"plain={row['plain_ms']:.4f} pim="
+                + (f"{pim_ms:.4f}" if pim_ms is not None else "n/a")
+                + f" matmul={row['library_ms']:.4f}")
+        # f32 (scalar FMAs) and a column view, at batch 8
+        plan = plan_triton_gemv(M, K, 8)
+        x32 = torch.randn((8, K), generator=gen, device=dev)
+        w32 = ws[0].float()
+        err32 = check_close("triton_gemv", f"{shape} f32 B=8",
+                            triton_gemv(x32, w32, plan=plan),
+                            triton_gemv_plain(x32, w32, plan.k_blk))
+        del w32
+        wide = torch.cat([ws[1], ws[0]], dim=1)
+        x = torch.randn((8, K), generator=gen, device=dev).to(torch.bfloat16)
+        out = triton_gemv(x, wide[:, M:], plan=plan)
+        if not torch.equal(out, triton_gemv(x, ws[0], plan=plan)):
+            raise AssertionError(f"triton_gemv {shape}: the column view "
+                                 f"differs from the contiguous weight")
+        check_close("triton_gemv", f"{shape} column view B=8", out,
+                    triton_gemv_plain(x, ws[0], plan.k_blk))
+        log(f"  triton_gemv  {shape:8s} f32 B=8 err={err32:.2e}; column "
+            f"view (row stride {2 * M}) equal to the contiguous weight")
+        rows[-1]["f32_max_abs_err"] = err32
+        del ws, wide
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4 / 5: the engine
 # ---------------------------------------------------------------------------
@@ -477,10 +601,35 @@ def log_profile(p: dict | None) -> None:
         log(f"    {t['ms_per_step']:8.3f} ms/step  {t['name']}")
 
 
-def run_engine(cfg, params, dev, kv_store: str = "fp") -> dict:
+def decode_sites(cfg) -> dict[str, tuple[int, int, int]]:
+    """(M, K, calls per decode step) of every GEMV a decode step sends
+    through the dispatcher outside the routed experts: the fused QKV and
+    gate+up programs (an MoE layer's shared experts), down, the head."""
+    d, L = cfg.d_model, cfg.n_layers
+    ff = cfg.d_ff if cfg.moe is None else cfg.moe.n_shared * cfg.moe.d_expert
+    return {"qkv": ((cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd, d, L),
+            "gate_up": (2 * ff, d, L), "down": (d, ff, L),
+            "head": (cfg.vocab, d, 1)}
+
+
+def triton_per_step(cfg, policy, batch: int) -> tuple[int, dict]:
+    """triton_gemv launches one decode step at ``batch`` makes, from the
+    gpu backend's picks for the step's GEMVs (a fused program runs the
+    kernel its concatenated shape picks)."""
+    be = get_backend("gpu")
+    picks = {name: be.select_kernel(M, K, batch, policy=policy)[0]
+             for name, (M, K, _) in decode_sites(cfg).items()}
+    n = sum(calls for name, (_, _, calls) in decode_sites(cfg).items()
+            if picks[name] == "triton")
+    return n, picks
+
+
+def run_engine(cfg, params, dev, kv_store: str = "fp", *,
+               backend: str = "h100", new_tokens: int = 64) -> dict:
+    kw = dict(gemv_backend=backend)
     # warm-up: first calls of every op and both decode buckets
     warm = serve(cfg, params, dev, [16, 40, 24, 8, 64, 32, 12, 20], 3, 1,
-                 kv_store)
+                 kv_store, **kw)
     warm.run_until_drained()
     del warm
     # an engine whose sampler check_finite_logits wrapped sits in a
@@ -490,7 +639,7 @@ def run_engine(cfg, params, dev, kv_store: str = "fp") -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
 
     lengths = ENGINE_LENGTHS
-    eng = serve(cfg, params, dev, lengths, 64, SEED, kv_store)
+    eng = serve(cfg, params, dev, lengths, new_tokens, SEED, kv_store, **kw)
     seen = check_finite_logits(eng)
     dispatch.clear_plan_cache()
     reset_launches()
@@ -500,28 +649,50 @@ def run_engine(cfg, params, dev, kv_store: str = "fp") -> dict:
     wall_s = time.perf_counter() - t0
     counts = launches()
     stats = dispatch.dispatch_stats()
-    if len(done) != len(lengths) or any(len(r.generated) != 64
+    if len(done) != len(lengths) or any(len(r.generated) != new_tokens
                                         for r in done):
         raise AssertionError(
-            f"expected {len(lengths)} requests x 64 tokens, got "
+            f"expected {len(lengths)} requests x {new_tokens} tokens, got "
             f"{[(r.rid, len(r.generated)) for r in done]}")
-    need = ("ragged_gemv",) if cfg.moe is not None else FLOAT_KERNELS
+    need = ("triton_gemv",) if backend == "gpu" else FLOAT_KERNELS
+    if cfg.moe is not None:
+        need = ("ragged_gemv",) + (need if backend == "gpu" else ())
     if not all(counts[n] for n in need):
         raise AssertionError(f"a kernel never launched on the main path: "
                              f"{counts}")
-    doc = eng.metrics.to_dict(include_steps=False)
+    doc = eng.metrics.to_dict(include_steps=True)
     steps = doc["counters"]["decode_steps"]
+    extra = {}
     if cfg.moe is not None:
         # every routed projection of every decode step: gate, up and down
         # in each layer, each one ragged_gemv launch in the native mode
         modes = stats["program_modes"]
+        native = f"{backend}:ragged_" + ("triton" if backend == "gpu"
+                                         else "cuda")
         if (counts["ragged_gemv"] != 3 * cfg.n_layers * steps
-                or "h100:ragged" in modes
-                or not modes.get("h100:ragged_cuda")):
+                or f"{backend}:ragged" in modes or not modes.get(native)):
             raise AssertionError(
                 f"{steps} decode steps launched ragged_gemv "
                 f"{counts['ragged_gemv']} times (expected "
                 f"{3 * cfg.n_layers * steps}); program modes {modes}")
+    if backend == "gpu":
+        # the decode steps' triton_gemv launches equal what the picks of
+        # each step's batch predict (prefill rows exceed the batch gate)
+        batches = [st["decode_batch"] for st in doc["steps"]
+                   if st["decode_batch"]]
+        per_batch = {b: triton_per_step(cfg, eng.gemv_policy, b)
+                     for b in sorted(set(batches))}
+        want = sum(per_batch[b][0] for b in batches)
+        if counts["triton_gemv"] != want or min(
+                n for n, _ in per_batch.values()) < 1:
+            raise AssertionError(
+                f"{steps} decode steps launched triton_gemv "
+                f"{counts['triton_gemv']} times; the picks predict {want}: "
+                f"{per_batch}")
+        extra = {"triton_picks_by_batch": {
+            str(b): {"per_step": n, "picks": picks}
+            for b, (n, picks) in per_batch.items()}}
+    doc.pop("steps")
     kv_leaves = {n: t for n, t in eng.kv.cache.items() if n != "pos"}
     res = {
         "kv_store": kv_store,
@@ -540,9 +711,10 @@ def run_engine(cfg, params, dev, kv_store: str = "fp") -> dict:
         "launches": counts,
         "launches_per_step": {k: v / steps for k, v in counts.items()},
         "dispatch": stats,
+        **extra,
     }
     # device-time breakdown over three decode steps at batch 8
-    prof_eng = serve(cfg, params, dev, lengths, 8, SEED + 1, kv_store)
+    prof_eng = serve(cfg, params, dev, lengths, 8, SEED + 1, kv_store, **kw)
     prof_eng.step()                          # prefill + first decode step
     res["profile"] = profile_decode(prof_eng, doc["per_token_ms"]["p50"])
     return res
@@ -1024,6 +1196,115 @@ def run_moe_grouped(cfg, params, dev, ragged_generated: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# autotune: measured selection, persisted and replayed
+# ---------------------------------------------------------------------------
+
+
+def run_autotune(dev) -> dict:
+    """Tune every olmo-1b decode GEMV at batch 8 and two programs (fused
+    QKV; deepseek-moe-16b's ragged gate/up experts, top-6 of 8 tokens) on
+    the h100 and gpu backends into a table under ``build/``; then clear
+    table and plan cache, reload the file, dispatch again untuned, and
+    fail unless every pick is the table's winner.  Each winner is reported
+    beside the cost model's pick and both times (the tuner's best of 3
+    wall-clock calls on its own synthetic inputs, weights L2-warm below
+    50 MB)."""
+    AUTOTUNE_TABLE.unlink(missing_ok=True)
+    dispatch.clear_autotune_table()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    B = 8
+    gemvs = {name: (PackedWeights(w_t=rand(K, M)), rand(B, K))
+             for name, (K, M, _) in SHAPES.items()}
+    splits = (2048, 2048, 2048)
+    qkv = PackedWeights(w_t=rand(2048, sum(splits)))
+    xq = rand(B, 2048)
+    K, M, _ = MOE_SHAPES["gate_up"]
+    T, counts = moe_routings()["top6_b8"]
+    stack = PackedWeights(w_t=rand(MOE_E, K, M))
+    xr = rand(T, K)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+    bound = expert_batch_bound(8, MOE_TOPK, MOE_E)
+
+    def run(policy):
+        """Every case through the dispatcher; yields (case, program key or
+        GEMV key, dispatch_stats of that case alone)."""
+        for name, (pw, x) in gemvs.items():
+            dispatch.clear_plan_cache()
+            dispatch.dispatch_gemv(x, pw, policy=policy)
+            K, M = pw.shape
+            yield name, GemvKey(M=M, K=K, batch=B, bits=16, block=32,
+                                dtype=str(x.dtype), backend=policy.backend
+                                ), dispatch.dispatch_stats()
+        dispatch.clear_plan_cache()
+        dispatch.dispatch_prepacked(xq, qkv, splits, policy=policy)
+        yield "qkv_program", GemvProgram(
+            kind="fused", x=xq, weights=qkv, m_splits=splits,
+            requests=()).key(policy.backend), dispatch.dispatch_stats()
+        dispatch.clear_plan_cache()
+        dispatch.dispatch_ragged(xr, cnt, stack, bound=bound, policy=policy)
+        yield "ragged_program", GemvProgram.ragged(
+            xr, cnt, stack, bound=bound).key(policy.backend), \
+            dispatch.dispatch_stats()
+
+    table = dispatch.autotune_table()
+    res = {"table": str(AUTOTUNE_TABLE.relative_to(ROOT)), "cases": []}
+    for backend in ("h100", "gpu"):
+        tune = DispatchPolicy(backend=backend, autotune=True,
+                              table_path=str(AUTOTUNE_TABLE))
+        model = DispatchPolicy(backend=backend)
+        be = get_backend(backend)
+        for case, key, _ in run(tune):
+            if isinstance(key, GemvKey):
+                entry = table.get(backend, key.table_key())
+                pick = be.select_kernel(key.M, key.K, key.batch,
+                                        policy=model)[0]
+                winner = entry["kernel"]
+            else:
+                entry = table.get_program(backend, key.table_key())
+                pick = be.plan_program(key, policy=model).mode
+                winner = entry["mode"]
+            row = {"backend": backend, "case": case,
+                   "key": key.table_key(), "winner": winner,
+                   "winner_us": entry["us"], "model_pick": pick,
+                   "model_pick_us": entry["candidates_us"][pick],
+                   "candidates_us": entry["candidates_us"], "entry": entry}
+            res["cases"].append(row)
+            log(f"  {backend:4s} {case:14s} winner {winner:13s} "
+                f"{entry['us']:8.1f} us; cost model {pick:13s} "
+                f"{row['model_pick_us']:8.1f} us; all "
+                + ", ".join(f"{k} {v:.1f}"
+                            for k, v in entry["candidates_us"].items()))
+    # replay: a fresh process's view of the file
+    dispatch.clear_autotune_table()
+    dispatch.clear_plan_cache()
+    dispatch.load_autotune_table(str(AUTOTUNE_TABLE))
+    want = {(r["backend"], r["case"]): r["winner"] for r in res["cases"]}
+    got = {}
+    for backend in ("h100", "gpu"):
+        for case, key, stats in run(DispatchPolicy(backend=backend)):
+            section = ("kernel_picks" if isinstance(key, GemvKey)
+                       else "program_modes")
+            picked = [k.split(":", 1)[1] for k in stats[section]]
+            got[(backend, case)] = picked[0] if len(picked) == 1 else picked
+    if got != want:
+        raise AssertionError(f"replayed picks {got} differ from the "
+                             f"table's winners {want}")
+    res["replayed_equal"] = True
+    log(f"  replayed from {res['table']}: all {len(got)} picks equal the "
+        f"table's winners")
+    dispatch.clear_autotune_table()
+    dispatch.clear_plan_cache()
+    del gemvs, qkv, stack
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(rows: list[dict], launch_counts: dict) -> dict:
@@ -1032,11 +1313,13 @@ def kernels_line(rows: list[dict], launch_counts: dict) -> dict:
     (each shape weighted by its calls per step) that the h100 backend --
     as the TPU backend -- sends to the kernel (for the float kernels the
     bf16 engine's picks, for the quant kernels every GEMV of the quantized
-    pass); for ``ragged_gemv`` one deepseek-moe-16b step at batch 8 (the
+    pass; for ``triton_gemv`` the gpu backend's pick, the head); for
+    ``ragged_gemv`` one deepseek-moe-16b step at batch 8 (the
     top-6 routing of 8 tokens), for ``grouped_gemv`` one at batch 1 (C=8).
     ``launches`` is the count from the run of the kernel's own path."""
     picks = {"pim_gemv": ("gate_up", "head"), "splitk_gemv": ("qkv", "down"),
-             "quant_gemv": tuple(SHAPES), "quant4_gemv": tuple(SHAPES)}
+             "quant_gemv": tuple(SHAPES), "quant4_gemv": tuple(SHAPES),
+             "triton_gemv": ("head",)}
 
     def in_step(name, r):
         if name == "ragged_gemv":
@@ -1070,7 +1353,8 @@ def kernels_line(rows: list[dict], launch_counts: dict) -> dict:
                                  for s in picks[name]))
             keys = ("shape", "K", "M", "B", "ms", "plain_ms", "library_ms",
                     "bound_ms", "max_abs_err") + (
-                        ("bf16_matmul_ms", "plan") if quant else ())
+                        ("bf16_matmul_ms", "plan") if quant else ()) + (
+                        ("pim_ms", "plan") if name == "triton_gemv" else ())
         entry = {
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
@@ -1134,6 +1418,9 @@ def main() -> int:
     rows = check_kernels(dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows += check_quant_kernels(dev, sms)
+    log("[gpu kernels] triton_gemv against its plain version (rtol 2^-7, "
+        "atol 1e-3), then timed beside pim_gemv and torch.matmul")
+    rows += check_triton_kernels(dev)
 
     cfg = get_config("olmo-1b")
     log(f"[engine] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
@@ -1177,6 +1464,23 @@ def main() -> int:
             f"{engine['kv_bytes_per_slot'] / 1e6:.2f} MB), greedy tokens "
             f"agreeing with fp {e['agreement_with_fp']}")
         log_profile(e["profile"])
+
+    gpu = run_engine(cfg, params, dev, backend="gpu")
+    gpu["agreement_with_h100"] = token_agreement(engine["generated"],
+                                                 gpu["generated"])
+    pt, ttft = gpu["per_token_ms"], gpu["ttft_ms"]
+    log(f"[gpu engine] Engine(gemv_backend='gpu'): requests "
+        f"{gpu['requests']}, tokens {gpu['tokens']}, per-token p50 "
+        f"{pt['p50']:.2f} ms p90 {pt['p90']:.2f} ms, TTFT p50 "
+        f"{ttft['p50']:.1f} ms, peak {gpu['peak_mem_gb']:.2f} GB")
+    log(f"  kernel_picks {json.dumps(gpu['dispatch']['kernel_picks'])}; "
+        f"program_kernels "
+        f"{json.dumps(gpu['dispatch']['program_kernels'])}; triton_gemv "
+        f"launches {gpu['launches']['triton_gemv']} in "
+        f"{gpu['decode_steps']} decode steps, as the picks predict "
+        f"{json.dumps(gpu['triton_picks_by_batch'])}; greedy tokens "
+        f"agreeing with the h100 engine {gpu['agreement_with_h100']}")
+    log_profile(gpu["profile"])
 
     del params
     gc.collect()
@@ -1231,13 +1535,36 @@ def main() -> int:
         f"{json.dumps(grouped['program_modes'])}; greedy tokens agreeing "
         f"with the ragged engine {grouped['agreement_with_ragged']}")
 
+    moe_gpu = run_engine(mcfg, mparams, dev, backend="gpu",
+                         new_tokens=MOE_GPU_TOKENS)
+    moe_gpu["agreement_with_h100"] = token_agreement(
+        moe_gpu["generated"],
+        {rid: t[:MOE_GPU_TOKENS] for rid, t in moe["generated"].items()})
+    log(f"[moe gpu] Engine(gemv_backend='gpu'), 8 slots x "
+        f"{MOE_GPU_TOKENS} tokens: per-token p50 "
+        f"{moe_gpu['per_token_ms']['p50']:.2f} ms; launches per decode "
+        f"step {moe_gpu['launches_per_step']}; program_modes "
+        f"{json.dumps(moe_gpu['dispatch']['program_modes'])}; "
+        f"kernel_picks {json.dumps(moe_gpu['dispatch']['kernel_picks'])}; "
+        f"triton_gemv as predicted "
+        f"{json.dumps(moe_gpu['triton_picks_by_batch'])}; greedy tokens "
+        f"agreeing with the h100 engine {moe_gpu['agreement_with_h100']}")
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[autotune] olmo-1b's decode GEMVs at batch 8, a fused QKV and a "
+        f"ragged expert program, on h100 and gpu, into {AUTOTUNE_TABLE}")
+    autotune = run_autotune(dev)
+
     launch_counts = {**{n: engine["launches"][n] for n in FLOAT_KERNELS},
                      "quant_gemv":
                          quant["passes"]["w8"]["launches"]["quant_gemv"],
                      "quant4_gemv":
                          quant["passes"]["w4"]["launches"]["quant4_gemv"],
                      "ragged_gemv": moe["launches"]["ragged_gemv"],
-                     "grouped_gemv": grouped["launches"]["grouped_gemv"]}
+                     "grouped_gemv": grouped["launches"]["grouped_gemv"],
+                     "triton_gemv": gpu["launches"]["triton_gemv"]}
     line = kernels_line(rows, launch_counts)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1245,7 +1572,8 @@ def main() -> int:
         device=dict(name=name, count=count, nvidia_smi=card),
         build_s=build_s, kernel_rows=rows, engine=engine, logits=logits,
         quant_dispatch=quant, kv=kv, moe_engine=moe, moe_logits=moe_logits,
-        moe_grouped=grouped, kernels=line["kernels"],
+        moe_grouped=grouped, gpu_engine=gpu, moe_gpu=moe_gpu,
+        autotune=autotune, kernels=line["kernels"],
         total_s=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))

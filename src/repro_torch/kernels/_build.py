@@ -26,12 +26,14 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-SOURCES = ("pim_gemv", "splitk_gemv", "quant_gemv", "grouped_gemv")
+SOURCES = ("pim_gemv", "splitk_gemv", "quant_gemv", "grouped_gemv",
+           "triton_gemv")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# C signatures: (x, w_t, out, B, K, M, ld, m_blk, k_blk, stream), the
+# C signatures: (x, w_t, out, B, K, M, ld, m_blk, k_blk, stream) for the
+# output-stationary and the column-block (triton_gemv) kernels, the
 # split-K form with the partials buffer and the degree, and the quant form
 # (x, codes, scales, out, B, K, M, ldw, lds, block, m_blk, k_blk, stream),
 # and the expert forms (xs, w, out, E, C, K, M, ld, es, m_blk, k_blk,
@@ -50,6 +52,10 @@ _SIGNATURES = {
     "quant_gemv": {
         f"{k}_{t}": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)
         for k in ("quant_gemv", "quant4_gemv") for t in ("bf16", "f32")
+    },
+    "triton_gemv": {
+        f"triton_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+        for t in ("bf16", "f32")
     },
     "grouped_gemv": {
         **{f"grouped_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I,

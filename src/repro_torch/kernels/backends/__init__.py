@@ -1,8 +1,10 @@
-"""GEMV backends: the contract plus the ``cpu`` and ``h100`` targets."""
+"""GEMV backends: the contract plus the ``cpu``, ``h100`` and ``gpu``
+targets."""
 
-from repro_torch.kernels.backends import cpu, h100  # noqa: F401 (register)
+from repro_torch.kernels.backends import cpu, gpu, h100  # noqa: F401
 from repro_torch.kernels.backends.base import (
     DEFAULT_POLICY,
+    AutotuneTable,
     CostModel,
     DispatchPolicy,
     GemvBackend,
@@ -17,8 +19,9 @@ from repro_torch.kernels.backends.base import (
 )
 
 __all__ = [
-    "DEFAULT_POLICY", "CostModel", "DispatchPolicy", "GemvBackend", "GemvKey",
-    "GemvProgram", "GemvRequest", "ProgramKey", "ProgramPlan",
+    "DEFAULT_POLICY", "AutotuneTable", "CostModel", "DispatchPolicy",
+    "GemvBackend", "GemvKey", "GemvProgram", "GemvRequest", "ProgramKey",
+    "ProgramPlan",
     "get_backend", "register_backend",
     "resolve_backend",
 ]

@@ -8,20 +8,33 @@ packed int4) and scale ``block``; a quantized weight's ``ref`` path is the
 block-scale dequant oracle.  Programs come in the JAX package's three
 kinds: ``fused`` (shared-input projections), ``grouped`` (an expert stack
 with a uniform C rows per expert) and ``ragged`` (an expert-sorted flat
-buffer with per-expert counts).  Autotune tables, calibration, quantized
-expert stacks and sharding are not ported yet.
+buffer with per-expert counts); a quantized expert stack runs on the
+portable executors, dequantized per expert.
+
+Measured selection: :class:`AutotuneTable` is the JAX package's format-3
+JSON table (per-backend namespaces of single-GEMV and program winners,
+plus a ``calibration`` section kept as data), and
+:meth:`GemvBackend.autotune_gemv` / :meth:`GemvBackend.autotune_program`
+time a backend's candidates on synthetic inputs and persist the winner.
+Table keys and plan entries are the JAX package's, so either package
+reads the other's table.  Calibration (fitting the constants) and sharding
+are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
 import math
+import os
 import threading
+import time
 from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels.gemv_plan import GemvPlan
-from repro_torch.kernels.ops import PackedWeights
+from repro_torch.kernels.ops import PackedWeights, pack_fused, quantize_weight
 
 
 @dataclass(frozen=True)
@@ -63,7 +76,10 @@ class DispatchPolicy:
 
     ``backend=None`` resolves from the input's device (``cuda`` -> h100,
     ``cpu`` -> cpu).  ``kernel="auto"`` uses the backend's cost model; any
-    other value pins one of the backend's kernels.  ``use_pallas=False``
+    other value pins one of the backend's kernels.  ``autotune=True``
+    replaces the cost model with measured timings, memoized per backend
+    namespace in the JSON table at ``table_path`` when set.
+    ``use_pallas=False``
     (the JAX package's name) keeps auto selection and MoE expert programs
     off the hand-written kernels.  ``expert_shape`` picks the MoE decode
     execution shape: ``"ragged"`` (the capacity-free expert-sorted buffer),
@@ -74,6 +90,8 @@ class DispatchPolicy:
 
     kernel: str = "auto"
     backend: str | None = None
+    autotune: bool = False
+    table_path: str | None = None
     use_pallas: bool = True
     batch_threshold: int = 8         # above this decode is matmul-shaped
     min_pallas_bytes: int = 1 << 20  # tiny weights: launch cost dominates
@@ -95,6 +113,16 @@ class GemvKey:
     block: int
     dtype: str
     backend: str
+
+    def table_key(self) -> str:
+        """The autotune-table key, the JAX package's (``dtype`` without the
+        ``torch.`` prefix; the namespace carries the backend)."""
+        return (f"{self.M}x{self.K}xb{self.batch}_w{self.bits}g{self.block}"
+                f"_{_dtype_name(self.dtype)}")
+
+
+def _dtype_name(dtype: str) -> str:
+    return dtype.removeprefix("torch.")
 
 
 @dataclass(frozen=True)
@@ -139,6 +167,16 @@ class ProgramKey:
         return (sum(self.Ms) if self.kind == "fused"
                 else self.group * self.Ms[0])
 
+    def table_key(self) -> str:
+        """The JAX package's program key of the table's ``programs``
+        section."""
+        ms = "+".join(str(m) for m in self.Ms)
+        base = (f"{self.kind}[{ms}]x{self.K}xb{self.batch}_e{self.group}"
+                f"_w{self.bits}g{self.block}_{_dtype_name(self.dtype)}")
+        if self.kind == "ragged":
+            return f"{base}_t{self.tokens}.{self.hist}"
+        return base
+
 
 @dataclass(frozen=True)
 class GemvProgram:
@@ -169,6 +207,17 @@ class GemvProgram:
     # per-expert bound used as the costing batch (expert_batch_bound)
     counts: torch.Tensor | None = None
     bound: int = 0
+
+    @classmethod
+    def fused(cls, x: torch.Tensor,
+              members: "list[PackedWeights]") -> "GemvProgram":
+        """Shared-input projections: the members concatenated along M (one
+        copy; hot paths prepack instead)."""
+        fused_pw, splits = pack_fused(members)
+        reqs = tuple(GemvRequest(x=x, weights=pw, tag=f"m{i}")
+                     for i, pw in enumerate(members))
+        return cls(kind="fused", x=x, weights=fused_pw, m_splits=splits,
+                   requests=reqs)
 
     @classmethod
     def grouped(cls, xs: torch.Tensor,
@@ -254,9 +303,306 @@ class ProgramPlan:
     plan: GemvPlan | None = None
 
 
+def key_dtype(dtype_name: str) -> torch.dtype:
+    """The torch dtype a key's dtype string names (with or without the
+    ``torch.`` prefix: a JAX-written key has none)."""
+    return getattr(torch, _dtype_name(dtype_name))
+
+
 def dtype_bytes(dtype_name: str) -> int:
     """Element size of a key's dtype string (``"torch.bfloat16"`` -> 2)."""
-    return getattr(torch, dtype_name.removeprefix("torch.")).itemsize
+    return key_dtype(dtype_name).itemsize
+
+
+# ---------------------------------------------------------------------------
+# Autotune table entries
+# ---------------------------------------------------------------------------
+
+
+def entry_to_plan(entry: dict) -> tuple[str, GemvPlan | None]:
+    """Rebuild a (kernel, plan) decision from a table entry.  The JAX keys
+    (``m_blk, k_blk, n_m, n_k, split_k``) carry the plan; the port's
+    ``smem_bytes`` / ``stages`` sit beside them (absent from a JAX-written
+    entry, whose TPU ``vmem_bytes`` / ``pipeline_depth`` mean nothing
+    here)."""
+    if entry.get("m_blk") is None:
+        return entry["kernel"], None
+    return entry["kernel"], GemvPlan(
+        m_blk=entry["m_blk"], k_blk=entry["k_blk"], n_m=entry["n_m"],
+        n_k=entry["n_k"], smem_bytes=entry.get("smem_bytes", 0),
+        split_k=entry.get("split_k", 1), stages=entry.get("stages", 1))
+
+
+def plan_to_entry(kernel: str, plan: GemvPlan | None,
+                  elapsed_us: float) -> dict:
+    entry = {"kernel": kernel, "us": elapsed_us}
+    if plan is not None:
+        entry.update(m_blk=plan.m_blk, k_blk=plan.k_blk, n_m=plan.n_m,
+                     n_k=plan.n_k, split_k=plan.split_k,
+                     smem_bytes=plan.smem_bytes, stages=plan.stages)
+    return entry
+
+
+def program_plan_to_entry(pplan: ProgramPlan, elapsed_us: float) -> dict:
+    entry = {"mode": pplan.mode, "n_launches": pplan.n_launches,
+             "us": elapsed_us}
+    if pplan.kernel:
+        entry.update(plan_to_entry(pplan.kernel, pplan.plan, elapsed_us))
+    return entry
+
+
+def entry_to_program_plan(entry: dict) -> ProgramPlan:
+    if entry.get("kernel"):
+        kernel, plan = entry_to_plan(entry)
+        return ProgramPlan(mode=entry["mode"], n_launches=entry["n_launches"],
+                           kernel=kernel, plan=plan)
+    return ProgramPlan(mode=entry["mode"], n_launches=entry["n_launches"])
+
+
+# ---------------------------------------------------------------------------
+# Synthetic inputs: the autotuner never times the caller's tensors
+# ---------------------------------------------------------------------------
+
+
+def _synth_weight(gen: torch.Generator, M: int, K: int, key,
+                  device: torch.device) -> PackedWeights:
+    w = torch.randn((M, K), generator=gen, device=device)
+    if key.bits < 16:
+        return quantize_weight(w, bits=key.bits, block=key.block)
+    return PackedWeights(w_t=w.t().contiguous().to(key_dtype(key.dtype)))
+
+
+def synthesize_gemv(key: GemvKey, device: torch.device
+                    ) -> tuple[torch.Tensor, PackedWeights]:
+    """Random ``(x, packed weights)`` matching a single-GEMV key, on
+    ``device``, from a seeded generator."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((key.batch, key.K), generator=gen, device=device)
+    return (x.to(key_dtype(key.dtype)),
+            _synth_weight(gen, key.M, key.K, key, device))
+
+
+def _synthesize_program(key: ProgramKey,
+                        device: torch.device) -> GemvProgram:
+    """A program with random data matching a key, on ``device``.  A ragged
+    one gets balanced counts with the remainder on expert 0: a
+    representative distribution, not an adversarial one."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    dtype = key_dtype(key.dtype)
+
+    def x_of(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    if key.kind in ("ragged", "grouped"):
+        rows = ((key.tokens or key.batch * key.group,)
+                if key.kind == "ragged" else (key.group, key.batch))
+        x = x_of(*rows, key.K)
+        stacked = PackedWeights.stack([
+            _synth_weight(gen, key.Ms[0], key.K, key, device)
+            for _ in range(key.group)])
+        if key.kind == "grouped":
+            return GemvProgram.grouped(x, stacked)
+        base_c, rem = divmod(rows[0], key.group)
+        counts = torch.full((key.group,), base_c, dtype=torch.int32,
+                            device=device)
+        counts[0] += rem
+        return GemvProgram.ragged(x, counts, stacked, bound=key.batch)
+    x = x_of(key.batch, key.K)
+    return GemvProgram.fused(x, [_synth_weight(gen, M, key.K, key, device)
+                                 for M in key.Ms])
+
+
+# ---------------------------------------------------------------------------
+# Autotune table: per-backend namespaces, one JSON file
+# ---------------------------------------------------------------------------
+
+# the JAX package's format: v3 has the per-backend "programs" section; v2
+# namespaced single-GEMV tables and v1 flat files still load
+_TABLE_FORMAT = 3
+
+
+class AutotuneTable:
+    """Measured (kernel, plan) winners, namespaced per backend: the JAX
+    package's format-3 document::
+
+        {"format": 3,
+         "tables":      {"h100": {<shape key>: entry, ...}, "gpu": {...}},
+         "programs":    {"h100": {<program key>: entry, ...}, ...},
+         "calibration": {"cpu": {"constants": {...}, ...}}}
+
+    Tuners on different backends merge into one file without key
+    collisions.  ``calibration`` holds fitted constants; this package keeps
+    it as data (fitting and applying them is not ported).  Top-level
+    sections it does not know are kept verbatim through load and save.
+    All mutation holds a lock.
+    """
+
+    _KNOWN_SECTIONS = ("format", "tables", "programs", "calibration")
+    # v1 keys ended with the platform the tuner ran on
+    _V1_KEY_SUFFIXES = ("cpu", "tpu", "gpu", "cuda", "rocm")
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._tables: dict[str, dict[str, dict]] = {}
+        self._programs: dict[str, dict[str, dict]] = {}
+        self._calibration: dict[str, dict] = {}
+        self._extras: dict = {}
+        self._loaded_paths: set[str] = set()
+
+    # -- in-memory access ---------------------------------------------------
+
+    def get(self, namespace: str, key: str) -> dict | None:
+        with self._lock:
+            entry = self._tables.get(namespace, {}).get(key)
+            return dict(entry) if entry is not None else None
+
+    def put(self, namespace: str, key: str, entry: dict) -> None:
+        with self._lock:
+            self._tables.setdefault(namespace, {})[key] = dict(entry)
+
+    def get_program(self, namespace: str, key: str) -> dict | None:
+        with self._lock:
+            entry = self._programs.get(namespace, {}).get(key)
+            return dict(entry) if entry is not None else None
+
+    def put_program(self, namespace: str, key: str, entry: dict) -> None:
+        with self._lock:
+            self._programs.setdefault(namespace, {})[key] = dict(entry)
+
+    def snapshot(self) -> dict[str, dict[str, dict]]:
+        with self._lock:
+            return {ns: {k: dict(e) for k, e in t.items()}
+                    for ns, t in self._tables.items()}
+
+    def snapshot_programs(self) -> dict[str, dict[str, dict]]:
+        with self._lock:
+            return {ns: {k: dict(e) for k, e in t.items()}
+                    for ns, t in self._programs.items()}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._tables.clear()
+            self._programs.clear()
+            self._calibration.clear()
+            self._extras.clear()
+            self._loaded_paths.clear()
+
+    # -- persistence --------------------------------------------------------
+
+    @classmethod
+    def _parse(cls, doc: dict):
+        """``(tables, programs, calibration, extras)`` of a v3/v2 document,
+        or of a v1 flat table (suffixed shape keys; loaded into the ``tpu``
+        namespace, the kernel set those tables named, suffix stripped)."""
+        if isinstance(doc.get("tables"), dict):
+            def section(name):
+                sec = doc.get(name, {})
+                return ({ns: dict(v) for ns, v in sec.items()}
+                        if isinstance(sec, dict) else {})
+
+            extras = {k: v for k, v in doc.items()
+                      if k not in cls._KNOWN_SECTIONS}
+            return (section("tables"), section("programs"),
+                    section("calibration"), extras)
+        flat = {}
+        for k, v in doc.items():
+            if not (isinstance(v, dict) and "kernel" in v):
+                continue
+            head, _, tail = k.rpartition("_")
+            if head and tail in cls._V1_KEY_SUFFIXES:
+                k = head
+            flat[k] = v
+        return ({"tpu": flat} if flat else {}), {}, {}, {}
+
+    def load(self, path: str) -> dict[str, dict[str, dict]]:
+        """Merge the table at ``path`` into memory; returns the single-GEMV
+        ``{backend: {key: entry}}`` section that was read."""
+        with open(path) as f:
+            tables, programs, calibration, extras = self._parse(json.load(f))
+        with self._lock:
+            for mine, theirs in ((self._tables, tables),
+                                 (self._programs, programs)):
+                for ns, entries in theirs.items():
+                    mine.setdefault(ns, {}).update(
+                        {k: dict(e) for k, e in entries.items()})
+            for ns, entry in calibration.items():
+                self._calibration[ns] = dict(entry)
+            self._extras.update(extras)
+            self._loaded_paths.add(os.path.abspath(path))
+        return tables
+
+    def ensure_loaded(self, path: str) -> None:
+        """Load ``path`` once per process, if it exists."""
+        p = os.path.abspath(path)
+        with self._lock:
+            if p in self._loaded_paths:
+                return
+            self._loaded_paths.add(p)
+        if os.path.exists(p):
+            self.load(p)
+
+    def save(self, path: str) -> None:
+        """Merge this process's namespaces into the file at ``path``:
+        read, merge per namespace and per key, write a temporary file and
+        rename it into place, all under the lock.  A tuner on one backend
+        never erases another's entries, nor entries for shapes it did not
+        tune."""
+        path = os.path.abspath(path)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with self._lock:
+            tables, programs, calibration, extras = {}, {}, {}, {}
+            try:
+                with open(path) as f:
+                    tables, programs, calibration, extras = self._parse(
+                        json.load(f))
+            except (FileNotFoundError, json.JSONDecodeError):
+                pass
+            for merged, mine in ((tables, self._tables),
+                                 (programs, self._programs)):
+                for ns, entries in mine.items():
+                    merged.setdefault(ns, {}).update(entries)
+            calibration.update(self._calibration)
+            extras.update(self._extras)
+            doc = dict(extras)
+            doc.update({"format": _TABLE_FORMAT, "tables": tables,
+                        "programs": programs})
+            if calibration:
+                doc["calibration"] = calibration
+            tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+            try:
+                with open(tmp, "w") as f:
+                    json.dump(doc, f, indent=1, sort_keys=True)
+                os.replace(tmp, path)
+            except BaseException:
+                with contextlib.suppress(OSError):
+                    os.unlink(tmp)
+                raise
+
+
+# ---------------------------------------------------------------------------
+# Timing harness
+# ---------------------------------------------------------------------------
+
+
+def time_gemv_us(run, reps: int = 3) -> float:
+    """Best-of-``reps`` wall clock (us) of a thunk returning a tensor,
+    after one warm-up call (which builds and loads a kernel on first use).
+    On the card each timed call sits between two ``synchronize()``s."""
+    out = run()
+    dev = out.device if out.is_cuda else None
+
+    def sync():
+        if dev is not None:
+            torch.cuda.synchronize(dev)
+
+    best = float("inf")
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        run()
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e6
 
 
 class GemvBackend:
@@ -295,6 +641,14 @@ class GemvBackend:
                       ) -> tuple[str, GemvPlan | None]:
         raise NotImplementedError
 
+    def coerce_plan(self, plan: GemvPlan, M: int, K: int, batch: int,
+                    pw: PackedWeights, policy: DispatchPolicy
+                    ) -> tuple[str, GemvPlan | None]:
+        """Map a caller-supplied plan (``dispatch_gemv(plan=...)``) to this
+        backend's (kernel, plan).  Default: ignore it and select."""
+        return self.select_kernel(M, K, batch, bits=pw.bits, block=pw.block,
+                                  policy=policy)
+
     def _check_pin(self, name: str, bits: int) -> None:
         if name not in self.kernels:
             raise ValueError(f"unknown kernel {name!r} for backend "
@@ -317,6 +671,101 @@ class GemvBackend:
         if pw.bits == 8:
             return ref.quant_gemv_ref(pw.w_t, pw.scales, x, pw.block)
         return ref.quant4_gemv_ref(pw.w_t, pw.scales, x, pw.block)
+
+    # -- autotune: the backend's candidates, timed on synthetic inputs ------
+
+    def autotune_candidates(self, key: GemvKey, pw: PackedWeights,
+                            policy: DispatchPolicy
+                            ) -> list[tuple[str, GemvPlan | None]]:
+        """The (kernel, plan) pairs the autotuner times: those the planners
+        accept for this shape (a shape a kernel cannot take never appears).
+        Default: ``ref`` alone."""
+        return [("ref", None)]
+
+    def autotune_gemv(self, key: GemvKey, *, policy: DispatchPolicy,
+                      table: AutotuneTable,
+                      device: torch.device) -> tuple[str, GemvPlan | None]:
+        """The table's entry for ``key`` in this backend's namespace, else
+        every candidate timed on synthetic inputs on ``device`` and the
+        fastest persisted (with each candidate's time beside it).
+
+        A candidate that fails to build or launch raises: unlike the JAX
+        package's tuner, nothing is skipped here, so a broken kernel can
+        never hide behind ``ref``.
+        """
+        if policy.table_path:
+            table.ensure_loaded(policy.table_path)
+        tkey = key.table_key()
+        entry = table.get(self.name, tkey)
+        if entry is not None:
+            return entry_to_plan(entry)
+        x, pw = synthesize_gemv(key, device)
+        timed = [(time_gemv_us(lambda k=kernel, p=plan:
+                               self.execute(k, x, pw, p)), kernel, plan)
+                 for kernel, plan in self.autotune_candidates(key, pw,
+                                                              policy)]
+        us, kernel, plan = min(timed, key=lambda t: t[0])
+        entry = plan_to_entry(kernel, plan, us)
+        entry["candidates_us"] = {k: t for t, k, _ in timed}
+        table.put(self.name, tkey, entry)
+        if policy.table_path:
+            table.save(policy.table_path)
+        return kernel, plan
+
+    def autotune_program(self, key: ProgramKey, *, policy: DispatchPolicy,
+                         table: AutotuneTable,
+                         device: torch.device) -> ProgramPlan:
+        """The planner's mode timed against the alternative on a synthetic
+        program (a ragged program against the portable ragged executor,
+        any other against its per-request form); the winner persists in
+        this backend's ``programs`` section.  A failing mode raises."""
+        if policy.table_path:
+            table.ensure_loaded(policy.table_path)
+        tkey = key.table_key()
+        entry = table.get_program(self.name, tkey)
+        if entry is not None:
+            return entry_to_program_plan(entry)
+        program = _synthesize_program(key, device)
+        cands = [self.plan_program(key, policy=policy)]
+        alt = (ProgramPlan(mode="ragged", n_launches=1)
+               if key.kind == "ragged"
+               else ProgramPlan(mode="per_request",
+                                n_launches=key.n_requests))
+        if cands[0].mode != alt.mode:
+            cands.append(alt)
+
+        def run(pplan):
+            if pplan.mode == "per_request":
+                return self._execute_per_request(program, policy)
+            return self.execute_program(program, pplan)
+
+        timed = [(time_gemv_us(lambda p=c: run(p)), i)
+                 for i, c in enumerate(cands)]
+        us, best = min(timed)
+        entry = program_plan_to_entry(cands[best], us)
+        entry["candidates_us"] = {cands[i].mode: t for t, i in timed}
+        table.put_program(self.name, tkey, entry)
+        if policy.table_path:
+            table.save(policy.table_path)
+        return cands[best]
+
+    def _execute_per_request(self, program: GemvProgram,
+                             policy: DispatchPolicy) -> torch.Tensor:
+        """A fused or grouped program as independent requests, each
+        selected and run on this backend (the autotuner's per-request
+        candidate; the dispatcher decomposes through its plan cache)."""
+        outs = []
+        for req in program.decompose():
+            K, M = req.weights.shape
+            kernel, plan = self.select_kernel(
+                M, K, req.x.shape[0], bits=req.weights.bits,
+                block=req.weights.block, x_bytes=req.x.element_size(),
+                policy=policy)
+            outs.append(self.execute(kernel, req.x.contiguous(),
+                                     req.weights, plan))
+        if program.kind == "grouped":
+            return torch.stack(outs)
+        return torch.cat(outs, dim=-1)
 
     # -- programs -------------------------------------------------------------
 
@@ -392,17 +841,27 @@ class GemvBackend:
         raise ValueError(f"execute_program runs joint modes, got {pplan}")
 
     @staticmethod
-    def _float_stack(pw: PackedWeights) -> torch.Tensor:
-        if pw.bits != 16:
-            raise NotImplementedError(
-                "quantized expert stacks are not ported yet (ROADMAP)")
-        return pw.w_t
+    def _dequant_stack(pw: PackedWeights) -> torch.Tensor:
+        """An ``[E, K, M]`` stack as floats: the 16-bit stack itself, or
+        int8 / packed int4 codes times each expert's block scales
+        (``[E, K // block, M]``), in f32."""
+        from repro_torch.kernels import ref
+
+        w = pw.w_t
+        if pw.bits == 4:
+            w = ref.unpack_int4(w)
+        if pw.bits < 16:
+            E, K, M = w.shape
+            w = (w.float().reshape(E, K // pw.block, pw.block, M)
+                 * pw.scales.float()[:, :, None, :]).reshape(E, K, M)
+        return w
 
     def _execute_grouped(self, xs: torch.Tensor,
                          pw: PackedWeights) -> torch.Tensor:
         """Portable batched expert product: out[E, C, M] = xs[E, C, K] @
-        w[E, K, M], f32 accumulation, cast to xs.dtype."""
-        w = self._float_stack(pw)
+        w[E, K, M], f32 accumulation, cast to xs.dtype; a quantized stack
+        is dequantized per expert first."""
+        w = self._dequant_stack(pw)
         return torch.matmul(xs.float(), w.float()).to(xs.dtype)
 
     def _execute_ragged(self, program: GemvProgram) -> torch.Tensor:
@@ -414,7 +873,7 @@ class GemvBackend:
         from repro_torch.kernels.grouped_gemv import counts_to_offsets
 
         x = program.x
-        w = self._float_stack(program.weights)
+        w = self._dequant_stack(program.weights)
         E, T = w.shape[0], x.shape[0]
         ends = counts_to_offsets(program.counts)[1:]
         rows = torch.arange(T, dtype=torch.int32, device=x.device)

@@ -22,6 +22,7 @@ from repro_torch.kernels.backends.base import (
     CostModel,
     DispatchPolicy,
     GemvBackend,
+    GemvKey,
     register_backend,
 )
 from repro_torch.kernels.gemv_plan import GemvPlan, valid_splitk_degree
@@ -64,14 +65,24 @@ class CpuBackend(GemvBackend):
             * 1e6
         return t
 
+    def candidate_plans(self, M, K, batch, bits):
+        if bits < 16:
+            # quantized weights keep the dequantizing contraction: there is
+            # no lower-traffic path on this backend
+            return [("quant" if bits == 8 else "quant4", None)]
+        cands: list[tuple[str, GemvPlan | None]] = [("ref", None)]
+        plan = plan_cpu_splitk(M, K)
+        if plan is not None:
+            cands.append(("splitk", plan))
+        return cands
+
     def select_kernel(self, M, K, batch, *, bits=16, block=32, x_bytes=2,
                       policy: DispatchPolicy = DEFAULT_POLICY):
         if policy.kernel != "auto":
             self._check_pin(policy.kernel, bits)
         if bits < 16:
-            # quantized weights keep the dequantizing contraction, pinned
-            # or not: there is no lower-traffic path on this backend
-            return ("quant" if bits == 8 else "quant4"), None
+            # the dequantizing contraction, pinned or not
+            return self.candidate_plans(M, K, batch, bits)[0]
         if policy.kernel != "auto":
             plan = plan_cpu_splitk(M, K)
             if policy.kernel == "splitk" and plan is not None:
@@ -79,12 +90,26 @@ class CpuBackend(GemvBackend):
             return "ref", None
         if batch > policy.batch_threshold:
             return "ref", None
-        cands = [("ref", None)]
-        plan = plan_cpu_splitk(M, K)
-        if plan is not None:
-            cands.append(("splitk", plan))
-        return min(cands, key=lambda kp: self.estimate_cost_us(
-            kp[0], M, K, batch, bits=bits, x_bytes=x_bytes, plan=kp[1]))
+        return min(self.candidate_plans(M, K, batch, bits),
+                   key=lambda kp: self.estimate_cost_us(
+                       kp[0], M, K, batch, bits=bits, x_bytes=x_bytes,
+                       plan=kp[1]))
+
+    def coerce_plan(self, plan: GemvPlan, M: int, K: int, batch: int,
+                    pw: PackedWeights, policy: DispatchPolicy):
+        """A caller's plan carries one decision this backend can use: its
+        split degree.  Everything else (blocks, grid) is another kernel's."""
+        if pw.bits < 16:
+            return self.candidate_plans(M, K, batch, pw.bits)[0]
+        if plan.split_k > 1 and K % plan.split_k == 0:
+            return "splitk", GemvPlan(m_blk=M, k_blk=K // plan.split_k,
+                                      n_m=1, n_k=1, smem_bytes=0,
+                                      split_k=plan.split_k)
+        return "ref", None
+
+    def autotune_candidates(self, key: GemvKey, pw: PackedWeights,
+                            policy: DispatchPolicy):
+        return self.candidate_plans(key.M, key.K, key.batch, key.bits)
 
     def execute(self, kernel: str, x: torch.Tensor, pw: PackedWeights,
                 plan: GemvPlan | None) -> torch.Tensor:

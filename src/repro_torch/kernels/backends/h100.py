@@ -46,6 +46,7 @@ from repro_torch.kernels.backends.base import (
     CostModel,
     DispatchPolicy,
     GemvBackend,
+    GemvKey,
     GemvProgram,
     ProgramKey,
     ProgramPlan,
@@ -53,8 +54,10 @@ from repro_torch.kernels.backends.base import (
     register_backend,
 )
 from repro_torch.kernels.gemv_plan import (
+    K_ALIGN,
     GemvPlan,
     kernel_applicable,
+    plan_fits,
     plan_gemv,
     plan_quant,
     plan_splitk,
@@ -195,6 +198,49 @@ class H100Backend(GemvBackend):
             return "splitk", plan_splitk(M, K, batch, degree=deg,
                                          elem_bytes=x_bytes)
         return "pim", plan_gemv(M, K, batch, elem_bytes=x_bytes)
+
+    def coerce_plan(self, plan: GemvPlan, M: int, K: int, batch: int,
+                    pw: PackedWeights, policy: DispatchPolicy):
+        """A caller's plan names the kernel, as on the TPU backend: split-K
+        above 1 is ``splitk``, else ``pim``; quantized weights take
+        ``quant``/``quant4`` with this backend's plan.  Tiles these kernels
+        cannot run (another backend's) are re-planned at the same split
+        degree (the highest valid one if that degree does not split K into
+        whole 8-row parts); a shape no kernel takes is ``ref``."""
+        if not policy.use_pallas:
+            return "ref", None
+        if pw.bits < 16:
+            return self._quant_pick(M, K, batch, pw.bits, pw.block)
+        x_bytes = pw.w_t.element_size()
+        if not kernel_applicable(M, K, batch, x_bytes):
+            return "ref", None
+        if plan_fits(plan, M, K, batch, x_bytes):
+            return ("splitk" if plan.split_k > 1 else "pim"), plan
+        if plan.split_k == 1:
+            return "pim", plan_gemv(M, K, batch, elem_bytes=x_bytes)
+        deg = plan.split_k
+        if K % deg or (K // deg) % K_ALIGN:
+            deg = valid_splitk_degree(K)
+            if deg is None:
+                return "ref", None
+        return "splitk", plan_splitk(M, K, batch, degree=deg,
+                                     elem_bytes=x_bytes)
+
+    def autotune_candidates(self, key: GemvKey, pw: PackedWeights,
+                            policy: DispatchPolicy):
+        """``ref`` and every kernel the planners accept: ``pim`` and
+        ``splitk`` at their stage count of 1 (staged plans are not ported,
+        so there are no staged candidates yet), or the quant kernel beside
+        the dequant oracle for quantized weights."""
+        if key.bits < 16:
+            cands = [("ref", None)]
+            if quant_applicable(key.M, key.K, bits=key.bits,
+                                block=key.block):
+                cands.append(self._quant_pick(key.M, key.K, key.batch,
+                                              key.bits, key.block))
+            return cands
+        return self.candidate_plans(key.M, key.K, key.batch,
+                                    dtype_bytes(key.dtype))
 
     # -- MoE expert programs ------------------------------------------------
 

@@ -11,6 +11,13 @@ Every entry point
 4. memoizes the decision in a process-level, lock-guarded plan cache keyed
    on shape + dtype + backend + policy.
 
+A decision comes, in the JAX package's order, from the plan cache, then
+(``policy.autotune``) the backend's autotuner, then (auto policies only)
+the backend's namespace of the process-level autotune table
+(:func:`load_autotune_table`), then the cost model.  ``dispatch_gemv``'s
+``plan=`` bypasses all four: the backend coerces the plan to one of its
+own kernels (``coerce_plan``).
+
 Decisions are counted once per plan-cache miss, as in the JAX package:
 ``dispatch_stats()`` reports the kernel picks, program modes and the
 ``gemv_path`` / ``matmul_fallback`` mix of every fresh (shape, policy),
@@ -18,9 +25,9 @@ and (``program_kernels``) the kernel inside each fused program plan.
 Kernel *launches* are counted by the kernel wrappers themselves
 (``pim_gemv.launches``, ``splitk_gemv.launches``, ``quant_gemv.launches``,
 ``quant4_gemv.launches``, ``grouped_gemv.launches``,
-``ragged_gemv.launches``).  The MoE layer adds its per-expert load
-statistics (``record_expert_load``) to the ``expert_load`` section, once
-per call.
+``ragged_gemv.launches``, ``triton_gemv.launches``).  The MoE layer adds
+its per-expert load statistics (``record_expert_load``) to the
+``expert_load`` section, once per call.
 """
 
 from __future__ import annotations
@@ -41,12 +48,16 @@ from repro_torch.kernels.backends import (
     ProgramPlan,
     resolve_backend,
 )
-from repro_torch.kernels.backends.base import dtype_bytes
+from repro_torch.kernels.backends.base import (
+    AutotuneTable,
+    dtype_bytes,
+    entry_to_plan,
+    entry_to_program_plan,
+)
 from repro_torch.kernels.gemv_plan import GemvPlan
 from repro_torch.kernels.ops import (
     PackedWeights,
     from_transposed,
-    pack_fused,
     pack_weight,
 )
 
@@ -55,6 +66,8 @@ __all__ = [
     "dispatch_dense", "dispatch_program", "dispatch_fused",
     "dispatch_prepacked", "dispatch_grouped", "dispatch_ragged",
     "dispatch_stats", "record_expert_load", "clear_plan_cache",
+    "load_autotune_table", "save_autotune_table", "clear_autotune_table",
+    "autotune_table",
 ]
 
 _LOCK = threading.Lock()
@@ -63,6 +76,7 @@ _PLAN_CACHE: dict[tuple[GemvKey, DispatchPolicy],
 _PROGRAM_CACHE: dict[tuple[ProgramKey, DispatchPolicy], ProgramPlan] = {}
 _CACHE_STATS = {"hits": 0, "misses": 0, "program_hits": 0,
                 "program_misses": 0}
+_AUTOTUNE_TABLE = AutotuneTable()
 
 
 def _fresh_counters() -> dict:
@@ -102,6 +116,30 @@ def clear_plan_cache() -> None:
         _DISPATCH_COUNTERS = _fresh_counters()
 
 
+def load_autotune_table(path: str) -> dict[str, dict[str, dict]]:
+    """Load a persisted autotune table (v3/v2 namespaced or v1 flat) into
+    the process-level table; returns the parsed ``{backend: {key:
+    entry}}`` single-GEMV section."""
+    return _AUTOTUNE_TABLE.load(path)
+
+
+def save_autotune_table(path: str) -> None:
+    """Merge this process's per-backend namespaces into the table at
+    ``path`` (read, merge, atomic rename)."""
+    _AUTOTUNE_TABLE.save(path)
+
+
+def clear_autotune_table() -> None:
+    """Drop every loaded or tuned table entry (the plan cache keeps its
+    decisions: clear it too to re-resolve)."""
+    _AUTOTUNE_TABLE.clear()
+
+
+def autotune_table() -> AutotuneTable:
+    """The process-level table every dispatch reads."""
+    return _AUTOTUNE_TABLE
+
+
 def record_expert_load(*, routed_tokens: int, experts: int,
                        max_tokens: int, padded_slots: int) -> None:
     """Accumulate one MoE dispatch's per-expert load statistics (host
@@ -132,47 +170,75 @@ def _count_decision(backend_name: str, batch: int, policy: DispatchPolicy,
             _DISPATCH_COUNTERS["gemv_path"] += 1
 
 
-def _resolve(backend, key: GemvKey,
-             policy: DispatchPolicy) -> tuple[str, GemvPlan | None]:
-    """Memoized (kernel, plan) for one shape under one policy."""
+def _resolve(backend, key: GemvKey, policy: DispatchPolicy,
+             device: torch.device) -> tuple[str, GemvPlan | None]:
+    """Memoized (kernel, plan) for one shape under one policy: cache ->
+    autotune -> table -> cost model.  Table entries stand in for the cost
+    model only, so only under an unpinned auto policy: pins and
+    ``use_pallas=False`` outrank them.  The autotuner times its candidates
+    on synthetic inputs on ``device``."""
     with _LOCK:
         cached = _PLAN_CACHE.get((key, policy))
         if cached is not None:
             _CACHE_STATS["hits"] += 1
             return cached
         _CACHE_STATS["misses"] += 1
-    # selection is a pure function of (key, policy): two racers compute the
-    # same answer, so no per-key lock is needed
-    decision = backend.select_kernel(
-        key.M, key.K, key.batch, bits=key.bits, block=key.block,
-        x_bytes=dtype_bytes(key.dtype),
-        policy=policy)
+    # two racers compute the same selection; racing tuners may time
+    # different winners, and the cache keeps the last (both are valid)
+    tuned = policy.kernel == "auto" and policy.use_pallas
+    if tuned and policy.autotune:
+        decision = backend.autotune_gemv(key, policy=policy,
+                                         table=_AUTOTUNE_TABLE,
+                                         device=device)
+    elif tuned and (entry := _AUTOTUNE_TABLE.get(
+            backend.name, key.table_key())) is not None:
+        decision = entry_to_plan(entry)
+    else:
+        decision = backend.select_kernel(
+            key.M, key.K, key.batch, bits=key.bits, block=key.block,
+            x_bytes=dtype_bytes(key.dtype), policy=policy)
     with _LOCK:
         _PLAN_CACHE[(key, policy)] = decision
     _count_decision(backend.name, key.batch, policy, kernel=decision[0])
     return decision
 
 
-def _resolve_program(backend, key: ProgramKey,
-                     policy: DispatchPolicy) -> ProgramPlan:
-    """Memoized ProgramPlan for one program shape under one policy."""
+def _resolve_program(backend, key: ProgramKey, policy: DispatchPolicy,
+                     device: torch.device) -> ProgramPlan:
+    """Memoized ProgramPlan for one program shape under one policy: cache
+    -> autotune -> table (the ``programs`` section) -> planner, as
+    :func:`_resolve`.  ``fuse_programs=False`` outranks table and autotune
+    too: it always means the per-request decomposition."""
     with _LOCK:
         cached = _PROGRAM_CACHE.get((key, policy))
         if cached is not None:
             _CACHE_STATS["program_hits"] += 1
             return cached
         _CACHE_STATS["program_misses"] += 1
-    pplan = backend.plan_program(key, policy=policy)
+    tuned = (policy.kernel == "auto" and policy.use_pallas
+             and policy.fuse_programs)
+    if tuned and policy.autotune:
+        pplan = backend.autotune_program(key, policy=policy,
+                                         table=_AUTOTUNE_TABLE,
+                                         device=device)
+    elif tuned and (entry := _AUTOTUNE_TABLE.get_program(
+            backend.name, key.table_key())) is not None:
+        pplan = entry_to_program_plan(entry)
+    else:
+        pplan = backend.plan_program(key, policy=policy)
     with _LOCK:
         _PROGRAM_CACHE[(key, policy)] = pplan
     _count_decision(backend.name, key.batch, policy, mode=pplan.mode,
-                    program_kernel=pplan.kernel or None)
+                    program_kernel=(pplan.kernel if pplan.mode == "fused"
+                                    else None))
     return pplan
 
 
-def _dispatch_request(req: GemvRequest,
-                      policy: DispatchPolicy) -> torch.Tensor:
-    """Execute ONE request: the shared path under every entry point."""
+def _dispatch_request(req: GemvRequest, policy: DispatchPolicy,
+                      plan: GemvPlan | None = None) -> torch.Tensor:
+    """Execute ONE request: the shared path under every entry point.  A
+    caller's ``plan`` is coerced by the backend instead of resolved (no
+    cache, no counters: it is the caller's decision)."""
     backend = resolve_backend(policy, req.x.device)
     pw = req.weights
     K, M = pw.shape
@@ -180,9 +246,12 @@ def _dispatch_request(req: GemvRequest,
     if req.x.shape[1] != K:
         raise ValueError(f"x {tuple(req.x.shape)} does not match weight "
                          f"(K, M) = {pw.shape}")
-    key = GemvKey(M=M, K=K, batch=B, bits=pw.bits, block=pw.block,
-                  dtype=str(req.x.dtype), backend=backend.name)
-    kernel, plan = _resolve(backend, key, policy)
+    if plan is not None:
+        kernel, plan = backend.coerce_plan(plan, M, K, B, pw, policy)
+    else:
+        key = GemvKey(M=M, K=K, batch=B, bits=pw.bits, block=pw.block,
+                      dtype=str(req.x.dtype), backend=backend.name)
+        kernel, plan = _resolve(backend, key, policy, req.x.device)
     return backend.execute(kernel, req.x.contiguous(), pw, plan)
 
 
@@ -214,16 +283,18 @@ def as_packed(weights) -> PackedWeights:
 
 
 def dispatch_gemv(x: torch.Tensor, weights, *,
-                  policy: DispatchPolicy | None = None) -> torch.Tensor:
+                  policy: DispatchPolicy | None = None,
+                  plan: GemvPlan | None = None) -> torch.Tensor:
     """Single-GEMV entry point: out[B, M] = x[B, K] @ W.T.
 
     ``weights`` is anything :func:`as_packed` takes: a
     :class:`PackedWeights` (float or quantized), an int8 ``(w_q, scales)``
     tuple, or a dense ``[M, K]`` tensor (transposed on every call: prepack
-    once instead on a hot path).
+    once instead on a hot path).  A ``plan`` bypasses selection: the
+    backend coerces it to one of its own kernels.
     """
     return _dispatch_request(GemvRequest(x=x, weights=as_packed(weights)),
-                             policy or DEFAULT_POLICY)
+                             policy or DEFAULT_POLICY, plan)
 
 
 def dispatch_dense(x: torch.Tensor, w_t: torch.Tensor, *,
@@ -249,7 +320,8 @@ def dispatch_program(program: GemvProgram, *,
     """
     policy = policy or DEFAULT_POLICY
     backend = resolve_backend(policy, program.x.device)
-    pplan = _resolve_program(backend, program.key(backend.name), policy)
+    pplan = _resolve_program(backend, program.key(backend.name), policy,
+                             program.x.device)
     if pplan.mode == "per_request":
         outs = [_dispatch_request(req, policy)
                 for req in program.decompose()]
@@ -267,13 +339,9 @@ def dispatch_fused(x: torch.Tensor, weights, *,
     K-major ``[K, M_i]`` tensors or :class:`PackedWeights`.  The members
     are concatenated here, on every call; hot paths prepack instead
     (:func:`dispatch_prepacked`)."""
-    members = [w if isinstance(w, PackedWeights) else from_transposed(w)
-               for w in weights]
-    fused, splits = pack_fused(members)
-    reqs = tuple(GemvRequest(x=x, weights=pw, tag=f"m{i}")
-                 for i, pw in enumerate(members))
-    program = GemvProgram(kind="fused", x=x, weights=fused, m_splits=splits,
-                          requests=reqs)
+    program = GemvProgram.fused(
+        x, [w if isinstance(w, PackedWeights) else from_transposed(w)
+            for w in weights])
     return program.split(dispatch_program(program, policy=policy))
 
 

@@ -64,6 +64,19 @@ def kernel_applicable(M: int, K: int, batch: int = 1,
             and 1 <= batch <= MAX_BATCH)
 
 
+def plan_fits(plan: GemvPlan, M: int, K: int, batch: int = 1,
+              elem_bytes: int = 2) -> bool:
+    """Whether ``pim_gemv`` (``split_k == 1``) or ``splitk_gemv`` takes
+    ``plan`` at this shape: the checks their wrappers make."""
+    vec = vec_elems(elem_bytes)
+    return (plan.stages == 1 and plan.m_blk > 0 and plan.k_blk > 0
+            and plan.split_k >= 1 and plan.n_m * plan.m_blk == M
+            and plan.m_blk % vec == 0 and THREADS % (plan.m_blk // vec) == 0
+            and K % plan.split_k == 0
+            and (K // plan.split_k) % plan.k_blk == 0
+            and 4 * batch * plan.k_blk <= X_SMEM_BUDGET)
+
+
 def _smem(batch: int, k_blk: int, elem_bytes: int) -> int:
     return 4 * (batch * k_blk + THREADS * vec_elems(elem_bytes))
 

@@ -431,3 +431,107 @@ def test_moe_engine_on_the_card_matches_the_cpu_engine(cuda, shape):
         launched = kernel.launches - n0
     assert launched > 0
     assert done["cuda"] == done["cpu"]
+
+
+# --------------------------------------------------------------------------
+# triton_gemv (csrc/triton_gemv.cu) and the gpu backend
+# --------------------------------------------------------------------------
+
+# (M, K): olmo-1b's head (m_blk 128, n_m 393), deepseek-moe-16b's head
+# (m_blk 512, n_m 200), and shapes planned at m_blk 64 and 256
+TRITON_SHAPES = [(50304, 2048), (102400, 2048), (4160, 1024), (768, 512)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K", TRITON_SHAPES)
+@pytest.mark.parametrize("B", [1, 3, 8, 11, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_triton_gemv_matches_plain(cuda, M, K, B, dtype):
+    from repro_torch.kernels.backends.gpu import plan_triton_gemv
+    from repro_torch.kernels.triton_gemv import (
+        triton_gemv,
+        triton_gemv_plain,
+    )
+
+    plan = plan_triton_gemv(M, K, B)
+    g = torch.Generator(device=cuda).manual_seed(M + K + B)
+    w_t = (torch.randn((K, M), generator=g, device=cuda) / K ** 0.5).to(dtype)
+    x = torch.randn((B, K), generator=g, device=cuda).to(dtype)
+    n0 = triton_gemv.launches
+    out = triton_gemv(x, w_t, plan=plan)
+    torch.cuda.synchronize()
+    assert triton_gemv.launches == n0 + 1
+    assert out.shape == (B, M) and out.dtype == dtype
+    torch.testing.assert_close(
+        out.float(), triton_gemv_plain(x, w_t, plan.k_blk).float(),
+        **_bf16_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_triton_gemv_reads_a_column_view_in_place(cuda, dtype):
+    """A column slice of a wider weight (rows 2M apart) gives the
+    contiguous copy's result bit for bit."""
+    from repro_torch.kernels.backends.gpu import plan_triton_gemv
+    from repro_torch.kernels.triton_gemv import triton_gemv
+
+    M, K = 6144, 2048
+    g = torch.Generator(device=cuda).manual_seed(11)
+    wide = torch.randn((K, 2 * M), generator=g, device=cuda).to(dtype)
+    view = wide[:, M:]
+    x = torch.randn((8, K), generator=g, device=cuda).to(dtype)
+    plan = plan_triton_gemv(M, K, 8)
+    assert torch.equal(triton_gemv(x, view, plan=plan),
+                       triton_gemv(x, view.contiguous(), plan=plan))
+
+
+@pytest.mark.gpu
+def test_cuda_triton_gemv_refuses_an_unaligned_stride(cuda):
+    from repro_torch.kernels.backends.gpu import plan_triton_gemv
+    from repro_torch.kernels.triton_gemv import triton_gemv
+
+    M, K = 512, 256
+    wide = torch.zeros((K, M + 4), device=cuda, dtype=torch.bfloat16)
+    x = torch.zeros((1, K), device=cuda, dtype=torch.bfloat16)
+    n0 = triton_gemv.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        triton_gemv(x, wide[:, :M], plan=plan_triton_gemv(M, K, 1))
+    assert triton_gemv.launches == n0
+
+
+@pytest.mark.gpu
+def test_gpu_backend_engine_on_the_card_matches_the_cpu_engine(
+        cuda, monkeypatch):
+    """Reduced olmo-1b (f32) on the gpu backend with constants that make
+    the reduced shapes pick triton: the card launches triton_gemv and
+    gives the CPU engine's greedy tokens."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.backends import base
+    from repro_torch.kernels.backends.gpu import GpuBackend
+    from repro_torch.kernels.triton_gemv import triton_gemv
+    from repro_torch.serving.engine import Engine, Request
+
+    monkeypatch.setitem(base._REGISTRY, "gpu", GpuBackend(
+        min_parallel_blocks=1, bandwidth_gbps=1.0))
+    cfg, cpu_params, gpu_params = _small(cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 9, 3, 12, 7)]
+    done = {}
+    for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+        eng = Engine(cfg, params, batch_slots=4, max_len=64, device=dev,
+                     gemv_backend="gpu")
+        eng.gemv_policy = dataclasses.replace(eng.gemv_policy,
+                                              min_pallas_bytes=0)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+        dispatch.clear_plan_cache()
+        n0 = triton_gemv.launches
+        done[dev] = {r.rid: r.generated for r in eng.run_until_drained()}
+        assert dispatch.dispatch_stats()["kernel_picks"].get("gpu:triton")
+    assert triton_gemv.launches > n0
+    assert done["cuda"] == done["cpu"]
