@@ -11,6 +11,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    batch 1, 4, 8 in bf16: held against its plain PyTorch version, then
    timed (CUDA graph of many launches, weight copies rotated past the
    50 MB L2) beside its bound, the plain version and ``torch.matmul``;
+   ``[stages]``: ``pim_gemv`` and ``splitk_gemv`` at batch 8 at every
+   ring depth the card holds, each bit-identical to the default depth,
+   and timed (the build step prints each instantiation's registers);
    The quant kernels run at the same shapes and batches on int8 / packed
    int4 codes (block 32) from ``quantize_weight`` of seeded bf16 weights;
    they are timed beside the bf16 weight's ``torch.matmul``, a reference
@@ -20,8 +23,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``pim_gemv`` and ``torch.matmul``; f32 and a column view at batch 8;
 4. engine  -- olmo-1b at full width, bf16, seeded random weights, through
    ``Engine(batch_slots=8, max_len=1024)``: 8 requests with prompts of 32
-   to 512 tokens, 64 greedy tokens each; fails unless every kernel of the
-   path (``pim_gemv``, ``splitk_gemv``) launched during the run;
+   to 512 tokens, 64 greedy tokens each; fails unless every decode step
+   launched ``pim_gemv`` 17 and ``splitk_gemv`` 32 times, as the h100
+   backend's picks for its GEMVs predict;
 5. logits  -- one decode step of the same engine state through the
    dispatcher and through ``torch.matmul`` (policy pinned to ``ref``);
 6. quant   -- every decode GEMV of olmo-1b at full width and depth, batch
@@ -62,7 +66,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``gpu:ragged_triton`` and ``triton_gemv`` as the picks predict;
 12. autotune -- olmo-1b's decode GEMVs at batch 8, a fused QKV program and
    a ragged expert program, tuned on the h100 and gpu backends into
-   ``build/autotune_smoke.json``; table and plan cache cleared, the file
+   ``build/autotune_smoke.json`` (``pim``/``splitk`` at every ring depth,
+   labelled ``pim/s4`` etc.); table and plan cache cleared, the file
    reloaded, and every untuned pick must be the table's winner;
 13. the ``{"kernels": [...]}`` line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -99,7 +104,10 @@ from repro_torch.kernels.backends import (  # noqa: E402
     GemvProgram,
     get_backend,
 )
-from repro_torch.kernels.backends.base import expert_batch_bound  # noqa
+from repro_torch.kernels.backends.base import (  # noqa: E402
+    entry_to_plan,
+    expert_batch_bound,
+)
 from repro_torch.kernels.backends.gpu import plan_triton_gemv  # noqa: E402
 from repro_torch.kernels.grouped_gemv import (  # noqa: E402
     counts_to_offsets,
@@ -110,10 +118,13 @@ from repro_torch.kernels.grouped_gemv import (  # noqa: E402
     ragged_gemv_plain,
 )
 from repro_torch.kernels.gemv_plan import (  # noqa: E402
+    MAX_STAGES,
+    ctas_per_sm,
     plan_gemv,
     plan_quant,
     plan_splitk,
     valid_splitk_degree,
+    with_pipeline_depth,
 )
 from repro_torch.kernels.kv_quant import tree_bytes  # noqa: E402
 from repro_torch.kernels.ops import PackedWeights, quantize_weight  # noqa
@@ -263,6 +274,13 @@ def plan_for(name: str, K: int, M: int, B: int):
     return plan_splitk(M, K, B, degree=deg, elem_bytes=2), None
 
 
+def plan_dict(plan) -> dict:
+    return dict(m_blk=plan.m_blk, k_blk=plan.k_blk, split_k=plan.split_k,
+                stages=plan.stages, smem_bytes=plan.smem_bytes,
+                ctas=plan.n_m * plan.split_k,
+                ctas_per_sm=ctas_per_sm(plan.smem_bytes))
+
+
 def check_close(name: str, what: str, out, ref) -> float:
     """Max abs error of ``out`` against its plain version; raises past
     the kernel tolerance or on a non-finite value."""
@@ -317,9 +335,7 @@ def check_kernels(dev) -> list[dict]:
                 io_bytes = (K * M + B * K + B * M) * 2
                 row = dict(
                     kernel=name, shape=shape, K=K, M=M, B=B,
-                    per_step=per_step, plan=dict(
-                        m_blk=plan.m_blk, k_blk=plan.k_blk,
-                        split_k=plan.split_k, ctas=plan.n_m * plan.split_k),
+                    per_step=per_step, plan=plan_dict(plan),
                     max_abs_err=max_err,
                     ms=graph_ms(run, calls),
                     plain_ms=graph_ms(run_plain, max(calls // 4, 10)),
@@ -334,9 +350,84 @@ def check_kernels(dev) -> list[dict]:
                 log(f"  {name:12s} {shape:8s} B={B} err={row['max_abs_err']:.2e}"
                     f" ms={row['ms']:.4f} bound={row['bound_ms']:.4f}"
                     f" ({row['hbm_share']:.0%}) plain={row['plain_ms']:.4f}"
-                    f" matmul={row['library_ms']:.4f}")
+                    f" matmul={row['library_ms']:.4f} m_blk={plan.m_blk}"
+                    f" ctas={row['plan']['ctas']}"
+                    f" ({row['plan']['ctas_per_sm']}/SM)"
+                    f" stages={plan.stages}")
         del ws
         torch.cuda.empty_cache()
+    return rows
+
+
+def stage_sweep(dev) -> list[dict]:
+    """pim_gemv and splitk_gemv at olmo-1b's four decode GEMV shapes, batch
+    8, bf16, at every ring depth ``with_pipeline_depth`` admits: each
+    output must equal the default depth's bit for bit (the depth changes
+    the copies in flight, never the order of the sums); each depth is
+    timed as in ``check_kernels`` (weights rotated past the L2)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    rows, B = [], 8
+    for shape, (K, M, _) in SHAPES.items():
+        w_bytes = K * M * 2
+        n_copies = max(2, math.ceil(2 * L2_BYTES / w_bytes) + 1)
+        ws = [(torch.randn((K, M), generator=gen, device=dev)
+               / math.sqrt(K)).to(torch.bfloat16) for _ in range(n_copies)]
+        x = torch.randn((B, K), generator=gen, device=dev).to(torch.bfloat16)
+        calls = 100 if w_bytes < 100e6 else 40
+        for name in FLOAT_KERNELS:
+            fn = KERNELS[name]["fn"]
+            base, _ = plan_for(name, K, M, B)
+            want = fn(x, ws[0], plan=base)
+            times = {}
+            for depth in range(1, MAX_STAGES + 1):
+                plan = with_pipeline_depth(base, depth, batch=B,
+                                           elem_bytes=2)
+                if plan is None:
+                    continue
+                if not torch.equal(fn(x, ws[0], plan=plan), want):
+                    raise AssertionError(
+                        f"{name} {shape}: stages={depth} differs from the "
+                        f"default stages={base.stages}")
+
+                def run(i, fn=fn, plan=plan):
+                    fn(x, ws[i % n_copies], plan=plan)
+
+                times[depth] = graph_ms(run, calls)
+                rows.append(dict(kernel=name, shape=shape, K=K, M=M, B=B,
+                                 default_stages=base.stages,
+                                 plan=plan_dict(plan), ms=times[depth]))
+            log(f"  {name:12s} {shape:8s} B={B} bit-identical at stages "
+                f"{sorted(times)} (default {base.stages}); ms "
+                + " ".join(f"s{d}={t:.4f}" for d, t in times.items()))
+        del ws
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ptxas_table(report: dict) -> list[dict]:
+    """Registers, spills and shared memory of each kernel instantiation
+    from the ``-Xptxas -v`` text of ``_build.build``."""
+    rows = []
+    for src, r in report.items():
+        fn = None
+        for ln in r["ptxas"].splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)'?", ln)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and fn:
+                rows.append(dict(source=src, function=fn,
+                                 registers=int(m.group(1)), line=ln.strip()))
+    names = [r["function"] for r in rows]
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0:
+            for r, d in zip(rows, out.stdout.splitlines()):
+                r["demangled"] = d.split("(")[0].replace("void ", "")
+    except (OSError, subprocess.SubprocessError):
+        pass
     return rows
 
 
@@ -612,16 +703,18 @@ def decode_sites(cfg) -> dict[str, tuple[int, int, int]]:
             "head": (cfg.vocab, d, 1)}
 
 
-def triton_per_step(cfg, policy, batch: int) -> tuple[int, dict]:
-    """triton_gemv launches one decode step at ``batch`` makes, from the
-    gpu backend's picks for the step's GEMVs (a fused program runs the
+def launches_per_step(cfg, policy, batch: int, backend: str,
+                      kernel: str) -> tuple[int, dict]:
+    """Launches of ``kernel`` one decode step at ``batch`` makes, from the
+    backend's picks for the step's GEMVs (a fused program runs the
     kernel its concatenated shape picks)."""
-    be = get_backend("gpu")
+    be = get_backend(backend)
     picks = {name: be.select_kernel(M, K, batch, policy=policy)[0]
              for name, (M, K, _) in decode_sites(cfg).items()}
     n = sum(calls for name, (_, _, calls) in decode_sites(cfg).items()
-            if picks[name] == "triton")
+            if picks[name] == kernel)
     return n, picks
+
 
 
 def run_engine(cfg, params, dev, kv_store: str = "fp", *,
@@ -675,12 +768,35 @@ def run_engine(cfg, params, dev, kv_store: str = "fp", *,
                 f"{steps} decode steps launched ragged_gemv "
                 f"{counts['ragged_gemv']} times (expected "
                 f"{3 * cfg.n_layers * steps}); program modes {modes}")
+    if backend == "h100" and cfg.moe is None and kv_store == "fp":
+        # every decode step launches pim_gemv and splitk_gemv as often as
+        # the h100 picks for its GEMVs predict: olmo-1b, 17 and 32
+        batches = [st["decode_batch"] for st in doc["steps"]
+                   if st["decode_batch"]]
+        per_batch = {b: {n: launches_per_step(cfg, eng.gemv_policy, b,
+                                              "h100", k)[0]
+                         for n, k in (("pim_gemv", "pim"),
+                                      ("splitk_gemv", "splitk"))}
+                     for b in sorted(set(batches))}
+        for n in FLOAT_KERNELS:
+            want = sum(per_batch[b][n] for b in batches)
+            if counts[n] != want:
+                raise AssertionError(
+                    f"{steps} decode steps launched {n} {counts[n]} times; "
+                    f"the picks predict {want}: {per_batch}")
+        if cfg.name == "olmo-1b" and any(
+                v != {"pim_gemv": 17, "splitk_gemv": 32}
+                for v in per_batch.values()):
+            raise AssertionError(f"olmo-1b's picks changed: {per_batch}")
+        extra = {"float_launches_by_batch": {str(b): v for b, v
+                                             in per_batch.items()}}
     if backend == "gpu":
         # the decode steps' triton_gemv launches equal what the picks of
         # each step's batch predict (prefill rows exceed the batch gate)
         batches = [st["decode_batch"] for st in doc["steps"]
                    if st["decode_batch"]]
-        per_batch = {b: triton_per_step(cfg, eng.gemv_policy, b)
+        per_batch = {b: launches_per_step(cfg, eng.gemv_policy, b, "gpu",
+                                          "triton")
                      for b in sorted(set(batches))}
         want = sum(per_batch[b][0] for b in batches)
         if counts["triton_gemv"] != want or min(
@@ -1261,15 +1377,18 @@ def run_autotune(dev) -> dict:
         for case, key, _ in run(tune):
             if isinstance(key, GemvKey):
                 entry = table.get(backend, key.table_key())
-                pick = be.select_kernel(key.M, key.K, key.batch,
-                                        policy=model)[0]
-                winner = entry["kernel"]
+                # staged candidates: labels carry the ring depth
+                pick = be.candidate_label(*be.select_kernel(
+                    key.M, key.K, key.batch, policy=model))
+                winner = be.candidate_label(*entry_to_plan(entry))
+                dispatched = entry["kernel"]
             else:
                 entry = table.get_program(backend, key.table_key())
                 pick = be.plan_program(key, policy=model).mode
-                winner = entry["mode"]
+                winner = dispatched = entry["mode"]
             row = {"backend": backend, "case": case,
                    "key": key.table_key(), "winner": winner,
+                   "dispatched": dispatched,
                    "winner_us": entry["us"], "model_pick": pick,
                    "model_pick_us": entry["candidates_us"][pick],
                    "candidates_us": entry["candidates_us"], "entry": entry}
@@ -1283,7 +1402,7 @@ def run_autotune(dev) -> dict:
     dispatch.clear_autotune_table()
     dispatch.clear_plan_cache()
     dispatch.load_autotune_table(str(AUTOTUNE_TABLE))
-    want = {(r["backend"], r["case"]): r["winner"] for r in res["cases"]}
+    want = {(r["backend"], r["case"]): r["dispatched"] for r in res["cases"]}
     got = {}
     for backend in ("h100", "gpu"):
         for case, key, stats in run(DispatchPolicy(backend=backend)):
@@ -1412,10 +1531,17 @@ def main() -> int:
                    if re.search(r"[1-9]\d* bytes spill", ln)]
     if spills:
         raise AssertionError("register spills:\n" + "\n".join(spills))
+    ptxas = ptxas_table({n: report[n] for n in FLOAT_KERNELS})
+    for r in ptxas:
+        log(f"  {r['source']}: {r.get('demangled', r['function'])}: "
+            f"{r['line']}")
 
     log("[kernels] each against its plain version (rtol 2^-7, atol 1e-3), "
         "then timed")
     rows = check_kernels(dev)
+    log(f"[stages] pim_gemv and splitk_gemv at B=8, every ring depth up to "
+        f"{MAX_STAGES} the card holds: bit-identical to the default, timed")
+    stages = stage_sweep(dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows += check_quant_kernels(dev, sms)
     log("[gpu kernels] triton_gemv against its plain version (rtol 2^-7, "
@@ -1570,7 +1696,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=dict(name=name, count=count, nvidia_smi=card),
-        build_s=build_s, kernel_rows=rows, engine=engine, logits=logits,
+        build_s=build_s, ptxas=ptxas, kernel_rows=rows, stage_sweep=stages,
+        engine=engine, logits=logits,
         quant_dispatch=quant, kv=kv, moe_engine=moe, moe_logits=moe_logits,
         moe_grouped=grouped, gpu_engine=gpu, moe_gpu=moe_gpu,
         autotune=autotune, kernels=line["kernels"],

@@ -6,31 +6,40 @@
 //
 // Bound on this card: at B <= 8 the GEMV does 2*B flops per weight element,
 // far below the ~295 flops/byte where an H100 stops being memory bound, so
-// the floor is the weight bytes over HBM bandwidth (3.35 TB/s).  The design
-// therefore reads every weight byte exactly once, as 16-byte coalesced
-// vectors along the contiguous M axis, keeps x in shared memory and the
-// accumulators in registers, and writes the output once (gemv_tile.cuh).
-// The planner (kernels/gemv_plan.py) picks the column block so the grid
-// has enough CTAs; when it cannot, the dispatcher prefers splitk_gemv.
+// the floor is the weight bytes over HBM bandwidth (3.35 TB/s).  The body
+// (gemv_stream.cuh) streams each weight byte once through a ring of TMA
+// copies in shared memory, runs bf16 on the tensor cores
+// (mma.sync.m16n8k16, f32 accumulate) and f32 on scalar FMAs, and writes
+// the output once.  One CTA walks the whole K of one column block; the
+// planner (kernels/gemv_plan.py) picks the column block so the grid is
+// resident in one wave (or whole waves) on the card's SMs.
 //
-// Plain C interface, loaded with ctypes.  Each entry returns
-// cudaGetLastError() after the launch.
-#include "gemv_tile.cuh"
+// Plain C interface, loaded with ctypes.  Each entry returns the launch's
+// CUDA error (0 when it was taken).
+#include "gemv_stream.cuh"
 
-// (x, w_t, out, B, K, M, ld, m_blk, k_blk, stream); ld is w_t's row stride
-// in elements.
+// (x, w_t, out, B, K, M, ld, m_blk, k_blk, stages, stream); ld is w_t's row
+// stride in elements, k_blk the rows of one ring slot, stages the ring
+// depth.
 extern "C" int pim_gemv_bf16(const void* x, const void* w_t, void* out, int B,
                              int K, int M, int ld, int m_blk, int k_blk,
-                             void* stream) {
-  return gemv::launch_tile<__nv_bfloat16, __nv_bfloat16>(
-      x, w_t, out, B, K, M, ld, 1, m_blk, k_blk,
-      static_cast<cudaStream_t>(stream));
+                             int stages, void* stream) {
+  return gemv_stream::run<__nv_bfloat16, false>(
+      x, w_t, out, B, K, M, ld, 1, m_blk, k_blk, stages, stream);
 }
 
 extern "C" int pim_gemv_f32(const void* x, const void* w_t, void* out, int B,
                             int K, int M, int ld, int m_blk, int k_blk,
-                            void* stream) {
-  return gemv::launch_tile<float, float>(x, w_t, out, B, K, M, ld, 1, m_blk,
-                                         k_blk,
-                                         static_cast<cudaStream_t>(stream));
+                            int stages, void* stream) {
+  return gemv_stream::run<float, false>(x, w_t, out, B, K, M, ld, 1, m_blk,
+                                        k_blk, stages, stream);
+}
+
+// Dynamic shared memory one launch of either streaming kernel takes, in
+// bytes (the planner's smem_bytes must equal it).
+extern "C" long long gemv_stream_smem_bytes(int B, int m_blk, int k_blk,
+                                            int stages, int elem_bytes,
+                                            int split_k) {
+  return static_cast<long long>(gemv_stream::smem_bytes(
+      B, m_blk, k_blk, stages, elem_bytes, split_k));
 }

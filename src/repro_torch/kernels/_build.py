@@ -32,21 +32,26 @@ SOURCES = ("pim_gemv", "splitk_gemv", "quant_gemv", "grouped_gemv",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# C signatures: (x, w_t, out, B, K, M, ld, m_blk, k_blk, stream) for the
-# output-stationary and the column-block (triton_gemv) kernels, the
-# split-K form with the partials buffer and the degree, and the quant form
+# C signatures: (x, w_t, out, B, K, M, ld, m_blk, k_blk, stages, stream)
+# for the streaming output-stationary kernel and (x, w_t, out, B, K, M, ld,
+# deg, m_blk, k_blk, stages, stream) for its split-K form, beside
+# (B, m_blk, k_blk, stages, elem_bytes, split_k) for the shared memory
+# either launch takes; (x, w_t, out, B, K, M, ld, m_blk, k_blk, stream)
+# for the column-block (triton_gemv) kernel, the quant form
 # (x, codes, scales, out, B, K, M, ldw, lds, block, m_blk, k_blk, stream),
 # and the expert forms (xs, w, out, E, C, K, M, ld, es, m_blk, k_blk,
 # stream) and (x, offsets, w, out, T, K, M, ld, es, E, m_blk, k_blk,
 # stream); ld / ldw / lds are row strides and es an expert stride, in
-# elements.
+# elements.  Every entry returns an int (a CUDA error) unless _RESTYPES
+# names another type.
 _SIGNATURES = {
     "pim_gemv": {
-        f"pim_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
-        for t in ("bf16", "f32")
+        **{f"pim_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
+           for t in ("bf16", "f32")},
+        "gemv_stream_smem_bytes": (_I, _I, _I, _I, _I, _I),
     },
     "splitk_gemv": {
-        f"splitk_gemv_{t}": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
+        f"splitk_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)
         for t in ("bf16", "f32")
     },
     "quant_gemv": {
@@ -64,6 +69,8 @@ _SIGNATURES = {
                                 _I, _P) for t in ("bf16", "f32")},
     },
 }
+
+_RESTYPES = {"gemv_stream_smem_bytes": _L}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -137,7 +144,7 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             for fn, argtypes in _SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = _I
+                getattr(lib, fn).restype = _RESTYPES.get(fn, _I)
             _LIBS[name] = lib
     return lib
 

@@ -682,6 +682,11 @@ class GemvBackend:
         Default: ``ref`` alone."""
         return [("ref", None)]
 
+    def candidate_label(self, kernel: str, plan: GemvPlan | None) -> str:
+        """A candidate's name in an entry's ``candidates_us``: the kernel,
+        unless a backend times several plans of one kernel."""
+        return kernel
+
     def autotune_gemv(self, key: GemvKey, *, policy: DispatchPolicy,
                       table: AutotuneTable,
                       device: torch.device) -> tuple[str, GemvPlan | None]:
@@ -706,7 +711,8 @@ class GemvBackend:
                                                               policy)]
         us, kernel, plan = min(timed, key=lambda t: t[0])
         entry = plan_to_entry(kernel, plan, us)
-        entry["candidates_us"] = {k: t for t, k, _ in timed}
+        entry["candidates_us"] = {self.candidate_label(k, p): t
+                                  for t, k, p in timed}
         table.put(self.name, tkey, entry)
         if policy.table_path:
             table.save(policy.table_path)

@@ -31,10 +31,17 @@ For float weights selection keeps the TPU backend's gates (kernel not
 applicable, batch above ``batch_threshold``, weight under
 ``min_pallas_bytes`` -> ``ref``) and its
 cost form: bytes over HBM bandwidth scaled by grid occupancy, plus the
-launch and per-CTA terms, plus the split-K partial traffic.  The bandwidth
-is the H100 SXM data sheet's 3.35 TB/s; the occupancy target is the SM
-count, read from the device (a test passes it explicitly).  The other
-constants are uncalibrated seeds.
+launch and per-CTA terms.  Unlike the TPU's split-K, this one reduces its
+partials inside the launch (a thread block cluster), so it pays no
+partial traffic and no second launch.  The bandwidth is the H100 SXM data
+sheet's 3.35 TB/s; the occupancy target is the SM count, read from the
+device (a test passes it explicitly), which also sizes the plans.  The
+other constants are uncalibrated seeds.
+
+Selection keeps the planner's default ring depth; the autotuner also
+times every other depth the card's shared memory holds
+(``PIPELINE_DEPTHS``, as the TPU backend's staged candidates), each under
+its own label in the table's ``candidates_us``.
 """
 
 from __future__ import annotations
@@ -55,7 +62,10 @@ from repro_torch.kernels.backends.base import (
 )
 from repro_torch.kernels.gemv_plan import (
     K_ALIGN,
+    MAX_STAGES,
+    SPLITK_DEGREES,
     GemvPlan,
+    device_sms,
     kernel_applicable,
     plan_fits,
     plan_gemv,
@@ -63,6 +73,7 @@ from repro_torch.kernels.gemv_plan import (
     plan_splitk,
     quant_applicable,
     valid_splitk_degree,
+    with_pipeline_depth,
 )
 from repro_torch.kernels.grouped_gemv import (
     counts_to_offsets,
@@ -77,16 +88,20 @@ from repro_torch.kernels.quant_gemv import quant4_gemv, quant_gemv
 from repro_torch.kernels.splitk_gemv import splitk_gemv
 
 H100_HBM_GBPS = 3350.0     # H100 SXM data sheet
+# ring depths the autotuner tries beside the planner's default (those
+# with_pipeline_depth admits at the shape: the card's shared memory and
+# the K part's sub-tile count bound them)
+PIPELINE_DEPTHS = tuple(range(1, MAX_STAGES + 1))
 
 
 def sm_count() -> int:
     """SMs of the current CUDA device (132 on an H100 SXM)."""
-    if not torch.cuda.is_available():
+    sms = device_sms()
+    if sms is None:
         raise RuntimeError("the h100 backend's cost model needs the SM count "
                            "of a CUDA device; pass min_parallel_blocks on a "
                            "host without one")
-    props = torch.cuda.get_device_properties(torch.cuda.current_device())
-    return props.multi_processor_count
+    return sms
 
 
 class H100Backend(GemvBackend):
@@ -126,14 +141,25 @@ class H100Backend(GemvBackend):
         ctas = plan.split_k * plan.n_m
         occupancy = min(1.0, ctas / cm.min_parallel_blocks)
         t = io / (cm.bandwidth_bps * occupancy) * 1e6
-        t += cm.launch_us + cm.program_us * ctas
-        if plan.split_k > 1:
-            # f32 partials written then re-read, and the reduce's launch
-            t += (cm.splitk_reduce_factor * plan.split_k * batch * M * 4
-                  / cm.bandwidth_bps * 1e6) + cm.launch_us
-        return t
+        # one launch: split-K sums its partials in the clusters' shared
+        # memory, so no partial traffic and no reduce launch
+        return t + cm.launch_us + cm.program_us * ctas
 
     # -- planning / selection ---------------------------------------------------
+
+    def _plan_sms(self) -> int | None:
+        """The SM count the float plans fill: the one the backend was
+        given, else the device's (None without a card: the plan then
+        only feeds the plain versions' checks)."""
+        return self._sms or device_sms()
+
+    def _pim_plan(self, M, K, batch, x_bytes) -> GemvPlan:
+        return plan_gemv(M, K, batch, elem_bytes=x_bytes,
+                         sms=self._plan_sms())
+
+    def _splitk_plan(self, M, K, batch, x_bytes, degree) -> GemvPlan:
+        return plan_splitk(M, K, batch, degree=degree, elem_bytes=x_bytes,
+                           sms=self._plan_sms())
 
     def quant_plan(self, M, K, batch, bits, block) -> GemvPlan:
         """The quant kernels' plan, its column block narrowed to fill the
@@ -149,11 +175,11 @@ class H100Backend(GemvBackend):
         cands: list[tuple[str, GemvPlan | None]] = [("ref", None)]
         if not kernel_applicable(M, K, batch, x_bytes):
             return cands
-        cands.append(("pim", plan_gemv(M, K, batch, elem_bytes=x_bytes)))
+        cands.append(("pim", self._pim_plan(M, K, batch, x_bytes)))
         deg = valid_splitk_degree(K)
         if deg is not None:  # highest valid degree; lower ones are dominated
-            cands.append(("splitk", plan_splitk(M, K, batch, degree=deg,
-                                                elem_bytes=x_bytes)))
+            cands.append(("splitk", self._splitk_plan(M, K, batch, x_bytes,
+                                                     deg)))
         return cands
 
     def select_kernel(self, M, K, batch, *, bits=16, block=32, x_bytes=2,
@@ -195,9 +221,8 @@ class H100Backend(GemvBackend):
             deg = valid_splitk_degree(K)
             if deg is None:
                 return "ref", None
-            return "splitk", plan_splitk(M, K, batch, degree=deg,
-                                         elem_bytes=x_bytes)
-        return "pim", plan_gemv(M, K, batch, elem_bytes=x_bytes)
+            return "splitk", self._splitk_plan(M, K, batch, x_bytes, deg)
+        return "pim", self._pim_plan(M, K, batch, x_bytes)
 
     def coerce_plan(self, plan: GemvPlan, M: int, K: int, batch: int,
                     pw: PackedWeights, policy: DispatchPolicy):
@@ -206,7 +231,8 @@ class H100Backend(GemvBackend):
         ``quant``/``quant4`` with this backend's plan.  Tiles these kernels
         cannot run (another backend's) are re-planned at the same split
         degree (the highest valid one if that degree does not split K into
-        whole 8-row parts); a shape no kernel takes is ``ref``."""
+        whole 8-row parts, or is not a cluster size); a shape no kernel
+        takes is ``ref``."""
         if not policy.use_pallas:
             return "ref", None
         if pw.bits < 16:
@@ -217,21 +243,21 @@ class H100Backend(GemvBackend):
         if plan_fits(plan, M, K, batch, x_bytes):
             return ("splitk" if plan.split_k > 1 else "pim"), plan
         if plan.split_k == 1:
-            return "pim", plan_gemv(M, K, batch, elem_bytes=x_bytes)
+            return "pim", self._pim_plan(M, K, batch, x_bytes)
         deg = plan.split_k
-        if K % deg or (K // deg) % K_ALIGN:
+        if deg not in SPLITK_DEGREES or K % deg or (K // deg) % K_ALIGN:
             deg = valid_splitk_degree(K)
             if deg is None:
                 return "ref", None
-        return "splitk", plan_splitk(M, K, batch, degree=deg,
-                                     elem_bytes=x_bytes)
+        return "splitk", self._splitk_plan(M, K, batch, x_bytes, deg)
 
     def autotune_candidates(self, key: GemvKey, pw: PackedWeights,
                             policy: DispatchPolicy):
         """``ref`` and every kernel the planners accept: ``pim`` and
-        ``splitk`` at their stage count of 1 (staged plans are not ported,
-        so there are no staged candidates yet), or the quant kernel beside
-        the dequant oracle for quantized weights."""
+        ``splitk`` at the planner's default depth, then each at every
+        other depth of ``PIPELINE_DEPTHS`` that ``with_pipeline_depth``
+        admits (only a measured win puts one in the table), or the quant
+        kernel beside the dequant oracle for quantized weights."""
         if key.bits < 16:
             cands = [("ref", None)]
             if quant_applicable(key.M, key.K, bits=key.bits,
@@ -239,8 +265,25 @@ class H100Backend(GemvBackend):
                 cands.append(self._quant_pick(key.M, key.K, key.batch,
                                               key.bits, key.block))
             return cands
-        return self.candidate_plans(key.M, key.K, key.batch,
-                                    dtype_bytes(key.dtype))
+        x_bytes = dtype_bytes(key.dtype)
+        cands = self.candidate_plans(key.M, key.K, key.batch, x_bytes)
+        staged = []
+        for kernel, plan in cands:
+            if plan is None:
+                continue
+            for depth in PIPELINE_DEPTHS:
+                deep = with_pipeline_depth(plan, depth, batch=key.batch,
+                                           elem_bytes=x_bytes)
+                if deep is not None and deep is not plan:
+                    staged.append((kernel, deep))
+        return cands + staged
+
+    def candidate_label(self, kernel: str, plan: GemvPlan | None) -> str:
+        """Staged plans of one kernel are distinct candidates: the label
+        carries the ring depth (``pim/s4``)."""
+        if kernel in ("pim", "splitk") and plan is not None:
+            return f"{kernel}/s{plan.stages}"
+        return kernel
 
     # -- MoE expert programs ------------------------------------------------
 

@@ -40,7 +40,7 @@ from repro_torch.kernels.gemv_plan import (
     THREADS,
     X_SMEM_BUDGET,
     GemvPlan,
-    plan_gemv,
+    plan_tile,
     vec_elems,
 )
 from repro_torch.kernels.pim_gemv import DTYPES
@@ -72,7 +72,7 @@ def plan_grouped_gemv(M: int, K: int) -> GemvPlan:
 def plan_expert_gemv(M: int, K: int, *, elem_bytes: int = 2) -> GemvPlan:
     """The CUDA kernels' tile plan: the dense GEMV sweep for a chunk of
     ``MAX_BATCH`` rows (column block of at most 128, x chunk in budget)."""
-    return plan_gemv(M, K, MAX_BATCH, elem_bytes=elem_bytes)
+    return plan_tile(M, K, MAX_BATCH, elem_bytes=elem_bytes)
 
 
 def counts_to_offsets(counts: torch.Tensor) -> torch.Tensor:

@@ -6,9 +6,11 @@ Replaces the Pallas TPU kernel ``repro/kernels/pim_gemv.py::pim_gemv``:
 
 What bounds it on an H100: at decode batch (B <= 8) each weight element
 feeds 2*B flops, so the kernel is bound by the weight bytes over HBM
-bandwidth (3.35 TB/s).  The kernel reads each weight byte once in 16-byte
-coalesced vectors along the contiguous M axis, stages x in shared memory and
-keeps all B accumulators in registers (``csrc/gemv_tile.cuh``).
+bandwidth (3.35 TB/s).  The kernel streams each weight byte once through
+a ring of ``plan.stages`` asynchronous K sub-tiles in shared memory and
+runs bf16 on the tensor cores (``csrc/gemv_stream.cuh``); the plan
+(``gemv_plan.plan_gemv``) sizes the column block and the ring so the grid
+is resident on the card's SMs.
 
 A CPU tensor takes the plain version (:func:`pim_gemv_plain`); a CUDA tensor
 launches the kernel or raises.  ``pim_gemv.launches`` counts kernel launches.
@@ -21,10 +23,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.gemv_plan import (
     MAX_BATCH,
-    THREADS,
-    X_SMEM_BUDGET,
     GemvPlan,
-    vec_elems,
+    kernel_applicable,
+    plan_fits,
 )
 
 DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -68,20 +69,18 @@ def check_inputs(x: torch.Tensor, w_t: torch.Tensor,
     if x.device != w_t.device:
         raise ValueError(f"x on {x.device} but w_t on {w_t.device}")
     ld = row_stride(w_t, "w_t")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous and start on a 16-byte "
+                         "boundary")
     if not 1 <= B <= MAX_BATCH:
         raise ValueError(f"batch {B} outside 1..{MAX_BATCH}")
-    vec = vec_elems(x.element_size())
-    deg = plan.split_k
-    if (M % plan.m_blk or plan.n_m * plan.m_blk != M
-            or plan.m_blk % vec or THREADS % (plan.m_blk // vec)):
-        raise ValueError(f"plan {plan} does not tile M={M}")
-    if K % deg or (K // deg) % plan.k_blk:
-        raise ValueError(f"plan {plan} does not tile K={K}")
-    if 4 * B * plan.k_blk > X_SMEM_BUDGET:
-        raise ValueError(f"plan {plan}: x chunk exceeds shared memory at "
-                         f"B={B}")
+    if not kernel_applicable(M, K, B, x.element_size()):
+        raise ValueError(f"M={M}, K={K}: the kernels take whole 16-byte "
+                         f"column vectors and a K walk of whole 8-row "
+                         f"groups")
+    if not plan_fits(plan, M, K, B, x.element_size()):
+        raise ValueError(f"plan {plan} does not tile M={M}, K={K} at "
+                         f"B={B} within the card's shared memory")
     return B, K, M, ld
 
 
@@ -105,7 +104,8 @@ def pim_gemv(x: torch.Tensor, w_t: torch.Tensor, *,
     fn = getattr(lib, f"pim_gemv_{DTYPES[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(x.data_ptr(), w_t.data_ptr(), out.data_ptr(), B, K, M,
-                    ld, plan.m_blk, plan.k_blk, stream), "pim_gemv")
+                    ld, plan.m_blk, plan.k_blk, plan.stages, stream),
+                 "pim_gemv")
     pim_gemv.launches += 1
     return out
 

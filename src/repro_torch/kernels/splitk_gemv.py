@@ -1,19 +1,20 @@
 """Split-K decode GEMV: ``csrc/splitk_gemv.cu`` and its plain twin.
 
 Replaces the Pallas TPU kernel ``repro/kernels/splitk_gemv.py::splitk_gemv``:
-K splits into ``plan.split_k`` parts, each writing f32 partials
+K splits into ``plan.split_k`` parts, each computing f32 partials
 ``[deg, B, M]``; the partials are summed in a fixed order and cast to
 ``x.dtype``.
 
 What bounds it on an H100: the weight bytes over HBM bandwidth, as for
 ``pim_gemv``.  A narrow matrix has too few column blocks to occupy all 132
-SMs; splitting K multiplies the CTA count by the degree, for the price of
-``2 * deg * B * M * 4`` bytes of partials.  The reduce is a second small
-kernel in the same source (no atomics: part 0, then 1, ...).
+SMs; splitting K multiplies the CTA count by the degree.  Each part runs
+``pim_gemv``'s streaming body; the ``deg`` CTAs of a column block form one
+thread block cluster and sum their partials in shared memory, part 0
+first (no atomics, nothing in HBM), in the same launch.
 
 A CPU tensor takes the plain version (:func:`splitk_gemv_plain`); a CUDA
-tensor launches the kernels or raises.  ``splitk_gemv.launches`` counts
-calls that launched them.
+tensor launches the kernel or raises.  ``splitk_gemv.launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ def splitk_gemv_plain(x: torch.Tensor, w_t: torch.Tensor,
 
 def splitk_gemv(x: torch.Tensor, w_t: torch.Tensor, *,
                 plan: GemvPlan) -> torch.Tensor:
-    """x [B, K], w_t [K, M] -> [B, M] through the split-K kernels."""
+    """x [B, K], w_t [K, M] -> [B, M] through the split-K kernel."""
     B, K, M, ld = check_inputs(x, w_t, plan)
     deg = plan.split_k
     if deg < 2:
@@ -54,13 +55,12 @@ def splitk_gemv(x: torch.Tensor, w_t: torch.Tensor, *,
     if x.device.type != "cuda":
         raise ValueError(f"splitk_gemv runs on cuda or cpu, not {x.device}")
     lib = _build.load("splitk_gemv")
-    partials = torch.empty((deg, B, M), dtype=torch.float32, device=x.device)
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
     fn = getattr(lib, f"splitk_gemv_{DTYPES[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.check(fn(x.data_ptr(), w_t.data_ptr(), partials.data_ptr(),
-                    out.data_ptr(), B, K, M, ld, deg, plan.m_blk,
-                    plan.k_blk, stream), "splitk_gemv")
+    _build.check(fn(x.data_ptr(), w_t.data_ptr(), out.data_ptr(), B, K, M,
+                    ld, deg, plan.m_blk, plan.k_blk, plan.stages, stream),
+                 "splitk_gemv")
     splitk_gemv.launches += 1
     return out
 

@@ -9,9 +9,13 @@ import pytest
 import torch
 
 from repro_torch.kernels.gemv_plan import (
+    MAX_STAGES,
+    SPLITK_DEGREES,
     plan_gemv,
     plan_splitk,
+    stream_smem,
     valid_splitk_degree,
+    with_pipeline_depth,
 )
 from repro_torch.kernels.pim_gemv import pim_gemv, pim_gemv_plain
 from repro_torch.kernels.splitk_gemv import splitk_gemv, splitk_gemv_plain
@@ -49,6 +53,119 @@ def test_cuda_kernels_match_plain(cuda, M, K, B, dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(),
                                splitk_gemv_plain(x, w_t, deg).float(), **tol)
+
+
+# the streaming kernels (csrc/gemv_stream.cuh): olmo-1b's four decode
+# GEMVs, and ragged edges: M = 8 mod 16 (a ragged last column block) and
+# K parts of 24 rows (not whole k16 sub-tiles)
+STREAM_SHAPES = [(6144, 2048), (16384, 2048), (2048, 8192), (50304, 2048),
+                 (200, 48), (72, 96)]
+
+
+def _stream_case(cuda, M, K, B, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(M + K + B + seed)
+    w_t = (torch.randn((K, M), generator=g, device=cuda) / K ** 0.5).to(dtype)
+    x = torch.randn((B, K), generator=g, device=cuda).to(dtype)
+    return x, w_t
+
+
+def _degrees(K):
+    return [d for d in SPLITK_DEGREES if K % d == 0 and (K // d) % 8 == 0]
+
+
+def _stream_tol(dtype):
+    # the kernels and the plain versions sum f32 products in other orders;
+    # bf16 output: one bf16 ulp (2^-7 relative) plus f32 noise near zero
+    return (dict(rtol=2.0**-7, atol=1e-3) if dtype == torch.bfloat16
+            else dict(rtol=1e-5, atol=1e-5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K", STREAM_SHAPES)
+@pytest.mark.parametrize("B", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stream_kernels_match_plain_at_every_batch(cuda, M, K, B, dtype):
+    """pim_gemv, and splitk_gemv at every degree that splits K, against
+    their plain versions at the planner's default depth."""
+    x, w_t = _stream_case(cuda, M, K, B, dtype)
+    es = x.element_size()
+    n0 = pim_gemv.launches
+    out = pim_gemv(x, w_t, plan=plan_gemv(M, K, B, elem_bytes=es))
+    torch.cuda.synchronize()
+    assert pim_gemv.launches == n0 + 1 and out.shape == (B, M)
+    torch.testing.assert_close(out.float(), pim_gemv_plain(x, w_t).float(),
+                               **_stream_tol(dtype))
+    assert _degrees(K)
+    for deg in _degrees(K):
+        n0 = splitk_gemv.launches
+        out = splitk_gemv(x, w_t, plan=plan_splitk(M, K, B, degree=deg,
+                                                   elem_bytes=es))
+        torch.cuda.synchronize()
+        assert splitk_gemv.launches == n0 + 1
+        torch.testing.assert_close(
+            out.float(), splitk_gemv_plain(x, w_t, deg).float(),
+            **_stream_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K", STREAM_SHAPES)
+@pytest.mark.parametrize("B", [3, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stream_kernels_are_bit_identical_at_every_depth(cuda, M, K, B,
+                                                         dtype):
+    """The ring depth changes the copies in flight, never the order of
+    the sums: every depth the planner admits gives the default's bits."""
+    x, w_t = _stream_case(cuda, M, K, B, dtype, seed=1)
+    es = x.element_size()
+    plans = [(pim_gemv, plan_gemv(M, K, B, elem_bytes=es))] + [
+        (splitk_gemv, plan_splitk(M, K, B, degree=d, elem_bytes=es))
+        for d in _degrees(K)]
+    for fn, base in plans:
+        want = fn(x, w_t, plan=base)
+        depths = 0
+        for depth in range(1, MAX_STAGES + 1):
+            p = with_pipeline_depth(base, depth, batch=B, elem_bytes=es)
+            if p is None:
+                continue
+            depths += 1
+            assert torch.equal(fn(x, w_t, plan=p), want), (fn, p)
+        assert depths >= min(base.n_k, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K", [(6144, 2048), (200, 48)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stream_kernels_read_a_column_view_in_place(cuda, M, K, dtype):
+    """A column slice of a wider weight (rows 3M apart) gives the
+    contiguous copy's result bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    wide = torch.randn((K, 3 * M), generator=g, device=cuda).to(dtype)
+    view = wide[:, M:2 * M]
+    x = torch.randn((8, K), generator=g, device=cuda).to(dtype)
+    es = x.element_size()
+    deg = _degrees(K)[0]
+    for fn, plan in ((pim_gemv, plan_gemv(M, K, 8, elem_bytes=es)),
+                     (splitk_gemv, plan_splitk(M, K, 8, degree=deg,
+                                               elem_bytes=es))):
+        assert torch.equal(fn(x, view, plan=plan),
+                           fn(x, view.contiguous(), plan=plan))
+
+
+@pytest.mark.gpu
+def test_planner_shared_memory_equals_the_kernels(cuda):
+    """The plan's smem_bytes (the wrappers' fit check) is what the
+    kernels ask for at launch."""
+    from repro_torch.kernels import _build
+
+    fn = _build.load("pim_gemv").gemv_stream_smem_bytes
+    for B in range(1, 9):
+        for m_blk in (64, 128):
+            for es in (2, 4):
+                for ks in (16, 32, 64, 128):
+                    for stages in (1, 3, 8):
+                        for deg in (1, 8):
+                            assert fn(B, m_blk, ks, stages, es, deg) == \
+                                stream_smem(B, m_blk, ks, stages, es, deg)
 
 
 def _small(device):

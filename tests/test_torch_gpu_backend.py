@@ -58,7 +58,13 @@ from repro_torch.kernels.backends.gpu import (  # noqa: E402
     plan_triton_gemv,
 )
 from repro_torch.kernels.backends.h100 import H100Backend  # noqa: E402
-from repro_torch.kernels.gemv_plan import GemvPlan  # noqa: E402
+from repro_torch.kernels.gemv_plan import (  # noqa: E402
+    MAX_STAGES,
+    GemvPlan,
+    plan_gemv,
+    plan_splitk,
+    with_pipeline_depth,
+)
 from repro_torch.kernels.ops import PackedWeights  # noqa: E402
 from repro_torch.kernels.triton_gemv import (  # noqa: E402
     triton_gemv,
@@ -477,12 +483,14 @@ def test_autotune_tunes_persists_and_replays(tmp_path, monkeypatch,
                   dtype=str(x.dtype), backend=backend)
     entry = json.loads(open(path).read())["tables"][backend][
         key.table_key()]
-    cands = {k for k, _ in get_backend(backend).autotune_candidates(
-        key, pw, tune)}
+    be = get_backend(backend)
+    # one label per candidate: h100's staged plans carry their ring depth
+    cands = {be.candidate_label(k, p)
+             for k, p in be.autotune_candidates(key, pw, tune)}
     assert set(entry["candidates_us"]) == cands and len(cands) >= 2
     assert entry["us"] == min(entry["candidates_us"].values())
-    assert entry["kernel"] == min(entry["candidates_us"],
-                                  key=entry["candidates_us"].get)
+    assert be.candidate_label(*entry_to_plan(entry)) == min(
+        entry["candidates_us"], key=entry["candidates_us"].get)
 
     dispatch.clear_autotune_table()
     dispatch.clear_plan_cache()
@@ -556,6 +564,72 @@ def test_a_candidate_that_raises_is_not_skipped(monkeypatch, tmp_path):
                   dtype="torch.float32", backend="gpu")
     assert dispatch.autotune_table().get("gpu", key.table_key())[
         "candidates_us"].keys() == {"ref"}
+
+
+@pytest.mark.parametrize("M,K", [(6144, 2048), (16384, 2048),
+                                 (2048, 8192), (50304, 2048)])
+def test_h100_staged_candidates_beside_the_default_depth(M, K):
+    """The autotuner times pim and splitk at every ring depth the card
+    holds (the TPU backend's staged candidates), each under its own
+    label; the model-priced pick keeps the planner's default depth."""
+    be = H100Backend(min_parallel_blocks=132)
+    key = GemvKey(M=M, K=K, batch=8, bits=16, block=32,
+                  dtype="torch.bfloat16", backend="h100")
+    cands = be.autotune_candidates(key, None, DispatchPolicy())
+    labels = [be.candidate_label(k, p) for k, p in cands]
+    assert len(set(labels)) == len(labels) and labels[0] == "ref"
+    defaults = {"pim": plan_gemv(M, K, 8, sms=132),
+                "splitk": plan_splitk(M, K, 8, degree=8, sms=132)}
+    for kernel, base in defaults.items():
+        staged = sorted((p for k, p in cands if k == kernel),
+                        key=lambda p: p.stages)
+        assert base in staged
+        assert [p.stages for p in staged] == [
+            d for d in range(1, MAX_STAGES + 1)
+            if with_pipeline_depth(base, d, batch=8) is not None]
+        assert len(staged) >= 3
+        # restaging never changes the tiles (nor the order of the sums)
+        assert {(p.m_blk, p.k_blk, p.n_m, p.n_k, p.split_k)
+                for p in staged} == {(base.m_blk, base.k_blk, base.n_m,
+                                      base.n_k, base.split_k)}
+    kernel, plan = be.select_kernel(M, K, 8)
+    assert plan == defaults[kernel]
+    assert be.candidate_label(kernel, plan) == f"{kernel}/s{plan.stages}"
+
+
+def test_a_staged_winner_round_trips_through_the_table(tmp_path,
+                                                       monkeypatch):
+    """A staged plan persisted as the winner replays with its depth."""
+    be = H100Backend(min_parallel_blocks=132)
+    monkeypatch.setitem(base._REGISTRY, "h100", be)
+    x, pw = _gemv_case(M=256, K=512, B=2)
+    plan = plan_gemv(256, 512, 2, elem_bytes=4, sms=132)
+    staged = with_pipeline_depth(plan, 1, batch=2, elem_bytes=4)
+    assert staged is not None and staged.stages != plan.stages
+    key = GemvKey(M=256, K=512, batch=2, bits=16, block=32,
+                  dtype=str(x.dtype), backend="h100")
+    path = str(tmp_path / "table.json")
+    table = dispatch.autotune_table()
+    table.put("h100", key.table_key(), plan_to_entry("pim", staged, 5.0))
+    table.save(path)
+    dispatch.clear_autotune_table()
+    dispatch.clear_plan_cache()
+    dispatch.load_autotune_table(path)
+    seen = []
+    real = H100Backend.execute
+
+    def record(self, kernel, x, pw, plan):
+        seen.append((kernel, plan))
+        return real(self, kernel, x, pw, plan)
+
+    monkeypatch.setattr(H100Backend, "execute", record)
+    out = dispatch.dispatch_gemv(x, pw, policy=DispatchPolicy(
+        backend="h100", min_pallas_bytes=0))
+    np.testing.assert_allclose(out.numpy(), (x @ pw.w_t).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert seen == [("pim", staged)]
+    dispatch.clear_autotune_table()
+    dispatch.clear_plan_cache()
 
 
 def test_table_entries_stand_in_for_the_cost_model_only():

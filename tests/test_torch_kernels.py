@@ -23,6 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.pim_gemv import pim_gemv as jax_pim_gemv
 from repro.kernels.splitk_gemv import splitk_gemv as jax_splitk_gemv
 from repro.kernels.tpu_plan import plan_splitk as jax_plan_splitk
+from repro.kernels import ref as jref
 from repro.kernels.backends import get_backend
 from repro.kernels.tpu_plan import plan_tpu_gemv
 from repro_torch.kernels import _build, dispatch, ref
@@ -32,13 +33,24 @@ from repro_torch.kernels.backends.h100 import H100Backend
 from repro_torch.kernels.gemv_plan import (
     K_ALIGN,
     MAX_BATCH,
+    DEFAULT_STAGES,
     MAX_M_BLK,
+    MAX_STAGES,
+    SMEM_PER_CTA,
+    STREAM_M_BLKS,
+    SUBTILE_BYTES,
     THREADS,
+    GemvPlan,
+    ctas_per_sm,
     kernel_applicable,
+    plan_fits,
     plan_gemv,
     plan_splitk,
+    plan_tile,
+    stream_smem,
     valid_splitk_degree,
     vec_elems,
+    with_pipeline_depth,
 )
 from repro_torch.kernels.ops import PackedWeights
 from repro_torch.kernels.pim_gemv import pim_gemv, pim_gemv_plain
@@ -140,15 +152,30 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     (50304, 2048, 8, 2), (192, 64, 3, 4), (64, 128, 1, 2),
 ])
 def test_plan_sweep_tall_first_and_divides(M, K, B, elem):
-    p = plan_gemv(M, K, B, elem_bytes=elem)
+    # the streaming kernels' plan on 132 SMs: a column block they are built
+    # for (the last may be ragged), 16 KB sub-tiles of whole k16 steps, the
+    # grid resident in one wave, 128 columns unless that grid leaves SMs
+    # idle, and the default ring depth
+    p = plan_gemv(M, K, B, elem_bytes=elem, sms=132)
+    assert p.m_blk in STREAM_M_BLKS and p.n_m == -(-M // p.m_blk)
+    assert p.k_blk % 16 == 0 and p.n_k == -(-K // p.k_blk)
+    assert p.k_blk * p.m_blk * elem <= SUBTILE_BYTES
+    assert plan_fits(p, M, K, B, elem) and p.split_k == 1
+    assert p.smem_bytes == stream_smem(B, p.m_blk, p.k_blk, p.stages, elem)
+    held = ctas_per_sm(p.smem_bytes)
+    assert p.n_m <= 132 * held
+    assert p.m_blk == 128 or -(-M // 128) < 132
+    assert p.stages == min(DEFAULT_STAGES, p.n_k)
+    # the gemv_tile body's plan (the expert kernels) keeps the first sweep
+    t = plan_tile(M, K, B, elem_bytes=elem)
     vec = vec_elems(elem)
-    assert p.n_m * p.m_blk == M and p.n_k * p.k_blk == K
-    assert p.m_blk <= MAX_M_BLK and p.m_blk % vec == 0
-    assert THREADS % (p.m_blk // vec) == 0
+    assert t.n_m * t.m_blk == M and t.n_k * t.k_blk == K
+    assert t.m_blk <= MAX_M_BLK and t.m_blk % vec == 0
+    assert THREADS % (t.m_blk // vec) == 0
     # tallest: doubling the block would no longer divide M or fit the cap
-    assert 2 * p.m_blk > MAX_M_BLK or M % (2 * p.m_blk)
-    assert p.smem_bytes <= 48 * 1024 and p.stages == 1
-    assert p.k_blk % K_ALIGN == 0 or p.k_blk == K
+    assert 2 * t.m_blk > MAX_M_BLK or M % (2 * t.m_blk)
+    assert t.smem_bytes <= 48 * 1024 and t.stages == 1
+    assert t.k_blk % K_ALIGN == 0 or t.k_blk == K
 
 
 def test_splitk_degree_and_applicability():
@@ -201,9 +228,9 @@ def test_h100_gates_and_pins():
         be.select_kernel(256, 256, 1, policy=DispatchPolicy(kernel="quant"))
     cm = be.cost_model
     assert cm.bandwidth_gbps == 3350.0 and cm.min_parallel_blocks == 132
-    # split-K buys occupancy for a narrow GEMV at the price of partials
-    p8 = plan_splitk(2048, 8192, 8, degree=8)
-    p1 = plan_gemv(2048, 8192, 8)
+    # split-K buys occupancy for a narrow GEMV (its partials stay on chip)
+    p8 = plan_splitk(2048, 8192, 8, degree=8, sms=132)
+    p1 = plan_gemv(2048, 8192, 8, sms=132)
     assert be.estimate_cost_us("splitk", 2048, 8192, 8, plan=p8) < \
         be.estimate_cost_us("pim", 2048, 8192, 8, plan=p1)
 
@@ -263,3 +290,122 @@ def test_dispatch_entry_points_and_plan_cache():
         dispatch.dispatch_prepacked(x, fused, (32, 8))
     dispatch.clear_plan_cache()
     assert dispatch.dispatch_stats()["kernel_picks"] == {}
+
+
+# --------------------------------------------------------------------------
+# the streaming kernels' planner: ring depth, grids, ragged edges
+# --------------------------------------------------------------------------
+
+OLMO_GEMVS = {"qkv": (6144, 2048), "gate_up": (16384, 2048),
+              "down": (2048, 8192), "head": (50304, 2048)}
+# the picks' geometry on 132 SMs (m_blk, CTAs, CTAs an SM holds)
+OLMO_GRIDS = {"qkv": ("splitk", 128, 384, 3), "gate_up": ("pim", 64, 256, 2),
+              "down": ("splitk", 64, 256, 2), "head": ("pim", 128, 393, 3)}
+
+
+@pytest.mark.parametrize("B", range(1, MAX_BATCH + 1))
+def test_olmo_plans_fit_the_card_at_every_batch(B):
+    """At olmo-1b's decode shapes both kernels' default plans fit one
+    CTA's shared memory; the picked kernel's grid is resident in one wave
+    of 132 SMs and keeps at least 32 KB of weights in flight per SM."""
+    be = H100Backend(min_parallel_blocks=132)
+    for name, (M, K) in OLMO_GEMVS.items():
+        for p in (plan_gemv(M, K, B, sms=132),
+                  plan_splitk(M, K, B, degree=valid_splitk_degree(K),
+                              sms=132)):
+            assert plan_fits(p, M, K, B, 2)
+            assert p.smem_bytes == stream_smem(B, p.m_blk, p.k_blk,
+                                               p.stages, 2, p.split_k)
+            assert p.smem_bytes <= SMEM_PER_CTA
+        kernel, m_blk, ctas, per_sm = OLMO_GRIDS[name]
+        picked, p = be.select_kernel(M, K, B)
+        assert picked == kernel and p.m_blk == m_blk
+        assert p.n_m * p.split_k == ctas
+        assert ctas_per_sm(p.smem_bytes) >= per_sm
+        assert ctas <= 132 * per_sm
+        in_flight = per_sm * (p.stages - 1) * p.k_blk * p.m_blk * 2
+        assert in_flight >= 32 * 1024
+
+
+@pytest.mark.parametrize("M,K,B,deg", [(6144, 2048, 8, 8),
+                                       (16384, 2048, 8, 1),
+                                       (2048, 8192, 1, 8),
+                                       (50304, 2048, 4, 1),
+                                       (200, 48, 3, 2)])
+def test_with_pipeline_depth_restages_only_the_ring(M, K, B, deg):
+    base = (plan_splitk(M, K, B, degree=deg, sms=132) if deg > 1
+            else plan_gemv(M, K, B, sms=132))
+    assert with_pipeline_depth(base, base.stages, batch=B) is base
+    assert with_pipeline_depth(base, 0, batch=B) is None
+    assert with_pipeline_depth(base, MAX_STAGES + 1, batch=B) is None
+    for depth in range(1, MAX_STAGES + 1):
+        p = with_pipeline_depth(base, depth, batch=B, elem_bytes=2)
+        smem = stream_smem(B, base.m_blk, base.k_blk, depth, 2, deg)
+        if depth > base.n_k or smem > SMEM_PER_CTA:
+            assert p is None
+            continue
+        # the same tiles, so the same order of sums: only the ring differs
+        assert (p.m_blk, p.k_blk, p.n_m, p.n_k, p.split_k) == (
+            base.m_blk, base.k_blk, base.n_m, base.n_k, base.split_k)
+        assert p.stages == depth and p.smem_bytes == smem
+        assert plan_fits(p, M, K, B, 2)
+    # the sub-tile follows from the column block alone, never from the
+    # depth the SM count leads the planner to
+    for sms in (1, 8, 132, 1024):
+        q = (plan_splitk(M, K, B, degree=deg, sms=sms) if deg > 1
+             else plan_gemv(M, K, B, sms=sms))
+        if q.m_blk == base.m_blk:
+            assert q.k_blk == base.k_blk
+
+
+def test_plan_fits_refuses_what_the_kernels_do_not_take():
+    p = plan_gemv(256, 512, 2, sms=132)
+    assert plan_fits(p, 256, 512, 2)
+    for bad in (dict(m_blk=32, n_m=8), dict(m_blk=256, n_m=1),
+                dict(k_blk=24), dict(k_blk=272, n_k=2), dict(stages=0),
+                dict(stages=MAX_STAGES + 1), dict(n_m=p.n_m + 1),
+                dict(split_k=3), dict(split_k=16)):
+        assert not plan_fits(GemvPlan(**{**p.__dict__, **bad}), 256, 512, 2)
+    # a ring past one CTA's shared memory
+    big = GemvPlan(m_blk=128, k_blk=1024, n_m=2, n_k=1, smem_bytes=0)
+    assert not plan_fits(big, 256, 1024, 8)
+
+
+@pytest.mark.parametrize("M,K,B,deg", [(200, 48, 3, 2), (200, 48, 8, 1),
+                                       (72, 96, 5, 4), (136, 24, 1, 1),
+                                       (264, 192, 7, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ragged_edges_plan_and_match_jax_ref(M, K, B, deg, dtype):
+    """M = 8 mod 16 (a ragged last column block) and K parts that are not
+    whole k16 sub-tiles (24 rows of K = 48 at degree 2): the plan covers
+    them (the kernels zero-fill the edge), and the port computes the JAX
+    package's function there."""
+    p = (plan_splitk(M, K, B, degree=deg, sms=132) if deg > 1
+         else plan_gemv(M, K, B, sms=132))
+    assert plan_fits(p, M, K, B, 2) and p.n_m * p.m_blk >= M
+    w_t, x = _inputs(M, K, B, seed=M + K)
+    jw, jx, tw, tx = _both(w_t, x, dtype)
+    p = (plan_splitk(M, K, B, degree=deg, sms=132,
+                     elem_bytes=tx.element_size()) if deg > 1
+         else plan_gemv(M, K, B, sms=132, elem_bytes=tx.element_size()))
+    if deg > 1:
+        out = splitk_gemv(tx, tw, plan=p)
+        expect = jref.splitk_gemv_ref(jw, jx, deg)
+    else:
+        out = pim_gemv(tx, tw, plan=p)
+        expect = jref.gemv_ref(jw, jx)
+    assert out.shape == (B, M) and out.dtype == tx.dtype
+    np.testing.assert_allclose(_np(out), _np(expect), **TOL[dtype])
+
+
+def test_h100_prices_splitk_as_one_launch_without_partials():
+    be = H100Backend(min_parallel_blocks=132)
+    cm = be.cost_model
+    for M, K in ((6144, 2048), (2048, 8192)):
+        kernel, p = be.select_kernel(M, K, 8)
+        assert kernel == "splitk" and p.n_m * p.split_k >= 132
+        io = be.io_bytes(M, K, 8, bits=16, x_bytes=2)
+        want = (io / cm.bandwidth_bps * 1e6 + cm.launch_us
+                + cm.program_us * p.n_m * p.split_k)
+        assert be.estimate_cost_us("splitk", M, K, 8, plan=p) == \
+            pytest.approx(want)
