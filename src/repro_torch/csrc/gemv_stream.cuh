@@ -1,29 +1,33 @@
-// Streaming decode GEMV body for Hopper (sm_90a), shared by pim_gemv.cu and
-// splitk_gemv.cu (the other kernels keep gemv_tile.cuh).
+// Streaming decode GEMV body for Hopper (sm_90a), shared by pim_gemv.cu,
+// splitk_gemv.cu, triton_gemv.cu and grouped_gemv.cu's grouped kernel
+// (ragged_gemv keeps gemv_tile.cuh).
 //
-//   out[B, M] = x[B, K] @ w_t[K, M]      (w_t K-major, 1 <= B <= kMaxB)
+//   out[p][R, M] = x[p][R, K] @ w_t[p][K, M]      (w_t K-major)
 //
-// Bound: at decode batch each weight element feeds 2 * B flops, far below
+// p runs over `parts` (blockIdx.y): the K parts of a split-K launch (whose
+// sums meet in a cluster), or the experts of a grouped launch, or just one.
+//
+// Bound: at decode batch each weight element feeds 2 * R flops, far below
 // the ~295 flops/byte where an H100 stops being memory bound, so the floor
 // is the weight bytes over HBM bandwidth (3.35 TB/s): every SM has to pull
 // ~25 GB/s, all the time.
 //
 // One CTA (256 threads, 8 warps) owns one column block of m_blk = 64 or 128
-// outputs over one K part of k_part rows (blockIdx.y; the whole K for
-// pim_gemv).  Its K walk streams through a ring of `stages` slots in
-// dynamic shared memory, filled by the tensor memory accelerator (TMA):
-// one thread asks for a K sub-tile (ks rows, 16 KB of weights: 64 rows of
-// 128 bf16 columns, 128 of 64) as m_blk / (128 / sizeof(T)) boxes of 128
-// bytes a row, plus x's box of the same ks columns for the B rows, all
-// counted on the slot's mbarrier.  The copies of sub-tiles i+1 ..
-// i+stages-1 are in flight while sub-tile i is multiplied, so no point of
-// the K walk has zero weight bytes in flight.  The weight boxes land in the
-// 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)), so the
-// eight rows an ldmatrix reads fall in distinct bank groups; slots are
-// 1024-byte aligned, as the swizzle asks.  w_t is a 3-D tensor map
-// {M, k_part, deg} and x one of {k_part, deg, B}: the copy engine
-// zero-fills past M (a ragged last column block) and past the K part (a
-// ragged last sub-tile).
+// outputs of one part over the part's k_part rows.  Its K walk streams
+// through a ring of `stages` slots in dynamic shared memory, filled by the
+// tensor memory accelerator (TMA): one thread asks for a K sub-tile (ks
+// rows, 16 KB of weights: 64 rows of 128 bf16 columns, 128 of 64) as
+// m_blk / (128 / sizeof(T)) boxes of 128 bytes a row, plus x's box of the
+// same ks columns for the launch's rows, all counted on the slot's
+// mbarrier.  The copies of sub-tiles i+1 .. i+stages-1 are in flight while
+// sub-tile i is multiplied, so no point of the K walk has zero weight
+// bytes in flight.  The weight boxes land in the 128-byte swizzle (16-byte
+// chunk c of row r at chunk c ^ (r % 8)), so the eight rows an ldmatrix
+// reads fall in distinct bank groups; slots are 1024-byte aligned, as the
+// swizzle asks.  w_t is a 3-D tensor map {M, k_part, parts} and x one of
+// {k_part, parts, R} (or {k_part, R, parts}, whichever keeps the strides
+// increasing): the copy engine zero-fills past M (a ragged last column
+// block), past the K part (a ragged last sub-tile) and past the last row.
 //
 // Why TMA and a shallow ring (measured on an H100 SXM; PERF.md):
 // filled with 16-byte cp.async copies, a CTA streamed about half of what
@@ -36,26 +40,32 @@
 //
 //   bf16: warp-level mma.sync.m16n8k16 (bf16 in, f32 accumulate) computing
 //         out^T = w_t^T . x^T.  W is the A operand, taken from the slot with
-//         ldmatrix.x4.trans; x is the n = 8 operand (lanes of batch rows
-//         >= B feed zeros, so B <= 8 needs no padding in memory).  Warp w
-//         owns m16 tile w % (m_blk / 16) and, when m_blk = 64, every
-//         second k16 step of each sub-tile (k group w / 4).  bf16 x bf16
-//         products are exact in f32: only the order of the sums differs
-//         from the plain version.
+//         ldmatrix.x4.trans; x is the n = 8 operand, NT of them a launch
+//         (NT * 8 >= the rows, up to 64): every A fragment, so every weight
+//         byte, is read from shared memory once and multiplied into all NT
+//         row tiles (lanes of rows past the box feed zeros).  Warp w owns
+//         m16 tile w % (m_blk / 16) and, when m_blk = 64, every second k16
+//         step of each sub-tile (k group w / 4).  bf16 x bf16 products are
+//         exact in f32: only the order of the sums differs from the plain
+//         version.
 //   f32:  scalar f32 FMAs (no TF32: that would round x and W to 10-bit
 //         mantissas, which the reference's f32 product does not).  Thread
 //         t owns column t % m_blk and every (256 / m_blk)-th row of each
-//         sub-tile.
+//         sub-tile, for up to 8 rows a launch.
+//
+// More rows than one launch holds (f32 past 8, bf16 past 64) run as row
+// chunks, one launch each over the same tensor maps.
 //
 // After the walk the k groups' f32 sums meet in shared memory (the ring,
-// drained) and are added in a fixed order, group 0 first.  pim_gemv casts
-// and writes `out`.  splitk_gemv keeps the CTA's f32 partial [B, m_blk]
-// in shared memory; the `deg` CTAs of one column block form one thread
-// block cluster (cluster dims (1, deg, 1): rank r is K part r), and after
-// cluster.sync() rank r sums its m_blk / deg columns over ranks 0, 1, ...,
-// deg - 1 in that order through distributed shared memory, casts and
-// writes `out`; a second cluster.sync() keeps every CTA alive until its
-// peers have read it.  One launch, no atomics, no partials in HBM.
+// drained) and are added in a fixed order, group 0 first.  Without a
+// cluster the CTA casts and writes its part's `out`.  splitk_gemv keeps
+// the CTA's f32 partial [R, m_blk] in shared memory; the `deg` CTAs of one
+// column block form one thread block cluster (cluster dims (1, deg, 1):
+// rank r is K part r), and after cluster.sync() rank r sums its m_blk /
+// deg columns over ranks 0, 1, ..., deg - 1 in that order through
+// distributed shared memory, casts and writes `out`; a second
+// cluster.sync() keeps every CTA alive until its peers have read it.  One
+// launch, no atomics, no partials in HBM.
 //
 // Determinism: ks follows from the plan's k_blk alone and the warps' k
 // steps from m_blk, so the stage count changes how many copies are in
@@ -63,7 +73,9 @@
 // bit-identical.
 //
 // w_t's rows lie ld elements apart (ld >= M, ld * sizeof(T) a multiple of
-// 16 bytes): a column slice of a wider prepacked weight runs in place.
+// 16 bytes), its parts w_ps apart; x's rows and parts lie x_rs / x_ps
+// apart: a column slice of a wider prepacked weight, an expert slice of a
+// stack and a row or expert view of x run in place.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -82,7 +94,8 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxB = 8;            // batch rows: one mma's n
+constexpr int kMaxB = 8;            // rows of one mma's n, and of f32
+constexpr int kMaxTiles = 8;        // n tiles a bf16 launch holds: 64 rows
 constexpr int kMaxStages = 8;
 constexpr int kMaxDeg = 8;          // split-K parts: the portable cluster size
 constexpr int kMinCtasPerSm = 4;    // launch bound: at most 64 registers
@@ -96,7 +109,8 @@ __host__ __device__ inline int groups(int m_blk, int elem_bytes) {
   return (elem_bytes == 2 ? kWarps * 16 : kThreads) / m_blk;
 }
 
-// One ring slot: the weight boxes [ks][m_blk] and x's box [B][ks].
+// One ring slot: the weight boxes [ks][m_blk] and x's box [B][ks] (B: the
+// rows of the box).
 __host__ __device__ inline size_t slot_bytes(int B, int m_blk, int ks,
                                              int elem_bytes) {
   const size_t bytes = (static_cast<size_t>(m_blk) + B) * ks * elem_bytes;
@@ -197,12 +211,13 @@ __device__ __forceinline__ int w_offset(int r, int c, int ks) {
 }
 
 // The epilogue: red holds the k groups' f32 sums [kGroups][B][MBLK]; add
-// them in group order, then (pim) cast and write out, or (split-K) keep
-// the partial [B][MBLK] behind them and sum the cluster's partials in
-// rank order through distributed shared memory.
+// them in group order, then (no cluster) cast and write the first `rows`
+// rows of out, or (split-K) keep the partial [B][MBLK] behind them and sum
+// the cluster's partials in rank order through distributed shared memory.
 template <typename T, int MBLK, bool CLUSTER, int kGroups>
 __device__ __forceinline__ void finish(float* red, T* __restrict__ out,
-                                       int B, int M, int col0) {
+                                       int B, int rows, int M, int col0,
+                                       long long o_rs) {
   const int tid = threadIdx.x;
   float* part = red + kGroups * B * MBLK;          // [B][MBLK], split-K
   for (int i = tid; i < B * MBLK; i += kThreads) {
@@ -213,7 +228,8 @@ __device__ __forceinline__ void finish(float* red, T* __restrict__ out,
       part[i] = s;
     } else {
       const int c = col0 + i % MBLK;
-      if (c < M) store(s, out + static_cast<size_t>(i / MBLK) * M + c);
+      const int b = i / MBLK;
+      if (c < M && b < rows) store(s, out + b * o_rs + c);
     }
   }
 
@@ -235,20 +251,26 @@ __device__ __forceinline__ void finish(float* red, T* __restrict__ out,
 #pragma unroll
       for (int q = 0; q < kMaxDeg; ++q)
         if (q < deg) s += v[q];
-      if (col0 + c < M) store(s, out + static_cast<size_t>(b) * M + col0 + c);
+      if (col0 + c < M && b < rows) store(s, out + b * o_rs + col0 + c);
     }
     cluster.sync();  // no CTA leaves while a peer still reads its tile
   }
 }
 
-// Grid (ceil(M / MBLK), deg); with CLUSTER the deg CTAs of a column block
-// are one cluster.  out rows lie M apart.
-template <typename T, int MBLK, bool CLUSTER>
-__global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
+// Grid (ceil(M / MBLK), parts); with CLUSTER the parts of a column block are
+// one cluster and share `out`, else part p writes out + p * o_ps.  B is
+// the rows of x's box (at most NT * 8 for bf16, kMaxB for f32), `rows` of
+// them (from row0 on) are stored; out rows lie o_rs apart, and `out`
+// already points at row0.  x_part_dim says which dimension of x's map is
+// the part (1) and which the row (the other).
+template <typename T, int MBLK, int NT, bool CLUSTER>
+__global__ void __launch_bounds__(kThreads, NT > 4 ? 2 : kMinCtasPerSm)
 stream_kernel(const __grid_constant__ CUtensorMap tw,
               const __grid_constant__ CUtensorMap tx, T* __restrict__ out,
-              int B, int M, int k_part, int ks, int stages) {
+              int B, int rows, int M, int k_part, int ks, int stages,
+              int row0, int x_part_dim, long long o_ps, long long o_rs) {
   constexpr bool kMma = std::is_same<T, bf16>::value;
+  static_assert(kMma || NT == 1, "f32 holds kMaxB rows a launch");
   constexpr int kBoxCols = kRowBytes / sizeof(T);
   constexpr int kTiles = MBLK / 16;          // m16 tiles (bf16)
   constexpr int kGroups = (kMma ? kWarps * 16 : kThreads) / MBLK;
@@ -265,6 +287,9 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
   const int n_sub = (k_part + ks - 1) / ks;
   const int w_bytes = MBLK * ks * static_cast<int>(sizeof(T));
   const unsigned tx_bytes = static_cast<unsigned>((MBLK + B) * ks * sizeof(T));
+  const int xc1 = x_part_dim == 1 ? part : row0;
+  const int xc2 = x_part_dim == 1 ? row0 : part;
+  if constexpr (!CLUSTER) out += part * o_ps;
 
   if (tid == 0) {
     for (int q = 0; q < stages; ++q) mbar_init(&bars[q], 1);
@@ -281,7 +306,7 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
     for (int h = 0; h < MBLK / kBoxCols; ++h)
       tma_load_3d(ws + h * ks * kRowBytes, &tw, col0 + h * kBoxCols, i * ks,
                   part, bar);
-    tma_load_3d(ws + w_bytes, &tx, i * ks, part, 0, bar);
+    tma_load_3d(ws + w_bytes, &tx, i * ks, xc1, xc2, bar);
   };
 
   const int warp = tid / 32;
@@ -299,9 +324,11 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
   const int lcol = mt * 16 + (((lane >> 3) & 1) << 3);
 
   constexpr int kAcc = kMma ? 4 : kMaxB;
-  float acc[kAcc];
+  float acc[NT][kAcc];
 #pragma unroll
-  for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < kAcc; ++q) acc[j][q] = 0.f;
 
   if (tid == 0)
     for (int q = 0; q < stages - 1 && q < n_sub; ++q) issue(q);
@@ -313,16 +340,20 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
     const T* xs = reinterpret_cast<const T*>(ws + w_bytes);   // [B][ks]
     if constexpr (kMma) {
       for (int kk = wkg * 16; kk < ks; kk += kGroups * 16) {
-        // B fragment: x[n = g][k = 2t, 2t+1] and [8 + 2t, 9 + 2t]
-        uint32_t b0 = 0u, b1 = 0u;
-        if (g < B) {
-          b0 = *reinterpret_cast<const uint32_t*>(xs + g * ks + kk + 2 * t);
-          b1 = *reinterpret_cast<const uint32_t*>(xs + g * ks + kk + 8
-                                                  + 2 * t);
-        }
         uint32_t a[4];
         ldmatrix_x4_trans(a, ws + w_offset<T>(kk + lrow, lcol, ks));
-        mma_16816(acc, a, b0, b1);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          // B fragment: x[n = 8j + g][k = 2t, 2t+1] and [8 + 2t, 9 + 2t]
+          const int n = j * 8 + g;
+          uint32_t b0 = 0u, b1 = 0u;
+          if (n < B) {
+            b0 = *reinterpret_cast<const uint32_t*>(xs + n * ks + kk + 2 * t);
+            b1 = *reinterpret_cast<const uint32_t*>(xs + n * ks + kk + 8
+                                                    + 2 * t);
+          }
+          mma_16816(acc[j], a, b0, b1);
+        }
       }
     } else {
       for (int r = fkg; r < ks; r += kGroups) {
@@ -330,7 +361,7 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
             *reinterpret_cast<const float*>(ws + w_offset<T>(r, fc, ks));
 #pragma unroll
         for (int b = 0; b < kMaxB; ++b)
-          if (b < B) acc[b] = fmaf(xs[b * ks + r], wv, acc[b]);
+          if (b < B) acc[0][b] = fmaf(xs[b * ks + r], wv, acc[0][b]);
       }
     }
   }
@@ -338,42 +369,68 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
 
   float* red = reinterpret_cast<float*>(smem);     // [kGroups][B][MBLK]
   if constexpr (kMma) {
-    // C fragment: (m = g, n = 2t, 2t+1) in c0, c1; (m = g + 8, ...) in
-    // c2, c3; out[n][m] = C[m][n]
+    // C fragment of tile j: (m = g, n = 2t, 2t+1) in c0, c1; (m = g + 8,
+    // ...) in c2, c3; out[8j + n][m] = C[m][n]
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = 2 * t + h;
-      if (n < B) {
-        float* r = red + (wkg * B + n) * MBLK + mt * 16 + g;
-        r[0] = acc[h];
-        r[8] = acc[2 + h];
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = j * 8 + 2 * t + h;
+        if (n < B) {
+          float* r = red + (wkg * B + n) * MBLK + mt * 16 + g;
+          r[0] = acc[j][h];
+          r[8] = acc[j][2 + h];
+        }
       }
     }
   } else {
 #pragma unroll
     for (int b = 0; b < kMaxB; ++b)
-      if (b < B) red[(fkg * B + b) * MBLK + fc] = acc[b];
+      if (b < B) red[(fkg * B + b) * MBLK + fc] = acc[0][b];
   }
   __syncthreads();
-  finish<T, MBLK, CLUSTER, kGroups>(red, out, B, M, col0);
+  finish<T, MBLK, CLUSTER, kGroups>(red, out, B, rows, M, col0, o_rs);
 }
 
-// What every launch takes: whole 16-byte vectors along M and in x's rows,
-// a K walk of whole 8-row groups in each of deg parts, a column block the
-// kernels are built for, a sub-tile of whole k16 steps that one box can
-// span, a ring the card's shared memory holds, and 16-byte aligned x and
-// w_t.
-inline bool launchable(const void* x, const void* w, int B, int K, int M,
-                       int ld, int deg, int m_blk, int ks, int stages,
-                       int elem_bytes) {
-  return B >= 1 && B <= kMaxB && K >= 1 && M >= 1 && ld >= M
-         && (static_cast<long long>(ld) * elem_bytes) % 16 == 0
-         && M % (16 / elem_bytes) == 0 && deg >= 1 && K % deg == 0
-         && (K / deg) % 8 == 0 && (m_blk == 64 || m_blk == 128)
-         && m_blk % deg == 0 && ks >= 16 && ks % 16 == 0 && ks <= 256
+// One streaming problem, strides in elements: x rows x_rs apart and parts
+// x_ps apart; w_t rows ld apart and parts w_ps apart; out rows o_rs apart
+// and (without a cluster) parts o_ps apart.  Split-K: parts are the deg K
+// parts of one x row and one w_t (x_ps = k_part, w_ps = k_part * ld),
+// summed in a cluster into one out (o_ps = 0).  Grouped: parts are experts.
+struct Problem {
+  const void* x;
+  const void* w;
+  void* out;
+  int R;          // x rows
+  int M;
+  int k_part;     // K rows a part walks
+  int parts;
+  long long ld, w_ps;
+  long long x_rs, x_ps;
+  long long o_rs, o_ps;
+};
+
+// What every launch takes: whole 16-byte vectors along M, 16-byte strides
+// (TMA's rule) and aligned x and w_t, a K walk of whole 8-row groups in
+// each part, a column block the kernels are built for (split among the
+// cluster's ranks), a sub-tile of whole k16 steps that one box can span,
+// and a ring the card's shared memory holds at B rows a box.
+inline bool launchable(const Problem& p, int B, int m_blk, int ks,
+                       int stages, int elem_bytes, bool cluster) {
+  const int deg = cluster ? p.parts : 1;
+  const auto strided = [elem_bytes](long long s) {
+    return s > 0 && (s * elem_bytes) % 16 == 0;
+  };
+  return p.R >= 1 && B >= 1 && B <= p.R && p.M >= 1 && p.k_part >= 1
+         && p.k_part % 8 == 0 && p.parts >= 1 && p.parts <= 65535
+         && p.ld >= p.M && strided(p.ld) && strided(p.w_ps)
+         && strided(p.x_rs) && strided(p.x_ps)
+         && p.M % (16 / elem_bytes) == 0
+         && (m_blk == 64 || m_blk == 128) && m_blk % deg == 0
+         && deg <= kMaxDeg && ks >= 16 && ks % 16 == 0 && ks <= 256
          && stages >= 1 && stages <= kMaxStages
-         && reinterpret_cast<uintptr_t>(x) % 16 == 0
-         && reinterpret_cast<uintptr_t>(w) % 16 == 0
+         && reinterpret_cast<uintptr_t>(p.x) % 16 == 0
+         && reinterpret_cast<uintptr_t>(p.w) % 16 == 0
          && smem_bytes(B, m_blk, ks, stages, elem_bytes, deg)
                 <= static_cast<size_t>(kMaxSmem);
 }
@@ -399,53 +456,62 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
-// The two tensor maps of a launch: w_t as {M, k_part, deg} in boxes of one
-// swizzled row by ks, x as {k_part, deg, B} in boxes of ks by B.
+// The two tensor maps of a problem: w_t as {M, k_part, parts} in boxes of
+// one swizzled row by ks, x as {k_part, parts, R} (or {k_part, R, parts}
+// when the parts lie further apart than the rows) in boxes of ks by B
+// rows.  Sets *x_part_dim to the map dimension that is the part.
 template <typename T>
-bool encode_maps(CUtensorMap* tw, CUtensorMap* tx, const void* x,
-                 const void* w, int B, int K, int M, int ld, int deg,
-                 int ks) {
+bool encode_maps(CUtensorMap* tw, CUtensorMap* tx, int* x_part_dim,
+                 const Problem& p, int B, int ks) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_fn();
   if (encode == nullptr) return false;
   const CUtensorMapDataType type = std::is_same<T, bf16>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const cuuint64_t es = sizeof(T);
-  const cuuint64_t kp = K / deg;
-  const cuuint64_t wdim[3] = {static_cast<cuuint64_t>(M), kp,
-                              static_cast<cuuint64_t>(deg)};
-  const cuuint64_t wstride[2] = {static_cast<cuuint64_t>(ld) * es,
-                                 kp * ld * es};
+  const cuuint64_t kp = p.k_part;
+  const cuuint64_t parts = p.parts, R = p.R;
+  const cuuint64_t wdim[3] = {static_cast<cuuint64_t>(p.M), kp, parts};
+  const cuuint64_t wstride[2] = {static_cast<cuuint64_t>(p.ld) * es,
+                                 static_cast<cuuint64_t>(p.w_ps) * es};
   const cuuint32_t wbox[3] = {kRowBytes / sizeof(T),
                               static_cast<cuuint32_t>(ks), 1};
-  const cuuint64_t xdim[3] = {kp, static_cast<cuuint64_t>(deg),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t xstride[2] = {kp * es, static_cast<cuuint64_t>(K) * es};
-  const cuuint32_t xbox[3] = {static_cast<cuuint32_t>(ks), 1,
-                              static_cast<cuuint32_t>(B)};
+  const bool part_inner = p.x_ps <= p.x_rs;
+  *x_part_dim = part_inner ? 1 : 2;
+  const cuuint64_t xdim[3] = {kp, part_inner ? parts : R,
+                              part_inner ? R : parts};
+  const cuuint64_t xps = static_cast<cuuint64_t>(p.x_ps) * es;
+  const cuuint64_t xrs = static_cast<cuuint64_t>(p.x_rs) * es;
+  const cuuint64_t xstride[2] = {part_inner ? xps : xrs,
+                                 part_inner ? xrs : xps};
+  const cuuint32_t rows = static_cast<cuuint32_t>(B);
+  const cuuint32_t xbox[3] = {static_cast<cuuint32_t>(ks),
+                              part_inner ? 1u : rows, part_inner ? rows : 1u};
   const cuuint32_t ones[3] = {1, 1, 1};
-  return encode(tw, type, 3, const_cast<void*>(w), wdim, wstride, wbox, ones,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode(tw, type, 3, const_cast<void*>(p.w), wdim, wstride, wbox,
+                ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-         && encode(tx, type, 3, const_cast<void*>(x), xdim, xstride, xbox,
+         && encode(tx, type, 3, const_cast<void*>(p.x), xdim, xstride, xbox,
                    ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
                    CU_TENSOR_MAP_SWIZZLE_NONE,
                    CU_TENSOR_MAP_L2_PROMOTION_NONE,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T, int MBLK, bool CLUSTER>
-int launch(const CUtensorMap& tw, const CUtensorMap& tx, void* out, int B,
-           int K, int M, int deg, int ks, int stages, cudaStream_t stream) {
-  auto kernel = stream_kernel<T, MBLK, CLUSTER>;
+template <typename T, int MBLK, int NT, bool CLUSTER>
+int launch(const CUtensorMap& tw, const CUtensorMap& tx, const Problem& p,
+           int B, int row0, int ks, int stages, int x_part_dim,
+           cudaStream_t stream) {
+  auto kernel = stream_kernel<T, MBLK, NT, CLUSTER>;
   // once per instantiation, at its first launch (never inside a graph
   // capture: callers warm up first): allow the opt-in shared memory
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int deg = CLUSTER ? p.parts : 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((M + MBLK - 1) / MBLK, deg, 1);
+  cfg.gridDim = dim3((p.M + MBLK - 1) / MBLK, p.parts, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem_bytes(B, MBLK, ks, stages, sizeof(T), deg);
   cfg.stream = stream;
@@ -458,24 +524,78 @@ int launch(const CUtensorMap& tw, const CUtensorMap& tx, void* out, int B,
     cfg.attrs = attrs;
     cfg.numAttrs = 1;
   }
+  const int rows = p.R - row0 < B ? p.R - row0 : B;
+  T* out = static_cast<T*>(p.out) + row0 * p.o_rs;
   const cudaError_t rc = cudaLaunchKernelEx(
-      &cfg, kernel, tw, tx, static_cast<T*>(out), B, M, K / deg, ks, stages);
+      &cfg, kernel, tw, tx, out, B, rows, p.M, p.k_part, ks, stages, row0,
+      x_part_dim, p.o_ps, p.o_rs);
   const cudaError_t last = cudaGetLastError();  // clear it either way
   return static_cast<int>(rc != cudaSuccess ? rc : last);
 }
 
-template <typename T, bool CLUSTER>
-int run(const void* x, const void* w, void* out, int B, int K, int M, int ld,
-        int deg, int m_blk, int ks, int stages, void* stream) {
-  if (!launchable(x, w, B, K, M, ld, deg, m_blk, ks, stages, sizeof(T)))
+template <typename T, int MBLK, int MAX_NT, bool CLUSTER>
+int launch_rows(const CUtensorMap& tw, const CUtensorMap& tx,
+                const Problem& p, int B, int row0, int ks, int stages,
+                int x_part_dim, cudaStream_t s) {
+  if constexpr (MAX_NT >= 8) {
+    if (B > 32)
+      return launch<T, MBLK, 8, CLUSTER>(tw, tx, p, B, row0, ks, stages,
+                                         x_part_dim, s);
+  }
+  if constexpr (MAX_NT >= 4) {
+    if (B > 16)
+      return launch<T, MBLK, 4, CLUSTER>(tw, tx, p, B, row0, ks, stages,
+                                         x_part_dim, s);
+  }
+  if constexpr (MAX_NT >= 2) {
+    if (B > 8)
+      return launch<T, MBLK, 2, CLUSTER>(tw, tx, p, B, row0, ks, stages,
+                                         x_part_dim, s);
+  }
+  return launch<T, MBLK, 1, CLUSTER>(tw, tx, p, B, row0, ks, stages,
+                                     x_part_dim, s);
+}
+
+// The problem in launches of up to MAX_NT * 8 rows (bf16) or kMaxB (f32),
+// each over the same two tensor maps; returns the first failing launch's
+// CUDA error, else 0.
+template <typename T, bool CLUSTER, int MAX_NT>
+int run(const Problem& p, int m_blk, int ks, int stages, void* stream) {
+  constexpr bool kMma = std::is_same<T, bf16>::value;
+  constexpr int kRows = kMma ? MAX_NT * 8 : kMaxB;
+  const int B = p.R < kRows ? p.R : kRows;
+  if (!launchable(p, B, m_blk, ks, stages, sizeof(T), CLUSTER))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tw, tx;
-  if (!encode_maps<T>(&tw, &tx, x, w, B, K, M, ld, deg, ks))
+  int x_part_dim = 1;
+  if (!encode_maps<T>(&tw, &tx, &x_part_dim, p, B, ks))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m_blk == 64)
-    return launch<T, 64, CLUSTER>(tw, tx, out, B, K, M, deg, ks, stages, s);
-  return launch<T, 128, CLUSTER>(tw, tx, out, B, K, M, deg, ks, stages, s);
+  constexpr int kNt = kMma ? MAX_NT : 1;
+  for (int row0 = 0; row0 < p.R; row0 += B) {
+    const int rc =
+        m_blk == 64
+            ? launch_rows<T, 64, kNt, CLUSTER>(tw, tx, p, B, row0, ks,
+                                                stages, x_part_dim, s)
+            : launch_rows<T, 128, kNt, CLUSTER>(tw, tx, p, B, row0, ks,
+                                                 stages, x_part_dim, s);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+// out[B, M] = x[B, K] @ w_t[K, M] over deg K parts (deg 1: pim_gemv; with
+// CLUSTER: splitk_gemv's cluster reduce), x contiguous, B <= kMaxB.
+template <typename T, bool CLUSTER>
+int run_dense(const void* x, const void* w, void* out, int B, int K, int M,
+              int ld, int deg, int m_blk, int ks, int stages, void* stream) {
+  if (B > kMaxB || deg < 1 || K % deg)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int kp = K / deg;
+  const Problem p{x, w, out, B, M, kp, deg,
+                  ld, static_cast<long long>(kp) * ld,
+                  K, kp, M, 0};
+  return run<T, CLUSTER, 1>(p, m_blk, ks, stages, stream);
 }
 
 }  // namespace

@@ -1,10 +1,9 @@
-// Output-stationary decode GEMV body shared by pim_gemv.cu, splitk_gemv.cu
-// and grouped_gemv.cu.
+// Output-stationary decode GEMV tile body of ragged_gemv (grouped_gemv.cu).
 //
 //   out[B, M] = x[B, K] @ w_t[K, M]      (w_t K-major, B <= kMaxB)
 //
 // w_t's rows lie ld elements apart (ld >= M, ld * sizeof(T) a multiple of 16
-// bytes), so a column slice of a wider prepacked weight runs without a copy.
+// bytes), so an expert's slice of a stack runs without a copy.
 //
 // One CTA owns one column block of m_blk columns.  Its threads split into
 // `tcols = m_blk / V` column lanes, each owning V neighbouring columns (one
@@ -15,11 +14,9 @@
 // K walk.  At the end the row groups are summed through shared memory in a
 // fixed order (group 0, 1, ...), so the result is deterministic.
 //
-// gemv_tile is that body for one CTA; gemv_tile_kernel launches it with
-// blockIdx.y selecting a K part of k_part rows: the output-stationary kernel
-// runs with one part and writes `out` in x's type; the split-K kernel runs
-// with `deg` parts and writes f32 partials [deg, B, M].  The expert kernels
-// (grouped_gemv.cu) call it once per chunk of up to kMaxB rows of a cell.
+// The ragged kernel calls gemv_tile once per chunk of up to kMaxB rows of
+// an (expert, column block) cell.  The dense and grouped kernels run the
+// streaming body of gemv_stream.cuh instead.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -130,32 +127,6 @@ __device__ __forceinline__ void gemv_tile(
       }
     }
   }
-}
-
-template <typename T, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-gemv_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 OutT* __restrict__ out, int B, int K, int M, int ld,
-                 int k_part, int m_blk, int k_blk) {
-  extern __shared__ float smem[];
-  OutT* o = out + static_cast<size_t>(blockIdx.y) * B * M
-            + static_cast<size_t>(blockIdx.x) * m_blk;
-  gemv_tile<T, OutT>(x, K, w, ld, o, M, B, blockIdx.y * k_part, k_part,
-                     blockIdx.x, m_blk, k_blk, smem);
-}
-
-template <typename T, typename OutT>
-inline int launch_tile(const void* x, const void* w, void* out, int B, int K,
-                       int M, int ld, int parts, int m_blk, int k_blk,
-                       cudaStream_t stream) {
-  if (ld < M || (ld * sizeof(T)) % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(M / m_blk, parts);
-  gemv_tile_kernel<T, OutT><<<grid, kThreads, smem_bytes<T>(B, k_blk),
-                              stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<OutT*>(out), B, K, M, ld, K / parts, m_blk, k_blk);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace gemv

@@ -24,15 +24,15 @@
 extern "C" int pim_gemv_bf16(const void* x, const void* w_t, void* out, int B,
                              int K, int M, int ld, int m_blk, int k_blk,
                              int stages, void* stream) {
-  return gemv_stream::run<__nv_bfloat16, false>(
+  return gemv_stream::run_dense<__nv_bfloat16, false>(
       x, w_t, out, B, K, M, ld, 1, m_blk, k_blk, stages, stream);
 }
 
 extern "C" int pim_gemv_f32(const void* x, const void* w_t, void* out, int B,
                             int K, int M, int ld, int m_blk, int k_blk,
                             int stages, void* stream) {
-  return gemv_stream::run<float, false>(x, w_t, out, B, K, M, ld, 1, m_blk,
-                                        k_blk, stages, stream);
+  return gemv_stream::run_dense<float, false>(x, w_t, out, B, K, M, ld, 1,
+                                              m_blk, k_blk, stages, stream);
 }
 
 // Dynamic shared memory one launch of either streaming kernel takes, in

@@ -34,7 +34,7 @@ extern "C" int splitk_gemv_bf16(const void* x, const void* w_t, void* out,
                                 int m_blk, int k_blk, int stages,
                                 void* stream) {
   if (!cluster_degree(deg)) return static_cast<int>(cudaErrorInvalidValue);
-  return gemv_stream::run<__nv_bfloat16, true>(
+  return gemv_stream::run_dense<__nv_bfloat16, true>(
       x, w_t, out, B, K, M, ld, deg, m_blk, k_blk, stages, stream);
 }
 
@@ -43,6 +43,6 @@ extern "C" int splitk_gemv_f32(const void* x, const void* w_t, void* out,
                                int m_blk, int k_blk, int stages,
                                void* stream) {
   if (!cluster_degree(deg)) return static_cast<int>(cudaErrorInvalidValue);
-  return gemv_stream::run<float, true>(x, w_t, out, B, K, M, ld, deg, m_blk,
-                                       k_blk, stages, stream);
+  return gemv_stream::run_dense<float, true>(
+      x, w_t, out, B, K, M, ld, deg, m_blk, k_blk, stages, stream);
 }

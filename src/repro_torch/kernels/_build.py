@@ -27,23 +27,26 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 SOURCES = ("pim_gemv", "splitk_gemv", "quant_gemv", "grouped_gemv",
-           "triton_gemv")
+           "triton_gemv", "decode_attention")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures: (x, w_t, out, B, K, M, ld, m_blk, k_blk, stages, stream)
-# for the streaming output-stationary kernel and (x, w_t, out, B, K, M, ld,
-# deg, m_blk, k_blk, stages, stream) for its split-K form, beside
-# (B, m_blk, k_blk, stages, elem_bytes, split_k) for the shared memory
-# either launch takes; (x, w_t, out, B, K, M, ld, m_blk, k_blk, stream)
-# for the column-block (triton_gemv) kernel, the quant form
-# (x, codes, scales, out, B, K, M, ldw, lds, block, m_blk, k_blk, stream),
-# and the expert forms (xs, w, out, E, C, K, M, ld, es, m_blk, k_blk,
-# stream) and (x, offsets, w, out, T, K, M, ld, es, E, m_blk, k_blk,
-# stream); ld / ldw / lds are row strides and es an expert stride, in
-# elements.  Every entry returns an int (a CUDA error) unless _RESTYPES
-# names another type.
+# for the streaming output-stationary kernel and its column-block form
+# (triton_gemv), and (x, w_t, out, B, K, M, ld, deg, m_blk, k_blk, stages,
+# stream) for its split-K form, beside (B, m_blk, k_blk, stages,
+# elem_bytes, split_k) for the shared memory either launch takes; the
+# quant form (x, codes, scales, out, B, K, M, ldw, lds, block, m_blk,
+# k_blk, stream); the expert forms (xs, w, out, E, C, K, M, ld, es, x_es,
+# x_rs, m_blk, k_blk, stages, stream) and (x, offsets, w, out, T, K, M, ld,
+# es, E, m_blk, k_blk, stream); ld / ldw / lds are row strides and es /
+# x_es expert strides, in elements; and decode attention's (q, k, v, out,
+# qpos, qpos_stride, qpos_bytes, vlen, vlen_stride, vlen_bytes, B, C, Hkv,
+# G, D, q_sb, k_sb, k_sp, k_sh, v_sb, v_sp, v_sh, splits, scale, stream)
+# beside (G, D, C, splits) for its shared memory.  Every entry returns an
+# int (a CUDA error) unless _RESTYPES names another type.
 _SIGNATURES = {
     "pim_gemv": {
         **{f"pim_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
@@ -59,18 +62,26 @@ _SIGNATURES = {
         for k in ("quant_gemv", "quant4_gemv") for t in ("bf16", "f32")
     },
     "triton_gemv": {
-        f"triton_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+        f"triton_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
         for t in ("bf16", "f32")
     },
     "grouped_gemv": {
-        **{f"grouped_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I,
-                                 _P) for t in ("bf16", "f32")},
+        **{f"grouped_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
+                                 _I, _I, _I, _P) for t in ("bf16", "f32")},
         **{f"ragged_gemv_{t}": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I,
                                 _I, _P) for t in ("bf16", "f32")},
     },
+    "decode_attention": {
+        **{f"decode_attention_{t}": (_P, _P, _P, _P, _P, _L, _I, _P, _L, _I,
+                                     _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
+                                     _L, _L, _I, _F, _P)
+           for t in ("bf16", "f32")},
+        "decode_attention_smem_bytes": (_I, _I, _I, _I),
+    },
 }
 
-_RESTYPES = {"gemv_stream_smem_bytes": _L}
+_RESTYPES = {"gemv_stream_smem_bytes": _L,
+             "decode_attention_smem_bytes": _L}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

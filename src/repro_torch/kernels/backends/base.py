@@ -29,7 +29,7 @@ import math
 import os
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -649,6 +649,31 @@ class GemvBackend:
         return self.select_kernel(M, K, batch, bits=pw.bits, block=pw.block,
                                   policy=policy)
 
+    def replay_plan(self, kernel: str, plan: GemvPlan | None, key: GemvKey,
+                    policy: DispatchPolicy) -> tuple[str, GemvPlan | None]:
+        """A table entry's (kernel, plan) as this backend runs it today:
+        the entry's kernel, with its plan re-planned by the backend when
+        the kernel no longer takes it (a table written by an earlier
+        build).  Default: the entry as it stands."""
+        return kernel, plan
+
+    def replay_program(self, pplan: ProgramPlan, key: ProgramKey,
+                       policy: DispatchPolicy) -> ProgramPlan:
+        """A table's program entry as this backend runs it today: a fused
+        plan's inner decision replays as a single GEMV of the fused shape
+        would (:meth:`replay_plan`); other modes as they stand unless the
+        backend re-plans them."""
+        if pplan.mode != "fused" or not pplan.kernel:
+            return pplan
+        gkey = GemvKey(M=key.total_M, K=key.K, batch=key.batch,
+                       bits=key.bits, block=key.block, dtype=key.dtype,
+                       backend=key.backend)
+        kernel, plan = self.replay_plan(pplan.kernel, pplan.plan, gkey,
+                                        policy)
+        if (kernel, plan) == (pplan.kernel, pplan.plan):
+            return pplan
+        return replace(pplan, kernel=kernel, plan=plan)
+
     def _check_pin(self, name: str, bits: int) -> None:
         if name not in self.kernels:
             raise ValueError(f"unknown kernel {name!r} for backend "
@@ -703,7 +728,7 @@ class GemvBackend:
         tkey = key.table_key()
         entry = table.get(self.name, tkey)
         if entry is not None:
-            return entry_to_plan(entry)
+            return self.replay_plan(*entry_to_plan(entry), key, policy)
         x, pw = synthesize_gemv(key, device)
         timed = [(time_gemv_us(lambda k=kernel, p=plan:
                                self.execute(k, x, pw, p)), kernel, plan)
@@ -730,7 +755,8 @@ class GemvBackend:
         tkey = key.table_key()
         entry = table.get_program(self.name, tkey)
         if entry is not None:
-            return entry_to_program_plan(entry)
+            return self.replay_program(entry_to_program_plan(entry), key,
+                                       policy)
         program = _synthesize_program(key, device)
         cands = [self.plan_program(key, policy=policy)]
         alt = (ProgramPlan(mode="ragged", n_launches=1)

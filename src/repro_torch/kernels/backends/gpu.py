@@ -21,7 +21,8 @@ and for MoE expert programs the native modes ``grouped_triton`` /
 (16-bit weights, ``use_pallas``, the per-expert batch within
 ``batch_threshold``, power-of-two tiles from ``plan_grouped_gemv``) plus
 the CUDA kernels' own: whole 16-byte column vectors and a bf16 or f32
-type.  The tiles the kernels run are ``plan_expert_gemv``'s.
+type.  The program plan records the JAX tile plan, as that backend does;
+the kernels run their own (``plan_grouped_stream``, ``plan_expert_gemv``).
 
 Unlike the JAX backend there is no capability gate (``_can_lower_triton``
 there): on a CUDA tensor the kernel runs or raises, and on a CPU tensor the
@@ -35,7 +36,9 @@ backend's seeds, not calibrated on this card.  The backend claims no
 device: ``cuda`` resolves to ``h100``, and this one is chosen by name
 (``DispatchPolicy(backend="gpu")``, ``Engine(gemv_backend="gpu")``).
 A caller's ``plan=`` is re-planned by this backend's selection (the base
-``coerce_plan``): another backend's tiles do not transfer.
+``coerce_plan``): another backend's tiles do not transfer.  A table's
+``triton`` entry replays at its plan when the kernel takes it, else at
+``plan_triton_gemv``'s (``replay_plan``).
 """
 
 from __future__ import annotations
@@ -55,7 +58,13 @@ from repro_torch.kernels.backends.base import (
     register_backend,
 )
 from repro_torch.kernels.backends.h100 import H100_HBM_GBPS, sm_count
-from repro_torch.kernels.gemv_plan import GemvPlan, kernel_applicable
+from repro_torch.kernels.gemv_plan import (
+    DEFAULT_STAGES,
+    GemvPlan,
+    device_sms,
+    kernel_applicable,
+    plan_grouped_stream,
+)
 from repro_torch.kernels.grouped_gemv import (
     counts_to_offsets,
     grouped_gemv,
@@ -65,6 +74,7 @@ from repro_torch.kernels.grouped_gemv import (
 )
 from repro_torch.kernels.ops import PackedWeights
 from repro_torch.kernels.pim_gemv import DTYPES
+from repro_torch.kernels.triton_gemv import plan_fits as triton_plan_fits
 from repro_torch.kernels.triton_gemv import triton_gemv
 
 
@@ -79,13 +89,15 @@ def _pow2_divisor(n: int, cap: int, floor: int) -> int | None:
 def plan_triton_gemv(M: int, K: int, batch: int) -> GemvPlan | None:
     """The JAX package's plan builder: power-of-two column blocks of 64 to
     512 and K chunks of 16 to 1024; a shape with neither divisor is left to
-    ``ref``."""
+    ``ref``.  The port adds the ring depth of the kernel's streaming body
+    (``DEFAULT_STAGES``)."""
     m_blk = _pow2_divisor(M, cap=512, floor=64)
     k_blk = _pow2_divisor(K, cap=1024, floor=16)
     if m_blk is None or k_blk is None:
         return None
     return GemvPlan(m_blk=m_blk, k_blk=k_blk, n_m=M // m_blk,
-                    n_k=K // k_blk, smem_bytes=0, split_k=1)
+                    n_k=K // k_blk, smem_bytes=0, split_k=1,
+                    stages=DEFAULT_STAGES)
 
 
 class GpuBackend(GemvBackend):
@@ -160,6 +172,20 @@ class GpuBackend(GemvBackend):
                             policy: DispatchPolicy):
         return self.candidate_plans(key.M, key.K, key.batch, key.bits)
 
+    def replay_plan(self, kernel, plan, key: GemvKey,
+                    policy: DispatchPolicy):
+        """A ``triton`` entry keeps its plan where the kernel takes it (a
+        one-stage plan from an older table does); a plan it refuses is
+        re-planned by ``plan_triton_gemv`` (``ref`` when no plan tiles the
+        shape)."""
+        if kernel != "triton" or plan is None:
+            return kernel, plan
+        if triton_plan_fits(plan, key.M, key.K, key.batch,
+                            dtype_bytes(key.dtype)):
+            return kernel, plan
+        fresh = plan_triton_gemv(key.M, key.K, key.batch)
+        return ("triton", fresh) if fresh is not None else ("ref", None)
+
     # -- MoE expert programs ------------------------------------------------
 
     def plan_program(self, key: ProgramKey, *,
@@ -186,13 +212,18 @@ class GpuBackend(GemvBackend):
             # the CUDA expert kernels tile with their own plan, whatever
             # tile the program plan (or a table entry) names
             K, M = program.weights.shape
-            plan = plan_expert_gemv(M, K,
-                                    elem_bytes=program.x.element_size())
+            x_bytes = program.x.element_size()
             if pplan.mode == "grouped_triton":
+                E, C = program.x.shape[:2]
+                plan = plan_grouped_stream(
+                    M, K, max(C, 1), E=E, elem_bytes=x_bytes,
+                    sms=self._sms or device_sms())
                 return grouped_gemv(program.x, program.weights.w_t,
                                     plan=plan)
             return ragged_gemv(program.x, counts_to_offsets(program.counts),
-                               program.weights.w_t, plan=plan)
+                               program.weights.w_t,
+                               plan=plan_expert_gemv(M, K,
+                                                     elem_bytes=x_bytes))
         return super().execute_program(program, pplan)
 
     # -- execution ----------------------------------------------------------

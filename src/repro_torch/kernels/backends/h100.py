@@ -46,6 +46,8 @@ its own label in the table's ``candidates_us``.
 
 from __future__ import annotations
 
+from dataclasses import replace
+
 import torch
 
 from repro_torch.kernels.backends.base import (
@@ -66,9 +68,11 @@ from repro_torch.kernels.gemv_plan import (
     SPLITK_DEGREES,
     GemvPlan,
     device_sms,
+    grouped_plan_fits,
     kernel_applicable,
     plan_fits,
     plan_gemv,
+    plan_grouped_stream,
     plan_quant,
     plan_splitk,
     quant_applicable,
@@ -81,6 +85,7 @@ from repro_torch.kernels.grouped_gemv import (
     plan_expert_gemv,
     plan_grouped_gemv,
     ragged_gemv,
+    tile_plan_fits,
 )
 from repro_torch.kernels.ops import PackedWeights
 from repro_torch.kernels.pim_gemv import DTYPES, pim_gemv
@@ -237,7 +242,13 @@ class H100Backend(GemvBackend):
             return "ref", None
         if pw.bits < 16:
             return self._quant_pick(M, K, batch, pw.bits, pw.block)
-        x_bytes = pw.w_t.element_size()
+        return self._coerce_float(plan, M, K, batch, pw.w_t.element_size())
+
+    def _coerce_float(self, plan: GemvPlan, M: int, K: int, batch: int,
+                      x_bytes: int):
+        """``coerce_plan`` for float weights: a plan the kernels take as it
+        stands (its split degree names the kernel), else this backend's
+        plan at the same split degree."""
         if not kernel_applicable(M, K, batch, x_bytes):
             return "ref", None
         if plan_fits(plan, M, K, batch, x_bytes):
@@ -250,6 +261,41 @@ class H100Backend(GemvBackend):
             if deg is None:
                 return "ref", None
         return "splitk", self._splitk_plan(M, K, batch, x_bytes, deg)
+
+    def replay_plan(self, kernel, plan, key: GemvKey,
+                    policy: DispatchPolicy):
+        """A ``pim`` / ``splitk`` entry whose plan the kernels no longer
+        take (a table written before the streaming kernels: m_blk 128, a
+        1024-row K chunk, one stage) is re-planned at its split degree, as
+        ``coerce_plan`` does; ``ref`` and the quant kernels (whose tile rule
+        has not changed) replay as they stand."""
+        if kernel not in ("pim", "splitk") or plan is None:
+            return kernel, plan
+        return self._coerce_float(plan, key.M, key.K, key.batch,
+                                  dtype_bytes(key.dtype))
+
+    def replay_program(self, pplan: ProgramPlan, key: ProgramKey,
+                       policy: DispatchPolicy) -> ProgramPlan:
+        """A ``grouped_cuda`` entry keeps its mode; a plan ``grouped_gemv``
+        no longer takes (one written before the kernel streamed:
+        ``plan_tile``'s) is re-planned by :meth:`plan_program`'s planner.
+        A ``ragged_cuda`` entry whose tiles ``ragged_gemv`` refuses takes
+        ``plan_expert_gemv``'s."""
+        M, K = key.Ms[0], key.K
+        x_bytes = dtype_bytes(key.dtype)
+        if pplan.mode == "grouped_cuda":
+            if pplan.plan is not None and grouped_plan_fits(
+                    pplan.plan, M, K, key.batch, x_bytes):
+                return pplan
+            return replace(pplan, kernel="grouped_gemv",
+                           plan=self._grouped_plan(key))
+        if pplan.mode == "ragged_cuda":
+            if pplan.plan is not None and tile_plan_fits(
+                    pplan.plan, M, K, x_bytes):
+                return pplan
+            return replace(pplan, kernel="ragged_gemv",
+                           plan=plan_expert_gemv(M, K, elem_bytes=x_bytes))
+        return super().replay_program(pplan, key, policy)
 
     def autotune_candidates(self, key: GemvKey, pw: PackedWeights,
                             policy: DispatchPolicy):
@@ -301,11 +347,18 @@ class H100Backend(GemvBackend):
                     and cand.k_blk & (cand.k_blk - 1) == 0
                     and key.dtype in {str(d) for d in DTYPES}
                     and kernel_applicable(M, K, 1, x_bytes)):
-                return ProgramPlan(
-                    mode=f"{key.kind}_cuda", n_launches=1,
-                    kernel=f"{key.kind}_gemv",
-                    plan=plan_expert_gemv(M, K, elem_bytes=x_bytes))
+                plan = (self._grouped_plan(key) if key.kind == "grouped"
+                        else plan_expert_gemv(M, K, elem_bytes=x_bytes))
+                return ProgramPlan(mode=f"{key.kind}_cuda", n_launches=1,
+                                   kernel=f"{key.kind}_gemv", plan=plan)
         return super().plan_program(key, policy=policy)
+
+    def _grouped_plan(self, key: ProgramKey) -> GemvPlan:
+        """``grouped_gemv``'s streaming plan for a grouped program: C rows
+        an expert over ``group`` experts, filling this backend's SMs."""
+        return plan_grouped_stream(key.Ms[0], key.K, key.batch,
+                                   E=key.group, sms=self._plan_sms(),
+                                   elem_bytes=dtype_bytes(key.dtype))
 
     def execute_program(self, program: GemvProgram,
                         pplan: ProgramPlan) -> torch.Tensor:

@@ -14,9 +14,12 @@ Every entry point
 A decision comes, in the JAX package's order, from the plan cache, then
 (``policy.autotune``) the backend's autotuner, then (auto policies only)
 the backend's namespace of the process-level autotune table
-(:func:`load_autotune_table`), then the cost model.  ``dispatch_gemv``'s
-``plan=`` bypasses all four: the backend coerces the plan to one of its
-own kernels (``coerce_plan``).
+(:func:`load_autotune_table`), then the cost model.  A table entry keeps
+its kernel, and the backend re-plans a plan that kernel no longer takes
+(``replay_plan`` / ``replay_program``: a table written by an earlier build
+replays instead of raising at launch).  ``dispatch_gemv``'s ``plan=``
+bypasses all four: the backend coerces the plan to one of its own kernels
+(``coerce_plan``).
 
 Decisions are counted once per plan-cache miss, as in the JAX package:
 ``dispatch_stats()`` reports the kernel picks, program modes and the
@@ -192,7 +195,7 @@ def _resolve(backend, key: GemvKey, policy: DispatchPolicy,
                                          device=device)
     elif tuned and (entry := _AUTOTUNE_TABLE.get(
             backend.name, key.table_key())) is not None:
-        decision = entry_to_plan(entry)
+        decision = backend.replay_plan(*entry_to_plan(entry), key, policy)
     else:
         decision = backend.select_kernel(
             key.M, key.K, key.batch, bits=key.bits, block=key.block,
@@ -223,7 +226,8 @@ def _resolve_program(backend, key: ProgramKey, policy: DispatchPolicy,
                                          device=device)
     elif tuned and (entry := _AUTOTUNE_TABLE.get_program(
             backend.name, key.table_key())) is not None:
-        pplan = entry_to_program_plan(entry)
+        pplan = backend.replay_program(entry_to_program_plan(entry), key,
+                                       policy)
     else:
         pplan = backend.plan_program(key, policy=policy)
     with _LOCK:

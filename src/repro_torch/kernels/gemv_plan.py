@@ -22,10 +22,16 @@ order of the sums never depends on it.  The default depth is 2: on an H100
 a CTA's streaming rate measured flat in the depth (PERF.md), so
 shared memory goes to CTAs per SM instead.
 
-``plan_tile`` keeps the first sweep for the kernels on ``gemv_tile.cuh``
-(``grouped_gemv`` / ``ragged_gemv``): the tallest column block (at most
-``MAX_M_BLK`` columns) that divides M, then the largest x chunk that
-divides the K walk and fits the budget, one stage.
+``plan_grouped_stream`` plans ``grouped_gemv`` on the same body, with the
+expert as the grid's second dimension: the column block whose ``E x n_m``
+CTAs fill the card's waves best.  Its launch holds up to ``MAX_TILE_ROWS``
+rows in bf16 (eight mma n-tiles that share each weight sub-tile) and
+``MAX_BATCH`` in f32 (:func:`stream_rows`); more rows run in row chunks.
+
+``plan_tile`` keeps the first sweep for the kernel on ``gemv_tile.cuh``
+(``ragged_gemv``): the tallest column block (at most ``MAX_M_BLK``
+columns) that divides M, then the largest x chunk that divides the K walk
+and fits the budget, one stage.
 
 Quantized weights (``plan_quant``) reckon the vector in bytes of the STORED
 code: one 16-byte vector is 16 int8 columns, or 16 int4 columns times two
@@ -59,6 +65,7 @@ SLOT_ALIGN = 1024            # kAlign: slots start on the swizzle's 1 KB
 DEFAULT_STAGES = 2           # the planner's ring depth
 MAX_STAGES = 8               # kMaxStages
 MAX_CTAS_PER_SM = 4          # __launch_bounds__(256, 4): <= 64 registers
+MAX_TILE_ROWS = 64           # kMaxTiles * 8: x rows one bf16 launch holds
 SMEM_PER_SM = 228 * 1024     # Hopper: shared memory of one SM
 SMEM_PER_CTA = 227 * 1024    # ... that one CTA may opt in to (kMaxSmem)
 CTA_RESERVED = 1024          # ... and what the system keeps per CTA
@@ -120,6 +127,13 @@ def stream_smem(batch: int, m_blk: int, k_blk: int, stages: int,
     epi = 4 * batch * m_blk * (stream_groups(m_blk, elem_bytes)
                                + (split_k > 1))
     return SLOT_ALIGN + max(stages * slot, epi) + 8 * stages
+
+
+def stream_rows(rows: int, elem_bytes: int) -> int:
+    """x rows one launch of the streaming body holds (its x box): up to
+    MAX_TILE_ROWS in bf16 (n = 8 tiles sharing each weight sub-tile), up
+    to MAX_BATCH in f32; more rows run as chunks of this many."""
+    return min(rows, MAX_TILE_ROWS if elem_bytes == 2 else MAX_BATCH)
 
 
 def ctas_per_sm(smem: int) -> int:
@@ -221,6 +235,48 @@ def plan_splitk(M: int, K: int, batch: int = 1, *, degree: int,
         raise ValueError(f"no Hopper GEMV plan for M={M} K={K} B={batch}")
     return _plan_stream(M, K // degree, batch, degree, elem_bytes,
                         device_sms() if sms is None else sms)
+
+
+def plan_grouped_stream(M: int, K: int, C: int, *, E: int,
+                        sms: int | None = None,
+                        elem_bytes: int = 2) -> GemvPlan:
+    """``grouped_gemv``'s plan: one CTA per (column block, expert), each
+    walking the expert's whole K in sub-tiles of ``SUBTILE_BYTES`` at the
+    default ring depth.  The column block (128 or 64) is the one whose
+    ``E x n_m`` CTAs fill the card's waves best (the share of the last
+    wave's CTA slots in use; ties to the taller block); without an SM
+    count (no card) the plan is the 128-column one.  The ring holds
+    :func:`stream_rows` rows of x a slot."""
+    if M <= 0 or K <= 0 or E <= 0 or C <= 0:
+        raise ValueError("M, K, C and E must be positive")
+    if not kernel_applicable(M, K, 1, elem_bytes):
+        raise ValueError(f"no Hopper GEMV plan for M={M} K={K}")
+    sms = device_sms() if sms is None else sms
+    rows = stream_rows(C, elem_bytes)
+    best, best_fill = None, -1.0
+    for m_blk in STREAM_M_BLKS:
+        k_blk = sub_rows(m_blk, K, elem_bytes)
+        n_k = _ceil(K, k_blk)
+        stages = min(DEFAULT_STAGES, n_k)
+        smem = stream_smem(rows, m_blk, k_blk, stages, elem_bytes)
+        ctas = E * _ceil(M, m_blk)
+        wave = (sms or 1) * ctas_per_sm(smem)
+        fill = ctas / (_ceil(ctas, wave) * wave) if sms else 0.0
+        if fill > best_fill + 1e-9:
+            best_fill = fill
+            best = GemvPlan(m_blk=m_blk, k_blk=k_blk, n_m=_ceil(M, m_blk),
+                            n_k=n_k, smem_bytes=smem, stages=stages)
+    return best
+
+
+def grouped_plan_fits(plan: GemvPlan, M: int, K: int, C: int,
+                      elem_bytes: int = 2) -> bool:
+    """Whether ``grouped_gemv`` takes ``plan`` for ``[E, C, K] @ [E, K,
+    M]``: a streaming plan of one K part (:func:`plan_fits`) at the rows
+    one launch holds."""
+    return (plan.split_k == 1 and C >= 1
+            and plan_fits(plan, M, K, stream_rows(C, elem_bytes),
+                          elem_bytes))
 
 
 def with_pipeline_depth(plan: GemvPlan, depth: int, *, batch: int = 1,

@@ -14,16 +14,21 @@ Both accumulate in f32 and round once to ``x.dtype``.
 
 What bounds them on an H100: at decode an expert gets a handful of rows,
 so the floor is the weight bytes of the experts that HAVE rows over HBM
-bandwidth (3.35 TB/s).  The kernels run one CTA per (expert, column block)
-cell on the output-stationary tile body of the dense GEMV
-(``csrc/gemv_tile.cuh``), on the expert's slice of the stack in place;
-a ragged cell whose expert has no rows returns before reading its weights.
+bandwidth (3.35 TB/s).  ``grouped_gemv`` runs the dense kernels' streaming
+body (``csrc/gemv_stream.cuh``: a TMA ring of weight sub-tiles,
+``mma.sync`` in bf16) with the expert as the third dimension of its
+tensor maps, one CTA per (column block, expert), each expert's weights
+streamed once a launch.  ``ragged_gemv`` runs one CTA per (expert, column
+block) cell on the output-stationary tile body (``csrc/gemv_tile.cuh``),
+on the expert's slice of the stack in place; a cell whose expert has no
+rows returns before reading its weights.
 
 :func:`plan_grouped_gemv` is the JAX package's tile rule (power-of-two
-blocks); the ``h100`` backend gates the native modes on it, as the JAX
-``gpu`` backend does.  The CUDA kernels tile with :func:`plan_expert_gemv`
-(the dense GEMV sweep at ``MAX_BATCH`` rows: a cell walks its rows in
-chunks of that many).
+blocks); the backends gate the native modes on it, as the JAX ``gpu``
+backend does.  The CUDA kernels tile with their own plans:
+``gemv_plan.plan_grouped_stream`` for ``grouped_gemv``,
+:func:`plan_expert_gemv` (the dense GEMV sweep at ``MAX_BATCH`` rows: a
+cell walks its rows in chunks of that many) for ``ragged_gemv``.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  ``grouped_gemv.launches`` / ``ragged_gemv.launches`` count kernel
@@ -40,6 +45,8 @@ from repro_torch.kernels.gemv_plan import (
     THREADS,
     X_SMEM_BUDGET,
     GemvPlan,
+    grouped_plan_fits,
+    kernel_applicable,
     plan_tile,
     vec_elems,
 )
@@ -70,7 +77,7 @@ def plan_grouped_gemv(M: int, K: int) -> GemvPlan:
 
 
 def plan_expert_gemv(M: int, K: int, *, elem_bytes: int = 2) -> GemvPlan:
-    """The CUDA kernels' tile plan: the dense GEMV sweep for a chunk of
+    """``ragged_gemv``'s tile plan: the dense GEMV sweep for a chunk of
     ``MAX_BATCH`` rows (column block of at most 128, x chunk in budget)."""
     return plan_tile(M, K, MAX_BATCH, elem_bytes=elem_bytes)
 
@@ -101,10 +108,10 @@ def _strides(w_t: torch.Tensor) -> tuple[int, int]:
     return ld, es
 
 
-def _check_common(x: torch.Tensor, w_t: torch.Tensor, K: int,
-                  plan: GemvPlan) -> tuple[int, int, int, int]:
-    """Type, device, shape and plan checks shared by both kernels; returns
-    (E, M, ld, es)."""
+def _check_stack(x: torch.Tensor, w_t: torch.Tensor,
+                 K: int) -> tuple[int, int, int, int]:
+    """Type, device and shape checks shared by both kernels; returns (E,
+    M, ld, es)."""
     if w_t.ndim != 3:
         raise ValueError(f"expected stacked w_t [E, K, M], got "
                          f"{tuple(w_t.shape)}")
@@ -116,18 +123,28 @@ def _check_common(x: torch.Tensor, w_t: torch.Tensor, K: int,
                         f"and {w_t.dtype}")
     if x.device != w_t.device:
         raise ValueError(f"x on {x.device} but w_t on {w_t.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
     ld, es = _strides(w_t)
-    vec = vec_elems(x.element_size())
-    if (M % plan.m_blk or plan.n_m * plan.m_blk != M or plan.m_blk % vec
-            or THREADS % (plan.m_blk // vec) or plan.split_k != 1):
-        raise ValueError(f"plan {plan} does not tile M={M}")
-    if K % plan.k_blk:
-        raise ValueError(f"plan {plan} does not tile K={K}")
-    if 4 * MAX_BATCH * plan.k_blk > X_SMEM_BUDGET:
-        raise ValueError(f"plan {plan}: x chunk exceeds shared memory")
     return E, M, ld, es
+
+
+def tile_plan_fits(plan: GemvPlan, M: int, K: int,
+                   elem_bytes: int = 2) -> bool:
+    """Whether ``ragged_gemv`` (the ``gemv_tile.cuh`` body) takes ``plan``:
+    column blocks of whole vectors on a power-of-two count of threads
+    dividing M, K chunks dividing K within the x budget."""
+    vec = vec_elems(elem_bytes)
+    return (plan.m_blk > 0 and M % plan.m_blk == 0
+            and plan.n_m * plan.m_blk == M and plan.m_blk % vec == 0
+            and THREADS % (plan.m_blk // vec) == 0 and plan.split_k == 1
+            and plan.k_blk > 0 and K % plan.k_blk == 0
+            and 4 * MAX_BATCH * plan.k_blk <= X_SMEM_BUDGET)
+
+
+def _check_tile_plan(x: torch.Tensor, M: int, K: int,
+                     plan: GemvPlan) -> None:
+    if not tile_plan_fits(plan, M, K, x.element_size()):
+        raise ValueError(f"plan {plan} does not tile M={M}, K={K} (or its "
+                         f"x chunk exceeds shared memory)")
 
 
 # --------------------------------------------------------------------------
@@ -141,15 +158,42 @@ def grouped_gemv_plain(xs: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
     return torch.matmul(xs.float(), w_t.float()).to(xs.dtype)
 
 
+def _x_strides(xs: torch.Tensor) -> tuple[int, int]:
+    """(expert stride, row stride) of ``xs [E, C, K]``, in elements: an
+    expert or row view runs in place, as long as its rows are contiguous
+    and start on 16-byte boundaries (the copy engine's rule)."""
+    E, C, K = xs.shape
+    x_rs = xs.stride(1) if C > 1 else K
+    x_es = xs.stride(0) if E > 1 else C * x_rs
+    size = xs.element_size()
+    if (K > 1 and xs.stride(2) != 1) or x_rs < K or x_es < 1:
+        raise ValueError(f"xs {tuple(xs.shape)} with strides {xs.stride()} "
+                         f"does not have contiguous rows")
+    if xs.data_ptr() % 16 or x_rs * size % 16 or x_es * size % 16:
+        raise ValueError("xs rows and experts must start on 16-byte "
+                         "boundaries")
+    return x_es, x_rs
+
+
 def grouped_gemv(xs: torch.Tensor, w_t: torch.Tensor, *,
                  plan: GemvPlan) -> torch.Tensor:
-    """xs [E, C, K], w_t [E, K, M] -> [E, C, M] in one launch."""
+    """xs [E, C, K], w_t [E, K, M] -> [E, C, M], ``plan`` from
+    ``gemv_plan.plan_grouped_stream``: one launch for up to 64 rows an
+    expert in bf16 (8 in f32), a launch per row chunk beyond."""
     if xs.ndim != 3:
         raise ValueError(f"expected xs [E, C, K], got {tuple(xs.shape)}")
-    E, M, ld, es = _check_common(xs, w_t, xs.shape[2], plan)
+    E, M, ld, es = _check_stack(xs, w_t, xs.shape[2])
     if xs.shape[0] != E:
         raise ValueError(f"xs has {xs.shape[0]} experts, w_t {E}")
     C, K = xs.shape[1], xs.shape[2]
+    x_es, x_rs = _x_strides(xs)
+    if not kernel_applicable(M, K, 1, xs.element_size()):
+        raise ValueError(f"M={M}, K={K}: the kernel takes whole 16-byte "
+                         f"column vectors and a K walk of whole 8-row "
+                         f"groups")
+    if C and not grouped_plan_fits(plan, M, K, C, xs.element_size()):
+        raise ValueError(f"plan {plan} does not tile M={M}, K={K} at C={C} "
+                         f"within the card's shared memory")
     if xs.device.type == "cpu":
         return grouped_gemv_plain(xs, w_t)
     if xs.device.type != "cuda":
@@ -162,8 +206,8 @@ def grouped_gemv(xs: torch.Tensor, w_t: torch.Tensor, *,
     fn = getattr(lib, f"grouped_gemv_{DTYPES[xs.dtype]}")
     stream = torch.cuda.current_stream(xs.device).cuda_stream
     _build.check(fn(xs.data_ptr(), w_t.data_ptr(), out.data_ptr(), E, C, K,
-                    M, ld, es, plan.m_blk, plan.k_blk, stream),
-                 "grouped_gemv")
+                    M, ld, es, x_es, x_rs, plan.m_blk, plan.k_blk,
+                    plan.stages, stream), "grouped_gemv")
     grouped_gemv.launches += 1
     return out
 
@@ -198,7 +242,10 @@ def ragged_gemv(x: torch.Tensor, offsets: torch.Tensor, w_t: torch.Tensor,
     [T, M] in one launch; rows at or beyond ``offsets[E]`` are zero."""
     if x.ndim != 2:
         raise ValueError(f"expected x [T, K], got {tuple(x.shape)}")
-    E, M, ld, es = _check_common(x, w_t, x.shape[1], plan)
+    E, M, ld, es = _check_stack(x, w_t, x.shape[1])
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    _check_tile_plan(x, M, x.shape[1], plan)
     if offsets.shape != (E + 1,) or offsets.dtype != torch.int32:
         raise ValueError(f"offsets must be int32 [{E + 1}], got "
                          f"{offsets.dtype} {tuple(offsets.shape)}")

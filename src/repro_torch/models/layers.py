@@ -17,10 +17,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.attention import (
+    decode_attention,
+    decode_attention_plain,
+    kernel_applies,
+)
 from repro_torch.kernels.backends.base import expert_batch_bound
 from repro_torch.kernels.kv_quant import dequantize_page, quantize_page
-
-BIG_NEG = -2.0e9
 
 
 def dense_init(generator: torch.Generator, fan_in: int, shape, dtype,
@@ -109,31 +112,19 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool) -> torch.Tensor:
     """q [B, Sq, H, D], k/v [B, Sk, Hkv, D] -> [B, Sq, H, D].
 
-    Scores are the f32 product of the (bf16) operands over sqrt(D) -- the
-    casts below make the products exact, as ``preferred_element_type=f32``
-    does; masked scores are ``BIG_NEG`` (not -inf); the probabilities are
-    cast to ``v.dtype`` before the PV product.
+    One new token a slot on the card (the decode step) runs the
+    ``decode_attention`` kernel, which reads the cache where it lies;
+    every other call (prefill, the CPU) runs the plain arithmetic
+    (``decode_attention_plain``: f32 scores of the bf16 operands,
+    ``BIG_NEG`` masking, f32 softmax, probabilities cast to ``v.dtype``).
+    The choice is :func:`~repro_torch.kernels.attention.kernel_applies`,
+    a rule on shapes, strides and the device.
     """
-    B, Sq, H, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    G = H // Hkv
-    qg = q.reshape(B, Sq, Hkv, G, D)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
-                          k.float()) / math.sqrt(D)
-    kpos = torch.arange(Sk, device=q.device)
-    mask = torch.ones((B, Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos[None, None, :] <= q_positions[:, :, None]
-    if kv_valid_len is not None:
-        vl = kv_valid_len
-        vl = vl[:, None, None] if vl.ndim == 1 else vl
-        mask &= kpos[None, None, :] < vl
-    # a Python scalar, not a host tensor: copying one to the card per layer
-    # would wait for the stream and serialize host and device
-    scores = torch.where(mask[:, None, None, :, :], scores, BIG_NEG)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
-    return out.reshape(B, Sq, H, D)
+    if kernel_applies(q, k, v, causal=causal):
+        return decode_attention(q, k, v, q_positions=q_positions,
+                                kv_valid_len=kv_valid_len)
+    return decode_attention_plain(q, k, v, q_positions=q_positions,
+                                  kv_valid_len=kv_valid_len, causal=causal)
 
 
 def write_kv(cache: torch.Tensor, new: torch.Tensor,
@@ -169,7 +160,8 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     the cache.  With ``cache_scales`` (``[B, C, Hkv]`` each) the store is
     quantized: the fresh rope'd pages are encoded (``kv_quant``), codes
     and scales are written at the same offsets, and the whole cache is
-    dequantized to ``x.dtype`` before ``attention_core``.  With a ``gemv``
+    dequantized to ``x.dtype`` before ``attention_core`` (which then reads
+    that bf16 tensor in place: no f32 copy).  With a ``gemv``
     DispatchPolicy and a single-token input the Q/K/V projections run as
     ONE fused GEMV program (the prepacked ``wqkv`` when present).
     """

@@ -458,35 +458,72 @@ def test_cuda_ragged_gemv_matches_plain(cuda, K, M, case, dtype):
     assert not out[sum(counts):].any()
 
 
+def _grouped_case(cuda, K, M, C, dtype, seed=0, E=MOE_E):
+    g = torch.Generator(device=cuda).manual_seed(K + M + C + seed)
+    w = (torch.randn((E, K, M), generator=g, device=cuda)
+         / K ** 0.5).to(dtype)
+    xs = torch.randn((E, C, K), generator=g, device=cuda).to(dtype)
+    return xs, w
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("C", [1, 8, 11])
+@pytest.mark.parametrize("K,M", [(2048, 1408), (1408, 2048)])
+@pytest.mark.parametrize("C", [1, 3, 8, 16, 64])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cuda_grouped_gemv_matches_plain(cuda, C, dtype):
+def test_cuda_grouped_gemv_matches_plain(cuda, K, M, C, dtype):
+    """deepseek-moe-16b's expert shapes: one n = 8 tile (C <= 8), several
+    sharing each weight sub-tile (16, 64), f32 in row chunks of 8."""
+    from repro_torch.kernels.gemv_plan import plan_grouped_stream
     from repro_torch.kernels.grouped_gemv import (
         grouped_gemv,
         grouped_gemv_plain,
-        plan_expert_gemv,
     )
 
-    K, M = 2048, 1408
-    g = torch.Generator(device=cuda).manual_seed(C)
-    w = (torch.randn((MOE_E, K, M), generator=g, device=cuda)
-         / K ** 0.5).to(dtype)
-    xs = torch.randn((MOE_E, C, K), generator=g, device=cuda).to(dtype)
+    xs, w = _grouped_case(cuda, K, M, C, dtype)
+    plan = plan_grouped_stream(M, K, C, E=MOE_E,
+                               elem_bytes=xs.element_size())
     n0 = grouped_gemv.launches
-    out = grouped_gemv(xs, w, plan=plan_expert_gemv(
-        M, K, elem_bytes=xs.element_size()))
+    out = grouped_gemv(xs, w, plan=plan)
     torch.cuda.synchronize()
     assert grouped_gemv.launches == n0 + 1
+    assert out.shape == (MOE_E, C, M) and out.dtype == dtype
     torch.testing.assert_close(out.float(),
                                grouped_gemv_plain(xs, w).float(),
                                **_bf16_tol(dtype))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("C", [3, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_grouped_gemv_is_bit_identical_at_every_depth(cuda, C, dtype):
+    from repro_torch.kernels.gemv_plan import (
+        plan_grouped_stream,
+        stream_rows,
+    )
+    from repro_torch.kernels.grouped_gemv import grouped_gemv
+
+    K, M = 2048, 1408
+    xs, w = _grouped_case(cuda, K, M, C, dtype, seed=1, E=8)
+    es = xs.element_size()
+    base = plan_grouped_stream(M, K, C, E=8, elem_bytes=es)
+    want = grouped_gemv(xs, w, plan=base)
+    depths = 0
+    for depth in range(1, MAX_STAGES + 1):
+        p = with_pipeline_depth(base, depth, batch=stream_rows(C, es),
+                                elem_bytes=es)
+        if p is None:
+            continue
+        depths += 1
+        assert torch.equal(grouped_gemv(xs, w, plan=p), want), p
+    assert depths >= 4
+
+
+@pytest.mark.gpu
 def test_cuda_expert_kernels_read_a_strided_expert_slice(cuda):
-    """A column view of a wider stack (row and expert strides over M) runs
-    in place and matches the contiguous copy bit for bit."""
+    """A column view of a wider stack (row and expert strides over M), and
+    expert and row views of xs, run in place and match the contiguous
+    copies bit for bit."""
+    from repro_torch.kernels.gemv_plan import plan_grouped_stream
     from repro_torch.kernels.grouped_gemv import (
         counts_to_offsets,
         grouped_gemv,
@@ -505,9 +542,17 @@ def test_cuda_expert_kernels_read_a_strided_expert_slice(cuda):
                                              dtype=torch.int32, device=cuda))
     assert torch.equal(ragged_gemv(x, offsets, view, plan=plan),
                        ragged_gemv(x, offsets, view.contiguous(), plan=plan))
+    gplan = plan_grouped_stream(M, K, 8, E=8)
     xs = torch.randn((8, 8, K), generator=g, device=cuda).to(torch.bfloat16)
-    assert torch.equal(grouped_gemv(xs, view, plan=plan),
-                       grouped_gemv(xs, view.contiguous(), plan=plan))
+    want = grouped_gemv(xs, view.contiguous(), plan=gplan)
+    assert torch.equal(grouped_gemv(xs, view, plan=gplan), want)
+    # expert view (every other expert of 16) and row view (rows 2..9 of 12)
+    xs16 = torch.randn((16, 12, K), generator=g, device=cuda).to(
+        torch.bfloat16)
+    for xv in (xs16[::2, :8], xs16[:8, 2:10]):
+        assert not xv.is_contiguous()
+        assert torch.equal(grouped_gemv(xv, view, plan=gplan),
+                           grouped_gemv(xv.contiguous(), view, plan=gplan))
 
 
 @pytest.mark.gpu
@@ -652,3 +697,163 @@ def test_gpu_backend_engine_on_the_card_matches_the_cpu_engine(
         assert dispatch.dispatch_stats()["kernel_picks"].get("gpu:triton")
     assert triton_gemv.launches > n0
     assert done["cuda"] == done["cpu"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m_blk", [64, 128, 256, 512])
+@pytest.mark.parametrize("B", [1, 3, 8, 11])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_triton_gemv_at_every_column_block(cuda, m_blk, B, dtype):
+    """Each JAX column block maps onto m_blk / 128 CTAs of the streaming
+    body (one 64-column CTA for 64): the result holds against the plain
+    version, and every ring depth the card holds gives the same bits."""
+    import dataclasses
+
+    from repro_torch.kernels.backends.gpu import plan_triton_gemv
+    from repro_torch.kernels.triton_gemv import (
+        plan_fits,
+        triton_gemv,
+        triton_gemv_plain,
+    )
+
+    M, K = 16384, 2048
+    plan = plan_triton_gemv(M, K, B)
+    plan = dataclasses.replace(plan, m_blk=m_blk, n_m=M // m_blk)
+    g = torch.Generator(device=cuda).manual_seed(m_blk + B)
+    w_t = (torch.randn((K, M), generator=g, device=cuda) / K ** 0.5).to(dtype)
+    x = torch.randn((B, K), generator=g, device=cuda).to(dtype)
+    want = triton_gemv(x, w_t, plan=plan)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        want.float(), triton_gemv_plain(x, w_t, plan.k_blk).float(),
+        **_bf16_tol(dtype))
+    depths = 0
+    for depth in range(1, MAX_STAGES + 1):
+        p = dataclasses.replace(plan, stages=depth)
+        if not plan_fits(p, M, K, B, x.element_size()):
+            continue
+        depths += 1
+        assert torch.equal(triton_gemv(x, w_t, plan=p), want), p
+    assert depths >= 4
+
+
+# --------------------------------------------------------------------------
+# decode attention (csrc/decode_attention.cu)
+# --------------------------------------------------------------------------
+
+
+def _attention_case(cuda, B, C, Hkv, G, D, dtype, qpos, seed=0, slots=None):
+    """q [B, 1, H, D] and a cache k / v that is the first B slots of a
+    `slots`-slot buffer (the engine's slot-prefix view)."""
+    g = torch.Generator(device=cuda).manual_seed(seed + B + C + G + D)
+    n = slots or B
+    q = torch.randn((B, 1, Hkv * G, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((n, C, Hkv, D), generator=g, device=cuda).to(dtype)[:B]
+    v = torch.randn((n, C, Hkv, D), generator=g, device=cuda).to(dtype)[:B]
+    pos = torch.tensor(qpos, dtype=torch.int32, device=cuda)
+    return q, k, v, pos
+
+
+def _attention_tol(dtype, v):
+    # sums in other orders; in bf16 a probability at a rounding boundary
+    # may round one ulp apart (2**-8 * max|v| on the output), and the
+    # output itself one ulp (2**-7 relative)
+    if dtype == torch.float32:
+        return dict(rtol=1e-5, atol=1e-5)
+    return dict(rtol=2.0**-7, atol=2.0**-8 * v.float().abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,Hkv", [(1, 16), (2, 8), (8, 2)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_decode_attention_matches_plain(cuda, G, Hkv, dtype):
+    """The engine's shapes (8 slots of a 1024-position cache, head dim
+    128): valid lengths 1, 17, 300, C, an idle slot whose offset runs past
+    the end, and one with no valid position (all masked: uniform)."""
+    from repro_torch.kernels.attention import (
+        decode_attention,
+        decode_attention_plain,
+        kernel_applies,
+    )
+
+    B, C, D = 8, 1024, 128
+    qpos = [0, 16, 299, C - 1, C + 40, 511, 700, 5]
+    q, k, v, pos = _attention_case(cuda, B, C, Hkv, G, D, dtype, qpos,
+                                   slots=12)
+    valid = pos + 1
+    valid[7] = 0                       # every score masked
+    assert kernel_applies(q, k, v, causal=True)
+    n0 = decode_attention.launches
+    out = decode_attention(q, k, v, q_positions=pos[:, None],
+                           kv_valid_len=valid)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n0 + 1
+    want = decode_attention_plain(q, k, v, q_positions=pos[:, None],
+                                  kv_valid_len=valid)
+    torch.testing.assert_close(out.float(), want.float(),
+                               **_attention_tol(dtype, v))
+    # every split count: the same function (sums in other orders)
+    for splits in (1, 2, 4, 8):
+        got = decode_attention(q, k, v, q_positions=pos[:, None],
+                               kv_valid_len=valid, splits=splits)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **_attention_tol(dtype, v))
+        # deterministic: the same split count gives the same bits
+        assert torch.equal(got, decode_attention(
+            q, k, v, q_positions=pos[:, None], kv_valid_len=valid,
+            splits=splits))
+
+
+@pytest.mark.gpu
+def test_cuda_decode_attention_takes_int64_positions_and_no_valid_len(cuda):
+    """The model's q positions are int64 and broadcast from one offset
+    (stride 0); without a valid length only the causal mask applies."""
+    from repro_torch.kernels.attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+
+    B, C, Hkv, G, D = 4, 256, 4, 2, 64
+    q, k, v, _ = _attention_case(cuda, B, C, Hkv, G, D, torch.bfloat16,
+                                 [0] * B)
+    pos = torch.full((1, 1), 77, dtype=torch.int64, device=cuda).expand(B, 1)
+    out = decode_attention(q, k, v, q_positions=pos, kv_valid_len=None)
+    want = decode_attention_plain(q, k, v, q_positions=pos,
+                                  kv_valid_len=None)
+    torch.testing.assert_close(out.float(), want.float(),
+                               **_attention_tol(torch.bfloat16, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_store", ["fp", "int8"])
+def test_engine_tokens_with_the_attention_kernel_equal_the_plain_path(
+        cuda, monkeypatch, kv_store):
+    """Reduced olmo-1b (f32) on the card: every decode step runs the
+    attention kernel, and the greedy tokens equal those of the same
+    engine with attention on its plain path."""
+    import numpy as np
+
+    from repro_torch.kernels.attention import decode_attention
+    from repro_torch.models import layers as L
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg, _, params = _small(cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 9, 3, 12, 7)]
+    done = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(L, "kernel_applies",
+                                lambda *a, **k: False)
+        eng = Engine(cfg, params, batch_slots=4, max_len=64, device=cuda,
+                     kv_store=kv_store)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+        n0 = decode_attention.launches
+        done[route] = {r.rid: r.generated for r in eng.run_until_drained()}
+        launched = decode_attention.launches - n0
+        steps = eng.metrics.to_dict()["counters"]["decode_steps"]
+        assert launched == (cfg.n_layers * steps if route == "kernel"
+                            else 0)
+    assert done["kernel"] == done["plain"]

@@ -28,7 +28,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert {"repro_torch.serving.engine", "repro_torch.kernels.dispatch",
             "repro_torch.bridge", "repro_torch.kernels.quant_gemv",
             "repro_torch.kernels.kv_quant", "repro_torch.kernels.triton_gemv",
-            "repro_torch.kernels.backends.gpu"} <= set(names)
+            "repro_torch.kernels.backends.gpu",
+            "repro_torch.kernels.attention"} <= set(names)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

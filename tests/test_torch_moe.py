@@ -45,6 +45,7 @@ from repro_torch.kernels.backends.base import (  # noqa: E402
     expert_batch_bound,
 )
 from repro_torch.kernels.backends.h100 import H100Backend  # noqa: E402
+from repro_torch.kernels.gemv_plan import plan_grouped_stream  # noqa: E402
 from repro_torch.kernels.grouped_gemv import (  # noqa: E402
     counts_to_offsets,
     grouped_gemv,
@@ -250,7 +251,8 @@ def test_grouped_plain_and_portable_match_jax_executor(C):
     want = np.asarray(jget_backend("cpu")._execute_grouped(
         jnp.asarray(xs), JPacked(w_t=jnp.asarray(w))))
     xt, wt = torch.from_numpy(xs), torch.from_numpy(w)
-    got = grouped_gemv(xt, wt, plan=plan_expert_gemv(M, K, elem_bytes=4))
+    got = grouped_gemv(xt, wt, plan=plan_grouped_stream(
+        M, K, C, E=E, sms=132, elem_bytes=4))
     np.testing.assert_allclose(_np(got), want, atol=ATOL, rtol=0)
     portable = get_backend("cpu")._execute_grouped(xt, PackedWeights(w_t=wt))
     np.testing.assert_allclose(_np(portable), want, atol=ATOL, rtol=0)
@@ -278,8 +280,10 @@ def test_expert_wrappers_check_their_inputs():
                     plan=plan)
     with pytest.raises(TypeError, match="share"):
         ragged_gemv(x.double(), offs, w, plan=plan)
-    with pytest.raises(ValueError, match="tile"):
-        grouped_gemv(torch.randn(E, 2, K), torch.randn(E, K, 96), plan=plan)
+    with pytest.raises(ValueError, match="tile"):   # a plan for M=256
+        grouped_gemv(torch.randn(E, 2, K), torch.randn(E, K, 96),
+                     plan=plan_grouped_stream(256, K, 2, E=E, sms=132,
+                                              elem_bytes=4))
     # T = 0 and a column view of a wider stack (strided experts, in place)
     assert ragged_gemv(x[:0], torch.zeros(E + 1, dtype=torch.int32), w,
                        plan=plan).shape == (0, M)
@@ -462,7 +466,9 @@ def test_h100_program_mode_pick_matches_the_jax_gpu_backend(case):
     assert tplan.n_launches == jplan.n_launches
     if tplan.mode.endswith("_cuda"):
         assert tplan.kernel == f"{kind}_gemv"
-        assert tplan.plan == plan_expert_gemv(M, K)
+        assert tplan.plan == (
+            plan_grouped_stream(M, K, batch, E=E, sms=132)
+            if kind == "grouped" else plan_expert_gemv(M, K))
 
 
 def test_program_keys_match_jax():
