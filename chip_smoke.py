@@ -14,10 +14,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``[stages]``: ``pim_gemv`` and ``splitk_gemv`` at batch 8 at every
    ring depth the card holds, each bit-identical to the default depth,
    and timed (the build step prints each instantiation's registers);
-   The quant kernels run at the same shapes and batches on int8 / packed
-   int4 codes (block 32) from ``quantize_weight`` of seeded bf16 weights;
-   they are timed beside the bf16 weight's ``torch.matmul``, a reference
-   point that is not the same function; then ``[gpu kernels]``:
+   ``[quant kernels]``: the quant kernels at the same shapes and batch 1,
+   4, 8, 11 on int8 / packed int4 codes (block 32) from
+   ``quantize_weight`` of seeded bf16 weights, at the plan for the card's
+   SMs (CTAs, split degree), f32 x checked at batch 8; timed beside the
+   bf16 weight's ``torch.matmul`` at the same shape, a reference point
+   that is not the same function; ``[quant stages]``: both at batch 8 at
+   every ring depth, bit-identical and timed; then ``[gpu kernels]``:
    ``triton_gemv`` at olmo-1b's four shapes and deepseek-moe-16b's head,
    batch 1, 3, 8, 11 in bf16, against its plain version and timed beside
    ``pim_gemv`` and ``torch.matmul``; f32 and a column view at batch 8;
@@ -28,14 +31,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    decode step midway through the engine's requests, against its plain
    version (and with idle slots past the end, and an all-masked slot),
    then timed beside its bound, the plain version and
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention``; then on int8 and int4 pages of the
+   same caches, read in place: bit-identical to the fp kernel on
+   ``dequantize_page``'s tensor at every split count, in both cases, and
+   timed beside the bound of the codes and scales;
 4. engine  -- olmo-1b at full width, bf16, seeded random weights, through
    ``Engine(batch_slots=8, max_len=1024)``: 8 requests with prompts of 32
    to 512 tokens, 64 greedy tokens each; fails unless every decode step
    launched ``pim_gemv`` 17 and ``splitk_gemv`` 32 times, as the h100
    backend's picks for its GEMVs predict, and ``decode_attention`` once
    a layer (16), and unless the profiler finds no cast or copy of a
-   cache-shaped tensor in the decode steps;
+   cache-shaped tensor in the decode steps; TTFT p50 with prefill
+   attention's scores from K cast to f32 and from the bf16 operands, in
+   turns, greedy tokens equal (as in every ``h100`` engine phase);
 5. logits  -- one decode step of the same engine state through the
    dispatcher and through ``torch.matmul`` (policy pinned to ``ref``);
 6. quant   -- every decode GEMV of olmo-1b at full width and depth, batch
@@ -45,9 +53,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    shape agrees with its plain version, and the launch counts equal the
    GEMV counts; timed beside the bf16 pass of the same GEMVs;
 7. kv      -- the engine's 8 requests again with ``kv_store="int8"`` and
-   ``"int4"``: every request completes, every logit is finite; reports
-   latency, KV bytes per slot and the share of greedy tokens that agree
-   with the fp run;
+   ``"int4"``: every request completes, every logit is finite, every
+   decode step launches ``decode_attention`` once a layer on the codes in
+   place and casts or copies no cache-shaped tensor (pages, codes or
+   scales); reports latency, device busy, KV bytes per slot and the share
+   of greedy tokens that agree with the fp run;
    then ``[gpu engine]``: the same 8 requests on ``Engine(gemv_backend=
    "gpu")``: fails unless each decode step launches ``triton_gemv`` as
    often as the gpu backend's picks for the step's GEMVs predict (the
@@ -153,12 +163,17 @@ from repro_torch.kernels.gemv_plan import (  # noqa: E402
     plan_grouped_stream,
     plan_quant,
     plan_splitk,
+    quant_candidates,
     stream_rows,
     sub_rows,
     valid_splitk_degree,
     with_pipeline_depth,
 )
-from repro_torch.kernels.kv_quant import tree_bytes  # noqa: E402
+from repro_torch.kernels.kv_quant import (  # noqa: E402
+    dequantize_page,
+    quantize_page,
+    tree_bytes,
+)
 from repro_torch.kernels.ops import PackedWeights, quantize_weight  # noqa
 from repro_torch.kernels.pim_gemv import pim_gemv, pim_gemv_plain  # noqa
 from repro_torch.kernels.quant_gemv import (  # noqa: E402
@@ -191,6 +206,7 @@ L2_BYTES = 50 * 2**20
 # (relative 2**-7 at worst) plus f32 order noise near zero.
 KERNEL_RTOL, KERNEL_ATOL = 2.0**-7, 1e-3
 BATCHES = (1, 4, 8)
+QUANT_BATCHES = (1, 4, 8, 11)
 SEED = 0
 QUANT_BATCH = 8     # batch of the quantized dispatch pass
 QUANT_ROUNDS = 5    # timed passes of each weight form
@@ -484,40 +500,56 @@ def ptxas_table(report: dict) -> list[dict]:
     return rows
 
 
+def quant_plan_dict(plan) -> dict:
+    return dict(m_blk=plan.m_blk, k_blk=plan.k_blk, split_k=plan.split_k,
+                stages=plan.stages, smem_bytes=plan.smem_bytes,
+                ctas=plan.n_m * plan.split_k)
+
+
+def quant_packs(gen, dev, K, M, n_copies):
+    """``n_copies`` seeded bf16 weights [M, K] as int8 and int4 codes
+    (block 32, ``quantize_weight`` on the card, checked byte-equal to the
+    CPU's), and the weights K-major for ``torch.matmul``."""
+    ws = [(torch.randn((M, K), generator=gen, device=dev)
+           / math.sqrt(K)).to(torch.bfloat16) for _ in range(n_copies)]
+    packs = {bits: [quantize_weight(w, bits=bits, block=BLOCK) for w in ws]
+             for bits in (8, 4)}
+    for bits, pws in packs.items():   # the card's codes are the host's
+        host = quantize_weight(ws[0].cpu(), bits=bits, block=BLOCK)
+        if not (torch.equal(pws[0].w_t.cpu(), host.w_t)
+                and torch.equal(pws[0].scales.cpu(), host.scales)):
+            raise AssertionError(f"int{bits} ({K}, {M}): quantize_weight "
+                                 f"on the card differs from the CPU's")
+    return packs, [w.t().contiguous() for w in ws]
+
+
+def quant_copies(K, M) -> int:
+    """Weight copies whose int4 codes rotate past the L2."""
+    int4_bytes = K * M // 2 + (K // BLOCK) * M * 4
+    return max(2, math.ceil(2 * L2_BYTES / int4_bytes) + 1)
+
+
 def check_quant_kernels(dev, sms: int) -> list[dict]:
     """quant_gemv / quant4_gemv at olmo-1b's decode GEMV shapes and batch
-    1, 4, 8, bf16 x, block 32: each against its plain version, then timed
-    like the float kernels.  ``bf16_matmul_ms`` is ``torch.matmul`` on the
-    bf16 weight the codes came from: a reference point, not the same
-    function (no single PyTorch call computes a block-scaled int8/int4
-    GEMV)."""
+    1, 4, 8, 11, bf16 x, block 32, at the plan for the card's SMs: each
+    against its plain version, then timed like the float kernels.
+    ``bf16_matmul_ms`` is ``torch.matmul`` on the bf16 weight the codes
+    came from at the same shape: a reference point, not the same function
+    (no single PyTorch call computes a block-scaled int8/int4 GEMV).  At
+    batch 8 also f32 x, checked."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     rows = []
     for shape, (K, M, per_step) in SHAPES.items():
-        # enough copies that even the int4 stream rotates past the L2
-        int4_bytes = K * M // 2 + (K // BLOCK) * M * 4
-        n_copies = max(2, math.ceil(2 * L2_BYTES / int4_bytes) + 1)
-        ws = [(torch.randn((M, K), generator=gen, device=dev)
-               / math.sqrt(K)).to(torch.bfloat16) for _ in range(n_copies)]
-        packs = {bits: [quantize_weight(w, bits=bits, block=BLOCK)
-                        for w in ws] for bits in (8, 4)}
-        for bits, pws in packs.items():   # the card's codes are the host's
-            host = quantize_weight(ws[0].cpu(), bits=bits, block=BLOCK)
-            if not (torch.equal(pws[0].w_t.cpu(), host.w_t)
-                    and torch.equal(pws[0].scales.cpu(), host.scales)):
-                raise AssertionError(f"int{bits} {shape}: quantize_weight "
-                                     f"on the card differs from the CPU's")
-        ws_t = [w.t().contiguous() for w in ws]
-        del ws
-        for B in BATCHES:
+        n_copies = quant_copies(K, M)
+        packs, ws_t = quant_packs(gen, dev, K, M, n_copies)
+        for B in QUANT_BATCHES:
             x = torch.randn((B, K), generator=gen, device=dev).to(
                 torch.bfloat16)
             for name in QUANT_KERNELS:
                 k = KERNELS[name]
                 bits = k["bits"]
                 pws = packs[bits]
-                plan = plan_quant(M, K, B, bits=bits, block=BLOCK,
-                                  min_blocks=sms)
+                plan = plan_quant(M, K, B, bits=bits, block=BLOCK, sms=sms)
                 out = k["fn"](x, pws[0].w_t, pws[0].scales, block=BLOCK,
                               plan=plan)
                 torch.cuda.synchronize()
@@ -527,43 +559,145 @@ def check_quant_kernels(dev, sms: int) -> list[dict]:
                 code_bytes = pws[0].w_t.numel() + pws[0].scales.numel() * 4
                 calls = 100 if code_bytes < 50e6 else 40
 
-                def run(i, fn=k["fn"], pws=pws, plan=plan):
+                def run(i, fn=k["fn"], pws=pws, plan=plan, x=x):
                     pw = pws[i % n_copies]
                     fn(x, pw.w_t, pw.scales, block=BLOCK, plan=plan)
 
-                def run_plain(i, plain=k["plain"], pws=pws):
+                def run_plain(i, plain=k["plain"], pws=pws, x=x):
                     pw = pws[i % n_copies]
                     plain(x, pw.w_t, pw.scales, BLOCK)
 
-                def run_matmul(i):
+                def run_matmul(i, x=x):
                     torch.matmul(x, ws_t[i % n_copies])
 
                 io_bytes = code_bytes + (B * K + B * M) * 2
                 row = dict(
                     kernel=name, shape=shape, K=K, M=M, B=B, bits=bits,
-                    per_step=per_step, plan=dict(
-                        m_blk=plan.m_blk, k_blk=plan.k_blk, ctas=plan.n_m),
+                    per_step=per_step, plan=quant_plan_dict(plan),
                     max_abs_err=max_err,
                     ms=graph_ms(run, calls),
                     plain_ms=graph_ms(run_plain, max(calls // 4, 10)),
                     library_ms=None,
                     bf16_matmul_ms=graph_ms(run_matmul, calls),
                     bytes_ms=io_bytes / HBM_BYTES_PER_S * 1e3,
-                    # the codes fit bf16 exactly and the scale factors out
-                    # of each block, so bf16 tensor cores could do the
-                    # same products: their rate is the operations bound
+                    # the codes are exact in bf16 and the scale factors
+                    # out of each block: the products run on bf16 tensor
+                    # cores, whose rate is the operations bound
                     ops_ms=2 * B * K * M / BF16_FLOPS * 1e3)
                 row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
                 row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["ops_ms"]
                                    else "operations")
                 row["hbm_share"] = row["bound_ms"] / row["ms"]
+                if B == 8:
+                    x32 = x.float()
+                    p32 = plan_quant(M, K, B, bits=bits, block=BLOCK,
+                                     elem_bytes=4, sms=sms)
+                    row["f32_max_abs_err"] = check_close(
+                        name, f"{shape} f32 B={B}",
+                        k["fn"](x32, pws[0].w_t, pws[0].scales, block=BLOCK,
+                                plan=p32),
+                        k["plain"](x32, pws[0].w_t, pws[0].scales, BLOCK))
                 rows.append(row)
-                log(f"  {name:12s} {shape:8s} B={B} err={max_err:.2e}"
+                log(f"  {name:12s} {shape:8s} B={B:2d} err={max_err:.2e}"
                     f" ms={row['ms']:.4f} bound={row['bound_ms']:.4f}"
-                    f" ({row['hbm_share']:.0%}) ctas={plan.n_m}"
-                    f" plain={row['plain_ms']:.4f}"
-                    f" bf16 matmul={row['bf16_matmul_ms']:.4f}")
+                    f" ({row['hbm_share']:.0%}) plain={row['plain_ms']:.4f}"
+                    f" bf16 matmul={row['bf16_matmul_ms']:.4f}"
+                    f" m_blk={plan.m_blk} split={plan.split_k}"
+                    f" ctas={row['plan']['ctas']} k_blk={plan.k_blk}"
+                    f" stages={plan.stages}"
+                    + (f" f32 err={row['f32_max_abs_err']:.2e}"
+                       if B == 8 else ""))
         del packs, ws_t
+        torch.cuda.empty_cache()
+    return rows
+
+
+def quant_stage_sweep(dev, sms: int) -> list[dict]:
+    """quant_gemv and quant4_gemv at olmo-1b's four decode GEMV shapes,
+    batch 8, bf16, at every ring depth ``with_pipeline_depth`` admits:
+    each output must equal the default depth's bit for bit; each depth is
+    timed as in ``check_quant_kernels``."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 75)
+    rows, B = [], 8
+    for shape, (K, M, _) in SHAPES.items():
+        n_copies = quant_copies(K, M)
+        packs, ws_t = quant_packs(gen, dev, K, M, n_copies)
+        del ws_t
+        x = torch.randn((B, K), generator=gen, device=dev).to(torch.bfloat16)
+        for name in QUANT_KERNELS:
+            fn, bits = KERNELS[name]["fn"], KERNELS[name]["bits"]
+            pws = packs[bits]
+            base = plan_quant(M, K, B, bits=bits, block=BLOCK, sms=sms)
+            want = fn(x, pws[0].w_t, pws[0].scales, block=BLOCK, plan=base)
+            times = {}
+            for depth in range(1, MAX_STAGES + 1):
+                plan = with_pipeline_depth(base, depth, batch=B,
+                                           elem_bytes=2, bits=bits,
+                                           block=BLOCK)
+                if plan is None:
+                    continue
+                got = fn(x, pws[0].w_t, pws[0].scales, block=BLOCK,
+                         plan=plan)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"{name} {shape}: stages={depth} differs from the "
+                        f"default stages={base.stages}")
+
+                def run(i, fn=fn, pws=pws, plan=plan):
+                    pw = pws[i % n_copies]
+                    fn(x, pw.w_t, pw.scales, block=BLOCK, plan=plan)
+
+                times[depth] = graph_ms(run, 40)
+                rows.append(dict(kernel=name, shape=shape, K=K, M=M, B=B,
+                                 default_stages=base.stages,
+                                 plan=quant_plan_dict(plan),
+                                 ms=times[depth]))
+            log(f"  {name:12s} {shape:8s} B={B} bit-identical at stages "
+                f"{sorted(times)} (default {base.stages}); ms "
+                + " ".join(f"s{d}={t:.4f}" for d, t in times.items()))
+        del packs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def quant_plan_sweep(dev, sms: int) -> list[dict]:
+    """quant_gemv and quant4_gemv at olmo-1b's four decode GEMV shapes,
+    batch 8, bf16, at every plan of ``quant_candidates`` (split degree x
+    column block, default depth): each against its plain version, timed as
+    in ``check_quant_kernels``; the planner's pick is marked."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 77)
+    rows, B = [], 8
+    for shape, (K, M, _) in SHAPES.items():
+        n_copies = quant_copies(K, M)
+        packs, ws_t = quant_packs(gen, dev, K, M, n_copies)
+        del ws_t
+        x = torch.randn((B, K), generator=gen, device=dev).to(torch.bfloat16)
+        for name in QUANT_KERNELS:
+            fn, plain = KERNELS[name]["fn"], KERNELS[name]["plain"]
+            bits = KERNELS[name]["bits"]
+            pws = packs[bits]
+            pick = plan_quant(M, K, B, bits=bits, block=BLOCK, sms=sms)
+            want = plain(x, pws[0].w_t, pws[0].scales, BLOCK)
+            times = {}
+            for plan in quant_candidates(M, K, B, bits=bits, block=BLOCK):
+                tag = f"{plan.m_blk}x{plan.split_k}"
+                check_close(name, f"{shape} plan {tag}",
+                            fn(x, pws[0].w_t, pws[0].scales, block=BLOCK,
+                               plan=plan), want)
+
+                def run(i, fn=fn, pws=pws, plan=plan):
+                    pw = pws[i % n_copies]
+                    fn(x, pw.w_t, pw.scales, block=BLOCK, plan=plan)
+
+                times[tag] = graph_ms(run, 40)
+                rows.append(dict(kernel=name, shape=shape, K=K, M=M, B=B,
+                                 picked=plan == pick,
+                                 plan=quant_plan_dict(plan),
+                                 ms=times[tag]))
+            log(f"  {name:12s} {shape:8s} B={B} m_blk x split: "
+                + " ".join(f"{t}={ms:.4f}" for t, ms in times.items())
+                + f" (pick {pick.m_blk}x{pick.split_k})")
+        del packs
         torch.cuda.empty_cache()
     return rows
 
@@ -698,11 +832,13 @@ def triton_stage_sweep(dev) -> list[dict]:
     return rows
 
 
-def attention_bound(valid, B, H, Hkv, D, elem=2) -> dict:
-    """The valid K and V bytes of each slot, q and out, over HBM bandwidth;
-    the operations 2 * 2 * H * n * D (scores and P.V) over bf16 peak."""
+def attention_bound(valid, B, H, Hkv, D, elem=2, bits=16) -> dict:
+    """The valid K and V bytes of each slot (a quantized store: their codes
+    and one f32 scale a page), q and out, over HBM bandwidth; the
+    operations 2 * 2 * H * n * D (scores and P.V) over bf16 peak."""
     n = sum(valid)
-    io = 2 * n * Hkv * D * elem + 2 * B * H * D * elem
+    page = D * elem if bits == 16 else D * bits // 8 + 4
+    io = 2 * n * Hkv * page + 2 * B * H * D * elem
     bytes_ms = io / HBM_BYTES_PER_S * 1e3
     ops_ms = 4 * H * n * D / BF16_FLOPS * 1e3
     return dict(bytes_ms=bytes_ms, ops_ms=ops_ms,
@@ -789,8 +925,8 @@ def check_attention(dev, layers: int) -> list[dict]:
 
     by_splits = {n_split: graph_ms(lambda i, n=n_split: run_split(i, n),
                                    100) for n_split in (1, 2, 4, 8)}
-    row = dict(kernel="decode_attention", shape="engine", B=B, C=C,
-               Hkv=Hkv, H=H, D=D, valid=ATTN_VALID, splits=splits,
+    row = dict(kernel="decode_attention", shape="engine", store="fp", B=B,
+               C=C, Hkv=Hkv, H=H, D=D, valid=ATTN_VALID, splits=splits,
                per_step=layers, max_abs_err=max(errs.values()),
                errs=errs, ms=graph_ms(run, 100), ms_by_splits=by_splits,
                plain_ms=graph_ms(run_plain, 20),
@@ -804,9 +940,63 @@ def check_attention(dev, layers: int) -> list[dict]:
         f"checked at splits {sorted({splits, 1, 2, 4, 8})}, idle slots "
         f"past the end and an all-masked slot; ms by splits "
         + " ".join(f"s{n}={t:.4f}" for n, t in by_splits.items()))
+    rows = [row]
+    # quantized pages, read in place: bit-identical to the fp kernel on
+    # dequantize_page's tensor, at every split count, in both cases
+    for bits in (8, 4):
+        pages = [(quantize_page(kk, bits), quantize_page(vv, bits))
+                 for kk, vv in zip(ks, vs)]
+        (kc, kscale), (vc, vscale) = pages[0]
+        kf = dequantize_page(kc, kscale, hd=D, out_dtype=torch.bfloat16)
+        vf = dequantize_page(vc, vscale, hd=D, out_dtype=torch.bfloat16)
+        for name, (qp, vl) in cases.items():
+            for n_split in sorted({splits, 1, 2, 4, 8}):
+                got = decode_attention(q, kc, vc, q_positions=qp,
+                                       kv_valid_len=vl, splits=n_split,
+                                       k_scale=kscale, v_scale=vscale)
+                want = decode_attention(q, kf, vf, q_positions=qp,
+                                        kv_valid_len=vl, splits=n_split)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"decode_attention int{bits} {name} "
+                        f"splits={n_split}: differs from the fp kernel on "
+                        f"the dequantized pages")
+        del kf, vf
+        torch.cuda.synchronize()
+
+        def run_q(i, pages=pages):
+            (kc, kscale), (vc, vscale) = pages[i % n_copies]
+            decode_attention(q, kc, vc, q_positions=qpos, kv_valid_len=valid,
+                             k_scale=kscale, v_scale=vscale)
+
+        def run_q_plain(i, pages=pages):
+            (kc, kscale), (vc, vscale) = pages[i % n_copies]
+            decode_attention_plain(
+                q, dequantize_page(kc, kscale, hd=D,
+                                   out_dtype=torch.bfloat16),
+                dequantize_page(vc, vscale, hd=D, out_dtype=torch.bfloat16),
+                q_positions=qpos, kv_valid_len=valid)
+
+        qrow = dict(kernel="decode_attention", shape=f"engine_int{bits}",
+                    store=f"int{bits}", B=B, C=C, Hkv=Hkv, H=H, D=D,
+                    valid=ATTN_VALID, splits=splits, per_step=layers,
+                    max_abs_err=0.0, bit_identical_to_fp=True,
+                    ms=graph_ms(run_q, 100), plain_ms=graph_ms(run_q_plain,
+                                                               20),
+                    library_ms=None,
+                    **attention_bound(ATTN_VALID, B, H, Hkv, D, bits=bits))
+        qrow["hbm_share"] = qrow["bound_ms"] / qrow["ms"]
+        rows.append(qrow)
+        log(f"  decode_attention int{bits} pages in place: ms="
+            f"{qrow['ms']:.4f} bound={qrow['bound_ms']:.4f} "
+            f"({qrow['hbm_share']:.0%}) plain (dequantize, then the plain "
+            f"arithmetic)={qrow['plain_ms']:.4f}; bit-identical to the fp "
+            f"kernel on dequantize_page's pages at splits "
+            f"{sorted({splits, 1, 2, 4, 8})}, both cases")
+        del pages
     del ks, vs
     torch.cuda.empty_cache()
-    return [row]
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -853,14 +1043,15 @@ CACHE_COPY_OPS = {"aten::to", "aten::_to_copy", "aten::copy_", "aten::clone",
                   "aten::matmul", "aten::mul", "aten::div"}
 
 
-def cache_copies(prof, cache_tail: tuple[int, int, int]) -> dict[str, int]:
-    """Ops of CACHE_COPY_OPS whose inputs include a ``[b, C, Hkv, D]``
-    tensor (the cache of some slots), counted by name."""
+def cache_copies(prof, tails) -> dict[str, int]:
+    """Ops of CACHE_COPY_OPS whose inputs include a tensor of the cache of
+    some slots (``[b] + tail`` for a tail of ``tails``: K / V pages or
+    codes, and a quantized store's scales), counted by name."""
     hits: collections.Counter = collections.Counter()
     for e in prof.events():
         if e.name in CACHE_COPY_OPS and any(
-                len(sh) == 4 and tuple(sh[1:]) == cache_tail
-                for sh in (e.input_shapes or [])):
+                len(sh) == len(t) + 1 and tuple(sh[1:]) == t
+                for sh in (e.input_shapes or []) for t in tails):
             hits[e.name] += 1
     return dict(hits)
 
@@ -871,7 +1062,8 @@ def profile_decode(eng, step_ms: float, steps: int = 3) -> dict | None:
     is taken against ``step_ms``, the unprofiled per-token p50 (the
     profiler's own overhead inflates the host time of the traced steps).
     ``cache_copies`` counts the ops that cast, copy or contract a tensor
-    of the K/V cache's shape in those steps (input shapes recorded)."""
+    of the K/V cache's shape (pages, int4 codes, or the scales of a
+    quantized store) in those steps (input shapes recorded)."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = eng.cfg
@@ -882,7 +1074,8 @@ def profile_decode(eng, step_ms: float, steps: int = 3) -> dict | None:
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
-    copies = cache_copies(prof, (eng.max_len, cfg.n_kv_heads, cfg.hd))
+    C, Hkv, D = eng.max_len, cfg.n_kv_heads, cfg.hd
+    copies = cache_copies(prof, {(C, Hkv, D), (C, Hkv, D // 2), (C, Hkv)})
     avgs = prof.key_averages()
     on_card = [e for e in avgs if str(e.device_type).endswith("CUDA")]
     by_name = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -908,6 +1101,15 @@ def profile_decode(eng, step_ms: float, steps: int = 3) -> dict | None:
                           "self_cpu_ms_per_step":
                               e.self_cpu_time_total / 1e3 / steps}
                          for e in aten[:12]]}
+
+
+def log_ttft(res: dict) -> None:
+    t = res["prefill_scores"]["ttft_p50_ms"]
+    log("  prefill attention scores: TTFT p50 with K cast to f32 "
+        + ", ".join(f"{v:.2f}" for v in t["f32_cast"])
+        + " ms; from the bf16 operands (one bmm, f32 result) "
+        + ", ".join(f"{v:.2f}" for v in t["bf16_bmm"])
+        + " ms; greedy tokens equal")
 
 
 def log_profile(p: dict | None) -> None:
@@ -1072,14 +1274,48 @@ def run_engine(cfg, params, dev, kv_store: str = "fp", *,
     prof_eng = serve(cfg, params, dev, lengths, 8, SEED + 1, kv_store, **kw)
     prof_eng.step()                          # prefill + first decode step
     res["profile"] = profile_decode(prof_eng, doc["per_token_ms"]["p50"])
-    if kv_store == "fp" and (res["profile"] is None
-                             or res["profile"]["cache_copies"]):
-        # the fp store's decode steps read the cache in place: no cast to
-        # f32 and no copy (the quantized stores still dequantize it whole)
+    if res["profile"] is None or res["profile"]["cache_copies"]:
+        # every store's decode steps read the cache in place: no cast to
+        # f32, no dequantized copy of the codes and no copy
         raise AssertionError(
             "decode steps cast or copied the K/V cache: "
             + str(res["profile"] and res["profile"]["cache_copies"]))
+    if backend == "h100":
+        res["prefill_scores"] = ttft_both_ways(cfg, params, dev, kv_store)
     return res
+
+
+def f32_scores_plain(q, k, v, **kw):
+    """The plain attention path as it stood before its bf16 score product:
+    K cast to f32 for the scores (the rest unchanged)."""
+    return PLAIN_ATTENTION(q, k.float(), v, **kw)
+
+
+PLAIN_ATTENTION = L.decode_attention_plain
+
+
+def ttft_both_ways(cfg, params, dev, kv_store: str) -> dict:
+    """TTFT p50 of the 8 requests (2 tokens each) with prefill attention's
+    scores from the bf16 operands (the port's path) and from K cast to f32
+    (the earlier path), in turns (cast, bf16, bf16, cast); the greedy
+    tokens of the two must agree."""
+    ttft, tokens = {"f32_cast": [], "bf16_bmm": []}, {}
+    for route in ("f32_cast", "bf16_bmm", "bf16_bmm", "f32_cast"):
+        L.decode_attention_plain = (f32_scores_plain if route == "f32_cast"
+                                    else PLAIN_ATTENTION)
+        try:
+            eng = serve(cfg, params, dev, ENGINE_LENGTHS, 2, SEED, kv_store)
+            done = eng.run_until_drained()
+            torch.cuda.synchronize()
+        finally:
+            L.decode_attention_plain = PLAIN_ATTENTION
+        ttft[route].append(eng.metrics.to_dict()["ttft_ms"]["p50"])
+        tokens[route] = {r.rid: list(r.generated) for r in done}
+        del eng
+    if tokens["f32_cast"] != tokens["bf16_bmm"]:
+        raise AssertionError(f"prefill scores changed greedy tokens: "
+                             f"{tokens}")
+    return {"ttft_p50_ms": ttft, "tokens_equal": True}
 
 
 def logits_check(cfg, params, dev) -> dict:
@@ -1888,7 +2124,9 @@ def kernels_line(rows: list[dict], launch_counts: dict) -> dict:
     def in_step(name, r):
         if name == "ragged_gemv":
             return r["routing"] == "top6_b8"
-        if name in ("grouped_gemv", "decode_attention"):
+        if name == "decode_attention":
+            return r["store"] == "fp"
+        if name == "grouped_gemv":
             return True
         return r["B"] == 8 and r["shape"] in picks[name]
 
@@ -1905,8 +2143,9 @@ def kernels_line(rows: list[dict], launch_counts: dict) -> dict:
         if name == "decode_attention":
             basis = ("one olmo-1b decode step at batch 8: 16 layers "
                      "(deepseek-moe-16b: the same call in 28 layers)")
-            keys = ("shape", "B", "C", "Hkv", "D", "valid", "splits", "ms",
-                    "plain_ms", "library_ms", "bound_ms", "max_abs_err")
+            keys = ("shape", "store", "B", "C", "Hkv", "D", "valid",
+                    "splits", "ms", "plain_ms", "library_ms", "bound_ms",
+                    "max_abs_err")
         elif moe:
             basis = (f"one {MOE_ARCH} decode step at batch "
                      f"{8 if name == 'ragged_gemv' else 1}: "
@@ -1990,7 +2229,17 @@ def main() -> int:
         f"{MAX_STAGES} the card holds: bit-identical to the default, timed")
     stages = stage_sweep(dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log("[quant kernels] quant_gemv and quant4_gemv against their plain "
+        "versions (rtol 2^-7, atol 1e-3), then timed beside torch.matmul "
+        "on the bf16 weight")
     rows += check_quant_kernels(dev, sms)
+    log(f"[quant stages] quant_gemv and quant4_gemv at B=8, every ring "
+        f"depth up to {MAX_STAGES} the card holds: bit-identical to the "
+        f"default, timed")
+    stages += quant_stage_sweep(dev, sms)
+    log("[quant plans] both at B=8 at every split degree and column block, "
+        "each against its plain version, timed")
+    quant_plans = quant_plan_sweep(dev, sms)
     log("[gpu kernels] triton_gemv against its plain version (rtol 2^-7, "
         "atol 1e-3), then timed beside pim_gemv and torch.matmul")
     rows += check_triton_kernels(dev)
@@ -2016,6 +2265,7 @@ def main() -> int:
         f"(per decode step {engine['launches_per_step']})")
     log(f"  dispatch_stats {json.dumps(engine['dispatch'])}")
     log_profile(engine["profile"])
+    log_ttft(engine)
 
     logits = logits_check(cfg, params, dev)
     log(f"[logits] batch {logits['batch']}: max |kernels - ref| "
@@ -2044,6 +2294,7 @@ def main() -> int:
             f"{engine['kv_bytes_per_slot'] / 1e6:.2f} MB), greedy tokens "
             f"agreeing with fp {e['agreement_with_fp']}")
         log_profile(e["profile"])
+        log_ttft(e)
 
     gpu = run_engine(cfg, params, dev, backend="gpu")
     gpu["agreement_with_h100"] = token_agreement(engine["generated"],
@@ -2092,6 +2343,7 @@ def main() -> int:
     log(f"  program_modes {json.dumps(moe['dispatch']['program_modes'])}; "
         f"expert_load {json.dumps(moe['dispatch']['expert_load'])}")
     log_profile(moe["profile"])
+    log_ttft(moe)
 
     moe_logits = moe_logits_check(mcfg, mparams, dev)
     log(f"[moe logits] batch {moe_logits['batch']}: max |kernels - ref| "
@@ -2158,6 +2410,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=dict(name=name, count=count, nvidia_smi=card),
         build_s=build_s, ptxas=ptxas, kernel_rows=rows, stage_sweep=stages,
+        quant_plan_sweep=quant_plans,
         engine=engine, logits=logits,
         quant_dispatch=quant, kv=kv, moe_engine=moe, moe_logits=moe_logits,
         moe_grouped=grouped, gpu_engine=gpu, moe_gpu=moe_gpu,

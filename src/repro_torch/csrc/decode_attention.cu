@@ -22,6 +22,17 @@
 // over HBM bandwidth (3.35 TB/s).  The port's first path cast the whole
 // cache to f32 every layer (three passes over C positions, valid or not).
 //
+// Quantized pages (S = 8 or 4, kv_quant.py): k / v hold int8 codes
+// [B, C, Hkv, D], or packed int4 [B, C, Hkv, D / 2] (lane 2i in the low
+// nibble of byte i, 2i + 1 in the high one), with one f32 scale per
+// (slot, position, head) in k_scale / v_scale [B, C, Hkv].  Each element is
+// dequantized where it is read, exactly as dequantize_page(..., out_dtype)
+// does (T(f32(q) * s)), and then enters the same arithmetic in the same
+// order as the fp kernel: the output equals the fp kernel's on
+// dequantize_page's tensor bit for bit, while the reads are the codes and
+// scales (a half or a quarter of the bf16 bytes), never a dequantized
+// copy of the cache.
+//
 // Design: one CTA (4 warps) per (slot, kv head, split); the `splits` CTAs
 // of a (slot, kv head) divide its n positions evenly and form one thread
 // block cluster.  A position's D elements are read by D / V lanes as
@@ -43,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -67,11 +80,56 @@ __device__ __forceinline__ float round_to(float v, const bf16*) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <typename T, int V>
-__device__ __forceinline__ void unpack(const uint4& raw, float (&f)[V]) {
-  const T* e = reinterpret_cast<const T*>(&raw);
+// Bytes a lane reads of one position: V elements of T, or their codes.
+template <typename T, int S>
+__host__ __device__ constexpr int lane_bytes() {
+  return S == 0 ? 16 : S == 8 ? 16 / static_cast<int>(sizeof(T))
+                              : 8 / static_cast<int>(sizeof(T));
+}
+
+// A lane's BYTES of one position, in the low bytes of a uint4.
+template <int BYTES>
+__device__ __forceinline__ uint4 load_lane(const void* p) {
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (BYTES == 16) {
+    r = *static_cast<const uint4*>(p);
+  } else if constexpr (BYTES == 8) {
+    const uint2 v = *static_cast<const uint2*>(p);
+    r.x = v.x;
+    r.y = v.y;
+  } else if constexpr (BYTES == 4) {
+    r.x = *static_cast<const uint32_t*>(p);
+  } else {
+    r.x = *static_cast<const uint16_t*>(p);
+  }
+  return r;
+}
+
+// The V values of a lane as f32: elements of T, or codes (S = 8: one int8
+// a lane, S = 4: lane 2i in the low nibble of byte i) dequantized as
+// dequantize_page does, T(f32(q) * scale), and widened back.
+template <typename T, int V, int S>
+__device__ __forceinline__ void unpack(const uint4& raw, float scale,
+                                       float (&f)[V]) {
+  if constexpr (S == 0) {
+    const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-  for (int j = 0; j < V; ++j) f[j] = to_f32(e[j]);
+    for (int j = 0; j < V; ++j) f[j] = to_f32(e[j]);
+  } else {
+    const uint8_t* e = reinterpret_cast<const uint8_t*>(&raw);
+    const T* tag = nullptr;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      int q;
+      if constexpr (S == 8) {
+        q = static_cast<int8_t>(e[j]);
+      } else {   // sign-extend the nibble from the top of a byte
+        const unsigned u = e[j / 2];
+        q = static_cast<int8_t>((j & 1) ? u : u << 4) >> 4;
+      }
+      f[j] = round_to(__fmul_rn(static_cast<float>(q), scale), tag);
+    }
+  }
 }
 
 // Element b of an int32 or int64 array whose elements lie `stride` apart.
@@ -83,12 +141,15 @@ __device__ __forceinline__ long long load_index(const void* p,
 }
 
 // Strides in elements.  q [B, H, D]: heads D apart, slots q_sb apart; out
-// [B, H, D] contiguous; k / v [B, C, Hkv, D]: slots, positions and heads
-// *_sb, *_sp, *_sh apart.  vlen_bytes 0: no valid-length bound.
+// [B, H, D] contiguous; k / v [B, C, Hkv, D] (or their codes): slots,
+// positions and heads *_sb, *_sp, *_sh apart; the scales of quantized
+// pages [B, C, Hkv] ks_* / vs_* apart.  vlen_bytes 0: no valid-length bound.
 struct Args {
   const void* q;
   const void* k;
   const void* v;
+  const float* k_scale;
+  const float* v_scale;
   void* out;
   const void* qpos;
   const void* vlen;
@@ -96,6 +157,7 @@ struct Args {
   int qpos_bytes, vlen_bytes;
   int C, Hkv, D, splits, cap;  // cap: positions one split holds at most
   long long q_sb, k_sb, k_sp, k_sh, v_sb, v_sp, v_sh;
+  long long ks_sb, ks_sp, ks_sh, vs_sb, vs_sp, vs_sh;
   float scale;                 // sqrt(D), as the reference divides by it
 };
 
@@ -134,11 +196,15 @@ inline size_t smem_floats(int G, int D, int cap) {
          + 2 * static_cast<size_t>(G);           // max, sum
 }
 
-// Grid (splits, B * Hkv); cluster (splits, 1, 1).
-template <typename T, int G>
+// Grid (splits, B * Hkv); cluster (splits, 1, 1).  S: the store (0: k / v
+// of type T, 8 / 4: int8 / packed int4 codes with f32 scales).
+template <typename T, int G, int S>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const Args a) {
   constexpr int V = 16 / sizeof(T);
+  constexpr int kLaneBytes = lane_bytes<T, S>();
+  using E = typename std::conditional<S == 0, T, int8_t>::type;
+  constexpr int kPerByte = S == 4 ? 2 : 1;   // lanes a stored element holds
   const int LP = a.D / V;          // lanes of one position
   const int P = 32 / LP;           // positions of one warp step
   const int step = kWarps * P;     // positions of one CTA step
@@ -169,8 +235,12 @@ decode_attention_kernel(const Args a) {
   const int lo = min(cnt, rank * per);
   const int hi = min(cnt, lo + per);
 
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh + d0;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh + d0;
+  const E* kb = static_cast<const E*>(a.k) + b * a.k_sb + h * a.k_sh
+                + d0 / kPerByte;
+  const E* vb = static_cast<const E*>(a.v) + b * a.v_sb + h * a.v_sh
+                + d0 / kPerByte;
+  const float* ksb = a.k_scale + b * a.ks_sb + h * a.ks_sh;   // S != 0
+  const float* vsb = a.v_scale + b * a.vs_sb + h * a.vs_sh;
 
   // 1. scores of positions [lo, hi)
   {
@@ -179,22 +249,27 @@ decode_attention_kernel(const Args a) {
                   + static_cast<long long>(h) * G * a.D + d0;
 #pragma unroll
     for (int g = 0; g < G; ++g)
-      unpack<T, V>(*reinterpret_cast<const uint4*>(qb + g * a.D), qf[g]);
+      unpack<T, V, 0>(*reinterpret_cast<const uint4*>(qb + g * a.D), 0.f,
+                      qf[g]);
     // base is uniform over the warp: every lane takes part in the shuffles
     for (int base = lo + warp * P; base < hi; base += step * kUnroll) {
       uint4 raw[kUnroll];
+      float ps[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int p = base + u * step + pw;
         raw[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (p < hi && !none)
-          raw[u] = *reinterpret_cast<const uint4*>(kb + p * a.k_sp);
+        ps[u] = 0.f;
+        if (p < hi && !none) {
+          raw[u] = load_lane<kLaneBytes>(kb + p * a.k_sp);
+          if constexpr (S != 0) ps[u] = ksb[p * a.ks_sp];
+        }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int p = base + u * step + pw;
         float kf[V];
-        unpack<T, V>(raw[u], kf);
+        unpack<T, V, S>(raw[u], ps[u], kf);
         float s[G];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
@@ -269,18 +344,23 @@ decode_attention_kernel(const Args a) {
     for (int j = 0; j < V; ++j) acc[g][j] = 0.f;
   for (int base = lo + warp * P; base < hi; base += step * kUnroll) {
     uint4 raw[kUnroll];
+    float ps[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int p = base + u * step + pw;
       raw[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (p < hi) raw[u] = *reinterpret_cast<const uint4*>(vb + p * a.v_sp);
+      ps[u] = 0.f;
+      if (p < hi) {
+        raw[u] = load_lane<kLaneBytes>(vb + p * a.v_sp);
+        if constexpr (S != 0) ps[u] = vsb[p * a.vs_sp];
+      }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int p = base + u * step + pw;
       if (p < hi) {
         float vf[V];
-        unpack<T, V>(raw[u], vf);
+        unpack<T, V, S>(raw[u], ps[u], vf);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float pg = sc[g * a.cap + p - lo];
@@ -325,9 +405,9 @@ decode_attention_kernel(const Args a) {
   cluster.sync();                    // no CTA leaves while a peer reads it
 }
 
-template <typename T, int G>
+template <typename T, int G, int S>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  auto kernel = decode_attention_kernel<T, G>;
+  auto kernel = decode_attention_kernel<T, G, S>;
   constexpr int kMaxSmem = 227 * 1024;
   // once per instantiation, at its first launch (never inside a graph
   // capture: callers warm up first)
@@ -356,15 +436,27 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 
 // What a launch takes: D a whole number of 16-byte vectors on a power of
 // two of lanes (at most a warp), G in {1, 2, 4, 8}, splits in {1, 2, 4,
-// 8} holding every position, 16-byte aligned rows.
-template <typename T>
+// 8} holding every position, 16-byte aligned q and out, and k / v rows
+// (or code rows) aligned to what a lane reads; scales for quantized pages.
+template <typename T, int S>
 bool launchable(const Args& a, int B, int G) {
   constexpr int V = 16 / sizeof(T);
+  constexpr int kLaneBytes = lane_bytes<T, S>();
+  constexpr int kElem = S == 0 ? sizeof(T) : 1;   // bytes of a stored element
   const int LP = a.D / V;
-  const auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const auto aligned = [](const void* p, int bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
   };
-  const auto vec = [](long long s) { return (s * sizeof(T)) % 16 == 0; };
+  const auto vec = [](long long s, int elem, int bytes) {
+    return (s * elem) % bytes == 0;
+  };
+  const bool pages =
+      aligned(a.k, kLaneBytes) && aligned(a.v, kLaneBytes)
+      && vec(a.k_sb, kElem, kLaneBytes) && vec(a.k_sp, kElem, kLaneBytes)
+      && vec(a.k_sh, kElem, kLaneBytes) && vec(a.v_sb, kElem, kLaneBytes)
+      && vec(a.v_sp, kElem, kLaneBytes) && vec(a.v_sh, kElem, kLaneBytes)
+      && (S == 0 || (a.k_scale != nullptr && a.v_scale != nullptr
+                     && aligned(a.k_scale, 4) && aligned(a.v_scale, 4)));
   return B >= 1 && a.C >= 1 && a.Hkv >= 1 && a.D % V == 0 && LP >= 1
          && LP <= 32 && (LP & (LP - 1)) == 0
          && (G == 1 || G == 2 || G == 4 || G == 8)
@@ -373,34 +465,39 @@ bool launchable(const Args& a, int B, int G) {
          && static_cast<long long>(a.cap) * a.splits >= a.C
          && B * a.Hkv <= 65535 && (a.qpos_bytes == 4 || a.qpos_bytes == 8)
          && (a.vlen_bytes == 0 || a.vlen_bytes == 4 || a.vlen_bytes == 8)
-         && aligned(a.q) && aligned(a.k) && aligned(a.v) && aligned(a.out)
-         && vec(a.q_sb) && vec(a.k_sb) && vec(a.k_sp) && vec(a.k_sh)
-         && vec(a.v_sb) && vec(a.v_sp) && vec(a.v_sh);
+         && aligned(a.q, 16) && aligned(a.out, 16)
+         && vec(a.q_sb, sizeof(T), 16) && pages;
 }
 
-template <typename T>
+template <typename T, int S>
 int run(const Args& a, int B, int G, void* stream) {
-  if (!launchable<T>(a, B, G)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!launchable<T, S>(a, B, G))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (G) {
-    case 1: return launch<T, 1>(a, B, s);
-    case 2: return launch<T, 2>(a, B, s);
-    case 4: return launch<T, 4>(a, B, s);
-    default: return launch<T, 8>(a, B, s);
+    case 1: return launch<T, 1, S>(a, B, s);
+    case 2: return launch<T, 2, S>(a, B, s);
+    case 4: return launch<T, 4, S>(a, B, s);
+    default: return launch<T, 8, S>(a, B, s);
   }
 }
 
 template <typename T>
-int entry(const void* q, const void* k, const void* v, void* out,
-          const void* qpos, long long qpos_stride, int qpos_bytes,
-          const void* vlen, long long vlen_stride, int vlen_bytes, int B,
-          int C, int Hkv, int G, int D, long long q_sb, long long k_sb,
-          long long k_sp, long long k_sh, long long v_sb, long long v_sp,
-          long long v_sh, int splits, float scale, void* stream) {
+int entry(const void* q, const void* k, const void* v, const void* k_scale,
+          const void* v_scale, void* out, const void* qpos,
+          long long qpos_stride, int qpos_bytes, const void* vlen,
+          long long vlen_stride, int vlen_bytes, int B, int C, int Hkv, int G,
+          int D, long long q_sb, long long k_sb, long long k_sp,
+          long long k_sh, long long v_sb, long long v_sp, long long v_sh,
+          long long ks_sb, long long ks_sp, long long ks_sh, long long vs_sb,
+          long long vs_sp, long long vs_sh, int bits, int splits,
+          float scale, void* stream) {
   Args a;
   a.q = q;
   a.k = k;
   a.v = v;
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
   a.out = out;
   a.qpos = qpos;
   a.vlen = vlen;
@@ -420,8 +517,19 @@ int entry(const void* q, const void* k, const void* v, void* out,
   a.v_sb = v_sb;
   a.v_sp = v_sp;
   a.v_sh = v_sh;
+  a.ks_sb = ks_sb;
+  a.ks_sp = ks_sp;
+  a.ks_sh = ks_sh;
+  a.vs_sb = vs_sb;
+  a.vs_sp = vs_sp;
+  a.vs_sh = vs_sh;
   a.scale = scale;
-  return run<T>(a, B, G, stream);
+  switch (bits) {
+    case 16: return run<T, 0>(a, B, G, stream);
+    case 8: return run<T, 8>(a, B, G, stream);
+    case 4: return run<T, 4>(a, B, G, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -432,29 +540,50 @@ int entry(const void* q, const void* k, const void* v, void* out,
 // q_sb apart), k / v [B, C, Hkv, D] by their strides, out a contiguous
 // [B, H, D]; qpos / vlen int32 or int64 per slot (vlen_bytes 0: none),
 // strides in elements; scale = sqrt(D).
-extern "C" int decode_attention_bf16(
-    const void* q, const void* k, const void* v, void* out, const void* qpos,
-    long long qpos_stride, int qpos_bytes, const void* vlen,
-    long long vlen_stride, int vlen_bytes, int B, int C, int Hkv, int G,
-    int D, long long q_sb, long long k_sb, long long k_sp, long long k_sh,
-    long long v_sb, long long v_sp, long long v_sh, int splits, float scale,
-    void* stream) {
-  return entry<bf16>(q, k, v, out, qpos, qpos_stride, qpos_bytes, vlen,
-                     vlen_stride, vlen_bytes, B, C, Hkv, G, D, q_sb, k_sb,
-                     k_sp, k_sh, v_sb, v_sp, v_sh, splits, scale, stream);
-}
+#define FP_ENTRY(NAME, T)                                                    \
+  extern "C" int NAME(                                                       \
+      const void* q, const void* k, const void* v, void* out,                \
+      const void* qpos, long long qpos_stride, int qpos_bytes,               \
+      const void* vlen, long long vlen_stride, int vlen_bytes, int B, int C, \
+      int Hkv, int G, int D, long long q_sb, long long k_sb, long long k_sp, \
+      long long k_sh, long long v_sb, long long v_sp, long long v_sh,        \
+      int splits, float scale, void* stream) {                               \
+    return entry<T>(q, k, v, nullptr, nullptr, out, qpos, qpos_stride,       \
+                    qpos_bytes, vlen, vlen_stride, vlen_bytes, B, C, Hkv, G, \
+                    D, q_sb, k_sb, k_sp, k_sh, v_sb, v_sp, v_sh, 0, 0, 0, 0, \
+                    0, 0, 16, splits, scale, stream);                        \
+  }
 
-extern "C" int decode_attention_f32(
-    const void* q, const void* k, const void* v, void* out, const void* qpos,
-    long long qpos_stride, int qpos_bytes, const void* vlen,
-    long long vlen_stride, int vlen_bytes, int B, int C, int Hkv, int G,
-    int D, long long q_sb, long long k_sb, long long k_sp, long long k_sh,
-    long long v_sb, long long v_sp, long long v_sh, int splits, float scale,
-    void* stream) {
-  return entry<float>(q, k, v, out, qpos, qpos_stride, qpos_bytes, vlen,
-                      vlen_stride, vlen_bytes, B, C, Hkv, G, D, q_sb, k_sb,
-                      k_sp, k_sh, v_sb, v_sp, v_sh, splits, scale, stream);
-}
+FP_ENTRY(decode_attention_bf16, bf16)
+FP_ENTRY(decode_attention_f32, float)
+
+// Quantized pages: (q, k, v, k_scale, v_scale, out, qpos, qpos_stride,
+// qpos_bytes, vlen, vlen_stride, vlen_bytes, B, C, Hkv, G, D, q_sb, k_sb,
+// k_sp, k_sh, v_sb, v_sp, v_sh, ks_sb, ks_sp, ks_sh, vs_sb, vs_sp, vs_sh,
+// bits, splits, scale, stream): k / v int8 codes [B, C, Hkv, D] (bits 8)
+// or packed int4 [B, C, Hkv, D / 2] (bits 4), strides in bytes; scales f32
+// [B, C, Hkv], strides in floats; q and out as above, in x's type.
+#define QUANT_ENTRY(NAME, T)                                                 \
+  extern "C" int NAME(                                                       \
+      const void* q, const void* k, const void* v, const void* k_scale,      \
+      const void* v_scale, void* out, const void* qpos,                      \
+      long long qpos_stride, int qpos_bytes, const void* vlen,               \
+      long long vlen_stride, int vlen_bytes, int B, int C, int Hkv, int G,   \
+      int D, long long q_sb, long long k_sb, long long k_sp, long long k_sh, \
+      long long v_sb, long long v_sp, long long v_sh, long long ks_sb,       \
+      long long ks_sp, long long ks_sh, long long vs_sb, long long vs_sp,    \
+      long long vs_sh, int bits, int splits, float scale, void* stream) {    \
+    if (bits != 8 && bits != 4)                                              \
+      return static_cast<int>(cudaErrorInvalidValue);                        \
+    return entry<T>(q, k, v, k_scale, v_scale, out, qpos, qpos_stride,       \
+                    qpos_bytes, vlen, vlen_stride, vlen_bytes, B, C, Hkv, G, \
+                    D, q_sb, k_sb, k_sp, k_sh, v_sb, v_sp, v_sh, ks_sb,      \
+                    ks_sp, ks_sh, vs_sb, vs_sp, vs_sh, bits, splits, scale,  \
+                    stream);                                                 \
+  }
+
+QUANT_ENTRY(decode_attention_quant_bf16, bf16)
+QUANT_ENTRY(decode_attention_quant_f32, float)
 
 // Dynamic shared memory of one launch, in bytes (the wrapper's check).
 extern "C" long long decode_attention_smem_bytes(int G, int D, int C,

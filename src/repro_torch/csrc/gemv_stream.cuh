@@ -76,6 +76,36 @@
 // 16 bytes), its parts w_ps apart; x's rows and parts lie x_rs / x_ps
 // apart: a column slice of a wider prepacked weight, an expert slice of a
 // stack and a row or expert view of x run in place.
+//
+// Quantized codes (Q = 8 or 4: quant_gemv.cu).  w_t holds int8 codes
+// [K, M], or packed int4 [K / 2, M] (stored row i: K row 2i in the low
+// nibble, 2i + 1 in the high one), with one f32 scale per (block of
+// `block` K rows, column) in s [K / block, M]:
+//
+//   out[R, M] = sum over blocks b of  s[b, :] * (x[:, b] @ q[b, :])
+//
+// A slot holds one box of ks stored rows of m_blk code bytes (m_blk
+// columns; 128 rows of 128, or 256 of 64: 16 KB), the box of the
+// kx / block scale rows of the column block, and x's box of the kx = ks
+// (int8) or 2 ks (int4) K rows, all counted on the slot's mbarrier: codes
+// and their scales arrive together.  The code box lands in the 128-byte (64-
+// byte for m_blk = 64) swizzle.  Every code is an integer bf16 holds
+// exactly; it is turned into bf16 in registers without a conversion
+// instruction (int8: the byte, offset by 128, is put under the exponent of
+// 2^23 with prmt, 2^23 + 128 is subtracted in f32 and a prmt packs the
+// upper halves of the pair, which are exact bf16s; int4: one lop3 puts the offset nibble under the exponent of
+// 128 in bf16 and a bf16x2 subtraction of 136 recovers it), and fed to
+// the same mma.sync as the bf16 weights: warp w owns the m16 tile of
+// columns 16 (w % (m_blk / 16)) .. + 15, its A row r being column
+// 2 (r % 8) + r / 8 of the tile, so a thread's two rows are two
+// neighbouring code bytes, read as one 16-bit shared load per K row (the
+// int4 pairs of neighbouring K rows come from one byte).  Each scale block
+// is accumulated into a zeroed fragment and then added as
+// acc = fma(s[col], part, acc) in f32: bf16 x bf16 products are exact in
+// f32, so only the order of the f32 sums differs from the plain version
+// (which multiplies q * s first).  Warps of one column range (m_blk = 64)
+// take every second block.  f32 x runs scalar f32 FMAs per block, then the
+// same scale FMA.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -109,11 +139,23 @@ __host__ __device__ inline int groups(int m_blk, int elem_bytes) {
   return (elem_bytes == 2 ? kWarps * 16 : kThreads) / m_blk;
 }
 
+// K rows of one sub-tile of ks stored rows (int4 packs two a byte).
+__host__ __device__ inline int sub_k(int ks, int q) {
+  return q == 4 ? 2 * ks : ks;
+}
+
 // One ring slot: the weight boxes [ks][m_blk] and x's box [B][ks] (B: the
-// rows of the box).
+// rows of the box); for codes (q = 8 / 4) the code box [ks][m_blk] bytes,
+// the scale box [kx / block][m_blk] f32 and x's box [B][kx].
 __host__ __device__ inline size_t slot_bytes(int B, int m_blk, int ks,
-                                             int elem_bytes) {
-  const size_t bytes = (static_cast<size_t>(m_blk) + B) * ks * elem_bytes;
+                                             int elem_bytes, int q = 0,
+                                             int block = 32) {
+  const int kx = sub_k(ks, q);
+  const size_t bytes =
+      q ? static_cast<size_t>(m_blk) * ks
+              + static_cast<size_t>(B) * kx * elem_bytes
+              + sizeof(float) * (kx / block) * m_blk
+        : (static_cast<size_t>(m_blk) + B) * ks * elem_bytes;
   return (bytes + kAlign - 1) / kAlign * kAlign;
 }
 
@@ -121,8 +163,10 @@ __host__ __device__ inline size_t slot_bytes(int B, int m_blk, int ks,
 // tile) that reuses it, if larger.
 __host__ __device__ inline size_t body_bytes(int B, int m_blk, int ks,
                                              int stages, int elem_bytes,
-                                             int deg) {
-  const size_t ring = stages * slot_bytes(B, m_blk, ks, elem_bytes);
+                                             int deg, int q = 0,
+                                             int block = 32) {
+  const size_t ring =
+      stages * slot_bytes(B, m_blk, ks, elem_bytes, q, block);
   const size_t epi = sizeof(float) * B * m_blk
                      * (groups(m_blk, elem_bytes) + (deg > 1 ? 1 : 0));
   return ring > epi ? ring : epi;
@@ -131,8 +175,10 @@ __host__ __device__ inline size_t body_bytes(int B, int m_blk, int ks,
 // Dynamic shared memory of a launch: alignment slack, the body, and one
 // mbarrier per slot.
 inline size_t smem_bytes(int B, int m_blk, int ks, int stages,
-                         int elem_bytes, int deg) {
-  return kAlign + body_bytes(B, m_blk, ks, stages, elem_bytes, deg)
+                         int elem_bytes, int deg, int q = 0,
+                         int block = 32) {
+  return kAlign
+         + body_bytes(B, m_blk, ks, stages, elem_bytes, deg, q, block)
          + 8 * stages;
 }
 
@@ -210,6 +256,118 @@ __device__ __forceinline__ int w_offset(int r, int c, int ks) {
          + (((in_box >> 4) ^ (r & 7)) << 4) + (in_box & 15);
 }
 
+// Byte offset of code byte c of stored row r in a slot's code box of
+// PITCH-byte rows: the TMA's 128-byte (PITCH 128) or 64-byte (PITCH 64)
+// swizzle XORs address bits 4-6 (4-5) with bits 7-9 (7-8).
+template <int PITCH>
+__device__ __forceinline__ int code_offset(int r, int c) {
+  const int a = r * PITCH + c;
+  return a ^ ((a >> 3) & (PITCH == 128 ? 0x70 : 0x30));
+}
+
+__device__ __forceinline__ uint32_t lds16(const unsigned char* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  return __byte_perm(a, b, sel);
+}
+
+// bf16x2 of two int8 codes held offset by 128 (u = q ^ 0x80) in bytes lo
+// and hi of w: each byte goes under the exponent of 2^23 (the f32
+// 2^23 + u) and 2^23 + 128 is subtracted (exact); a small integer's f32
+// has a zero low half, so its upper half is its bf16, and one prmt packs
+// the pair, lo in the low half.
+__device__ __forceinline__ uint32_t int8_pair(uint32_t w, int lo, int hi) {
+  const float f_lo = __fsub_rn(
+      __uint_as_float(prmt(w, 0x4B000000u, 0x7540u | lo)), 8388736.f);
+  const float f_hi = __fsub_rn(
+      __uint_as_float(prmt(w, 0x4B000000u, 0x7540u | hi)), 8388736.f);
+  return prmt(__float_as_uint(f_lo), __float_as_uint(f_hi), 0x7632u);
+}
+
+// bf16x2 of the two signed nibbles of byte i of w (low nibble in the low
+// half); sh = w >> 4.  One lop3 gives (nibble ^ 8) under the exponent of
+// 128: the bf16 136 + q; subtracting 136 is exact.
+__device__ __forceinline__ uint32_t int4_pair(uint32_t w, uint32_t sh,
+                                              int i) {
+  const uint32_t r = prmt(w, sh, i | (i << 4) | ((4 + i) << 8)
+                                     | ((4 + i) << 12));
+  uint32_t v;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n"      // (a & b) ^ c
+      : "=r"(v) : "r"(r), "r"(0x000F000Fu), "r"(0x43084308u));
+  const uint32_t k136 = 0x43084308u;
+  const __nv_bfloat162 d =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+              *reinterpret_cast<const __nv_bfloat162*>(&k136));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// Byte offsets, in a code box of PITCH-byte rows, of the code rows the
+// thread at (g, t) reads in a k16 step at K row 0, for its A rows g, g + 8
+// (code columns cq, cq + 1): int8 K rows 2t, 2t + 1, 2t + 8, 2t + 9; int4
+// stored rows t (K rows 2t, 2t + 1) and t + 4.  The step at K row kk (a
+// multiple of 16) reads them kk (int8) or kk / 2 (int4) rows further: the
+// swizzle's XOR pattern repeats every 8 rows, so it adds whole rows.
+template <int Q, int PITCH>
+__device__ __forceinline__ void code_rows(int (&off)[4], int cq, int t) {
+  if constexpr (Q == 8) {
+    off[0] = code_offset<PITCH>(2 * t, cq);
+    off[1] = code_offset<PITCH>(2 * t + 1, cq);
+    off[2] = code_offset<PITCH>(2 * t + 8, cq);
+    off[3] = code_offset<PITCH>(2 * t + 9, cq);
+  } else {
+    off[0] = code_offset<PITCH>(t, cq);
+    off[1] = code_offset<PITCH>(t + 4, cq);
+    off[2] = off[3] = 0;
+  }
+}
+
+// The A fragment of one k16 step of codes for the thread at (g, t) whose A
+// rows g, g + 8 are the code columns cq, cq + 1: registers (row, k) =
+// (g, 2t|2t+1), (g + 8, 2t|2t+1), (g, 2t+8|2t+9), (g + 8, 2t+8|2t+9), each
+// pair k-ascending from the low half.  rows: the step's first code row;
+// off: code_rows'.
+template <int Q>
+__device__ __forceinline__ void code_fragment(uint32_t (&a)[4],
+                                              const unsigned char* rows,
+                                              const int (&off)[4]) {
+  if constexpr (Q == 8) {
+    // bytes [(cq, r), (cq + 1, r), (cq, r + 1), (cq + 1, r + 1)], + 128
+    const uint32_t w0 = prmt(lds16(rows + off[0]), lds16(rows + off[1]),
+                             0x5410u) ^ 0x80808080u;
+    const uint32_t w1 = prmt(lds16(rows + off[2]), lds16(rows + off[3]),
+                             0x5410u) ^ 0x80808080u;
+    a[0] = int8_pair(w0, 0, 2);
+    a[1] = int8_pair(w0, 1, 3);
+    a[2] = int8_pair(w1, 0, 2);
+    a[3] = int8_pair(w1, 1, 3);
+  } else {
+    // bytes [(cq, r), (cq + 1, r), (cq, r + 4), (cq + 1, r + 4)]
+    const uint32_t w = prmt(lds16(rows + off[0]), lds16(rows + off[1]),
+                            0x5410u);
+    const uint32_t sh = w >> 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = int4_pair(w, sh, i);
+  }
+}
+
+// Code (q) of K row k, column c, as f32 (the scalar f32 path).
+template <int Q, int PITCH>
+__device__ __forceinline__ float code_value(const unsigned char* ws, int k,
+                                            int c) {
+  if constexpr (Q == 8) {
+    return static_cast<float>(
+        static_cast<int8_t>(ws[code_offset<PITCH>(k, c)]));
+  } else {
+    const unsigned u = ws[code_offset<PITCH>(k / 2, c)];
+    // sign-extended nibble: the low one by shifting it to the top first
+    const int8_t top = static_cast<int8_t>((k & 1) ? u : u << 4);
+    return static_cast<float>(top >> 4);
+  }
+}
+
 // The epilogue: red holds the k groups' f32 sums [kGroups][B][MBLK]; add
 // them in group order, then (no cluster) cast and write the first `rows`
 // rows of out, or (split-K) keep the partial [B][MBLK] behind them and sum
@@ -262,31 +420,47 @@ __device__ __forceinline__ void finish(float* red, T* __restrict__ out,
 // the rows of x's box (at most NT * 8 for bf16, kMaxB for f32), `rows` of
 // them (from row0 on) are stored; out rows lie o_rs apart, and `out`
 // already points at row0.  x_part_dim says which dimension of x's map is
-// the part (1) and which the row (the other).
-template <typename T, int MBLK, int NT, bool CLUSTER>
-__global__ void __launch_bounds__(kThreads, NT > 4 ? 2 : kMinCtasPerSm)
+// the part (1) and which the row (the other).  Q: 0 for weights of type T
+// (ts unused), 8 / 4 for int8 / packed int4 codes scaled per `block` K
+// rows by the f32 map ts; ks counts stored rows.
+template <typename T, int MBLK, int NT, bool CLUSTER, int Q>
+__global__ void __launch_bounds__(kThreads,
+                                  (Q != 0 || NT > 4) ? 2 : kMinCtasPerSm)
 stream_kernel(const __grid_constant__ CUtensorMap tw,
-              const __grid_constant__ CUtensorMap tx, T* __restrict__ out,
+              const __grid_constant__ CUtensorMap tx,
+              const __grid_constant__ CUtensorMap ts, T* __restrict__ out,
               int B, int rows, int M, int k_part, int ks, int stages,
-              int row0, int x_part_dim, long long o_ps, long long o_rs) {
+              int row0, int x_part_dim, long long o_ps, long long o_rs,
+              int block) {
   constexpr bool kMma = std::is_same<T, bf16>::value;
   static_assert(kMma || NT == 1, "f32 holds kMaxB rows a launch");
-  constexpr int kBoxCols = kRowBytes / sizeof(T);
+  static_assert(Q == 0 || Q == 8 || Q == 4, "codes are int8 or int4");
+  // weight columns of one box, and bytes of one box row
+  constexpr int kBoxCols = Q ? MBLK : kRowBytes / sizeof(T);
+  constexpr int kPitch = Q ? MBLK : kRowBytes;
   constexpr int kTiles = MBLK / 16;          // m16 tiles (bf16)
   constexpr int kGroups = (kMma ? kWarps * 16 : kThreads) / MBLK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((kAlign - (smem_addr(smem_raw) & (kAlign - 1)))
                   & (kAlign - 1));
-  const int slot = static_cast<int>(slot_bytes(B, MBLK, ks, sizeof(T)));
+  const int slot =
+      static_cast<int>(slot_bytes(B, MBLK, ks, sizeof(T), Q, block));
   uint64_t* bars = reinterpret_cast<uint64_t*>(
-      smem + body_bytes(B, MBLK, ks, stages, sizeof(T), CLUSTER ? 2 : 1));
+      smem + body_bytes(B, MBLK, ks, stages, sizeof(T), CLUSTER ? 2 : 1, Q,
+                        block));
   const int tid = threadIdx.x;
   const int col0 = blockIdx.x * MBLK;
   const int part = blockIdx.y;
-  const int n_sub = (k_part + ks - 1) / ks;
-  const int w_bytes = MBLK * ks * static_cast<int>(sizeof(T));
-  const unsigned tx_bytes = static_cast<unsigned>((MBLK + B) * ks * sizeof(T));
+  const int kx = sub_k(ks, Q);               // K rows of one sub-tile
+  const int n_sub = (k_part + kx - 1) / kx;
+  const int w_bytes = MBLK * ks * (Q ? 1 : static_cast<int>(sizeof(T)));
+  const int x_bytes = B * kx * static_cast<int>(sizeof(T));
+  const int s_rows = Q ? kx / block : 0;     // scale blocks of a sub-tile
+  // slot: weights (or codes), scales, x; every box starts 128-byte aligned
+  const int s_bytes = s_rows * MBLK * static_cast<int>(sizeof(float));
+  const unsigned tx_bytes =
+      static_cast<unsigned>(w_bytes + s_bytes + x_bytes);
   const int xc1 = x_part_dim == 1 ? part : row0;
   const int xc2 = x_part_dim == 1 ? row0 : part;
   if constexpr (!CLUSTER) out += part * o_ps;
@@ -296,17 +470,19 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // One thread asks for sub-tile i (rows [i * ks, + ks) of the part) in
-  // slot i % stages: its weight boxes and its x box.
+  // One thread asks for sub-tile i (K rows [i * kx, + kx) of the part) in
+  // slot i % stages: its weight boxes, its x box and (codes) its scales.
   auto issue = [&](int i) {
     unsigned char* ws = smem + (i % stages) * slot;
     uint64_t* bar = &bars[i % stages];
     mbar_expect_tx(bar, tx_bytes);
 #pragma unroll
     for (int h = 0; h < MBLK / kBoxCols; ++h)
-      tma_load_3d(ws + h * ks * kRowBytes, &tw, col0 + h * kBoxCols, i * ks,
+      tma_load_3d(ws + h * ks * kPitch, &tw, col0 + h * kBoxCols, i * ks,
                   part, bar);
-    tma_load_3d(ws + w_bytes, &tx, i * ks, xc1, xc2, bar);
+    if constexpr (Q != 0)
+      tma_load_3d(ws + w_bytes, &ts, col0, i * s_rows, part, bar);
+    tma_load_3d(ws + w_bytes + s_bytes, &tx, i * kx, xc1, xc2, bar);
   };
 
   const int warp = tid / 32;
@@ -322,6 +498,10 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
   // are (k 0-7, m 0-7), (k 0-7, m 8-15), (k 8-15, m 0-7), (k 8-15, m 8-15)
   const int lrow = (lane & 7) + ((lane >> 4) << 3);
   const int lcol = mt * 16 + (((lane >> 3) & 1) << 3);
+  // codes: A rows g, g + 8 of the warp's tile are columns cq, cq + 1
+  const int cq = mt * 16 + 2 * g;
+  int coff[4] = {0, 0, 0, 0};
+  if constexpr (Q != 0) code_rows<Q, kPitch>(coff, cq, t);
 
   constexpr int kAcc = kMma ? 4 : kMaxB;
   float acc[NT][kAcc];
@@ -337,8 +517,9 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
     if (tid == 0 && i + stages - 1 < n_sub) issue(i + stages - 1);
     mbar_wait(&bars[i % stages], (i / stages) & 1);
     const unsigned char* ws = smem + (i % stages) * slot;
-    const T* xs = reinterpret_cast<const T*>(ws + w_bytes);   // [B][ks]
-    if constexpr (kMma) {
+    const float* ss = reinterpret_cast<const float*>(ws + w_bytes);
+    const T* xs = reinterpret_cast<const T*>(ws + w_bytes + s_bytes);
+    if constexpr (kMma && Q == 0) {
       for (int kk = wkg * 16; kk < ks; kk += kGroups * 16) {
         uint32_t a[4];
         ldmatrix_x4_trans(a, ws + w_offset<T>(kk + lrow, lcol, ks));
@@ -348,20 +529,72 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
           const int n = j * 8 + g;
           uint32_t b0 = 0u, b1 = 0u;
           if (n < B) {
-            b0 = *reinterpret_cast<const uint32_t*>(xs + n * ks + kk + 2 * t);
-            b1 = *reinterpret_cast<const uint32_t*>(xs + n * ks + kk + 8
+            b0 = *reinterpret_cast<const uint32_t*>(xs + n * kx + kk + 2 * t);
+            b1 = *reinterpret_cast<const uint32_t*>(xs + n * kx + kk + 8
                                                     + 2 * t);
           }
           mma_16816(acc[j], a, b0, b1);
         }
       }
-    } else {
+    } else if constexpr (kMma) {
+      // codes: each scale block of the sub-tile into a zeroed fragment,
+      // then scaled into acc; k group wkg takes every kGroups-th block
+      for (int bi = wkg; bi < s_rows; bi += kGroups) {
+        float sum[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) sum[j][q] = 0.f;
+#pragma unroll 2
+        for (int kk = bi * block; kk < (bi + 1) * block; kk += 16) {
+          uint32_t a[4];
+          code_fragment<Q>(a, ws + (Q == 4 ? kk / 2 : kk) * kPitch, coff);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const int n = j * 8 + g;
+            uint32_t b0 = 0u, b1 = 0u;
+            if (n < B) {
+              b0 = *reinterpret_cast<const uint32_t*>(xs + n * kx + kk
+                                                      + 2 * t);
+              b1 = *reinterpret_cast<const uint32_t*>(xs + n * kx + kk + 8
+                                                      + 2 * t);
+            }
+            mma_16816(sum[j], a, b0, b1);
+          }
+        }
+        // C rows g, g + 8 are columns cq, cq + 1
+        const float2 s = *reinterpret_cast<const float2*>(ss + bi * MBLK
+                                                          + cq);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          acc[j][0] = fmaf(s.x, sum[j][0], acc[j][0]);
+          acc[j][1] = fmaf(s.x, sum[j][1], acc[j][1]);
+          acc[j][2] = fmaf(s.y, sum[j][2], acc[j][2]);
+          acc[j][3] = fmaf(s.y, sum[j][3], acc[j][3]);
+        }
+      }
+    } else if constexpr (Q == 0) {
       for (int r = fkg; r < ks; r += kGroups) {
         const float wv =
             *reinterpret_cast<const float*>(ws + w_offset<T>(r, fc, ks));
 #pragma unroll
         for (int b = 0; b < kMaxB; ++b)
-          if (b < B) acc[0][b] = fmaf(xs[b * ks + r], wv, acc[0][b]);
+          if (b < B) acc[0][b] = fmaf(xs[b * kx + r], wv, acc[0][b]);
+      }
+    } else {
+      for (int bi = fkg; bi < s_rows; bi += kGroups) {
+        float sum[kMaxB];
+#pragma unroll
+        for (int b = 0; b < kMaxB; ++b) sum[b] = 0.f;
+        for (int k = bi * block; k < (bi + 1) * block; ++k) {
+          const float wv = code_value<Q, kPitch>(ws, k, fc);
+#pragma unroll
+          for (int b = 0; b < kMaxB; ++b)
+            if (b < B) sum[b] = fmaf(xs[b * kx + k], wv, sum[b]);
+        }
+        const float s = ss[bi * MBLK + fc];
+#pragma unroll
+        for (int b = 0; b < kMaxB; ++b) acc[0][b] = fmaf(s, sum[b], acc[0][b]);
       }
     }
   }
@@ -370,16 +603,17 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
   float* red = reinterpret_cast<float*>(smem);     // [kGroups][B][MBLK]
   if constexpr (kMma) {
     // C fragment of tile j: (m = g, n = 2t, 2t+1) in c0, c1; (m = g + 8,
-    // ...) in c2, c3; out[8j + n][m] = C[m][n]
+    // ...) in c2, c3; out[8j + n][col(m)] = C[m][n], col(m) = mt * 16 + m
+    // for weights and cq + (m >= 8) for codes
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int n = j * 8 + 2 * t + h;
         if (n < B) {
-          float* r = red + (wkg * B + n) * MBLK + mt * 16 + g;
+          float* r = red + (wkg * B + n) * MBLK + (Q ? cq : mt * 16 + g);
           r[0] = acc[j][h];
-          r[8] = acc[j][2 + h];
+          r[Q ? 1 : 8] = acc[j][2 + h];
         }
       }
     }
@@ -408,30 +642,48 @@ struct Problem {
   long long ld, w_ps;
   long long x_rs, x_ps;
   long long o_rs, o_ps;
+  // codes only: f32 scales [k_part / block, M] a part, rows lds floats
+  // apart, parts s_ps apart (w, ld and w_ps then count code bytes)
+  const void* s = nullptr;
+  long long lds = 0, s_ps = 0;
+  int block = 0;
 };
 
 // What every launch takes: whole 16-byte vectors along M, 16-byte strides
 // (TMA's rule) and aligned x and w_t, a K walk of whole 8-row groups in
 // each part, a column block the kernels are built for (split among the
 // cluster's ranks), a sub-tile of whole k16 steps that one box can span,
-// and a ring the card's shared memory holds at B rows a box.
+// and a ring the card's shared memory holds at B rows a box.  Codes (q =
+// 8 / 4): a 128- or 64-byte code box, a K part and a sub-tile of whole
+// scale blocks of whole k16 steps, and aligned scales with 16-byte strides.
 inline bool launchable(const Problem& p, int B, int m_blk, int ks,
-                       int stages, int elem_bytes, bool cluster) {
+                       int stages, int elem_bytes, bool cluster, int q = 0) {
   const int deg = cluster ? p.parts : 1;
-  const auto strided = [elem_bytes](long long s) {
-    return s > 0 && (s * elem_bytes) % 16 == 0;
+  const int w_elem = q ? 1 : elem_bytes;
+  const auto strided = [](long long s, int e) {
+    return s > 0 && (s * e) % 16 == 0;
   };
+  const auto aligned = [](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  };
+  const int kx = sub_k(ks, q);
+  const bool shape_ok =
+      q == 0 ? ks >= 16 && ks % 16 == 0 && ks <= 256
+             : (q == 8 || q == 4) && p.block >= 16 && p.block % 16 == 0
+                   && p.k_part % p.block == 0 && ks >= 1 && kx % p.block == 0
+                   && ks <= 256 && kx <= 256 && p.s != nullptr
+                   && aligned(p.s) && p.lds >= p.M && strided(p.lds, 4)
+                   && strided(p.s_ps, 4);
   return p.R >= 1 && B >= 1 && B <= p.R && p.M >= 1 && p.k_part >= 1
          && p.k_part % 8 == 0 && p.parts >= 1 && p.parts <= 65535
-         && p.ld >= p.M && strided(p.ld) && strided(p.w_ps)
-         && strided(p.x_rs) && strided(p.x_ps)
-         && p.M % (16 / elem_bytes) == 0
+         && p.ld >= p.M && strided(p.ld, w_elem) && strided(p.w_ps, w_elem)
+         && strided(p.x_rs, elem_bytes) && strided(p.x_ps, elem_bytes)
+         && p.M % (16 / w_elem) == 0
          && (m_blk == 64 || m_blk == 128) && m_blk % deg == 0
-         && deg <= kMaxDeg && ks >= 16 && ks % 16 == 0 && ks <= 256
+         && deg <= kMaxDeg && shape_ok
          && stages >= 1 && stages <= kMaxStages
-         && reinterpret_cast<uintptr_t>(p.x) % 16 == 0
-         && reinterpret_cast<uintptr_t>(p.w) % 16 == 0
-         && smem_bytes(B, m_blk, ks, stages, elem_bytes, deg)
+         && aligned(p.x) && aligned(p.w)
+         && smem_bytes(B, m_blk, ks, stages, elem_bytes, deg, q, p.block)
                 <= static_cast<size_t>(kMaxSmem);
 }
 
@@ -456,26 +708,34 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
-// The two tensor maps of a problem: w_t as {M, k_part, parts} in boxes of
-// one swizzled row by ks, x as {k_part, parts, R} (or {k_part, R, parts}
-// when the parts lie further apart than the rows) in boxes of ks by B
-// rows.  Sets *x_part_dim to the map dimension that is the part.
-template <typename T>
-bool encode_maps(CUtensorMap* tw, CUtensorMap* tx, int* x_part_dim,
-                 const Problem& p, int B, int ks) {
+// The tensor maps of a problem: w_t as {M, k_part, parts} in boxes of one
+// swizzled row by ks, x as {k_part, parts, R} (or {k_part, R, parts} when
+// the parts lie further apart than the rows) in boxes of kx by B rows.
+// Codes (Q): w_t as bytes {M, stored rows of a part, parts} in boxes of
+// m_blk by ks, and the scales as {M, k_part / block, parts} in boxes of
+// m_blk by kx / block (ts; left alone for weights).  Sets *x_part_dim to
+// the map dimension that is the part.
+template <typename T, int Q>
+bool encode_maps(CUtensorMap* tw, CUtensorMap* tx, CUtensorMap* ts,
+                 int* x_part_dim, const Problem& p, int B, int m_blk,
+                 int ks) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_fn();
   if (encode == nullptr) return false;
   const CUtensorMapDataType type = std::is_same<T, bf16>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const cuuint64_t es = sizeof(T);
+  const cuuint64_t we = Q ? 1 : sizeof(T);
   const cuuint64_t kp = p.k_part;
   const cuuint64_t parts = p.parts, R = p.R;
-  const cuuint64_t wdim[3] = {static_cast<cuuint64_t>(p.M), kp, parts};
-  const cuuint64_t wstride[2] = {static_cast<cuuint64_t>(p.ld) * es,
-                                 static_cast<cuuint64_t>(p.w_ps) * es};
-  const cuuint32_t wbox[3] = {kRowBytes / sizeof(T),
-                              static_cast<cuuint32_t>(ks), 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const cuuint64_t wdim[3] = {static_cast<cuuint64_t>(p.M),
+                              Q == 4 ? kp / 2 : kp, parts};
+  const cuuint64_t wstride[2] = {static_cast<cuuint64_t>(p.ld) * we,
+                                 static_cast<cuuint64_t>(p.w_ps) * we};
+  const cuuint32_t wbox[3] = {
+      static_cast<cuuint32_t>(Q ? m_blk : kRowBytes / sizeof(T)),
+      static_cast<cuuint32_t>(ks), 1};
   const bool part_inner = p.x_ps <= p.x_rs;
   *x_part_dim = part_inner ? 1 : 2;
   const cuuint64_t xdim[3] = {kp, part_inner ? parts : R,
@@ -485,25 +745,43 @@ bool encode_maps(CUtensorMap* tw, CUtensorMap* tx, int* x_part_dim,
   const cuuint64_t xstride[2] = {part_inner ? xps : xrs,
                                  part_inner ? xrs : xps};
   const cuuint32_t rows = static_cast<cuuint32_t>(B);
-  const cuuint32_t xbox[3] = {static_cast<cuuint32_t>(ks),
+  const cuuint32_t xbox[3] = {static_cast<cuuint32_t>(sub_k(ks, Q)),
                               part_inner ? 1u : rows, part_inner ? rows : 1u};
-  const cuuint32_t ones[3] = {1, 1, 1};
-  return encode(tw, type, 3, const_cast<void*>(p.w), wdim, wstride, wbox,
+  if (encode(tw, Q ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : type, 3,
+             const_cast<void*>(p.w), wdim, wstride, wbox, ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             Q && m_blk == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                              : CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS
+      || encode(tx, type, 3, const_cast<void*>(p.x), xdim, xstride, xbox,
                 ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-         && encode(tx, type, 3, const_cast<void*>(p.x), xdim, xstride, xbox,
-                   ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                   CU_TENSOR_MAP_SWIZZLE_NONE,
-                   CU_TENSOR_MAP_L2_PROMOTION_NONE,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  if constexpr (Q == 0) {
+    return true;
+  } else {
+    const cuuint64_t sdim[3] = {static_cast<cuuint64_t>(p.M),
+                                kp / p.block, parts};
+    const cuuint64_t sstride[2] = {static_cast<cuuint64_t>(p.lds) * 4,
+                                   static_cast<cuuint64_t>(p.s_ps) * 4};
+    const cuuint32_t sbox[3] = {static_cast<cuuint32_t>(m_blk),
+                                static_cast<cuuint32_t>(sub_k(ks, Q)
+                                                        / p.block), 1};
+    return encode(ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                  const_cast<void*>(p.s), sdim, sstride, sbox, ones,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  }
 }
 
-template <typename T, int MBLK, int NT, bool CLUSTER>
-int launch(const CUtensorMap& tw, const CUtensorMap& tx, const Problem& p,
-           int B, int row0, int ks, int stages, int x_part_dim,
-           cudaStream_t stream) {
-  auto kernel = stream_kernel<T, MBLK, NT, CLUSTER>;
+template <typename T, int MBLK, int NT, bool CLUSTER, int Q>
+int launch(const CUtensorMap& tw, const CUtensorMap& tx,
+           const CUtensorMap& ts, const Problem& p, int B, int row0, int ks,
+           int stages, int x_part_dim, cudaStream_t stream) {
+  auto kernel = stream_kernel<T, MBLK, NT, CLUSTER, Q>;
   // once per instantiation, at its first launch (never inside a graph
   // capture: callers warm up first): allow the opt-in shared memory
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -513,7 +791,8 @@ int launch(const CUtensorMap& tw, const CUtensorMap& tx, const Problem& p,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((p.M + MBLK - 1) / MBLK, p.parts, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem_bytes(B, MBLK, ks, stages, sizeof(T), deg);
+  cfg.dynamicSmemBytes =
+      smem_bytes(B, MBLK, ks, stages, sizeof(T), deg, Q, p.block);
   cfg.stream = stream;
   cudaLaunchAttribute attrs[1];
   if (CLUSTER) {
@@ -527,58 +806,60 @@ int launch(const CUtensorMap& tw, const CUtensorMap& tx, const Problem& p,
   const int rows = p.R - row0 < B ? p.R - row0 : B;
   T* out = static_cast<T*>(p.out) + row0 * p.o_rs;
   const cudaError_t rc = cudaLaunchKernelEx(
-      &cfg, kernel, tw, tx, out, B, rows, p.M, p.k_part, ks, stages, row0,
-      x_part_dim, p.o_ps, p.o_rs);
+      &cfg, kernel, tw, tx, ts, out, B, rows, p.M, p.k_part, ks, stages,
+      row0, x_part_dim, p.o_ps, p.o_rs, p.block);
   const cudaError_t last = cudaGetLastError();  // clear it either way
   return static_cast<int>(rc != cudaSuccess ? rc : last);
 }
 
-template <typename T, int MBLK, int MAX_NT, bool CLUSTER>
+template <typename T, int MBLK, int MAX_NT, bool CLUSTER, int Q>
 int launch_rows(const CUtensorMap& tw, const CUtensorMap& tx,
-                const Problem& p, int B, int row0, int ks, int stages,
-                int x_part_dim, cudaStream_t s) {
+                const CUtensorMap& ts, const Problem& p, int B, int row0,
+                int ks, int stages, int x_part_dim, cudaStream_t s) {
   if constexpr (MAX_NT >= 8) {
     if (B > 32)
-      return launch<T, MBLK, 8, CLUSTER>(tw, tx, p, B, row0, ks, stages,
-                                         x_part_dim, s);
+      return launch<T, MBLK, 8, CLUSTER, Q>(tw, tx, ts, p, B, row0, ks,
+                                            stages, x_part_dim, s);
   }
   if constexpr (MAX_NT >= 4) {
     if (B > 16)
-      return launch<T, MBLK, 4, CLUSTER>(tw, tx, p, B, row0, ks, stages,
-                                         x_part_dim, s);
+      return launch<T, MBLK, 4, CLUSTER, Q>(tw, tx, ts, p, B, row0, ks,
+                                            stages, x_part_dim, s);
   }
   if constexpr (MAX_NT >= 2) {
     if (B > 8)
-      return launch<T, MBLK, 2, CLUSTER>(tw, tx, p, B, row0, ks, stages,
-                                         x_part_dim, s);
+      return launch<T, MBLK, 2, CLUSTER, Q>(tw, tx, ts, p, B, row0, ks,
+                                            stages, x_part_dim, s);
   }
-  return launch<T, MBLK, 1, CLUSTER>(tw, tx, p, B, row0, ks, stages,
-                                     x_part_dim, s);
+  return launch<T, MBLK, 1, CLUSTER, Q>(tw, tx, ts, p, B, row0, ks, stages,
+                                        x_part_dim, s);
 }
 
 // The problem in launches of up to MAX_NT * 8 rows (bf16) or kMaxB (f32),
-// each over the same two tensor maps; returns the first failing launch's
-// CUDA error, else 0.
-template <typename T, bool CLUSTER, int MAX_NT>
+// each over the same tensor maps; returns the first failing launch's CUDA
+// error, else 0.  ks counts stored rows (Q = 4: half the sub-tile's K).
+template <typename T, bool CLUSTER, int MAX_NT, int Q = 0>
 int run(const Problem& p, int m_blk, int ks, int stages, void* stream) {
   constexpr bool kMma = std::is_same<T, bf16>::value;
   constexpr int kRows = kMma ? MAX_NT * 8 : kMaxB;
   const int B = p.R < kRows ? p.R : kRows;
-  if (!launchable(p, B, m_blk, ks, stages, sizeof(T), CLUSTER))
+  if (!launchable(p, B, m_blk, ks, stages, sizeof(T), CLUSTER, Q))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tw, tx;
+  CUtensorMap tw, tx, ts;
   int x_part_dim = 1;
-  if (!encode_maps<T>(&tw, &tx, &x_part_dim, p, B, ks))
+  if (!encode_maps<T, Q>(&tw, &tx, &ts, &x_part_dim, p, B, m_blk, ks))
     return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (Q == 0) ts = tw;   // an operand the weight kernels ignore
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr int kNt = kMma ? MAX_NT : 1;
   for (int row0 = 0; row0 < p.R; row0 += B) {
     const int rc =
         m_blk == 64
-            ? launch_rows<T, 64, kNt, CLUSTER>(tw, tx, p, B, row0, ks,
-                                                stages, x_part_dim, s)
-            : launch_rows<T, 128, kNt, CLUSTER>(tw, tx, p, B, row0, ks,
-                                                 stages, x_part_dim, s);
+            ? launch_rows<T, 64, kNt, CLUSTER, Q>(tw, tx, ts, p, B, row0,
+                                                   ks, stages, x_part_dim, s)
+            : launch_rows<T, 128, kNt, CLUSTER, Q>(tw, tx, ts, p, B, row0,
+                                                    ks, stages, x_part_dim,
+                                                    s);
     if (rc != 0) return rc;
   }
   return 0;

@@ -38,15 +38,19 @@ _F = ctypes.c_float
 # (triton_gemv), and (x, w_t, out, B, K, M, ld, deg, m_blk, k_blk, stages,
 # stream) for its split-K form, beside (B, m_blk, k_blk, stages,
 # elem_bytes, split_k) for the shared memory either launch takes; the
-# quant form (x, codes, scales, out, B, K, M, ldw, lds, block, m_blk,
-# k_blk, stream); the expert forms (xs, w, out, E, C, K, M, ld, es, x_es,
-# x_rs, m_blk, k_blk, stages, stream) and (x, offsets, w, out, T, K, M, ld,
-# es, E, m_blk, k_blk, stream); ld / ldw / lds are row strides and es /
-# x_es expert strides, in elements; and decode attention's (q, k, v, out,
+# quant form (x, codes, scales, out, B, K, M, ldw, lds, block, deg, m_blk,
+# k_blk, stages, stream) beside (B, m_blk, k_blk, stages, elem_bytes,
+# split_k, bits, block) for its shared memory; the expert forms (xs, w,
+# out, E, C, K, M, ld, es, x_es, x_rs, m_blk, k_blk, stages, stream) and
+# (x, offsets, w, out, T, K, M, ld, es, E, m_blk, k_blk, stream); ld /
+# ldw / lds are row strides and es / x_es expert strides, in elements;
+# and decode attention's (q, k, v, out,
 # qpos, qpos_stride, qpos_bytes, vlen, vlen_stride, vlen_bytes, B, C, Hkv,
-# G, D, q_sb, k_sb, k_sp, k_sh, v_sb, v_sp, v_sh, splits, scale, stream)
-# beside (G, D, C, splits) for its shared memory.  Every entry returns an
-# int (a CUDA error) unless _RESTYPES names another type.
+# G, D, q_sb, k_sb, k_sp, k_sh, v_sb, v_sp, v_sh, splits, scale, stream),
+# its quantized-page form (q, k, v, k_scale, v_scale, out, qpos, ...,
+# v_sh, ks_sb, ks_sp, ks_sh, vs_sb, vs_sp, vs_sh, bits, splits, scale,
+# stream), beside (G, D, C, splits) for its shared memory.  Every entry
+# returns an int (a CUDA error) unless _RESTYPES names another type.
 _SIGNATURES = {
     "pim_gemv": {
         **{f"pim_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
@@ -58,8 +62,10 @@ _SIGNATURES = {
         for t in ("bf16", "f32")
     },
     "quant_gemv": {
-        f"{k}_{t}": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)
-        for k in ("quant_gemv", "quant4_gemv") for t in ("bf16", "f32")
+        **{f"{k}_{t}": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _P)
+           for k in ("quant_gemv", "quant4_gemv") for t in ("bf16", "f32")},
+        "quant_gemv_smem_bytes": (_I, _I, _I, _I, _I, _I, _I, _I),
     },
     "triton_gemv": {
         f"triton_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
@@ -76,11 +82,15 @@ _SIGNATURES = {
                                      _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
                                      _L, _L, _I, _F, _P)
            for t in ("bf16", "f32")},
+        **{f"decode_attention_quant_{t}": (_P, _P, _P, _P, _P, _P, _P, _L,
+                                           _I, _P, _L, _I, _I, _I, _I, _I,
+                                           _I, *(_L,) * 13, _I, _I, _F, _P)
+           for t in ("bf16", "f32")},
         "decode_attention_smem_bytes": (_I, _I, _I, _I),
     },
 }
 
-_RESTYPES = {"gemv_stream_smem_bytes": _L,
+_RESTYPES = {"gemv_stream_smem_bytes": _L, "quant_gemv_smem_bytes": _L,
              "decode_attention_smem_bytes": _L}
 
 _LOCK = threading.Lock()

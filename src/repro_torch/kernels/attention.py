@@ -9,18 +9,26 @@ f32, its probabilities cast to ``v.dtype`` before the P.V product, which
 sums in f32 and rounds once.
 
 :func:`decode_attention_plain` is that arithmetic in plain PyTorch, for
-any Sq (it is the model's prefill path too).  :func:`decode_attention` is
-the kernel for one new token a slot (Sq = 1, causal): one CTA cluster per
-(slot, kv head) reads the valid K and V positions in place through their
-strides, so no f32 copy of the cache is made.  What bounds it on an H100:
+any Sq (it is the model's prefill path too; on the card its scores are
+one ``torch.bmm`` of the bf16 operands with an f32 result, as the
+reference's ``preferred_element_type``, so the cache is not cast to f32).
+:func:`decode_attention` is the kernel for one new token a slot (Sq = 1,
+causal): one CTA cluster per (slot, kv head) reads the valid K and V
+positions in place through their strides, so no f32 copy of the cache is
+made.  On a quantized store (``kv_quant``: int8 or packed int4 codes with
+one f32 scale a page) it reads the codes and scales in place and
+dequantizes each element where it reads it, exactly as
+``dequantize_page`` does: its output equals the kernel's on the
+dequantized cache bit for bit.  What bounds it on an H100:
 each K / V element feeds ``2 * G`` flops, so the floor is the valid K and
 V bytes over HBM bandwidth (3.35 TB/s).  See the source for the design.
 
 :func:`kernel_applies` is the model's routing rule, on shapes, strides and
 the device alone: the kernel takes Sq = 1, causal attention on a CUDA
-device, bf16 or f32 q / k / v of one type in the layout above, G = H /
-Hkv in {1, 2, 4, 8}, D a whole number of 16-byte vectors on at most 32
-lanes, 16-byte aligned rows, and a cache whose scores fit shared memory.
+device, bf16 or f32 q / k / v of one type in the layout above (or int8
+codes of D or D / 2 lanes with f32 scales ``[B, C, Hkv]``), G = H / Hkv in
+{1, 2, 4, 8}, D a whole number of 16-byte vectors on at most 32 lanes,
+aligned rows, and a cache whose scores fit shared memory.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  ``decode_attention.launches`` counts kernel launches.
@@ -34,6 +42,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.gemv_plan import SMEM_PER_CTA, device_sms
+from repro_torch.kernels.kv_quant import dequantize_page
 from repro_torch.kernels.pim_gemv import DTYPES
 
 BIG_NEG = -2.0e9             # the reference's masked score (not -inf)
@@ -54,17 +63,25 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
                            causal: bool = True) -> torch.Tensor:
     """q [B, Sq, H, D], k/v [B, Sk, Hkv, D] -> [B, Sq, H, D] in plain PyTorch.
 
-    Scores are the f32 product of the (bf16) operands over sqrt(D) -- the
-    casts below make the products exact, as ``preferred_element_type=f32``
-    does; masked scores are ``BIG_NEG`` (not -inf); the probabilities are
-    cast to ``v.dtype`` before the PV product.
+    Scores are the f32 product of the (bf16) operands over sqrt(D), as
+    ``preferred_element_type=f32`` gives them: on the card one batched
+    product of the bf16 operands with an f32 result (``aten::bmm.dtype``,
+    which has no CPU kernel); elsewhere the operands are cast to f32,
+    which makes the products exact.  Masked scores are ``BIG_NEG`` (not
+    -inf); the probabilities are cast to ``v.dtype`` before the PV product.
     """
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     qg = q.reshape(B, Sq, Hkv, G, D)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
-                          k.float()) / math.sqrt(D)
+    if q.is_cuda and q.dtype == k.dtype == torch.bfloat16:
+        scores = torch.bmm(
+            qg.permute(0, 2, 3, 1, 4).reshape(B * Hkv, G * Sq, D),
+            k.permute(0, 2, 3, 1).reshape(B * Hkv, D, Sk),
+            out_dtype=torch.float32).reshape(B, Hkv, G, Sq, Sk) / math.sqrt(D)
+    else:
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                              k.float()) / math.sqrt(D)
     kpos = torch.arange(Sk, device=q.device)
     mask = torch.ones((B, Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -116,27 +133,46 @@ def _sms(device: torch.device) -> int:
     return _SMS[idx]
 
 
-def _row_strides_ok(t: torch.Tensor) -> bool:
-    """Contiguous last dimension, 16-byte aligned start and strides."""
+def _rows_ok(t: torch.Tensor, align: int) -> bool:
+    """Contiguous last dimension, start and strides aligned to ``align``
+    bytes."""
     size = t.element_size()
-    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s * size % 16 == 0 for s in t.stride()[:-1]))
+    return (t.stride(-1) == 1 and t.data_ptr() % align == 0
+            and all(s * size % align == 0 for s in t.stride()[:-1]))
 
 
-def _shape_rule(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """Why the kernel does not take these operands, or '' when it does."""
+def _shape_rule(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                k_scale: torch.Tensor | None = None,
+                v_scale: torch.Tensor | None = None) -> str:
+    """Why the kernel does not take these operands, or '' when it does.
+    With scales, k / v are int8 codes of D lanes (int8) or D / 2 (packed
+    int4) and the scales f32 ``[B, C, Hkv]``."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         return (f"expected q [B, 1, H, D] and k/v [B, C, Hkv, D], got "
                 f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, Sq, H, D = q.shape
     Bk, C, Hkv, Dk = k.shape
-    if Sq != 1 or Bk != B or Dk != D or H % Hkv or C < 1:
+    quant = k_scale is not None or v_scale is not None
+    if Sq != 1 or Bk != B or Dk not in ((D, D // 2) if quant else (D,)) \
+            or H % Hkv or C < 1:
         return (f"q {tuple(q.shape)} is not one token a slot over k/v "
                 f"{tuple(k.shape)}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPES:
+        return f"q must be bf16 or f32, got {q.dtype}"
+    if quant:
+        if k_scale is None or v_scale is None or not (
+                k.dtype == v.dtype == torch.int8
+                and k_scale.dtype == v_scale.dtype == torch.float32
+                and k_scale.shape == v_scale.shape == (B, C, Hkv)):
+            return ("quantized pages must be int8 codes with f32 scales "
+                    "[B, C, Hkv]")
+        if D % 2:
+            return f"head dim {D} is odd"
+    elif k.dtype != q.dtype or v.dtype != q.dtype:
         return (f"q, k and v must share bf16 or f32, got {q.dtype}, "
                 f"{k.dtype}, {v.dtype}")
-    if not q.device == k.device == v.device:
+    scales = (k_scale, v_scale) if quant else ()
+    if not all(t.device == q.device for t in (k, v, *scales)):
         return f"q on {q.device}, k on {k.device}, v on {v.device}"
     if H // Hkv not in GROUPS:
         return f"{H // Hkv} query heads a kv head is not one of {GROUPS}"
@@ -144,18 +180,22 @@ def _shape_rule(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     lanes = D // vec
     if D % vec or lanes > 32 or lanes & (lanes - 1):
         return f"head dim {D} is not a power-of-two count of 16-byte vectors"
-    if not all(_row_strides_ok(t) for t in (q, k, v)) or (
-            q.stride(2) != D):
-        return "q, k and v rows must be contiguous and 16-byte aligned"
+    # a lane reads its `vec` elements: 16 bytes, or their codes
+    lane = vec * k.element_size() * Dk // D
+    if not (_rows_ok(q, 16) and _rows_ok(k, lane) and _rows_ok(v, lane)
+            and q.stride(2) == D):
+        return "q, k and v rows must be contiguous and aligned"
     return ""
 
 
 def kernel_applies(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   causal: bool) -> bool:
+                   causal: bool, k_scale: torch.Tensor | None = None,
+                   v_scale: torch.Tensor | None = None) -> bool:
     """The model's routing rule: whether :func:`decode_attention` launches
     the kernel for these operands (shapes, strides, types and the device;
-    never the data)."""
-    if not causal or q.device.type != "cuda" or _shape_rule(q, k, v):
+    never the data); scales mark a quantized store."""
+    if (not causal or q.device.type != "cuda"
+            or _shape_rule(q, k, v, k_scale, v_scale)):
         return False
     B, _, H, D = q.shape
     Hkv = k.shape[2]
@@ -174,20 +214,30 @@ def _index(t: torch.Tensor, B: int, name: str) -> tuple[int, int]:
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      q_positions: torch.Tensor,
                      kv_valid_len: torch.Tensor | None,
-                     splits: int | None = None) -> torch.Tensor:
+                     splits: int | None = None,
+                     k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """q [B, 1, H, D], k/v [B, C, Hkv, D] -> [B, 1, H, D], causal, one
     launch.  ``q_positions`` is [B, 1] (or [B]) and ``kv_valid_len`` [B]
     or None, int32 or int64 on q's device (read on the device, never on
-    the host).  ``splits`` overrides :func:`plan_splits`."""
-    why = _shape_rule(q, k, v)
+    the host).  ``splits`` overrides :func:`plan_splits`.  With
+    ``k_scale`` / ``v_scale`` ([B, C, Hkv] f32) k / v are a quantized
+    store's int8 codes (``[B, C, Hkv, D]``) or packed int4 codes
+    (``[B, C, Hkv, D // 2]``); the plain version dequantizes them with
+    ``dequantize_page`` first."""
+    why = _shape_rule(q, k, v, k_scale, v_scale)
     if why:
         raise ValueError(f"decode_attention: {why}")
     B, _, H, D = q.shape
     C, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
+    bits = 16 if k_scale is None else (8 if k.shape[-1] == D else 4)
     qpos = q_positions.reshape(B, -1)[:, -1] if q_positions.ndim == 2 \
         else q_positions
     if q.device.type == "cpu":
+        if bits < 16:
+            k = dequantize_page(k, k_scale, hd=D, out_dtype=q.dtype)
+            v = dequantize_page(v, v_scale, hd=D, out_dtype=q.dtype)
         return decode_attention_plain(q, k, v, q_positions=qpos[:, None],
                                       kv_valid_len=kv_valid_len, causal=True)
     if q.device.type != "cuda":
@@ -209,13 +259,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "device")
     lib = _build.load("decode_attention")
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
-    fn = getattr(lib, f"decode_attention_{DTYPES[q.dtype]}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    qpos.data_ptr(), qs, qb, vlen.data_ptr(), vs, vb, B, C,
-                    Hkv, G, D, q.stride(0), k.stride(0), k.stride(1),
-                    k.stride(2), v.stride(0), v.stride(1), v.stride(2),
-                    splits, math.sqrt(D), stream), "decode_attention")
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    tail = (qpos.data_ptr(), qs, qb, vlen.data_ptr(), vs, vb, B, C, Hkv, G,
+            D, q.stride(0), k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2))
+    if bits == 16:
+        fn = getattr(lib, f"decode_attention_{DTYPES[q.dtype]}")
+        rc = fn(*head, out.data_ptr(), *tail, splits, math.sqrt(D), stream)
+    else:
+        fn = getattr(lib, f"decode_attention_quant_{DTYPES[q.dtype]}")
+        rc = fn(*head, k_scale.data_ptr(), v_scale.data_ptr(),
+                out.data_ptr(), *tail, *k_scale.stride(), *v_scale.stride(),
+                bits, splits, math.sqrt(D), stream)
+    _build.check(rc, "decode_attention")
     decode_attention.launches += 1
     return out
 

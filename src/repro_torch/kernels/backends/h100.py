@@ -22,10 +22,11 @@ package.  There is no capability gate: the card always runs the kernels.
 
 As on the TPU backend, a quantized weight takes ``quant``/``quant4``
 whenever the kernel applies, whatever the batch threshold and
-``min_pallas_bytes`` say (``ref`` would stream the weight dequantized);
-the quantized paths are output-stationary only, and any kernel pin but
-``ref`` on quantized weights resolves to them.  The kernel holds 8 x rows
-and a larger batch runs in row chunks, so the pick does not depend on B.
+``min_pallas_bytes`` say (``ref`` would stream the weight dequantized),
+and any kernel pin but ``ref`` on quantized weights resolves to them.
+Their plan (``plan_quant``) may split K over a cluster to fill the SMs;
+the kernel holds 64 rows of bf16 x a launch and runs more in row chunks,
+so the pick does not depend on B.
 
 For float weights selection keeps the TPU backend's gates (kernel not
 applicable, batch above ``batch_threshold``, weight under
@@ -76,6 +77,7 @@ from repro_torch.kernels.gemv_plan import (
     plan_quant,
     plan_splitk,
     quant_applicable,
+    quant_plan_fits,
     valid_splitk_degree,
     with_pipeline_depth,
 )
@@ -153,7 +155,7 @@ class H100Backend(GemvBackend):
     # -- planning / selection ---------------------------------------------------
 
     def _plan_sms(self) -> int | None:
-        """The SM count the float plans fill: the one the backend was
+        """The SM count the plans fill: the one the backend was
         given, else the device's (None without a card: the plan then
         only feeds the plain versions' checks)."""
         return self._sms or device_sms()
@@ -166,15 +168,14 @@ class H100Backend(GemvBackend):
         return plan_splitk(M, K, batch, degree=degree, elem_bytes=x_bytes,
                            sms=self._plan_sms())
 
-    def quant_plan(self, M, K, batch, bits, block) -> GemvPlan:
-        """The quant kernels' plan, its column block narrowed to fill the
-        card's SMs (the quant path has no split-K).  Off the card the plan
-        only feeds the plain versions' checks, so the target is 1 there
-        unless the backend was given one."""
-        target = self._sms or (sm_count() if torch.cuda.is_available()
-                               else 1)
+    def quant_plan(self, M, K, batch, bits, block,
+                   x_bytes: int = 2) -> GemvPlan:
+        """The quant kernels' plan (``plan_quant``): the split degree and
+        column block that fill this backend's SMs.  Off the card, and with
+        no SM count given, the plan only feeds the plain versions'
+        checks."""
         return plan_quant(M, K, batch, bits=bits, block=block,
-                          min_blocks=target)
+                          elem_bytes=x_bytes, sms=self._plan_sms())
 
     def candidate_plans(self, M, K, batch, x_bytes=2):
         cands: list[tuple[str, GemvPlan | None]] = [("ref", None)]
@@ -195,7 +196,7 @@ class H100Backend(GemvBackend):
         if not policy.use_pallas:
             return "ref", None
         if bits < 16:
-            return self._quant_pick(M, K, batch, bits, block)
+            return self._quant_pick(M, K, batch, bits, block, x_bytes)
         if not kernel_applicable(M, K, batch, x_bytes):
             return "ref", None
         if (batch > policy.batch_threshold
@@ -205,11 +206,11 @@ class H100Backend(GemvBackend):
                    key=lambda kp: self.estimate_cost_us(
                        kp[0], M, K, batch, x_bytes=x_bytes, plan=kp[1]))
 
-    def _quant_pick(self, M, K, batch, bits, block):
+    def _quant_pick(self, M, K, batch, bits, block, x_bytes=2):
         if not quant_applicable(M, K, bits=bits, block=block):
             return "ref", None
         return ("quant" if bits == 8 else "quant4",
-                self.quant_plan(M, K, batch, bits, block))
+                self.quant_plan(M, K, batch, bits, block, x_bytes))
 
     def _pinned(self, M, K, batch, bits, block, x_bytes, name):
         """A pin cannot override the weight's storage: quantized weights
@@ -219,7 +220,7 @@ class H100Backend(GemvBackend):
         if name == "ref":
             return "ref", None
         if bits < 16:
-            return self._quant_pick(M, K, batch, bits, block)
+            return self._quant_pick(M, K, batch, bits, block, x_bytes)
         if not kernel_applicable(M, K, batch, x_bytes):
             return "ref", None
         if name == "splitk":
@@ -244,6 +245,7 @@ class H100Backend(GemvBackend):
             return self._quant_pick(M, K, batch, pw.bits, pw.block)
         return self._coerce_float(plan, M, K, batch, pw.w_t.element_size())
 
+
     def _coerce_float(self, plan: GemvPlan, M: int, K: int, batch: int,
                       x_bytes: int):
         """``coerce_plan`` for float weights: a plan the kernels take as it
@@ -264,15 +266,25 @@ class H100Backend(GemvBackend):
 
     def replay_plan(self, kernel, plan, key: GemvKey,
                     policy: DispatchPolicy):
-        """A ``pim`` / ``splitk`` entry whose plan the kernels no longer
-        take (a table written before the streaming kernels: m_blk 128, a
-        1024-row K chunk, one stage) is re-planned at its split degree, as
-        ``coerce_plan`` does; ``ref`` and the quant kernels (whose tile rule
-        has not changed) replay as they stand."""
-        if kernel not in ("pim", "splitk") or plan is None:
+        """An entry whose plan its kernel no longer takes is re-planned at
+        that kernel: a ``pim`` / ``splitk`` plan written before the
+        streaming kernels (m_blk 128, a 1024-row K chunk, one stage) at its
+        split degree, as ``coerce_plan`` does; a ``quant`` / ``quant4`` plan
+        written before the quant kernels streamed (a K chunk of many scale
+        blocks, no ring) by ``plan_quant``.  ``ref`` replays as it
+        stands."""
+        if plan is None:
             return kernel, plan
-        return self._coerce_float(plan, key.M, key.K, key.batch,
-                                  dtype_bytes(key.dtype))
+        x_bytes = dtype_bytes(key.dtype)
+        if kernel in ("quant", "quant4"):
+            if quant_plan_fits(plan, key.M, key.K, key.batch, bits=key.bits,
+                               block=key.block, elem_bytes=x_bytes):
+                return kernel, plan
+            return self._quant_pick(key.M, key.K, key.batch, key.bits,
+                                    key.block, x_bytes)
+        if kernel not in ("pim", "splitk"):
+            return kernel, plan
+        return self._coerce_float(plan, key.M, key.K, key.batch, x_bytes)
 
     def replay_program(self, pplan: ProgramPlan, key: ProgramKey,
                        policy: DispatchPolicy) -> ProgramPlan:
@@ -302,32 +314,34 @@ class H100Backend(GemvBackend):
         """``ref`` and every kernel the planners accept: ``pim`` and
         ``splitk`` at the planner's default depth, then each at every
         other depth of ``PIPELINE_DEPTHS`` that ``with_pipeline_depth``
-        admits (only a measured win puts one in the table), or the quant
-        kernel beside the dequant oracle for quantized weights."""
+        admits (only a measured win puts one in the table); for quantized
+        weights the dequant oracle and the quant kernel, staged the same
+        way."""
+        x_bytes = dtype_bytes(key.dtype)
         if key.bits < 16:
             cands = [("ref", None)]
             if quant_applicable(key.M, key.K, bits=key.bits,
                                 block=key.block):
                 cands.append(self._quant_pick(key.M, key.K, key.batch,
-                                              key.bits, key.block))
-            return cands
-        x_bytes = dtype_bytes(key.dtype)
-        cands = self.candidate_plans(key.M, key.K, key.batch, x_bytes)
+                                              key.bits, key.block, x_bytes))
+        else:
+            cands = self.candidate_plans(key.M, key.K, key.batch, x_bytes)
         staged = []
         for kernel, plan in cands:
             if plan is None:
                 continue
             for depth in PIPELINE_DEPTHS:
                 deep = with_pipeline_depth(plan, depth, batch=key.batch,
-                                           elem_bytes=x_bytes)
+                                           elem_bytes=x_bytes,
+                                           bits=key.bits, block=key.block)
                 if deep is not None and deep is not plan:
                     staged.append((kernel, deep))
         return cands + staged
 
     def candidate_label(self, kernel: str, plan: GemvPlan | None) -> str:
         """Staged plans of one kernel are distinct candidates: the label
-        carries the ring depth (``pim/s4``)."""
-        if kernel in ("pim", "splitk") and plan is not None:
+        carries the ring depth (``pim/s4``, ``quant/s3``)."""
+        if kernel != "ref" and plan is not None:
             return f"{kernel}/s{plan.stages}"
         return kernel
 

@@ -33,12 +33,14 @@ rows in bf16 (eight mma n-tiles that share each weight sub-tile) and
 columns) that divides M, then the largest x chunk that divides the K walk
 and fits the budget, one stage.
 
-Quantized weights (``plan_quant``) reckon the vector in bytes of the STORED
-code: one 16-byte vector is 16 int8 columns, or 16 int4 columns times two
-K rows.  Their K chunk is a whole number of scale blocks, and their column
-block may narrow (down to 32 columns, one 32-byte sector per row) until
-the grid has ``min_blocks`` CTAs: the quant path has no split-K to fill
-the card with.
+Quantized weights (``plan_quant``) run on the same streaming body: a slot
+holds one box of int8 / packed-int4 code rows (16 KB: 128 bytes a row for
+a 128-column block, 64 for a 64-column one), x's box of the same K rows
+and the box of their f32 scale rows.  A plan's ``k_blk`` counts K rows (two
+a stored int4 row), a whole number of scale blocks that divides the K
+part; the K parts of a split-K plan are whole scale blocks.  The planner
+takes the smallest split degree, then the taller column block, whose grid
+fills the card's SMs.
 """
 
 from __future__ import annotations
@@ -53,7 +55,6 @@ MAX_K_BLK = 1024             # K rows of x staged per chunk at most
 X_SMEM_BUDGET = 32 * 1024    # bytes of shared memory for the f32 x chunk
 K_ALIGN = 8                  # K chunks and split-K parts are multiples of 8
 SPLITK_DEGREES = (8, 4, 2)   # also the cluster sizes of splitk_gemv
-QUANT_MIN_M_BLK = 32         # narrowest quant column block: one sector/row
 
 # the streaming kernels (csrc/gemv_stream.cuh)
 STREAM_THREADS = 256         # kThreads: 8 warps
@@ -280,19 +281,27 @@ def grouped_plan_fits(plan: GemvPlan, M: int, K: int, C: int,
 
 
 def with_pipeline_depth(plan: GemvPlan, depth: int, *, batch: int = 1,
-                        elem_bytes: int = 2) -> GemvPlan | None:
+                        elem_bytes: int = 2, bits: int = 16,
+                        block: int = 32) -> GemvPlan | None:
     """``plan`` with a ring of ``depth`` sub-tiles, or None when it cannot
     be: a depth outside 1..MAX_STAGES, more slots than the K part has
     sub-tiles, or a ring past one CTA's shared memory.  The port of
     ``repro/kernels/tpu_plan.py::with_pipeline_depth``; the TPU's
     ``n_k % depth == 0`` (K blocks folded into one grid step) has no
-    counterpart in a ring.  Tiles, and so the order of the sums, stay."""
+    counterpart in a ring.  Tiles, and so the order of the sums, stay.
+    ``bits`` 8 / 4 restages a quant plan (its slots hold codes and scales
+    of ``block`` K rows)."""
     if depth == plan.stages:
         return plan
     if not 1 <= depth <= min(MAX_STAGES, plan.n_k):
         return None
-    smem = stream_smem(batch, plan.m_blk, plan.k_blk, depth, elem_bytes,
-                       plan.split_k)
+    if bits < 16:
+        smem = quant_smem(stream_rows(batch, elem_bytes), plan.m_blk,
+                          plan.k_blk, depth, elem_bytes, plan.split_k, bits,
+                          block)
+    else:
+        smem = stream_smem(batch, plan.m_blk, plan.k_blk, depth, elem_bytes,
+                           plan.split_k)
     if smem > SMEM_PER_CTA:
         return None
     return replace(plan, stages=depth, smem_bytes=smem)
@@ -325,50 +334,110 @@ def _smem(batch: int, k_blk: int, elem_bytes: int) -> int:
 
 
 # --------------------------------------------------------------------------
-# Quantized weights (csrc/quant_gemv.cu)
+# Quantized weights (csrc/quant_gemv.cu on the streaming body)
 # --------------------------------------------------------------------------
 
-
-def batch_rows(batch: int) -> int:
-    """x rows one quant launch holds: B rounded up to a power of two, at
-    most MAX_BATCH (the wrapper launches larger batches in row chunks)."""
-    return min(1 << max(min(batch, MAX_BATCH) - 1, 0).bit_length(),
-               MAX_BATCH)
+QUANT_SPLITS = (1, 2, 4, 8)  # split-K degrees of the quant kernels (clusters)
+MAX_X_BOX = 256              # K rows of x's box: one TMA box dimension
 
 
 def quant_applicable(M: int, K: int, *, bits: int, block: int) -> bool:
     """Whole 16-byte code vectors along M, and a K walk of whole scale
-    blocks (whole byte pairs of K rows for int4)."""
-    return (bits in (8, 4) and block > 0 and M % VEC_BYTES == 0
-            and K % block == 0 and (bits == 8 or block % 2 == 0))
+    blocks of whole k16 steps that one x box can hold."""
+    return (bits in (8, 4) and 0 < block <= MAX_X_BOX and block % 16 == 0
+            and M % VEC_BYTES == 0 and K % block == 0)
 
 
-def _quant_smem(xb: int, k_blk: int) -> int:
-    # the x chunk [k_blk, xb] f32, reused after the K walk by the row-group
-    # reduce tile [THREADS * 16]; then the second reduce level [THREADS]
-    return 4 * (max(k_blk * xb, THREADS * VEC_BYTES) + THREADS)
+def quant_sub_rows(m_blk: int, k_part: int, bits: int, block: int) -> int:
+    """K rows of one quant ring slot: SUBTILE_BYTES of codes, at most one x
+    box (MAX_X_BOX rows), narrowed to the largest whole number of scale
+    blocks that divides the K part."""
+    k_blk = min(SUBTILE_BYTES // m_blk * (2 if bits == 4 else 1),
+                MAX_X_BOX, k_part)
+    k_blk = max(block, k_blk - k_blk % block)
+    while k_part % k_blk:
+        k_blk -= block
+    return k_blk
+
+
+def quant_smem(batch: int, m_blk: int, k_blk: int, stages: int,
+               elem_bytes: int, split_k: int, bits: int, block: int) -> int:
+    """Dynamic shared memory of one quant launch
+    (``quant_gemv_smem_bytes``): 1 KB of alignment slack, ``stages`` slots
+    (the code box, x's ``k_blk`` columns and the scale rows, each slot
+    rounded up to 1 KB) or the epilogue that reuses them, and one 8-byte
+    mbarrier per slot."""
+    rows = k_blk // 2 if bits == 4 else k_blk
+    slot = _ceil(m_blk * rows + batch * k_blk * elem_bytes
+                 + 4 * (k_blk // block) * m_blk, SLOT_ALIGN) * SLOT_ALIGN
+    epi = 4 * batch * m_blk * (stream_groups(m_blk, elem_bytes)
+                               + (split_k > 1))
+    return SLOT_ALIGN + max(stages * slot, epi) + 8 * stages
+
+
+def quant_plan_fits(plan: GemvPlan, M: int, K: int, batch: int = 1, *,
+                    bits: int, block: int, elem_bytes: int = 2) -> bool:
+    """Whether ``quant_gemv`` / ``quant4_gemv`` take ``plan``: a column
+    block of the body, a split degree of whole scale blocks, a slot of
+    whole scale blocks dividing the K part that x's box spans, and a ring
+    the card's shared memory holds at the rows one launch holds."""
+    deg = plan.split_k
+    if (not quant_applicable(M, K, bits=bits, block=block)
+            or plan.m_blk not in STREAM_M_BLKS or deg not in QUANT_SPLITS
+            or K % deg or (K // deg) % block or batch < 1):
+        return False
+    k_part = K // deg
+    if (plan.k_blk <= 0 or plan.k_blk % block or plan.k_blk > MAX_X_BOX
+            or k_part % plan.k_blk):
+        return False
+    n_k = k_part // plan.k_blk
+    return (plan.n_m == _ceil(M, plan.m_blk) and plan.n_k == n_k
+            and 1 <= plan.stages <= min(MAX_STAGES, n_k)
+            and quant_smem(stream_rows(batch, elem_bytes), plan.m_blk,
+                           plan.k_blk, plan.stages, elem_bytes, deg, bits,
+                           block) <= SMEM_PER_CTA)
+
+
+def quant_candidates(M: int, K: int, batch: int = 1, *, bits: int = 8,
+                     block: int = 32, elem_bytes: int = 2) -> list[GemvPlan]:
+    """The quant kernels' plans at the default ring depth, one per split
+    degree of ``QUANT_SPLITS`` whose K parts are whole scale blocks and per
+    column block (taller first), smallest degree first; the slot is
+    :func:`quant_sub_rows`'."""
+    rows = stream_rows(batch, elem_bytes)
+    cands = []
+    for deg in QUANT_SPLITS:
+        k_part = K // deg
+        if K % deg or k_part % block:
+            continue
+        for m_blk in STREAM_M_BLKS:
+            k_blk = quant_sub_rows(m_blk, k_part, bits, block)
+            n_k = k_part // k_blk
+            stages = min(DEFAULT_STAGES, n_k)
+            cands.append(GemvPlan(
+                m_blk=m_blk, k_blk=k_blk, n_m=_ceil(M, m_blk), n_k=n_k,
+                split_k=deg, stages=stages,
+                smem_bytes=quant_smem(rows, m_blk, k_blk, stages,
+                                      elem_bytes, deg, bits, block)))
+    return cands
 
 
 def plan_quant(M: int, K: int, batch: int = 1, *, bits: int = 8,
-               block: int = 32, min_blocks: int = 1) -> GemvPlan:
-    """Algorithm-1 sweep for the quant kernels: the tallest column block
-    (whole code vectors, a power-of-two number of threads) dividing M,
-    narrowed while the grid has fewer than ``min_blocks`` CTAs; then the
-    largest K chunk of whole scale blocks dividing K that fits the x
-    budget."""
+               block: int = 32, elem_bytes: int = 2,
+               sms: int | None = None) -> GemvPlan:
+    """The quant kernels' plan: of :func:`quant_candidates`, the first
+    (smallest split degree, then the taller column block) whose
+    ``deg x n_m`` CTAs fill ``sms`` SMs; if none does, the one with the
+    most CTAs.  ``sms`` defaults to the device's SM count; without one (no
+    card) the plan is the one-part 128-column one, which then only feeds
+    the plain versions' checks."""
     if not quant_applicable(M, K, bits=bits, block=block):
         raise ValueError(f"no quant plan for M={M} K={K} bits={bits} "
                          f"block={block}")
-    m_blk = MAX_M_BLK
-    while m_blk > VEC_BYTES and (M % m_blk
-                                 or THREADS % (m_blk // VEC_BYTES)):
-        m_blk //= 2
-    while (M // m_blk < min_blocks and m_blk // 2 >= QUANT_MIN_M_BLK
-           and M % (m_blk // 2) == 0):
-        m_blk //= 2
-    xb = batch_rows(batch)
-    k_cap = min(MAX_K_BLK, X_SMEM_BUDGET // (4 * xb), K)
-    k_blk = next((k for k in range(k_cap - k_cap % block, 0, -block)
-                  if K % k == 0), block)
-    return GemvPlan(m_blk=m_blk, k_blk=k_blk, n_m=M // m_blk, n_k=K // k_blk,
-                    smem_bytes=_quant_smem(xb, k_blk))
+    sms = device_sms() if sms is None else sms
+    cands = quant_candidates(M, K, batch, bits=bits, block=block,
+                             elem_bytes=elem_bytes)
+    if not sms:
+        return cands[0]
+    return next((p for p in cands if p.n_m * p.split_k >= sms),
+                max(cands, key=lambda p: p.n_m * p.split_k))

@@ -10,18 +10,17 @@ scale, the product with ``x`` runs in f32, and ``out`` is written in
 
 What bounds it on an H100: the code bytes plus the scales over HBM
 bandwidth (3.35 TB/s), about half (int8) or a quarter (int4) of the bf16
-weight stream.  The kernel streams 16-byte code vectors along the
-contiguous M axis, loads each thread's scales once per run of rows inside
-one scale block, stages x in shared memory and keeps the accumulators in
-registers (see the source).
-
-The kernel holds at most ``MAX_BATCH`` x rows; a larger batch is launched
-in row chunks of ``MAX_BATCH`` (one launch each), so the backend can send
-quantized weights to the kernel at any batch, as the TPU backend does.
+weight stream.  The kernels run on the streaming body of ``pim_gemv`` /
+``splitk_gemv`` (``csrc/gemv_stream.cuh``): a ring of TMA slots that carry
+codes, x and scales together, codes turned into bf16 in registers and
+multiplied on the tensor cores (f32 x: scalar FMAs), each scale block
+summed apart and scaled into the f32 sum, and a split-K cluster where the
+plan asks for one (``gemv_plan.plan_quant``).  One launch holds up to 64
+rows of bf16 x (8 of f32); more run in row chunks inside the call.
 
 A CPU tensor takes the plain version (:func:`quant_gemv_plain`,
 :func:`quant4_gemv_plain`); a CUDA tensor launches the kernel or raises.
-``quant_gemv.launches`` / ``quant4_gemv.launches`` count kernel launches.
+``quant_gemv.launches`` / ``quant4_gemv.launches`` count kernel calls.
 """
 
 from __future__ import annotations
@@ -29,14 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.gemv_plan import (
-    MAX_BATCH,
-    THREADS,
-    VEC_BYTES,
-    X_SMEM_BUDGET,
-    GemvPlan,
-    batch_rows,
-)
+from repro_torch.kernels.gemv_plan import GemvPlan, quant_plan_fits
 from repro_torch.kernels.pim_gemv import DTYPES, row_stride
 
 
@@ -47,9 +39,8 @@ def check_quant_inputs(x: torch.Tensor, w_q: torch.Tensor,
     the row strides of the codes and the scales.
 
     Nothing is copied: the codes' and scales' rows must already be
-    contiguous and start on 16-byte boundaries (the kernel reads them as
-    16-byte vectors), as a column slice of a prepacked weight's are
-    (:func:`row_stride`).
+    contiguous and start on 16-byte boundaries (the tensor maps' rule), as
+    a column slice of a prepacked weight's are (:func:`row_stride`).
     """
     if x.ndim != 2 or w_q.ndim != 2 or scales.ndim != 2:
         raise ValueError(f"expected x [B, K], codes [K', M] and scales "
@@ -75,19 +66,16 @@ def check_quant_inputs(x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError(f"scales {tuple(scales.shape)} are not "
                          f"[K / block, M] = {(K // block, M)}")
     ldw, lds = row_stride(w_q, "codes"), row_stride(scales, "scales")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous and start on a 16-byte "
+                         "boundary")
     if B < 1:
         raise ValueError("empty batch")
-    if (plan.split_k != 1 or plan.m_blk % VEC_BYTES
-            or THREADS % plan.m_blk or plan.n_m * plan.m_blk != M):
-        raise ValueError(f"plan {plan} does not tile M={M}")
-    if plan.k_blk % block or K % plan.k_blk:
-        raise ValueError(f"plan {plan} does not tile K={K} in whole "
-                         f"blocks of {block}")
-    if 4 * batch_rows(B) * plan.k_blk > X_SMEM_BUDGET:
-        raise ValueError(f"plan {plan}: x chunk exceeds shared memory at "
-                         f"B={B}")
+    if not quant_plan_fits(plan, M, K, B, bits=bits, block=block,
+                           elem_bytes=x.element_size()):
+        raise ValueError(f"plan {plan} does not tile M={M}, K={K} in whole "
+                         f"blocks of {block} at B={B} within the card's "
+                         f"shared memory")
     return B, K, M, ldw, lds
 
 
@@ -110,12 +98,10 @@ def _launch(fn_name: str, counter, x, w_q, scales, block, plan, B, K, M,
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
     fn = getattr(lib, f"{fn_name}_{DTYPES[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    for b0 in range(0, B, MAX_BATCH):   # rows are contiguous: no copy
-        nb = min(MAX_BATCH, B - b0)
-        _build.check(fn(x[b0].data_ptr(), w_q.data_ptr(), scales.data_ptr(),
-                        out[b0].data_ptr(), nb, K, M, ldw, lds, block,
-                        plan.m_blk, plan.k_blk, stream), fn_name)
-        counter.launches += 1
+    _build.check(fn(x.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
+                    out.data_ptr(), B, K, M, ldw, lds, block, plan.split_k,
+                    plan.m_blk, plan.k_blk, plan.stages, stream), fn_name)
+    counter.launches += 1
     return out
 
 

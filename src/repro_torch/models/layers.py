@@ -109,7 +109,8 @@ def init_attention(generator, cfg: ModelConfig, dtype, device) -> dict:
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    q_positions: torch.Tensor | None,
                    kv_valid_len: torch.Tensor | None,
-                   causal: bool) -> torch.Tensor:
+                   causal: bool, k_scale: torch.Tensor | None = None,
+                   v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """q [B, Sq, H, D], k/v [B, Sk, Hkv, D] -> [B, Sq, H, D].
 
     One new token a slot on the card (the decode step) runs the
@@ -118,11 +119,20 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``decode_attention_plain``: f32 scores of the bf16 operands,
     ``BIG_NEG`` masking, f32 softmax, probabilities cast to ``v.dtype``).
     The choice is :func:`~repro_torch.kernels.attention.kernel_applies`,
-    a rule on shapes, strides and the device.
+    a rule on shapes, strides and the device.  With ``k_scale`` /
+    ``v_scale`` ([B, Sk, Hkv]) k / v are a quantized store's codes: the
+    kernel reads them in place; the plain path dequantizes them to
+    ``q.dtype`` first (``dequantize_page``).
     """
-    if kernel_applies(q, k, v, causal=causal):
+    if kernel_applies(q, k, v, causal=causal, k_scale=k_scale,
+                      v_scale=v_scale):
         return decode_attention(q, k, v, q_positions=q_positions,
-                                kv_valid_len=kv_valid_len)
+                                kv_valid_len=kv_valid_len, k_scale=k_scale,
+                                v_scale=v_scale)
+    if k_scale is not None:
+        hd = q.shape[-1]
+        k = dequantize_page(k, k_scale, hd=hd, out_dtype=q.dtype)
+        v = dequantize_page(v, v_scale, hd=hd, out_dtype=q.dtype)
     return decode_attention_plain(q, k, v, q_positions=q_positions,
                                   kv_valid_len=kv_valid_len, causal=causal)
 
@@ -159,9 +169,10 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     written in place at each slot's ``cache_pos`` and attention runs over
     the cache.  With ``cache_scales`` (``[B, C, Hkv]`` each) the store is
     quantized: the fresh rope'd pages are encoded (``kv_quant``), codes
-    and scales are written at the same offsets, and the whole cache is
-    dequantized to ``x.dtype`` before ``attention_core`` (which then reads
-    that bf16 tensor in place: no f32 copy).  With a ``gemv``
+    and scales are written at the same offsets, and ``attention_core``
+    takes the codes and scales (a decode step on the card reads them in
+    place; prefill and the CPU dequantize the cache to ``x.dtype``).
+    With a ``gemv``
     DispatchPolicy and a single-token input the Q/K/V projections run as
     ONE fused GEMV program (the prepacked ``wqkv`` when present).
     """
@@ -196,6 +207,7 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if cache_kv is not None:
         ck, cv = cache_kv
         pos = cache_pos.expand(B) if cache_pos.ndim == 0 else cache_pos
+        ks = vs = None
         if cache_scales is not None:
             ks, vs = cache_scales
             bits = 8 if ck.shape[-1] == hd else 4
@@ -203,14 +215,12 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 q_new, s_new = quantize_page(page, bits)
                 write_kv(codes, q_new, pos)
                 write_kv(scales, s_new, pos)
-            kf = dequantize_page(ck, ks, hd=hd, out_dtype=x.dtype)
-            vf = dequantize_page(cv, vs, hd=hd, out_dtype=x.dtype)
         else:
             write_kv(ck, k, pos)
             write_kv(cv, v, pos)
-            kf, vf = ck, cv
-        out = attention_core(q, kf, vf, q_positions=positions,
-                             kv_valid_len=pos + S, causal=True)
+        out = attention_core(q, ck, cv, q_positions=positions,
+                             kv_valid_len=pos + S, causal=True, k_scale=ks,
+                             v_scale=vs)
     else:
         out = attention_core(q, k, v, q_positions=positions,
                              kv_valid_len=None, causal=True)

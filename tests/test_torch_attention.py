@@ -19,6 +19,7 @@ jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import kv_quant as jkv  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro_torch.kernels import attention  # noqa: E402
 from repro_torch.kernels.attention import (  # noqa: E402
@@ -30,6 +31,10 @@ from repro_torch.kernels.attention import (  # noqa: E402
     smem_bytes,
 )
 from repro_torch.kernels.gemv_plan import SMEM_PER_CTA  # noqa: E402
+from repro_torch.kernels.kv_quant import (  # noqa: E402
+    dequantize_page,
+    quantize_page,
+)
 from repro_torch.models import layers as L  # noqa: E402
 
 SMS = 132
@@ -149,6 +154,52 @@ def test_the_routing_rule_is_on_shapes_and_the_device():
         decode_attention(torch.zeros(2, 3, 4, 128), k.float(), k.float(),
                          q_positions=torch.zeros(2, 3, dtype=torch.int64),
                          kv_valid_len=None)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_pages_route_to_the_kernel_only_on_the_card(bits):
+    """int8 codes of D lanes (int8) or D / 2 (packed int4) with f32 scales
+    [B, C, Hkv] pass the shape rule; the CPU still takes the plain path
+    (dequantize_page, then the plain arithmetic) and launches nothing."""
+    B, C, Hkv, G, D = 2, 64, 4, 1, 128
+    q, k, v, qpos, valid = _case(B, C, Hkv, G, D, [17, 64], seed=bits)
+    tq = torch.from_numpy(q).to(torch.bfloat16)
+    kc, ks = quantize_page(torch.from_numpy(k).to(torch.bfloat16), bits)
+    vc, vs = quantize_page(torch.from_numpy(v).to(torch.bfloat16), bits)
+    assert kc.shape[-1] == (D if bits == 8 else D // 2)
+    rule = attention._shape_rule
+    assert rule(tq, kc, vc, ks, vs) == ""
+    assert not kernel_applies(tq, kc, vc, causal=True, k_scale=ks,
+                              v_scale=vs)                  # a CPU tensor
+    assert rule(tq, kc, vc) != ""                          # no scales
+    assert "quantized" in rule(tq, kc, vc, ks.double(), vs.double())
+    assert "quantized" in rule(tq, kc.float(), vc.float(), ks, vs)
+    assert "quantized" in rule(tq, kc, vc, ks[:, :-1], vs[:, :-1])
+    n0 = decode_attention.launches
+    tpos = torch.from_numpy(qpos[:, None])
+    tvalid = torch.from_numpy(valid)
+    got = decode_attention(tq, kc, vc, q_positions=tpos,
+                           kv_valid_len=tvalid, k_scale=ks, v_scale=vs)
+    kf = dequantize_page(kc, ks, hd=D, out_dtype=torch.bfloat16)
+    vf = dequantize_page(vc, vs, hd=D, out_dtype=torch.bfloat16)
+    plain = decode_attention_plain(tq, kf, vf, q_positions=tpos,
+                                   kv_valid_len=tvalid)
+    assert torch.equal(got, plain) and decode_attention.launches == n0
+    assert torch.equal(L.attention_core(
+        tq, kc, vc, q_positions=tpos, kv_valid_len=tvalid, causal=True,
+        k_scale=ks, v_scale=vs), plain)
+    # the JAX package's attention over its own dequantized pages
+    jq = jnp.asarray(tq.float().numpy()).astype(jnp.bfloat16)
+    jk, jv = (jkv.dequantize_page(jnp.asarray(c.numpy()),
+                                  jnp.asarray(sc.numpy()), hd=D,
+                                  out_dtype=jnp.bfloat16)
+              for c, sc in ((kc, ks), (vc, vs)))
+    want = jlayers.attention_core(
+        jq, jk, jv, q_positions=jnp.asarray(qpos[:, None]),
+        kv_valid_len=jnp.asarray(valid), window=None, causal=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               **_tol(torch.bfloat16, vf.float().numpy()))
 
 
 @pytest.mark.parametrize("B,Hkv,C,G,D", [

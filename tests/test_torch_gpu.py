@@ -242,14 +242,24 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("M,K", [(768, 256), (2048, 8192), (2064, 2048)])
-@pytest.mark.parametrize("B", [1, 8])
-@pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cuda_quant_kernels_match_plain(cuda, M, K, B, bits, dtype):
-    from repro_torch.kernels.gemv_plan import plan_quant
+def _quant_case(cuda, M, K, B, bits, dtype, wide=1):
+    """x [B, K] and the codes / scales of a seeded bf16 weight [M, K]; with
+    ``wide`` > 1 a column view of a prepacked weight that many times as
+    wide (rows ldw bytes apart), starting at column M."""
     from repro_torch.kernels.ops import quantize_weight
+
+    g = torch.Generator(device=cuda).manual_seed(M + K + B + bits)
+    w = torch.randn((M * wide, K), generator=g, device=cuda).to(
+        torch.bfloat16)
+    x = torch.randn((B, K), generator=g, device=cuda).to(dtype)
+    pw = quantize_weight(w, bits=bits, block=32)
+    assert pw.w_t.device == w.device
+    if wide == 1:
+        return x, pw.w_t, pw.scales
+    return x, pw.w_t[:, M:2 * M], pw.scales[:, M:2 * M]
+
+
+def _quant_fns(bits):
     from repro_torch.kernels.quant_gemv import (
         quant4_gemv,
         quant4_gemv_plain,
@@ -257,25 +267,119 @@ def test_cuda_quant_kernels_match_plain(cuda, M, K, B, bits, dtype):
         quant_gemv_plain,
     )
 
-    g = torch.Generator(device=cuda).manual_seed(M + K + B + bits)
-    w = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
-    x = torch.randn((B, K), generator=g, device=cuda).to(dtype)
-    pw = quantize_weight(w, bits=bits, block=32)
-    assert pw.w_t.device == w.device
-    fn, plain = ((quant_gemv, quant_gemv_plain) if bits == 8
-                 else (quant4_gemv, quant4_gemv_plain))
-    # the kernel and the plain version sum f32 products in other orders;
-    # bf16 output: one bf16 ulp (2^-7 relative)
-    tol = dict(rtol=2.0**-7, atol=1e-2) if dtype == torch.bfloat16 else \
-        dict(rtol=1e-4, atol=1e-3)
-    n0 = fn.launches
-    out = fn(x, pw.w_t, pw.scales, block=32,
-             plan=plan_quant(M, K, B, bits=bits, block=32, min_blocks=132))
-    torch.cuda.synchronize()
-    assert fn.launches == n0 + 1
-    torch.testing.assert_close(out.float(),
-                               plain(x, pw.w_t, pw.scales, 32).float(),
-                               **tol)
+    return ((quant_gemv, quant_gemv_plain) if bits == 8
+            else (quant4_gemv, quant4_gemv_plain))
+
+
+def _quant_tol(dtype):
+    # sums in other orders (the kernels factor each scale out of its
+    # block); bf16 output: one bf16 ulp (2^-7 relative) plus f32 noise
+    return (_stream_tol(dtype) if dtype == torch.bfloat16
+            else dict(rtol=1e-4, atol=1e-3))
+
+
+# olmo-1b's four decode GEMVs, a small one, and a ragged last column block
+QUANT_SHAPES = [(6144, 2048), (16384, 2048), (2048, 8192), (50304, 2048),
+                (768, 256), (2064, 2048)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K", QUANT_SHAPES)
+@pytest.mark.parametrize("B", [1, 8, 11, 64])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_quant_kernels_match_plain(cuda, M, K, B, bits, dtype):
+    """The streaming quant kernels (codes and scales through one TMA ring,
+    bf16 on the tensor cores with each scale block factored out) against
+    the plain version (dequantize, f32 product), at the plan for 132 SMs
+    (split-K clusters where it splits) and at one K part."""
+    from repro_torch.kernels.gemv_plan import plan_quant
+
+    x, w_q, scales = _quant_case(cuda, M, K, B, bits, dtype)
+    fn, plain = _quant_fns(bits)
+    tol = _quant_tol(dtype)
+    want = plain(x, w_q, scales, 32).float()
+    for sms in (132, None):
+        plan = plan_quant(M, K, B, bits=bits, block=32,
+                          elem_bytes=x.element_size(), sms=sms)
+        n0 = fn.launches
+        out = fn(x, w_q, scales, block=32, plan=plan)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        torch.testing.assert_close(out.float(), want, **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K", [(6144, 2048), (2064, 2048)])
+@pytest.mark.parametrize("B", [1, 11])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_quant_kernels_read_a_column_view_in_place(cuda, M, K, B, bits,
+                                                        dtype):
+    """A member of a prepacked weight: codes and scales whose rows lie a
+    wider weight's stride apart give the contiguous result bit for bit."""
+    from repro_torch.kernels.gemv_plan import plan_quant
+
+    x, w_q, scales = _quant_case(cuda, M, K, B, bits, dtype, wide=3)
+    assert w_q.stride(0) == 3 * M
+    fn, plain = _quant_fns(bits)
+    plan = plan_quant(M, K, B, bits=bits, block=32,
+                      elem_bytes=x.element_size(), sms=132)
+    out = fn(x, w_q, scales, block=32, plan=plan)
+    assert torch.equal(out, fn(x, w_q.contiguous(), scales.contiguous(),
+                               block=32, plan=plan))
+    torch.testing.assert_close(
+        out.float(), plain(x, w_q, scales, 32).float(), **_quant_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K", [(6144, 2048), (2048, 8192), (2064, 2048)])
+@pytest.mark.parametrize("B", [3, 8, 64])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_quant_kernels_are_bit_identical_at_every_depth(cuda, M, K, B,
+                                                             bits, dtype):
+    """The ring depth changes the copies in flight, never the order of the
+    sums: every depth the card holds gives the default depth's bits."""
+    from repro_torch.kernels.gemv_plan import plan_quant
+
+    x, w_q, scales = _quant_case(cuda, M, K, B, bits, dtype)
+    fn, _ = _quant_fns(bits)
+    base = plan_quant(M, K, B, bits=bits, block=32,
+                      elem_bytes=x.element_size(), sms=132)
+    want = fn(x, w_q, scales, block=32, plan=base)
+    depths = []
+    for depth in range(1, MAX_STAGES + 1):
+        plan = with_pipeline_depth(base, depth, batch=B,
+                                   elem_bytes=x.element_size(), bits=bits,
+                                   block=32)
+        if plan is None:
+            continue
+        depths.append(depth)
+        assert torch.equal(fn(x, w_q, scales, block=32, plan=plan), want), \
+            depth
+    assert base.stages in depths and len(depths) >= 2
+
+
+@pytest.mark.gpu
+def test_quant_planner_shared_memory_equals_the_kernels(cuda):
+    """The quant plan's smem_bytes (the wrappers' fit check) is what the
+    kernels ask for at launch."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gemv_plan import quant_smem
+
+    fn = _build.load("quant_gemv").quant_gemv_smem_bytes
+    for B in (1, 3, 8, 64):
+        for m_blk in (64, 128):
+            for es in (2, 4):
+                for bits in (8, 4):
+                    for k_blk in (32, 128, 256):
+                        for stages in (1, 2, 8):
+                            for deg in (1, 4):
+                                assert fn(B, m_blk, k_blk, stages, es, deg,
+                                          bits, 32) == quant_smem(
+                                    B, m_blk, k_blk, stages, es, deg, bits,
+                                    32)
 
 
 @pytest.mark.gpu
@@ -805,6 +909,85 @@ def test_cuda_decode_attention_matches_plain(cuda, G, Hkv, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("G,Hkv", [(1, 16), (8, 2)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_quantized_attention_equals_the_fp_kernel_bit_for_bit(
+        cuda, bits, G, Hkv, dtype):
+    """int8 / int4 pages read in place (codes and scales of a slot-prefix
+    view): the output equals the fp kernel's over ``dequantize_page``'s
+    tensor bit for bit at every split count, with idle slots past the end
+    and an all-masked slot; no dequantized copy is made."""
+    from repro_torch.kernels.attention import decode_attention, kernel_applies
+    from repro_torch.kernels.kv_quant import dequantize_page, quantize_page
+
+    B, C, D = 8, 1024, 128
+    qpos = [0, 16, 299, C - 1, C + 40, 511, 700, 5]
+    q, k, v, pos = _attention_case(cuda, B, C, Hkv, G, D, dtype, qpos,
+                                   slots=12, seed=bits)
+    valid = pos + 1
+    valid[7] = 0                       # every score masked
+    kc, ks = quantize_page(k, bits)
+    vc, vs = quantize_page(v, bits)
+    buf = torch.zeros((12,) + kc.shape[1:], dtype=torch.int8, device=cuda)
+    sbuf = torch.zeros((12,) + ks.shape[1:], device=cuda)
+    buf[:B], sbuf[:B] = kc, ks
+    kc, ks = buf[:B], sbuf[:B]          # the engine's slot-prefix view
+    assert kernel_applies(q, kc, vc, causal=True, k_scale=ks, v_scale=vs)
+    kf = dequantize_page(kc, ks, hd=D, out_dtype=dtype)
+    vf = dequantize_page(vc, vs, hd=D, out_dtype=dtype)
+    for splits in (None, 1, 2, 4, 8):
+        n0 = decode_attention.launches
+        got = decode_attention(q, kc, vc, q_positions=pos[:, None],
+                               kv_valid_len=valid, splits=splits,
+                               k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == n0 + 1
+        want = decode_attention(q, kf, vf, q_positions=pos[:, None],
+                                kv_valid_len=valid, splits=splits)
+        assert torch.equal(got, want), splits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefill_scores_keep_bf16_operands_on_the_card(cuda, dtype):
+    """The plain path's scores on the card come from one bf16 product with
+    an f32 result (no f32 copy of the cache): they equal the f32 einsum
+    within f32 summation error, and so does the attention output."""
+    import math
+
+    from repro_torch.kernels.attention import decode_attention_plain
+
+    B, C, Hkv, G, D, Sq = 2, 512, 4, 2, 128, 37
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((B, Sq, Hkv * G, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, C, Hkv, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, C, Hkv, D), generator=g, device=cuda).to(dtype)
+    pos = (torch.arange(Sq, device=cuda) + 100)[None].expand(B, Sq)
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    f32 = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    bmm = torch.bmm(qg.permute(0, 2, 3, 1, 4).reshape(B * Hkv, G * Sq, D),
+                    k.permute(0, 2, 3, 1).reshape(B * Hkv, D, C),
+                    **({"out_dtype": torch.float32}
+                       if dtype == torch.bfloat16 else {}))
+    # f32 sums of exact products in another order: D terms of |q k|
+    bound = D * 2.0**-23 * torch.einsum(
+        "bqhgd,bkhd->bhgqk", qg.float().abs(), k.float().abs())
+    assert bmm.dtype == torch.float32
+    assert ((bmm.reshape(f32.shape) - f32).abs() <= bound + 1e-6).all()
+    out = decode_attention_plain(q, k, v, q_positions=pos,
+                                 kv_valid_len=None)
+    scores = torch.where(
+        torch.arange(C, device=cuda)[None, None, :] <= pos[:, :, None],
+        0.0, 1.0)[:, None, None].bool()
+    probs = torch.softmax(torch.where(scores, -2.0e9, f32 / math.sqrt(D)),
+                          -1).to(dtype)
+    want = torch.einsum("bhgqk,bkhd->bqhgd", probs, v).reshape(out.shape)
+    torch.testing.assert_close(out.float(), want.float(),
+                               **_attention_tol(dtype, v))
+
+
+@pytest.mark.gpu
 def test_cuda_decode_attention_takes_int64_positions_and_no_valid_len(cuda):
     """The model's q positions are int64 and broadcast from one offset
     (stride 0); without a valid length only the causal mask applies."""
@@ -825,12 +1008,13 @@ def test_cuda_decode_attention_takes_int64_positions_and_no_valid_len(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kv_store", ["fp", "int8"])
+@pytest.mark.parametrize("kv_store", ["fp", "int8", "int4"])
 def test_engine_tokens_with_the_attention_kernel_equal_the_plain_path(
         cuda, monkeypatch, kv_store):
     """Reduced olmo-1b (f32) on the card: every decode step runs the
-    attention kernel, and the greedy tokens equal those of the same
-    engine with attention on its plain path."""
+    attention kernel (on a quantized store it reads the codes in place),
+    and the greedy tokens equal those of the same engine with attention on
+    its plain path (which dequantizes the cache first)."""
     import numpy as np
 
     from repro_torch.kernels.attention import decode_attention

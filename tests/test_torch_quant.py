@@ -42,9 +42,12 @@ from repro_torch.kernels import dispatch, kv_quant, ref
 from repro_torch.kernels.backends import DispatchPolicy
 from repro_torch.kernels.backends.h100 import H100Backend
 from repro_torch.kernels.gemv_plan import (
+    SMEM_PER_CTA,
     plan_gemv,
     plan_quant,
     quant_applicable,
+    quant_plan_fits,
+    with_pipeline_depth,
 )
 from repro_torch.kernels.ops import (
     align_plan_to_block,
@@ -150,14 +153,19 @@ def test_quant_kernels_match_pallas(M, K, B, bits, dtype):
 def test_quant_plan_covers_whole_scale_blocks_and_fills_the_grid():
     for M, K in OLMO_SHAPES:
         for bits in (8, 4):
-            p = plan_quant(M, K, 8, bits=bits, block=32, min_blocks=132)
-            assert p.n_m * p.m_blk == M and p.n_k * p.k_blk == K
-            assert p.k_blk % 32 == 0 and p.split_k == 1
-            assert p.m_blk % 16 == 0 and 256 % p.m_blk == 0
-            # narrowed until the grid fills 132 SMs or the block is 32
-            assert p.n_m >= 132 or p.m_blk == 32
-            assert p.smem_bytes <= 48 * 1024
-    assert plan_quant(2048, 8192, 1, bits=8, block=32).m_blk == 128
+            p = plan_quant(M, K, 8, bits=bits, block=32, sms=132)
+            k_part = K // p.split_k
+            assert p.n_m == -(-M // p.m_blk) and p.n_k * p.k_blk == k_part
+            # K parts and ring slots of whole scale blocks
+            assert k_part % 32 == 0 and p.k_blk % 32 == 0
+            assert p.m_blk in (128, 64) and p.split_k in (1, 2, 4, 8)
+            # split and narrowed until the grid fills 132 SMs
+            assert p.n_m * p.split_k >= 132
+            assert p.smem_bytes <= SMEM_PER_CTA
+            assert quant_plan_fits(p, M, K, 8, bits=bits, block=32)
+    # no SM count (no card): one K part of 128-column blocks
+    p = plan_quant(2048, 8192, 1, bits=8, block=32)
+    assert p.m_blk == 128 and p.split_k == 1
     assert quant_applicable(2048, 8192, bits=4, block=32)
     assert not quant_applicable(2056 - 4, 8192, bits=8, block=32)  # M % 16
     assert not quant_applicable(2048, 8200, bits=8, block=32)      # K % 32
@@ -165,6 +173,88 @@ def test_quant_plan_covers_whole_scale_blocks_and_fills_the_grid():
     p = align_plan_to_block(plan_gemv(256, 96, 1, elem_bytes=1), 256, 96,
                             32)
     assert p.k_blk % 32 == 0 and 96 % p.k_blk == 0 and p.split_k == 1
+
+
+def _block_factored(x, codes, scales, block):
+    """The CUDA kernels' arithmetic in plain torch: per scale block b,
+    ``s_b * sum_{k in b} q_k x_k`` in f32 (bf16 x bf16 products are exact
+    in f32), the blocks added in K order, cast to x.dtype."""
+    K, M = codes.shape
+    xf = x.float().reshape(x.shape[0], K // block, block)
+    qf = codes.float().reshape(K // block, block, M)
+    acc = torch.zeros((x.shape[0], M), dtype=torch.float32)
+    for b in range(K // block):
+        acc = acc + scales[b].float() * (xf[:, b] @ qf[b])
+    return acc.to(x.dtype)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,B", [(128, 256, 3), (256, 96, 8)])
+def test_block_factored_sum_matches_pallas(M, K, B, bits, dtype):
+    """The kernels take each scale out of its block (bf16 tensor-core
+    products of the exact codes, then one f32 FMA a block); the reference
+    multiplies q * s first.  The emulated block-factored sum holds against
+    the JAX kernels in interpret mode within the kernels' tolerance, on
+    codes that reach both ends of the range (int4: -8, which the quantizer
+    never writes)."""
+    rng = np.random.default_rng(M + K + B + bits)
+    qmax = 127 if bits == 8 else 7
+    codes = rng.integers(-qmax - 1, qmax + 1, (K, M)).astype(np.int8)
+    codes[:2, 0] = (-qmax - 1, qmax)
+    scales = rng.uniform(0.001, 0.05, (K // 32, M)).astype(np.float32)
+    x = rng.standard_normal((B, K)).astype(np.float32)
+    tx = torch.from_numpy(x).to(TORCH_DT[dtype])
+    xj = jnp.asarray(x).astype(dtype)
+    plan = jops._align_plan_to_block(plan_tpu_gemv(M, K, B, w_bytes=1), M,
+                                     K, B, 32)
+    if bits == 8:
+        stored = codes
+        expect = jax_quant_gemv(xj, jnp.asarray(codes), jnp.asarray(scales),
+                                plan=plan, block=32, interpret=True)
+    else:
+        lo = codes[0::2].astype(np.int16) & 0xF
+        hi = (codes[1::2].astype(np.int16) & 0xF) << 4
+        stored = (hi | lo).astype(np.uint8).view(np.int8)
+        unpacked = ref.unpack_int4(torch.from_numpy(stored)).numpy()
+        assert np.array_equal(unpacked, codes)
+        expect = jax_quant4_gemv(xj, jnp.asarray(stored),
+                                 jnp.asarray(scales), plan=plan, block=32,
+                                 interpret=True)
+    got = _block_factored(tx, torch.from_numpy(codes),
+                          torch.from_numpy(scales), 32)
+    np.testing.assert_allclose(_np(got), _np(expect), **TOL[dtype])
+    # and the plain twin the card holds the kernel against is the
+    # reference's arithmetic
+    plain = (quant_gemv_plain if bits == 8 else quant4_gemv_plain)(
+        tx, torch.from_numpy(stored), torch.from_numpy(scales), 32)
+    np.testing.assert_allclose(_np(plain), _np(expect), **TOL[dtype])
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_plans_restage_and_stay_whole_blocks(bits):
+    """Every ring depth the card holds is a plan of its own (an autotune
+    candidate ``quant/s3``); restaging keeps the tiles, so the order of
+    the sums."""
+    be = H100Backend(min_parallel_blocks=132)
+    for M, K in OLMO_SHAPES:
+        base = plan_quant(M, K, 8, bits=bits, block=32, sms=132)
+        depths = [d for d in range(1, 9) if with_pipeline_depth(
+            base, d, batch=8, bits=bits, block=32) is not None]
+        assert base.stages in depths and depths == list(
+            range(1, len(depths) + 1))
+        for d in depths:
+            p = with_pipeline_depth(base, d, batch=8, bits=bits, block=32)
+            assert (p.m_blk, p.k_blk, p.split_k) == (base.m_blk, base.k_blk,
+                                                     base.split_k)
+            assert quant_plan_fits(p, M, K, 8, bits=bits, block=32)
+        key = dispatch.GemvKey(M=M, K=K, batch=8, bits=bits, block=32,
+                               dtype="torch.bfloat16", backend="h100")
+        labels = [be.candidate_label(*c)
+                  for c in be.autotune_candidates(key, None, DispatchPolicy())]
+        kname = "quant" if bits == 8 else "quant4"
+        assert labels[0] == "ref" and labels[1] == f"{kname}/s{base.stages}"
+        assert sorted(labels[1:]) == sorted(f"{kname}/s{d}" for d in depths)
 
 
 def test_quant_wrappers_raise_on_bad_inputs_and_count_no_cpu_launch():
@@ -336,7 +426,9 @@ def test_quant_applies_at_m_multiples_of_16_where_the_tpu_gate_does_not(
     for M, K in ((2064, 2048), (1040, 4096), (48, 256)):
         for B in (1, 8, 16):
             kernel, plan = be.select_kernel(M, K, B, bits=bits, block=32)
-            assert kernel == want and plan.n_m * plan.m_blk == M
+            # the last column block may be ragged (the copy engine
+            # zero-fills past M)
+            assert kernel == want and plan.n_m == -(-M // plan.m_blk)
             assert tpu.select_kernel(M, K, B, bits=bits, block=32)[0] == "ref"
             assert be.select_kernel(M - 8, K, B, bits=bits, block=32)[0] == \
                 tpu.select_kernel(M - 8, K, B, bits=bits, block=32)[0] == "ref"

@@ -24,6 +24,7 @@ from repro_torch.kernels.backends.base import (
 )
 from repro_torch.kernels.backends.gpu import GpuBackend, plan_triton_gemv
 from repro_torch.kernels.backends.h100 import H100Backend
+from repro_torch.kernels import ref
 from repro_torch.kernels.gemv_plan import (
     DEFAULT_STAGES,
     MAX_STAGES,
@@ -34,13 +35,14 @@ from repro_torch.kernels.gemv_plan import (
     grouped_plan_fits,
     plan_fits,
     plan_grouped_stream,
+    quant_plan_fits,
     stream_rows,
     stream_smem,
     sub_rows,
     with_pipeline_depth,
 )
 from repro_torch.kernels.grouped_gemv import plan_expert_gemv
-from repro_torch.kernels.ops import PackedWeights
+from repro_torch.kernels.ops import PackedWeights, quantize_weight
 from repro_torch.kernels.triton_gemv import body_ctas, body_m_blk
 from repro_torch.kernels.triton_gemv import plan_fits as triton_plan_fits
 
@@ -84,6 +86,47 @@ STALE_H100 = {
     "pim": dict(m_blk=128, k_blk=1024, n_m=2, n_k=4, split_k=1),
     "splitk": dict(m_blk=128, k_blk=512, n_m=2, n_k=1, split_k=8),
 }
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_a_stale_h100_quant_entry_replays_at_its_kernel(bits, tmp_path,
+                                                        monkeypatch,
+                                                        fresh_tables):
+    """A quant entry written before the quant kernels streamed (the
+    scalar kernel's plan: a 256-column block, a K chunk of 1024 rows, no
+    ring depth) replays at its kernel on a re-planned plan; the
+    autotuner's own table hit does the same."""
+    M, K, B = 512, 2048, 2
+    kname = "quant" if bits == 8 else "quant4"
+    be = H100Backend(min_parallel_blocks=SMS)
+    monkeypatch.setitem(base._REGISTRY, "h100", be)
+    rng = np.random.default_rng(bits)
+    pw = quantize_weight(torch.from_numpy(
+        rng.standard_normal((M, K)).astype(np.float32)), bits=bits)
+    x = torch.from_numpy(rng.standard_normal((B, K)).astype(np.float32))
+    entry = {"kernel": kname, "us": 5.0, "m_blk": 256, "k_blk": 1024,
+             "n_m": 2, "n_k": 2, "split_k": 1, "smem_bytes": 36864}
+    stale = base.entry_to_plan(entry)[1]
+    assert stale.stages == 1
+    assert not quant_plan_fits(stale, M, K, B, bits=bits, block=32,
+                               elem_bytes=4)
+    key = GemvKey(M=M, K=K, batch=B, bits=bits, block=32,
+                  dtype=str(x.dtype), backend="h100")
+    fresh_tables.put("h100", key.table_key(), entry)
+    _reload(fresh_tables, tmp_path)
+    seen = _record(monkeypatch, H100Backend, "execute")
+    out = dispatch.dispatch_gemv(x, pw, policy=DispatchPolicy(backend="h100"))
+    fn = ref.quant_gemv_ref if bits == 8 else ref.quant4_gemv_ref
+    np.testing.assert_allclose(out.numpy(),
+                               fn(pw.w_t, pw.scales, x, 32).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    (ran, _, _, plan), = seen
+    assert ran == kname
+    assert quant_plan_fits(plan, M, K, B, bits=bits, block=32, elem_bytes=4)
+    dispatch.clear_plan_cache()
+    assert be.autotune_gemv(key, policy=DispatchPolicy(backend="h100"),
+                            table=fresh_tables,
+                            device=torch.device("cpu")) == (kname, plan)
 
 
 @pytest.mark.parametrize("kernel", sorted(STALE_H100))
