@@ -31,7 +31,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    decode step midway through the engine's requests, against its plain
    version (and with idle slots past the end, and an all-masked slot),
    then timed beside its bound, the plain version and
-   ``scaled_dot_product_attention``; then on int8 and int4 pages of the
+   ``scaled_dot_product_attention`` (and with one position a split: the
+   kernel's fixed cost); then on int8 and int4 pages of the
    same caches, read in place: bit-identical to the fp kernel on
    ``dequantize_page``'s tensor at every split count, in both cases, and
    timed beside the bound of the codes and scales;
@@ -66,9 +67,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``grouped_gemv`` at deepseek-moe-16b's expert shapes (gate/up K=2048
    M=1408, down K=1408 M=2048, E=64) in bf16, each against its plain
    version, then timed: ragged on four routings (8 tokens top-6, T=48; 1
-   token, T=6; 8 rows on one expert; counts short of T, tail rows), grouped
-   at C=8 (and C=16, 64 checked); the bound counts only the experts that
-   have rows; grouped at C=8 at every ring depth, bit-identical, timed;
+   token, T=6; 8 rows on one expert; counts short of T, tail rows) at the
+   plan for the card's SMs (live CTAs and split degree printed; equal from
+   run to run), beside padded ``torch.bmm``; on both top-6 routings at
+   every ring depth (bit-identical) and every split degree (within
+   tolerance), timed; grouped at C=8 (and C=16, 64 checked); the bound
+   counts only the experts that have rows; grouped at C=8 at every ring
+   depth, bit-identical, timed;
 9. moe engine -- deepseek-moe-16b at full width and depth (28 layers), bf16,
    seed 0, ``Engine(batch_slots=8, max_len=1024)``, the same 8 requests:
    fails unless ``ragged_gemv`` launched three times per layer on every
@@ -93,9 +98,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    labelled ``pim/s4`` etc.); table and plan cache cleared, the file
    reloaded, and every untuned pick must be the table's winner; then a
    table written before the streaming kernels (one-stage plans with
-   1024-row K chunks, and a grouped expert program on the first grouped
-   kernel's tiles) replays: each GEMV keeps its kernel on a re-planned
-   plan and matches its plain version;
+   1024-row K chunks, and grouped and ragged expert programs on the first
+   expert kernels' tiles) replays: each GEMV keeps its kernel on a
+   re-planned plan and matches its plain version;
 13. the ``{"kernels": [...]}`` line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -149,7 +154,6 @@ from repro_torch.kernels.grouped_gemv import (  # noqa: E402
     counts_to_offsets,
     grouped_gemv,
     grouped_gemv_plain,
-    plan_expert_gemv,
     ragged_gemv,
     ragged_gemv_plain,
 )
@@ -160,11 +164,16 @@ from repro_torch.kernels.gemv_plan import (  # noqa: E402
     grouped_plan_fits,
     plan_fits,
     plan_gemv,
+    RAGGED_DEGREES,
     plan_grouped_stream,
     plan_quant,
+    plan_ragged_stream,
     plan_splitk,
     quant_candidates,
+    ragged_box_rows,
+    ragged_plan_fits,
     stream_rows,
+    stream_smem,
     sub_rows,
     valid_splitk_degree,
     with_pipeline_depth,
@@ -494,7 +503,9 @@ def ptxas_table(report: dict) -> list[dict]:
                              capture_output=True, text=True, timeout=60)
         if out.returncode == 0:
             for r, d in zip(rows, out.stdout.splitlines()):
-                r["demangled"] = d.split("(")[0].replace("void ", "")
+                r["demangled"] = d.replace("(anonymous namespace)::",
+                                           "").split("(")[0].replace(
+                                               "void ", "")
     except (OSError, subprocess.SubprocessError):
         pass
     return rows
@@ -925,10 +936,19 @@ def check_attention(dev, layers: int) -> list[dict]:
 
     by_splits = {n_split: graph_ms(lambda i, n=n_split: run_split(i, n),
                                    100) for n_split in (1, 2, 4, 8)}
+    # the kernel's fixed cost: one position a split at the plan's splits
+    one = torch.full((B,), splits, dtype=torch.int32, device=dev)
+    one_pos = (one - 1).long()[:, None]
+
+    def run_one(i):
+        decode_attention(q, ks[i % n_copies], vs[i % n_copies],
+                         q_positions=one_pos, kv_valid_len=one)
+
     row = dict(kernel="decode_attention", shape="engine", store="fp", B=B,
                C=C, Hkv=Hkv, H=H, D=D, valid=ATTN_VALID, splits=splits,
                per_step=layers, max_abs_err=max(errs.values()),
                errs=errs, ms=graph_ms(run, 100), ms_by_splits=by_splits,
+               one_position_ms=graph_ms(run_one, 100),
                plain_ms=graph_ms(run_plain, 20),
                library_ms=graph_ms(run_lib, 100), **bound)
     row["hbm_share"] = row["bound_ms"] / row["ms"]
@@ -939,7 +959,8 @@ def check_attention(dev, layers: int) -> list[dict]:
         f"plain={row['plain_ms']:.4f} sdpa={row['library_ms']:.4f}; "
         f"checked at splits {sorted({splits, 1, 2, 4, 8})}, idle slots "
         f"past the end and an all-masked slot; ms by splits "
-        + " ".join(f"s{n}={t:.4f}" for n, t in by_splits.items()))
+        + " ".join(f"s{n}={t:.4f}" for n, t in by_splits.items())
+        + f"; one position a split {row['one_position_ms']:.4f}")
     rows = [row]
     # quantized pages, read in place: bit-identical to the fp kernel on
     # dequantize_page's tensor, at every split count, in both cases
@@ -1546,31 +1567,103 @@ def moe_bounds(K, M, active, rows, T, x_rows) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def ragged_plan_at(plan, deg: int, M: int, K: int, T: int):
+    """``plan``'s column block at split degree ``deg`` (None where the
+    kernel does not take it), at the default depth."""
+    if K % deg or (K // deg) % 8:
+        return None
+    k_blk = sub_rows(plan.m_blk, K // deg, 2)
+    n_k = -(-(K // deg) // k_blk)
+    stages = min(2, n_k)
+    alt = dataclasses.replace(
+        plan, split_k=deg, k_blk=k_blk, n_k=n_k, stages=stages,
+        smem_bytes=stream_smem(ragged_box_rows(T, 2), plan.m_blk, k_blk,
+                               stages, 2, deg))
+    return alt if ragged_plan_fits(alt, M, K, T) else None
+
+
+def ragged_sweeps(shape, name, x, offsets, ws, n_copies, plan, out, ref):
+    """ragged_gemv at every ring depth the card holds (bit-identical to
+    the plan's depth) and at every split degree of the plan's column
+    block (each held to the tolerance against the plain version), timed;
+    returns the sweep rows."""
+    T, K, M = x.shape[0], x.shape[1], out.shape[1]
+    rows, times, split_times = [], {}, {}
+    for depth in range(1, MAX_STAGES + 1):
+        dplan = with_pipeline_depth(plan, depth,
+                                    batch=ragged_box_rows(T, 2),
+                                    elem_bytes=2)
+        if dplan is None:
+            continue
+        if not torch.equal(ragged_gemv(x, offsets, ws[0], plan=dplan), out):
+            raise AssertionError(
+                f"ragged_gemv {shape} {name}: stages={depth} differs from "
+                f"the default stages={plan.stages}")
+
+        def run_d(i, dplan=dplan):
+            ragged_gemv(x, offsets, ws[i % n_copies], plan=dplan)
+
+        times[depth] = graph_ms(run_d, 40)
+        rows.append(dict(kernel="ragged_gemv", shape=shape, routing=name,
+                         T=T, m_blk=plan.m_blk, split_k=plan.split_k,
+                         default_stages=plan.stages, stages=depth,
+                         ms=times[depth]))
+    for deg in RAGGED_DEGREES:
+        splan = ragged_plan_at(plan, deg, M, K, T)
+        if splan is None:
+            continue
+        check_close("ragged_gemv", f"{shape} {name} split {deg}",
+                    ragged_gemv(x, offsets, ws[0], plan=splan), ref)
+
+        def run_s(i, splan=splan):
+            ragged_gemv(x, offsets, ws[i % n_copies], plan=splan)
+
+        split_times[deg] = graph_ms(run_s, 40)
+        rows.append(dict(kernel="ragged_gemv", shape=shape, routing=name,
+                         T=T, m_blk=plan.m_blk, split_k=deg,
+                         default_split=plan.split_k, stages=splan.stages,
+                         ms=split_times[deg]))
+    log(f"  ragged_gemv  {shape:8s} {name:8s} bit-identical at stages "
+        f"{sorted(times)} (default {plan.stages}); ms "
+        + " ".join(f"s{d}={t:.4f}" for d, t in times.items())
+        + f"; within tolerance at split degrees {sorted(split_times)} "
+        f"(plan {plan.split_k}); ms "
+        + " ".join(f"d{d}={t:.4f}" for d, t in split_times.items()))
+    return rows
+
+
 def check_moe_kernels(dev) -> tuple[list[dict], list[dict]]:
     """ragged_gemv on the four routings and grouped_gemv at C=8, at
     deepseek-moe-16b's expert shapes in bf16: each against its plain
     version, then timed with the stack rotated past the L2 (copies enough
-    that even the 6 experts of one token exceed it twice over); grouped
-    also at C=16 and 64 (several n-tiles a weight sub-tile: checked), and
-    at C=8 at every ring depth (bit-identical to the default, timed).
-    Returns the rows and the depth sweep."""
+    that even the 6 experts of one token exceed it twice over); ragged on
+    the plan for the card's SMs (live CTAs, split degree), equal from run
+    to run, and on the top-6 routings at every ring depth (bit-identical)
+    and every split degree (within tolerance), timed; grouped also at
+    C=16 and 64 (several n-tiles a weight sub-tile: checked), and at C=8
+    at every ring depth (bit-identical to the default, timed).  Returns
+    the rows and the sweeps."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 40)
     routings = moe_routings()
     rows, sweep = [], []
     for shape, (K, M, per_step) in MOE_SHAPES.items():
-        plan = plan_expert_gemv(M, K)
         gplan = plan_grouped_stream(M, K, MOE_C, E=MOE_E)
         n_copies = max(2, math.ceil(2 * L2_BYTES / (MOE_TOPK * K * M * 2))
                        + 1)
         ws = [(torch.randn((MOE_E, K, M), generator=gen, device=dev)
                / math.sqrt(K)).to(torch.bfloat16) for _ in range(n_copies)]
         for name, (T, counts) in routings.items():
+            plan = plan_ragged_stream(M, K, T, E=MOE_E)
             x = torch.randn((T, K), generator=gen, device=dev).to(
                 torch.bfloat16)
             offsets = counts_to_offsets(torch.tensor(
                 counts, dtype=torch.int32, device=dev))
             out = ragged_gemv(x, offsets, ws[0], plan=plan)
+            again = ragged_gemv(x, offsets, ws[0], plan=plan)
             torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise AssertionError(f"ragged_gemv {shape} {name}: differs "
+                                     f"from run to run")
             ref = ragged_gemv_plain(x, offsets, ws[0])
             err = check_close("ragged_gemv", f"{shape} {name}", out, ref)
             if out[int(counts.sum()):].any():
@@ -1585,7 +1678,7 @@ def check_moe_kernels(dev) -> tuple[list[dict], list[dict]]:
             idx = torch.from_numpy(active).to(dev)
             wa = [w[idx] for w in ws]
 
-            def run(i, x=x, offsets=offsets):
+            def run(i, x=x, offsets=offsets, plan=plan):
                 ragged_gemv(x, offsets, ws[i % n_copies], plan=plan)
 
             def run_plain(i, x=x, offsets=offsets):
@@ -1594,11 +1687,14 @@ def check_moe_kernels(dev) -> tuple[list[dict], list[dict]]:
             def run_bmm(i, xp=xp, wa=wa):
                 torch.bmm(xp, wa[i % n_copies])
 
+            live = len(active) * plan.n_m * plan.split_k
             row = dict(kernel="ragged_gemv", shape=shape, routing=name, T=T,
                        K=K, M=M, per_step=per_step,
                        experts_with_rows=len(active),
                        rows=int(counts.sum()),
-                       plan=dict(m_blk=plan.m_blk, k_blk=plan.k_blk),
+                       plan=dict(plan_dict(plan), live_ctas=live,
+                                 ctas=min(MOE_E, T) * plan.n_m
+                                 * plan.split_k),
                        max_abs_err=err, ms=graph_ms(run, 40),
                        plain_ms=event_ms(run_plain, 5), library_ms=None,
                        bmm_ref_ms=graph_ms(run_bmm, 40),
@@ -1608,10 +1704,14 @@ def check_moe_kernels(dev) -> tuple[list[dict], list[dict]]:
             rows.append(row)
             del wa, xp
             log(f"  ragged_gemv  {shape:8s} {name:8s} T={T:2d} experts "
-                f"{len(active):2d} err={err:.2e} ms={row['ms']:.4f} "
-                f"bound={row['bound_ms']:.4f} ({row['hbm_share']:.0%}) "
-                f"plain={row['plain_ms']:.4f} "
+                f"{len(active):2d} live ctas {live:4d} (m_blk "
+                f"{plan.m_blk}, split {plan.split_k}) err={err:.2e} "
+                f"ms={row['ms']:.4f} bound={row['bound_ms']:.4f} "
+                f"({row['hbm_share']:.0%}) plain={row['plain_ms']:.4f} "
                 f"bmm ref={row['bmm_ref_ms']:.4f}")
+            if name in ("top6_b8", "top6_b1"):
+                sweep += ragged_sweeps(shape, name, x, offsets, ws,
+                                       n_copies, plan, out, ref)
         xs = torch.randn((MOE_E, MOE_C, K), generator=gen, device=dev).to(
             torch.bfloat16)
         out = grouped_gemv(xs, ws[0], plan=gplan)
@@ -1982,10 +2082,10 @@ STALE_TABLE = ROOT / "build" / "autotune_stale.json"
 def replay_stale_table(dev) -> dict:
     """A table written before the streaming kernels, replayed: h100
     entries for olmo-1b's four decode GEMVs at batch 8 with the old
-    one-stage plans (a 1024-row K chunk where K allows), a ``grouped_cuda``
-    program for deepseek-moe-16b's gate/up experts on the first grouped
-    kernel's tiles (``plan_expert_gemv``), and a one-stage gpu ``triton``
-    entry for the head.  Each replays on its entry's kernel (re-planned
+    one-stage plans (a 1024-row K chunk where K allows), ``grouped_cuda``
+    and ``ragged_cuda`` programs for deepseek-moe-16b's gate/up experts on
+    the first expert kernels' tiles (128 columns, a 1024-row x chunk, one
+    stage), and a one-stage gpu ``triton`` entry for the head.  Each replays on its entry's kernel (re-planned
     where the kernel no longer takes the plan), launches it, and matches
     its plain version."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 55)
@@ -2019,9 +2119,18 @@ def replay_stale_table(dev) -> dict:
     xs = torch.randn((MOE_E, MOE_C, K), generator=gen, device=dev).to(
         torch.bfloat16)
     pkey = GemvProgram.grouped(xs, stack).key("h100")
-    old_tiles = plan_expert_gemv(M, K)
+    # what the first expert kernels' planner gave at gate/up's shape
+    old_tiles = GemvPlan(m_blk=128, k_blk=1024, n_m=11, n_k=2,
+                         smem_bytes=40960)
     table.put_program("h100", pkey.table_key(), program_plan_to_entry(
         ProgramPlan(mode="grouped_cuda", n_launches=1, kernel="grouped_gemv",
+                    plan=old_tiles), 1.0))
+    T_r, counts_r = moe_routings()["top6_b8"]
+    xr = torch.randn((T_r, K), generator=gen, device=dev).to(torch.bfloat16)
+    counts_r = torch.tensor(counts_r, dtype=torch.int32, device=dev)
+    rkey = GemvProgram.ragged(xr, counts_r, stack).key("h100")
+    table.put_program("h100", rkey.table_key(), program_plan_to_entry(
+        ProgramPlan(mode="ragged_cuda", n_launches=1, kernel="ragged_gemv",
                     plan=old_tiles), 1.0))
     hkey = GemvKey(M=SHAPES["head"][1], K=SHAPES["head"][0], batch=B,
                    bits=16, block=32, dtype=str(torch.bfloat16),
@@ -2076,6 +2185,27 @@ def replay_stale_table(dev) -> dict:
                              stale=plan_dict(old_tiles),
                              replayed=plan_dict(gplan), re_planned=True,
                              max_abs_err=err))
+    dispatch.clear_plan_cache()
+    reset_launches()
+    out = dispatch.dispatch_ragged(xr, counts_r, stack,
+                                   policy=DispatchPolicy(backend="h100"))
+    torch.cuda.synchronize()
+    modes = dispatch.dispatch_stats()["program_modes"]
+    if modes != {"h100:ragged_cuda": 1} or launches()["ragged_gemv"] != 1:
+        raise AssertionError(f"stale ragged entry: modes {modes}, "
+                             f"launches {launches()}")
+    rplan = h100.replay_program(
+        ProgramPlan(mode="ragged_cuda", n_launches=1, kernel="ragged_gemv",
+                    plan=old_tiles), rkey, DispatchPolicy()).plan
+    if not ragged_plan_fits(rplan, M, K, T_r, 2):
+        raise AssertionError(f"stale ragged entry replayed at {rplan}")
+    err = check_close("ragged_gemv", "stale ragged program", out,
+                      ragged_gemv_plain(xr, counts_to_offsets(counts_r),
+                                        stack.w_t))
+    res["cases"].append(dict(case="ragged_gate_up", kernel="ragged_gemv",
+                             stale=plan_dict(old_tiles),
+                             replayed=plan_dict(rplan), re_planned=True,
+                             max_abs_err=err))
     key, _, pw, x = cases["head"]
     dispatch.clear_plan_cache()
     reset_launches()
@@ -2097,7 +2227,7 @@ def replay_stale_table(dev) -> dict:
             f"{c['max_abs_err']:.2e}")
     dispatch.clear_autotune_table()
     dispatch.clear_plan_cache()
-    del cases, stack, xs
+    del cases, stack, xs, xr
     torch.cuda.empty_cache()
     return res
 
@@ -2153,7 +2283,7 @@ def kernels_line(rows: list[dict], launch_counts: dict) -> dict:
                                  in MOE_SHAPES.items()))
             keys = ("shape", "routing", "T", "K", "M", "experts_with_rows",
                     "ms", "plain_ms", "library_ms", "bound_ms",
-                    "max_abs_err") + (("bmm_ref_ms",)
+                    "max_abs_err") + (("bmm_ref_ms", "plan")
                                       if name == "ragged_gemv" else ())
         else:
             basis = ("one olmo-1b decode step at batch 8: "

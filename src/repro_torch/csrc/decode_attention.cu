@@ -39,13 +39,26 @@
 // 16-byte vectors (V = 8 bf16 or 4 f32), a warp covers 32 V / D positions
 // a step and each thread keeps kUnroll vectors in flight; K and V are read
 // in place through their strides (a slot-prefix view of the cache runs
-// without a copy).  The CTA keeps its scores in shared memory; the max and
-// the sum of the softmax are exchanged across the cluster in rank order
-// through distributed shared memory, so every CTA rounds its
-// probabilities exactly as one softmax over all n positions would; each
-// CTA's P.V partial [G, D] is summed over the ranks in order by the rank
-// that owns its share of the outputs.  One launch, no atomics: the result
-// does not change from run to run.
+// without a copy).  V does not depend on the scores, so at entry the CTA
+// starts async copies (cp.async, one commit group) of the V rows of its
+// first `stage` positions (their codes and scales on a quantized store)
+// into shared memory, then walks K and exchanges the softmax's max and sum
+// while they are in flight; the P.V walk reads V from shared memory once
+// the group has landed.  `stage` is a whole number of the P.V walk's steps
+// (kWarps * 32 V / D * kUnroll positions) whose rows fit kStageBytes, so
+// a CTA stays small enough for the grid to stay resident (8 CTAs an SM at
+// G <= 2); a split of more positions stages its later chunks in turn,
+// each after the last is consumed, and every thread visits its positions
+// in the same order as one walk over [lo, hi).  The CTA keeps its scores
+// in shared memory; each rank pushes its max, then its sum, then each
+// share of its P.V partial [G, D] into the shared memory of every peer
+// (of the share's owner) and one cluster.sync() later reads them from its
+// own, in rank order: every CTA rounds its probabilities exactly as one
+// softmax over all n positions would, and the owner of a share of the
+// outputs sums it over the ranks in order.  Three cluster barriers, no
+// read of a peer's shared memory, so no barrier before exit; one launch,
+// no atomics: the result does not change from run to run, and is the
+// first design's bit for bit (its sums ran in the same order).
 //
 // Plain C interface, loaded with ctypes.  Each entry returns the launch's
 // CUDA error (0 when it was taken).
@@ -65,11 +78,12 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;          // K / V vectors in flight per thread
+constexpr int kMinBlocks = 4;       // launch bound: at most 128 registers,
+                                    // 64 for G <= 2 (8 CTAs an SM)
 constexpr int kMaxSplits = 8;       // the portable cluster size
+constexpr int kStageBytes = 24 * 1024;  // V rows staged at a time, at most
 constexpr float kBigNeg = -2.0e9f;  // the reference's masked score
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float v, float* o) { *o = v; }
 __device__ __forceinline__ void store(float v, bf16* o) {
   *o = __float2bfloat16_rn(v);
@@ -85,6 +99,30 @@ template <typename T, int S>
 __host__ __device__ constexpr int lane_bytes() {
   return S == 0 ? 16 : S == 8 ? 16 / static_cast<int>(sizeof(T))
                               : 8 / static_cast<int>(sizeof(T));
+}
+
+// The unit of the V staging copies: what a lane reads, at least 4 bytes
+// (the smallest cp.async).
+template <typename T, int S>
+__host__ __device__ constexpr int unit_bytes() {
+  return lane_bytes<T, S>() < 4 ? 4 : lane_bytes<T, S>();
+}
+
+// Bytes of one position's V row: D elements of T, or their codes.
+inline int row_bytes(int D, int elem_bytes, int bits) {
+  return bits == 16 ? D * elem_bytes : D * bits / 8;
+}
+
+// One async copy of BYTES (4, 8 or 16) from global to shared memory.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                 :: "r"(d), "l"(src), "n"(BYTES) : "memory");
 }
 
 // A lane's BYTES of one position, in the low bytes of a uint4.
@@ -105,26 +143,33 @@ __device__ __forceinline__ uint4 load_lane(const void* p) {
   return r;
 }
 
+// 32-bit word i of a uint4 (i known at compile time once unrolled): no
+// address of the vector is taken, so it stays in registers.
+__device__ __forceinline__ uint32_t word(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
+
 // The V values of a lane as f32: elements of T, or codes (S = 8: one int8
 // a lane, S = 4: lane 2i in the low nibble of byte i) dequantized as
 // dequantize_page does, T(f32(q) * scale), and widened back.
 template <typename T, int V, int S>
 __device__ __forceinline__ void unpack(const uint4& raw, float scale,
                                        float (&f)[V]) {
-  if constexpr (S == 0) {
-    const T* e = reinterpret_cast<const T*>(&raw);
+  const T* tag = nullptr;
 #pragma unroll
-    for (int j = 0; j < V; ++j) f[j] = to_f32(e[j]);
-  } else {
-    const uint8_t* e = reinterpret_cast<const uint8_t*>(&raw);
-    const T* tag = nullptr;
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
+  for (int j = 0; j < V; ++j) {
+    if constexpr (S == 0) {
+      if constexpr (std::is_same<T, float>::value)
+        f[j] = __uint_as_float(word(raw, j));
+      else
+        f[j] = __bfloat162float(__ushort_as_bfloat16(
+            static_cast<unsigned short>(word(raw, j / 2) >> (16 * (j & 1)))));
+    } else {
       int q;
       if constexpr (S == 8) {
-        q = static_cast<int8_t>(e[j]);
+        q = static_cast<int8_t>(word(raw, j / 4) >> (8 * (j % 4)));
       } else {   // sign-extend the nibble from the top of a byte
-        const unsigned u = e[j / 2];
+        const unsigned u = (word(raw, j / 8) >> (8 * ((j / 2) % 4))) & 0xffu;
         q = static_cast<int8_t>((j & 1) ? u : u << 4) >> 4;
       }
       f[j] = round_to(__fmul_rn(static_cast<float>(q), scale), tag);
@@ -156,16 +201,18 @@ struct Args {
   long long qpos_stride, vlen_stride;
   int qpos_bytes, vlen_bytes;
   int C, Hkv, D, splits, cap;  // cap: positions one split holds at most
+  int stage;                   // V rows staged at a time
   long long q_sb, k_sb, k_sp, k_sh, v_sb, v_sp, v_sh;
   long long ks_sb, ks_sp, ks_sh, vs_sb, vs_sp, vs_sh;
   float scale;                 // sqrt(D), as the reference divides by it
 };
 
-// The G per-thread values summed (MAX = false) or maxed over the CTA into
-// dst[G]: each warp by a shuffle tree, then the warps in order.
+// The G per-thread values summed (MAX = false) or maxed over the CTA: each
+// warp by a shuffle tree, then the warps in order; thread g < G returns
+// value g.
 template <int G, bool MAX>
-__device__ __forceinline__ void block_reduce(float (&x)[G], float* scratch,
-                                             float* dst) {
+__device__ __forceinline__ float block_reduce(float (&x)[G],
+                                              float* scratch) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -178,28 +225,98 @@ __device__ __forceinline__ void block_reduce(float (&x)[G], float* scratch,
 #pragma unroll
     for (int g = 0; g < G; ++g) scratch[warp * G + g] = x[g];
   __syncthreads();
+  float r = 0.f;
   if (threadIdx.x < G) {
-    float r = scratch[threadIdx.x];
+    r = scratch[threadIdx.x];
     for (int w = 1; w < kWarps; ++w) {
       const float y = scratch[w * G + threadIdx.x];
       r = MAX ? fmaxf(r, y) : r + y;
     }
-    dst[threadIdx.x] = r;
   }
+  return r;
+}
+
+// Thread g < G stores v into slot [rank][g] of `box` in every CTA of the
+// cluster (its own included): after the next cluster.sync() each CTA
+// reads every rank's value from its own shared memory.
+template <int G>
+__device__ __forceinline__ void push(cg::cluster_group& cluster, float* box,
+                                     float v, int rank, int splits) {
+  if (threadIdx.x < G)
+    for (int r = 0; r < splits; ++r)
+      cluster.map_shared_rank(box, r)[rank * G + threadIdx.x] = v;
 }
 
 inline size_t smem_floats(int G, int D, int cap) {
   return static_cast<size_t>(G) * cap            // scores, then probabilities
-         + static_cast<size_t>(G) * D            // the CTA's P.V partial
+         + static_cast<size_t>(G) * D + kMaxSplits  // the ranks' P.V shares
          + static_cast<size_t>(kWarps) * G * D   // the warps' P.V partials
          + static_cast<size_t>(kWarps) * G       // reduce scratch
-         + 2 * static_cast<size_t>(G);           // max, sum
+         + 2 * static_cast<size_t>(kMaxSplits) * G;  // every rank's max, sum
+}
+
+// Positions of one step of the P.V walk: a whole number of them is staged.
+inline int walk_step(int D, int elem_bytes) {
+  const int lanes = D / (16 / elem_bytes);
+  return kWarps * (lanes >= 1 && lanes <= 32 ? 32 / lanes : 1) * kUnroll;
+}
+
+// V rows staged at a time: a split's positions rounded up to whole steps
+// of the walk, at most the whole steps whose rows (and scales) fit
+// kStageBytes, at least one step.
+inline int stage_positions(int D, int C, int splits, int elem_bytes,
+                           int bits) {
+  const int it = walk_step(D, elem_bytes);
+  const int cap = (C + splits - 1) / splits;
+  const int per = row_bytes(D, elem_bytes, bits) + (bits == 16 ? 0 : 4);
+  const int most = kStageBytes / per / it * it;
+  const int all = (cap + it - 1) / it * it;
+  return all < most ? all : (most > it ? most : it);
+}
+
+// Bytes of one launch: the floats, then (16-byte aligned) the staged V
+// rows and, for codes, their f32 scales.
+inline size_t smem_total(int G, int D, int C, int splits, int elem_bytes,
+                         int bits) {
+  const size_t floats =
+      sizeof(float) * smem_floats(G, D, (C + splits - 1) / splits);
+  const size_t rows = stage_positions(D, C, splits, elem_bytes, bits);
+  return (floats + 15) / 16 * 16
+         + rows * (row_bytes(D, elem_bytes, bits) + (bits == 16 ? 0 : 4));
+}
+
+// Start the async copies (one commit group) of the V rows [p0, p1) of
+// slot b, kv head h into vst (rows of `row` bytes) and, for codes, their
+// scales into vsc.  Reads its strides from the kernel's parameters, so
+// nothing of it stays live across the K walk.
+template <typename T, int S>
+__device__ __forceinline__ void stage_v(const Args& a, int b, int h,
+                                        unsigned char* vst, float* vsc,
+                                        int p0, int p1) {
+  using E = typename std::conditional<S == 0, T, int8_t>::type;
+  constexpr int kUnit = unit_bytes<T, S>();
+  const int row = a.D / (S == 4 ? 2 : 1) * static_cast<int>(sizeof(E));
+  const int units = row / kUnit;
+  const unsigned char* vrow = reinterpret_cast<const unsigned char*>(
+      static_cast<const E*>(a.v) + b * a.v_sb + h * a.v_sh);
+  const long long v_pb = a.v_sp * static_cast<long long>(sizeof(E));
+  for (int i = threadIdx.x; i < (p1 - p0) * units; i += kThreads) {
+    const int p = p0 + i / units, c = (i % units) * kUnit;
+    cp_async<kUnit>(vst + (p - p0) * row + c, vrow + p * v_pb + c);
+  }
+  if constexpr (S != 0) {
+    const float* vsb = a.v_scale + b * a.vs_sb + h * a.vs_sh;
+    for (int i = threadIdx.x; i < p1 - p0; i += kThreads)
+      cp_async<4>(vsc + i, vsb + (p0 + i) * a.vs_sp);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // Grid (splits, B * Hkv); cluster (splits, 1, 1).  S: the store (0: k / v
 // of type T, 8 / 4: int8 / packed int4 codes with f32 scales).
 template <typename T, int G, int S>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads,
+                                  G <= 2 ? 2 * kMinBlocks : kMinBlocks)
 decode_attention_kernel(const Args a) {
   constexpr int V = 16 / sizeof(T);
   constexpr int kLaneBytes = lane_bytes<T, S>();
@@ -208,16 +325,24 @@ decode_attention_kernel(const Args a) {
   const int LP = a.D / V;          // lanes of one position
   const int P = 32 / LP;           // positions of one warp step
   const int step = kWarps * P;     // positions of one CTA step
+  const int row = a.D / kPerByte * static_cast<int>(sizeof(E));  // V bytes
   extern __shared__ __align__(16) float smem[];
   float* sc = smem;                              // [G][cap]
-  float* part = sc + G * a.cap;                  // [G][D]
-  float* wred = part + G * a.D;                  // [kWarps][G][D]
+  float* inbox = sc + G * a.cap;                 // [splits][share]
+  float* wred = inbox + G * a.D + kMaxSplits;    // [kWarps][G][D]
   float* scratch = wred + kWarps * G * a.D;      // [kWarps][G]
-  float* smax = scratch + kWarps * G;            // [G]
-  float* ssum = smax + G;                        // [G]
+  float* smax = scratch + kWarps * G;            // [kMaxSplits][G]
+  float* ssum = smax + kMaxSplits * G;           // [kMaxSplits][G]
+  unsigned char* vst = reinterpret_cast<unsigned char*>(smem)   // [stage][row]
+                       + (sizeof(float) * (ssum + kMaxSplits * G - smem) + 15)
+                             / 16 * 16;
+  float* vsc = reinterpret_cast<float*>(vst + a.stage * row);  // [stage]
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
+  // this CTA has started: a peer may store into its shared memory once it
+  // has waited for this arrival (before its first push)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   const int b = blockIdx.y / a.Hkv;
   const int h = blockIdx.y % a.Hkv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -237,10 +362,10 @@ decode_attention_kernel(const Args a) {
 
   const E* kb = static_cast<const E*>(a.k) + b * a.k_sb + h * a.k_sh
                 + d0 / kPerByte;
-  const E* vb = static_cast<const E*>(a.v) + b * a.v_sb + h * a.v_sh
-                + d0 / kPerByte;
   const float* ksb = a.k_scale + b * a.ks_sb + h * a.ks_sh;   // S != 0
-  const float* vsb = a.v_scale + b * a.vs_sb + h * a.vs_sh;
+
+  // 0. start the copies of the first chunk of V rows
+  stage_v<T, S>(a, b, h, vst, vsc, lo, min(hi, lo + a.stage));
 
   // 1. scores of positions [lo, hi)
   {
@@ -297,16 +422,16 @@ decode_attention_kernel(const Args a) {
   for (int i = tid; i < hi - lo; i += kThreads)
 #pragma unroll
     for (int g = 0; g < G; ++g) x[g] = fmaxf(x[g], sc[g * a.cap + i]);
-  block_reduce<G, true>(x, scratch, smax);
-  cluster.sync();                    // every rank's max is written
+  const float my_max = block_reduce<G, true>(x, scratch);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // peers run
+  push<G>(cluster, smax, my_max, rank, a.splits);
+  cluster.sync();                    // every rank's max is here
   float gmax[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) gmax[g] = -INFINITY;
-  for (int r = 0; r < a.splits; ++r) {
-    const float* m = cluster.map_shared_rank(smax, r);
+  for (int r = 0; r < a.splits; ++r)
 #pragma unroll
-    for (int g = 0; g < G; ++g) gmax[g] = fmaxf(gmax[g], m[g]);
-  }
+    for (int g = 0; g < G; ++g) gmax[g] = fmaxf(gmax[g], smax[r * G + g]);
 
   // 3. exp(s - max), and the sum over every split in rank order
 #pragma unroll
@@ -319,16 +444,15 @@ decode_attention_kernel(const Args a) {
       x[g] += e;
     }
   __syncthreads();                   // scratch is free again
-  block_reduce<G, false>(x, scratch, ssum);
-  cluster.sync();                    // every rank's sum is written
+  push<G>(cluster, ssum, block_reduce<G, false>(x, scratch), rank,
+          a.splits);
+  cluster.sync();                    // every rank's sum is here
   float total[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) total[g] = 0.f;
-  for (int r = 0; r < a.splits; ++r) {
-    const float* l = cluster.map_shared_rank(ssum, r);
+  for (int r = 0; r < a.splits; ++r)
 #pragma unroll
-    for (int g = 0; g < G; ++g) total[g] += l[g];
-  }
+    for (int g = 0; g < G; ++g) total[g] += ssum[r * G + g];
   const T* tag = nullptr;
   for (int i = tid; i < hi - lo; i += kThreads)
 #pragma unroll
@@ -336,36 +460,40 @@ decode_attention_kernel(const Args a) {
       sc[g * a.cap + i] = round_to(sc[g * a.cap + i] / total[g], tag);
   __syncthreads();
 
-  // 4. P.V over positions [lo, hi), f32
+  // 4. P.V over positions [lo, hi), f32, from the staged V rows: chunks of
+  // `stage` positions (whole steps of this walk), each staged once the
+  // last is consumed; the first was started at entry
   float acc[G][V];
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[g][j] = 0.f;
-  for (int base = lo + warp * P; base < hi; base += step * kUnroll) {
-    uint4 raw[kUnroll];
-    float ps[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int p = base + u * step + pw;
-      raw[u] = make_uint4(0u, 0u, 0u, 0u);
-      ps[u] = 0.f;
-      if (p < hi) {
-        raw[u] = load_lane<kLaneBytes>(vb + p * a.v_sp);
-        if constexpr (S != 0) ps[u] = vsb[p * a.vs_sp];
-      }
+  for (int c0 = lo; c0 < hi; c0 += a.stage) {
+    const int c1 = min(hi, c0 + a.stage);
+    if (c0 != lo) {
+      __syncthreads();               // the last chunk is consumed
+      stage_v<T, S>(a, b, h, vst, vsc, c0, c1);
     }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();                 // every thread's copies have landed
+    // shared memory answers at once: each position is read and summed in
+    // turn, in the order of the walk over [lo, hi)
+    for (int base = c0 + warp * P; base < c1; base += step * kUnroll) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int p = base + u * step + pw;
-      if (p < hi) {
-        float vf[V];
-        unpack<T, V, S>(raw[u], ps[u], vf);
+      for (int u = 0; u < kUnroll; ++u) {
+        const int p = base + u * step + pw;
+        if (p < c1) {
+          float vf[V];
+          unpack<T, V, S>(load_lane<kLaneBytes>(vst + (p - c0) * row
+                                                + lp * kLaneBytes),
+                          S != 0 ? vsc[p - c0] : 0.f, vf);
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float pg = sc[g * a.cap + p - lo];
+          for (int g = 0; g < G; ++g) {
+            const float pg = sc[g * a.cap + p - lo];
 #pragma unroll
-          for (int j = 0; j < V; ++j) acc[g][j] = fmaf(pg, vf[j], acc[g][j]);
+            for (int j = 0; j < V; ++j)
+              acc[g][j] = fmaf(pg, vf[j], acc[g][j]);
+          }
         }
       }
     }
@@ -384,25 +512,29 @@ decode_attention_kernel(const Args a) {
       for (int j = 0; j < V; ++j)
         wred[(warp * G + g) * a.D + d0 + j] = acc[g][j];
   __syncthreads();
+  // the CTA's partial, element i into slot [rank] of its owner's inbox
+  // (rank i / share owns outputs [owner * share, + share))
   const int GD = G * a.D;
+  const int share = (GD + a.splits - 1) / a.splits;
   for (int i = tid; i < GD; i += kThreads) {
     float s = 0.f;
     for (int w = 0; w < kWarps; ++w) s += wred[w * GD + i];
-    part[i] = s;
+    const int owner = i / share;
+    cluster.map_shared_rank(inbox, owner)[rank * share + i - owner * share]
+        = s;
   }
-  cluster.sync();                    // every rank's partial is written
+  cluster.sync();                    // every rank's share is here
 
-  // 5. rank r sums its share of the G x D outputs over the ranks in order
-  const int share = (GD + a.splits - 1) / a.splits;
+  // 5. rank r sums its share of the G x D outputs over the ranks in order,
+  // from its own shared memory: no CTA reads a peer's after the last sync
   const int end = min(GD, (rank + 1) * share);
   T* ob = static_cast<T*>(a.out)
           + (static_cast<long long>(b) * a.Hkv + h) * GD;
   for (int i = rank * share + tid; i < end; i += kThreads) {
     float s = 0.f;
-    for (int r = 0; r < a.splits; ++r) s += cluster.map_shared_rank(part, r)[i];
+    for (int r = 0; r < a.splits; ++r) s += inbox[r * share + i - rank * share];
     store(s, ob + i);
   }
-  cluster.sync();                    // no CTA leaves while a peer reads it
 }
 
 template <typename T, int G, int S>
@@ -414,7 +546,7 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const size_t smem = sizeof(float) * smem_floats(G, a.D, a.cap);
+  const size_t smem = smem_total(G, a.D, a.C, a.splits, sizeof(T), S ? S : 16);
   if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
@@ -441,7 +573,7 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 template <typename T, int S>
 bool launchable(const Args& a, int B, int G) {
   constexpr int V = 16 / sizeof(T);
-  constexpr int kLaneBytes = lane_bytes<T, S>();
+  constexpr int kLaneBytes = unit_bytes<T, S>();  // and the staging copies
   constexpr int kElem = S == 0 ? sizeof(T) : 1;   // bytes of a stored element
   const int LP = a.D / V;
   const auto aligned = [](const void* p, int bytes) {
@@ -459,6 +591,7 @@ bool launchable(const Args& a, int B, int G) {
                      && aligned(a.k_scale, 4) && aligned(a.v_scale, 4)));
   return B >= 1 && a.C >= 1 && a.Hkv >= 1 && a.D % V == 0 && LP >= 1
          && LP <= 32 && (LP & (LP - 1)) == 0
+         && row_bytes(a.D, sizeof(T), S ? S : 16) % kLaneBytes == 0
          && (G == 1 || G == 2 || G == 4 || G == 8)
          && (a.splits == 1 || a.splits == 2 || a.splits == 4
              || a.splits == kMaxSplits)
@@ -510,6 +643,7 @@ int entry(const void* q, const void* k, const void* v, const void* k_scale,
   a.D = D;
   a.splits = splits;
   a.cap = splits > 0 ? (C + splits - 1) / splits : 0;
+  a.stage = splits > 0 ? stage_positions(D, C, splits, sizeof(T), bits) : 0;
   a.q_sb = q_sb;
   a.k_sb = k_sb;
   a.k_sp = k_sp;
@@ -585,9 +719,11 @@ FP_ENTRY(decode_attention_f32, float)
 QUANT_ENTRY(decode_attention_quant_bf16, bf16)
 QUANT_ENTRY(decode_attention_quant_f32, float)
 
-// Dynamic shared memory of one launch, in bytes (the wrapper's check).
+// Dynamic shared memory of one launch, in bytes (the wrapper's check):
+// q of elem_bytes, pages of `bits` (16: the fp kernel).
 extern "C" long long decode_attention_smem_bytes(int G, int D, int C,
-                                                 int splits) {
+                                                 int splits, int elem_bytes,
+                                                 int bits) {
   return static_cast<long long>(
-      sizeof(float) * smem_floats(G, D, (C + splits - 1) / splits));
+      smem_total(G, D, C, splits, elem_bytes, bits));
 }

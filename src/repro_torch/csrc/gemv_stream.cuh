@@ -1,11 +1,14 @@
 // Streaming decode GEMV body for Hopper (sm_90a), shared by pim_gemv.cu,
-// splitk_gemv.cu, triton_gemv.cu and grouped_gemv.cu's grouped kernel
-// (ragged_gemv keeps gemv_tile.cuh).
+// splitk_gemv.cu, quant_gemv.cu, triton_gemv.cu and both kernels of
+// grouped_gemv.cu.
 //
 //   out[p][R, M] = x[p][R, K] @ w_t[p][K, M]      (w_t K-major)
 //
 // p runs over `parts` (blockIdx.y): the K parts of a split-K launch (whose
 // sums meet in a cluster), or the experts of a grouped launch, or just one.
+// The body is one CTA's K walk (`walk`): stream_kernel runs one a CTA;
+// ragged_gemv's kernel picks its expert on the device and runs one walk a
+// row chunk, the expert as a fourth dimension of the weight map.
 //
 // Bound: at decode batch each weight element feeds 2 * R flops, far below
 // the ~295 flops/byte where an H100 stops being memory bound, so the floor
@@ -227,6 +230,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A box of a 4-D tensor map (an expert stack's K parts) into shared
+// memory, counted on bar.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4],
                                                   const void* p) {
   asm volatile(
@@ -372,12 +388,17 @@ __device__ __forceinline__ float code_value(const unsigned char* ws, int k,
 // them in group order, then (no cluster) cast and write the first `rows`
 // rows of out, or (split-K) keep the partial [B][MBLK] behind them and sum
 // the cluster's partials in rank order through distributed shared memory.
+// keep (or null: every row) flags the rows that are stored.
 template <typename T, int MBLK, bool CLUSTER, int kGroups>
 __device__ __forceinline__ void finish(float* red, T* __restrict__ out,
                                        int B, int rows, int M, int col0,
-                                       long long o_rs) {
+                                       long long o_rs,
+                                       const unsigned char* keep) {
   const int tid = threadIdx.x;
   float* part = red + kGroups * B * MBLK;          // [B][MBLK], split-K
+  const auto stored = [&](int b) {
+    return b < rows && (keep == nullptr || keep[b]);
+  };
   for (int i = tid; i < B * MBLK; i += kThreads) {
     float s = 0.f;
 #pragma unroll
@@ -387,7 +408,7 @@ __device__ __forceinline__ void finish(float* red, T* __restrict__ out,
     } else {
       const int c = col0 + i % MBLK;
       const int b = i / MBLK;
-      if (c < M && b < rows) store(s, out + b * o_rs + c);
+      if (c < M && stored(b)) store(s, out + b * o_rs + c);
     }
   }
 
@@ -409,29 +430,52 @@ __device__ __forceinline__ void finish(float* red, T* __restrict__ out,
 #pragma unroll
       for (int q = 0; q < kMaxDeg; ++q)
         if (q < deg) s += v[q];
-      if (col0 + c < M && b < rows) store(s, out + b * o_rs + col0 + c);
+      if (col0 + c < M && stored(b)) store(s, out + b * o_rs + col0 + c);
     }
     cluster.sync();  // no CTA leaves while a peer still reads its tile
   }
 }
 
-// Grid (ceil(M / MBLK), parts); with CLUSTER the parts of a column block are
-// one cluster and share `out`, else part p writes out + p * o_ps.  B is
-// the rows of x's box (at most NT * 8 for bf16, kMaxB for f32), `rows` of
-// them (from row0 on) are stored; out rows lie o_rs apart, and `out`
-// already points at row0.  x_part_dim says which dimension of x's map is
-// the part (1) and which the row (the other).  Q: 0 for weights of type T
-// (ts unused), 8 / 4 for int8 / packed int4 codes scaled per `block` K
-// rows by the f32 map ts; ks counts stored rows.
-template <typename T, int MBLK, int NT, bool CLUSTER, int Q>
-__global__ void __launch_bounds__(kThreads,
-                                  (Q != 0 || NT > 4) ? 2 : kMinCtasPerSm)
-stream_kernel(const __grid_constant__ CUtensorMap tw,
-              const __grid_constant__ CUtensorMap tx,
-              const __grid_constant__ CUtensorMap ts, T* __restrict__ out,
-              int B, int rows, int M, int k_part, int ks, int stages,
-              int row0, int x_part_dim, long long o_ps, long long o_rs,
-              int block) {
+// The dynamic shared memory of a kernel, moved up to the swizzle's 1 KB.
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((kAlign - (smem_addr(raw) & (kAlign - 1))) & (kAlign - 1));
+}
+
+// One mbarrier per ring slot, made visible to the copy engine; the walk's
+// first __syncthreads() publishes them to the CTA.
+__device__ __forceinline__ void init_bars(uint64_t* bars, int stages) {
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < stages; ++q) mbar_init(&bars[q], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// What one K walk of a CTA streams and stores.  The box holds B rows of x,
+// copied xbox rows at a time (B a multiple of xbox); `rows` of them are
+// stored (those keep flags, when keep is not null), rows o_rs apart from
+// `out`.  The weight boxes come from map coordinates (column, K row of the
+// part, wpart) or, for an expert stack, (column, K row, wpart, expert);
+// x's from (K row, xpart, xrow) when x_part_dim is 1, else (K row, xrow,
+// xpart).  seq counts the sub-tiles the CTA's ring took before this walk:
+// slot and mbarrier phase follow from it, so one CTA can walk many times.
+struct Walk {
+  int B, xbox, rows;
+  const unsigned char* keep;
+  int M, k_part, ks, stages, seq, block, col0;
+  int wpart, expert, xpart, xrow, x_part_dim;
+  long long o_rs;
+};
+
+// One K walk through the ring and its epilogue (see the header).  Q: 0 for
+// weights of type T (ts unused), 8 / 4 for int8 / packed int4 codes scaled
+// per `block` K rows by the f32 map ts; ks counts stored rows.  EXPERT:
+// the weight map has the expert as a fourth dimension.
+template <typename T, int MBLK, int NT, bool CLUSTER, int Q, bool EXPERT>
+__device__ __forceinline__ void walk(const CUtensorMap& tw,
+                                     const CUtensorMap& tx,
+                                     const CUtensorMap& ts,
+                                     unsigned char* smem, uint64_t* bars,
+                                     T* __restrict__ out, const Walk& a) {
   constexpr bool kMma = std::is_same<T, bf16>::value;
   static_assert(kMma || NT == 1, "f32 holds kMaxB rows a launch");
   static_assert(Q == 0 || Q == 8 || Q == 4, "codes are int8 or int4");
@@ -440,49 +484,49 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
   constexpr int kPitch = Q ? MBLK : kRowBytes;
   constexpr int kTiles = MBLK / 16;          // m16 tiles (bf16)
   constexpr int kGroups = (kMma ? kWarps * 16 : kThreads) / MBLK;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* smem =
-      smem_raw + ((kAlign - (smem_addr(smem_raw) & (kAlign - 1)))
-                  & (kAlign - 1));
+  const int B = a.B, ks = a.ks, stages = a.stages;
   const int slot =
-      static_cast<int>(slot_bytes(B, MBLK, ks, sizeof(T), Q, block));
-  uint64_t* bars = reinterpret_cast<uint64_t*>(
-      smem + body_bytes(B, MBLK, ks, stages, sizeof(T), CLUSTER ? 2 : 1, Q,
-                        block));
+      static_cast<int>(slot_bytes(B, MBLK, ks, sizeof(T), Q, a.block));
   const int tid = threadIdx.x;
-  const int col0 = blockIdx.x * MBLK;
-  const int part = blockIdx.y;
+  const int col0 = a.col0;
   const int kx = sub_k(ks, Q);               // K rows of one sub-tile
-  const int n_sub = (k_part + kx - 1) / kx;
+  const int n_sub = (a.k_part + kx - 1) / kx;
   const int w_bytes = MBLK * ks * (Q ? 1 : static_cast<int>(sizeof(T)));
-  const int x_bytes = B * kx * static_cast<int>(sizeof(T));
-  const int s_rows = Q ? kx / block : 0;     // scale blocks of a sub-tile
+  const int s_rows = Q ? kx / a.block : 0;   // scale blocks of a sub-tile
   // slot: weights (or codes), scales, x; every box starts 128-byte aligned
   const int s_bytes = s_rows * MBLK * static_cast<int>(sizeof(float));
-  const unsigned tx_bytes =
-      static_cast<unsigned>(w_bytes + s_bytes + x_bytes);
-  const int xc1 = x_part_dim == 1 ? part : row0;
-  const int xc2 = x_part_dim == 1 ? row0 : part;
-  if constexpr (!CLUSTER) out += part * o_ps;
+  const unsigned tx_bytes = static_cast<unsigned>(
+      w_bytes + s_bytes + B * kx * static_cast<int>(sizeof(T)));
 
-  if (tid == 0) {
-    for (int q = 0; q < stages; ++q) mbar_init(&bars[q], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  __syncthreads();  // the barriers are set and the ring (or the epilogue
+                    // of the CTA's last walk) is free
   // One thread asks for sub-tile i (K rows [i * kx, + kx) of the part) in
-  // slot i % stages: its weight boxes, its x box and (codes) its scales.
+  // slot (seq + i) % stages: its weight boxes, its x boxes and (codes) its
+  // scales.
   auto issue = [&](int i) {
-    unsigned char* ws = smem + (i % stages) * slot;
-    uint64_t* bar = &bars[i % stages];
+    const int q = (a.seq + i) % stages;
+    unsigned char* ws = smem + q * slot;
+    uint64_t* bar = &bars[q];
     mbar_expect_tx(bar, tx_bytes);
 #pragma unroll
-    for (int h = 0; h < MBLK / kBoxCols; ++h)
-      tma_load_3d(ws + h * ks * kPitch, &tw, col0 + h * kBoxCols, i * ks,
-                  part, bar);
+    for (int h = 0; h < MBLK / kBoxCols; ++h) {
+      if constexpr (EXPERT)
+        tma_load_4d(ws + h * ks * kPitch, &tw, col0 + h * kBoxCols, i * ks,
+                    a.wpart, a.expert, bar);
+      else
+        tma_load_3d(ws + h * ks * kPitch, &tw, col0 + h * kBoxCols, i * ks,
+                    a.wpart, bar);
+    }
     if constexpr (Q != 0)
-      tma_load_3d(ws + w_bytes, &ts, col0, i * s_rows, part, bar);
-    tma_load_3d(ws + w_bytes + s_bytes, &tx, i * kx, xc1, xc2, bar);
+      tma_load_3d(ws + w_bytes, &ts, col0, i * s_rows, a.wpart, bar);
+    for (int r = 0; r < B; r += a.xbox) {
+      unsigned char* xd = ws + w_bytes + s_bytes
+                          + r * kx * static_cast<int>(sizeof(T));
+      if (a.x_part_dim == 1)
+        tma_load_3d(xd, &tx, i * kx, a.xpart, a.xrow + r, bar);
+      else
+        tma_load_3d(xd, &tx, i * kx, a.xrow + r, a.xpart, bar);
+    }
   };
 
   const int warp = tid / 32;
@@ -515,16 +559,18 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
   for (int i = 0; i < n_sub; ++i) {
     __syncthreads();  // sub-tile i - 1 is consumed: its slot is free
     if (tid == 0 && i + stages - 1 < n_sub) issue(i + stages - 1);
-    mbar_wait(&bars[i % stages], (i / stages) & 1);
-    const unsigned char* ws = smem + (i % stages) * slot;
+    const int q = (a.seq + i) % stages;
+    mbar_wait(&bars[q], ((a.seq + i) / stages) & 1);
+    const unsigned char* ws = smem + q * slot;
     const float* ss = reinterpret_cast<const float*>(ws + w_bytes);
     const T* xs = reinterpret_cast<const T*>(ws + w_bytes + s_bytes);
     if constexpr (kMma && Q == 0) {
       for (int kk = wkg * 16; kk < ks; kk += kGroups * 16) {
-        uint32_t a[4];
-        ldmatrix_x4_trans(a, ws + w_offset<T>(kk + lrow, lcol, ks));
+        uint32_t a4[4];
+        ldmatrix_x4_trans(a4, ws + w_offset<T>(kk + lrow, lcol, ks));
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
+          if (j * 8 >= B) break;   // a tile past the box: never stored
           // B fragment: x[n = 8j + g][k = 2t, 2t+1] and [8 + 2t, 9 + 2t]
           const int n = j * 8 + g;
           uint32_t b0 = 0u, b1 = 0u;
@@ -533,7 +579,7 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
             b1 = *reinterpret_cast<const uint32_t*>(xs + n * kx + kk + 8
                                                     + 2 * t);
           }
-          mma_16816(acc[j], a, b0, b1);
+          mma_16816(acc[j], a4, b0, b1);
         }
       }
     } else if constexpr (kMma) {
@@ -546,9 +592,9 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
 #pragma unroll
           for (int q = 0; q < 4; ++q) sum[j][q] = 0.f;
 #pragma unroll 2
-        for (int kk = bi * block; kk < (bi + 1) * block; kk += 16) {
-          uint32_t a[4];
-          code_fragment<Q>(a, ws + (Q == 4 ? kk / 2 : kk) * kPitch, coff);
+        for (int kk = bi * a.block; kk < (bi + 1) * a.block; kk += 16) {
+          uint32_t a4[4];
+          code_fragment<Q>(a4, ws + (Q == 4 ? kk / 2 : kk) * kPitch, coff);
 #pragma unroll
           for (int j = 0; j < NT; ++j) {
             const int n = j * 8 + g;
@@ -559,7 +605,7 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
               b1 = *reinterpret_cast<const uint32_t*>(xs + n * kx + kk + 8
                                                       + 2 * t);
             }
-            mma_16816(sum[j], a, b0, b1);
+            mma_16816(sum[j], a4, b0, b1);
           }
         }
         // C rows g, g + 8 are columns cq, cq + 1
@@ -586,7 +632,7 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
         float sum[kMaxB];
 #pragma unroll
         for (int b = 0; b < kMaxB; ++b) sum[b] = 0.f;
-        for (int k = bi * block; k < (bi + 1) * block; ++k) {
+        for (int k = bi * a.block; k < (bi + 1) * a.block; ++k) {
           const float wv = code_value<Q, kPitch>(ws, k, fc);
 #pragma unroll
           for (int b = 0; b < kMaxB; ++b)
@@ -623,7 +669,37 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
       if (b < B) red[(fkg * B + b) * MBLK + fc] = acc[0][b];
   }
   __syncthreads();
-  finish<T, MBLK, CLUSTER, kGroups>(red, out, B, rows, M, col0, o_rs);
+  finish<T, MBLK, CLUSTER, kGroups>(red, out, B, a.rows, a.M, col0, a.o_rs,
+                                    a.keep);
+}
+
+// Grid (ceil(M / MBLK), parts); with CLUSTER the parts of a column block are
+// one cluster and share `out`, else part p writes out + p * o_ps.  B is
+// the rows of x's box (at most NT * 8 for bf16, kMaxB for f32), `rows` of
+// them (from row0 on) are stored; out rows lie o_rs apart, and `out`
+// already points at row0.  x_part_dim says which dimension of x's map is
+// the part (1) and which the row (the other).
+template <typename T, int MBLK, int NT, bool CLUSTER, int Q>
+__global__ void __launch_bounds__(kThreads,
+                                  (Q != 0 || NT > 4) ? 2 : kMinCtasPerSm)
+stream_kernel(const __grid_constant__ CUtensorMap tw,
+              const __grid_constant__ CUtensorMap tx,
+              const __grid_constant__ CUtensorMap ts, T* __restrict__ out,
+              int B, int rows, int M, int k_part, int ks, int stages,
+              int row0, int x_part_dim, long long o_ps, long long o_rs,
+              int block) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      smem + body_bytes(B, MBLK, ks, stages, sizeof(T), CLUSTER ? 2 : 1, Q,
+                        block));
+  init_bars(bars, stages);
+  const int part = blockIdx.y;
+  const Walk a{B, B, rows, nullptr, M, k_part, ks, stages, 0, block,
+               static_cast<int>(blockIdx.x) * MBLK, part, 0, part, row0,
+               x_part_dim, o_rs};
+  walk<T, MBLK, NT, CLUSTER, Q, false>(tw, tx, ts, smem, bars,
+                                       CLUSTER ? out : out + part * o_ps, a);
 }
 
 // One streaming problem, strides in elements: x rows x_rs apart and parts
@@ -647,6 +723,10 @@ struct Problem {
   const void* s = nullptr;
   long long lds = 0, s_ps = 0;
   int block = 0;
+  // expert stacks split in K parts (ragged_gemv): w_t's parts of each of
+  // `experts` experts, the experts w_es apart (0: no expert dimension)
+  int experts = 0;
+  long long w_es = 0;
 };
 
 // What every launch takes: whole 16-byte vectors along M, 16-byte strides
@@ -677,6 +757,7 @@ inline bool launchable(const Problem& p, int B, int m_blk, int ks,
   return p.R >= 1 && B >= 1 && B <= p.R && p.M >= 1 && p.k_part >= 1
          && p.k_part % 8 == 0 && p.parts >= 1 && p.parts <= 65535
          && p.ld >= p.M && strided(p.ld, w_elem) && strided(p.w_ps, w_elem)
+         && (p.experts == 0 || strided(p.w_es, w_elem))
          && strided(p.x_rs, elem_bytes) && strided(p.x_ps, elem_bytes)
          && p.M % (16 / w_elem) == 0
          && (m_blk == 64 || m_blk == 128) && m_blk % deg == 0
@@ -708,8 +789,9 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
-// The tensor maps of a problem: w_t as {M, k_part, parts} in boxes of one
-// swizzled row by ks, x as {k_part, parts, R} (or {k_part, R, parts} when
+// The tensor maps of a problem: w_t as {M, k_part, parts} (an expert
+// stack: {M, k_part, parts, experts}) in boxes of one swizzled row by ks,
+// x as {k_part, parts, R} (or {k_part, R, parts} when
 // the parts lie further apart than the rows) in boxes of kx by B rows.
 // Codes (Q): w_t as bytes {M, stored rows of a part, parts} in boxes of
 // m_blk by ks, and the scales as {M, k_part / block, parts} in boxes of
@@ -728,14 +810,16 @@ bool encode_maps(CUtensorMap* tw, CUtensorMap* tx, CUtensorMap* ts,
   const cuuint64_t we = Q ? 1 : sizeof(T);
   const cuuint64_t kp = p.k_part;
   const cuuint64_t parts = p.parts, R = p.R;
-  const cuuint32_t ones[3] = {1, 1, 1};
-  const cuuint64_t wdim[3] = {static_cast<cuuint64_t>(p.M),
-                              Q == 4 ? kp / 2 : kp, parts};
-  const cuuint64_t wstride[2] = {static_cast<cuuint64_t>(p.ld) * we,
-                                 static_cast<cuuint64_t>(p.w_ps) * we};
-  const cuuint32_t wbox[3] = {
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const cuuint64_t wdim[4] = {static_cast<cuuint64_t>(p.M),
+                              Q == 4 ? kp / 2 : kp, parts,
+                              static_cast<cuuint64_t>(p.experts)};
+  const cuuint64_t wstride[3] = {static_cast<cuuint64_t>(p.ld) * we,
+                                 static_cast<cuuint64_t>(p.w_ps) * we,
+                                 static_cast<cuuint64_t>(p.w_es) * we};
+  const cuuint32_t wbox[4] = {
       static_cast<cuuint32_t>(Q ? m_blk : kRowBytes / sizeof(T)),
-      static_cast<cuuint32_t>(ks), 1};
+      static_cast<cuuint32_t>(ks), 1, 1};
   const bool part_inner = p.x_ps <= p.x_rs;
   *x_part_dim = part_inner ? 1 : 2;
   const cuuint64_t xdim[3] = {kp, part_inner ? parts : R,
@@ -747,7 +831,8 @@ bool encode_maps(CUtensorMap* tw, CUtensorMap* tx, CUtensorMap* ts,
   const cuuint32_t rows = static_cast<cuuint32_t>(B);
   const cuuint32_t xbox[3] = {static_cast<cuuint32_t>(sub_k(ks, Q)),
                               part_inner ? 1u : rows, part_inner ? rows : 1u};
-  if (encode(tw, Q ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : type, 3,
+  if (encode(tw, Q ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : type,
+             p.experts ? 4 : 3,
              const_cast<void*>(p.w), wdim, wstride, wbox, ones,
              CU_TENSOR_MAP_INTERLEAVE_NONE,
              Q && m_blk == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -777,25 +862,31 @@ bool encode_maps(CUtensorMap* tw, CUtensorMap* tx, CUtensorMap* ts,
   }
 }
 
-template <typename T, int MBLK, int NT, bool CLUSTER, int Q>
-int launch(const CUtensorMap& tw, const CUtensorMap& tx,
-           const CUtensorMap& ts, const Problem& p, int B, int row0, int ks,
-           int stages, int x_part_dim, cudaStream_t stream) {
-  auto kernel = stream_kernel<T, MBLK, NT, CLUSTER, Q>;
-  // once per instantiation, at its first launch (never inside a graph
-  // capture: callers warm up first): allow the opt-in shared memory
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+// Launch kKernel on grid (n_m, y) of kThreads-thread CTAs with `smem`
+// bytes of dynamic shared memory, the blocks of y in clusters of deg (1:
+// no cluster); returns the launch's CUDA error.
+template <auto kKernel, typename... Args>
+int launch_ex(int n_m, int y, size_t smem, int deg, cudaStream_t stream,
+              Args... args) {
+  // once per kernel, at its first launch (never inside a graph capture:
+  // callers warm up first): allow the opt-in shared memory beside the
+  // kernel's static shared memory
+  static const cudaError_t attr = [] {
+    cudaFuncAttributes fa;
+    const cudaError_t rc = cudaFuncGetAttributes(&fa, kKernel);
+    if (rc != cudaSuccess) return rc;
+    return cudaFuncSetAttribute(
+        kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem - static_cast<int>(fa.sharedSizeBytes));
+  }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int deg = CLUSTER ? p.parts : 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((p.M + MBLK - 1) / MBLK, p.parts, 1);
+  cfg.gridDim = dim3(n_m, y, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes =
-      smem_bytes(B, MBLK, ks, stages, sizeof(T), deg, Q, p.block);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attrs[1];
-  if (CLUSTER) {
+  if (deg > 1) {
     attrs[0].id = cudaLaunchAttributeClusterDimension;
     attrs[0].val.clusterDim.x = 1;
     attrs[0].val.clusterDim.y = deg;
@@ -803,13 +894,23 @@ int launch(const CUtensorMap& tw, const CUtensorMap& tx,
     cfg.attrs = attrs;
     cfg.numAttrs = 1;
   }
-  const int rows = p.R - row0 < B ? p.R - row0 : B;
-  T* out = static_cast<T*>(p.out) + row0 * p.o_rs;
-  const cudaError_t rc = cudaLaunchKernelEx(
-      &cfg, kernel, tw, tx, ts, out, B, rows, p.M, p.k_part, ks, stages,
-      row0, x_part_dim, p.o_ps, p.o_rs, p.block);
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, kKernel, args...);
   const cudaError_t last = cudaGetLastError();  // clear it either way
   return static_cast<int>(rc != cudaSuccess ? rc : last);
+}
+
+template <typename T, int MBLK, int NT, bool CLUSTER, int Q>
+int launch(const CUtensorMap& tw, const CUtensorMap& tx,
+           const CUtensorMap& ts, const Problem& p, int B, int row0, int ks,
+           int stages, int x_part_dim, cudaStream_t stream) {
+  const int deg = CLUSTER ? p.parts : 1;
+  const int rows = p.R - row0 < B ? p.R - row0 : B;
+  T* out = static_cast<T*>(p.out) + row0 * p.o_rs;
+  return launch_ex<stream_kernel<T, MBLK, NT, CLUSTER, Q>>(
+      (p.M + MBLK - 1) / MBLK, p.parts,
+      smem_bytes(B, MBLK, ks, stages, sizeof(T), deg, Q, p.block), deg,
+      stream, tw, tx, ts, out, B, rows, p.M, p.k_part, ks, stages, row0,
+      x_part_dim, p.o_ps, p.o_rs, p.block);
 }
 
 template <typename T, int MBLK, int MAX_NT, bool CLUSTER, int Q>

@@ -42,14 +42,16 @@ _F = ctypes.c_float
 # k_blk, stages, stream) beside (B, m_blk, k_blk, stages, elem_bytes,
 # split_k, bits, block) for its shared memory; the expert forms (xs, w,
 # out, E, C, K, M, ld, es, x_es, x_rs, m_blk, k_blk, stages, stream) and
-# (x, offsets, w, out, T, K, M, ld, es, E, m_blk, k_blk, stream); ld /
+# (x, offsets, w, out, T, K, M, ld, es, E, deg, m_blk, k_blk, stages,
+# stream); ld /
 # ldw / lds are row strides and es / x_es expert strides, in elements;
 # and decode attention's (q, k, v, out,
 # qpos, qpos_stride, qpos_bytes, vlen, vlen_stride, vlen_bytes, B, C, Hkv,
 # G, D, q_sb, k_sb, k_sp, k_sh, v_sb, v_sp, v_sh, splits, scale, stream),
 # its quantized-page form (q, k, v, k_scale, v_scale, out, qpos, ...,
 # v_sh, ks_sb, ks_sp, ks_sh, vs_sb, vs_sp, vs_sh, bits, splits, scale,
-# stream), beside (G, D, C, splits) for its shared memory.  Every entry
+# stream), beside (G, D, C, splits, elem_bytes, bits) for its shared
+# memory.  Every entry
 # returns an int (a CUDA error) unless _RESTYPES names another type.
 _SIGNATURES = {
     "pim_gemv": {
@@ -75,7 +77,7 @@ _SIGNATURES = {
         **{f"grouped_gemv_{t}": (_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
                                  _I, _I, _I, _P) for t in ("bf16", "f32")},
         **{f"ragged_gemv_{t}": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I,
-                                _I, _P) for t in ("bf16", "f32")},
+                                _I, _I, _I, _P) for t in ("bf16", "f32")},
     },
     "decode_attention": {
         **{f"decode_attention_{t}": (_P, _P, _P, _P, _P, _L, _I, _P, _L, _I,
@@ -86,7 +88,7 @@ _SIGNATURES = {
                                            _I, _P, _L, _I, _I, _I, _I, _I,
                                            _I, *(_L,) * 13, _I, _I, _F, _P)
            for t in ("bf16", "f32")},
-        "decode_attention_smem_bytes": (_I, _I, _I, _I),
+        "decode_attention_smem_bytes": (_I, _I, _I, _I, _I, _I),
     },
 }
 

@@ -15,7 +15,8 @@ reference's ``preferred_element_type``, so the cache is not cast to f32).
 :func:`decode_attention` is the kernel for one new token a slot (Sq = 1,
 causal): one CTA cluster per (slot, kv head) reads the valid K and V
 positions in place through their strides, so no f32 copy of the cache is
-made.  On a quantized store (``kv_quant``: int8 or packed int4 codes with
+made; each CTA starts the copies of its V rows into shared memory at
+entry, so they are in flight while it scores K.  On a quantized store (``kv_quant``: int8 or packed int4 codes with
 one f32 scale a page) it reads the codes and scales in place and
 dequantizes each element where it reads it, exactly as
 ``dequantize_page`` does: its output equals the kernel's on the
@@ -48,9 +49,12 @@ from repro_torch.kernels.pim_gemv import DTYPES
 BIG_NEG = -2.0e9             # the reference's masked score (not -inf)
 GROUPS = (1, 2, 4, 8)        # query heads per kv head the kernel is built for
 SPLITS = (1, 2, 4, 8)        # CTAs a (slot, kv head) splits over: a cluster
+MAX_SPLITS = SPLITS[-1]      # csrc/decode_attention.cu kMaxSplits
 MIN_SPLIT_POSITIONS = 64     # fewest positions worth a split of their own
 CTAS_PER_SM = 4              # CTAs an SM should hold (plan_splits' target)
 WARPS = 4                    # csrc/decode_attention.cu kWarps
+UNROLL = 4                   # ... kUnroll: vectors in flight a thread
+STAGE_BYTES = 24 * 1024      # ... kStageBytes: V rows staged at a time
 INDEX_DTYPES = (torch.int32, torch.int64)
 
 _SMS: dict[int, int] = {}
@@ -98,29 +102,58 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(B, Sq, H, D)
 
 
-def smem_bytes(G: int, D: int, C: int, splits: int) -> int:
-    """Dynamic shared memory of one launch (``decode_attention_smem_bytes``):
-    the scores of one split's positions, the CTA's and its warps' P.V
-    partials, and the reduce scratch, in f32."""
+def _row_bytes(D: int, elem_bytes: int, bits: int) -> int:
+    """Staged bytes of one position's V: D elements, or their int8 /
+    packed int4 codes and one f32 scale."""
+    return D * elem_bytes if bits == 16 else D * bits // 8 + 4
+
+
+def stage_positions(D: int, C: int, splits: int, elem_bytes: int = 2,
+                    bits: int = 16) -> int:
+    """V rows a CTA stages at a time: its split's positions rounded up to
+    whole steps of the P.V walk (``WARPS * 32 / lanes * UNROLL``
+    positions, a lane reading 16 bytes of q's type), at most the whole
+    steps whose rows fit ``STAGE_BYTES``, at least one step."""
+    lanes = D // (16 // elem_bytes)
+    step = WARPS * (32 // lanes if 1 <= lanes <= 32 else 1) * UNROLL
     cap = -(-C // splits)
-    return 4 * (G * cap + G * D + WARPS * G * D + WARPS * G + 2 * G)
+    most = STAGE_BYTES // _row_bytes(D, elem_bytes, bits) // step * step
+    return min(-(-cap // step) * step, max(most, step))
+
+
+def smem_bytes(G: int, D: int, C: int, splits: int, *, elem_bytes: int = 2,
+               bits: int = 16) -> int:
+    """Dynamic shared memory of one launch (``decode_attention_smem_bytes``):
+    the scores of one split's positions, the ranks' shares of the output,
+    the warps' P.V partials, the reduce scratch and every rank's max and
+    sum, in f32; then, 16-byte aligned, the staged V rows
+    (:func:`stage_positions` of them: D elements of ``elem_bytes``, or
+    their int8 / packed int4 codes and an f32 scale each)."""
+    cap = -(-C // splits)
+    floats = 4 * (G * cap + G * D + MAX_SPLITS + WARPS * G * D + WARPS * G
+                  + 2 * MAX_SPLITS * G)
+    return (-(-floats // 16) * 16
+            + stage_positions(D, C, splits, elem_bytes, bits)
+            * _row_bytes(D, elem_bytes, bits))
 
 
 def plan_splits(B: int, Hkv: int, C: int, G: int, D: int,
-                sms: int | None) -> int | None:
+                sms: int | None, *, elem_bytes: int = 2,
+                bits: int = 16) -> int | None:
     """CTAs (a cluster) each (slot, kv head) splits its positions over: the
     fewest that put ``CTAS_PER_SM`` CTAs on every SM (each CTA's walk is a
     chain of dependent loads, so an SM needs several to keep HBM busy), no
     more than leave each split ``MIN_SPLIT_POSITIONS`` of the cache, and
-    enough that one split's scores fit shared memory; None when no split
-    count fits."""
+    enough that one split's scores and staged V rows fit shared memory;
+    None when no split count fits."""
     pairs = max(B * Hkv, 1)
     want = next((s for s in SPLITS if pairs * s >= CTAS_PER_SM * (sms or 1)),
                 SPLITS[-1])
     want = min(want, max(1, C // MIN_SPLIT_POSITIONS))
     want = max(s for s in SPLITS if s <= want)
     return next((s for s in SPLITS if s >= want
-                 and smem_bytes(G, D, C, s) <= SMEM_PER_CTA), None)
+                 and smem_bytes(G, D, C, s, elem_bytes=elem_bytes,
+                                bits=bits) <= SMEM_PER_CTA), None)
 
 
 def _sms(device: torch.device) -> int:
@@ -180,8 +213,11 @@ def _shape_rule(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lanes = D // vec
     if D % vec or lanes > 32 or lanes & (lanes - 1):
         return f"head dim {D} is not a power-of-two count of 16-byte vectors"
-    # a lane reads its `vec` elements: 16 bytes, or their codes
-    lane = vec * k.element_size() * Dk // D
+    # a lane reads its `vec` elements: 16 bytes, or their codes; V rows
+    # are staged in copies of that many bytes, at least 4
+    lane = max(4, vec * k.element_size() * Dk // D)
+    if Dk * k.element_size() % lane:
+        return f"a page row of {Dk} codes is not whole {lane}-byte copies"
     if not (_rows_ok(q, 16) and _rows_ok(k, lane) and _rows_ok(v, lane)
             and q.stride(2) == D):
         return "q, k and v rows must be contiguous and aligned"
@@ -199,8 +235,14 @@ def kernel_applies(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return False
     B, _, H, D = q.shape
     Hkv = k.shape[2]
-    return plan_splits(B, Hkv, k.shape[1], H // Hkv, D,
-                       _sms(q.device)) is not None
+    return plan_splits(B, Hkv, k.shape[1], H // Hkv, D, _sms(q.device),
+                       elem_bytes=q.element_size(),
+                       bits=_bits(k, D, k_scale)) is not None
+
+
+def _bits(k: torch.Tensor, D: int, k_scale: torch.Tensor | None) -> int:
+    """16 for fp pages, else 8 (int8 codes of D lanes) or 4 (packed)."""
+    return 16 if k_scale is None else (8 if k.shape[-1] == D else 4)
 
 
 def _index(t: torch.Tensor, B: int, name: str) -> tuple[int, int]:
@@ -231,7 +273,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, _, H, D = q.shape
     C, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
-    bits = 16 if k_scale is None else (8 if k.shape[-1] == D else 4)
+    bits = _bits(k, D, k_scale)
     qpos = q_positions.reshape(B, -1)[:, -1] if q_positions.ndim == 2 \
         else q_positions
     if q.device.type == "cpu":
@@ -243,9 +285,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, not "
                          f"{q.device}")
+    fit = dict(elem_bytes=q.element_size(), bits=bits)
     if splits is None:
-        splits = plan_splits(B, Hkv, C, G, D, _sms(q.device))
-    if splits not in SPLITS or smem_bytes(G, D, C, splits) > SMEM_PER_CTA:
+        splits = plan_splits(B, Hkv, C, G, D, _sms(q.device), **fit)
+    if splits not in SPLITS or smem_bytes(G, D, C, splits,
+                                          **fit) > SMEM_PER_CTA:
         raise ValueError(f"decode_attention: {splits} splits of C={C} do "
                          f"not fit the kernel")
     qs, qb = _index(qpos, B, "q_positions")

@@ -22,7 +22,8 @@ and for MoE expert programs the native modes ``grouped_triton`` /
 ``batch_threshold``, power-of-two tiles from ``plan_grouped_gemv``) plus
 the CUDA kernels' own: whole 16-byte column vectors and a bf16 or f32
 type.  The program plan records the JAX tile plan, as that backend does;
-the kernels run their own (``plan_grouped_stream``, ``plan_expert_gemv``).
+the kernels run their own (``plan_grouped_stream``,
+``plan_ragged_stream``).
 
 Unlike the JAX backend there is no capability gate (``_can_lower_triton``
 there): on a CUDA tensor the kernel runs or raises, and on a CPU tensor the
@@ -64,11 +65,11 @@ from repro_torch.kernels.gemv_plan import (
     device_sms,
     kernel_applicable,
     plan_grouped_stream,
+    plan_ragged_stream,
 )
 from repro_torch.kernels.grouped_gemv import (
     counts_to_offsets,
     grouped_gemv,
-    plan_expert_gemv,
     plan_grouped_gemv,
     ragged_gemv,
 )
@@ -213,17 +214,18 @@ class GpuBackend(GemvBackend):
             # tile the program plan (or a table entry) names
             K, M = program.weights.shape
             x_bytes = program.x.element_size()
+            E = program.weights.w_t.shape[0]
+            sms = self._sms or device_sms()
             if pplan.mode == "grouped_triton":
-                E, C = program.x.shape[:2]
                 plan = plan_grouped_stream(
-                    M, K, max(C, 1), E=E, elem_bytes=x_bytes,
-                    sms=self._sms or device_sms())
+                    M, K, max(program.x.shape[1], 1), E=E,
+                    elem_bytes=x_bytes, sms=sms)
                 return grouped_gemv(program.x, program.weights.w_t,
                                     plan=plan)
+            plan = plan_ragged_stream(M, K, max(program.x.shape[0], 1), E=E,
+                                      elem_bytes=x_bytes, sms=sms)
             return ragged_gemv(program.x, counts_to_offsets(program.counts),
-                               program.weights.w_t,
-                               plan=plan_expert_gemv(M, K,
-                                                     elem_bytes=x_bytes))
+                               program.weights.w_t, plan=plan)
         return super().execute_program(program, pplan)
 
     # -- execution ----------------------------------------------------------

@@ -75,19 +75,19 @@ from repro_torch.kernels.gemv_plan import (
     plan_gemv,
     plan_grouped_stream,
     plan_quant,
+    plan_ragged_stream,
     plan_splitk,
     quant_applicable,
     quant_plan_fits,
+    ragged_plan_fits,
     valid_splitk_degree,
     with_pipeline_depth,
 )
 from repro_torch.kernels.grouped_gemv import (
     counts_to_offsets,
     grouped_gemv,
-    plan_expert_gemv,
     plan_grouped_gemv,
     ragged_gemv,
-    tile_plan_fits,
 )
 from repro_torch.kernels.ops import PackedWeights
 from repro_torch.kernels.pim_gemv import DTYPES, pim_gemv
@@ -288,11 +288,10 @@ class H100Backend(GemvBackend):
 
     def replay_program(self, pplan: ProgramPlan, key: ProgramKey,
                        policy: DispatchPolicy) -> ProgramPlan:
-        """A ``grouped_cuda`` entry keeps its mode; a plan ``grouped_gemv``
-        no longer takes (one written before the kernel streamed:
-        ``plan_tile``'s) is re-planned by :meth:`plan_program`'s planner.
-        A ``ragged_cuda`` entry whose tiles ``ragged_gemv`` refuses takes
-        ``plan_expert_gemv``'s."""
+        """A ``grouped_cuda`` or ``ragged_cuda`` entry keeps its mode; a
+        plan its kernel no longer takes (one written before the kernel
+        streamed: a one-stage tile plan with a long x chunk) is re-planned
+        by :meth:`plan_program`'s planner."""
         M, K = key.Ms[0], key.K
         x_bytes = dtype_bytes(key.dtype)
         if pplan.mode == "grouped_cuda":
@@ -302,11 +301,11 @@ class H100Backend(GemvBackend):
             return replace(pplan, kernel="grouped_gemv",
                            plan=self._grouped_plan(key))
         if pplan.mode == "ragged_cuda":
-            if pplan.plan is not None and tile_plan_fits(
-                    pplan.plan, M, K, x_bytes):
+            if pplan.plan is not None and ragged_plan_fits(
+                    pplan.plan, M, K, max(key.tokens, 1), x_bytes):
                 return pplan
             return replace(pplan, kernel="ragged_gemv",
-                           plan=plan_expert_gemv(M, K, elem_bytes=x_bytes))
+                           plan=self._ragged_plan(key))
         return super().replay_program(pplan, key, policy)
 
     def autotune_candidates(self, key: GemvKey, pw: PackedWeights,
@@ -362,7 +361,7 @@ class H100Backend(GemvBackend):
                     and key.dtype in {str(d) for d in DTYPES}
                     and kernel_applicable(M, K, 1, x_bytes)):
                 plan = (self._grouped_plan(key) if key.kind == "grouped"
-                        else plan_expert_gemv(M, K, elem_bytes=x_bytes))
+                        else self._ragged_plan(key))
                 return ProgramPlan(mode=f"{key.kind}_cuda", n_launches=1,
                                    kernel=f"{key.kind}_gemv", plan=plan)
         return super().plan_program(key, policy=policy)
@@ -373,6 +372,14 @@ class H100Backend(GemvBackend):
         return plan_grouped_stream(key.Ms[0], key.K, key.batch,
                                    E=key.group, sms=self._plan_sms(),
                                    elem_bytes=dtype_bytes(key.dtype))
+
+    def _ragged_plan(self, key: ProgramKey) -> GemvPlan:
+        """``ragged_gemv``'s streaming plan for a ragged program: the
+        key's ``tokens`` rows over ``group`` experts, filling this
+        backend's SMs."""
+        return plan_ragged_stream(key.Ms[0], key.K, max(key.tokens, 1),
+                                  E=key.group, sms=self._plan_sms(),
+                                  elem_bytes=dtype_bytes(key.dtype))
 
     def execute_program(self, program: GemvProgram,
                         pplan: ProgramPlan) -> torch.Tensor:

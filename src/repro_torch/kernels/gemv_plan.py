@@ -28,10 +28,12 @@ CTAs fill the card's waves best.  Its launch holds up to ``MAX_TILE_ROWS``
 rows in bf16 (eight mma n-tiles that share each weight sub-tile) and
 ``MAX_BATCH`` in f32 (:func:`stream_rows`); more rows run in row chunks.
 
-``plan_tile`` keeps the first sweep for the kernel on ``gemv_tile.cuh``
-(``ragged_gemv``): the tallest column block (at most ``MAX_M_BLK``
-columns) that divides M, then the largest x chunk that divides the K walk
-and fits the budget, one stage.
+``plan_ragged_stream`` plans ``ragged_gemv`` on the same body: a grid of
+``min(E, T)`` expert slots (the host knows T, not the counts) times the
+column blocks times a split degree, the K walk of an expert split over a
+cluster of ``deg`` CTAs when few experts have rows (sized for the experts
+uniform routing would give rows); the ring holds :func:`ragged_box_rows`
+rows of x a slot.
 
 Quantized weights (``plan_quant``) run on the same streaming body: a slot
 holds one box of int8 / packed-int4 code rows (16 KB: 128 bytes a row for
@@ -47,12 +49,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-THREADS = 256                # threads per CTA (csrc/gemv_tile.cuh kThreads)
 VEC_BYTES = 16               # one vector load per thread per K row
 MAX_BATCH = 8                # accumulator rows held in registers (kMaxB)
-MAX_M_BLK = 128              # columns per CTA at most
-MAX_K_BLK = 1024             # K rows of x staged per chunk at most
-X_SMEM_BUDGET = 32 * 1024    # bytes of shared memory for the f32 x chunk
 K_ALIGN = 8                  # K chunks and split-K parts are multiples of 8
 SPLITK_DEGREES = (8, 4, 2)   # also the cluster sizes of splitk_gemv
 
@@ -307,30 +305,101 @@ def with_pipeline_depth(plan: GemvPlan, depth: int, *, batch: int = 1,
     return replace(plan, stages=depth, smem_bytes=smem)
 
 
-def plan_tile(M: int, K: int, batch: int = 1, *,
-              elem_bytes: int = 2) -> GemvPlan:
-    """The ``gemv_tile.cuh`` body's plan (the expert kernels): tallest
-    column block dividing M, then the largest K chunk dividing K that fits
-    the x budget; one stage."""
-    if M <= 0 or K <= 0:
-        raise ValueError("M and K must be positive")
-    if not kernel_applicable(M, K, batch, elem_bytes):
-        raise ValueError(f"no Hopper GEMV plan for M={M} K={K} B={batch}")
-    vec = vec_elems(elem_bytes)
-    m_blk = MAX_M_BLK
-    # tall first; a column block spans a power-of-two number of threads so
-    # the CTA splits evenly into row groups
-    while m_blk > vec and (M % m_blk or THREADS % (m_blk // vec)):
-        m_blk //= 2
-    k_cap = min(MAX_K_BLK, X_SMEM_BUDGET // (4 * max(batch, 1)), K)
-    k_blk = next((k for k in range(k_cap, 0, -1)
-                  if K % k == 0 and (k % K_ALIGN == 0 or k == K)), K)
-    return GemvPlan(m_blk=m_blk, k_blk=k_blk, n_m=M // m_blk, n_k=K // k_blk,
-                    smem_bytes=_smem(batch, k_blk, elem_bytes))
+RAGGED_DEGREES = (1, 2, 4, 8)    # ragged_gemv's K parts: a cluster
+RAGGED_ROWS = 32                 # bf16 rows of one ragged walk (4 n-tiles)
+RAGGED_MIN_CTA_BYTES = 128 * 1024  # weight bytes worth a CTA's fixed cost
 
 
-def _smem(batch: int, k_blk: int, elem_bytes: int) -> int:
-    return 4 * (batch * k_blk + THREADS * vec_elems(elem_bytes))
+def ragged_box_rows(T: int, elem_bytes: int) -> int:
+    """x rows a ring slot of ``ragged_gemv`` holds at T routed rows: an
+    expert's rows up to one walk's (RAGGED_ROWS in bf16, MAX_BATCH in
+    f32), copied in boxes of ``min(T, MAX_BATCH)`` rows."""
+    box = min(T, MAX_BATCH)
+    return _ceil(min(T, RAGGED_ROWS if elem_bytes == 2 else MAX_BATCH),
+                 box) * box
+
+
+def ragged_plan_fits(plan: GemvPlan, M: int, K: int, T: int,
+                     elem_bytes: int = 2) -> bool:
+    """Whether ``ragged_gemv`` takes ``plan`` at T rows: a column block of
+    the body that its ``split_k`` cluster ranks share, K parts of whole
+    8-row groups, a sub-tile of whole k16 steps one box spans, and a ring
+    the card's shared memory holds at :func:`ragged_box_rows` rows."""
+    deg = plan.split_k
+    if (T < 1 or plan.m_blk not in STREAM_M_BLKS
+            or deg not in RAGGED_DEGREES or plan.m_blk % deg
+            or K % deg or (K // deg) % K_ALIGN or plan.k_blk <= 0
+            or plan.k_blk % SUB_ALIGN or plan.k_blk > MAX_SUB_ROWS):
+        return False
+    n_k = _ceil(K // deg, plan.k_blk)
+    return (plan.n_m == _ceil(M, plan.m_blk) and plan.n_k == n_k
+            and 1 <= plan.stages <= min(MAX_STAGES, n_k)
+            and stream_smem(ragged_box_rows(T, elem_bytes), plan.m_blk,
+                            plan.k_blk, plan.stages, elem_bytes,
+                            deg) <= SMEM_PER_CTA)
+
+
+def expected_experts(E: int, T: int) -> float:
+    """Experts that get at least one of T routed rows when each row picks
+    one of E uniformly: E (1 - (1 - 1/E)^T)."""
+    return E * (1.0 - (1.0 - 1.0 / E) ** T)
+
+
+def plan_ragged_stream(M: int, K: int, T: int, *, E: int,
+                       sms: int | None = None,
+                       elem_bytes: int = 2) -> GemvPlan:
+    """``ragged_gemv``'s plan at T routed rows over E experts.
+
+    The host knows T, not the counts, so it sizes the grid for the
+    :func:`expected_experts` of uniform routing.  Of the split degrees of
+    ``RAGGED_DEGREES`` that split K into whole 8-row groups and the column
+    blocks they divide, keep those whose CTAs each stream at least
+    ``RAGGED_MIN_CTA_BYTES`` of weights (a CTA's launch, ramp and
+    epilogue cost the same whatever it streams; all of them when none
+    does); take the one whose expected live CTAs fill the most of one
+    wave of the card's CTA slots without spilling into a second, else the
+    one with the fewest CTAs (ties: the taller block, then the smaller
+    degree).  Each part walks
+    ``K / deg`` rows in sub-tiles of ``SUBTILE_BYTES`` at the default ring
+    depth.  ``sms`` defaults to the device's SM count; without one (no
+    card) the plan is the one-part 128-column one, which then only feeds
+    the plain version's checks."""
+    if M <= 0 or K <= 0 or E <= 0 or T <= 0:
+        raise ValueError("M, K, T and E must be positive")
+    if not kernel_applicable(M, K, 1, elem_bytes):
+        raise ValueError(f"no Hopper GEMV plan for M={M} K={K}")
+    sms = device_sms() if sms is None else sms
+    rows = ragged_box_rows(T, elem_bytes)
+    cands = []
+    for deg in RAGGED_DEGREES:
+        if K % deg or (K // deg) % K_ALIGN:
+            continue
+        for m_blk in STREAM_M_BLKS:
+            if m_blk % deg:
+                continue
+            k_blk = sub_rows(m_blk, K // deg, elem_bytes)
+            n_k = _ceil(K // deg, k_blk)
+            stages = min(DEFAULT_STAGES, n_k)
+            cands.append(GemvPlan(
+                m_blk=m_blk, k_blk=k_blk, n_m=_ceil(M, m_blk), n_k=n_k,
+                split_k=deg, stages=stages,
+                smem_bytes=stream_smem(rows, m_blk, k_blk, stages,
+                                       elem_bytes, deg)))
+    if not sms:
+        return cands[0]
+    live = expected_experts(E, T)
+    big = [p for p in cands
+           if K // p.split_k * p.m_blk * elem_bytes >= RAGGED_MIN_CTA_BYTES]
+    pool = big or cands
+
+    def ctas(p):
+        return live * p.n_m * p.split_k
+
+    wave = [p for p in pool
+            if ctas(p) <= sms * ctas_per_sm(p.smem_bytes)]
+    if not wave:
+        return min(pool, key=lambda p: (ctas(p), -p.m_blk, p.split_k))
+    return max(wave, key=lambda p: (ctas(p), p.m_blk, -p.split_k))
 
 
 # --------------------------------------------------------------------------

@@ -18,17 +18,18 @@ bandwidth (3.35 TB/s).  ``grouped_gemv`` runs the dense kernels' streaming
 body (``csrc/gemv_stream.cuh``: a TMA ring of weight sub-tiles,
 ``mma.sync`` in bf16) with the expert as the third dimension of its
 tensor maps, one CTA per (column block, expert), each expert's weights
-streamed once a launch.  ``ragged_gemv`` runs one CTA per (expert, column
-block) cell on the output-stationary tile body (``csrc/gemv_tile.cuh``),
-on the expert's slice of the stack in place; a cell whose expert has no
-rows returns before reading its weights.
+streamed once a launch.  ``ragged_gemv`` runs the same body over a grid
+of ``min(E, T)`` expert slots: each CTA finds its expert (the slot-th
+with rows) from the offsets on the device, a slot with none exits before
+it reads a weight, and when few experts have rows an expert's K walk
+splits over a cluster whose partials meet in shared memory.
 
 :func:`plan_grouped_gemv` is the JAX package's tile rule (power-of-two
 blocks); the backends gate the native modes on it, as the JAX ``gpu``
 backend does.  The CUDA kernels tile with their own plans:
 ``gemv_plan.plan_grouped_stream`` for ``grouped_gemv``,
-:func:`plan_expert_gemv` (the dense GEMV sweep at ``MAX_BATCH`` rows: a
-cell walks its rows in chunks of that many) for ``ragged_gemv``.
+``gemv_plan.plan_ragged_stream`` (column block and split degree from T,
+E and the SM count) for ``ragged_gemv``.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  ``grouped_gemv.launches`` / ``ragged_gemv.launches`` count kernel
@@ -41,14 +42,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.gemv_plan import (
-    MAX_BATCH,
-    THREADS,
-    X_SMEM_BUDGET,
     GemvPlan,
     grouped_plan_fits,
     kernel_applicable,
-    plan_tile,
-    vec_elems,
+    ragged_plan_fits,
 )
 from repro_torch.kernels.pim_gemv import DTYPES
 
@@ -74,12 +71,6 @@ def plan_grouped_gemv(M: int, K: int) -> GemvPlan:
     k_blk = _pow2_divisor(K, cap=1024, floor=MIN_DOT_DIM)
     return GemvPlan(m_blk=m_blk, k_blk=k_blk, n_m=M // m_blk,
                     n_k=K // k_blk, smem_bytes=0)
-
-
-def plan_expert_gemv(M: int, K: int, *, elem_bytes: int = 2) -> GemvPlan:
-    """``ragged_gemv``'s tile plan: the dense GEMV sweep for a chunk of
-    ``MAX_BATCH`` rows (column block of at most 128, x chunk in budget)."""
-    return plan_tile(M, K, MAX_BATCH, elem_bytes=elem_bytes)
 
 
 def counts_to_offsets(counts: torch.Tensor) -> torch.Tensor:
@@ -125,26 +116,6 @@ def _check_stack(x: torch.Tensor, w_t: torch.Tensor,
         raise ValueError(f"x on {x.device} but w_t on {w_t.device}")
     ld, es = _strides(w_t)
     return E, M, ld, es
-
-
-def tile_plan_fits(plan: GemvPlan, M: int, K: int,
-                   elem_bytes: int = 2) -> bool:
-    """Whether ``ragged_gemv`` (the ``gemv_tile.cuh`` body) takes ``plan``:
-    column blocks of whole vectors on a power-of-two count of threads
-    dividing M, K chunks dividing K within the x budget."""
-    vec = vec_elems(elem_bytes)
-    return (plan.m_blk > 0 and M % plan.m_blk == 0
-            and plan.n_m * plan.m_blk == M and plan.m_blk % vec == 0
-            and THREADS % (plan.m_blk // vec) == 0 and plan.split_k == 1
-            and plan.k_blk > 0 and K % plan.k_blk == 0
-            and 4 * MAX_BATCH * plan.k_blk <= X_SMEM_BUDGET)
-
-
-def _check_tile_plan(x: torch.Tensor, M: int, K: int,
-                     plan: GemvPlan) -> None:
-    if not tile_plan_fits(plan, M, K, x.element_size()):
-        raise ValueError(f"plan {plan} does not tile M={M}, K={K} (or its "
-                         f"x chunk exceeds shared memory)")
 
 
 # --------------------------------------------------------------------------
@@ -239,13 +210,23 @@ def ragged_gemv_plain(x: torch.Tensor, offsets: torch.Tensor,
 def ragged_gemv(x: torch.Tensor, offsets: torch.Tensor, w_t: torch.Tensor,
                 *, plan: GemvPlan) -> torch.Tensor:
     """x [T, K] sorted by expert, int32 offsets [E + 1], w_t [E, K, M] ->
-    [T, M] in one launch; rows at or beyond ``offsets[E]`` are zero."""
+    [T, M] in one launch, ``plan`` from ``gemv_plan.plan_ragged_stream``;
+    rows no expert's range holds (those at or beyond ``offsets[E]``) are
+    zero."""
     if x.ndim != 2:
         raise ValueError(f"expected x [T, K], got {tuple(x.shape)}")
     E, M, ld, es = _check_stack(x, w_t, x.shape[1])
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    _check_tile_plan(x, M, x.shape[1], plan)
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous and 16-byte aligned")
+    if not kernel_applicable(M, x.shape[1], 1, x.element_size()):
+        raise ValueError(f"M={M}, K={x.shape[1]}: the kernel takes whole "
+                         f"16-byte column vectors and a K walk of whole "
+                         f"8-row groups")
+    if x.shape[0] and not ragged_plan_fits(plan, M, x.shape[1], x.shape[0],
+                                           x.element_size()):
+        raise ValueError(f"plan {plan} does not tile M={M}, K={x.shape[1]} "
+                         f"at T={x.shape[0]} within the card's shared "
+                         f"memory")
     if offsets.shape != (E + 1,) or offsets.dtype != torch.int32:
         raise ValueError(f"offsets must be int32 [{E + 1}], got "
                          f"{offsets.dtype} {tuple(offsets.shape)}")
@@ -263,8 +244,9 @@ def ragged_gemv(x: torch.Tensor, offsets: torch.Tensor, w_t: torch.Tensor,
     fn = getattr(lib, f"ragged_gemv_{DTYPES[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(x.data_ptr(), offsets.data_ptr(), w_t.data_ptr(),
-                    out.data_ptr(), T, K, M, ld, es, E, plan.m_blk,
-                    plan.k_blk, stream), "ragged_gemv")
+                    out.data_ptr(), T, K, M, ld, es, E, plan.split_k,
+                    plan.m_blk, plan.k_blk, plan.stages, stream),
+                 "ragged_gemv")
     ragged_gemv.launches += 1
     return out
 

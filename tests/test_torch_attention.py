@@ -29,6 +29,7 @@ from repro_torch.kernels.attention import (  # noqa: E402
     kernel_applies,
     plan_splits,
     smem_bytes,
+    stage_positions,
 )
 from repro_torch.kernels.gemv_plan import SMEM_PER_CTA  # noqa: E402
 from repro_torch.kernels.kv_quant import (  # noqa: E402
@@ -230,5 +231,52 @@ def test_split_planner_refuses_what_no_split_holds():
     # 8 splits of 2^20 positions for 8 heads cannot hold their scores
     assert plan_splits(1, 1, 2**20, 8, 128, SMS) is None
     assert smem_bytes(8, 128, 2**20, 8) > SMEM_PER_CTA
+    # the f32 scores, the ranks' shares of the output, the warps'
+    # partials, the scratch and every rank's max and sum; then 96 staged
+    # bf16 V rows of 256 bytes (24 KB)
     assert math.isclose(smem_bytes(1, 128, 1024, 4),
-                        4 * (256 + 128 + 4 * 128 + 4 + 2))
+                        16 * -(-4 * (256 + 128 + 8 + 4 * 128 + 4 + 16)
+                               // 16)
+                        + 96 * 256)
+
+
+@pytest.mark.parametrize("D,C,splits,elem,bits,stage", [
+    (128, 1024, 8, 2, 16, 96),      # olmo-1b at 8 splits: 24 KB of 128 rows
+    (128, 1024, 1, 2, 16, 96),      # one split of 1024: chunks of 96
+    (128, 1024, 2, 4, 16, 48),      # f32: walk steps of 16, 512-byte rows
+    (128, 40, 8, 2, 16, 32),        # 5 positions: one walk step of 32
+    (128, 200, 8, 4, 16, 32),       # 25 positions: two f32 steps of 16
+    (32, 64, 2, 2, 16, 128),        # 2 lanes a position: steps of 128
+    (128, 1024, 8, 2, 8, 128),      # int8 codes and scales: 132-byte rows
+    (128, 4096, 8, 2, 4, 352),      # int4: 68-byte rows, 11 steps fit
+])
+def test_staged_v_rows_are_whole_walk_steps(D, C, splits, elem, bits,
+                                             stage):
+    """A CTA stages its split's V rows, at most the whole steps of the P.V
+    walk (4 warps x 32 / lanes positions x 4 vectors in flight) that fit
+    STAGE_BYTES, at least one step: a chunked walk visits positions in the
+    order of one walk."""
+    got = stage_positions(D, C, splits, elem, bits)
+    assert got == stage
+    lanes = D // (16 // elem)
+    step = attention.WARPS * (32 // lanes) * attention.UNROLL
+    assert got % step == 0
+    row = D * elem if bits == 16 else D * bits // 8 + 4
+    assert got * row <= attention.STAGE_BYTES or got == step
+    assert got >= min(-(-C // splits), attention.STAGE_BYTES // row - step)
+
+
+@pytest.mark.parametrize("bits,rows,row", [(16, 96, 256), (8, 128, 132),
+                                           (4, 128, 68)])
+def test_smem_counts_the_staged_v_of_each_store(bits, rows, row):
+    """bf16 pages stage 256 bytes a position (96 of 128 fit 24 KB); int8 /
+    int4 codes stage 128 / 64 bytes and one f32 scale (all 128); the
+    planner takes more splits where the staging does not fit."""
+    floats = 16 * -(-4 * (128 + 128 + 8 + 4 * 128 + 4 + 16) // 16)
+    assert smem_bytes(1, 128, 1024, 8, bits=bits) == floats + rows * row
+    # one split of 6144 positions for 8 heads: its f32 scores fit shared
+    # memory, but not beside 24 KB of staged rows, so two splits
+    args = (64, 16, 6144, 8, 128, SMS)
+    assert 4 * (8 * 6144 + 8 * 128 * 5 + 8 + 32 + 128) <= SMEM_PER_CTA
+    assert smem_bytes(8, 128, 6144, 1, bits=bits) > SMEM_PER_CTA
+    assert plan_splits(*args, bits=bits) == 2

@@ -500,27 +500,73 @@ def test_int8_kv_engine_on_the_card_matches_the_cpu_engine(cuda):
 MOE_E = 64
 
 
-def _expert_counts(case: str) -> tuple[int, list[int]]:
-    """(T, counts [64]) of one ragged case: a top-6 routing of 8 tokens,
-    of 1 token, all rows on one expert (more than the 8 rows a cell holds
-    in registers), counts short of T (tail rows), and T = 0."""
+def _expert_offsets(case: str) -> tuple[int, list[int]]:
+    """(T, offsets [65]) of one ragged case: chip_smoke.py's four routings
+    (a top-6 routing of 8 tokens, of 1 token, every token on expert 0,
+    counts short of T: tail rows), 20 and 72 rows on one expert (row
+    chunks past the 32 rows one bf16 walk holds), every count zero (only the
+    tail), offsets that are not monotone or lie outside [0, T] (the
+    clamp: overlapping ranges, the last expert's rows win), and T = 0."""
     import numpy as np
 
     rng = np.random.default_rng(len(case))
 
-    def route(n):
+    def route(n, force=None):
         top = np.stack([rng.permutation(MOE_E)[:6] for _ in range(n)])
+        if force is not None:
+            for row in top:
+                if force not in row:
+                    row[-1] = force
         return np.bincount(top.reshape(-1), minlength=MOE_E).tolist()
 
+    def offsets(counts):
+        return np.concatenate([[0], np.cumsum(counts)]).tolist()
+
     if case == "top6_b8":
-        return 48, route(8)
+        return 48, offsets(route(8))
     if case == "top6_b1":
-        return 6, route(1)
-    if case == "one_expert_20_rows":
-        return 20, [0] * 7 + [20] + [0] * (MOE_E - 8)
+        return 6, offsets(route(1))
+    if case == "skewed":
+        return 48, offsets(route(8, force=0))
     if case == "tail_rows":
-        return 48, route(6)
-    return 0, [0] * MOE_E
+        return 48, offsets(route(6))
+    if case == "one_expert_20_rows":
+        return 20, offsets([0] * 7 + [20] + [0] * (MOE_E - 8))
+    if case == "one_expert_72_rows":
+        return 72, offsets([0] * 3 + [72] + [0] * (MOE_E - 4))
+    if case == "all_zero":
+        return 48, [0] * (MOE_E + 1)
+    if case == "not_monotone":
+        offs = offsets(route(4))          # 24 routed rows
+        offs[10] -= 5                     # expert 10 starts inside 9's rows
+        offs[20] = -3                     # clamped to 0
+        offs[30] = 100                    # clamped to T = 30
+        return 30, offs
+    return 0, [0] * (MOE_E + 1)
+
+
+RAGGED_CASES = ["top6_b8", "top6_b1", "skewed", "tail_rows",
+                "one_expert_20_rows", "one_expert_72_rows", "all_zero",
+                "not_monotone", "empty"]
+
+
+def _ragged_case(cuda, K, M, case, dtype, E=MOE_E):
+    T, offs = _expert_offsets(case)
+    g = torch.Generator(device=cuda).manual_seed(K + T)
+    w = (torch.randn((E, K, M), generator=g, device=cuda)
+         / K ** 0.5).to(dtype)
+    x = torch.randn((T, K), generator=g, device=cuda).to(dtype)
+    return x, torch.tensor(offs, dtype=torch.int32, device=cuda), w
+
+
+def _held_rows(offsets, T):
+    """Rows some expert's clamped range [off[e], max(off[e+1], off[e]))
+    holds: every other row comes back zero."""
+    offs = [min(max(o, 0), T) for o in offsets.tolist()]
+    held = torch.zeros(T, dtype=torch.bool)
+    for lo, nx in zip(offs, offs[1:]):
+        held[lo:max(nx, lo)] = True
+    return held
 
 
 def _bf16_tol(dtype):
@@ -532,34 +578,134 @@ def _bf16_tol(dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("K,M", [(2048, 1408), (1408, 2048)])
-@pytest.mark.parametrize("case", ["top6_b8", "top6_b1", "one_expert_20_rows",
-                                  "tail_rows", "empty"])
+@pytest.mark.parametrize("case", RAGGED_CASES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_ragged_gemv_matches_plain(cuda, K, M, case, dtype):
-    from repro_torch.kernels.grouped_gemv import (
-        counts_to_offsets,
-        plan_expert_gemv,
-        ragged_gemv,
-        ragged_gemv_plain,
-    )
+    """At the plan for the card's SMs: equal to the plain version within
+    the tolerance, equal from run to run, rows no expert holds zero."""
+    from repro_torch.kernels.gemv_plan import plan_ragged_stream
+    from repro_torch.kernels.grouped_gemv import ragged_gemv, ragged_gemv_plain
 
-    T, counts = _expert_counts(case)
-    g = torch.Generator(device=cuda).manual_seed(K + T)
-    w = (torch.randn((MOE_E, K, M), generator=g, device=cuda)
-         / K ** 0.5).to(dtype)
-    x = torch.randn((T, K), generator=g, device=cuda).to(dtype)
-    offsets = counts_to_offsets(torch.tensor(counts, dtype=torch.int32,
-                                             device=cuda))
-    plan = plan_expert_gemv(M, K, elem_bytes=x.element_size())
+    x, offsets, w = _ragged_case(cuda, K, M, case, dtype)
+    T = x.shape[0]
+    plan = plan_ragged_stream(M, K, max(T, 1), E=MOE_E,
+                              elem_bytes=x.element_size())
     n0 = ragged_gemv.launches
     out = ragged_gemv(x, offsets, w, plan=plan)
     torch.cuda.synchronize()
     assert ragged_gemv.launches == n0 + (1 if T else 0)
     assert out.shape == (T, M)
+    if not T:
+        return
     torch.testing.assert_close(out.float(),
                                ragged_gemv_plain(x, offsets, w).float(),
                                **_bf16_tol(dtype))
-    assert not out[sum(counts):].any()
+    assert not out[~_held_rows(offsets, T).to(cuda)].any()
+    assert torch.equal(out, ragged_gemv(x, offsets, w, plan=plan))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,M", [(2048, 1408), (1408, 2048)])
+@pytest.mark.parametrize("case", ["top6_b1", "top6_b8", "one_expert_72_rows",
+                                  "not_monotone"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_ragged_gemv_at_every_split_degree(cuda, K, M, case, dtype):
+    """Every split degree the planner can choose (1, 2, 4, 8 K parts of
+    whole 8-row groups) at both column blocks: within the tolerance of
+    the plain version (the parts' sums meet in another order)."""
+    from repro_torch.kernels.gemv_plan import (
+        RAGGED_DEGREES,
+        STREAM_M_BLKS,
+        GemvPlan,
+        ragged_box_rows,
+        ragged_plan_fits,
+        stream_smem,
+        sub_rows,
+    )
+    from repro_torch.kernels.grouped_gemv import ragged_gemv, ragged_gemv_plain
+
+    x, offsets, w = _ragged_case(cuda, K, M, case, dtype)
+    T, es = x.shape[0], x.element_size()
+    want = ragged_gemv_plain(x, offsets, w).float()
+    ran = 0
+    for deg in RAGGED_DEGREES:
+        if K % deg or (K // deg) % 8:
+            continue
+        for m_blk in STREAM_M_BLKS:
+            k_blk = sub_rows(m_blk, K // deg, es)
+            n_k = -(-(K // deg) // k_blk)
+            plan = GemvPlan(m_blk=m_blk, k_blk=k_blk, n_m=-(-M // m_blk),
+                            n_k=n_k, split_k=deg, stages=min(2, n_k),
+                            smem_bytes=stream_smem(ragged_box_rows(T, es),
+                                                   m_blk, k_blk,
+                                                   min(2, n_k), es, deg))
+            assert ragged_plan_fits(plan, M, K, T, es)
+            got = ragged_gemv(x, offsets, w, plan=plan)
+            torch.testing.assert_close(got.float(), want,
+                                       **_bf16_tol(dtype))
+            ran += 1
+    assert ran == 2 * sum(1 for d in RAGGED_DEGREES
+                          if K % d == 0 and (K // d) % 8 == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["top6_b1", "top6_b8", "one_expert_72_rows"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_ragged_gemv_is_bit_identical_at_every_depth(cuda, case, dtype):
+    from repro_torch.kernels.gemv_plan import (
+        plan_ragged_stream,
+        ragged_box_rows,
+    )
+    from repro_torch.kernels.grouped_gemv import ragged_gemv
+
+    K, M = 2048, 1408
+    x, offsets, w = _ragged_case(cuda, K, M, case, dtype)
+    es = x.element_size()
+    base = plan_ragged_stream(M, K, x.shape[0], E=MOE_E, elem_bytes=es)
+    want = ragged_gemv(x, offsets, w, plan=base)
+    depths = 0
+    for depth in range(1, MAX_STAGES + 1):
+        p = with_pipeline_depth(base, depth,
+                                batch=ragged_box_rows(x.shape[0], es),
+                                elem_bytes=es)
+        if p is None:
+            continue
+        depths += 1
+        assert torch.equal(ragged_gemv(x, offsets, w, plan=p), want), p
+    assert depths >= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_ragged_rows_do_not_depend_on_the_slot(cuda, dtype):
+    """An expert's rows come out bit for bit the same whichever slot finds
+    it and whatever its neighbours hold: expert 5's three rows alone (slot
+    0), after four other experts (slot 4), and beside 40 rows of expert 6
+    (whose CTAs run five or eight n-tiles)."""
+    from repro_torch.kernels.gemv_plan import plan_ragged_stream
+    from repro_torch.kernels.grouped_gemv import counts_to_offsets, ragged_gemv
+
+    K, M, E = 2048, 1408, 8
+    g = torch.Generator(device=cuda).manual_seed(11)
+    w = (torch.randn((E, K, M), generator=g, device=cuda)
+         / K ** 0.5).to(dtype)
+    mine = torch.randn((3, K), generator=g, device=cuda).to(dtype)
+    rows = []
+    for before, after in ((0, 0), (4, 0), (2, 40)):
+        counts = [1 if e < before else 0 for e in range(E)]
+        counts[5], counts[6] = 3, after
+        x = torch.cat([
+            torch.randn((before, K), generator=g, device=cuda).to(dtype),
+            mine,
+            torch.randn((after, K), generator=g, device=cuda).to(dtype)])
+        offs = counts_to_offsets(torch.tensor(counts, dtype=torch.int32,
+                                              device=cuda))
+        # one plan for all three: the order of the sums follows from it
+        plan = plan_ragged_stream(M, K, 48, E=E,
+                                  elem_bytes=x.element_size())
+        rows.append(ragged_gemv(x, offs, w, plan=plan)[before:before + 3])
+    for got in rows[1:]:
+        assert torch.equal(got, rows[0])
 
 
 def _grouped_case(cuda, K, M, C, dtype, seed=0, E=MOE_E):
@@ -628,10 +774,10 @@ def test_cuda_expert_kernels_read_a_strided_expert_slice(cuda):
     expert and row views of xs, run in place and match the contiguous
     copies bit for bit."""
     from repro_torch.kernels.gemv_plan import plan_grouped_stream
+    from repro_torch.kernels.gemv_plan import plan_ragged_stream
     from repro_torch.kernels.grouped_gemv import (
         counts_to_offsets,
         grouped_gemv,
-        plan_expert_gemv,
         ragged_gemv,
     )
 
@@ -640,7 +786,7 @@ def test_cuda_expert_kernels_read_a_strided_expert_slice(cuda):
     wide = torch.randn((8, K, 2 * M), generator=g, device=cuda).to(
         torch.bfloat16)
     view = wide[:, :, M:]
-    plan = plan_expert_gemv(M, K)
+    plan = plan_ragged_stream(M, K, 12, E=8)
     x = torch.randn((12, K), generator=g, device=cuda).to(torch.bfloat16)
     offsets = counts_to_offsets(torch.tensor([3, 0, 2, 0, 4, 1, 0, 2],
                                              dtype=torch.int32, device=cuda))
@@ -868,19 +1014,23 @@ def _attention_tol(dtype, v):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("C", [1024, 4096])
 @pytest.mark.parametrize("G,Hkv", [(1, 16), (2, 8), (8, 2)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cuda_decode_attention_matches_plain(cuda, G, Hkv, dtype):
+def test_cuda_decode_attention_matches_plain(cuda, C, G, Hkv, dtype):
     """The engine's shapes (8 slots of a 1024-position cache, head dim
-    128): valid lengths 1, 17, 300, C, an idle slot whose offset runs past
-    the end, and one with no valid position (all masked: uniform)."""
+    128), and a 4096-position one: valid lengths 1, 17, 300, C, an idle
+    slot whose offset runs past the end, and one with no valid position
+    (all masked: uniform over C).  At every split count a CTA's V rows are
+    staged in one chunk (8 splits of 1024) or in several (fewer splits,
+    the longer cache)."""
     from repro_torch.kernels.attention import (
         decode_attention,
         decode_attention_plain,
         kernel_applies,
     )
 
-    B, C, D = 8, 1024, 128
+    B, D = 8, 128
     qpos = [0, 16, 299, C - 1, C + 40, 511, 700, 5]
     q, k, v, pos = _attention_case(cuda, B, C, Hkv, G, D, dtype, qpos,
                                    slots=12)
@@ -909,19 +1059,21 @@ def test_cuda_decode_attention_matches_plain(cuda, G, Hkv, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("C", [1024, 4096])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("G,Hkv", [(1, 16), (8, 2)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_quantized_attention_equals_the_fp_kernel_bit_for_bit(
-        cuda, bits, G, Hkv, dtype):
+        cuda, C, bits, G, Hkv, dtype):
     """int8 / int4 pages read in place (codes and scales of a slot-prefix
-    view): the output equals the fp kernel's over ``dequantize_page``'s
-    tensor bit for bit at every split count, with idle slots past the end
-    and an all-masked slot; no dequantized copy is made."""
+    view, staged in shared memory with their scales): the output equals
+    the fp kernel's over ``dequantize_page``'s tensor bit for bit at every
+    split count, with idle slots past the end and an all-masked slot; no
+    dequantized copy is made."""
     from repro_torch.kernels.attention import decode_attention, kernel_applies
     from repro_torch.kernels.kv_quant import dequantize_page, quantize_page
 
-    B, C, D = 8, 1024, 128
+    B, D = 8, 128
     qpos = [0, 16, 299, C - 1, C + 40, 511, 700, 5]
     q, k, v, pos = _attention_case(cuda, B, C, Hkv, G, D, dtype, qpos,
                                    slots=12, seed=bits)
@@ -985,6 +1137,23 @@ def test_prefill_scores_keep_bf16_operands_on_the_card(cuda, dtype):
     want = torch.einsum("bhgqk,bkhd->bqhgd", probs, v).reshape(out.shape)
     torch.testing.assert_close(out.float(), want.float(),
                                **_attention_tol(dtype, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_smem_is_what_the_kernel_takes(cuda, bits, dtype):
+    """The planner's shared memory (scores, partials, the staged V rows
+    and their scales) is what the kernel asks for, at every split count."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import SPLITS, smem_bytes
+
+    fn = _build.load("decode_attention").decode_attention_smem_bytes
+    es = torch.tensor([], dtype=dtype).element_size()
+    for G, D, C in ((1, 128, 1024), (8, 128, 4096), (2, 64, 300)):
+        for s in SPLITS:
+            assert fn(G, D, C, s, es, bits) == smem_bytes(
+                G, D, C, s, elem_bytes=es, bits=bits), (G, D, C, s)
 
 
 @pytest.mark.gpu

@@ -34,22 +34,21 @@ from repro_torch.kernels.gemv_plan import (
     K_ALIGN,
     MAX_BATCH,
     DEFAULT_STAGES,
-    MAX_M_BLK,
     MAX_STAGES,
     SMEM_PER_CTA,
     STREAM_M_BLKS,
     SUBTILE_BYTES,
-    THREADS,
     GemvPlan,
     ctas_per_sm,
     kernel_applicable,
     plan_fits,
     plan_gemv,
+    plan_ragged_stream,
     plan_splitk,
-    plan_tile,
+    ragged_box_rows,
+    ragged_plan_fits,
     stream_smem,
     valid_splitk_degree,
-    vec_elems,
     with_pipeline_depth,
 )
 from repro_torch.kernels.ops import PackedWeights
@@ -166,16 +165,20 @@ def test_plan_sweep_tall_first_and_divides(M, K, B, elem):
     assert p.n_m <= 132 * held
     assert p.m_blk == 128 or -(-M // 128) < 132
     assert p.stages == min(DEFAULT_STAGES, p.n_k)
-    # the gemv_tile body's plan (the expert kernels) keeps the first sweep
-    t = plan_tile(M, K, B, elem_bytes=elem)
-    vec = vec_elems(elem)
-    assert t.n_m * t.m_blk == M and t.n_k * t.k_blk == K
-    assert t.m_blk <= MAX_M_BLK and t.m_blk % vec == 0
-    assert THREADS % (t.m_blk // vec) == 0
-    # tallest: doubling the block would no longer divide M or fit the cap
-    assert 2 * t.m_blk > MAX_M_BLK or M % (2 * t.m_blk)
-    assert t.smem_bytes <= 48 * 1024 and t.stages == 1
-    assert t.k_blk % K_ALIGN == 0 or t.k_blk == K
+    # the expert kernel on the same body (ragged_gemv, top-6 of B tokens
+    # over 64 experts): K parts of whole 8-row groups that its cluster's
+    # ranks split the column block of, 16 KB sub-tiles, the default depth
+    T = 6 * B
+    t = plan_ragged_stream(M, K, T, E=64, sms=132, elem_bytes=elem)
+    deg = t.split_k
+    assert t.m_blk in STREAM_M_BLKS and t.m_blk % deg == 0
+    assert K % deg == 0 and (K // deg) % K_ALIGN == 0
+    assert t.n_m == -(-M // t.m_blk) and t.n_k == -(-(K // deg) // t.k_blk)
+    assert t.k_blk % 16 == 0 and t.k_blk * t.m_blk * elem <= SUBTILE_BYTES
+    assert t.stages == min(DEFAULT_STAGES, t.n_k)
+    assert t.smem_bytes == stream_smem(ragged_box_rows(T, elem), t.m_blk,
+                                       t.k_blk, t.stages, elem, deg)
+    assert ragged_plan_fits(t, M, K, T, elem)
 
 
 def test_splitk_degree_and_applicability():

@@ -45,11 +45,14 @@ from repro_torch.kernels.backends.base import (  # noqa: E402
     expert_batch_bound,
 )
 from repro_torch.kernels.backends.h100 import H100Backend  # noqa: E402
-from repro_torch.kernels.gemv_plan import plan_grouped_stream  # noqa: E402
+from repro_torch.kernels.gemv_plan import (  # noqa: E402
+    GemvPlan,
+    plan_grouped_stream,
+    plan_ragged_stream,
+)
 from repro_torch.kernels.grouped_gemv import (  # noqa: E402
     counts_to_offsets,
     grouped_gemv,
-    plan_expert_gemv,
     plan_grouped_gemv,
     ragged_gemv,
 )
@@ -233,7 +236,8 @@ def test_ragged_plain_and_portable_match_jax_executor(case):
     xt, wt, ct = (torch.from_numpy(a) for a in (x, w, counts))
     n0 = ragged_gemv.launches
     got = ragged_gemv(xt, counts_to_offsets(ct), wt,
-                      plan=plan_expert_gemv(M, K, elem_bytes=4))
+                      plan=plan_ragged_stream(M, K, T, E=E, sms=132,
+                                              elem_bytes=4))
     assert ragged_gemv.launches == n0          # CPU: the plain version
     np.testing.assert_allclose(_np(got), want, atol=ATOL, rtol=0)
     prog = GemvProgram.ragged(xt, ct, PackedWeights(w_t=wt))
@@ -267,7 +271,7 @@ def test_grouped_plain_and_portable_match_jax_executor(C):
 
 def test_expert_wrappers_check_their_inputs():
     E, T, K, M = 4, 6, 64, 128
-    plan = plan_expert_gemv(M, K, elem_bytes=4)
+    plan = plan_ragged_stream(M, K, T, E=E, sms=132, elem_bytes=4)
     x = torch.randn(T, K)
     w = torch.randn(E, K, M)
     offs = counts_to_offsets(torch.tensor([2, 0, 3, 1], dtype=torch.int32))
@@ -280,6 +284,10 @@ def test_expert_wrappers_check_their_inputs():
                     plan=plan)
     with pytest.raises(TypeError, match="share"):
         ragged_gemv(x.double(), offs, w, plan=plan)
+    with pytest.raises(ValueError, match="tile"):   # 3 K parts: no cluster
+        ragged_gemv(x, offs, w, plan=GemvPlan(m_blk=128, k_blk=64, n_m=1,
+                                              n_k=1, smem_bytes=0,
+                                              split_k=3))
     with pytest.raises(ValueError, match="tile"):   # a plan for M=256
         grouped_gemv(torch.randn(E, 2, K), torch.randn(E, K, 96),
                      plan=plan_grouped_stream(256, K, 2, E=E, sms=132,
@@ -468,7 +476,8 @@ def test_h100_program_mode_pick_matches_the_jax_gpu_backend(case):
         assert tplan.kernel == f"{kind}_gemv"
         assert tplan.plan == (
             plan_grouped_stream(M, K, batch, E=E, sms=132)
-            if kind == "grouped" else plan_expert_gemv(M, K))
+            if kind == "grouped" else plan_ragged_stream(M, K, T, E=E,
+                                                          sms=132))
 
 
 def test_program_keys_match_jax():

@@ -1,5 +1,5 @@
 """Autotune-table replays and the streaming planners of the expert and
-column-block kernels.
+column-block kernels (``grouped_gemv``, ``ragged_gemv``, ``triton_gemv``).
 
 A table entry keeps its kernel; a plan the kernel no longer takes (a table
 written by an earlier build) is re-planned by the backend instead of
@@ -22,6 +22,8 @@ from repro_torch.kernels.backends.base import (
     plan_to_entry,
     program_plan_to_entry,
 )
+from repro_torch.kernels.backends import gpu as gpu_backend
+from repro_torch.kernels.backends import h100 as h100_backend
 from repro_torch.kernels.backends.gpu import GpuBackend, plan_triton_gemv
 from repro_torch.kernels.backends.h100 import H100Backend
 from repro_torch.kernels import ref
@@ -35,13 +37,22 @@ from repro_torch.kernels.gemv_plan import (
     grouped_plan_fits,
     plan_fits,
     plan_grouped_stream,
+    RAGGED_DEGREES,
+    RAGGED_MIN_CTA_BYTES,
+    expected_experts,
+    plan_ragged_stream,
     quant_plan_fits,
+    ragged_box_rows,
+    ragged_plan_fits,
     stream_rows,
     stream_smem,
     sub_rows,
     with_pipeline_depth,
 )
-from repro_torch.kernels.grouped_gemv import plan_expert_gemv
+from repro_torch.kernels.grouped_gemv import (
+    counts_to_offsets,
+    ragged_gemv_plain,
+)
 from repro_torch.kernels.ops import PackedWeights, quantize_weight
 from repro_torch.kernels.triton_gemv import body_ctas, body_m_blk
 from repro_torch.kernels.triton_gemv import plan_fits as triton_plan_fits
@@ -175,7 +186,7 @@ def test_a_ref_entry_stays_ref(tmp_path, monkeypatch, fresh_tables):
     assert dispatch.dispatch_stats()["kernel_picks"] == {"h100:ref": 1}
 
 
-# grouped_cuda entries from earlier builds: the gemv_tile plan of the
+# grouped_cuda entries from earlier builds: the one-stage tile plan of the
 # first grouped kernel (one stage, a 1024-row x chunk), and a whole-K
 # chunk past that kernel's x budget
 STALE_GROUPED = {
@@ -260,21 +271,77 @@ def test_a_stale_ragged_entry_is_re_tiled():
     key = ProgramKey(kind="ragged", Ms=(1408,), K=2048, batch=2, group=64,
                      bits=16, block=32, dtype="torch.bfloat16",
                      backend="h100", tokens=48, hist="le2m1")
-    # tiles the ragged kernel refuses: 256 columns do not divide M, and a
-    # 2048-row x chunk exceeds its budget
+    # tiles the streaming ragged kernel refuses: a 256-column block, and
+    # a 2048-row sub-tile past one box
     stale = ProgramPlan(mode="ragged_cuda", n_launches=1,
                         kernel="ragged_gemv",
                         plan=GemvPlan(m_blk=256, k_blk=2048, n_m=6, n_k=1,
                                       smem_bytes=0))
     got = be.replay_program(stale, key, DispatchPolicy())
-    assert got.mode == "ragged_cuda"
-    assert got.plan == plan_expert_gemv(1408, 2048)
+    assert got.mode == "ragged_cuda" and got.kernel == "ragged_gemv"
+    assert got.plan == plan_ragged_stream(1408, 2048, 48, E=64, sms=SMS)
     current = be.plan_program(key)
+    assert current.plan == got.plan
     assert be.replay_program(current, key, DispatchPolicy()) is current
 
 
+# ragged entries from earlier builds: the first ragged kernel's tiles
+# (128 columns, a 1024-row x chunk, one stage: what its planner gave at
+# K = 2048), and a whole-K chunk
+STALE_RAGGED = {
+    "tile_plan": dict(m_blk=128, k_blk=1024, n_m=2, n_k=2),
+    "whole_k": dict(m_blk=128, k_blk=2048, n_m=2, n_k=1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STALE_RAGGED))
+@pytest.mark.parametrize("backend", ["h100", "gpu"])
+def test_a_stale_ragged_entry_replays_at_its_kernel(
+        backend, case, tmp_path, monkeypatch, fresh_tables):
+    """A native ragged entry of an earlier build (``ragged_cuda`` on h100,
+    ``ragged_triton`` on gpu) keeps its mode and runs ``ragged_gemv`` on
+    ``plan_ragged_stream``'s plan."""
+    E, T, K, M = 8, 12, 2048, 256
+    be = (H100Backend if backend == "h100" else GpuBackend)(
+        min_parallel_blocks=SMS)
+    monkeypatch.setitem(base._REGISTRY, backend, be)
+    module = h100_backend if backend == "h100" else gpu_backend
+    plans, real = [], module.ragged_gemv
+
+    def spy(x, offsets, w_t, *, plan):
+        plans.append(plan)
+        return real(x, offsets, w_t, plan=plan)
+
+    monkeypatch.setattr(module, "ragged_gemv", spy)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((T, K)).astype(np.float32))
+    w = torch.from_numpy(
+        (rng.standard_normal((E, K, M)) / np.sqrt(K)).astype(np.float32))
+    counts = torch.tensor([3, 0, 2, 0, 4, 1, 0, 2], dtype=torch.int32)
+    stale = GemvPlan(smem_bytes=0, stages=1, **STALE_RAGGED[case])
+    assert not ragged_plan_fits(stale, M, K, T, 4)
+    mode = "ragged_cuda" if backend == "h100" else "ragged_triton"
+    pkey = GemvProgram.ragged(x, counts, PackedWeights(w_t=w),
+                              bound=2).key(backend)
+    fresh_tables.put_program(backend, pkey.table_key(), program_plan_to_entry(
+        ProgramPlan(mode=mode, n_launches=1,
+                    kernel="ragged_gemv" if backend == "h100" else "triton",
+                    plan=stale), 5.0))
+    _reload(fresh_tables, tmp_path)
+    out = dispatch.dispatch_ragged(x, counts, w, bound=2,
+                                   policy=DispatchPolicy(backend=backend))
+    np.testing.assert_allclose(
+        out.numpy(), ragged_gemv_plain(x, counts_to_offsets(counts),
+                                       w).numpy(), rtol=1e-5, atol=1e-5)
+    plan, = plans
+    assert plan == plan_ragged_stream(M, K, T, E=E, sms=SMS, elem_bytes=4)
+    assert ragged_plan_fits(plan, M, K, T, 4)
+    assert dispatch.dispatch_stats()["program_modes"] == {
+        f"{backend}:{mode}": 1}
+
+
 # --------------------------------------------------------------------------
-# the streaming planners of grouped_gemv and triton_gemv
+# the streaming planners of grouped_gemv, ragged_gemv and triton_gemv
 # --------------------------------------------------------------------------
 
 # deepseek-moe-16b's expert GEMVs (M, K) and, for the triton mapping,
@@ -332,6 +399,103 @@ def test_grouped_stream_plan_at_deepseek_moe_16b():
         128, 64, 16, 22, 2)
     # without an SM count (no card) the plan is the 128-column one
     assert plan_grouped_stream(1408, 2048, 8, E=64, sms=0).m_blk == 128
+
+
+@pytest.mark.parametrize("M,K", MOE_SHAPES)
+@pytest.mark.parametrize("T", [1, 6, 12, 48, 100, 512])
+@pytest.mark.parametrize("elem", [2, 4])
+def test_ragged_stream_plan_fills_the_card(M, K, T, elem):
+    """Of every (split degree, column block) the kernel takes whose CTAs
+    stream at least RAGGED_MIN_CTA_BYTES, the plan is the one whose CTAs
+    over the experts uniform routing gives rows fill the most of one wave
+    of the card's CTA slots without a second, else the one with the
+    fewest (ties to the taller block).  Every depth the card holds
+    restages it."""
+    E = 64
+    p = plan_ragged_stream(M, K, T, E=E, sms=SMS, elem_bytes=elem)
+    rows = ragged_box_rows(T, elem)
+    assert rows % min(T, 8) == 0 and rows >= min(T, 32 if elem == 2 else 8)
+    deg = p.split_k
+    assert p.m_blk in STREAM_M_BLKS and deg in RAGGED_DEGREES
+    assert p.k_blk == sub_rows(p.m_blk, K // deg, elem)
+    assert p.n_m == -(-M // p.m_blk) and p.n_k == -(-(K // deg) // p.k_blk)
+    assert p.stages == min(DEFAULT_STAGES, p.n_k)
+    assert p.smem_bytes == stream_smem(rows, p.m_blk, p.k_blk, p.stages,
+                                       elem, deg)
+    assert ragged_plan_fits(p, M, K, T, elem)
+    live = expected_experts(E, T)
+    assert min(E, T) * 0.5 <= live <= min(E, T)
+
+    def ctas(m_blk, d):
+        return live * -(-M // m_blk) * d
+
+    def wave(m_blk, d):
+        k_blk = sub_rows(m_blk, K // d, elem)
+        stages = min(DEFAULT_STAGES, -(-(K // d) // k_blk))
+        return SMS * ctas_per_sm(stream_smem(rows, m_blk, k_blk, stages,
+                                             elem, d))
+
+    every = [(m, d) for d in RAGGED_DEGREES for m in STREAM_M_BLKS
+             if K % d == 0 and (K // d) % 8 == 0]
+    pool = [(m, d) for m, d in every
+            if K // d * m * elem >= RAGGED_MIN_CTA_BYTES] or every
+    one = [c for c in pool if ctas(*c) <= wave(*c)]
+    best = (max(one, key=lambda c: (ctas(*c), c[0], -c[1])) if one
+            else min(pool, key=lambda c: (ctas(*c), -c[0], c[1])))
+    assert (p.m_blk, deg) == best
+    for depth in range(1, MAX_STAGES + 1):
+        d = with_pipeline_depth(p, depth, batch=rows, elem_bytes=elem)
+        if d is not None:
+            assert ragged_plan_fits(d, M, K, T, elem)
+            assert (d.m_blk, d.k_blk, d.split_k) == (p.m_blk, p.k_blk, deg)
+
+
+@pytest.mark.parametrize("M,K", MOE_SHAPES)
+def test_ragged_stream_plan_at_deepseek_moe_16b(M, K):
+    """One token (top-6, T = 6): 6 slots would leave half the 132 SMs
+    idle unsplit, so each expert's K walk splits over a cluster of at
+    least 2 and the live CTAs cover every SM; 8 tokens (T = 48): the
+    about 34 experts with rows fill at least half a wave of the card's
+    CTA slots unsplit."""
+    one = plan_ragged_stream(M, K, 6, E=64, sms=SMS)
+    assert one.split_k >= 2
+    assert 6 * one.n_m * one.split_k >= SMS
+    eight = plan_ragged_stream(M, K, 48, E=64, sms=SMS)
+    wave = SMS * ctas_per_sm(eight.smem_bytes)
+    assert eight.split_k == 1
+    assert wave / 2 <= expected_experts(64, 48) * eight.n_m
+    # gate/up splits K four ways for one token, down two ways
+    assert (one.m_blk, one.split_k) == ((128, 4) if K == 2048 else (128, 2))
+    assert eight.m_blk == 128
+    # without an SM count (no card) the plan is the one-part 128-column one
+    bare = plan_ragged_stream(M, K, 6, E=64, sms=0)
+    assert (bare.m_blk, bare.split_k) == (128, 1)
+
+
+def test_ragged_plan_fits_refuses_what_the_kernel_refuses():
+    M, K, T = 1408, 2048, 48
+    good = plan_ragged_stream(M, K, T, E=64, sms=SMS)
+    assert ragged_plan_fits(good, M, K, T)
+    k_part = K // good.split_k
+    bad = {
+        "column block": dataclasses.replace(good, m_blk=256,
+                                            n_m=-(-M // 256)),
+        "degree": dataclasses.replace(good, split_k=3),
+        "sub-tile past a box": dataclasses.replace(
+            good, k_blk=512, n_k=-(-k_part // 512)),
+        "partial k16 step": dataclasses.replace(good, k_blk=40),
+        "deeper than the walk": dataclasses.replace(good, stages=good.n_k
+                                                    + 1),
+        "column blocks": dataclasses.replace(good, n_m=good.n_m + 1),
+        "shared memory": dataclasses.replace(
+            good, k_blk=256, n_k=-(-k_part // 256), stages=3),
+    }
+    for what, plan in bad.items():
+        assert not ragged_plan_fits(plan, M, K, T), what
+    assert ragged_plan_fits(dataclasses.replace(
+        good, k_blk=256, n_k=-(-k_part // 256), stages=2), M, K, T)
+    assert not ragged_plan_fits(good, 1408, 2044, T)   # K parts of 8 rows
+    assert not ragged_plan_fits(good, M, K, 0)
 
 
 @pytest.mark.parametrize("M,K", HEAD_SHAPES)
