@@ -38,13 +38,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    timed beside the bound of the codes and scales;
 4. engine  -- olmo-1b at full width, bf16, seeded random weights, through
    ``Engine(batch_slots=8, max_len=1024)``: 8 requests with prompts of 32
-   to 512 tokens, 64 greedy tokens each; fails unless every decode step
-   launched ``pim_gemv`` 17 and ``splitk_gemv`` 32 times, as the h100
-   backend's picks for its GEMVs predict, and ``decode_attention`` once
-   a layer (16), and unless the profiler finds no cast or copy of a
-   cache-shaped tensor in the decode steps; TTFT p50 with prefill
-   attention's scores from K cast to f32 and from the bf16 operands, in
-   turns, greedy tokens equal (as in every ``h100`` engine phase);
+   to 512 tokens, 64 greedy tokens each.  Every engine phase runs twice:
+   with the decode step as one replayed CUDA graph a bucket (the main
+   path) and under ``disable_graphs()`` (eager); fails unless the greedy
+   tokens are equal both ways.  The wrappers' counters tick when Python
+   runs the step: every eager step, and with graphs each bucket's eager
+   first step and its capture, never a replay.  Fails unless each counted
+   step launched ``pim_gemv`` 17 and ``splitk_gemv`` 32 times, as the
+   h100 backend's picks for its GEMVs predict, and ``decode_attention``
+   once a layer (16); unless the profiler finds no cast or copy of a
+   cache-shaped tensor in the eager decode steps (ATen ops with shapes);
+   and unless a replayed step runs every port kernel as often as the
+   eager step and no copy kernel more often (kernel names).  Per route:
+   per-token p50/p90, device busy and idle share, ATen ops and kernels a
+   step, peak memory; the capture's seconds by bucket.  TTFT p50 with
+   prefill attention's scores from K cast to f32 and from the bf16
+   operands, in turns, greedy tokens equal (as in every ``h100`` engine
+   phase);
 5. logits  -- one decode step of the same engine state through the
    dispatcher and through ``torch.matmul`` (policy pinned to ``ref``);
 6. quant   -- every decode GEMV of olmo-1b at full width and depth, batch
@@ -86,8 +96,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    agreement are reported; each layer's MoE block is held to its tolerance
    on the inputs the kernel step gave it;
 11. moe grouped -- ``Engine(batch_slots=1, gemv_expert_shape="grouped")``
-   serves 2 of the requests, 16 tokens each: fails unless
-   ``grouped_gemv`` launched; greedy tokens are compared with the ragged
+   serves 2 of the requests, 16 tokens each, both ways: fails unless
+   ``grouped_gemv`` launched three times a layer on each counted step;
+   greedy tokens are compared with the ragged
    engine's; then ``[moe gpu]``: the 8 requests, 16 tokens each, on
    ``Engine(gemv_backend="gpu")``: fails unless every decode step
    launches ``ragged_gemv`` three times a layer under mode
@@ -111,6 +122,7 @@ imports JAX or the JAX package.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -205,6 +217,7 @@ from repro_torch.kernels.triton_gemv import (  # noqa: E402
 )
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.serving import disable_graphs  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -1077,6 +1090,14 @@ def cache_copies(prof, tails) -> dict[str, int]:
     return dict(hits)
 
 
+# the port's kernels as the profiler names them (CUPTI reports each kernel
+# node of a replayed graph under its symbol): the streaming body's entry
+# (pim_gemv, splitk_gemv, triton_gemv, grouped_gemv and the quant kernels
+# instantiate it), the ragged kernel and decode attention
+PORT_SYMBOLS = re.compile(r"gemv_stream::stream_kernel<|ragged_kernel<|"
+                          r"decode_attention_kernel<")
+
+
 def profile_decode(eng, step_ms: float, steps: int = 3) -> dict | None:
     """Device time of a few decode steps by kernel name (torch.profiler);
     None when the profiler reports no device time here.  The idle share
@@ -1084,7 +1105,9 @@ def profile_decode(eng, step_ms: float, steps: int = 3) -> dict | None:
     profiler's own overhead inflates the host time of the traced steps).
     ``cache_copies`` counts the ops that cast, copy or contract a tensor
     of the K/V cache's shape (pages, int4 codes, or the scales of a
-    quantized store) in those steps (input shapes recorded)."""
+    quantized store) in those steps (input shapes recorded; a replayed
+    step has no ATen ops inside its graph, so this reads eager steps).
+    ``kernels_by_name`` is every device activity's calls a step."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = eng.cfg
@@ -1095,6 +1118,10 @@ def profile_decode(eng, step_ms: float, steps: int = 3) -> dict | None:
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
+        # the profiler drops device activity it places past the window's
+        # end; a replayed step's last kernels end just before the
+        # synchronize returns, so the window stays open a little longer
+        time.sleep(0.1)
     C, Hkv, D = eng.max_len, cfg.n_kv_heads, cfg.hd
     copies = cache_copies(prof, {(C, Hkv, D), (C, Hkv, D // 2), (C, Hkv)})
     avgs = prof.key_averages()
@@ -1110,11 +1137,15 @@ def profile_decode(eng, step_ms: float, steps: int = 3) -> dict | None:
     # (inflated by the profiler itself; read for the ranking and counts)
     aten = sorted((e for e in avgs if e.key.startswith("aten::")),
                   key=lambda e: -e.self_cpu_time_total)
+    kernels = collections.Counter()
+    for e in on_card:
+        kernels[e.key] += e.count / steps
     return {"steps": steps, "device_busy_ms_per_step": per_step,
             "step_ms": step_ms, "cache_copies": copies,
             "device_idle_share": max(0.0, 1 - per_step / step_ms),
             "kernels_per_step": sum(e.count for e in on_card) / steps,
             "aten_ops_per_step": sum(e.count for e in aten) / steps,
+            "kernels_by_name": dict(kernels),
             "top": [{"name": n[:120], "ms_per_step": ms / steps,
                      "calls_per_step": calls / steps}
                     for n, ms, calls in by_name[:20]],
@@ -1122,6 +1153,47 @@ def profile_decode(eng, step_ms: float, steps: int = 3) -> dict | None:
                           "self_cpu_ms_per_step":
                               e.self_cpu_time_total / 1e3 / steps}
                          for e in aten[:12]]}
+
+
+def compare_replay(graph: dict, eager: dict, cfg) -> dict:
+    """A replayed step against an eager one, by the profiler's kernel
+    names: every port kernel as often (and decode attention once a layer,
+    the ragged kernel three times a layer), and no copy or cast kernel
+    more often.  Host transfers (the staged tokens, the logits) are left
+    out.  Counts are whole kernels a step, rounded from the 3-step window:
+    the profiler now and then drops one record of a window of thousands.
+    Raises on a difference; returns the library kernels whose counts
+    differ, for the report."""
+    g, e = ({n: round(c) for n, c in d["kernels_by_name"].items()}
+            for d in (graph, eager))
+    names = set(g) | set(e)
+    port = {n: (g.get(n, 0), e.get(n, 0)) for n in names
+            if PORT_SYMBOLS.search(n)}
+    bad = {n: v for n, v in port.items() if v[0] != v[1]}
+    copies = {n: (g.get(n, 0), e.get(n, 0)) for n in names
+              if "copy" in n.lower()}
+    # a device-to-device memcpy shows as "Memcpy DtoD" when issued and as
+    # a memcpy32_* kernel node in a graph: held as one group
+    dtod = [sum(d.get(n, 0) for n in names
+                if n.startswith(("Memcpy DtoD", "memcpy32_")))
+            for d in (g, e)]
+    copies["device-to-device memcpy"] = tuple(dtod)
+    bad.update({n: v for n, v in copies.items() if v[0] > v[1]})
+    want = {"decode_attention_kernel<": cfg.n_layers}
+    if cfg.moe is not None and any("ragged_kernel<" in n for n in names):
+        want["ragged_kernel<"] = 3 * cfg.n_layers
+    for sym, n in want.items():
+        got = sum(c for name, c in g.items() if sym in name)
+        if got != n:
+            bad[sym] = (got, n)
+    if bad:
+        raise AssertionError(f"replayed step vs eager step (per step, "
+                             f"graph vs eager): {bad}")
+    return {"port_kernels_per_step": sum(v[0] for v in port.values()),
+            "library_differences": {
+                n[:120]: (g.get(n, 0), e.get(n, 0)) for n in names
+                if not n.startswith(("Memcpy", "memcpy32_"))
+                and n not in port and g.get(n, 0) != e.get(n, 0)}}
 
 
 def log_ttft(res: dict) -> None:
@@ -1133,11 +1205,11 @@ def log_ttft(res: dict) -> None:
         + " ms; greedy tokens equal")
 
 
-def log_profile(p: dict | None) -> None:
+def log_profile(p: dict | None, label: str = "profile") -> None:
     if p is None:
-        log("  profile: the profiler reported no device time")
+        log(f"  {label}: the profiler reported no device time")
         return
-    log(f"  profile: device busy {p['device_busy_ms_per_step']:.3f} ms "
+    log(f"  {label}: device busy {p['device_busy_ms_per_step']:.3f} ms "
         f"per decode step against a {p['step_ms']:.3f} ms step: idle "
         f"share {p['device_idle_share']:.3f}; "
         f"{p['kernels_per_step']:.0f} kernels and "
@@ -1145,6 +1217,28 @@ def log_profile(p: dict | None) -> None:
         f"of a cache-shaped tensor {p['cache_copies'] or 'none'}")
     for t in p["top"][:10]:
         log(f"    {t['ms_per_step']:8.3f} ms/step  {t['name']}")
+
+
+def log_routes(tag: str, res: dict) -> None:
+    """Both routes of an engine phase: the profiles, one line each, then
+    the captures."""
+    for route in ROUTES:
+        log_profile(res["routes"][route]["profile"], f"profile ({route})")
+    for route in ROUTES:
+        r = res["routes"][route]
+        pt, pr = r["per_token_ms"], r["profile"]
+        log(f"  [{tag} {route}] per-token p50 {pt['p50']:.3f} ms p90 "
+            f"{pt['p90']:.3f} ms; device busy "
+            f"{pr['device_busy_ms_per_step']:.3f} ms/step, idle share "
+            f"{pr['device_idle_share']:.3f}; {pr['aten_ops_per_step']:.0f} "
+            f"ATen ops, {pr['kernels_per_step']:.0f} kernels per step; peak "
+            f"{r['peak_mem_gb']:.3f} GB")
+    log(f"  [{tag} capture] seconds by bucket "
+        f"{json.dumps(res['routes']['graph']['capture_s'])}; greedy tokens "
+        f"equal both ways; replayed step: "
+        f"{res['replay']['port_kernels_per_step']:.0f} port kernels as in "
+        f"the eager step, library differences "
+        f"{res['replay']['library_differences'] or 'none'}")
 
 
 def decode_sites(cfg) -> dict[str, tuple[int, int, int]]:
@@ -1172,14 +1266,54 @@ def launches_per_step(cfg, policy, batch: int, backend: str,
 
 
 
+ROUTES = ("graph", "eager")
+
+
+def route_ctx(route: str):
+    """The engine's decode route: captured graphs (the default) or eager
+    under ``disable_graphs()``."""
+    return disable_graphs() if route == "eager" else contextlib.nullcontext()
+
+
+def counted_batches(route: str, batches: list[int]) -> list[int]:
+    """The decode batches the wrappers' counters saw: every step when
+    eager; with graphs each bucket twice (its eager first step and its
+    capture), a replay never."""
+    return batches if route == "eager" else sorted(set(batches)) * 2
+
+
 def run_engine(cfg, params, dev, kv_store: str = "fp", *,
                backend: str = "h100", new_tokens: int = 64) -> dict:
+    """The engine phase both ways: with replayed graphs (the main path,
+    whose counters the kernels line reports) and under
+    ``disable_graphs()``; greedy tokens must be equal, and the replayed
+    step must run the eager step's port kernels."""
     kw = dict(gemv_backend=backend)
     # warm-up: first calls of every op and both decode buckets
     warm = serve(cfg, params, dev, [16, 40, 24, 8, 64, 32, 12, 20], 3, 1,
                  kv_store, **kw)
     warm.run_until_drained()
     del warm
+    routes = {}
+    for route in ROUTES:
+        with route_ctx(route):
+            routes[route] = run_route(cfg, params, dev, kv_store, backend,
+                                      new_tokens, route)
+    if routes["graph"]["generated"] != routes["eager"]["generated"]:
+        raise AssertionError(
+            f"greedy tokens differ between the graph and eager routes: "
+            f"{token_agreement(routes['eager']['generated'], routes['graph']['generated'])}")
+    res = {**routes["graph"], "routes": routes,
+           "replay": compare_replay(routes["graph"]["profile"],
+                                    routes["eager"]["profile"], cfg)}
+    if backend == "h100":
+        res["prefill_scores"] = ttft_both_ways(cfg, params, dev, kv_store)
+    return res
+
+
+def run_route(cfg, params, dev, kv_store: str, backend: str,
+              new_tokens: int, route: str) -> dict:
+    kw = dict(gemv_backend=backend)
     # an engine whose sampler check_finite_logits wrapped sits in a
     # reference cycle: collect it, or its state counts in the next peak
     gc.collect()
@@ -1211,11 +1345,20 @@ def run_engine(cfg, params, dev, kv_store: str = "fp", *,
                              f"{counts}")
     doc = eng.metrics.to_dict(include_steps=True)
     steps = doc["counters"]["decode_steps"]
-    # every layer of every decode step reads its cache through the kernel
-    if counts["decode_attention"] != cfg.n_layers * steps:
+    batches = counted_batches(route, [st["decode_batch"]
+                                      for st in doc["steps"]
+                                      if st["decode_batch"]])
+    capture_s = ({str(b): s for b, s in eng.graphs.capture_s.items()}
+                 if route == "graph" else {})
+    if route == "graph" and sorted(eng.graphs.replays) != sorted(
+            set(batches)):
+        raise AssertionError(f"graphs {sorted(eng.graphs.replays)} for the "
+                             f"buckets {sorted(set(batches))}")
+    # every layer of every counted step reads its cache through the kernel
+    if counts["decode_attention"] != cfg.n_layers * len(batches):
         raise AssertionError(
-            f"{steps} decode steps launched decode_attention "
-            f"{counts['decode_attention']} times (expected "
+            f"{len(batches)} counted decode steps launched decode_attention"
+            f" {counts['decode_attention']} times (expected "
             f"{cfg.n_layers} a step)")
     extra = {}
     if cfg.moe is not None:
@@ -1224,17 +1367,15 @@ def run_engine(cfg, params, dev, kv_store: str = "fp", *,
         modes = stats["program_modes"]
         native = f"{backend}:ragged_" + ("triton" if backend == "gpu"
                                          else "cuda")
-        if (counts["ragged_gemv"] != 3 * cfg.n_layers * steps
+        if (counts["ragged_gemv"] != 3 * cfg.n_layers * len(batches)
                 or f"{backend}:ragged" in modes or not modes.get(native)):
             raise AssertionError(
-                f"{steps} decode steps launched ragged_gemv "
+                f"{len(batches)} counted decode steps launched ragged_gemv "
                 f"{counts['ragged_gemv']} times (expected "
-                f"{3 * cfg.n_layers * steps}); program modes {modes}")
+                f"{3 * cfg.n_layers * len(batches)}); program modes {modes}")
     if backend == "h100" and cfg.moe is None and kv_store == "fp":
         # every decode step launches pim_gemv and splitk_gemv as often as
         # the h100 picks for its GEMVs predict: olmo-1b, 17 and 32
-        batches = [st["decode_batch"] for st in doc["steps"]
-                   if st["decode_batch"]]
         per_batch = {b: {n: launches_per_step(cfg, eng.gemv_policy, b,
                                               "h100", k)[0]
                          for n, k in (("pim_gemv", "pim"),
@@ -1244,8 +1385,9 @@ def run_engine(cfg, params, dev, kv_store: str = "fp", *,
             want = sum(per_batch[b][n] for b in batches)
             if counts[n] != want:
                 raise AssertionError(
-                    f"{steps} decode steps launched {n} {counts[n]} times; "
-                    f"the picks predict {want}: {per_batch}")
+                    f"{len(batches)} counted decode steps launched {n} "
+                    f"{counts[n]} times; the picks predict {want}: "
+                    f"{per_batch}")
         if cfg.name == "olmo-1b" and any(
                 v != {"pim_gemv": 17, "splitk_gemv": 32}
                 for v in per_batch.values()):
@@ -1255,8 +1397,6 @@ def run_engine(cfg, params, dev, kv_store: str = "fp", *,
     if backend == "gpu":
         # the decode steps' triton_gemv launches equal what the picks of
         # each step's batch predict (prefill rows exceed the batch gate)
-        batches = [st["decode_batch"] for st in doc["steps"]
-                   if st["decode_batch"]]
         per_batch = {b: launches_per_step(cfg, eng.gemv_policy, b, "gpu",
                                           "triton")
                      for b in sorted(set(batches))}
@@ -1264,7 +1404,7 @@ def run_engine(cfg, params, dev, kv_store: str = "fp", *,
         if counts["triton_gemv"] != want or min(
                 n for n, _ in per_batch.values()) < 1:
             raise AssertionError(
-                f"{steps} decode steps launched triton_gemv "
+                f"{len(batches)} counted decode steps launched triton_gemv "
                 f"{counts['triton_gemv']} times; the picks predict {want}: "
                 f"{per_batch}")
         extra = {"triton_picks_by_batch": {
@@ -1273,6 +1413,7 @@ def run_engine(cfg, params, dev, kv_store: str = "fp", *,
     doc.pop("steps")
     kv_leaves = {n: t for n, t in eng.kv.cache.items() if n != "pos"}
     res = {
+        "route": route,
         "kv_store": kv_store,
         "kv_bytes_per_slot": tree_bytes(kv_leaves) / eng.slots,
         "logit_rows_checked": seen["rows"],
@@ -1282,16 +1423,21 @@ def run_engine(cfg, params, dev, kv_store: str = "fp", *,
         "prompt_lengths": lengths,
         "wall_s": wall_s,
         "decode_steps": steps,
+        "counted_steps": len(batches),
+        "capture_s": capture_s,
         "decode_tokens_per_s": doc["decode_tokens_per_s"],
         "per_token_ms": doc["per_token_ms"],
         "ttft_ms": doc["ttft_ms"],
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
         "launches": counts,
-        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "launches_per_step": {k: v / len(batches) for k, v in counts.items()},
         "dispatch": stats,
         **extra,
     }
-    # device-time breakdown over three decode steps at batch 8
+    del eng
+    gc.collect()
+    # device-time breakdown over three decode steps at batch 8 (replays on
+    # the graph route: the first step captured the bucket)
     prof_eng = serve(cfg, params, dev, lengths, 8, SEED + 1, kv_store, **kw)
     prof_eng.step()                          # prefill + first decode step
     res["profile"] = profile_decode(prof_eng, doc["per_token_ms"]["p50"])
@@ -1301,8 +1447,6 @@ def run_engine(cfg, params, dev, kv_store: str = "fp", *,
         raise AssertionError(
             "decode steps cast or copied the K/V cache: "
             + str(res["profile"] and res["profile"]["cache_copies"]))
-    if backend == "h100":
-        res["prefill_scores"] = ttft_both_ways(cfg, params, dev, kv_store)
     return res
 
 
@@ -1929,10 +2073,32 @@ def moe_logits_check(cfg, params, dev) -> dict:
 
 def run_moe_grouped(cfg, params, dev, ragged_generated: dict) -> dict:
     """Two of the engine's requests through one slot with grouped expert
-    programs (C=8 rows per expert, within the batch gate)."""
+    programs (C=8 rows per expert, within the batch gate), with replayed
+    graphs and under ``disable_graphs()``: greedy tokens equal both
+    ways."""
+    routes = {}
+    for route in ROUTES:
+        with route_ctx(route):
+            routes[route] = run_grouped_route(cfg, params, dev, route)
+    if routes["graph"]["generated"] != routes["eager"]["generated"]:
+        raise AssertionError("grouped engine: greedy tokens differ between "
+                             "the graph and eager routes")
+    res = {**routes["graph"], "routes": routes,
+           "replay": compare_replay(routes["graph"]["profile"],
+                                    routes["eager"]["profile"], cfg)}
+    res["agreement_with_ragged"] = token_agreement(
+        res["generated"], {rid: ragged_generated[rid][:MOE_GROUPED_TOKENS]
+                           for rid in res["generated"]})
+    return res
+
+
+def run_grouped_route(cfg, params, dev, route: str) -> dict:
+    kw = dict(batch_slots=1, gemv_expert_shape="grouped")
     lengths = ENGINE_LENGTHS[:2]
-    eng = serve(cfg, params, dev, lengths, MOE_GROUPED_TOKENS, SEED,
-                batch_slots=1, gemv_expert_shape="grouped")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = serve(cfg, params, dev, lengths, MOE_GROUPED_TOKENS, SEED, **kw)
     seen = check_finite_logits(eng)
     dispatch.clear_plan_cache()
     reset_launches()
@@ -1946,22 +2112,40 @@ def run_moe_grouped(cfg, params, dev, ragged_generated: dict) -> dict:
                              for r in done):
         raise AssertionError(f"grouped engine finished "
                              f"{[(r.rid, len(r.generated)) for r in done]}")
-    if not counts["grouped_gemv"]:
-        raise AssertionError(f"grouped_gemv never launched: {counts}")
-    doc = eng.metrics.to_dict(include_steps=False)
+    doc = eng.metrics.to_dict(include_steps=True)
     steps = doc["counters"]["decode_steps"]
-    gen = {r.rid: list(r.generated) for r in done}
-    agree = token_agreement(
-        gen, {rid: ragged_generated[rid][:MOE_GROUPED_TOKENS]
-              for rid in gen})
-    return {"requests": len(done), "wall_s": wall_s, "decode_steps": steps,
-            "logit_rows_checked": seen["rows"],
-            "per_token_ms": doc["per_token_ms"],
-            "launches": counts,
-            "launches_per_step": {k: v / steps for k, v in counts.items()},
-            "program_modes": stats["program_modes"],
-            "expert_load": stats["expert_load"],
-            "agreement_with_ragged": agree}
+    batches = counted_batches(route, [st["decode_batch"]
+                                      for st in doc["steps"]
+                                      if st["decode_batch"]])
+    # gate, up and down of every layer, one grouped program each
+    if counts["grouped_gemv"] != 3 * cfg.n_layers * len(batches):
+        raise AssertionError(
+            f"{len(batches)} counted decode steps launched grouped_gemv "
+            f"{counts['grouped_gemv']} times (expected "
+            f"{3 * cfg.n_layers} a step): {counts}")
+    res = {"route": route, "requests": len(done), "wall_s": wall_s,
+           "decode_steps": steps, "counted_steps": len(batches),
+           "capture_s": ({str(b): s for b, s in eng.graphs.capture_s.items()}
+                         if route == "graph" else {}),
+           "logit_rows_checked": seen["rows"],
+           "generated": {r.rid: list(r.generated) for r in done},
+           "per_token_ms": doc["per_token_ms"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": counts,
+           "launches_per_step": {k: v / len(batches)
+                                 for k, v in counts.items()},
+           "program_modes": stats["program_modes"],
+           "expert_load": stats["expert_load"]}
+    del eng
+    gc.collect()
+    prof_eng = serve(cfg, params, dev, lengths[:1], 8, SEED + 1, **kw)
+    prof_eng.step()                          # prefill + first decode step
+    res["profile"] = profile_decode(prof_eng, doc["per_token_ms"]["p50"])
+    if res["profile"] is None or res["profile"]["cache_copies"]:
+        raise AssertionError(
+            "grouped decode steps cast or copied the K/V cache: "
+            + str(res["profile"] and res["profile"]["cache_copies"]))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2235,7 +2419,8 @@ def replay_stale_table(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(rows: list[dict], launch_counts: dict) -> dict:
+def kernels_line(rows: list[dict], launch_counts: dict,
+                 per_step: dict) -> dict:
     """One entry per kernel.  Its top-level times are one decode step: for
     the olmo-1b kernels at batch 8, the sum over the GEMVs at that batch
     (each shape weighted by its calls per step) that the h100 backend --
@@ -2246,7 +2431,11 @@ def kernels_line(rows: list[dict], launch_counts: dict) -> dict:
     top-6 routing of 8 tokens), for ``grouped_gemv`` one at batch 1 (C=8),
     for ``decode_attention`` one olmo-1b step at batch 8 (16 layers, on
     the lengths of a mid-run step).  ``launches`` is the count from the
-    run of the kernel's own path."""
+    run of the kernel's own path: with replayed graphs, the wrappers count
+    at each bucket's eager first step and at its capture, never at a
+    replay; ``launches_per_step`` is the eager pass's count a decode step
+    (the quant kernels: their one dispatcher pass), and every replayed
+    step runs the eager step's port kernels (``compare_replay``)."""
     picks = {"pim_gemv": ("gate_up", "head"), "splitk_gemv": ("qkv", "down"),
              "quant_gemv": tuple(SHAPES), "quant4_gemv": tuple(SHAPES),
              "triton_gemv": ("head",)}
@@ -2297,6 +2486,7 @@ def kernels_line(rows: list[dict], launch_counts: dict) -> dict:
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
             "launches": launch_counts[name],
+            "launches_per_step": per_step[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": max(bytes_ms, ops_ms),
@@ -2394,7 +2584,7 @@ def main() -> int:
     log(f"  launches {engine['launches']} "
         f"(per decode step {engine['launches_per_step']})")
     log(f"  dispatch_stats {json.dumps(engine['dispatch'])}")
-    log_profile(engine["profile"])
+    log_routes("engine", engine)
     log_ttft(engine)
 
     logits = logits_check(cfg, params, dev)
@@ -2423,7 +2613,7 @@ def main() -> int:
             f"{e['kv_bytes_per_slot'] / 1e6:.2f} MB (fp "
             f"{engine['kv_bytes_per_slot'] / 1e6:.2f} MB), greedy tokens "
             f"agreeing with fp {e['agreement_with_fp']}")
-        log_profile(e["profile"])
+        log_routes(f"kv {store}", e)
         log_ttft(e)
 
     gpu = run_engine(cfg, params, dev, backend="gpu")
@@ -2441,7 +2631,7 @@ def main() -> int:
         f"{gpu['decode_steps']} decode steps, as the picks predict "
         f"{json.dumps(gpu['triton_picks_by_batch'])}; greedy tokens "
         f"agreeing with the h100 engine {gpu['agreement_with_h100']}")
-    log_profile(gpu["profile"])
+    log_routes("gpu engine", gpu)
 
     del params
     gc.collect()
@@ -2472,7 +2662,7 @@ def main() -> int:
         f"(per decode step {moe['launches_per_step']})")
     log(f"  program_modes {json.dumps(moe['dispatch']['program_modes'])}; "
         f"expert_load {json.dumps(moe['dispatch']['expert_load'])}")
-    log_profile(moe["profile"])
+    log_routes("moe engine", moe)
     log_ttft(moe)
 
     moe_logits = moe_logits_check(mcfg, mparams, dev)
@@ -2498,6 +2688,7 @@ def main() -> int:
         f"step {grouped['launches_per_step']}; program_modes "
         f"{json.dumps(grouped['program_modes'])}; greedy tokens agreeing "
         f"with the ragged engine {grouped['agreement_with_ragged']}")
+    log_routes("moe grouped", grouped)
 
     moe_gpu = run_engine(mcfg, mparams, dev, backend="gpu",
                          new_tokens=MOE_GPU_TOKENS)
@@ -2513,6 +2704,7 @@ def main() -> int:
         f"triton_gemv as predicted "
         f"{json.dumps(moe_gpu['triton_picks_by_batch'])}; greedy tokens "
         f"agreeing with the h100 engine {moe_gpu['agreement_with_h100']}")
+    log_routes("moe gpu", moe_gpu)
     del mparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -2534,7 +2726,18 @@ def main() -> int:
                      "triton_gemv": gpu["launches"]["triton_gemv"],
                      "decode_attention":
                          engine["launches"]["decode_attention"]}
-    line = kernels_line(rows, launch_counts)
+
+    def eager_step(res, n):
+        return res["routes"]["eager"]["launches_per_step"][n]
+
+    per_step = {**{n: eager_step(engine, n) for n in FLOAT_KERNELS},
+                "quant_gemv": launch_counts["quant_gemv"],
+                "quant4_gemv": launch_counts["quant4_gemv"],
+                "ragged_gemv": eager_step(moe, "ragged_gemv"),
+                "grouped_gemv": eager_step(grouped, "grouped_gemv"),
+                "triton_gemv": eager_step(gpu, "triton_gemv"),
+                "decode_attention": eager_step(engine, "decode_attention")}
+    line = kernels_line(rows, launch_counts, per_step)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(

@@ -31,6 +31,13 @@ Kernel *launches* are counted by the kernel wrappers themselves
 ``ragged_gemv.launches``, ``triton_gemv.launches``).  The MoE layer adds
 its per-expert load statistics (``record_expert_load``) to the
 ``expert_load`` section, once per call.
+
+Every counter here, and every wrapper's, ticks when Python runs the code.
+The engine's decode step on the card is a captured CUDA graph
+(``serving/step_graph.py``): it counts at the bucket's eager first step and
+at its capture, never at a replay -- the counterpart of the JAX package's
+counting at trace time.  A replayed step's kernels are seen by the
+profiler only.
 """
 
 from __future__ import annotations

@@ -452,11 +452,15 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
     (the capacity-padded ``[E, B*C, d]`` buffers through one grouped
     program per projection).  Everything else -- prefill, ``"einsum"``,
     fusing off -- computes the JAX package's per-sequence capacity
-    semantics (GShard slots, drops past ``C``) WITHOUT the ``[B, E, C, d]``
-    buffer: the expert FFN is row-wise, so each kept pair's output is the
-    FFN of its token, computed per expert over the expert-sorted pairs
-    with ``torch.matmul``; a dropped pair contributes zero.  That path
-    reads the per-expert offsets on the host once per layer.
+    semantics (GShard slots, drops past ``C``).  At one token a sequence
+    (decode) that is the JAX package's capacity einsum: the ``[E, B*C, d]``
+    buffers of the grouped shape, one batched ``torch.matmul`` per
+    projection, nothing read back to the host (the step is captured).
+    Prefill computes it WITHOUT the ``[B, E, C, d]`` buffer: the expert
+    FFN is row-wise, so each kept pair's output is the FFN of its token,
+    computed per expert over the expert-sorted pairs with
+    ``torch.matmul``; a dropped pair contributes zero.  That path reads
+    the per-expert offsets on the host once per layer.
 
     The shared experts' MLP is added last, through the dispatcher like a
     dense MLP.
@@ -482,12 +486,28 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _moe_grouped_decode(p, x, cfg, gemv, top_i, top_p):
-    """Decode through grouped programs: the capacity buffers of the JAX
-    package, laid out ``[E, B*C, d]`` (row ``b*C + slot`` of expert e),
-    one grouped program per projection, then the capacity combine."""
+    """Decode through grouped programs: the capacity buffers, one grouped
+    program per projection (:func:`_moe_capacity_buffers`)."""
     from repro_torch.kernels.dispatch import dispatch_grouped, \
         record_expert_load
 
+    e = cfg.moe
+    B, S, _ = x.shape
+    C = _capacity(S, cfg)
+    record_expert_load(routed_tokens=B * S * e.top_k, experts=e.n_experts,
+                       max_tokens=C,
+                       padded_slots=max(B * e.n_experts * C
+                                        - B * S * e.top_k, 0))
+    return _moe_capacity_buffers(
+        p, x, cfg, top_i, top_p,
+        lambda t, w: dispatch_grouped(t, w, policy=gemv))
+
+
+def _moe_capacity_buffers(p, x, cfg, top_i, top_p, proj):
+    """The capacity buffers of the JAX package, laid out ``[E, B*C, d]``
+    (row ``b*C + slot`` of expert e), ``proj(t, w)`` once per projection
+    over the whole stack, then the capacity combine.  Device data from end
+    to end: no host sync."""
     e = cfg.moe
     B, S, d = x.shape
     C = _capacity(S, cfg)
@@ -500,14 +520,6 @@ def _moe_grouped_decode(p, x, cfg, gemv, top_i, top_p):
                       device=x.device)
     buf[dest] = x.reshape(B * S, d)[st]
     buf = buf[:-1].view(e.n_experts, rows, d)
-    record_expert_load(routed_tokens=B * S * e.top_k, experts=e.n_experts,
-                       max_tokens=C,
-                       padded_slots=max(B * e.n_experts * C
-                                        - B * S * e.top_k, 0))
-
-    def proj(t, w):
-        return dispatch_grouped(t, w, policy=gemv)
-
     out = _expert_ffn(p, buf, cfg, proj).reshape(e.n_experts * rows, d)
     kept_w = sw * keep.to(sw.dtype)
     y = _combine(out[se * rows + sb * C + slot], kept_w, st, B * S, e.top_k)
@@ -515,10 +527,12 @@ def _moe_grouped_decode(p, x, cfg, gemv, top_i, top_p):
 
 
 def _moe_capacity(p, x, cfg, top_i, top_p):
-    """The capacity semantics without the capacity buffer (see
-    :func:`apply_moe`)."""
+    """The capacity semantics off the programs (see :func:`apply_moe`):
+    the capacity einsum at decode, the per-expert loop at prefill."""
     e = cfg.moe
     B, S, d = x.shape
+    if S == 1:
+        return _moe_capacity_buffers(p, x, cfg, top_i, top_p, torch.matmul)
     st, _, _, sw, _, keep, counts = _capacity_plan(
         top_i, top_p, _capacity(S, cfg), e.n_experts)
     xr = x.reshape(B * S, d)[st]

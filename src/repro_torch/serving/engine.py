@@ -24,13 +24,21 @@ On an MoE model the experts of a decode step run as ragged programs
 scheduler's ``gemv_aware`` admission is expert-aware there and reads the
 dispatcher's ``expert_load`` deltas before each admission.
 
-Not ported yet: chunked and async prefill, the prefix cache, preemption,
-sharded (mesh) serving and the tracer.
+On the card each decode step is one CUDA graph per bucket
+(:mod:`repro_torch.serving.step_graph`, the counterpart of the JAX
+engine's jitted ``_decode_fn``): the first step at a bucket runs eagerly
+and is then captured, every later one replays.  Inside
+:func:`~repro_torch.serving.step_graph.disable_graphs`, and always on the
+CPU, the step runs eagerly op by op.  Prefill stays eager.
+
+Not ported yet: prefill as captured programs, chunked and async prefill,
+the prefix cache, preemption, sharded (mesh) serving and the tracer.
 """
 
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -50,6 +58,8 @@ from repro_torch.serving.sampling import (
 )
 from repro_torch.serving.scheduler import QueueFull, Scheduler, \
     SchedulerConfig
+from repro_torch.serving.step_graph import CudaCapture, DecodeGraphs, \
+    graphs_enabled
 
 __all__ = ["Engine", "Request", "QueueFull", "SamplingParams", "Scheduler",
            "SchedulerConfig", "ServingMetrics"]
@@ -147,6 +157,16 @@ class Engine:
         # device write per sampled token
         self.last_tok = np.zeros((batch_slots, 1), np.int64)
         self._rngs: dict[int, np.random.Generator] = {}
+        # the decode step's captured graphs, one per bucket (on the card);
+        # they reach the body through a weak reference, so a dropped engine
+        # frees its graphs and cache at once, not at a later collection
+        body = weakref.WeakMethod(self._decode_body)
+        self.graphs = (
+            DecodeGraphs(lambda b, tok: body()(b, tok), self.kv.cache,
+                         slots=batch_slots, vocab=cfg.vocab,
+                         device=self.device,
+                         capture=CudaCapture(self.device))
+            if self.device.type == "cuda" else None)
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -273,16 +293,24 @@ class Engine:
                 b = thresh
         return b
 
+    def _decode_body(self, b: int, tok: torch.Tensor) -> torch.Tensor:
+        """The decode step of the first ``b`` slots on tokens ``tok [b,
+        1]``: the forward (new K/V written into the cache in place), the
+        advanced ``pos`` written back; returns the last-token logits."""
+        logits, new_cache, _ = lm.forward(self.params, self.cfg, tok,
+                                          cache=self.kv.slice_prefix(b),
+                                          gemv_policy=self.gemv_policy)
+        self.kv.merge_prefix(new_cache, b)
+        return logits[:, -1]
+
     def _decode(self) -> tuple[list[Request], int, float]:
         t0 = self.clock()
         b = self.decode_bucket()
-        cache_b = self.kv.slice_prefix(b)
-        last = torch.from_numpy(self.last_tok[:b]).to(self.device)
-        logits, new_cache, _ = lm.forward(self.params, self.cfg, last,
-                                          cache=cache_b,
-                                          gemv_policy=self.gemv_policy)
-        self.kv.merge_prefix(new_cache, b)
-        logits_np = logits[:, -1].float().cpu().numpy()
+        if self.graphs is not None and graphs_enabled():
+            logits_np = self.graphs.step(b, self.last_tok)
+        else:
+            last = torch.from_numpy(self.last_tok[:b]).to(self.device)
+            logits_np = self._decode_body(b, last).float().cpu().numpy()
         decode_s = self.clock() - t0
         now = self.clock()
         finished = []

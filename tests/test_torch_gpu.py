@@ -5,6 +5,8 @@ This file imports nothing of JAX, so it runs on the machine with the card
 inside its fixture.
 """
 
+import contextlib
+
 import pytest
 import torch
 
@@ -1206,7 +1208,195 @@ def test_engine_tokens_with_the_attention_kernel_equal_the_plain_path(
         n0 = decode_attention.launches
         done[route] = {r.rid: r.generated for r in eng.run_until_drained()}
         launched = decode_attention.launches - n0
-        steps = eng.metrics.to_dict()["counters"]["decode_steps"]
-        assert launched == (cfg.n_layers * steps if route == "kernel"
-                            else 0)
+        # the step is a graph a bucket: the wrapper counts at the eager
+        # first step and at the capture, never at a replay
+        buckets = {st["decode_batch"] for st in eng.metrics.steps
+                   if st["decode_batch"]}
+        assert set(eng.graphs.replays) == buckets
+        assert launched == (2 * cfg.n_layers * len(buckets)
+                            if route == "kernel" else 0)
     assert done["kernel"] == done["plain"]
+
+
+# --------------------------------------------------------------------------
+# the decode step as one captured CUDA graph per bucket
+# --------------------------------------------------------------------------
+
+
+def _moved(node, device):
+    if isinstance(node, dict):
+        return {k: _moved(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_moved(v, device) for v in node]
+    return node.to(device)
+
+
+def _graph_engine_case(cuda, arch):
+    """Reduced (f32) params on the card for ``arch``: olmo-1b at the
+    widths where the attention kernel applies, deepseek-moe-16b as
+    registered."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+
+    if arch == "olmo-1b":
+        cfg, _, params = _small(cuda)
+        return cfg, params
+    cfg = get_config(arch).reduced()
+    return cfg, _moved(lm.init_lm(cfg, seed=0, device="cpu"), cuda)
+
+
+def _serve_logged(cfg, params, cuda, prompts, new_tokens, policy=None,
+                  **kw):
+    """Serve ``prompts``; returns (tokens by rid, every sampled logits row
+    keyed by (rid, tokens so far), the engine).  ``policy`` overrides
+    fields of the engine's DispatchPolicy."""
+    import dataclasses
+
+    from repro_torch.serving.engine import Engine, Request
+
+    eng = Engine(cfg, params, max_len=64, device=cuda, **kw)
+    if policy:
+        eng.gemv_policy = dataclasses.replace(eng.gemv_policy, **policy)
+    rows, sample = {}, eng._sample
+
+    def logged(r, row):
+        rows[(r.rid, len(r.generated))] = row.copy()
+        return sample(r, row)
+
+    eng._sample = logged
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
+    done = {r.rid: r.generated for r in eng.run_until_drained()}
+    return done, rows, eng
+
+
+GRAPH_CASES = [("olmo-1b", dict(kv_store=s)) for s in ("fp", "int8", "int4")
+               ] + [("olmo-1b", dict(gemv_backend="gpu")),
+                    ("deepseek-moe-16b", dict(gemv_backend="h100")),
+                    ("deepseek-moe-16b", dict(gemv_backend="h100",
+                                              gemv_expert_shape="grouped",
+                                              batch_slots=1))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kw", GRAPH_CASES,
+                         ids=[f"{a}-{'-'.join(map(str, k.values()))}"
+                              for a, k in GRAPH_CASES])
+def test_graph_and_eager_engines_are_bit_identical(cuda, monkeypatch, arch,
+                                                   kw):
+    """Replayed decode steps give the eager steps' logits bit for bit, and
+    so the same tokens: same kernels, same order, same plans."""
+    import numpy as np
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.backends import base
+    from repro_torch.kernels.backends.gpu import GpuBackend
+    from repro_torch.serving import disable_graphs
+
+    policy = None
+    if kw.get("gemv_backend") == "gpu":
+        # constants that make the reduced shapes pick triton_gemv
+        monkeypatch.setitem(base._REGISTRY, "gpu", GpuBackend(
+            min_parallel_blocks=1, bandwidth_gbps=1.0))
+        policy = {"min_pallas_bytes": 0}
+    cfg, params = _graph_engine_case(cuda, arch)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 9, 3, 12, 7)]
+    kw = {"batch_slots": 4, **kw}
+    out = {}
+    for route in ("graph", "eager"):
+        dispatch.clear_plan_cache()
+        with (disable_graphs() if route == "eager"
+              else contextlib.nullcontext()):
+            done, rows, eng = _serve_logged(cfg, params, cuda, prompts, 6,
+                                            policy, **kw)
+        out[route] = (done, rows)
+        steps = eng.metrics.counters["decode_steps"]
+        if route == "graph":
+            assert 0 < len(eng.graphs.replays) < steps
+        else:
+            assert not eng.graphs.replays
+    assert out["graph"][0] == out["eager"][0]
+    assert out["graph"][1].keys() == out["eager"][1].keys()
+    for key, row in out["graph"][1].items():
+        assert np.array_equal(row, out["eager"][1][key]), key
+
+
+@pytest.mark.gpu
+def test_a_capture_that_syncs_raises_and_does_not_fall_back(cuda):
+    """A body that reads a value back to the host (``.item()``) cannot be
+    captured: the step raises, no graph is kept, and no eager step stands
+    in.  Run in a process of its own: a failed capture is not left to the
+    tests after it."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = """
+import dataclasses, numpy as np, torch
+from repro_torch.configs.registry import get_config
+from repro_torch.models import lm
+from repro_torch.serving.engine import Engine, Request
+cfg = dataclasses.replace(get_config("olmo-1b").reduced(), d_model=256,
+                          n_heads=2, n_kv_heads=2, head_dim=128, d_ff=512,
+                          vocab=512)
+params = lm.init_lm(cfg, seed=0, device="cuda")
+eng = Engine(cfg, params, batch_slots=2, max_len=64, device="cuda")
+body = eng.graphs.body
+calls = []
+def syncing(b, tok):
+    logits = body(b, tok)
+    calls.append(float(logits.sum().item()))
+    return logits
+eng.graphs.body = syncing
+eng.submit(Request(rid=0, prompt=np.arange(5, dtype=np.int32),
+                   max_new_tokens=4))
+try:
+    eng.step()
+except RuntimeError as e:
+    # the eager step ran the body once; the capture raised inside it
+    assert len(calls) == 1, calls
+    assert not eng.graphs.replays
+    print("raised:", str(e).splitlines()[0])
+else:
+    raise SystemExit("the capture did not raise")
+"""
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "raised:" in res.stdout
+
+
+@pytest.mark.gpu
+def test_a_second_engine_captures_its_own_graphs(cuda):
+    """Two engines in one process, stepped in turns: each captures and
+    replays its own graphs over its own cache, and both give the tokens
+    of one engine alone."""
+    import numpy as np
+
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg, params = _graph_engine_case(cuda, "olmo-1b")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 9, 3)]
+    alone, _, _ = _serve_logged(cfg, params, cuda, prompts, 6,
+                                batch_slots=4)
+    engines = [Engine(cfg, params, batch_slots=4, max_len=64, device=cuda)
+               for _ in range(2)]
+    for eng in engines:
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+    done = [{}, {}]
+    while any(e.active or e.scheduler.queue for e in engines):
+        for d, eng in zip(done, engines):
+            d.update({r.rid: r.generated for r in eng.step()})
+    assert done[0] == done[1] == alone
+    a, b = (e.graphs for e in engines)
+    assert a.replays and b.replays
+    assert a.tok.data_ptr() != b.tok.data_ptr()
+    assert not set(a.replays.values()) & set(b.replays.values())
