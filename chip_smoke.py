@@ -48,8 +48,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    h100 backend's picks for its GEMVs predict, and ``decode_attention``
    once a layer (16); unless the profiler finds no cast or copy of a
    cache-shaped tensor in the eager decode steps (ATen ops with shapes);
-   and unless a replayed step runs every port kernel as often as the
-   eager step and no copy kernel more often (kernel names).  Per route:
+   and unless a profiled window of replayed steps runs every port kernel
+   as often as the eager window and no copy kernel more often (kernel
+   names; each window is padded with spin kernels on which the
+   profiler's lost records fall, and the eager window's records of the
+   port's kernels must equal its wrappers' counts).  Per route:
    per-token p50/p90, device busy and idle share, ATen ops and kernels a
    step, peak memory; the capture's seconds by bucket.  TTFT p50 with
    prefill attention's scores from K cast to f32 and from the bf16
@@ -73,6 +76,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    "gpu")``: fails unless each decode step launches ``triton_gemv`` as
    often as the gpu backend's picks for the step's GEMVs predict (the
    head, at least once); greedy tokens are compared with the h100 run;
+   then ``[serving]``: olmo-1b with ``kv_store="fp"`` and ``"int8"``
+   through ``Engine(prefill_chunk=128, prefix_cache=...)`` on a
+   ``gemv_aware`` scheduler at threshold 8 with a preemption margin: 24
+   requests of 4 tenants (a shared 384-token prefix and a private tail of
+   16 to 128 tokens, 24 tokens each; 8 at step 0, then 2 a step) and two
+   urgent requests that each force a preemption on their step, both
+   routes; fails unless the greedy tokens are equal both ways, each run
+   evicted, ran 24 chunks or more and hit the prefix cache, every hit's
+   spliced positions equal its gathered segment byte for byte, no decode
+   step with a row mid-prefill in its bucket casts or copies a
+   cache-shaped tensor (counted by a dispatch mode around those steps),
+   and the replayed steps of a profiled window from the first preemption
+   run the eager steps' port kernels; reports TTFT p50 of hits and
+   misses, per-token p50/p90, capture seconds, peak memory and the
+   segment store's bytes; the plain engine (no chunking, no prefix cache,
+   no deadlines) on the same prompts gives the token agreement and the
+   first divergent token, printed, not required;
 8. moe kernels -- olmo-1b's params are freed; ``ragged_gemv`` and
    ``grouped_gemv`` at deepseek-moe-16b's expert shapes (gate/up K=2048
    M=1408, down K=1408 M=2048, E=64) in bf16, each against its plain
@@ -102,7 +122,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    engine's; then ``[moe gpu]``: the 8 requests, 16 tokens each, on
    ``Engine(gemv_backend="gpu")``: fails unless every decode step
    launches ``ragged_gemv`` three times a layer under mode
-   ``gpu:ragged_triton`` and ``triton_gemv`` as the picks predict;
+   ``gpu:ragged_triton`` and ``triton_gemv`` as the picks predict; then
+   ``[serving]`` on deepseek-moe-16b (ragged, fp KV, 8 requests of 2
+   tenants, 16 tokens each, the same rules otherwise);
 12. autotune -- olmo-1b's decode GEMVs at batch 8, a fused QKV program and
    a ragged expert program, tuned on the h100 and gpu backends into
    ``build/autotune_smoke.json`` (``pim``/``splitk`` at every ring depth,
@@ -137,6 +159,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -219,6 +243,8 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving import disable_graphs  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
+from repro_torch.serving.prefix_cache import PrefixCacheConfig  # noqa: E402
+from repro_torch.serving.scheduler import SchedulerConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # H100 SXM data sheet, dense bf16
@@ -1090,15 +1116,49 @@ def cache_copies(prof, tails) -> dict[str, int]:
     return dict(hits)
 
 
-# the port's kernels as the profiler names them (CUPTI reports each kernel
-# node of a replayed graph under its symbol): the streaming body's entry
-# (pim_gemv, splitk_gemv, triton_gemv, grouped_gemv and the quant kernels
-# instantiate it), the ragged kernel and decode attention
-PORT_SYMBOLS = re.compile(r"gemv_stream::stream_kernel<|ragged_kernel<|"
-                          r"decode_attention_kernel<")
+# The profiler loses device records at the edges of a window: a few at
+# most windows' edges, more as a run goes on, now and then a run of
+# records at the end of a busy eager window (a layer's kernels of a
+# deepseek-moe-16b step), and a whole edge group in the first window of a
+# process.  Each window is therefore opened and closed by PAD_KERNELS
+# tiny kernels of names no step runs (spin kernels to open, lgamma on one
+# element to close), each group set off from the steps by a synchronize
+# and a pause: the losses fall on them, they are left out of every count,
+# and a window that lost a whole group is refused (its losses may have
+# reached the steps).  That the rest is exact is checked on every
+# run: an eager window's records of the port's kernels must equal its
+# wrappers' counts (compare_replay).  One padded window runs before the
+# first counted one (warm_profiler).
+PAD_KERNELS = 128
+PAD_OPEN, PAD_CLOSE = "spin_kernel", "lgamma"
+PAD_PAUSE_S = 0.05
 
 
-def profile_decode(eng, step_ms: float, steps: int = 3) -> dict | None:
+_PAD_ELEMENT: list[torch.Tensor] = []   # the closing pad's one element
+
+
+def pad_window(symbol: str) -> None:
+    if not _PAD_ELEMENT:
+        _PAD_ELEMENT.append(torch.ones(1, device="cuda"))
+    for _ in range(PAD_KERNELS):
+        if symbol == PAD_OPEN:
+            torch.cuda._sleep(100)
+        else:
+            _PAD_ELEMENT[0].lgamma_()
+    torch.cuda.synchronize()
+
+
+def warm_profiler() -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        pad_window(PAD_OPEN)
+        pad_window(PAD_CLOSE)
+        time.sleep(0.1)
+
+
+def profile_decode(eng, step_ms: float, steps: int = 3,
+                   step=None, host: bool = True) -> dict | None:
     """Device time of a few decode steps by kernel name (torch.profiler);
     None when the profiler reports no device time here.  The idle share
     is taken against ``step_ms``, the unprofiled per-token p50 (the
@@ -1107,25 +1167,43 @@ def profile_decode(eng, step_ms: float, steps: int = 3) -> dict | None:
     of the K/V cache's shape (pages, int4 codes, or the scales of a
     quantized store) in those steps (input shapes recorded; a replayed
     step has no ATen ops inside its graph, so this reads eager steps).
-    ``kernels_by_name`` is every device activity's calls a step."""
+    ``kernels_by_name`` is every device activity's calls a step.
+    ``launches_per_step`` is the wrappers' counts over the window (exact
+    on the eager route; a replay counts nothing).
+    ``step`` runs one engine step (default ``eng.step``); ``host=False``
+    records the device alone (no ATen ops, no shapes, no cache copies:
+    cheap over steps of many host ops)."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = eng.cfg
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+    before = launches()
+    with profile(activities=([ProfilerActivity.CPU] if host else [])
+                 + [ProfilerActivity.CUDA], record_shapes=host) as prof:
+        pad_window(PAD_OPEN)
+        time.sleep(PAD_PAUSE_S)
         for _ in range(steps):
-            eng.step()
+            (step or eng.step)()
         torch.cuda.synchronize()
-        # the profiler drops device activity it places past the window's
-        # end; a replayed step's last kernels end just before the
-        # synchronize returns, so the window stays open a little longer
+        time.sleep(PAD_PAUSE_S)
+        pad_window(PAD_CLOSE)
         time.sleep(0.1)
+    window_launches = {n: (c - before[n]) / steps
+                       for n, c in launches().items()}
     C, Hkv, D = eng.max_len, cfg.n_kv_heads, cfg.hd
-    copies = cache_copies(prof, {(C, Hkv, D), (C, Hkv, D // 2), (C, Hkv)})
+    copies = (cache_copies(prof, {(C, Hkv, D), (C, Hkv, D // 2), (C, Hkv)})
+              if host else None)
     avgs = prof.key_averages()
     on_card = [e for e in avgs if str(e.device_type).endswith("CUDA")]
+    pads_lost = {sym: PAD_KERNELS - sum(e.count for e in on_card
+                                        if sym in e.key)
+                 for sym in (PAD_OPEN, PAD_CLOSE)}
+    if max(pads_lost.values()) >= PAD_KERNELS:
+        raise AssertionError(
+            f"the profiler lost a whole pad group of the window (lost by "
+            f"group {pads_lost}): its counts cannot be trusted")
+    on_card = [e for e in on_card
+               if PAD_OPEN not in e.key and PAD_CLOSE not in e.key]
     by_name = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                       for e in on_card if e.self_device_time_total > 0),
                      key=lambda kv: -kv[1])
@@ -1135,17 +1213,20 @@ def profile_decode(eng, step_ms: float, steps: int = 3) -> dict | None:
     per_step = busy_ms / steps
     # host side: the ATen ops the Python loop issues, by self CPU time
     # (inflated by the profiler itself; read for the ranking and counts)
-    aten = sorted((e for e in avgs if e.key.startswith("aten::")),
+    aten = sorted((e for e in avgs if e.key.startswith("aten::")
+                   and e.key != "aten::lgamma_"),
                   key=lambda e: -e.self_cpu_time_total)
     kernels = collections.Counter()
     for e in on_card:
         kernels[e.key] += e.count / steps
-    return {"steps": steps, "device_busy_ms_per_step": per_step,
+    return {"steps": steps, "pads_lost": pads_lost,
+            "device_busy_ms_per_step": per_step,
             "step_ms": step_ms, "cache_copies": copies,
             "device_idle_share": max(0.0, 1 - per_step / step_ms),
             "kernels_per_step": sum(e.count for e in on_card) / steps,
             "aten_ops_per_step": sum(e.count for e in aten) / steps,
             "kernels_by_name": dict(kernels),
+            "launches_per_step": window_launches,
             "top": [{"name": n[:120], "ms_per_step": ms / steps,
                      "calls_per_step": calls / steps}
                     for n, ms, calls in by_name[:20]],
@@ -1155,21 +1236,40 @@ def profile_decode(eng, step_ms: float, steps: int = 3) -> dict | None:
                          for e in aten[:12]]}
 
 
+# the port's kernels as the profiler names them (CUPTI reports each kernel
+# node of a replayed graph under its symbol), each with the wrappers whose
+# launches it is: the streaming body's entry, the ragged kernel, decode
+# attention
+PORT_GROUPS = {
+    "gemv_stream::stream_kernel<": ("pim_gemv", "splitk_gemv", "quant_gemv",
+                                    "quant4_gemv", "grouped_gemv",
+                                    "triton_gemv"),
+    "ragged_kernel<": ("ragged_gemv",),
+    "decode_attention_kernel<": ("decode_attention",),
+}
+
+
 def compare_replay(graph: dict, eager: dict, cfg) -> dict:
-    """A replayed step against an eager one, by the profiler's kernel
-    names: every port kernel as often (and decode attention once a layer,
-    the ragged kernel three times a layer), and no copy or cast kernel
-    more often.  Host transfers (the staged tokens, the logits) are left
-    out.  Counts are whole kernels a step, rounded from the 3-step window:
-    the profiler now and then drops one record of a window of thousands.
-    Raises on a difference; returns the library kernels whose counts
-    differ, for the report."""
-    g, e = ({n: round(c) for n, c in d["kernels_by_name"].items()}
+    """A replayed window against an eager one over the same steps, in
+    whole records of the window (its pads make them exact): every port
+    kernel, by the profiler's symbol, as often in both windows as the
+    eager window's wrappers launched it, decode attention once a layer a
+    step and the ragged kernel three times a layer a step; and no copy or
+    cast kernel more often in the replayed window than in the eager one.
+    Host transfers (the staged tokens, the logits) are left out.  Raises
+    on a difference; returns the port kernels a step and the library
+    kernels whose counts differ (graph, eager), for the report."""
+    steps = graph["steps"]
+    g, e = ({n: round(c * d["steps"])
+             for n, c in d["kernels_by_name"].items()}
             for d in (graph, eager))
     names = set(g) | set(e)
-    port = {n: (g.get(n, 0), e.get(n, 0)) for n in names
-            if PORT_SYMBOLS.search(n)}
-    bad = {n: v for n, v in port.items() if v[0] != v[1]}
+    port = {sym: (sum(c for n, c in g.items() if sym in n),
+                  sum(c for n, c in e.items() if sym in n),
+                  round(steps * sum(eager["launches_per_step"][w]
+                                    for w in ws)))
+            for sym, ws in PORT_GROUPS.items()}
+    bad = {n: v for n, v in port.items() if len(set(v)) > 1}
     copies = {n: (g.get(n, 0), e.get(n, 0)) for n in names
               if "copy" in n.lower()}
     # a device-to-device memcpy shows as "Memcpy DtoD" when issued and as
@@ -1179,21 +1279,23 @@ def compare_replay(graph: dict, eager: dict, cfg) -> dict:
             for d in (g, e)]
     copies["device-to-device memcpy"] = tuple(dtod)
     bad.update({n: v for n, v in copies.items() if v[0] > v[1]})
-    want = {"decode_attention_kernel<": cfg.n_layers}
-    if cfg.moe is not None and any("ragged_kernel<" in n for n in names):
-        want["ragged_kernel<"] = 3 * cfg.n_layers
+    want = {"decode_attention_kernel<": cfg.n_layers * steps}
+    if cfg.moe is not None and port["ragged_kernel<"][0]:
+        want["ragged_kernel<"] = 3 * cfg.n_layers * steps
     for sym, n in want.items():
-        got = sum(c for name, c in g.items() if sym in name)
-        if got != n:
-            bad[sym] = (got, n)
+        if port[sym][0] != n:
+            bad[sym] = (port[sym][0], n)
     if bad:
-        raise AssertionError(f"replayed step vs eager step (per step, "
-                             f"graph vs eager): {bad}")
-    return {"port_kernels_per_step": sum(v[0] for v in port.values()),
+        raise AssertionError(f"replayed window vs eager window ({steps} "
+                             f"steps; graph, eager[, eager wrappers]): "
+                             f"{bad}")
+    return {"port_kernels_per_step": sum(v[0] for v in port.values())
+            / steps,
             "library_differences": {
                 n[:120]: (g.get(n, 0), e.get(n, 0)) for n in names
                 if not n.startswith(("Memcpy", "memcpy32_"))
-                and n not in port and g.get(n, 0) != e.get(n, 0)}}
+                and not any(sym in n for sym in PORT_GROUPS)
+                and g.get(n, 0) != e.get(n, 0)}}
 
 
 def log_ttft(res: dict) -> None:
@@ -1214,7 +1316,8 @@ def log_profile(p: dict | None, label: str = "profile") -> None:
         f"share {p['device_idle_share']:.3f}; "
         f"{p['kernels_per_step']:.0f} kernels and "
         f"{p['aten_ops_per_step']:.0f} ATen ops per step; casts or copies "
-        f"of a cache-shaped tensor {p['cache_copies'] or 'none'}")
+        f"of a cache-shaped tensor {p['cache_copies'] or 'none'}; pad "
+        f"kernels lost {p['pads_lost']} of {PAD_KERNELS} each")
     for t in p["top"][:10]:
         log(f"    {t['ms_per_step']:8.3f} ms/step  {t['name']}")
 
@@ -1655,6 +1758,342 @@ def token_agreement(fp: dict, other: dict) -> dict:
         same += sum(eq)
         prefix += next((i for i, e in enumerate(eq) if not e), len(eq))
     return {"same_position": same / total, "before_first_flip": prefix / total}
+
+
+# ---------------------------------------------------------------------------
+# serving: chunked prefill, preemption and the prefix cache at full width
+# ---------------------------------------------------------------------------
+
+
+SERVE_PREFIX = 384            # each tenant's shared prefix, tokens
+SERVE_TAIL = (16, 128)        # each request's private tail, inclusive
+SERVE_CHUNK = 128             # Engine(prefill_chunk=)
+# two urgent requests, each at a step when all 8 slots are busy (the
+# first has finished by the second's): a private 256-token prompt (a miss,
+# two chunks) with a deadline 60 s out and a margin longer than that, so
+# each is imminent at once and forces a preemption on its step whatever
+# the host's speed, and no deadline passes in the queue
+SERVE_URGENT_STEPS = (5, 15)
+SERVE_URGENT_LEN, SERVE_URGENT_TOKENS = 256, 8
+SERVE_DEADLINE_S, SERVE_MARGIN_S = 60.0, 120.0
+# the segment store: four tenants' prefixes, every tail and the victims'
+# streams (olmo-1b fp: 131072 bytes a position); the reference's default
+# 64 MiB holds one 384-token olmo-1b prefix
+SERVE_PREFIX_BYTES = 2 ** 30
+# the profiled window: the first urgent request's arrival (a preemption,
+# its first chunk with its row in the decode bucket) and the next 2 steps
+SERVE_WINDOW = (SERVE_URGENT_STEPS[0], 3)
+SERVE_RUNS = {  # tag: (arch, kv_store, requests, tenants, new tokens)
+    "olmo-1b fp": ("olmo-1b", "fp", 24, 4, 24),
+    "olmo-1b int8": ("olmo-1b", "int8", 24, 4, 24),
+    "deepseek-moe-16b ragged": (MOE_ARCH, "fp", 8, 2, 16),
+}
+
+
+def serving_plan(vocab: int, n_requests: int, n_tenants: int,
+                 new_tokens: int, seed: int) -> list[dict]:
+    """8 requests at step 0, then 2 a step; each prompt a tenant's shared
+    prefix plus a private tail; and the two urgent requests."""
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(0, vocab, SERVE_PREFIX).astype(np.int32)
+                for _ in range(n_tenants)]
+    plan = []
+    for i in range(n_requests):
+        tail = rng.integers(0, vocab, int(rng.integers(
+            SERVE_TAIL[0], SERVE_TAIL[1] + 1))).astype(np.int32)
+        plan.append({"step": 0 if i < 8 else (i - 8) // 2 + 1, "rid": i,
+                     "prompt": np.concatenate([prefixes[i % n_tenants],
+                                               tail]),
+                     "new_tokens": new_tokens, "urgent": False})
+    for j, step in enumerate(SERVE_URGENT_STEPS):
+        plan.append({"step": step, "rid": n_requests + j,
+                     "prompt": rng.integers(0, vocab, SERVE_URGENT_LEN)
+                     .astype(np.int32),
+                     "new_tokens": SERVE_URGENT_TOKENS, "urgent": True})
+    return plan
+
+
+class PlanRunner:
+    """Submits each request of a plan at its step, then runs the engine
+    step; ``deadlines`` gives the urgent requests theirs."""
+
+    def __init__(self, eng: Engine, plan: list[dict], deadlines: bool):
+        self.eng, self.deadlines = eng, deadlines
+        self.pending = sorted(plan, key=lambda p: p["step"])
+        self.requests: dict[int, Request] = {}
+        self.n = 0
+        self.preempt_steps: list[int] = []
+
+    def done(self) -> bool:
+        e = self.eng
+        return not (self.pending or e.active or e._prefilling
+                    or e.scheduler.queue)
+
+    def step(self) -> None:
+        e = self.eng
+        while self.pending and self.pending[0]["step"] <= self.n:
+            p = self.pending.pop(0)
+            r = Request(rid=p["rid"], prompt=p["prompt"],
+                        max_new_tokens=p["new_tokens"],
+                        deadline=(e.clock() + SERVE_DEADLINE_S
+                                  if p["urgent"] and self.deadlines
+                                  else None))
+            self.requests[r.rid] = r
+            e.submit(r)
+        evicted = e.metrics.counters["evicted"]
+        e.step()
+        if e.metrics.counters["evicted"] > evicted:
+            self.preempt_steps.append(self.n)
+        self.n += 1
+        if self.n > 2000:
+            raise AssertionError("the serving plan did not drain")
+
+
+class CacheOpCounter(TorchDispatchMode):
+    """Counts the ATen ops of CACHE_COPY_OPS that take a tensor of the K/V
+    cache's shape (``[b] + tail``), by name, as they run."""
+
+    def __init__(self, tails):
+        super().__init__()
+        self.tails, self.hits = tails, collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func._schema.name
+        if name in CACHE_COPY_OPS:
+            for t in tree_leaves((args, kwargs or {})):
+                if isinstance(t, torch.Tensor) and any(
+                        t.dim() == len(tail) + 1
+                        and tuple(t.shape[1:]) == tail
+                        for tail in self.tails):
+                    self.hits[name] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def guard_serving(eng: Engine) -> dict:
+    """Wrap ``eng`` so that every prefix hit's splice is held byte for
+    byte against its gathered segment, and every decode step with a row
+    mid-prefill in its bucket counts its casts and copies of cache-shaped
+    tensors.  Returns the record both fill."""
+    cfg, rec = eng.cfg, {"spliced": 0, "spliced_positions": 0,
+                         "chunked_decode_steps": 0,
+                         "chunked_rows": 0, "cache_ops": {}}
+    C, Hkv, D = eng.max_len, cfg.n_kv_heads, cfg.hd
+    tails = {(C, Hkv, D), (C, Hkv, D // 2), (C, Hkv)}
+    splice, decode = eng.kv.splice_prefix, eng._decode
+
+    def as_bytes(t):
+        return t.contiguous().view(torch.uint8)
+
+    def checked_splice(slot, payload, length):
+        splice(slot, payload, length)
+        for name, seg in payload["kv"].items():
+            if not torch.equal(as_bytes(eng.kv.cache[name][:, slot, :length]),
+                               as_bytes(seg)):
+                raise AssertionError(f"spliced {name} of slot {slot} "
+                                     f"differs from its segment")
+        rec["spliced"] += 1
+        rec["spliced_positions"] += length
+
+    def counted_decode():
+        if not eng._prefilling:
+            return decode()
+        with CacheOpCounter(tails) as counter:
+            out = decode()
+        rec["chunked_decode_steps"] += 1
+        rec["chunked_rows"] += len(eng._prefilling)
+        for k, v in counter.hits.items():
+            rec["cache_ops"][k] = rec["cache_ops"].get(k, 0) + v
+        return out
+
+    eng.kv.splice_prefix = checked_splice
+    eng._decode = counted_decode
+    return rec
+
+
+def serving_engine(cfg, params, dev, kv_store: str, plain: bool) -> Engine:
+    """The serving phase's engine: gemv_aware at threshold 8 with the
+    preemption margin, chunked prefill and the prefix cache; ``plain``
+    turns all three off."""
+    sched = SchedulerConfig(
+        policy="gemv_aware", gemv_batch_threshold=8,
+        preempt_margin=None if plain else SERVE_MARGIN_S,
+        moe_experts=cfg.moe.n_experts if cfg.moe else 0,
+        moe_top_k=cfg.moe.top_k if cfg.moe else 1)
+    return Engine(cfg, params, device=dev, batch_slots=8, max_len=1024,
+                  gemv_backend="h100", scheduler=sched,
+                  prefill_chunk=None if plain else SERVE_CHUNK,
+                  prefix_cache=(None if plain else PrefixCacheConfig(
+                      capacity_bytes=SERVE_PREFIX_BYTES)),
+                  kv_store=kv_store)
+
+
+def serve_route(cfg, params, dev, kv_store: str, plan: list[dict],
+                route: str, plain: bool = False) -> dict:
+    """One run of the plan on one route; the graph route's launch counts
+    are this run's alone (set to 0 just before it)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = serving_engine(cfg, params, dev, kv_store, plain)
+    seen = check_finite_logits(eng)
+    rec = guard_serving(eng)
+    drv = PlanRunner(eng, plan, deadlines=not plain)
+    dispatch.clear_plan_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    profile = None
+    with route_ctx(route):
+        while not drv.done():
+            if drv.n == SERVE_WINDOW[0] and not plain:
+                # the window's steps replay the captured bucket of 8 on
+                # the graph route (captured at the first decode, step 3)
+                profile = profile_decode(eng, float("nan"), SERVE_WINDOW[1],
+                                         step=drv.step, host=False)
+                gc.collect()   # the profiler's records, before a capture
+            else:
+                drv.step()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = launches()
+    doc = eng.metrics.to_dict(include_steps=True)
+    steps = doc.pop("steps")
+    c = doc["counters"]
+    reqs = drv.requests
+    if any(len(r.generated) != r.max_new_tokens for r in reqs.values()):
+        raise AssertionError(
+            f"{route}: requests ended short: "
+            f"{[(r.rid, len(r.generated)) for r in reqs.values()]}")
+    pc = doc.get("prefix_cache") or {}
+    res = {
+        "route": route, "plain": plain, "kv_store": kv_store,
+        "generated": {rid: list(r.generated) for rid, r in reqs.items()},
+        "requests": len(reqs), "steps": drv.n, "wall_s": wall_s,
+        "preempt_steps": drv.preempt_steps,
+        "evictions": {rid: r.evictions for rid, r in reqs.items()
+                      if r.evictions},
+        "counters": c, "logit_rows_checked": seen["rows"],
+        "per_token_ms": doc["per_token_ms"], "ttft_ms": doc["ttft_ms"],
+        "ttft_hit_ms": pc.get("ttft_hit_ms"),
+        "ttft_miss_ms": pc.get("ttft_miss_ms"),
+        "prefix_index": eng.prefix.stats() if eng.prefix else None,
+        "capture_s": ({str(b): v for b, v in eng.graphs.capture_s.items()}
+                      if route == "graph" else {}),
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "launches": counts, "guard": rec, "profile": profile,
+        "step_ms": [round(st["step_ms"], 3) for st in steps],
+        "decode_batch": [st["decode_batch"] for st in steps],
+    }
+    del eng, drv
+    gc.collect()
+    return res
+
+
+def run_serving(cfg, params, dev, tag: str) -> dict:
+    """The serving phase for one configuration: both routes (tokens
+    equal, the counters and checks of the phase), then the plain engine
+    on the graph route, compared, not required."""
+    arch, kv_store, n_req, n_ten, new = SERVE_RUNS[tag]
+    plan = serving_plan(cfg.vocab, n_req, n_ten, new, SEED)
+    # warm-up: the one-slot chunk shapes and the prefix path, so that the
+    # route run first pays no first-use cost the other does not
+    warm = serving_engine(cfg, params, dev, kv_store, plain=False)
+    wdrv = PlanRunner(warm, [{**plan[0], "new_tokens": 2}], False)
+    while not wdrv.done():
+        wdrv.step()
+    del warm, wdrv
+    routes = {r: serve_route(cfg, params, dev, kv_store, plan, r)
+              for r in ROUTES}
+    g, e = routes["graph"], routes["eager"]
+    if g["generated"] != e["generated"]:
+        raise AssertionError(
+            f"[serving {tag}] greedy tokens differ between the routes: "
+            f"{token_agreement(e['generated'], g['generated'])}")
+    need = (("ragged_gemv",) if cfg.moe is not None else FLOAT_KERNELS) \
+        + ("decode_attention",)
+    for route, r in routes.items():
+        c, guard = r["counters"], r["guard"]
+        if route == "graph" and not all(r["launches"][n] for n in need):
+            raise AssertionError(f"[serving {tag}] a kernel of the path "
+                                 f"never launched: {r['launches']}")
+        if cfg.moe is None and (c["evicted"] < 1 or c["prefill_chunks"] < 24
+                                or c["prefix_hits"] < 1):
+            raise AssertionError(f"[serving {tag} {route}] counters {c}")
+        if len(r["preempt_steps"]) < 1 or SERVE_URGENT_STEPS[0] not in \
+                r["preempt_steps"]:
+            raise AssertionError(f"[serving {tag} {route}] preemptions at "
+                                 f"steps {r['preempt_steps']}")
+        if guard["spliced"] != c["prefix_hits"]:
+            raise AssertionError(f"[serving {tag} {route}] {guard['spliced']}"
+                                 f" splices held for {c['prefix_hits']} hits")
+        if guard["chunked_decode_steps"] < 1 or guard["cache_ops"]:
+            raise AssertionError(
+                f"[serving {tag} {route}] decode steps with a row mid-"
+                f"prefill: {guard['chunked_decode_steps']}, casts or copies "
+                f"of a cache-shaped tensor {guard['cache_ops']}")
+    if g["profile"] is None or e["profile"] is None:
+        raise AssertionError(f"[serving {tag}] the profiler reported no "
+                             f"device time in the window")
+    replay = compare_replay(g["profile"], e["profile"], cfg)
+    plain = serve_route(cfg, params, dev, kv_store, plan, "graph",
+                        plain=True)
+    first_div = {}
+    for rid, toks in g["generated"].items():
+        other = plain["generated"][rid]
+        first_div[rid] = next((i for i, (a, b) in enumerate(zip(toks, other))
+                               if a != b), None)
+    return {"tag": tag, "arch": arch, "kv_store": kv_store,
+            "plan": {"requests": len(plan), "tenants": n_ten,
+                     "prefix": SERVE_PREFIX, "tail": list(SERVE_TAIL),
+                     "new_tokens": new, "chunk": SERVE_CHUNK,
+                     "urgent_steps": list(SERVE_URGENT_STEPS),
+                     "prefix_capacity_bytes": SERVE_PREFIX_BYTES},
+            "routes": routes, "replay": replay, "plain": plain,
+            "agreement_with_plain": token_agreement(plain["generated"],
+                                                    g["generated"]),
+            "first_divergent_token_vs_plain": first_div}
+
+
+def log_serving(res: dict) -> None:
+    tag = res["tag"]
+    for route in ROUTES:
+        r = res["routes"][route]
+        c, gd, pt = r["counters"], r["guard"], r["per_token_ms"]
+        hit = (r["ttft_hit_ms"] or {}).get("p50", float("nan"))
+        miss = (r["ttft_miss_ms"] or {}).get("p50", float("nan"))
+        pi = r["prefix_index"] or {}
+        pr = r["profile"]
+        log(f"  [serving {tag} {route}] {r['requests']} requests in "
+            f"{r['steps']} steps, {r['wall_s']:.2f} s: TTFT p50 hit "
+            f"{hit:.2f} ms miss {miss:.2f} ms; per-token p50 "
+            f"{pt['p50']:.3f} ms p90 {pt['p90']:.3f} ms; capture s "
+            f"{json.dumps(r['capture_s'])}; peak {r['peak_mem_gb']:.3f} GB; "
+            f"prefix segments {pi.get('segments')} holding "
+            f"{pi.get('bytes', 0) / 1e6:.1f} MB")
+        log(f"    evicted {c['evicted']} at steps {r['preempt_steps']} "
+            f"{r['evictions']}; prefill chunks {c['prefill_chunks']}; "
+            f"prefix hits {c['prefix_hits']} misses {c['prefix_misses']} "
+            f"saved {c['prefill_tokens_saved']} tokens; splices held byte "
+            f"for byte {gd['spliced']} ({gd['spliced_positions']} "
+            f"positions); decode steps with a row mid-prefill "
+            f"{gd['chunked_decode_steps']} ({gd['chunked_rows']} rows), "
+            f"cache-shaped casts or copies in them "
+            f"{gd['cache_ops'] or 'none'}; launches {r['launches']}")
+        if pr is not None:
+            log(f"    window of {pr['steps']} steps from step "
+                f"{SERVE_WINDOW[0]}: device busy "
+                f"{pr['device_busy_ms_per_step']:.3f} ms a step, "
+                f"{pr['kernels_per_step']:.0f} kernels a step; pad kernels "
+                f"lost {pr['pads_lost']} of {PAD_KERNELS} each")
+    p = res["plain"]
+    log(f"  [serving {tag} plain] no chunking, no prefix cache, no "
+        f"deadlines: per-token p50 {p['per_token_ms']['p50']:.3f} ms, TTFT "
+        f"p50 {p['ttft_ms']['p50']:.2f} ms; tokens agreeing with the "
+        f"chunked graph run {res['agreement_with_plain']}; first divergent "
+        f"token by request {res['first_divergent_token_vs_plain']}")
+    log(f"  [serving {tag} replay] graph and eager tokens equal; the window's "
+        f"replayed steps ran {res['replay']['port_kernels_per_step']:.0f} "
+        f"port kernels a step as the eager steps; library differences "
+        f"{res['replay']['library_differences'] or 'none'}")
 
 
 # ---------------------------------------------------------------------------
@@ -2571,6 +3010,7 @@ def main() -> int:
         "scaled_dot_product_attention")
     rows += check_attention(dev, layers=get_config("olmo-1b").n_layers)
 
+    warm_profiler()
     cfg = get_config("olmo-1b")
     log(f"[engine] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
         f"bf16, seed {SEED}")
@@ -2632,6 +3072,13 @@ def main() -> int:
         f"{json.dumps(gpu['triton_picks_by_batch'])}; greedy tokens "
         f"agreeing with the h100 engine {gpu['agreement_with_h100']}")
     log_routes("gpu engine", gpu)
+
+    serving = {}
+    for tag in ("olmo-1b fp", "olmo-1b int8"):
+        log(f"[serving] {tag}: chunked prefill ({SERVE_CHUNK}), the prefix "
+            f"cache and preemption, both routes, then the plain engine")
+        serving[tag] = run_serving(cfg, params, dev, tag)
+        log_serving(serving[tag])
 
     del params
     gc.collect()
@@ -2705,6 +3152,11 @@ def main() -> int:
         f"{json.dumps(moe_gpu['triton_picks_by_batch'])}; greedy tokens "
         f"agreeing with the h100 engine {moe_gpu['agreement_with_h100']}")
     log_routes("moe gpu", moe_gpu)
+    tag = "deepseek-moe-16b ragged"
+    log(f"[serving] {tag}: chunked prefill ({SERVE_CHUNK}), the prefix "
+        f"cache and preemption, both routes, then the plain engine")
+    serving[tag] = run_serving(mcfg, mparams, dev, tag)
+    log_serving(serving[tag])
     del mparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -2747,6 +3199,7 @@ def main() -> int:
         engine=engine, logits=logits,
         quant_dispatch=quant, kv=kv, moe_engine=moe, moe_logits=moe_logits,
         moe_grouped=grouped, gpu_engine=gpu, moe_gpu=moe_gpu,
+        serving=serving,
         autotune=autotune, kernels=line["kernels"],
         total_s=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

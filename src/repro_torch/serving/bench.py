@@ -1,0 +1,302 @@
+"""Synthetic multi-tenant serving trace (counterpart of
+``repro/serving/bench.py``).
+
+Drives the port's :class:`~repro_torch.serving.engine.Engine` with a seeded
+workload -- mixed prompt lengths, Poisson arrivals in units of engine steps,
+and with ``kind="shared-prefix"`` a Zipf mixture of tenants whose prompts
+share a system prefix -- once per scheduler policy, and emits one JSON
+document with TTFT / per-token-latency percentiles, throughput, the
+dispatcher's decision counters and, with the prefix cache on, its hit rate
+and segment store per run.
+
+Runs on the CUDA card unless ``device="cpu"`` is given; ``reduced=True``
+(the default, as in the JAX bench) serves the config's ``reduced()`` form,
+``reduced=False`` the published widths and depth.
+
+    python -m repro_torch.serving.bench --smoke --device cpu
+    python -m repro_torch.serving.bench --trace shared-prefix --prefix-cache \\
+        --prefill-chunk 128 --full-size --json serve.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from dataclasses import dataclass
+
+import numpy as np
+
+from repro_torch.configs.registry import get_config
+from repro_torch.device import resolve_device
+from repro_torch.kernels import dispatch
+from repro_torch.models import lm
+from repro_torch.serving.engine import Engine, Request
+from repro_torch.serving.scheduler import POLICIES, QueueFull
+
+# --json document version, the JAX bench's numbering: v4 is its layout
+# without the mesh, async-prefill, overlap and flight-trace fields (not
+# ported); the port adds ``device``, ``reduced`` and ``prefill_chunk``.
+SCHEMA_VERSION = 4
+
+TRACE_KINDS = ("uniform", "shared-prefix")
+
+
+@dataclass(frozen=True)
+class TraceConfig:
+    n_requests: int = 24
+    arrival_rate: float = 1.5       # mean arrivals per engine step (Poisson)
+    prompt_len_range: tuple[int, int] = (4, 24)   # inclusive
+    max_new_range: tuple[int, int] = (4, 12)
+    eos_ids: tuple[int, ...] = ()   # stop set (empty: none)
+    seed: int = 0
+    # "uniform": i.i.d. random prompts.  "shared-prefix": each tenant owns
+    # one seeded system prefix (length from prefix_len_range), tenants are
+    # picked Zipf(zipf_a) per request, and the prompt is that prefix plus
+    # a private suffix (prompt_len_range).
+    kind: str = "uniform"
+    n_tenants: int = 4
+    zipf_a: float = 1.5
+    prefix_len_range: tuple[int, int] = (8, 16)
+
+    def __post_init__(self):
+        if self.kind not in TRACE_KINDS:
+            raise ValueError(f"unknown trace kind {self.kind!r}; "
+                             f"expected one of {TRACE_KINDS}")
+
+    @classmethod
+    def smoke(cls, **kw) -> "TraceConfig":
+        if kw.get("kind") == "shared-prefix":
+            base = dict(n_requests=16, arrival_rate=0.6,
+                        prompt_len_range=(2, 6), max_new_range=(3, 5),
+                        n_tenants=3, prefix_len_range=(16, 24))
+            base.update(kw)
+            return cls(**base)
+        return cls(n_requests=10, arrival_rate=4.0,
+                   prompt_len_range=(2, 10), max_new_range=(3, 5), **kw)
+
+
+def build_trace(tcfg: TraceConfig, vocab: int,
+                rng: np.random.Generator) -> list[dict]:
+    """[{arrival_step, prompt, max_new_tokens, eos_ids, tenant}]: arrivals
+    are cumulative exponential gaps from the caller's seeded rng (the JAX
+    bench's draws, in its order)."""
+    lo, hi = tcfg.prompt_len_range
+    nlo, nhi = tcfg.max_new_range
+    prefixes, weights = [], None
+    if tcfg.kind == "shared-prefix":
+        plo, phi = tcfg.prefix_len_range
+        prefixes = [
+            rng.integers(0, vocab,
+                         int(rng.integers(plo, phi + 1))).astype(np.int32)
+            for _ in range(tcfg.n_tenants)
+        ]
+        w = 1.0 / np.arange(1, tcfg.n_tenants + 1) ** tcfg.zipf_a
+        weights = w / w.sum()
+    t = 0.0
+    out = []
+    for _ in range(tcfg.n_requests):
+        t += rng.exponential(1.0 / tcfg.arrival_rate)
+        plen = int(rng.integers(lo, hi + 1))
+        prompt = rng.integers(0, vocab, plen).astype(np.int32)
+        tenant = None
+        if tcfg.kind == "shared-prefix":
+            tenant = int(rng.choice(tcfg.n_tenants, p=weights))
+            prompt = np.concatenate([prefixes[tenant], prompt])
+        out.append({
+            "arrival_step": int(t),
+            "prompt": prompt,
+            "max_new_tokens": int(rng.integers(nlo, nhi + 1)),
+            "eos_ids": tuple(tcfg.eos_ids),
+            "tenant": tenant,
+        })
+    return out
+
+
+def run_policy(cfg, params, policy: str, trace: list[dict], *,
+               batch_slots: int, max_len: int, gemv_batch_threshold: int,
+               gemv_backend: str | None = None, max_queue: int = 0,
+               prefill_chunk: int | None = None, prefix_cache=False,
+               kv_store: str = "fp", max_iters: int = 5000) -> dict:
+    """Serve one trace under one scheduler policy on ``params``' device;
+    returns the metrics document (aggregates only) tagged with the run's
+    configuration."""
+    dispatch.clear_plan_cache()  # attribute dispatch decisions to this run
+    eng = Engine(cfg, params, batch_slots=batch_slots, max_len=max_len,
+                 gemv_batch_threshold=gemv_batch_threshold,
+                 gemv_backend=gemv_backend, scheduler=policy,
+                 max_queue=max_queue, prefill_chunk=prefill_chunk,
+                 prefix_cache=prefix_cache, kv_store=kv_store,
+                 device=params["embed"].device)
+    pending = [
+        Request(rid=i, prompt=t["prompt"],
+                max_new_tokens=t["max_new_tokens"],
+                eos_ids=(set(t["eos_ids"]) if t.get("eos_ids") else None))
+        for i, t in enumerate(trace)
+    ]
+    arrivals = [t["arrival_step"] for t in trace]
+    done, retry = [], []
+    for step_i in range(max_iters):
+        due, retry = retry, []
+        while pending and arrivals[0] <= step_i:
+            due.append(pending.pop(0))
+            arrivals.pop(0)
+        for req in due:
+            try:
+                eng.submit(req)
+            except QueueFull:
+                retry.append(req)  # backpressure: retry next step
+        done.extend(eng.step())
+        if (not pending and not retry and not eng.active
+                and not eng._prefilling and not eng.scheduler.queue):
+            break
+    doc = eng.metrics.to_dict(include_steps=False)
+    doc.update(
+        policy=policy,
+        batch_slots=batch_slots,
+        gemv_batch_threshold=gemv_batch_threshold,
+        completed=len(done),
+        total_generated=sum(len(r.generated) for r in done),
+        kv_store=kv_store,
+        prefill_chunk=prefill_chunk,
+        prefix_index=(eng.prefix.stats() if eng.prefix is not None
+                      else None),
+    )
+    return doc
+
+
+def run_serve_trace(
+    arch: str = "olmo-1b", *,
+    policies: tuple[str, ...] = ("fcfs", "sjf", "gemv_aware"),
+    smoke: bool = False,
+    seed: int = 0,
+    batch_slots: int = 8,
+    max_len: int = 96,
+    gemv_batch_threshold: int = 4,
+    gemv_backend: str | None = None,
+    prefill_chunk: int | None = None,
+    trace_kind: str = "uniform",
+    prefix_cache=False,
+    kv_store: str = "fp",
+    trace_config: TraceConfig | None = None,
+    reduced: bool = True,
+    device=None,
+    out: str | None = None,
+) -> dict:
+    """Serve one synthetic trace under each policy; returns (and with
+    ``out`` writes) the comparison document.  Weights are random from
+    ``seed`` 0 on ``device`` (the card unless ``"cpu"`` is given)."""
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    params = lm.init_lm(cfg, seed=0, device=dev)
+    if smoke:
+        batch_slots = min(batch_slots, 4)
+        gemv_batch_threshold = min(gemv_batch_threshold, 2)
+        tcfg = trace_config or TraceConfig.smoke(kind=trace_kind)
+    else:
+        tcfg = trace_config or TraceConfig(kind=trace_kind)
+    tcfg = TraceConfig(**{**tcfg.__dict__, "seed": seed})
+    trace = build_trace(tcfg, cfg.vocab, np.random.default_rng(tcfg.seed))
+    runs = [run_policy(cfg, params, policy, trace, batch_slots=batch_slots,
+                       max_len=max_len,
+                       gemv_batch_threshold=gemv_batch_threshold,
+                       gemv_backend=gemv_backend,
+                       prefill_chunk=prefill_chunk,
+                       prefix_cache=prefix_cache, kv_store=kv_store)
+            for policy in policies]
+    shared = tcfg.kind == "shared-prefix"
+    doc = {
+        "schema": SCHEMA_VERSION,
+        "arch": arch,
+        "reduced": bool(reduced),
+        "device": str(dev),
+        "trace": {
+            "kind": tcfg.kind,
+            "n_requests": tcfg.n_requests,
+            "arrival_rate": tcfg.arrival_rate,
+            "prompt_len_range": list(tcfg.prompt_len_range),
+            "max_new_range": list(tcfg.max_new_range),
+            "eos_ids": list(tcfg.eos_ids),
+            "seed": tcfg.seed,
+            "n_tenants": tcfg.n_tenants if shared else None,
+            "zipf_a": tcfg.zipf_a if shared else None,
+            "prefix_len_range": (list(tcfg.prefix_len_range) if shared
+                                 else None),
+        },
+        "prefix_cache": bool(prefix_cache),
+        "kv_store": kv_store,
+        "prefill_chunk": prefill_chunk,
+        "runs": runs,
+    }
+    if out:
+        with open(out, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+    return doc
+
+
+def summary_line(run: dict) -> str:
+    """One line per run: completions, TTFT, per-token latency, throughput,
+    the dispatch mix and the prefix cache's hits."""
+    ttft, ptok, disp = run["ttft_ms"], run["per_token_ms"], run["dispatch"]
+    nan = float("nan")
+    line = (f"serve/{run['policy']} slots={run['batch_slots']} "
+            f"thresh={run['gemv_batch_threshold']} kv={run['kv_store']} "
+            f"chunk={run['prefill_chunk']}: completed={run['completed']} "
+            f"ttft p50={ttft.get('p50', nan):.1f}ms "
+            f"p99={ttft.get('p99', nan):.1f}ms | "
+            f"tok p50={ptok.get('p50', nan):.2f}ms "
+            f"p99={ptok.get('p99', nan):.2f}ms | "
+            f"{run['tokens_per_s']:.1f} tok/s | "
+            f"dispatch gemv={disp['gemv_path']} "
+            f"matmul_fallback={disp['matmul_fallback']}")
+    pc = run.get("prefix_cache")
+    if pc:
+        line += (f" | prefix hit_rate={pc['hit_rate']:.2f} "
+                 f"saved={pc['prefill_tokens_saved']}tok "
+                 f"ttft(hit/miss) p50="
+                 f"{pc['ttft_hit_ms'].get('p50', nan):.1f}/"
+                 f"{pc['ttft_miss_ms'].get('p50', nan):.1f}ms")
+    return line
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.serving.bench",
+        description="Serve a synthetic multi-tenant trace through the "
+                    "port's Engine, one run per scheduler policy.")
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--policy", choices=POLICIES, action="append",
+                    help="repeatable; default: every policy")
+    ap.add_argument("--trace", choices=TRACE_KINDS, default="uniform")
+    ap.add_argument("--prefill-chunk", type=int, default=None)
+    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--kv-store", choices=("fp", "int8", "int4"),
+                    default="fp")
+    ap.add_argument("--gemv-backend", default=None)
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=96)
+    ap.add_argument("--threshold", type=int, default=4,
+                    help="gemv_batch_threshold")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--full-size", action="store_true",
+                    help="the published widths and depth, not reduced()")
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card; 'cpu' to run here")
+    ap.add_argument("--json", default=None, help="write the document here")
+    a = ap.parse_args(argv)
+    doc = run_serve_trace(
+        a.arch, policies=tuple(a.policy or POLICIES), smoke=a.smoke,
+        seed=a.seed, batch_slots=a.slots, max_len=a.max_len,
+        gemv_batch_threshold=a.threshold, gemv_backend=a.gemv_backend,
+        prefill_chunk=a.prefill_chunk, trace_kind=a.trace,
+        prefix_cache=a.prefix_cache, kv_store=a.kv_store,
+        reduced=not a.full_size, device=a.device, out=a.json)
+    for run in doc["runs"]:
+        print(summary_line(run))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,9 +6,31 @@
 :class:`~repro_torch.serving.scheduler.Scheduler` (fcfs / sjf /
 gemv_aware admission, backpressure, deadline expiry),
 :class:`~repro_torch.serving.metrics.ServingMetrics` and the numpy
-sampler.  Each :meth:`Engine.step` expires, admits, prefills the admission
-wave in ONE right-padded batched forward, and decodes one token for every
-active slot over the smallest power-of-two bucket that covers them.
+sampler.  Each :meth:`Engine.step` expires, preempts (when a queued
+deadline is imminent and no slot is free), admits, prefills the admission
+wave in ONE right-padded batched forward, advances every chunked prefill by
+one chunk, and decodes one token for every active slot over the smallest
+power-of-two bucket that covers them.
+
+``prefill_chunk=n`` prefills a prompt longer than ``n`` tokens one chunk a
+step on the slot's own row (``SlotKVCache.slot_view``), so a long prompt no
+longer stalls the decode of the active slots.  A slot mid-prefill sits
+inside the decode bucket: the step writes one position at its ``pos`` and
+advances it; the engine puts ``pos`` back, outside the step, and the next
+chunk rewrites that position (no copy of the row).
+
+``prefix_cache=True`` (or a ``PrefixCacheConfig`` / ``PrefixCache``) keeps
+prefilled KV in a radix index (:mod:`repro_torch.serving.prefix_cache`): at
+admission the longest cached prefix is spliced into the slot and only the
+tail prefills, through the chunked seam.  Preemption files the victim's KV
+there first, so a readmitted victim re-prefills only what it generated
+since.
+
+With ``preempt_margin`` set on a ``gemv_aware`` scheduler, a queued
+request whose deadline would pass within the margin while every slot is
+taken evicts the youngest slot: one mid-prefill first, else the youngest
+decoding one.  The victim is requeued and re-prefills prompt plus
+generated on readmission, so its greedy tokens do not change.
 
 Decode is where the GEMV kernels run: with the bucket at or under
 ``gemv_batch_threshold`` the model's projections go through the
@@ -31,8 +53,9 @@ and is then captured, every later one replays.  Inside
 :func:`~repro_torch.serving.step_graph.disable_graphs`, and always on the
 CPU, the step runs eagerly op by op.  Prefill stays eager.
 
-Not ported yet: prefill as captured programs, chunked and async prefill,
-the prefix cache, preemption, sharded (mesh) serving and the tracer.
+Not ported yet: prefill as captured programs, async prefill, recurrent
+state checkpoints in the prefix cache (no such family is ported), sharded
+(mesh) serving and the tracer.
 """
 
 from __future__ import annotations
@@ -49,8 +72,14 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.backends import DispatchPolicy
 from repro_torch.kernels.kv_quant import validate_kv_store
 from repro_torch.models import lm
-from repro_torch.serving.kv_cache import SlotKVCache
+from repro_torch.serving.kv_cache import POSITIONAL_LEAVES, SlotKVCache
 from repro_torch.serving.metrics import ServingMetrics
+from repro_torch.serving.prefix_cache import (
+    PrefixCache,
+    PrefixCacheConfig,
+    PrefixMatch,
+    prefix_cacheable,
+)
 from repro_torch.serving.sampling import (
     SamplingParams,
     request_rng,
@@ -80,8 +109,13 @@ class Request:
     slot: int = -1
     submit_time: float = 0.0
     arrival_seq: int = 0
+    admit_seq: int = -1             # admission order (preemption victim)
+    evictions: int = 0              # times this request lost its slot
     first_token_time: float | None = None
     finish_time: float | None = None
+    # prefix-cache outcome of the FIRST admission (None: no prefix cache);
+    # keys the TTFT hit/miss split
+    prefix_hit: bool | None = None
 
     def stop_set(self) -> frozenset[int]:
         if self.eos_ids is not None:
@@ -110,7 +144,10 @@ class Engine:
                  gemv_expert_shape: str = "ragged",
                  scheduler: Scheduler | SchedulerConfig | str = "fcfs",
                  max_queue: int = 0,
+                 prepack_weights: bool = True,
                  metrics: ServingMetrics | None = None,
+                 prefill_chunk: int | None = None,
+                 prefix_cache=None,
                  kv_store: str = "fp",
                  device=None,
                  clock=time.monotonic):
@@ -123,6 +160,7 @@ class Engine:
         self.slots = batch_slots
         self.max_len = max_len
         self.clock = clock
+        self.prefill_chunk = prefill_chunk
         # One DispatchPolicy for the engine's lifetime; above the batch
         # threshold the backend itself sends decode GEMVs to ref.
         self.gemv_policy = (
@@ -134,7 +172,8 @@ class Engine:
         # one-time prepack: fused weights and the contiguous head the
         # kernels read (no per-step concat or transpose)
         self.params = (lm.prepack_decode_params(params, cfg)
-                       if self.gemv_policy is not None else params)
+                       if prepack_weights and self.gemv_policy is not None
+                       else params)
         if isinstance(scheduler, Scheduler):
             self.scheduler = scheduler
         elif isinstance(scheduler, SchedulerConfig):
@@ -151,7 +190,28 @@ class Engine:
         self.metrics = metrics or ServingMetrics(clock=clock)
         self.kv = SlotKVCache(cfg, batch_slots, max_len,
                               kv_store=self.kv_store, device=self.device)
+        # shared-prefix KV reuse: True (the default config), a
+        # PrefixCacheConfig, or a PrefixCache; families whose KV is not a
+        # function of the tokens stay uncached
+        self.prefix: PrefixCache | None = None
+        if prefix_cache and prefix_cacheable(cfg):
+            if isinstance(prefix_cache, PrefixCache):
+                self.prefix = prefix_cache
+            else:
+                has_state = any(
+                    name != "pos" and name not in POSITIONAL_LEAVES
+                    and leaf.ndim > 1 for name, leaf in self.kv.cache.items())
+                self.prefix = PrefixCache(
+                    prefix_cache if isinstance(prefix_cache,
+                                               PrefixCacheConfig) else None,
+                    has_state=has_state)
+            # admission prices a cached prefix as near-zero prefill
+            self.scheduler.prefill_cost = self._prefill_cost
         self.active: dict[int, Request] = {}   # slot -> request
+        # chunked prefill in flight: slot -> [request, tokens landed so far]
+        # (the slot is alloc'd but not decoding)
+        self._prefilling: dict[int, list] = {}
+        self._admit_seq = 0
         self.expired: list[Request] = []
         # host copy: one small transfer per decode step instead of one
         # device write per sampled token
@@ -186,8 +246,9 @@ class Engine:
         self.metrics.request_submitted()
 
     def step(self) -> list[Request]:
-        """One engine iteration: expire + admit + prefill + one decode step.
-        Returns the requests completed this step."""
+        """One engine iteration: expire + (maybe) preempt + admit + prefill
+        + one chunk of every chunked prefill + one decode step.  Returns
+        the requests completed this step."""
         t0 = self.clock()
         expired = self.scheduler.expire(t0)
         for r in expired:
@@ -195,6 +256,7 @@ class Engine:
         self.expired.extend(expired)
         if expired:
             self.metrics.requests_expired(len(expired))
+        self._maybe_preempt(t0)
         if self.scheduler.config.moe_experts > 1:
             # refresh the router-skew estimate before deciding how many
             # slots to fill
@@ -203,8 +265,32 @@ class Engine:
         admitted = self.scheduler.select(self.kv.n_free, self.kv.n_active,
                                          t0)
         finished: list[Request] = []
-        if admitted:
-            finished.extend(self._prefill_wave(admitted))
+        for r in admitted:
+            r.admit_seq = self._admit_seq
+            self._admit_seq += 1
+        misses = admitted
+        if self.prefix is not None:
+            # a hit splices its cached segments and joins the chunked seam
+            # with only the tail left to run
+            misses = []
+            for r in admitted:
+                m = self._prefix_match(r)
+                if m is not None:
+                    self._admit_prefix_hit(r, m)
+                else:
+                    misses.append(r)
+        chunked = ([r for r in misses
+                    if len(self._pending_tokens(r)) > self.prefill_chunk]
+                   if self.prefill_chunk else [])
+        chunked_ids = {id(r) for r in chunked}
+        plain = [r for r in misses if id(r) not in chunked_ids]
+        if plain:
+            finished.extend(self._prefill_wave(plain))
+        for r in chunked:
+            # the admission spent this slot; its first chunk runs below
+            self._prefilling[self.kv.alloc()] = [r, 0]
+        if self._prefilling:
+            finished.extend(self._advance_chunked())
         # an instant finish at prefill can punch a hole in the active
         # prefix; decode needs it contiguous
         self._compact()
@@ -224,17 +310,95 @@ class Engine:
         done: list[Request] = []
         for _ in range(max_iters):
             done.extend(self.step())
-            if not self.active and not self.scheduler.queue:
+            if (not self.active and not self._prefilling
+                    and not self.scheduler.queue):
                 break
         return done
 
+    # -- prefix cache --------------------------------------------------------
+
+    def _prefill_cost(self, r: Request) -> int:
+        """Prefill tokens ``r`` would actually run: pending minus the
+        cached prefix (the scheduler's ordering hook; a pure probe)."""
+        toks = self._pending_tokens(r)
+        return max(1, len(toks) - self.prefix.match_len(toks))
+
+    def _prefix_match(self, r: Request) -> PrefixMatch | None:
+        """Admission-time lookup: counts the hit or miss and pins the
+        first admission's outcome for the TTFT split."""
+        m = self.prefix.match(self._pending_tokens(r))
+        if r.prefix_hit is None:
+            r.prefix_hit = m is not None
+        self.metrics.prefix_lookup(m is not None,
+                                   m.length if m is not None else 0)
+        return m
+
+    def _admit_prefix_hit(self, r: Request, m: PrefixMatch) -> None:
+        """Pin the matched segments, splice them into a fresh slot, and
+        hand the tail to the chunked seam: the matched prefill never
+        runs."""
+        slot = self.kv.alloc()
+        self.prefix.acquire(m)
+        # the pin travels with the slot and is dropped in _release_prefix
+        self.kv.slot_meta[slot]["prefix_match"] = m
+        self.kv.splice_prefix(slot, self.prefix.gather(m), m.length)
+        self._prefilling[slot] = [r, m.length]
+
+    def _prefix_insert(self, slot: int, tokens: np.ndarray) -> None:
+        """File a slot's freshly prefilled KV into the radix index."""
+        if self.prefix is None or len(tokens) == 0:
+            return
+        self.prefix.insert(tokens,
+                           self.kv.extract_prefix(slot, len(tokens)))
+
+    def _release_prefix(self, slot: int) -> None:
+        """Unpin the segments a slot acquired at admission (before free)."""
+        m = self.kv.slot_meta.get(slot, {}).pop("prefix_match", None)
+        if m is not None and self.prefix is not None:
+            self.prefix.release(m)
+
     # -- internals -----------------------------------------------------------
+
+    @staticmethod
+    def _pending_tokens(r: Request) -> np.ndarray:
+        """The tokens a (re-)prefill must run: the prompt, plus what was
+        generated before an eviction (so eviction leaves the greedy stream
+        as it was)."""
+        if r.generated:
+            return np.concatenate([np.asarray(r.prompt, np.int32),
+                                   np.asarray(r.generated, np.int32)])
+        return np.asarray(r.prompt, np.int32)
+
+    def _maybe_preempt(self, now: float) -> None:
+        """Evict the youngest slot for a deadline-imminent queued request
+        when none is free: one mid-prefill first (no decode work lost),
+        else the youngest decoding one.  Its KV goes into the prefix cache
+        before the slot is freed, and it is requeued."""
+        if self.kv.n_free > 0 or (not self.active and not self._prefilling):
+            return
+        if not self.scheduler.wants_preemption(now):
+            return
+        if self._prefilling:
+            slot = max(self._prefilling,
+                       key=lambda s: self._prefilling[s][0].admit_seq)
+            r, valid = self._prefilling.pop(slot)
+        else:
+            slot = max(self.active, key=lambda s: self.active[s].admit_seq)
+            r = self.active.pop(slot)
+            valid = int(self.kv.kv_valid_len()[slot])
+        self._prefix_insert(slot, self._pending_tokens(r)[:valid])
+        self._release_prefix(slot)
+        self.kv.free(slot)
+        r.slot = -1
+        r.evictions += 1
+        self.scheduler.requeue(r)
+        self.metrics.request_evicted()
 
     def _prefill_wave(self, wave: list[Request]) -> list[Request]:
         """The whole admission wave in ONE right-padded batched forward;
         per-slot last-valid-token logits are gathered by length."""
         slots = [self.kv.alloc() for _ in wave]
-        toks = [np.asarray(r.prompt, np.int64) for r in wave]
+        toks = [self._pending_tokens(r).astype(np.int64) for r in wave]
         lengths = [len(t) for t in toks]
         Lmax = max(lengths)
         # the pow2 pad never runs past max_len: the KV write starts at 0 and
@@ -255,6 +419,8 @@ class Engine:
         idx = torch.from_numpy(lens - 1).to(self.device)
         last = logits[torch.arange(nb, device=self.device), idx]
         self.kv.splice(sub, slots, lengths)
+        for slot, t in zip(slots, toks):
+            self._prefix_insert(slot, t)
         last_np = last.float().cpu().numpy()
         now = self.clock()
         finished = []
@@ -263,6 +429,47 @@ class Engine:
             if self._activate(r, slot, tok, now):
                 finished.append(r)
         self.metrics.prefill_wave(len(wave), sum(lengths))
+        return finished
+
+    def _advance_chunked(self) -> list[Request]:
+        """Advance every chunked prefill by ONE chunk; the final chunk
+        samples the first token and moves the request into the decode set.
+        Returns the requests that finished at once."""
+        finished = []
+        # a prefix hit's tail rides this seam even with chunking off: one
+        # chunk covers the whole tail
+        chunk_limit = self.prefill_chunk or self.max_len
+        for slot in sorted(self._prefilling):
+            req, consumed = self._prefilling[slot]
+            toks = self._pending_tokens(req)
+            chunk = toks[consumed:consumed + chunk_limit]
+            c = len(chunk)
+            # the pad never runs past max_len: the KV write starts at
+            # ``consumed`` and a longer pad would clamp the start backwards
+            # over earlier chunks (the JAX engine's rule, engine.py:773)
+            cpad = max(min(_next_pow2(c), chunk_limit,
+                           self.max_len - consumed), c)
+            tokens = np.zeros((1, cpad), np.int64)
+            tokens[0, :c] = chunk
+            # every chunk runs on the slot's own row, in place; a first
+            # chunk starts at 0 (what an earlier occupant left at or past
+            # ``pos`` is masked, then overwritten)
+            if consumed == 0:
+                self.kv.cache["pos"][slot] = 0
+            logits, sub, _ = lm.forward(
+                self.params, self.cfg,
+                torch.from_numpy(tokens).to(self.device),
+                cache=self.kv.slot_view(slot))
+            self.kv.splice(sub, [slot], [consumed + c])
+            self.metrics.prefill_chunk(c)
+            if consumed + c < len(toks):
+                self._prefilling[slot][1] = consumed + c
+                continue
+            del self._prefilling[slot]
+            self._prefix_insert(slot, toks)
+            tok = self._sample(req, logits[0, c - 1].float().cpu().numpy())
+            if self._activate(req, slot, tok, self.clock()):
+                finished.append(req)
         return finished
 
     def _activate(self, r: Request, slot: int, tok: int,
@@ -311,6 +518,14 @@ class Engine:
         else:
             last = torch.from_numpy(self.last_tok[:b]).to(self.device)
             logits_np = self._decode_body(b, last).float().cpu().numpy()
+        if self._prefilling:
+            # rows mid-prefill rode the step (their logits go unsampled):
+            # it wrote one position at their ``pos`` and advanced it.  Put
+            # ``pos`` back; the next chunk rewrites that position.
+            slots = sorted(self._prefilling)
+            self.kv.cache["pos"][torch.as_tensor(slots, device=self.device)] \
+                = torch.as_tensor([self._prefilling[s][1] for s in slots],
+                                  dtype=torch.int32, device=self.device)
         decode_s = self.clock() - t0
         now = self.clock()
         finished = []
@@ -343,15 +558,19 @@ class Engine:
     def _finish(self, r: Request, slot: int, now: float) -> None:
         r.done = True
         self.metrics.request_finished(r, now)
+        self._release_prefix(slot)
         self.kv.free(slot)
         del self.active[slot]
         self._rngs.pop(r.rid, None)
 
     def _compact(self) -> None:
-        """Defrag active slots to a contiguous prefix and re-point the
-        request map and last tokens."""
+        """Defrag alloc'd slots to a contiguous prefix and re-point the
+        request map, the chunked-prefill map and the last tokens."""
         for src, dst in self.kv.compact().items():
-            r = self.active.pop(src)
-            r.slot = dst
-            self.active[dst] = r
+            if src in self.active:
+                r = self.active.pop(src)
+                r.slot = dst
+                self.active[dst] = r
+            else:
+                self._prefilling[dst] = self._prefilling.pop(src)
             self.last_tok[dst] = self.last_tok[src]

@@ -16,12 +16,26 @@ through every mutation below exactly like ``k`` / ``v``.
   prompt lengths (pad KV beyond a slot's length is masked by
   ``kv_valid_len`` and overwritten as decode advances).
 
+* **the prefix-cache seam** (:meth:`extract_prefix` / :meth:`splice_prefix`)
+  -- a slot's leading KV span goes out to a shared segment and back, in
+  the cache's own ``kv_store`` format (codes and scales of a quantized
+  store), bit for bit.
+
+Host-side per-slot metadata (``slot_meta``, one dict per active slot: the
+prefix cache keeps its segment pins there) moves with its slot through
+:meth:`compact` and is dropped on :meth:`free`.
+
 Unlike the JAX package, whose arrays are immutable, every mutation here
-writes the cache tensors IN PLACE: a full-size copy per splice or decode
-step would move the whole KV store (over 1 GB for olmo-1b at 8 slots x 1024
-positions) for every token.  :meth:`slice_prefix` therefore returns views,
-the model's forward writes new K/V through them, and :meth:`merge_prefix`
-only has to copy what is not already shared (``pos``).
+writes the cache tensors IN PLACE and no leaf is ever reassigned (the
+decode step's captured graphs keep their addresses): a full-size copy per
+splice or decode step would move the whole KV store (over 1 GB for olmo-1b
+at 8 slots x 1024 positions) for every token.  :meth:`slice_prefix` and
+:meth:`slot_view` therefore return views, the model's forward writes new
+K/V through them, and :meth:`merge_prefix` / :meth:`splice` only copy
+what is not already the destination's own memory.  Where the JAX package
+relies on a slice being a copy, the port copies explicitly:
+:meth:`extract_prefix` returns clones, or the slot's next occupant would
+overwrite the segment.
 """
 
 from __future__ import annotations
@@ -33,6 +47,24 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
+
+# Cache leaves with a per-position axis ``[L, B, S, ...]``: the span a
+# shared-prefix segment owns.  Everything else (minus ``pos`` and 1-D
+# per-slot vectors) is recurrent state, snapshotted whole.
+POSITIONAL_LEAVES = ("k", "v", "k_scale", "v_scale")
+
+
+def _row(leaf: torch.Tensor, slot: int) -> torch.Tensor:
+    """Slot ``slot``'s row of a leaf as a one-slot view (batch axis kept)."""
+    return leaf[slot:slot + 1] if leaf.ndim == 1 else leaf[:, slot:slot + 1]
+
+
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """True when ``a`` is exactly the memory ``b`` views (same start,
+    shape and strides): copying one into the other would be a no-op on
+    overlapping memory."""
+    return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            and a.stride() == b.stride())
 
 
 class SlotKVCache:
@@ -49,6 +81,8 @@ class SlotKVCache:
                                    device=self.device)
         self._free: list[int] = list(range(batch_slots))
         self._active: set[int] = set()
+        # opaque per-slot metadata: moves with compact(), dropped on free()
+        self.slot_meta: dict[int, dict] = {}
 
     # -- slot lifecycle ------------------------------------------------------
 
@@ -69,12 +103,14 @@ class SlotKVCache:
             raise RuntimeError("no free KV-cache slots")
         slot = self._free.pop(0)
         self._active.add(slot)
+        self.slot_meta[slot] = {}
         return slot
 
     def free(self, slot: int) -> None:
         if slot not in self._active:
             raise ValueError(f"slot {slot} is not active")
         self._active.remove(slot)
+        self.slot_meta.pop(slot, None)
         bisect.insort(self._free, slot)
 
     def kv_valid_len(self) -> np.ndarray:
@@ -87,7 +123,9 @@ class SlotKVCache:
                lengths: list[int]) -> None:
         """Write an ``n``-row prefill cache into ``slots`` and set each
         slot's ``pos`` to its true length; rows of ``sub_cache`` beyond
-        ``len(slots)`` are batch padding and are dropped."""
+        ``len(slots)`` are batch padding and are dropped.  A one-slot
+        ``sub_cache`` whose leaves are that slot's own rows (a chunk run on
+        :meth:`slot_view`, written in place) only has ``pos`` set."""
         n = len(slots)
         if n != len(lengths):
             raise ValueError(f"{n} slots but {len(lengths)} lengths")
@@ -96,6 +134,9 @@ class SlotKVCache:
             if name == "pos":
                 leaf[idx] = torch.as_tensor(lengths, dtype=leaf.dtype,
                                             device=self.device)
+            elif n == 1 and _same_memory(sub_cache[name],
+                                         _row(leaf, slots[0])):
+                continue
             elif leaf.ndim == 1:
                 leaf[idx] = sub_cache[name][:n].to(leaf.dtype)
             else:
@@ -108,6 +149,45 @@ class SlotKVCache:
         writes its K/V straight into this cache."""
         return {name: (leaf[:b] if leaf.ndim == 1 else leaf[:, :b])
                 for name, leaf in self.cache.items()}
+
+    def slot_view(self, slot: int) -> dict:
+        """One slot as a one-slot cache dict of VIEWS (the chunked-prefill
+        continuation runs on it and writes the slot in place)."""
+        return {name: _row(leaf, slot) for name, leaf in self.cache.items()}
+
+    # -- prefix-cache segment seam ---------------------------------------------
+
+    def extract_prefix(self, slot: int, length: int) -> dict:
+        """Slot ``slot``'s leading ``length`` positions as a segment
+        payload ``{"kv": {leaf: [L, length, ...]}, "state": {leaf: [L,
+        ...]}}``, in the cache's own store format.  Every tensor is a COPY
+        (a view would change under the slot's next occupant and under the
+        decode step's in-place writes)."""
+        kv, state = {}, {}
+        for name, leaf in self.cache.items():
+            if name == "pos" or leaf.ndim == 1:
+                continue
+            if name in POSITIONAL_LEAVES:
+                kv[name] = leaf[:, slot, :length].clone()
+            else:
+                state[name] = leaf[:, slot].clone()
+        return {"kv": kv, "state": state}
+
+    def splice_prefix(self, slot: int, payload: dict, length: int) -> None:
+        """Write a segment payload into slot ``slot`` over positions ``[0,
+        length)`` and set its ``pos`` to ``length``, in place (the prefix
+        hit's fast path; the tail then prefills on :meth:`slot_view`).
+        Positions past ``length`` keep whatever they held: attention masks
+        them and the tail's prefill overwrites them."""
+        for name, leaf in self.cache.items():
+            if name == "pos":
+                leaf[slot] = length
+            elif leaf.ndim == 1:
+                continue
+            elif name in POSITIONAL_LEAVES:
+                leaf[:, slot, :length].copy_(payload["kv"][name])
+            else:
+                leaf[:, slot].copy_(payload["state"][name])
 
     def merge_prefix(self, new_cache: dict, b: int) -> None:
         """Write a decoded ``b``-slot prefix back: leaves that are views of
@@ -147,4 +227,6 @@ class SlotKVCache:
                     leaf[dsts] = leaf[srcs]
                 else:
                     leaf[:, dsts] = leaf[:, srcs]
+            for src, dst in moves.items():
+                self.slot_meta[dst] = self.slot_meta.pop(src, {})
         return moves

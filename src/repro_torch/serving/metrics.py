@@ -1,12 +1,13 @@
 """Serving telemetry: latency histograms + GEMV dispatcher counters (the
-numpy code of the JAX package's ``serving/metrics.py``, for the sections
-this slice serves).
+numpy code of the JAX package's ``serving/metrics.py``).
 
 * ``ttft_ms`` -- submit-to-first-token (queueing + prefill);
 * ``per_token_ms`` -- decode-step wall time, one sample per step (every
   active slot advances one token per step, so this IS the per-token decode
   latency distribution);
 * ``step_ms`` -- every engine iteration, including admission-only ones;
+* ``ttft_hit_ms`` / ``ttft_miss_ms`` -- TTFT split by the prefix cache's
+  outcome at a request's first admission;
 
 plus throughput counters and a per-step snapshot of the dispatcher's
 decision counters (:func:`repro_torch.kernels.dispatch.dispatch_stats`),
@@ -21,10 +22,12 @@ import time
 
 import numpy as np
 
-# JSON-document version of the port's layout (the JAX package's v3 minus
-# the prefix-cache section and the derived expert_balance summary, which
-# are not ported yet).  v2: the dispatch counters carry ``expert_load``.
-SCHEMA_VERSION = 2
+# JSON-document version, the JAX package's numbering.  v2: the dispatch
+# counters carry ``expert_load`` and the document the derived
+# ``expert_balance`` summary when MoE dispatches ran.  v3: the prefix-cache
+# counters, the hit/miss TTFT split and the ``prefix_cache`` section when
+# any lookup ran.
+SCHEMA_VERSION = 3
 
 # Per-step snapshots kept in memory; older entries are dropped (the
 # aggregate histograms/counters keep full fidelity).
@@ -105,13 +108,19 @@ class ServingMetrics:
         self.clock = clock
         self.start_time = clock()
         self.ttft_ms = Histogram("ttft_ms")
+        self.ttft_hit_ms = Histogram("ttft_hit_ms")
+        self.ttft_miss_ms = Histogram("ttft_miss_ms")
         self.per_token_ms = Histogram("per_token_ms")
         self.step_ms = Histogram("step_ms")
         self.batch_sizes = Histogram("decode_batch")
         self.counters = {
             "submitted": 0, "rejected": 0, "expired": 0, "finished": 0,
+            "evicted": 0,
             "tokens_out": 0, "decode_tokens": 0, "prefill_tokens": 0,
-            "prefill_waves": 0, "decode_steps": 0, "engine_steps": 0,
+            "prefill_waves": 0, "prefill_chunks": 0,
+            "decode_steps": 0, "engine_steps": 0,
+            "prefix_hits": 0, "prefix_misses": 0,
+            "prefill_tokens_saved": 0,
         }
         self.decode_s = 0.0
         self.steps: list[dict] = []
@@ -129,11 +138,32 @@ class ServingMetrics:
     def requests_expired(self, n: int) -> None:
         self.counters["expired"] += n
 
+    def request_evicted(self) -> None:
+        """A running slot was preempted for a deadline-imminent request."""
+        self.counters["evicted"] += 1
+
+    def prefix_lookup(self, hit: bool, saved_tokens: int = 0) -> None:
+        """One prefix-cache admission lookup; ``saved_tokens`` is the
+        matched prefill a hit skips."""
+        if hit:
+            self.counters["prefix_hits"] += 1
+            self.counters["prefill_tokens_saved"] += saved_tokens
+        else:
+            self.counters["prefix_misses"] += 1
+
     def first_token(self, req, now: float) -> None:
+        """Record TTFT once per request: a preempted request re-prefills
+        on readmission, but its first token already streamed."""
         if req.first_token_time is not None:
             return
         req.first_token_time = now
-        self.ttft_ms.record((now - req.submit_time) * 1e3)
+        ttft = (now - req.submit_time) * 1e3
+        self.ttft_ms.record(ttft)
+        hit = getattr(req, "prefix_hit", None)  # None: no prefix cache
+        if hit is True:
+            self.ttft_hit_ms.record(ttft)
+        elif hit is False:
+            self.ttft_miss_ms.record(ttft)
 
     def request_finished(self, req, now: float) -> None:
         req.finish_time = now
@@ -146,6 +176,11 @@ class ServingMetrics:
 
     def prefill_wave(self, n_requests: int, n_tokens: int) -> None:
         self.counters["prefill_waves"] += 1
+        self.counters["prefill_tokens"] += n_tokens
+
+    def prefill_chunk(self, n_tokens: int) -> None:
+        """One chunk of a chunked prefill (one bounded forward a step)."""
+        self.counters["prefill_chunks"] += 1
         self.counters["prefill_tokens"] += n_tokens
 
     # -- per-step snapshot ---------------------------------------------------
@@ -176,8 +211,32 @@ class ServingMetrics:
 
     # -- export --------------------------------------------------------------
 
+    @staticmethod
+    def expert_balance(dispatch: dict) -> dict | None:
+        """Per-expert load balance from the ``expert_load`` counters (None
+        when no MoE dispatch ran): ``imbalance`` is the planned per-expert
+        bound over the even split, ``padding_waste`` the share of capacity
+        slots the capacity path padded."""
+        el = dispatch.get("expert_load") or {}
+        decisions = int(el.get("decisions", 0) or 0)
+        if decisions <= 0:
+            return None
+        routed = int(el.get("routed_tokens", 0) or 0)
+        experts = int(el.get("experts", 0) or 0)
+        padded = int(el.get("padded_slots", 0) or 0)
+        mean_per_expert = routed / max(experts, 1)
+        max_per_expert = int(el.get("max_tokens", 0) or 0) / decisions
+        return {
+            "decisions": decisions,
+            "mean_tokens_per_expert": mean_per_expert,
+            "max_tokens_per_expert": max_per_expert,
+            "imbalance": max_per_expert / max(mean_per_expert, 1e-9),
+            "padding_waste": padded / max(padded + routed, 1),
+        }
+
     def to_dict(self, *, include_steps: bool = True) -> dict:
         elapsed = max(self.clock() - self.start_time, 1e-9)
+        dispatch = self.dispatch_delta()
         doc = {
             "schema": SCHEMA_VERSION,
             "elapsed_s": elapsed,
@@ -191,8 +250,23 @@ class ServingMetrics:
                                     / self.decode_s if self.decode_s
                                     else 0.0),
             "counters": dict(self.counters),
-            "dispatch": self.dispatch_delta(),
+            "dispatch": dispatch,
         }
+        balance = self.expert_balance(dispatch)
+        if balance is not None:
+            doc["expert_balance"] = balance
+        c = self.counters
+        lookups = c["prefix_hits"] + c["prefix_misses"]
+        if lookups:
+            doc["prefix_cache"] = {
+                "lookups": lookups,
+                "hits": c["prefix_hits"],
+                "misses": c["prefix_misses"],
+                "hit_rate": c["prefix_hits"] / lookups,
+                "prefill_tokens_saved": c["prefill_tokens_saved"],
+                "ttft_hit_ms": self.ttft_hit_ms.summary(),
+                "ttft_miss_ms": self.ttft_miss_ms.summary(),
+            }
         if include_steps:
             doc["steps"] = list(self.steps)
         return doc

@@ -14,10 +14,23 @@
   refined by :meth:`Scheduler.observe_expert_load` from the dispatcher's
   ``expert_load`` counters.  This gate only ever tightens the dense one.
 
+"Short" means prefill cost, not raw prompt length: an engine with a prefix
+cache installs :attr:`Scheduler.prefill_cost`, so a prompt whose prefix is
+cached prices as the tail it will actually prefill.
+
 ``max_queue`` bounds the waiting queue (:class:`QueueFull` on overflow).
 A request whose absolute ``deadline`` passes while still *queued* is
-expired by :meth:`Scheduler.expire` and never admitted; running requests
-are left to finish.  Preemption is not ported yet.
+expired by :meth:`Scheduler.expire` and never admitted, unless it already
+streamed tokens (an evicted request waiting for readmission); running
+requests are left to finish.
+
+Preemption: with ``preempt_margin`` set (``gemv_aware`` only), a queued
+request whose deadline falls within the margin while every slot is taken
+is *deadline-imminent*.  :meth:`wants_preemption` tells the engine to
+evict its youngest slot, and :meth:`select` orders imminent requests
+first, so the freed slot goes to the request it was freed for.  Evicted
+requests come back through :meth:`requeue` and re-prefill, prompt plus
+generated, on readmission.
 """
 
 from __future__ import annotations
@@ -38,6 +51,10 @@ class SchedulerConfig:
     policy: str = "fcfs"              # fcfs | sjf | gemv_aware
     max_queue: int = 0                # 0 = unbounded
     gemv_batch_threshold: int = 8     # gemv_aware: max concurrent decode slots
+    # gemv_aware only: evict a running slot when a queued deadline would
+    # pass within this many clock units and no slot is free (None: running
+    # requests always finish)
+    preempt_margin: float | None = None
     # expert-aware batch shaping (gemv_aware on MoE models): with
     # moe_experts > 1 admission also keeps the predicted per-expert decode
     # batch within expert_batch_threshold (None: gemv_batch_threshold)
@@ -58,6 +75,10 @@ class Scheduler:
 
     config: SchedulerConfig = field(default_factory=SchedulerConfig)
     queue: list = field(default_factory=list)
+    # admission price of a request in prefill tokens (sjf / gemv_aware
+    # ordering); None: len(r.prompt).  The engine's prefix cache installs
+    # the tail length it would actually prefill.
+    prefill_cost: object = None
     _seq: int = 0                     # arrival tiebreak for stable ordering
     # router-imbalance estimate from dispatch feedback (None: the config's
     # expert_skew prior); at least 1.0, the even split
@@ -65,6 +86,12 @@ class Scheduler:
 
     def __len__(self) -> int:
         return len(self.queue)
+
+    def _cost(self, req) -> int:
+        """Prefill tokens this request would actually run."""
+        if self.prefill_cost is not None:
+            return int(self.prefill_cost(req))
+        return len(req.prompt)
 
     def submit(self, req, now: float = 0.0) -> None:
         cfg = self.config
@@ -76,14 +103,36 @@ class Scheduler:
         self._seq += 1
         self.queue.append(req)
 
+    def requeue(self, req) -> None:
+        """Put an evicted request back in the waiting queue.  Bypasses
+        ``max_queue`` (dropping it here would lose an admitted request);
+        ``submit_time`` and ``arrival_seq`` are kept."""
+        self.queue.append(req)
+
     def expire(self, now: float) -> list:
-        """Remove (and return) queued requests whose deadline has passed."""
+        """Remove (and return) queued requests whose deadline has passed;
+        a request that already streamed tokens is never expired."""
         expired = [r for r in self.queue
-                   if r.deadline is not None and now >= r.deadline]
+                   if r.deadline is not None and now >= r.deadline
+                   and not getattr(r, "generated", None)]
         if expired:
             dead = set(id(r) for r in expired)
             self.queue = [r for r in self.queue if id(r) not in dead]
         return expired
+
+    def _imminent(self, req, now: float) -> bool:
+        m = self.config.preempt_margin
+        return (m is not None and req.deadline is not None
+                and now + m >= req.deadline)
+
+    def wants_preemption(self, now: float) -> bool:
+        """True when a queued request is deadline-imminent and the policy
+        may evict for it (``gemv_aware`` with ``preempt_margin``); the
+        engine asks only when no slot is free."""
+        cfg = self.config
+        if cfg.policy != "gemv_aware" or cfg.preempt_margin is None:
+            return False
+        return any(self._imminent(r, now) for r in self.queue)
 
     def observe_expert_load(self, expert_load: dict) -> None:
         """Refine the skew estimate from ``dispatch_stats()``'s
@@ -123,9 +172,18 @@ class Scheduler:
             return []
         if cfg.policy == "fcfs":
             order = list(self.queue)
-        else:  # sjf and gemv_aware: shortest prompt first, stable
-            order = sorted(self.queue,
-                           key=lambda r: (len(r.prompt), r.arrival_seq))
+        else:  # sjf and gemv_aware: cheapest prefill first, stable; under
+            # gemv_aware preemption (only there) imminent requests go first,
+            # earliest deadline first, so an eviction's slot goes to them
+            preempting = (cfg.policy == "gemv_aware"
+                          and cfg.preempt_margin is not None)
+
+            def key(r):
+                imm = preempting and self._imminent(r, now)
+                return (0 if imm else 1, r.deadline if imm else 0.0,
+                        self._cost(r), r.arrival_seq)
+
+            order = sorted(self.queue, key=key)
         picked = order[:cap]
         taken = set(id(r) for r in picked)
         self.queue = [r for r in self.queue if id(r) not in taken]
