@@ -125,7 +125,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``gpu:ragged_triton`` and ``triton_gemv`` as the picks predict; then
    ``[serving]`` on deepseek-moe-16b (ragged, fp KV, 8 requests of 2
    tenants, 16 tokens each, the same rules otherwise);
-12. autotune -- olmo-1b's decode GEMVs at batch 8, a fused QKV program and
+12. families -- deepseek-moe-16b's params are freed; ``[families
+   kernels]``: ``pim_gemv`` and ``splitk_gemv`` at every decode GEMV shape
+   of minitron-8b, gemma3-1b and gemma3-27b (QKV, gate+up or up, down,
+   the head; K 1152, 5376, 6912 among them) at batch 1 and 8 in bf16, at
+   the plan for the card's SMs, against their plain versions and timed
+   beside their bound and ``torch.matmul``; ``decode_attention`` at each
+   family's shape (8 slots of a 2048-position cache; 8 kv heads of 128 at
+   G 4, 1 of 256 at G 4, 16 of 128 at G 2) with a window of 1024 and
+   none, on rows shorter than, at and longer than the window and idle
+   slots past the end (one past C + window - 1), at every split count,
+   and on int8 / int4 pages bit-identical to the fp kernel; the two
+   windows must differ on a row longer than 1024; timed per window.
+   ``[families engine]``: each family at full width (minitron-8b and
+   gemma3-1b at full depth, gemma3-27b at 12 of 62 layers), bf16, seed
+   0, ``Engine(batch_slots=8, max_len=2048)``, 8 requests of 64 to 1536
+   tokens (three longer than the window), 32 greedy tokens each, both
+   routes; the engine phase's rules (tokens equal, ``decode_attention``
+   once a layer, ``pim_gemv`` / ``splitk_gemv`` as the picks predict --
+   an ungated FFN's up is its own site and gemma3-1b's QKV stays on
+   ``ref`` -- no cache-shaped cast or copy, the replayed window's port
+   kernels); ``[families logits]``: one decode step through the kernels
+   and through ``kernel="ref"``, max |diff| and argmax agreement
+   reported; each family's weights are freed before the next's;
+13. autotune -- olmo-1b's decode GEMVs at batch 8, a fused QKV program and
    a ragged expert program, tuned on the h100 and gpu backends into
    ``build/autotune_smoke.json`` (``pim``/``splitk`` at every ring depth,
    labelled ``pim/s4`` etc.); table and plan cache cleared, the file
@@ -134,7 +157,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    1024-row K chunks, and grouped and ragged expert programs on the first
    expert kernels' tiles) replays: each GEMV keeps its kernel on a
    re-planned plan and matches its plain version;
-13. the ``{"kernels": [...]}`` line, the card line, and the last line
+14. the ``{"kernels": [...]}`` line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 A fuller report goes to ``chiprun_out/chip_smoke.json``.  Nothing here
@@ -240,6 +263,7 @@ from repro_torch.kernels.triton_gemv import (  # noqa: E402
     plan_fits as triton_plan_fits,
 )
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models.layers import GATED  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving import disable_graphs  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
@@ -410,15 +434,23 @@ def check_close(name: str, what: str, out, ref) -> float:
     return err.max().item()
 
 
-def check_kernels(dev) -> list[dict]:
+def check_kernels(dev, shapes=SHAPES, batches=BATCHES,
+                  arch: str = "olmo-1b") -> list[dict]:
+    """``pim_gemv`` and ``splitk_gemv`` at ``shapes`` ({name: (K, M, calls
+    a decode step)}) and ``batches``, each against its plain version at
+    the plan for the card's SMs, then timed beside its bound, the plain
+    version and ``torch.matmul``.  Rows of another arch than olmo-1b name
+    their shape ``arch/name``."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-    for shape, (K, M, per_step) in SHAPES.items():
+    for shape, (K, M, per_step) in shapes.items():
+        if arch != "olmo-1b":
+            shape = f"{arch}/{shape}"
         w_bytes = K * M * 2
         n_copies = max(2, math.ceil(2 * L2_BYTES / w_bytes) + 1)
         ws = [(torch.randn((K, M), generator=gen, device=dev)
                / math.sqrt(K)).to(torch.bfloat16) for _ in range(n_copies)]
-        for B in BATCHES:
+        for B in batches:
             x = torch.randn((B, K), generator=gen, device=dev).to(
                 torch.bfloat16)
             for name in FLOAT_KERNELS:
@@ -451,7 +483,7 @@ def check_kernels(dev) -> list[dict]:
 
                 io_bytes = (K * M + B * K + B * M) * 2
                 row = dict(
-                    kernel=name, shape=shape, K=K, M=M, B=B,
+                    kernel=name, arch=arch, shape=shape, K=K, M=M, B=B,
                     per_step=per_step, plan=plan_dict(plan),
                     max_abs_err=max_err,
                     ms=graph_ms(run, calls),
@@ -1346,13 +1378,15 @@ def log_routes(tag: str, res: dict) -> None:
 
 def decode_sites(cfg) -> dict[str, tuple[int, int, int]]:
     """(M, K, calls per decode step) of every GEMV a decode step sends
-    through the dispatcher outside the routed experts: the fused QKV and
-    gate+up programs (an MoE layer's shared experts), down, the head."""
+    through the dispatcher outside the routed experts: the fused QKV
+    program, the fused gate+up program of a gated FFN (an MoE layer's
+    shared experts) or an ungated FFN's up, down, the head."""
     d, L = cfg.d_model, cfg.n_layers
     ff = cfg.d_ff if cfg.moe is None else cfg.moe.n_shared * cfg.moe.d_expert
+    ffn = ({"gate_up": (2 * ff, d, L)} if cfg.act in GATED
+           else {"up": (ff, d, L)})
     return {"qkv": ((cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd, d, L),
-            "gate_up": (2 * ff, d, L), "down": (d, ff, L),
-            "head": (cfg.vocab, d, 1)}
+            **ffn, "down": (d, ff, L), "head": (cfg.vocab, d, 1)}
 
 
 def launches_per_step(cfg, policy, batch: int, backend: str,
@@ -1386,12 +1420,16 @@ def counted_batches(route: str, batches: list[int]) -> list[int]:
 
 
 def run_engine(cfg, params, dev, kv_store: str = "fp", *,
-               backend: str = "h100", new_tokens: int = 64) -> dict:
+               backend: str = "h100", new_tokens: int = 64,
+               lengths=ENGINE_LENGTHS, max_len: int = 1024,
+               ttft: bool = True) -> dict:
     """The engine phase both ways: with replayed graphs (the main path,
     whose counters the kernels line reports) and under
     ``disable_graphs()``; greedy tokens must be equal, and the replayed
-    step must run the eager step's port kernels."""
-    kw = dict(gemv_backend=backend)
+    step must run the eager step's port kernels.  ``lengths`` are the
+    prompts of the 8 requests, ``max_len`` the engine's cache;
+    ``ttft`` adds the TTFT comparison of the prefill scores."""
+    kw = dict(gemv_backend=backend, max_len=max_len)
     # warm-up: first calls of every op and both decode buckets
     warm = serve(cfg, params, dev, [16, 40, 24, 8, 64, 32, 12, 20], 3, 1,
                  kv_store, **kw)
@@ -1401,7 +1439,7 @@ def run_engine(cfg, params, dev, kv_store: str = "fp", *,
     for route in ROUTES:
         with route_ctx(route):
             routes[route] = run_route(cfg, params, dev, kv_store, backend,
-                                      new_tokens, route)
+                                      new_tokens, route, lengths, max_len)
     if routes["graph"]["generated"] != routes["eager"]["generated"]:
         raise AssertionError(
             f"greedy tokens differ between the graph and eager routes: "
@@ -1409,21 +1447,21 @@ def run_engine(cfg, params, dev, kv_store: str = "fp", *,
     res = {**routes["graph"], "routes": routes,
            "replay": compare_replay(routes["graph"]["profile"],
                                     routes["eager"]["profile"], cfg)}
-    if backend == "h100":
+    if backend == "h100" and ttft:
         res["prefill_scores"] = ttft_both_ways(cfg, params, dev, kv_store)
     return res
 
 
 def run_route(cfg, params, dev, kv_store: str, backend: str,
-              new_tokens: int, route: str) -> dict:
-    kw = dict(gemv_backend=backend)
+              new_tokens: int, route: str, lengths=ENGINE_LENGTHS,
+              max_len: int = 1024) -> dict:
+    kw = dict(gemv_backend=backend, max_len=max_len)
     # an engine whose sampler check_finite_logits wrapped sits in a
     # reference cycle: collect it, or its state counts in the next peak
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
 
-    lengths = ENGINE_LENGTHS
     eng = serve(cfg, params, dev, lengths, new_tokens, SEED, kv_store, **kw)
     seen = check_finite_logits(eng)
     dispatch.clear_plan_cache()
@@ -1478,7 +1516,9 @@ def run_route(cfg, params, dev, kv_store: str, backend: str,
                 f"{3 * cfg.n_layers * len(batches)}); program modes {modes}")
     if backend == "h100" and cfg.moe is None and kv_store == "fp":
         # every decode step launches pim_gemv and splitk_gemv as often as
-        # the h100 picks for its GEMVs predict: olmo-1b, 17 and 32
+        # the h100 picks for its GEMVs predict: olmo-1b, 17 and 32 (a
+        # GEMV the backend keeps on torch.matmul, picked "ref", counts
+        # for neither)
         per_batch = {b: {n: launches_per_step(cfg, eng.gemv_policy, b,
                                               "h100", k)[0]
                          for n, k in (("pim_gemv", "pim"),
@@ -1586,11 +1626,15 @@ def ttft_both_ways(cfg, params, dev, kv_store: str) -> dict:
     return {"ttft_p50_ms": ttft, "tokens_equal": True}
 
 
-def logits_check(cfg, params, dev) -> dict:
+def logits_check(cfg, params, dev,
+                 lengths=(300, 40, 130, 7, 512, 64, 250, 90),
+                 max_len: int = 1024, strict: bool = True) -> dict:
     """One decode step of one engine state, twice: through the dispatcher
-    (the GEMV kernels) and with every GEMV pinned to ``ref``."""
-    eng = serve(cfg, params, dev, [300, 40, 130, 7, 512, 64, 250, 90], 4,
-                SEED + 2)
+    (the GEMV kernels) and with every GEMV pinned to ``ref``.  ``strict``
+    holds the logits to one bf16 ulp at the largest (olmo-1b's 16 layers);
+    otherwise the difference is reported in those ulps."""
+    eng = serve(cfg, params, dev, list(lengths), 4, SEED + 2,
+                max_len=max_len)
     eng.step()                           # prefill + one decode step
     b = eng.decode_bucket()
     last = torch.from_numpy(eng.last_tok[:b]).to(dev)
@@ -1618,10 +1662,10 @@ def logits_check(cfg, params, dev) -> dict:
     # largest logit (bf16 keeps 8 significant bits).
     tol = 2.0 ** (math.floor(math.log2(absmax)) - 7)
     res = {"batch": b, "max_abs_diff": diff, "tolerance": tol,
-           "logit_absmax": absmax,
+           "diff_in_ulps": diff / tol, "logit_absmax": absmax,
            "argmax_agree": int((lk.argmax(-1) == lr.argmax(-1)).sum()),
            "launches": nk}
-    if diff > tol:
+    if strict and diff > tol:
         raise AssertionError(f"logits differ by {diff} > {tol}")
     return res
 
@@ -2592,6 +2636,222 @@ def run_grouped_route(cfg, params, dev, route: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the dense families: minitron-8b, gemma3-1b and gemma3-27b
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("minitron-8b", "gemma3-1b", "gemma3-27b")
+# gemma3-27b's 62 layers of bf16 weights (54 GB) and their prepacked
+# copies do not fit the card's 80 GB: full width, its first 12 layers
+# (layers 5 and 11 global)
+FAMILY_DEPTH = {"gemma3-27b": 12}
+FAMILY_BATCHES = (1, 8)
+FAMILY_MAX_LEN = 2048
+# 8 prompts of 64 to 1536 tokens, three longer than the 1024-position
+# window of gemma3's local layers
+FAMILY_LENGTHS = [64, 1536, 300, 1100, 700, 1300, 128, 900]
+FAMILY_TOKENS = 32
+FAMILY_WINDOWS = (1024, 0)      # a local layer's window, a global layer's
+
+
+def family_config(arch: str):
+    cfg = get_config(arch)
+    depth = FAMILY_DEPTH.get(arch)
+    return dataclasses.replace(cfg, n_layers=depth) if depth else cfg
+
+
+def layer_windows(cfg) -> dict[int, int]:
+    """{window: layers} of the config's layer stack (0: a global layer)."""
+    return dict(collections.Counter(lm.layer_window(cfg, i)
+                                    for i in range(cfg.n_layers)))
+
+
+def family_gemv_shapes(cfg) -> dict[str, tuple[int, int, int]]:
+    """{site: (K, M, calls a decode step)} of the config's decode GEMVs."""
+    return {n: (K, M, calls) for n, (M, K, calls)
+            in decode_sites(cfg).items()}
+
+
+def check_family_attention(dev, cfg) -> list[dict]:
+    """decode_attention at the family's decode shape (8 slots of a
+    2048-position cache, its kv heads, G and head dim) with a window of
+    1024 and with none: rows shorter than, at and longer than the window,
+    the whole cache, and idle slots past the end (one inside its last
+    window, one past C + window - 1: every score masked), against the
+    plain version at every split count; int8 / int4 pages bit-identical to
+    the fp kernel on ``dequantize_page``'s tensor; the two windows must
+    differ on a row longer than 1024.  Then timed per window on a mid-run
+    step's lengths (prompts + 16) beside its bound (the positions inside
+    the window), the plain version and ``scaled_dot_product_attention``
+    (a boolean mask of the same positions, ``enable_gqa``).  ``per_step``
+    is the layers of the engine's config with that window."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 91)
+    B, C = ATTN_SLOTS, FAMILY_MAX_LEN
+    Hkv, D, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
+    G = H // Hkv
+    splits = plan_splits(B, Hkv, C, G, D,
+                         torch.cuda.get_device_properties(dev)
+                         .multi_processor_count)
+    counts = sorted({splits, 1, 2, 4, 8})
+
+    def cache():
+        return torch.randn((B, C, Hkv, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    k0, v0 = cache(), cache()
+    q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    qpos = torch.tensor([63, 1023, 1535, C - 1, 299, 1100, C + 500,
+                         C + 1100], dtype=torch.int32, device=dev)
+    valid = qpos + 1
+    atol = 2.0**-8 * v0.float().abs().max().item()
+    errs, outs = {}, {}
+    for window in FAMILY_WINDOWS:
+        args = dict(q_positions=qpos[:, None], kv_valid_len=valid,
+                    window=window)
+        want = decode_attention_plain(q, k0, v0, **args)
+        for n_split in counts:
+            out = decode_attention(q, k0, v0, splits=n_split, **args)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs()
+            bad = err > atol + ATTN_RTOL * want.float().abs()
+            if not torch.isfinite(out.float()).all() or bad.any():
+                raise AssertionError(
+                    f"decode_attention {cfg.name} window={window} "
+                    f"splits={n_split}: {int(bad.sum())} elements off its "
+                    f"plain version (max abs err {err.max().item():.3e})")
+            errs[f"w{window}/s{n_split}"] = err.max().item()
+        outs[window] = out
+        for bits in (8, 4):
+            (kc, kscale), (vc, vscale) = (quantize_page(k0, bits),
+                                          quantize_page(v0, bits))
+            kf = dequantize_page(kc, kscale, hd=D, out_dtype=torch.bfloat16)
+            vf = dequantize_page(vc, vscale, hd=D, out_dtype=torch.bfloat16)
+            for n_split in counts:
+                got = decode_attention(q, kc, vc, splits=n_split,
+                                       k_scale=kscale, v_scale=vscale,
+                                       **args)
+                if not torch.equal(got, decode_attention(
+                        q, kf, vf, splits=n_split, **args)):
+                    raise AssertionError(
+                        f"decode_attention {cfg.name} int{bits} window="
+                        f"{window} splits={n_split}: differs from the fp "
+                        f"kernel on the dequantized pages")
+    if torch.equal(outs[1024][2], outs[0][2]):
+        raise AssertionError(f"decode_attention {cfg.name}: window 1024 and "
+                             f"no window agree on a row of 1536 positions")
+    del k0, v0
+    log(f"  decode_attention {cfg.name}: B={B} C={C} Hkv={Hkv} G={G} D={D}:"
+        f" windows {FAMILY_WINDOWS} against the plain version at splits "
+        f"{counts} (max err {max(errs.values()):.2e}), idle slots past "
+        f"the end (one past C + window - 1), int8 / int4 pages "
+        f"bit-identical to the fp kernel; window 1024 and 0 differ on a "
+        f"row of 1536 positions")
+
+    lengths = [n + FAMILY_TOKENS // 2 for n in FAMILY_LENGTHS]
+    tvalid = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    tpos = (tvalid - 1).long()[:, None]
+    kpos = torch.arange(C, device=dev)[None, :]
+    per_window = layer_windows(cfg)
+    rows = []
+    for window in FAMILY_WINDOWS:
+        inside = [min(n, window) if window else n for n in lengths]
+        bound = attention_bound(inside, B, H, Hkv, D)
+        n_copies = max(2, math.ceil(2 * L2_BYTES
+                                    / (bound["bytes_ms"] * HBM_BYTES_PER_S
+                                       / 1e3)) + 1)
+        ks = [cache() for _ in range(n_copies)]
+        vs = [cache() for _ in range(n_copies)]
+        mask = kpos < tvalid[:, None]
+        if window:
+            mask &= kpos >= tvalid[:, None] - window
+        mask = mask[:, None, None, :]
+
+        def run(i, window=window):
+            decode_attention(q, ks[i % n_copies], vs[i % n_copies],
+                             q_positions=tpos, kv_valid_len=tvalid,
+                             window=window)
+
+        def run_plain(i, window=window):
+            decode_attention_plain(q, ks[i % n_copies], vs[i % n_copies],
+                                   q_positions=tpos, kv_valid_len=tvalid,
+                                   window=window)
+
+        def run_lib(i, mask=mask):
+            F.scaled_dot_product_attention(
+                q.transpose(1, 2), ks[i % n_copies].transpose(1, 2),
+                vs[i % n_copies].transpose(1, 2), attn_mask=mask,
+                enable_gqa=G > 1)
+
+        row = dict(kernel="decode_attention", arch=cfg.name,
+                   shape=f"{cfg.name}/w{window}", store="fp", B=B, C=C,
+                   Hkv=Hkv, H=H, G=G, D=D, window=window, valid=lengths,
+                   positions_read=sum(inside), splits=splits,
+                   per_step=per_window.get(window, 0),
+                   max_abs_err=max(errs.values()), errs=errs,
+                   ms=graph_ms(run, 100), plain_ms=graph_ms(run_plain, 20),
+                   library_ms=graph_ms(run_lib, 100), **bound)
+        row["hbm_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        log(f"  decode_attention {cfg.name} window={window}: "
+            f"{sum(inside)} positions read, ms={row['ms']:.4f} "
+            f"bound={row['bound_ms']:.4f} ({row['hbm_share']:.0%}) "
+            f"plain={row['plain_ms']:.4f} sdpa={row['library_ms']:.4f}; "
+            f"{row['per_step']} layers a step")
+        del ks, vs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_families(dev) -> dict:
+    """Each family at full width (gemma3-27b at 12 layers) through
+    ``Engine(batch_slots=8, max_len=2048)``, both routes, then one decode
+    step through the kernels and through ``kernel="ref"``; each family's
+    weights are freed before the next family's are drawn."""
+    out = {}
+    for arch in FAMILIES:
+        cfg = family_config(arch)
+        cut = (f" (cut from {get_config(arch).n_layers})"
+               if arch in FAMILY_DEPTH else "")
+        log(f"[families engine] {arch}: {cfg.n_layers} layers{cut}, "
+            f"d={cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv "
+            f"heads of {cfg.hd}, d_ff={cfg.d_ff}, {cfg.act}, "
+            f"{cfg.norm_type}, windows {layer_windows(cfg)}, bf16, seed "
+            f"{SEED}")
+        t0 = time.perf_counter()
+        params = lm.init_lm(cfg, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        log(f"  init {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
+        res = run_engine(cfg, params, dev, new_tokens=FAMILY_TOKENS,
+                         lengths=FAMILY_LENGTHS, max_len=FAMILY_MAX_LEN,
+                         ttft=False)
+        log_routes(arch, res)
+        pt = res["per_token_ms"]
+        log(f"  [{arch}] requests {res['requests']}, tokens "
+            f"{res['tokens']}, per-token p50 {pt['p50']:.2f} ms p90 "
+            f"{pt['p90']:.2f} ms, TTFT p50 {res['ttft_ms']['p50']:.1f} ms, "
+            f"peak {res['peak_mem_gb']:.2f} GB; launches per decode step "
+            f"(eager) {res['routes']['eager']['launches_per_step']}, as "
+            f"the picks predict {res['float_launches_by_batch']}")
+        res["logits"] = logits_check(cfg, params, dev, FAMILY_LENGTHS,
+                                     FAMILY_MAX_LEN, strict=False)
+        lg = res["logits"]
+        log(f"[families logits] {arch}: batch {lg['batch']}: max |kernels "
+            f"- ref| {lg['max_abs_diff']:.4f} ({lg['diff_in_ulps']:.1f} "
+            f"bf16 ulps at |logit| max {lg['logit_absmax']:.2f}); argmax "
+            f"agree {lg['argmax_agree']}/{lg['batch']}")
+        res["layers"], res["cut_from"] = cfg.n_layers, get_config(
+            arch).n_layers
+        out[arch] = res
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_autotune(dev) -> dict:
     """Tune every olmo-1b decode GEMV at batch 8 and two programs (fused
     QKV; deepseek-moe-16b's ragged gate/up experts, top-6 of 8 tokens) on
@@ -2883,7 +3143,7 @@ def kernels_line(rows: list[dict], launch_counts: dict,
         if name == "ragged_gemv":
             return r["routing"] == "top6_b8"
         if name == "decode_attention":
-            return r["store"] == "fp"
+            return r["store"] == "fp" and r["shape"] == "engine"
         if name == "grouped_gemv":
             return True
         return r["B"] == 8 and r["shape"] in picks[name]
@@ -3161,6 +3421,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    t_fam = time.perf_counter()
+    log(f"[families kernels] pim_gemv and splitk_gemv at every decode GEMV "
+        f"shape of {', '.join(FAMILIES)} at B {FAMILY_BATCHES} (rtol 2^-7, "
+        f"atol 1e-3), timed; decode_attention at each family's shape with "
+        f"windows {FAMILY_WINDOWS}")
+    for arch in FAMILIES:
+        fcfg = family_config(arch)
+        rows += check_kernels(dev, family_gemv_shapes(fcfg), FAMILY_BATCHES,
+                              arch)
+        rows += check_family_attention(dev, fcfg)
+    families = run_families(dev)
+    families_s = time.perf_counter() - t_fam
+    log(f"[families] {families_s:.1f} s")
+
     log(f"[autotune] olmo-1b's decode GEMVs at batch 8, a fused QKV and a "
         f"ragged expert program, on h100 and gpu, into {AUTOTUNE_TABLE}")
     autotune = run_autotune(dev)
@@ -3199,7 +3473,7 @@ def main() -> int:
         engine=engine, logits=logits,
         quant_dispatch=quant, kv=kv, moe_engine=moe, moe_logits=moe_logits,
         moe_grouped=grouped, gpu_engine=gpu, moe_gpu=moe_gpu,
-        serving=serving,
+        serving=serving, families=families, families_s=families_s,
         autotune=autotune, kernels=line["kernels"],
         total_s=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,1 +1,1 @@
-"""Model configurations of the port (olmo-1b in this slice)."""
+"""Model configurations of the port."""

@@ -1,7 +1,8 @@
 """Model configuration (the dense and MoE decoders the port runs).
 
 Counterpart of ``repro/configs/base.py``: the same field names and
-defaults for what a dense or MoE decoder needs, ``hd`` and ``reduced()``.
+defaults for what a dense or MoE decoder needs (sliding-window attention
+included), ``hd``, ``is_global_layer`` and ``reduced()``.
 """
 
 from __future__ import annotations
@@ -31,10 +32,12 @@ class ModelConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0            # 0 -> d_model // n_heads
-    attn_pattern: str = "full"
+    attn_pattern: str = "full"   # full | local_global
+    sliding_window: int = 1024
+    global_every: int = 0        # local_global: layer i is global if i % N == N-1
     rope_theta: float = 10_000.0
     norm_type: str = "rmsnorm"   # rmsnorm | layernorm | nonparametric_ln
-    act: str = "silu"            # silu (swiglu)
+    act: str = "silu"            # silu (swiglu) | geglu | gelu | relu2
     tie_embeddings: bool = True
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
@@ -45,6 +48,11 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    def is_global_layer(self, i: int) -> bool:
+        if self.attn_pattern != "local_global" or self.global_every <= 0:
+            return self.attn_pattern == "full"
+        return i % self.global_every == self.global_every - 1
 
     def reduced(self) -> "ModelConfig":
         """Small same-family config for CPU tests (the JAX package's
@@ -66,6 +74,8 @@ class ModelConfig:
             head_dim=16,
             d_ff=128,
             vocab=256,
+            sliding_window=8,
+            global_every=self.global_every if self.global_every <= 4 else 2,
             moe=mo,
             max_seq_len=128,
             param_dtype="float32",

@@ -1,12 +1,21 @@
-"""--arch registry: id -> ModelConfig (olmo-1b and deepseek-moe-16b)."""
+"""--arch registry: id -> ModelConfig (the dense and MoE configs ported so
+far)."""
 
 from __future__ import annotations
 
-from repro_torch.configs import deepseek_moe_16b, olmo_1b
+from repro_torch.configs import (
+    deepseek_moe_16b,
+    gemma3_1b,
+    gemma3_27b,
+    minitron_8b,
+    olmo_1b,
+)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
-    c.name: c for c in (olmo_1b.CONFIG, deepseek_moe_16b.CONFIG)}
+    c.name: c for c in (olmo_1b.CONFIG, deepseek_moe_16b.CONFIG,
+                        minitron_8b.CONFIG, gemma3_1b.CONFIG,
+                        gemma3_27b.CONFIG)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -6,15 +6,19 @@
 // no Pallas kernel): for slot b, kv head h and each of its G query heads,
 //
 //   s[p]   = (q . k[b, p, h]) / sqrt(D)       bf16 x bf16 products, f32 sum
-//            for p < n = min(q_position + 1, kv_valid_len, C)
+//            for start <= p < n,  n = min(q_position + 1, kv_valid_len, C),
+//            start = max(0, q_position - window + 1) (0 when window is 0)
 //   prob   = softmax(s) in f32, rounded to v's type
 //   out    = sum_p prob[p] * v[b, p, h]      f32 sum, rounded once
 //
-// The reference masks p >= n with a score of -2e9; exp(-2e9 - max) is 0
-// in f32, so walking only p < n changes nothing.  When n is 0 (every
-// score masked) the reference's softmax is uniform over all C positions,
-// and so is this kernel's.  Lengths are clamped to [0, C]: an idle slot of
-// the decode bucket carries an offset past the end and reads C positions.
+// The reference masks every other p with a score of -2e9; exp(-2e9 - max)
+// is 0 in f32, so walking only [start, n) changes nothing.  When start >= n
+// (every score masked) the reference's softmax is uniform over all C
+// positions, and so is this kernel's.  Lengths are clamped to [0, C]: an
+// idle slot of the decode bucket carries an offset past the end and reads
+// its last window of positions, or, past C + window - 1, none.  A sliding
+// window (a local layer's) only moves the start: a split never holds more
+// than ceil(C / splits) positions, so shared memory does not depend on it.
 //
 // Bound on this card: each K and V element of the n valid positions feeds
 // 2 * G flops, far below the ~295 flops/byte where an H100 stops being
@@ -34,8 +38,8 @@
 // copy of the cache.
 //
 // Design: one CTA (4 warps) per (slot, kv head, split); the `splits` CTAs
-// of a (slot, kv head) divide its n positions evenly and form one thread
-// block cluster.  A position's D elements are read by D / V lanes as
+// of a (slot, kv head) divide its positions [start, n) evenly and form one
+// thread block cluster.  A position's D elements are read by D / V lanes as
 // 16-byte vectors (V = 8 bf16 or 4 f32), a warp covers 32 V / D positions
 // a step and each thread keeps kUnroll vectors in flight; K and V are read
 // in place through their strides (a slot-prefix view of the cache runs
@@ -201,6 +205,7 @@ struct Args {
   long long qpos_stride, vlen_stride;
   int qpos_bytes, vlen_bytes;
   int C, Hkv, D, splits, cap;  // cap: positions one split holds at most
+  int window;                  // sliding window, 0: no limit
   int stage;                   // V rows staged at a time
   long long q_sb, k_sb, k_sp, k_sh, v_sb, v_sp, v_sh;
   long long ks_sb, ks_sp, ks_sh, vs_sb, vs_sp, vs_sh;
@@ -349,16 +354,20 @@ decode_attention_kernel(const Args a) {
   const int lp = lane % LP, pw = lane / LP;
   const int d0 = lp * V;
 
-  // the positions the reference does not mask, clamped to [0, C]
-  long long n = load_index(a.qpos, a.qpos_stride, a.qpos_bytes, b) + 1;
+  // the positions the reference does not mask, [start, n), clamped to
+  // [0, C]
+  const long long qp = load_index(a.qpos, a.qpos_stride, a.qpos_bytes, b);
+  long long n = qp + 1;
   if (a.vlen_bytes)
     n = min(n, load_index(a.vlen, a.vlen_stride, a.vlen_bytes, b));
   n = max(0LL, min(n, static_cast<long long>(a.C)));
-  const bool none = n == 0;          // all masked: uniform over C
-  const int cnt = none ? a.C : static_cast<int>(n);
+  const long long start = a.window > 0 ? max(0LL, qp - a.window + 1) : 0LL;
+  const bool none = start >= n;      // all masked: uniform over C
+  const int first = none ? 0 : static_cast<int>(start);
+  const int cnt = none ? a.C : static_cast<int>(n - start);
   const int per = (cnt + a.splits - 1) / a.splits;
-  const int lo = min(cnt, rank * per);
-  const int hi = min(cnt, lo + per);
+  const int lo = first + min(cnt, rank * per);
+  const int hi = first + min(cnt, rank * per + per);
 
   const E* kb = static_cast<const E*>(a.k) + b * a.k_sb + h * a.k_sh
                 + d0 / kPerByte;
@@ -367,8 +376,13 @@ decode_attention_kernel(const Args a) {
   // 0. start the copies of the first chunk of V rows
   stage_v<T, S>(a, b, h, vst, vsc, lo, min(hi, lo + a.stage));
 
-  // 1. scores of positions [lo, hi)
-  {
+  // 1. scores of positions [lo, hi); every one masked when none (a branch
+  // uniform over the CTA, kept out of the walk)
+  if (none) {
+    for (int i = tid; i < hi - lo; i += kThreads)
+#pragma unroll
+      for (int g = 0; g < G; ++g) sc[g * a.cap + i] = kBigNeg;
+  } else {
     float qf[G][V];
     const T* qb = static_cast<const T*>(a.q) + b * a.q_sb
                   + static_cast<long long>(h) * G * a.D + d0;
@@ -385,7 +399,7 @@ decode_attention_kernel(const Args a) {
         const int p = base + u * step + pw;
         raw[u] = make_uint4(0u, 0u, 0u, 0u);
         ps[u] = 0.f;
-        if (p < hi && !none) {
+        if (p < hi) {
           raw[u] = load_lane<kLaneBytes>(kb + p * a.k_sp);
           if constexpr (S != 0) ps[u] = ksb[p * a.ks_sp];
         }
@@ -409,7 +423,7 @@ decode_attention_kernel(const Args a) {
         if (lp == 0 && p < hi)
 #pragma unroll
           for (int g = 0; g < G; ++g)
-            sc[g * a.cap + p - lo] = none ? kBigNeg : s[g] / a.scale;
+            sc[g * a.cap + p - lo] = s[g] / a.scale;
       }
     }
   }
@@ -594,7 +608,7 @@ bool launchable(const Args& a, int B, int G) {
          && row_bytes(a.D, sizeof(T), S ? S : 16) % kLaneBytes == 0
          && (G == 1 || G == 2 || G == 4 || G == 8)
          && (a.splits == 1 || a.splits == 2 || a.splits == 4
-             || a.splits == kMaxSplits)
+             || a.splits == kMaxSplits) && a.window >= 0
          && static_cast<long long>(a.cap) * a.splits >= a.C
          && B * a.Hkv <= 65535 && (a.qpos_bytes == 4 || a.qpos_bytes == 8)
          && (a.vlen_bytes == 0 || a.vlen_bytes == 4 || a.vlen_bytes == 8)
@@ -623,7 +637,7 @@ int entry(const void* q, const void* k, const void* v, const void* k_scale,
           int D, long long q_sb, long long k_sb, long long k_sp,
           long long k_sh, long long v_sb, long long v_sp, long long v_sh,
           long long ks_sb, long long ks_sp, long long ks_sh, long long vs_sb,
-          long long vs_sp, long long vs_sh, int bits, int splits,
+          long long vs_sp, long long vs_sh, int bits, int window, int splits,
           float scale, void* stream) {
   Args a;
   a.q = q;
@@ -642,6 +656,7 @@ int entry(const void* q, const void* k, const void* v, const void* k_scale,
   a.Hkv = Hkv;
   a.D = D;
   a.splits = splits;
+  a.window = window;
   a.cap = splits > 0 ? (C + splits - 1) / splits : 0;
   a.stage = splits > 0 ? stage_positions(D, C, splits, sizeof(T), bits) : 0;
   a.q_sb = q_sb;
@@ -670,10 +685,10 @@ int entry(const void* q, const void* k, const void* v, const void* k_scale,
 
 // (q, k, v, out, qpos, qpos_stride, qpos_bytes, vlen, vlen_stride,
 // vlen_bytes, B, C, Hkv, G, D, q_sb, k_sb, k_sp, k_sh, v_sb, v_sp, v_sh,
-// splits, scale, stream): q [B, H = Hkv * G, D] (heads contiguous, slots
-// q_sb apart), k / v [B, C, Hkv, D] by their strides, out a contiguous
-// [B, H, D]; qpos / vlen int32 or int64 per slot (vlen_bytes 0: none),
-// strides in elements; scale = sqrt(D).
+// window, splits, scale, stream): q [B, H = Hkv * G, D] (heads contiguous,
+// slots q_sb apart), k / v [B, C, Hkv, D] by their strides, out a
+// contiguous [B, H, D]; qpos / vlen int32 or int64 per slot (vlen_bytes 0:
+// none), strides in elements; window 0 for no limit; scale = sqrt(D).
 #define FP_ENTRY(NAME, T)                                                    \
   extern "C" int NAME(                                                       \
       const void* q, const void* k, const void* v, void* out,                \
@@ -681,11 +696,11 @@ int entry(const void* q, const void* k, const void* v, const void* k_scale,
       const void* vlen, long long vlen_stride, int vlen_bytes, int B, int C, \
       int Hkv, int G, int D, long long q_sb, long long k_sb, long long k_sp, \
       long long k_sh, long long v_sb, long long v_sp, long long v_sh,        \
-      int splits, float scale, void* stream) {                               \
+      int window, int splits, float scale, void* stream) {                   \
     return entry<T>(q, k, v, nullptr, nullptr, out, qpos, qpos_stride,       \
                     qpos_bytes, vlen, vlen_stride, vlen_bytes, B, C, Hkv, G, \
                     D, q_sb, k_sb, k_sp, k_sh, v_sb, v_sp, v_sh, 0, 0, 0, 0, \
-                    0, 0, 16, splits, scale, stream);                        \
+                    0, 0, 16, window, splits, scale, stream);                \
   }
 
 FP_ENTRY(decode_attention_bf16, bf16)
@@ -694,9 +709,10 @@ FP_ENTRY(decode_attention_f32, float)
 // Quantized pages: (q, k, v, k_scale, v_scale, out, qpos, qpos_stride,
 // qpos_bytes, vlen, vlen_stride, vlen_bytes, B, C, Hkv, G, D, q_sb, k_sb,
 // k_sp, k_sh, v_sb, v_sp, v_sh, ks_sb, ks_sp, ks_sh, vs_sb, vs_sp, vs_sh,
-// bits, splits, scale, stream): k / v int8 codes [B, C, Hkv, D] (bits 8)
-// or packed int4 [B, C, Hkv, D / 2] (bits 4), strides in bytes; scales f32
-// [B, C, Hkv], strides in floats; q and out as above, in x's type.
+// bits, window, splits, scale, stream): k / v int8 codes [B, C, Hkv, D]
+// (bits 8) or packed int4 [B, C, Hkv, D / 2] (bits 4), strides in bytes;
+// scales f32 [B, C, Hkv], strides in floats; q and out as above, in x's
+// type.
 #define QUANT_ENTRY(NAME, T)                                                 \
   extern "C" int NAME(                                                       \
       const void* q, const void* k, const void* v, const void* k_scale,      \
@@ -706,14 +722,15 @@ FP_ENTRY(decode_attention_f32, float)
       int D, long long q_sb, long long k_sb, long long k_sp, long long k_sh, \
       long long v_sb, long long v_sp, long long v_sh, long long ks_sb,       \
       long long ks_sp, long long ks_sh, long long vs_sb, long long vs_sp,    \
-      long long vs_sh, int bits, int splits, float scale, void* stream) {    \
+      long long vs_sh, int bits, int window, int splits, float scale,        \
+      void* stream) {                                                        \
     if (bits != 8 && bits != 4)                                              \
       return static_cast<int>(cudaErrorInvalidValue);                        \
     return entry<T>(q, k, v, k_scale, v_scale, out, qpos, qpos_stride,       \
                     qpos_bytes, vlen, vlen_stride, vlen_bytes, B, C, Hkv, G, \
                     D, q_sb, k_sb, k_sp, k_sh, v_sb, v_sp, v_sh, ks_sb,      \
-                    ks_sp, ks_sh, vs_sb, vs_sp, vs_sh, bits, splits, scale,  \
-                    stream);                                                 \
+                    ks_sp, ks_sh, vs_sb, vs_sp, vs_sh, bits, window, splits, \
+                    scale, stream);                                          \
   }
 
 QUANT_ENTRY(decode_attention_quant_bf16, bf16)

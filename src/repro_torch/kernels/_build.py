@@ -47,10 +47,10 @@ _F = ctypes.c_float
 # ldw / lds are row strides and es / x_es expert strides, in elements;
 # and decode attention's (q, k, v, out,
 # qpos, qpos_stride, qpos_bytes, vlen, vlen_stride, vlen_bytes, B, C, Hkv,
-# G, D, q_sb, k_sb, k_sp, k_sh, v_sb, v_sp, v_sh, splits, scale, stream),
-# its quantized-page form (q, k, v, k_scale, v_scale, out, qpos, ...,
-# v_sh, ks_sb, ks_sp, ks_sh, vs_sb, vs_sp, vs_sh, bits, splits, scale,
-# stream), beside (G, D, C, splits, elem_bytes, bits) for its shared
+# G, D, q_sb, k_sb, k_sp, k_sh, v_sb, v_sp, v_sh, window, splits, scale,
+# stream), its quantized-page form (q, k, v, k_scale, v_scale, out, qpos,
+# ..., v_sh, ks_sb, ks_sp, ks_sh, vs_sb, vs_sp, vs_sh, bits, window,
+# splits, scale, stream), beside (G, D, C, splits, elem_bytes, bits) for its shared
 # memory.  Every entry
 # returns an int (a CUDA error) unless _RESTYPES names another type.
 _SIGNATURES = {
@@ -82,11 +82,12 @@ _SIGNATURES = {
     "decode_attention": {
         **{f"decode_attention_{t}": (_P, _P, _P, _P, _P, _L, _I, _P, _L, _I,
                                      _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
-                                     _L, _L, _I, _F, _P)
+                                     _L, _L, _I, _I, _F, _P)
            for t in ("bf16", "f32")},
         **{f"decode_attention_quant_{t}": (_P, _P, _P, _P, _P, _P, _P, _L,
                                            _I, _P, _L, _I, _I, _I, _I, _I,
-                                           _I, *(_L,) * 13, _I, _I, _F, _P)
+                                           _I, *(_L,) * 13, _I, _I, _I, _F,
+                                           _P)
            for t in ("bf16", "f32")},
         "decode_attention_smem_bytes": (_I, _I, _I, _I, _I, _I),
     },

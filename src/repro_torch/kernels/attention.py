@@ -4,7 +4,8 @@ Computes what the reference's ``repro/models/layers.py::attention_core``
 computes (it has no Pallas kernel: XLA runs it as einsums): for q
 ``[B, Sq, H, D]`` and a GQA cache k / v ``[B, C, Hkv, D]``, scores are the
 f32 sums of bf16 (or f32) products over ``sqrt(D)``; masked scores (past
-``q_position``, or past ``kv_valid_len``) are ``BIG_NEG``; the softmax is
+``q_position``, past ``kv_valid_len``, or, under a sliding ``window``,
+before ``q_position - window + 1``) are ``BIG_NEG``; the softmax is
 f32, its probabilities cast to ``v.dtype`` before the P.V product, which
 sums in f32 and rounds once.
 
@@ -64,7 +65,8 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *,
                            q_positions: torch.Tensor | None,
                            kv_valid_len: torch.Tensor | None,
-                           causal: bool = True) -> torch.Tensor:
+                           causal: bool = True,
+                           window: int = 0) -> torch.Tensor:
     """q [B, Sq, H, D], k/v [B, Sk, Hkv, D] -> [B, Sq, H, D] in plain PyTorch.
 
     Scores are the f32 product of the (bf16) operands over sqrt(D), as
@@ -73,6 +75,8 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     which has no CPU kernel); elsewhere the operands are cast to f32,
     which makes the products exact.  Masked scores are ``BIG_NEG`` (not
     -inf); the probabilities are cast to ``v.dtype`` before the PV product.
+    A causal call with ``window > 0`` also masks the positions before
+    ``q_position - (window - 1)`` (a local layer's sliding window).
     """
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -90,6 +94,9 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     mask = torch.ones((B, Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= kpos[None, None, :] <= q_positions[:, :, None]
+        if window > 0:
+            mask &= kpos[None, None, :] >= q_positions[:, :, None] - (
+                window - 1)
     if kv_valid_len is not None:
         vl = kv_valid_len
         vl = vl[:, None, None] if vl.ndim == 1 else vl
@@ -258,11 +265,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      kv_valid_len: torch.Tensor | None,
                      splits: int | None = None,
                      k_scale: torch.Tensor | None = None,
-                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                     v_scale: torch.Tensor | None = None,
+                     window: int = 0) -> torch.Tensor:
     """q [B, 1, H, D], k/v [B, C, Hkv, D] -> [B, 1, H, D], causal, one
     launch.  ``q_positions`` is [B, 1] (or [B]) and ``kv_valid_len`` [B]
     or None, int32 or int64 on q's device (read on the device, never on
-    the host).  ``splits`` overrides :func:`plan_splits`.  With
+    the host).  ``window`` (a Python int, 0 for no limit) is a local
+    layer's sliding window: a slot attends to its last ``window``
+    positions.  ``splits`` overrides :func:`plan_splits`.  With
     ``k_scale`` / ``v_scale`` ([B, C, Hkv] f32) k / v are a quantized
     store's int8 codes (``[B, C, Hkv, D]``) or packed int4 codes
     (``[B, C, Hkv, D // 2]``); the plain version dequantizes them with
@@ -270,6 +280,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     why = _shape_rule(q, k, v, k_scale, v_scale)
     if why:
         raise ValueError(f"decode_attention: {why}")
+    if not 0 <= window < 2**31:
+        raise ValueError(f"decode_attention: window {window} is not a "
+                         f"count of positions")
     B, _, H, D = q.shape
     C, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -281,7 +294,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             k = dequantize_page(k, k_scale, hd=D, out_dtype=q.dtype)
             v = dequantize_page(v, v_scale, hd=D, out_dtype=q.dtype)
         return decode_attention_plain(q, k, v, q_positions=qpos[:, None],
-                                      kv_valid_len=kv_valid_len, causal=True)
+                                      kv_valid_len=kv_valid_len, causal=True,
+                                      window=window)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, not "
                          f"{q.device}")
@@ -310,12 +324,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             v.stride(0), v.stride(1), v.stride(2))
     if bits == 16:
         fn = getattr(lib, f"decode_attention_{DTYPES[q.dtype]}")
-        rc = fn(*head, out.data_ptr(), *tail, splits, math.sqrt(D), stream)
+        rc = fn(*head, out.data_ptr(), *tail, window, splits, math.sqrt(D),
+                stream)
     else:
         fn = getattr(lib, f"decode_attention_quant_{DTYPES[q.dtype]}")
         rc = fn(*head, k_scale.data_ptr(), v_scale.data_ptr(),
                 out.data_ptr(), *tail, *k_scale.stride(), *v_scale.stride(),
-                bits, splits, math.sqrt(D), stream)
+                bits, window, splits, math.sqrt(D), stream)
     _build.check(rc, "decode_attention")
     decode_attention.launches += 1
     return out

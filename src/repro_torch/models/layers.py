@@ -26,6 +26,9 @@ from repro_torch.kernels.backends.base import expert_batch_bound
 from repro_torch.kernels.kv_quant import dequantize_page, quantize_page
 
 
+GATED = ("silu", "geglu")   # activations with a gate projection
+
+
 def dense_init(generator: torch.Generator, fan_in: int, shape, dtype,
                device) -> torch.Tensor:
     """N(0, 1/fan_in) in f32, cast to ``dtype`` (``layers._dense_init``)."""
@@ -89,7 +92,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# Attention (GQA, causal)
+# Attention (GQA, causal, optionally over a sliding window)
 # --------------------------------------------------------------------------
 
 
@@ -110,7 +113,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    q_positions: torch.Tensor | None,
                    kv_valid_len: torch.Tensor | None,
                    causal: bool, k_scale: torch.Tensor | None = None,
-                   v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                   v_scale: torch.Tensor | None = None,
+                   window: int = 0) -> torch.Tensor:
     """q [B, Sq, H, D], k/v [B, Sk, Hkv, D] -> [B, Sq, H, D].
 
     One new token a slot on the card (the decode step) runs the
@@ -122,19 +126,23 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     a rule on shapes, strides and the device.  With ``k_scale`` /
     ``v_scale`` ([B, Sk, Hkv]) k / v are a quantized store's codes: the
     kernel reads them in place; the plain path dequantizes them to
-    ``q.dtype`` first (``dequantize_page``).
+    ``q.dtype`` first (``dequantize_page``).  ``window`` (a Python int, 0
+    for no limit) is a local layer's sliding window: a causal query at
+    position p attends to ``[p - window + 1, p]``, as the JAX package's
+    mask has it.
     """
     if kernel_applies(q, k, v, causal=causal, k_scale=k_scale,
                       v_scale=v_scale):
         return decode_attention(q, k, v, q_positions=q_positions,
                                 kv_valid_len=kv_valid_len, k_scale=k_scale,
-                                v_scale=v_scale)
+                                v_scale=v_scale, window=window)
     if k_scale is not None:
         hd = q.shape[-1]
         k = dequantize_page(k, k_scale, hd=hd, out_dtype=q.dtype)
         v = dequantize_page(v, v_scale, hd=hd, out_dtype=q.dtype)
     return decode_attention_plain(q, k, v, q_positions=q_positions,
-                                  kv_valid_len=kv_valid_len, causal=causal)
+                                  kv_valid_len=kv_valid_len, causal=causal,
+                                  window=window)
 
 
 def write_kv(cache: torch.Tensor, new: torch.Tensor,
@@ -162,8 +170,9 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     cache_pos: torch.Tensor | None = None,
                     cache_scales: tuple[torch.Tensor, torch.Tensor]
                     | None = None,
-                    gemv=None) -> torch.Tensor:
-    """Self-attention with an optional per-slot KV cache.
+                    gemv=None, window: int = 0) -> torch.Tensor:
+    """Self-attention with an optional per-slot KV cache, over the layer's
+    sliding ``window`` (0: no limit).
 
     ``cache_kv`` is ``([B, C, Hkv, D], [B, C, Hkv, D])``; the new K/V are
     written in place at each slot's ``cache_pos`` and attention runs over
@@ -220,10 +229,10 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             write_kv(cv, v, pos)
         out = attention_core(q, ck, cv, q_positions=positions,
                              kv_valid_len=pos + S, causal=True, k_scale=ks,
-                             v_scale=vs)
+                             v_scale=vs, window=window)
     else:
         out = attention_core(q, k, v, q_positions=positions,
-                             kv_valid_len=None, causal=True)
+                             kv_valid_len=None, causal=True, window=window)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
@@ -239,19 +248,35 @@ def init_mlp(generator, cfg: ModelConfig, dtype, device, *,
         "w_up": dense_init(generator, d, (d, f), dtype, device),
         "w_down": dense_init(generator, f, (f, d), dtype, device),
     }
-    if cfg.act == "silu":
+    if cfg.act in GATED:
         p["w_gate"] = dense_init(generator, d, (d, f), dtype, device)
     return p
 
 
+def activate(act: str, up: torch.Tensor,
+             gate: torch.Tensor | None = None) -> torch.Tensor:
+    """The FFN's hidden activation, as the JAX package computes it:
+    ``silu(gate) * up`` (swiglu), ``gelu(gate) * up`` (geglu),
+    ``gelu(up)`` or ``relu(up) ** 2`` (relu2).  ``jax.nn.gelu`` defaults
+    to the tanh approximation, and so does this."""
+    if act == "silu":
+        return F.silu(gate) * up
+    if act == "geglu":
+        return F.gelu(gate, approximate="tanh") * up
+    if act == "gelu":
+        return F.gelu(up, approximate="tanh")
+    if act == "relu2":
+        return torch.square(F.relu(up))
+    raise ValueError(f"unknown activation {act!r}")
+
+
 def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
               gemv=None) -> torch.Tensor:
-    """SwiGLU FFN.  With a ``gemv`` DispatchPolicy and a single-token input
-    the projections route through the GEMV dispatcher; gate and up share
-    their input, so they run as ONE fused program (the prepacked
-    ``w_gateup`` when present)."""
-    if cfg.act != "silu":
-        raise ValueError(f"activation {cfg.act!r} is not ported yet")
+    """The FFN (:func:`activate`).  With a ``gemv`` DispatchPolicy and a
+    single-token input the projections route through the GEMV dispatcher;
+    a gated FFN's gate and up share their input, so they run as ONE fused
+    program (the prepacked ``w_gateup`` when present); an ungated one
+    sends up and down as single requests."""
     decode_gemv = gemv is not None and x.shape[1] == 1
     if decode_gemv:
         from repro_torch.kernels.dispatch import (
@@ -266,7 +291,7 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
         def mm(a, w):
             return a @ w
 
-    if decode_gemv and gemv.fuse_programs:
+    if decode_gemv and gemv.fuse_programs and cfg.act in GATED:
         B, S, d = x.shape
         if "w_gateup" in p:
             f = p["w_up"].shape[-1]
@@ -277,10 +302,11 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
                                     [p["w_gate"], p["w_up"]], policy=gemv)
         gate = g2.reshape(B, S, -1)
         up = u2.reshape(B, S, -1)
-        return mm(F.silu(gate) * up, p["w_down"])
+        return mm(activate(cfg.act, up, gate), p["w_down"])
 
     up = mm(x, p["w_up"])
-    return mm(F.silu(mm(x, p["w_gate"])) * up, p["w_down"])
+    gate = mm(x, p["w_gate"]) if cfg.act in GATED else None
+    return mm(activate(cfg.act, up, gate), p["w_down"])
 
 
 # --------------------------------------------------------------------------
@@ -299,7 +325,7 @@ def init_moe(generator, cfg: ModelConfig, dtype, device) -> dict:
         "w_up": dense_init(generator, d, (E, d, f), dtype, device),
         "w_down": dense_init(generator, f, (E, f, d), dtype, device),
     }
-    if cfg.act == "silu":
+    if cfg.act in GATED:
         p["w_gate"] = dense_init(generator, d, (E, d, f), dtype, device)
     if e.n_shared:
         p["shared"] = init_mlp(generator, cfg, dtype, device,
@@ -379,11 +405,14 @@ def _aux_loss(probs: torch.Tensor, counts: torch.Tensor,
 
 
 def _expert_ffn(p: dict, t: torch.Tensor, cfg: ModelConfig, proj):
-    """SwiGLU expert FFN over expert-sorted rows; ``proj(t, w)`` runs one
-    projection of the stack."""
-    if cfg.act != "silu":
-        raise ValueError(f"activation {cfg.act!r} is not ported yet")
-    h = F.silu(proj(t, p["w_gate"])) * proj(t, p["w_up"])
+    """The expert FFN over expert-sorted rows; ``proj(t, w)`` runs one
+    projection of the stack.  As in the JAX package, an ungated expert
+    applies ``gelu`` to up whatever ``cfg.act`` says."""
+    if cfg.act in GATED:
+        gate = proj(t, p["w_gate"])
+        h = activate(cfg.act, proj(t, p["w_up"]), gate)
+    else:
+        h = activate("gelu", proj(t, p["w_up"]))
     return proj(h, p["w_down"])
 
 

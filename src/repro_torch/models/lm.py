@@ -117,8 +117,9 @@ def prepack_decode_params(params: dict, cfg: ModelConfig) -> dict:
 
     Per layer, ``wqkv`` is the contiguous ``[d, (H + 2 Hkv) hd]`` concat of
     the flattened Q/K/V projections and ``w_gateup`` the ``[d, 2 f]``
-    concat of gate and up (of the dense MLP, or of an MoE layer's shared
-    experts; the expert stacks are read in place); ``head_t`` is one
+    concat of gate and up (of a gated dense MLP, or of an MoE layer's
+    gated shared experts; the expert stacks are read in place; an ungated
+    FFN has nothing to concat); ``head_t`` is one
     contiguous K-major ``[d, vocab]`` copy of the tied head (the GEMV
     kernels refuse the strided ``embed.T`` view rather than copy 206 MB
     per token).
@@ -131,6 +132,8 @@ def prepack_decode_params(params: dict, cfg: ModelConfig) -> dict:
     packed = dict(params)
     packed["layers"] = []
     def gateup(m: dict) -> dict:
+        if "w_gate" not in m:        # an ungated FFN (relu2, gelu)
+            return m
         return {**m, "w_gateup": torch.cat([m["w_gate"], m["w_up"]], dim=-1)}
 
     for p in params["layers"]:
@@ -203,10 +206,21 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     return logits, new_cache, aux
 
 
+def layer_window(cfg: ModelConfig, i: int) -> int:
+    """Layer ``i``'s sliding window as a Python int (``lm._window_for`` and
+    ``is_global`` of the JAX package): ``cfg.sliding_window`` for a local
+    layer of a ``local_global`` model, 0 (no limit) otherwise.  A captured
+    decode graph bakes it in per layer."""
+    if cfg.attn_pattern != "local_global":
+        return 0
+    every = max(cfg.global_every, 1)
+    return 0 if i % every == every - 1 else cfg.sliding_window
+
+
 def _forward_flat(params, cfg, x, positions, cache, gemv=None):
     """The layer stack as a Python loop (``lax.scan`` in the JAX package):
-    pre-norm attention and FFN (or MoE) blocks with residuals; returns
-    ``(x, aux_loss)``."""
+    pre-norm attention (over each layer's :func:`layer_window`) and FFN (or
+    MoE) blocks with residuals; returns ``(x, aux_loss)``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["layers"]):
         h = L.apply_norm(p["ln1"], x, cfg)
@@ -218,7 +232,8 @@ def _forward_flat(params, cfg, x, positions, cache, gemv=None):
         x = x + L.apply_attention(
             p["attn"], h, cfg, positions=positions, cache_kv=cache_kv,
             cache_pos=cache["pos"] if cache is not None else None,
-            cache_scales=cache_scales, gemv=gemv)
+            cache_scales=cache_scales, gemv=gemv,
+            window=layer_window(cfg, i))
         h = L.apply_norm(p["ln2"], x, cfg)
         if "moe" in p:
             ff, aux_l = L.apply_moe(p["moe"], h, cfg, gemv=gemv)

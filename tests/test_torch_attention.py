@@ -1,5 +1,6 @@
 """Decode attention: the plain version against the JAX package's
-``attention_core``, the model's routing rule, and the split planner.
+``attention_core`` (with and without a sliding window), the model's
+routing rule, and the split planner.
 
 The kernel (``csrc/decode_attention.cu``) runs only on the card; its tests
 are in ``test_torch_gpu.py``.  Here both packages get the same numpy
@@ -127,6 +128,105 @@ def test_idle_slots_past_the_end_attend_to_every_position():
         kv_valid_len=torch.from_numpy(valid))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+# sliding windows: none (0), one position, the reduced gemma3 window (8),
+# and one longer than the cache
+WINDOW_C = 24
+
+
+@pytest.mark.parametrize("window", [0, 1, 8, WINDOW_C + 5])
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_attention_with_a_window_matches_jax(window, G, dtype):
+    """A local layer's decode step: valid lengths below (4), at (8) and
+    above (16) a window of 8, the whole cache, an idle slot past the end
+    inside its last window, and one past C + window - 1 whose every
+    score is masked (uniform over C, as the reference's softmax gives);
+    against the JAX ``attention_core`` with the same window."""
+    B, C, Hkv, D = 6, WINDOW_C, 2, 16
+    qpos = np.array([3, 7, 15, C - 1, C + 2, C + window + 2], np.int32)
+    q, k, v, _, _ = _case(B, C, Hkv, G, D, [C] * B, seed=window + 10 * G)
+    valid = qpos + 1
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jlayers.attention_core(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        q_positions=jnp.asarray(qpos[:, None]),
+        kv_valid_len=jnp.asarray(valid), window=window, causal=True)
+
+    def t(a):
+        return torch.from_numpy(a).to(dtype)
+
+    args = dict(q_positions=torch.from_numpy(qpos[:, None]),
+                kv_valid_len=torch.from_numpy(valid))
+    got = decode_attention_plain(t(q), t(k), t(v), window=window, **args)
+    vr = np.asarray(jnp.asarray(v, jdt).astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               **_tol(dtype, vr))
+    # the wrapper on CPU tensors and the model's attention_core are the
+    # same function
+    assert torch.equal(decode_attention(t(q), t(k), t(v), window=window,
+                                        **args), got)
+    assert torch.equal(L.attention_core(t(q), t(k), t(v), causal=True,
+                                        window=window, **args), got)
+    if 0 < window <= 8:
+        # the slot past the end of every window attends uniformly
+        uniform = t(v)[-1].float().mean(0)
+        np.testing.assert_allclose(
+            got[-1, 0].float().numpy(),
+            np.repeat(uniform.numpy(), G, axis=0), **_tol(dtype, vr))
+    if 0 < window < 16:
+        # a row longer than the window: the window changes its output
+        full = decode_attention_plain(t(q), t(k), t(v), **args)
+        assert not torch.equal(full[2], got[2])
+    elif window > C:
+        # a window longer than the cache masks only the slot past its end
+        full = decode_attention_plain(t(q), t(k), t(v), **args)
+        assert torch.equal(full[:-1], got[:-1])
+
+
+def test_prefill_with_a_window_matches_jax():
+    """A prefill chunk of 12 queries at positions 5..16 over a cache of 24
+    (the chunked seam) with a window of 8, G 4: the JAX mask."""
+    B, C, Hkv, G, D, S = 2, 24, 1, 4, 16, 12
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((B, S, Hkv * G, D)).astype(np.float32)
+    k = rng.standard_normal((B, C, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, C, Hkv, D)).astype(np.float32)
+    pos = (np.array([5, 0])[:, None] + np.arange(S)[None]).astype(np.int32)
+    valid = pos[:, -1] + 1
+    want = jlayers.attention_core(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        q_positions=jnp.asarray(pos), kv_valid_len=jnp.asarray(valid),
+        window=8, causal=True)
+    got = L.attention_core(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v),
+                           q_positions=torch.from_numpy(pos),
+                           kv_valid_len=torch.from_numpy(valid),
+                           causal=True, window=8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_pages_take_the_window(bits):
+    """int8 / int4 pages with a window of 8: the wrapper on the CPU
+    dequantizes, then runs the windowed plain arithmetic."""
+    B, C, Hkv, G, D = 3, 32, 1, 4, 128
+    q, k, v, qpos, valid = _case(B, C, Hkv, G, D, [5, 20, 32], seed=bits)
+    tq = torch.from_numpy(q).to(torch.bfloat16)
+    kc, ks = quantize_page(torch.from_numpy(k).to(torch.bfloat16), bits)
+    vc, vs = quantize_page(torch.from_numpy(v).to(torch.bfloat16), bits)
+    args = dict(q_positions=torch.from_numpy(qpos[:, None]),
+                kv_valid_len=torch.from_numpy(valid), window=8)
+    got = decode_attention(tq, kc, vc, k_scale=ks, v_scale=vs, **args)
+    kf = dequantize_page(kc, ks, hd=D, out_dtype=torch.bfloat16)
+    vf = dequantize_page(vc, vs, hd=D, out_dtype=torch.bfloat16)
+    assert torch.equal(got, decode_attention_plain(tq, kf, vf, **args))
+    with pytest.raises(ValueError, match="window"):
+        decode_attention(tq, kf, vf, q_positions=args["q_positions"],
+                         kv_valid_len=None, window=-1)
 
 
 def test_the_routing_rule_is_on_shapes_and_the_device():

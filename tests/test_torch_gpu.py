@@ -1102,6 +1102,66 @@ def test_cuda_quantized_attention_equals_the_fp_kernel_bit_for_bit(
         assert torch.equal(got, want), splits
 
 
+# the families' decode attention shapes: gemma3-1b (one kv head of 256 for
+# four query heads), gemma3-27b (16 kv heads of 128, G 2), minitron-8b (8
+# of 128, G 4); f32 takes at most 128 lanes' worth (D 128)
+WINDOW_SHAPES = [(4, 1, 256, torch.bfloat16), (2, 16, 128, torch.bfloat16),
+                 (4, 8, 128, torch.bfloat16), (4, 8, 128, torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,Hkv,D,dtype", WINDOW_SHAPES)
+@pytest.mark.parametrize("window", [0, 1, 64, 1024])
+def test_cuda_decode_attention_with_a_window_matches_plain(cuda, G, Hkv, D,
+                                                          dtype, window):
+    """A 2048-position cache of 8 slots under a sliding window: rows
+    shorter than, at and longer than the window, the whole cache, an idle
+    slot past the end inside its last window and one past C + window - 1
+    (every score masked: uniform over C); at every split count against
+    the plain version, the same bits run to run; int8 / int4 pages equal
+    the fp kernel on ``dequantize_page``'s tensor bit for bit."""
+    from repro_torch.kernels.attention import (
+        decode_attention,
+        decode_attention_plain,
+        kernel_applies,
+    )
+    from repro_torch.kernels.kv_quant import dequantize_page, quantize_page
+
+    B, C = 8, 2048
+    w = window or 1024
+    qpos = [0, w - 2, w - 1, w, 1500, C - 1, C + w - 2, C + w + 10]
+    q, k, v, pos = _attention_case(cuda, B, C, Hkv, G, D, dtype, qpos,
+                                   slots=10, seed=window)
+    valid = pos + 1
+    assert kernel_applies(q, k, v, causal=True)
+    args = dict(q_positions=pos[:, None], kv_valid_len=valid, window=window)
+    want = decode_attention_plain(q, k, v, **args)
+    for splits in (None, 1, 2, 4, 8):
+        n0 = decode_attention.launches
+        got = decode_attention(q, k, v, splits=splits, **args)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == n0 + 1
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **_attention_tol(dtype, v))
+        assert torch.equal(got, decode_attention(q, k, v, splits=splits,
+                                                 **args))
+    if window:
+        # a row longer than the window: the window changes its output
+        unlimited = decode_attention(q, k, v, q_positions=pos[:, None],
+                                     kv_valid_len=valid)
+        assert not torch.equal(unlimited[4], want[4].to(dtype))
+    for bits in (8, 4):
+        kc, ks = quantize_page(k, bits)
+        vc, vs = quantize_page(v, bits)
+        kf = dequantize_page(kc, ks, hd=D, out_dtype=dtype)
+        vf = dequantize_page(vc, vs, hd=D, out_dtype=dtype)
+        for splits in (None, 1, 2, 4, 8):
+            got = decode_attention(q, kc, vc, splits=splits, k_scale=ks,
+                                   v_scale=vs, **args)
+            assert torch.equal(got, decode_attention(q, kf, vf,
+                                                     splits=splits, **args))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_prefill_scores_keep_bf16_operands_on_the_card(cuda, dtype):

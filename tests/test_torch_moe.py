@@ -363,6 +363,36 @@ def test_apply_moe_prefill_matches_jax_with_and_without_drops(
         assert not keep.all()        # the case really drops pairs
 
 
+@pytest.mark.parametrize("path", ["ragged", "capacity"])
+@pytest.mark.parametrize("act", ["geglu", "relu2"])
+def test_apply_moe_other_activations_match_jax(act, path):
+    """A reduced deepseek-moe-16b with a geglu FFN (gated: gelu(gate) *
+    up) or a squared-ReLU one (ungated: the JAX package's experts apply
+    gelu to up, its shared MLP relu(up) ** 2), against the JAX
+    ``apply_moe``: a decode step through the ragged programs, and a
+    prefill through the capacity semantics."""
+    jcfg, tcfg = (dataclasses.replace(c, act=act) for c in _cfgs())
+    tparams = lm.init_lm(tcfg, seed=4, device="cpu")
+    tp = tparams["layers"][0]["moe"]
+    assert ("w_gate" in tp) == (act == "geglu") == ("w_gate" in tp["shared"])
+    jp = jax.tree.map(lambda a: a[0], _jax_tree(tparams)["layers"])["moe"]
+    S = 1 if path == "ragged" else 12
+    x = np.random.default_rng(6).standard_normal(
+        (4, S, tcfg.d_model)).astype(np.float32)
+    jpol = tpol = None
+    if path == "ragged":
+        jpol = jdispatch.DispatchPolicy(backend="cpu", expert_shape="ragged")
+        tpol = DispatchPolicy(backend="h100", expert_shape="ragged")
+    jy, jaux = _jit(lambda p, x: jL.apply_moe(p, x, jcfg, gemv=jpol), jp,
+                    jnp.asarray(x))
+    dispatch.clear_plan_cache()
+    y, aux = L.apply_moe(tp, torch.from_numpy(x), tcfg, gemv=tpol)
+    np.testing.assert_allclose(_np(y), np.asarray(jy), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(float(aux), float(jaux), atol=1e-7, rtol=0)
+    if path == "ragged":
+        assert dispatch.dispatch_stats()["expert_load"]["decisions"] == 1
+
+
 def test_ragged_decode_reads_nothing_back_to_the_host(models, monkeypatch):
     """The ragged decode keeps counts, offsets and the sort on the device:
     every way of reading a tensor's value on the host raises here.  The
