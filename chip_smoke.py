@@ -148,7 +148,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels); ``[families logits]``: one decode step through the kernels
    and through ``kernel="ref"``, max |diff| and argmax agreement
    reported; each family's weights are freed before the next's;
-13. autotune -- olmo-1b's decode GEMVs at batch 8, a fused QKV program and
+13. multimodal -- ``[multimodal kernels]``: ``decode_attention`` at
+   whisper-small's self shape (12 kv heads of 64, G 1, a 1024-position
+   cache) and cross shape (over 1500 encoder frames) and
+   llama-3.2-vision-11b's cross shape (8 kv heads of 128, G 4, over 1601
+   patch embeddings): the routing rule must take each; against the plain
+   version at every split count (a cross call, the causal query at Sk - 1
+   over all Sk keys, against the plain non-causal query), then timed
+   beside its bound (the valid K and V bytes), the plain version and
+   ``scaled_dot_product_attention``; ``pim_gemv`` and ``splitk_gemv`` at
+   llama-3.2-vision-11b's four decode GEMV shapes at batch 1 and 8, as in
+   ``[families kernels]``.  ``[multimodal engine]``: each model at full
+   width and depth, bf16, seed 0, every ``cross_gate`` set to 1.0 (the
+   init's zeros switch llama-vision's cross-attention off),
+   ``Engine(batch_slots=8, max_len=1024)``, the 8 requests of 32 to 512
+   tokens, 32 greedy tokens each, both routes, the engine phase's rules
+   (tokens equal, ``decode_attention`` once a layer and once a
+   cross-attending layer -- 24 a step for whisper-small, 48 for
+   llama-vision -- ``pim_gemv`` / ``splitk_gemv`` as the picks predict:
+   41 / 80 a step for llama-vision, none for whisper-small, whose GEMVs
+   all stay on ``ref``; no cache-shaped cast or copy; the replayed
+   window's port kernels); the device ms a step spends recomputing the
+   encoder and the cross K / V from the features, as the reference does
+   every step; ``[multimodal logits]``: one decode step through the
+   kernels and through ``kernel="ref"``; each model's weights are freed
+   before the next's;
+14. autotune -- olmo-1b's decode GEMVs at batch 8, a fused QKV program and
    a ragged expert program, tuned on the h100 and gpu backends into
    ``build/autotune_smoke.json`` (``pim``/``splitk`` at every ring depth,
    labelled ``pim/s4`` etc.); table and plan cache cleared, the file
@@ -157,7 +182,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    1024-row K chunks, and grouped and ragged expert programs on the first
    expert kernels' tiles) replays: each GEMV keeps its kernel on a
    re-planned plan and matches its plain version;
-14. the ``{"kernels": [...]}`` line, the card line, and the last line
+15. the ``{"kernels": [...]}`` line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 A fuller report goes to ``chiprun_out/chip_smoke.json``.  Nothing here
@@ -207,7 +232,9 @@ from repro_torch.kernels.backends.gpu import plan_triton_gemv  # noqa: E402
 from repro_torch.kernels.attention import (  # noqa: E402
     decode_attention,
     decode_attention_plain,
+    kernel_applies,
     plan_splits,
+    smem_bytes,
 )
 from repro_torch.kernels.grouped_gemv import (  # noqa: E402
     counts_to_offsets,
@@ -218,6 +245,7 @@ from repro_torch.kernels.grouped_gemv import (  # noqa: E402
 )
 from repro_torch.kernels.gemv_plan import (  # noqa: E402
     MAX_STAGES,
+    SMEM_PER_CTA,
     GemvPlan,
     ctas_per_sm,
     grouped_plan_fits,
@@ -266,7 +294,11 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.layers import GATED  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving import disable_graphs  # noqa: E402
-from repro_torch.serving.engine import Engine, Request  # noqa: E402
+from repro_torch.serving.engine import (  # noqa: E402
+    Engine,
+    Request,
+    make_features,
+)
 from repro_torch.serving.prefix_cache import PrefixCacheConfig  # noqa: E402
 from repro_torch.serving.scheduler import SchedulerConfig  # noqa: E402
 
@@ -1311,7 +1343,7 @@ def compare_replay(graph: dict, eager: dict, cfg) -> dict:
             for d in (g, e)]
     copies["device-to-device memcpy"] = tuple(dtod)
     bad.update({n: v for n, v in copies.items() if v[0] > v[1]})
-    want = {"decode_attention_kernel<": cfg.n_layers * steps}
+    want = {"decode_attention_kernel<": attention_layers(cfg) * steps}
     if cfg.moe is not None and port["ragged_kernel<"][0]:
         want["ragged_kernel<"] = 3 * cfg.n_layers * steps
     for sym, n in want.items():
@@ -1387,6 +1419,22 @@ def decode_sites(cfg) -> dict[str, tuple[int, int, int]]:
            else {"up": (ff, d, L)})
     return {"qkv": ((cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd, d, L),
             **ffn, "down": (d, ff, L), "head": (cfg.vocab, d, 1)}
+
+
+def attention_layers(cfg) -> int:
+    """``decode_attention`` launches a decode step: each layer's
+    self-attention, and the cross-attention of each cross-attending layer
+    (one query a slot over the context's keys, in the kernel's causal
+    form)."""
+    return cfg.n_layers + sum(cfg.is_cross_layer(i)
+                              for i in range(cfg.n_layers))
+
+
+def float_kernels_on_path(cfg, policy, batch: int) -> tuple[str, ...]:
+    """The float GEMV kernels the ``h100`` picks send a decode step's
+    GEMVs to at ``batch`` (whisper-small's: none)."""
+    return tuple(n for n, k in zip(FLOAT_KERNELS, ("pim", "splitk"))
+                 if launches_per_step(cfg, policy, batch, "h100", k)[0])
 
 
 def launches_per_step(cfg, policy, batch: int, backend: str,
@@ -1477,30 +1525,32 @@ def run_route(cfg, params, dev, kv_store: str, backend: str,
         raise AssertionError(
             f"expected {len(lengths)} requests x {new_tokens} tokens, got "
             f"{[(r.rid, len(r.generated)) for r in done]}")
-    need = ("triton_gemv",) if backend == "gpu" else FLOAT_KERNELS
+    doc = eng.metrics.to_dict(include_steps=True)
+    decode_batches = [st["decode_batch"] for st in doc["steps"]
+                      if st["decode_batch"]]
+    need = (("triton_gemv",) if backend == "gpu" else
+            float_kernels_on_path(cfg, eng.gemv_policy, max(decode_batches)))
     if cfg.moe is not None:
         need = ("ragged_gemv",) + (need if backend == "gpu" else ())
     need += ("decode_attention",)
     if not all(counts[n] for n in need):
         raise AssertionError(f"a kernel never launched on the main path: "
                              f"{counts}")
-    doc = eng.metrics.to_dict(include_steps=True)
     steps = doc["counters"]["decode_steps"]
-    batches = counted_batches(route, [st["decode_batch"]
-                                      for st in doc["steps"]
-                                      if st["decode_batch"]])
+    batches = counted_batches(route, decode_batches)
     capture_s = ({str(b): s for b, s in eng.graphs.capture_s.items()}
                  if route == "graph" else {})
     if route == "graph" and sorted(eng.graphs.replays) != sorted(
             set(batches)):
         raise AssertionError(f"graphs {sorted(eng.graphs.replays)} for the "
                              f"buckets {sorted(set(batches))}")
-    # every layer of every counted step reads its cache through the kernel
-    if counts["decode_attention"] != cfg.n_layers * len(batches):
+    # every layer of every counted step reads its cache through the
+    # kernel, and every cross-attending layer its context
+    if counts["decode_attention"] != attention_layers(cfg) * len(batches):
         raise AssertionError(
             f"{len(batches)} counted decode steps launched decode_attention"
             f" {counts['decode_attention']} times (expected "
-            f"{cfg.n_layers} a step)")
+            f"{attention_layers(cfg)} a step)")
     extra = {}
     if cfg.moe is not None:
         # every routed projection of every decode step: gate, up and down
@@ -1639,18 +1689,21 @@ def logits_check(cfg, params, dev,
     b = eng.decode_bucket()
     last = torch.from_numpy(eng.last_tok[:b]).to(dev)
     out = {}
+    feats = {k: v[:b] for k, v in eng.features.items()}
     for tag, policy in (("kernels", eng.gemv_policy),
                         ("ref", DispatchPolicy(kernel="ref"))):
         cache = {k: v.clone() for k, v in eng.kv.slice_prefix(b).items()}
         reset_launches()
         logits, _, _ = lm.forward(eng.params, cfg, last, cache=cache,
-                                  gemv_policy=policy)
+                                  gemv_policy=policy, **feats)
         torch.cuda.synchronize()
         out[tag] = (logits[:, -1].float(), launches())
     (lk, nk), (lr, nr) = out["kernels"], out["ref"]
     # kernel="ref" pins the GEMVs; attention runs its kernel either way
-    if (not all(nk[n] for n in FLOAT_KERNELS)
-            or any(nr[n] for n in GEMV_KERNELS)):
+    need = float_kernels_on_path(cfg, eng.gemv_policy, b)
+    if (not all(nk[n] for n in need) or any(nr[n] for n in GEMV_KERNELS)
+            or {nk["decode_attention"], nr["decode_attention"]}
+            != {attention_layers(cfg)}):
         raise AssertionError(f"launches: dispatcher {nk}, ref {nr}")
     if not (torch.isfinite(lk).all() and torch.isfinite(lr).all()):
         raise AssertionError("non-finite logits")
@@ -2852,6 +2905,267 @@ def run_families(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# multimodal: whisper-small and llama-3.2-vision-11b
+# ---------------------------------------------------------------------------
+
+MULTIMODAL = ("whisper-small", "llama-3.2-vision-11b")
+# every cross_gate after init_lm: the init's zeros make tanh(gate) 0 and
+# switch llama-vision's cross-attention off (whisper applies no gate)
+MM_GATE = 1.0
+MM_TOKENS = 32
+MM_MAX_LEN = 1024
+
+
+def mm_attention_shapes() -> dict[str, dict]:
+    """decode_attention's new shapes on the decode step: whisper-small's
+    self-attention (12 kv heads of 64, G 1, over the 1024-position cache)
+    and cross-attention (over the encoder's 1500 frames), and
+    llama-3.2-vision-11b's cross-attention (8 kv heads of 128, G 4, over
+    1601 patch embeddings).  A cross call is the causal query at ``Sk -
+    1`` over all ``Sk`` freshly projected keys."""
+    w, v = get_config("whisper-small"), get_config("llama-3.2-vision-11b")
+    return {
+        "whisper-small/self": dict(cfg=w, C=MM_MAX_LEN, cross=False,
+                                   per_step=w.n_layers),
+        "whisper-small/cross": dict(cfg=w, C=w.encoder.n_frames, cross=True,
+                                    per_step=attention_layers(w)
+                                    - w.n_layers),
+        "llama-3.2-vision-11b/cross": dict(cfg=v, C=v.vision_tokens,
+                                           cross=True,
+                                           per_step=attention_layers(v)
+                                           - v.n_layers),
+    }
+
+
+def check_mm_attention(dev) -> list[dict]:
+    """decode_attention at each of :func:`mm_attention_shapes`, 8 slots:
+    the routing rule must take it (a plan of splits exists); against its
+    plain version at every split count that fits (the self shape on a
+    mid-run step's lengths and with idle slots past the end; a cross
+    shape in its causal form against the plain NON-causal query), then
+    timed (inputs rotated past the L2) beside its bound (the valid K and
+    V bytes), the plain version and ``scaled_dot_product_attention``
+    (``enable_gqa``; the valid positions as a boolean mask for self)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 92)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    B = ATTN_SLOTS
+    rows = []
+    for shape, spec in mm_attention_shapes().items():
+        cfg, C, cross = spec["cfg"], spec["C"], spec["cross"]
+        Hkv, D, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
+        G = H // Hkv
+
+        def kv():
+            return torch.randn((B, C, Hkv, D), generator=gen,
+                               device=dev).to(torch.bfloat16)
+
+        q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k0, v0 = kv(), kv()
+        splits = plan_splits(B, Hkv, C, G, D, sms)
+        if splits is None or not kernel_applies(q, k0, v0, causal=True):
+            raise AssertionError(
+                f"decode_attention takes no plan at {shape} (B={B} C={C} "
+                f"Hkv={Hkv} G={G} D={D}): the decode step would run it on "
+                f"the plain path")
+        counts = sorted(n for n in {splits, 1, 2, 4, 8}
+                        if smem_bytes(G, D, C, n) <= SMEM_PER_CTA)
+        if cross:
+            lengths = [C] * B
+            valid = None
+            qpos = torch.full((B, 1), C - 1, dtype=torch.int32, device=dev)
+            checks = {"all": (qpos, None)}
+
+            def plain(k, v, **_):
+                return decode_attention_plain(q, k, v, q_positions=None,
+                                              kv_valid_len=None,
+                                              causal=False)
+        else:
+            lengths = [n + MM_TOKENS // 2 for n in ENGINE_LENGTHS]
+            valid = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            qpos = (valid - 1)[:, None]
+            # idle slots past the end: a row at C - 1 and rows past it
+            idle = torch.tensor([5, 40, C - 1, C - 1, C + 3, 900, 77, C + 99],
+                                dtype=torch.int32, device=dev)
+            checks = {"mid-run": (qpos, valid),
+                      "idle": (idle[:, None], idle + 1)}
+
+            def plain(k, v, q_positions, kv_valid_len):
+                return decode_attention_plain(
+                    q, k, v, q_positions=q_positions,
+                    kv_valid_len=kv_valid_len, causal=True)
+        atol = 2.0**-8 * v0.float().abs().max().item()
+        errs = {}
+        for tag, (qp, vl) in checks.items():
+            want = plain(k0, v0, q_positions=qp, kv_valid_len=vl)
+            for n_split in counts:
+                out = decode_attention(q, k0, v0, q_positions=qp,
+                                       kv_valid_len=vl, splits=n_split)
+                torch.cuda.synchronize()
+                err = (out.float() - want.float()).abs()
+                bad = err > atol + ATTN_RTOL * want.float().abs()
+                if not torch.isfinite(out.float()).all() or bad.any():
+                    raise AssertionError(
+                        f"decode_attention {shape} {tag} splits={n_split}: "
+                        f"{int(bad.sum())} elements off its plain version "
+                        f"(max abs err {err.max().item():.3e})")
+                errs[f"{tag}/s{n_split}"] = err.max().item()
+        del k0, v0
+        bound = attention_bound(lengths, B, H, Hkv, D)
+        n_copies = max(2, math.ceil(2 * L2_BYTES
+                                    / (bound["bytes_ms"] * HBM_BYTES_PER_S
+                                       / 1e3)) + 1)
+        ks = [kv() for _ in range(n_copies)]
+        vs = [kv() for _ in range(n_copies)]
+        qp, vl = checks["all" if cross else "mid-run"]
+        mask = None
+        if not cross:
+            kpos = torch.arange(C, device=dev)[None, :]
+            mask = (kpos < valid[:, None])[:, None, None, :]
+
+        def run(i, qp=qp, vl=vl):
+            decode_attention(q, ks[i % n_copies], vs[i % n_copies],
+                             q_positions=qp, kv_valid_len=vl)
+
+        def run_plain(i, qp=qp, vl=vl, plain=plain):
+            plain(ks[i % n_copies], vs[i % n_copies], q_positions=qp,
+                  kv_valid_len=vl)
+
+        def run_lib(i, mask=mask, G=G):
+            F.scaled_dot_product_attention(
+                q.transpose(1, 2), ks[i % n_copies].transpose(1, 2),
+                vs[i % n_copies].transpose(1, 2), attn_mask=mask,
+                enable_gqa=G > 1)
+
+        row = dict(kernel="decode_attention", arch=cfg.name, shape=shape,
+                   store="fp", B=B, C=C, Hkv=Hkv, H=H, G=G, D=D,
+                   cross=cross, valid=lengths, positions_read=sum(lengths),
+                   splits=splits, split_counts_checked=counts,
+                   per_step=spec["per_step"], max_abs_err=max(errs.values()),
+                   errs=errs, ms=graph_ms(run, 100),
+                   plain_ms=graph_ms(run_plain, 20),
+                   library_ms=graph_ms(run_lib, 100), **bound)
+        row["hbm_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        log(f"  decode_attention {shape}: B={B} C={C} Hkv={Hkv} G={G} "
+            f"D={D}, {splits} splits planned; against the plain "
+            f"{'non-causal query' if cross else 'version'} at splits "
+            f"{counts} (max err {row['max_abs_err']:.2e}); "
+            f"{sum(lengths)} positions read, ms={row['ms']:.4f} "
+            f"bound={row['bound_ms']:.4f} ({row['hbm_share']:.0%}) "
+            f"plain={row['plain_ms']:.4f} sdpa={row['library_ms']:.4f}; "
+            f"{row['per_step']} calls a step")
+        del ks, vs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def recompute_ms(cfg, params: dict, dev, busy_ms: float | None) -> dict:
+    """Device ms of what a decode step at batch 8 recomputes from the
+    modality features, as the JAX package does every step: the cast of
+    the features to bf16, whisper's encoder over its frames, and the
+    cross K / V projections of every cross-attending layer (each timed
+    alone, in a CUDA graph); and their share of the step's device busy
+    (the replayed route's profile)."""
+    feats = make_features(cfg, ATTN_SLOTS, dev)
+    src = feats["frames" if cfg.encoder is not None else "vision"]
+    dtype = getattr(torch, cfg.compute_dtype)
+    x = src.to(dtype)
+    ctx = (lm.run_encoder(params["encoder"], x, cfg)
+           if cfg.encoder is not None else x)
+    cross = [p["cross"] for p in params["layers"] if "cross" in p]
+
+    def cast(i):
+        src.to(dtype)
+
+    def encoder(i):
+        lm.run_encoder(params["encoder"], x, cfg)
+
+    def kv(i):
+        for p in cross:
+            L.project_heads(ctx, p["wk"])
+            L.project_heads(ctx, p["wv"])
+
+    out = {"cast_ms": graph_ms(cast, 20),
+           "encoder_ms": (graph_ms(encoder, 3)
+                          if cfg.encoder is not None else 0.0),
+           "cross_kv_ms": graph_ms(kv, 3), "cross_layers": len(cross),
+           "context": list(ctx.shape)}
+    total = out["cast_ms"] + out["encoder_ms"] + out["cross_kv_ms"]
+    out["total_ms"] = total
+    out["share_of_busy"] = total / busy_ms if busy_ms else None
+    del feats, src, x, ctx
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_multimodal(dev) -> dict:
+    """Each model at full width and depth through ``Engine(batch_slots=8,
+    max_len=1024)`` with every ``cross_gate`` at ``MM_GATE``: 8 requests
+    of 32 to 512 tokens, ``MM_TOKENS`` greedy tokens each, both routes and
+    the engine phase's rules; what each step recomputes from the
+    features; then one decode step through the kernels and through
+    ``kernel="ref"``.  Each model's weights are freed before the next's
+    are drawn."""
+    out = {}
+    for arch in MULTIMODAL:
+        cfg = get_config(arch)
+        ctx = (f"an encoder of {cfg.encoder.n_layers} layers over "
+               f"{cfg.encoder.n_frames} frames of {cfg.encoder.d_model}; "
+               f"every layer cross-attends, ungated"
+               if cfg.encoder is not None else
+               f"{cfg.vision_tokens} patch embeddings; every "
+               f"{cfg.cross_attn_every}th layer cross-attends, gated")
+        log(f"[multimodal engine] {arch}: {cfg.n_layers} layers, "
+            f"d={cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv "
+            f"heads of {cfg.hd}, d_ff={cfg.d_ff}, {cfg.act}; {ctx}; bf16, "
+            f"seed {SEED}, cross_gate set to {MM_GATE}")
+        t0 = time.perf_counter()
+        params = lm.init_lm(cfg, seed=SEED, device=dev)
+        for p in params["layers"]:
+            if "cross_gate" in p:
+                p["cross_gate"].fill_(MM_GATE)
+        torch.cuda.synchronize()
+        log(f"  init {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
+        res = run_engine(cfg, params, dev, new_tokens=MM_TOKENS,
+                         lengths=ENGINE_LENGTHS, max_len=MM_MAX_LEN,
+                         ttft=False)
+        log_routes(arch, res)
+        pt = res["per_token_ms"]
+        log(f"  [{arch}] requests {res['requests']}, tokens "
+            f"{res['tokens']}, per-token p50 {pt['p50']:.2f} ms p90 "
+            f"{pt['p90']:.2f} ms, TTFT p50 {res['ttft_ms']['p50']:.1f} ms, "
+            f"peak {res['peak_mem_gb']:.2f} GB; launches per decode step "
+            f"(eager) {res['routes']['eager']['launches_per_step']}, as "
+            f"the picks predict {res['float_launches_by_batch']}, "
+            f"decode_attention {attention_layers(cfg)} a step")
+        res["recompute"] = recompute_ms(
+            cfg, params, dev, res["profile"]["device_busy_ms_per_step"])
+        rc = res["recompute"]
+        log(f"  [{arch}] recomputed every decode step at batch 8: feature "
+            f"cast {rc['cast_ms']:.3f} ms, encoder {rc['encoder_ms']:.3f} "
+            f"ms, cross K/V of {rc['cross_layers']} layers "
+            f"{rc['cross_kv_ms']:.3f} ms: {rc['total_ms']:.3f} ms, "
+            f"{rc['share_of_busy']:.0%} of the replayed step's device busy")
+        res["logits"] = logits_check(cfg, params, dev, max_len=MM_MAX_LEN,
+                                     strict=False)
+        lg = res["logits"]
+        log(f"[multimodal logits] {arch}: batch {lg['batch']}: max |kernels"
+            f" - ref| {lg['max_abs_diff']:.4f} ({lg['diff_in_ulps']:.1f} "
+            f"bf16 ulps at |logit| max {lg['logit_absmax']:.2f}); argmax "
+            f"agree {lg['argmax_agree']}/{lg['batch']}")
+        res["cross_gate"] = MM_GATE
+        out[arch] = res
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_autotune(dev) -> dict:
     """Tune every olmo-1b decode GEMV at batch 8 and two programs (fused
     QKV; deepseek-moe-16b's ragged gate/up experts, top-6 of 8 tokens) on
@@ -3435,6 +3749,19 @@ def main() -> int:
     families_s = time.perf_counter() - t_fam
     log(f"[families] {families_s:.1f} s")
 
+    t_mm = time.perf_counter()
+    log(f"[multimodal kernels] decode_attention at whisper-small's self and "
+        f"cross shapes and llama-3.2-vision-11b's cross shape; pim_gemv and "
+        f"splitk_gemv at every decode GEMV shape of llama-3.2-vision-11b at "
+        f"B {FAMILY_BATCHES} (rtol 2^-7, atol 1e-3), timed")
+    rows += check_mm_attention(dev)
+    vcfg = get_config("llama-3.2-vision-11b")
+    rows += check_kernels(dev, family_gemv_shapes(vcfg), FAMILY_BATCHES,
+                          vcfg.name)
+    multimodal = run_multimodal(dev)
+    multimodal_s = time.perf_counter() - t_mm
+    log(f"[multimodal] {multimodal_s:.1f} s")
+
     log(f"[autotune] olmo-1b's decode GEMVs at batch 8, a fused QKV and a "
         f"ragged expert program, on h100 and gpu, into {AUTOTUNE_TABLE}")
     autotune = run_autotune(dev)
@@ -3474,6 +3801,7 @@ def main() -> int:
         quant_dispatch=quant, kv=kv, moe_engine=moe, moe_logits=moe_logits,
         moe_grouped=grouped, gpu_engine=gpu, moe_gpu=moe_gpu,
         serving=serving, families=families, families_s=families_s,
+        multimodal=multimodal, multimodal_s=multimodal_s,
         autotune=autotune, kernels=line["kernels"],
         total_s=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

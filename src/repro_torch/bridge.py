@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import PackedWeights
+from repro_torch.models.lm import check_family
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -29,21 +30,40 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
-    """The JAX package's dense or MoE ``init_lm`` tree (numpy leaves) ->
-    the port's params on ``device``.  Every leaf keeps its layout: an MoE
-    layer's f32 ``router [d, E]``, its expert stacks ``w_gate``/``w_up
-    [E, d, f]`` and ``w_down [E, f, d]``, and its ``shared`` MLP."""
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"family {cfg.family!r} is not ported yet")
+    """The JAX package's ``init_lm`` tree (numpy leaves) -> the port's
+    params on ``device``.  Every leaf keeps its layout: an MoE layer's f32
+    ``router [d, E]``, its expert stacks ``w_gate``/``w_up [E, d, f]`` and
+    ``w_down [E, f, d]``, and its ``shared`` MLP.  llama-vision's
+    ``groups.plain [n_groups, g - 1, ...]`` and ``groups.cross_layer
+    [n_groups, ...]`` unroll into the flat layer list, group ``gi``'s
+    member ``i`` at ``gi * g + i``; whisper's ``encoder`` keeps ``proj``
+    None when the JAX tree has None there."""
+    check_family(cfg)
 
-    def conv(node, i=None):
+    def conv(node, i=()):
+        if node is None:
+            return None
         if isinstance(node, dict):
             return {k: conv(v, i) for k, v in node.items()}
-        return tensor_from_numpy(node if i is None else node[i], device)
+        return tensor_from_numpy(node[i], device)
 
-    params = {"embed": conv(tree["embed"]), "ln_f": conv(tree["ln_f"]),
-              "layers": [conv(tree["layers"], i)
-                         for i in range(cfg.n_layers)]}
+    params = {"embed": conv(tree["embed"]), "ln_f": conv(tree["ln_f"])}
+    if "groups" in tree:
+        g = cfg.cross_attn_every
+        grp = tree["groups"]
+        params["layers"] = [
+            conv(grp["cross_layer"], (gi,)) if i == g - 1
+            else conv(grp["plain"], (gi, i))
+            for gi in range(cfg.n_layers // g) for i in range(g)]
+    else:
+        params["layers"] = [conv(tree["layers"], (i,))
+                            for i in range(cfg.n_layers)]
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        params["encoder"] = {
+            "layers": [conv(enc["layers"], (i,))
+                       for i in range(cfg.encoder.n_layers)],
+            "ln_f": conv(enc["ln_f"]), "proj": conv(enc.get("proj"))}
     if "lm_head" in tree:
         params["lm_head"] = conv(tree["lm_head"])
     return params

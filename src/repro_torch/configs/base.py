@@ -1,8 +1,10 @@
-"""Model configuration (the dense and MoE decoders the port runs).
+"""Model configuration (the decoders the port runs).
 
 Counterpart of ``repro/configs/base.py``: the same field names and
-defaults for what a dense or MoE decoder needs (sliding-window attention
-included), ``hd``, ``is_global_layer`` and ``reduced()``.
+defaults for what a dense, MoE, audio (whisper: an encoder over stub
+frame embeddings) or vlm (llama-3.2-vision: gated cross-attention over
+stub patch embeddings) decoder needs, sliding-window attention included;
+``hd``, ``is_global_layer``, ``is_cross_layer`` and ``reduced()``.
 """
 
 from __future__ import annotations
@@ -22,9 +24,20 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """Whisper-style encoder operating on stub frame embeddings."""
+
+    n_layers: int = 12
+    n_frames: int = 1500         # 30 s of audio at 50 Hz after conv stem
+    d_model: int = 768
+    n_heads: int = 12
+    d_ff: int = 3072
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | moe (the families ported so far)
+    family: str                  # dense | moe | audio | vlm (those ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -43,6 +56,9 @@ class ModelConfig:
     compute_dtype: str = "float32"
     max_seq_len: int = 131_072
     moe: MoEConfig | None = None
+    encoder: EncoderConfig | None = None  # whisper
+    cross_attn_every: int = 0    # llama-vision: each Nth layer cross-attends
+    vision_tokens: int = 0       # stub patch-embedding count
     source: str = ""
 
     @property
@@ -54,15 +70,29 @@ class ModelConfig:
             return self.attn_pattern == "full"
         return i % self.global_every == self.global_every - 1
 
+    def is_cross_layer(self, i: int) -> bool:
+        """Whether decoder layer ``i`` cross-attends: every layer of an
+        encoder-decoder (whisper), the last of each group of
+        ``cross_attn_every`` (llama-vision), none otherwise."""
+        if self.encoder is not None:
+            return True
+        g = self.cross_attn_every
+        return g > 0 and i % g == g - 1
+
     def reduced(self) -> "ModelConfig":
         """Small same-family config for CPU tests (the JAX package's
-        ``ModelConfig.reduced`` for a dense or MoE model)."""
+        ``ModelConfig.reduced``)."""
         mo = None
         if self.moe is not None:
             mo = dataclasses.replace(
                 self.moe, n_experts=min(8, self.moe.n_experts),
                 top_k=min(2, self.moe.top_k),
                 n_shared=min(1, self.moe.n_shared), d_expert=128)
+        enc = None
+        if self.encoder is not None:
+            enc = dataclasses.replace(
+                self.encoder, n_layers=2, n_frames=16, d_model=64,
+                n_heads=4, d_ff=128)
         n_heads = min(4, self.n_heads)
         return dataclasses.replace(
             self,
@@ -76,7 +106,9 @@ class ModelConfig:
             vocab=256,
             sliding_window=8,
             global_every=self.global_every if self.global_every <= 4 else 2,
-            moe=mo,
+            vision_tokens=8 if self.vision_tokens else 0,
+            cross_attn_every=2 if self.cross_attn_every else 0,
+            moe=mo, encoder=enc,
             max_seq_len=128,
             param_dtype="float32",
             compute_dtype="float32",

@@ -1,5 +1,4 @@
-"""--arch registry: id -> ModelConfig (the dense and MoE configs ported so
-far)."""
+"""--arch registry: id -> ModelConfig (the configs ported so far)."""
 
 from __future__ import annotations
 
@@ -7,15 +6,18 @@ from repro_torch.configs import (
     deepseek_moe_16b,
     gemma3_1b,
     gemma3_27b,
+    llama32_vision_11b,
     minitron_8b,
     olmo_1b,
+    whisper_small,
 )
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in (olmo_1b.CONFIG, deepseek_moe_16b.CONFIG,
                         minitron_8b.CONFIG, gemma3_1b.CONFIG,
-                        gemma3_27b.CONFIG)}
+                        gemma3_27b.CONFIG, whisper_small.CONFIG,
+                        llama32_vision_11b.CONFIG)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -1,6 +1,6 @@
 """Building blocks of the decoder (counterpart of ``repro/models/layers.py``):
-norms, rotary embedding, attention, the dense FFN and the mixture of
-experts.
+norms, rotary embedding, self- and cross-attention, the dense FFN and the
+mixture of experts.
 
 Conventions follow the JAX package so the two compare like with like:
 activations are ``[batch, seq, d_model]``; projections are stored K-major
@@ -233,6 +233,56 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         out = attention_core(q, k, v, q_positions=positions,
                              kv_valid_len=None, causal=True, window=window)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def init_cross_attention(generator, cfg: ModelConfig, d_kv: int, dtype,
+                         device) -> dict:
+    """``wq [d, H, hd]``, ``wk``/``wv [d_kv, Hkv, hd]``, ``wo [H, hd, d]``
+    (``layers.init_cross_attention``)."""
+    d, hd = cfg.d_model, cfg.hd
+    return {
+        "wq": dense_init(generator, d, (d, cfg.n_heads, hd), dtype, device),
+        "wk": dense_init(generator, d_kv, (d_kv, cfg.n_kv_heads, hd), dtype,
+                         device),
+        "wv": dense_init(generator, d_kv, (d_kv, cfg.n_kv_heads, hd), dtype,
+                         device),
+        "wo": dense_init(generator, cfg.n_heads * hd, (cfg.n_heads, hd, d),
+                         dtype, device),
+    }
+
+
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk")`` as one matmul whose ``[B, S, H, hd]``
+    result is contiguous (the attention kernel reads its rows)."""
+    B, S, d = x.shape
+    return (x @ w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
+
+
+def apply_cross_attention(p: dict, x: torch.Tensor, ctx: torch.Tensor,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """x ``[B, Sq, d]`` queries over ctx ``[B, Sk, d_kv]``: no mask, no
+    rope; K and V are projected from ``ctx`` on every call, as the JAX
+    package does.
+
+    At one query a slot (the decode step) the non-causal query over all
+    ``Sk`` keys is computed in its causal form, a query at position
+    ``Sk - 1`` (the same function: no key lies past it), which is the
+    form ``decode_attention`` takes: on the card the kernel runs it over
+    the freshly projected K / V.  Every other call is the plain
+    non-causal path."""
+    B, Sq, _ = x.shape
+    q = project_heads(x, p["wq"])
+    k = project_heads(ctx, p["wk"])
+    v = project_heads(ctx, p["wv"])
+    if Sq == 1:
+        qpos = torch.full((B, 1), ctx.shape[1] - 1, dtype=torch.int32,
+                          device=x.device)
+        out = attention_core(q, k, v, q_positions=qpos, kv_valid_len=None,
+                             causal=True)
+    else:
+        out = attention_core(q, k, v, q_positions=None, kv_valid_len=None,
+                             causal=False)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 

@@ -1,16 +1,24 @@
 """Decoder LM: init, cache, decode prepack and forward (counterpart of
-``repro/models/lm.py`` for the dense and MoE families).
+``repro/models/lm.py`` for the dense, MoE, audio and vlm families).
 
 Parameters are a plain dict: ``embed [vocab, d]``, ``ln_f``, and
 ``layers``, a list with one dict per layer (the JAX package stacks them
-``[L, ...]`` for ``lax.scan``; here the layer loop is a Python loop).  The
-cache keeps the JAX layout: ``k``/``v`` are ``[L, B, max_len, Hkv, hd]``
-and ``pos`` is a scalar or a ``[B]`` per-slot vector; a quantized KV store
-adds ``k_scale``/``v_scale`` ``[L, B, max_len, Hkv]``.
+``[L, ...]`` for ``lax.scan``; here the layer loop is a Python loop).  A
+cross-attending layer (:meth:`ModelConfig.is_cross_layer`) also holds
+``ln_cross``, ``cross`` and ``cross_gate``.  llama-3.2-vision's layers
+stay one flat list: layer ``gi * g + i`` is the JAX package's group
+``gi``, member ``i`` (its ``groups.plain`` / ``groups.cross_layer``
+stacks), which is also that package's cache order.  whisper adds
+``encoder``: ``layers`` (a list), ``ln_f`` and ``proj`` (None when the
+encoder and decoder widths agree).  The cache keeps the JAX layout:
+``k``/``v`` are ``[L, B, max_len, Hkv, hd]`` and ``pos`` is a scalar or a
+``[B]`` per-slot vector; a quantized KV store adds ``k_scale``/``v_scale``
+``[L, B, max_len, Hkv]``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -37,11 +45,10 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
 
     The draws come from a ``torch.Generator`` on ``device`` (``seed``
     unless one is given); they are NOT the JAX package's draws -- to feed
-    both packages the same weights, see :mod:`repro_torch.bridge`.
+    both packages the same weights, see :mod:`repro_torch.bridge`.  As in
+    the JAX package, every ``cross_gate`` starts at zero.
     """
-    if cfg.family not in ("dense", "moe") or (
-            (cfg.family == "moe") != (cfg.moe is not None)):
-        raise ValueError(f"family {cfg.family!r} is not ported yet")
+    check_family(cfg)
     device = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     g = generator or torch.Generator(device=device).manual_seed(seed)
@@ -65,8 +72,57 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
             layer["moe"] = L.init_moe(g, cfg, dtype, device)
         else:
             layer["mlp"] = L.init_mlp(g, cfg, dtype, device)
+        if cfg.is_cross_layer(len(params["layers"])):
+            layer["ln_cross"] = L.init_norm(cfg, cfg.d_model, dtype, device)
+            layer["cross"] = L.init_cross_attention(g, cfg, cfg.d_model,
+                                                    dtype, device)
+            layer["cross_gate"] = torch.zeros(1, dtype=dtype, device=device)
         params["layers"].append(layer)
+    if cfg.encoder is not None:
+        params["encoder"] = _init_encoder(g, cfg, dtype, device)
     return params
+
+
+PORTED_FAMILIES = ("dense", "moe", "audio", "vlm")
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """Raise for a family the port does not run yet, or for layers that
+    are not whole groups of ``cross_attn_every`` (as the JAX init
+    asserts)."""
+    if cfg.family not in PORTED_FAMILIES or (
+            (cfg.family == "moe") != (cfg.moe is not None)):
+        raise ValueError(f"family {cfg.family!r} is not ported yet (the port "
+                         f"runs {', '.join(PORTED_FAMILIES)})")
+    if cfg.cross_attn_every and cfg.n_layers % cfg.cross_attn_every:
+        raise ValueError(f"{cfg.n_layers} layers are not whole groups of "
+                         f"{cfg.cross_attn_every}")
+
+
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The whisper encoder's layer config, as the JAX package derives it:
+    the model's with the encoder's widths, one kv head a head, LayerNorm
+    and a gelu FFN."""
+    enc = cfg.encoder
+    return dataclasses.replace(
+        cfg, d_model=enc.d_model, n_heads=enc.n_heads,
+        n_kv_heads=enc.n_heads, d_ff=enc.d_ff, head_dim=0, moe=None,
+        family="dense", norm_type="layernorm", act="gelu")
+
+
+def _init_encoder(g, cfg: ModelConfig, dtype, device) -> dict:
+    """Bidirectional encoder over stub frame embeddings ``[B, T, enc_d]``:
+    its layers, ``ln_f``, and ``proj [enc_d, d]`` to the decoder's width
+    when the two differ (else None)."""
+    ecfg, d = encoder_config(cfg), cfg.encoder.d_model
+    layers = [{"ln1": L.init_norm(ecfg, d, dtype, device),
+               "attn": L.init_attention(g, ecfg, dtype, device),
+               "ln2": L.init_norm(ecfg, d, dtype, device),
+               "mlp": L.init_mlp(g, ecfg, dtype, device)}
+              for _ in range(cfg.encoder.n_layers)]
+    return {"layers": layers, "ln_f": L.init_norm(ecfg, d, dtype, device),
+            "proj": (L.dense_init(g, d, (d, cfg.d_model), dtype, device)
+                     if d != cfg.d_model else None)}
 
 
 # --------------------------------------------------------------------------
@@ -159,6 +215,8 @@ def prepack_decode_params(params: dict, cfg: ModelConfig) -> dict:
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             cache: dict | None = None,
+            frames: torch.Tensor | None = None,
+            vision: torch.Tensor | None = None,
             gemv_policy=None) -> tuple[torch.Tensor, dict | None,
                                        torch.Tensor]:
     """Returns ``(logits [B, S, vocab], new_cache, aux_loss)``.
@@ -172,6 +230,13 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     programs (``gemv_policy.expert_shape``).  Prefill (S > 1) keeps the
     plain matmul path.  ``aux_loss`` sums the MoE layers' load-balance
     losses (0 for a dense model).
+
+    whisper takes ``frames [B, n_frames, enc_d]`` (stub frame embeddings)
+    and runs its encoder over them; llama-3.2-vision takes ``vision [B,
+    vision_tokens, d]`` (stub patch embeddings).  Either is cast to the
+    compute dtype here, and is the context every cross-attending layer
+    projects its K / V from, on every call (decode steps included), as
+    in the JAX package.
     """
     B, Sq = tokens.shape
     dtype = torch_dtype(cfg.compute_dtype)
@@ -186,7 +251,20 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = (pos0.reshape(-1, 1)
                  + torch.arange(Sq, device=x.device)[None, :]).expand(B, Sq)
 
-    x, aux = _forward_flat(params, cfg, x, positions, cache, gemv_policy)
+    ctx = None
+    if cfg.encoder is not None:
+        if frames is None:
+            raise ValueError(f"{cfg.name} needs stub frame embeddings "
+                             f"(frames=)")
+        ctx = run_encoder(params["encoder"], frames.to(dtype), cfg)
+    if cfg.cross_attn_every > 0:
+        if vision is None:
+            raise ValueError(f"{cfg.name} needs stub patch embeddings "
+                             f"(vision=)")
+        ctx = vision.to(dtype)
+
+    x, aux = _forward_flat(params, cfg, x, positions, cache, gemv_policy,
+                           ctx)
 
     x = L.apply_norm(params["ln_f"], x, cfg)
     if "head_t" in params:
@@ -217,10 +295,41 @@ def layer_window(cfg: ModelConfig, i: int) -> int:
     return 0 if i % every == every - 1 else cfg.sliding_window
 
 
-def _forward_flat(params, cfg, x, positions, cache, gemv=None):
+def run_encoder(p: dict, frames: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """whisper's encoder over stub frame embeddings ``[B, T, enc_d]``
+    (``lm._run_encoder``): per layer rope over the frame positions,
+    non-causal attention and a gelu FFN, each pre-LayerNorm with a
+    residual; then ``ln_f`` and, when the widths differ, ``proj``."""
+    ecfg = encoder_config(cfg)
+    B, T, _ = frames.shape
+    positions = torch.arange(T, device=frames.device)[None].expand(B, T)
+    x = frames
+    for pl in p["layers"]:
+        h = L.apply_norm(pl["ln1"], x, ecfg)
+        a = pl["attn"]
+        q = L.rope(L.project_heads(h, a["wq"]), positions, ecfg.rope_theta)
+        k = L.rope(L.project_heads(h, a["wk"]), positions, ecfg.rope_theta)
+        v = L.project_heads(h, a["wv"])
+        o = L.attention_core(q, k, v, q_positions=None, kv_valid_len=None,
+                             causal=False)
+        x = x + torch.einsum("bshk,hkd->bsd", o, a["wo"])
+        h = L.apply_norm(pl["ln2"], x, ecfg)
+        x = x + L.apply_mlp(pl["mlp"], h, ecfg)
+    x = L.apply_norm(p["ln_f"], x, ecfg)
+    if p.get("proj") is not None:
+        x = x @ p["proj"]
+    return x
+
+
+def _forward_flat(params, cfg, x, positions, cache, gemv=None, ctx=None):
     """The layer stack as a Python loop (``lax.scan`` in the JAX package):
     pre-norm attention (over each layer's :func:`layer_window`) and FFN (or
-    MoE) blocks with residuals; returns ``(x, aux_loss)``."""
+    MoE) blocks with residuals, then, on a cross-attending layer, the
+    cross-attention over ``ctx`` with its own pre-norm and residual:
+    gated by ``tanh(cross_gate)`` in llama-vision (``_forward_grouped``),
+    ungated in whisper although its layers carry a gate
+    (``_forward_flat``).  Returns ``(x, aux_loss)``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["layers"]):
         h = L.apply_norm(p["ln1"], x, cfg)
@@ -241,4 +350,10 @@ def _forward_flat(params, cfg, x, positions, cache, gemv=None):
         else:
             ff = L.apply_mlp(p["mlp"], h, cfg, gemv=gemv)
         x = x + ff
+        if "cross" in p:
+            h = L.apply_norm(p["ln_cross"], x, cfg)
+            y = L.apply_cross_attention(p["cross"], h, ctx, cfg)
+            if cfg.cross_attn_every > 0:
+                y = torch.tanh(p["cross_gate"].to(x.dtype)) * y
+            x = x + y
     return x, aux

@@ -40,6 +40,14 @@ construction, down and the LM head as single requests.
 ``kv_store="int8"`` / ``"int4"`` keeps the KV cache as quantized pages
 (``repro_torch.kernels.kv_quant``), prefill and decode alike.
 
+whisper and llama-3.2-vision read per-slot modality features
+(``Engine.features``: stub frame or patch embeddings, ``[batch_slots,
+...]`` f32, drawn as the JAX engine's ``_make_extra`` draws them): a wave
+prefill reads its slots' rows (batch-pad rows reuse the first slot's), a
+chunk its slot's row, a decode step the first ``b`` rows, and defrag
+swaps rows in place.  Their KV is not a function of the tokens alone, so
+the prefix cache stays off for them.
+
 On an MoE model the experts of a decode step run as ragged programs
 (``gemv_expert_shape="ragged"``, the default) or grouped ones
 (``"grouped"``); ``"einsum"`` keeps them out of the dispatcher.  The
@@ -121,6 +129,23 @@ class Request:
         if self.eos_ids is not None:
             return frozenset(self.eos_ids)
         return frozenset((self.eos_id,)) if self.eos_id >= 0 else frozenset()
+
+
+def make_features(cfg: ModelConfig, slots: int,
+                  device) -> dict[str, torch.Tensor]:
+    """The per-slot modality features of the JAX engine's ``_make_extra``:
+    from ``np.random.default_rng(0)``, whisper's stub frame embeddings
+    ``frames [slots, n_frames, enc_d]`` first, then llama-vision's patch
+    embeddings ``vision [slots, vision_tokens, d]``, f32 (the forward
+    casts them to the compute dtype).  Empty for the other families."""
+    rng = np.random.default_rng(0)
+    shapes = {}
+    if cfg.encoder is not None:
+        shapes["frames"] = (slots, cfg.encoder.n_frames, cfg.encoder.d_model)
+    if cfg.cross_attn_every > 0:
+        shapes["vision"] = (slots, cfg.vision_tokens, cfg.d_model)
+    return {k: torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(device) for k, shape in shapes.items()}
 
 
 def _next_pow2(n: int) -> int:
@@ -217,6 +242,9 @@ class Engine:
         # device write per sampled token
         self.last_tok = np.zeros((batch_slots, 1), np.int64)
         self._rngs: dict[int, np.random.Generator] = {}
+        # per-slot modality features; the decode graphs read them by
+        # address, so defrag permutes their rows in place
+        self.features = make_features(cfg, batch_slots, self.device)
         # the decode step's captured graphs, one per bucket (on the card);
         # they reach the body through a weak reference, so a dropped engine
         # frees its graphs and cache at once, not at a later collection
@@ -225,7 +253,8 @@ class Engine:
             DecodeGraphs(lambda b, tok: body()(b, tok), self.kv.cache,
                          slots=batch_slots, vocab=cfg.vocab,
                          device=self.device,
-                         capture=CudaCapture(self.device))
+                         capture=CudaCapture(self.device),
+                         inputs=self.features)
             if self.device.type == "cuda" else None)
 
     # -- request lifecycle ---------------------------------------------------
@@ -413,9 +442,13 @@ class Engine:
             lens[i] = lengths[i]
         sub = lm.init_cache(self.cfg, nb, self.max_len, per_slot_pos=True,
                             kv_store=self.kv_store, device=self.device)
+        # batch-pad rows reuse the first slot's features
+        rows = torch.as_tensor(slots + [slots[0]] * (nb - len(wave)),
+                               device=self.device)
         logits, sub, _ = lm.forward(
             self.params, self.cfg,
-            torch.from_numpy(tokens).to(self.device), cache=sub)
+            torch.from_numpy(tokens).to(self.device), cache=sub,
+            **{k: v[rows] for k, v in self.features.items()})
         idx = torch.from_numpy(lens - 1).to(self.device)
         last = logits[torch.arange(nb, device=self.device), idx]
         self.kv.splice(sub, slots, lengths)
@@ -459,7 +492,8 @@ class Engine:
             logits, sub, _ = lm.forward(
                 self.params, self.cfg,
                 torch.from_numpy(tokens).to(self.device),
-                cache=self.kv.slot_view(slot))
+                cache=self.kv.slot_view(slot),
+                **{k: v[slot:slot + 1] for k, v in self.features.items()})
             self.kv.splice(sub, [slot], [consumed + c])
             self.metrics.prefill_chunk(c)
             if consumed + c < len(toks):
@@ -504,9 +538,10 @@ class Engine:
         """The decode step of the first ``b`` slots on tokens ``tok [b,
         1]``: the forward (new K/V written into the cache in place), the
         advanced ``pos`` written back; returns the last-token logits."""
-        logits, new_cache, _ = lm.forward(self.params, self.cfg, tok,
-                                          cache=self.kv.slice_prefix(b),
-                                          gemv_policy=self.gemv_policy)
+        logits, new_cache, _ = lm.forward(
+            self.params, self.cfg, tok, cache=self.kv.slice_prefix(b),
+            gemv_policy=self.gemv_policy,
+            **{k: v[:b] for k, v in self.features.items()})
         self.kv.merge_prefix(new_cache, b)
         return logits[:, -1]
 
@@ -565,8 +600,20 @@ class Engine:
 
     def _compact(self) -> None:
         """Defrag alloc'd slots to a contiguous prefix and re-point the
-        request map, the chunked-prefill map and the last tokens."""
-        for src, dst in self.kv.compact().items():
+        request map, the chunked-prefill map and the last tokens; SWAP
+        the modality feature rows of each move, in place (the moved
+        request keeps its features, the freed slot inherits the
+        destination's old row, so the rows stay a permutation)."""
+        moves = self.kv.compact()
+        if moves and self.features:
+            # every src > every dst: the swaps are disjoint and commute
+            srcs = torch.as_tensor(list(moves), device=self.device)
+            dsts = torch.as_tensor(list(moves.values()), device=self.device)
+            for v in self.features.values():
+                src_rows = v[srcs]
+                v[srcs] = v[dsts]
+                v[dsts] = src_rows
+        for src, dst in moves.items():
             if src in self.active:
                 r = self.active.pop(src)
                 r.slot = dst

@@ -20,9 +20,10 @@ engine's KV cache, the write of the advanced ``pos`` back into the cache,
 and a copy of the last-token logits into a static output.  A graph keeps
 the addresses it was captured with (the kernels' tensor maps are encoded
 on the host and passed by value), so the cache leaves must never be
-reassigned: every graph step checks their ``data_ptr()`` and raises when
-one moved.  Each bucket's graph has a memory pool of its own (buckets
-replay in any order).
+reassigned, nor may the other tensors the body reads in place (the
+engine's modality features): every graph step checks their
+``data_ptr()`` and raises when one moved.  Each bucket's graph has a
+memory pool of its own (buckets replay in any order).
 
 Host-side counters -- the dispatcher's decisions, ``record_expert_load``
 and the kernel wrappers' ``launches`` -- tick when Python runs the body:
@@ -112,15 +113,20 @@ class DecodeGraphs:
     ``[b, 1]`` int64 token view ``tok`` -- the forward, the write of
     ``pos`` into the cache -- and returns the ``[b, vocab]`` last-token
     logits.  ``leaves`` is the KV cache dict whose tensors the graphs
-    read and write in place.  ``capture`` provides ``warm(body)`` and
-    ``capture(body) -> replay`` (:class:`CudaCapture` on the card).
+    read and write in place, ``inputs`` a dict of other tensors the body
+    reads where they lie (the engine's per-slot modality features), whose
+    rows may change between steps but whose tensors must stay.
+    ``capture`` provides ``warm(body)`` and ``capture(body) -> replay``
+    (:class:`CudaCapture` on the card).
     """
 
     def __init__(self, body: Callable[[int, torch.Tensor], torch.Tensor],
                  leaves: dict[str, torch.Tensor], *, slots: int, vocab: int,
-                 device: torch.device, capture):
+                 device: torch.device, capture,
+                 inputs: dict[str, torch.Tensor]):
         self.body = body
         self.leaves = leaves
+        self.inputs = inputs
         self.capture = capture
         self.tok = torch.zeros((slots, 1), dtype=torch.int64, device=device)
         self.staging = torch.zeros((slots, 1), dtype=torch.int64,
@@ -132,7 +138,9 @@ class DecodeGraphs:
         self.capture_s: dict[int, float] = {}
 
     def _leaf_ptrs(self) -> dict[str, int]:
-        return {name: t.data_ptr() for name, t in self.leaves.items()}
+        return {**{name: t.data_ptr() for name, t in self.leaves.items()},
+                **{f"inputs.{name}": t.data_ptr()
+                   for name, t in self.inputs.items()}}
 
     def _run(self, b: int) -> None:
         self.logits[:b].copy_(self.body(b, self.tok[:b]))
@@ -143,8 +151,8 @@ class DecodeGraphs:
         last-token logits."""
         if self._leaf_ptrs() != self._ptrs:
             raise RuntimeError(
-                "a KV cache leaf was reassigned after the decode graphs "
-                "were set up; the graphs would read the old tensors")
+                "a KV cache leaf or an input was reassigned after the decode "
+                "graphs were set up; the graphs would read the old tensors")
         self.staging[:b].copy_(torch.from_numpy(last_tok[:b]))
         self.tok[:b].copy_(self.staging[:b], non_blocking=True)
         replay = self.replays.get(b)

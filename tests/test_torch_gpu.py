@@ -1238,6 +1238,73 @@ def test_cuda_decode_attention_takes_int64_positions_and_no_valid_len(cuda):
                                **_attention_tol(torch.bfloat16, v))
 
 
+# the multimodal decode step's new shapes: whisper-small's self-attention
+# (12 kv heads of 64 over a 1024-position cache) and cross-attention (over
+# 1500 encoder frames), llama-3.2-vision-11b's cross-attention (8 kv heads
+# of 128, G 4, over 1601 patch embeddings: an odd count)
+MM_SHAPES = {"whisper-self": (12, 1, 64, 1024, False),
+             "whisper-cross": (12, 1, 64, 1500, True),
+             "vision-cross": (8, 4, 128, 1601, True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(MM_SHAPES))
+def test_cuda_decode_attention_at_the_multimodal_shapes(cuda, shape):
+    """The routing rule takes each shape; at every split count the kernel
+    matches the plain version: a self shape on rows of several lengths
+    and idle slots past the end, a cross shape in its causal form (the
+    query at Sk - 1 over all Sk keys) against the plain NON-causal query.
+    On a cross shape ``apply_cross_attention`` at one query a slot
+    launches the kernel once and matches its plain form."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.kernels.attention import (
+        decode_attention,
+        decode_attention_plain,
+        kernel_applies,
+    )
+    from repro_torch.models import layers as L
+
+    Hkv, G, D, C, cross = MM_SHAPES[shape]
+    B = 8
+    qpos = ([C - 1] * B if cross
+            else [0, 16, 299, C - 1, C + 40, 511, 700, 5])
+    q, k, v, pos = _attention_case(cuda, B, C, Hkv, G, D, torch.bfloat16,
+                                   qpos)
+    valid = None if cross else pos + 1
+    assert kernel_applies(q, k, v, causal=True)
+    want = (decode_attention_plain(q, k, v, q_positions=None,
+                                   kv_valid_len=None, causal=False)
+            if cross else
+            decode_attention_plain(q, k, v, q_positions=pos[:, None],
+                                   kv_valid_len=valid))
+    for splits in (None, 1, 2, 4, 8):
+        got = decode_attention(q, k, v, q_positions=pos[:, None],
+                               kv_valid_len=valid, splits=splits)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **_attention_tol(torch.bfloat16, v))
+    if not cross:
+        return
+    d = 256
+    cfg = ModelConfig(name="x", family="vlm", n_layers=1, d_model=d,
+                      n_heads=Hkv * G, n_kv_heads=Hkv, head_dim=D, d_ff=d,
+                      vocab=8, cross_attn_every=1, vision_tokens=C)
+    gen = torch.Generator(device=cuda).manual_seed(C)
+    p = L.init_cross_attention(gen, cfg, d, torch.bfloat16, cuda)
+    x = torch.randn((B, 1, d), generator=gen, device=cuda).to(torch.bfloat16)
+    ctx = torch.randn((B, C, d), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    n0 = decode_attention.launches
+    got = L.apply_cross_attention(p, x, ctx, cfg)
+    assert decode_attention.launches == n0 + 1
+    qh, kh, vh = (L.project_heads(t, p[w]) for t, w in
+                  ((x, "wq"), (ctx, "wk"), (ctx, "wv")))
+    o = decode_attention_plain(qh, kh, vh, q_positions=None,
+                               kv_valid_len=None, causal=False)
+    plain = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    torch.testing.assert_close(got.float(), plain.float(), rtol=2.0**-6,
+                               atol=2.0**-6 * plain.float().abs().max().item())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv_store", ["fp", "int8", "int4"])
 def test_engine_tokens_with_the_attention_kernel_equal_the_plain_path(

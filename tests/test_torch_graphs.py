@@ -134,12 +134,15 @@ class Recorder:
 
 
 def _graphed(eng: Engine) -> Recorder:
-    """Put ``eng`` (on the CPU) on the graph route through a Recorder."""
+    """Put ``eng`` (on the CPU) on the graph route through a Recorder; the
+    graphs read the engine's modality features as its own graphs do."""
     eng.graphs = DecodeGraphs(eng._decode_body, eng.kv.cache,
                               slots=eng.slots, vocab=eng.cfg.vocab,
-                              device=eng.device, capture=None)
+                              device=eng.device, capture=None,
+                              inputs=eng.features)
     rec = eng.graphs.capture = Recorder(
-        [*eng.kv.cache.values(), eng.graphs.logits])
+        [*eng.kv.cache.values(), *eng.features.values(),
+         eng.graphs.logits])
     return rec
 
 
@@ -161,10 +164,10 @@ SCENARIOS = {
 
 
 def _drive(eng, make_req, prompts, new_tokens, joins):
-    """Submit each request at its step, then step until drained; returns
-    {rid: generated}."""
+    """Submit each request at its step, then step until drained (chunked
+    prefills included); returns {rid: generated}."""
     done, pending, step = {}, list(range(len(prompts))), 0
-    while pending or eng.active or eng.scheduler.queue:
+    while pending or eng.active or eng._prefilling or eng.scheduler.queue:
         for i in [i for i in pending if joins[i] <= step]:
             eng.submit(make_req(rid=i, prompt=prompts[i],
                                 max_new_tokens=new_tokens[i]))
