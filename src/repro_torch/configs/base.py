@@ -2,9 +2,12 @@
 
 Counterpart of ``repro/configs/base.py``: the same field names and
 defaults for what a dense, MoE, audio (whisper: an encoder over stub
-frame embeddings) or vlm (llama-3.2-vision: gated cross-attention over
-stub patch embeddings) decoder needs, sliding-window attention included;
-``hd``, ``is_global_layer``, ``is_cross_layer`` and ``reduced()``.
+frame embeddings), vlm (llama-3.2-vision: gated cross-attention over
+stub patch embeddings) or ssm (rwkv6: attention-free time-mix and
+channel-mix over a recurrent state) decoder needs, sliding-window
+attention included; ``hd``, ``attn_free``, ``is_global_layer``,
+``is_cross_layer`` and ``reduced()``.  ``parallel_ssm`` (hymba) is held
+so that its config can be named, but no such family runs yet.
 """
 
 from __future__ import annotations
@@ -24,6 +27,18 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Covers both RWKV6 time-mix and Mamba-style selective SSM heads."""
+
+    kind: str = "mamba"          # "mamba" | "rwkv6"
+    state_dim: int = 16          # per-head recurrent state (hymba: 16)
+    head_dim: int = 64           # rwkv6 head size
+    expand: int = 2              # mamba inner expansion
+    conv_dim: int = 4            # mamba depthwise conv width
+    chunk: int = 128             # chunked-scan block length
+
+
+@dataclass(frozen=True)
 class EncoderConfig:
     """Whisper-style encoder operating on stub frame embeddings."""
 
@@ -37,7 +52,7 @@ class EncoderConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | moe | audio | vlm (those ported)
+    family: str                  # dense | moe | ssm | audio | vlm (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -56,6 +71,8 @@ class ModelConfig:
     compute_dtype: str = "float32"
     max_seq_len: int = 131_072
     moe: MoEConfig | None = None
+    ssm: SSMConfig | None = None
+    parallel_ssm: bool = False   # hymba: attention and mamba heads in parallel
     encoder: EncoderConfig | None = None  # whisper
     cross_attn_every: int = 0    # llama-vision: each Nth layer cross-attends
     vision_tokens: int = 0       # stub patch-embedding count
@@ -64,6 +81,10 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
 
     def is_global_layer(self, i: int) -> bool:
         if self.attn_pattern != "local_global" or self.global_every <= 0:
@@ -88,27 +109,34 @@ class ModelConfig:
                 self.moe, n_experts=min(8, self.moe.n_experts),
                 top_k=min(2, self.moe.top_k),
                 n_shared=min(1, self.moe.n_shared), d_expert=128)
+        ss = None
+        if self.ssm is not None:
+            ss = dataclasses.replace(
+                self.ssm, state_dim=min(8, self.ssm.state_dim),
+                head_dim=32, chunk=16)
         enc = None
         if self.encoder is not None:
             enc = dataclasses.replace(
                 self.encoder, n_layers=2, n_frames=16, d_model=64,
                 n_heads=4, d_ff=128)
-        n_heads = min(4, self.n_heads)
+        # an attention-free config keeps no heads
+        n_heads = min(4, self.n_heads) if self.n_heads else 0
         return dataclasses.replace(
             self,
             name=f"{self.name}-smoke",
             n_layers=min(4, max(2, self.n_layers // 16)),
             d_model=64,
             n_heads=n_heads,
-            n_kv_heads=max(1, min(self.n_kv_heads, n_heads)),
-            head_dim=16,
+            n_kv_heads=max(1, min(self.n_kv_heads, n_heads)) if n_heads
+            else 0,
+            head_dim=16 if self.n_heads else 0,
             d_ff=128,
             vocab=256,
             sliding_window=8,
             global_every=self.global_every if self.global_every <= 4 else 2,
             vision_tokens=8 if self.vision_tokens else 0,
             cross_attn_every=2 if self.cross_attn_every else 0,
-            moe=mo, encoder=enc,
+            moe=mo, ssm=ss, encoder=enc,
             max_seq_len=128,
             param_dtype="float32",
             compute_dtype="float32",

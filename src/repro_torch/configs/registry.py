@@ -9,6 +9,7 @@ from repro_torch.configs import (
     llama32_vision_11b,
     minitron_8b,
     olmo_1b,
+    rwkv6_3b,
     whisper_small,
 )
 from repro_torch.configs.base import ModelConfig
@@ -17,7 +18,7 @@ ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in (olmo_1b.CONFIG, deepseek_moe_16b.CONFIG,
                         minitron_8b.CONFIG, gemma3_1b.CONFIG,
                         gemma3_27b.CONFIG, whisper_small.CONFIG,
-                        llama32_vision_11b.CONFIG)}
+                        llama32_vision_11b.CONFIG, rwkv6_3b.CONFIG)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -1,5 +1,6 @@
 """Decoder LM: init, cache, decode prepack and forward (counterpart of
-``repro/models/lm.py`` for the dense, MoE, audio and vlm families).
+``repro/models/lm.py`` for the dense, MoE, ssm (rwkv6), audio and vlm
+families).
 
 Parameters are a plain dict: ``embed [vocab, d]``, ``ln_f``, and
 ``layers``, a list with one dict per layer (the JAX package stacks them
@@ -13,7 +14,12 @@ stacks), which is also that package's cache order.  whisper adds
 encoder and decoder widths agree).  The cache keeps the JAX layout:
 ``k``/``v`` are ``[L, B, max_len, Hkv, hd]`` and ``pos`` is a scalar or a
 ``[B]`` per-slot vector; a quantized KV store adds ``k_scale``/``v_scale``
-``[L, B, max_len, Hkv]``.
+``[L, B, max_len, Hkv]``.  An rwkv6 layer (``family="ssm"``) holds
+``ln1``, ``ln2``, ``time_mix`` and ``channel_mix`` instead, and its cache
+has no ``k``/``v``: per layer and slot the wkv state ``rwkv_s [L, B, H,
+hd, hd]`` (f32) and the token-shift carries ``rwkv_x_tm`` / ``rwkv_x_cm
+[L, B, d]``, whatever ``kv_store`` says (the state is not the capacity
+term).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.kv_quant import stored_head_dim, validate_kv_store
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -66,8 +73,14 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
         layer = {
             "ln1": L.init_norm(cfg, cfg.d_model, dtype, device),
             "ln2": L.init_norm(cfg, cfg.d_model, dtype, device),
-            "attn": L.init_attention(g, cfg, dtype, device),
         }
+        if cfg.family == "ssm":   # rwkv: time-mix + channel-mix
+            layer["time_mix"] = S.init_rwkv_time_mix(g, cfg, dtype, device)
+            layer["channel_mix"] = S.init_rwkv_channel_mix(g, cfg, dtype,
+                                                           device)
+            params["layers"].append(layer)
+            continue
+        layer["attn"] = L.init_attention(g, cfg, dtype, device)
         if cfg.moe is not None:
             layer["moe"] = L.init_moe(g, cfg, dtype, device)
         else:
@@ -83,15 +96,18 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
     return params
 
 
-PORTED_FAMILIES = ("dense", "moe", "audio", "vlm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "audio", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not run yet, or for layers that
-    are not whole groups of ``cross_attn_every`` (as the JAX init
-    asserts)."""
-    if cfg.family not in PORTED_FAMILIES or (
-            (cfg.family == "moe") != (cfg.moe is not None)):
+    """Raise for a family the port does not run yet (the hybrid family's
+    parallel Mamba heads among them, and an ssm config that is not rwkv6),
+    or for layers that are not whole groups of ``cross_attn_every`` (as
+    the JAX init asserts)."""
+    if cfg.family not in PORTED_FAMILIES or cfg.parallel_ssm or (
+            (cfg.family == "moe") != (cfg.moe is not None)) or (
+            (cfg.family == "ssm") != (cfg.ssm is not None
+                                      and cfg.ssm.kind == "rwkv6")):
         raise ValueError(f"family {cfg.family!r} is not ported yet (the port "
                          f"runs {', '.join(PORTED_FAMILIES)})")
     if cfg.cross_attn_every and cfg.n_layers % cfg.cross_attn_every:
@@ -135,7 +151,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                device=None) -> dict:
     """Decode state: ``pos`` (a scalar, or ``[batch]`` with
     ``per_slot_pos``) and ``k``/``v`` leaves ``[L, batch, max_len, Hkv,
-    hd]``.
+    hd]``; for rwkv6 no ``k``/``v`` but ``rwkv_s [L, batch, H, hd, hd]``
+    (f32, zeros) and ``rwkv_x_tm`` / ``rwkv_x_cm [L, batch, d]``, in every
+    ``kv_store``.
 
     ``kv_store`` selects the KV storage (``repro_torch.kernels.kv_quant``):
     ``"fp"`` keeps ``dtype`` leaves; ``"int8"`` / ``"int4"`` store int8
@@ -149,6 +167,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     n, hkv = cfg.n_layers, cfg.n_kv_heads
     cache = {"pos": torch.zeros((batch,) if per_slot_pos else (),
                                 dtype=torch.int32, device=device)}
+    if cfg.family == "ssm":
+        H, hd = S.rwkv_heads(cfg)
+        cache["rwkv_s"] = torch.zeros((n, batch, H, hd, hd),
+                                      dtype=torch.float32, device=device)
+        for name in ("rwkv_x_tm", "rwkv_x_cm"):
+            cache[name] = torch.zeros((n, batch, cfg.d_model), dtype=dtype,
+                                      device=device)
+        return cache
     if kv_store == "fp":
         kv_shape = (n, batch, max_len, hkv, cfg.hd)
         cache["k"] = torch.zeros(kv_shape, dtype=dtype, device=device)
@@ -181,11 +207,17 @@ def prepack_decode_params(params: dict, cfg: ModelConfig) -> dict:
     per token).
 
     The originals stay, as in the JAX package: prefill and the unfused
-    decode path (``fuse_programs=False``) read them.  Returns a NEW dict;
-    ``params``' own tensors are shared, not copied.
+    decode path (``fuse_programs=False``) read them.  An rwkv6 model's
+    layers pass through unchanged (its projections stay plain matmuls, as
+    in the JAX package); only its head gets ``head_t``.  Returns a NEW
+    dict; ``params``' own tensors are shared, not copied.
     """
     d = cfg.d_model
     packed = dict(params)
+    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    packed["head_t"] = head.contiguous()
+    if cfg.family == "ssm":
+        return packed
     packed["layers"] = []
     def gateup(m: dict) -> dict:
         if "w_gate" not in m:        # an ungated FFN (relu2, gelu)
@@ -203,8 +235,6 @@ def prepack_decode_params(params: dict, cfg: ModelConfig) -> dict:
         if "shared" in p.get("moe", {}):
             layer["moe"] = {**p["moe"], "shared": gateup(p["moe"]["shared"])}
         packed["layers"].append(layer)
-    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    packed["head_t"] = head.contiguous()
     return packed
 
 
@@ -223,9 +253,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     With a cache, the new K/V are written into ``cache``'s ``k``/``v``
     tensors (and, for a quantized store, their codes and ``k_scale`` /
-    ``v_scale``) IN PLACE and ``new_cache`` shares them (with ``pos``
-    advanced by S).  ``gemv_policy`` routes single-token (decode) projections
-    through the GEMV dispatcher: QKV and gate+up as fused programs, down
+    ``v_scale``), and an rwkv6 model's state into its ``rwkv_*`` tensors,
+    IN PLACE and ``new_cache`` shares them (with ``pos`` advanced by S).
+    ``gemv_policy`` routes single-token (decode) projections through the
+    GEMV dispatcher: QKV and gate+up as fused programs, down
     and the LM head as single requests, MoE experts as ragged or grouped
     programs (``gemv_policy.expert_shape``).  Prefill (S > 1) keeps the
     plain matmul path.  ``aux_loss`` sums the MoE layers' load-balance
@@ -329,9 +360,13 @@ def _forward_flat(params, cfg, x, positions, cache, gemv=None, ctx=None):
     cross-attention over ``ctx`` with its own pre-norm and residual:
     gated by ``tanh(cross_gate)`` in llama-vision (``_forward_grouped``),
     ungated in whisper although its layers carry a gate
-    (``_forward_flat``).  Returns ``(x, aux_loss)``."""
+    (``_forward_flat``).  An rwkv6 layer is :func:`_rwkv_block`.  Returns
+    ``(x, aux_loss)``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["layers"]):
+        if cfg.family == "ssm":
+            x = _rwkv_block(p, x, cfg, cache, i)
+            continue
         h = L.apply_norm(p["ln1"], x, cfg)
         cache_kv = (cache["k"][i], cache["v"][i]) if cache is not None \
             else None
@@ -357,3 +392,21 @@ def _forward_flat(params, cfg, x, positions, cache, gemv=None, ctx=None):
                 y = torch.tanh(p["cross_gate"].to(x.dtype)) * y
             x = x + y
     return x, aux
+
+
+def _rwkv_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                cache: dict | None, i: int) -> torch.Tensor:
+    """Layer ``i`` of rwkv6 (``lm._rwkv_block``): pre-norm time-mix and
+    channel-mix with residuals; with a cache, their state continues from
+    layer ``i``'s leaves and is advanced in place."""
+    tm_state = cm_prev = None
+    if cache is not None:
+        tm_state = (cache["rwkv_s"][i], cache["rwkv_x_tm"][i])
+        cm_prev = cache["rwkv_x_cm"][i]
+    h = L.apply_norm(p["ln1"], x, cfg)
+    y, _ = S.apply_rwkv_time_mix(p["time_mix"], h, cfg, state=tm_state)
+    x = x + y
+    h = L.apply_norm(p["ln2"], x, cfg)
+    y, _ = S.apply_rwkv_channel_mix(p["channel_mix"], h, cfg,
+                                    prev_x=cm_prev)
+    return x + y

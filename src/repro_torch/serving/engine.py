@@ -17,14 +17,23 @@ step on the slot's own row (``SlotKVCache.slot_view``), so a long prompt no
 longer stalls the decode of the active slots.  A slot mid-prefill sits
 inside the decode bucket: the step writes one position at its ``pos`` and
 advances it; the engine puts ``pos`` back, outside the step, and the next
-chunk rewrites that position (no copy of the row).
+chunk rewrites that position (no copy of the row).  A recurrent model's
+step would also advance the row's state: its state rows (and only those)
+are saved before the step and restored after it, outside the captured
+graph.
+
+A recurrent model (rwkv6) never runs a pad token through its state, as in
+the JAX package: a wave prefills one request at its exact length, a chunk
+runs its exact tokens, and a first chunk starts from zeroed state.
 
 ``prefix_cache=True`` (or a ``PrefixCacheConfig`` / ``PrefixCache``) keeps
 prefilled KV in a radix index (:mod:`repro_torch.serving.prefix_cache`): at
 admission the longest cached prefix is spliced into the slot and only the
 tail prefills, through the chunked seam.  Preemption files the victim's KV
 there first, so a readmitted victim re-prefills only what it generated
-since.
+since.  A recurrent model's state can only resume from a snapshot taken
+at a segment's end: its chunked prefill files one at every chunk
+boundary.
 
 With ``preempt_margin`` set on a ``gemv_aware`` scheduler, a queued
 request whose deadline would pass within the margin while every slot is
@@ -61,8 +70,7 @@ and is then captured, every later one replays.  Inside
 :func:`~repro_torch.serving.step_graph.disable_graphs`, and always on the
 CPU, the step runs eagerly op by op.  Prefill stays eager.
 
-Not ported yet: prefill as captured programs, async prefill, recurrent
-state checkpoints in the prefix cache (no such family is ported), sharded
+Not ported yet: prefill as captured programs, async prefill, sharded
 (mesh) serving and the tracer.
 """
 
@@ -80,7 +88,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.backends import DispatchPolicy
 from repro_torch.kernels.kv_quant import validate_kv_store
 from repro_torch.models import lm
-from repro_torch.serving.kv_cache import POSITIONAL_LEAVES, SlotKVCache
+from repro_torch.serving.kv_cache import SlotKVCache
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.prefix_cache import (
     PrefixCache,
@@ -186,6 +194,8 @@ class Engine:
         self.max_len = max_len
         self.clock = clock
         self.prefill_chunk = prefill_chunk
+        # recurrent state must never see a pad token: exact prefill shapes
+        self.exact_prefill = cfg.family == "ssm" or cfg.parallel_ssm
         # One DispatchPolicy for the engine's lifetime; above the batch
         # threshold the backend itself sends decode GEMVs to ref.
         self.gemv_policy = (
@@ -223,13 +233,10 @@ class Engine:
             if isinstance(prefix_cache, PrefixCache):
                 self.prefix = prefix_cache
             else:
-                has_state = any(
-                    name != "pos" and name not in POSITIONAL_LEAVES
-                    and leaf.ndim > 1 for name, leaf in self.kv.cache.items())
                 self.prefix = PrefixCache(
                     prefix_cache if isinstance(prefix_cache,
                                                PrefixCacheConfig) else None,
-                    has_state=has_state)
+                    has_state=bool(self.kv.state_names))
             # admission prices a cached prefix as near-zero prefill
             self.scheduler.prefill_cost = self._prefill_cost
         self.active: dict[int, Request] = {}   # slot -> request
@@ -313,8 +320,10 @@ class Engine:
                    if self.prefill_chunk else [])
         chunked_ids = {id(r) for r in chunked}
         plain = [r for r in misses if id(r) not in chunked_ids]
-        if plain:
-            finished.extend(self._prefill_wave(plain))
+        # a recurrent model prefills one request a wave (no pad rows)
+        for wave in ([[r] for r in plain] if self.exact_prefill
+                     else [plain] if plain else []):
+            finished.extend(self._prefill_wave(wave))
         for r in chunked:
             # the admission spent this slot; its first chunk runs below
             self._prefilling[self.kv.alloc()] = [r, 0]
@@ -432,8 +441,9 @@ class Engine:
         Lmax = max(lengths)
         # the pow2 pad never runs past max_len: the KV write starts at 0 and
         # a longer pad would have to clamp (the JAX engine caps it the same
-        # way, engine.py:700)
-        Lpad = max(min(_next_pow2(Lmax), self.max_len), Lmax)
+        # way, engine.py:700); recurrent state takes no pad at all
+        Lpad = (Lmax if self.exact_prefill
+                else max(min(_next_pow2(Lmax), self.max_len), Lmax))
         nb = min(_next_pow2(len(wave)), self.slots)
         tokens = np.zeros((nb, Lpad), np.int64)
         lens = np.ones((nb,), np.int64)
@@ -480,15 +490,18 @@ class Engine:
             # the pad never runs past max_len: the KV write starts at
             # ``consumed`` and a longer pad would clamp the start backwards
             # over earlier chunks (the JAX engine's rule, engine.py:773)
-            cpad = max(min(_next_pow2(c), chunk_limit,
-                           self.max_len - consumed), c)
+            cpad = (c if self.exact_prefill else
+                    max(min(_next_pow2(c), chunk_limit,
+                            self.max_len - consumed), c))
             tokens = np.zeros((1, cpad), np.int64)
             tokens[0, :c] = chunk
             # every chunk runs on the slot's own row, in place; a first
             # chunk starts at 0 (what an earlier occupant left at or past
-            # ``pos`` is masked, then overwritten)
+            # ``pos`` is masked, then overwritten) and from zeroed state (the
+            # JAX engine's fresh one-slot cache)
             if consumed == 0:
                 self.kv.cache["pos"][slot] = 0
+                self.kv.zero_state(slot)
             logits, sub, _ = lm.forward(
                 self.params, self.cfg,
                 torch.from_numpy(tokens).to(self.device),
@@ -498,6 +511,10 @@ class Engine:
             self.metrics.prefill_chunk(c)
             if consumed + c < len(toks):
                 self._prefilling[slot][1] = consumed + c
+                # state resumes only from a snapshot, and an edge split
+                # cannot make one mid-edge: file one at each chunk boundary
+                if self.prefix is not None and self.prefix.has_state:
+                    self._prefix_insert(slot, toks[:consumed + c])
                 continue
             del self._prefilling[slot]
             self._prefix_insert(slot, toks)
@@ -548,19 +565,24 @@ class Engine:
     def _decode(self) -> tuple[list[Request], int, float]:
         t0 = self.clock()
         b = self.decode_bucket()
+        # rows mid-prefill ride the step (their logits go unsampled); their
+        # recurrent state must come out of it as it went in
+        mid = [s for s in sorted(self._prefilling) if s < b]
+        self.kv.save_state(mid)
         if self.graphs is not None and graphs_enabled():
             logits_np = self.graphs.step(b, self.last_tok)
         else:
             last = torch.from_numpy(self.last_tok[:b]).to(self.device)
             logits_np = self._decode_body(b, last).float().cpu().numpy()
         if self._prefilling:
-            # rows mid-prefill rode the step (their logits go unsampled):
-            # it wrote one position at their ``pos`` and advanced it.  Put
-            # ``pos`` back; the next chunk rewrites that position.
+            # the step wrote one position at their ``pos`` and advanced it.
+            # Put ``pos`` and the state back; the next chunk rewrites that
+            # position.
             slots = sorted(self._prefilling)
             self.kv.cache["pos"][torch.as_tensor(slots, device=self.device)] \
                 = torch.as_tensor([self._prefilling[s][1] for s in slots],
                                   dtype=torch.int32, device=self.device)
+            self.kv.restore_state(mid)
         decode_s = self.clock() - t0
         now = self.clock()
         finished = []

@@ -21,6 +21,13 @@ through every mutation below exactly like ``k`` / ``v``.
   the cache's own ``kv_store`` format (codes and scales of a quantized
   store), bit for bit.
 
+* **recurrent state** (rwkv6's ``rwkv_*`` leaves: every leaf that is
+  neither ``pos`` nor positional) -- :meth:`zero_state` clears a slot's
+  state before a fresh prompt runs on its row, and :meth:`save_state` /
+  :meth:`restore_state` carry the rows of slots mid-prefill across a
+  decode step that covers them, through buffers allocated once (no K/V
+  leaf is ever copied for it).
+
 Host-side per-slot metadata (``slot_meta``, one dict per active slot: the
 prefix cache keeps its segment pins there) moves with its slot through
 :meth:`compact` and is dropped on :meth:`free`.
@@ -79,6 +86,15 @@ class SlotKVCache:
         self.cache = lm.init_cache(cfg, batch_slots, max_len, dtype,
                                    per_slot_pos=True, kv_store=kv_store,
                                    device=self.device)
+        # the state leaves, and one save buffer each (empty for a pure-KV
+        # family): a decode step over a row mid-prefill must leave it as
+        # it was
+        self.state_names = tuple(
+            name for name, leaf in self.cache.items()
+            if name != "pos" and name not in POSITIONAL_LEAVES
+            and leaf.ndim > 1)
+        self._saved = {name: torch.empty_like(self.cache[name])
+                       for name in self.state_names}
         self._free: list[int] = list(range(batch_slots))
         self._active: set[int] = set()
         # opaque per-slot metadata: moves with compact(), dropped on free()
@@ -116,6 +132,28 @@ class SlotKVCache:
     def kv_valid_len(self) -> np.ndarray:
         """Host copy of the per-slot valid-kv lengths (the ``pos`` vector)."""
         return self.cache["pos"].cpu().numpy()
+
+    # -- recurrent state -----------------------------------------------------
+
+    def zero_state(self, slot: int) -> None:
+        """Clear slot ``slot``'s state leaves in place (a fresh prompt's
+        first chunk on a row an earlier occupant, or the decode steps of a
+        free row, left state in)."""
+        for name in self.state_names:
+            self.cache[name][:, slot].zero_()
+
+    def save_state(self, slots) -> None:
+        """Copy the state rows of ``slots`` into the save buffers."""
+        for name in self.state_names:
+            for s in slots:
+                self._saved[name][:, s].copy_(self.cache[name][:, s])
+
+    def restore_state(self, slots) -> None:
+        """Put back the state rows of ``slots`` that :meth:`save_state`
+        copied, bit for bit."""
+        for name in self.state_names:
+            for s in slots:
+                self.cache[name][:, s].copy_(self._saved[name][:, s])
 
     # -- batched prefill splice ---------------------------------------------
 

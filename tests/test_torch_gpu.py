@@ -1402,7 +1402,10 @@ GRAPH_CASES = [("olmo-1b", dict(kv_store=s)) for s in ("fp", "int8", "int4")
                     ("deepseek-moe-16b", dict(gemv_backend="h100")),
                     ("deepseek-moe-16b", dict(gemv_backend="h100",
                                               gemv_expert_shape="grouped",
-                                              batch_slots=1))]
+                                              batch_slots=1)),
+                    # rows mid-prefill ride replayed buckets: their state
+                    # rows are saved and restored around the replay
+                    ("rwkv6-3b", dict(prefill_chunk=4))]
 
 
 @pytest.mark.gpu
@@ -1527,3 +1530,36 @@ def test_a_second_engine_captures_its_own_graphs(cuda):
     assert a.replays and b.replays
     assert a.tok.data_ptr() != b.tok.data_ptr()
     assert not set(a.replays.values()) & set(b.replays.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 7])
+def test_rwkv_mixes_on_the_card_match_the_cpu(cuda, S):
+    """rwkv6's time-mix and channel-mix on CUDA tensors against the same
+    f32 computation on the CPU, state advanced in place on both (the
+    recurrence has no kernel: plain torch in the JAX package's order)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm, ssm
+
+    cfg = get_config("rwkv6-3b").reduced()
+    p = lm.init_lm(cfg, seed=1, device="cpu")["layers"][0]
+    p["time_mix"]["u"].normal_()
+    p["time_mix"]["mu"].uniform_()
+    g = torch.Generator().manual_seed(S)
+    x = torch.randn((3, S, cfg.d_model), generator=g)
+    H, hd = ssm.rwkv_heads(cfg)
+    s0 = torch.randn((3, H, hd, hd), generator=g)
+    xp = torch.randn((3, cfg.d_model), generator=g)
+    outs = {}
+    for dev in ("cpu", cuda):
+        pd = {k: {n: t.to(dev) for n, t in v.items()} for k, v in p.items()}
+        state = (s0.clone().to(dev), xp.clone().to(dev))
+        prev = xp.clone().to(dev)
+        y, (s, xl) = ssm.apply_rwkv_time_mix(pd["time_mix"], x.to(dev), cfg,
+                                             state=state)
+        assert s is state[0] and xl is state[1]
+        yc, _ = ssm.apply_rwkv_channel_mix(pd["channel_mix"], x.to(dev), cfg,
+                                           prev_x=prev)
+        outs[str(dev)] = [t.cpu() for t in (y, s, xl, yc, prev)]
+    for a, b in zip(outs["cpu"], outs[str(cuda)]):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)

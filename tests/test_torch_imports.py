@@ -30,7 +30,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.kernels.kv_quant", "repro_torch.kernels.triton_gemv",
             "repro_torch.kernels.backends.gpu",
             "repro_torch.kernels.attention",
-            "repro_torch.serving.prefix_cache",
+            "repro_torch.serving.prefix_cache", "repro_torch.models.ssm",
             "repro_torch.serving.bench"} <= set(names)
     code = (
         "import sys\n"
