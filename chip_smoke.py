@@ -199,7 +199,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    hits, preemption, and every decode step with a row mid-prefill leaves
    that row's state bit-equal, its whole state rows copied only by the
    engine's save and restore;
-15. autotune -- olmo-1b's decode GEMVs at batch 8, a fused QKV program and
+15. hybrid -- ``[hybrid kernels]``: ``pim_gemv`` and ``splitk_gemv`` at
+   every decode GEMV shape of hymba-1.5b (QKV 1600 -> 2240, gate+up 1600
+   -> 11008, down 5504 -> 1600, the tied head of 32001, which no kernel
+   takes) at batch 1 and 8, and ``decode_attention`` at its shape (5 kv
+   heads of 64, G 5, 8 slots of a 2048-position cache) with a window of
+   1024 and none, as in ``[families kernels]``.  ``[hybrid engine]``:
+   hymba-1.5b at full width and depth (32 layers: attention, 30 of them
+   in a 1024-position window, beside Mamba heads of inner width 3200 over
+   an f32 state of 16 a channel), bf16, seed 0, with the betas, ``D``,
+   ``dt_bias`` and ``A_log`` drawn afresh as the CPU tests draw them;
+   ``Engine(batch_slots=8, max_len=2048)``, the families' 8 prompts of 64
+   to 1536 tokens (each prefilled alone at its exact length), 32 greedy
+   tokens each, both routes, the engine phase's rules (tokens equal,
+   ``decode_attention`` 32 a step, ``pim_gemv`` / ``splitk_gemv`` as the
+   picks predict: 32 + 32, QKV and the head stay on ``ref``; no
+   cache-shaped cast or copy; the replayed window's port kernels);
+   ``[hybrid logits]``; then ``[hybrid serving]`` with the weights cast
+   to f32: the ``[serving]`` rules on 10 requests of 2 tenants (384-token
+   prefixes, 16-64-token tails, 16 tokens each) and the two urgent
+   requests, chunk 128, the prefix cache holding K/V spans and state
+   snapshots at chunk boundaries: tokens equal on both routes AND equal
+   to the plain engine's (but at a near tie), prefix hits, preemption,
+   and the rows mid-prefill bit-equal across each decode step; to run
+   the phase alone: ``python3 -c "import torch, chip_smoke as cs; from
+   repro_torch.kernels import _build; _build.build(force=True);
+   cs.warm_profiler(); cs.run_hybrid(torch.device('cuda', 0))"``;
+16. autotune -- olmo-1b's decode GEMVs at batch 8, a fused QKV program and
    a ragged expert program, tuned on the h100 and gpu backends into
    ``build/autotune_smoke.json`` (``pim``/``splitk`` at every ring depth,
    labelled ``pim/s4`` etc.); table and plan cache cleared, the file
@@ -208,7 +234,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    1024-row K chunks, and grouped and ragged expert programs on the first
    expert kernels' tiles) replays: each GEMV keeps its kernel on a
    re-planned plan and matches its plain version;
-16. the ``{"kernels": [...]}`` line, the card line, and the last line
+17. the ``{"kernels": [...]}`` line (``decode_attention_g5``: the G 5
+   instance over one hymba-1.5b step), the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 A fuller report goes to ``chiprun_out/chip_smoke.json``.  Nothing here
@@ -1965,9 +1992,10 @@ SERVE_RUNS = {  # tag: (arch, kv_store, requests, tenants, new tokens)
     "olmo-1b int8": ("olmo-1b", "int8", 24, 4, 24),
     "deepseek-moe-16b ragged": (MOE_ARCH, "fp", 8, 2, 16),
     "rwkv6-3b f32": ("rwkv6-3b", "fp", 12, 2, 16),
+    "hymba-1.5b f32": ("hymba-1.5b", "fp", 10, 2, 16),
 }
 # a tag's private tails where they are not SERVE_TAIL
-SERVE_TAILS = {"rwkv6-3b f32": (16, 64)}
+SERVE_TAILS = {"rwkv6-3b f32": (16, 64), "hymba-1.5b f32": (16, 64)}
 # A recurrent model's mix must give the plain engine's tokens; a stream
 # may part from it only at a near tie: where the two runs' top-2 logit
 # margin is below NEAR_TIE, about 14x the drift of f32 logits between
@@ -3532,6 +3560,115 @@ def run_state(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# hybrid: hymba-1.5b, Mamba heads beside sliding-window attention (G 5)
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "hymba-1.5b"
+HYBRID_TOKENS = 32
+
+
+def perturb_hymba(params: dict, seed: int) -> None:
+    """Draw afresh, in place, what the init hides (betas of ones, a skip
+    ``D`` of ones, a ``dt_bias`` of zeros, the same ``A_log`` row for
+    every channel), as the CPU tests do: each beta ~ U(2, 6), ``D`` ~ N(0,
+    1), ``dt_bias`` ~ N(-2, 1), ``A_log`` ~ N(-1, 1), so that the Mamba
+    branch and its state matter."""
+    g = torch.Generator(device=params["embed"].device).manual_seed(seed)
+    for p in params["layers"]:
+        p["beta_attn"].uniform_(2, 6, generator=g)
+        p["beta_ssm"].uniform_(2, 6, generator=g)
+        m = p["mamba"]
+        m["D"].normal_(generator=g)
+        m["dt_bias"].normal_(-2.0, 1.0, generator=g)
+        m["A_log"].normal_(-1.0, 1.0, generator=g)
+
+
+def run_hybrid(dev) -> dict:
+    """hymba-1.5b at full width and depth, perturbed: ``[hybrid
+    kernels]``, ``pim_gemv`` / ``splitk_gemv`` at each of its decode GEMV
+    shapes and ``decode_attention`` at G 5 (windows 1024 and 0) against
+    their plain versions, timed; ``[hybrid engine]``, ``Engine(batch_slots
+    =8, max_len=2048)`` on the families' prompts of 64-1536 tokens,
+    ``HYBRID_TOKENS`` greedy tokens each, both routes and the engine
+    phase's rules (``decode_attention`` once a layer, ``pim_gemv`` /
+    ``splitk_gemv`` as the picks predict); ``[hybrid logits]``; then, with
+    the weights in f32, ``[hybrid serving]``: the traffic mix of
+    ``[serving]`` with the prefix cache's state snapshots, whose tokens
+    must equal the plain engine's but at a near tie."""
+    cfg = get_config(HYBRID_ARCH)
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    log(f"[hybrid] every number below on {card}")
+    log(f"[hybrid kernels] pim_gemv and splitk_gemv at every decode GEMV "
+        f"shape of {cfg.name} at B {FAMILY_BATCHES} (rtol 2^-7, atol 1e-3),"
+        f" timed; decode_attention at G {cfg.n_heads // cfg.n_kv_heads} with"
+        f" windows {FAMILY_WINDOWS}")
+    # the tied head's 32001 columns are no whole number of 16-byte bf16
+    # vectors: no kernel takes it, and the picks leave it on ref
+    shapes = {k: v for k, v in family_gemv_shapes(cfg).items()
+              if v[1] * 2 % 16 == 0}
+    left = sorted(set(family_gemv_shapes(cfg)) - set(shapes))
+    log(f"  no kernel takes {left} (columns not whole 16-byte vectors): "
+        f"on ref")
+    rows = check_kernels(dev, shapes, FAMILY_BATCHES, cfg.name)
+    rows += check_family_attention(dev, cfg)
+    di, n, cw = cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim, \
+        cfg.ssm.conv_dim
+    log(f"[hybrid engine] {cfg.name}: {cfg.n_layers} layers, d="
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv heads "
+        f"of {cfg.hd}, windows {layer_windows(cfg)}, Mamba heads beside "
+        f"(inner {di}, state {n}, conv {cw}), d_ff={cfg.d_ff}, tied head of "
+        f"{cfg.vocab}; bf16, seed {SEED}, perturbed (betas, D, dt_bias, "
+        f"A_log drawn)")
+    params = lm.init_lm(cfg, seed=SEED, device=dev)
+    perturb_hymba(params, SEED)
+    torch.cuda.synchronize()
+    log(f"  init {time.perf_counter() - t0:.1f} s (with the kernel checks), "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
+    res = run_engine(cfg, params, dev, new_tokens=HYBRID_TOKENS,
+                     lengths=FAMILY_LENGTHS, max_len=FAMILY_MAX_LEN,
+                     ttft=False)
+    log_routes(cfg.name, res)
+    pt = res["per_token_ms"]
+    log(f"  [{cfg.name}] requests {res['requests']}, tokens "
+        f"{res['tokens']}, per-token p50 {pt['p50']:.3f} ms p90 "
+        f"{pt['p90']:.3f} ms, TTFT p50 {res['ttft_ms']['p50']:.1f} ms, "
+        f"peak {res['peak_mem_gb']:.3f} GB, KV and state "
+        f"{res['kv_bytes_per_slot'] / 1e6:.2f} MB a slot; launches a "
+        f"counted decode step {res['routes']['eager']['launches_per_step']}"
+        f", as the picks predict {res['float_launches_by_batch']}")
+    res["logits"] = logits_check(cfg, params, dev, max_len=FAMILY_MAX_LEN,
+                                 strict=False)
+    lg = res["logits"]
+    log(f"[hybrid logits] {cfg.name}: batch {lg['batch']}: max |kernels - "
+        f"ref| {lg['max_abs_diff']:.4f} ({lg['diff_in_ulps']:.1f} bf16 ulps "
+        f"at |logit| max {lg['logit_absmax']:.2f}); argmax agree "
+        f"{lg['argmax_agree']}/{lg['batch']}")
+    # the mix in f32, as [state]'s: chunked and whole prefill of one
+    # prompt are two batchings of the same work, which bf16 rounds apart
+    params = to_f32(params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    tag = f"{cfg.name} f32"
+    log(f"[hybrid serving] {tag}: the same weights in f32; chunked prefill "
+        f"({SERVE_CHUNK}), the prefix cache (K/V spans and state snapshots "
+        f"at chunk boundaries) and preemption, both routes, then the plain "
+        f"engine (tokens must be equal, or part only at a near tie < "
+        f"{NEAR_TIE})")
+    res["serving"] = run_serving(cfg32, params, dev, tag)
+    log_serving(res["serving"])
+    res["kernel_rows"] = rows
+    res["card"] = card
+    res["seconds"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def run_autotune(dev) -> dict:
     """Tune every olmo-1b decode GEMV at batch 8 and two programs (fused
     QKV; deepseek-moe-16b's ragged gate/up experts, top-6 of 8 tokens) on
@@ -3799,7 +3936,7 @@ def replay_stale_table(dev) -> dict:
 
 
 def kernels_line(rows: list[dict], launch_counts: dict,
-                 per_step: dict) -> dict:
+                 per_step: dict, instances=()) -> dict:
     """One entry per kernel.  Its top-level times are one decode step: for
     the olmo-1b kernels at batch 8, the sum over the GEMVs at that batch
     (each shape weighted by its calls per step) that the h100 backend --
@@ -3814,7 +3951,9 @@ def kernels_line(rows: list[dict], launch_counts: dict,
     at each bucket's eager first step and at its capture, never at a
     replay; ``launches_per_step`` is the eager pass's count a decode step
     (the quant kernels: their one dispatcher pass), and every replayed
-    step runs the eager step's port kernels (``compare_replay``)."""
+    step runs the eager step's port kernels (``compare_replay``).  Each of
+    ``instances`` adds an entry for a later model's template instance
+    (``instance_entry``)."""
     picks = {"pim_gemv": ("gate_up", "head"), "splitk_gemv": ("qkv", "down"),
              "quant_gemv": tuple(SHAPES), "quant4_gemv": tuple(SHAPES),
              "triton_gemv": ("head",)}
@@ -3889,7 +4028,46 @@ def kernels_line(rows: list[dict], launch_counts: dict,
                 "torch.bmm over the experts with rows, x padded to the "
                 "largest count: a reference point, not the same function")
         out.append(entry)
+    for inst in instances:
+        out.append(instance_entry(rows, **inst))
     return {"kernels": out}
+
+
+def instance_entry(rows: list[dict], name: str, kernel: str, arch: str,
+                   launches: int, launches_per_step: float) -> dict:
+    """An entry of the kernels line for one template instance of
+    ``kernel`` that a later model added (``decode_attention`` at hymba's G
+    5): its times are one decode step of ``arch`` at batch 8, each of the
+    arch's timed shapes (a window's layers) weighted by its layers a step;
+    ``launches`` is the count from that arch's engine phase (graph
+    route), ``launches_per_step`` its eager step's."""
+    k = KERNELS[kernel]
+    mine = [r for r in rows if r["kernel"] == kernel
+            and r.get("arch") == arch and r.get("store", "fp") == "fp"]
+    if not mine:
+        raise AssertionError(f"no timed rows of {kernel} for {arch}")
+
+    def total(key):
+        return sum(r[key] * r["per_step"] for r in mine)
+
+    bytes_ms, ops_ms = total("bytes_ms"), total("ops_ms")
+    return {
+        "name": name, "route": "cuda", "source": k["source"],
+        "replaces": k["replaces"], "launches": launches,
+        "launches_per_step": launches_per_step,
+        "max_abs_err": max(r["max_abs_err"] for r in mine),
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": total("library_ms"),
+        "basis": (f"one {arch} decode step at batch 8: "
+                  + ", ".join(f"{r['shape']} x{r['per_step']}"
+                              for r in mine)),
+        "shapes": [{key: r[key] for key in (
+            "shape", "B", "C", "Hkv", "H", "G", "D", "window", "valid",
+            "splits", "per_step", "ms", "plain_ms", "library_ms",
+            "bound_ms", "max_abs_err")} for r in mine],
+    }
 
 
 def main() -> int:
@@ -4132,6 +4310,10 @@ def main() -> int:
     rows += state.pop("kernel_rows")
     log(f"[state] {state['seconds']:.1f} s on {state['card']}")
 
+    hybrid = run_hybrid(dev)
+    rows += hybrid.pop("kernel_rows")
+    log(f"[hybrid] {hybrid['seconds']:.1f} s on {hybrid['card']}")
+
     log(f"[autotune] olmo-1b's decode GEMVs at batch 8, a fused QKV and a "
         f"ragged expert program, on h100 and gpu, into {AUTOTUNE_TABLE}")
     autotune = run_autotune(dev)
@@ -4160,7 +4342,11 @@ def main() -> int:
                 "grouped_gemv": eager_step(grouped, "grouped_gemv"),
                 "triton_gemv": eager_step(gpu, "triton_gemv"),
                 "decode_attention": eager_step(engine, "decode_attention")}
-    line = kernels_line(rows, launch_counts, per_step)
+    g5 = dict(name="decode_attention_g5", kernel="decode_attention",
+              arch=HYBRID_ARCH,
+              launches=hybrid["launches"]["decode_attention"],
+              launches_per_step=eager_step(hybrid, "decode_attention"))
+    line = kernels_line(rows, launch_counts, per_step, [g5])
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
@@ -4172,6 +4358,7 @@ def main() -> int:
         moe_grouped=grouped, gpu_engine=gpu, moe_gpu=moe_gpu,
         serving=serving, families=families, families_s=families_s,
         multimodal=multimodal, multimodal_s=multimodal_s, state=state,
+        hybrid=hybrid,
         autotune=autotune, kernels=line["kernels"],
         total_s=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

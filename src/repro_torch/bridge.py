@@ -37,7 +37,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
     ``groups.plain [n_groups, g - 1, ...]`` and ``groups.cross_layer
     [n_groups, ...]`` unroll into the flat layer list, group ``gi``'s
     member ``i`` at ``gi * g + i``; whisper's ``encoder`` keeps ``proj``
-    None when the JAX tree has None there."""
+    None when the JAX tree has None there; a hymba layer's ``mamba`` keeps
+    its f32 ``dt_bias``, ``A_log`` and ``D`` beside the model-dtype
+    projections, and its betas come across with it."""
     check_family(cfg)
 
     def conv(node, i=()):

@@ -3,11 +3,11 @@
 Counterpart of ``repro/configs/base.py``: the same field names and
 defaults for what a dense, MoE, audio (whisper: an encoder over stub
 frame embeddings), vlm (llama-3.2-vision: gated cross-attention over
-stub patch embeddings) or ssm (rwkv6: attention-free time-mix and
-channel-mix over a recurrent state) decoder needs, sliding-window
-attention included; ``hd``, ``attn_free``, ``is_global_layer``,
-``is_cross_layer`` and ``reduced()``.  ``parallel_ssm`` (hymba) is held
-so that its config can be named, but no such family runs yet.
+stub patch embeddings), ssm (rwkv6: attention-free time-mix and
+channel-mix over a recurrent state) or hybrid (hymba: Mamba heads in
+parallel with sliding-window attention, ``parallel_ssm``) decoder needs;
+``hd``, ``attn_free``, ``is_global_layer``, ``is_cross_layer`` and
+``reduced()``.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ class EncoderConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | moe | ssm | audio | vlm (ported)
+    family: str                  # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int

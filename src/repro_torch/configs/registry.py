@@ -6,6 +6,7 @@ from repro_torch.configs import (
     deepseek_moe_16b,
     gemma3_1b,
     gemma3_27b,
+    hymba_1_5b,
     llama32_vision_11b,
     minitron_8b,
     olmo_1b,
@@ -18,7 +19,8 @@ ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in (olmo_1b.CONFIG, deepseek_moe_16b.CONFIG,
                         minitron_8b.CONFIG, gemma3_1b.CONFIG,
                         gemma3_27b.CONFIG, whisper_small.CONFIG,
-                        llama32_vision_11b.CONFIG, rwkv6_3b.CONFIG)}
+                        llama32_vision_11b.CONFIG, rwkv6_3b.CONFIG,
+                        hymba_1_5b.CONFIG)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -11,6 +11,10 @@
 //   prob   = softmax(s) in f32, rounded to v's type
 //   out    = sum_p prob[p] * v[b, p, h]      f32 sum, rounded once
 //
+// G is any count of query heads a kv head the launch switch holds (1, 2,
+// 4, 5 or 8): nothing below takes it for a power of two, and the output
+// shares (G * D + splits - 1) / splits of a cluster cover G * D whole.
+//
 // The reference masks every other p with a score of -2e9; exp(-2e9 - max)
 // is 0 in f32, so walking only [start, n) changes nothing.  When start >= n
 // (every score masked) the reference's softmax is uniform over all C
@@ -581,7 +585,7 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 }
 
 // What a launch takes: D a whole number of 16-byte vectors on a power of
-// two of lanes (at most a warp), G in {1, 2, 4, 8}, splits in {1, 2, 4,
+// two of lanes (at most a warp), G in {1, 2, 4, 5, 8}, splits in {1, 2, 4,
 // 8} holding every position, 16-byte aligned q and out, and k / v rows
 // (or code rows) aligned to what a lane reads; scales for quantized pages.
 template <typename T, int S>
@@ -606,7 +610,7 @@ bool launchable(const Args& a, int B, int G) {
   return B >= 1 && a.C >= 1 && a.Hkv >= 1 && a.D % V == 0 && LP >= 1
          && LP <= 32 && (LP & (LP - 1)) == 0
          && row_bytes(a.D, sizeof(T), S ? S : 16) % kLaneBytes == 0
-         && (G == 1 || G == 2 || G == 4 || G == 8)
+         && (G == 1 || G == 2 || G == 4 || G == 5 || G == 8)
          && (a.splits == 1 || a.splits == 2 || a.splits == 4
              || a.splits == kMaxSplits) && a.window >= 0
          && static_cast<long long>(a.cap) * a.splits >= a.C
@@ -625,6 +629,7 @@ int run(const Args& a, int B, int G, void* stream) {
     case 1: return launch<T, 1, S>(a, B, s);
     case 2: return launch<T, 2, S>(a, B, s);
     case 4: return launch<T, 4, S>(a, B, s);
+    case 5: return launch<T, 5, S>(a, B, s);   // hymba: 25 heads over 5
     default: return launch<T, 8, S>(a, B, s);
   }
 }

@@ -1,6 +1,6 @@
 """Decoder LM: init, cache, decode prepack and forward (counterpart of
-``repro/models/lm.py`` for the dense, MoE, ssm (rwkv6), audio and vlm
-families).
+``repro/models/lm.py`` for the dense, MoE, ssm (rwkv6), hybrid (hymba),
+audio and vlm families).
 
 Parameters are a plain dict: ``embed [vocab, d]``, ``ln_f``, and
 ``layers``, a list with one dict per layer (the JAX package stacks them
@@ -19,7 +19,11 @@ encoder and decoder widths agree).  The cache keeps the JAX layout:
 has no ``k``/``v``: per layer and slot the wkv state ``rwkv_s [L, B, H,
 hd, hd]`` (f32) and the token-shift carries ``rwkv_x_tm`` / ``rwkv_x_cm
 [L, B, d]``, whatever ``kv_store`` says (the state is not the capacity
-term).
+term).  A hymba layer (``parallel_ssm``) also holds ``mamba`` and the
+per-channel mixing weights ``beta_attn`` / ``beta_ssm``; beside its K/V
+(and scales) its cache has the conv window ``mamba_conv [L, B, cw - 1,
+di]`` (model dtype) and the Mamba state ``mamba_h [L, B, di, n]`` (f32),
+again in every ``kv_store``.
 """
 
 from __future__ import annotations
@@ -81,6 +85,12 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
             params["layers"].append(layer)
             continue
         layer["attn"] = L.init_attention(g, cfg, dtype, device)
+        if cfg.parallel_ssm:     # hymba: Mamba heads beside attention
+            layer["mamba"] = S.init_mamba(g, cfg, dtype, device)
+            layer["beta_attn"] = torch.ones(cfg.d_model, dtype=dtype,
+                                            device=device)
+            layer["beta_ssm"] = torch.ones(cfg.d_model, dtype=dtype,
+                                           device=device)
         if cfg.moe is not None:
             layer["moe"] = L.init_moe(g, cfg, dtype, device)
         else:
@@ -96,18 +106,21 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
     return params
 
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "audio", "vlm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not run yet (the hybrid family's
-    parallel Mamba heads among them, and an ssm config that is not rwkv6),
-    or for layers that are not whole groups of ``cross_attn_every`` (as
-    the JAX init asserts)."""
-    if cfg.family not in PORTED_FAMILIES or cfg.parallel_ssm or (
+    """Raise for a family the port does not run: an unknown family, an ssm
+    config that is not rwkv6, a hybrid one that is not parallel Mamba
+    heads (or parallel heads outside the hybrid family), an MoE config
+    without experts or experts outside it; or for layers that are not
+    whole groups of ``cross_attn_every`` (as the JAX init asserts)."""
+    kind = cfg.ssm.kind if cfg.ssm is not None else None
+    if cfg.family not in PORTED_FAMILIES or (
             (cfg.family == "moe") != (cfg.moe is not None)) or (
-            (cfg.family == "ssm") != (cfg.ssm is not None
-                                      and cfg.ssm.kind == "rwkv6")):
+            (cfg.family == "ssm") != (kind == "rwkv6")) or (
+            (cfg.family == "hybrid") != (cfg.parallel_ssm
+                                         and kind == "mamba")):
         raise ValueError(f"family {cfg.family!r} is not ported yet (the port "
                          f"runs {', '.join(PORTED_FAMILIES)})")
     if cfg.cross_attn_every and cfg.n_layers % cfg.cross_attn_every:
@@ -153,7 +166,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     ``per_slot_pos``) and ``k``/``v`` leaves ``[L, batch, max_len, Hkv,
     hd]``; for rwkv6 no ``k``/``v`` but ``rwkv_s [L, batch, H, hd, hd]``
     (f32, zeros) and ``rwkv_x_tm`` / ``rwkv_x_cm [L, batch, d]``, in every
-    ``kv_store``.
+    ``kv_store``; with ``parallel_ssm`` (hymba) also, after the K/V
+    leaves, ``mamba_conv [L, batch, cw - 1, di]`` (``dtype``) and
+    ``mamba_h [L, batch, di, n]`` (f32), zeros, in every ``kv_store``.
 
     ``kv_store`` selects the KV storage (``repro_torch.kernels.kv_quant``):
     ``"fp"`` keeps ``dtype`` leaves; ``"int8"`` / ``"int4"`` store int8
@@ -179,13 +194,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
         kv_shape = (n, batch, max_len, hkv, cfg.hd)
         cache["k"] = torch.zeros(kv_shape, dtype=dtype, device=device)
         cache["v"] = torch.zeros(kv_shape, dtype=dtype, device=device)
-        return cache
-    kv_shape = (n, batch, max_len, hkv, stored_head_dim(kv_store, cfg.hd))
-    for name in ("k", "v"):
-        cache[name] = torch.zeros(kv_shape, dtype=torch.int8, device=device)
-    for name in ("k_scale", "v_scale"):
-        cache[name] = torch.ones((n, batch, max_len, hkv),
-                                 dtype=torch.float32, device=device)
+    else:
+        kv_shape = (n, batch, max_len, hkv,
+                    stored_head_dim(kv_store, cfg.hd))
+        for name in ("k", "v"):
+            cache[name] = torch.zeros(kv_shape, dtype=torch.int8,
+                                      device=device)
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.ones((n, batch, max_len, hkv),
+                                     dtype=torch.float32, device=device)
+    if cfg.parallel_ssm:
+        di, st, cw = S.mamba_dims(cfg)
+        cache["mamba_conv"] = torch.zeros((n, batch, cw - 1, di),
+                                          dtype=dtype, device=device)
+        cache["mamba_h"] = torch.zeros((n, batch, di, st),
+                                       dtype=torch.float32, device=device)
     return cache
 
 
@@ -209,7 +232,8 @@ def prepack_decode_params(params: dict, cfg: ModelConfig) -> dict:
     The originals stay, as in the JAX package: prefill and the unfused
     decode path (``fuse_programs=False``) read them.  An rwkv6 model's
     layers pass through unchanged (its projections stay plain matmuls, as
-    in the JAX package); only its head gets ``head_t``.  Returns a NEW
+    in the JAX package); only its head gets ``head_t``.  A hymba layer's
+    ``mamba`` weights and betas are carried as they are.  Returns a NEW
     dict; ``params``' own tensors are shared, not copied.
     """
     d = cfg.d_model
@@ -253,8 +277,9 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     With a cache, the new K/V are written into ``cache``'s ``k``/``v``
     tensors (and, for a quantized store, their codes and ``k_scale`` /
-    ``v_scale``), and an rwkv6 model's state into its ``rwkv_*`` tensors,
-    IN PLACE and ``new_cache`` shares them (with ``pos`` advanced by S).
+    ``v_scale``), and an rwkv6 or hymba model's state into its ``rwkv_*``
+    or ``mamba_*`` tensors, IN PLACE and ``new_cache`` shares them (with
+    ``pos`` advanced by S).
     ``gemv_policy`` routes single-token (decode) projections through the
     GEMV dispatcher: QKV and gate+up as fused programs, down
     and the LM head as single requests, MoE experts as ragged or grouped
@@ -360,8 +385,12 @@ def _forward_flat(params, cfg, x, positions, cache, gemv=None, ctx=None):
     cross-attention over ``ctx`` with its own pre-norm and residual:
     gated by ``tanh(cross_gate)`` in llama-vision (``_forward_grouped``),
     ungated in whisper although its layers carry a gate
-    (``_forward_flat``).  An rwkv6 layer is :func:`_rwkv_block`.  Returns
-    ``(x, aux_loss)``."""
+    (``_forward_flat``).  An rwkv6 layer is :func:`_rwkv_block`.  A hymba
+    layer runs its Mamba heads on the same normed input as attention and
+    adds ``beta_attn · attention + beta_ssm · mamba`` (model dtype) to the
+    residual (``lm._self_block``); with a cache, the Mamba state continues
+    from layer ``i``'s ``mamba_*`` leaves and is advanced in place.
+    Returns ``(x, aux_loss)``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["layers"]):
         if cfg.family == "ssm":
@@ -373,11 +402,17 @@ def _forward_flat(params, cfg, x, positions, cache, gemv=None, ctx=None):
         cache_scales = ((cache["k_scale"][i], cache["v_scale"][i])
                         if cache is not None and "k_scale" in cache
                         else None)
-        x = x + L.apply_attention(
+        a = L.apply_attention(
             p["attn"], h, cfg, positions=positions, cache_kv=cache_kv,
             cache_pos=cache["pos"] if cache is not None else None,
             cache_scales=cache_scales, gemv=gemv,
             window=layer_window(cfg, i))
+        if "mamba" in p:
+            state = ((cache["mamba_conv"][i], cache["mamba_h"][i])
+                     if cache is not None else None)
+            m, _ = S.apply_mamba(p["mamba"], h, cfg, state=state)
+            a = p["beta_attn"] * a + p["beta_ssm"] * m
+        x = x + a
         h = L.apply_norm(p["ln2"], x, cfg)
         if "moe" in p:
             ff, aux_l = L.apply_moe(p["moe"], h, cfg, gemv=gemv)

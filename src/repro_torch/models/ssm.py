@@ -1,25 +1,29 @@
-"""Attention-free sequence mixing: RWKV6 (Finch) time-mix and channel-mix
-(counterpart of the RWKV6 half of ``repro/models/ssm.py``).
+"""Recurrent sequence mixing: RWKV6 (Finch) time-mix and channel-mix, and
+the Mamba-style selective SSM heads that hymba runs beside attention
+(counterpart of ``repro/models/ssm.py``).
 
-The recurrence runs in f32 in the JAX package's order (its
-``jax.lax.scan`` becomes a Python loop over positions): per head,
+Each recurrence runs in f32 in the JAX package's order (its
+``jax.lax.scan`` becomes a Python loop over positions).  RWKV6, per head:
 
     y_t = r_t · (s + u ⊙ k_tᵀ v_t),    then    s ← w_t ⊙ s + k_tᵀ v_t,
 
 with the data-dependent decay ``w = exp(-exp(w0 + tanh(x·w_a)·w_b))``
-computed in f32.  The projections are plain matmuls, outside the GEMV
-dispatcher, as in the JAX package.
+computed in f32.  Mamba, per channel of the inner width and state row:
+
+    h_t = h_{t-1} · exp(dt_t · A) + dt_t · B_t · x_t,    y_t = h_t · C_t,
+
+after a depthwise causal conv over the window ``[conv_state, x]``.  The
+projections are plain matmuls, outside the GEMV dispatcher, as in the JAX
+package.
 
 State is written IN PLACE into the tensors it is given, as the K/V writes
-of the attention families are: the wkv state ``s`` is advanced with
-``mul_`` / ``add_`` on the caller's ``[B, H, hd, hd]`` tensor and the
-token-shift carries are ``copy_``'d into the caller's ``[B, d]`` tensors.
-A decode step over the serving cache's views therefore leaves nothing to
-copy back, and a captured decode graph keeps reading the same leaves.
-Without a state (a forward with no cache) the recurrence starts from
-zeros and the final state is returned as new tensors.
-
-Mamba (the hybrid family's parallel heads) is not ported yet.
+of the attention families are: the wkv state ``s`` and the Mamba state
+``h`` are advanced with ``mul_`` / ``add_`` on the caller's tensors, and
+the token-shift carries and the conv window are ``copy_``'d into the
+caller's tensors.  A decode step over the serving cache's views therefore
+leaves nothing to copy back, and a captured decode graph keeps reading the
+same leaves.  Without a state (a forward with no cache) the recurrence
+starts from zeros and the final state is returned as new tensors.
 """
 
 from __future__ import annotations
@@ -146,3 +150,97 @@ def apply_rwkv_channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     k = torch.square(torch.relu(xk @ p["wk"]))
     out = torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
     return out, _carry(x[:, -1], prev_x)
+
+
+# --------------------------------------------------------------------------
+# Mamba-style selective SSM heads (hymba's parallel heads)
+# --------------------------------------------------------------------------
+
+
+def mamba_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(inner width, state rows, conv width) of a Mamba mixer."""
+    return cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim, cfg.ssm.conv_dim
+
+
+def init_mamba(g: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
+    """The JAX package's init: the input projection ``w_in [d, 2 di]`` (x
+    and the gate z), a depthwise conv ``conv_w [cw, di]``, the low-rank dt
+    projection ``dt_lo [di, r]`` / ``dt_hi [r, di]`` (r = max(8, d / 16))
+    with an f32 ``dt_bias`` of zeros, ``w_B`` / ``w_C [di, n]``, an f32
+    ``A_log [di, n]`` of ``log(1 .. n)`` in every row, an f32 skip ``D`` of
+    ones and the output projection ``w_out [di, d]``."""
+    d = cfg.d_model
+    di, n, cw = mamba_dims(cfg)
+    r = max(8, d // 16)
+    f32 = torch.float32
+    return {
+        "w_in": dense_init(g, d, (d, 2 * di), dtype, device),
+        "conv_w": dense_init(g, cw, (cw, di), dtype, device),
+        "dt_lo": dense_init(g, di, (di, r), dtype, device),
+        "dt_hi": dense_init(g, r, (r, di), dtype, device),
+        "dt_bias": torch.zeros(di, dtype=f32, device=device),
+        "w_B": dense_init(g, di, (di, n), dtype, device),
+        "w_C": dense_init(g, di, (di, n), dtype, device),
+        "A_log": torch.log(torch.arange(1, n + 1, dtype=f32, device=device)
+                           ).expand(di, n).contiguous(),
+        "D": torch.ones(di, dtype=f32, device=device),
+        "w_out": dense_init(g, di, (di, d), dtype, device),
+    }
+
+
+def _causal_dw_conv(x: torch.Tensor, w: torch.Tensor,
+                    conv_state: torch.Tensor | None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv over time, ``x [B, S, di]``, ``w [cw, di]``:
+    ``out[t] = sum_i w[i] · xp[t + i]`` over the window ``xp = [conv_state
+    (or zeros), x]``, summed in the JAX package's order; returns ``(out,
+    window)`` with ``window`` the last ``cw - 1`` rows of ``xp``, a fresh
+    tensor (never a view of ``conv_state``)."""
+    cw, S = w.shape[0], x.shape[1]
+    pad = (conv_state.to(x.dtype) if conv_state is not None
+           else x.new_zeros((x.shape[0], cw - 1, x.shape[2])))
+    xp = torch.cat([pad, x], dim=1)                    # [B, S + cw - 1, di]
+    out = xp[:, :S] * w[0]
+    for i in range(1, cw):
+        out = out + xp[:, i:i + S] * w[i]
+    return out, xp[:, S:]
+
+
+def apply_mamba(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                state: tuple[torch.Tensor, torch.Tensor] | None = None
+                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """``x [B, S, d]`` -> ``(y [B, S, d], (conv [B, cw - 1, di], h [B, di,
+    n] f32))``.
+
+    With ``state = (conv, h)`` the conv continues from the window ``conv``
+    and the recurrence from ``h``; both are advanced in place (the
+    returned tensors are ``state``'s).  The new window is built as a fresh
+    tensor and then copied into ``conv``: shifting it in place would be a
+    copy between overlapping memory."""
+    B, S, _ = x.shape
+    di, n, _ = mamba_dims(cfg)
+    x1, z = (x @ p["w_in"]).chunk(2, dim=-1)
+    x1, window = _causal_dw_conv(x1, p["conv_w"],
+                                 state[0] if state is not None else None)
+    x1 = F.silu(x1)
+    dt = F.softplus(((x1 @ p["dt_lo"]) @ p["dt_hi"]).float()
+                    + p["dt_bias"])                    # [B, S, di]
+    Bm = (x1 @ p["w_B"]).float()                       # [B, S, n]
+    Cm = (x1 @ p["w_C"]).float()                       # [B, S, n]
+    A = -torch.exp(p["A_log"])                         # [di, n]
+    xf = x1.float()
+    h = (state[1] if state is not None
+         else torch.zeros((B, di, n), dtype=torch.float32, device=x.device))
+    # exp(dt·A) and dt·B·x of every position at once; the loop keeps the
+    # reference's per-step order, h·exp(dt·A) then + dt·B·x, and keeps
+    # each step's h, so that y = h·C is one product over every position
+    da = torch.exp(dt[..., None] * A)                  # [B, S, di, n]
+    dbx = dt[..., None] * Bm[:, :, None, :] * xf[..., None]
+    hs = torch.empty_like(da)
+    for t in range(S):
+        h.mul_(da[:, t]).add_(dbx[:, t])
+        hs[:, t].copy_(h)
+    y = torch.matmul(hs, Cm[..., None])[..., 0] + p["D"] * xf
+    y = y.to(x.dtype) * F.silu(z)
+    conv = _carry(window, state[0] if state is not None else None)
+    return y @ p["w_out"], (conv, h)

@@ -1061,6 +1061,42 @@ def test_cuda_decode_attention_matches_plain(cuda, C, G, Hkv, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("window", [1024, 0])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_decode_attention_at_hymbas_groups_of_5(cuda, window, dtype):
+    """hymba-1.5b's decode shape: 25 query heads over 5 kv heads of 64
+    (G 5) on 8 slots of a 2048-position cache, a local layer's window of
+    1024 and a global layer's none; rows shorter than, at and longer than
+    the window, an idle slot past the end and an all-masked one.  The
+    routing rule takes it, and at every split count the kernel agrees
+    with the plain version and is deterministic."""
+    from repro_torch.kernels.attention import (
+        decode_attention,
+        decode_attention_plain,
+        kernel_applies,
+    )
+
+    B, C, Hkv, G, D = 8, 2048, 5, 5, 64
+    qpos = [63, 1023, 1535, C - 1, 299, 1100, C + 500, 5]
+    q, k, v, pos = _attention_case(cuda, B, C, Hkv, G, D, dtype, qpos,
+                                   slots=12)
+    valid = pos + 1
+    valid[7] = 0                       # every score masked
+    assert kernel_applies(q, k, v, causal=True)
+    args = dict(q_positions=pos[:, None], kv_valid_len=valid, window=window)
+    want = decode_attention_plain(q, k, v, **args)
+    for splits in (None, 1, 2, 4, 8):
+        n0 = decode_attention.launches
+        got = decode_attention(q, k, v, splits=splits, **args)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == n0 + 1
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **_attention_tol(dtype, v))
+        assert torch.equal(got, decode_attention(q, k, v, splits=splits,
+                                                 **args))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("C", [1024, 4096])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("G,Hkv", [(1, 16), (8, 2)])

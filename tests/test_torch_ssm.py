@@ -12,7 +12,8 @@ five time-mix projections by 4, and holds logits as well as tokens.
 Modules (f32 on both sides, atol and rtol 1e-5, state as well as output):
 the time-mix and channel-mix at S 1 with a carried state and at S 7 from
 zero and from a state; the whole model's prefill and 4 decode steps;
-the cache (no ``k``); the bridge.  The engine: greedy tokens and every
+the cache (no ``k``); the bridge; the family gate (hymba admitted, grok
+unregistered).  The engine: greedy tokens and every
 sampled row of logits equal the JAX ``Engine``'s (mixed lengths, chunked
 prefill, the prefix cache, buckets 4 -> 2 -> 1 through the graph
 stand-in), and one test for each latent fault the slice repaired: a
@@ -133,17 +134,24 @@ def test_config_matches_the_jax_package_full_and_reduced():
 
 
 def test_hymba_and_grok_are_still_refused():
-    """hymba-1.5b's config is held (``parallel_ssm``, Mamba heads) but
-    ``check_family`` refuses it; grok-1-314b (8 cards) is not
-    registered."""
+    """hymba-1.5b itself is admitted (``family="hybrid"`` with parallel
+    Mamba heads, registered, its config the JAX package's); what stays
+    refused is hymba's heads outside the hybrid family (as a dense
+    family, or as an ssm family of Mamba kind) and a hybrid config
+    without them; grok-1-314b (8 cards) is not registered."""
     j = ARCHS["hymba-1.5b"]
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
     kw = {k: v for k, v in dataclasses.asdict(j).items() if k in fields}
     kw["ssm"] = SSMConfig(**kw["ssm"])
     hymba = ModelConfig(**kw)
     assert hymba.parallel_ssm and not hymba.attn_free
-    for cfg in (hymba, hymba.reduced(),
-                dataclasses.replace(hymba, family="dense")):
+    assert TARCHS["hymba-1.5b"] == hymba
+    for cfg in (hymba, hymba.reduced()):
+        lm.check_family(cfg)
+    assert "mamba" in lm.init_lm(hymba.reduced(), device="cpu")["layers"][0]
+    for cfg in (dataclasses.replace(hymba, family="dense"),
+                dataclasses.replace(hymba, family="ssm"),
+                dataclasses.replace(hymba, parallel_ssm=False)):
         with pytest.raises(ValueError, match="not ported"):
             lm.check_family(cfg)
         with pytest.raises(ValueError, match="not ported"):
@@ -152,7 +160,7 @@ def test_hymba_and_grok_are_still_refused():
                                     ssm=SSMConfig(kind="mamba"))
     with pytest.raises(ValueError, match="not ported"):
         lm.check_family(mamba_ssm)
-    assert "hymba-1.5b" not in TARCHS and "grok-1-314b" not in TARCHS
+    assert "grok-1-314b" in ARCHS and "grok-1-314b" not in TARCHS
     with pytest.raises(KeyError):
         get_config("grok-1-314b")
     lm.check_family(get_config(ARCH))
