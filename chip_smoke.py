@@ -228,13 +228,34 @@ Phases, in order; any failure raises and the script exits non-zero:
 16. autotune -- olmo-1b's decode GEMVs at batch 8, a fused QKV program and
    a ragged expert program, tuned on the h100 and gpu backends into
    ``build/autotune_smoke.json`` (``pim``/``splitk`` at every ring depth,
-   labelled ``pim/s4`` etc.); table and plan cache cleared, the file
+   labelled ``pim/s4`` etc.; each candidate timed as the best of 3
+   replays of a captured graph over weight copies read cold, and printed
+   beside its host-wall time, with the winner the host clock would pick
+   and whether it moved); table and plan cache cleared, the file
    reloaded, and every untuned pick must be the table's winner; then a
    table written before the streaming kernels (one-stage plans with
    1024-row K chunks, and grouped and ragged expert programs on the first
    expert kernels' tiles) replays: each GEMV keeps its kernel on a
    re-planned plan and matches its plain version;
-17. the ``{"kernels": [...]}`` line (``decode_attention_g5``: the G 5
+17. pim -- the paper's LPDDR5X-PIM model (modeled numbers, not this card):
+   the roofline boost, opt-6.7b FC1's PIMnast speedup and every OPT
+   model's per-token speedup; then olmo-1b's full-width gate+up weight
+   (16384 x 2048, seeded, bf16) placed by PIMnast and materialized on the
+   card: fails unless the stream is bit-equal to the same call on a CPU
+   copy, untiling it recovers the weight bit for bit and every matrix row
+   lies in one bank; prints the tiles and rows per bank, min and max;
+18. calibrate -- ``run_sweep`` (the full sweep: the reference's shapes,
+   bf16, every record a replayed graph over weight copies read cold) on
+   the h100 and gpu backends, ``fit_cost_model``, the artifacts under
+   ``build/calibration/``: fails unless each fitted MAPE is at most the
+   seed's, the sweeps launched ``pim_gemv``, ``splitk_gemv``,
+   ``quant_gemv``, ``grouped_gemv``, ``ragged_gemv`` and ``triton_gemv``
+   (counts set to 0 before, read after) and recorded each backend's
+   kernels and native program modes; prints the MAPE per kernel and
+   program mode (seed and fitted), the fitted constants, and olmo-1b's
+   decode GEMVs at batch 8 picked by the seed and by the fitted model,
+   each timed on the card; then both backends go back to their seeds;
+19. the ``{"kernels": [...]}`` line (``decode_attention_g5``: the G 5
    instance over one hymba-1.5b step), the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -276,11 +297,39 @@ from repro_torch.kernels.backends import (  # noqa: E402
 )
 from repro_torch.kernels.backends.base import (  # noqa: E402
     ProgramPlan,
+    _synthesize_program,
     entry_to_plan,
     expert_batch_bound,
     plan_to_entry,
     program_plan_to_entry,
+    synthesize_gemv,
+    time_gemv_us,
+    wall_trials_us,
+    weight_copies,
 )
+from repro_torch.calibration import (  # noqa: E402
+    fit_cost_model,
+    mape,
+    run_sweep,
+    write_artifact,
+)
+from repro_torch.calibration.fit import _swapped_cost_model  # noqa: E402
+from repro_torch.core.opt_models import OPT_SUITE  # noqa: E402
+from repro_torch.core.pim_arch import (  # noqa: E402
+    BF16 as PIM_BF16,
+    INT8 as PIM_INT8,
+    RYZEN_LPDDR5X,
+)
+from repro_torch.core.placement import (  # noqa: E402
+    GEMV,
+    cr_order,
+    cr_order_with_degree,
+    materialize,
+    plan_placement,
+    untile_matrix_roworder,
+)
+from repro_torch.pim.e2e import e2e_latency  # noqa: E402
+from repro_torch.pim.timing import pim_speedup  # noqa: E402
 from repro_torch.kernels.backends.gpu import plan_triton_gemv  # noqa: E402
 from repro_torch.kernels.attention import (  # noqa: E402
     decode_attention,
@@ -3669,15 +3718,33 @@ def run_hybrid(dev) -> dict:
     return res
 
 
+def host_wall_us(be, key, policy, dev) -> dict[str, float]:
+    """Every autotune candidate of ``key`` on the tuner's synthetic inputs,
+    timed the way the tuner timed them before it timed replayed graphs:
+    the best of 3 host wall-clock calls, each between two synchronizes
+    (one weight copy, L2-warm below 50 MB)."""
+    if isinstance(key, GemvKey):
+        x, pw = synthesize_gemv(key, dev)
+        return {be.candidate_label(k, p): min(wall_trials_us(
+                    lambda i, k=k, p=p: be.execute(k, x, pw, p)))
+                for k, p in be.autotune_candidates(key, pw, policy)}
+    program = _synthesize_program(key, dev)
+    return {c.mode: min(wall_trials_us(
+                lambda i, c=c: be.run_program_candidate(program, c, policy)))
+            for c in be.program_candidates(key, policy)}
+
+
 def run_autotune(dev) -> dict:
     """Tune every olmo-1b decode GEMV at batch 8 and two programs (fused
     QKV; deepseek-moe-16b's ragged gate/up experts, top-6 of 8 tokens) on
     the h100 and gpu backends into a table under ``build/``; then clear
     table and plan cache, reload the file, dispatch again untuned, and
     fail unless every pick is the table's winner.  Each winner is reported
-    beside the cost model's pick and both times (the tuner's best of 3
-    wall-clock calls on its own synthetic inputs, weights L2-warm below
-    50 MB)."""
+    beside the cost model's pick and both times: the tuner's device time
+    (the best of 3 replays of a captured graph over weight copies read
+    cold), and beside every candidate's device time its host-wall time
+    (:func:`host_wall_us`), with the winner the host clock would have
+    picked and whether it moved."""
     AUTOTUNE_TABLE.unlink(missing_ok=True)
     dispatch.clear_autotune_table()
     gen = torch.Generator(device=dev).manual_seed(SEED + 50)
@@ -3739,17 +3806,27 @@ def run_autotune(dev) -> dict:
                 entry = table.get_program(backend, key.table_key())
                 pick = be.plan_program(key, policy=model).mode
                 winner = dispatched = entry["mode"]
+            wall = host_wall_us(be, key, model, dev)
+            if set(wall) != set(entry["candidates_us"]):
+                raise AssertionError(f"{backend} {case}: host-wall "
+                                     f"candidates {sorted(wall)} differ from "
+                                     f"the tuned {entry['candidates_us']}")
+            wall_winner = min(wall, key=wall.get)
             row = {"backend": backend, "case": case,
                    "key": key.table_key(), "winner": winner,
                    "dispatched": dispatched,
                    "winner_us": entry["us"], "model_pick": pick,
                    "model_pick_us": entry["candidates_us"][pick],
-                   "candidates_us": entry["candidates_us"], "entry": entry}
+                   "candidates_us": entry["candidates_us"],
+                   "host_wall_us": wall, "host_wall_winner": wall_winner,
+                   "winner_moved": wall_winner != winner, "entry": entry}
             res["cases"].append(row)
             log(f"  {backend:4s} {case:14s} winner {winner:13s} "
                 f"{entry['us']:8.1f} us; cost model {pick:13s} "
-                f"{row['model_pick_us']:8.1f} us; all "
-                + ", ".join(f"{k} {v:.1f}"
+                f"{row['model_pick_us']:8.1f} us; host-wall winner "
+                f"{wall_winner}{' (moved)' if row['winner_moved'] else ''}"
+                f"; device / host-wall us: "
+                + ", ".join(f"{k} {v:.1f} / {wall[k]:.1f}"
                             for k, v in entry["candidates_us"].items()))
     # replay: a fresh process's view of the file
     dispatch.clear_autotune_table()
@@ -3929,6 +4006,206 @@ def replay_stale_table(dev) -> dict:
     dispatch.clear_plan_cache()
     del cases, stack, xs, xr
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the PIM model and calibration
+# ---------------------------------------------------------------------------
+
+
+def run_pim(dev) -> dict:
+    """The paper's model (LPDDR5X-PIM, not this card): the roofline boost,
+    the PIMnast speedup of opt-6.7b's FC1 and every OPT model's per-token
+    speedup; then olmo-1b's full-width gate+up weight, seeded, in bf16,
+    placed by PIMnast and materialized on the card: bit-equal to the same
+    call on a CPU copy, the untiled stream bit-equal to the weight, and
+    the tiles and matrix rows each bank holds."""
+    t0 = time.perf_counter()
+    cfg = RYZEN_LPDDR5X
+    fc1 = GEMV(16384, 4096, PIM_INT8, PIM_BF16, name="opt-6.7b/fc1")
+    s, placement, bd = pim_speedup(fc1, cfg)
+    tokens = {name: e2e_latency(m, cfg).token_speedup
+              for name, m in OPT_SUITE.items()}
+    res = {"roofline_boost": cfg.roofline_pim_boost,
+           "fc1": {"placement": placement.describe(), "speedup": s,
+                   "pim_us": bd.total / 1e3},
+           "token_speedup": tokens}
+    log(f"  model roofline {cfg.roofline_pim_boost:.4f}x; "
+        f"{placement.describe()}: {s:.4f}x ({bd.total / 1e3:.2f} us); "
+        f"per-token speedup "
+        + ", ".join(f"{n} {v:.4f}x" for n, v in tokens.items()))
+
+    ocfg = get_config("olmo-1b")
+    M, K = 2 * ocfg.d_ff, ocfg.d_model
+    g = GEMV(M, K, PIM_BF16, PIM_BF16, name="olmo-1b/gate_up")
+    p = plan_placement(g, cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    w = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    stream = materialize(w, p)
+    torch.cuda.synchronize()
+    host = materialize(w.cpu(), p)
+    if not torch.equal(stream.cpu().view(torch.int16),
+                       host.view(torch.int16)):
+        raise AssertionError("materialize on the card differs from the "
+                             "CPU's")
+    order = (cr_order_with_degree(p.m_TM, p.k_TM, p.banks_used,
+                                  p.cr_degree) if p.cr_degree > 1
+             else cr_order(p.m_TM, p.k_TM, p.banks_used)).to(dev)
+    tiles = torch.empty_like(stream)
+    tiles[order] = stream
+    back = untile_matrix_roworder(tiles, M, K, p.tile.m_tile, p.tile.k_tile)
+    if not torch.equal(back.view(torch.int16), w.view(torch.int16)):
+        raise AssertionError("the untiled stream differs from the weight")
+    pos = torch.arange(order.numel(), device=dev)
+    bank = pos % p.banks_used
+    tiles_per_bank = torch.bincount(bank, minlength=p.banks_used)
+    rowblock = order // p.k_TM
+    rb_bank = torch.full((p.m_TM,), -1, dtype=torch.int64, device=dev)
+    rb_bank[rowblock] = bank
+    if not torch.equal(rb_bank[rowblock], bank):
+        raise AssertionError("a row-block spans two banks")
+    rows_per_bank = torch.bincount(rb_bank,
+                                   minlength=p.banks_used) * p.tile.m_tile
+    torch.cuda.synchronize()
+    res["materialize"] = {
+        "gemv": f"{M}x{K} bf16", "placement": p.describe(),
+        "tiles": order.numel(), "banks": p.banks_used,
+        "tiles_per_bank": [int(tiles_per_bank.min()),
+                           int(tiles_per_bank.max())],
+        "rows_per_bank": [int(rows_per_bank.min()),
+                          int(rows_per_bank.max())],
+        "bit_equal_to_cpu": True, "untile_bit_equal": True}
+    m = res["materialize"]
+    log(f"  olmo-1b gate+up {M}x{K} bf16 on the card: {p.describe()}; "
+        f"{m['tiles']} tiles over {m['banks']} banks, tiles per bank "
+        f"{m['tiles_per_bank'][0]}-{m['tiles_per_bank'][1]}, matrix rows "
+        f"per bank {m['rows_per_bank'][0]}-{m['rows_per_bank'][1]}, every "
+        f"row in one bank; bit-equal to the CPU's stream, untile recovers "
+        f"the weight bit for bit")
+    del w, stream, host, tiles, back
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+CALIBRATION_DIR = ROOT / "build" / "calibration"
+# the kernels the reference's sweep reaches (every one but quant4_gemv)
+CALIBRATED_KERNELS = ("pim_gemv", "splitk_gemv", "quant_gemv",
+                      "grouped_gemv", "ragged_gemv", "triton_gemv")
+
+
+def decode_picks(be, fitted, dev) -> list[dict]:
+    """olmo-1b's decode GEMVs at batch 8: the seed's pick and the fitted
+    model's, each timed on the card (best of 5 replays over weight copies
+    read cold) and priced by both models."""
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    for name, (K, M, _) in SHAPES.items():
+        B = 8
+        seed_pick = be.select_kernel(M, K, B, x_bytes=2)
+        with _swapped_cost_model(be, fitted):
+            fit_pick = be.select_kernel(M, K, B, x_bytes=2)
+        x = torch.randn((B, K), generator=gen, device=dev).to(torch.bfloat16)
+        pws = weight_copies(PackedWeights(w_t=(torch.randn(
+            (K, M), generator=gen, device=dev) / math.sqrt(K)).to(
+                torch.bfloat16)), dev)
+        row = {"shape": name, "K": K, "M": M, "B": B,
+               "moved": fit_pick != seed_pick}
+        for tag, (kernel, plan) in (("seed", seed_pick), ("fitted",
+                                                          fit_pick)):
+            us = time_gemv_us(lambda i, k=kernel, p=plan:
+                              be.execute(k, x, pws[i], p), 5,
+                              copies=len(pws), device=dev)
+            with _swapped_cost_model(be, fitted):
+                fit_us = be.estimate_cost_us(kernel, M, K, B, x_bytes=2,
+                                             plan=plan)
+            row[tag] = {"kernel": be.candidate_label(kernel, plan),
+                        "us": us, "seed_model_us": be.estimate_cost_us(
+                            kernel, M, K, B, x_bytes=2, plan=plan),
+                        "fitted_model_us": fit_us}
+        rows.append(row)
+        del pws
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_calibrate(dev) -> dict:
+    """The full calibration sweep on the h100 and gpu backends, every
+    record a replayed graph timed with CUDA events in bf16, then
+    ``fit_cost_model`` and the artifacts under ``build/calibration/``.
+    Fails unless the fitted MAPE is at most the seed's on each backend and
+    the sweep launched each of the six kernels the reference's sweep
+    reaches.  Prints the seed and fitted MAPE per kernel and program mode,
+    the fitted constants, and olmo-1b's decode picks at batch 8 under both
+    models beside their device times; then puts both backends back on
+    their seeds."""
+    t0 = time.perf_counter()
+    res = {"dir": str(CALIBRATION_DIR.relative_to(ROOT)), "backends": {}}
+    dispatch.clear_autotune_table()
+    dispatch.clear_plan_cache()
+    reset_launches()
+    sweeps = {}
+    for name in ("h100", "gpu"):
+        t1 = time.perf_counter()
+        sweeps[name] = (run_sweep(name, device=dev),
+                        time.perf_counter() - t1)
+    res["launches"] = {k: v for k, v in launches().items()
+                       if k in CALIBRATED_KERNELS}
+    missing = [k for k in CALIBRATED_KERNELS if res["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"the sweeps never launched {missing}")
+    ran = {(n, r.kernel) for n, (recs, _) in sweeps.items() for r in recs}
+    want = {("h100", k) for k in ("pim", "splitk", "quant", "grouped_cuda",
+                                  "ragged_cuda", "fused")} | {
+        ("gpu", k) for k in ("triton", "grouped_triton", "ragged_triton",
+                             "fused")}
+    if not want <= ran:
+        raise AssertionError(f"the sweeps' records lack {sorted(want - ran)}")
+    for name, (records, sweep_s) in sweeps.items():
+        be = get_backend(name)
+        fit = fit_cost_model(name, records)
+        write_artifact(str(CALIBRATION_DIR / f"{name}.json"), fit, records)
+        if not fit.mape <= fit.seed_mape:
+            raise AssertionError(f"{name}: fitted MAPE {fit.mape} above the "
+                                 f"seed's {fit.seed_mape}")
+        seed = be.seed_cost_model
+        per = {k: {"seed": mape(be, seed, [r for r in records
+                                           if r.kernel == k]),
+                   "fitted": v, "records": sum(r.kernel == k
+                                               for r in records)}
+               for k, v in fit.per_kernel_mape.items()}
+        picks = decode_picks(be, fit.cost_model(), dev)
+        dtypes = sorted({r.dtype for r in records})
+        res["backends"][name] = {
+            "records": len(records), "sweep_s": sweep_s, "dtypes": dtypes,
+            "mape": fit.mape, "seed_mape": fit.seed_mape,
+            "per_kernel_mape": per, "fitted": fit.fitted,
+            "constants": fit.constants, "seed": seed.constants(),
+            "degenerate": fit.degenerate, "decode_picks": picks,
+            "records_json": [r.to_json() for r in records]}
+        log(f"  {name}: {len(records)} records ({', '.join(dtypes)}) in "
+            f"{sweep_s:.1f} s; MAPE seed {fit.seed_mape:.4f} -> fitted "
+            f"{fit.mape:.4f}")
+        for k, v in per.items():
+            log(f"    {k:15s} x{v['records']:2d}: MAPE seed {v['seed']:.4f} "
+                f"-> fitted {v['fitted']:.4f}")
+        log("    fitted constants: " + ", ".join(
+            f"{t} {seed.constants()[t]:.6g} -> {fit.constants[t]:.6g}"
+            for t in fit.fitted))
+        for r in picks:
+            log(f"    olmo-1b {r['shape']:8s} B=8: seed pick "
+                f"{r['seed']['kernel']:9s} {r['seed']['us']:8.2f} us, fitted "
+                f"pick {r['fitted']['kernel']:9s} {r['fitted']['us']:8.2f} "
+                f"us{' (moved)' if r['moved'] else ''}; modeled seed / "
+                f"fitted {r['seed']['seed_model_us']:.2f} / "
+                f"{r['seed']['fitted_model_us']:.2f} us")
+    log(f"  launches in the sweeps: {json.dumps(res['launches'])}")
+    for name in ("h100", "gpu"):
+        get_backend(name).reset_calibration()
+    dispatch.clear_autotune_table()
+    dispatch.clear_plan_cache()
+    res["seconds"] = time.perf_counter() - t0
     return res
 
 
@@ -4321,6 +4598,15 @@ def main() -> int:
         f"replayed from {STALE_TABLE}")
     autotune["stale_replay"] = replay_stale_table(dev)
 
+    log("[pim] the paper's LPDDR5X-PIM model (modeled, not this card), then "
+        "PIMnast's placement of olmo-1b's gate+up materialized on the card")
+    pim = run_pim(dev)
+    log(f"[pim] {pim['seconds']:.1f} s")
+    log(f"[calibrate] the full sweep on h100 and gpu (replayed graphs, bf16), "
+        f"fit, artifacts under {CALIBRATION_DIR}")
+    calibrate = run_calibrate(dev)
+    log(f"[calibrate] {calibrate['seconds']:.1f} s on {card}")
+
     launch_counts = {**{n: engine["launches"][n] for n in FLOAT_KERNELS},
                      "quant_gemv":
                          quant["passes"]["w8"]["launches"]["quant_gemv"],
@@ -4359,7 +4645,8 @@ def main() -> int:
         serving=serving, families=families, families_s=families_s,
         multimodal=multimodal, multimodal_s=multimodal_s, state=state,
         hybrid=hybrid,
-        autotune=autotune, kernels=line["kernels"],
+        autotune=autotune, pim=pim, calibrate=calibrate,
+        kernels=line["kernels"],
         total_s=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))

@@ -13,17 +13,24 @@ portable executors, dequantized per expert.
 
 Measured selection: :class:`AutotuneTable` is the JAX package's format-3
 JSON table (per-backend namespaces of single-GEMV and program winners,
-plus a ``calibration`` section kept as data), and
+plus the ``calibration`` section of fitted constants), and
 :meth:`GemvBackend.autotune_gemv` / :meth:`GemvBackend.autotune_program`
 time a backend's candidates on synthetic inputs and persist the winner.
-Table keys and plan entries are the JAX package's, so either package
-reads the other's table.  Calibration (fitting the constants) and sharding
-are not ported yet.
+On the card a candidate is timed as a replayed CUDA graph
+(:func:`graph_trials_us`), the counterpart of the reference's compiled
+executable: a replayed decode step pays no wrapper checks, no ctypes call
+and no host-side tensor-map encoding, so neither does the timing.  Table
+keys and plan entries are the JAX package's, so either package reads the
+other's table.  Each backend's :class:`CostModel` has a calibration slot
+(:meth:`GemvBackend.apply_calibration`): ``repro_torch.calibration`` fits
+the constants from measured sweeps and the dispatcher applies a table's
+fitted constants on a plan-cache miss.  Sharding is not ported yet.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -39,19 +46,78 @@ from repro_torch.kernels.ops import PackedWeights, pack_fused, quantize_weight
 
 @dataclass(frozen=True)
 class CostModel:
-    """Constants of the analytical GEMV latency model of one backend."""
+    """Constants of the analytical GEMV latency model of one backend.
+
+    A backend's own instance holds its hand-seeded constants; the
+    calibration subsystem (``repro_torch.calibration``) fits every
+    continuous term from measured sweeps and shadows the seed with a
+    :meth:`with_constants` copy (:meth:`GemvBackend.apply_calibration`).
+    ``min_parallel_blocks`` is structural (the SM or core count) and is
+    never fitted.
+    """
 
     bandwidth_gbps: float      # sustained memory bandwidth, GB/s (1e9 B/s)
     gemv_efficiency: float     # fraction of it the untuned ref GEMV gets
     launch_us: float           # fixed kernel-launch overhead
     program_us: float          # per-CTA (or per-chunk) overhead
     min_parallel_blocks: int   # grid fill target: fewer blocks starve it
+    # per-output-element overhead (ns per batch * M element): index math,
+    # stores, reduction bookkeeping.  Seeds are 0 (folded into the
+    # efficiency until a measured sweep separates them)
+    elem_ns: float = 0.0
     # each of ``degree`` f32 partial outputs is written, then re-read
     splitk_reduce_factor: float = 2.0
+    # cross-shard all-reduce terms (ring model): per-link bandwidth and a
+    # fixed launch per collective.  0.0 is the "no measured interconnect"
+    # sentinel: collective_us() then prices every collective at 0, so seed
+    # selections stay bit-identical until calibration fits a value
+    collective_gbps: float = 0.0
+    collective_launch_us: float = 0.0
 
     @property
     def bandwidth_bps(self) -> float:
         return self.bandwidth_gbps * 1e9
+
+    def collective_us(self, nbytes: float, shards: int) -> float:
+        """Modeled latency of an all-reduce of ``nbytes`` over ``shards``:
+        ring traffic ``2 (shards - 1) / shards * nbytes`` over the per-link
+        bandwidth, plus one launch.  0 with nothing to reduce (``shards <=
+        1``) or no fitted interconnect (the 0.0 sentinel)."""
+        if shards <= 1 or nbytes <= 0 or self.collective_gbps <= 0:
+            return 0.0
+        wire = 2.0 * (shards - 1) / shards * float(nbytes)
+        return (wire / (self.collective_gbps * 1e9) * 1e6
+                + self.collective_launch_us)
+
+    def constants(self) -> dict:
+        """Every field as a plain JSON-able dict (calibration artifacts)."""
+        return dataclasses.asdict(self)
+
+    def with_constants(self, **overrides) -> "CostModel":
+        """A frozen copy with the named constants replaced: the calibration
+        override point.  Unknown names raise (a misspelled constant must
+        never calibrate nothing); ``min_parallel_blocks`` is coerced to
+        int (JSON round-trips floats); the result is validated."""
+        fields = {f.name for f in dataclasses.fields(self)}
+        unknown = set(overrides) - fields
+        if unknown:
+            raise ValueError(f"unknown CostModel constants {sorted(unknown)}; "
+                             f"expected a subset of {sorted(fields)}")
+        if "min_parallel_blocks" in overrides:
+            overrides["min_parallel_blocks"] = int(
+                overrides["min_parallel_blocks"])
+        cm = dataclasses.replace(self, **overrides)
+        if cm.bandwidth_gbps <= 0:
+            raise ValueError(f"bandwidth_gbps must be > 0, got "
+                             f"{cm.bandwidth_gbps}")
+        if not 0 < cm.gemv_efficiency <= 1.0:
+            raise ValueError(f"gemv_efficiency must be in (0, 1], got "
+                             f"{cm.gemv_efficiency}")
+        if min(cm.launch_us, cm.program_us, cm.elem_ns,
+               cm.splitk_reduce_factor, cm.collective_gbps,
+               cm.collective_launch_us) < 0:
+            raise ValueError("overhead constants must be >= 0")
+        return cm
 
 
 def _next_pow2(n: int) -> int:
@@ -422,8 +488,8 @@ _TABLE_FORMAT = 3
 
 
 class AutotuneTable:
-    """Measured (kernel, plan) winners, namespaced per backend: the JAX
-    package's format-3 document::
+    """Measured (kernel, plan) winners and fitted constants, namespaced per
+    backend: the JAX package's format-3 document::
 
         {"format": 3,
          "tables":      {"h100": {<shape key>: entry, ...}, "gpu": {...}},
@@ -431,10 +497,11 @@ class AutotuneTable:
          "calibration": {"cpu": {"constants": {...}, ...}}}
 
     Tuners on different backends merge into one file without key
-    collisions.  ``calibration`` holds fitted constants; this package keeps
-    it as data (fitting and applying them is not ported).  Top-level
-    sections it does not know are kept verbatim through load and save.
-    All mutation holds a lock.
+    collisions.  ``calibration`` holds each backend's fitted constants
+    (``repro_torch.calibration.artifact.table_entry``); the dispatcher
+    applies them on a plan-cache miss.  Top-level sections it does not
+    know are kept verbatim through load and save.  All mutation holds a
+    lock.
     """
 
     _KNOWN_SECTIONS = ("format", "tables", "programs", "calibration")
@@ -468,6 +535,19 @@ class AutotuneTable:
     def put_program(self, namespace: str, key: str, entry: dict) -> None:
         with self._lock:
             self._programs.setdefault(namespace, {})[key] = dict(entry)
+
+    def get_calibration(self, namespace: str) -> dict | None:
+        with self._lock:
+            entry = self._calibration.get(namespace)
+            return dict(entry) if entry is not None else None
+
+    def put_calibration(self, namespace: str, entry: dict) -> None:
+        with self._lock:
+            self._calibration[namespace] = dict(entry)
+
+    def snapshot_calibration(self) -> dict[str, dict]:
+        with self._lock:
+            return {ns: dict(e) for ns, e in self._calibration.items()}
 
     def snapshot(self) -> dict[str, dict[str, dict]]:
         with self._lock:
@@ -584,25 +664,117 @@ class AutotuneTable:
 # ---------------------------------------------------------------------------
 
 
-def time_gemv_us(run, reps: int = 3) -> float:
-    """Best-of-``reps`` wall clock (us) of a thunk returning a tensor,
-    after one warm-up call (which builds and loads a kernel on first use).
-    On the card each timed call sits between two ``synchronize()``s."""
-    out = run()
+L2_BYTES = 50 * 2**20     # the H100's L2
+
+
+def cold_copies(nbytes: int) -> int:
+    """Copies of an operand of ``nbytes`` whose round robin streams more
+    than twice the card's L2, so each timed call reads its operand cold,
+    as a decode step reads its weights."""
+    return max(2, math.ceil(2 * L2_BYTES / max(nbytes, 1)) + 1)
+
+
+def graph_trials_us(run, *, copies: int = 1,
+                    reps: int = 5) -> tuple[float, ...]:
+    """Device time (µs) of one call, once a replay: ``run(i)`` for ``i`` in
+    ``range(copies)`` (each over its own operand copies, see
+    :func:`cold_copies`) captured into one CUDA graph after a warm-up call
+    (which builds and loads the kernel), the graph replayed once untimed,
+    then ``reps`` replays, each between two CUDA events and divided by
+    ``copies``.  A replay runs no Python: no wrapper checks, no ctypes
+    call, no host-side tensor maps, as in a replayed decode step.  A thunk
+    that cannot be captured (it synchronizes, or reads the device from the
+    host) raises: nothing falls back to the host clock."""
+    run(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for i in range(copies):
+                run(i)
+    except RuntimeError as e:
+        raise RuntimeError(f"the timed call cannot be captured into a CUDA "
+                           f"graph: {e}") from e
+    graph.replay()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    events[0].record()
+    for ev in events[1:]:
+        graph.replay()
+        ev.record()
+    torch.cuda.synchronize()
+    return tuple(a.elapsed_time(b) * 1e3 / copies
+                 for a, b in zip(events, events[1:]))
+
+
+def wall_trials_us(run, reps: int = 3) -> tuple[float, ...]:
+    """Host wall clock (µs) of ``reps`` calls of ``run(0)`` after a warm-up
+    call; on the card each call sits between two ``synchronize()``s, so it
+    counts the wrapper's host work too (the CPU's timing, and the
+    card's host-side reference point beside :func:`graph_trials_us`)."""
+    out = run(0)
     dev = out.device if out.is_cuda else None
 
     def sync():
         if dev is not None:
             torch.cuda.synchronize(dev)
 
-    best = float("inf")
+    trials = []
     for _ in range(reps):
         sync()
         t0 = time.perf_counter()
-        run()
+        run(0)
         sync()
-        best = min(best, time.perf_counter() - t0)
-    return best * 1e6
+        trials.append((time.perf_counter() - t0) * 1e6)
+    return tuple(trials)
+
+
+def time_trials_us(run, reps: int = 3, *, copies: int = 1,
+                   device: torch.device) -> tuple[float, ...]:
+    """``reps`` times (µs) of one call of ``run(i)``, a thunk over operand
+    copy ``i`` returning a tensor: device time of a replayed graph of
+    ``copies`` calls on the card (:func:`graph_trials_us`), host wall
+    clock on the CPU (:func:`wall_trials_us`)."""
+    if device.type == "cuda":
+        return graph_trials_us(run, copies=copies, reps=reps)
+    return wall_trials_us(run, reps)
+
+
+def time_gemv_us(run, reps: int = 3, *, copies: int = 1,
+                 device: torch.device) -> float:
+    """The best of :func:`time_trials_us`: what the autotuner compares."""
+    return min(time_trials_us(run, reps, copies=copies, device=device))
+
+
+def weight_bytes(pw: PackedWeights) -> int:
+    """Bytes of a packed weight: codes (or the float weight) and scales."""
+    n = pw.w_t.numel() * pw.w_t.element_size()
+    if pw.scales is not None:
+        n += pw.scales.numel() * pw.scales.element_size()
+    return n
+
+
+def weight_copies(pw: PackedWeights, device: torch.device
+                  ) -> list[PackedWeights]:
+    """``pw`` and, on the card, clones of it enough to read it cold every
+    timed call (:func:`cold_copies`); on the CPU ``pw`` alone."""
+    if device.type != "cuda":
+        return [pw]
+    return [pw] + [replace(pw, w_t=pw.w_t.clone(),
+                           scales=None if pw.scales is None
+                           else pw.scales.clone())
+                   for _ in range(cold_copies(weight_bytes(pw)) - 1)]
+
+
+def program_copies(key: ProgramKey, device: torch.device
+                   ) -> list[GemvProgram]:
+    """Synthetic programs matching ``key`` (:func:`_synthesize_program`):
+    on the card enough to read their weights cold every timed call, on
+    the CPU one."""
+    first = _synthesize_program(key, device)
+    if device.type != "cuda":
+        return [first]
+    n = cold_copies(weight_bytes(first.weights))
+    return [first] + [_synthesize_program(key, device) for _ in range(n - 1)]
 
 
 class GemvBackend:
@@ -612,9 +784,41 @@ class GemvBackend:
     kernels: tuple[str, ...] = ("ref",)
     program_modes: tuple[str, ...] = ()
 
+    # -- cost-model calibration (repro_torch.calibration) -------------------
+    #
+    # ``seed_cost_model`` is the backend's hand-seeded constant set;
+    # applying a calibration shadows it with a fitted instance, so every
+    # estimate and selection path prices with the fitted constants with no
+    # call-site change.  ``cost_model_source`` says which one is active:
+    # the dispatcher counts it per decision
+    # (``dispatch_stats()["cost_model_source"]``).
+
+    @property
+    def seed_cost_model(self) -> CostModel:
+        """The backend's hand-seeded constants, ignoring calibration."""
+        raise NotImplementedError
+
     @property
     def cost_model(self) -> CostModel:
-        raise NotImplementedError
+        """The fitted constants while a calibration is applied, else the
+        seed's."""
+        return self.__dict__.get("_calibrated") or self.seed_cost_model
+
+    @property
+    def cost_model_source(self) -> str:
+        """``"calibrated"`` while fitted constants are active, else
+        ``"seed"``."""
+        return "calibrated" if "_calibrated" in self.__dict__ else "seed"
+
+    def apply_calibration(self, cm: CostModel) -> CostModel:
+        """Activate fitted constants (idempotent; returns the active
+        model)."""
+        self.__dict__["_calibrated"] = cm
+        return cm
+
+    def reset_calibration(self) -> None:
+        """Back to the seed constants (a no-op when none were applied)."""
+        self.__dict__.pop("_calibrated", None)
 
     # -- cost model ---------------------------------------------------------
 
@@ -628,10 +832,12 @@ class GemvBackend:
     def estimate_cost_us(self, kernel: str, M: int, K: int, batch: int, *,
                          bits: int = 16, x_bytes: int = 2,
                          plan: GemvPlan | None = None) -> float:
-        """Default: the memory-bound ref path."""
+        """Default: the memory-bound ref path, bytes over (bandwidth x
+        efficiency), plus the per-output-element term."""
         cm = self.cost_model
         io = self.io_bytes(M, K, batch, bits=bits, x_bytes=x_bytes)
-        return io / (cm.bandwidth_bps * cm.gemv_efficiency) * 1e6
+        return (io / (cm.bandwidth_bps * cm.gemv_efficiency) * 1e6
+                + batch * M * cm.elem_ns * 1e-3)
 
     # -- selection / execution ------------------------------------------------
 
@@ -717,7 +923,9 @@ class GemvBackend:
                       device: torch.device) -> tuple[str, GemvPlan | None]:
         """The table's entry for ``key`` in this backend's namespace, else
         every candidate timed on synthetic inputs on ``device`` and the
-        fastest persisted (with each candidate's time beside it).
+        fastest persisted (with each candidate's time beside it).  On the
+        card a candidate's time is the best replay of a captured graph over
+        weight copies read cold (:func:`time_gemv_us`).
 
         A candidate that fails to build or launch raises: unlike the JAX
         package's tuner, nothing is skipped here, so a broken kernel can
@@ -730,8 +938,10 @@ class GemvBackend:
         if entry is not None:
             return self.replay_plan(*entry_to_plan(entry), key, policy)
         x, pw = synthesize_gemv(key, device)
-        timed = [(time_gemv_us(lambda k=kernel, p=plan:
-                               self.execute(k, x, pw, p)), kernel, plan)
+        pws = weight_copies(pw, device)
+        timed = [(time_gemv_us(lambda i, k=kernel, p=plan:
+                               self.execute(k, x, pws[i], p),
+                               copies=len(pws), device=device), kernel, plan)
                  for kernel, plan in self.autotune_candidates(key, pw,
                                                               policy)]
         us, kernel, plan = min(timed, key=lambda t: t[0])
@@ -747,9 +957,9 @@ class GemvBackend:
                          table: AutotuneTable,
                          device: torch.device) -> ProgramPlan:
         """The planner's mode timed against the alternative on a synthetic
-        program (a ragged program against the portable ragged executor,
-        any other against its per-request form); the winner persists in
-        this backend's ``programs`` section.  A failing mode raises."""
+        program (:meth:`program_candidates`; on the card as
+        :meth:`autotune_gemv` times); the winner persists in this
+        backend's ``programs`` section.  A failing mode raises."""
         if policy.table_path:
             table.ensure_loaded(policy.table_path)
         tkey = key.table_key()
@@ -757,21 +967,11 @@ class GemvBackend:
         if entry is not None:
             return self.replay_program(entry_to_program_plan(entry), key,
                                        policy)
-        program = _synthesize_program(key, device)
-        cands = [self.plan_program(key, policy=policy)]
-        alt = (ProgramPlan(mode="ragged", n_launches=1)
-               if key.kind == "ragged"
-               else ProgramPlan(mode="per_request",
-                                n_launches=key.n_requests))
-        if cands[0].mode != alt.mode:
-            cands.append(alt)
-
-        def run(pplan):
-            if pplan.mode == "per_request":
-                return self._execute_per_request(program, policy)
-            return self.execute_program(program, pplan)
-
-        timed = [(time_gemv_us(lambda p=c: run(p)), i)
+        programs = program_copies(key, device)
+        cands = self.program_candidates(key, policy)
+        timed = [(time_gemv_us(lambda i, p=c: self.run_program_candidate(
+                      programs[i], p, policy),
+                               copies=len(programs), device=device), i)
                  for i, c in enumerate(cands)]
         us, best = min(timed)
         entry = program_plan_to_entry(cands[best], us)
@@ -780,6 +980,27 @@ class GemvBackend:
         if policy.table_path:
             table.save(policy.table_path)
         return cands[best]
+
+    def program_candidates(self, key: ProgramKey,
+                           policy: DispatchPolicy) -> list[ProgramPlan]:
+        """The modes :meth:`autotune_program` times: the planner's, then
+        the alternative (the portable ragged executor for a ragged program,
+        the per-request form for any other) where it differs."""
+        cands = [self.plan_program(key, policy=policy)]
+        alt = (ProgramPlan(mode="ragged", n_launches=1)
+               if key.kind == "ragged"
+               else ProgramPlan(mode="per_request",
+                                n_launches=key.n_requests))
+        if cands[0].mode != alt.mode:
+            cands.append(alt)
+        return cands
+
+    def run_program_candidate(self, program: GemvProgram, pplan: ProgramPlan,
+                              policy: DispatchPolicy) -> torch.Tensor:
+        """One program under one of :meth:`program_candidates`' modes."""
+        if pplan.mode == "per_request":
+            return self._execute_per_request(program, policy)
+        return self.execute_program(program, pplan)
 
     def _execute_per_request(self, program: GemvProgram,
                              policy: DispatchPolicy) -> torch.Tensor:
@@ -804,11 +1025,11 @@ class GemvBackend:
     def estimate_program_cost_us(self, key: ProgramKey, *, mode: str,
                                  x_bytes: int = 2) -> float:
         """Modeled latency of one program under a mode (the JAX package's
-        form, whose per-element term is 0 at its seeds and is left out):
-        weight and output traffic, the input reads the mode makes, and the
-        launches it costs.  A ragged program reads exactly its
-        routed rows; its per-program term scales with the predicted load
-        imbalance (the bound over the even split)."""
+        form): weight and output traffic, the input reads the mode makes,
+        the launches it costs and the per-output-element term.  A ragged
+        program reads exactly its routed rows; its per-program term scales
+        with the predicted load imbalance (the bound over the even
+        split)."""
         cm = self.cost_model
         w_bytes = key.total_M * key.K * key.bits / 8
         if key.kind == "ragged":
@@ -819,7 +1040,8 @@ class GemvBackend:
             imbalance = min(max(key.batch * key.group / T, 1.0),
                             float(key.group))
             return (t + cm.launch_us * launches
-                    + cm.program_us * key.group * imbalance)
+                    + cm.program_us * key.group * imbalance
+                    + T * key.Ms[0] * cm.elem_ns * 1e-3)
         out_bytes = key.batch * key.total_M * x_bytes
         if key.kind == "grouped":
             iv_reads = key.group       # every expert has its own rows
@@ -828,7 +1050,8 @@ class GemvBackend:
         io = w_bytes + iv_reads * key.batch * key.K * x_bytes + out_bytes
         launches = 1 if mode in ("fused", "grouped") else key.n_requests
         t = io / (cm.bandwidth_bps * cm.gemv_efficiency) * 1e6
-        return t + cm.launch_us * launches
+        return (t + cm.launch_us * launches
+                + key.batch * key.total_M * cm.elem_ns * 1e-3)
 
     def plan_program(self, key: ProgramKey, *,
                      policy: DispatchPolicy = DEFAULT_POLICY) -> ProgramPlan:
@@ -935,6 +1158,10 @@ def register_backend(backend: GemvBackend, *,
         for d in devices:
             _DEVICE_MAP[d] = backend.name
     return backend
+
+
+def available_backends() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
 
 
 def get_backend(name: str) -> GemvBackend:

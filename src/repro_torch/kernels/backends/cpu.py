@@ -47,7 +47,7 @@ class CpuBackend(GemvBackend):
     program_modes = ("fused", "grouped", "ragged")
 
     @property
-    def cost_model(self) -> CostModel:
+    def seed_cost_model(self) -> CostModel:
         return COST_MODEL
 
     def estimate_cost_us(self, kernel, M, K, batch, *, bits=16, x_bytes=2,
@@ -63,7 +63,7 @@ class CpuBackend(GemvBackend):
         t += cm.launch_us + cm.program_us * deg
         t += cm.splitk_reduce_factor * deg * batch * M * 4 / cm.bandwidth_bps \
             * 1e6
-        return t
+        return t + batch * M * cm.elem_ns * 1e-3
 
     def candidate_plans(self, M, K, batch, bits):
         if bits < 16:

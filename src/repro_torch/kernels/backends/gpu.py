@@ -33,7 +33,9 @@ backend's under ``DispatchPolicy(interpret=True)``.
 Constants: the bandwidth is the H100 SXM data sheet's 3.35 TB/s, the
 occupancy target the SM count read from the device (a test passes both);
 ``gemv_efficiency``, ``launch_us`` and ``program_us`` are the JAX
-backend's seeds, not calibrated on this card.  The backend claims no
+backend's seeds.  ``repro_torch.calibration`` fits them from a measured
+sweep on the card (``benchmarks/kernel_bench_torch.py --calibrate
+--backend gpu``); the seeds stay the default.  The backend claims no
 device: ``cuda`` resolves to ``h100``, and this one is chosen by name
 (``DispatchPolicy(backend="gpu")``, ``Engine(gemv_backend="gpu")``).
 A caller's ``plan=`` is re-planned by this backend's selection (the base
@@ -113,13 +115,15 @@ class GpuBackend(GemvBackend):
         self._cm: CostModel | None = None
 
     @property
-    def cost_model(self) -> CostModel:
+    def seed_cost_model(self) -> CostModel:
         if self._cm is None:
             self._cm = CostModel(
                 bandwidth_gbps=self._bandwidth,
-                gemv_efficiency=0.7,    # JAX seed, uncalibrated here
-                launch_us=3.0,          # JAX seed, uncalibrated here
-                program_us=0.02,        # JAX seed, uncalibrated here
+                # the JAX seeds; repro_torch.calibration fits them on the
+                # card (kernel_bench_torch.py --calibrate --backend gpu)
+                gemv_efficiency=0.7,
+                launch_us=3.0,
+                program_us=0.02,
                 min_parallel_blocks=self._sms or sm_count(),
             )
         return self._cm
@@ -135,7 +139,8 @@ class GpuBackend(GemvBackend):
         io = self.io_bytes(M, K, batch, bits=bits, x_bytes=x_bytes)
         occupancy = min(1.0, plan.n_m / cm.min_parallel_blocks)
         t = io / (cm.bandwidth_bps * occupancy) * 1e6
-        return t + cm.launch_us + cm.program_us * plan.n_m
+        return (t + cm.launch_us + cm.program_us * plan.n_m
+                + batch * M * cm.elem_ns * 1e-3)
 
     # -- planning / selection ---------------------------------------------
 

@@ -37,7 +37,9 @@ partials inside the launch (a thread block cluster), so it pays no
 partial traffic and no second launch.  The bandwidth is the H100 SXM data
 sheet's 3.35 TB/s; the occupancy target is the SM count, read from the
 device (a test passes it explicitly), which also sizes the plans.  The
-other constants are uncalibrated seeds.
+other constants are seeds; ``repro_torch.calibration`` fits them from a
+measured sweep on the card (``benchmarks/kernel_bench_torch.py
+--calibrate --backend h100``), and the seeds stay the default.
 
 Selection keeps the planner's default ring depth; the autotuner also
 times every other depth the card's shared memory holds
@@ -125,7 +127,7 @@ class H100Backend(GemvBackend):
         self._cm: CostModel | None = None
 
     @property
-    def cost_model(self) -> CostModel:
+    def seed_cost_model(self) -> CostModel:
         if self._cm is None:
             self._cm = CostModel(
                 bandwidth_gbps=H100_HBM_GBPS,
@@ -149,8 +151,10 @@ class H100Backend(GemvBackend):
         occupancy = min(1.0, ctas / cm.min_parallel_blocks)
         t = io / (cm.bandwidth_bps * occupancy) * 1e6
         # one launch: split-K sums its partials in the clusters' shared
-        # memory, so no partial traffic and no reduce launch
-        return t + cm.launch_us + cm.program_us * ctas
+        # memory, so no partial traffic and no reduce launch; the
+        # per-output-element term as on the other backends
+        return (t + cm.launch_us + cm.program_us * ctas
+                + batch * M * cm.elem_ns * 1e-3)
 
     # -- planning / selection ---------------------------------------------------
 

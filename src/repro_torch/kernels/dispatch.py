@@ -21,10 +21,17 @@ replays instead of raising at launch).  ``dispatch_gemv``'s ``plan=``
 bypasses all four: the backend coerces the plan to one of its own kernels
 (``coerce_plan``).
 
+On every plan-cache miss, before selection, the backend takes the
+fitted constants of the table's ``calibration`` section when it has an
+entry for it (:func:`_maybe_apply_calibration`; an invalid entry warns
+once and is ignored).
+
 Decisions are counted once per plan-cache miss, as in the JAX package:
 ``dispatch_stats()`` reports the kernel picks, program modes and the
 ``gemv_path`` / ``matmul_fallback`` mix of every fresh (shape, policy),
-and (``program_kernels``) the kernel inside each fused program plan.
+(``program_kernels``) the kernel inside each fused program plan, and
+(``cost_model_source``) whether the seed or the calibrated constants
+priced it.
 Kernel *launches* are counted by the kernel wrappers themselves
 (``pim_gemv.launches``, ``splitk_gemv.launches``, ``quant_gemv.launches``,
 ``quant4_gemv.launches``, ``grouped_gemv.launches``,
@@ -45,6 +52,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import threading
+import warnings
 
 import torch
 
@@ -60,9 +68,11 @@ from repro_torch.kernels.backends import (
 )
 from repro_torch.kernels.backends.base import (
     AutotuneTable,
+    available_backends,
     dtype_bytes,
     entry_to_plan,
     entry_to_program_plan,
+    get_backend,
 )
 from repro_torch.kernels.gemv_plan import GemvPlan
 from repro_torch.kernels.ops import (
@@ -87,6 +97,9 @@ _PROGRAM_CACHE: dict[tuple[ProgramKey, DispatchPolicy], ProgramPlan] = {}
 _CACHE_STATS = {"hits": 0, "misses": 0, "program_hits": 0,
                 "program_misses": 0}
 _AUTOTUNE_TABLE = AutotuneTable()
+# backends warned about an invalid calibration entry since the table was
+# last cleared (the entry cannot get better between misses)
+_CALIBRATION_WARNED: set[str] = set()
 
 
 def _fresh_counters() -> dict:
@@ -102,6 +115,9 @@ def _fresh_counters() -> dict:
         # grouped shape allocates beyond the routed tokens (ragged: 0)
         "expert_load": {"decisions": 0, "routed_tokens": 0, "experts": 0,
                         "max_tokens": 0, "padded_slots": 0},
+        # which constants priced each decision: "seed" = the backend's
+        # hand-seeded ones, "calibrated" = fitted by repro_torch.calibration
+        "cost_model_source": {"seed": 0, "calibrated": 0},
     }
 
 
@@ -140,9 +156,41 @@ def save_autotune_table(path: str) -> None:
 
 
 def clear_autotune_table() -> None:
-    """Drop every loaded or tuned table entry (the plan cache keeps its
-    decisions: clear it too to re-resolve)."""
+    """Drop every loaded or tuned table entry and put every backend back on
+    its seed constants (the plan cache keeps its decisions: clear it too
+    to re-resolve)."""
     _AUTOTUNE_TABLE.clear()
+    for name in available_backends():
+        get_backend(name).reset_calibration()
+    with _LOCK:
+        # a reloaded table's entry may differ: let a bad one warn again
+        _CALIBRATION_WARNED.clear()
+
+
+def _maybe_apply_calibration(backend) -> str:
+    """Apply the table's fitted constants to ``backend``; returns the
+    source ("seed" | "calibrated") of the constants that price the next
+    decision.  Called on every plan-cache miss, before selection: when the
+    table's ``calibration`` section holds an entry for this backend, its
+    constants replace the seed's (``with_constants``).  An entry that does
+    not validate warns once per backend and is ignored."""
+    entry = _AUTOTUNE_TABLE.get_calibration(backend.name)
+    if entry is None or not isinstance(entry.get("constants"), dict):
+        return backend.cost_model_source
+    try:
+        cm = backend.seed_cost_model.with_constants(**entry["constants"])
+    except (TypeError, ValueError) as e:
+        with _LOCK:
+            first = backend.name not in _CALIBRATION_WARNED
+            _CALIBRATION_WARNED.add(backend.name)
+        if first:
+            warnings.warn(f"ignoring invalid calibration entry for backend "
+                          f"{backend.name!r}: {e}", RuntimeWarning,
+                          stacklevel=3)
+        return backend.cost_model_source
+    if backend.cost_model != cm:
+        backend.apply_calibration(cm)
+    return "calibrated"
 
 
 def autotune_table() -> AutotuneTable:
@@ -165,8 +213,11 @@ def record_expert_load(*, routed_tokens: int, experts: int,
 
 def _count_decision(backend_name: str, batch: int, policy: DispatchPolicy,
                     *, kernel: str | None = None, mode: str | None = None,
-                    program_kernel: str | None = None) -> None:
+                    program_kernel: str | None = None,
+                    source: str = "seed") -> None:
     with _LOCK:
+        sources = _DISPATCH_COUNTERS["cost_model_source"]
+        sources[source] = sources.get(source, 0) + 1
         for section, name in (("kernel_picks", kernel),
                               ("program_modes", mode),
                               ("program_kernels", program_kernel)):
@@ -193,6 +244,7 @@ def _resolve(backend, key: GemvKey, policy: DispatchPolicy,
             _CACHE_STATS["hits"] += 1
             return cached
         _CACHE_STATS["misses"] += 1
+    source = _maybe_apply_calibration(backend)
     # two racers compute the same selection; racing tuners may time
     # different winners, and the cache keeps the last (both are valid)
     tuned = policy.kernel == "auto" and policy.use_pallas
@@ -209,7 +261,8 @@ def _resolve(backend, key: GemvKey, policy: DispatchPolicy,
             x_bytes=dtype_bytes(key.dtype), policy=policy)
     with _LOCK:
         _PLAN_CACHE[(key, policy)] = decision
-    _count_decision(backend.name, key.batch, policy, kernel=decision[0])
+    _count_decision(backend.name, key.batch, policy, kernel=decision[0],
+                    source=source)
     return decision
 
 
@@ -225,6 +278,7 @@ def _resolve_program(backend, key: ProgramKey, policy: DispatchPolicy,
             _CACHE_STATS["program_hits"] += 1
             return cached
         _CACHE_STATS["program_misses"] += 1
+    source = _maybe_apply_calibration(backend)
     tuned = (policy.kernel == "auto" and policy.use_pallas
              and policy.fuse_programs)
     if tuned and policy.autotune:
@@ -241,7 +295,7 @@ def _resolve_program(backend, key: ProgramKey, policy: DispatchPolicy,
         _PROGRAM_CACHE[(key, policy)] = pplan
     _count_decision(backend.name, key.batch, policy, mode=pplan.mode,
                     program_kernel=(pplan.kernel if pplan.mode == "fused"
-                                    else None))
+                                    else None), source=source)
     return pplan
 
 

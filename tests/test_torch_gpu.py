@@ -1599,3 +1599,46 @@ def test_rwkv_mixes_on_the_card_match_the_cpu(cuda, S):
         outs[str(dev)] = [t.cpu() for t in (y, s, xl, yc, prev)]
     for a, b in zip(outs["cpu"], outs[str(cuda)]):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_device_timed_helper_against_the_host_clock(cuda):
+    """The autotuner's and the calibration sweep's timer: a replayed graph
+    over weight copies read cold takes no longer than the host-wall time of
+    the same call (which adds the wrapper's host work), and a thunk that
+    reads the device from the host cannot be captured and raises instead
+    of falling back to the host clock."""
+    from repro_torch.kernels.backends.base import (
+        cold_copies,
+        graph_trials_us,
+        wall_trials_us,
+    )
+
+    M, K, B = 16384, 2048, 8            # olmo-1b's gate+up
+    x, w_t = _stream_case(cuda, M, K, B, torch.bfloat16)
+    ws = [w_t] + [w_t.clone()
+                  for _ in range(cold_copies(w_t.numel() * 2) - 1)]
+    plan = plan_gemv(M, K, B, elem_bytes=2)
+
+    def run(i):
+        return pim_gemv(x, ws[i], plan=plan)
+
+    n0 = pim_gemv.launches
+    device = graph_trials_us(run, copies=len(ws), reps=5)
+    # the warm-up call and the captured calls tick; the replays do not
+    assert pim_gemv.launches == n0 + 1 + len(ws)
+    wall = wall_trials_us(run, reps=5)
+    assert len(device) == 5 and min(device) > 0
+    assert min(device) <= min(wall), (device, wall)
+
+    def syncs(i):
+        out = run(i)
+        out.float().sum().item()
+        return out
+
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        graph_trials_us(syncs, copies=1, reps=2)
+    # the card still runs the kernel after the refused capture
+    torch.testing.assert_close(run(0).float(),
+                               pim_gemv_plain(x, w_t).float(),
+                               **_stream_tol(torch.bfloat16))

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``."""
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and none of the port's scripts imports JAX or anything of
+the JAX package ``repro``."""
 
 import os
 import pkgutil
@@ -12,6 +13,11 @@ import repro_torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(repro_torch.__file__).resolve().parent
+# the twins of the reference's scripts
+SCRIPTS = ("examples/placement_explorer_torch.py",
+           "examples/quickstart_torch.py",
+           "benchmarks/paper_figs_torch.py",
+           "benchmarks/kernel_bench_torch.py")
 # ``import repro`` / ``from repro.x import`` -- but not ``repro_torch``
 FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.|\s)(?!_))",
@@ -31,7 +37,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.kernels.backends.gpu",
             "repro_torch.kernels.attention",
             "repro_torch.serving.prefix_cache", "repro_torch.models.ssm",
-            "repro_torch.serving.bench"} <= set(names)
+            "repro_torch.serving.bench", "repro_torch.core.placement",
+            "repro_torch.pim.timing", "repro_torch.pim.e2e",
+            "repro_torch.calibration.fit",
+            "repro_torch.calibration.artifact"} <= set(names)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -41,6 +50,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         "    importlib.import_module(name)\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         "import chip_smoke\n"
+        "import importlib.util\n"
+        f"for i, rel in enumerate({SCRIPTS!r}):\n"
+        f"    spec = importlib.util.spec_from_file_location(\n"
+        f"        f'script{{i}}', {str(ROOT)!r} + '/' + rel)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert all(sys.modules[m] is None for m in bad), bad\n"
@@ -53,7 +67,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
 
 
 def test_source_scan_finds_no_jax_or_repro_import():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + [ROOT / rel for rel in SCRIPTS])
     assert len(files) > 20
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in FORBIDDEN.finditer(f.read_text())]
