@@ -255,7 +255,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    program mode (seed and fitted), the fitted constants, and olmo-1b's
    decode GEMVs at batch 8 picked by the seed and by the fitted model,
    each timed on the card; then both backends go back to their seeds;
-19. the ``{"kernels": [...]}`` line (``decode_attention_g5``: the G 5
+19. trace -- olmo-1b at full width in bf16 through ``run_serve_trace``
+   (8 slots, ``max_len`` 1024, fp KV, chunk 128, ``gemv_aware`` at
+   threshold 8, the prefix cache; the shared-prefix trace: 12 requests
+   of 2 tenants, 384-token prefixes and 16-128-token tails, 16 tokens
+   each) with the flight recorder on and every fresh dispatch decision
+   timed on the card (``trace_out=chiprun_out/trace_olmo.json``), then
+   the same trace untraced: fails unless the tokens are equal, every
+   request's span tree is complete and its phases sum to its total
+   within 1e-6, nothing is open or dropped, the Chrome trace has one
+   track per slot that served, the drift report has device-timed
+   records of ``h100:pim``, ``h100:splitk`` and ``h100:fused`` at every
+   decode bucket, the hook's timing launched ``pim_gemv`` and
+   ``splitk_gemv``, and no decision went untimed but at a capture;
+   prints predicted and measured µs and their ratio per kernel, TTFT and
+   per-token p50 both ways, the record counts and the hook's seconds;
+   then the trace under the h100 constants ``[calibrate]`` fitted, in
+   turns with the seed's (seed, fitted traced, fitted, seed): per-token
+   and TTFT p50, the picks each model makes and the fitted model's drift
+   report (``chiprun_out/trace_olmo_fitted.json``); to run the phase
+   alone (no fitted comparison): ``python3 -c "import torch, chip_smoke as cs;
+   from repro_torch.kernels import _build; _build.build(force=True);
+   cs.run_trace(torch.device('cuda', 0))"``;
+20. the ``{"kernels": [...]}`` line (``decode_attention_g5``: the G 5
    instance over one hymba-1.5b step), the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -400,6 +422,10 @@ from repro_torch.serving.engine import (  # noqa: E402
     Engine,
     Request,
     make_features,
+)
+from repro_torch.serving.bench import (  # noqa: E402
+    TraceConfig,
+    run_serve_trace,
 )
 from repro_torch.serving.prefix_cache import PrefixCacheConfig  # noqa: E402
 from repro_torch.serving.scheduler import SchedulerConfig  # noqa: E402
@@ -4210,6 +4236,222 @@ def run_calibrate(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 19: a flight-recorded serving run
+# ---------------------------------------------------------------------------
+
+TRACE_OUT = ROOT / "chiprun_out" / "trace_olmo.json"
+TRACE_FITTED_OUT = ROOT / "chiprun_out" / "trace_olmo_fitted.json"
+TRACE_SLOTS = 8
+TRACE_MAX_LEN = 1024
+TRACE_CHUNK = 128
+# 12 requests of 2 tenants: a 384-token shared prefix and a 16-128-token
+# private tail each, 16 greedy tokens, about two arrivals an engine step
+TRACE_CONFIG = dict(kind="shared-prefix", n_requests=12, n_tenants=2,
+                    arrival_rate=2.0, prefix_len_range=(384, 384),
+                    prompt_len_range=(16, 128), max_new_range=(16, 16))
+# the kernels olmo-1b's decode picks send work to: the head (pim), down
+# (splitk), and the fused QKV and gate+up programs
+TRACE_KERNELS = ("h100:pim", "h100:splitk", "h100:fused")
+TRACE_PATH_KERNELS = ("pim_gemv", "splitk_gemv", "decode_attention")
+
+
+def run_trace(dev, fitted: dict | None = None) -> dict:
+    """olmo-1b at full width in bf16 through ``run_serve_trace`` with the
+    flight recorder on (``trace_out``, every fresh dispatch decision timed
+    on the card), then the same trace untraced.  Fails unless the tokens
+    are equal both ways; every request finished with a complete span tree
+    whose phases sum to its total; no request is open and nothing was
+    dropped; both files load and the Chrome trace has one track per slot
+    that served; the drift report has device-timed records of
+    ``TRACE_KERNELS`` at every decode bucket that ran (each was captured);
+    the hook's timing launched ``pim_gemv`` and ``splitk_gemv`` (the
+    traced run's counts above the untraced run's) and the untraced run
+    launched each of ``TRACE_PATH_KERNELS``; and no decision went untimed
+    but at a capture.
+
+    With ``fitted`` (the h100 constants ``[calibrate]`` fitted), the trace
+    is served again under them, in turns with the seed's (traced fitted,
+    untraced fitted, untraced seed after the untraced seed run above):
+    whether the fit's moved picks show in the engine's per-token latency,
+    and how the fitted model prices the decisions it makes."""
+    t0 = time.perf_counter()
+    TRACE_OUT.parent.mkdir(exist_ok=True)
+    kw = dict(policies=("gemv_aware",), batch_slots=TRACE_SLOTS,
+              max_len=TRACE_MAX_LEN, gemv_batch_threshold=TRACE_SLOTS,
+              prefill_chunk=TRACE_CHUNK, trace_kind="shared-prefix",
+              prefix_cache=True, trace_config=TraceConfig(**TRACE_CONFIG),
+              reduced=False, device=dev, tokens=True)
+    docs, counts, seconds = {}, {}, {}
+    for tag, extra in (("traced", dict(trace_out=str(TRACE_OUT),
+                                       trace_timing=True)),
+                       ("untraced", {})):
+        reset_launches()
+        t1 = time.perf_counter()
+        docs[tag] = run_serve_trace("olmo-1b", **kw, **extra)
+        torch.cuda.synchronize()
+        seconds[tag] = time.perf_counter() - t1
+        counts[tag] = launches()
+        gc.collect()
+        torch.cuda.empty_cache()
+    run, plain = docs["traced"]["runs"][0], docs["untraced"]["runs"][0]
+    n_req = TRACE_CONFIG["n_requests"]
+    if run["completed"] != n_req or plain["completed"] != n_req:
+        raise AssertionError(f"completed {run['completed']} / "
+                             f"{plain['completed']} of {n_req}")
+    if run["generated"] != plain["generated"]:
+        raise AssertionError("tokens differ between the traced and the "
+                             "untraced run")
+    chrome = json.loads(TRACE_OUT.read_text())
+    summ = json.loads(Path(docs["traced"]["flight_trace"]["summary"])
+                      .read_text())
+    if summ["open_requests"] or any(summ["dropped"].values()):
+        raise AssertionError(f"open {summ['open_requests']}, dropped "
+                             f"{summ['dropped']}")
+    if len(summ["requests"]) != n_req:
+        raise AssertionError(f"{len(summ['requests'])} request records")
+    worst = 0.0
+    for r in summ["requests"]:
+        if r["outcome"] != "finished" or not {
+                "queued", "prefill", "decode"} <= set(r["phases_ms"]):
+            raise AssertionError(f"incomplete span tree: {r}")
+        gap = abs(sum(r["phases_ms"].values()) - r["total_ms"])
+        worst = max(worst, gap / r["total_ms"])
+    if worst > 1e-6:
+        raise AssertionError(f"phases sum off their total by {worst}")
+    served = {e["tid"] for e in chrome["traceEvents"]
+              if e["ph"] == "X" and e["tid"] >= 10}
+    named = [e["tid"] for e in chrome["traceEvents"]
+             if e["ph"] == "M" and e.get("tid", 0) >= 10]
+    if not served or sorted(named) != sorted(served):
+        raise AssertionError(f"slot tracks {sorted(named)} for slots "
+                             f"{sorted(served)}")
+    buckets = sorted({e["args"]["bucket"] for e in chrome["traceEvents"]
+                      if e["ph"] == "X" and e["name"] == "decode_step"})
+    recs = summ["dispatches"]
+    timed = {(f"{r['backend']}:{r['kernel']}", r["attrs"]["batch"])
+             for r in recs if r["trials_us"]}
+    missing = [(k, b) for k in TRACE_KERNELS for b in buckets
+               if (k, b) not in timed]
+    if missing:
+        raise AssertionError(f"no device-timed record of {missing}")
+    untimed = summ["drift"].get("untimed", {})
+    if set(untimed) - {"capturing"} or any(
+            not r["trials_us"] and r["attrs"].get("untimed") != "capturing"
+            for r in recs):
+        raise AssertionError(f"untimed decisions outside a capture: "
+                             f"{untimed}")
+    hook = {k: counts["traced"][k] - counts["untraced"][k]
+            for k in ("pim_gemv", "splitk_gemv")}
+    if min(hook.values()) <= 0:
+        raise AssertionError(f"the hook's timing launched {hook}")
+    idle = [k for k in TRACE_PATH_KERNELS if counts["untraced"][k] == 0]
+    if idle:
+        raise AssertionError(f"the untraced run never launched {idle}")
+    drift = summ["drift"]
+    log(f"  {n_req} requests, buckets {buckets}, slots served "
+        f"{len(served)}; tokens equal traced / untraced; phases sum to "
+        f"totals within {worst:.2e}; spans {summ['n_spans']}, events "
+        f"{summ['n_events']}, counter samples "
+        f"{sum(g['n'] for g in summ['gauges'].values())}")
+    log_drift(drift["kernels"])
+    fit = run_trace_fitted(dev, kw, fitted, plain) if fitted else None
+    res = {
+        "trace": str(TRACE_OUT.relative_to(ROOT)),
+        "summary": str(Path(docs["traced"]["flight_trace"]["summary"])
+                       .relative_to(ROOT)),
+        "config": TRACE_CONFIG, "buckets": buckets, "drift": drift,
+        "requests": n_req, "phase_sum_worst_rel": worst,
+        "n_spans": summ["n_spans"], "n_events": summ["n_events"],
+        "n_counters": sum(g["n"] for g in summ["gauges"].values()),
+        "slots_served": len(served), "untimed_at_capture":
+            untimed.get("capturing", 0),
+        "hook_s": drift.get("timing_s", 0.0), "hook_launches": hook,
+        "launches": counts, "run_s": seconds,
+        "ttft_ms": {t: d["runs"][0]["ttft_ms"] for t, d in docs.items()},
+        "per_token_ms": {t: d["runs"][0]["per_token_ms"]
+                         for t, d in docs.items()},
+        "prefix_cache": {t: d["runs"][0].get("prefix_cache")
+                         for t, d in docs.items()},
+        "dispatches": recs, "fitted": fit,
+    }
+    for t in ("traced", "untraced"):
+        log(f"  {t}: TTFT p50 {res['ttft_ms'][t]['p50']:.1f} ms, per-token "
+            f"p50 {res['per_token_ms'][t]['p50']:.3f} ms, run "
+            f"{seconds[t]:.1f} s, launches "
+            f"{json.dumps({k: counts[t][k] for k in TRACE_PATH_KERNELS})}")
+    log(f"  hook: {drift['n_timed']} of {drift['n_dispatches']} decisions "
+        f"timed on the card in {res['hook_s']:.3f} s, launching "
+        f"{json.dumps(hook)}; untimed at a capture "
+        f"{res['untimed_at_capture']}")
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def log_drift(kernels: dict) -> None:
+    for name, e in kernels.items():
+        pom = e.get("pred_over_measured", {})
+        log(f"    {name:14s} n {e['n']:2d}: predicted p50 "
+            f"{e['predicted_us_p50']:8.2f} us, measured p50 "
+            f"{e.get('measured_us_p50', float('nan')):8.2f} us, "
+            f"pred/measured p50 {pom.get('p50', float('nan')):.3f} p90 "
+            f"{pom.get('p90', float('nan')):.3f}, stale "
+            f"{e.get('stale')} ({', '.join(e['cost_model_source'])})")
+
+
+def run_trace_fitted(dev, kw: dict, fitted: dict, seed_run: dict) -> dict:
+    """The trace under the h100 backend's fitted constants, in turns with
+    the seed's: fitted traced (``TRACE_FITTED_OUT``), fitted untraced,
+    seed untraced; ``seed_run`` is the seed's untraced run before them.
+    Reports each run's per-token and TTFT p50, the fitted runs' picks and
+    drift report, and the token agreement with the seed (the ``ref`` path
+    sums in another order, so bf16 tokens may part)."""
+    be = get_backend("h100")
+    cm = be.seed_cost_model.with_constants(**fitted)
+    runs = [("seed", seed_run)]
+    try:
+        for tag, extra in (("fitted", dict(trace_out=str(TRACE_FITTED_OUT),
+                                           trace_timing=True)),
+                           ("fitted", {}), ("seed", {})):
+            if tag == "fitted":
+                be.apply_calibration(cm)
+            else:
+                be.reset_calibration()
+            doc = run_serve_trace("olmo-1b", **kw, **extra)
+            runs.append((tag, doc["runs"][0]))
+            if extra:
+                fsumm = json.loads(Path(doc["flight_trace"]["summary"])
+                                   .read_text())
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        be.reset_calibration()
+    picks = {t: r["dispatch"]["kernel_picks"] for t, r in runs[:2]}
+    inner = {t: r["dispatch"]["program_kernels"] for t, r in runs[:2]}
+    res = {
+        "order": [t for t, _ in runs],
+        "per_token_p50_ms": [r["per_token_ms"]["p50"] for _, r in runs],
+        "ttft_p50_ms": [r["ttft_ms"]["p50"] for _, r in runs],
+        "kernel_picks": picks, "program_kernels": inner,
+        "tokens_agree_with_seed": [
+            sum(r["generated"][k] == seed_run["generated"][k]
+                for k in seed_run["generated"]) for _, r in runs],
+        "drift": fsumm["drift"],
+    }
+    log(f"  fitted h100 constants, in turns "
+        f"{' / '.join(res['order'])}: per-token p50 "
+        f"{' / '.join(f'{v:.3f}' for v in res['per_token_p50_ms'])} ms, "
+        f"TTFT p50 {' / '.join(f'{v:.1f}' for v in res['ttft_p50_ms'])} ms;"
+        f" requests whose tokens equal the seed's "
+        f"{res['tokens_agree_with_seed']} of {len(seed_run['generated'])}")
+    log(f"    picks seed {json.dumps(picks['seed'])} -> fitted "
+        f"{json.dumps(picks['fitted'])}; fused inner kernels seed "
+        f"{json.dumps(inner['seed'])} -> fitted "
+        f"{json.dumps(inner['fitted'])}")
+    log_drift(fsumm["drift"]["kernels"])
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(rows: list[dict], launch_counts: dict,
@@ -4606,6 +4848,10 @@ def main() -> int:
         f"fit, artifacts under {CALIBRATION_DIR}")
     calibrate = run_calibrate(dev)
     log(f"[calibrate] {calibrate['seconds']:.1f} s on {card}")
+    log(f"[trace] olmo-1b at full width, bf16: run_serve_trace(trace_out="
+        f"{TRACE_OUT.relative_to(ROOT)}, trace_timing=True), then untraced")
+    trace = run_trace(dev, calibrate["backends"]["h100"]["constants"])
+    log(f"[trace] {trace['seconds']:.1f} s on {card}")
 
     launch_counts = {**{n: engine["launches"][n] for n in FLOAT_KERNELS},
                      "quant_gemv":
@@ -4645,7 +4891,7 @@ def main() -> int:
         serving=serving, families=families, families_s=families_s,
         multimodal=multimodal, multimodal_s=multimodal_s, state=state,
         hybrid=hybrid,
-        autotune=autotune, pim=pim, calibrate=calibrate,
+        autotune=autotune, pim=pim, calibrate=calibrate, trace=trace,
         kernels=line["kernels"],
         total_s=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -24,7 +24,7 @@ bypasses all four: the backend coerces the plan to one of its own kernels
 On every plan-cache miss, before selection, the backend takes the
 fitted constants of the table's ``calibration`` section when it has an
 entry for it (:func:`_maybe_apply_calibration`; an invalid entry warns
-once and is ignored).
+once, through ``observability.log.warn_once``, and is ignored).
 
 Decisions are counted once per plan-cache miss, as in the JAX package:
 ``dispatch_stats()`` reports the kernel picks, program modes and the
@@ -45,6 +45,20 @@ The engine's decode step on the card is a captured CUDA graph
 at its capture, never at a replay -- the counterpart of the JAX package's
 counting at trace time.  A replayed step's kernels are seen by the
 profiler only.
+
+With a tracer installed (``repro_torch.observability``), every plan-cache
+miss also records one :class:`~repro_torch.observability.trace
+.DispatchRecord`: the decision priced by the backend's active cost model,
+tagged with the source of its constants, and -- with ``Tracer.timing`` --
+its kernel timed on synthesized inputs on the caller's device by
+``base.time_trials_us`` (on the card: CUDA events around replays of a
+captured graph over weight copies read cold, the clock the calibration
+fits against).  With no tracer the hook costs one global read.  Two
+deliberate differences from the reference's hook: a decision met inside a
+CUDA-graph capture (where a synchronize or a capture of its own would
+break the engine's graph) is recorded predicted-only with
+``untimed="capturing"``, and a kernel that fails while being timed raises
+instead of leaving the record untimed.
 """
 
 from __future__ import annotations
@@ -52,7 +66,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import threading
-import warnings
+import time
 
 import torch
 
@@ -73,6 +87,10 @@ from repro_torch.kernels.backends.base import (
     entry_to_plan,
     entry_to_program_plan,
     get_backend,
+    program_copies,
+    synthesize_gemv,
+    time_trials_us,
+    weight_copies,
 )
 from repro_torch.kernels.gemv_plan import GemvPlan
 from repro_torch.kernels.ops import (
@@ -80,12 +98,15 @@ from repro_torch.kernels.ops import (
     from_transposed,
     pack_weight,
 )
+from repro_torch.observability.log import reset_warn_once, warn_once
+from repro_torch.observability.trace import current_tracer as _current_tracer
 
 __all__ = [
     "DispatchPolicy", "DEFAULT_POLICY", "as_packed", "dispatch_gemv",
     "dispatch_dense", "dispatch_program", "dispatch_fused",
     "dispatch_prepacked", "dispatch_grouped", "dispatch_ragged",
-    "dispatch_stats", "record_expert_load", "clear_plan_cache",
+    "dispatch_stats", "record_expert_load", "record_overlap",
+    "clear_plan_cache",
     "load_autotune_table", "save_autotune_table", "clear_autotune_table",
     "autotune_table",
 ]
@@ -97,9 +118,6 @@ _PROGRAM_CACHE: dict[tuple[ProgramKey, DispatchPolicy], ProgramPlan] = {}
 _CACHE_STATS = {"hits": 0, "misses": 0, "program_hits": 0,
                 "program_misses": 0}
 _AUTOTUNE_TABLE = AutotuneTable()
-# backends warned about an invalid calibration entry since the table was
-# last cleared (the entry cannot get better between misses)
-_CALIBRATION_WARNED: set[str] = set()
 
 
 def _fresh_counters() -> dict:
@@ -118,6 +136,13 @@ def _fresh_counters() -> dict:
         # which constants priced each decision: "seed" = the backend's
         # hand-seeded ones, "calibrated" = fitted by repro_torch.calibration
         "cost_model_source": {"seed": 0, "calibrated": 0},
+        # overlap telemetry (record_overlap): ``inflight`` is a gauge
+        # (issued - awaited at this instant), the rest are monotonic
+        "overlap": {
+            "async_prefill": {"issued": 0, "awaited": 0, "inflight": 0,
+                              "max_inflight": 0},
+            "deferred": {"collectives": 0},
+        },
     }
 
 
@@ -162,9 +187,8 @@ def clear_autotune_table() -> None:
     _AUTOTUNE_TABLE.clear()
     for name in available_backends():
         get_backend(name).reset_calibration()
-    with _LOCK:
-        # a reloaded table's entry may differ: let a bad one warn again
-        _CALIBRATION_WARNED.clear()
+    # a reloaded table's entry may differ: let a bad one warn again
+    reset_warn_once("calibration:")
 
 
 def _maybe_apply_calibration(backend) -> str:
@@ -180,13 +204,10 @@ def _maybe_apply_calibration(backend) -> str:
     try:
         cm = backend.seed_cost_model.with_constants(**entry["constants"])
     except (TypeError, ValueError) as e:
-        with _LOCK:
-            first = backend.name not in _CALIBRATION_WARNED
-            _CALIBRATION_WARNED.add(backend.name)
-        if first:
-            warnings.warn(f"ignoring invalid calibration entry for backend "
-                          f"{backend.name!r}: {e}", RuntimeWarning,
-                          stacklevel=3)
+        # once per backend: the entry cannot get better between misses
+        warn_once(f"calibration:{backend.name}",
+                  f"ignoring invalid calibration entry for backend "
+                  f"{backend.name!r}: {e}", category=RuntimeWarning, depth=3)
         return backend.cost_model_source
     if backend.cost_model != cm:
         backend.apply_calibration(cm)
@@ -211,6 +232,31 @@ def record_expert_load(*, routed_tokens: int, experts: int,
         el["padded_slots"] += int(padded_slots)
 
 
+def record_overlap(kind: str, *, issued: int = 0, awaited: int = 0,
+                   deferred_collectives: int = 0) -> None:
+    """Accumulate overlap telemetry (the reference's counters).
+
+    ``kind="async_prefill"``: the engine issued (``issued``) or harvested
+    (``awaited``) that many non-blocking prefill chunks; the inflight gauge
+    and its high-water mark are kept here, under the counters' lock, so
+    every ``dispatch_stats()`` snapshot satisfies ``inflight == issued -
+    awaited``.  ``kind="deferred"``: a sharded decode deferred that many
+    collectives by one layer.  No engine path of the port records either
+    yet (async prefill and sharded serving are not ported)."""
+    with _LOCK:
+        ov = _DISPATCH_COUNTERS["overlap"]
+        if kind == "async_prefill":
+            ap = ov["async_prefill"]
+            ap["issued"] += int(issued)
+            ap["awaited"] += int(awaited)
+            ap["inflight"] = ap["issued"] - ap["awaited"]
+            ap["max_inflight"] = max(ap["max_inflight"], ap["inflight"])
+        elif kind == "deferred":
+            ov["deferred"]["collectives"] += int(deferred_collectives)
+        else:
+            raise ValueError(f"unknown overlap kind {kind!r}")
+
+
 def _count_decision(backend_name: str, batch: int, policy: DispatchPolicy,
                     *, kernel: str | None = None, mode: str | None = None,
                     program_kernel: str | None = None,
@@ -229,6 +275,91 @@ def _count_decision(backend_name: str, batch: int, policy: DispatchPolicy,
             _DISPATCH_COUNTERS["matmul_fallback"] += 1
         else:
             _DISPATCH_COUNTERS["gemv_path"] += 1
+
+
+# ---------------------------------------------------------------------------
+# Dispatch attribution: price (and with Tracer.timing, time) each fresh
+# decision into the installed tracer.  Reached only on plan-cache misses.
+# ---------------------------------------------------------------------------
+
+# Re-entrancy guard of the timing hook: a fresh decision met while another
+# decision's kernel is being timed is recorded, predicted-only, and not
+# timed in its turn.
+_TIMING_TLS = threading.local()
+
+
+def _capturing() -> bool:
+    """True while the current CUDA stream is capturing a graph (then a
+    synchronize, or a capture of the hook's own, would break it)."""
+    return (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def _decision_trials(tr, device: torch.device, make_run
+                     ) -> tuple[tuple[float, ...] | None, dict]:
+    """``(trials_us, attrs)`` of one fresh decision: with ``tr.timing``,
+    ``make_run()``'s ``(run, copies)`` timed by ``time_trials_us`` on
+    ``device``, and the host seconds that took (``timing_s``: what the
+    hook costs); the operands it synthesizes are dropped on return,
+    outside any capture.  Untimed, the attrs say why: ``"capturing"`` (a
+    CUDA graph is being captured) or ``"nested"`` (met while another
+    decision is being timed).  A kernel that fails while being timed
+    raises."""
+    if not tr.timing:
+        return None, {}
+    if getattr(_TIMING_TLS, "active", False):
+        return None, {"untimed": "nested"}
+    if _capturing():
+        return None, {"untimed": "capturing"}
+    _TIMING_TLS.active = True
+    t0 = time.perf_counter()
+    try:
+        run, copies = make_run()
+        trials = time_trials_us(run, copies=copies, device=device)
+    finally:
+        _TIMING_TLS.active = False
+    return trials, {"timing_s": time.perf_counter() - t0}
+
+
+def _trace_gemv_decision(tr, backend, key: GemvKey, policy: DispatchPolicy,
+                         kernel: str, plan, source: str,
+                         device: torch.device) -> None:
+    """Record one fresh single-GEMV decision with the installed tracer."""
+    predicted = backend.estimate_cost_us(
+        kernel, key.M, key.K, key.batch, bits=key.bits,
+        x_bytes=dtype_bytes(key.dtype), plan=plan)
+
+    def make_run():
+        x, pw = synthesize_gemv(key, device)
+        pws = weight_copies(pw, device)
+        return (lambda i: backend.execute(kernel, x, pws[i], plan)), len(pws)
+
+    trials, attrs = _decision_trials(tr, device, make_run)
+    tr.record_dispatch(
+        backend=backend.name, kind="single", kernel=kernel,
+        shape=key.table_key(), predicted_us=predicted, source=source,
+        trials_us=trials, batch=key.batch,
+        gate=("matmul_fallback" if key.batch > policy.batch_threshold
+              else "gemv_path"), **attrs)
+
+
+def _trace_program_decision(tr, backend, key: ProgramKey,
+                            policy: DispatchPolicy, pplan: ProgramPlan,
+                            source: str, device: torch.device) -> None:
+    """Record one fresh program decision (its mode is the "kernel")."""
+    predicted = backend.estimate_program_cost_us(
+        key, mode=pplan.mode, x_bytes=dtype_bytes(key.dtype))
+
+    def make_run():
+        programs = program_copies(key, device)
+        return (lambda i: backend.run_program_candidate(
+            programs[i], pplan, policy)), len(programs)
+
+    trials, attrs = _decision_trials(tr, device, make_run)
+    tr.record_dispatch(
+        backend=backend.name, kind=key.kind, kernel=pplan.mode,
+        shape=key.table_key(), predicted_us=predicted, source=source,
+        trials_us=trials, batch=key.batch, **attrs)
 
 
 def _resolve(backend, key: GemvKey, policy: DispatchPolicy,
@@ -263,6 +394,10 @@ def _resolve(backend, key: GemvKey, policy: DispatchPolicy,
         _PLAN_CACHE[(key, policy)] = decision
     _count_decision(backend.name, key.batch, policy, kernel=decision[0],
                     source=source)
+    tracer = _current_tracer()
+    if tracer is not None:
+        _trace_gemv_decision(tracer, backend, key, policy, *decision,
+                             source, device)
     return decision
 
 
@@ -296,6 +431,10 @@ def _resolve_program(backend, key: ProgramKey, policy: DispatchPolicy,
     _count_decision(backend.name, key.batch, policy, mode=pplan.mode,
                     program_kernel=(pplan.kernel if pplan.mode == "fused"
                                     else None), source=source)
+    tracer = _current_tracer()
+    if tracer is not None:
+        _trace_program_decision(tracer, backend, key, policy, pplan, source,
+                                device)
     return pplan
 
 

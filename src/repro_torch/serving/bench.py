@@ -13,9 +13,17 @@ Runs on the CUDA card unless ``device="cpu"`` is given; ``reduced=True``
 (the default, as in the JAX bench) serves the config's ``reduced()`` form,
 ``reduced=False`` the published widths and depth.
 
+``trace_out=PATH`` (``--trace-out``) flight-records the last policy's run
+(``repro_torch.observability``): a Perfetto-loadable Chrome trace at
+``PATH`` and the schema-1 summary beside it (``export.summary_path``),
+with each fresh dispatch decision timed on the run's device unless
+``trace_timing=False`` (``--no-trace-timing``).
+
     python -m repro_torch.serving.bench --smoke --device cpu
     python -m repro_torch.serving.bench --trace shared-prefix --prefix-cache \\
         --prefill-chunk 128 --full-size --json serve.json
+    python -m repro_torch.serving.bench --trace shared-prefix --prefix-cache \\
+        --trace-out TRACE.json
 """
 
 from __future__ import annotations
@@ -30,12 +38,17 @@ from repro_torch.configs.registry import get_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
 from repro_torch.models import lm
+from repro_torch.observability import export
+from repro_torch.observability.trace import Tracer, uninstall_tracer
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.scheduler import POLICIES, QueueFull
 
 # --json document version, the JAX bench's numbering: v4 is its layout
-# without the mesh, async-prefill, overlap and flight-trace fields (not
-# ported); the port adds ``device``, ``reduced`` and ``prefill_chunk``.
+# without the mesh, async-prefill and overlap fields (not ported); the
+# port adds ``device``, ``reduced`` and ``prefill_chunk``.  As in the
+# reference, tracing is additive, not a schema bump: ``trace_out`` adds
+# the ``flight_trace`` section (its files carry their own schema,
+# ``repro_torch.observability.SCHEMA_VERSION``).
 SCHEMA_VERSION = 4
 
 TRACE_KINDS = ("uniform", "shared-prefix")
@@ -116,17 +129,23 @@ def run_policy(cfg, params, policy: str, trace: list[dict], *,
                batch_slots: int, max_len: int, gemv_batch_threshold: int,
                gemv_backend: str | None = None, max_queue: int = 0,
                prefill_chunk: int | None = None, prefix_cache=False,
-               kv_store: str = "fp", max_iters: int = 5000) -> dict:
+               kv_store: str = "fp", tracer: Tracer | None = None,
+               tokens: bool = False, max_iters: int = 5000) -> dict:
     """Serve one trace under one scheduler policy on ``params``' device;
     returns the metrics document (aggregates only) tagged with the run's
-    configuration."""
+    configuration, and with ``tokens`` each finished request's tokens
+    (``generated``, by request id).
+
+    ``tracer`` flight-records this run (the engine's spans and the
+    dispatcher's per-decision attribution) and is uninstalled before
+    returning, so a traced run never leaks recording into later runs."""
     dispatch.clear_plan_cache()  # attribute dispatch decisions to this run
     eng = Engine(cfg, params, batch_slots=batch_slots, max_len=max_len,
                  gemv_batch_threshold=gemv_batch_threshold,
                  gemv_backend=gemv_backend, scheduler=policy,
                  max_queue=max_queue, prefill_chunk=prefill_chunk,
                  prefix_cache=prefix_cache, kv_store=kv_store,
-                 device=params["embed"].device)
+                 device=params["embed"].device, tracer=tracer)
     pending = [
         Request(rid=i, prompt=t["prompt"],
                 max_new_tokens=t["max_new_tokens"],
@@ -135,20 +154,24 @@ def run_policy(cfg, params, policy: str, trace: list[dict], *,
     ]
     arrivals = [t["arrival_step"] for t in trace]
     done, retry = [], []
-    for step_i in range(max_iters):
-        due, retry = retry, []
-        while pending and arrivals[0] <= step_i:
-            due.append(pending.pop(0))
-            arrivals.pop(0)
-        for req in due:
-            try:
-                eng.submit(req)
-            except QueueFull:
-                retry.append(req)  # backpressure: retry next step
-        done.extend(eng.step())
-        if (not pending and not retry and not eng.active
-                and not eng._prefilling and not eng.scheduler.queue):
-            break
+    try:
+        for step_i in range(max_iters):
+            due, retry = retry, []
+            while pending and arrivals[0] <= step_i:
+                due.append(pending.pop(0))
+                arrivals.pop(0)
+            for req in due:
+                try:
+                    eng.submit(req)
+                except QueueFull:
+                    retry.append(req)  # backpressure: retry next step
+            done.extend(eng.step())
+            if (not pending and not retry and not eng.active
+                    and not eng._prefilling and not eng.scheduler.queue):
+                break
+    finally:
+        if tracer is not None:
+            uninstall_tracer(tracer)
     doc = eng.metrics.to_dict(include_steps=False)
     doc.update(
         policy=policy,
@@ -161,7 +184,21 @@ def run_policy(cfg, params, policy: str, trace: list[dict], *,
         prefix_index=(eng.prefix.stats() if eng.prefix is not None
                       else None),
     )
+    if tokens:
+        doc["generated"] = {str(r.rid): list(r.generated) for r in done}
     return doc
+
+
+def dispatch_docs(tracer: Tracer) -> list[dict]:
+    """The tracer's dispatch records, one JSON document each (the summary's
+    ``dispatches``, which the reference's lacks: the drift report's
+    per-decision rows, with the batch and the device trials)."""
+    return [{"backend": r.backend, "kind": r.kind, "kernel": r.kernel,
+             "shape": r.shape, "predicted_us": r.predicted_us,
+             "measured_us": r.measured_us,
+             "trials_us": list(r.trials_us) if r.trials_us else None,
+             "source": r.source, "attrs": dict(r.attrs)}
+            for r in list(tracer.dispatches)]
 
 
 def run_serve_trace(
@@ -180,11 +217,24 @@ def run_serve_trace(
     trace_config: TraceConfig | None = None,
     reduced: bool = True,
     device=None,
+    trace_out: str | None = None,
+    trace_timing: bool | None = None,
+    tokens: bool = False,
     out: str | None = None,
 ) -> dict:
     """Serve one synthetic trace under each policy; returns (and with
     ``out`` writes) the comparison document.  Weights are random from
-    ``seed`` 0 on ``device`` (the card unless ``"cpu"`` is given)."""
+    ``seed`` 0 on ``device`` (the card unless ``"cpu"`` is given).
+
+    ``trace_out=PATH`` flight-records the last policy's run (the plan
+    cache is cleared per run, so every decision of the traced run lands
+    in the record) and writes the Chrome trace to ``PATH`` and the
+    summary to ``export.summary_path(PATH)`` (with the reference's fields
+    and each decision's record, :func:`dispatch_docs`); the document gains
+    a ``flight_trace`` section pointing at both.  ``trace_timing`` (default
+    on with ``trace_out``) times each fresh decision's kernel on the
+    run's device beside its predicted price.  ``tokens`` keeps each
+    run's tokens (:func:`run_policy`)."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -198,13 +248,19 @@ def run_serve_trace(
         tcfg = trace_config or TraceConfig(kind=trace_kind)
     tcfg = TraceConfig(**{**tcfg.__dict__, "seed": seed})
     trace = build_trace(tcfg, cfg.vocab, np.random.default_rng(tcfg.seed))
+    tracer = None
+    if trace_out:
+        tracer = Tracer(timing=True if trace_timing is None
+                        else bool(trace_timing))
     runs = [run_policy(cfg, params, policy, trace, batch_slots=batch_slots,
                        max_len=max_len,
                        gemv_batch_threshold=gemv_batch_threshold,
                        gemv_backend=gemv_backend,
                        prefill_chunk=prefill_chunk,
-                       prefix_cache=prefix_cache, kv_store=kv_store)
-            for policy in policies]
+                       prefix_cache=prefix_cache, kv_store=kv_store,
+                       tracer=tracer if i == len(policies) - 1 else None,
+                       tokens=tokens)
+            for i, policy in enumerate(policies)]
     shared = tcfg.kind == "shared-prefix"
     doc = {
         "schema": SCHEMA_VERSION,
@@ -229,6 +285,21 @@ def run_serve_trace(
         "prefill_chunk": prefill_chunk,
         "runs": runs,
     }
+    if tracer is not None:
+        export.write_chrome_trace(tracer, trace_out)
+        spath = export.summary_path(trace_out)
+        sdoc = export.write_summary(
+            tracer, spath, extra={"arch": arch, "policy": policies[-1],
+                                  "run": runs[-1] if runs else None,
+                                  "dispatches": dispatch_docs(tracer)})
+        doc["flight_trace"] = {
+            "path": trace_out,
+            "summary": spath,
+            "policy": policies[-1],
+            "timing": tracer.timing,
+            "hidden_fraction": (sdoc.get("overlap") or {}).get(
+                "hidden_fraction"),
+        }
     if out:
         with open(out, "w") as f:
             json.dump(doc, f, indent=1, sort_keys=True)
@@ -285,6 +356,14 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' to run here")
     ap.add_argument("--json", default=None, help="write the document here")
+    ap.add_argument("--trace-out", metavar="PATH", default=None,
+                    help="flight-record the last policy's run: the "
+                         "Perfetto-loadable Chrome trace to PATH, the "
+                         "summary beside it")
+    ap.add_argument("--trace-timing", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="time each fresh dispatch decision's kernel on the "
+                         "run's device (default: on with --trace-out)")
     a = ap.parse_args(argv)
     doc = run_serve_trace(
         a.arch, policies=tuple(a.policy or POLICIES), smoke=a.smoke,
@@ -292,9 +371,14 @@ def main(argv=None) -> int:
         gemv_batch_threshold=a.threshold, gemv_backend=a.gemv_backend,
         prefill_chunk=a.prefill_chunk, trace_kind=a.trace,
         prefix_cache=a.prefix_cache, kv_store=a.kv_store,
-        reduced=not a.full_size, device=a.device, out=a.json)
+        reduced=not a.full_size, device=a.device, trace_out=a.trace_out,
+        trace_timing=a.trace_timing, out=a.json)
     for run in doc["runs"]:
         print(summary_line(run))
+    if "flight_trace" in doc:
+        ft = doc["flight_trace"]
+        print(f"flight trace ({ft['policy']}): {ft['path']}, summary "
+              f"{ft['summary']}")
     return 0
 
 

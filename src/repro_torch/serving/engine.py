@@ -70,8 +70,21 @@ and is then captured, every later one replays.  Inside
 :func:`~repro_torch.serving.step_graph.disable_graphs`, and always on the
 CPU, the step runs eagerly op by op.  Prefill stays eager.
 
-Not ported yet: prefill as captured programs, async prefill, sharded
-(mesh) serving and the tracer.
+``tracer=`` (a :class:`~repro_torch.observability.Tracer`) flight-records
+the run at the reference's sites: each request's phases (queued, prefill,
+decode, preempted) on the tracer's host clock, the engine's spans
+(``prefix_match``, ``prefill_wave``, ``prefill_chunk``, ``decode_step``),
+events (``reject``, ``defrag_move``; the scheduler's ``requeue``, the
+prefix cache's ``prefix_evict``) and per-step gauges; installing it
+process-wide arms the dispatcher's attribution hook.  A span over device
+work closes after the host read that already waits for it (a step's
+sampled logits); a non-final prefill chunk has none, so its span is the
+host's enqueue.  With no tracer the engine runs the same device work and
+host reads.  A replayed decode graph runs no Python: its dispatch
+decisions were recorded at the bucket's eager first step.
+
+Not ported yet: prefill as captured programs, async prefill and sharded
+(mesh) serving.
 """
 
 from __future__ import annotations
@@ -88,6 +101,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.backends import DispatchPolicy
 from repro_torch.kernels.kv_quant import validate_kv_store
 from repro_torch.models import lm
+from repro_torch.observability.trace import install_tracer
 from repro_torch.serving.kv_cache import SlotKVCache
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.prefix_cache import (
@@ -183,6 +197,7 @@ class Engine:
                  prefix_cache=None,
                  kv_store: str = "fp",
                  device=None,
+                 tracer=None,
                  clock=time.monotonic):
         self.kv_store = validate_kv_store(kv_store)
         self.device = resolve_device(device)
@@ -193,6 +208,11 @@ class Engine:
         self.slots = batch_slots
         self.max_len = max_len
         self.clock = clock
+        # the flight recorder; installing it process-wide arms the
+        # dispatcher's attribution hook
+        self.tracer = tracer
+        if tracer is not None:
+            install_tracer(tracer)
         self.prefill_chunk = prefill_chunk
         # recurrent state must never see a pad token: exact prefill shapes
         self.exact_prefill = cfg.family == "ssm" or cfg.parallel_ssm
@@ -222,6 +242,8 @@ class Engine:
                 gemv_batch_threshold=gemv_batch_threshold,
                 moe_experts=cfg.moe.n_experts if cfg.moe else 0,
                 moe_top_k=cfg.moe.top_k if cfg.moe else 1))
+        if tracer is not None:
+            self.scheduler.tracer = tracer
         self.metrics = metrics or ServingMetrics(clock=clock)
         self.kv = SlotKVCache(cfg, batch_slots, max_len,
                               kv_store=self.kv_store, device=self.device)
@@ -278,17 +300,26 @@ class Engine:
             self.scheduler.submit(req, self.clock())
         except QueueFull:
             self.metrics.request_rejected()
+            if self.tracer is not None:
+                self.tracer.event("reject", cat="request", rid=req.rid,
+                                  reason="queue_full")
             raise
         self.metrics.request_submitted()
+        if self.tracer is not None:
+            # the request is in its ``queued`` phase until admission
+            self.tracer.request_submit(req.rid, prompt_len=len(req.prompt))
 
     def step(self) -> list[Request]:
         """One engine iteration: expire + (maybe) preempt + admit + prefill
         + one chunk of every chunked prefill + one decode step.  Returns
         the requests completed this step."""
         t0 = self.clock()
+        tr = self.tracer
         expired = self.scheduler.expire(t0)
         for r in expired:
             r.expired = True
+            if tr is not None:
+                tr.request_finish(r.rid, outcome="expired")
         self.expired.extend(expired)
         if expired:
             self.metrics.requests_expired(len(expired))
@@ -304,6 +335,9 @@ class Engine:
         for r in admitted:
             r.admit_seq = self._admit_seq
             self._admit_seq += 1
+            if tr is not None:
+                # queued (or preempted) -> prefill
+                tr.request_phase(r.rid, "prefill", admit_seq=r.admit_seq)
         misses = admitted
         if self.prefix is not None:
             # a hit splices its cached segments and joins the chunked seam
@@ -326,11 +360,15 @@ class Engine:
             finished.extend(self._prefill_wave(wave))
         for r in chunked:
             # the admission spent this slot; its first chunk runs below
-            self._prefilling[self.kv.alloc()] = [r, 0]
+            slot = self.kv.alloc()
+            self._prefilling[slot] = [r, 0]
+            if tr is not None:
+                tr.request_annotate(r.rid, slot=slot)
         if self._prefilling:
             finished.extend(self._advance_chunked())
         # an instant finish at prefill can punch a hole in the active
         # prefix; decode needs it contiguous
+        self._defrag_moves = 0      # this step's compaction moves
         self._compact()
         decode_batch, decode_s = 0, 0.0
         if self.active:
@@ -342,6 +380,10 @@ class Engine:
             t1, step_s=t1 - t0, decode_s=decode_s,
             decode_batch=decode_batch, n_active=self.kv.n_active,
             queue_depth=len(self.scheduler))
+        if tr is not None:
+            tr.counter("queue_depth", len(self.scheduler))
+            tr.counter("active_slots", self.kv.n_active)
+            tr.counter("decode_batch", decode_batch)
         return finished
 
     def run_until_drained(self, max_iters: int = 1000) -> list[Request]:
@@ -364,7 +406,13 @@ class Engine:
     def _prefix_match(self, r: Request) -> PrefixMatch | None:
         """Admission-time lookup: counts the hit or miss and pins the
         first admission's outcome for the TTFT split."""
+        tr = self.tracer
+        t0 = tr.now_us() if tr is not None else 0.0
         m = self.prefix.match(self._pending_tokens(r))
+        if tr is not None:
+            tr.add_span("prefix_match", t0, tr.now_us(), rid=r.rid,
+                        hit=m is not None,
+                        matched=m.length if m is not None else 0)
         if r.prefix_hit is None:
             r.prefix_hit = m is not None
         self.metrics.prefix_lookup(m is not None,
@@ -381,6 +429,9 @@ class Engine:
         self.kv.slot_meta[slot]["prefix_match"] = m
         self.kv.splice_prefix(slot, self.prefix.gather(m), m.length)
         self._prefilling[slot] = [r, m.length]
+        if self.tracer is not None:
+            self.tracer.request_annotate(r.rid, slot=slot, prefix_hit=True,
+                                         prefix_tokens=m.length)
 
     def _prefix_insert(self, slot: int, tokens: np.ndarray) -> None:
         """File a slot's freshly prefilled KV into the radix index."""
@@ -431,11 +482,20 @@ class Engine:
         r.evictions += 1
         self.scheduler.requeue(r)
         self.metrics.request_evicted()
+        if self.tracer is not None:
+            # readmission re-enters prefill
+            self.tracer.request_phase(r.rid, "preempted", evicted_from=slot,
+                                      evictions=r.evictions)
 
     def _prefill_wave(self, wave: list[Request]) -> list[Request]:
         """The whole admission wave in ONE right-padded batched forward;
         per-slot last-valid-token logits are gathered by length."""
+        tr = self.tracer
+        wave_t0 = tr.now_us() if tr is not None else 0.0
         slots = [self.kv.alloc() for _ in wave]
+        if tr is not None:
+            for r, slot in zip(wave, slots):
+                tr.request_annotate(r.rid, slot=slot)
         toks = [self._pending_tokens(r).astype(np.int64) for r in wave]
         lengths = [len(t) for t in toks]
         Lmax = max(lengths)
@@ -472,6 +532,9 @@ class Engine:
             if self._activate(r, slot, tok, now):
                 finished.append(r)
         self.metrics.prefill_wave(len(wave), sum(lengths))
+        if tr is not None:
+            tr.add_span("prefill_wave", wave_t0, tr.now_us(),
+                        requests=len(wave), tokens=sum(lengths))
         return finished
 
     def _advance_chunked(self) -> list[Request]:
@@ -482,7 +545,9 @@ class Engine:
         # a prefix hit's tail rides this seam even with chunking off: one
         # chunk covers the whole tail
         chunk_limit = self.prefill_chunk or self.max_len
+        tr = self.tracer
         for slot in sorted(self._prefilling):
+            chunk_t0 = tr.now_us() if tr is not None else 0.0
             req, consumed = self._prefilling[slot]
             toks = self._pending_tokens(req)
             chunk = toks[consumed:consumed + chunk_limit]
@@ -515,13 +580,24 @@ class Engine:
                 # cannot make one mid-edge: file one at each chunk boundary
                 if self.prefix is not None and self.prefix.has_state:
                     self._prefix_insert(slot, toks[:consumed + c])
+                if tr is not None:
+                    self._chunk_span(tr, chunk_t0, slot, req, c, consumed)
                 continue
             del self._prefilling[slot]
             self._prefix_insert(slot, toks)
-            tok = self._sample(req, logits[0, c - 1].float().cpu().numpy())
+            last = logits[0, c - 1].float().cpu().numpy()
+            if tr is not None:
+                self._chunk_span(tr, chunk_t0, slot, req, c, consumed)
+            tok = self._sample(req, last)
             if self._activate(req, slot, tok, self.clock()):
                 finished.append(req)
         return finished
+
+    @staticmethod
+    def _chunk_span(tr, t0: float, slot: int, req: Request, c: int,
+                    consumed: int) -> None:
+        tr.add_span("prefill_chunk", t0, tr.now_us(), track=f"slot{slot}",
+                    rid=req.rid, slot=slot, tokens=c, consumed=consumed + c)
 
     def _activate(self, r: Request, slot: int, tok: int,
                   now: float) -> bool:
@@ -531,6 +607,9 @@ class Engine:
         r.slot = slot
         self.active[slot] = r
         self.last_tok[slot, 0] = tok
+        if self.tracer is not None:
+            # prefill -> decode at the first sampled token
+            self.tracer.request_phase(r.rid, "decode", slot=slot)
         self.metrics.first_token(r, now)
         self.metrics.tokens_generated(1)
         if self._should_finish(r, tok):
@@ -564,6 +643,9 @@ class Engine:
 
     def _decode(self) -> tuple[list[Request], int, float]:
         t0 = self.clock()
+        tr = self.tracer
+        step_t0 = tr.now_us() if tr is not None else 0.0
+        n = self.kv.n_active
         b = self.decode_bucket()
         # rows mid-prefill ride the step (their logits go unsampled); their
         # recurrent state must come out of it as it went in
@@ -594,6 +676,11 @@ class Engine:
             if self._should_finish(r, tok):
                 self._finish(r, slot, now)
                 finished.append(r)
+        if tr is not None:
+            # closes after the logits' host read, which waited for the step
+            tr.add_span("decode_step", step_t0, tr.now_us(), bucket=b,
+                        active=n, defrag_moves=self._defrag_moves,
+                        finished=len(finished))
         return finished, b, decode_s
 
     def _sample(self, r: Request, logits_row: np.ndarray) -> int:
@@ -619,6 +706,10 @@ class Engine:
         self.kv.free(slot)
         del self.active[slot]
         self._rngs.pop(r.rid, None)
+        if self.tracer is not None:
+            self.tracer.request_finish(r.rid, outcome="finished",
+                                       tokens=len(r.generated),
+                                       evictions=r.evictions)
 
     def _compact(self) -> None:
         """Defrag alloc'd slots to a contiguous prefix and re-point the
@@ -635,11 +726,17 @@ class Engine:
                 src_rows = v[srcs]
                 v[srcs] = v[dsts]
                 v[dsts] = src_rows
+        tr = self.tracer
         for src, dst in moves.items():
+            self._defrag_moves += 1
             if src in self.active:
                 r = self.active.pop(src)
                 r.slot = dst
                 self.active[dst] = r
             else:
                 self._prefilling[dst] = self._prefilling.pop(src)
+                r = self._prefilling[dst][0]
+            if tr is not None:
+                tr.event("defrag_move", src=src, dst=dst, rid=r.rid)
+                tr.request_annotate(r.rid, slot=dst)
             self.last_tok[dst] = self.last_tok[src]

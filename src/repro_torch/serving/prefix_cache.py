@@ -36,6 +36,8 @@ span, so the bytes the store holds are the bytes it accounts.
 
 One deliberate difference from the reference: an insert never evicts the
 node it attaches its new segment to (:meth:`PrefixCache._make_room`).
+
+With a tracer installed, every eviction is a ``prefix_evict`` event.
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from repro_torch.observability.trace import current_tracer
 
 __all__ = [
     "PrefixCache", "PrefixCacheConfig", "PrefixMatch", "prefix_cacheable",
@@ -334,6 +338,12 @@ class PrefixCache:
         self._bytes -= victim.nbytes
         self._segments -= 1
         self.counters["evictions"] += 1
+        tr = current_tracer()
+        if tr is not None:
+            # capacity churn in the trace: when the store started evicting,
+            # not just the final count
+            tr.event("prefix_evict", cat="prefix_cache",
+                     bytes=victim.nbytes, tokens=len(victim.tokens))
         return True
 
     def _make_room(self, incoming: int, keep: _Node | None = None) -> bool:

@@ -79,6 +79,10 @@ class Scheduler:
     # ordering); None: len(r.prompt).  The engine's prefix cache installs
     # the tail length it would actually prefill.
     prefill_cost: object = None
+    # flight recorder (repro_torch.observability.Tracer), installed by the
+    # engine: queue-side transitions the engine never sees directly (a
+    # preempted victim re-entering the queue) land in the trace as events
+    tracer: object = None
     _seq: int = 0                     # arrival tiebreak for stable ordering
     # router-imbalance estimate from dispatch feedback (None: the config's
     # expert_skew prior); at least 1.0, the even split
@@ -108,6 +112,9 @@ class Scheduler:
         ``max_queue`` (dropping it here would lose an admitted request);
         ``submit_time`` and ``arrival_seq`` are kept."""
         self.queue.append(req)
+        if self.tracer is not None:
+            self.tracer.event("requeue", cat="scheduler", rid=req.rid,
+                              evictions=getattr(req, "evictions", 0))
 
     def expire(self, now: float) -> list:
         """Remove (and return) queued requests whose deadline has passed;

@@ -1642,3 +1642,50 @@ def test_device_timed_helper_against_the_host_clock(cuda):
     torch.testing.assert_close(run(0).float(),
                                pim_gemv_plain(x, w_t).float(),
                                **_stream_tol(torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_dispatch_hook_times_pim_and_splitk_decisions_on_the_card(cuda):
+    """With a timing tracer installed, each fresh decision's kernel is
+    timed on the card (CUDA events around replays of a captured graph
+    over weight copies read cold): olmo-1b's head at batch 8 picks
+    ``pim`` and its down projection ``splitk``, both records carry device
+    trials, the hook launched each kernel, and the records match the
+    decision counters."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.backends import DispatchPolicy
+    from repro_torch.observability.trace import (
+        Tracer,
+        install_tracer,
+        uninstall_tracer,
+    )
+
+    dispatch.clear_plan_cache()
+    g = torch.Generator(device=cuda).manual_seed(27)
+    pol = DispatchPolicy(backend="h100")
+    tr = Tracer(timing=True)
+    n_pim, n_splitk = pim_gemv.launches, splitk_gemv.launches
+    install_tracer(tr)
+    try:
+        for M, K in ((50304, 2048), (2048, 8192)):
+            w = torch.randn((M, K), generator=g, device=cuda).to(
+                torch.bfloat16)
+            x = torch.randn((8, K), generator=g, device=cuda).to(
+                torch.bfloat16)
+            dispatch.dispatch_gemv(x, w, policy=pol)
+        torch.cuda.synchronize()
+    finally:
+        uninstall_tracer(tr)
+    picks = dispatch.dispatch_stats()["kernel_picks"]
+    dispatch.clear_plan_cache()
+    assert [r.kernel for r in tr.dispatches] == ["pim", "splitk"]
+    assert picks == {"h100:pim": 1, "h100:splitk": 1}
+    for r in tr.dispatches:
+        assert len(r.trials_us) == 3 and r.measured_us > 0
+        assert "untimed" not in r.attrs and r.attrs["timing_s"] > 0
+        assert r.predicted_us > 0
+    # the dispatch's own launch, plus the hook's warm-up and captured calls
+    assert pim_gemv.launches >= n_pim + 3
+    assert splitk_gemv.launches >= n_splitk + 3
+    rep = tr.drift_report()
+    assert rep["n_timed"] == 2 and "untimed" not in rep

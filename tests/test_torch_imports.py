@@ -16,6 +16,7 @@ PKG = Path(repro_torch.__file__).resolve().parent
 # the twins of the reference's scripts
 SCRIPTS = ("examples/placement_explorer_torch.py",
            "examples/quickstart_torch.py",
+           "examples/serve_decode_torch.py",
            "benchmarks/paper_figs_torch.py",
            "benchmarks/kernel_bench_torch.py")
 # ``import repro`` / ``from repro.x import`` -- but not ``repro_torch``
@@ -40,7 +41,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.serving.bench", "repro_torch.core.placement",
             "repro_torch.pim.timing", "repro_torch.pim.e2e",
             "repro_torch.calibration.fit",
-            "repro_torch.calibration.artifact"} <= set(names)
+            "repro_torch.calibration.artifact",
+            "repro_torch.observability",
+            "repro_torch.observability.trace",
+            "repro_torch.observability.log",
+            "repro_torch.observability.export"} <= set(names)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
