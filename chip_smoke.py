@@ -39,8 +39,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. engine  -- olmo-1b at full width, bf16, seeded random weights, through
    ``Engine(batch_slots=8, max_len=1024)``: 8 requests with prompts of 32
    to 512 tokens, 64 greedy tokens each.  Every engine phase runs twice:
-   with the decode step as one replayed CUDA graph a bucket (the main
-   path) and under ``disable_graphs()`` (eager); fails unless the greedy
+   with the decode step as one replayed CUDA graph a bucket and each
+   prefill shape captured (the main path) and under ``disable_graphs()``
+   (eager); fails unless the greedy
    tokens are equal both ways.  The wrappers' counters tick when Python
    runs the step: every eager step, and with graphs each bucket's eager
    first step and its capture, never a replay.  Fails unless each counted
@@ -54,7 +55,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    profiler's lost records fall, and the eager window's records of the
    port's kernels must equal its wrappers' counts).  Per route:
    per-token p50/p90, device busy and idle share, ATen ops and kernels a
-   step, peak memory; the capture's seconds by bucket.  TTFT p50 with
+   step, peak memory; the capture's seconds by bucket.  Then the graph
+   route's engine serves its prompts once more, 4 tokens each, as one
+   wave: fails unless that wave's 8-row prefill graph replays, with the
+   eager route's tokens (every engine phase but the state families',
+   whose waves run eagerly by design).  TTFT p50 with
    prefill attention's scores from K cast to f32 and from the bf16
    operands, in turns, greedy tokens equal (as in every ``h100`` engine
    phase);
@@ -88,11 +93,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    step with a row mid-prefill in its bucket casts or copies a
    cache-shaped tensor (counted by a dispatch mode around those steps),
    and the replayed steps of a profiled window from the first preemption
-   run the eager steps' port kernels; reports TTFT p50 of hits and
-   misses, per-token p50/p90, capture seconds, peak memory and the
-   segment store's bytes; the plain engine (no chunking, no prefix cache,
-   no deadlines) on the same prompts gives the token agreement and the
-   first divergent token, printed, not required;
+   run the eager steps' port kernels; on the graph route each prefill
+   (a chunk, a wave) replays one captured graph per shape, and fails
+   unless some did, with every replayed chunk run under
+   ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises);
+   reports TTFT p50 of hits and misses, per-token p50/p90, the decode and
+   prefill graphs' shapes and capture seconds, the prefills run eagerly
+   by design, peak memory and the segment store's bytes; the plain
+   engine (no chunking, no prefix cache, no deadlines) on the same
+   prompts gives the token agreement and the first divergent token,
+   printed, not required; then ``[async]``: olmo-1b fp's mix again, on
+   the graph route, traced (no decision timed), with
+   ``Engine(async_prefill=)`` off and on (chunks issued on a side stream
+   against each chain's row of the prefill sub-cache, harvested the
+   step after), each on an engine that first served a warm-up pass of
+   other prompts (its graphs captured, then fresh metrics and an empty
+   prefix store): fails unless the tokens are equal, every issued chunk
+   was awaited and no chain is left, the mix preempted, every chain
+   chunk that replays a graph was issued under the sync debug mode, and
+   the serial run recorded no overlap; prints TTFT p50 (hits, misses),
+   per-token p50/p90, ``hidden_fraction``, the overlap counters, each
+   request's mean phases, the engine's spans and peak memory each way;
 8. moe kernels -- olmo-1b's params are freed; ``ragged_gemv`` and
    ``grouped_gemv`` at deepseek-moe-16b's expert shapes (gate/up K=2048
    M=1408, down K=1408 M=2048, E=64) in bf16, each against its plain
@@ -114,7 +135,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    and through the portable plain path (``kernel="ref"``,
    ``use_pallas=False``): the max |diff| of the logits and the argmax
    agreement are reported; each layer's MoE block is held to its tolerance
-   on the inputs the kernel step gave it;
+   on the inputs the kernel step gave it; then ``[moe prefill f32]``:
+   layer 0's routed experts cast to f32 through ``_moe_prefill`` (on the
+   card a non-bf16 stack takes ``ragged_gemv``, one launch a projection
+   over all the pairs) at a 128-token chunk and an 8 x 512 wave, eagerly
+   under sync debug mode "error" and replayed from a CUDA graph: fails
+   unless each call launched ``ragged_gemv`` three times, the replay is
+   bit-equal to the eager call and both are within the kernel tolerance
+   of the per-expert loop;
 11. moe grouped -- ``Engine(batch_slots=1, gemv_expert_shape="grouped")``
    serves 2 of the requests, 16 tokens each, both ways: fails unless
    ``grouped_gemv`` launched three times a layer on each counted step;
@@ -124,7 +152,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches ``ragged_gemv`` three times a layer under mode
    ``gpu:ragged_triton`` and ``triton_gemv`` as the picks predict; then
    ``[serving]`` on deepseek-moe-16b (ragged, fp KV, 8 requests of 2
-   tenants, 16 tokens each, the same rules otherwise);
+   tenants, 16 tokens each, the same rules otherwise), and its
+   ``[async]``;
 12. families -- deepseek-moe-16b's params are freed; ``[families
    kernels]``: ``pim_gemv`` and ``splitk_gemv`` at every decode GEMV shape
    of minitron-8b, gemma3-1b and gemma3-27b (QKV, gate+up or up, down,
@@ -417,6 +446,12 @@ from repro_torch.kernels.triton_gemv import (  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.layers import GATED  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.observability import export  # noqa: E402
+from repro_torch.observability.trace import (  # noqa: E402
+    Tracer,
+    install_tracer,
+    uninstall_tracer,
+)
 from repro_torch.serving import disable_graphs  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     Engine,
@@ -427,7 +462,11 @@ from repro_torch.serving.bench import (  # noqa: E402
     TraceConfig,
     run_serve_trace,
 )
-from repro_torch.serving.prefix_cache import PrefixCacheConfig  # noqa: E402
+from repro_torch.serving.metrics import ServingMetrics  # noqa: E402
+from repro_torch.serving.prefix_cache import (  # noqa: E402
+    PrefixCache,
+    PrefixCacheConfig,
+)
 from repro_torch.serving.scheduler import SchedulerConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -1583,6 +1622,12 @@ def log_routes(tag: str, res: dict) -> None:
         f"{res['replay']['port_kernels_per_step']:.0f} port kernels as in "
         f"the eager step, library differences "
         f"{res['replay']['library_differences'] or 'none'}")
+    rw = res["routes"]["graph"].get("rewave")
+    if rw is not None:
+        log(f"  [{tag} prefill graphs] the prompts again as one wave "
+            f"({REWAVE_TOKENS} tokens each): multi-row keys replayed (runs "
+            f"before, after) {json.dumps(rw['keys'])}; tokens equal to the "
+            f"eager route's")
 
 
 def decode_sites(cfg) -> dict[str, tuple[int, int, int]]:
@@ -1673,12 +1718,47 @@ def run_engine(cfg, params, dev, kv_store: str = "fp", *,
         raise AssertionError(
             f"greedy tokens differ between the graph and eager routes: "
             f"{token_agreement(routes['eager']['generated'], routes['graph']['generated'])}")
+    rewave = routes["graph"]["rewave"]
+    if rewave is not None and rewave["generated"] != {
+            rid: t[:REWAVE_TOKENS]
+            for rid, t in routes["eager"]["generated"].items()}:
+        raise AssertionError(
+            f"the replayed wave's tokens differ from the eager route's: "
+            f"{rewave['generated']}")
     res = {**routes["graph"], "routes": routes,
            "replay": compare_replay(routes["graph"]["profile"],
                                     routes["eager"]["profile"], cfg)}
     if backend == "h100" and ttft:
         res["prefill_scores"] = ttft_both_ways(cfg, params, dev, kv_store)
     return res
+
+
+# tokens a request of the repeated wave generates
+REWAVE_TOKENS = 4
+
+
+def replay_wave(eng: Engine, cfg, lengths) -> dict:
+    """The run's prompts once more on its drained engine, ``REWAVE_TOKENS``
+    tokens each, admitted as one wave: a key with more than one row must
+    replay its captured prefill graph (the wave on the sub-cache's first
+    ``nb`` rows, features staged there, then spliced).  Returns the keys
+    replayed, their run counts before and after, and the tokens."""
+    g = eng.prefill_graphs
+    before = dict(g.runs)
+    for i, p in enumerate(prompts(cfg.vocab, lengths, SEED)):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=REWAVE_TOKENS))
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    replayed = {f"{k[0]}x{k[1]}": [before.get(k, 0), n]
+                for k, n in sorted(g.runs.items())
+                if k[0] > 1 and k in g.replays and before.get(k, 0) >= 1
+                and n > before.get(k, 0)}
+    if not replayed or len(done) != len(lengths):
+        raise AssertionError(
+            f"the repeated wave replayed no multi-row prefill graph: runs "
+            f"{before} -> {g.runs}, {len(done)} requests done")
+    return {"keys": replayed,
+            "generated": {r.rid: list(r.generated) for r in done}}
 
 
 def run_route(cfg, params, dev, kv_store: str, backend: str,
@@ -1786,6 +1866,11 @@ def run_route(cfg, params, dev, kv_store: str, backend: str,
             str(b): {"per_step": n, "picks": picks}
             for b, (n, picks) in per_batch.items()}}
     doc.pop("steps")
+    # the same prompts again on the same engine: their wave's (nb, Lpad)
+    # key, captured in the run, now replays (a state family's waves run
+    # eagerly by design)
+    rewave = (replay_wave(eng, cfg, lengths)
+              if route == "graph" and not eng.exact_prefill else None)
     kv_leaves = {n: t for n, t in eng.kv.cache.items() if n != "pos"}
     res = {
         "route": route,
@@ -1807,6 +1892,7 @@ def run_route(cfg, params, dev, kv_store: str, backend: str,
         "launches": counts,
         "launches_per_step": {k: v / len(batches) for k, v in counts.items()},
         "dispatch": stats,
+        "rewave": rewave,
         **extra,
     }
     del eng
@@ -2243,7 +2329,8 @@ def guard_serving(eng: Engine) -> dict:
     return rec
 
 
-def serving_engine(cfg, params, dev, kv_store: str, plain: bool) -> Engine:
+def serving_engine(cfg, params, dev, kv_store: str, plain: bool,
+                   **engine_kw) -> Engine:
     """The serving phase's engine: gemv_aware at threshold 8 with the
     preemption margin, chunked prefill and the prefix cache; ``plain``
     turns all three off."""
@@ -2257,7 +2344,59 @@ def serving_engine(cfg, params, dev, kv_store: str, plain: bool) -> Engine:
                   prefill_chunk=None if plain else SERVE_CHUNK,
                   prefix_cache=(None if plain else PrefixCacheConfig(
                       capacity_bytes=SERVE_PREFIX_BYTES)),
-                  kv_store=kv_store)
+                  kv_store=kv_store, **engine_kw)
+
+
+def no_sync(fn, replayed, rec: dict):
+    """``fn`` run under ``torch.cuda.set_sync_debug_mode("error")`` (a
+    host sync inside raises) whenever ``replayed(*args)`` says its chunk
+    replays a captured shape; ``rec["chunks"]`` counts those runs."""
+    def checked(*args, **kw):
+        if not replayed(*args, **kw):
+            return fn(*args, **kw)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        rec["chunks"] += 1
+        return out
+
+    return checked
+
+
+def chunk_replays(eng: Engine, chunk, consumed: int,
+                  chunk_limit: int) -> bool:
+    """Whether a chunk of ``eng`` replays a prefill graph captured
+    before."""
+    cpad, eager = eng._chunk_shape(len(chunk), consumed, chunk_limit)
+    return eager is None and (1, cpad) in eng.prefill_graphs.replays
+
+
+def prefill_sync_guard(eng: Engine) -> dict:
+    """Run every chunk of ``eng`` that replays a captured graph -- the
+    row copied in, the replay, the row copied back and its ``pos`` set
+    -- with no host sync allowed.  Returns the count of such chunks."""
+    rec = {"chunks": 0}
+    eng._run_chunk = no_sync(
+        eng._run_chunk,
+        lambda cache, row, feats, chunk, consumed, limit:
+            chunk_replays(eng, chunk, consumed, limit), rec)
+    return rec
+
+
+def prefill_graph_stats(eng: Engine) -> dict:
+    """The engine's prefill graphs: the shapes captured, the seconds each
+    capture took, the runs and replays, the prefills run eagerly by
+    design (by reason)."""
+    g = eng.prefill_graphs
+    runs = sum(g.runs.values())
+    return {"shapes": [list(k) for k in sorted(g.replays)],
+            "capture_s": {f"{k[0]}x{k[1]}": v
+                          for k, v in sorted(g.capture_s.items())},
+            "capture_s_total": sum(g.capture_s.values()),
+            "runs": runs, "replayed": runs - len(g.replays),
+            "eager": dict(g.eager)}
 
 
 def serve_route(cfg, params, dev, kv_store: str, plan: list[dict],
@@ -2271,6 +2410,7 @@ def serve_route(cfg, params, dev, kv_store: str, plan: list[dict],
     seen = check_finite_logits(eng)
     margins = top2_margins(eng)
     rec = guard_serving(eng)
+    synced = prefill_sync_guard(eng) if route == "graph" else None
     drv = PlanRunner(eng, plan, deadlines=not plain)
     dispatch.clear_plan_cache()
     reset_launches()
@@ -2312,6 +2452,9 @@ def serve_route(cfg, params, dev, kv_store: str, plan: list[dict],
         "prefix_index": eng.prefix.stats() if eng.prefix else None,
         "capture_s": ({str(b): v for b, v in eng.graphs.capture_s.items()}
                       if route == "graph" else {}),
+        "prefill_graphs": ({**prefill_graph_stats(eng),
+                            "sync_checked_chunks": synced["chunks"]}
+                           if route == "graph" else None),
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
         "launches": counts, "guard": rec, "profile": profile,
         "state_leaves": len(eng.kv.state_names), "margins": margins,
@@ -2369,6 +2512,10 @@ def run_serving(cfg, params, dev, tag: str) -> dict:
         if route == "graph" and not all(r["launches"][n] for n in need):
             raise AssertionError(f"[serving {tag}] a kernel of the path "
                                  f"never launched: {r['launches']}")
+        pg = r["prefill_graphs"]
+        if route == "graph" and (pg["replayed"] < 1
+                                 or pg["sync_checked_chunks"] < 1):
+            raise AssertionError(f"[serving {tag}] prefill graphs {pg}")
         if cfg.moe is None and (c["evicted"] < 1 or c["prefill_chunks"] < 24
                                 or c["prefix_hits"] < 1):
             raise AssertionError(f"[serving {tag} {route}] counters {c}")
@@ -2462,6 +2609,14 @@ def log_serving(res: dict) -> None:
                f"(copies of whole state rows {gd['state_row_copies']}: "
                f"the save and restore)" if r["state_leaves"] else "")
             + f"; launches {r['launches']}")
+        pg = r["prefill_graphs"]
+        if pg is not None:
+            log(f"    prefill graphs: {len(pg['shapes'])} shapes "
+                f"{pg['shapes']}, captured in {pg['capture_s_total']:.3f} s "
+                f"{json.dumps(pg['capture_s'])}; {pg['runs']} runs, "
+                f"{pg['replayed']} replayed ({pg['sync_checked_chunks']} "
+                f"chunks under sync debug mode 'error'); run eagerly by "
+                f"design {pg['eager'] or 'none'}")
         if pr is not None:
             log(f"    window of {pr['steps']} steps from step "
                 f"{SERVE_WINDOW[0]}: device busy "
@@ -2480,6 +2635,158 @@ def log_serving(res: dict) -> None:
         f"replayed steps ran {res['replay']['port_kernels_per_step']:.0f} "
         f"port kernels a step as the eager steps; library differences "
         f"{res['replay']['library_differences'] or 'none'}")
+
+
+# ---------------------------------------------------------------------------
+# async: the serving mix with Engine(async_prefill=) off and on
+# ---------------------------------------------------------------------------
+
+
+def async_route(cfg, params, dev, kv_store: str, plan: list[dict],
+                warm_plan: list[dict], on: bool) -> dict:
+    """One traced run of the serving plan on the graph route with
+    ``async_prefill`` off or on, on an engine that first served
+    ``warm_plan`` (other prompts, the same shapes: its graphs are
+    captured, as a running server's are) and then got fresh metrics and
+    an empty prefix cache; the tracer and the overlap counters see the
+    measured run alone."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = serving_engine(cfg, params, dev, kv_store, False,
+                         async_prefill=on)
+    warm = PlanRunner(eng, warm_plan, deadlines=True)
+    while not warm.done():
+        warm.step()
+    captures = {"decode": dict(eng.graphs.capture_s),
+                "prefill": prefill_graph_stats(eng)}
+    eng.metrics = ServingMetrics(clock=eng.clock)
+    eng.prefix = PrefixCache(eng.prefix.config,
+                             has_state=bool(eng.kv.state_names))
+    tr = Tracer()
+    eng.tracer = eng.scheduler.tracer = tr
+    install_tracer(tr)
+    seen = check_finite_logits(eng)
+    # a chain's chunk, issued on the side stream, must not wait for it
+    synced = {"chunks": 0}
+    eng._issue_chain_chunk = no_sync(
+        eng._issue_chain_chunk,
+        lambda slot, chunk, consumed, limit, **kw:
+            chunk_replays(eng, chunk, consumed, limit), synced)
+    drv = PlanRunner(eng, plan, deadlines=True)
+    dispatch.clear_plan_cache()
+    t0 = time.perf_counter()
+    try:
+        while not drv.done():
+            drv.step()
+        torch.cuda.synchronize()
+    finally:
+        uninstall_tracer(tr)
+    wall_s = time.perf_counter() - t0
+    doc = eng.metrics.to_dict()
+    pc = doc.get("prefix_cache") or {}
+    summary = export.summary(tr)
+    ov = summary.get("overlap") or {}
+    ap = dispatch.dispatch_stats()["overlap"]["async_prefill"]
+    # where a request's time went (its phases, mean over requests) and
+    # the engine's spans by name: count, total and p50 ms
+    phases = collections.defaultdict(list)
+    for q in summary["requests"]:
+        for k, v in q["phases_ms"].items():
+            phases[k].append(v)
+    spans = collections.defaultdict(list)
+    for sp in tr.spans:
+        if sp.cat == "engine":
+            spans[sp.name].append(sp.dur_us / 1e3)
+    res = {"async_prefill": on, "steps": drv.n, "wall_s": wall_s,
+           "generated": {rid: list(r.generated)
+                         for rid, r in drv.requests.items()},
+           "counters": doc["counters"], "logit_rows_checked": seen["rows"],
+           "preempt_steps": drv.preempt_steps,
+           "ttft_ms": doc["ttft_ms"], "ttft_hit_ms": pc.get("ttft_hit_ms"),
+           "ttft_miss_ms": pc.get("ttft_miss_ms"),
+           "per_token_ms": doc["per_token_ms"],
+           "hidden_fraction": ov.get("hidden_fraction"),
+           "phase_mean_ms": {k: sum(v) / len(v) for k, v in phases.items()},
+           "spans_ms": {k: {"n": len(v), "total": sum(v),
+                            "p50": float(np.median(v))}
+                        for k, v in spans.items()},
+           "overlap": {k: ov.get(k) for k in ("n_spans", "total_us",
+                                               "blocked_us", "hidden_us")},
+           "async_counters": dict(ap),
+           "inflight_left": len(eng._inflight),
+           "sync_checked_chunks": synced["chunks"],
+           "warm_captures": captures,
+           "prefill_graphs": prefill_graph_stats(eng),
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del eng, drv
+    gc.collect()
+    return res
+
+
+def run_async(cfg, params, dev, tag: str) -> dict:
+    """``[async]``: the ``[serving]`` plan of ``tag`` with
+    ``async_prefill`` off, then on, each on a warmed engine and traced
+    (with no decision timed): the tokens must be equal, every issued
+    chunk awaited and no chain left; TTFT, per-token p50,
+    ``hidden_fraction`` and peak memory each way."""
+    t0 = time.perf_counter()
+    _, kv_store, n_req, n_ten, new = SERVE_RUNS[tag]
+    tail = SERVE_TAILS.get(tag, SERVE_TAIL)
+    plan = serving_plan(cfg.vocab, n_req, n_ten, new, SEED, tail)
+    warm_plan = serving_plan(cfg.vocab, n_req, n_ten, new, SEED + 1, tail)
+    runs = {on: async_route(cfg, params, dev, kv_store, plan, warm_plan, on)
+            for on in (False, True)}
+    off, on = runs[False], runs[True]
+    if off["generated"] != on["generated"]:
+        raise AssertionError(
+            f"[async {tag}] greedy tokens differ with async_prefill off and "
+            f"on: {token_agreement(off['generated'], on['generated'])}")
+    ap = on["async_counters"]
+    if (ap["issued"] < 1 or ap["issued"] != ap["awaited"]
+            or ap["inflight"] or on["inflight_left"]
+            or on["hidden_fraction"] is None
+            or not on["preempt_steps"] or on["sync_checked_chunks"] < 1):
+        raise AssertionError(f"[async {tag}] counters {ap}, chains left "
+                             f"{on['inflight_left']}, hidden_fraction "
+                             f"{on['hidden_fraction']}, preemptions at "
+                             f"{on['preempt_steps']}")
+    if off["async_counters"]["issued"] or off["hidden_fraction"] is not None:
+        raise AssertionError(f"[async {tag}] the serial run recorded "
+                             f"overlap: {off['async_counters']}")
+    return {"tag": tag, "runs": {"off": off, "on": on},
+            "seconds": time.perf_counter() - t0}
+
+
+def log_async(res: dict) -> None:
+    nan = float("nan")
+    for mode in ("off", "on"):
+        r = res["runs"][mode]
+        ap = r["async_counters"]
+        log(f"  [async {res['tag']} {mode}] {r['steps']} steps, "
+            f"{r['wall_s']:.2f} s: TTFT p50 "
+            f"{r['ttft_ms'].get('p50', nan):.2f} ms (hit "
+            f"{(r['ttft_hit_ms'] or {}).get('p50', nan):.2f}, miss "
+            f"{(r['ttft_miss_ms'] or {}).get('p50', nan):.2f}); per-token "
+            f"p50 {r['per_token_ms']['p50']:.3f} ms p90 "
+            f"{r['per_token_ms']['p90']:.3f} ms; hidden_fraction "
+            f"{r['hidden_fraction']}; overlap {json.dumps(r['overlap'])}; "
+            f"issued {ap['issued']} awaited {ap['awaited']} max in flight "
+            f"{ap['max_inflight']} ({r['sync_checked_chunks']} chunks issued "
+            f"under sync debug mode 'error'); evicted "
+            f"{r['counters']['evicted']}; "
+            f"prefill graphs {len(r['prefill_graphs']['shapes'])} "
+            f"(captured in the warm-up pass: "
+            f"{len(r['warm_captures']['prefill']['shapes'])}), replayed "
+            f"{r['prefill_graphs']['replayed']}, eager by design "
+            f"{r['prefill_graphs']['eager'] or 'none'}; peak "
+            f"{r['peak_mem_gb']:.3f} GB")
+        log(f"    phases (mean ms a request) "
+            f"{json.dumps({k: round(v, 3) for k, v in r['phase_mean_ms'].items()})}"
+            f"; spans (n, total ms, p50 ms) "
+            f"{json.dumps({k: (v['n'], round(v['total'], 3), round(v['p50'], 3)) for k, v in r['spans_ms'].items()})}")
+    log(f"  [async {res['tag']}] tokens equal off and on; "
+        f"{res['seconds']:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2779,6 +3086,62 @@ def check_moe_kernels(dev) -> tuple[list[dict], list[dict]]:
         del ws, xs
         torch.cuda.empty_cache()
     return rows, sweep
+
+
+# the f32 MoE prefill check's shapes: a [serving] chunk of 128 tokens (768
+# pairs) and an 8 x 512 wave (24576 pairs)
+MOE_PREFILL_SHAPES = ((1, 128), (8, 512))
+
+
+def moe_prefill_f32_check(cfg, params, dev) -> list[dict]:
+    """The route an f32 MoE prefill takes on the card (``torch._grouped_mm``
+    takes no f32 under capture): layer 0's routed experts, cast to f32,
+    through ``layers._moe_prefill`` -- ``ragged_products``, one
+    ``ragged_gemv`` launch a projection over all the prefill's pairs -- at
+    each of ``MOE_PREFILL_SHAPES``: eagerly under sync debug mode
+    'error', then captured in a CUDA graph and replayed, each against the
+    per-expert loop (``_moe_prefill_loop``, its plain version) at the
+    kernel tolerance; the replay bit-equal to the eager call."""
+    p = {k: v.float() for k, v in params["layers"][0]["moe"].items()
+         if torch.is_tensor(v)}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    per_call = 3 if cfg.act in GATED else 2
+    out = []
+    for B, S in MOE_PREFILL_SHAPES:
+        x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+        _, top_p, top_i = L._router(p, x, cfg)
+        ref, _ = L._moe_prefill_loop(p, x, cfg, top_i, top_p)
+        n0 = ragged_gemv.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager, _ = L._moe_prefill(p, x, cfg, top_i, top_p)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launched = ragged_gemv.launches - n0
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static, _ = L._moe_prefill(p, x, cfg, top_i, top_p)
+        graph.replay()
+        torch.cuda.synchronize()
+        if launched != per_call:
+            raise AssertionError(
+                f"f32 MoE prefill {B}x{S}: ragged_gemv launched {launched} "
+                f"times, expected {per_call}")
+        if not torch.equal(static, eager):
+            raise AssertionError(f"f32 MoE prefill {B}x{S}: the replayed "
+                                 f"graph differs from the eager call")
+        err = check_close("ragged_gemv", f"f32 MoE prefill {B}x{S}", eager,
+                          ref)
+        out.append(dict(B=B, S=S, pairs=B * S * cfg.moe.top_k,
+                        launches=launched, max_abs_err=err,
+                        ms=event_ms(lambda i: graph.replay(), 3),
+                        plain_ms=event_ms(lambda i: L._moe_prefill_loop(
+                            p, x, cfg, top_i, top_p), 3)))
+        del graph, static, eager, ref, x
+    del p
+    torch.cuda.empty_cache()
+    return out
 
 
 def bf16_ulp(absmax: float) -> float:
@@ -4716,6 +5079,12 @@ def main() -> int:
             f"cache and preemption, both routes, then the plain engine")
         serving[tag] = run_serving(cfg, params, dev, tag)
         log_serving(serving[tag])
+    async_runs = {}
+    tag = "olmo-1b fp"
+    log(f"[async] {tag}: the [serving] mix with async_prefill off and on "
+        f"(graph route, traced)")
+    async_runs[tag] = run_async(cfg, params, dev, tag)
+    log_async(async_runs[tag])
 
     del params
     gc.collect()
@@ -4765,6 +5134,16 @@ def main() -> int:
         f"{moe_logits['step_floor_ms']:.3f} ms (all experts: "
         f"{moe_logits['all_experts_floor_ms']:.3f} ms)")
 
+    moe_prefill = moe_prefill_f32_check(mcfg, mparams, dev)
+    log("[moe prefill f32] layer 0's routed experts in f32 through "
+        "_moe_prefill (ragged_gemv a projection) vs the per-expert loop "
+        "(rtol 2^-7, atol 1e-3), eager under sync debug mode 'error' and "
+        "replayed: " + "; ".join(
+            f"{r['B']}x{r['S']} ({r['pairs']} pairs) {r['launches']} "
+            f"launches, err {r['max_abs_err']:.2e}, replay "
+            f"{r['ms']:.3f} ms, loop {r['plain_ms']:.3f} ms"
+            for r in moe_prefill))
+
     grouped = run_moe_grouped(mcfg, mparams, dev, moe["generated"])
     log(f"[moe grouped] 1 slot, {grouped['requests']} requests x "
         f"{MOE_GROUPED_TOKENS} tokens: per-token p50 "
@@ -4794,6 +5173,10 @@ def main() -> int:
         f"cache and preemption, both routes, then the plain engine")
     serving[tag] = run_serving(mcfg, mparams, dev, tag)
     log_serving(serving[tag])
+    log(f"[async] {tag}: the [serving] mix with async_prefill off and on "
+        f"(graph route, traced)")
+    async_runs[tag] = run_async(mcfg, mparams, dev, tag)
+    log_async(async_runs[tag])
     del mparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -4887,8 +5270,10 @@ def main() -> int:
         quant_plan_sweep=quant_plans,
         engine=engine, logits=logits,
         quant_dispatch=quant, kv=kv, moe_engine=moe, moe_logits=moe_logits,
+        moe_prefill_f32=moe_prefill,
         moe_grouped=grouped, gpu_engine=gpu, moe_gpu=moe_gpu,
-        serving=serving, families=families, families_s=families_s,
+        serving=serving, async_prefill=async_runs, families=families,
+        families_s=families_s,
         multimodal=multimodal, multimodal_s=multimodal_s, state=state,
         hybrid=hybrid,
         autotune=autotune, pim=pim, calibrate=calibrate, trace=trace,

@@ -241,8 +241,9 @@ def record_overlap(kind: str, *, issued: int = 0, awaited: int = 0,
     and its high-water mark are kept here, under the counters' lock, so
     every ``dispatch_stats()`` snapshot satisfies ``inflight == issued -
     awaited``.  ``kind="deferred"``: a sharded decode deferred that many
-    collectives by one layer.  No engine path of the port records either
-    yet (async prefill and sharded serving are not ported)."""
+    collectives by one layer.  ``Engine(async_prefill=True)`` records the
+    first; no engine path records the second (sharded serving is not
+    ported)."""
     with _LOCK:
         ov = _DISPATCH_COUNTERS["overlap"]
         if kind == "async_prefill":

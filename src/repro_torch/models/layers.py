@@ -535,11 +535,14 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
     (decode) that is the JAX package's capacity einsum: the ``[E, B*C, d]``
     buffers of the grouped shape, one batched ``torch.matmul`` per
     projection, nothing read back to the host (the step is captured).
-    Prefill computes it WITHOUT the ``[B, E, C, d]`` buffer: the expert
-    FFN is row-wise, so each kept pair's output is the FFN of its token,
-    computed per expert over the expert-sorted pairs with
-    ``torch.matmul``; a dropped pair contributes zero.  That path reads
-    the per-expert offsets on the host once per layer.
+    Prefill computes it WITHOUT the ``[B, E, C, d]`` buffer
+    (:func:`_moe_prefill`): the expert FFN is row-wise, so each kept
+    pair's output is the FFN of its token, computed over the
+    expert-sorted pairs as one grouped product per projection whose
+    per-expert offsets stay on the device; a dropped pair contributes
+    zero.  Nothing is read back to the host, so a prefill is captured
+    too.  :func:`_moe_prefill_loop` is its plain version (the offsets
+    read on the host, one product per expert).
 
     The shared experts' MLP is added last, through the dispatcher like a
     dense MLP.
@@ -607,11 +610,63 @@ def _moe_capacity_buffers(p, x, cfg, top_i, top_p, proj):
 
 def _moe_capacity(p, x, cfg, top_i, top_p):
     """The capacity semantics off the programs (see :func:`apply_moe`):
-    the capacity einsum at decode, the per-expert loop at prefill."""
+    the capacity einsum at decode, the grouped products at prefill."""
+    if x.shape[1] == 1:
+        return _moe_capacity_buffers(p, x, cfg, top_i, top_p, torch.matmul)
+    return _moe_prefill(p, x, cfg, top_i, top_p)
+
+
+def expert_products(t: torch.Tensor, ends: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    """Expert-sorted rows ``t [T, K]`` times their experts' matrices ``w
+    [E, K, M]`` -> ``[T, M]``, expert ``e``'s rows ending at ``ends[e]``
+    (int32 ``[E]`` on ``t``'s device, ``ends[E - 1] == T``).  The offsets
+    are never read on the host.  On the card a bf16 stack is one
+    ``torch._grouped_mm`` (CUTLASS's grouped GEMM on Hopper); any other
+    dtype there is :func:`ragged_products`, since ``torch._grouped_mm``
+    takes no f32 under capture; on the CPU it is ``torch._grouped_mm``.
+    Each product accumulates in f32 and rounds once to ``t.dtype``."""
+    if t.device.type == "cuda" and t.dtype != torch.bfloat16:
+        return ragged_products(t, ends, w)
+    return torch._grouped_mm(t.contiguous(), w, offs=ends)
+
+
+def ragged_products(t: torch.Tensor, ends: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    """:func:`expert_products` through the port's ``ragged_gemv`` kernel
+    (one launch, the offsets ``[0, *ends]`` read on the device) at its
+    streaming plan for ``t``'s rows; on a CPU tensor, the kernel's plain
+    version."""
+    from repro_torch.kernels.gemv_plan import plan_ragged_stream
+    from repro_torch.kernels.grouped_gemv import ragged_gemv
+
+    E, K, M = w.shape
+    plan = plan_ragged_stream(M, K, t.shape[0], E=E,
+                              elem_bytes=t.element_size())
+    return ragged_gemv(t.contiguous(), F.pad(ends, (1, 0)), w, plan=plan)
+
+
+def _moe_prefill(p, x, cfg, top_i, top_p):
+    """Prefill's capacity semantics as grouped products over the
+    expert-sorted pairs (see :func:`apply_moe`): device data from end to
+    end, no host sync and no ``[E, C, d]`` buffer."""
     e = cfg.moe
     B, S, d = x.shape
-    if S == 1:
-        return _moe_capacity_buffers(p, x, cfg, top_i, top_p, torch.matmul)
+    st, _, _, sw, _, keep, counts = _capacity_plan(
+        top_i, top_p, _capacity(S, cfg), e.n_experts)
+    xr = x.reshape(B * S, d)[st]
+    ends = torch.cumsum(counts, 0, dtype=torch.int32)
+    out = _expert_ffn(p, xr, cfg,
+                      lambda t, w: expert_products(t, ends, w))
+    y = _combine(out, sw * keep.to(sw.dtype), st, B * S, e.top_k)
+    return y.reshape(B, S, d), counts
+
+
+def _moe_prefill_loop(p, x, cfg, top_i, top_p):
+    """The plain version of :func:`_moe_prefill`: the per-expert offsets
+    read on the host, one product per expert that has rows."""
+    e = cfg.moe
+    B, S, d = x.shape
     st, _, _, sw, _, keep, counts = _capacity_plan(
         top_i, top_p, _capacity(S, cfg), e.n_experts)
     xr = x.reshape(B * S, d)[st]

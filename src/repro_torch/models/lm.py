@@ -29,6 +29,7 @@ again in every ``kv_store``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -267,13 +268,28 @@ def prepack_decode_params(params: dict, cfg: ModelConfig) -> dict:
 # --------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """sqrt(d_model) rounded to the compute dtype, as the JAX package
+    scales the embeddings; a Python scalar, so no host tensor is copied to
+    the card (and, cached, no tensor is read on the host per forward)."""
+    return torch.tensor(math.sqrt(d_model), dtype=torch.float32).to(
+        dtype).item()
+
+
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             cache: dict | None = None,
             frames: torch.Tensor | None = None,
             vision: torch.Tensor | None = None,
-            gemv_policy=None) -> tuple[torch.Tensor, dict | None,
-                                       torch.Tensor]:
-    """Returns ``(logits [B, S, vocab], new_cache, aux_loss)``.
+            gemv_policy=None,
+            last: torch.Tensor | None = None) -> tuple[torch.Tensor,
+                                                       dict | None,
+                                                       torch.Tensor]:
+    """Returns ``(logits [B, S, vocab], new_cache, aux_loss)``; with
+    ``last`` (int64 ``[B]``, a position in each row) the final norm and
+    the head run at those positions alone and the logits are ``[B, 1,
+    vocab]`` (a prefill's last-token logits without the ``[B, S, vocab]``
+    tensor).
 
     With a cache, the new K/V are written into ``cache``'s ``k``/``v``
     tensors (and, for a quantized store, their codes and ``k_scale`` /
@@ -297,10 +313,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     B, Sq = tokens.shape
     dtype = torch_dtype(cfg.compute_dtype)
     x = params["embed"][tokens].to(dtype)
-    # sqrt(d_model) rounded to the compute dtype, as the JAX package does;
-    # kept a Python scalar so no host tensor is copied to the card
-    scale = torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32)
-    x = x * scale.to(dtype).item()
+    x = x * _embed_scale(cfg.d_model, dtype)
 
     pos0 = cache["pos"] if cache is not None else torch.zeros(
         (), dtype=torch.int32, device=x.device)
@@ -322,6 +335,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     x, aux = _forward_flat(params, cfg, x, positions, cache, gemv_policy,
                            ctx)
 
+    if last is not None:
+        x = x[torch.arange(B, device=x.device), last][:, None]
     x = L.apply_norm(params["ln_f"], x, cfg)
     if "head_t" in params:
         head = params["head_t"]

@@ -13,6 +13,11 @@ Runs on the CUDA card unless ``device="cpu"`` is given; ``reduced=True``
 (the default, as in the JAX bench) serves the config's ``reduced()`` form,
 ``reduced=False`` the published widths and depth.
 
+``async_prefill=True`` (``--async-prefill``) serves every run with the
+engine's overlapped prefill (``Engine(async_prefill=True)``); the runs and
+the document say so, and a traced run's ``hidden_fraction`` is the share
+of the chains' issue-to-harvest time the host did not wait for.
+
 ``trace_out=PATH`` (``--trace-out``) flight-records the last policy's run
 (``repro_torch.observability``): a Perfetto-loadable Chrome trace at
 ``PATH`` and the schema-1 summary beside it (``export.summary_path``),
@@ -44,11 +49,14 @@ from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.scheduler import POLICIES, QueueFull
 
 # --json document version, the JAX bench's numbering: v4 is its layout
-# without the mesh, async-prefill and overlap fields (not ported); the
-# port adds ``device``, ``reduced`` and ``prefill_chunk``.  As in the
-# reference, tracing is additive, not a schema bump: ``trace_out`` adds
-# the ``flight_trace`` section (its files carry their own schema,
-# ``repro_torch.observability.SCHEMA_VERSION``).
+# without the mesh and ``overlap_collectives`` fields (sharded serving is
+# not ported); the port adds ``device``, ``reduced`` and
+# ``prefill_chunk``.  As in the reference, tracing and overlapped serving
+# are additive, not a schema bump: ``trace_out`` adds the
+# ``flight_trace`` section (its files carry their own schema,
+# ``repro_torch.observability.SCHEMA_VERSION``) with the summary's
+# ``hidden_fraction``, and every run and the document carry
+# ``async_prefill``.
 SCHEMA_VERSION = 4
 
 TRACE_KINDS = ("uniform", "shared-prefix")
@@ -128,7 +136,8 @@ def build_trace(tcfg: TraceConfig, vocab: int,
 def run_policy(cfg, params, policy: str, trace: list[dict], *,
                batch_slots: int, max_len: int, gemv_batch_threshold: int,
                gemv_backend: str | None = None, max_queue: int = 0,
-               prefill_chunk: int | None = None, prefix_cache=False,
+               prefill_chunk: int | None = None,
+               async_prefill: bool = False, prefix_cache=False,
                kv_store: str = "fp", tracer: Tracer | None = None,
                tokens: bool = False, max_iters: int = 5000) -> dict:
     """Serve one trace under one scheduler policy on ``params``' device;
@@ -144,6 +153,7 @@ def run_policy(cfg, params, policy: str, trace: list[dict], *,
                  gemv_batch_threshold=gemv_batch_threshold,
                  gemv_backend=gemv_backend, scheduler=policy,
                  max_queue=max_queue, prefill_chunk=prefill_chunk,
+                 async_prefill=async_prefill,
                  prefix_cache=prefix_cache, kv_store=kv_store,
                  device=params["embed"].device, tracer=tracer)
     pending = [
@@ -177,6 +187,7 @@ def run_policy(cfg, params, policy: str, trace: list[dict], *,
         policy=policy,
         batch_slots=batch_slots,
         gemv_batch_threshold=gemv_batch_threshold,
+        async_prefill=bool(async_prefill),
         completed=len(done),
         total_generated=sum(len(r.generated) for r in done),
         kv_store=kv_store,
@@ -211,6 +222,7 @@ def run_serve_trace(
     gemv_batch_threshold: int = 4,
     gemv_backend: str | None = None,
     prefill_chunk: int | None = None,
+    async_prefill: bool = False,
     trace_kind: str = "uniform",
     prefix_cache=False,
     kv_store: str = "fp",
@@ -257,6 +269,7 @@ def run_serve_trace(
                        gemv_batch_threshold=gemv_batch_threshold,
                        gemv_backend=gemv_backend,
                        prefill_chunk=prefill_chunk,
+                       async_prefill=async_prefill,
                        prefix_cache=prefix_cache, kv_store=kv_store,
                        tracer=tracer if i == len(policies) - 1 else None,
                        tokens=tokens)
@@ -283,6 +296,7 @@ def run_serve_trace(
         "prefix_cache": bool(prefix_cache),
         "kv_store": kv_store,
         "prefill_chunk": prefill_chunk,
+        "async_prefill": bool(async_prefill),
         "runs": runs,
     }
     if tracer is not None:
@@ -313,7 +327,9 @@ def summary_line(run: dict) -> str:
     nan = float("nan")
     line = (f"serve/{run['policy']} slots={run['batch_slots']} "
             f"thresh={run['gemv_batch_threshold']} kv={run['kv_store']} "
-            f"chunk={run['prefill_chunk']}: completed={run['completed']} "
+            f"chunk={run['prefill_chunk']}"
+            f"{' async' if run.get('async_prefill') else ''}: "
+            f"completed={run['completed']} "
             f"ttft p50={ttft.get('p50', nan):.1f}ms "
             f"p99={ttft.get('p99', nan):.1f}ms | "
             f"tok p50={ptok.get('p50', nan):.2f}ms "
@@ -342,6 +358,9 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", choices=TRACE_KINDS, default="uniform")
     ap.add_argument("--prefill-chunk", type=int, default=None)
     ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--async-prefill", action="store_true",
+                    help="overlapped prefill: every miss through the "
+                         "chunk chain, on a side stream on the card")
     ap.add_argument("--kv-store", choices=("fp", "int8", "int4"),
                     default="fp")
     ap.add_argument("--gemv-backend", default=None)
@@ -369,7 +388,8 @@ def main(argv=None) -> int:
         a.arch, policies=tuple(a.policy or POLICIES), smoke=a.smoke,
         seed=a.seed, batch_slots=a.slots, max_len=a.max_len,
         gemv_batch_threshold=a.threshold, gemv_backend=a.gemv_backend,
-        prefill_chunk=a.prefill_chunk, trace_kind=a.trace,
+        prefill_chunk=a.prefill_chunk, async_prefill=a.async_prefill,
+        trace_kind=a.trace,
         prefix_cache=a.prefix_cache, kv_store=a.kv_store,
         reduced=not a.full_size, device=a.device, trace_out=a.trace_out,
         trace_timing=a.trace_timing, out=a.json)
@@ -378,7 +398,7 @@ def main(argv=None) -> int:
     if "flight_trace" in doc:
         ft = doc["flight_trace"]
         print(f"flight trace ({ft['policy']}): {ft['path']}, summary "
-              f"{ft['summary']}")
+              f"{ft['summary']}, hidden_fraction {ft['hidden_fraction']}")
     return 0
 
 

@@ -13,14 +13,33 @@ one chunk, and decodes one token for every active slot over the smallest
 power-of-two bucket that covers them.
 
 ``prefill_chunk=n`` prefills a prompt longer than ``n`` tokens one chunk a
-step on the slot's own row (``SlotKVCache.slot_view``), so a long prompt no
-longer stalls the decode of the active slots.  A slot mid-prefill sits
-inside the decode bucket: the step writes one position at its ``pos`` and
+step, continuing from the slot's own row, so a long prompt no longer
+stalls the decode of the active slots.  A slot mid-prefill sits inside
+the decode bucket: the step writes one position at its ``pos`` and
 advances it; the engine puts ``pos`` back, outside the step, and the next
 chunk rewrites that position (no copy of the row).  A recurrent model's
 step would also advance the row's state: its state rows (and only those)
 are saved before the step and restored after it, outside the captured
 graph.
+
+Every prefill forward runs on the engine's prefill sub-cache
+(``Engine.sub``, ``batch_slots + 1`` one-slot rows): a wave on its first
+``nb`` rows, spliced into the slots after; a chunk on row 0, the slot's
+row copied in before and out after.  So a prefill's shapes are its only
+variables, and on the card each ``(rows, length)`` is one captured graph
+(:class:`~repro_torch.serving.step_graph.PrefillGraphs`).
+
+``async_prefill=True`` (the reference's overlapped serving) sends every
+miss through the chunk chain, even a prompt of one chunk: chunks are
+issued against the chain's own row of the sub-cache (row ``1 + i``), not
+the slot's row, on a side CUDA stream on the card, one chunk a step; the
+step after the final chunk harvests it (waits for its event, splices the
+row into the slot, samples the first token).  Until then the slot's row
+holds junk that the decode steps may write: there is no snapshot and no
+restore, and no state checkpoint mid-chain.  Preemption lands an
+in-flight chain before it files the victim; defrag moves a chain with
+its slot.  On the CPU the chain runs in order, with the same rows,
+harvest and counters.
 
 A recurrent model (rwkv6) never runs a pad token through its state, as in
 the JAX package: a wave prefills one request at its exact length, a chunk
@@ -63,12 +82,15 @@ On an MoE model the experts of a decode step run as ragged programs
 scheduler's ``gemv_aware`` admission is expert-aware there and reads the
 dispatcher's ``expert_load`` deltas before each admission.
 
-On the card each decode step is one CUDA graph per bucket
-(:mod:`repro_torch.serving.step_graph`, the counterpart of the JAX
-engine's jitted ``_decode_fn``): the first step at a bucket runs eagerly
-and is then captured, every later one replays.  Inside
+On the card each decode step is one CUDA graph per bucket and each
+prefill one per shape (:mod:`repro_torch.serving.step_graph`, the
+counterparts of the JAX engine's jitted ``_decode_fn`` and
+``_prefill_fn``): the first run at a key runs eagerly and is then
+captured, every later one replays.  A state family's wave (its exact
+length), its short last chunk and a chunk cut short by ``max_len`` run
+eagerly by design, counted in ``Engine.prefill_graphs.eager``.  Inside
 :func:`~repro_torch.serving.step_graph.disable_graphs`, and always on the
-CPU, the step runs eagerly op by op.  Prefill stays eager.
+CPU, both run eagerly op by op.
 
 ``tracer=`` (a :class:`~repro_torch.observability.Tracer`) flight-records
 the run at the reference's sites: each request's phases (queued, prefill,
@@ -81,14 +103,18 @@ work closes after the host read that already waits for it (a step's
 sampled logits); a non-final prefill chunk has none, so its span is the
 host's enqueue.  With no tracer the engine runs the same device work and
 host reads.  A replayed decode graph runs no Python: its dispatch
-decisions were recorded at the bucket's eager first step.
+decisions were recorded at the bucket's eager first step.  With
+``async_prefill`` each harvest records an ``async_prefill`` span
+(``cat="overlap"``) from the final chunk's issue to the harvest, with the
+host's wait in ``blocked_us``, and each chunk and harvest ticks
+``record_overlap("async_prefill", ...)``.
 
-Not ported yet: prefill as captured programs, async prefill and sharded
-(mesh) serving.
+Not ported yet: sharded (mesh) serving.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 import weakref
 from dataclasses import dataclass, field
@@ -99,10 +125,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.backends import DispatchPolicy
+from repro_torch.kernels.dispatch import record_overlap
 from repro_torch.kernels.kv_quant import validate_kv_store
 from repro_torch.models import lm
 from repro_torch.observability.trace import install_tracer
-from repro_torch.serving.kv_cache import SlotKVCache
+from repro_torch.serving.kv_cache import POSITIONAL_LEAVES, SlotKVCache
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.prefix_cache import (
     PrefixCache,
@@ -118,7 +145,7 @@ from repro_torch.serving.sampling import (
 from repro_torch.serving.scheduler import QueueFull, Scheduler, \
     SchedulerConfig
 from repro_torch.serving.step_graph import CudaCapture, DecodeGraphs, \
-    graphs_enabled
+    PrefillGraphs, graphs_enabled
 
 __all__ = ["Engine", "Request", "QueueFull", "SamplingParams", "Scheduler",
            "SchedulerConfig", "ServingMetrics"]
@@ -174,6 +201,27 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
+def _rows(cache: dict, lo: int, hi: int) -> dict:
+    """Rows ``[lo, hi)`` of a cache dict as views."""
+    return {name: leaf[lo:hi] if leaf.ndim == 1 else leaf[:, lo:hi]
+            for name, leaf in cache.items()}
+
+
+def _copy_row(dst: dict, i: int, src: dict, j: int, lo: int,
+              hi: int) -> None:
+    """Row ``j`` of ``src`` into row ``i`` of ``dst``: positions ``[lo,
+    hi)`` of the positional leaves and every state leaf whole; ``pos`` is
+    the caller's to set."""
+    for name, leaf in dst.items():
+        if name == "pos":
+            continue
+        if name in POSITIONAL_LEAVES:
+            if hi > lo:
+                leaf[:, i, lo:hi].copy_(src[name][:, j, lo:hi])
+        else:
+            leaf[:, i].copy_(src[name][:, j])
+
+
 class Engine:
     """Continuous batching over a slot-managed KV cache.
 
@@ -194,6 +242,7 @@ class Engine:
                  prepack_weights: bool = True,
                  metrics: ServingMetrics | None = None,
                  prefill_chunk: int | None = None,
+                 async_prefill: bool = False,
                  prefix_cache=None,
                  kv_store: str = "fp",
                  device=None,
@@ -214,6 +263,7 @@ class Engine:
         if tracer is not None:
             install_tracer(tracer)
         self.prefill_chunk = prefill_chunk
+        self.async_prefill = bool(async_prefill)
         # recurrent state must never see a pad token: exact prefill shapes
         self.exact_prefill = cfg.family == "ssm" or cfg.parallel_ssm
         # One DispatchPolicy for the engine's lifetime; above the batch
@@ -285,6 +335,35 @@ class Engine:
                          capture=CudaCapture(self.device),
                          inputs=self.features)
             if self.device.type == "cuda" else None)
+        # the prefill sub-cache and its feature rows: row 0 stages every
+        # chunk, rows [0, nb) a wave, row 1 + i an async chain's; and each
+        # chain's first-token logits
+        self.sub = lm.init_cache(cfg, batch_slots + 1, max_len,
+                                 per_slot_pos=True, kv_store=self.kv_store,
+                                 device=self.device)
+        self.sub_features = {
+            k: torch.zeros((batch_slots + 1, *v.shape[1:]), dtype=v.dtype,
+                           device=self.device)
+            for k, v in self.features.items()}
+        # async chains: slot -> {"row", "chunks", "final", "t_final_us",
+        # "event"}; the keys are a subset of _prefilling's
+        self._inflight: dict[int, dict] = {}
+        self._free_rows = list(range(1, batch_slots + 1))
+        self.sub_last = (torch.zeros((batch_slots + 1, cfg.vocab),
+                                     dtype=torch.float32, device=self.device)
+                         if self.async_prefill else None)
+        self.side = (torch.cuda.Stream(self.device)
+                     if self.async_prefill and self.device.type == "cuda"
+                     else None)
+        # the prefill forwards' captured graphs, one per (rows, length),
+        # sharing one memory pool
+        pbody = weakref.WeakMethod(self._prefill_body)
+        self.prefill_graphs = (
+            PrefillGraphs(lambda tok, last: pbody()(tok, last), self.sub,
+                          vocab=cfg.vocab, device=self.device,
+                          capture=CudaCapture(self.device, shared_pool=True),
+                          inputs=self.sub_features)
+            if self.device.type == "cuda" else None)
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -349,9 +428,14 @@ class Engine:
                     self._admit_prefix_hit(r, m)
                 else:
                     misses.append(r)
-        chunked = ([r for r in misses
-                    if len(self._pending_tokens(r)) > self.prefill_chunk]
-                   if self.prefill_chunk else [])
+        if self.async_prefill:
+            # every miss rides the chunk chain, even a one-chunk prompt
+            chunked = list(misses)
+        elif self.prefill_chunk:
+            chunked = [r for r in misses
+                       if len(self._pending_tokens(r)) > self.prefill_chunk]
+        else:
+            chunked = []
         chunked_ids = {id(r) for r in chunked}
         plain = [r for r in misses if id(r) not in chunked_ids]
         # a recurrent model prefills one request a wave (no pad rows)
@@ -471,6 +555,9 @@ class Engine:
             slot = max(self._prefilling,
                        key=lambda s: self._prefilling[s][0].admit_seq)
             r, valid = self._prefilling.pop(slot)
+            # an async chain in flight lands first: the row holds junk
+            # until then
+            self._await_inflight(slot, valid)
         else:
             slot = max(self.active, key=lambda s: self.active[s].admit_seq)
             r = self.active.pop(slot)
@@ -487,8 +574,44 @@ class Engine:
             self.tracer.request_phase(r.rid, "preempted", evicted_from=slot,
                                       evictions=r.evictions)
 
+    # -- prefill -------------------------------------------------------------
+
+    def _prefill_body(self, tok: torch.Tensor,
+                      last: torch.Tensor) -> torch.Tensor:
+        """The prefill forward of the sub-cache's first ``nb = len(tok)``
+        rows (K/V and state written in place) on tokens ``tok [nb, L]``
+        with their feature rows; returns the ``[nb, vocab]`` logits at
+        positions ``last [nb]``."""
+        nb = tok.shape[0]
+        logits, _, _ = lm.forward(
+            self.params, self.cfg, tok, cache=_rows(self.sub, 0, nb),
+            last=last, **{k: v[:nb] for k, v in self.sub_features.items()})
+        return logits[:, 0]
+
+    def _run_prefill(self, tokens: np.ndarray, last: np.ndarray,
+                     eager: str | None = None) -> torch.Tensor:
+        """:meth:`_prefill_body` over rows the caller filled, on the
+        current stream: a replayed graph on the card (``eager`` names why
+        this one runs eagerly instead, counted), else op by op.  Returns
+        the f32 ``[nb, vocab]`` logits (the graph's static buffer, valid
+        until its next run)."""
+        g = self.prefill_graphs
+        if g is not None and graphs_enabled():
+            if eager is None:
+                return g.run(tokens, last)
+            g.count_eager(eager)
+        nb = tokens.shape[0]
+        out = torch.empty((nb, self.cfg.vocab), dtype=torch.float32,
+                          device=self.device)
+        # the graph's own copy into its static logits, as a graph runs it
+        out.copy_(self._prefill_body(
+            torch.from_numpy(tokens.astype(np.int64)).to(self.device),
+            torch.from_numpy(last.astype(np.int64)).to(self.device)))
+        return out
+
     def _prefill_wave(self, wave: list[Request]) -> list[Request]:
-        """The whole admission wave in ONE right-padded batched forward;
+        """The whole admission wave in ONE right-padded batched forward on
+        the sub-cache's first ``nb`` rows, spliced into the slots;
         per-slot last-valid-token logits are gathered by length."""
         tr = self.tracer
         wave_t0 = tr.now_us() if tr is not None else 0.0
@@ -510,21 +633,26 @@ class Engine:
         for i, t in enumerate(toks):
             tokens[i, :lengths[i]] = t
             lens[i] = lengths[i]
-        sub = lm.init_cache(self.cfg, nb, self.max_len, per_slot_pos=True,
-                            kv_store=self.kv_store, device=self.device)
-        # batch-pad rows reuse the first slot's features
-        rows = torch.as_tensor(slots + [slots[0]] * (nb - len(wave)),
-                               device=self.device)
-        logits, sub, _ = lm.forward(
-            self.params, self.cfg,
-            torch.from_numpy(tokens).to(self.device), cache=sub,
-            **{k: v[rows] for k, v in self.features.items()})
-        idx = torch.from_numpy(lens - 1).to(self.device)
-        last = logits[torch.arange(nb, device=self.device), idx]
+        # a fresh start on the rows (what an earlier prefill left past the
+        # wave's positions is masked); batch-pad rows reuse the first
+        # slot's features
+        sub = _rows(self.sub, 0, nb)
+        sub["pos"].zero_()
+        for name in self.kv.state_names:
+            sub[name].zero_()
+        if self.features:
+            rows = torch.as_tensor(slots + [slots[0]] * (nb - len(wave)),
+                                   device=self.device)
+            for k, v in self.features.items():
+                self.sub_features[k][:nb] = v[rows]
+        # a state family's exact length would be a graph per prompt length
+        last = self._run_prefill(tokens, lens - 1,
+                                 "exact_wave" if self.exact_prefill
+                                 else None)
         self.kv.splice(sub, slots, lengths)
         for slot, t in zip(slots, toks):
             self._prefix_insert(slot, t)
-        last_np = last.float().cpu().numpy()
+        last_np = last.cpu().numpy()
         now = self.clock()
         finished = []
         for i, (r, slot) in enumerate(zip(wave, slots)):
@@ -537,42 +665,86 @@ class Engine:
                         requests=len(wave), tokens=sum(lengths))
         return finished
 
+    def _chunk_shape(self, c: int, consumed: int,
+                     chunk_limit: int) -> tuple[int, str | None]:
+        """A chunk's padded length and why it runs eagerly (None: it
+        replays its graph).  The pad never runs past max_len: the KV write
+        starts at ``consumed`` and a longer pad would clamp the start
+        backwards over earlier chunks (the JAX engine's rule,
+        engine.py:773); such a cut chunk, and a state family's short last
+        chunk (its exact length), run eagerly."""
+        if self.exact_prefill:
+            return c, None if c == chunk_limit else "exact_last_chunk"
+        want = min(_next_pow2(c), chunk_limit)
+        cpad = max(min(want, self.max_len - consumed), c)
+        return cpad, None if cpad == want else "max_len_cut"
+
+    def _run_chunk(self, cache: dict, row: int, features: dict,
+                   chunk: np.ndarray, consumed: int,
+                   chunk_limit: int) -> torch.Tensor:
+        """One chunk continuing row ``row`` of ``cache`` (a slot's, or an
+        async chain's row of the sub-cache) with that row's ``features``:
+        the row's landed positions ``[0, consumed)`` and its state are
+        copied into the sub-cache's row 0, the forward runs there, and the
+        chunk's positions and the state are copied back with ``pos`` at
+        the tokens landed (what lies past them on either row is masked).
+        Returns the f32 ``[1, vocab]`` last-token logits."""
+        c = len(chunk)
+        cpad, eager = self._chunk_shape(c, consumed, chunk_limit)
+        tokens = np.zeros((1, cpad), np.int64)
+        tokens[0, :c] = chunk
+        _copy_row(self.sub, 0, cache, row, 0, consumed)
+        self.sub["pos"][0].fill_(consumed)
+        for k, v in features.items():
+            self.sub_features[k][0] = v
+        out = self._run_prefill(tokens, np.array([c - 1]), eager)
+        _copy_row(cache, row, self.sub, 0, consumed, consumed + c)
+        cache["pos"][row].fill_(consumed + c)
+        return out
+
     def _advance_chunked(self) -> list[Request]:
         """Advance every chunked prefill by ONE chunk; the final chunk
         samples the first token and moves the request into the decode set.
-        Returns the requests that finished at once."""
+        Returns the requests that finished at once.
+
+        With ``async_prefill`` the chunks are issued against each chain's
+        own row of the sub-cache (on the side stream on the card); the
+        chains whose final chunk went out the step before are harvested
+        first (:meth:`_harvest_ready`)."""
         finished = []
         # a prefix hit's tail rides this seam even with chunking off: one
         # chunk covers the whole tail
         chunk_limit = self.prefill_chunk or self.max_len
         tr = self.tracer
+        if self.async_prefill:
+            finished.extend(self._harvest_ready())
         for slot in sorted(self._prefilling):
+            inf = self._inflight.get(slot)
+            if inf is not None and inf["final"]:
+                continue             # fully issued; harvests next step
             chunk_t0 = tr.now_us() if tr is not None else 0.0
             req, consumed = self._prefilling[slot]
             toks = self._pending_tokens(req)
             chunk = toks[consumed:consumed + chunk_limit]
             c = len(chunk)
-            # the pad never runs past max_len: the KV write starts at
-            # ``consumed`` and a longer pad would clamp the start backwards
-            # over earlier chunks (the JAX engine's rule, engine.py:773)
-            cpad = (c if self.exact_prefill else
-                    max(min(_next_pow2(c), chunk_limit,
-                            self.max_len - consumed), c))
-            tokens = np.zeros((1, cpad), np.int64)
-            tokens[0, :c] = chunk
-            # every chunk runs on the slot's own row, in place; a first
-            # chunk starts at 0 (what an earlier occupant left at or past
-            # ``pos`` is masked, then overwritten) and from zeroed state (the
-            # JAX engine's fresh one-slot cache)
+            if self.async_prefill:
+                self._issue_chain_chunk(slot, chunk, consumed, chunk_limit,
+                                        final=consumed + c >= len(toks))
+                self._prefilling[slot][1] = consumed + c
+                self.metrics.prefill_chunk(c)
+                if tr is not None:
+                    self._chunk_span(tr, chunk_t0, slot, req, c, consumed)
+                continue
+            # a first chunk starts at 0 (what an earlier occupant left at
+            # or past ``pos`` is masked, then overwritten) and from zeroed
+            # state (the JAX engine's fresh one-slot cache)
             if consumed == 0:
-                self.kv.cache["pos"][slot] = 0
+                self.kv.cache["pos"][slot].fill_(0)
                 self.kv.zero_state(slot)
-            logits, sub, _ = lm.forward(
-                self.params, self.cfg,
-                torch.from_numpy(tokens).to(self.device),
-                cache=self.kv.slot_view(slot),
-                **{k: v[slot:slot + 1] for k, v in self.features.items()})
-            self.kv.splice(sub, [slot], [consumed + c])
+            last = self._run_chunk(
+                self.kv.cache, slot,
+                {k: v[slot] for k, v in self.features.items()}, chunk,
+                consumed, chunk_limit)
             self.metrics.prefill_chunk(c)
             if consumed + c < len(toks):
                 self._prefilling[slot][1] = consumed + c
@@ -585,7 +757,7 @@ class Engine:
                 continue
             del self._prefilling[slot]
             self._prefix_insert(slot, toks)
-            last = logits[0, c - 1].float().cpu().numpy()
+            last = last[0].cpu().numpy()
             if tr is not None:
                 self._chunk_span(tr, chunk_t0, slot, req, c, consumed)
             tok = self._sample(req, last)
@@ -598,6 +770,108 @@ class Engine:
                     consumed: int) -> None:
         tr.add_span("prefill_chunk", t0, tr.now_us(), track=f"slot{slot}",
                     rid=req.rid, slot=slot, tokens=c, consumed=consumed + c)
+
+    # -- async prefill ---------------------------------------------------------
+
+    def _issue_chain_chunk(self, slot: int, chunk: np.ndarray,
+                           consumed: int, chunk_limit: int, *,
+                           final: bool) -> None:
+        """Issue the next chunk of slot ``slot``'s chain.  Its first chunk
+        takes a free row of the sub-cache and, on the main stream, sets
+        it up there: a miss at position 0 with zeroed state, a prefix
+        hit's spliced segments copied from the slot's row; and the
+        chain's own copy of the slot's feature rows (defrag swaps the
+        slot's rows in place).  The side stream waits for that, then runs
+        the chunk and records the chain's event after it."""
+        inf = self._inflight.get(slot)
+        if inf is None:
+            row = self._free_rows.pop(0)
+            if consumed == 0:
+                self.sub["pos"][row].fill_(0)
+                for name in self.kv.state_names:
+                    self.sub[name][:, row].zero_()
+            else:
+                _copy_row(self.sub, row, self.kv.cache, slot, 0, consumed)
+                self.sub["pos"][row].fill_(consumed)
+            for k, v in self.features.items():
+                self.sub_features[k][row] = v[slot]
+            inf = self._inflight[slot] = {"row": row, "chunks": 0,
+                                          "final": False, "t_final_us": 0.0,
+                                          "event": None}
+            if self.side is not None:
+                self.side.wait_stream(torch.cuda.current_stream(self.device))
+        row = inf["row"]
+        ctx = (torch.cuda.stream(self.side) if self.side is not None
+               else contextlib.nullcontext())
+        with ctx:
+            last = self._run_chunk(
+                self.sub, row,
+                {k: v[row] for k, v in self.sub_features.items()}, chunk,
+                consumed, chunk_limit)
+            self.sub_last[row].copy_(last[0])
+            if self.side is not None:
+                inf["event"] = torch.cuda.Event()
+                inf["event"].record(self.side)
+        record_overlap("async_prefill", issued=1)
+        inf["chunks"] += 1
+        inf["final"] = final
+        inf["t_final_us"] = (self.tracer.now_us() if self.tracer is not None
+                             else 0.0)
+
+    def _land_chain(self, slot: int, inf: dict, valid: int) -> None:
+        """Splice a chain's row into its slot with ``pos`` at ``valid``, on
+        the main stream after the chain's event, and free the row."""
+        if inf["event"] is not None:
+            torch.cuda.current_stream(self.device).wait_event(inf["event"])
+        row = inf["row"]
+        _copy_row(self.kv.cache, slot, self.sub, row, 0, valid)
+        self.kv.cache["pos"][slot].fill_(valid)
+        self._free_rows.append(row)
+        self._free_rows.sort()
+        record_overlap("async_prefill", awaited=inf["chunks"])
+
+    def _harvest_ready(self) -> list[Request]:
+        """Land every chain whose final chunk was issued: wait for its
+        event (the host's one block, ``blocked_us``), splice its row into
+        the slot, read the first-token logits, record the overlap span,
+        file the prompt's KV in the prefix cache and activate the
+        request; it joins this step's decode bucket."""
+        tr = self.tracer
+        finished = []
+        for slot in sorted(self._inflight):
+            inf = self._inflight[slot]
+            if not inf["final"]:
+                continue
+            req, consumed = self._prefilling[slot]
+            t_h0 = tr.now_us() if tr is not None else 0.0
+            if inf["event"] is not None:
+                inf["event"].synchronize()
+            t_h1 = tr.now_us() if tr is not None else 0.0
+            del self._inflight[slot]
+            last_np = self.sub_last[inf["row"]].cpu().numpy()
+            self._land_chain(slot, inf, consumed)
+            if tr is not None:
+                # the issue -> harvest window, split into the host's wait
+                # and the rest (hidden behind the steps in between)
+                tr.add_span("async_prefill", inf["t_final_us"], t_h1,
+                            cat="overlap", track=f"slot{slot}",
+                            rid=req.rid, slot=slot,
+                            blocked_us=max(t_h1 - t_h0, 0.0),
+                            chunks=inf["chunks"], tokens=consumed)
+            del self._prefilling[slot]
+            self._prefix_insert(slot, self._pending_tokens(req))
+            tok = self._sample(req, last_np)
+            if self._activate(req, slot, tok, self.clock()):
+                finished.append(req)
+        return finished
+
+    def _await_inflight(self, slot: int, valid: int) -> None:
+        """Land slot ``slot``'s chain, if one is in flight, with the
+        ``valid`` tokens issued so far (preemption: the victim's KV must
+        be real before it is filed and the slot freed)."""
+        inf = self._inflight.pop(slot, None)
+        if inf is not None:
+            self._land_chain(slot, inf, valid)
 
     def _activate(self, r: Request, slot: int, tok: int,
                   now: float) -> bool:
@@ -648,15 +922,17 @@ class Engine:
         n = self.kv.n_active
         b = self.decode_bucket()
         # rows mid-prefill ride the step (their logits go unsampled); their
-        # recurrent state must come out of it as it went in
-        mid = [s for s in sorted(self._prefilling) if s < b]
+        # recurrent state must come out of it as it went in.  An async
+        # chain's slot holds junk until its harvest: nothing to keep
+        mid = ([] if self.async_prefill
+               else [s for s in sorted(self._prefilling) if s < b])
         self.kv.save_state(mid)
         if self.graphs is not None and graphs_enabled():
             logits_np = self.graphs.step(b, self.last_tok)
         else:
             last = torch.from_numpy(self.last_tok[:b]).to(self.device)
             logits_np = self._decode_body(b, last).float().cpu().numpy()
-        if self._prefilling:
+        if self._prefilling and not self.async_prefill:
             # the step wrote one position at their ``pos`` and advanced it.
             # Put ``pos`` and the state back; the next chunk rewrites that
             # position.
@@ -736,6 +1012,8 @@ class Engine:
             else:
                 self._prefilling[dst] = self._prefilling.pop(src)
                 r = self._prefilling[dst][0]
+                if src in self._inflight:    # a chain follows its slot
+                    self._inflight[dst] = self._inflight.pop(src)
             if tr is not None:
                 tr.event("defrag_move", src=src, dst=dst, rid=r.rid)
                 tr.request_annotate(r.rid, slot=dst)

@@ -189,8 +189,9 @@ class SlotKVCache:
                 for name, leaf in self.cache.items()}
 
     def slot_view(self, slot: int) -> dict:
-        """One slot as a one-slot cache dict of VIEWS (the chunked-prefill
-        continuation runs on it and writes the slot in place)."""
+        """One slot as a one-slot cache dict of VIEWS: a forward over it
+        writes the slot in place, and :meth:`splice` of it only sets
+        ``pos``.  (The engine's chunks run on its prefill sub-cache.)"""
         return {name: _row(leaf, slot) for name, leaf in self.cache.items()}
 
     # -- prefix-cache segment seam ---------------------------------------------
@@ -214,12 +215,12 @@ class SlotKVCache:
     def splice_prefix(self, slot: int, payload: dict, length: int) -> None:
         """Write a segment payload into slot ``slot`` over positions ``[0,
         length)`` and set its ``pos`` to ``length``, in place (the prefix
-        hit's fast path; the tail then prefills on :meth:`slot_view`).
+        hit's fast path; the tail then prefills from the slot's row).
         Positions past ``length`` keep whatever they held: attention masks
         them and the tail's prefill overwrites them."""
         for name, leaf in self.cache.items():
             if name == "pos":
-                leaf[slot] = length
+                leaf[slot].fill_(length)
             elif leaf.ndim == 1:
                 continue
             elif name in POSITIONAL_LEAVES:

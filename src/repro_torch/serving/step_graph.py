@@ -1,5 +1,6 @@
-"""The decode step as one captured CUDA graph per bucket (the port's
-counterpart of the JAX engine's ``jax.jit(self._decode_fn)``).
+"""The decode step as one captured CUDA graph per bucket, and prefill as
+one per shape (the port's counterparts of the JAX engine's
+``jax.jit(self._decode_fn)`` and ``jax.jit(self._prefill_fn)``).
 
 The JAX engine compiles its decode step once per bucket shape and runs the
 compiled program on every step; the port captures the step's kernels into
@@ -34,6 +35,16 @@ There is no fallback: a capture that fails (a host sync, a pageable copy,
 a kernel's error) raises out of the step.  :func:`disable_graphs` is the
 one way to run the eager step on the card (the counterpart of
 ``jax.disable_jit()``).
+
+:class:`PrefillGraphs` keeps the same rules for the prefill forward, one
+graph per ``(rows, length)`` shape: a wave of ``nb`` right-padded prompts
+of ``L`` tokens, or one chunk (``nb == 1``).  The forward runs on a static
+sub-cache of the engine (its first ``nb`` rows) and static feature rows;
+the engine fills them before the run and splices the rows out after it,
+outside the graph.  The graph's outputs are the last-token logits at
+static positions.  Every tensor a prefill graph allocates is a temporary
+of its own run, so an engine's prefill graphs share one memory pool: they
+run on one stream, one at a time, and none reads another's memory.
 """
 
 from __future__ import annotations
@@ -46,8 +57,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-__all__ = ["CudaCapture", "DecodeGraphs", "disable_graphs",
-           "graphs_enabled"]
+__all__ = ["CudaCapture", "DecodeGraphs", "PrefillGraphs",
+           "disable_graphs", "graphs_enabled"]
 
 _DISABLED = [False]
 
@@ -75,8 +86,12 @@ class CudaCapture:
     the first call on a stream sets up (cuBLAS's workspace) exists before
     the capture starts."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, *, shared_pool: bool = False):
         self.stream = torch.cuda.Stream(device)
+        # one memory pool for every graph this capture records, or (the
+        # default) a pool of their own for each
+        self.pool = (torch.cuda.graph_pool_handle() if shared_pool
+                     else None)
 
     def warm(self, body: Callable[[], None]) -> None:
         cur = torch.cuda.current_stream(self.stream.device)
@@ -98,7 +113,7 @@ class CudaCapture:
         was_enabled = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=self.stream):
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
                 body()
         finally:
             if was_enabled:
@@ -164,3 +179,88 @@ class DecodeGraphs:
         else:
             replay()
         return self.logits[:b].to("cpu", copy=True).numpy()
+
+
+class PrefillGraphs:
+    """One captured prefill forward per ``(rows, length)`` shape.
+
+    ``body(tok, last)`` runs the prefill forward of the first ``nb`` rows
+    of the engine's static sub-cache on the int64 tokens ``tok [nb, L]``
+    and returns the ``[nb, vocab]`` logits at positions ``last [nb]``.
+    ``leaves`` and ``inputs`` are the sub-cache and its feature rows,
+    whose tensors the graphs read and write in place (checked at every
+    run, as :class:`DecodeGraphs` checks its leaves).  Each shape gets
+    static token, position and logits buffers.  ``eager`` counts the
+    prefills the engine ran outside the graphs by design, by reason.
+    """
+
+    def __init__(self, body: Callable[[torch.Tensor, torch.Tensor],
+                                      torch.Tensor],
+                 leaves: dict[str, torch.Tensor], *, vocab: int,
+                 device: torch.device, capture,
+                 inputs: dict[str, torch.Tensor]):
+        self.body = body
+        self.leaves = leaves
+        self.inputs = inputs
+        self.vocab = vocab
+        self.device = device
+        self.capture = capture
+        self._ptrs = self._leaf_ptrs()
+        self.buffers: dict[tuple[int, int], tuple[torch.Tensor, ...]] = {}
+        self.replays: dict[tuple[int, int], Callable[[], None]] = {}
+        self.capture_s: dict[tuple[int, int], float] = {}
+        self.runs: dict[tuple[int, int], int] = {}
+        self.eager: dict[str, int] = {}
+
+    def _leaf_ptrs(self) -> dict[str, int]:
+        return {**{name: t.data_ptr() for name, t in self.leaves.items()},
+                **{f"inputs.{name}": t.data_ptr()
+                   for name, t in self.inputs.items()}}
+
+    def count_eager(self, reason: str) -> None:
+        self.eager[reason] = self.eager.get(reason, 0) + 1
+
+    def _stage(self, dst: torch.Tensor, src: np.ndarray) -> None:
+        """Host array -> static device buffer: through a pinned copy on
+        the card (the host allocator keeps it until the copy has run)."""
+        host = torch.from_numpy(src)
+        if self.device.type == "cuda":
+            dst.copy_(host.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(host)
+
+    def run(self, tokens: np.ndarray, last: np.ndarray) -> torch.Tensor:
+        """The prefill of ``tokens [nb, L]`` with logits at ``last [nb]``
+        on the current stream; returns the static ``[nb, vocab]`` f32
+        logits buffer of the shape (valid until its next run)."""
+        if self._leaf_ptrs() != self._ptrs:
+            raise RuntimeError(
+                "a prefill sub-cache leaf or an input was reassigned after "
+                "the prefill graphs were set up; the graphs would read the "
+                "old tensors")
+        key = tokens.shape
+        bufs = self.buffers.get(key)
+        if bufs is None:
+            nb, L = key
+            bufs = self.buffers[key] = (
+                torch.zeros((nb, L), dtype=torch.int64, device=self.device),
+                torch.zeros((nb,), dtype=torch.int64, device=self.device),
+                torch.zeros((nb, self.vocab), dtype=torch.float32,
+                            device=self.device))
+        tok, pos, out = bufs
+        self._stage(tok, np.ascontiguousarray(tokens, np.int64))
+        self._stage(pos, np.ascontiguousarray(last, np.int64))
+
+        def fwd() -> None:
+            out.copy_(self.body(tok, pos))
+
+        replay = self.replays.get(key)
+        if replay is None:
+            self.capture.warm(fwd)
+            t0 = time.perf_counter()
+            self.replays[key] = self.capture.capture(fwd)
+            self.capture_s[key] = time.perf_counter() - t0
+        else:
+            replay()
+        self.runs[key] = self.runs.get(key, 0) + 1
+        return out
