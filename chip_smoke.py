@@ -306,9 +306,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    alone (no fitted comparison): ``python3 -c "import torch, chip_smoke as cs;
    from repro_torch.kernels import _build; _build.build(force=True);
    cs.run_trace(torch.device('cuda', 0))"``;
-20. the ``{"kernels": [...]}`` line (``decode_attention_g5``: the G 5
-   instance over one hymba-1.5b step), the card line, and the last line
-   ``{"ok": true, "device": {...}}``.
+20. ``[mesh kernels]``: ``pim_gemv`` / ``splitk_gemv`` at the decode
+   GEMV shapes a rank of a (1, 2) mesh runs (olmo-1b, deepseek-moe-16b,
+   grok-1-314b; batch 8), ``ragged_gemv`` on a rank's expert stacks
+   (deepseek 32 of 64 experts, grok 4 of 8; the other ranks' rows past
+   the offsets, zero), ``decode_attention`` at G 6 (grok's 24 over 4 a
+   rank and 48 over 8), each against its plain version and timed beside
+   its bound; then ``[mesh]``: each model at full width (grok at 2 of 64
+   layers) first on the unsharded engine here, eagerly, then on the two
+   ranks of one (1, 2) mesh started by ``launch.mesh.spawn``, sharing
+   this card over gloo (eager: gloo collectives cannot be captured), with
+   ``overlap_collectives`` off and on: 8 prompts of 64-512 tokens (the
+   512-token one chunked by 128), 16 greedy tokens; fails unless every
+   rank's rows are the same, overlap on is bit-equal to off with
+   n_layers deferred collectives a decode step, tokens equal the
+   unsharded engine's up to any step whose unsharded top-2 margin is
+   below 1e-2 (that request stops there, its margin printed), logits
+   within one bf16 ulp a layer at their max |logit|, every rank launched
+   ``decode_attention`` (and ``ragged_gemv`` on the MoE models) on each
+   model and ``pim_gemv`` / ``splitk_gemv`` on some; prints each rank's
+   backend, world size and device, its launches, ``sharded_axes`` and
+   ``shard_picks`` (the per-rank shapes), and per-token p50 unsharded
+   and per rank (two ranks sharing one card over gloo: not a mesh's
+   speed); the phase alone: ``python3 -c "import torch, chip_smoke as
+   cs; from repro_torch.kernels import _build; _build.build(force=True);
+   d = torch.device('cuda', 0); cs.check_mesh_kernels(d);
+   cs.run_mesh(d)"``;
+21. the ``{"kernels": [...]}`` line (``decode_attention_g5``: the G 5
+   instance over one hymba-1.5b step; ``decode_attention_g6``: the G 6
+   instance over one grok-1-314b step of a rank), the card line, and the
+   last line ``{"ok": true, "device": {...}}``.
 
 A fuller report goes to ``chiprun_out/chip_smoke.json``.  Nothing here
 imports JAX or the JAX package.
@@ -446,6 +473,8 @@ from repro_torch.kernels.triton_gemv import (  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.layers import GATED  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.distributed.collectives import all_reduce_sum  # noqa: E402
+from repro_torch.launch.mesh import spawn  # noqa: E402
 from repro_torch.observability import export  # noqa: E402
 from repro_torch.observability.trace import (  # noqa: E402
     Tracer,
@@ -4817,6 +4846,469 @@ def run_trace_fitted(dev, kw: dict, fitted: dict, seed_run: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# [mesh]: sharded serving on a (1, 2) mesh, two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE = (1, 2)
+MESH_SLOTS, MESH_MAX_LEN, MESH_TOKENS, MESH_CHUNK = 8, 1024, 16, 128
+# 8 prompts of 64-512 tokens: only the 512-token one is longer than a chunk
+MESH_LENGTHS = [64, 512, 96, 128, 100, 72, 120, 80]
+# (arch, layers kept; None: all): grok-1-314b at 2 of its 64 layers
+MESH_MODELS = (("olmo-1b", None), ("deepseek-moe-16b", None),
+               ("grok-1-314b", 2))
+MESH_TIMEOUT_S = 900
+# bf16 logits of the sharded dense engine against the unsharded one: each
+# layer's sharded sums (wo, down) round each rank's partial to bf16 and
+# add the partials in f32 (unsharded: one rounding of the whole sum), and
+# the difference grows through the layers; bound: 16 bf16 ulps at the
+# rows' max |logit|.  An MoE model's whole-model logits are printed, not
+# held (a 1-ulp difference can swap a router's k-th and (k+1)-th expert,
+# see moe_logits_check); its MoE blocks are held one by one instead: on
+# the first decode step, each layer's sharded block (the rank's experts
+# and shared-expert columns, all-reduced as the engine does) against the
+# unsharded apply_moe on the same input, within MESH_MOE_LAYER_ULPS bf16
+# ulps at the block's max |output| (moe_logits_check's 8, for the same
+# roundings in another order, plus each rank's partial rounded once)
+MESH_LOGIT_ULPS = 16
+MESH_MOE_LAYER_ULPS = 8
+# per-rank decode GEMV shapes (K, M, calls a decode step) on a (1, 2)
+# mesh: QKV over a rank's heads, gate+up over its FFN columns, down over
+# its rows (split-K), the head over its vocab block
+MESH_GEMV_SHAPES = {
+    "olmo-1b": {"qkv": (2048, 3072, 16), "gate_up": (2048, 8192, 16),
+                "down": (4096, 2048, 16), "head": (2048, 25152, 1)},
+    "deepseek-moe-16b": {"qkv": (2048, 3072, 28),
+                         "shared_gate_up": (2048, 2816, 28),
+                         "shared_down": (1408, 2048, 28),
+                         "head": (2048, 51200, 1)},
+    "grok-1-314b": {"qkv": (6144, 4096, 2), "head": (6144, 65536, 1)},
+}
+# per-rank expert GEMVs: (E of the rank, top-k, K, M, calls a step)
+MESH_RAGGED_SHAPES = {
+    "deepseek-moe-16b/gate_up": (32, 6, 2048, 1408, 56),
+    "deepseek-moe-16b/down": (32, 6, 1408, 2048, 28),
+    "grok-1-314b/gate_up": (4, 2, 6144, 32768, 4),
+    "grok-1-314b/down": (4, 2, 32768, 6144, 2),
+}
+# grok's decode attention: a rank's 24 query heads over 4 kv heads (the
+# main path, 2 layers a step) and the whole model's 48 over 8 (G 6)
+MESH_ATTN = {"grok-1-314b/rank": (4, 2), "grok-1-314b/full": (8, 0)}
+MESH_KERNEL_NAMES = {"pim": "pim_gemv", "splitk": "splitk_gemv",
+                     "ragged_cuda": "ragged_gemv"}
+
+
+def mesh_config(arch: str, layers: int | None):
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def mesh_serve(cfg, params, dev, mesh=None, overlap: bool = False,
+               moe_blocks: bool = False) -> dict:
+    """The [mesh] mix on one engine (this rank's share with ``mesh``),
+    eagerly: tokens, every sampled logits row and its top-2 margin, the
+    wrappers' launches (reset just before the run), the dispatcher's
+    counters and the engine's policy.  With ``moe_blocks`` (a rank of an
+    MoE model) also each layer's MoE input and its all-reduced output on
+    the first decode step (``moe_blocks``: the extra all-reduce runs on
+    every rank at the same call)."""
+    dispatch.clear_plan_cache()
+    eng = Engine(cfg, params, device=dev, batch_slots=MESH_SLOTS,
+                 max_len=MESH_MAX_LEN, prefill_chunk=MESH_CHUNK, mesh=mesh,
+                 overlap_collectives=overlap)
+    blocks, real = [], L.moe_partial
+
+    def spy(p, x, cfg_, gemv=None):
+        y, aux, partial = real(p, x, cfg_, gemv=gemv)
+        if x.shape[1] == 1 and len(blocks) < cfg.n_layers:
+            whole = all_reduce_sum(y, mesh.group("model")) if partial else y
+            blocks.append((x.cpu(), whole.cpu()))
+        return y, aux, partial
+
+    if moe_blocks:
+        L.moe_partial = spy
+    rows: dict[int, list] = {}
+    margins = top2_margins(eng)
+    sample = eng._sample
+
+    def recorded(r, row):
+        rows.setdefault(r.rid, []).append(np.asarray(row, np.float32))
+        return sample(r, row)
+
+    eng._sample = recorded
+    for i, p in enumerate(prompts(cfg.vocab, MESH_LENGTHS, SEED)):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=MESH_TOKENS))
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        done = eng.run_until_drained()
+    finally:
+        L.moe_partial = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(done) != len(MESH_LENGTHS):
+        raise AssertionError(f"{cfg.name}: {len(done)} requests done")
+    if moe_blocks and len(blocks) != cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: {len(blocks)} MoE blocks seen")
+    m = eng.metrics.to_dict(include_steps=False)
+    return {"tokens": {r.rid: list(r.generated) for r in done},
+            "rows": rows, "margins": margins, "launches": launches(),
+            "stats": dispatch.dispatch_stats(),
+            "per_token_ms": m["per_token_ms"], "wall_s": wall,
+            "decode_steps": eng.metrics.counters["decode_steps"],
+            "graphs_reason": eng.graphs_reason, "policy": eng.gemv_policy,
+            "moe_blocks": blocks}
+
+
+def rows_digest(rows: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for rid in sorted(rows):
+        for row in rows[rid]:
+            h.update(row.tobytes())
+    return h.hexdigest()
+
+
+def mesh_rank(mesh, plan) -> dict:
+    """One rank of [mesh]: each model of ``plan`` drawn from the seed with
+    this rank's blocks kept, served with ``overlap_collectives`` off and
+    then on.  Rank 0 returns its rows; every rank their digest."""
+    out = {"rank": mesh.rank, "backend": mesh.backend,
+           "device": str(mesh.device), "world": mesh.world_size,
+           "coords": dict(mesh.coords), "models": {}}
+    for arch, layers in plan:
+        cfg = mesh_config(arch, layers)
+        t0 = time.perf_counter()
+        params = lm.init_lm(cfg, seed=SEED, device=mesh.device, mesh=mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        mem = torch.cuda.memory_allocated(mesh.device) / 1e9
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        off = mesh_serve(cfg, params, mesh.device, mesh, overlap=False,
+                         moe_blocks=cfg.moe is not None)
+        on = mesh_serve(cfg, params, mesh.device, mesh, overlap=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        same = off["tokens"] == on["tokens"] and all(
+            np.array_equal(a, b) for rid in off["rows"]
+            for a, b in zip(off["rows"][rid], on["rows"][rid]))
+        res = {k: off[k] for k in ("tokens", "launches", "per_token_ms",
+                                   "wall_s", "decode_steps",
+                                   "graphs_reason")}
+        res.update(
+            digest=rows_digest(off["rows"]), overlap_equal=same,
+            deferred=on["stats"]["overlap"]["deferred"]["collectives"],
+            overlap_decode_steps=on["decode_steps"],
+            overlap_per_token_ms=on["per_token_ms"],
+            shard_picks=off["stats"]["shard_picks"],
+            sharded_axes=off["stats"]["sharded_axes"],
+            kernel_picks=off["stats"]["kernel_picks"],
+            program_modes=off["stats"]["program_modes"],
+            program_kernels=off["stats"]["program_kernels"],
+            init_s=init_s, params_gb=mem,
+            peak_gb=torch.cuda.max_memory_allocated(mesh.device) / 1e9)
+        if mesh.rank == 0:
+            res["rows"] = off["rows"]
+            res["moe_blocks"] = off["moe_blocks"]
+        out["models"][arch] = res
+    return out
+
+
+def mesh_compare(arch: str, base: dict, ranks: list[dict]) -> dict:
+    """Hold every rank of one model against the unsharded run: the same
+    rows on every rank (digest), overlap on bit-equal to off, the
+    deferred count, the wrappers' launches; tokens equal but where the
+    unsharded top-2 margin is below ``NEAR_TIE`` (that request's
+    comparison stops there, its margin printed); a dense model's rows
+    within ``MESH_LOGIT_ULPS`` bf16 ulps at their max |logit| (an MoE
+    model's difference is reported, and its blocks are held by
+    :func:`mesh_moe_blocks`)."""
+    cfg = mesh_config(arch, dict(MESH_MODELS)[arch])
+    mine = [r["models"][arch] for r in ranks]
+    if len({m["digest"] for m in mine}) != 1:
+        raise AssertionError(f"[mesh] {arch}: the ranks' rows differ")
+    for r, m in zip(ranks, mine):
+        if not m["overlap_equal"]:
+            raise AssertionError(f"[mesh] {arch} rank {r['rank']}: "
+                                 f"overlap on differs from off")
+        if m["deferred"] != cfg.n_layers * m["overlap_decode_steps"]:
+            raise AssertionError(
+                f"[mesh] {arch} rank {r['rank']}: {m['deferred']} deferred "
+                f"collectives, want {cfg.n_layers} x "
+                f"{m['overlap_decode_steps']}")
+        need = ["decode_attention"] + (["ragged_gemv"] if cfg.moe else [])
+        for k in need:
+            if m["launches"][k] <= 0:
+                raise AssertionError(f"[mesh] {arch} rank {r['rank']}: "
+                                     f"{k} never launched")
+    rows0 = mine[0]["rows"]
+    stops, worst, absmax, compared = {}, 0.0, 0.0, 0
+    for rid, want in base["tokens"].items():
+        got = mine[0]["tokens"][rid]
+        n = len(want)
+        for i, m in enumerate(base["margins"][rid]):
+            if m < NEAR_TIE:
+                stops[rid] = {"step": i, "margin": m}
+                n = i
+                break
+        if got[:n] != want[:n]:
+            raise AssertionError(f"[mesh] {arch} request {rid}: tokens "
+                                 f"differ before any near tie: {got} vs "
+                                 f"{want}")
+        for a, b in zip(rows0[rid][:n + 1], base["rows"][rid][:n + 1]):
+            worst = max(worst, float(np.abs(a - b).max()))
+            absmax = max(absmax, float(np.abs(b).max()))
+            compared += 1
+    ulp = bf16_ulp(absmax) if absmax else 0.0
+    held = cfg.moe is None
+    tol = MESH_LOGIT_ULPS * ulp if held else None
+    if held and worst > tol:
+        raise AssertionError(f"[mesh] {arch}: max |logit diff| {worst:.4f} "
+                             f"> {MESH_LOGIT_ULPS} bf16 ulps at |logit| max "
+                             f"{absmax:.2f} ({tol:.4f})")
+    return {"stops": stops, "max_abs_diff": worst, "logit_absmax": absmax,
+            "max_diff_ulps": worst / ulp if ulp else 0.0,
+            "tolerance_ulps": MESH_LOGIT_ULPS if held else None,
+            "tolerance": tol, "rows_compared": compared}
+
+
+def mesh_moe_blocks(arch: str, policy, blocks: list, dev) -> dict:
+    """Hold rank 0's MoE blocks of one decode step against the unsharded
+    ``apply_moe`` on the same inputs: the model drawn again from the seed
+    whole on this card, each layer's block within ``MESH_MOE_LAYER_ULPS``
+    bf16 ulps at its max |output|."""
+    cfg = mesh_config(arch, dict(MESH_MODELS)[arch])
+    params = lm.init_lm(cfg, seed=SEED, device=dev)
+    layers = []
+    for i, (p, (x, y)) in enumerate(zip(params["layers"], blocks)):
+        ref, _ = L.apply_moe(p["moe"], x.to(dev), cfg, gemv=policy)
+        ref = ref.float().cpu()
+        diff = (y.float() - ref).abs().max().item()
+        tol = MESH_MOE_LAYER_ULPS * bf16_ulp(ref.abs().max().item())
+        layers.append({"layer": i, "max_abs_diff": diff, "tolerance": tol,
+                       "ulps": diff / tol * MESH_MOE_LAYER_ULPS})
+        if not (torch.isfinite(y).all() and diff <= tol):
+            raise AssertionError(f"[mesh] {arch} MoE layer {i}: sharded "
+                                 f"block differs from the unsharded by "
+                                 f"{diff} > {tol}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = max(layers, key=lambda r: r["ulps"])
+    return {"layers": len(layers), "batch": int(blocks[0][0].shape[0]),
+            "worst_layer": worst["layer"], "worst_ulps": worst["ulps"],
+            "worst_abs_diff": worst["max_abs_diff"],
+            "median_ulps": float(np.median([r["ulps"] for r in layers]))}
+
+
+def check_mesh_kernels(dev) -> list[dict]:
+    """[mesh kernels]: ``pim_gemv`` / ``splitk_gemv`` at each per-rank
+    decode GEMV shape (batch 8), ``ragged_gemv`` on each per-rank expert
+    stack (a rank's rows first, the rest past the offsets), and
+    ``decode_attention`` at G 6 (24 over 4 and 48 over 8, D 128, C 1024),
+    each held against its plain version, then timed beside its bound (and
+    the library call where there is one)."""
+    import torch.nn.functional as F
+
+    rows = []
+    for arch, shapes in MESH_GEMV_SHAPES.items():
+        rows += check_kernels(dev, shapes, (8,), f"{arch}/rank")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rng = np.random.default_rng(SEED + 7)
+    for shape, (E, k, K, M, per_step) in MESH_RAGGED_SHAPES.items():
+        T = 8 * k
+        picks = rng.choice(2 * E, size=(8, k), replace=True)
+        counts = np.bincount(picks.reshape(-1), minlength=2 * E)[:E]
+        offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                               dtype=torch.int32, device=dev)
+        x = torch.randn((T, K), generator=gen, device=dev).to(torch.bfloat16)
+        w_bytes = E * K * M * 2
+        n_copies = max(2, math.ceil(2 * L2_BYTES / w_bytes) + 1)
+        ws = [(torch.randn((E, K, M), generator=gen, device=dev)
+               / math.sqrt(K)).to(torch.bfloat16) for _ in range(n_copies)]
+        plan = plan_ragged_stream(M, K, T, E=E, elem_bytes=2)
+        out = ragged_gemv(x, offsets, ws[0], plan=plan)
+        torch.cuda.synchronize()
+        err = check_close("ragged_gemv", shape, out,
+                          ragged_gemv_plain(x, offsets, ws[0]))
+        live = int(counts.sum())
+        if live < T and out[live:].abs().max().item() != 0:
+            raise AssertionError(f"ragged_gemv {shape}: rows past the "
+                                 f"rank's experts are not zero")
+        with_rows = int((counts > 0).sum())
+        io = (with_rows * K * M + live * K + T * M) * 2
+        row = dict(kernel="ragged_gemv", arch=shape.split("/")[0] + "/rank",
+                   shape=shape, routing="rank", E=E, T=T, K=K, M=M,
+                   rank_rows=live, experts_with_rows=with_rows,
+                   per_step=per_step, plan=plan_dict(plan),
+                   max_abs_err=err, bmm_ref_ms=None,
+                   ms=graph_ms(lambda i: ragged_gemv(
+                       x, offsets, ws[i % n_copies], plan=plan), 20),
+                   # the plain version reads the offsets on the host
+                   plain_ms=event_ms(lambda i: ragged_gemv_plain(
+                       x, offsets, ws[i % n_copies]), 3),
+                   library_ms=None,
+                   bytes_ms=io / HBM_BYTES_PER_S * 1e3,
+                   ops_ms=2 * live * K * M / BF16_FLOPS * 1e3)
+        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+        row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["ops_ms"]
+                           else "operations")
+        rows.append(row)
+        log(f"  ragged_gemv  {shape}: E={E} rows {live}/{T} experts with "
+            f"rows {with_rows} err={err:.2e} ms={row['ms']:.4f} "
+            f"bound={row['bound_ms']:.4f} plain={row['plain_ms']:.4f}")
+        del ws
+        torch.cuda.empty_cache()
+    B, C, D, G = 8, MESH_MAX_LEN, 128, 6
+    lengths = [n + MESH_TOKENS // 2 for n in MESH_LENGTHS]
+    tvalid = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    tpos = (tvalid - 1).long()[:, None]
+    for shape, (Hkv, per_step) in MESH_ATTN.items():
+        H = Hkv * G
+        q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        bound = attention_bound(lengths, B, H, Hkv, D)
+        n_copies = max(2, math.ceil(2 * L2_BYTES / (
+            bound["bytes_ms"] * HBM_BYTES_PER_S / 1e3)) + 1)
+        ks = [torch.randn((B, C, Hkv, D), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(n_copies)]
+        vs = [torch.randn((B, C, Hkv, D), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(n_copies)]
+        if not kernel_applies(q, ks[0], vs[0], causal=True):
+            raise AssertionError(f"decode_attention {shape}: the routing "
+                                 f"rule refuses G 6")
+        args = dict(q_positions=tpos, kv_valid_len=tvalid)
+        want = decode_attention_plain(q, ks[0], vs[0], **args)
+        atol = 2.0**-8 * vs[0].float().abs().max().item()
+        splits = plan_splits(B, Hkv, C, G, D, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        errs = {}
+        for n_split in sorted({splits, 1, 2, 4, 8}):
+            got = decode_attention(q, ks[0], vs[0], splits=n_split, **args)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            if not torch.isfinite(got.float()).all() or (
+                    err > atol + ATTN_RTOL * want.float().abs()).any():
+                raise AssertionError(
+                    f"decode_attention {shape} splits={n_split}: off its "
+                    f"plain version (max abs err {err.max().item():.3e})")
+            errs[f"s{n_split}"] = err.max().item()
+        kpos = torch.arange(C, device=dev)[None, :]
+        mask = (kpos < tvalid[:, None])[:, None, None, :]
+        row = dict(
+            kernel="decode_attention", arch=shape, shape=shape, store="fp",
+            B=B, C=C, Hkv=Hkv, H=H, G=G, D=D, window=0, valid=lengths,
+            splits=splits, per_step=per_step, max_abs_err=max(errs.values()),
+            errs=errs,
+            ms=graph_ms(lambda i: decode_attention(
+                q, ks[i % n_copies], vs[i % n_copies], **args), 100),
+            plain_ms=graph_ms(lambda i: decode_attention_plain(
+                q, ks[i % n_copies], vs[i % n_copies], **args), 20),
+            library_ms=graph_ms(lambda i: F.scaled_dot_product_attention(
+                q.transpose(1, 2), ks[i % n_copies].transpose(1, 2),
+                vs[i % n_copies].transpose(1, 2), attn_mask=mask,
+                enable_gqa=True), 100), **bound)
+        rows.append(row)
+        log(f"  decode_attention {shape}: G 6, {H} heads over {Hkv}, D {D}, "
+            f"C {C}, splits {splits}: err {row['max_abs_err']:.2e} at every "
+            f"split count; ms={row['ms']:.4f} bound={row['bound_ms']:.4f} "
+            f"plain={row['plain_ms']:.4f} sdpa={row['library_ms']:.4f}")
+        del ks, vs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_mesh(dev) -> dict:
+    """[mesh]: each model first on the unsharded engine here, eagerly
+    (gloo ranks run eagerly), its tokens, rows and margins kept on the
+    host and its params freed; then one (1, 2) mesh through ``spawn``:
+    two ranks on this card over gloo serve every model with
+    ``overlap_collectives`` off, then on (``mesh_rank``), and each is
+    held against the unsharded run (``mesh_compare``)."""
+    t_all = time.perf_counter()
+    base = {}
+    for arch, layers in MESH_MODELS:
+        cfg = mesh_config(arch, layers)
+        params = lm.init_lm(cfg, seed=SEED, device=dev)
+        with disable_graphs():
+            base[arch] = mesh_serve(cfg, params, dev)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        cut = f" ({layers} of {get_config(arch).n_layers} layers)" \
+            if layers else ""
+        log(f"[mesh] {arch}{cut} unsharded, eager: per-token p50 "
+            f"{base[arch]['per_token_ms']['p50']:.2f} ms, launches "
+            f"{json.dumps({k: v for k, v in base[arch]['launches'].items() if v})}")
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_rank, MESH_SHAPE, timeout_s=MESH_TIMEOUT_S,
+                  args=(MESH_MODELS,))
+    spawn_s = time.perf_counter() - t0
+    for r in ranks:
+        log(f"[mesh] rank {r['rank']} {r['coords']}: backend {r['backend']}, "
+            f"world {r['world']}, device {r['device']}")
+    out = {"ranks": [{k: r[k] for k in ("rank", "backend", "device",
+                                          "world", "coords")}
+                     for r in ranks], "models": {}, "spawn_s": spawn_s}
+    picks_seen: dict[str, int] = collections.Counter()
+    for arch, _ in MESH_MODELS:
+        cmp = mesh_compare(arch, base[arch], ranks)
+        if get_config(arch).moe is not None:
+            cmp["moe_blocks"] = mesh_moe_blocks(
+                arch, base[arch]["policy"],
+                ranks[0]["models"][arch].pop("moe_blocks"), dev)
+        res = {"compare": cmp, "unsharded": {
+            k: base[arch][k] for k in ("tokens", "launches", "per_token_ms",
+                                       "wall_s", "decode_steps")},
+            "ranks": []}
+        for r in ranks:
+            m = r["models"][arch]
+            res["ranks"].append({k: v for k, v in m.items() if k != "rows"})
+            for k, n in m["launches"].items():
+                picks_seen[f"{r['rank']}:{k}"] += n
+            log(f"[mesh] {arch} rank {r['rank']}: launches "
+                f"{json.dumps({k: v for k, v in m['launches'].items() if v})}"
+                f"; sharded_axes {json.dumps(m['sharded_axes'])}; "
+                f"shard_picks {json.dumps(m['shard_picks'])}; "
+                f"{m['graphs_reason']}; params {m['params_gb']:.2f} GB, "
+                f"peak {m['peak_gb']:.2f} GB, init {m['init_s']:.1f} s")
+            log(f"  per-token p50 {m['per_token_ms']['p50']:.2f} ms "
+                f"(overlap on {m['overlap_per_token_ms']['p50']:.2f}); "
+                f"two ranks sharing one card over gloo with host staging: "
+                f"not a mesh's speed; overlap on == off bit for bit, "
+                f"{m['deferred']} deferred collectives")
+        if cmp["tolerance"] is not None:
+            held = (f"<= {cmp['tolerance']:.4f} ({cmp['tolerance_ulps']} "
+                    f"ulps at |logit| max {cmp['logit_absmax']:.2f})")
+        else:
+            mb = cmp["moe_blocks"]
+            held = (f"at |logit| max {cmp['logit_absmax']:.2f}, printed, not "
+                    f"held; every MoE block of the first decode step (batch "
+                    f"{mb['batch']}, {mb['layers']} layers) against the "
+                    f"unsharded apply_moe on the same input within "
+                    f"{MESH_MOE_LAYER_ULPS} bf16 ulps: worst "
+                    f"{mb['worst_ulps']:.2f} (layer {mb['worst_layer']}), "
+                    f"median {mb['median_ulps']:.2f}")
+        log(f"[mesh] {arch}: tokens equal the unsharded engine's "
+            f"({len(cmp['stops'])} requests stopped at a top-2 margin "
+            f"below {NEAR_TIE}: {json.dumps(cmp['stops'])}); logits max "
+            f"|diff| {cmp['max_abs_diff']:.4f} "
+            f"({cmp['max_diff_ulps']:.1f} bf16 ulps) {held}; "
+            f"{cmp['rows_compared']} rows; unsharded per-token p50 "
+            f"{base[arch]['per_token_ms']['p50']:.2f} ms (eager, one card)")
+        out["models"][arch] = res
+    for r in ranks:
+        for k in ("pim_gemv", "splitk_gemv"):
+            if picks_seen[f"{r['rank']}:{k}"] <= 0:
+                raise AssertionError(f"[mesh] rank {r['rank']}: {k} never "
+                                     f"launched on any model")
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
 def kernels_line(rows: list[dict], launch_counts: dict,
                  per_step: dict, instances=()) -> dict:
     """One entry per kernel.  Its top-level times are one decode step: for
@@ -5236,6 +5728,20 @@ def main() -> int:
     trace = run_trace(dev, calibrate["backends"]["h100"]["constants"])
     log(f"[trace] {trace['seconds']:.1f} s on {card}")
 
+    t_mesh = time.perf_counter()
+    log("[mesh kernels] per-rank decode GEMV shapes of olmo-1b, "
+        "deepseek-moe-16b and grok-1-314b on a (1, 2) mesh (pim_gemv / "
+        "splitk_gemv at B 8, ragged_gemv on a rank's experts) and "
+        "decode_attention at G 6, each against its plain version, timed")
+    rows += check_mesh_kernels(dev)
+    log("[mesh] olmo-1b, deepseek-moe-16b, grok-1-314b (2 of 64 layers) "
+        "at full width, bf16: unsharded here (eager), then two ranks of a "
+        "(1, 2) mesh sharing this card over gloo")
+    mesh = run_mesh(dev)
+    mesh["with_kernels_s"] = time.perf_counter() - t_mesh
+    log(f"[mesh] {mesh['seconds']:.1f} s ({mesh['with_kernels_s']:.1f} s "
+        f"with [mesh kernels]) on {card}")
+
     launch_counts = {**{n: engine["launches"][n] for n in FLOAT_KERNELS},
                      "quant_gemv":
                          quant["passes"]["w8"]["launches"]["quant_gemv"],
@@ -5261,7 +5767,12 @@ def main() -> int:
               arch=HYBRID_ARCH,
               launches=hybrid["launches"]["decode_attention"],
               launches_per_step=eager_step(hybrid, "decode_attention"))
-    line = kernels_line(rows, launch_counts, per_step, [g5])
+    grok_rank0 = mesh["models"]["grok-1-314b"]["ranks"][0]
+    g6 = dict(name="decode_attention_g6", kernel="decode_attention",
+              arch="grok-1-314b/rank",
+              launches=grok_rank0["launches"]["decode_attention"],
+              launches_per_step=mesh_config(*MESH_MODELS[2]).n_layers)
+    line = kernels_line(rows, launch_counts, per_step, [g5, g6])
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
@@ -5277,6 +5788,7 @@ def main() -> int:
         multimodal=multimodal, multimodal_s=multimodal_s, state=state,
         hybrid=hybrid,
         autotune=autotune, pim=pim, calibrate=calibrate, trace=trace,
+        mesh=mesh,
         kernels=line["kernels"],
         total_s=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -6,6 +6,7 @@ from repro_torch.configs import (
     deepseek_moe_16b,
     gemma3_1b,
     gemma3_27b,
+    grok_1_314b,
     hymba_1_5b,
     llama32_vision_11b,
     minitron_8b,
@@ -20,7 +21,7 @@ ARCHS: dict[str, ModelConfig] = {
                         minitron_8b.CONFIG, gemma3_1b.CONFIG,
                         gemma3_27b.CONFIG, whisper_small.CONFIG,
                         llama32_vision_11b.CONFIG, rwkv6_3b.CONFIG,
-                        hymba_1_5b.CONFIG)}
+                        hymba_1_5b.CONFIG, grok_1_314b.CONFIG)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -12,7 +12,7 @@
 //   out    = sum_p prob[p] * v[b, p, h]      f32 sum, rounded once
 //
 // G is any count of query heads a kv head the launch switch holds (1, 2,
-// 4, 5 or 8): nothing below takes it for a power of two, and the output
+// 4, 5, 6 or 8): nothing below takes it for a power of two, and the output
 // shares (G * D + splits - 1) / splits of a cluster cover G * D whole.
 //
 // The reference masks every other p with a score of -2e9; exp(-2e9 - max)
@@ -585,8 +585,8 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 }
 
 // What a launch takes: D a whole number of 16-byte vectors on a power of
-// two of lanes (at most a warp), G in {1, 2, 4, 5, 8}, splits in {1, 2, 4,
-// 8} holding every position, 16-byte aligned q and out, and k / v rows
+// two of lanes (at most a warp), G in {1, 2, 4, 5, 6, 8}, splits in {1, 2,
+// 4, 8} holding every position, 16-byte aligned q and out, and k / v rows
 // (or code rows) aligned to what a lane reads; scales for quantized pages.
 template <typename T, int S>
 bool launchable(const Args& a, int B, int G) {
@@ -610,7 +610,7 @@ bool launchable(const Args& a, int B, int G) {
   return B >= 1 && a.C >= 1 && a.Hkv >= 1 && a.D % V == 0 && LP >= 1
          && LP <= 32 && (LP & (LP - 1)) == 0
          && row_bytes(a.D, sizeof(T), S ? S : 16) % kLaneBytes == 0
-         && (G == 1 || G == 2 || G == 4 || G == 5 || G == 8)
+         && (G == 1 || G == 2 || G == 4 || G == 5 || G == 6 || G == 8)
          && (a.splits == 1 || a.splits == 2 || a.splits == 4
              || a.splits == kMaxSplits) && a.window >= 0
          && static_cast<long long>(a.cap) * a.splits >= a.C
@@ -630,6 +630,7 @@ int run(const Args& a, int B, int G, void* stream) {
     case 2: return launch<T, 2, S>(a, B, s);
     case 4: return launch<T, 4, S>(a, B, s);
     case 5: return launch<T, 5, S>(a, B, s);   // hymba: 25 heads over 5
+    case 6: return launch<T, 6, S>(a, B, s);   // grok: 48 heads over 8
     default: return launch<T, 8, S>(a, B, s);
   }
 }

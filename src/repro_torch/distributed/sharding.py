@@ -1,0 +1,436 @@
+"""The PIMnast placement planner lifted to the device mesh (counterpart of
+``repro/distributed/sharding.py``).
+
+Per weight tensor, as in the reference (the paper's Algorithm 1 with the
+chips along 'model' as its banks and exact divisibility as its
+even-distribution test): row placement first (shard an OUTPUT dim: heads,
+d_ff, experts, vocab), split-K (the contraction dim) when no output dim
+divides, replication when nothing does; the 'data' axes take an FSDP dim.
+:func:`plan_params`, :func:`plan_report`, the cache, serving-cache and
+segment specs are the reference's functions, spec for spec: a spec is the
+port's :class:`P`, a tuple of axis names (or None) per dim that compares
+equal to the reference's ``PartitionSpec``.
+
+The reference hands its specs to GSPMD, which partitions each op and
+inserts the collectives.  The port holds each rank's block itself:
+
+* :func:`shard_tensor` cuts this rank's block of one tensor by its spec;
+* :func:`shard_params` places a model's (prepacked) tree for serving:
+  each leaf is ``shard_tensor`` of its :func:`serve_spec`, the planner's
+  spec where it is the leaf's row placement (heads, FFN columns and the
+  down projection's rows, whole experts, the vocab), else the leaf whole;
+  the slot cache (``serving.kv_cache``) holds :func:`serve_cache_spec`'s
+  block.  Deliberate differences from the reference, each named in
+  :func:`serve_spec`: the fused leaves (``wqkv``, ``w_gateup``) keep the
+  spec's axis and, where KV is sharded, its shard size, but a rank's
+  block is ``[q_r | k_r | v_r]`` and ``[gate_r | up_r]`` (its own heads
+  and FFN columns: one fused GEMV gives what the rank computes, where
+  GSPMD reshards contiguous blocks at the activation anchors); parameters
+  are replicated over 'data' (no FSDP shard is stored); the tiny-leaf
+  rule does not apply; and a leaf placed on a fallback dim, or read whole
+  by its layer (norm scales, the router), stays whole.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import data_axes
+
+
+class P(tuple):
+    """A partition spec: one entry per dim, an axis name, a tuple of axis
+    names or None (the reference's ``PartitionSpec``, which compares equal
+    to it element by element)."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+    __str__ = __repr__
+
+
+def _divides(dim: int, n: int) -> bool:
+    return n > 0 and dim % n == 0
+
+
+def _data_n(mesh, daxes) -> int:
+    return int(np.prod([mesh.shape[a] for a in daxes])) if daxes else 1
+
+
+def _leaf_spec(path: str, shape: tuple[int, ...], mesh,
+               cfg: ModelConfig | None) -> P:
+    """Placement for one tensor: model axis first (row placement with
+    split-K fallback), then an FSDP dim on the data axes."""
+    model_n = mesh.shape.get("model", 1)
+    daxes = data_axes(mesh)
+    data_n = _data_n(mesh, daxes)
+
+    if len(shape) == 0 or max(shape, default=0) < 128:
+        return P()  # scalars / tiny vectors: replicate
+
+    spec: list[Any] = [None] * len(shape)
+    prefs = _model_prefs(path.split("/")[-1], shape)
+    model_dim = None
+    for d in prefs:
+        if d < len(shape) and _divides(shape[d], model_n):
+            model_dim = d
+            break
+    if model_dim is not None:
+        spec[model_dim] = "model"
+    if daxes:
+        for d in range(len(shape)):
+            if d != model_dim and _divides(shape[d], data_n):
+                spec[d] = daxes if len(daxes) > 1 else daxes[0]
+                break
+    return P(*spec)
+
+
+def _model_prefs(name: str, shape: tuple[int, ...]) -> list[int]:
+    """The dims a leaf named ``name`` prefers on 'model', first choice
+    first: an output dim (row placement), then the contraction dim."""
+    if name in ("embed", "lm_head"):        # embed [V, d], lm_head [d, V]
+        prefs = [0, 1] if name == "embed" else [1, 0]
+    elif name in ("wq", "wk", "wv"):        # [d, H, hd] -> heads (output)
+        prefs = [1, 2, 0]
+    elif name in ("wqkv", "w_gateup"):      # prepacked fused [d, sum(M)]
+        prefs = [1, 0]
+    elif name == "wo":                      # [H, hd, d] -> heads (input)
+        prefs = [0, 1, 2]
+    elif name in ("w_gate", "w_up"):        # [(E,) d, f] -> E, then f
+        prefs = [0, 2, 1] if len(shape) == 3 else [1, 0]
+    elif name == "w_down":                  # [(E,) f, d] -> E, then f
+        prefs = [0, 1, 2] if len(shape) == 3 else [0, 1]
+    elif name in ("wr", "wk_cm", "wg"):     # rwkv square proj
+        prefs = [1, 0]
+    elif name == "w_in":                    # mamba [d, 2di]
+        prefs = [1, 0]
+    elif name == "w_out":                   # mamba [di, d]
+        prefs = [0, 1]
+    else:                                   # largest dim first
+        prefs = list(np.argsort([-s for s in shape]))
+    return prefs
+
+
+def _path_str(path) -> str:
+    """A tree path (dict keys, list indices) as the reference builds it:
+    ``"layers/0/attn/wq"``."""
+    return "/".join(str(p) for p in path)
+
+
+def _shape(leaf) -> tuple[int, ...]:
+    return tuple(int(s) for s in np.shape(leaf)) if not hasattr(
+        leaf, "shape") else tuple(int(s) for s in leaf.shape)
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a tree of dicts, lists and tuples (None is
+    an empty subtree, as in ``jax.tree_util``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(path, tree)
+
+
+def plan_params(params, mesh, cfg: ModelConfig | None = None):
+    """Spec tree for a param (or param-shaped state) tree."""
+    return tree_map_with_path(
+        lambda path, leaf: _leaf_spec(_path_str(path), _shape(leaf), mesh,
+                                      cfg), params)
+
+
+def plan_report(params, mesh) -> list[str]:
+    lines: list[str] = []
+
+    def f(path, leaf):
+        spec = _leaf_spec(_path_str(path), _shape(leaf), mesh, None)
+        lines.append(f"{_path_str(path):60s} {str(_shape(leaf)):24s} -> "
+                     f"{spec}")
+
+    tree_map_with_path(f, params)
+    return lines
+
+
+# --------------------------------------------------------------------------
+# Activations / batch / cache
+# --------------------------------------------------------------------------
+
+
+def batch_spec(mesh, batch: int) -> P:
+    """tokens/labels [B, S]."""
+    daxes = data_axes(mesh)
+    if daxes and _divides(batch, _data_n(mesh, daxes)):
+        return P(daxes if len(daxes) > 1 else daxes[0], None)
+    return P(None, None)
+
+
+def cache_spec(mesh, cfg: ModelConfig, batch: int, shape: tuple[int, ...],
+               name: str) -> P:
+    """Decode-state placement: KV [L, B, S, Hkv, hd] with batch on data
+    when it divides, heads on 'model' when they divide, else sequence on
+    'model' (the split-K analogue); recurrent state on a channel dim."""
+    daxes = data_axes(mesh)
+    data_n = _data_n(mesh, daxes)
+    model_n = mesh.shape.get("model", 1)
+    d_ax = daxes if len(daxes) > 1 else (daxes[0] if daxes else None)
+
+    if name in ("k", "v"):
+        L, B, S, H, hd = shape
+        spec: list[Any] = [None] * 5
+        b_ok = _divides(B, data_n)
+        if b_ok:
+            spec[1] = d_ax
+        if _divides(H, model_n):
+            spec[3] = "model"
+        elif _divides(S, model_n):
+            if not b_ok and _divides(S, model_n * data_n) and d_ax:
+                spec[2] = (tuple(daxes) + ("model",))
+            else:
+                spec[2] = "model"
+        return P(*spec)
+    if name in ("rwkv_s", "mamba_h", "mamba_conv", "rwkv_x_tm", "rwkv_x_cm"):
+        spec = [None] * len(shape)
+        if _divides(shape[1], data_n) and d_ax:
+            spec[1] = d_ax
+        for d in range(2, len(shape)):
+            if _divides(shape[d], model_n):
+                spec[d] = "model"
+                break
+        return P(*spec)
+    return P()
+
+
+def plan_cache(cache, mesh, cfg: ModelConfig, batch: int):
+    return tree_map_with_path(
+        lambda path, leaf: cache_spec(mesh, cfg, batch, _shape(leaf),
+                                      _path_str(path)), cache)
+
+
+def serve_cache_spec(mesh, cfg: ModelConfig, shape: tuple[int, ...],
+                     name: str) -> P:
+    """Slot-managed decode-state placement: the slot axis is never
+    sharded (it is the defrag axis) and ``pos`` is replicated; K/V and
+    their scales shard heads on 'model' when they divide (else nothing),
+    recurrent state its first divisible channel dim."""
+    model_n = mesh.shape.get("model", 1)
+    spec: list[Any] = [None] * len(shape)
+    if model_n <= 1:
+        return P(*spec)
+    if name in ("k", "v", "k_scale", "v_scale"):
+        if _divides(shape[3], model_n):
+            spec[3] = "model"
+        return P(*spec)
+    if len(shape) >= 3 and name != "pos":
+        for d in range(2, len(shape)):
+            if _divides(shape[d], model_n):
+                spec[d] = "model"
+                break
+        return P(*spec)
+    return P(*spec)  # pos (and any vector state): replicated
+
+
+def plan_serve_cache(cache, mesh, cfg: ModelConfig):
+    return tree_map_with_path(
+        lambda path, leaf: serve_cache_spec(mesh, cfg, _shape(leaf),
+                                            _path_str(path)), cache)
+
+
+def segment_spec(mesh, cfg: ModelConfig, shape: tuple[int, ...], name: str,
+                 *, kind: str = "kv") -> P:
+    """Prefix-cache segment placement: the slot-cache policy minus the
+    batch axis (heads, or state channels, on 'model'; span never)."""
+    model_n = mesh.shape.get("model", 1)
+    spec: list[Any] = [None] * len(shape)
+    if model_n <= 1:
+        return P(*spec)
+    if kind == "kv":
+        if len(shape) >= 3 and _divides(shape[2], model_n):
+            spec[2] = "model"
+        return P(*spec)
+    for d in range(1, len(shape)):
+        if _divides(shape[d], model_n):
+            spec[d] = "model"
+            break
+    return P(*spec)
+
+
+def plan_segment(segment, mesh, cfg: ModelConfig, *, kind: str = "kv"):
+    return tree_map_with_path(
+        lambda path, leaf: segment_spec(mesh, cfg, _shape(leaf),
+                                        _path_str(path), kind=kind),
+        segment)
+
+
+# --------------------------------------------------------------------------
+# What GSPMD did implicitly: this rank's blocks
+# --------------------------------------------------------------------------
+
+
+def _block(t: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
+    """Block ``i`` of ``n`` of ``t`` along ``dim``: a contiguous copy that
+    owns its memory (a view, even one already contiguous, would keep the
+    whole tensor alive)."""
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _axis_index(mesh, axes) -> tuple[int, int]:
+    """(count, this rank's index) over one or several mesh axes (the
+    first named axis is the major one)."""
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    n, i = 1, 0
+    for a in axes:
+        n, i = n * mesh.size(a), i * mesh.size(a) + mesh.index(a)
+    return n, i
+
+
+def shard_tensor(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` (every named axis; a dim
+    over several axes splits by their product, the first axis major)."""
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        n, i = _axis_index(mesh, axes)
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not "
+                             f"split over {axes} ({n})")
+        if n > 1:
+            t = _block(t, dim, n, i)
+    return t
+
+
+# the leaves a serving layer runs sharded, each on its row placement (the
+# planner's first choice): heads, the FFN's columns (the down projection
+# its rows), whole experts, the vocab
+SERVE_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                "embed", "lm_head")
+ATTN_LEAVES = ("wq", "wk", "wv", "wo")
+# the decode prepack's fused leaves, rebuilt from their members' blocks
+FUSED_LEAVES = ("wqkv", "w_gateup", "head_t")
+
+
+def attention_shardable(cfg: ModelConfig, n: int) -> bool:
+    """A rank can run ``H / n`` query heads: the heads divide, and either
+    the kv heads do too or a rank's query heads share one kv head (which
+    every rank computes: the serving cache replicates KV)."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    return (n > 1 and H > 0 and H % n == 0
+            and (Hkv % n == 0 or (H // Hkv) % (H // n) == 0))
+
+
+def serve_spec(path: str, shape: tuple[int, ...], mesh,
+               cfg: ModelConfig) -> P:
+    """The spec a serving rank cuts the leaf at ``path`` by:
+    :func:`_leaf_spec`'s 'model' entry where it is the leaf's row
+    placement (its first choice, which the layers run sharded), else the
+    leaf whole.  So it differs from ``_leaf_spec`` only where named:
+    'data' is dropped (parameters are replicated over it); the tiny-leaf
+    rule does not apply (the serving cache shards kv heads at every
+    width, and the attention that writes it must hold the same heads); a
+    leaf the planner would cut on a fallback dim (``hd``, ``d``, an
+    expert's ``f``) or that the layer reads whole (norm scales, the
+    router) stays whole; attention stays whole unless
+    :func:`attention_shardable`."""
+    n = mesh.shape.get("model", 1)
+    name = path.split("/")[-1]
+    spec: list[Any] = [None] * len(shape)
+    if n <= 1 or name not in SERVE_LEAVES or (
+            name in ATTN_LEAVES and not attention_shardable(cfg, n)):
+        return P(*spec)
+    dim = _model_prefs(name, shape)[0]
+    if _divides(shape[dim], n):
+        spec[dim] = "model"
+    return P(*spec)
+
+
+def serve_cache_heads(cfg: ModelConfig, mesh) -> int:
+    """A rank's kv heads in the serving cache: the head dim of K/V's
+    block under :func:`serve_cache_spec`."""
+    shape = (cfg.n_layers, 1, 1, cfg.n_kv_heads, cfg.hd)
+    spec = serve_cache_spec(mesh, cfg, shape, "k")
+    return cfg.n_kv_heads // (mesh.shape.get("model", 1)
+                              if spec[3] == "model" else 1)
+
+
+MESH_FAMILIES = ("dense", "moe")
+
+
+def check_mesh_family(cfg: ModelConfig) -> None:
+    """Sharded serving runs the dense and MoE decoders; raise for the
+    others (recurrent state, encoders and cross-attention are not sharded
+    yet)."""
+    if cfg.family not in MESH_FAMILIES or cfg.parallel_ssm \
+            or cfg.encoder is not None or cfg.cross_attn_every:
+        raise NotImplementedError(
+            f"sharded serving of family {cfg.family!r} ({cfg.name}) is not "
+            f"ported yet (the mesh runs {', '.join(MESH_FAMILIES)})")
+
+
+def _repack(tree: dict, cfg: ModelConfig) -> dict:
+    """Rebuild the fused prepack leaves a tree holds from their members'
+    blocks: ``wqkv`` as ``[q_r | k_r | v_r]``, ``w_gateup`` as ``[gate_r
+    | up_r]`` (a rank's own heads and FFN columns, where the spec's
+    contiguous block of the fused dim would hold others'), ``head_t`` as
+    the rank's vocab columns."""
+    out = {k: (_repack(v, cfg) if isinstance(v, dict)
+               else [_repack(x, cfg) for x in v] if isinstance(v, list)
+               else v) for k, v in tree.items()}
+    if "wqkv" in out:
+        d = out["wq"].shape[0]
+        out["wqkv"] = torch.cat([out[k].reshape(d, -1)
+                                 for k in ("wq", "wk", "wv")], dim=-1)
+    if "w_gateup" in out:
+        out["w_gateup"] = torch.cat([out["w_gate"], out["w_up"]], dim=-1)
+    if "head_t" in out:
+        head = out["embed"].t() if cfg.tie_embeddings else out["lm_head"]
+        out["head_t"] = head.contiguous()
+    return out
+
+
+def _cut(tree, mesh, cfg: ModelConfig, path: tuple = ()):
+    """Every tensor of ``tree`` cut to this rank's block by
+    :func:`serve_spec`, the fused leaves rebuilt from their members'."""
+    def leaf(p, t):
+        if p[-1] in FUSED_LEAVES or not isinstance(t, torch.Tensor):
+            return t
+        return shard_tensor(t, serve_spec(_path_str(p), _shape(t), mesh,
+                                          cfg), mesh)
+
+    return _repack(tree_map_with_path(leaf, tree, path), cfg)
+
+
+SHARD_KEY = "mesh_shard"   # marks a tree already cut: (model rank, n)
+
+
+def shard_params(params: dict, mesh, cfg: ModelConfig) -> dict:
+    """This rank's serving tree (prepacked or not): every leaf
+    ``shard_tensor`` of its :func:`serve_spec`, the fused prepack leaves
+    rebuilt from their members' blocks; a leaf kept whole is shared with
+    ``params``.  Idempotent: a tree this call returned (it carries
+    ``SHARD_KEY``) comes back as it is."""
+    n, r = mesh.size("model"), mesh.index("model")
+    if params.get(SHARD_KEY) == (r, n) or n <= 1:
+        return params
+    check_mesh_family(cfg)
+    out = _cut({k: v for k, v in params.items() if k != SHARD_KEY}, mesh,
+               cfg)
+    out[SHARD_KEY] = (r, n)
+    return out
+
+
+def shard_layer(p: dict, mesh, cfg: ModelConfig) -> dict:
+    """One layer's leaves cut to this rank's blocks (``lm.init_lm(mesh=)``
+    cuts each layer as it is drawn)."""
+    return p if mesh.size("model") <= 1 else _cut(p, mesh, cfg, ("layers",))

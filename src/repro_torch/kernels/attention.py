@@ -29,7 +29,8 @@ V bytes over HBM bandwidth (3.35 TB/s).  See the source for the design.
 the device alone: the kernel takes Sq = 1, causal attention on a CUDA
 device, bf16 or f32 q / k / v of one type in the layout above (or int8
 codes of D or D / 2 lanes with f32 scales ``[B, C, Hkv]``), G = H / Hkv in
-{1, 2, 4, 5, 8} (5: hymba's 25 heads over 5), D a whole number of
+{1, 2, 4, 5, 6, 8} (5: hymba's 25 heads over 5; 6: grok-1-314b's 48
+over 8, 24 over 4 a rank of two), D a whole number of
 16-byte vectors on at most 32 lanes, aligned rows, and a cache whose
 scores fit shared memory.
 
@@ -49,7 +50,7 @@ from repro_torch.kernels.kv_quant import dequantize_page
 from repro_torch.kernels.pim_gemv import DTYPES
 
 BIG_NEG = -2.0e9             # the reference's masked score (not -inf)
-GROUPS = (1, 2, 4, 5, 8)     # query heads per kv head the kernel is built for
+GROUPS = (1, 2, 4, 5, 6, 8)  # query heads per kv head the kernel is built for
 SPLITS = (1, 2, 4, 8)        # CTAs a (slot, kv head) splits over: a cluster
 MAX_SPLITS = SPLITS[-1]      # csrc/decode_attention.cu kMaxSplits
 MIN_SPLIT_POSITIONS = 64     # fewest positions worth a split of their own

@@ -13,6 +13,7 @@ from repro_torch.kernels.backends.base import (
     GemvRequest,
     ProgramKey,
     ProgramPlan,
+    ShardedPlan,
     get_backend,
     register_backend,
     resolve_backend,
@@ -21,7 +22,7 @@ from repro_torch.kernels.backends.base import (
 __all__ = [
     "DEFAULT_POLICY", "AutotuneTable", "CostModel", "DispatchPolicy",
     "GemvBackend", "GemvKey", "GemvProgram", "GemvRequest", "ProgramKey",
-    "ProgramPlan",
+    "ProgramPlan", "ShardedPlan",
     "get_backend", "register_backend",
     "resolve_backend",
 ]

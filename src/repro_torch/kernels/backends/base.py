@@ -30,6 +30,7 @@ fitted constants on a plan-cache miss.  Sharding is not ported yet.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -163,9 +164,57 @@ class DispatchPolicy:
     min_pallas_bytes: int = 1 << 20  # tiny weights: launch cost dominates
     fuse_programs: bool = True       # plan shared-input GEMVs jointly
     expert_shape: str = "ragged"     # ragged | grouped | einsum
+    # Size of the mesh 'model' axis the model runs over (Engine(mesh=)).
+    # Above 1, each dispatch the model's layers make under the mesh names
+    # the axis its weight was placed on, and the decision is counted in
+    # ``sharded_axes`` / ``shard_picks``; the kernel is selected at the
+    # shape the rank runs (its block of the weight).
+    model_shards: int = 1
+    # Deferred decode collectives: each layer's K-sharded FFN all-reduce
+    # is issued without waiting and awaited at the next layer's entry
+    # (models/lm.py); the same sums, so the same tokens, either way.
+    overlap_collectives: bool = False
 
 
 DEFAULT_POLICY = DispatchPolicy()
+
+
+@dataclass(frozen=True)
+class ShardedPlan:
+    """Per-shard view of one GEMV under the mesh 'model' axis (the
+    reference's): :meth:`place` is Algorithm 1's even-distribution test,
+    row placement (M) first, split-K (K) as the fallback, replication
+    when neither divides; :meth:`place_experts` shards whole experts
+    first."""
+
+    axis: str        # "M" | "K" | "E" (expert groups) | "replicated"
+    n_shards: int
+
+    @classmethod
+    def place(cls, M: int, K: int, n_shards: int) -> "ShardedPlan":
+        if n_shards <= 1:
+            return cls(axis="replicated", n_shards=1)
+        if M % n_shards == 0:
+            return cls(axis="M", n_shards=n_shards)
+        if K % n_shards == 0:
+            return cls(axis="K", n_shards=n_shards)
+        return cls(axis="replicated", n_shards=n_shards)
+
+    @classmethod
+    def place_experts(cls, E: int, M: int, K: int,
+                      n_shards: int) -> "ShardedPlan":
+        if n_shards > 1 and E % n_shards == 0:
+            return cls(axis="E", n_shards=n_shards)
+        return cls.place(M, K, n_shards)
+
+    def shard_shape(self, M: int, K: int) -> tuple[int, int]:
+        """The (M, K) each chip sees ("E" shards the expert count, not the
+        per-expert matrix)."""
+        if self.axis == "M":
+            return M // self.n_shards, K
+        if self.axis == "K":
+            return M, K // self.n_shards
+        return M, K
 
 
 @dataclass(frozen=True)
@@ -558,6 +607,26 @@ class AutotuneTable:
         with self._lock:
             return {ns: {k: dict(e) for k, e in t.items()}
                     for ns, t in self._programs.items()}
+
+    def document(self) -> dict:
+        """The whole table as the format-3 document :meth:`save` writes
+        (copies): what :meth:`adopt` takes."""
+        with self._lock:
+            doc = copy.deepcopy(self._extras)
+            doc.update({"format": _TABLE_FORMAT,
+                        "tables": copy.deepcopy(self._tables),
+                        "programs": copy.deepcopy(self._programs),
+                        "calibration": copy.deepcopy(self._calibration)})
+            return doc
+
+    def adopt(self, doc: dict) -> None:
+        """Replace every entry with those of ``doc`` (a :meth:`document`)."""
+        tables, programs, calibration, extras = self._parse(doc)
+        with self._lock:
+            self._tables = tables
+            self._programs = programs
+            self._calibration = calibration
+            self._extras = extras
 
     def clear(self) -> None:
         with self._lock:

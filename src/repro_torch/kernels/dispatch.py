@@ -32,6 +32,23 @@ Decisions are counted once per plan-cache miss, as in the JAX package:
 (``program_kernels``) the kernel inside each fused program plan, and
 (``cost_model_source``) whether the seed or the calibrated constants
 priced it.
+Under a mesh (``Engine(mesh=)``, ``DispatchPolicy.model_shards > 1``)
+each rank dispatches its own block of a weight, and the layer names the
+axis the planner placed the weight on (``shard=``: "M", "K", "E" or
+"replicated").  The decision is then counted in ``sharded_axes`` and, with
+the reference's ``kernel@MsxKs/N`` format, ``shard_picks``.  One
+deliberate difference: the reference selects at the per-shard shape its
+``ShardedPlan.place`` predicts and re-plans at the full shape, since GSPMD
+partitions the op; the port selects, tunes and plans at the shape its rank
+runs, so where the planner placed a weight on another axis than
+``place`` would (olmo-1b's down projection: the planner's split-K, where
+``place`` prefers M) ``sharded_axes`` records the planner's.
+:func:`_shard_gemv_key` and :func:`_shard_program_key` are the
+reference's keys (what its selection would have run at), held against it
+in the tests; the port selects at its rank's shape.  The dispatcher
+issues no collective: on a mesh every rank selects from one table, rank
+0's, which ``Engine(mesh=)`` shares once (``distributed.tuning``).
+
 Kernel *launches* are counted by the kernel wrappers themselves
 (``pim_gemv.launches``, ``splitk_gemv.launches``, ``quant_gemv.launches``,
 ``quant4_gemv.launches``, ``grouped_gemv.launches``,
@@ -78,6 +95,7 @@ from repro_torch.kernels.backends import (
     GemvRequest,
     ProgramKey,
     ProgramPlan,
+    ShardedPlan,
     resolve_backend,
 )
 from repro_torch.kernels.backends.base import (
@@ -127,6 +145,10 @@ def _fresh_counters() -> dict:
         "program_kernels": {},  # "backend:kernel" -> fused program plans
         "gemv_path": 0,         # decisions with batch <= batch_threshold
         "matmul_fallback": 0,   # decisions the batch gate sent to ref
+        # under a mesh: the axis each decision's weight was placed on, and
+        # the kernel its rank's block selected, keyed by that block's shape
+        "sharded_axes": {},     # "M" | "K" | "E" | "replicated" -> count
+        "shard_picks": {},      # "backend:kernel@MsxKs/n" -> decisions
         # per-expert load of every MoE dispatch (record_expert_load), all
         # monotonic so serving metrics can delta them: max_tokens sums the
         # planned per-expert bound, padded_slots the capacity slots the
@@ -178,6 +200,24 @@ def save_autotune_table(path: str) -> None:
     """Merge this process's per-backend namespaces into the table at
     ``path`` (read, merge, atomic rename)."""
     _AUTOTUNE_TABLE.save(path)
+
+
+def autotune_table_document() -> dict:
+    """The process-level table (measured picks, replayed entries, fitted
+    constants) as one format-3 document."""
+    return _AUTOTUNE_TABLE.document()
+
+
+def adopt_autotune_table(doc: dict) -> None:
+    """Replace the process-level table with ``doc`` (an
+    :func:`autotune_table_document`) and re-resolve: the backends go back
+    to their seed constants until the new calibration applies, and the
+    plan caches are emptied (the counters are kept)."""
+    clear_autotune_table()
+    _AUTOTUNE_TABLE.adopt(doc)
+    with _LOCK:
+        _PLAN_CACHE.clear()
+        _PROGRAM_CACHE.clear()
 
 
 def clear_autotune_table() -> None:
@@ -242,8 +282,8 @@ def record_overlap(kind: str, *, issued: int = 0, awaited: int = 0,
     every ``dispatch_stats()`` snapshot satisfies ``inflight == issued -
     awaited``.  ``kind="deferred"``: a sharded decode deferred that many
     collectives by one layer.  ``Engine(async_prefill=True)`` records the
-    first; no engine path records the second (sharded serving is not
-    ported)."""
+    first; a sharded decode step with ``overlap_collectives`` the second
+    (``models/lm.py``, once a step)."""
     with _LOCK:
         ov = _DISPATCH_COUNTERS["overlap"]
         if kind == "async_prefill":
@@ -261,13 +301,19 @@ def record_overlap(kind: str, *, issued: int = 0, awaited: int = 0,
 def _count_decision(backend_name: str, batch: int, policy: DispatchPolicy,
                     *, kernel: str | None = None, mode: str | None = None,
                     program_kernel: str | None = None,
+                    shard_axis: str | None = None,
+                    shard_pick: str | None = None,
                     source: str = "seed") -> None:
     with _LOCK:
         sources = _DISPATCH_COUNTERS["cost_model_source"]
         sources[source] = sources.get(source, 0) + 1
+        if shard_axis is not None:
+            axes = _DISPATCH_COUNTERS["sharded_axes"]
+            axes[shard_axis] = axes.get(shard_axis, 0) + 1
         for section, name in (("kernel_picks", kernel),
                               ("program_modes", mode),
-                              ("program_kernels", program_kernel)):
+                              ("program_kernels", program_kernel),
+                              ("shard_picks", shard_pick)):
             if name is not None:
                 counts = _DISPATCH_COUNTERS[section]
                 k = f"{backend_name}:{name}"
@@ -363,15 +409,111 @@ def _trace_program_decision(tr, backend, key: ProgramKey,
         trials_us=trials, batch=key.batch, **attrs)
 
 
+# --------------------------------------------------------------------------
+# The reference's per-shard selection keys (its ShardedPlan path)
+# --------------------------------------------------------------------------
+
+
+def _priced_placement(backend, key: GemvKey,
+                      policy: DispatchPolicy) -> ShardedPlan:
+    """Row (M) vs split-K (K) placement priced by communication: each
+    candidate is the per-shard GEMV the chip would solve, plus for K the
+    modeled all-reduce of the partial output (``collective_us``).  Only
+    reached when both axes divide and the cost model has a fitted
+    ``collective_gbps``."""
+    n = policy.model_shards
+    x_bytes = dtype_bytes(key.dtype)
+
+    def cost(axis: str) -> float:
+        Ms, Ks = ShardedPlan(axis=axis, n_shards=n).shard_shape(key.M,
+                                                                key.K)
+        kernel, plan = backend.select_kernel(
+            Ms, Ks, key.batch, bits=key.bits, block=key.block,
+            x_bytes=x_bytes, policy=policy)
+        t = backend.estimate_cost_us(kernel, Ms, Ks, key.batch,
+                                     bits=key.bits, x_bytes=x_bytes,
+                                     plan=plan)
+        if axis == "K":
+            t += backend.cost_model.collective_us(
+                key.batch * key.M * x_bytes, n)
+        return t
+
+    return ShardedPlan(axis="M" if cost("M") <= cost("K") else "K",
+                       n_shards=n)
+
+
+def _shard_gemv_key(key: GemvKey, policy: DispatchPolicy,
+                    backend=None) -> tuple[GemvKey, ShardedPlan]:
+    """The reference's per-shard selection key of a full-shape GEMV:
+    Algorithm 1's even test on (M, K) (priced when both divide and the
+    collective term is fitted), the key shrunk to the shard's shape."""
+    n = policy.model_shards
+    if (backend is not None and n > 1
+            and backend.cost_model.collective_gbps > 0
+            and key.M % n == 0 and key.K % n == 0):
+        sp = _priced_placement(backend, key, policy)
+    else:
+        sp = ShardedPlan.place(key.M, key.K, n)
+    Ms, Ks = sp.shard_shape(key.M, key.K)
+    if (Ms, Ks) == (key.M, key.K):
+        return key, sp
+    return dataclasses.replace(key, M=Ms, K=Ks), sp
+
+
+def _shard_program_key(key: ProgramKey, policy: DispatchPolicy,
+                       backend=None) -> tuple[ProgramKey, str]:
+    """The reference's per-shard program key: whole experts for
+    grouped / ragged programs (a ragged one also takes the even share of
+    the routed rows), row placement when every member's M divides, split-K
+    as the fallback (priced as :func:`_shard_gemv_key` does)."""
+    n = policy.model_shards
+    if n <= 1:
+        return key, "replicated"
+    if key.kind in ("grouped", "ragged"):
+        splan = ShardedPlan.place_experts(key.group, key.Ms[0], key.K, n)
+        if splan.axis == "E":
+            if key.kind == "ragged":
+                return dataclasses.replace(
+                    key, group=key.group // n,
+                    tokens=max(key.tokens // n, 1)), "E"
+            return dataclasses.replace(key, group=key.group // n), "E"
+    m_ok = all(m % n == 0 for m in key.Ms)
+    k_ok = key.K % n == 0
+    if (m_ok and k_ok and backend is not None
+            and backend.cost_model.collective_gbps > 0):
+        gkey = GemvKey(M=key.total_M, K=key.K, batch=key.batch,
+                       bits=key.bits, block=key.block, dtype=key.dtype,
+                       backend=key.backend)
+        if _priced_placement(backend, gkey, policy).axis == "K":
+            return dataclasses.replace(key, K=key.K // n), "K"
+    if m_ok:
+        return dataclasses.replace(
+            key, Ms=tuple(m // n for m in key.Ms)), "M"
+    if k_ok:
+        return dataclasses.replace(key, K=key.K // n), "K"
+    return key, "replicated"
+
+
+def _shard_of(policy: DispatchPolicy, shard: str | None) -> str | None:
+    """The placement a decision is counted under: the layer's axis when
+    the policy runs on a mesh, else none."""
+    return shard if policy.model_shards > 1 else None
+
+
 def _resolve(backend, key: GemvKey, policy: DispatchPolicy,
-             device: torch.device) -> tuple[str, GemvPlan | None]:
+             device: torch.device,
+             shard: str | None = None) -> tuple[str, GemvPlan | None]:
     """Memoized (kernel, plan) for one shape under one policy: cache ->
     autotune -> table -> cost model.  Table entries stand in for the cost
     model only, so only under an unpinned auto policy: pins and
     ``use_pallas=False`` outrank them.  The autotuner times its candidates
-    on synthetic inputs on ``device``."""
+    on synthetic inputs on ``device``.
+    ``shard`` (under a mesh) is the axis the weight was placed on: it
+    keys the cache beside the shape and is counted."""
+    shard = _shard_of(policy, shard)
+    ck = (key, policy, shard)
     with _LOCK:
-        cached = _PLAN_CACHE.get((key, policy))
+        cached = _PLAN_CACHE.get(ck)
         if cached is not None:
             _CACHE_STATS["hits"] += 1
             return cached
@@ -392,9 +534,12 @@ def _resolve(backend, key: GemvKey, policy: DispatchPolicy,
             key.M, key.K, key.batch, bits=key.bits, block=key.block,
             x_bytes=dtype_bytes(key.dtype), policy=policy)
     with _LOCK:
-        _PLAN_CACHE[(key, policy)] = decision
+        _PLAN_CACHE[ck] = decision
+    pick = (f"{decision[0]}@{key.M}x{key.K}/{policy.model_shards}"
+            if shard not in (None, "replicated")
+            and policy.kernel == "auto" else None)
     _count_decision(backend.name, key.batch, policy, kernel=decision[0],
-                    source=source)
+                    shard_axis=shard, shard_pick=pick, source=source)
     tracer = _current_tracer()
     if tracer is not None:
         _trace_gemv_decision(tracer, backend, key, policy, *decision,
@@ -403,13 +548,17 @@ def _resolve(backend, key: GemvKey, policy: DispatchPolicy,
 
 
 def _resolve_program(backend, key: ProgramKey, policy: DispatchPolicy,
-                     device: torch.device) -> ProgramPlan:
+                     device: torch.device,
+                     shard: str | None = None) -> ProgramPlan:
     """Memoized ProgramPlan for one program shape under one policy: cache
     -> autotune -> table (the ``programs`` section) -> planner, as
-    :func:`_resolve`.  ``fuse_programs=False`` outranks table and autotune
-    too: it always means the per-request decomposition."""
+    :func:`_resolve` (``shard`` too).  ``fuse_programs=False`` outranks
+    table and autotune too: it always means the per-request
+    decomposition."""
+    shard = _shard_of(policy, shard)
+    ck = (key, policy, shard)
     with _LOCK:
-        cached = _PROGRAM_CACHE.get((key, policy))
+        cached = _PROGRAM_CACHE.get(ck)
         if cached is not None:
             _CACHE_STATS["program_hits"] += 1
             return cached
@@ -428,10 +577,14 @@ def _resolve_program(backend, key: ProgramKey, policy: DispatchPolicy,
     else:
         pplan = backend.plan_program(key, policy=policy)
     with _LOCK:
-        _PROGRAM_CACHE[(key, policy)] = pplan
+        _PROGRAM_CACHE[ck] = pplan
+    pick = (f"{pplan.mode}@{key.table_key()}/{policy.model_shards}"
+            if shard not in (None, "replicated")
+            and policy.kernel == "auto" else None)
     _count_decision(backend.name, key.batch, policy, mode=pplan.mode,
                     program_kernel=(pplan.kernel if pplan.mode == "fused"
-                                    else None), source=source)
+                                    else None), shard_axis=shard,
+                    shard_pick=pick, source=source)
     tracer = _current_tracer()
     if tracer is not None:
         _trace_program_decision(tracer, backend, key, policy, pplan, source,
@@ -440,7 +593,8 @@ def _resolve_program(backend, key: ProgramKey, policy: DispatchPolicy,
 
 
 def _dispatch_request(req: GemvRequest, policy: DispatchPolicy,
-                      plan: GemvPlan | None = None) -> torch.Tensor:
+                      plan: GemvPlan | None = None,
+                      shard: str | None = None) -> torch.Tensor:
     """Execute ONE request: the shared path under every entry point.  A
     caller's ``plan`` is coerced by the backend instead of resolved (no
     cache, no counters: it is the caller's decision)."""
@@ -456,7 +610,7 @@ def _dispatch_request(req: GemvRequest, policy: DispatchPolicy,
     else:
         key = GemvKey(M=M, K=K, batch=B, bits=pw.bits, block=pw.block,
                       dtype=str(req.x.dtype), backend=backend.name)
-        kernel, plan = _resolve(backend, key, policy, req.x.device)
+        kernel, plan = _resolve(backend, key, policy, req.x.device, shard)
     return backend.execute(kernel, req.x.contiguous(), pw, plan)
 
 
@@ -496,26 +650,29 @@ def dispatch_gemv(x: torch.Tensor, weights, *,
     :class:`PackedWeights` (float or quantized), an int8 ``(w_q, scales)``
     tuple, or a dense ``[M, K]`` tensor (transposed on every call: prepack
     once instead on a hot path).  A ``plan`` bypasses selection: the
-    backend coerces it to one of its own kernels.
+    backend coerces it to one of its own kernels.  The other entry points'
+    ``shard`` is the axis a mesh placed the layer's weight on.
     """
     return _dispatch_request(GemvRequest(x=x, weights=as_packed(weights)),
                              policy or DEFAULT_POLICY, plan)
 
 
 def dispatch_dense(x: torch.Tensor, w_t: torch.Tensor, *,
-                   policy: DispatchPolicy | None = None) -> torch.Tensor:
+                   policy: DispatchPolicy | None = None,
+                   shard: str | None = None) -> torch.Tensor:
     """Dense-layer adapter: x [B, S, d_in] @ w_t [d_in, d_out] -> [B, S,
     d_out].  Model layers store projections K-major already, so this wraps
     without a transpose and flattens (B, S) into the GEMV batch."""
     B, S, d = x.shape
     out = _dispatch_request(
         GemvRequest(x=x.reshape(B * S, d), weights=from_transposed(w_t)),
-        policy or DEFAULT_POLICY)
+        policy or DEFAULT_POLICY, shard=shard)
     return out.reshape(B, S, out.shape[-1])
 
 
 def dispatch_program(program: GemvProgram, *,
-                     policy: DispatchPolicy | None = None) -> torch.Tensor:
+                     policy: DispatchPolicy | None = None,
+                     shard: str | None = None) -> torch.Tensor:
     """Execute a :class:`GemvProgram`: returns ``[B, sum(Ms)]`` (fused),
     ``[E, C, M]`` (grouped) or ``[T, M]`` (ragged).
 
@@ -526,9 +683,9 @@ def dispatch_program(program: GemvProgram, *,
     policy = policy or DEFAULT_POLICY
     backend = resolve_backend(policy, program.x.device)
     pplan = _resolve_program(backend, program.key(backend.name), policy,
-                             program.x.device)
+                             program.x.device, shard)
     if pplan.mode == "per_request":
-        outs = [_dispatch_request(req, policy)
+        outs = [_dispatch_request(req, policy, shard=shard)
                 for req in program.decompose()]
         if program.kind == "grouped":
             return torch.stack(outs)
@@ -538,8 +695,8 @@ def dispatch_program(program: GemvProgram, *,
 
 
 def dispatch_fused(x: torch.Tensor, weights, *,
-                   policy: DispatchPolicy | None = None
-                   ) -> list[torch.Tensor]:
+                   policy: DispatchPolicy | None = None,
+                   shard: str | None = None) -> list[torch.Tensor]:
     """Shared-input projections as one program: ``x`` [B, K], ``weights``
     K-major ``[K, M_i]`` tensors or :class:`PackedWeights`.  The members
     are concatenated here, on every call; hot paths prepack instead
@@ -547,12 +704,13 @@ def dispatch_fused(x: torch.Tensor, weights, *,
     program = GemvProgram.fused(
         x, [w if isinstance(w, PackedWeights) else from_transposed(w)
             for w in weights])
-    return program.split(dispatch_program(program, policy=policy))
+    return program.split(dispatch_program(program, policy=policy,
+                                          shard=shard))
 
 
 def dispatch_prepacked(x: torch.Tensor, fused, m_splits, *,
-                       policy: DispatchPolicy | None = None
-                       ) -> list[torch.Tensor]:
+                       policy: DispatchPolicy | None = None,
+                       shard: str | None = None) -> list[torch.Tensor]:
     """Fused program over a PREPACKED ``[K, sum(Ms)]`` weight (the decode
     hot path: the concat was paid once at deployment).  ``fused`` is a
     K-major tensor or a :class:`PackedWeights` (quantized ones included:
@@ -572,22 +730,26 @@ def dispatch_prepacked(x: torch.Tensor, fused, m_splits, *,
         off += m
     program = GemvProgram(kind="fused", x=x, weights=pw, m_splits=splits,
                           requests=tuple(reqs))
-    return program.split(dispatch_program(program, policy=policy))
+    return program.split(dispatch_program(program, policy=policy,
+                                          shard=shard))
 
 
 def dispatch_grouped(xs: torch.Tensor, weights, *,
-                     policy: DispatchPolicy | None = None) -> torch.Tensor:
+                     policy: DispatchPolicy | None = None,
+                     shard: str | None = None) -> torch.Tensor:
     """Expert group: out[E, C, M] = xs[E, C, K] @ W[E, K, M].  ``weights``
     is a stacked :class:`PackedWeights` or a raw K-major ``[E, K, M]``
     tensor (the layout MoE layers store)."""
     if not isinstance(weights, PackedWeights):
         weights = from_transposed(weights)
-    return dispatch_program(GemvProgram.grouped(xs, weights), policy=policy)
+    return dispatch_program(GemvProgram.grouped(xs, weights), policy=policy,
+                            shard=shard)
 
 
 def dispatch_ragged(x: torch.Tensor, counts: torch.Tensor, weights, *,
                     bound: int = 0,
-                    policy: DispatchPolicy | None = None) -> torch.Tensor:
+                    policy: DispatchPolicy | None = None,
+                    shard: str | None = None) -> torch.Tensor:
     """Capacity-free expert group: out[T, M] for ``x [T, K]`` sorted by
     expert with per-expert row ``counts [E]`` (device data, never read on
     the host; rows past their sum come back zero).  ``bound`` is the
@@ -595,4 +757,4 @@ def dispatch_ragged(x: torch.Tensor, counts: torch.Tensor, weights, *,
     if not isinstance(weights, PackedWeights):
         weights = from_transposed(weights)
     program = GemvProgram.ragged(x, counts, weights, bound=bound)
-    return dispatch_program(program, policy=policy)
+    return dispatch_program(program, policy=policy, shard=shard)

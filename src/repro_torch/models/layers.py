@@ -7,6 +7,19 @@ activations are ``[batch, seq, d_model]``; projections are stored K-major
 (``wq [d, H, hd]``, ``w_up [d, f]``, expert stacks ``w_up [E, d, f]``);
 norm and softmax statistics run in f32 whatever the compute dtype.
 Parameters are plain dicts of tensors.
+
+Under a mesh (``repro_torch.distributed.axes.activation_mesh``, which
+``Engine(mesh=)`` installs) a layer finds its tensors already cut to this
+rank's block (``distributed.sharding.shard_params``) and tells what it
+holds from their shapes: ``wq`` with fewer heads than the config's is a
+rank's heads (its ``wqkv`` block ``[q_r | k_r | v_r]``, ``wo``'s row
+block: the attention output is a partial sum, all-reduced over the
+'model' group); an FFN narrower than its full width is a rank's columns
+(the down projection's partial is all-reduced); an expert stack with
+fewer experts than the config's is a rank's whole experts (each rank
+runs its experts' rows, the combine is all-reduced).  Where the
+reference's GSPMD pinned a replicated layout, the layers issue the
+collective.
 """
 
 from __future__ import annotations
@@ -17,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.axes import current_mesh
+from repro_torch.distributed.collectives import all_reduce_sum
 from repro_torch.kernels.attention import (
     decode_attention,
     decode_attention_plain,
@@ -27,6 +42,22 @@ from repro_torch.kernels.kv_quant import dequantize_page, quantize_page
 
 
 GATED = ("silu", "geglu")   # activations with a gate projection
+
+
+def model_group():
+    """The 'model' axis group of the active mesh, which a layer holding a
+    rank's block needs for its collective (raises without one)."""
+    mesh = current_mesh()
+    if mesh is None:
+        raise RuntimeError("a rank's block of a sharded model runs under "
+                           "its mesh (distributed.axes.activation_mesh)")
+    return mesh.group("model")
+
+
+def model_index() -> int:
+    """This rank's index along the active mesh's 'model' axis (0)."""
+    mesh = current_mesh()
+    return 0 if mesh is None else mesh.index("model")
 
 
 def dense_init(generator: torch.Generator, fan_in: int, shape, dtype,
@@ -187,22 +218,26 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     """
     B, S, d = x.shape
     hd = cfg.hd
+    # a rank's heads under a mesh: H_l query heads, Hkv_l kv heads (all of
+    # them when the serving cache replicates KV)
+    H_l, Hkv_l = p["wq"].shape[1], p["wk"].shape[1]
+    sharded = H_l != cfg.n_heads
     if gemv is not None and S == 1 and gemv.fuse_programs:
         from repro_torch.kernels.dispatch import (
             dispatch_fused,
             dispatch_prepacked,
         )
 
+        axis = "M" if sharded else "replicated"
         if "wqkv" in p:
-            splits = (cfg.n_heads * hd, cfg.n_kv_heads * hd,
-                      cfg.n_kv_heads * hd)
+            splits = (H_l * hd, Hkv_l * hd, Hkv_l * hd)
             q2, k2, v2 = dispatch_prepacked(x.reshape(B, d), p["wqkv"],
-                                            splits, policy=gemv)
+                                            splits, policy=gemv, shard=axis)
         else:
             q2, k2, v2 = dispatch_fused(
                 x.reshape(B, d),
                 [p["wq"].reshape(d, -1), p["wk"].reshape(d, -1),
-                 p["wv"].reshape(d, -1)], policy=gemv)
+                 p["wv"].reshape(d, -1)], policy=gemv, shard=axis)
         q = q2.reshape(B, S, -1, hd)
         k = k2.reshape(B, S, -1, hd)
         v = v2.reshape(B, S, -1, hd)
@@ -227,13 +262,32 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         else:
             write_kv(ck, k, pos)
             write_kv(cv, v, pos)
+        if sharded and Hkv_l == cfg.n_kv_heads:
+            ck, cv, ks, vs = _own_kv(cfg, H_l, ck, cv, ks, vs)
         out = attention_core(q, ck, cv, q_positions=positions,
                              kv_valid_len=pos + S, causal=True, k_scale=ks,
                              v_scale=vs, window=window)
     else:
+        if sharded and Hkv_l == cfg.n_kv_heads:
+            k, v, _, _ = _own_kv(cfg, H_l, k, v, None, None)
         out = attention_core(q, k, v, q_positions=positions,
                              kv_valid_len=None, causal=True, window=window)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    o = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    # wo holds the rank's heads' rows: its product is a partial sum
+    return all_reduce_sum(o, model_group()) if sharded else o
+
+
+def _own_kv(cfg: ModelConfig, H_l: int, k, v, ks, vs):
+    """With KV replicated (kv heads do not divide the shards) a rank's
+    ``H_l`` query heads share one kv head (``attention_shardable``
+    admits only that case): its slice of ``k`` / ``v`` ``[B, S, Hkv, ...]`` and of the
+    scales ``[B, S, Hkv]``."""
+    h = model_index() * H_l // (cfg.n_heads // cfg.n_kv_heads)
+
+    def one(t):
+        return None if t is None else t[:, :, h:h + 1]
+
+    return one(k), one(v), one(ks), one(vs)
 
 
 def init_cross_attention(generator, cfg: ModelConfig, d_kv: int, dtype,
@@ -320,13 +374,27 @@ def activate(act: str, up: torch.Tensor,
     raise ValueError(f"unknown activation {act!r}")
 
 
-def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
-              gemv=None) -> torch.Tensor:
+def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig, gemv=None, *,
+              d_ff: int | None = None) -> torch.Tensor:
     """The FFN (:func:`activate`).  With a ``gemv`` DispatchPolicy and a
     single-token input the projections route through the GEMV dispatcher;
     a gated FFN's gate and up share their input, so they run as ONE fused
     program (the prepacked ``w_gateup`` when present); an ungated one
-    sends up and down as single requests."""
+    sends up and down as single requests.  ``d_ff`` is the full width
+    (default ``cfg.d_ff``): narrower weights are a rank's columns, and
+    the down projection's partial is all-reduced."""
+    y, partial = mlp_partial(p, x, cfg, gemv, d_ff=d_ff)
+    return all_reduce_sum(y, model_group()) if partial else y
+
+
+def mlp_partial(p: dict, x: torch.Tensor, cfg: ModelConfig, gemv=None, *,
+                d_ff: int | None = None) -> tuple[torch.Tensor, bool]:
+    """:func:`apply_mlp` before its collective: ``(y, partial)``, with
+    ``partial`` True when ``y`` is this rank's share of a sum over the
+    'model' group."""
+    partial = (current_mesh() is not None
+               and p["w_up"].shape[-1] != (d_ff or cfg.d_ff))
+    up_axis, down_axis = ("M", "K") if partial else ("replicated",) * 2
     decode_gemv = gemv is not None and x.shape[1] == 1
     if decode_gemv:
         from repro_torch.kernels.dispatch import (
@@ -335,10 +403,10 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
             dispatch_prepacked,
         )
 
-        def mm(a, w):
-            return dispatch_dense(a, w, policy=gemv)
+        def mm(a, w, axis):
+            return dispatch_dense(a, w, policy=gemv, shard=axis)
     else:
-        def mm(a, w):
+        def mm(a, w, axis):
             return a @ w
 
     if decode_gemv and gemv.fuse_programs and cfg.act in GATED:
@@ -346,17 +414,19 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
         if "w_gateup" in p:
             f = p["w_up"].shape[-1]
             g2, u2 = dispatch_prepacked(x.reshape(B * S, d), p["w_gateup"],
-                                        (f, f), policy=gemv)
+                                        (f, f), policy=gemv, shard=up_axis)
         else:
             g2, u2 = dispatch_fused(x.reshape(B * S, d),
-                                    [p["w_gate"], p["w_up"]], policy=gemv)
+                                    [p["w_gate"], p["w_up"]], policy=gemv,
+                                    shard=up_axis)
         gate = g2.reshape(B, S, -1)
         up = u2.reshape(B, S, -1)
-        return mm(activate(cfg.act, up, gate), p["w_down"])
+        return mm(activate(cfg.act, up, gate), p["w_down"],
+                  down_axis), partial
 
-    up = mm(x, p["w_up"])
-    gate = mm(x, p["w_gate"]) if cfg.act in GATED else None
-    return mm(activate(cfg.act, up, gate), p["w_down"])
+    up = mm(x, p["w_up"], up_axis)
+    gate = mm(x, p["w_gate"], up_axis) if cfg.act in GATED else None
+    return mm(activate(cfg.act, up, gate), p["w_down"], down_axis), partial
 
 
 # --------------------------------------------------------------------------
@@ -466,13 +536,16 @@ def _expert_ffn(p: dict, t: torch.Tensor, cfg: ModelConfig, proj):
     return proj(h, p["w_down"])
 
 
-def _moe_ragged_decode(p, x, cfg, gemv, top_i, top_p):
+def _moe_ragged_decode(p, x, cfg, gemv, top_i, top_p, n_local=None):
     """Decode-step expert FFNs through the ragged program shape.
 
     Tokens flatten to ONE expert-sorted ``[T*k, d]`` buffer (T = B*S): no
     ``[E, C, ...]`` capacity buffer exists, so padding is zero
     (``padded_slots=0``).  The three projections share one routing plan
     and one counts vector, device data from end to end: no host sync.
+    With ``n_local`` (a rank's experts, numbered first in ``top_i``) the
+    program runs the stack's ``n_local`` experts over their rows, the
+    buffer's first ones; the rows past them come back zero.
     """
     from repro_torch.kernels.dispatch import dispatch_ragged, \
         record_expert_load
@@ -487,8 +560,12 @@ def _moe_ragged_decode(p, x, cfg, gemv, top_i, top_p):
     record_expert_load(routed_tokens=B * S * e.top_k, experts=e.n_experts,
                        max_tokens=bound, padded_slots=0)
 
+    own = counts if n_local is None else counts[:n_local]
+    axis = "replicated" if n_local is None else "E"
+
     def proj(t, w):
-        return dispatch_ragged(t, counts, w, bound=bound, policy=gemv)
+        return dispatch_ragged(t, own, w, bound=bound, policy=gemv,
+                               shard=axis)
 
     out = _expert_ffn(p, xr, cfg, proj)          # [T*k, d]
     y = _combine(out, sw, st, B * S, e.top_k)
@@ -523,7 +600,15 @@ def _capacity_plan(top_i: torch.Tensor, top_p: torch.Tensor, C: int,
 
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
               gemv=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """x ``[B, S, d]`` -> ``(y, aux_loss)``.
+    """x ``[B, S, d]`` -> ``(y, aux_loss)``: :func:`moe_partial` with its
+    collective."""
+    y, aux, partial = moe_partial(p, x, cfg, gemv)
+    return (all_reduce_sum(y, model_group()) if partial else y), aux
+
+
+def moe_partial(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                gemv=None) -> tuple[torch.Tensor, torch.Tensor, bool]:
+    """x ``[B, S, d]`` -> ``(y, aux_loss, partial)``.
 
     With a ``gemv`` DispatchPolicy, fusing on and a single-token input
     (decode), ``gemv.expert_shape`` picks the execution shape:
@@ -546,28 +631,56 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     The shared experts' MLP is added last, through the dispatcher like a
     dense MLP.
+
+    An expert stack with fewer experts than the config's is a rank's
+    whole experts (``E_l`` of them from ``rank * E_l``): routing is the
+    same on every rank; the expert ids are rotated so the rank's come
+    first, each shape above runs the rank's experts over their rows (the
+    other pairs weigh zero), and ``y`` is this rank's share of the
+    combine (``partial``), summed with the shared experts' share when
+    those are sharded too.  Capacity and drops are per expert, so they
+    are the unsharded ones.
     """
     e = cfg.moe
     B, S, d = x.shape
     probs, top_p, top_i = _router(p, x, cfg)
+    n_local = p["w_up"].shape[0]
+    shift = 0
+    if n_local != e.n_experts:
+        shift = model_index() * n_local
+        top_i = (top_i - shift) % e.n_experts
+    else:
+        n_local = None
     expert_shape = gemv.expert_shape if gemv is not None else "einsum"
     if expert_shape not in ("ragged", "grouped", "einsum"):
         raise ValueError(f"unknown expert_shape {expert_shape!r}")
     use_programs = (gemv is not None and S == 1 and gemv.fuse_programs
                     and expert_shape != "einsum")
     if use_programs and expert_shape == "ragged":
-        y, counts = _moe_ragged_decode(p, x, cfg, gemv, top_i, top_p)
+        y, counts = _moe_ragged_decode(p, x, cfg, gemv, top_i, top_p,
+                                       n_local)
     elif use_programs:
-        y, counts = _moe_grouped_decode(p, x, cfg, gemv, top_i, top_p)
+        y, counts = _moe_grouped_decode(p, x, cfg, gemv, top_i, top_p,
+                                        n_local)
     else:
-        y, counts = _moe_capacity(p, x, cfg, top_i, top_p)
+        y, counts = _moe_capacity(p, x, cfg, top_i, top_p, n_local)
+    if shift:
+        counts = torch.roll(counts, shift)      # back to the experts' ids
     aux = _aux_loss(probs, counts, cfg)
+    partial = n_local is not None
     if e.n_shared:
-        y = y + apply_mlp(p["shared"], x, cfg, gemv=gemv)
-    return y, aux
+        sh, sh_partial = mlp_partial(p["shared"], x, cfg, gemv,
+                                     d_ff=e.n_shared * e.d_expert)
+        if sh_partial == partial:
+            y = y + sh
+        elif partial:       # sharded experts beside whole shared ones
+            y, partial = all_reduce_sum(y, model_group()) + sh, False
+        else:
+            y = y + all_reduce_sum(sh, model_group())
+    return y, aux, partial
 
 
-def _moe_grouped_decode(p, x, cfg, gemv, top_i, top_p):
+def _moe_grouped_decode(p, x, cfg, gemv, top_i, top_p, n_local=None):
     """Decode through grouped programs: the capacity buffers, one grouped
     program per projection (:func:`_moe_capacity_buffers`)."""
     from repro_torch.kernels.dispatch import dispatch_grouped, \
@@ -580,40 +693,46 @@ def _moe_grouped_decode(p, x, cfg, gemv, top_i, top_p):
                        max_tokens=C,
                        padded_slots=max(B * e.n_experts * C
                                         - B * S * e.top_k, 0))
+    axis = "replicated" if n_local is None else "E"
     return _moe_capacity_buffers(
         p, x, cfg, top_i, top_p,
-        lambda t, w: dispatch_grouped(t, w, policy=gemv))
+        lambda t, w: dispatch_grouped(t, w, policy=gemv, shard=axis),
+        n_local)
 
 
-def _moe_capacity_buffers(p, x, cfg, top_i, top_p, proj):
+def _moe_capacity_buffers(p, x, cfg, top_i, top_p, proj, n_local=None):
     """The capacity buffers of the JAX package, laid out ``[E, B*C, d]``
     (row ``b*C + slot`` of expert e), ``proj(t, w)`` once per projection
     over the whole stack, then the capacity combine.  Device data from end
-    to end: no host sync."""
+    to end: no host sync.  With ``n_local`` the buffers hold the first
+    ``n_local`` experts only (a rank's); the other pairs weigh zero."""
     e = cfg.moe
     B, S, d = x.shape
     C = _capacity(S, cfg)
     st, se, sb, sw, slot, keep, counts = _capacity_plan(top_i, top_p, C,
                                                         e.n_experts)
+    E = n_local or e.n_experts
     rows = B * C
-    # a dropped pair lands in one spare row past the buffer, never read
-    dest = torch.where(keep, se * rows + sb * C + slot, e.n_experts * rows)
-    buf = torch.zeros((e.n_experts * rows + 1, d), dtype=x.dtype,
-                      device=x.device)
+    kept = keep & (se < E)
+    at = torch.where(kept, se * rows + sb * C + slot, 0)
+    # a dropped (or another rank's) pair lands in one spare row past the
+    # buffer, never read
+    dest = torch.where(kept, at, E * rows)
+    buf = torch.zeros((E * rows + 1, d), dtype=x.dtype, device=x.device)
     buf[dest] = x.reshape(B * S, d)[st]
-    buf = buf[:-1].view(e.n_experts, rows, d)
-    out = _expert_ffn(p, buf, cfg, proj).reshape(e.n_experts * rows, d)
-    kept_w = sw * keep.to(sw.dtype)
-    y = _combine(out[se * rows + sb * C + slot], kept_w, st, B * S, e.top_k)
+    buf = buf[:-1].view(E, rows, d)
+    out = _expert_ffn(p, buf, cfg, proj).reshape(E * rows, d)
+    y = _combine(out[at], sw * kept.to(sw.dtype), st, B * S, e.top_k)
     return y.reshape(B, S, d), counts
 
 
-def _moe_capacity(p, x, cfg, top_i, top_p):
+def _moe_capacity(p, x, cfg, top_i, top_p, n_local=None):
     """The capacity semantics off the programs (see :func:`apply_moe`):
     the capacity einsum at decode, the grouped products at prefill."""
     if x.shape[1] == 1:
-        return _moe_capacity_buffers(p, x, cfg, top_i, top_p, torch.matmul)
-    return _moe_prefill(p, x, cfg, top_i, top_p)
+        return _moe_capacity_buffers(p, x, cfg, top_i, top_p, torch.matmul,
+                                     n_local)
+    return _moe_prefill(p, x, cfg, top_i, top_p, n_local)
 
 
 def expert_products(t: torch.Tensor, ends: torch.Tensor,
@@ -646,18 +765,26 @@ def ragged_products(t: torch.Tensor, ends: torch.Tensor,
     return ragged_gemv(t.contiguous(), F.pad(ends, (1, 0)), w, plan=plan)
 
 
-def _moe_prefill(p, x, cfg, top_i, top_p):
+def _moe_prefill(p, x, cfg, top_i, top_p, n_local=None):
     """Prefill's capacity semantics as grouped products over the
     expert-sorted pairs (see :func:`apply_moe`): device data from end to
-    end, no host sync and no ``[E, C, d]`` buffer."""
+    end, no host sync and no ``[E, C, d]`` buffer.  With ``n_local`` the
+    products cover the first ``n_local`` experts' rows (a rank's); the
+    rows past them are zeroed (a grouped product leaves them undefined)
+    and weigh zero."""
     e = cfg.moe
     B, S, d = x.shape
-    st, _, _, sw, _, keep, counts = _capacity_plan(
+    st, se, _, sw, _, keep, counts = _capacity_plan(
         top_i, top_p, _capacity(S, cfg), e.n_experts)
     xr = x.reshape(B * S, d)[st]
-    ends = torch.cumsum(counts, 0, dtype=torch.int32)
+    own = counts if n_local is None else counts[:n_local]
+    ends = torch.cumsum(own, 0, dtype=torch.int32)
     out = _expert_ffn(p, xr, cfg,
                       lambda t, w: expert_products(t, ends, w))
+    if n_local is not None:
+        live = torch.arange(out.shape[0], device=out.device) < ends[-1]
+        out = torch.where(live[:, None], out, out.new_zeros(()))
+        keep = keep & (se < n_local)
     y = _combine(out, sw * keep.to(sw.dtype), st, B * S, e.top_k)
     return y.reshape(B, S, d), counts
 

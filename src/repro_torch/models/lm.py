@@ -24,6 +24,13 @@ per-channel mixing weights ``beta_attn`` / ``beta_ssm``; beside its K/V
 (and scales) its cache has the conv window ``mamba_conv [L, B, cw - 1,
 di]`` (model dtype) and the Mamba state ``mamba_h [L, B, di, n]`` (f32),
 again in every ``kv_store``.
+
+Under a mesh each rank holds its blocks of the tree
+(``distributed.sharding.shard_params``; ``init_lm(mesh=)`` draws the
+unsharded model's values and keeps the rank's blocks): a vocab-sharded
+embedding is a masked local lookup plus an all-reduce (exact: the other
+ranks add zeros), a vocab-sharded head's logits are all-gathered, and the
+layers all-reduce their partial sums (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +43,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.axes import current_mesh
+from repro_torch.distributed.collectives import (
+    Reduction,
+    all_gather_cat,
+    all_reduce_sum,
+)
 from repro_torch.kernels.kv_quant import stored_head_dim, validate_kv_store
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -51,7 +64,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
-            generator: torch.Generator | None = None) -> dict:
+            generator: torch.Generator | None = None, mesh=None) -> dict:
     """Seeded random weights with the JAX package's shapes and scale
     (N(0, 1/fan_in) in f32, cast to ``cfg.param_dtype``).
 
@@ -59,8 +72,14 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
     unless one is given); they are NOT the JAX package's draws -- to feed
     both packages the same weights, see :mod:`repro_torch.bridge`.  As in
     the JAX package, every ``cross_gate`` starts at zero.
+
+    With ``mesh`` every value is drawn as without it, and each leaf is
+    cut to this rank's block as soon as it is drawn
+    (``sharding.shard_params``): a rank holds its share and at most one
+    layer whole.
     """
     check_family(cfg)
+    from repro_torch.distributed import sharding as shd
     device = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     g = generator or torch.Generator(device=device).manual_seed(seed)
@@ -101,9 +120,16 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
             layer["cross"] = L.init_cross_attention(g, cfg, cfg.d_model,
                                                     dtype, device)
             layer["cross_gate"] = torch.zeros(1, dtype=dtype, device=device)
+        if mesh is not None:
+            layer = shd.shard_layer(layer, mesh, cfg)
         params["layers"].append(layer)
     if cfg.encoder is not None:
         params["encoder"] = _init_encoder(g, cfg, dtype, device)
+    if mesh is not None:
+        # the layers are cut already; this cuts the embedding and head
+        layers = params.pop("layers")
+        params = shd.shard_params({**params, "layers": []}, mesh, cfg)
+        params["layers"] = layers
     return params
 
 
@@ -218,7 +244,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
 # --------------------------------------------------------------------------
 
 
-def prepack_decode_params(params: dict, cfg: ModelConfig) -> dict:
+def prepack_decode_params(params: dict, cfg: ModelConfig,
+                          mesh=None) -> dict:
     """Prepack the decode hot path's weights once, at deployment.
 
     Per layer, ``wqkv`` is the contiguous ``[d, (H + 2 Hkv) hd]`` concat of
@@ -231,12 +258,20 @@ def prepack_decode_params(params: dict, cfg: ModelConfig) -> dict:
     per token).
 
     The originals stay, as in the JAX package: prefill and the unfused
-    decode path (``fuse_programs=False``) read them.  An rwkv6 model's
+    decode path (``fuse_programs=False``) read them.  With ``mesh`` the
+    tree is first cut to this rank's blocks (``sharding.shard_params``;
+    a tree cut already passes through), so the fused leaves are the
+    rank's own ``[q_r | k_r | v_r]`` and ``[gate_r | up_r]``.  An rwkv6
+    model's
     layers pass through unchanged (its projections stay plain matmuls, as
     in the JAX package); only its head gets ``head_t``.  A hymba layer's
     ``mamba`` weights and betas are carried as they are.  Returns a NEW
     dict; ``params``' own tensors are shared, not copied.
     """
+    if mesh is not None:
+        from repro_torch.distributed import sharding as shd
+
+        params = shd.shard_params(params, mesh, cfg)
     d = cfg.d_model
     packed = dict(params)
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
@@ -312,7 +347,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     """
     B, Sq = tokens.shape
     dtype = torch_dtype(cfg.compute_dtype)
-    x = params["embed"][tokens].to(dtype)
+    x = _embed(params["embed"], tokens, cfg).to(dtype)
     x = x * _embed_scale(cfg.d_model, dtype)
 
     pos0 = cache["pos"] if cache is not None else torch.zeros(
@@ -343,16 +378,35 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     else:
         head = params["embed"].t() if cfg.tie_embeddings \
             else params["lm_head"]
+    sharded_head = head.shape[1] != cfg.vocab
     if gemv_policy is not None and Sq == 1:
         from repro_torch.kernels.dispatch import dispatch_dense
 
-        logits = dispatch_dense(x, head.to(dtype), policy=gemv_policy)
+        logits = dispatch_dense(x, head.to(dtype), policy=gemv_policy,
+                                shard="M" if sharded_head else "replicated")
     else:
         logits = torch.einsum("bsd,dv->bsv", x, head.to(dtype))
+    if sharded_head:    # each rank's vocab block, in rank order
+        logits = all_gather_cat(logits, L.model_group(), dim=-1)
     new_cache = None
     if cache is not None:
         new_cache = {**cache, "pos": pos0 + Sq}
     return logits, new_cache, aux
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """``table[tokens]``; a vocab-sharded table (a rank's ``V / n`` rows
+    from ``rank * V / n``) looks up the tokens it holds, zeros for the
+    rest, and the rows are all-reduced (exact)."""
+    V_l = table.shape[0]
+    if V_l == cfg.vocab:
+        return table[tokens]
+    idx = tokens - L.model_index() * V_l
+    own = (idx >= 0) & (idx < V_l)
+    rows = table[idx.clamp(0, V_l - 1)]
+    rows = torch.where(own[..., None], rows, rows.new_zeros(()))
+    return all_reduce_sum(rows, L.model_group())
 
 
 def layer_window(cfg: ModelConfig, i: int) -> int:
@@ -405,9 +459,32 @@ def _forward_flat(params, cfg, x, positions, cache, gemv=None, ctx=None):
     adds ``beta_attn · attention + beta_ssm · mamba`` (model dtype) to the
     residual (``lm._self_block``); with a cache, the Mamba state continues
     from layer ``i``'s ``mamba_*`` leaves and is advanced in place.
-    Returns ``(x, aux_loss)``."""
+
+    Under a mesh a sharded FFN's output is a partial sum, all-reduced
+    before the residual add.  Deferred collectives (the reference's
+    ``overlap_collectives``, ``lm._forward_flat``): on a decode step with
+    ``gemv.overlap_collectives``, that all-reduce is issued without
+    waiting and awaited at the next layer's entry (the last one before the
+    final norm), so it can overlap the next layer's attention; the add is
+    the same, so the tokens and logits are bit-equal either way.  Counted
+    once a step: ``record_overlap("deferred", deferred_collectives=
+    n_layers)``.  Returns ``(x, aux_loss)``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    mesh = current_mesh()
+    group = mesh.group("model") if mesh is not None else None
+    defer = (group is not None and cache is not None and x.shape[1] == 1
+             and gemv is not None and gemv.model_shards > 1
+             and gemv.overlap_collectives and ctx is None
+             and cfg.family != "ssm")
+    if defer:
+        from repro_torch.kernels.dispatch import record_overlap
+
+        record_overlap("deferred", deferred_collectives=cfg.n_layers)
+    pending = None
     for i, p in enumerate(params["layers"]):
+        if pending is not None:     # the previous layer's FFN combine
+            x = x + pending.wait()
+            pending = None
         if cfg.family == "ssm":
             x = _rwkv_block(p, x, cfg, cache, i)
             continue
@@ -429,11 +506,24 @@ def _forward_flat(params, cfg, x, positions, cache, gemv=None, ctx=None):
             a = p["beta_attn"] * a + p["beta_ssm"] * m
         x = x + a
         h = L.apply_norm(p["ln2"], x, cfg)
-        if "moe" in p:
-            ff, aux_l = L.apply_moe(p["moe"], h, cfg, gemv=gemv)
+        partial = False
+        if group is None:       # no mesh: the whole FFN, nothing to reduce
+            if "moe" in p:
+                ff, aux_l = L.apply_moe(p["moe"], h, cfg, gemv=gemv)
+                aux = aux + aux_l
+            else:
+                ff = L.apply_mlp(p["mlp"], h, cfg, gemv=gemv)
+        elif "moe" in p:
+            ff, aux_l, partial = L.moe_partial(p["moe"], h, cfg, gemv=gemv)
             aux = aux + aux_l
         else:
-            ff = L.apply_mlp(p["mlp"], h, cfg, gemv=gemv)
+            ff, partial = L.mlp_partial(p["mlp"], h, cfg, gemv=gemv)
+        if partial:
+            red = Reduction(ff, group, async_op=defer)
+            if defer:
+                pending = red
+                continue
+            ff = red.wait()
         x = x + ff
         if "cross" in p:
             h = L.apply_norm(p["ln_cross"], x, cfg)
@@ -441,6 +531,8 @@ def _forward_flat(params, cfg, x, positions, cache, gemv=None, ctx=None):
             if cfg.cross_attn_every > 0:
                 y = torch.tanh(p["cross_gate"].to(x.dtype)) * y
             x = x + y
+    if pending is not None:
+        x = x + pending.wait()
     return x, aux
 
 

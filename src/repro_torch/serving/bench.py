@@ -29,6 +29,15 @@ with each fresh dispatch decision timed on the run's device unless
         --prefill-chunk 128 --full-size --json serve.json
     python -m repro_torch.serving.bench --trace shared-prefix --prefix-cache \\
         --trace-out TRACE.json
+    python -m repro_torch.serving.bench --smoke --device cpu --mesh 1x2
+
+``mesh_shape=(d, m)`` (``--mesh DxM``) serves every run on a ``(data,
+model)`` mesh of ``d * m`` ranks started by ``launch.mesh.spawn`` (on the
+card: one rank a card under NCCL, or ranks sharing the card over gloo;
+``--device cpu``: gloo on the CPU); the document is rank 0's, each run
+records the mesh and ``overlap_collectives`` and its dispatch counters
+carry the per-shard sections (``sharded_axes``, ``shard_picks``: the
+kernel each rank's block of a weight selected, by that block's shape).
 """
 
 from __future__ import annotations
@@ -49,9 +58,8 @@ from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.scheduler import POLICIES, QueueFull
 
 # --json document version, the JAX bench's numbering: v4 is its layout
-# without the mesh and ``overlap_collectives`` fields (sharded serving is
-# not ported); the port adds ``device``, ``reduced`` and
-# ``prefill_chunk``.  As in the reference, tracing and overlapped serving
+# (the per-run ``mesh`` record and ``overlap_collectives``); the port adds
+# ``device``, ``reduced`` and ``prefill_chunk``.  As in the reference, tracing and overlapped serving
 # are additive, not a schema bump: ``trace_out`` adds the
 # ``flight_trace`` section (its files carry their own schema,
 # ``repro_torch.observability.SCHEMA_VERSION``) with the summary's
@@ -139,7 +147,8 @@ def run_policy(cfg, params, policy: str, trace: list[dict], *,
                prefill_chunk: int | None = None,
                async_prefill: bool = False, prefix_cache=False,
                kv_store: str = "fp", tracer: Tracer | None = None,
-               tokens: bool = False, max_iters: int = 5000) -> dict:
+               tokens: bool = False, max_iters: int = 5000, mesh=None,
+               overlap_collectives: bool = False) -> dict:
     """Serve one trace under one scheduler policy on ``params``' device;
     returns the metrics document (aggregates only) tagged with the run's
     configuration, and with ``tokens`` each finished request's tokens
@@ -155,7 +164,8 @@ def run_policy(cfg, params, policy: str, trace: list[dict], *,
                  max_queue=max_queue, prefill_chunk=prefill_chunk,
                  async_prefill=async_prefill,
                  prefix_cache=prefix_cache, kv_store=kv_store,
-                 device=params["embed"].device, tracer=tracer)
+                 device=params["embed"].device, tracer=tracer, mesh=mesh,
+                 overlap_collectives=overlap_collectives)
     pending = [
         Request(rid=i, prompt=t["prompt"],
                 max_new_tokens=t["max_new_tokens"],
@@ -194,6 +204,8 @@ def run_policy(cfg, params, policy: str, trace: list[dict], *,
         prefill_chunk=prefill_chunk,
         prefix_index=(eng.prefix.stats() if eng.prefix is not None
                       else None),
+        mesh=None if mesh is None else dict(mesh.shape),
+        overlap_collectives=bool(overlap_collectives),
     )
     if tokens:
         doc["generated"] = {str(r.rid): list(r.generated) for r in done}
@@ -233,6 +245,9 @@ def run_serve_trace(
     trace_timing: bool | None = None,
     tokens: bool = False,
     out: str | None = None,
+    mesh_shape: tuple[int, int] | None = None,
+    overlap_collectives: bool = False,
+    mesh=None,
 ) -> dict:
     """Serve one synthetic trace under each policy; returns (and with
     ``out`` writes) the comparison document.  Weights are random from
@@ -246,12 +261,29 @@ def run_serve_trace(
     a ``flight_trace`` section pointing at both.  ``trace_timing`` (default
     on with ``trace_out``) times each fresh decision's kernel on the
     run's device beside its predicted price.  ``tokens`` keeps each
-    run's tokens (:func:`run_policy`)."""
-    dev = resolve_device(device)
+    run's tokens (:func:`run_policy`).
+
+    ``mesh_shape=(d, m)`` runs this function on each rank of a ``(data,
+    model)`` mesh (``launch.mesh.spawn``, ``device`` as above) and returns
+    rank 0's document (written to ``out`` here); a rank receives its
+    ``mesh``.  Only rank 0 traces."""
+    if mesh_shape is not None and mesh is None:
+        from repro_torch.launch.mesh import spawn
+
+        # every argument but the launcher's own, for each rank's call
+        kw = {k: v for k, v in locals().items()
+              if k not in ("mesh_shape", "mesh", "out", "spawn")}
+        doc = spawn(_serve_rank, tuple(mesh_shape), device=device,
+                    timeout_s=3600, kwargs=kw)[0]
+        if out:
+            with open(out, "w") as f:
+                json.dump(doc, f, indent=1, sort_keys=True)
+        return doc
+    dev = resolve_device(device if mesh is None else mesh.device)
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    params = lm.init_lm(cfg, seed=0, device=dev)
+    params = lm.init_lm(cfg, seed=0, device=dev, mesh=mesh)
     if smoke:
         batch_slots = min(batch_slots, 4)
         gemv_batch_threshold = min(gemv_batch_threshold, 2)
@@ -261,7 +293,7 @@ def run_serve_trace(
     tcfg = TraceConfig(**{**tcfg.__dict__, "seed": seed})
     trace = build_trace(tcfg, cfg.vocab, np.random.default_rng(tcfg.seed))
     tracer = None
-    if trace_out:
+    if trace_out and (mesh is None or mesh.rank == 0):
         tracer = Tracer(timing=True if trace_timing is None
                         else bool(trace_timing))
     runs = [run_policy(cfg, params, policy, trace, batch_slots=batch_slots,
@@ -272,7 +304,8 @@ def run_serve_trace(
                        async_prefill=async_prefill,
                        prefix_cache=prefix_cache, kv_store=kv_store,
                        tracer=tracer if i == len(policies) - 1 else None,
-                       tokens=tokens)
+                       tokens=tokens, mesh=mesh,
+                       overlap_collectives=overlap_collectives)
             for i, policy in enumerate(policies)]
     shared = tcfg.kind == "shared-prefix"
     doc = {
@@ -297,6 +330,8 @@ def run_serve_trace(
         "kv_store": kv_store,
         "prefill_chunk": prefill_chunk,
         "async_prefill": bool(async_prefill),
+        "mesh": None if mesh is None else dict(mesh.shape),
+        "overlap_collectives": bool(overlap_collectives),
         "runs": runs,
     }
     if tracer is not None:
@@ -314,10 +349,15 @@ def run_serve_trace(
             "hidden_fraction": (sdoc.get("overlap") or {}).get(
                 "hidden_fraction"),
         }
-    if out:
+    if out and (mesh is None or mesh.rank == 0):
         with open(out, "w") as f:
             json.dump(doc, f, indent=1, sort_keys=True)
     return doc
+
+
+def _serve_rank(mesh, **kw) -> dict:
+    """One rank of a mesh run of :func:`run_serve_trace`."""
+    return run_serve_trace(mesh=mesh, **kw)
 
 
 def summary_line(run: dict) -> str:
@@ -325,10 +365,13 @@ def summary_line(run: dict) -> str:
     the dispatch mix and the prefix cache's hits."""
     ttft, ptok, disp = run["ttft_ms"], run["per_token_ms"], run["dispatch"]
     nan = float("nan")
+    mesh = run.get("mesh")
     line = (f"serve/{run['policy']} slots={run['batch_slots']} "
             f"thresh={run['gemv_batch_threshold']} kv={run['kv_store']} "
             f"chunk={run['prefill_chunk']}"
-            f"{' async' if run.get('async_prefill') else ''}: "
+            f"{' async' if run.get('async_prefill') else ''}"
+            f"{f' mesh={mesh}' if mesh else ''}"
+            f"{' overlap' if run.get('overlap_collectives') else ''}: "
             f"completed={run['completed']} "
             f"ttft p50={ttft.get('p50', nan):.1f}ms "
             f"p99={ttft.get('p99', nan):.1f}ms | "
@@ -375,6 +418,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' to run here")
     ap.add_argument("--json", default=None, help="write the document here")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve on a (data, model) mesh of D*M ranks")
+    ap.add_argument("--overlap-collectives", action="store_true",
+                    help="defer each decode layer's FFN all-reduce by one "
+                         "layer (with --mesh)")
     ap.add_argument("--trace-out", metavar="PATH", default=None,
                     help="flight-record the last policy's run: the "
                          "Perfetto-loadable Chrome trace to PATH, the "
@@ -384,6 +432,11 @@ def main(argv=None) -> int:
                     help="time each fresh dispatch decision's kernel on the "
                          "run's device (default: on with --trace-out)")
     a = ap.parse_args(argv)
+    mesh_shape = None
+    if a.mesh:
+        from repro_torch.launch.mesh import parse_mesh_arg
+
+        mesh_shape = parse_mesh_arg(a.mesh)
     doc = run_serve_trace(
         a.arch, policies=tuple(a.policy or POLICIES), smoke=a.smoke,
         seed=a.seed, batch_slots=a.slots, max_len=a.max_len,
@@ -392,7 +445,8 @@ def main(argv=None) -> int:
         trace_kind=a.trace,
         prefix_cache=a.prefix_cache, kv_store=a.kv_store,
         reduced=not a.full_size, device=a.device, trace_out=a.trace_out,
-        trace_timing=a.trace_timing, out=a.json)
+        trace_timing=a.trace_timing, out=a.json, mesh_shape=mesh_shape,
+        overlap_collectives=a.overlap_collectives)
     for run in doc["runs"]:
         print(summary_line(run))
     if "flight_trace" in doc:

@@ -109,7 +109,35 @@ decisions were recorded at the bucket's eager first step.  With
 host's wait in ``blocked_us``, and each chunk and harvest ticks
 ``record_overlap("async_prefill", ...)``.
 
-Not ported yet: sharded (mesh) serving.
+Sharded mode (the reference's ``Engine(mesh=)``): constructed with a
+:class:`~repro_torch.launch.mesh.Mesh` on every rank of it (each rank a
+process, ``launch.mesh.spawn`` or ``torchrun``), the engine runs the same
+serving loop on this rank's blocks of the model
+(``distributed.sharding.shard_params``: the PIMnast mesh planner's
+placement, the fused leaves packed per rank), its shard of the slot cache
+(``serve_cache_spec``: kv heads on 'model', slots and ``pos`` whole) and
+of every prefix segment, with ``DispatchPolicy.model_shards`` the 'model'
+axis size: each GEMV is selected at the shape its rank runs.  The layers
+issue the collectives (``models/layers.py``); ``overlap_collectives=True``
+defers each decode layer's FFN all-reduce by one layer (bit-equal
+tokens).  Every host decision must be the same on every rank, or one rank
+issues a collective the others never match: the step's ``now`` is rank
+0's clock, broadcast once a step (deadline expiry and preemption read
+it); the dispatcher's autotune table (measured picks, fitted constants)
+is rank 0's, broadcast once at construction
+(``distributed.tuning.share_autotune_table``) so every rank selects the
+same kernels, and only rank 0 writes tables and traces (its tracer; the
+others get none); the prefix
+cache counts global bytes; sampling reads the all-gathered logits, the
+same on every rank.  A 'data' axis above 1 replicates the serving state,
+and (a deliberate difference) the parameters too.  Under gloo (ranks
+sharing a card) decode and prefill run eagerly: gloo collectives cannot
+be captured in a CUDA graph (``Engine.graphs`` is None and
+``Engine.graphs_reason`` says why); under NCCL too, until a machine with a
+card a rank has checked the captured collectives (a pre-warmed
+communicator, and the deferred collectives counted at replay).
+Sharded serving runs the dense and MoE decoders, without
+``async_prefill``.
 """
 
 from __future__ import annotations
@@ -121,9 +149,13 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.axes import activation_mesh
+from repro_torch.distributed.tuning import share_autotune_table
 from repro_torch.kernels.backends import DispatchPolicy
 from repro_torch.kernels.dispatch import record_overlap
 from repro_torch.kernels.kv_quant import validate_kv_store
@@ -247,8 +279,25 @@ class Engine:
                  kv_store: str = "fp",
                  device=None,
                  tracer=None,
-                 clock=time.monotonic):
+                 clock=time.monotonic,
+                 mesh=None,
+                 overlap_collectives: bool = False):
         self.kv_store = validate_kv_store(kv_store)
+        self.mesh = mesh
+        model_shards = 1
+        if mesh is not None:
+            from repro_torch.launch.mesh import model_axis_size
+
+            shd.check_mesh_family(cfg)
+            if async_prefill:
+                raise NotImplementedError(
+                    "async_prefill under a mesh is not ported yet")
+            model_shards = model_axis_size(mesh)
+            device = device if device is not None else mesh.device
+            # one writer of traces: rank 0
+            tracer = tracer if mesh.rank == 0 else None
+            # one table of picks: rank 0's, on every rank
+            share_autotune_table(mesh)
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -272,13 +321,18 @@ class Engine:
             DispatchPolicy(batch_threshold=gemv_batch_threshold,
                            backend=gemv_backend,
                            fuse_programs=gemv_fuse_programs,
-                           expert_shape=gemv_expert_shape)
+                           expert_shape=gemv_expert_shape,
+                           model_shards=model_shards,
+                           overlap_collectives=bool(overlap_collectives))
             if use_pim_kernels else None)
         # one-time prepack: fused weights and the contiguous head the
-        # kernels read (no per-step concat or transpose)
-        self.params = (lm.prepack_decode_params(params, cfg)
-                       if prepack_weights and self.gemv_policy is not None
-                       else params)
+        # kernels read (no per-step concat or transpose); under a mesh,
+        # this rank's blocks
+        if prepack_weights and self.gemv_policy is not None:
+            self.params = lm.prepack_decode_params(params, cfg, mesh=mesh)
+        else:
+            self.params = (shd.shard_params(params, mesh, cfg)
+                           if mesh is not None else params)
         if isinstance(scheduler, Scheduler):
             self.scheduler = scheduler
         elif isinstance(scheduler, SchedulerConfig):
@@ -296,7 +350,8 @@ class Engine:
             self.scheduler.tracer = tracer
         self.metrics = metrics or ServingMetrics(clock=clock)
         self.kv = SlotKVCache(cfg, batch_slots, max_len,
-                              kv_store=self.kv_store, device=self.device)
+                              kv_store=self.kv_store, device=self.device,
+                              mesh=mesh)
         # shared-prefix KV reuse: True (the default config), a
         # PrefixCacheConfig, or a PrefixCache; families whose KV is not a
         # function of the tokens stay uncached
@@ -308,7 +363,8 @@ class Engine:
                 self.prefix = PrefixCache(
                     prefix_cache if isinstance(prefix_cache,
                                                PrefixCacheConfig) else None,
-                    has_state=bool(self.kv.state_names))
+                    has_state=bool(self.kv.state_names),
+                    byte_scale=self.kv.shards)
             # admission prices a cached prefix as near-zero prefill
             self.scheduler.prefill_cost = self._prefill_cost
         self.active: dict[int, Request] = {}   # slot -> request
@@ -328,17 +384,28 @@ class Engine:
         # they reach the body through a weak reference, so a dropped engine
         # frees its graphs and cache at once, not at a later collection
         body = weakref.WeakMethod(self._decode_body)
+        self.graphs_reason = None
+        if self.device.type != "cuda":
+            self.graphs_reason = "not a CUDA device"
+        elif mesh is not None and mesh.world_size > 1:
+            self.graphs_reason = (
+                f"{mesh.backend} collectives cannot be captured in a CUDA "
+                f"graph" if mesh.backend != "nccl" else
+                "NCCL collectives in a CUDA graph are unverified (it needs "
+                "a machine with a card a rank)")
+        captured = self.graphs_reason is None
         self.graphs = (
             DecodeGraphs(lambda b, tok: body()(b, tok), self.kv.cache,
                          slots=batch_slots, vocab=cfg.vocab,
                          device=self.device,
                          capture=CudaCapture(self.device),
                          inputs=self.features)
-            if self.device.type == "cuda" else None)
+            if captured else None)
         # the prefill sub-cache and its feature rows: row 0 stages every
         # chunk, rows [0, nb) a wave, row 1 + i an async chain's; and each
         # chain's first-token logits
-        self.sub = lm.init_cache(cfg, batch_slots + 1, max_len,
+        self.sub = lm.init_cache(self.kv.cache_cfg, batch_slots + 1,
+                                 max_len,
                                  per_slot_pos=True, kv_store=self.kv_store,
                                  device=self.device)
         self.sub_features = {
@@ -363,7 +430,7 @@ class Engine:
                           vocab=cfg.vocab, device=self.device,
                           capture=CudaCapture(self.device, shared_pool=True),
                           inputs=self.sub_features)
-            if self.device.type == "cuda" else None)
+            if captured else None)
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -392,7 +459,20 @@ class Engine:
         """One engine iteration: expire + (maybe) preempt + admit + prefill
         + one chunk of every chunked prefill + one decode step.  Returns
         the requests completed this step."""
-        t0 = self.clock()
+        if self.mesh is None:
+            return self._step(self.clock())
+        with activation_mesh(self.mesh):
+            return self._step(self._mesh_now())
+
+    def _mesh_now(self) -> float:
+        """Rank 0's clock, the same on every rank: deadline expiry and
+        preemption must take the same decisions everywhere."""
+        box = [self.clock()]
+        if self.mesh.world_size > 1:
+            dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def _step(self, t0: float) -> list[Request]:
         tr = self.tracer
         expired = self.scheduler.expire(t0)
         for r in expired:

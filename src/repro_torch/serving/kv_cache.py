@@ -32,6 +32,13 @@ Host-side per-slot metadata (``slot_meta``, one dict per active slot: the
 prefix cache keeps its segment pins there) moves with its slot through
 :meth:`compact` and is dropped on :meth:`free`.
 
+Under a mesh (``mesh=``) the cache holds this rank's block of the
+reference's placement (``distributed.sharding.serve_cache_spec``): the
+slot axis and ``pos`` whole on every rank, K/V and their scales on the
+rank's kv heads when they divide the 'model' axis (else every kv head).
+Every mutation below is then local to the shard, as the reference's
+explicit shardings make it: no defrag or splice moves data between ranks.
+
 Unlike the JAX package, whose arrays are immutable, every mutation here
 writes the cache tensors IN PLACE and no leaf is ever reassigned (the
 decode step's captured graphs keep their addresses): a full-size copy per
@@ -48,6 +55,7 @@ overwrite the segment.
 from __future__ import annotations
 
 import bisect
+import dataclasses
 
 import numpy as np
 import torch
@@ -78,12 +86,22 @@ class SlotKVCache:
     """Decode state for ``batch_slots`` concurrent requests."""
 
     def __init__(self, cfg: ModelConfig, batch_slots: int, max_len: int,
-                 dtype=None, *, kv_store: str = "fp", device):
+                 dtype=None, *, kv_store: str = "fp", device, mesh=None):
         self.cfg = cfg
         self.batch_slots = batch_slots
         self.max_len = max_len
         self.device = torch.device(device)
-        self.cache = lm.init_cache(cfg, batch_slots, max_len, dtype,
+        # the config the leaves are shaped by (a rank's kv heads), and the
+        # shards each positional leaf is cut into
+        self.cache_cfg, self.shards = cfg, 1
+        if mesh is not None:
+            from repro_torch.distributed.sharding import serve_cache_heads
+
+            heads = serve_cache_heads(cfg, mesh)
+            self.cache_cfg = dataclasses.replace(cfg, n_kv_heads=heads)
+            self.shards = cfg.n_kv_heads // heads
+        self.cache = lm.init_cache(self.cache_cfg, batch_slots, max_len,
+                                   dtype,
                                    per_slot_pos=True, kv_store=kv_store,
                                    device=self.device)
         # the state leaves, and one save buffer each (empty for a pure-KV

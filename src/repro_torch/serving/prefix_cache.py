@@ -38,6 +38,15 @@ One deliberate difference from the reference: an insert never evicts the
 node it attaches its new segment to (:meth:`PrefixCache._make_room`).
 
 With a tracer installed, every eviction is a ``prefix_evict`` event.
+
+Under a mesh each rank's store holds its shard of every segment: a
+segment is cut from the rank's slot cache, so it holds the rank's kv
+heads, the block ``distributed.sharding.segment_spec`` gives of the
+unsharded segment, and a splice is local to the shard.  Every rank must
+take the same decisions: the
+index is the same on every rank, and capacity and eviction count global
+bytes, a rank's bytes times ``byte_scale`` (the shards a segment is cut
+into), never the rank's share.
 """
 
 from __future__ import annotations
@@ -84,10 +93,10 @@ class _Node:
     """One radix-tree edge and the KV segment it owns."""
 
     __slots__ = ("tokens", "kv", "state", "children", "parent",
-                 "refcount", "last_used", "nbytes")
+                 "refcount", "last_used", "nbytes", "scale")
 
     def __init__(self, tokens: np.ndarray, kv: dict, state: dict | None,
-                 parent: "_Node | None"):
+                 parent: "_Node | None", scale: int = 1):
         self.tokens = np.asarray(tokens, np.int32)
         self.kv = kv
         self.state = state
@@ -95,10 +104,11 @@ class _Node:
         self.parent = parent
         self.refcount = 0
         self.last_used = 0
-        self.nbytes = _payload_bytes(kv, state)
+        self.scale = scale
+        self.nbytes = scale * _payload_bytes(kv, state)
 
     def recount_bytes(self) -> None:
-        self.nbytes = _payload_bytes(self.kv, self.state)
+        self.nbytes = self.scale * _payload_bytes(self.kv, self.state)
 
 
 def _payload_bytes(kv: dict, state: dict | None) -> int:
@@ -130,9 +140,10 @@ class PrefixCache:
     """Radix index + refcounted segment store (one per engine)."""
 
     def __init__(self, config: PrefixCacheConfig | None = None, *,
-                 has_state: bool = False):
+                 has_state: bool = False, byte_scale: int = 1):
         self.config = config or PrefixCacheConfig()
         self.has_state = has_state
+        self.byte_scale = byte_scale
         self.root = _Node(np.zeros((0,), np.int32), {}, None, None)
         self._tick = 0
         self._bytes = 0
@@ -273,7 +284,8 @@ class PrefixCache:
                 seg_kv = {name: _span(leaf, i, T)
                           for name, leaf in kv.items()}
                 seg_state = dict(state) if (self.has_state and state) else None
-                new = _Node(tokens[i:T], seg_kv, seg_state, node)
+                new = _Node(tokens[i:T], seg_kv, seg_state, node,
+                            self.byte_scale)
                 if not self._make_room(new.nbytes, keep=node):
                     self.counters["insert_skipped"] += 1
                     return False
@@ -295,7 +307,7 @@ class PrefixCache:
         # snapshot if that boundary lacks one (a split dropped it)
         if self.has_state and state and node is not self.root \
                 and node.state is None:
-            extra = _payload_bytes({}, state)
+            extra = self.byte_scale * _payload_bytes({}, state)
             if self._make_room(extra, keep=node):
                 node.state = dict(state)
                 node.recount_bytes()
@@ -309,7 +321,8 @@ class PrefixCache:
         assert 0 < at < len(child.tokens)
         old_bytes = child.nbytes
         top_kv = {n: _span(leaf, 0, at) for n, leaf in child.kv.items()}
-        top = _Node(child.tokens[:at], top_kv, None, child.parent)
+        top = _Node(child.tokens[:at], top_kv, None, child.parent,
+                    self.byte_scale)
         top.last_used = child.last_used
         child.parent.children[int(child.tokens[0])] = top
         rest = child.tokens[at:]

@@ -1,0 +1,252 @@
+"""What each rank runs for ``test_torch_sharded_serving.py`` (and what the
+test runs unsharded, through the same functions).  Imports no JAX: every
+process ``launch.mesh.spawn`` starts imports this module to find its
+function.
+
+A case is a reduced model, an engine configuration and a request plan;
+:func:`serve` drives the port's ``Engine`` over the plan (on a mesh or
+not) and returns the tokens, every sampled logits row and the
+dispatcher's counters.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.registry import get_config
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import tuning
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.backends import get_backend
+from repro_torch.models import lm
+from repro_torch.observability.trace import Tracer, uninstall_tracer
+from repro_torch.serving.engine import Engine, Request
+from repro_torch.serving.scheduler import SchedulerConfig
+
+MAX_LEN = 64
+MOE_KW = {"gemv_backend": "h100"}
+PREEMPT = dict(policy="gemv_aware", gemv_batch_threshold=4,
+               preempt_margin=5.0)
+CLOCK_OFFSET = 1000.0     # rank r's clock runs r * this ahead of rank 0's
+
+
+class FakeClock:
+    def __init__(self, offset: float = 0.0):
+        self.t = 0.0
+        self.offset = offset
+
+    def __call__(self):
+        return self.t + self.offset
+
+    def advance(self, dt):
+        self.t += dt
+
+
+def prompts(vocab: int, lengths, seed: int) -> list[np.ndarray]:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lengths]
+
+
+def mix_plan(vocab: int) -> list[tuple]:
+    """Mixed prompt lengths, chunk 8 in the engine: a 20-token prompt, a
+    short one that finishes first (its slot below a busy one: a
+    compaction), a 25-token one and a 3-token one; at step 4 a prompt
+    sharing the first one's 16-token prefix (a prefix hit).  Items are
+    ``(step, rid, prompt, new tokens, absolute deadline)``."""
+    p = prompts(vocab, [20, 5, 25, 3, 7], seed=41)
+    hit = np.concatenate([p[0][:16], p[4]])
+    return [(0, 0, p[0], 6, None), (0, 1, p[1], 2, None),
+            (0, 2, p[2], 5, None), (0, 3, p[3], 7, None),
+            (4, 4, hit, 4, None)]
+
+
+def preempt_plan(vocab: int) -> list[tuple]:
+    """Two slots busy decoding; at step 2 a request whose deadline (3.0,
+    absolute, on rank 0's clock) is inside the margin: a preemption."""
+    p = prompts(vocab, [5, 6, 4], seed=12)
+    return [(0, 0, p[0], 10, None), (0, 1, p[1], 10, None),
+            (2, 2, p[2], 3, 3.0)]
+
+
+# name: (arch, config overrides, engine kwargs, plan, scheduler)
+CASES = {
+    "olmo": ("olmo-1b", {}, dict(prefill_chunk=8, prefix_cache=True),
+             "mix", None),
+    "olmo_overlap": ("olmo-1b", {}, dict(prefill_chunk=8, prefix_cache=True,
+                                         overlap_collectives=True),
+                     "mix", None),
+    "deepseek": ("deepseek-moe-16b", {},
+                 dict(prefill_chunk=8, prefix_cache=True, **MOE_KW),
+                 "mix", None),
+    "deepseek_overlap": ("deepseek-moe-16b", {},
+                         dict(prefill_chunk=8, prefix_cache=True,
+                              overlap_collectives=True, **MOE_KW),
+                         "mix", None),
+    "deepseek_grouped": ("deepseek-moe-16b", {},
+                         dict(prefill_chunk=8, gemv_expert_shape="grouped",
+                              **MOE_KW), "mix", None),
+    "grok": ("grok-1-314b", {}, dict(prefill_chunk=8, prefix_cache=True),
+             "mix", None),
+    "kv_replicated": ("olmo-1b", {"n_kv_heads": 1},
+                      dict(prefill_chunk=8, prefix_cache=True), "mix", None),
+    "clocks": ("olmo-1b", {}, dict(batch_slots=2), "preempt", PREEMPT),
+}
+
+
+def case_config(name: str):
+    arch, over, _, _, _ = CASES[name]
+    return dataclasses.replace(get_config(arch).reduced(), **over)
+
+
+def case_plan(name: str, vocab: int) -> list[tuple]:
+    return mix_plan(vocab) if CASES[name][3] == "mix" \
+        else preempt_plan(vocab)
+
+
+def drive(eng, make_req, plan, clk, tick: float = 0.0) -> dict:
+    """Serve ``plan``: each request submitted at its step; the clock
+    advances ``tick`` a step.  Returns {rid: request}."""
+    reqs, pending, step = {}, list(plan), 0
+    while (pending or eng.active or eng._prefilling
+           or eng.scheduler.queue):
+        for item in [p for p in pending if p[0] <= step]:
+            _, rid, prompt, n, deadline = item
+            reqs[rid] = make_req(rid=rid, prompt=prompt, max_new_tokens=n,
+                                 deadline=deadline)
+            eng.submit(reqs[rid])
+            pending.remove(item)
+        eng.step()
+        clk.advance(tick)
+        step += 1
+        if step >= 300:
+            raise AssertionError("the plan did not drain")
+    return reqs
+
+
+def serve(name: str, mesh=None, clock_offset: float = 0.0,
+          tracer=None) -> dict:
+    """Case ``name`` on the port's engine (this rank's share with
+    ``mesh``): tokens, sampled logits rows, counters."""
+    _, _, kw, _, sched = CASES[name]
+    cfg = case_config(name)
+    params = lm.init_lm(cfg, seed=0, device="cpu", mesh=mesh)
+    clk = FakeClock(clock_offset)
+    kw = {"batch_slots": 4, **kw}
+    dispatch.clear_plan_cache()
+    eng = Engine(cfg, params, max_len=MAX_LEN, device="cpu", clock=clk,
+                 mesh=mesh, tracer=tracer,
+                 scheduler=(SchedulerConfig(**sched) if sched else "fcfs"),
+                 **kw)
+    rows: dict[int, list] = {}
+    sample = eng._sample
+
+    def recorded(r, row):
+        rows.setdefault(r.rid, []).append(np.array(row))
+        return sample(r, row)
+
+    eng._sample = recorded
+    moves, compact = [], eng.kv.compact
+
+    def counted():
+        m = compact()
+        moves.append(len(m))
+        return m
+
+    eng.kv.compact = counted
+    reqs = drive(eng, Request, case_plan(name, cfg.vocab), clk)
+    return {"tokens": {rid: list(r.generated) for rid, r in reqs.items()},
+            "rows": rows, "stats": dispatch.dispatch_stats(),
+            "counters": dict(eng.metrics.counters),
+            "defrag_moves": sum(moves),
+            "prefix": (eng.prefix.stats() if eng.prefix is not None
+                       else None),
+            "graphs": eng.graphs, "graphs_reason": eng.graphs_reason}
+
+
+# --------------------------------------------------------------------------
+# rank functions
+# --------------------------------------------------------------------------
+
+
+def run_cases(mesh, names, table_dir=None) -> dict:
+    """Every case in ``names`` on this rank (rank r's clock ``r *
+    CLOCK_OFFSET`` ahead in the "clocks" case), then with ``table_dir``
+    :func:`serve_tuned`, then the compressed gradient means."""
+    out = {}
+    for name in names:
+        offset = mesh.rank * CLOCK_OFFSET if name == "clocks" else 0.0
+        out[name] = serve(name, mesh=mesh, clock_offset=offset)
+    if table_dir is not None:
+        out["tuned"] = serve_tuned(mesh, table_dir)
+    out["psum"] = psum_rounds(mesh)
+    out["coords"] = dict(mesh.coords)
+    return out
+
+
+def serve_tuned(mesh, table_dir: str) -> dict:
+    """The "olmo" case with a table on rank 0 alone: a calibration entry
+    for the ``cpu`` backend (its bandwidth doubled), and a tracer that
+    times every fresh decision (decisions no other rank meets).  The
+    engine shares rank 0's table, so every rank prices with the
+    calibrated constants; then each rank asks to save the table into
+    ``table_dir``."""
+    dispatch.clear_autotune_table()
+    tracer = None
+    if mesh.rank == 0:
+        seed = get_backend("cpu").seed_cost_model
+        dispatch.autotune_table().put_calibration("cpu", {
+            "schema": 1, "constants": seed.with_constants(
+                bandwidth_gbps=seed.bandwidth_gbps * 2).constants()})
+        tracer = Tracer(timing=True)
+    try:
+        out = serve("olmo", mesh=mesh, tracer=tracer)
+        path = os.path.join(table_dir, f"table{mesh.rank}.json")
+        out["wrote"] = tuning.save_autotune_table(path, mesh)
+        out["file"] = os.path.exists(path)
+        out["traced"] = 0 if tracer is None else len(tracer.dispatches)
+    finally:
+        uninstall_tracer(tracer)
+        dispatch.clear_autotune_table()
+    out.pop("graphs")
+    return out
+
+
+def psum_inputs(rank: int) -> dict:
+    """A rank's gradients for two rounds (a dict and a list leaf)."""
+    rng = np.random.default_rng(100 + rank)
+    return [{"w": rng.standard_normal((4, 6)).astype(np.float32) * 3,
+             "b": [rng.standard_normal(5).astype(np.float32)]}
+            for _ in range(2)]
+
+
+def psum_rounds(mesh) -> dict:
+    """``compressed_psum_mean`` over the 'model' group with each method,
+    two rounds, the int8 residual carried: each round's means and
+    residuals as numpy."""
+    out = {}
+    group = mesh.group("model")
+    for method in ("none", "bf16", "int8"):
+        ef, rounds = None, []
+        for g in psum_inputs(mesh.index("model")):
+            grads = {"w": torch.from_numpy(g["w"]),
+                     "b": [torch.from_numpy(g["b"][0])]}
+            mean, ef = coll.compressed_psum_mean(grads, group, method, ef)
+            rounds.append((
+                {"w": mean["w"].numpy(), "b": mean["b"][0].numpy()},
+                None if ef is None else {"w": ef["w"].numpy(),
+                                         "b": ef["b"][0].numpy()}))
+        out[method] = rounds
+    return out
+
+
+def skip_a_collective(mesh) -> None:
+    """Rank 1 all-reduces; rank 0 never does (and waits)."""
+    if mesh.rank == 1:
+        dist.all_reduce(torch.ones(1), group=mesh.group("model"))
+    else:
+        dist.all_gather_object([None] * mesh.world_size, "never matched")

@@ -380,3 +380,54 @@ def test_smem_counts_the_staged_v_of_each_store(bits, rows, row):
     assert 4 * (8 * 6144 + 8 * 128 * 5 + 8 + 32 + 128) <= SMEM_PER_CTA
     assert smem_bytes(8, 128, 6144, 1, bits=bits) > SMEM_PER_CTA
     assert plan_splits(*args, bits=bits) == 2
+
+
+# grok-1-314b's head grouping, G 6: 12 query heads over 2 (reduced), a
+# rank's 24 over 4 on a (1, 2) mesh, and the whole model's 48 over 8
+G6_LAYOUTS = {"g6_reduced": (2, 16), "g6_rank": (4, 128),
+              "g6_full": (8, 16)}
+
+
+@pytest.mark.parametrize("layout", sorted(G6_LAYOUTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_attention_at_g6_matches_jax(layout, dtype):
+    """Valid lengths 1, 17 and C against the JAX ``attention_core`` at
+    grok's groups of 6; the wrapper on CPU tensors and the model's
+    ``attention_core`` are the same function."""
+    Hkv, D = G6_LAYOUTS[layout]
+    B, C = 3, 40
+    q, k, v, qpos, valid = _case(B, C, Hkv, 6, D, [1, 17, C], seed=Hkv)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jlayers.attention_core(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        q_positions=jnp.asarray(qpos[:, None]),
+        kv_valid_len=jnp.asarray(valid), window=None, causal=True)
+
+    def t(a):
+        return torch.from_numpy(a).to(dtype)
+
+    args = dict(q_positions=torch.from_numpy(qpos[:, None]),
+                kv_valid_len=torch.from_numpy(valid))
+    got = decode_attention_plain(t(q), t(k), t(v), **args)
+    vr = np.asarray(jnp.asarray(v, jdt).astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               **_tol(dtype, vr))
+    assert torch.equal(decode_attention(t(q), t(k), t(v), **args), got)
+    assert torch.equal(L.attention_core(t(q), t(k), t(v), causal=True,
+                                        **args), got)
+
+
+def test_the_routing_rule_takes_groks_groups_of_6():
+    """At grok's decode shapes (8 kv heads of 128, and a rank's 4; G 6,
+    bf16) the shape rule passes and the split planner fits a 1024-position
+    cache at every bucket."""
+    for Hkv in (8, 4):
+        for B in (1, 2, 4, 8):
+            q = torch.zeros((B, 1, 6 * Hkv, 128), dtype=torch.bfloat16)
+            kv = torch.zeros((B, 1024, Hkv, 128), dtype=torch.bfloat16)
+            assert attention._shape_rule(q, kv, kv) == ""
+            s = attention.plan_splits(B, Hkv, 1024, 6, 128, SMS)
+            assert s in attention.SPLITS
+            assert attention.smem_bytes(6, 128, 1024, s) <= SMEM_PER_CTA
+    assert 6 in attention.GROUPS

@@ -1097,6 +1097,41 @@ def test_cuda_decode_attention_at_hymbas_groups_of_5(cuda, window, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("Hkv", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_decode_attention_at_groks_groups_of_6(cuda, Hkv, dtype):
+    """grok-1-314b's decode shape: 48 query heads over 8 kv heads of 128
+    (G 6), and a rank's 24 over 4 on a (1, 2) mesh, on 8 slots of a
+    1024-position cache with an idle slot past the end and an all-masked
+    one: the routing rule takes it, and at every split count the kernel
+    agrees with the plain version and is deterministic."""
+    from repro_torch.kernels.attention import (
+        decode_attention,
+        decode_attention_plain,
+        kernel_applies,
+    )
+
+    B, C, G, D = 8, 1024, 6, 128
+    qpos = [63, 511, 1000, C - 1, 299, 700, C + 500, 5]
+    q, k, v, pos = _attention_case(cuda, B, C, Hkv, G, D, dtype, qpos,
+                                   slots=12)
+    valid = pos + 1
+    valid[7] = 0                       # every score masked
+    assert kernel_applies(q, k, v, causal=True)
+    args = dict(q_positions=pos[:, None], kv_valid_len=valid)
+    want = decode_attention_plain(q, k, v, **args)
+    for splits in (None, 1, 2, 4, 8):
+        n0 = decode_attention.launches
+        got = decode_attention(q, k, v, splits=splits, **args)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == n0 + 1
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **_attention_tol(dtype, v))
+        assert torch.equal(got, decode_attention(q, k, v, splits=splits,
+                                                 **args))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("C", [1024, 4096])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("G,Hkv", [(1, 16), (8, 2)])

@@ -45,7 +45,12 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.observability",
             "repro_torch.observability.trace",
             "repro_torch.observability.log",
-            "repro_torch.observability.export"} <= set(names)
+            "repro_torch.observability.export",
+            "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.axes",
+            "repro_torch.distributed.collectives",
+            "repro_torch.distributed.tuning",
+            "repro_torch.configs.grok_1_314b"} <= set(names)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

@@ -138,7 +138,8 @@ def test_hymba_and_grok_are_still_refused():
     Mamba heads, registered, its config the JAX package's); what stays
     refused is hymba's heads outside the hybrid family (as a dense
     family, or as an ssm family of Mamba kind) and a hybrid config
-    without them; grok-1-314b (8 cards) is not registered."""
+    without them.  grok-1-314b is registered now (sharded serving), its
+    config the JAX package's field for field."""
     j = ARCHS["hymba-1.5b"]
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
     kw = {k: v for k, v in dataclasses.asdict(j).items() if k in fields}
@@ -160,9 +161,14 @@ def test_hymba_and_grok_are_still_refused():
                                     ssm=SSMConfig(kind="mamba"))
     with pytest.raises(ValueError, match="not ported"):
         lm.check_family(mamba_ssm)
-    assert "grok-1-314b" in ARCHS and "grok-1-314b" not in TARCHS
-    with pytest.raises(KeyError):
-        get_config("grok-1-314b")
+    grok, jgrok = get_config("grok-1-314b"), ARCHS["grok-1-314b"]
+    for f in fields:
+        want = getattr(jgrok, f)
+        got = getattr(grok, f)
+        assert (dataclasses.asdict(got) == dataclasses.asdict(want)
+                if dataclasses.is_dataclass(want) else got == want), f
+    assert TARCHS["grok-1-314b"] is grok
+    lm.check_family(grok)
     lm.check_family(get_config(ARCH))
 
 
