@@ -332,7 +332,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    cs; from repro_torch.kernels import _build; _build.build(force=True);
    d = torch.device('cuda', 0); cs.check_mesh_kernels(d);
    cs.run_mesh(d)"``;
-21. the ``{"kernels": [...]}`` line (``decode_attention_g5``: the G 5
+21. ``[train]``: training on the card, where no port kernel runs (the
+   reference's train step reaches no Pallas kernel; every wrapper
+   refuses autograd).  olmo-1b at full width and depth in f32 (TF32
+   off), AdamW, 20 steps of ``build_train_step`` at batch 8 x 128 on
+   ``SyntheticLM`` with remat on, then 5 with it off: fails unless the
+   loss of the last 5 steps is below that of the first 5 and every
+   ``grad_norm`` is finite; prints step-time p50, tokens/s and peak
+   memory each way (a step's, and one forward and backward's alone).  Card against CPU: olmo-1b and deepseek-moe-16b at
+   full width and 2 layers, one step's loss and every gradient at batch
+   2 x 64 from the same params (remat off), within the tolerance
+   printed; no port kernel launched under grad (deepseek's MoE runs the
+   capacity einsum, no ``ragged_gemv``).  Recovery: ``launch.train.main``
+   (olmo-1b, 2 layers, 12 steps, a checkpoint every 5) with a fault at
+   step 7 against an uninterrupted run: final params and state bit for
+   bit (deterministic algorithms on).  Data parallel: two ranks of a
+   (2, 1) mesh through ``spawn`` on this card over gloo, one step of
+   olmo-1b at full width and 2 layers on a global batch of 4 x 64:
+   params bit-equal across ranks, loss and averaged gradients against
+   the one-process step's.  The phase alone: ``python3 -c "import
+   torch, chip_smoke as cs; cs.run_train(torch.device('cuda', 0))"``;
+22. the ``{"kernels": [...]}`` line (``decode_attention_g5``: the G 5
    instance over one hymba-1.5b step; ``decode_attention_g6``: the G 6
    instance over one grok-1-314b step of a rank), the card line, and the
    last line ``{"ok": true, "device": {...}}``.
@@ -350,6 +370,7 @@ import gc
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -475,6 +496,16 @@ from repro_torch.models.layers import GATED  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.distributed.collectives import all_reduce_sum  # noqa: E402
 from repro_torch.launch.mesh import spawn  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.train.optimizer import OptConfig  # noqa: E402
+from repro_torch.train.train_step import (  # noqa: E402
+    TrainConfig,
+    build_train_step,
+)
+from repro_torch.tree import flatten_with_paths  # noqa: E402
+from repro_torch.tree import leaves as tree_leaves_of  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 from repro_torch.observability import export  # noqa: E402
 from repro_torch.observability.trace import (  # noqa: E402
     Tracer,
@@ -3197,9 +3228,9 @@ def moe_logits_check(cfg, params, dev) -> dict:
     ref_pol = DispatchPolicy(kernel="ref", use_pallas=False)
     inputs, real = [], L.apply_moe
 
-    def spy(p, x, cfg, gemv=None):
+    def spy(p, x, cfg, gemv=None, **kw):
         inputs.append(x)
-        return real(p, x, cfg, gemv=gemv)
+        return real(p, x, cfg, gemv=gemv, **kw)
 
     out = {}
     syncs: collections.Counter = collections.Counter()
@@ -4919,8 +4950,8 @@ def mesh_serve(cfg, params, dev, mesh=None, overlap: bool = False,
                  overlap_collectives=overlap)
     blocks, real = [], L.moe_partial
 
-    def spy(p, x, cfg_, gemv=None):
-        y, aux, partial = real(p, x, cfg_, gemv=gemv)
+    def spy(p, x, cfg_, gemv=None, **kw):
+        y, aux, partial = real(p, x, cfg_, gemv=gemv, **kw)
         if x.shape[1] == 1 and len(blocks) < cfg.n_layers:
             whole = all_reduce_sum(y, mesh.group("model")) if partial else y
             blocks.append((x.cpu(), whole.cpu()))
@@ -5307,6 +5338,304 @@ def run_mesh(dev) -> dict:
                                      f"launched on any model")
     out["seconds"] = time.perf_counter() - t_all
     return out
+
+
+# ---------------------------------------------------------------------------
+# [train]: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "olmo-1b"
+TRAIN_STEPS, TRAIN_OFF_STEPS = 20, 5    # remat on, then off
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_CHECK = (("olmo-1b", 2), ("deepseek-moe-16b", 2))   # (arch, layers)
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 64
+# card against CPU, f32 with TF32 off, the sums in other orders: the loss
+# within 1e-5 relative, each gradient leaf within 1e-3 of its own max |g|
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
+TRAIN_RECOVERY = dict(layers=2, steps=12, every=5, fail_at=7)
+TRAIN_DP_SHAPE, TRAIN_DP_BATCH = (2, 1), 4
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+
+
+def train_config(arch: str, layers: int | None = None, **kw):
+    """``arch`` in f32 (the launcher's numerics), cut to ``layers``."""
+    cfg = get_config(arch)
+    return dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32",
+        n_layers=layers or cfg.n_layers, **kw)
+
+
+def train_setup(cfg, batch: int, seq: int, steps: int = 10):
+    tcfg = TrainConfig(opt=OptConfig(name=cfg.optimizer, warmup_steps=2,
+                                     total_steps=steps))
+    data = SyntheticLM(cfg, DataConfig(global_batch=batch, seq_len=seq,
+                                       seed=SEED))
+    return tcfg, data
+
+
+def train_steps(cfg, params, dev, n: int) -> dict:
+    """``n`` steps of ``build_train_step`` from ``params``: each step's
+    loss, grad norm and seconds (synchronized) and the steps' peak
+    memory; then one forward and backward alone (``step.grads``, the
+    second of two calls) on the last params: its seconds and peak.  A
+    step's peak is its functional update (old and new params and
+    moments side by side); remat saves memory in the backward."""
+    tcfg, data = train_setup(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS)
+    step, opt_init = build_train_step(cfg, tcfg)
+    state = opt_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, norms, secs = [], [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, data.batch_at(i))
+        losses.append(float(m["loss"]))     # a host read: synchronizes
+        norms.append(float(m["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del state
+    batch = data.batch_at(n)
+    step.grads(params, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    grads = step.grads(params, batch)
+    torch.cuda.synchronize()
+    grads_s = time.perf_counter() - t0
+    grads_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del grads, params
+    # the first step pays the allocator's and the libraries' warm-up
+    p50 = float(np.median(secs[1:])) if n > 1 else secs[0]
+    return {"losses": losses, "grad_norms": norms, "step_s": secs,
+            "step_p50_ms": p50 * 1e3,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / p50,
+            "peak_gb": peak, "grads_ms": grads_s * 1e3,
+            "grads_peak_gb": grads_peak}
+
+
+def grads_card_vs_cpu(arch: str, layers: int, dev) -> dict:
+    """One step's loss, aux and gradients of ``arch`` (full width,
+    ``layers`` layers, remat off) on the card and on the CPU from the
+    same params and batch; the port's kernels' launches on the card."""
+    cfg = train_config(arch, layers, remat=False)
+    tcfg, data = train_setup(cfg, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ)
+    batch = data.batch_at(0)
+    step, _ = build_train_step(cfg, tcfg)
+    params = lm.init_lm(cfg, seed=SEED, device=dev)
+    host = tree_map(lambda t: t.cpu(), params)
+    reset_launches()
+    t0 = time.perf_counter()
+    g_card, loss_card, aux_card = step.grads(params, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launched = launches()
+    g_card = tree_map(lambda t: t.cpu(), g_card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g_cpu, loss_cpu, aux_cpu = step.grads(host, batch)
+    cpu_s = time.perf_counter() - t0
+    worst, worst_leaf = 0.0, None
+    for (path, a), b in zip(flatten_with_paths(g_cpu), tree_leaves_of(g_card)):
+        ref = float(a.abs().max())
+        share = float((a - b).abs().max()) / max(ref, 1e-30)
+        if share > worst:
+            worst, worst_leaf = share, "/".join(map(str, path))
+    loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    aux_rel = (abs(float(aux_card) - float(aux_cpu))
+               / max(abs(float(aux_cpu)), 1e-30))
+    res = {"arch": arch, "layers": layers, "loss_card": float(loss_card),
+           "loss_cpu": float(loss_cpu), "aux_card": float(aux_card),
+           "aux_cpu": float(aux_cpu), "loss_rel": loss_rel,
+           "aux_rel": aux_rel, "worst_grad_share": worst,
+           "worst_leaf": worst_leaf, "launches": launched,
+           "card_s": card_s, "cpu_s": cpu_s,
+           "leaves": len(tree_leaves_of(g_cpu))}
+    if any(launched.values()):
+        raise AssertionError(f"[train] {arch}: port kernels launched under "
+                             f"grad: {launched}")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and aux_rel <= TRAIN_LOSS_RTOL
+            and worst <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"[train] {arch} card vs CPU out of "
+                             f"tolerance: {res}")
+    return res
+
+
+def train_recovery(dev) -> dict:
+    """``launch.train.main`` with a fault at ``fail_at`` against the same
+    run without one: both end with the same params and optimizer state,
+    bit for bit (deterministic algorithms on for both runs)."""
+    r = TRAIN_RECOVERY
+    argv = ["--arch", TRAIN_ARCH, "--n-layers", str(r["layers"]),
+            "--steps", str(r["steps"]), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--ckpt-every", str(r["every"]),
+            "--device", str(dev)]
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        faulted = train_launcher.main(
+            argv + ["--ckpt-dir", str(TRAIN_CKPT / "faulted")],
+            fail_at=(r["fail_at"],))
+        faulted_s = time.perf_counter() - t0
+        clean = train_launcher.main(
+            argv + ["--ckpt-dir", str(TRAIN_CKPT / "clean")])
+    finally:
+        torch.use_deterministic_algorithms(was)
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves_of((faulted["params"], faulted["opt"])),
+        tree_leaves_of((clean["params"], clean["opt"]))))
+    res = {"restarts": faulted["stats"].restarts,
+           "restored_steps": faulted["stats"].restored_steps,
+           "bit_equal": same, "faulted_s": faulted_s,
+           "final_loss": faulted["losses"][-1],
+           "clean_final_loss": clean["losses"][-1]}
+    if res["restarts"] != 1 or not same:
+        raise AssertionError(f"[train] recovery: {res}")
+    return res
+
+
+def train_dp_rank(mesh) -> dict:
+    """One rank of the data-parallel check: one step of olmo-1b (full
+    width, 2 layers) on its rows of the global batch; its averaged
+    gradients on the host, the digest of its updated params."""
+    import hashlib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_config(TRAIN_ARCH, 2, remat=False)
+    tcfg, data = train_setup(cfg, TRAIN_DP_BATCH, TRAIN_CHECK_SEQ)
+    step, opt_init = build_train_step(cfg, tcfg, mesh=mesh)
+    params = lm.init_lm(cfg, seed=SEED, device=mesh.device)
+    batch = data.batch_at(0)
+    grads, loss, aux = step.grads(params, batch)
+    new, _, metrics = step(params, opt_init(params), batch)
+    h = hashlib.sha256()
+    for t in tree_leaves_of(new):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return {"rank": mesh.rank, "backend": mesh.backend,
+            "device": str(mesh.device), "loss": float(loss),
+            "aux": float(aux), "digest": h.hexdigest(),
+            "grads": tree_map(lambda t: t.cpu(), grads),
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+def train_data_parallel(dev) -> dict:
+    """Two ranks of a (2, 1) mesh on this card against the one-process
+    step on the whole batch."""
+    cfg = train_config(TRAIN_ARCH, 2, remat=False)
+    tcfg, data = train_setup(cfg, TRAIN_DP_BATCH, TRAIN_CHECK_SEQ)
+    step, _ = build_train_step(cfg, tcfg)
+    params = lm.init_lm(cfg, seed=SEED, device=dev)
+    g1, loss1, _ = step.grads(params, data.batch_at(0))
+    g1 = tree_map(lambda t: t.cpu(), g1)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(train_dp_rank, TRAIN_DP_SHAPE, timeout_s=MESH_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    worst = 0.0
+    for (_, a), b in zip(flatten_with_paths(g1), tree_leaves_of(ranks[0]["grads"])):
+        worst = max(worst, float((a - b).abs().max())
+                    / max(float(a.abs().max()), 1e-30))
+    loss_rel = abs(ranks[0]["loss"] - float(loss1)) / abs(float(loss1))
+    res = {"ranks": [{k: r[k] for k in ("rank", "backend", "device", "loss",
+                                         "digest", "metrics")}
+                     for r in ranks],
+           "params_bit_equal": len({r["digest"] for r in ranks}) == 1,
+           "grads_bit_equal": all(torch.equal(a, b) for a, b in zip(
+               tree_leaves_of(ranks[0]["grads"]),
+               tree_leaves_of(ranks[1]["grads"]))),
+           "loss_one_process": float(loss1), "loss_rel": loss_rel,
+           "worst_grad_share": worst, "spawn_s": spawn_s}
+    if not (res["params_bit_equal"] and res["grads_bit_equal"]
+            and loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"[train] data parallel: "
+                             f"{ {k: v for k, v in res.items()} }")
+    return res
+
+
+def run_train(dev) -> dict:
+    """[train]: see the module's docstring, item 21."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_all = time.perf_counter()
+    card = nvidia_smi_line()
+    cfg = train_config(TRAIN_ARCH)
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, f32 "
+        f"(TF32 off), AdamW, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"{TRAIN_STEPS} steps with remat, {TRAIN_OFF_STEPS} without; "
+        f"{card}")
+    reset_launches()
+    runs = {}
+    for remat, n in ((True, TRAIN_STEPS), (False, TRAIN_OFF_STEPS)):
+        c = dataclasses.replace(cfg, remat=remat)
+        params = lm.init_lm(c, seed=SEED, device=dev)
+        runs[remat] = train_steps(c, params, dev, n)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    path_launches = launches()
+    on, off = runs[True], runs[False]
+    first, last = np.mean(on["losses"][:5]), np.mean(on["losses"][-5:])
+    if not (last < first and all(np.isfinite(on["grad_norms"]
+                                             + off["grad_norms"]))):
+        raise AssertionError(f"[train] loss {first:.4f} -> {last:.4f}, "
+                             f"grad norms {on['grad_norms']}")
+    if any(path_launches.values()):
+        raise AssertionError(f"[train] port kernels launched: "
+                             f"{path_launches}")
+    for tag, r in (("remat on", on), ("remat off", off)):
+        log(f"  {tag}: step p50 {r['step_p50_ms']:.1f} ms, "
+            f"{r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gb']:.2f} GB "
+            f"a step; forward and backward alone {r['grads_ms']:.1f} ms, "
+            f"peak {r['grads_peak_gb']:.2f} GB ({len(r['step_s'])} steps; "
+            f"{card})")
+    log(f"  loss {on['losses'][0]:.4f} -> {on['losses'][-1]:.4f} (mean of "
+        f"the first 5 {first:.4f}, of the last 5 {last:.4f}); grad norms "
+        f"finite; port kernel launches {json.dumps(path_launches)}")
+    checks = {}
+    for arch, layers in TRAIN_CHECK:
+        r = grads_card_vs_cpu(arch, layers, dev)
+        checks[arch] = r
+        log(f"[train] card vs CPU {arch} ({layers} of "
+            f"{get_config(arch).n_layers} layers, full width, batch "
+            f"{TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ}): loss "
+            f"{r['loss_card']:.6f} vs {r['loss_cpu']:.6f} (rel "
+            f"{r['loss_rel']:.2e}, tolerance {TRAIN_LOSS_RTOL}), aux rel "
+            f"{r['aux_rel']:.2e}; {r['leaves']} gradient leaves, worst "
+            f"max|diff| / max|g| {r['worst_grad_share']:.2e} at "
+            f"{r['worst_leaf']} (tolerance {TRAIN_GRAD_RTOL}); launches "
+            f"under grad {json.dumps({k: v for k, v in r['launches'].items() if v}) or 'none'} "
+            f"(ragged_gemv {r['launches']['ragged_gemv']}); step.grads "
+            f"{r['card_s']:.2f} s on the card, {r['cpu_s']:.2f} s on the "
+            f"CPU; {card}")
+    rec = train_recovery(dev)
+    log(f"[train] recovery: launch.train.main {TRAIN_ARCH} "
+        f"{TRAIN_RECOVERY['layers']} layers, {TRAIN_RECOVERY['steps']} "
+        f"steps, fault at step {TRAIN_RECOVERY['fail_at']}: restarts "
+        f"{rec['restarts']}, restored {rec['restored_steps']}, final params "
+        f"and state bit-equal to the uninterrupted run's {rec['bit_equal']}"
+        f" (final loss {rec['final_loss']:.4f}); faulted run "
+        f"{rec['faulted_s']:.1f} s; {card}")
+    dp = train_data_parallel(dev)
+    log(f"[train] data parallel: (2, 1) mesh, ranks "
+        f"{[(r['rank'], r['backend'], r['device']) for r in dp['ranks']]}: "
+        f"params bit-equal {dp['params_bit_equal']}, averaged gradients "
+        f"bit-equal {dp['grads_bit_equal']}; loss {dp['ranks'][0]['loss']:.6f}"
+        f" vs one process {dp['loss_one_process']:.6f} (rel "
+        f"{dp['loss_rel']:.2e}); gradients worst max|diff| / max|g| "
+        f"{dp['worst_grad_share']:.2e} (tolerance {TRAIN_GRAD_RTOL}); spawn "
+        f"{dp['spawn_s']:.1f} s (two ranks on one card over gloo: not a "
+        f"mesh's speed); {card}")
+    seconds = time.perf_counter() - t_all
+    log(f"[train] {seconds:.1f} s on {card}")
+    return {"card": card, "remat_on": on, "remat_off": off,
+            "path_launches": path_launches, "card_vs_cpu": checks,
+            "recovery": rec, "data_parallel": dp, "seconds": seconds}
 
 
 def kernels_line(rows: list[dict], launch_counts: dict,
@@ -5742,6 +6071,8 @@ def main() -> int:
     log(f"[mesh] {mesh['seconds']:.1f} s ({mesh['with_kernels_s']:.1f} s "
         f"with [mesh kernels]) on {card}")
 
+    train = run_train(dev)
+
     launch_counts = {**{n: engine["launches"][n] for n in FLOAT_KERNELS},
                      "quant_gemv":
                          quant["passes"]["w8"]["launches"]["quant_gemv"],
@@ -5788,7 +6119,7 @@ def main() -> int:
         multimodal=multimodal, multimodal_s=multimodal_s, state=state,
         hybrid=hybrid,
         autotune=autotune, pim=pim, calibrate=calibrate, trace=trace,
-        mesh=mesh,
+        mesh=mesh, train=train,
         kernels=line["kernels"],
         total_s=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -7,7 +7,7 @@ stub patch embeddings), ssm (rwkv6: attention-free time-mix and
 channel-mix over a recurrent state) or hybrid (hymba: Mamba heads in
 parallel with sliding-window attention, ``parallel_ssm``) decoder needs;
 ``hd``, ``attn_free``, ``is_global_layer``, ``is_cross_layer`` and
-``reduced()``.
+``reduced()``; and the training fields ``optimizer`` and ``remat``.
 """
 
 from __future__ import annotations
@@ -69,6 +69,8 @@ class ModelConfig:
     tie_embeddings: bool = True
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    optimizer: str = "adamw"     # adamw | adafactor (train/optimizer.py)
+    remat: bool = True           # training: recompute each layer in backward
     max_seq_len: int = 131_072
     moe: MoEConfig | None = None
     ssm: SSMConfig | None = None

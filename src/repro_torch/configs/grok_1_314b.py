@@ -1,6 +1,6 @@
 """grok-1-314b [hf:xai-org/grok-1; unverified]: 64L d=6144 48H (GQA kv=8)
-MoE 8 experts top-2, d_expert=32768, vocab=131072.  The reference's
-training-only field (the Adafactor optimizer) has no counterpart here."""
+MoE 8 experts top-2, d_expert=32768, vocab=131072.  Adafactor optimizer
+(factored second moment) so its training state stays sublinear."""
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 
@@ -23,5 +23,6 @@ CONFIG = ModelConfig(
     ),
     param_dtype="bfloat16",
     compute_dtype="bfloat16",
+    optimizer="adafactor",
     source="hf:xai-org/grok-1 (unverified)",
 )

@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.tree import tree_map
+
 
 class Reduction:
     """``t`` summed over ``group`` in f32: issued at construction (with
@@ -71,18 +73,9 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def _tree_map(fn, *trees):
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    if isinstance(t0, (list, tuple)):
-        return type(t0)(_tree_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
-
-
 def init_error_feedback(grads):
     """A zero f32 residual for every leaf of ``grads``."""
-    return _tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
+    return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
                                            device=g.device), grads)
 
 
@@ -102,13 +95,13 @@ def compressed_psum_mean(grads, group, method: str = "none",
             buf = g.float().clone()
             dist.all_reduce(buf, group=group)
             return buf / n
-        return _tree_map(one, grads), error_feedback
+        return tree_map(one, grads), error_feedback
     if method == "bf16":
         def one(g):
             buf = g.to(torch.bfloat16).clone()
             dist.all_reduce(buf, group=group)
             return buf.float() / n
-        return _tree_map(one, grads), error_feedback
+        return tree_map(one, grads), error_feedback
     if method == "int8":
         ef = error_feedback or init_error_feedback(grads)
 
@@ -125,7 +118,7 @@ def compressed_psum_mean(grads, group, method: str = "none",
                 total = total + qw.float() * sw
             return total / n, new_e
 
-        return _split_pairs(_tree_map(one, grads, ef))
+        return _split_pairs(tree_map(one, grads, ef))
     raise ValueError(method)
 
 

@@ -23,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -178,3 +180,16 @@ def check(rc: int, what: str) -> None:
     runs, and a later synchronize would not report it)."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would record through a kernel wrapper: grad
+    mode is on and an input requires grad.  The hand kernels have no
+    backward, so their output would silently cut the graph; the same
+    rule holds on the CPU, where the wrapper runs its plain version."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or on "
+            f"tensors that do not require grad (a training forward takes "
+            f"plain PyTorch products)")

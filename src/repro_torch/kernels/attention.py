@@ -279,6 +279,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     store's int8 codes (``[B, C, Hkv, D]``) or packed int4 codes
     (``[B, C, Hkv, D // 2]``); the plain version dequantizes them with
     ``dequantize_page`` first."""
+    _build.refuse_grad("decode_attention", q, k, v, k_scale, v_scale)
     why = _shape_rule(q, k, v, k_scale, v_scale)
     if why:
         raise ValueError(f"decode_attention: {why}")

@@ -151,6 +151,7 @@ def grouped_gemv(xs: torch.Tensor, w_t: torch.Tensor, *,
     """xs [E, C, K], w_t [E, K, M] -> [E, C, M], ``plan`` from
     ``gemv_plan.plan_grouped_stream``: one launch for up to 64 rows an
     expert in bf16 (8 in f32), a launch per row chunk beyond."""
+    _build.refuse_grad("grouped_gemv", xs, w_t)
     if xs.ndim != 3:
         raise ValueError(f"expected xs [E, C, K], got {tuple(xs.shape)}")
     E, M, ld, es = _check_stack(xs, w_t, xs.shape[2])
@@ -213,6 +214,7 @@ def ragged_gemv(x: torch.Tensor, offsets: torch.Tensor, w_t: torch.Tensor,
     [T, M] in one launch, ``plan`` from ``gemv_plan.plan_ragged_stream``;
     rows no expert's range holds (those at or beyond ``offsets[E]``) are
     zero."""
+    _build.refuse_grad("ragged_gemv", x, w_t)
     if x.ndim != 2:
         raise ValueError(f"expected x [T, K], got {tuple(x.shape)}")
     E, M, ld, es = _check_stack(x, w_t, x.shape[1])

@@ -92,6 +92,7 @@ def pim_gemv_plain(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
 def pim_gemv(x: torch.Tensor, w_t: torch.Tensor, *,
              plan: GemvPlan) -> torch.Tensor:
     """x [B, K], w_t [K, M] -> [B, M] through the output-stationary kernel."""
+    _build.refuse_grad("pim_gemv", x, w_t)
     B, K, M, ld = check_inputs(x, w_t, plan)
     if plan.split_k != 1:
         raise ValueError(f"pim_gemv takes a plan with split_k=1, got {plan}")

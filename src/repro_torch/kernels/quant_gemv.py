@@ -108,6 +108,7 @@ def _launch(fn_name: str, counter, x, w_q, scales, block, plan, B, K, M,
 def quant_gemv(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor, *,
                block: int, plan: GemvPlan) -> torch.Tensor:
     """x [B, K], int8 codes [K, M], scales [K / block, M] -> [B, M]."""
+    _build.refuse_grad("quant_gemv", x, w_q, scales)
     B, K, M, ldw, lds = check_quant_inputs(x, w_q, scales, block, 8, plan)
     if x.device.type == "cpu":
         return quant_gemv_plain(x, w_q, scales, block)
@@ -122,6 +123,7 @@ def quant4_gemv(x: torch.Tensor, w_packed: torch.Tensor,
                 plan: GemvPlan) -> torch.Tensor:
     """x [B, K], packed int4 codes [K / 2, M], scales [K / block, M] ->
     [B, M]."""
+    _build.refuse_grad("quant4_gemv", x, w_packed, scales)
     B, K, M, ldw, lds = check_quant_inputs(x, w_packed, scales, block, 4,
                                            plan)
     if x.device.type == "cpu":

@@ -45,6 +45,7 @@ def splitk_gemv_plain(x: torch.Tensor, w_t: torch.Tensor,
 def splitk_gemv(x: torch.Tensor, w_t: torch.Tensor, *,
                 plan: GemvPlan) -> torch.Tensor:
     """x [B, K], w_t [K, M] -> [B, M] through the split-K kernel."""
+    _build.refuse_grad("splitk_gemv", x, w_t)
     B, K, M, ld = check_inputs(x, w_t, plan)
     deg = plan.split_k
     if deg < 2:

@@ -127,6 +127,7 @@ def triton_gemv_plain(x: torch.Tensor, w_t: torch.Tensor,
 def triton_gemv(x: torch.Tensor, w_t: torch.Tensor, *,
                 plan: GemvPlan) -> torch.Tensor:
     """x [B, K], w_t [K, M] -> [B, M] through the column-block kernel."""
+    _build.refuse_grad("triton_gemv", x, w_t)
     B, K, M, ld = check_inputs(x, w_t, plan)
     if x.device.type == "cpu":
         return triton_gemv_plain(x, w_t, plan.k_blk)

@@ -514,11 +514,20 @@ def _router(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _aux_loss(probs: torch.Tensor, counts: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
+              cfg: ModelConfig, batch_group=None) -> torch.Tensor:
     """Switch-style load-balance loss over all tokens, from the per-expert
-    pair counts of the whole batch (the one-hot sums of the JAX code)."""
+    pair counts of the whole batch (the one-hot sums of the JAX code).
+
+    With ``batch_group`` (data-parallel training: each rank holds a row
+    block of one global batch) the counts are summed over the group
+    first, so ``ce`` is the global batch's; with each rank's own ``me``
+    the ranks' mean loss and its gradient are the global batch's.  The
+    counts are integers and carry no gradient."""
     e = cfg.moe
     n_tok = probs.shape[0] * probs.shape[1]
+    if batch_group is not None:
+        counts = all_reduce_sum(counts, batch_group)
+        n_tok *= torch.distributed.get_world_size(batch_group)
     me = probs.mean(dim=(0, 1))
     ce = counts.float() / n_tok / e.top_k
     return e.n_experts * (me * ce).sum() * e.router_aux_weight
@@ -599,15 +608,23 @@ def _capacity_plan(top_i: torch.Tensor, top_p: torch.Tensor, C: int,
 
 
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
-              gemv=None) -> tuple[torch.Tensor, torch.Tensor]:
+              gemv=None, *, batch_group=None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """x ``[B, S, d]`` -> ``(y, aux_loss)``: :func:`moe_partial` with its
     collective."""
-    y, aux, partial = moe_partial(p, x, cfg, gemv)
+    y, aux, partial = moe_partial(p, x, cfg, gemv, batch_group=batch_group)
     return (all_reduce_sum(y, model_group()) if partial else y), aux
 
 
+def records_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records through an op on ``tensors``: grad mode
+    is on and one of them requires grad (a training forward)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def moe_partial(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                gemv=None) -> tuple[torch.Tensor, torch.Tensor, bool]:
+                gemv=None, *, batch_group=None
+                ) -> tuple[torch.Tensor, torch.Tensor, bool]:
     """x ``[B, S, d]`` -> ``(y, aux_loss, partial)``.
 
     With a ``gemv`` DispatchPolicy, fusing on and a single-token input
@@ -628,6 +645,12 @@ def moe_partial(p: dict, x: torch.Tensor, cfg: ModelConfig,
     zero.  Nothing is read back to the host, so a prefill is captured
     too.  :func:`_moe_prefill_loop` is its plain version (the offsets
     read on the host, one product per expert).
+
+    Under autograd (:func:`records_grad`: a training forward) every S
+    runs the capacity einsum, the reference's training arithmetic: plain
+    ``torch.matmul`` products, which have a backward, where prefill's
+    grouped products may reach the ``ragged_gemv`` kernel, which has
+    none.  ``batch_group`` is :func:`_aux_loss`'s.
 
     The shared experts' MLP is added last, through the dispatcher like a
     dense MLP.
@@ -662,11 +685,14 @@ def moe_partial(p: dict, x: torch.Tensor, cfg: ModelConfig,
     elif use_programs:
         y, counts = _moe_grouped_decode(p, x, cfg, gemv, top_i, top_p,
                                         n_local)
+    elif records_grad(x, p["w_up"]):
+        y, counts = _moe_capacity_buffers(p, x, cfg, top_i, top_p,
+                                          torch.matmul, n_local)
     else:
         y, counts = _moe_capacity(p, x, cfg, top_i, top_p, n_local)
     if shift:
         counts = torch.roll(counts, shift)      # back to the experts' ids
-    aux = _aux_loss(probs, counts, cfg)
+    aux = _aux_loss(probs, counts, cfg, batch_group)
     partial = n_local is not None
     if e.n_shared:
         sh, sh_partial = mlp_partial(p["shared"], x, cfg, gemv,

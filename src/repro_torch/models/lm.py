@@ -40,6 +40,7 @@ import functools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -317,9 +318,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             frames: torch.Tensor | None = None,
             vision: torch.Tensor | None = None,
             gemv_policy=None,
-            last: torch.Tensor | None = None) -> tuple[torch.Tensor,
-                                                       dict | None,
-                                                       torch.Tensor]:
+            last: torch.Tensor | None = None,
+            remat: bool | None = None,
+            batch_group=None) -> tuple[torch.Tensor, dict | None,
+                                       torch.Tensor]:
     """Returns ``(logits [B, S, vocab], new_cache, aux_loss)``; with
     ``last`` (int64 ``[B]``, a position in each row) the final norm and
     the head run at those positions alone and the logits are ``[B, 1,
@@ -344,6 +346,18 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     compute dtype here, and is the context every cross-attending layer
     projects its K / V from, on every call (decode steps included), as
     in the JAX package.
+
+    A training forward (no cache, and autograd records through the
+    embedded tokens) recomputes each layer in the backward with ``remat``
+    (default ``cfg.remat``): the layer runs under
+    ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
+    counterpart of the reference's ``jax.checkpoint`` around its layer
+    scan's body; the gradients are the same bits.  Its MoE layers run the
+    capacity einsum (``layers.moe_partial``).  ``batch_group`` is the
+    data-parallel group whose ranks hold row blocks of one global batch:
+    the MoE load-balance loss counts the global batch's routing there.
+    Decode and prefill (a cache, or nothing requiring grad) are computed
+    as without these.
     """
     B, Sq = tokens.shape
     dtype = torch_dtype(cfg.compute_dtype)
@@ -367,8 +381,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                              f"(vision=)")
         ctx = vision.to(dtype)
 
+    remat = cfg.remat if remat is None else remat
+    remat = remat and cache is None and L.records_grad(x)
     x, aux = _forward_flat(params, cfg, x, positions, cache, gemv_policy,
-                           ctx)
+                           ctx, remat=remat, batch_group=batch_group)
 
     if last is not None:
         x = x[torch.arange(B, device=x.device), last][:, None]
@@ -447,7 +463,8 @@ def run_encoder(p: dict, frames: torch.Tensor,
     return x
 
 
-def _forward_flat(params, cfg, x, positions, cache, gemv=None, ctx=None):
+def _forward_flat(params, cfg, x, positions, cache, gemv=None, ctx=None, *,
+                  remat: bool = False, batch_group=None):
     """The layer stack as a Python loop (``lax.scan`` in the JAX package):
     pre-norm attention (over each layer's :func:`layer_window`) and FFN (or
     MoE) blocks with residuals, then, on a cross-attending layer, the
@@ -458,7 +475,9 @@ def _forward_flat(params, cfg, x, positions, cache, gemv=None, ctx=None):
     layer runs its Mamba heads on the same normed input as attention and
     adds ``beta_attn · attention + beta_ssm · mamba`` (model dtype) to the
     residual (``lm._self_block``); with a cache, the Mamba state continues
-    from layer ``i``'s ``mamba_*`` leaves and is advanced in place.
+    from layer ``i``'s ``mamba_*`` leaves and is advanced in place.  With
+    ``remat`` each layer (:func:`_layer`) runs under a non-reentrant
+    checkpoint.
 
     Under a mesh a sharded FFN's output is a partial sum, all-reduced
     before the residual add.  Deferred collectives (the reference's
@@ -485,55 +504,71 @@ def _forward_flat(params, cfg, x, positions, cache, gemv=None, ctx=None):
         if pending is not None:     # the previous layer's FFN combine
             x = x + pending.wait()
             pending = None
-        if cfg.family == "ssm":
-            x = _rwkv_block(p, x, cfg, cache, i)
-            continue
-        h = L.apply_norm(p["ln1"], x, cfg)
-        cache_kv = (cache["k"][i], cache["v"][i]) if cache is not None \
-            else None
-        cache_scales = ((cache["k_scale"][i], cache["v_scale"][i])
-                        if cache is not None and "k_scale" in cache
-                        else None)
-        a = L.apply_attention(
-            p["attn"], h, cfg, positions=positions, cache_kv=cache_kv,
-            cache_pos=cache["pos"] if cache is not None else None,
-            cache_scales=cache_scales, gemv=gemv,
-            window=layer_window(cfg, i))
-        if "mamba" in p:
-            state = ((cache["mamba_conv"][i], cache["mamba_h"][i])
-                     if cache is not None else None)
-            m, _ = S.apply_mamba(p["mamba"], h, cfg, state=state)
-            a = p["beta_attn"] * a + p["beta_ssm"] * m
-        x = x + a
-        h = L.apply_norm(p["ln2"], x, cfg)
-        partial = False
-        if group is None:       # no mesh: the whole FFN, nothing to reduce
-            if "moe" in p:
-                ff, aux_l = L.apply_moe(p["moe"], h, cfg, gemv=gemv)
-                aux = aux + aux_l
-            else:
-                ff = L.apply_mlp(p["mlp"], h, cfg, gemv=gemv)
-        elif "moe" in p:
-            ff, aux_l, partial = L.moe_partial(p["moe"], h, cfg, gemv=gemv)
-            aux = aux + aux_l
+        layer = functools.partial(
+            _layer, cfg=cfg, i=i, positions=positions, cache=cache,
+            gemv=gemv, ctx=ctx, group=group, defer=defer,
+            batch_group=batch_group)
+        if remat:
+            x, aux_l, pending = checkpoint(layer, p, x, use_reentrant=False)
         else:
-            ff, partial = L.mlp_partial(p["mlp"], h, cfg, gemv=gemv)
-        if partial:
-            red = Reduction(ff, group, async_op=defer)
-            if defer:
-                pending = red
-                continue
-            ff = red.wait()
-        x = x + ff
-        if "cross" in p:
-            h = L.apply_norm(p["ln_cross"], x, cfg)
-            y = L.apply_cross_attention(p["cross"], h, ctx, cfg)
-            if cfg.cross_attn_every > 0:
-                y = torch.tanh(p["cross_gate"].to(x.dtype)) * y
-            x = x + y
+            x, aux_l, pending = layer(p, x)
+        if aux_l is not None:
+            aux = aux + aux_l
     if pending is not None:
         x = x + pending.wait()
     return x, aux
+
+
+def _layer(p: dict, x: torch.Tensor, *, cfg: ModelConfig, i: int,
+           positions, cache, gemv, ctx, group, defer: bool, batch_group):
+    """Layer ``i`` of :func:`_forward_flat`: ``(x, aux_loss or None,
+    pending)``, ``pending`` being the FFN combine left to await when
+    ``defer``."""
+    if cfg.family == "ssm":
+        return _rwkv_block(p, x, cfg, cache, i), None, None
+    h = L.apply_norm(p["ln1"], x, cfg)
+    cache_kv = (cache["k"][i], cache["v"][i]) if cache is not None \
+        else None
+    cache_scales = ((cache["k_scale"][i], cache["v_scale"][i])
+                    if cache is not None and "k_scale" in cache
+                    else None)
+    a = L.apply_attention(
+        p["attn"], h, cfg, positions=positions, cache_kv=cache_kv,
+        cache_pos=cache["pos"] if cache is not None else None,
+        cache_scales=cache_scales, gemv=gemv,
+        window=layer_window(cfg, i))
+    if "mamba" in p:
+        state = ((cache["mamba_conv"][i], cache["mamba_h"][i])
+                 if cache is not None else None)
+        m, _ = S.apply_mamba(p["mamba"], h, cfg, state=state)
+        a = p["beta_attn"] * a + p["beta_ssm"] * m
+    x = x + a
+    h = L.apply_norm(p["ln2"], x, cfg)
+    partial, aux = False, None
+    if group is None:       # no mesh: the whole FFN, nothing to reduce
+        if "moe" in p:
+            ff, aux = L.apply_moe(p["moe"], h, cfg, gemv=gemv,
+                                  batch_group=batch_group)
+        else:
+            ff = L.apply_mlp(p["mlp"], h, cfg, gemv=gemv)
+    elif "moe" in p:
+        ff, aux, partial = L.moe_partial(p["moe"], h, cfg, gemv=gemv,
+                                         batch_group=batch_group)
+    else:
+        ff, partial = L.mlp_partial(p["mlp"], h, cfg, gemv=gemv)
+    if partial:
+        red = Reduction(ff, group, async_op=defer)
+        if defer:
+            return x, aux, red
+        ff = red.wait()
+    x = x + ff
+    if "cross" in p:
+        h = L.apply_norm(p["ln_cross"], x, cfg)
+        y = L.apply_cross_attention(p["cross"], h, ctx, cfg)
+        if cfg.cross_attn_every > 0:
+            y = torch.tanh(p["cross_gate"].to(x.dtype)) * y
+        x = x + y
+    return x, aux, None
 
 
 def _rwkv_block(p: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -250,3 +250,59 @@ def skip_a_collective(mesh) -> None:
         dist.all_reduce(torch.ones(1), group=mesh.group("model"))
     else:
         dist.all_gather_object([None] * mesh.world_size, "never matched")
+
+
+# --------------------------------------------------------------------------
+# Data-parallel training (test_torch_train_mesh.py)
+# --------------------------------------------------------------------------
+
+TRAIN_ARCHS = ("olmo-1b", "deepseek-moe-16b")
+TRAIN_BATCH, TRAIN_SEQ = 4, 16      # global rows, positions
+
+
+def train_one(arch: str, mesh=None, accum: int = 1) -> dict:
+    """One step of the reduced ``arch`` from the port's seeded init on
+    the global batch of step 0: the step's gradients (before the clip),
+    loss and aux, the updated params and the metrics, on the CPU."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import TrainConfig, build_train_step
+
+    cfg = get_config(arch).reduced()
+    params = lm.init_lm(cfg, seed=0, device="cpu")
+    tcfg = TrainConfig(opt=OptConfig(name=cfg.optimizer, lr=1e-3,
+                                     warmup_steps=1, total_steps=10),
+                       accum_steps=accum)
+    step, opt_init = build_train_step(cfg, tcfg, mesh=mesh)
+    batch = SyntheticLM(cfg, DataConfig(global_batch=TRAIN_BATCH,
+                                        seq_len=TRAIN_SEQ)).batch_at(0)
+    if accum > 1:
+        batch = {k: v.reshape((accum, -1) + v.shape[1:])
+                 for k, v in batch.items()}
+    grads, loss, aux = step.grads(params, batch)
+    new, _, metrics = step(params, opt_init(params), batch)
+    return {"grads": grads, "loss": float(loss), "aux": float(aux),
+            "params": new, "metrics": {k: float(v)
+                                       for k, v in metrics.items()}}
+
+
+def train_ranks(mesh, ckpt_dir: str) -> dict:
+    """Every data-parallel case on this rank of a (2, 1) mesh: one step
+    of each ``TRAIN_ARCHS`` model, olmo-1b with accumulation, and the
+    launcher (``--mesh 2x1``) through a fault at step 3."""
+    from repro_torch.launch import train as launcher
+
+    out = {arch: train_one(arch, mesh) for arch in TRAIN_ARCHS}
+    out["accum"] = train_one("olmo-1b", mesh, accum=2)
+    out["launcher"] = launcher.run_on_mesh(
+        mesh, train_launcher_argv(ckpt_dir) + ["--mesh", "2x1"],
+        fail_at=(3,))
+    out["ckpt_steps"] = sorted(os.listdir(ckpt_dir)) if mesh.rank == 0 \
+        else None
+    return out
+
+
+def train_launcher_argv(ckpt_dir: str) -> list[str]:
+    return ["--arch", "deepseek-moe-16b", "--smoke", "--steps", "6",
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--ckpt-every", "2", "--ckpt-dir", ckpt_dir, "--device", "cpu"]

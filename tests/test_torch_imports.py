@@ -17,6 +17,7 @@ PKG = Path(repro_torch.__file__).resolve().parent
 SCRIPTS = ("examples/placement_explorer_torch.py",
            "examples/quickstart_torch.py",
            "examples/serve_decode_torch.py",
+           "examples/train_e2e_torch.py",
            "benchmarks/paper_figs_torch.py",
            "benchmarks/kernel_bench_torch.py")
 # ``import repro`` / ``from repro.x import`` -- but not ``repro_torch``
@@ -50,7 +51,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.distributed.axes",
             "repro_torch.distributed.collectives",
             "repro_torch.distributed.tuning",
-            "repro_torch.configs.grok_1_314b"} <= set(names)
+            "repro_torch.configs.grok_1_314b",
+            "repro_torch.train.optimizer", "repro_torch.train.train_step",
+            "repro_torch.train.fault_tolerance",
+            "repro_torch.checkpoint.manager", "repro_torch.data.pipeline",
+            "repro_torch.launch.train", "repro_torch.tree"} <= set(names)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
