@@ -352,7 +352,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    params bit-equal across ranks, loss and averaged gradients against
    the one-process step's.  The phase alone: ``python3 -c "import
    torch, chip_smoke as cs; cs.run_train(torch.device('cuda', 0))"``;
-22. the ``{"kernels": [...]}`` line (``decode_attention_g5``: the G 5
+22. ``[train mesh]``: model-parallel training, where no port kernel runs
+   either.  Ranks of a (1, 2) and a (2, 2) mesh share this card over
+   gloo through ``spawn``, each holding its stored blocks
+   (``sharding.train_spec``).  olmo-1b (AdamW) on (1, 2) and (2, 2),
+   deepseek-moe-16b (AdamW, experts cut over 'model') and olmo-1b with
+   Adafactor on (1, 2), at full width and 2 layers in f32 (TF32 off),
+   one step at batch 2 x 64.  Each against the one-process step on the
+   card (rank 0 computes it): the gathered gradients within
+   ``TRAIN_GRAD_RTOL`` of each leaf's max |g|, loss and aux within
+   ``TRAIN_LOSS_RTOL``, the gathered updated params within
+   ``TRAIN_GRAD_RTOL`` of each leaf's max |dp| against the one-process
+   clip and update of the mesh's gathered gradients (against the
+   one-process step's own params only printed: AdamW's first step moves a
+   weight by about ``sign(g) * lr``), every block two ranks both hold
+   bit-equal, no port kernel launched.  The (2, 2) run's params and
+   state are checkpointed (full leaves) and restored onto (1, 2) and onto
+   one process, bit-equal to the saved leaves.  Prints each rank's
+   step time and peak memory (ranks sharing a card over gloo: not a
+   mesh's speed) and the phase's seconds against its 90 s aim.  The
+   phase alone: ``python3 -c "import torch, chip_smoke as cs;
+   cs.run_train_mesh(torch.device('cuda', 0))"`` (no build needed);
+23. the ``{"kernels": [...]}`` line (``decode_attention_g5``: the G 5
    instance over one hymba-1.5b step; ``decode_attention_g6``: the G 6
    instance over one grok-1-314b step of a rank), the card line, and the
    last line ``{"ok": true, "device": {...}}``.
@@ -498,11 +519,17 @@ from repro_torch.distributed.collectives import all_reduce_sum  # noqa: E402
 from repro_torch.launch.mesh import spawn  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
-from repro_torch.train.optimizer import OptConfig  # noqa: E402
+from repro_torch.train.optimizer import (  # noqa: E402
+    OptConfig,
+    clip_by_global_norm,
+    make_optimizer,
+)
 from repro_torch.train.train_step import (  # noqa: E402
     TrainConfig,
     build_train_step,
 )
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.distributed import sharding as shd  # noqa: E402
 from repro_torch.tree import flatten_with_paths  # noqa: E402
 from repro_torch.tree import leaves as tree_leaves_of  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
@@ -5500,18 +5527,22 @@ def train_recovery(dev) -> dict:
 
 def train_dp_rank(mesh) -> dict:
     """One rank of the data-parallel check: one step of olmo-1b (full
-    width, 2 layers) on its rows of the global batch; its averaged
-    gradients on the host, the digest of its updated params."""
+    width, 2 layers) on its rows of the global batch and its FSDP blocks
+    of the params; the averaged gradients (gathered) on the host, the
+    digest of the updated params (gathered)."""
     import hashlib
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = train_config(TRAIN_ARCH, 2, remat=False)
     tcfg, data = train_setup(cfg, TRAIN_DP_BATCH, TRAIN_CHECK_SEQ)
     step, opt_init = build_train_step(cfg, tcfg, mesh=mesh)
-    params = lm.init_lm(cfg, seed=SEED, device=mesh.device)
+    params = lm.init_lm(cfg, seed=SEED, device=mesh.device, mesh=mesh,
+                        train=True)
     batch = data.batch_at(0)
     grads, loss, aux = step.grads(params, batch)
     new, _, metrics = step(params, opt_init(params), batch)
+    # each rank holds its FSDP blocks: the whole trees, gathered
+    grads, new = shd.gather_train_tree((grads, new), mesh, cfg)
     h = hashlib.sha256()
     for t in tree_leaves_of(new):
         h.update(t.detach().cpu().numpy().tobytes())
@@ -5636,6 +5667,327 @@ def run_train(dev) -> dict:
     return {"card": card, "remat_on": on, "remat_off": off,
             "path_launches": path_launches, "card_vs_cpu": checks,
             "recovery": rec, "data_parallel": dp, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# [train mesh]: model-parallel training on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+# (name, arch, optimizer): each run on its mesh against the one-process
+# step on the card, full width, TRAIN_MESH_LAYERS layers, f32, TF32 off
+TRAIN_MESH_RUNS = {
+    (1, 2): (("olmo-1b adamw", "olmo-1b", "adamw"),
+             ("deepseek-moe-16b adamw", "deepseek-moe-16b", "adamw"),
+             ("olmo-1b adafactor", "olmo-1b", "adafactor")),
+    (2, 2): (("olmo-1b adamw", "olmo-1b", "adamw"),),
+}
+TRAIN_MESH_LAYERS, TRAIN_MESH_BATCH = 2, 2
+TRAIN_MESH_CKPT = ROOT / "build" / "train_mesh_ckpt"
+TRAIN_MESH_SAVED = "olmo-1b adamw"      # the (2, 2) run it checkpoints
+TRAIN_MESH_AIM_S = 90
+
+
+def leaf_digests(tree, keep=None) -> list[str | None]:
+    """A digest of each leaf's bytes, in flattening order (with ``keep``,
+    a flag a leaf, None for the leaves it does not keep)."""
+    import hashlib
+
+    flat = tree_leaves_of(tree)
+    return [hashlib.sha1(t.detach().contiguous().cpu().numpy().tobytes())
+            .hexdigest() if keep is None or k else None
+            for t, k in zip(flat, keep or [True] * len(flat))]
+
+
+def share(got, want, base=None) -> tuple[float, str | None]:
+    """The worst leaf of ``max |got - want| / max |want - base|`` (base 0
+    by default) and its path."""
+    worst, at = 0.0, None
+    for (path, w), g, b in zip(flatten_with_paths(want),
+                               tree_leaves_of(got),
+                               tree_leaves_of(base) if base is not None
+                               else [None] * len(tree_leaves_of(want))):
+        ref = (w if b is None else w - b).abs().max()
+        s = float((g.to(w.device) - w).abs().max()) / max(float(ref), 1e-30)
+        if s > worst:
+            worst, at = s, "/".join(map(str, path))
+    return worst, at
+
+
+def train_mesh_setup(arch: str, opt: str):
+    cfg = train_config(arch, TRAIN_MESH_LAYERS)
+    tcfg, data = train_setup(cfg, TRAIN_MESH_BATCH, TRAIN_CHECK_SEQ)
+    tcfg = dataclasses.replace(tcfg, opt=dataclasses.replace(tcfg.opt,
+                                                             name=opt))
+    return cfg, tcfg, data.batch_at(0)
+
+
+def train_mesh_reference(cfg, tcfg, batch, grads, new, dev) -> dict:
+    """Rank 0's checks against the one-process step on the card: the
+    gathered gradients, loss and aux against its own; the mesh step's
+    updated params against the one-process clip and update of the mesh's
+    gathered gradients; and, printed only, against the one-process
+    step's own params (at step 1 AdamW moves a weight by about ``sign(g)
+    * lr``: a gradient within its rounding of zero moves either way)."""
+    step, opt_init = build_train_step(cfg, tcfg)
+    params = lm.init_lm(cfg, seed=SEED, device=dev)
+    g1, loss1, aux1 = step.grads(params, batch)
+    out = {"loss_one": float(loss1), "aux_one": float(aux1)}
+    out["grad_share"], out["grad_leaf"] = share(grads, g1)
+    del g1
+    _, update = make_optimizer(tcfg.opt, cfg)
+    clipped, _ = clip_by_global_norm(tree_map(lambda t: t.to(dev), grads),
+                                     tcfg.opt.grad_clip)
+    upd, _ = update(tcfg.opt, clipped, opt_init(params), params)
+    del clipped
+    gc.collect()
+    out["update_share"], out["update_leaf"] = share(new, upd, params)
+    del upd
+    gc.collect()
+    torch.cuda.empty_cache()
+    own, _, _ = step(params, opt_init(params), batch)
+    out["own_step_share"], out["own_step_leaf"] = 0.0, None
+    over = 0
+    for (path, w), g, b in zip(flatten_with_paths(own),
+                               tree_leaves_of(new), tree_leaves_of(params)):
+        dp = float((w - b).abs().max())
+        diff = (g.to(w.device) - w).abs()
+        over += int((diff > TRAIN_GRAD_RTOL * dp).sum())
+        if float(diff.max()) / max(dp, 1e-30) > out["own_step_share"]:
+            out["own_step_share"] = float(diff.max()) / max(dp, 1e-30)
+            out["own_step_leaf"] = "/".join(map(str, path))
+    out["own_step_elements_over"] = over
+    out["elements"] = sum(t.numel() for t in tree_leaves_of(params))
+    return out
+
+
+def train_mesh_case(mesh, name: str, arch: str, opt: str,
+                    save_dir: str | None) -> dict:
+    """One run on this rank: a step's gradients alone, then the step, on
+    the rank's stored blocks; their digests (and the specs they are cut
+    by) for the whole-leaf check; the whole gradients and params
+    gathered for rank 0's checks; with ``save_dir`` the stepped params
+    and state saved there (full leaves, rank 0 writing)."""
+    import torch.distributed as dist
+
+    t_case = time.perf_counter()
+    dev = mesh.device
+    cfg, tcfg, batch = train_mesh_setup(arch, opt)
+    step, opt_init = build_train_step(cfg, tcfg, mesh=mesh)
+    params = lm.init_lm(cfg, seed=SEED, device=dev, mesh=mesh, train=True)
+    state = opt_init(params)
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    grads, loss, aux = step.grads(params, batch)
+    torch.cuda.synchronize()
+    grads_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    new, new_state, metrics = step(params, state, batch)
+    m = {k: float(v) for k, v in metrics.items()}   # synchronizes
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    res = {"launches": launches(), "loss": float(loss), "aux": float(aux),
+           "metrics": m, "grads_s": grads_s, "step_s": step_s,
+           "peak_gb": peak}
+    trees = {"grads": grads, "params": new, "opt": new_state}
+    res["specs"] = {k: [tuple(x) for x in shd.train_specs_of(v, mesh, cfg)]
+                    for k, v in trees.items()}
+    # the blocks another rank holds too: a leaf not cut along some axis
+    axes = {a for a, n in mesh.shape.items() if n > 1}
+    res["digests"] = {k: leaf_digests(v, [bool(axes - set(x))
+                                          for x in res["specs"][k]])
+                      for k, v in trees.items()}
+    if save_dir is not None:
+        saved = {"params": new, "opt": new_state}
+        CheckpointManager(save_dir, group=dist.group.WORLD).save(
+            1, saved, shardings=shd.train_specs_of(saved, mesh, cfg),
+            mesh=mesh)
+    del params, state, new_state
+    full = shd.gather_train_tree((grads, new), mesh, cfg)
+    del grads, new
+    # rank 0 keeps the whole trees on the host: the card holds the
+    # one-process reference's params, gradients and state meanwhile
+    full = tree_map(lambda t: t.cpu(), full) if mesh.rank == 0 else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        res["check"] = train_mesh_reference(cfg, tcfg, batch, *full, dev)
+        log(f"[train mesh] {name}, mesh {tuple(mesh.shape.values())}: rank "
+            f"0 done ({time.perf_counter() - t_case:.1f} s)")
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()      # the ranks start the next run together
+    return res
+
+
+def train_mesh_restore(mesh, restore_dir: str) -> dict:
+    """The (2, 2) mesh's checkpoint restored onto this mesh (each rank
+    cutting its blocks from the full leaves): the digests of the full
+    leaves, gathered back."""
+    cfg, tcfg, _ = train_mesh_setup(*TRAIN_MESH_RUNS[(2, 2)][0][1:])
+    _, opt_init = build_train_step(cfg, tcfg, mesh=mesh)
+    params = lm.init_lm(cfg, seed=SEED + 1, device=mesh.device, mesh=mesh,
+                        train=True)
+    template = {"params": params, "opt": opt_init(params)}
+    specs = shd.train_specs_of(template, mesh, cfg)
+    restored, _ = CheckpointManager(restore_dir).restore(
+        template, shardings=specs, mesh=mesh)
+    shapes = [tuple(t.shape) for t in tree_leaves_of(restored)]
+    full = shd.gather_tree(restored, mesh, specs)
+    return {"digests": leaf_digests(full), "block_shapes": shapes}
+
+
+def train_mesh_rank(mesh, runs, save_dir=None, restore_dir=None) -> dict:
+    """Every run of ``runs`` on this rank, then with ``restore_dir`` the
+    restore."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": mesh.rank, "coords": dict(mesh.coords),
+           "backend": mesh.backend, "device": str(mesh.device), "runs": {}}
+    for name, arch, opt in runs:
+        out["runs"][name] = train_mesh_case(
+            mesh, name, arch, opt,
+            save_dir if name == TRAIN_MESH_SAVED else None)
+    if restore_dir is not None:
+        out["restore"] = train_mesh_restore(mesh, restore_dir)
+    return out
+
+
+def whole_leaves_equal(ranks: list[dict], name: str) -> int:
+    """Raise unless every block two ranks both hold (the leaf is not cut
+    along the axis on which they differ) has the same digest on both;
+    the number of such pairs checked."""
+    checked = 0
+    for key in ("grads", "params", "opt"):
+        specs = ranks[0]["runs"][name]["specs"][key]
+        for i in range(len(ranks)):
+            for j in range(i + 1, len(ranks)):
+                ci, cj = ranks[i]["coords"], ranks[j]["coords"]
+                differ = {a for a in ci if ci[a] != cj[a]}
+                di = ranks[i]["runs"][name]["digests"][key]
+                dj = ranks[j]["runs"][name]["digests"][key]
+                for a, b, spec in zip(di, dj, specs):
+                    if a is not None and not differ & set(spec):
+                        if a != b:
+                            raise AssertionError(
+                                f"[train mesh] {name}: a {key} leaf held "
+                                f"whole ({spec}) differs between ranks "
+                                f"{i} and {j}")
+                        checked += 1
+    return checked
+
+
+def saved_digests(directory: Path) -> list[str]:
+    """The digest of each leaf file of the newest checkpoint in
+    ``directory``, in the manifest's order (the flattening order)."""
+    import hashlib
+
+    step = max(directory.glob("step_*"))
+    manifest = json.loads((step / "manifest.json").read_text())
+    return [hashlib.sha1(np.ascontiguousarray(
+        np.load(step / e["file"])).tobytes()).hexdigest()
+        for e in manifest["leaves"]]
+
+
+def run_train_mesh(dev) -> dict:
+    """[train mesh]: see the module's docstring, item 22."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_all = time.perf_counter()
+    card = nvidia_smi_line()
+    shutil.rmtree(TRAIN_MESH_CKPT, ignore_errors=True)
+    out = {"card": card, "meshes": {}}
+    try:
+        for shape in ((2, 2), (1, 2)):
+            kw = ({"save_dir": str(TRAIN_MESH_CKPT)} if shape == (2, 2)
+                  else {"restore_dir": str(TRAIN_MESH_CKPT)})
+            t0 = time.perf_counter()
+            ranks = spawn(train_mesh_rank, shape, timeout_s=MESH_TIMEOUT_S,
+                          args=(TRAIN_MESH_RUNS[shape],), kwargs=kw)
+            out["meshes"][f"{shape[0]}x{shape[1]}"] = {
+                "ranks": ranks, "spawn_s": time.perf_counter() - t0}
+        # the (2, 2) checkpoint restored onto one process, on the card
+        cfg, tcfg, _ = train_mesh_setup(*TRAIN_MESH_RUNS[(2, 2)][0][1:])
+        _, opt_init = build_train_step(cfg, tcfg)
+        params = lm.init_lm(cfg, seed=SEED + 1, device=dev)
+        restored, _ = CheckpointManager(str(TRAIN_MESH_CKPT)).restore(
+            {"params": params, "opt": opt_init(params)})
+        one_digests = leaf_digests(restored)
+        del params, restored
+        saved = saved_digests(TRAIN_MESH_CKPT)
+    finally:
+        shutil.rmtree(TRAIN_MESH_CKPT, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    failed = []
+    for mname, mres in out["meshes"].items():
+        ranks = mres["ranks"]
+        for name, _, _ in TRAIN_MESH_RUNS[tuple(
+                int(x) for x in mname.split("x"))]:
+            r0 = ranks[0]["runs"][name]
+            c = r0["check"]
+            loss_rel = abs(r0["loss"] - c["loss_one"]) / abs(c["loss_one"])
+            aux_rel = (abs(r0["aux"] - c["aux_one"])
+                       / max(abs(c["aux_one"]), 1e-30))
+            checked = whole_leaves_equal(ranks, name)
+            launched = {k: v for r in ranks
+                        for k, v in r["runs"][name]["launches"].items() if v}
+            ok = (loss_rel <= TRAIN_LOSS_RTOL and aux_rel <= TRAIN_LOSS_RTOL
+                  and c["grad_share"] <= TRAIN_GRAD_RTOL
+                  and c["update_share"] <= TRAIN_GRAD_RTOL and not launched
+                  and checked > 0)
+            if not ok:
+                failed.append((mname, name))
+            log(f"[train mesh] {name} on ({mname.replace('x', ', ')}), "
+                f"{TRAIN_MESH_LAYERS} layers, full width, f32, batch "
+                f"{TRAIN_MESH_BATCH} x {TRAIN_CHECK_SEQ}: loss "
+                f"{r0['loss']:.6f} vs one process {c['loss_one']:.6f} (rel "
+                f"{loss_rel:.2e}, tolerance {TRAIN_LOSS_RTOL}), aux rel "
+                f"{aux_rel:.2e}; gathered gradients worst max|diff| / "
+                f"max|g| {c['grad_share']:.2e} at {c['grad_leaf']}; updated "
+                f"params worst max|diff| / max|dp| {c['update_share']:.2e} "
+                f"at {c['update_leaf']} against the one-process update of "
+                f"these gradients (tolerance {TRAIN_GRAD_RTOL}); against "
+                f"the one-process step's own params "
+                f"{c['own_step_share']:.2e} at {c['own_step_leaf']}, "
+                f"{c['own_step_elements_over']} of {c['elements']} "
+                f"elements over the tolerance (printed, not held); "
+                f"{checked} whole blocks bit-equal across ranks; port "
+                f"kernel launches {json.dumps(launched) if launched else 'none'}"
+                f"; {card}")
+            for r in ranks:
+                rr = r["runs"][name]
+                log(f"  rank {r['rank']} {r['coords']} ({r['backend']}, "
+                    f"{r['device']}): step.grads {rr['grads_s'] * 1e3:.1f} "
+                    f"ms, step {rr['step_s'] * 1e3:.1f} ms, peak "
+                    f"{rr['peak_gb']:.2f} GB (ranks share one card over "
+                    f"gloo: not a mesh's speed)")
+        log(f"  spawn ({mname}) {mres['spawn_s']:.1f} s")
+    restored_12 = [r["restore"]["digests"]
+                   for r in out["meshes"]["1x2"]["ranks"]]
+    restore_ok = (all(d == saved for d in restored_12)
+                  and one_digests == saved)
+    log(f"[train mesh] the (2, 2) checkpoint ({len(saved)} leaves: "
+        f"{TRAIN_MESH_SAVED}'s params and AdamW state) restored onto (1, 2) "
+        f"(each rank's blocks, e.g. "
+        f"{out['meshes']['1x2']['ranks'][0]['restore']['block_shapes'][-1]})"
+        f" and onto one process: full leaves bit-equal to the saved ones "
+        f"{restore_ok}")
+    out["restore_bit_equal"] = restore_ok
+    for m in out["meshes"].values():        # digests stay out of the report
+        for r in m["ranks"]:
+            for rr in r["runs"].values():
+                rr.pop("digests")
+            r.pop("restore", None)
+    seconds = time.perf_counter() - t_all
+    out["seconds"] = seconds
+    log(f"[train mesh] {seconds:.1f} s (aim {TRAIN_MESH_AIM_S} s) on {card}")
+    if failed or not restore_ok:
+        raise AssertionError(f"[train mesh] failed: {failed}, restore "
+                             f"bit-equal {restore_ok}")
+    return out
 
 
 def kernels_line(rows: list[dict], launch_counts: dict,
@@ -6072,6 +6424,11 @@ def main() -> int:
         f"with [mesh kernels]) on {card}")
 
     train = run_train(dev)
+    log("[train mesh] olmo-1b (AdamW, Adafactor) and deepseek-moe-16b at "
+        "full width and 2 layers, f32: a (1, 2) and a (2, 2) mesh of ranks "
+        "sharing this card over gloo, against the one-process step; the "
+        "(2, 2) checkpoint restored onto (1, 2) and one process")
+    train_mesh = run_train_mesh(dev)
 
     launch_counts = {**{n: engine["launches"][n] for n in FLOAT_KERNELS},
                      "quant_gemv":
@@ -6119,7 +6476,7 @@ def main() -> int:
         multimodal=multimodal, multimodal_s=multimodal_s, state=state,
         hybrid=hybrid,
         autotune=autotune, pim=pim, calibrate=calibrate, trace=trace,
-        mesh=mesh, train=train,
+        mesh=mesh, train=train, train_mesh=train_mesh,
         kernels=line["kernels"],
         total_s=time.perf_counter() - t_start), indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -29,6 +29,10 @@ def main(argv=None):
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--steps", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="global batch of --tiny")
+    ap.add_argument("--seq", type=int, default=128,
+                    help="sequence length of --tiny")
     args, _ = ap.parse_known_args(argv)
     resolve_device(args.device)     # no card and no --device: raise here
 
@@ -41,7 +45,7 @@ def main(argv=None):
         argv = [
             "--arch", "olmo-1b", "--smoke",
             "--steps", str(args.steps or 30),
-            "--batch", "8", "--seq", "128",
+            "--batch", str(args.batch), "--seq", str(args.seq),
             "--ckpt-dir", ckpt_dir, "--ckpt-every", "10",
         ]
     else:
@@ -59,6 +63,7 @@ def main(argv=None):
         argv += ["--device", args.device]
     out = train_launcher.main(argv)
     losses = out["losses"]
+    print(f"checkpoints {sorted(os.listdir(ckpt_dir))}")
     print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
     assert losses[-1] < losses[0], "training must reduce loss"
     # removed only on success: a failed run keeps its checkpoints

@@ -11,10 +11,16 @@ writer never leaves a torn checkpoint; the newest ``keep`` are kept.
 :meth:`CheckpointManager.save` copies the tree to the host at once (a
 consistent snapshot) and writes it inline or on a background thread.
 
-On a data-parallel mesh every rank holds the same state, so only rank 0
-of ``group`` writes; :meth:`CheckpointManager.wait` ends with a barrier
-on ``group``, so a rank that waits before it reads sees every checkpoint
-rank 0 published.
+On a mesh only rank 0 of ``group`` (the world, when ranks hold
+different blocks) writes; :meth:`CheckpointManager.wait` ends with a
+barrier on ``group``, so a rank that waits before it reads sees every
+checkpoint rank 0 published.  A training rank holds its blocks of each
+leaf (``sharding.train_spec``): ``save(shardings=, mesh=)`` gathers the
+full leaves first, so the layout stays the reference's whatever mesh
+wrote it, and ``restore(shardings=, mesh=)`` reads full leaves and cuts
+this rank's blocks from them, so a checkpoint from one mesh restores
+onto a mesh of another shape (elastic restore, the reference's
+``restore(shardings=)``).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed.sharding import gather_tree, shard_tensor
 from repro_torch.tree import flatten_with_paths, path_str, unflatten_like
 
 
@@ -59,11 +66,17 @@ class CheckpointManager:
     # ---------------- write ----------------
 
     def save(self, step: int, tree: Any, metadata: dict | None = None,
-             blocking: bool = True) -> None:
+             blocking: bool = True, *, shardings: list | None = None,
+             mesh=None) -> None:
         """Device -> host now (a consistent snapshot); the files inline
-        (``blocking``) or on the writer thread.  Ranks other than 0 of
-        the group write nothing."""
+        (``blocking``) or on the writer thread.  With ``shardings`` (the
+        spec of each leaf of ``tree`` in flattening order, on ``mesh``)
+        ``tree`` holds this rank's blocks, and every rank gathers the
+        full leaves first.  Ranks other than 0 of the group write
+        nothing."""
         self.wait()
+        if shardings is not None:
+            tree = gather_tree(tree, mesh, shardings)
         if not self.writes:
             return
         host = [(path_str(p), *_to_host(leaf))
@@ -137,11 +150,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any,
-                step: int | None = None) -> tuple[Any, dict]:
+    def restore(self, template: Any, step: int | None = None, *,
+                shardings: list | None = None,
+                mesh=None) -> tuple[Any, dict]:
         """The checkpoint at ``step`` (default the latest) in the structure
         of ``template``, each leaf with the template leaf's dtype and
-        device; and the saved metadata."""
+        device; and the saved metadata.  With ``shardings`` (the spec of
+        each leaf of ``template`` in flattening order, on ``mesh``) each
+        full leaf is cut to this rank's block, which must have the
+        template leaf's shape: any mesh's checkpoint restores onto any
+        other."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -150,18 +168,27 @@ class CheckpointManager:
             manifest = json.load(f)
         by_path = {e["path"]: e for e in manifest["leaves"]}
         new = []
-        for p, tl in flatten_with_paths(template):
+        flat = flatten_with_paths(template)
+        specs = shardings if shardings is not None else [None] * len(flat)
+        if len(specs) != len(flat):
+            raise ValueError(f"{len(specs)} shardings for {len(flat)} "
+                             f"leaves")
+        for (p, tl), spec in zip(flat, specs):
             e = by_path.get(path_str(p))
             if e is None:
                 raise KeyError(f"checkpoint missing leaf {path_str(p)}")
             arr = np.load(os.path.join(d, e["file"]))
-            if list(arr.shape) != list(tl.shape):
-                raise ValueError(f"shape mismatch for {path_str(p)}: ckpt "
-                                 f"{arr.shape} vs template "
-                                 f"{tuple(tl.shape)}")
             if e["dtype"] == "bfloat16":
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
+            if spec is not None:
+                t = shard_tensor(t, spec, mesh)
+            if list(t.shape) != list(tl.shape):
+                raise ValueError(f"shape mismatch for {path_str(p)}: ckpt "
+                                 f"{arr.shape}"
+                                 + (f" (this rank's block {tuple(t.shape)})"
+                                    if spec is not None else "")
+                                 + f" vs template {tuple(tl.shape)}")
             new.append(t.to(device=tl.device, dtype=tl.dtype))
         return unflatten_like(template, new), manifest["metadata"]

@@ -1,7 +1,7 @@
 """Collectives of the sharded port (counterpart of
 ``repro/distributed/collectives.py``).
 
-Two kinds:
+Three kinds:
 
 * the model's own, which the reference's GSPMD inserted: a partial sum
   all-reduced over the 'model' group (:func:`all_reduce_sum`, or
@@ -9,9 +9,22 @@ Two kinds:
   combine), and a vocab-sharded tensor all-gathered
   (:func:`all_gather_cat`).  Partials are summed in f32 and cast back
   once, so every rank gets the same bits;
-* the data-parallel gradient mean with a compressed payload
-  (:func:`compressed_psum_mean`: ``"none"``, ``"bf16"``, ``"int8"`` with
-  an error-feedback residual that stays on the rank), for training.
+* their backwards, for training on a 'model' axis (the pattern of
+  Megatron-LM's tensor parallelism).  Where autograd records through
+  them, :func:`all_reduce_sum` and :func:`all_gather_cat` are autograd
+  ops whose backward passes the gradient on (``reduce``: identity) or
+  keeps this rank's block of it (``gather``), and :func:`enter` marks
+  where a replicated tensor goes into a rank's block: identity forward,
+  the gradient summed over the group backward.  With the loss replicated
+  over 'model', ``torch.distributed.nn``'s collectives, whose backwards
+  all-reduce the gradient, would count it once a rank.  Their forwards
+  are the plain collectives' bit for bit;
+* the 'data' side of training: the FSDP blocks gathered
+  (:func:`all_gather_cat` under no grad) and the gradient mean reduced to
+  each rank's block (:func:`reduce_scatter_mean`), and the data-parallel
+  gradient mean with a compressed payload (:func:`compressed_psum_mean`:
+  ``"none"``, ``"bf16"``, ``"int8"`` with an error-feedback residual that
+  stays on the rank).
 """
 
 from __future__ import annotations
@@ -41,18 +54,105 @@ class Reduction:
         return self.buf.to(self.dtype)
 
 
-def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+def records_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records through an op on ``tensors``: grad mode
+    is on and one of them requires grad (a training forward)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _sum_f32(t: torch.Tensor, group) -> torch.Tensor:
     return Reduction(t, group).wait()
 
 
-def all_gather_cat(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
-    """Every rank's ``t`` of ``group``, concatenated in rank order along
-    ``dim``."""
+def _gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     t = t.contiguous()
     parts = [torch.empty_like(t)
              for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward; the gradient summed over ``group`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    """The f32 sum over ``group`` forward; identity backward (every rank
+    holds the whole sum's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """Every rank's block in rank order along ``dim`` forward; this
+    rank's block of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, i * ctx.size, ctx.size), None, None
+
+
+def enter(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (replicated over ``group``) as the input of this rank's
+    block: ``x`` itself, and under autograd an op whose backward sums the
+    rank blocks' gradients over ``group``."""
+    return _Enter.apply(x, group) if records_grad(x) else x
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group`` in f32, cast back once; under autograd
+    its backward passes the gradient on unchanged."""
+    if records_grad(t):
+        return _Reduce.apply(t, group)
+    return _sum_f32(t, group)
+
+
+def all_gather_cat(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """Every rank's ``t`` of ``group``, concatenated in rank order along
+    ``dim``; under autograd its backward keeps this rank's block of the
+    gradient."""
+    if records_grad(t):
+        return _Gather.apply(t, group, dim)
+    return _gather(t, group, dim)
+
+
+def reduce_scatter_mean(t: torch.Tensor, group, dim: int | None
+                        ) -> torch.Tensor:
+    """The mean of ``t`` over ``group``'s ranks in f32, cast back to
+    ``t``'s dtype; with ``dim`` this rank's block of it along ``dim``.
+    An all-reduce and a slice: the same sum in the same order on every
+    rank, whichever block it keeps (gloo's ``reduce_scatter_tensor`` is
+    not relied on for CUDA tensors)."""
+    buf = t.float().clone()
+    dist.all_reduce(buf, group=group)
+    buf = (buf / dist.get_world_size(group)).to(t.dtype)
+    if dim is None:
+        return buf
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    size = t.shape[dim] // n
+    return buf.narrow(dim, i * size, size).clone(
+        memory_format=torch.contiguous_format)
 
 
 # --------------------------------------------------------------------------

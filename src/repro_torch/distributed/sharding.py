@@ -28,7 +28,18 @@ inserts the collectives.  The port holds each rank's block itself:
   GSPMD reshards contiguous blocks at the activation anchors); parameters
   are replicated over 'data' (no FSDP shard is stored); the tiny-leaf
   rule does not apply; and a leaf placed on a fallback dim, or read whole
-  by its layer (norm scales, the router), stays whole.
+  by its layer (norm scales, the router), stays whole;
+* for training, :func:`train_spec` stores each leaf as its 'model' block
+  by :func:`serve_spec`, cut again over 'data' on ``_leaf_spec``'s FSDP
+  dim (the first other dim the data size divides);
+  :func:`shard_train_tree` / :func:`gather_train_tree` cut a full tree
+  (params, optimizer state, or both) to a rank's blocks and put it
+  back together, and :class:`TrainLayout` gives the optimizer the sums
+  across the ranks that hold a leaf's other blocks.  Deliberate
+  difference: the reference plans its stacked ``[L, ...]`` leaves as if
+  unstacked (``wq`` gets 'model' on ``d``, ``w_up`` / ``w_down`` /
+  ``wo`` on the layer dim), which GSPMD computes under; the port's
+  explicit rank blocks need the row placement.
 """
 
 from __future__ import annotations
@@ -39,7 +50,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import all_gather_cat, all_reduce_sum
 from repro_torch.launch.mesh import data_axes
+from repro_torch.tree import flatten_with_paths, leaves, unflatten_like
 
 
 class P(tuple):
@@ -434,3 +447,186 @@ def shard_layer(p: dict, mesh, cfg: ModelConfig) -> dict:
     """One layer's leaves cut to this rank's blocks (``lm.init_lm(mesh=)``
     cuts each layer as it is drawn)."""
     return p if mesh.size("model") <= 1 else _cut(p, mesh, cfg, ("layers",))
+
+
+# --------------------------------------------------------------------------
+# Training: each rank's 'model' block, cut again over 'data' for storage
+# --------------------------------------------------------------------------
+
+# the ROADMAP queue 1 item that puts each refused family on a mesh
+MESH_FAMILY_ITEMS = {"audio": "2a", "vlm": "2a", "ssm": "2b", "hybrid": "2b"}
+
+
+def check_train_mesh(mesh, cfg: ModelConfig) -> None:
+    """Raise for a mesh the training step does not take: a 'pod' axis
+    (the step's 'data' group is one axis), or a 'model' axis larger than
+    1 under a family the mesh does not run yet."""
+    if mesh.size("pod") > 1:
+        raise NotImplementedError(
+            f"training on mesh {mesh.shape}: the step reduces over one "
+            f"'data' axis; a 'pod' axis is not ported")
+    if mesh.size("model") > 1:
+        try:
+            check_mesh_family(cfg)
+        except NotImplementedError:
+            item = MESH_FAMILY_ITEMS.get(cfg.family, "2")
+            raise NotImplementedError(
+                f"model-parallel training of family {cfg.family!r} "
+                f"({cfg.name}) is ROADMAP queue 1 item {item}; the mesh "
+                f"runs {', '.join(MESH_FAMILIES)}") from None
+
+
+def train_spec(path: str, shape: tuple[int, ...], mesh,
+               cfg: ModelConfig) -> P:
+    """The spec a training rank stores the leaf at ``path`` (one layer's
+    leaf, ``"layers/3/attn/wq"``) by: 'model' on :func:`serve_spec`'s dim
+    (the row placement the layers compute with: heads, FFN columns and
+    the down projection's rows, whole experts, the vocab; else the leaf
+    whole over 'model'), then 'data' on :func:`_leaf_spec`'s FSDP dim,
+    the first other dim the data size divides.  Deliberate difference:
+    the reference plans its stacked ``[L, ...]`` leaves as though they
+    were unstacked, which can put 'model' on ``d`` or on the layer dim;
+    GSPMD computes under any placement, explicit tensor parallelism only
+    under the one its layers hold."""
+    spec = list(serve_spec(path, shape, mesh, cfg))
+    n = mesh.size("data")
+    if n > 1:
+        for d in range(len(shape)):
+            if spec[d] is None and _divides(shape[d], n):
+                spec[d] = "data"
+                break
+    return P(*spec)
+
+
+def plan_train(params, mesh, cfg: ModelConfig) -> list[P]:
+    """:func:`train_spec` of every leaf of a full param tree, in
+    flattening order (``repro_torch.tree``)."""
+    return [train_spec(_path_str(p), _shape(t), mesh, cfg)
+            for p, t in flatten_with_paths(params)]
+
+
+# an Adafactor statistic of a param, by the name under which it is held:
+# the dims of the param's spec it keeps ("vr" averages the last dim,
+# "vc" the one before it)
+_STAT_DIMS = {"v": lambda s: s, "vr": lambda s: s[:-1],
+              "vc": lambda s: s[:-2] + s[-1:]}
+
+
+def state_specs(tree, params, param_specs: list) -> list[P]:
+    """The spec of every leaf of ``tree`` (a param tree, an optimizer
+    state, or a dict of both), in flattening order: a leaf whose path
+    ends with a param's path (``("mu", "embed")``, ``("params", "layers",
+    0, ...)``) takes that param's spec; an Adafactor statistic (a param's
+    path then ``"vr"``, ``"vc"`` or ``"v"``) the param's spec less the
+    dim it averages; anything else (a step count) is whole."""
+    by_path = {p: s for (p, _), s in zip(flatten_with_paths(params),
+                                         param_specs)}
+    out = []
+    for path, leaf in flatten_with_paths(tree):
+        spec = None
+        for k in range(len(path)):
+            if path[k:] in by_path:
+                spec = by_path[path[k:]]
+                break
+            if path[-1] in _STAT_DIMS and path[k:-1] in by_path:
+                spec = P(*_STAT_DIMS[path[-1]](tuple(by_path[path[k:-1]])))
+                break
+        out.append(spec if spec is not None
+                   else P(*[None] * len(_shape(leaf))))
+    return out
+
+
+def model_specs(cfg: ModelConfig, mesh) -> tuple[dict, list[P]]:
+    """``(tree, specs)``: the model's full param tree on the meta device
+    (shapes, no values) and :func:`plan_train` of it."""
+    from repro_torch.models import lm
+
+    full = lm.init_lm(cfg, device="meta")
+    return full, plan_train(full, mesh, cfg)
+
+
+def train_specs_of(tree, mesh, cfg: ModelConfig) -> list[P]:
+    """:func:`state_specs` of ``tree`` (params, optimizer state, or a
+    dict of both) under the model's training placement."""
+    full, specs = model_specs(cfg, mesh)
+    return state_specs(tree, full, specs)
+
+
+def gather_tensor(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole tensor from this rank's block under ``spec``: each cut
+    dim all-gathered over its axis's group in rank order (collective:
+    every rank of the mesh calls it with the same spec)."""
+    for dim, axes in enumerate(spec):
+        if axes is None or mesh.size(axes) <= 1:
+            continue
+        if isinstance(axes, tuple):
+            raise ValueError(f"spec {spec}: a dim over several axes")
+        with torch.no_grad():
+            t = all_gather_cat(t, mesh.group(axes), dim=dim)
+    return t
+
+
+def gather_tree(tree, mesh, specs: list):
+    """The whole tree from this rank's blocks of it, each leaf's spec in
+    ``specs`` (flattening order; collective)."""
+    return unflatten_like(tree, [gather_tensor(t, s, mesh)
+                                 for t, s in zip(leaves(tree), specs)])
+
+
+def shard_train_tree(tree, mesh, cfg: ModelConfig):
+    """A full tree (params, optimizer state, or a dict of both; the
+    reference's values through ``repro_torch.bridge``, a restored
+    checkpoint) to this rank's stored blocks: each leaf
+    ``shard_tensor`` of its :func:`train_spec`."""
+    specs = train_specs_of(tree, mesh, cfg)
+    return unflatten_like(tree, [shard_tensor(t, s, mesh)
+                                 for t, s in zip(leaves(tree), specs)])
+
+
+def gather_train_tree(tree, mesh, cfg: ModelConfig):
+    """The full tree from every rank's stored blocks (the inverse of
+    :func:`shard_train_tree`; collective)."""
+    return gather_tree(tree, mesh, train_specs_of(tree, mesh, cfg))
+
+
+def shard_train_layer(p: dict, i: int, mesh, cfg: ModelConfig) -> dict:
+    """Layer ``i``'s leaves cut to this rank's stored blocks
+    (``lm.init_lm(mesh=, train=True)`` cuts each layer as it is
+    drawn)."""
+    return tree_map_with_path(
+        lambda path, t: shard_tensor(
+            t, train_spec(_path_str(path), _shape(t), mesh, cfg), mesh),
+        p, ("layers", i))
+
+
+class TrainLayout:
+    """Where each param leaf of a training rank lives: its spec (in the
+    param tree's flattening order) on ``mesh``, and the sums across the
+    ranks that hold a leaf's other blocks, which the optimizer's means
+    and norms need."""
+
+    def __init__(self, mesh, specs: list):
+        self.mesh = mesh
+        self.specs = list(specs)
+
+    def cut_axes(self, j: int) -> tuple[str, ...]:
+        """The axes that cut leaf ``j`` (in dim order)."""
+        return tuple(a for a in self.specs[j]
+                     if a is not None and self.mesh.size(a) > 1)
+
+    def axis_of(self, j: int, dim: int):
+        """The axis that cuts dim ``dim`` of leaf ``j``, or None."""
+        a = self.specs[j][dim]
+        return a if a is not None and self.mesh.size(a) > 1 else None
+
+    def full_shape(self, j: int, shape) -> tuple[int, ...]:
+        return tuple(int(n) * (self.mesh.size(a) if a is not None else 1)
+                     for n, a in zip(shape, self.specs[j]))
+
+    def sum_over(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """``t`` summed over the ranks of each axis in ``axes`` (f32,
+        every rank the same bits)."""
+        for a in axes:
+            if a is not None and self.mesh.size(a) > 1:
+                t = all_reduce_sum(t, self.mesh.group(a))
+        return t

@@ -24,7 +24,9 @@ keys and plan entries are the JAX package's, so either package reads the
 other's table.  Each backend's :class:`CostModel` has a calibration slot
 (:meth:`GemvBackend.apply_calibration`): ``repro_torch.calibration`` fits
 the constants from measured sweeps and the dispatcher applies a table's
-fitted constants on a plan-cache miss.  Sharding is not ported yet.
+fitted constants on a plan-cache miss.  On a mesh a rank selects and
+runs its block of each weight: :class:`ShardedPlan` and
+``DispatchPolicy.model_shards`` carry the reference's per-shard keys.
 """
 
 from __future__ import annotations

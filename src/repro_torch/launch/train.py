@@ -9,11 +9,16 @@ step-addressed data).  The reference's flags, plus ``--device``: the
 card unless ``--device cpu`` is given (with no card and no ``--device``
 it raises).  The model runs in f32, the reference's CPU-test numerics.
 
-``--mesh Dx1`` trains data-parallel over D ranks: under ``torchrun
---nproc-per-node D`` (``make_mesh`` reads the environment), or from
-Python with ``launch.mesh.spawn(run_on_mesh, (D, 1), args=(argv,))``.
-Each rank builds the same model from the seed and steps on its row block
-of every global batch; rank 0 alone writes checkpoints and prints.
+``--mesh DxM`` trains over D x M ranks: under ``torchrun
+--nproc-per-node D*M`` (``make_mesh`` reads the environment), or from
+Python with ``launch.mesh.spawn(run_on_mesh, (D, M), args=(argv,))``.
+Each rank draws the same model from the seed and keeps its stored
+blocks of it (``lm.init_lm(mesh=, train=True)``: its 'model' block of
+each leaf, cut again over 'data'), and steps on its 'data' row block of
+every global batch (``train_step``).  Checkpoints hold the full leaves
+(gathered, written by rank 0 of the world alone); a restore cuts this
+rank's blocks from them, so a run may resume on a mesh of another shape.
+Rank 0 alone prints.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import os
 import tempfile
 import time
 
+import torch.distributed as dist
+
 
 def main(argv: list[str] | None = None, *, mesh=None,
          fail_at: tuple[int, ...] = ()) -> dict:
@@ -31,8 +38,8 @@ def main(argv: list[str] | None = None, *, mesh=None,
     caller built it (``spawn``), and ``fail_at`` the steps at which a
     :class:`FaultInjector` raises (on every rank, before the step's
     collective).  Returns ``losses``, ``stats`` (the recovery stats),
-    ``step_s`` (each step's seconds) and the final ``params`` and
-    ``opt``."""
+    ``step_s`` (each step's seconds), the final ``params`` and ``opt``
+    (on a mesh, this rank's blocks) and the model's ``cfg``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--smoke", action="store_true",
@@ -43,7 +50,7 @@ def main(argv: list[str] | None = None, *, mesh=None,
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--mesh", default="1x1",
-                    help="data x model, e.g. 2x1 (D ranks, model 1)")
+                    help="data x model, e.g. 2x2 (D x M ranks)")
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=10)
@@ -71,10 +78,10 @@ def main(argv: list[str] | None = None, *, mesh=None,
         run_with_recovery,
     )
     from repro_torch.train.optimizer import OptConfig
+    from repro_torch.distributed.sharding import state_specs
     from repro_torch.train.train_step import (
         TrainConfig,
         build_train_step,
-        data_group,
         to_device,
     )
 
@@ -104,7 +111,6 @@ def main(argv: list[str] | None = None, *, mesh=None,
     elif mesh is not None and tuple(mesh.shape.values()) != shape:
         raise ValueError(f"--mesh {args.mesh} but the rank's mesh is "
                          f"{mesh.shape}")
-    group = data_group(mesh)
     dev = mesh.device if mesh is not None else resolve_device(args.device)
     lead = mesh is None or mesh.rank == 0
 
@@ -114,12 +120,19 @@ def main(argv: list[str] | None = None, *, mesh=None,
                       total_steps=args.steps),
         accum_steps=args.accum, grad_compress=args.grad_compress)
     step_fn, opt_init = build_train_step(cfg, tcfg, mesh=mesh)
-    params = lm.init_lm(cfg, seed=args.seed, device=dev)
+    layout = step_fn.layout
+    params = lm.init_lm(cfg, seed=args.seed, device=dev, mesh=mesh,
+                        train=True)
     state = {"params": params, "opt": opt_init(params)}
+    # the spec of each leaf of the saved state, on the rank's mesh
+    shard = ({} if layout is None else dict(
+        shardings=state_specs(state, params, layout.specs), mesh=mesh))
 
     data = SyntheticLM(cfg, DataConfig(global_batch=args.batch,
                                        seq_len=args.seq, seed=args.seed))
-    ckpt = CheckpointManager(args.ckpt_dir, keep=2, group=group)
+    ckpt = CheckpointManager(
+        args.ckpt_dir, keep=2,
+        group=dist.group.WORLD if layout is not None else None)
     monitor = StragglerMonitor()
     injector = FaultInjector(set(fail_at))
     losses: list[float] = []
@@ -142,16 +155,11 @@ def main(argv: list[str] | None = None, *, mesh=None,
         return m
 
     def save(step: int) -> None:
-        ckpt.save(step, state, metadata={"step": step}, blocking=False)
+        ckpt.save(step, state, metadata={"step": step}, blocking=False,
+                  **shard)
 
     def restore() -> int:
-        ckpt.wait()     # every rank sees what rank 0 published
-        s = ckpt.latest_step()
-        if s is None:
-            return 0
-        restored, _ = ckpt.restore(state, step=s)
-        state.update(restored)
-        return s
+        return restore_latest(ckpt, state, **shard)
 
     def report(s: int, m: dict) -> None:
         if lead:
@@ -174,19 +182,39 @@ def main(argv: list[str] | None = None, *, mesh=None,
         print(f"done: resumed past step {args.steps} from "
               f"{args.ckpt_dir}; no new steps run", flush=True)
     return {"losses": losses, "stats": stats, "step_s": step_s,
-            "params": state["params"], "opt": state["opt"]}
+            "params": state["params"], "opt": state["opt"], "cfg": cfg}
+
+
+def restore_latest(ckpt, state: dict, **shard) -> int:
+    """Load the newest checkpoint into ``state`` and return its step (0,
+    loading nothing, when there is none).  The writer is waited for
+    before the latest step is read, so the step returned is the one
+    whose state was loaded even when a non-blocking save was still
+    writing (the reference reads the step first: ROADMAP §3).  On a mesh
+    every rank meets at the wait, so each sees what rank 0 published;
+    ``shard`` (``shardings=``, ``mesh=``) cuts this rank's blocks."""
+    ckpt.wait()
+    s = ckpt.latest_step()
+    if s is None:
+        return 0
+    restored, _ = ckpt.restore(state, step=s, **shard)
+    state.update(restored)
+    return s
 
 
 def run_on_mesh(mesh, argv: list[str], fail_at: tuple[int, ...] = ()
                 ) -> dict:
     """:func:`main` on a rank that ``launch.mesh.spawn`` started: its
-    losses and stats, and its final params on the CPU."""
+    losses and stats, and its final params and optimizer state, full
+    (gathered from every rank's blocks) and on the CPU."""
+    from repro_torch.distributed.sharding import gather_train_tree
     from repro_torch.tree import tree_map
 
     out = main(argv, mesh=mesh, fail_at=fail_at)
-    return {**out, "params": tree_map(lambda t: t.detach().cpu(),
-                                      out["params"]),
-            "opt": tree_map(lambda t: t.detach().cpu(), out["opt"])}
+    full = gather_train_tree({"params": out["params"], "opt": out["opt"]},
+                             mesh, out["cfg"])
+    full = tree_map(lambda t: t.detach().cpu(), full)
+    return {**out, **full}
 
 
 if __name__ == "__main__":

@@ -19,7 +19,12 @@ block: the attention output is a partial sum, all-reduced over the
 fewer experts than the config's is a rank's whole experts (each rank
 runs its experts' rows, the combine is all-reduced).  Where the
 reference's GSPMD pinned a replicated layout, the layers issue the
-collective.
+collective.  Under autograd (a training step on a 'model' axis) the
+replicated input of each rank block passes through
+``collectives.enter`` (its gradient summed over the group) and the
+all-reduce's backward passes the gradient on; a branch every rank
+computes whole (norms, the router, shared experts beside sharded ones)
+gets no ``enter``, since its gradient is whole on every rank already.
 """
 
 from __future__ import annotations
@@ -31,7 +36,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.axes import current_mesh
-from repro_torch.distributed.collectives import all_reduce_sum
+from repro_torch.distributed.collectives import (
+    all_reduce_sum,
+    enter,
+    records_grad,
+)
 from repro_torch.kernels.attention import (
     decode_attention,
     decode_attention_plain,
@@ -222,6 +231,12 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     # them when the serving cache replicates KV)
     H_l, Hkv_l = p["wq"].shape[1], p["wk"].shape[1]
     sharded = H_l != cfg.n_heads
+    if sharded:     # under autograd, the rank's heads' input (and the
+        # whole K / V projections a rank reads one kv head of)
+        x = enter(x, model_group())
+        if Hkv_l == cfg.n_kv_heads:
+            p = {**p, "wk": enter(p["wk"], model_group()),
+                 "wv": enter(p["wv"], model_group())}
     if gemv is not None and S == 1 and gemv.fuse_programs:
         from repro_torch.kernels.dispatch import (
             dispatch_fused,
@@ -394,6 +409,8 @@ def mlp_partial(p: dict, x: torch.Tensor, cfg: ModelConfig, gemv=None, *,
     'model' group."""
     partial = (current_mesh() is not None
                and p["w_up"].shape[-1] != (d_ff or cfg.d_ff))
+    if partial:     # under autograd, the input of the rank's columns
+        x = enter(x, model_group())
     up_axis, down_axis = ("M", "K") if partial else ("replicated",) * 2
     decode_gemv = gemv is not None and x.shape[1] == 1
     if decode_gemv:
@@ -616,12 +633,6 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return (all_reduce_sum(y, model_group()) if partial else y), aux
 
 
-def records_grad(*tensors: torch.Tensor) -> bool:
-    """Whether autograd records through an op on ``tensors``: grad mode
-    is on and one of them requires grad (a training forward)."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
 def moe_partial(p: dict, x: torch.Tensor, cfg: ModelConfig,
                 gemv=None, *, batch_group=None
                 ) -> tuple[torch.Tensor, torch.Tensor, bool]:
@@ -662,16 +673,23 @@ def moe_partial(p: dict, x: torch.Tensor, cfg: ModelConfig,
     other pairs weigh zero), and ``y`` is this rank's share of the
     combine (``partial``), summed with the shared experts' share when
     those are sharded too.  Capacity and drops are per expert, so they
-    are the unsharded ones.
+    are the unsharded ones.  The router runs whole on every rank; the
+    tokens and ``top_p`` go into the rank's experts through ``enter``,
+    so the router's gradient sums every rank's experts' share of it.
     """
     e = cfg.moe
     B, S, d = x.shape
     probs, top_p, top_i = _router(p, x, cfg)
     n_local = p["w_up"].shape[0]
     shift = 0
+    x_shared = x
     if n_local != e.n_experts:
         shift = model_index() * n_local
         top_i = (top_i - shift) % e.n_experts
+        # under autograd, the tokens and the weights that go into the
+        # rank's experts (the router's gradient through top_p comes only
+        # from the rank's own experts here)
+        x, top_p = enter(x, model_group()), enter(top_p, model_group())
     else:
         n_local = None
     expert_shape = gemv.expert_shape if gemv is not None else "einsum"
@@ -695,7 +713,7 @@ def moe_partial(p: dict, x: torch.Tensor, cfg: ModelConfig,
     aux = _aux_loss(probs, counts, cfg, batch_group)
     partial = n_local is not None
     if e.n_shared:
-        sh, sh_partial = mlp_partial(p["shared"], x, cfg, gemv,
+        sh, sh_partial = mlp_partial(p["shared"], x_shared, cfg, gemv,
                                      d_ff=e.n_shared * e.d_expert)
         if sh_partial == partial:
             y = y + sh

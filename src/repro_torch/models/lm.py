@@ -30,7 +30,12 @@ Under a mesh each rank holds its blocks of the tree
 unsharded model's values and keeps the rank's blocks): a vocab-sharded
 embedding is a masked local lookup plus an all-reduce (exact: the other
 ranks add zeros), a vocab-sharded head's logits are all-gathered, and the
-layers all-reduce their partial sums (``models/layers.py``).
+layers all-reduce their partial sums (``models/layers.py``).  Under
+autograd the lookup's all-reduce passes its gradient on to the rank's
+rows, and the head's input enters the rank's vocab columns
+(``collectives.enter``) whose logits' gather keeps the rank's block of
+their gradient, so a training step on a 'model' axis computes the
+unsharded gradients, each on the rank that holds its block.
 """
 
 from __future__ import annotations
@@ -44,11 +49,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.axes import current_mesh
+from repro_torch.distributed.axes import activation_mesh, current_mesh
 from repro_torch.distributed.collectives import (
     Reduction,
     all_gather_cat,
     all_reduce_sum,
+    enter,
 )
 from repro_torch.kernels.kv_quant import stored_head_dim, validate_kv_store
 from repro_torch.models import layers as L
@@ -65,7 +71,8 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
-            generator: torch.Generator | None = None, mesh=None) -> dict:
+            generator: torch.Generator | None = None, mesh=None,
+            train: bool = False) -> dict:
     """Seeded random weights with the JAX package's shapes and scale
     (N(0, 1/fan_in) in f32, cast to ``cfg.param_dtype``).
 
@@ -76,14 +83,17 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
 
     With ``mesh`` every value is drawn as without it, and each leaf is
     cut to this rank's block as soon as it is drawn
-    (``sharding.shard_params``): a rank holds its share and at most one
-    layer whole.
+    (``sharding.shard_params``; with ``train`` the training placement,
+    ``sharding.train_spec``): a rank holds its share and at most one
+    layer whole.  On the ``"meta"`` device nothing is drawn: the tree
+    gives the model's leaves and their shapes.
     """
     check_family(cfg)
     from repro_torch.distributed import sharding as shd
     device = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
-    g = generator or torch.Generator(device=device).manual_seed(seed)
+    g = generator or (None if device.type == "meta" else
+                      torch.Generator(device=device).manual_seed(seed))
     params = {
         "embed": L.dense_init(g, cfg.d_model, (cfg.vocab, cfg.d_model),
                               dtype, device),
@@ -121,12 +131,19 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
             layer["cross"] = L.init_cross_attention(g, cfg, cfg.d_model,
                                                     dtype, device)
             layer["cross_gate"] = torch.zeros(1, dtype=dtype, device=device)
-        if mesh is not None:
+        if mesh is not None and train:
+            layer = shd.shard_train_layer(layer, len(params["layers"]),
+                                          mesh, cfg)
+        elif mesh is not None:
             layer = shd.shard_layer(layer, mesh, cfg)
         params["layers"].append(layer)
     if cfg.encoder is not None:
         params["encoder"] = _init_encoder(g, cfg, dtype, device)
-    if mesh is not None:
+    if mesh is not None and train:
+        layers = params.pop("layers")
+        params = shd.shard_train_tree(params, mesh, cfg)
+        params["layers"] = layers
+    elif mesh is not None:
         # the layers are cut already; this cuts the embedding and head
         layers = params.pop("layers")
         params = shd.shard_params({**params, "layers": []}, mesh, cfg)
@@ -395,6 +412,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         head = params["embed"].t() if cfg.tie_embeddings \
             else params["lm_head"]
     sharded_head = head.shape[1] != cfg.vocab
+    if sharded_head:    # under autograd, the input of the rank's columns
+        x = enter(x, L.model_group())
     if gemv_policy is not None and Sq == 1:
         from repro_torch.kernels.dispatch import dispatch_dense
 
@@ -477,7 +496,9 @@ def _forward_flat(params, cfg, x, positions, cache, gemv=None, ctx=None, *,
     residual (``lm._self_block``); with a cache, the Mamba state continues
     from layer ``i``'s ``mamba_*`` leaves and is advanced in place.  With
     ``remat`` each layer (:func:`_layer`) runs under a non-reentrant
-    checkpoint.
+    checkpoint, its mesh installed again around the recompute (which
+    runs in the backward, on the autograd engine's device thread on the
+    card, where the forward's context is not set).
 
     Under a mesh a sharded FFN's output is a partial sum, all-reduced
     before the residual add.  Deferred collectives (the reference's
@@ -509,7 +530,8 @@ def _forward_flat(params, cfg, x, positions, cache, gemv=None, ctx=None, *,
             gemv=gemv, ctx=ctx, group=group, defer=defer,
             batch_group=batch_group)
         if remat:
-            x, aux_l, pending = checkpoint(layer, p, x, use_reentrant=False)
+            x, aux_l, pending = checkpoint(_under_mesh, mesh, layer, p, x,
+                                           use_reentrant=False)
         else:
             x, aux_l, pending = layer(p, x)
         if aux_l is not None:
@@ -517,6 +539,12 @@ def _forward_flat(params, cfg, x, positions, cache, gemv=None, ctx=None, *,
     if pending is not None:
         x = x + pending.wait()
     return x, aux
+
+
+def _under_mesh(mesh, fn, *args):
+    """``fn(*args)`` with ``mesh`` active."""
+    with activation_mesh(mesh):
+        return fn(*args)
 
 
 def _layer(p: dict, x: torch.Tensor, *, cfg: ModelConfig, i: int,
@@ -556,11 +584,10 @@ def _layer(p: dict, x: torch.Tensor, *, cfg: ModelConfig, i: int,
                                          batch_group=batch_group)
     else:
         ff, partial = L.mlp_partial(p["mlp"], h, cfg, gemv=gemv)
+    if partial and defer:
+        return x, aux, Reduction(ff, group, async_op=True)
     if partial:
-        red = Reduction(ff, group, async_op=defer)
-        if defer:
-            return x, aux, red
-        ff = red.wait()
+        ff = all_reduce_sum(ff, group)
     x = x + ff
     if "cross" in p:
         h = L.apply_norm(p["ln_cross"], x, cfg)

@@ -14,6 +14,15 @@ the per-layer leaves of one reference leaf form a group, the rules read
 the group's stacked shape, and the RMS is a mean over the whole group.
 Without a config every leaf is its own group at its own shape (a tree
 laid out as the reference's, e.g. its stacked numpy leaves).
+
+On a mesh (``layout``, a ``sharding.TrainLayout``) each rank holds its
+stored blocks of the params, gradients and state.  The rules read each
+leaf's full shape, and every mean over a dim a cut may split is a sum
+over the ranks holding the other blocks, divided by the full count:
+Adafactor's ``vr``, ``vc`` and the mean of ``vr``, its update-RMS clip
+(one mean over the whole reference leaf) and the global norm (each
+element counted once: a leaf held whole on several ranks is summed on
+one).  Every rank gets the same bits of each sum.
 """
 
 from __future__ import annotations
@@ -66,15 +75,24 @@ def lr_at(cfg: OptConfig, step) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, layout=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's f32 squares (on the leaves'
-    device)."""
+    device).  With ``layout`` the leaves are a rank's blocks: the leaves
+    cut by the same axes are summed here, each such sum over those axes'
+    ranks, and the sums added in a fixed order."""
     sq = [torch.sum(torch.square(g.float())) for g in leaves(tree)]
-    return torch.sqrt(torch.stack(sq).sum())
+    if layout is None:
+        return torch.sqrt(torch.stack(sq).sum())
+    by_axes: dict[tuple, list] = {}
+    for j, s in enumerate(sq):
+        by_axes.setdefault(layout.cut_axes(j), []).append(s)
+    total = [layout.sum_over(torch.stack(by_axes[a]).sum(), a)
+             for a in sorted(by_axes)]
+    return torch.sqrt(torch.stack(total).sum())
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, layout=None):
+    norm = global_norm(tree, layout)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), tree), norm
 
@@ -103,15 +121,20 @@ def _reference_leaf(path: tuple, model: ModelConfig | None):
     return path, ()
 
 
-def reference_groups(params, model: ModelConfig | None = None
+def reference_groups(params, model: ModelConfig | None = None,
+                     layout=None
                      ) -> list[tuple[tuple[int, ...], list[int]]]:
     """``[(stacked_shape, [leaf index, ...]), ...]``: each reference leaf's
     shape and the indices (in flattening order) of the port's leaves it
-    stacks; without ``model`` every leaf is its own group."""
+    stacks; without ``model`` every leaf is its own group.  With
+    ``layout`` the leaves are a rank's blocks, and the shapes are the
+    full leaves'."""
     groups: dict[tuple, tuple[tuple[int, ...], list[int]]] = {}
     for j, (path, leaf) in enumerate(flatten_with_paths(params)):
         key, stack = _reference_leaf(path, model)
-        shape = tuple(stack) + tuple(leaf.shape)
+        full = (tuple(leaf.shape) if layout is None
+                else layout.full_shape(j, leaf.shape))
+        shape = tuple(stack) + full
         if key not in groups:
             groups[key] = (shape, [])
         elif groups[key][0] != shape:
@@ -153,7 +176,7 @@ def adamw_init(params):
 
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, grads, state, params,
-                 model: ModelConfig | None = None):
+                 model: ModelConfig | None = None, layout=None):
     step = state["step"] + 1
     lr = float(lr_at(cfg, step))
     t = step.float()
@@ -164,7 +187,7 @@ def adamw_update(cfg: OptConfig, grads, state, params,
     flat_m, flat_v = leaves(state["mu"]), leaves(state["nu"])
     n = len(flat_p)
     new_p, new_m, new_v = [None] * n, [None] * n, [None] * n
-    for shape, idx in reference_groups(params, model):
+    for shape, idx in reference_groups(params, model, layout):
         for j in idx:
             g, p = flat_g[j].float(), flat_p[j]
             m = b1 * flat_m[j] + (1 - b1) * g
@@ -185,13 +208,14 @@ def adamw_update(cfg: OptConfig, grads, state, params,
 
 
 def adafactor_init(params, cfg: OptConfig | None = None,
-                   model: ModelConfig | None = None):
+                   model: ModelConfig | None = None, layout=None):
     """Per leaf ``{"vr", "vc"}`` (the row and column statistics of a
-    factored leaf, each layer its own) or ``{"v"}``."""
+    factored leaf, each layer its own) or ``{"v"}``; with ``layout`` a
+    rank's blocks of them (a factored leaf's full shape decides)."""
     cfg = cfg or OptConfig(name="adafactor")
     flat = leaves(params)
     stats = [None] * len(flat)
-    for shape, idx in reference_groups(params, model):
+    for shape, idx in reference_groups(params, model, layout):
         for j in idx:
             p = flat[j]
 
@@ -207,9 +231,21 @@ def adafactor_init(params, cfg: OptConfig | None = None,
             "step": torch.zeros((), dtype=torch.int32)}
 
 
+def _mean(t: torch.Tensor, dim: int, j: int, pdim: int, layout,
+          keepdim: bool = False) -> torch.Tensor:
+    """The mean of ``t`` over ``dim``, which is dim ``pdim`` of param
+    leaf ``j``: where a mesh axis cuts that dim, the sum over the ranks
+    holding its blocks divided by the full count."""
+    axis = None if layout is None else layout.axis_of(j, pdim)
+    if axis is None:
+        return torch.mean(t, dim=dim, keepdim=keepdim)
+    total = layout.sum_over(torch.sum(t, dim=dim, keepdim=keepdim), (axis,))
+    return total / (t.shape[dim] * layout.mesh.size(axis))
+
+
 @torch.no_grad()
 def adafactor_update(cfg: OptConfig, grads, state, params,
-                     model: ModelConfig | None = None):
+                     model: ModelConfig | None = None, layout=None):
     step = state["step"] + 1
     lr = float(lr_at(cfg, step))
     beta2 = 1.0 - step.float() ** (-cfg.decay_rate)
@@ -222,17 +258,18 @@ def adafactor_update(cfg: OptConfig, grads, state, params,
             node = node[k]
         flat_s.append(node)
     new_p, new_s = [None] * len(flat_p), [None] * len(flat_p)
-    for shape, idx in reference_groups(params, model):
+    for shape, idx in reference_groups(params, model, layout):
         updates = []
         for j in idx:
             g, s = flat_g[j].float(), flat_s[j]
             g2 = torch.square(g) + 1e-30
             if "vr" in s:
-                vr = b2 * s["vr"] + c2 * torch.mean(g2, dim=-1)
-                vc = b2 * s["vc"] + c2 * torch.mean(g2, dim=-2)
+                nd = g.ndim
+                vr = b2 * s["vr"] + c2 * _mean(g2, -1, j, nd - 1, layout)
+                vc = b2 * s["vc"] + c2 * _mean(g2, -2, j, nd - 2, layout)
                 denom = (vr[..., None] * vc[..., None, :]
-                         / (torch.mean(vr, dim=-1, keepdim=True)[..., None]
-                            + 1e-30))
+                         / (_mean(vr, -1, j, nd - 2, layout,
+                                  keepdim=True)[..., None] + 1e-30))
                 u = g / (torch.sqrt(denom) + 1e-30)
                 new_s[j] = {"vr": vr, "vc": vc}
             else:
@@ -243,6 +280,8 @@ def adafactor_update(cfg: OptConfig, grads, state, params,
         # update clipping (RMS <= 1), one mean over the reference leaf
         n = math.prod(shape)
         sq = torch.stack([torch.sum(torch.square(u)) for u in updates]).sum()
+        if layout is not None:
+            sq = layout.sum_over(sq, layout.cut_axes(idx[0]))
         rms = torch.sqrt(sq / n + 1e-30)
         for j, u in zip(idx, updates):
             p = flat_p[j]
@@ -257,14 +296,16 @@ def adafactor_update(cfg: OptConfig, grads, state, params,
 # --------------------------------------------------------------------------
 
 
-def make_optimizer(cfg: OptConfig, model: ModelConfig | None = None):
+def make_optimizer(cfg: OptConfig, model: ModelConfig | None = None,
+                   layout=None):
     """``(init(params), update(cfg, grads, state, params))`` for
-    ``cfg.name``; with ``model`` the rules read the reference's shapes
-    (see the module's docstring)."""
+    ``cfg.name``; with ``model`` the rules read the reference's shapes,
+    with ``layout`` on a rank's blocks (see the module's docstring)."""
     if cfg.name == "adamw":
         return adamw_init, (lambda c, g, s, p:
-                            adamw_update(c, g, s, p, model))
+                            adamw_update(c, g, s, p, model, layout))
     if cfg.name == "adafactor":
-        return (lambda p: adafactor_init(p, cfg, model),
-                lambda c, g, s, p: adafactor_update(c, g, s, p, model))
+        return (lambda p: adafactor_init(p, cfg, model, layout),
+                lambda c, g, s, p: adafactor_update(c, g, s, p, model,
+                                                    layout))
     raise ValueError(cfg.name)

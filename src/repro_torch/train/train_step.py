@@ -17,14 +17,25 @@ kernels have none, and their wrappers refuse to run under autograd).
   reference's ``lax.scan``);
 * ``grad_compress="bf16"``: each gradient is rounded to bf16 and back
   (``_compress``), then reduced in f32;
-* on a ``(D, 1)`` mesh (``launch.mesh``) the step takes the global batch,
-  each rank computes the gradients of its row block (the reference's
-  GSPMD split of one batch), the gradients are averaged over 'data' in
-  f32 (``compressed_psum_mean(method="none")``), then clipped and
-  applied, so every rank holds the same params.  The MoE load-balance
-  loss counts the global batch's routing (``layers._aux_loss``), and the
-  metrics are the global batch's.  Model parallelism (a 'model' axis
-  larger than 1) is not ported yet.
+* on a ``(D, M)`` mesh (``launch.mesh``) each rank holds its stored
+  blocks of the params and optimizer state (``sharding.train_spec``:
+  its 'model' block of each leaf, cut again over 'data'), and ``step``
+  takes and returns those blocks.  The step takes the global batch; a
+  rank computes on its 'data' row block of it.  It gathers the rank's
+  blocks over 'data' (FSDP) into its 'model' blocks, runs the forward
+  and backward on them under the mesh (the layers' rank blocks, their
+  collectives' backwards: ``models/layers.py``), accumulates and
+  compresses as above, and reduces the f32 mean over 'data' to each
+  rank's stored block (``collectives.reduce_scatter_mean``: the
+  counterpart of the reference's ``_constrain_like_params``).  Then it
+  clips (the global norm counts each element once) and applies the
+  optimizer to the blocks (``make_optimizer(layout=)``).  The MoE
+  load-balance loss counts the global batch's routing over 'data'
+  (``layers._aux_loss``); loss and aux are averaged over 'data' only,
+  since every 'model' rank holds the same value.  So the step computes
+  the unsharded step's loss, gradients and update, each on the rank
+  that holds its block (``sharding.gather_train_tree`` puts them
+  together).
 """
 
 from __future__ import annotations
@@ -36,7 +47,12 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import compressed_psum_mean
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.axes import activation_mesh
+from repro_torch.distributed.collectives import (
+    all_gather_cat,
+    reduce_scatter_mean,
+)
 from repro_torch.models import lm
 from repro_torch.train.optimizer import (
     OptConfig,
@@ -89,18 +105,14 @@ def _compress(grads: list, how: str) -> list:
     return grads
 
 
-def data_group(mesh):
-    """The 'data' group of a data-parallel mesh (None on one rank);
-    raises for a mesh with another axis larger than 1."""
-    if mesh is None:
+def train_layout(cfg: ModelConfig, mesh):
+    """The ``sharding.TrainLayout`` of ``cfg``'s params on ``mesh`` (None
+    without a mesh of more than one rank); raises for a mesh the step
+    does not take."""
+    if mesh is None or mesh.world_size <= 1:
         return None
-    others = {a: n for a, n in mesh.shape.items() if a != "data" and n > 1}
-    if others:
-        raise ValueError(
-            f"training on mesh {mesh.shape}: only a (D, 1) data-parallel "
-            f"mesh is ported; model-parallel training ({others}) is "
-            f"ROADMAP queue 1 item 5b")
-    return mesh.group("data") if mesh.size("data") > 1 else None
+    shd.check_train_mesh(mesh, cfg)
+    return shd.TrainLayout(mesh, shd.model_specs(cfg, mesh)[1])
 
 
 def to_device(batch: dict, device) -> dict:
@@ -111,11 +123,18 @@ def to_device(batch: dict, device) -> dict:
 
 
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None):
-    """Returns ``(step, opt_init)``; see the module's docstring."""
-    opt_init, opt_update = make_optimizer(tcfg.opt, cfg)
-    group = data_group(mesh)
+    """Returns ``(step, opt_init)``; see the module's docstring.  On a
+    mesh both take and return this rank's stored blocks, and
+    ``step.layout`` is their ``sharding.TrainLayout``."""
+    layout = train_layout(cfg, mesh)
+    opt_init, opt_update = make_optimizer(tcfg.opt, cfg, layout)
+    group = (mesh.group("data") if layout is not None
+             and mesh.size("data") > 1 else None)
     n_ranks = mesh.size("data") if group is not None else 1
     rank = mesh.index("data") if group is not None else 0
+    data_dims = ([s.index("data") if "data" in s else None
+                  for s in layout.specs] if group is not None
+                 else None)
     accum = tcfg.accum_steps
 
     def rows(batch: dict) -> dict:
@@ -134,11 +153,20 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None):
 
         return {k: one(v) for k, v in batch.items()}
 
-    def grads_of(params, batch):
-        ps = tree_leaves(params)
-        leaves = [p.detach().requires_grad_(True) for p in ps]
+    def model_blocks(ps: list) -> list:
+        """The stored blocks gathered over 'data': the rank's 'model'
+        block of each leaf (what its layers compute with)."""
+        if group is None:
+            return ps
+        with torch.no_grad():
+            return [p if d is None else all_gather_cat(p, group, dim=d)
+                    for p, d in zip(ps, data_dims)]
+
+    def grads_of(params, full, batch):
+        leaves = [p.detach().requires_grad_(True) for p in full]
         tree = unflatten_like(params, leaves)
-        with torch.enable_grad():
+        with torch.enable_grad(), activation_mesh(
+                mesh if layout is not None else None):
             total, (loss, aux) = loss_fn(tree, cfg, batch, tcfg,
                                          batch_group=group)
             grads = torch.autograd.grad(total, leaves,
@@ -147,12 +175,14 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None):
 
     def synced_grads(params, batch):
         """(gradients in flattening order, loss, aux): accumulated,
-        compressed and averaged over the mesh, not yet clipped."""
+        compressed and averaged over 'data' (to each rank's stored block
+        on a mesh), not yet clipped."""
         batch = rows(to_device(batch, tree_leaves(params)[0].device))
+        full = model_blocks(tree_leaves(params))
         if accum > 1:
             gsum, loss, aux = None, 0.0, 0.0
             for a in range(accum):
-                g, l_a, x_a = grads_of(params,
+                g, l_a, x_a = grads_of(params, full,
                                        {k: v[a] for k, v in batch.items()})
                 gsum = ([x.float() for x in g] if gsum is None
                         else [s + x.float() for s, x in zip(gsum, g)])
@@ -160,26 +190,28 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None):
             grads = [s / accum for s in gsum]
             loss, aux = loss / accum, aux / accum
         else:
-            grads, loss, aux = grads_of(params, batch)
+            grads, loss, aux = grads_of(params, full, batch)
+        del full
         grads = _compress(grads, tcfg.grad_compress)
         if group is not None:
-            synced, _ = compressed_psum_mean(grads, group, method="none")
-            grads = [s.to(g.dtype) for s, g in zip(synced, grads)]
+            grads = [reduce_scatter_mean(g, group, d)
+                     for g, d in zip(grads, data_dims)]
             la = torch.stack([loss, aux]).float()
             dist.all_reduce(la, group=group)
             loss, aux = la[0] / n_ranks, la[1] / n_ranks
         return grads, loss, aux
 
     def grads(params, batch):
-        """The step's gradients (a tree like ``params``), loss and aux,
-        before the clip and the update."""
+        """The step's gradients (a tree like ``params``: on a mesh, this
+        rank's stored blocks), loss and aux, before the clip and the
+        update."""
         g, loss, aux = synced_grads(params, batch)
         return unflatten_like(params, g), loss, aux
 
     def step(params, opt_state, batch):
         g, loss, aux = synced_grads(params, batch)
         grads, gnorm = clip_by_global_norm(unflatten_like(params, g),
-                                           tcfg.opt.grad_clip)
+                                           tcfg.opt.grad_clip, layout)
         del g       # the clipped copy alone stays for the update's peak
         params, opt_state = opt_update(tcfg.opt, grads, opt_state, params)
         metrics = {"loss": loss.float(), "aux_loss": aux.float(),
@@ -187,4 +219,5 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None):
         return params, opt_state, metrics
 
     step.grads = grads
+    step.layout = layout
     return step, opt_init

@@ -27,6 +27,7 @@ from repro_torch.models import lm
 from repro_torch.observability.trace import Tracer, uninstall_tracer
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.scheduler import SchedulerConfig
+from repro_torch.tree import leaves
 
 MAX_LEN = 64
 MOE_KW = {"gemv_backend": "h100"}
@@ -263,13 +264,16 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 16      # global rows, positions
 def train_one(arch: str, mesh=None, accum: int = 1) -> dict:
     """One step of the reduced ``arch`` from the port's seeded init on
     the global batch of step 0: the step's gradients (before the clip),
-    loss and aux, the updated params and the metrics, on the CPU."""
+    loss and aux, the updated params and the metrics, on the CPU (on a
+    mesh the rank steps on its stored blocks, and the gradients and
+    params come back whole, gathered from every rank's)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import sharding as shd
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import TrainConfig, build_train_step
 
     cfg = get_config(arch).reduced()
-    params = lm.init_lm(cfg, seed=0, device="cpu")
+    params = lm.init_lm(cfg, seed=0, device="cpu", mesh=mesh, train=True)
     tcfg = TrainConfig(opt=OptConfig(name=cfg.optimizer, lr=1e-3,
                                      warmup_steps=1, total_steps=10),
                        accum_steps=accum)
@@ -281,6 +285,8 @@ def train_one(arch: str, mesh=None, accum: int = 1) -> dict:
                  for k, v in batch.items()}
     grads, loss, aux = step.grads(params, batch)
     new, _, metrics = step(params, opt_init(params), batch)
+    if mesh is not None:
+        grads, new = shd.gather_train_tree((grads, new), mesh, cfg)
     return {"grads": grads, "loss": float(loss), "aux": float(aux),
             "params": new, "metrics": {k: float(v)
                                        for k, v in metrics.items()}}
@@ -306,3 +312,275 @@ def train_launcher_argv(ckpt_dir: str) -> list[str]:
     return ["--arch", "deepseek-moe-16b", "--smoke", "--steps", "6",
             "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
             "--ckpt-every", "2", "--ckpt-dir", ckpt_dir, "--device", "cpu"]
+
+
+# --------------------------------------------------------------------------
+# Model-parallel training (test_torch_train_tp.py)
+# --------------------------------------------------------------------------
+
+# name: (arch, config overrides, OptConfig overrides); grok-1-314b's
+# Adafactor factors at 8, so that leaves a cut splits factor (embed, wo,
+# the experts, the router); olmo-1b with one kv head: K / V whole on
+# every rank, each rank reading the kv head its query heads share
+TP_CASES = {"olmo": ("olmo-1b", {}, {}),
+            "olmo_kv1": ("olmo-1b", {"n_kv_heads": 1}, {}),
+            "deepseek": ("deepseek-moe-16b", {}, {}),
+            "grok": ("grok-1-314b", {}, {"factored_min_dim": 8})}
+TP_BATCH, TP_SEQ = 4, 16        # global rows, positions
+TP_CKPT_CASE = "grok"           # the state a (2, 2) mesh checkpoints
+
+
+def tp_config(name: str, **over):
+    arch, cfg_over, _ = TP_CASES[name]
+    return dataclasses.replace(get_config(arch).reduced(),
+                               **{**cfg_over, **over})
+
+
+def tp_train_config(name: str, cfg, **kw):
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    return TrainConfig(opt=OptConfig(name=cfg.optimizer, lr=1e-3,
+                                     warmup_steps=1, total_steps=10,
+                                     **TP_CASES[name][2]), **kw)
+
+
+def tp_batch(cfg, accum: int = 1) -> dict:
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    batch = SyntheticLM(cfg, DataConfig(global_batch=TP_BATCH,
+                                        seq_len=TP_SEQ)).batch_at(0)
+    if accum > 1:
+        batch = {k: v.reshape((accum, -1) + v.shape[1:])
+                 for k, v in batch.items()}
+    return batch
+
+
+def tp_step(name: str, mesh=None, *, params=None, accum: int = 1,
+            compress: str = "none", remat: bool | None = None,
+            full_step: bool = True) -> dict:
+    """Case ``name``'s step from the port's seeded init (or ``params``, a
+    full tree), on this rank's stored blocks with ``mesh``: the step's
+    gradients (before the clip), loss and aux, and with ``full_step``
+    the updated params, optimizer state and metrics.  On a mesh every
+    tree comes back whole (gathered), beside the rank's own stored
+    blocks (``blocks``) and the shapes it stores (``shapes``)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train.train_step import build_train_step
+
+    over = {} if remat is None else {"remat": remat}
+    cfg = tp_config(name, **over)
+    tcfg = tp_train_config(name, cfg, accum_steps=accum,
+                           grad_compress=compress)
+    step, opt_init = build_train_step(cfg, tcfg, mesh=mesh)
+    if params is None:
+        params = lm.init_lm(cfg, seed=0, device="cpu", mesh=mesh,
+                            train=True)
+    elif mesh is not None:
+        params = shd.shard_train_tree(params, mesh, cfg)
+    batch = tp_batch(cfg, accum)
+    grads, loss, aux = step.grads(params, batch)
+    out = {"grads": grads, "loss": float(loss), "aux": float(aux)}
+    if full_step:
+        state = opt_init(params)
+        new, new_state, metrics = step(params, state, batch)
+        out.update(params=new, opt=new_state,
+                   metrics={k: float(v) for k, v in metrics.items()})
+    if mesh is None:
+        return out
+    trees = {k: out[k] for k in ("grads", "params", "opt") if k in out}
+    out["blocks"] = trees
+    out["shapes"] = {k: [tuple(t.shape) for t in leaves(v)]
+                     for k, v in trees.items()}
+    out.update(shd.gather_train_tree(trees, mesh, cfg))
+    return out
+
+
+def tp_update(name: str, grads, mesh=None) -> dict:
+    """The clip and the optimizer update of case ``name`` from its seeded
+    init on the full gradients ``grads``: on this rank's blocks of them
+    with ``mesh`` (returned whole), else on one process.  Isolates the
+    update across shards from the gradients' summation order."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train.optimizer import clip_by_global_norm, \
+        make_optimizer
+    from repro_torch.train.train_step import train_layout
+
+    cfg = tp_config(name)
+    tcfg = tp_train_config(name, cfg)
+    layout = train_layout(cfg, mesh)
+    params = lm.init_lm(cfg, seed=0, device="cpu",
+                        mesh=mesh if layout is not None else None,
+                        train=True)
+    if layout is not None:
+        grads = shd.shard_train_tree(grads, mesh, cfg)
+    init, update = make_optimizer(tcfg.opt, cfg, layout)
+    clipped, norm = clip_by_global_norm(grads, tcfg.opt.grad_clip, layout)
+    new, state = update(tcfg.opt, clipped, init(params), params)
+    out = {"params": new, "opt": state, "norm": float(norm)}
+    if layout is not None:
+        out.update(shd.gather_train_tree({"params": new, "opt": state},
+                                         mesh, cfg))
+    return out
+
+
+def tp_functions(mesh) -> dict:
+    """The three collectives' backwards on two ranks, each beside what its
+    plain-tensor rule gives; and an MoE layer whose experts are cut over
+    'model' beside whole shared experts, against the whole layer."""
+    from repro_torch.distributed.axes import activation_mesh
+    from repro_torch.models import layers as L
+
+    group, r = mesh.group("model"), mesh.index("model")
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(3, 5, generator=g)
+    w = torch.randn(2, 3, 5, generator=g)       # rank r's factor: w[r]
+    c = torch.randn(3, 5, generator=g)
+    z = torch.randn(2, 3, 4, generator=g)       # rank r's block: z[r]
+    c2 = torch.randn(3, 8, generator=g)
+    xe = x.clone().requires_grad_(True)
+    y = coll.enter(xe, group) * w[r]
+    y.retain_grad()
+    out = coll.all_reduce_sum(y, group)
+    zr = z[r].clone().requires_grad_(True)
+    gathered = coll.all_gather_cat(zr, group, dim=-1)
+    ((out * c).sum() + (gathered * c2).sum()).backward()
+    res = {"x_grad": xe.grad, "y_grad": y.grad, "z_grad": zr.grad,
+           "out": out.detach(), "gathered": gathered.detach(),
+           "inputs": (x, w, c, z, c2), "rank": r}
+
+    # experts cut, shared experts whole: the shared branch gets no enter
+    cfg = get_config("deepseek-moe-16b").reduced()
+    p = L.init_moe(torch.Generator().manual_seed(3), cfg, torch.float32,
+                   "cpu")
+    h = torch.randn(2, 6, cfg.d_model, generator=g)
+    cy = torch.randn(2, 6, cfg.d_model, generator=g)
+    n = mesh.size("model")
+    mine = {k: (v if k not in ("w_gate", "w_up", "w_down")
+                else v.chunk(n)[r].clone()) for k, v in p.items()}
+
+    def grads_of(tree, run):
+        ps = {k: (v.clone().requires_grad_(True) if k != "shared"
+                  else {a: b.clone().requires_grad_(True)
+                        for a, b in v.items()})
+              for k, v in tree.items()}
+        hx = h.clone().requires_grad_(True)
+        y, aux = run(ps, hx)
+        ((y * cy).sum() + aux).backward()
+        return {"h": hx.grad, "router": ps["router"].grad,
+                "shared": {a: b.grad for a, b in ps["shared"].items()},
+                "experts": {k: ps[k].grad for k in ("w_gate", "w_up",
+                                                     "w_down")},
+                "y": y.detach()}
+
+    def sharded(ps, hx):
+        with activation_mesh(mesh):
+            y, aux, partial = L.moe_partial(ps, hx, cfg)
+        assert not partial
+        return y, aux
+
+    res["moe"] = grads_of(mine, sharded)
+    res["moe_whole"] = grads_of(p, lambda ps, hx: L.apply_moe(ps, hx, cfg))
+    return res
+
+
+def tp_backward_in_a_thread(mesh) -> dict:
+    """Case "olmo"'s loss (remat on) formed under the mesh, its gradients
+    taken on another thread, where the forward's context is not set (on
+    the card the autograd engine runs the backward, and so remat's
+    recompute, on a device thread): the gradients, or the error."""
+    import threading
+
+    from repro_torch.distributed.axes import activation_mesh
+    from repro_torch.train.train_step import loss_fn, to_device
+    from repro_torch.tree import unflatten_like
+
+    cfg = tp_config("olmo")
+    tcfg = tp_train_config("olmo", cfg)
+    params = lm.init_lm(cfg, seed=0, device="cpu", mesh=mesh, train=True)
+    ps = [t.detach().requires_grad_(True) for t in leaves(params)]
+    batch = to_device(tp_batch(cfg), "cpu")
+    with activation_mesh(mesh):
+        total, _ = loss_fn(unflatten_like(params, ps), cfg, batch, tcfg)
+    out = {}
+
+    def backward():
+        try:
+            out["grads"] = unflatten_like(params, torch.autograd.grad(
+                total, ps))
+        except Exception as e:      # noqa: BLE001 (the test reads it)
+            out["error"] = repr(e)
+
+    t = threading.Thread(target=backward)
+    t.start()
+    t.join()
+    return out
+
+
+def tp_ranks(mesh, bridged=None, ckpt_dir: str | None = None,
+             restore_from: str | None = None,
+             launcher_dir: str | None = None) -> dict:
+    """Every model-parallel training case on this rank.  On any mesh:
+    each ``TP_CASES`` step, and the update on the same gradients.  With
+    ``bridged`` (the JAX package's deepseek-moe-16b tree as numpy) its
+    gradients; on a (1, D) mesh also remat off, accumulation, bf16
+    compression and the collectives' backwards.  With ``ckpt_dir`` case
+    ``TP_CKPT_CASE``'s stepped state is saved there from this mesh; with
+    ``restore_from`` the state saved there is restored onto this mesh.
+    With ``launcher_dir`` ``launch/train.py --mesh DxM`` runs through a
+    fault at step 3."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train as launcher
+    from repro_torch.train.train_step import build_train_step
+
+    out = {"coords": dict(mesh.coords)}
+    for name in TP_CASES:
+        out[name] = tp_step(name, mesh)
+        one = tp_step(name, full_step=False)
+        out[name]["same_grads"] = tp_update(name, one["grads"], mesh)
+        out[name]["one_grads"] = one["grads"]
+    if bridged is not None:
+        cfg = tp_config("deepseek")
+        out["bridged"] = tp_step("deepseek", mesh, full_step=False,
+                                 params=params_from_numpy(bridged, cfg,
+                                                          "cpu"))
+    if mesh.size("data") == 1:
+        for name in ("olmo", "deepseek"):
+            out[f"{name}_remat_off"] = tp_step(name, mesh, remat=False,
+                                               full_step=False)
+        out["accum"] = tp_step("olmo", mesh, accum=2, full_step=False)
+        out["bf16"] = tp_step("olmo", mesh, compress="bf16",
+                              full_step=False)
+        out["functions"] = tp_functions(mesh)
+        out["thread_backward"] = tp_backward_in_a_thread(mesh)
+    world = torch.distributed.group.WORLD
+    cfg = tp_config(TP_CKPT_CASE)
+    if ckpt_dir is not None:
+        blocks = out[TP_CKPT_CASE]["blocks"]
+        state = {"params": blocks["params"], "opt": blocks["opt"]}
+        CheckpointManager(ckpt_dir, group=world).save(
+            1, state, shardings=shd.train_specs_of(state, mesh, cfg),
+            mesh=mesh)
+    if restore_from is not None:
+        step, opt_init = build_train_step(
+            cfg, tp_train_config(TP_CKPT_CASE, cfg), mesh=mesh)
+        params = lm.init_lm(cfg, seed=1, device="cpu", mesh=mesh,
+                            train=True)
+        template = {"params": params, "opt": opt_init(params)}
+        mgr = CheckpointManager(restore_from, group=world)
+        restored, _ = mgr.restore(
+            template, shardings=shd.train_specs_of(template, mesh, cfg),
+            mesh=mesh)
+        out["restored_shapes"] = [tuple(t.shape)
+                                  for t in leaves(restored)]
+        out["restored"] = shd.gather_train_tree(restored, mesh, cfg)
+    if launcher_dir is not None:
+        d, m = mesh.size("data"), mesh.size("model")
+        out["launcher"] = launcher.run_on_mesh(
+            mesh, train_launcher_argv(launcher_dir) + ["--mesh", f"{d}x{m}"],
+            fail_at=(3,))
+        out["ckpt_steps"] = (sorted(os.listdir(launcher_dir))
+                             if mesh.rank == 0 else None)
+    return out

@@ -217,6 +217,34 @@ def test_launcher_recovers_to_the_uninterrupted_params(tmp_path, capsys):
                                             clean["params"])
 
 
+def test_restore_right_after_a_non_blocking_save_returns_the_loaded_step(
+        tmp_path, monkeypatch):
+    """The launcher's restore (``launch.train.restore_latest``) waits for
+    the writer before it reads the latest step: right after a
+    non-blocking save of step 4 whose files are still being written, it
+    loads step 4's state and returns 4 (reading the step first, as the
+    reference does, would return 2 with step 4's state loaded)."""
+    import threading
+    import time
+
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(2, {"w": torch.full((3,), 2.0)})
+    write, started = mgr._write, threading.Event()
+
+    def slow_write(*a):
+        started.set()
+        time.sleep(0.3)
+        write(*a)
+
+    monkeypatch.setattr(mgr, "_write", slow_write)
+    mgr.save(4, {"w": torch.full((3,), 4.0)}, blocking=False)
+    started.wait()
+    assert mgr.latest_step() == 2       # step 4 is not published yet
+    state = {"w": torch.zeros(3)}
+    assert launcher.restore_latest(mgr, state) == 4
+    assert torch.equal(state["w"], torch.full((3,), 4.0))
+
+
 def test_launcher_accumulates_and_compresses(tmp_path):
     out = launcher.main(["--arch", "deepseek-moe-16b", "--smoke", "--steps",
                          "2", "--batch", "4", "--seq", "16", "--accum", "2",
@@ -240,10 +268,16 @@ def test_entry_points_raise_without_a_card(tmp_path):
 
 
 def test_example_tiny_runs_on_the_cpu():
-    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    """The example at 2 x 32 for 11 steps on one intra-op thread: the
+    checkpoint of step 10 (one every 10) is written, and the loss
+    falls."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"),
+           "OMP_NUM_THREADS": "1"}
     out = subprocess.run([sys.executable, "examples/train_e2e_torch.py",
-                          "--tiny", "--steps", "15", "--device", "cpu"],
+                          "--tiny", "--steps", "11", "--batch", "2",
+                          "--seq", "32", "--device", "cpu"],
                          capture_output=True, text=True, cwd=REPO, env=env,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
+    assert "'step_0000000010'" in out.stdout.split("checkpoints")[-1]
     assert "final loss" in out.stdout

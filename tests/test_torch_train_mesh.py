@@ -1,15 +1,18 @@
 """Data-parallel training on a (2, 1) mesh over gloo on the CPU: two
 ranks started by the port's launcher (``launch.mesh.spawn``), each
-stepping on its row block of one global batch.
+holding its FSDP blocks of the params and optimizer state (each leaf cut
+over 'data', ``sharding.train_spec``) and stepping on its row block of
+one global batch.
 
-The ranks must end with bit-equal params (they apply the same averaged
-gradients), and the step's loss, MoE aux loss and averaged gradients
-must equal the one-process step's on the whole batch: f32, where the
-per-rank sums and the all-reduce reassociate the batch sums, so within
-``rtol`` 1e-5 and ``atol`` 1e-6.  Reduced olmo-1b and deepseek-moe-16b
-(whose aux loss is not linear in the batch: the ranks sum their routing
-counts first), olmo-1b with accumulation, and the training launcher
-through an injected fault.
+The ranks must end with bit-equal params when gathered from their blocks
+(they apply the same averaged gradients), and the step's loss, MoE aux
+loss and averaged gradients must equal the one-process step's on the
+whole batch: f32, where the per-rank sums and the all-reduce
+reassociate the batch sums, so within ``rtol`` 1e-5 and ``atol`` 1e-6.
+Reduced olmo-1b and deepseek-moe-16b (whose aux loss is not linear in
+the batch: the ranks sum their routing counts first), olmo-1b with
+accumulation, and the training launcher through an injected fault;
+about 18 s in one process, one spawn.
 """
 
 
