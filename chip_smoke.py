@@ -218,8 +218,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    drift]``: one 448-token prompt prefilled whole and in chunks of 128,
    16 greedy tokens each way, in bf16 (as perturbed, and with the
    projections unscaled) and in f32: how far the two batchings drift
-   apart; then ``[state serving]``, with the weights cast to f32 (the
-   bf16 model's drift is O(1)): the ``[serving]`` rules on a mix of 12
+   apart; then ``[state serving]``, with the first 16 of the 32 layers'
+   weights cast to f32 (the bf16 model's drift is O(1); the depth keeps
+   the script inside its limit): the ``[serving]`` rules on a mix of 12
    requests of 2 tenants (384-token prefixes, 16-64-token tails, 16
    tokens each) and the two urgent requests, chunk 128, the prefix cache
    holding state snapshots at chunk boundaries: tokens equal on both
@@ -244,8 +245,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``decode_attention`` 32 a step, ``pim_gemv`` / ``splitk_gemv`` as the
    picks predict: 32 + 32, QKV and the head stay on ``ref``; no
    cache-shaped cast or copy; the replayed window's port kernels);
-   ``[hybrid logits]``; then ``[hybrid serving]`` with the weights cast
-   to f32: the ``[serving]`` rules on 10 requests of 2 tenants (384-token
+   ``[hybrid logits]``; then ``[hybrid serving]`` with the first 16 of
+   the 32 layers' weights cast to f32: the ``[serving]`` rules on 10
+   requests of 2 tenants (384-token
    prefixes, 16-64-token tails, 16 tokens each) and the two urgent
    requests, chunk 128, the prefix cache holding K/V spans and state
    snapshots at chunk boundaries: tokens equal on both routes AND equal
@@ -308,18 +310,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    cs.run_trace(torch.device('cuda', 0))"``;
 20. ``[mesh kernels]``: ``pim_gemv`` / ``splitk_gemv`` at the decode
    GEMV shapes a rank of a (1, 2) mesh runs (olmo-1b, deepseek-moe-16b,
-   grok-1-314b; batch 8), ``ragged_gemv`` on a rank's expert stacks
-   (deepseek 32 of 64 experts, grok 4 of 8; the other ranks' rows past
-   the offsets, zero), ``decode_attention`` at G 6 (grok's 24 over 4 a
-   rank and 48 over 8), each against its plain version and timed beside
-   its bound; then ``[mesh]``: each model at full width (grok at 2 of 64
-   layers) first on the unsharded engine here, eagerly, then on the two
+   grok-1-314b, llama-3.2-vision-11b; batch 8), ``ragged_gemv`` on a
+   rank's expert stacks (deepseek 32 of 64 experts, grok 4 of 8; the
+   other ranks' rows past the offsets, zero), ``decode_attention`` at G
+   6 (grok's 24 over 4 a rank and 48 over 8) and at a rank's heads of
+   llama-vision (self G 4, 4 kv heads of 128, C 1024; cross over 1601
+   patches) and whisper-small (self G 1, 6 heads of 64; cross over 1500
+   frames), each against its plain version and timed beside its bound;
+   the h100 picks at whisper's rank shapes, logged; then ``[mesh]``:
+   each model at full width (grok at 2 of 64 layers, whisper-small whole,
+   llama-vision at 10 of 40: cross layers 4 and 9; every ``cross_gate``
+   1.0) first on the unsharded engine here, eagerly, then on the two
    ranks of one (1, 2) mesh started by ``launch.mesh.spawn``, sharing
    this card over gloo (eager: gloo collectives cannot be captured), with
    ``overlap_collectives`` off and on: 8 prompts of 64-512 tokens (the
-   512-token one chunked by 128), 16 greedy tokens; fails unless every
+   512-token one chunked by 128), 8 greedy tokens (whisper-small: 4 of
+   the prompts); fails unless every
    rank's rows are the same, overlap on is bit-equal to off with
-   n_layers deferred collectives a decode step, tokens equal the
+   n_layers deferred collectives a decode step (none with a context:
+   whisper's encoder output, llama-vision's patches), tokens equal the
    unsharded engine's up to any step whose unsharded top-2 margin is
    below 1e-2 (that request stops there, its margin printed), logits
    within one bf16 ulp a layer at their max |logit|, every rank launched
@@ -341,14 +350,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``grad_norm`` is finite; prints step-time p50, tokens/s and peak
    memory each way (a step's, and one forward and backward's alone).  Card against CPU: olmo-1b and deepseek-moe-16b at
    full width and 2 layers, one step's loss and every gradient at batch
-   2 x 64 from the same params (remat off), within the tolerance
+   2 x 32 from the same params (remat off), within the tolerance
    printed; no port kernel launched under grad (deepseek's MoE runs the
    capacity einsum, no ``ragged_gemv``).  Recovery: ``launch.train.main``
    (olmo-1b, 2 layers, 12 steps, a checkpoint every 5) with a fault at
    step 7 against an uninterrupted run: final params and state bit for
    bit (deterministic algorithms on).  Data parallel: two ranks of a
    (2, 1) mesh through ``spawn`` on this card over gloo, one step of
-   olmo-1b at full width and 2 layers on a global batch of 4 x 64:
+   olmo-1b at full width and 2 layers on a global batch of 4 x 32:
    params bit-equal across ranks, loss and averaged gradients against
    the one-process step's.  The phase alone: ``python3 -c "import
    torch, chip_smoke as cs; cs.run_train(torch.device('cuda', 0))"``;
@@ -357,8 +366,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    gloo through ``spawn``, each holding its stored blocks
    (``sharding.train_spec``).  olmo-1b (AdamW) on (1, 2) and (2, 2),
    deepseek-moe-16b (AdamW, experts cut over 'model') and olmo-1b with
-   Adafactor on (1, 2), at full width and 2 layers in f32 (TF32 off),
-   one step at batch 2 x 64.  Each against the one-process step on the
+   Adafactor on (1, 2), at full width and 2 layers, and whisper-small
+   (AdamW, its encoder and cross-attention as rank blocks) on (1, 2) at
+   full width and depth, in f32 (TF32 off), one step at batch 2 x 32.
+   Each against the one-process step on the
    card (rank 0 computes it): the gathered gradients within
    ``TRAIN_GRAD_RTOL`` of each leaf's max |g|, loss and aux within
    ``TRAIN_LOSS_RTOL``, the gathered updated params within
@@ -368,9 +379,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    weight by about ``sign(g) * lr``), every block two ranks both hold
    bit-equal, no port kernel launched.  The (2, 2) run's params and
    state are checkpointed (full leaves) and restored onto (1, 2) and onto
-   one process, bit-equal to the saved leaves.  Prints each rank's
+   one process, bit-equal to the saved leaves; so is whisper's (1, 2)
+   run onto one process.  Prints each rank's
    step time and peak memory (ranks sharing a card over gloo: not a
-   mesh's speed) and the phase's seconds against its 90 s aim.  The
+   mesh's speed) and the phase's seconds against its 130 s aim.  The
    phase alone: ``python3 -c "import torch, chip_smoke as cs;
    cs.run_train_mesh(torch.device('cuda', 0))"`` (no build needed);
 23. the ``{"kernels": [...]}`` line (``decode_attention_g5``: the G 5
@@ -3677,8 +3689,10 @@ def mm_attention_shapes() -> dict[str, dict]:
     }
 
 
-def check_mm_attention(dev) -> list[dict]:
-    """decode_attention at each of :func:`mm_attention_shapes`, 8 slots:
+def check_mm_attention(dev, shapes: dict | None = None) -> list[dict]:
+    """decode_attention at each of ``shapes`` (default
+    :func:`mm_attention_shapes`; a spec may name a rank's heads ``H`` /
+    ``Hkv`` and a self shape's prompt ``lengths``), 8 slots:
     the routing rule must take it (a plan of splits exists); against its
     plain version at every split count that fits (the self shape on a
     mid-run step's lengths and with idle slots past the end; a cross
@@ -3692,9 +3706,10 @@ def check_mm_attention(dev) -> list[dict]:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     B = ATTN_SLOTS
     rows = []
-    for shape, spec in mm_attention_shapes().items():
+    for shape, spec in (shapes or mm_attention_shapes()).items():
         cfg, C, cross = spec["cfg"], spec["C"], spec["cross"]
-        Hkv, D, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
+        Hkv, D, H = (spec.get("Hkv", cfg.n_kv_heads), cfg.hd,
+                     spec.get("H", cfg.n_heads))
         G = H // Hkv
 
         def kv():
@@ -3723,7 +3738,8 @@ def check_mm_attention(dev) -> list[dict]:
                                               kv_valid_len=None,
                                               causal=False)
         else:
-            lengths = [n + MM_TOKENS // 2 for n in ENGINE_LENGTHS]
+            lengths = spec.get("lengths",
+                               [n + MM_TOKENS // 2 for n in ENGINE_LENGTHS])
             valid = torch.tensor(lengths, dtype=torch.int32, device=dev)
             qpos = (valid - 1)[:, None]
             # idle slots past the end: a row at C - 1 and rows past it
@@ -3912,6 +3928,21 @@ def run_multimodal(dev) -> dict:
 STATE_ARCH = "rwkv6-3b"
 STATE_TOKENS = 32
 STATE_MAX_LEN = 1024
+# the f32 traffic mixes of [state] and [hybrid] run the first half of the
+# model's layers: the mix's rules (chunks, snapshots, preemption, tokens
+# equal to the plain engine's) hold at any depth, and the whole script
+# stays inside its time limit.  Not 8: guard_serving counts copies of
+# state rows by shape, and a row of 8 layers has a decode batch's shape
+SERVE_MIX_LAYERS = 16
+
+
+def serve_mix_model(cfg, params: dict):
+    """``(cfg, params)`` of a [state] / [hybrid] traffic mix: the first
+    ``SERVE_MIX_LAYERS`` layers, in f32 (new tensors)."""
+    n = min(SERVE_MIX_LAYERS, cfg.n_layers)
+    cut = {**params, "layers": params["layers"][:n]}
+    return (dataclasses.replace(cfg, n_layers=n, param_dtype="float32",
+                                compute_dtype="float32"), to_f32(cut))
 
 
 def perturb_rwkv(params: dict, seed: int) -> None:
@@ -4004,8 +4035,9 @@ def run_state(dev) -> dict:
     engine phase's rules (one ``pim_gemv`` launch a decode step, the
     head, and no other port kernel); one decode step through the kernel
     and through ``kernel="ref"``; how far two batchings of the same work
-    drift apart (``state_drift``); then, with the weights in f32, the
-    traffic mix of ``[serving]`` (2 tenants, 16-64-token tails, chunk
+    drift apart (``state_drift``); then, with the first
+    ``SERVE_MIX_LAYERS`` layers' weights in f32, the traffic mix of
+    ``[serving]`` (2 tenants, 16-64-token tails, chunk
     128, the prefix cache with its state snapshots, the preemptions),
     whose tokens must equal the plain engine's but at a near tie."""
     cfg = get_config(STATE_ARCH)
@@ -4064,13 +4096,12 @@ def run_state(dev) -> dict:
             f"{d['logit_absmax']:.3g}, top-2 margin {d['top2_margin']:.4g}; "
             f"streams part at token {d['first_divergent_token']} of 16 "
             f"({d['distinct_tokens']} distinct tokens)")
-    params = to_f32(params)
+    cfg32, params = serve_mix_model(cfg, params)
     gc.collect()
     torch.cuda.empty_cache()
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                compute_dtype="float32")
     tag = f"{cfg.name} f32"
-    log(f"[state serving] {tag}: the same weights in f32; chunked prefill "
+    log(f"[state serving] {tag}: the same weights in f32, the first "
+        f"{cfg32.n_layers} of {cfg.n_layers} layers; chunked prefill "
         f"({SERVE_CHUNK}), the prefix cache (state snapshots at chunk "
         f"boundaries) and preemption, both routes, then the plain engine "
         f"(tokens must be equal, or part only at a near tie < {NEAR_TIE})")
@@ -4118,7 +4149,8 @@ def run_hybrid(dev) -> dict:
     ``HYBRID_TOKENS`` greedy tokens each, both routes and the engine
     phase's rules (``decode_attention`` once a layer, ``pim_gemv`` /
     ``splitk_gemv`` as the picks predict); ``[hybrid logits]``; then, with
-    the weights in f32, ``[hybrid serving]``: the traffic mix of
+    the first ``SERVE_MIX_LAYERS`` layers' weights in f32, ``[hybrid
+    serving]``: the traffic mix of
     ``[serving]`` with the prefix cache's state snapshots, whose tokens
     must equal the plain engine's but at a near tie."""
     cfg = get_config(HYBRID_ARCH)
@@ -4172,13 +4204,12 @@ def run_hybrid(dev) -> dict:
         f"{lg['argmax_agree']}/{lg['batch']}")
     # the mix in f32, as [state]'s: chunked and whole prefill of one
     # prompt are two batchings of the same work, which bf16 rounds apart
-    params = to_f32(params)
+    cfg32, params = serve_mix_model(cfg, params)
     gc.collect()
     torch.cuda.empty_cache()
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                compute_dtype="float32")
     tag = f"{cfg.name} f32"
-    log(f"[hybrid serving] {tag}: the same weights in f32; chunked prefill "
+    log(f"[hybrid serving] {tag}: the same weights in f32, the first "
+        f"{cfg32.n_layers} of {cfg.n_layers} layers; chunked prefill "
         f"({SERVE_CHUNK}), the prefix cache (K/V spans and state snapshots "
         f"at chunk boundaries) and preemption, both routes, then the plain "
         f"engine (tokens must be equal, or part only at a near tie < "
@@ -4909,19 +4940,40 @@ def run_trace_fitted(dev, kw: dict, fitted: dict, seed_run: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 MESH_SHAPE = (1, 2)
-MESH_SLOTS, MESH_MAX_LEN, MESH_TOKENS, MESH_CHUNK = 8, 1024, 16, 128
+# 8 greedy tokens: ten decode steps of rows to hold, and gloo's host
+# staging (which sets a rank's step) kept to what the time limit allows
+MESH_SLOTS, MESH_MAX_LEN, MESH_TOKENS, MESH_CHUNK = 8, 1024, 8, 128
 # 8 prompts of 64-512 tokens: only the 512-token one is longer than a chunk
 MESH_LENGTHS = [64, 512, 96, 128, 100, 72, 120, 80]
-# (arch, layers kept; None: all): grok-1-314b at 2 of its 64 layers
+# whisper-small re-runs its encoder over 1500 frames a slot every step,
+# and on a rank all-reduces each encoder layer's two partial sums (B x
+# 1500 x 768 f32, 37 MB at batch 8) through gloo's host staging (0.5 to
+# 2 s a step at batch 8 on an H100, by the host): it serves 4 of the
+# prompts (the 512-token one cut to 200, two chunks)
+MESH_MIXES = {"whisper-small": ([64, 200, 96, 128], MESH_TOKENS)}
+
+
+def mesh_mix(arch: str) -> tuple[list[int], int]:
+    """(prompt lengths, greedy tokens) of ``arch``'s [mesh] mix."""
+    return MESH_MIXES.get(arch, (MESH_LENGTHS, MESH_TOKENS))
+
+
+# (arch, layers kept; None: all): grok-1-314b at 2 of its 64 layers,
+# whisper-small whole (12 + 12 layers, 1500 frames), llama-3.2-vision-11b
+# at 10 of its 40 (two groups of five: cross layers 4 and 9), every
+# cross_gate at MM_GATE (mesh_params)
 MESH_MODELS = (("olmo-1b", None), ("deepseek-moe-16b", None),
-               ("grok-1-314b", 2))
+               ("grok-1-314b", 2), ("whisper-small", None),
+               ("llama-3.2-vision-11b", 10))
 MESH_TIMEOUT_S = 900
 # bf16 logits of the sharded dense engine against the unsharded one: each
-# layer's sharded sums (wo, down) round each rank's partial to bf16 and
-# add the partials in f32 (unsharded: one rounding of the whole sum), and
-# the difference grows through the layers; bound: 16 bf16 ulps at the
-# rows' max |logit|.  An MoE model's whole-model logits are printed, not
-# held (a 1-ulp difference can swap a router's k-th and (k+1)-th expert,
+# layer's sharded sums (wo, down; whisper's encoder layers and every
+# cross-attention's wo too) round each rank's partial to bf16 and add the
+# partials in f32 (unsharded: one rounding of the whole sum), and the
+# difference grows through the layers; bound: 16 bf16 ulps at the rows'
+# max |logit|, for whisper and llama-vision as for olmo-1b.  An MoE
+# model's whole-model logits are printed, not held (a 1-ulp difference
+# can swap a router's k-th and (k+1)-th expert,
 # see moe_logits_check); its MoE blocks are held one by one instead: on
 # the first decode step, each layer's sharded block (the rank's experts
 # and shared-expert columns, all-reduced as the engine does) against the
@@ -4962,6 +5014,51 @@ def mesh_config(arch: str, layers: int | None):
                                                           n_layers=layers)
 
 
+def mesh_params(cfg, dev, mesh=None) -> dict:
+    """A [mesh] model drawn from the seed (this rank's blocks with
+    ``mesh``), every ``cross_gate`` at ``MM_GATE``, as ``[multimodal]``
+    sets it: the init's zeros hide llama-vision's cross path."""
+    params = lm.init_lm(cfg, seed=SEED, device=dev, mesh=mesh)
+    for p in params["layers"]:
+        if "cross_gate" in p:
+            p["cross_gate"].fill_(MM_GATE)
+    return params
+
+
+def rank_config(cfg, n: int = 2):
+    """The widths a rank of a (1, ``n``) mesh runs a decode step at: its
+    query and kv heads, FFN columns and vocab block where they divide
+    (``sharding.serve_spec``), for ``decode_sites``."""
+    def cut(x):
+        return x // n if x % n == 0 else x
+
+    return dataclasses.replace(
+        cfg, n_heads=cut(cfg.n_heads), n_kv_heads=cut(cfg.n_kv_heads),
+        head_dim=cfg.hd, d_ff=cut(cfg.d_ff), vocab=cut(cfg.vocab))
+
+
+def mesh_mm_attention_shapes() -> dict[str, dict]:
+    """``decode_attention`` at a (1, 2) rank's heads of the multimodal
+    [mesh] models: llama-vision's self (G 4, 4 kv heads of 128, the
+    1024-position cache) and cross (over its 1601 patches), whisper's
+    self (G 1, 6 heads of 64) and cross (over its 1500 frames); each
+    with its launches a decode step at the [mesh] depth."""
+    lengths = [n + MESH_TOKENS // 2 for n in MESH_LENGTHS]
+    out = {}
+    for arch, layers in MESH_MODELS[3:]:
+        cfg = mesh_config(arch, layers)
+        rk = rank_config(cfg)
+        heads = dict(cfg=cfg, H=rk.n_heads, Hkv=rk.n_kv_heads)
+        C = cfg.encoder.n_frames if cfg.encoder else cfg.vision_tokens
+        out[f"{arch}/rank/self"] = dict(
+            heads, C=MESH_MAX_LEN, cross=False, lengths=lengths,
+            per_step=cfg.n_layers)
+        out[f"{arch}/rank/cross"] = dict(
+            heads, C=C, cross=True,
+            per_step=attention_layers(cfg) - cfg.n_layers)
+    return out
+
+
 def mesh_serve(cfg, params, dev, mesh=None, overlap: bool = False,
                moe_blocks: bool = False) -> dict:
     """The [mesh] mix on one engine (this rank's share with ``mesh``),
@@ -4995,8 +5092,9 @@ def mesh_serve(cfg, params, dev, mesh=None, overlap: bool = False,
         return sample(r, row)
 
     eng._sample = recorded
-    for i, p in enumerate(prompts(cfg.vocab, MESH_LENGTHS, SEED)):
-        eng.submit(Request(rid=i, prompt=p, max_new_tokens=MESH_TOKENS))
+    lengths, tokens = mesh_mix(cfg.name)
+    for i, p in enumerate(prompts(cfg.vocab, lengths, SEED)):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=tokens))
     reset_launches()
     t0 = time.perf_counter()
     try:
@@ -5005,7 +5103,7 @@ def mesh_serve(cfg, params, dev, mesh=None, overlap: bool = False,
         L.moe_partial = real
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if len(done) != len(MESH_LENGTHS):
+    if len(done) != len(lengths):
         raise AssertionError(f"{cfg.name}: {len(done)} requests done")
     if moe_blocks and len(blocks) != cfg.n_layers:
         raise AssertionError(f"{cfg.name}: {len(blocks)} MoE blocks seen")
@@ -5039,7 +5137,7 @@ def mesh_rank(mesh, plan) -> dict:
     for arch, layers in plan:
         cfg = mesh_config(arch, layers)
         t0 = time.perf_counter()
-        params = lm.init_lm(cfg, seed=SEED, device=mesh.device, mesh=mesh)
+        params = mesh_params(cfg, mesh.device, mesh)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         mem = torch.cuda.memory_allocated(mesh.device) / 1e9
@@ -5078,7 +5176,9 @@ def mesh_rank(mesh, plan) -> dict:
 def mesh_compare(arch: str, base: dict, ranks: list[dict]) -> dict:
     """Hold every rank of one model against the unsharded run: the same
     rows on every rank (digest), overlap on bit-equal to off, the
-    deferred count, the wrappers' launches; tokens equal but where the
+    deferred count (n_layers a decode step; none for a model with a
+    context, whose steps defer nothing, as in the reference), the
+    wrappers' launches; tokens equal but where the
     unsharded top-2 margin is below ``NEAR_TIE`` (that request's
     comparison stops there, its margin printed); a dense model's rows
     within ``MESH_LOGIT_ULPS`` bf16 ulps at their max |logit| (an MoE
@@ -5088,15 +5188,16 @@ def mesh_compare(arch: str, base: dict, ranks: list[dict]) -> dict:
     mine = [r["models"][arch] for r in ranks]
     if len({m["digest"] for m in mine}) != 1:
         raise AssertionError(f"[mesh] {arch}: the ranks' rows differ")
+    deferring = cfg.encoder is None and not cfg.cross_attn_every
     for r, m in zip(ranks, mine):
         if not m["overlap_equal"]:
             raise AssertionError(f"[mesh] {arch} rank {r['rank']}: "
                                  f"overlap on differs from off")
-        if m["deferred"] != cfg.n_layers * m["overlap_decode_steps"]:
+        want = cfg.n_layers * m["overlap_decode_steps"] if deferring else 0
+        if m["deferred"] != want:
             raise AssertionError(
                 f"[mesh] {arch} rank {r['rank']}: {m['deferred']} deferred "
-                f"collectives, want {cfg.n_layers} x "
-                f"{m['overlap_decode_steps']}")
+                f"collectives, want {want}")
         need = ["decode_attention"] + (["ragged_gemv"] if cfg.moe else [])
         for k in need:
             if m["launches"][k] <= 0:
@@ -5164,16 +5265,33 @@ def mesh_moe_blocks(arch: str, policy, blocks: list, dev) -> dict:
 
 def check_mesh_kernels(dev) -> list[dict]:
     """[mesh kernels]: ``pim_gemv`` / ``splitk_gemv`` at each per-rank
-    decode GEMV shape (batch 8), ``ragged_gemv`` on each per-rank expert
-    stack (a rank's rows first, the rest past the offsets), and
-    ``decode_attention`` at G 6 (24 over 4 and 48 over 8, D 128, C 1024),
-    each held against its plain version, then timed beside its bound (and
-    the library call where there is one)."""
+    decode GEMV shape (batch 8; llama-vision's from ``rank_config``),
+    ``ragged_gemv`` on each per-rank expert stack (a rank's rows first,
+    the rest past the offsets), ``decode_attention`` at G 6 (24 over 4
+    and 48 over 8, D 128, C 1024) and at the multimodal models' rank
+    shapes (:func:`mesh_mm_attention_shapes`), each held against its
+    plain version, then timed beside its bound (and the library call
+    where there is one); and the h100 picks at whisper's rank shapes,
+    logged."""
     import torch.nn.functional as F
 
     rows = []
     for arch, shapes in MESH_GEMV_SHAPES.items():
         rows += check_kernels(dev, shapes, (8,), f"{arch}/rank")
+    # llama-vision's rank GEMVs are timed; whisper's, logged with the
+    # h100 picks at batches 1 and 8
+    vision = "llama-3.2-vision-11b"
+    vcfg = rank_config(mesh_config(vision, dict(MESH_MODELS)[vision]))
+    rows += check_kernels(dev, family_gemv_shapes(vcfg), (8,),
+                          f"{vision}/rank")
+    wcfg = rank_config(get_config("whisper-small"))
+    be, policy = get_backend("h100"), DispatchPolicy(model_shards=2)
+    picks = {f"{site} {M}x{K} B={B}": be.select_kernel(
+        M, K, B, policy=policy)[0]
+        for site, (M, K, _) in decode_sites(wcfg).items() for B in (1, 8)}
+    log(f"  h100 picks at whisper-small's rank shapes (M x K): "
+        f"{json.dumps(picks)}")
+    rows += check_mm_attention(dev, mesh_mm_attention_shapes())
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     rng = np.random.default_rng(SEED + 7)
     for shape, (E, k, K, M, per_step) in MESH_RAGGED_SHAPES.items():
@@ -5290,7 +5408,7 @@ def run_mesh(dev) -> dict:
     base = {}
     for arch, layers in MESH_MODELS:
         cfg = mesh_config(arch, layers)
-        params = lm.init_lm(cfg, seed=SEED, device=dev)
+        params = mesh_params(cfg, dev)
         with disable_graphs():
             base[arch] = mesh_serve(cfg, params, dev)
         del params
@@ -5375,7 +5493,9 @@ TRAIN_ARCH = "olmo-1b"
 TRAIN_STEPS, TRAIN_OFF_STEPS = 20, 5    # remat on, then off
 TRAIN_BATCH, TRAIN_SEQ = 8, 128
 TRAIN_CHECK = (("olmo-1b", 2), ("deepseek-moe-16b", 2))   # (arch, layers)
-TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 64
+# 32 positions: the card-vs-CPU check's CPU side and the mesh runs' gloo
+# traffic grow with them, and the script must stay inside its time limit
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 32
 # card against CPU, f32 with TF32 off, the sums in other orders: the loss
 # within 1e-5 relative, each gradient leaf within 1e-3 of its own max |g|
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
@@ -5673,18 +5793,26 @@ def run_train(dev) -> dict:
 # [train mesh]: model-parallel training on a (data, model) mesh
 # ---------------------------------------------------------------------------
 
-# (name, arch, optimizer): each run on its mesh against the one-process
-# step on the card, full width, TRAIN_MESH_LAYERS layers, f32, TF32 off
-TRAIN_MESH_RUNS = {
-    (1, 2): (("olmo-1b adamw", "olmo-1b", "adamw"),
-             ("deepseek-moe-16b adamw", "deepseek-moe-16b", "adamw"),
-             ("olmo-1b adafactor", "olmo-1b", "adafactor")),
-    (2, 2): (("olmo-1b adamw", "olmo-1b", "adamw"),),
-}
+# (name, arch, optimizer, layers; None: all): each run on its mesh
+# against the one-process step on the card, full width, f32, TF32 off;
+# whisper-small at full depth too (12 + 12 layers, 0.24 B params: its
+# encoder and every layer's cross-attention as rank blocks)
 TRAIN_MESH_LAYERS, TRAIN_MESH_BATCH = 2, 2
+TRAIN_MESH_RUNS = {
+    (1, 2): (("olmo-1b adamw", "olmo-1b", "adamw", TRAIN_MESH_LAYERS),
+             ("deepseek-moe-16b adamw", "deepseek-moe-16b", "adamw",
+              TRAIN_MESH_LAYERS),
+             ("olmo-1b adafactor", "olmo-1b", "adafactor",
+              TRAIN_MESH_LAYERS),
+             ("whisper-small adamw", "whisper-small", "adamw", None)),
+    (2, 2): (("olmo-1b adamw", "olmo-1b", "adamw", TRAIN_MESH_LAYERS),),
+}
 TRAIN_MESH_CKPT = ROOT / "build" / "train_mesh_ckpt"
 TRAIN_MESH_SAVED = "olmo-1b adamw"      # the (2, 2) run it checkpoints
-TRAIN_MESH_AIM_S = 90
+# the (1, 2) run checkpointed and restored onto one process
+TRAIN_MESH_MM_CKPT = ROOT / "build" / "train_mesh_mm_ckpt"
+TRAIN_MESH_MM_SAVED = "whisper-small adamw"
+TRAIN_MESH_AIM_S = 130
 
 
 def leaf_digests(tree, keep=None) -> list[str | None]:
@@ -5713,8 +5841,8 @@ def share(got, want, base=None) -> tuple[float, str | None]:
     return worst, at
 
 
-def train_mesh_setup(arch: str, opt: str):
-    cfg = train_config(arch, TRAIN_MESH_LAYERS)
+def train_mesh_setup(arch: str, opt: str, layers: int | None):
+    cfg = train_config(arch, layers)
     tcfg, data = train_setup(cfg, TRAIN_MESH_BATCH, TRAIN_CHECK_SEQ)
     tcfg = dataclasses.replace(tcfg, opt=dataclasses.replace(tcfg.opt,
                                                              name=opt))
@@ -5761,7 +5889,7 @@ def train_mesh_reference(cfg, tcfg, batch, grads, new, dev) -> dict:
 
 
 def train_mesh_case(mesh, name: str, arch: str, opt: str,
-                    save_dir: str | None) -> dict:
+                    layers: int | None, save_dir: str | None) -> dict:
     """One run on this rank: a step's gradients alone, then the step, on
     the rank's stored blocks; their digests (and the specs they are cut
     by) for the whole-leaf check; the whole gradients and params
@@ -5771,7 +5899,7 @@ def train_mesh_case(mesh, name: str, arch: str, opt: str,
 
     t_case = time.perf_counter()
     dev = mesh.device
-    cfg, tcfg, batch = train_mesh_setup(arch, opt)
+    cfg, tcfg, batch = train_mesh_setup(arch, opt, layers)
     step, opt_init = build_train_step(cfg, tcfg, mesh=mesh)
     params = lm.init_lm(cfg, seed=SEED, device=dev, mesh=mesh, train=True)
     state = opt_init(params)
@@ -5811,10 +5939,17 @@ def train_mesh_case(mesh, name: str, arch: str, opt: str,
     full = tree_map(lambda t: t.cpu(), full) if mesh.rank == 0 else None
     gc.collect()
     torch.cuda.empty_cache()
+    # every rank has let go of its blocks before rank 0's reference takes
+    # the card (on a slow host a rank that freed late left deepseek's
+    # reference out of memory)
+    dist.barrier()
     if mesh.rank == 0:
+        res["free_gb_at_reference"] = torch.cuda.mem_get_info(dev)[0] / 1e9
         res["check"] = train_mesh_reference(cfg, tcfg, batch, *full, dev)
         log(f"[train mesh] {name}, mesh {tuple(mesh.shape.values())}: rank "
-            f"0 done ({time.perf_counter() - t_case:.1f} s)")
+            f"0 done ({time.perf_counter() - t_case:.1f} s; "
+            f"{res['free_gb_at_reference']:.2f} GB of the card free at its "
+            f"one-process reference)")
     del full
     gc.collect()
     torch.cuda.empty_cache()
@@ -5839,17 +5974,17 @@ def train_mesh_restore(mesh, restore_dir: str) -> dict:
     return {"digests": leaf_digests(full), "block_shapes": shapes}
 
 
-def train_mesh_rank(mesh, runs, save_dir=None, restore_dir=None) -> dict:
-    """Every run of ``runs`` on this rank, then with ``restore_dir`` the
-    restore."""
+def train_mesh_rank(mesh, runs, saves=None, restore_dir=None) -> dict:
+    """Every run of ``runs`` on this rank (a run named in ``saves``
+    checkpointed into its directory there), then with ``restore_dir``
+    the restore."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {"rank": mesh.rank, "coords": dict(mesh.coords),
            "backend": mesh.backend, "device": str(mesh.device), "runs": {}}
-    for name, arch, opt in runs:
+    for name, arch, opt, layers in runs:
         out["runs"][name] = train_mesh_case(
-            mesh, name, arch, opt,
-            save_dir if name == TRAIN_MESH_SAVED else None)
+            mesh, name, arch, opt, layers, (saves or {}).get(name))
     if restore_dir is not None:
         out["restore"] = train_mesh_restore(mesh, restore_dir)
     return out
@@ -5897,12 +6032,21 @@ def run_train_mesh(dev) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
     card = nvidia_smi_line()
-    shutil.rmtree(TRAIN_MESH_CKPT, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    log(f"[train mesh] the card: {free / 1e9:.2f} of {total / 1e9:.2f} GB "
+        f"free; this process holds "
+        f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved")
+    for d in (TRAIN_MESH_CKPT, TRAIN_MESH_MM_CKPT):
+        shutil.rmtree(d, ignore_errors=True)
     out = {"card": card, "meshes": {}}
     try:
         for shape in ((2, 2), (1, 2)):
-            kw = ({"save_dir": str(TRAIN_MESH_CKPT)} if shape == (2, 2)
-                  else {"restore_dir": str(TRAIN_MESH_CKPT)})
+            kw = ({"saves": {TRAIN_MESH_SAVED: str(TRAIN_MESH_CKPT)}}
+                  if shape == (2, 2) else
+                  {"restore_dir": str(TRAIN_MESH_CKPT),
+                   "saves": {TRAIN_MESH_MM_SAVED: str(TRAIN_MESH_MM_CKPT)}})
             t0 = time.perf_counter()
             ranks = spawn(train_mesh_rank, shape, timeout_s=MESH_TIMEOUT_S,
                           args=(TRAIN_MESH_RUNS[shape],), kwargs=kw)
@@ -5917,14 +6061,26 @@ def run_train_mesh(dev) -> dict:
         one_digests = leaf_digests(restored)
         del params, restored
         saved = saved_digests(TRAIN_MESH_CKPT)
+        # the (1, 2) whisper checkpoint restored onto one process
+        run = next(r for r in TRAIN_MESH_RUNS[(1, 2)]
+                   if r[0] == TRAIN_MESH_MM_SAVED)
+        cfg, tcfg, _ = train_mesh_setup(*run[1:])
+        _, opt_init = build_train_step(cfg, tcfg)
+        params = lm.init_lm(cfg, seed=SEED + 1, device=dev)
+        restored, _ = CheckpointManager(str(TRAIN_MESH_MM_CKPT)).restore(
+            {"params": params, "opt": opt_init(params)})
+        mm_digests = leaf_digests(restored)
+        del params, restored
+        mm_saved = saved_digests(TRAIN_MESH_MM_CKPT)
     finally:
-        shutil.rmtree(TRAIN_MESH_CKPT, ignore_errors=True)
+        for d in (TRAIN_MESH_CKPT, TRAIN_MESH_MM_CKPT):
+            shutil.rmtree(d, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     failed = []
     for mname, mres in out["meshes"].items():
         ranks = mres["ranks"]
-        for name, _, _ in TRAIN_MESH_RUNS[tuple(
+        for name, arch, _, layers in TRAIN_MESH_RUNS[tuple(
                 int(x) for x in mname.split("x"))]:
             r0 = ranks[0]["runs"][name]
             c = r0["check"]
@@ -5940,8 +6096,12 @@ def run_train_mesh(dev) -> dict:
                   and checked > 0)
             if not ok:
                 failed.append((mname, name))
+            depth = (f"{layers} layers" if layers else
+                     f"all {get_config(arch).n_layers} layers"
+                     + (f" + {get_config(arch).encoder.n_layers} encoder "
+                        f"layers" if get_config(arch).encoder else ""))
             log(f"[train mesh] {name} on ({mname.replace('x', ', ')}), "
-                f"{TRAIN_MESH_LAYERS} layers, full width, f32, batch "
+                f"{depth}, full width, f32, batch "
                 f"{TRAIN_MESH_BATCH} x {TRAIN_CHECK_SEQ}: loss "
                 f"{r0['loss']:.6f} vs one process {c['loss_one']:.6f} (rel "
                 f"{loss_rel:.2e}, tolerance {TRAIN_LOSS_RTOL}), aux rel "
@@ -5969,13 +6129,18 @@ def run_train_mesh(dev) -> dict:
                    for r in out["meshes"]["1x2"]["ranks"]]
     restore_ok = (all(d == saved for d in restored_12)
                   and one_digests == saved)
+    mm_restore_ok = mm_digests == mm_saved
     log(f"[train mesh] the (2, 2) checkpoint ({len(saved)} leaves: "
         f"{TRAIN_MESH_SAVED}'s params and AdamW state) restored onto (1, 2) "
         f"(each rank's blocks, e.g. "
         f"{out['meshes']['1x2']['ranks'][0]['restore']['block_shapes'][-1]})"
         f" and onto one process: full leaves bit-equal to the saved ones "
-        f"{restore_ok}")
+        f"{restore_ok}; the (1, 2) checkpoint of {TRAIN_MESH_MM_SAVED} "
+        f"({len(mm_saved)} leaves, its encoder's among them) restored onto "
+        f"one process: bit-equal {mm_restore_ok}")
     out["restore_bit_equal"] = restore_ok
+    out["mm_restore_bit_equal"] = mm_restore_ok
+    restore_ok = restore_ok and mm_restore_ok
     for m in out["meshes"].values():        # digests stay out of the report
         for r in m["ranks"]:
             for rr in r["runs"].values():
@@ -6411,13 +6576,15 @@ def main() -> int:
 
     t_mesh = time.perf_counter()
     log("[mesh kernels] per-rank decode GEMV shapes of olmo-1b, "
-        "deepseek-moe-16b and grok-1-314b on a (1, 2) mesh (pim_gemv / "
-        "splitk_gemv at B 8, ragged_gemv on a rank's experts) and "
-        "decode_attention at G 6, each against its plain version, timed")
+        "deepseek-moe-16b, grok-1-314b and llama-3.2-vision-11b on a (1, 2) "
+        "mesh (pim_gemv / splitk_gemv at B 8, ragged_gemv on a rank's "
+        "experts), decode_attention at G 6 and at whisper-small's and "
+        "llama-vision's rank heads, each against its plain version, timed")
     rows += check_mesh_kernels(dev)
-    log("[mesh] olmo-1b, deepseek-moe-16b, grok-1-314b (2 of 64 layers) "
-        "at full width, bf16: unsharded here (eager), then two ranks of a "
-        "(1, 2) mesh sharing this card over gloo")
+    log("[mesh] olmo-1b, deepseek-moe-16b, grok-1-314b (2 of 64 layers), "
+        "whisper-small, llama-3.2-vision-11b (10 of 40 layers, cross_gate "
+        f"{MM_GATE}) at full width, bf16: unsharded here (eager), then two "
+        "ranks of a (1, 2) mesh sharing this card over gloo")
     mesh = run_mesh(dev)
     mesh["with_kernels_s"] = time.perf_counter() - t_mesh
     log(f"[mesh] {mesh['seconds']:.1f} s ({mesh['with_kernels_s']:.1f} s "
@@ -6425,9 +6592,11 @@ def main() -> int:
 
     train = run_train(dev)
     log("[train mesh] olmo-1b (AdamW, Adafactor) and deepseek-moe-16b at "
-        "full width and 2 layers, f32: a (1, 2) and a (2, 2) mesh of ranks "
-        "sharing this card over gloo, against the one-process step; the "
-        "(2, 2) checkpoint restored onto (1, 2) and one process")
+        "full width and 2 layers, whisper-small at full width and depth, "
+        "f32: a (1, 2) and a (2, 2) mesh of ranks sharing this card over "
+        "gloo, against the one-process step; the (2, 2) checkpoint restored "
+        "onto (1, 2) and one process, whisper's (1, 2) one onto one "
+        "process")
     train_mesh = run_train_mesh(dev)
 
     launch_counts = {**{n: engine["launches"][n] for n in FLOAT_KERNELS},

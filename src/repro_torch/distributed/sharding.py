@@ -19,6 +19,8 @@ inserts the collectives.  The port holds each rank's block itself:
   each leaf is ``shard_tensor`` of its :func:`serve_spec`, the planner's
   spec where it is the leaf's row placement (heads, FFN columns and the
   down projection's rows, whole experts, the vocab), else the leaf whole;
+  whisper's encoder layers by the encoder's own heads and FFN width and
+  a cross-attention layer by its heads (:func:`leaf_config`);
   the slot cache (``serving.kv_cache``) holds :func:`serve_cache_spec`'s
   block.  Deliberate differences from the reference, each named in
   :func:`serve_spec`: the fused leaves (``wqkv``, ``w_gateup``) keep the
@@ -334,6 +336,19 @@ ATTN_LEAVES = ("wq", "wk", "wv", "wo")
 FUSED_LEAVES = ("wqkv", "w_gateup", "head_t")
 
 
+def leaf_config(path: str, cfg: ModelConfig) -> ModelConfig:
+    """The config of the layer that holds the leaf at ``path``: under
+    ``encoder/`` whisper's encoder's own (``lm.encoder_config``: its
+    heads, one kv head a head, its FFN width); else the model's, whose
+    heads a cross layer's ``wq [d, H, hd]``, ``wk`` / ``wv [d_kv, Hkv,
+    hd]`` and ``wo [H, hd, d]`` have too."""
+    if cfg.encoder is not None and path.split("/", 1)[0] == "encoder":
+        from repro_torch.models.lm import encoder_config
+
+        return encoder_config(cfg)
+    return cfg
+
+
 def attention_shardable(cfg: ModelConfig, n: int) -> bool:
     """A rank can run ``H / n`` query heads: the heads divide, and either
     the kv heads do too or a rank's query heads share one kv head (which
@@ -354,13 +369,16 @@ def serve_spec(path: str, shape: tuple[int, ...], mesh,
     width, and the attention that writes it must hold the same heads); a
     leaf the planner would cut on a fallback dim (``hd``, ``d``, an
     expert's ``f``) or that the layer reads whole (norm scales, the
-    router) stays whole; attention stays whole unless
-    :func:`attention_shardable`."""
+    router, a cross layer's ``cross_gate``, whisper's ``proj``) stays
+    whole; attention (self, cross, the encoder's) stays whole unless
+    :func:`attention_shardable` by the heads of the layer that holds it
+    (:func:`leaf_config`)."""
     n = mesh.shape.get("model", 1)
     name = path.split("/")[-1]
     spec: list[Any] = [None] * len(shape)
     if n <= 1 or name not in SERVE_LEAVES or (
-            name in ATTN_LEAVES and not attention_shardable(cfg, n)):
+            name in ATTN_LEAVES
+            and not attention_shardable(leaf_config(path, cfg), n)):
         return P(*spec)
     dim = _model_prefs(name, shape)[0]
     if _divides(shape[dim], n):
@@ -377,18 +395,22 @@ def serve_cache_heads(cfg: ModelConfig, mesh) -> int:
                               if spec[3] == "model" else 1)
 
 
-MESH_FAMILIES = ("dense", "moe")
+MESH_FAMILIES = ("dense", "moe", "audio", "vlm")
+# the ROADMAP queue 1 item that puts each refused family on a mesh
+MESH_FAMILY_ITEMS = {"ssm": "2b", "hybrid": "2b"}
 
 
 def check_mesh_family(cfg: ModelConfig) -> None:
-    """Sharded serving runs the dense and MoE decoders; raise for the
-    others (recurrent state, encoders and cross-attention are not sharded
-    yet)."""
-    if cfg.family not in MESH_FAMILIES or cfg.parallel_ssm \
-            or cfg.encoder is not None or cfg.cross_attn_every:
+    """Sharded serving runs the dense and MoE decoders, whisper (its
+    encoder and cross-attention as rank blocks) and llama-vision (its
+    cross-attention layers); raise for the others (recurrent state is not
+    sharded yet), naming the ROADMAP queue 1 item that ports them."""
+    if cfg.family not in MESH_FAMILIES or cfg.parallel_ssm:
+        item = MESH_FAMILY_ITEMS.get(cfg.family, "2")
         raise NotImplementedError(
             f"sharded serving of family {cfg.family!r} ({cfg.name}) is not "
-            f"ported yet (the mesh runs {', '.join(MESH_FAMILIES)})")
+            f"ported yet: ROADMAP queue 1 item {item} (the mesh runs "
+            f"{', '.join(MESH_FAMILIES)})")
 
 
 def _repack(tree: dict, cfg: ModelConfig) -> dict:
@@ -452,10 +474,6 @@ def shard_layer(p: dict, mesh, cfg: ModelConfig) -> dict:
 # --------------------------------------------------------------------------
 # Training: each rank's 'model' block, cut again over 'data' for storage
 # --------------------------------------------------------------------------
-
-# the ROADMAP queue 1 item that puts each refused family on a mesh
-MESH_FAMILY_ITEMS = {"audio": "2a", "vlm": "2a", "ssm": "2b", "hybrid": "2b"}
-
 
 def check_train_mesh(mesh, cfg: ModelConfig) -> None:
     """Raise for a mesh the training step does not take: a 'pod' axis

@@ -14,10 +14,12 @@ rank's block (``distributed.sharding.shard_params``) and tells what it
 holds from their shapes: ``wq`` with fewer heads than the config's is a
 rank's heads (its ``wqkv`` block ``[q_r | k_r | v_r]``, ``wo``'s row
 block: the attention output is a partial sum, all-reduced over the
-'model' group); an FFN narrower than its full width is a rank's columns
-(the down projection's partial is all-reduced); an expert stack with
-fewer experts than the config's is a rank's whole experts (each rank
-runs its experts' rows, the combine is all-reduced).  Where the
+'model' group; so for a cross-attention layer, and for whisper's encoder
+layers against the encoder's own heads, ``lm.run_encoder``); an FFN
+narrower than its full width is a rank's columns (the down projection's
+partial is all-reduced); an expert stack with fewer experts than the
+config's is a rank's whole experts (each rank runs its experts' rows,
+the combine is all-reduced).  Where the
 reference's GSPMD pinned a replicated layout, the layers issue the
 collective.  Under autograd (a training step on a 'model' axis) the
 replicated input of each rank block passes through
@@ -339,11 +341,29 @@ def apply_cross_attention(p: dict, x: torch.Tensor, ctx: torch.Tensor,
     ``Sk - 1`` (the same function: no key lies past it), which is the
     form ``decode_attention`` takes: on the card the kernel runs it over
     the freshly projected K / V.  Every other call is the plain
-    non-causal path."""
+    non-causal path.
+
+    Under a mesh the leaves hold a rank's heads (``wq`` / ``wk`` / ``wv``
+    its query and kv heads, ``wo`` their rows): the output is a partial
+    sum, all-reduced as self-attention's.  Where the kv heads do not
+    divide, ``wk`` / ``wv`` are whole and the rank projects the one kv
+    head its query heads share.  Under autograd ``x`` and ``ctx`` (and
+    whole K / V weights) enter the rank's block: their gradients sum
+    over the group."""
     B, Sq, _ = x.shape
+    H_l, Hkv_l = p["wq"].shape[1], p["wk"].shape[1]
+    wk, wv = p["wk"], p["wv"]
+    sharded = H_l != cfg.n_heads
+    if sharded:
+        group = model_group()
+        x, ctx = enter(x, group), enter(ctx, group)
+        if Hkv_l == cfg.n_kv_heads:
+            h = model_index() * H_l // (cfg.n_heads // cfg.n_kv_heads)
+            wk = enter(wk, group)[:, h:h + 1]
+            wv = enter(wv, group)[:, h:h + 1]
     q = project_heads(x, p["wq"])
-    k = project_heads(ctx, p["wk"])
-    v = project_heads(ctx, p["wv"])
+    k = project_heads(ctx, wk)
+    v = project_heads(ctx, wv)
     if Sq == 1:
         qpos = torch.full((B, 1), ctx.shape[1] - 1, dtype=torch.int32,
                           device=x.device)
@@ -352,7 +372,8 @@ def apply_cross_attention(p: dict, x: torch.Tensor, ctx: torch.Tensor,
     else:
         out = attention_core(q, k, v, q_positions=None, kv_valid_len=None,
                              causal=False)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    o = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return all_reduce_sum(o, group) if sharded else o
 
 
 # --------------------------------------------------------------------------

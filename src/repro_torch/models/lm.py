@@ -30,9 +30,10 @@ Under a mesh each rank holds its blocks of the tree
 unsharded model's values and keeps the rank's blocks): a vocab-sharded
 embedding is a masked local lookup plus an all-reduce (exact: the other
 ranks add zeros), a vocab-sharded head's logits are all-gathered, and the
-layers all-reduce their partial sums (``models/layers.py``).  Under
-autograd the lookup's all-reduce passes its gradient on to the rank's
-rows, and the head's input enters the rank's vocab columns
+layers all-reduce their partial sums (``models/layers.py``), whisper's
+encoder layers (:func:`run_encoder`) and every cross-attention layer
+included.  Under autograd the lookup's all-reduce passes its gradient on
+to the rank's rows, and the head's input enters the rank's vocab columns
 (``collectives.enter``) whose logits' gather keeps the rank's block of
 their gradient, so a training step on a 'model' axis computes the
 unsharded gradients, each on the rank that holds its block.
@@ -144,7 +145,8 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
         params = shd.shard_train_tree(params, mesh, cfg)
         params["layers"] = layers
     elif mesh is not None:
-        # the layers are cut already; this cuts the embedding and head
+        # the layers are cut already; this cuts the embedding, the head
+        # and whisper's encoder (by the encoder's own heads and widths)
         layers = params.pop("layers")
         params = shd.shard_params({**params, "layers": []}, mesh, cfg)
         params["layers"] = layers
@@ -460,7 +462,15 @@ def run_encoder(p: dict, frames: torch.Tensor,
     """whisper's encoder over stub frame embeddings ``[B, T, enc_d]``
     (``lm._run_encoder``): per layer rope over the frame positions,
     non-causal attention and a gelu FFN, each pre-LayerNorm with a
-    residual; then ``ln_f`` and, when the widths differ, ``proj``."""
+    residual; then ``ln_f`` and, when the widths differ, ``proj``.
+
+    Under a mesh a layer holds a rank's encoder heads and FFN columns
+    (``sharding.serve_spec`` by the encoder's own config): the attention
+    output's partial sum is all-reduced in f32 and cast once, as
+    self-attention's, and the FFN's by ``layers.apply_mlp`` (its full
+    width is the encoder's ``d_ff``); the norms and ``proj`` are whole on
+    every rank.  Under autograd the normed input enters the rank's
+    heads."""
     ecfg = encoder_config(cfg)
     B, T, _ = frames.shape
     positions = torch.arange(T, device=frames.device)[None].expand(B, T)
@@ -468,12 +478,16 @@ def run_encoder(p: dict, frames: torch.Tensor,
     for pl in p["layers"]:
         h = L.apply_norm(pl["ln1"], x, ecfg)
         a = pl["attn"]
+        sharded = a["wq"].shape[1] != ecfg.n_heads
+        if sharded:     # under autograd, the input of the rank's heads
+            h = enter(h, L.model_group())
         q = L.rope(L.project_heads(h, a["wq"]), positions, ecfg.rope_theta)
         k = L.rope(L.project_heads(h, a["wk"]), positions, ecfg.rope_theta)
         v = L.project_heads(h, a["wv"])
         o = L.attention_core(q, k, v, q_positions=None, kv_valid_len=None,
                              causal=False)
-        x = x + torch.einsum("bshk,hkd->bsd", o, a["wo"])
+        o = torch.einsum("bshk,hkd->bsd", o, a["wo"])
+        x = x + (all_reduce_sum(o, L.model_group()) if sharded else o)
         h = L.apply_norm(pl["ln2"], x, ecfg)
         x = x + L.apply_mlp(pl["mlp"], h, ecfg)
     x = L.apply_norm(p["ln_f"], x, ecfg)

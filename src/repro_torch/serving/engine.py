@@ -136,8 +136,11 @@ be captured in a CUDA graph (``Engine.graphs`` is None and
 ``Engine.graphs_reason`` says why); under NCCL too, until a machine with a
 card a rank has checked the captured collectives (a pre-warmed
 communicator, and the deferred collectives counted at replay).
-Sharded serving runs the dense and MoE decoders, without
-``async_prefill``.
+Sharded serving runs the dense and MoE decoders, whisper (its encoder
+and cross-attention as rank blocks) and llama-vision (its cross-attention
+layers), without ``async_prefill``; every rank draws the same per-slot
+features (``make_features``) and a compaction swaps their rows by the
+same moves on every rank.  ssm and hybrid models raise on a mesh.
 """
 
 from __future__ import annotations

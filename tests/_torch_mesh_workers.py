@@ -254,6 +254,123 @@ def skip_a_collective(mesh) -> None:
 
 
 # --------------------------------------------------------------------------
+# Sharded multimodal serving (test_torch_sharded_multimodal.py)
+# --------------------------------------------------------------------------
+
+MM_GATE = 0.75      # every cross_gate (the init's zeros hide the cross path)
+MM_KW = dict(prefill_chunk=8, prefix_cache=True)
+# name: (arch, config overrides (``encoder``: the encoder's width), engine
+# kwargs beside MM_KW); whisper also with an encoder of width 32 (``proj``)
+# and with an odd vocab (embedding and head whole on every rank),
+# llama-vision at 2 groups of 2 layers
+MM_CASES = {
+    "whisper": ("whisper-small", {}, {}),
+    "whisper_overlap": ("whisper-small", {}, {"overlap_collectives": True}),
+    "whisper_enc32": ("whisper-small", {"encoder": 32}, {}),
+    "whisper_vocab255": ("whisper-small", {"vocab": 255}, {}),
+    "vision": ("llama-3.2-vision-11b", {"n_layers": 4}, {}),
+    "vision_overlap": ("llama-3.2-vision-11b", {"n_layers": 4},
+                       {"overlap_collectives": True}),
+    # one kv head: K / V whole on every rank, self and cross, each rank
+    # projecting the kv head its query heads share
+    "vision_kv1": ("llama-3.2-vision-11b", {"n_layers": 4, "n_kv_heads": 1},
+                   {}),
+}
+
+
+def mm_overrides(cfg, over: dict) -> dict:
+    """``over`` for ``cfg`` (the port's or the JAX package's reduced
+    config): ``encoder=w`` sets the encoder's width."""
+    over = dict(over)
+    if "encoder" in over:
+        over["encoder"] = dataclasses.replace(cfg.encoder,
+                                              d_model=over["encoder"])
+    return over
+
+
+def mm_config(name: str):
+    cfg = get_config(MM_CASES[name][0]).reduced()
+    return dataclasses.replace(cfg, **mm_overrides(cfg, MM_CASES[name][1]))
+
+
+def gated(params: dict, gate: float = MM_GATE) -> dict:
+    """``params`` with every layer's ``cross_gate`` filled with ``gate``
+    (in place; whole on every rank)."""
+    for p in params["layers"]:
+        if "cross_gate" in p:
+            p["cross_gate"].fill_(gate)
+    return params
+
+
+def mm_params(name: str, mesh=None) -> dict:
+    """Case ``name``'s weights: the port's seeded init (this rank's blocks
+    with ``mesh``), gated."""
+    return gated(lm.init_lm(mm_config(name), seed=0, device="cpu",
+                            mesh=mesh))
+
+
+def mm_blocks(params: dict) -> dict:
+    """The encoder's and the cross layers' leaves of a param tree, by
+    path."""
+    from repro_torch.tree import flatten_with_paths, path_str
+
+    return {path_str(p): t.clone() for p, t in flatten_with_paths(params)
+            if p[0] == "encoder"
+            or {"cross", "cross_gate", "ln_cross"} & set(p)}
+
+
+def mm_serve(name: str, mesh=None) -> dict:
+    """Case ``name`` on the port's engine (this rank's share with
+    ``mesh``) over the mixed plan: tokens, sampled logits rows, counters,
+    compaction moves, the feature rows before and after, and the blocks
+    the rank was drawn with and the shapes its engine holds."""
+    from repro_torch.tree import flatten_with_paths, path_str
+
+    cfg = mm_config(name)
+    params = mm_params(name, mesh)
+    clk = FakeClock()
+    dispatch.clear_plan_cache()
+    eng = Engine(cfg, params, max_len=MAX_LEN, device="cpu", clock=clk,
+                 mesh=mesh, batch_slots=4, **MM_KW, **MM_CASES[name][2])
+    before = {k: v.clone() for k, v in eng.features.items()}
+    rows: dict[int, list] = {}
+    sample = eng._sample
+
+    def recorded(r, row):
+        rows.setdefault(r.rid, []).append(np.array(row))
+        return sample(r, row)
+
+    eng._sample = recorded
+    moves, compact = [], eng.kv.compact
+
+    def counted():
+        m = compact()
+        moves.append(len(m))
+        return m
+
+    eng.kv.compact = counted
+    reqs = drive(eng, Request, mix_plan(cfg.vocab), clk)
+    return {"tokens": {rid: list(r.generated) for rid, r in reqs.items()},
+            "rows": rows, "stats": dispatch.dispatch_stats(),
+            "counters": dict(eng.metrics.counters),
+            "defrag_moves": sum(moves), "features_before": before,
+            "features": {k: v.clone() for k, v in eng.features.items()},
+            "prefix": eng.prefix, "graphs": eng.graphs,
+            "graphs_reason": eng.graphs_reason,
+            "drawn": mm_blocks(params),
+            "held": {path_str(p): tuple(t.shape)
+                     for p, t in flatten_with_paths(eng.params)
+                     if isinstance(t, torch.Tensor)}}
+
+
+def run_mm_cases(mesh, names) -> dict:
+    """Every multimodal case in ``names`` on this rank."""
+    out = {name: mm_serve(name, mesh) for name in names}
+    out["coords"] = dict(mesh.coords)
+    return out
+
+
+# --------------------------------------------------------------------------
 # Data-parallel training (test_torch_train_mesh.py)
 # --------------------------------------------------------------------------
 
@@ -308,8 +425,9 @@ def train_ranks(mesh, ckpt_dir: str) -> dict:
     return out
 
 
-def train_launcher_argv(ckpt_dir: str) -> list[str]:
-    return ["--arch", "deepseek-moe-16b", "--smoke", "--steps", "6",
+def train_launcher_argv(ckpt_dir: str,
+                        arch: str = "deepseek-moe-16b") -> list[str]:
+    return ["--arch", arch, "--smoke", "--steps", "6",
             "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
             "--ckpt-every", "2", "--ckpt-dir", ckpt_dir, "--device", "cpu"]
 
@@ -321,13 +439,22 @@ def train_launcher_argv(ckpt_dir: str) -> list[str]:
 # name: (arch, config overrides, OptConfig overrides); grok-1-314b's
 # Adafactor factors at 8, so that leaves a cut splits factor (embed, wo,
 # the experts, the router); olmo-1b with one kv head: K / V whole on
-# every rank, each rank reading the kv head its query heads share
+# every rank, each rank reading the kv head its query heads share;
+# whisper-small (its encoder and every layer's cross-attention as rank
+# blocks) and llama-vision at 2 groups (also with one kv head: the cross
+# layers' K / V weights whole on every rank), every cross_gate at MM_GATE
 TP_CASES = {"olmo": ("olmo-1b", {}, {}),
             "olmo_kv1": ("olmo-1b", {"n_kv_heads": 1}, {}),
             "deepseek": ("deepseek-moe-16b", {}, {}),
-            "grok": ("grok-1-314b", {}, {"factored_min_dim": 8})}
+            "grok": ("grok-1-314b", {}, {"factored_min_dim": 8}),
+            "whisper": ("whisper-small", {}, {}),
+            "vision": ("llama-3.2-vision-11b", {"n_layers": 4}, {}),
+            "vision_kv1": ("llama-3.2-vision-11b",
+                           {"n_layers": 4, "n_kv_heads": 1}, {})}
 TP_BATCH, TP_SEQ = 4, 16        # global rows, positions
 TP_CKPT_CASE = "grok"           # the state a (2, 2) mesh checkpoints
+TP_MM_CKPT_CASE = "whisper"     # and of a multimodal model
+TP_MM_CASES = ("whisper", "vision")
 
 
 def tp_config(name: str, **over):
@@ -374,8 +501,8 @@ def tp_step(name: str, mesh=None, *, params=None, accum: int = 1,
                            grad_compress=compress)
     step, opt_init = build_train_step(cfg, tcfg, mesh=mesh)
     if params is None:
-        params = lm.init_lm(cfg, seed=0, device="cpu", mesh=mesh,
-                            train=True)
+        params = gated(lm.init_lm(cfg, seed=0, device="cpu", mesh=mesh,
+                                  train=True))
     elif mesh is not None:
         params = shd.shard_train_tree(params, mesh, cfg)
     batch = tp_batch(cfg, accum)
@@ -409,9 +536,9 @@ def tp_update(name: str, grads, mesh=None) -> dict:
     cfg = tp_config(name)
     tcfg = tp_train_config(name, cfg)
     layout = train_layout(cfg, mesh)
-    params = lm.init_lm(cfg, seed=0, device="cpu",
-                        mesh=mesh if layout is not None else None,
-                        train=True)
+    params = gated(lm.init_lm(cfg, seed=0, device="cpu",
+                              mesh=mesh if layout is not None else None,
+                              train=True))
     if layout is not None:
         grads = shd.shard_train_tree(grads, mesh, cfg)
     init, update = make_optimizer(tcfg.opt, cfg, layout)
@@ -517,25 +644,63 @@ def tp_backward_in_a_thread(mesh) -> dict:
     return out
 
 
+def tp_save(mesh, name: str, blocks: dict, directory: str) -> None:
+    """Case ``name``'s stepped params and state (this rank's blocks)
+    saved into ``directory`` from this mesh: full leaves, rank 0
+    writing."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed import sharding as shd
+
+    state = {"params": blocks["params"], "opt": blocks["opt"]}
+    CheckpointManager(directory, group=torch.distributed.group.WORLD).save(
+        1, state, shardings=shd.train_specs_of(state, mesh, tp_config(name)),
+        mesh=mesh)
+
+
+def tp_restore(mesh, name: str, directory: str) -> dict:
+    """The state saved in ``directory`` restored onto this mesh over a
+    template of case ``name`` drawn from another seed: the shapes of the
+    rank's blocks and the full leaves, gathered back."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train.train_step import build_train_step
+
+    cfg = tp_config(name)
+    _, opt_init = build_train_step(cfg, tp_train_config(name, cfg),
+                                   mesh=mesh)
+    params = lm.init_lm(cfg, seed=1, device="cpu", mesh=mesh, train=True)
+    template = {"params": params, "opt": opt_init(params)}
+    mgr = CheckpointManager(directory, group=torch.distributed.group.WORLD)
+    restored, _ = mgr.restore(
+        template, shardings=shd.train_specs_of(template, mesh, cfg),
+        mesh=mesh)
+    return {"shapes": [tuple(t.shape) for t in leaves(restored)],
+            "full": shd.gather_train_tree(restored, mesh, cfg)}
+
+
 def tp_ranks(mesh, bridged=None, ckpt_dir: str | None = None,
              restore_from: str | None = None,
-             launcher_dir: str | None = None) -> dict:
+             launcher_dir: str | None = None, bridged_mm=None,
+             mm_ckpt_dir: str | None = None,
+             mm_restore_from: str | None = None,
+             mm_launcher_dirs: dict | None = None) -> dict:
     """Every model-parallel training case on this rank.  On any mesh:
     each ``TP_CASES`` step, and the update on the same gradients.  With
     ``bridged`` (the JAX package's deepseek-moe-16b tree as numpy) its
-    gradients; on a (1, D) mesh also remat off, accumulation, bf16
-    compression and the collectives' backwards.  With ``ckpt_dir`` case
-    ``TP_CKPT_CASE``'s stepped state is saved there from this mesh; with
-    ``restore_from`` the state saved there is restored onto this mesh.
-    With ``launcher_dir`` ``launch/train.py --mesh DxM`` runs through a
-    fault at step 3."""
+    gradients, and with ``bridged_mm`` ({case: the JAX package's gated
+    tree}) each multimodal case's; on a (1, D) mesh also remat off,
+    accumulation, bf16 compression and the collectives' backwards.  With
+    ``ckpt_dir`` (``mm_ckpt_dir``) case ``TP_CKPT_CASE``'s
+    (``TP_MM_CKPT_CASE``'s) stepped state is saved there from this mesh;
+    with ``restore_from`` (``mm_restore_from``) the state saved there is
+    restored onto this mesh.  With ``launcher_dir`` ``launch/train.py
+    --mesh DxM`` runs through a fault at step 3, and with
+    ``mm_launcher_dirs`` ({arch: directory}) so does each arch's."""
     from repro_torch.bridge import params_from_numpy
-    from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.distributed import sharding as shd
     from repro_torch.launch import train as launcher
-    from repro_torch.train.train_step import build_train_step
 
     out = {"coords": dict(mesh.coords)}
+    d, m = mesh.size("data"), mesh.size("model")
     for name in TP_CASES:
         out[name] = tp_step(name, mesh)
         one = tp_step(name, full_step=False)
@@ -546,6 +711,10 @@ def tp_ranks(mesh, bridged=None, ckpt_dir: str | None = None,
         out["bridged"] = tp_step("deepseek", mesh, full_step=False,
                                  params=params_from_numpy(bridged, cfg,
                                                           "cpu"))
+    for name, tree in (bridged_mm or {}).items():
+        out[f"bridged_{name}"] = tp_step(
+            name, mesh, full_step=False,
+            params=params_from_numpy(tree, tp_config(name), "cpu"))
     if mesh.size("data") == 1:
         for name in ("olmo", "deepseek"):
             out[f"{name}_remat_off"] = tp_step(name, mesh, remat=False,
@@ -555,32 +724,25 @@ def tp_ranks(mesh, bridged=None, ckpt_dir: str | None = None,
                               full_step=False)
         out["functions"] = tp_functions(mesh)
         out["thread_backward"] = tp_backward_in_a_thread(mesh)
-    world = torch.distributed.group.WORLD
-    cfg = tp_config(TP_CKPT_CASE)
     if ckpt_dir is not None:
-        blocks = out[TP_CKPT_CASE]["blocks"]
-        state = {"params": blocks["params"], "opt": blocks["opt"]}
-        CheckpointManager(ckpt_dir, group=world).save(
-            1, state, shardings=shd.train_specs_of(state, mesh, cfg),
-            mesh=mesh)
+        tp_save(mesh, TP_CKPT_CASE, out[TP_CKPT_CASE]["blocks"], ckpt_dir)
+    if mm_ckpt_dir is not None:
+        tp_save(mesh, TP_MM_CKPT_CASE, out[TP_MM_CKPT_CASE]["blocks"],
+                mm_ckpt_dir)
     if restore_from is not None:
-        step, opt_init = build_train_step(
-            cfg, tp_train_config(TP_CKPT_CASE, cfg), mesh=mesh)
-        params = lm.init_lm(cfg, seed=1, device="cpu", mesh=mesh,
-                            train=True)
-        template = {"params": params, "opt": opt_init(params)}
-        mgr = CheckpointManager(restore_from, group=world)
-        restored, _ = mgr.restore(
-            template, shardings=shd.train_specs_of(template, mesh, cfg),
-            mesh=mesh)
-        out["restored_shapes"] = [tuple(t.shape)
-                                  for t in leaves(restored)]
-        out["restored"] = shd.gather_train_tree(restored, mesh, cfg)
+        got = tp_restore(mesh, TP_CKPT_CASE, restore_from)
+        out["restored_shapes"], out["restored"] = got["shapes"], got["full"]
+    if mm_restore_from is not None:
+        out["mm_restored"] = tp_restore(mesh, TP_MM_CKPT_CASE,
+                                        mm_restore_from)
     if launcher_dir is not None:
-        d, m = mesh.size("data"), mesh.size("model")
         out["launcher"] = launcher.run_on_mesh(
             mesh, train_launcher_argv(launcher_dir) + ["--mesh", f"{d}x{m}"],
             fail_at=(3,))
         out["ckpt_steps"] = (sorted(os.listdir(launcher_dir))
                              if mesh.rank == 0 else None)
+    for arch, directory in (mm_launcher_dirs or {}).items():
+        out[f"launcher {arch}"] = launcher.run_on_mesh(
+            mesh, train_launcher_argv(directory, arch)
+            + ["--mesh", f"{d}x{m}"], fail_at=(3,))
     return out

@@ -547,7 +547,7 @@ def test_serve_plan_keeps_whole_what_does_not_divide():
         == 1
     hym = get_config("hymba-1.5b")                    # 25 heads
     assert not shd.attention_shardable(hym, 2)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not ported.*item 2b"):
         shd.check_mesh_family(hym)
     assert not shd.attention_shardable(g, 1)
     assert spec(g, 1, "embed", (g.vocab, d)) == (None, None)
@@ -555,7 +555,8 @@ def test_serve_plan_keeps_whole_what_does_not_divide():
 
 MESH_ARCHS = sorted(a for a in ARCHS if a in (
     "olmo-1b", "minitron-8b", "gemma3-1b", "gemma3-27b",
-    "deepseek-moe-16b", "grok-1-314b"))
+    "deepseek-moe-16b", "grok-1-314b", "whisper-small",
+    "llama-3.2-vision-11b"))
 
 
 @pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
@@ -565,9 +566,10 @@ def test_the_placement_that_runs_is_the_planners(arch, reduced):
     reference ``_leaf_spec``'s 'model' dim, and every other leaf is whole
     for a named reason: the layer reads it whole (norms, the router), the
     planner placed it on a fallback dim (not its first choice), attention
-    does not shard (``attention_shardable``), or the reference's tiny-leaf
-    rule (which serving does not apply: the leaf is then cut on its first
-    choice).  The fused prepack leaves are pinned in
+    does not shard (``attention_shardable`` by the heads of the layer
+    that holds it: the encoder's own under ``encoder/``), or the
+    reference's tiny-leaf rule (which serving does not apply: the leaf is
+    then cut on its first choice).  The fused prepack leaves are pinned in
     ``test_fused_blocks_hold_the_ranks_own_heads_and_columns``."""
     cfg, trees = _trees(arch, reduced)
     for mshape in MESHES.values():
@@ -582,8 +584,8 @@ def test_the_placement_that_runs_is_the_planners(arch, reduced):
             assert set(got) <= {None, "model"}, path
             first = shd._model_prefs(name, shape)[0]
             if name not in shd.SERVE_LEAVES or (
-                    name in shd.ATTN_LEAVES
-                    and not shd.attention_shardable(cfg, n)):
+                    name in shd.ATTN_LEAVES and not shd.attention_shardable(
+                        shd.leaf_config(path, cfg), n)):
                 assert "model" not in got, path
             elif len(want) == 0:            # tiny: replicated there
                 assert max(shape) < 128
@@ -592,6 +594,50 @@ def test_the_placement_that_runs_is_the_planners(arch, reduced):
                 assert got.index("model") == first, path
             else:
                 assert "model" not in got, path
+
+
+@pytest.mark.parametrize("dec_heads, enc_heads", [(3, 4), (4, 3)])
+def test_the_encoder_is_placed_by_its_own_heads(dec_heads, enc_heads):
+    """Deliberate difference: whisper's encoder leaves are cut by the
+    encoder's own heads and FFN width (``lm.encoder_config``), the cross
+    layers' by the decoder's heads, each attention only where its heads
+    divide; the reference's ``_leaf_spec`` plans every leaf by its dims
+    alone (GSPMD partitions any placement), so it cuts an attention leaf
+    whose heads do not divide on another dim.  Here a reduced whisper
+    whose decoder and encoder heads differ, on (1, 2): where one side's
+    3 heads do not divide its attention stays whole while the other's 4
+    are cut, and both FFNs are cut by their own widths (widths of 128:
+    past the reference's tiny-leaf rule)."""
+    base = get_config("whisper-small").reduced()
+    cfg = dataclasses.replace(
+        base, d_model=128, n_heads=dec_heads, n_kv_heads=dec_heads,
+        encoder=dataclasses.replace(base.encoder, d_model=128,
+                                    n_heads=enc_heads, d_ff=96))
+    mesh = FakeMesh({"data": 1, "model": 2})
+    ecfg = lm.encoder_config(cfg)
+    assert ecfg.d_ff == 96 and shd.leaf_config("encoder/layers/0/mlp/w_up",
+                                               cfg) == ecfg
+    full = lm.init_lm(cfg, device="meta")
+    checked = 0
+    for path, t in _tensors(full):
+        shape = tuple(t.shape)
+        got = shd.serve_spec(path, shape, mesh, cfg)
+        name = path.split("/")[-1]
+        heads = enc_heads if path.startswith("encoder/") else dec_heads
+        if name in shd.ATTN_LEAVES:
+            want_cut = heads % 2 == 0
+            assert ("model" in got) == want_cut, path
+            if not want_cut and "model" in jshd._leaf_spec(path, shape,
+                                                           mesh, cfg):
+                checked += 1    # the reference cuts it elsewhere
+        elif name in ("w_up", "w_down"):
+            dim = 1 if name == "w_up" else 0
+            assert got[dim] == "model", path
+            assert shape[dim] == (ecfg.d_ff if path.startswith("encoder/")
+                                  else cfg.d_ff)
+        else:
+            assert "model" not in got or name == "embed", path
+    assert checked > 0
 
 
 def test_shard_params_cuts_every_leaf_by_its_serve_spec():

@@ -441,15 +441,24 @@ def test_the_step_returns_new_tensors_that_need_no_grad():
                                         ("whisper-small", "2a"),
                                         ("llama-3.2-vision-11b", "2a")])
 def test_a_model_parallel_mesh_raises(arch, item):
-    """A 'model' axis of 2 trains the dense and MoE families; the others
-    raise with the ROADMAP queue 1 item that puts them on a mesh (before
-    any collective: this mesh has no process groups), and so does a
-    'pod' axis."""
+    """A 'model' axis of 2 trains the dense and MoE families, and since
+    ROADMAP queue 1 item 2a whisper and llama-vision (the step builds, on
+    its layout); ssm and hybrid raise with the item that puts them on a
+    mesh, 2b (before any collective: this mesh has no process groups),
+    and so does a 'pod' axis."""
+    from repro_torch.distributed import sharding as shd
+
     mesh = Mesh(shape={"data": 1, "model": 2}, rank=0,
                 coords={"data": 0, "model": 0})
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tts.build_train_step(cfg, _tcfg(), mesh=mesh)
+    if item == "2a":
+        assert cfg.family in shd.MESH_FAMILIES
+        step, _ = tts.build_train_step(cfg, _tcfg(), mesh=mesh)
+        assert step.layout is not None
+    else:
+        assert cfg.family not in shd.MESH_FAMILIES
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            tts.build_train_step(cfg, _tcfg(), mesh=mesh)
     pod = Mesh(shape={"pod": 2, "data": 1, "model": 1}, rank=0,
                coords={"pod": 0, "data": 0, "model": 0})
     with pytest.raises(NotImplementedError, match="'pod' axis"):

@@ -6,8 +6,12 @@ holding its stored blocks of the params and optimizer state
 
 Reduced olmo-1b and deepseek-moe-16b (AdamW), olmo-1b with one kv head
 (K and V whole on every rank, each reading the kv head its query heads
-share) and grok-1-314b (Adafactor factored at 8, so that leaves a cut
-splits factor).  The step's
+share), grok-1-314b (Adafactor factored at 8, so that leaves a cut
+splits factor), and whisper-small and llama-3.2-vision-11b at 2 groups
+(every ``cross_gate`` at 0.75: whisper's encoder and each layer's
+cross-attention as rank blocks, the context's gradient summed over the
+ranks that read it, the shared branches -- norms, ``proj``, the gates --
+whole on every rank).  The step's
 gradients (gathered from every rank's blocks), loss and aux must equal
 the one-process step's: f32, where the ranks' partial sums and the
 all-reduces reassociate the sums, so within ``rtol`` 1e-5 and ``atol``
@@ -20,9 +24,12 @@ directly would not hold: at step 1 AdamW moves each weight by about
 either way in two correct runs.
 
 One (2, 2) spawn and one (1, 2) spawn (which restores the (2, 2)
-checkpoint, and runs the launcher) carry every case; about 45 s in one
-process, both spawns' start-up and the JAX side included.
+checkpoints, grok's and whisper's, and runs the launcher on deepseek,
+whisper and llama-vision) carry every case; about 65 s in one process,
+both spawns' start-up and the JAX side included.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -63,9 +70,15 @@ def ckpt_dir(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def tp22(ckpt_dir):
+def mm_ckpt_dir(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("tp_mm_ckpt"))
+
+
+@pytest.fixture(scope="module")
+def tp22(ckpt_dir, mm_ckpt_dir):
     return spawn(W.tp_ranks, (2, 2), device="cpu",
-                 kwargs=dict(ckpt_dir=ckpt_dir), timeout_s=SPAWN_TIMEOUT_S)
+                 kwargs=dict(ckpt_dir=ckpt_dir, mm_ckpt_dir=mm_ckpt_dir),
+                 timeout_s=SPAWN_TIMEOUT_S)
 
 
 @pytest.fixture(scope="module")
@@ -76,11 +89,42 @@ def bridged():
     return jcfg, jax.tree.map(np.asarray, init(jax.random.PRNGKey(0), jcfg))
 
 
+def _gated(tree, gate):
+    """The numpy tree with every ``cross_gate`` leaf set to ``gate``."""
+    if isinstance(tree, dict):
+        return {k: (np.full_like(v, gate) if k == "cross_gate"
+                    else _gated(v, gate)) for k, v in tree.items()}
+    return tree
+
+
 @pytest.fixture(scope="module")
-def tp12(tp22, ckpt_dir, bridged, tmp_path_factory):
+def bridged_mm():
+    """The JAX package's reduced whisper-small and llama-vision (2
+    groups) params as numpy, every ``cross_gate`` at ``W.MM_GATE``:
+    {case: (jcfg, tree)}."""
+    init = jax.jit(jlm.init_lm, static_argnums=1)
+    out = {}
+    for name in W.TP_MM_CASES:
+        arch, over, _ = W.TP_CASES[name]
+        jcfg = dataclasses.replace(ARCHS[arch].reduced(), **over)
+        out[name] = (jcfg, _gated(jax.tree.map(
+            np.asarray, init(jax.random.PRNGKey(0), jcfg)), W.MM_GATE))
+    return out
+
+
+MM_ARCHS = ("whisper-small", "llama-3.2-vision-11b")
+
+
+@pytest.fixture(scope="module")
+def tp12(tp22, ckpt_dir, mm_ckpt_dir, bridged, bridged_mm,
+         tmp_path_factory):
     return spawn(W.tp_ranks, (1, 2), device="cpu", kwargs=dict(
         bridged=bridged[1], restore_from=ckpt_dir,
-        launcher_dir=str(tmp_path_factory.mktemp("tp_launcher"))),
+        launcher_dir=str(tmp_path_factory.mktemp("tp_launcher")),
+        bridged_mm={k: v[1] for k, v in bridged_mm.items()},
+        mm_restore_from=mm_ckpt_dir,
+        mm_launcher_dirs={a: str(tmp_path_factory.mktemp("tp_mm_launcher"))
+                          for a in MM_ARCHS}),
         timeout_s=SPAWN_TIMEOUT_S)
 
 
@@ -239,6 +283,45 @@ def test_gradients_match_jax_value_and_grad(tp12, bridged):
                                    err_msg=jax.tree_util.keystr(path))
 
 
+@pytest.mark.parametrize("case", W.TP_MM_CASES)
+def test_multimodal_gradients_match_jax_value_and_grad(tp12, bridged_mm,
+                                                       case):
+    """The (1, 2) mesh's gathered gradients and loss of the JAX package's
+    gated whisper-small (its encoder's gradients through every cross
+    layer's) and llama-vision params against ``jax.value_and_grad`` of the
+    reference's ``loss_fn`` on the same batch (frames or patches
+    included)."""
+    jcfg, jp = bridged_mm[case]
+    cfg = W.tp_config(case)
+    batch = W.tp_batch(cfg)
+    assert ("frames" in batch) == (cfg.encoder is not None)
+    jt = jts.TrainConfig(opt=jopt.OptConfig(name=jcfg.optimizer))
+    (_, (jl, _)), jg = jax.jit(
+        jax.value_and_grad(jts.loss_fn, has_aux=True),
+        static_argnums=(1, 3))(jax.tree.map(jnp.asarray, jp), jcfg,
+                               {k: jnp.asarray(v) for k, v in batch.items()},
+                               jt)
+    for r in tp12:
+        got_r = r[f"bridged_{case}"]
+        np.testing.assert_allclose(got_r["loss"], float(jl), rtol=1e-6)
+        ref = jax.tree_util.tree_flatten_with_path(
+            jax.tree.map(np.asarray, jg))[0]
+        got = jax.tree_util.tree_flatten_with_path(
+            params_to_numpy(got_r["grads"], cfg))[0]
+        assert [p for p, _ in ref] == [p for p, _ in got]
+        for (path, a), (_, b) in zip(ref, got):
+            np.testing.assert_allclose(b, a, rtol=JAX_RTOL, atol=JAX_ATOL,
+                                       err_msg=jax.tree_util.keystr(path))
+        # llama-vision's gate and whisper's encoder get their gradients
+        # (whisper's cross layers are ungated: its gates get none)
+        names = [jax.tree_util.keystr(p) for p, _ in got]
+        moved = {n for n, (_, b) in zip(names, got) if np.any(b != 0)}
+        assert any("cross_gate" in n for n in moved) == bool(
+            cfg.cross_attn_every)
+        if cfg.encoder is not None:
+            assert any("encoder" in n and "wq" in n for n in moved)
+
+
 @pytest.mark.parametrize("case", ["olmo", "deepseek"])
 def test_remat_on_is_bit_equal_to_remat_off(tp12, case):
     """Remat re-runs each layer's forward collectives in the backward;
@@ -348,6 +431,36 @@ def test_a_2x2_checkpoint_restores_onto_1x2_and_one_process(
         [path_str(p) for p, _ in flatten_with_paths(saved)]
 
 
+def test_a_multimodal_2x2_checkpoint_restores_onto_1x2_and_one_process(
+        tp22, tp12, mm_ckpt_dir):
+    """whisper-small's stepped params and AdamW state (its encoder's
+    blocks among them), saved from the (2, 2) mesh, restored onto (1, 2)
+    (each rank's own blocks) and onto one process: the full leaves
+    bit-equal to the saved ones, in the reference's layout."""
+    from repro.checkpoint.manager import CheckpointManager as JaxManager
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import make_optimizer
+
+    case = W.TP_MM_CKPT_CASE
+    saved = {"params": tp22[0][case]["params"], "opt": tp22[0][case]["opt"]}
+    assert any(p[1] == "encoder" for p, _ in flatten_with_paths(saved))
+    for r in tp12:
+        assert _equal(r["mm_restored"]["full"], saved)
+        assert r["mm_restored"]["shapes"] != [tuple(t.shape)
+                                              for t in leaves(saved)]
+    cfg = W.tp_config(case)
+    init, _ = make_optimizer(W.tp_train_config(case, cfg).opt, cfg)
+    params = lm.init_lm(cfg, seed=1, device="cpu")
+    restored, _ = CheckpointManager(mm_ckpt_dir).restore(
+        {"params": params, "opt": init(params)})
+    assert _equal(restored, saved)
+    as_numpy = jax.tree.map(lambda t: t.numpy(), saved)
+    jrestored, _ = JaxManager(mm_ckpt_dir).restore(as_numpy)
+    assert all(np.array_equal(x, np.asarray(y)) for x, y in zip(
+        jax.tree.leaves(as_numpy), jax.tree.leaves(jrestored)))
+
+
 def test_the_reference_restores_a_checkpoint_written_from_a_mesh(
         tp22, ckpt_dir):
     """The (2, 2) mesh's checkpoint is in the reference's layout: the JAX
@@ -377,6 +490,24 @@ def test_launcher_on_a_model_parallel_mesh_recovers(tp12, tmp_path):
     assert l0["losses"] == l1["losses"]
     assert tp12[0]["ckpt_steps"] == ["step_0000000004", "step_0000000006"]
     one = launcher.main(W.train_launcher_argv(str(tmp_path)))
+    np.testing.assert_allclose(l0["losses"][-1], one["losses"][-1],
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", MM_ARCHS)
+def test_launcher_trains_a_multimodal_model_on_a_mesh_and_recovers(
+        tp12, tmp_path, arch):
+    """``launch/train.py --arch whisper-small`` / ``llama-3.2-vision-11b
+    --mesh 1x2`` (frames or patches from the synthetic data) through a
+    fault at step 3: both ranks restore step 2 and replay to the same
+    bits, and the losses track the one-process run's."""
+    l0, l1 = tp12[0][f"launcher {arch}"], tp12[1][f"launcher {arch}"]
+    for r in (l0, l1):
+        assert r["stats"].restarts == 1 and r["stats"].restored_steps == [2]
+    assert _equal(l0["params"], l1["params"])
+    assert _equal(l0["opt"], l1["opt"])
+    assert l0["losses"] == l1["losses"]
+    one = launcher.main(W.train_launcher_argv(str(tmp_path), arch))
     np.testing.assert_allclose(l0["losses"][-1], one["losses"][-1],
                                rtol=1e-4)
 
