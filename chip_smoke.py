@@ -218,7 +218,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    drift]``: one 448-token prompt prefilled whole and in chunks of 128,
    16 greedy tokens each way, in bf16 (as perturbed, and with the
    projections unscaled) and in f32: how far the two batchings drift
-   apart; then ``[state serving]``, with the first 16 of the 32 layers'
+   apart; then ``[state serving]``, with the first 12 of the 32 layers'
    weights cast to f32 (the bf16 model's drift is O(1); the depth keeps
    the script inside its limit): the ``[serving]`` rules on a mix of 12
    requests of 2 tenants (384-token prefixes, 16-64-token tails, 16
@@ -245,7 +245,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``decode_attention`` 32 a step, ``pim_gemv`` / ``splitk_gemv`` as the
    picks predict: 32 + 32, QKV and the head stay on ``ref``; no
    cache-shaped cast or copy; the replayed window's port kernels);
-   ``[hybrid logits]``; then ``[hybrid serving]`` with the first 16 of
+   ``[hybrid logits]``; then ``[hybrid serving]`` with the first 12 of
    the 32 layers' weights cast to f32: the ``[serving]`` rules on 10
    requests of 2 tenants (384-token
    prefixes, 16-64-token tails, 16 tokens each) and the two urgent
@@ -310,30 +310,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    cs.run_trace(torch.device('cuda', 0))"``;
 20. ``[mesh kernels]``: ``pim_gemv`` / ``splitk_gemv`` at the decode
    GEMV shapes a rank of a (1, 2) mesh runs (olmo-1b, deepseek-moe-16b,
-   grok-1-314b, llama-3.2-vision-11b; batch 8), ``ragged_gemv`` on a
+   grok-1-314b, llama-3.2-vision-11b, rwkv6-3b's head, hymba-1.5b's
+   gate+up and down; batch 8), ``ragged_gemv`` on a
    rank's expert stacks (deepseek 32 of 64 experts, grok 4 of 8; the
    other ranks' rows past the offsets, zero), ``decode_attention`` at G
-   6 (grok's 24 over 4 a rank and 48 over 8) and at a rank's heads of
+   6 (grok's 24 over 4 a rank and 48 over 8), at hymba's G 5 (its 25
+   heads over 5 whole on a rank, D 64) and at a rank's heads of
    llama-vision (self G 4, 4 kv heads of 128, C 1024; cross over 1601
    patches) and whisper-small (self G 1, 6 heads of 64; cross over 1500
    frames), each against its plain version and timed beside its bound;
    the h100 picks at whisper's rank shapes, logged; then ``[mesh]``:
    each model at full width (grok at 2 of 64 layers, whisper-small whole,
    llama-vision at 10 of 40: cross layers 4 and 9; every ``cross_gate``
-   1.0) first on the unsharded engine here, eagerly, then on the two
+   1.0; rwkv6-3b at 12 of 32, hymba-1.5b at 16 of 32, their seeded init
+   unperturbed) first on the unsharded engine here, eagerly, then on the two
    ranks of one (1, 2) mesh started by ``launch.mesh.spawn``, sharing
    this card over gloo (eager: gloo collectives cannot be captured), with
    ``overlap_collectives`` off and on: 8 prompts of 64-512 tokens (the
    512-token one chunked by 128), 8 greedy tokens (whisper-small: 4 of
-   the prompts); fails unless every
+   the prompts; rwkv6 and hymba: 6 of them with the prefix cache on, one
+   done after 3 tokens (a compaction), and at step 2 a prompt that
+   starts with the first one whole (a hit on its state snapshot); each
+   rank's whole state leaves (``pos``, the carries, hymba's K/V) the same
+   bits on both ranks and both runs); fails unless every
    rank's rows are the same, overlap on is bit-equal to off with
    n_layers deferred collectives a decode step (none with a context:
    whisper's encoder output, llama-vision's patches), tokens equal the
    unsharded engine's up to any step whose unsharded top-2 margin is
    below 1e-2 (that request stops there, its margin printed), logits
    within one bf16 ulp a layer at their max |logit|, every rank launched
-   ``decode_attention`` (and ``ragged_gemv`` on the MoE models) on each
-   model and ``pim_gemv`` / ``splitk_gemv`` on some; prints each rank's
+   ``decode_attention`` (and ``ragged_gemv`` on the MoE models; rwkv6:
+   ``pim_gemv``, its head) on each model and ``pim_gemv`` /
+   ``splitk_gemv`` on some; prints each rank's
    backend, world size and device, its launches, ``sharded_axes`` and
    ``shard_picks`` (the per-rank shapes), and per-token p50 unsharded
    and per rank (two ranks sharing one card over gloo: not a mesh's
@@ -364,25 +372,30 @@ Phases, in order; any failure raises and the script exits non-zero:
 22. ``[train mesh]``: model-parallel training, where no port kernel runs
    either.  Ranks of a (1, 2) and a (2, 2) mesh share this card over
    gloo through ``spawn``, each holding its stored blocks
-   (``sharding.train_spec``).  olmo-1b (AdamW) on (1, 2) and (2, 2),
+   (``sharding.train_spec``).  olmo-1b (AdamW) on (2, 2),
    deepseek-moe-16b (AdamW, experts cut over 'model') and olmo-1b with
-   Adafactor on (1, 2), at full width and 2 layers, and whisper-small
+   Adafactor on (1, 2), rwkv6-3b and hymba-1.5b (AdamW: a time-mix on a
+   rank's heads, a Mamba mixer on its channels) on (1, 2), at full width
+   and 2 layers, and whisper-small
    (AdamW, its encoder and cross-attention as rank blocks) on (1, 2) at
    full width and depth, in f32 (TF32 off), one step at batch 2 x 32.
    Each against the one-process step on the
    card (rank 0 computes it): the gathered gradients within
-   ``TRAIN_GRAD_RTOL`` of each leaf's max |g|, loss and aux within
-   ``TRAIN_LOSS_RTOL``, the gathered updated params within
+   ``TRAIN_GRAD_RTOL`` of each leaf's max |g|, loss, aux and the global
+   norm within ``TRAIN_LOSS_RTOL``, the gathered updated params within
    ``TRAIN_GRAD_RTOL`` of each leaf's max |dp| against the one-process
-   clip and update of the mesh's gathered gradients (against the
+   update of the mesh's gathered gradients clipped by the mesh's norm
+   (the norm held on its own: a last-bit difference in it moves a weight
+   much larger than its step by an ulp of the weight; against the
    one-process step's own params only printed: AdamW's first step moves a
    weight by about ``sign(g) * lr``), every block two ranks both hold
    bit-equal, no port kernel launched.  The (2, 2) run's params and
    state are checkpointed (full leaves) and restored onto (1, 2) and onto
-   one process, bit-equal to the saved leaves; so is whisper's (1, 2)
-   run onto one process.  Prints each rank's
+   one process, bit-equal to the saved leaves; so are whisper's and
+   hymba's (1, 2) runs (``w_in`` gathered as ``[x1 | z]``) onto one
+   process.  Prints each rank's
    step time and peak memory (ranks sharing a card over gloo: not a
-   mesh's speed) and the phase's seconds against its 130 s aim.  The
+   mesh's speed) and the phase's seconds against its 160 s aim.  The
    phase alone: ``python3 -c "import torch, chip_smoke as cs;
    cs.run_train_mesh(torch.device('cuda', 0))"`` (no build needed);
 23. the ``{"kernels": [...]}`` line (``decode_attention_g5``: the G 5
@@ -533,7 +546,7 @@ from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.train.optimizer import (  # noqa: E402
     OptConfig,
-    clip_by_global_norm,
+    global_norm,
     make_optimizer,
 )
 from repro_torch.train.train_step import (  # noqa: E402
@@ -3928,12 +3941,12 @@ def run_multimodal(dev) -> dict:
 STATE_ARCH = "rwkv6-3b"
 STATE_TOKENS = 32
 STATE_MAX_LEN = 1024
-# the f32 traffic mixes of [state] and [hybrid] run the first half of the
-# model's layers: the mix's rules (chunks, snapshots, preemption, tokens
-# equal to the plain engine's) hold at any depth, and the whole script
-# stays inside its time limit.  Not 8: guard_serving counts copies of
-# state rows by shape, and a row of 8 layers has a decode batch's shape
-SERVE_MIX_LAYERS = 16
+# the f32 traffic mixes of [state] and [hybrid] run the first 12 of the
+# model's 32 layers: the mix's rules (chunks, snapshots, preemption,
+# tokens equal to the plain engine's) hold at any depth, and the whole
+# script stays inside its time limit.  Not 8: guard_serving counts copies
+# of state rows by shape, and a row of 8 layers has a decode batch's shape
+SERVE_MIX_LAYERS = 12
 
 
 def serve_mix_model(cfg, params: dict):
@@ -4961,10 +4974,20 @@ def mesh_mix(arch: str) -> tuple[list[int], int]:
 # (arch, layers kept; None: all): grok-1-314b at 2 of its 64 layers,
 # whisper-small whole (12 + 12 layers, 1500 frames), llama-3.2-vision-11b
 # at 10 of its 40 (two groups of five: cross layers 4 and 9), every
-# cross_gate at MM_GATE (mesh_params)
+# cross_gate at MM_GATE (mesh_params); rwkv6-3b at 12 of its 32 layers and
+# hymba-1.5b at 16 of 32 (its layer 15 global; not 8, the depth whose
+# state rows have a decode batch's shape)
 MESH_MODELS = (("olmo-1b", None), ("deepseek-moe-16b", None),
                ("grok-1-314b", 2), ("whisper-small", None),
-               ("llama-3.2-vision-11b", 10))
+               ("llama-3.2-vision-11b", 10), ("rwkv6-3b", 12),
+               ("hymba-1.5b", 16))
+# the recurrent models' mix (prompt lengths, greedy tokens each): the
+# 512-token prompt chunked by MESH_CHUNK, the third request done first (a
+# slot below busy ones: a compaction); at step 2 a prompt that starts
+# with the first one whole and MESH_STATE_HIT_TAIL tokens more, for
+# MESH_STATE_HIT_TOKENS tokens (a hit on the first one's state snapshot)
+MESH_STATE_MIX = ([64, 512, 96, 128, 100, 72], [8, 8, 3, 8, 8, 8])
+MESH_STATE_HIT_STEP, MESH_STATE_HIT_TAIL, MESH_STATE_HIT_TOKENS = 2, 40, 6
 MESH_TIMEOUT_S = 900
 # bf16 logits of the sharded dense engine against the unsharded one: each
 # layer's sharded sums (wo, down; whisper's encoder layers and every
@@ -4988,6 +5011,11 @@ MESH_MOE_LAYER_ULPS = 8
 MESH_GEMV_SHAPES = {
     "olmo-1b": {"qkv": (2048, 3072, 16), "gate_up": (2048, 8192, 16),
                 "down": (4096, 2048, 16), "head": (2048, 25152, 1)},
+    # rwkv6-3b's head over a rank's vocab block (its mixers' projections
+    # stay plain matmuls); hymba-1.5b's gate+up over a rank's FFN columns
+    # and down over its rows (16 layers; its QKV and head whole, on ref)
+    "rwkv6-3b": {"head": (2560, 32768, 1)},
+    "hymba-1.5b": {"gate_up": (1600, 5504, 16), "down": (2752, 1600, 16)},
     "deepseek-moe-16b": {"qkv": (2048, 3072, 28),
                          "shared_gate_up": (2048, 2816, 28),
                          "shared_down": (1408, 2048, 28),
@@ -5001,9 +5029,13 @@ MESH_RAGGED_SHAPES = {
     "grok-1-314b/gate_up": (4, 2, 6144, 32768, 4),
     "grok-1-314b/down": (4, 2, 32768, 6144, 2),
 }
-# grok's decode attention: a rank's 24 query heads over 4 kv heads (the
-# main path, 2 layers a step) and the whole model's 48 over 8 (G 6)
-MESH_ATTN = {"grok-1-314b/rank": (4, 2), "grok-1-314b/full": (8, 0)}
+# decode attention (kv heads, G, head dim, launches a step): grok's, a
+# rank's 24 query heads over 4 kv heads (the main path, 2 layers a step)
+# and the whole model's 48 over 8 (G 6); hymba's on a rank, its 25 heads
+# over 5 whole (G 5: no head count divides 2), 16 layers a step
+MESH_ATTN = {"grok-1-314b/rank": (4, 6, 128, 2),
+             "grok-1-314b/full": (8, 6, 128, 0),
+             "hymba-1.5b/rank": (5, 5, 64, 16)}
 MESH_KERNEL_NAMES = {"pim": "pim_gemv", "splitk": "splitk_gemv",
                      "ragged_cuda": "ragged_gemv"}
 
@@ -5045,7 +5077,9 @@ def mesh_mm_attention_shapes() -> dict[str, dict]:
     with its launches a decode step at the [mesh] depth."""
     lengths = [n + MESH_TOKENS // 2 for n in MESH_LENGTHS]
     out = {}
-    for arch, layers in MESH_MODELS[3:]:
+    for arch, layers in MESH_MODELS:
+        if arch not in MULTIMODAL:
+            continue
         cfg = mesh_config(arch, layers)
         rk = rank_config(cfg)
         heads = dict(cfg=cfg, H=rk.n_heads, Hkv=rk.n_kv_heads)
@@ -5069,9 +5103,10 @@ def mesh_serve(cfg, params, dev, mesh=None, overlap: bool = False,
     the first decode step (``moe_blocks``: the extra all-reduce runs on
     every rank at the same call)."""
     dispatch.clear_plan_cache()
+    recurrent = cfg.family in ("ssm", "hybrid")
     eng = Engine(cfg, params, device=dev, batch_slots=MESH_SLOTS,
                  max_len=MESH_MAX_LEN, prefill_chunk=MESH_CHUNK, mesh=mesh,
-                 overlap_collectives=overlap)
+                 overlap_collectives=overlap, prefix_cache=recurrent)
     blocks, real = [], L.moe_partial
 
     def spy(p, x, cfg_, gemv=None, **kw):
@@ -5092,29 +5127,72 @@ def mesh_serve(cfg, params, dev, mesh=None, overlap: bool = False,
         return sample(r, row)
 
     eng._sample = recorded
-    lengths, tokens = mesh_mix(cfg.name)
-    for i, p in enumerate(prompts(cfg.vocab, lengths, SEED)):
-        eng.submit(Request(rid=i, prompt=p, max_new_tokens=tokens))
+    moves, compact = [], eng.kv.compact
+
+    def counted():
+        m = compact()
+        moves.append(len(m))
+        return m
+
+    eng.kv.compact = counted
+    if recurrent:
+        lengths, tokens = MESH_STATE_MIX
+    else:
+        lengths, tokens = mesh_mix(cfg.name)
+        tokens = [tokens] * len(lengths)
+    ps = prompts(cfg.vocab, lengths, SEED)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(ps, tokens))]
+    for r in reqs:
+        eng.submit(r)
     reset_launches()
     t0 = time.perf_counter()
     try:
-        done = eng.run_until_drained()
+        if recurrent:       # a prompt that starts with the first one whole
+            tail = prompts(cfg.vocab, [MESH_STATE_HIT_TAIL], SEED + 1)[0]
+            hit = Request(rid=len(reqs), prompt=np.concatenate([ps[0], tail]),
+                          max_new_tokens=MESH_STATE_HIT_TOKENS)
+            for _ in range(MESH_STATE_HIT_STEP):
+                eng.step()
+            reqs.append(hit)
+            eng.submit(hit)
+        eng.run_until_drained()
     finally:
         L.moe_partial = real
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if len(done) != len(lengths):
-        raise AssertionError(f"{cfg.name}: {len(done)} requests done")
+    if not all(r.done for r in reqs):
+        raise AssertionError(f"{cfg.name}: requests left undone")
     if moe_blocks and len(blocks) != cfg.n_layers:
         raise AssertionError(f"{cfg.name}: {len(blocks)} MoE blocks seen")
     m = eng.metrics.to_dict(include_steps=False)
-    return {"tokens": {r.rid: list(r.generated) for r in done},
-            "rows": rows, "margins": margins, "launches": launches(),
-            "stats": dispatch.dispatch_stats(),
-            "per_token_ms": m["per_token_ms"], "wall_s": wall,
-            "decode_steps": eng.metrics.counters["decode_steps"],
-            "graphs_reason": eng.graphs_reason, "policy": eng.gemv_policy,
-            "moe_blocks": blocks}
+    c = eng.metrics.counters
+    out = {"tokens": {r.rid: list(r.generated) for r in reqs},
+           "rows": rows, "margins": margins, "launches": launches(),
+           "stats": dispatch.dispatch_stats(),
+           "per_token_ms": m["per_token_ms"], "wall_s": wall,
+           "decode_steps": c["decode_steps"],
+           "graphs_reason": eng.graphs_reason, "policy": eng.gemv_policy,
+           "moe_blocks": blocks,
+           "mix": {"prefix_hits": c["prefix_hits"],
+                   "prefill_tokens_saved": c["prefill_tokens_saved"],
+                   "prefill_chunks": c["prefill_chunks"],
+                   "defrag_moves": sum(moves)}}
+    if recurrent and mesh is not None:
+        out["whole_state"] = whole_state_digests(eng)
+    return out
+
+
+def whole_state_digests(eng) -> dict[str, str]:
+    """A digest of each slot-cache leaf a rank holds whole (``pos``, the
+    token-shift carries, K/V whose heads do not divide): every rank's
+    must be the same bits."""
+    import hashlib
+
+    return {name: hashlib.sha1(leaf.contiguous().view(torch.uint8).cpu()
+                               .numpy().tobytes()).hexdigest()
+            for name, leaf in eng.kv.cache.items()
+            if eng.kv.scales[name] == 1}
 
 
 def rows_digest(rows: dict) -> str:
@@ -5166,6 +5244,11 @@ def mesh_rank(mesh, plan) -> dict:
             program_kernels=off["stats"]["program_kernels"],
             init_s=init_s, params_gb=mem,
             peak_gb=torch.cuda.max_memory_allocated(mesh.device) / 1e9)
+        res["mix"] = off["mix"]
+        if "whole_state" in off:
+            res["whole_state"] = off["whole_state"]
+            res["whole_state_overlap_equal"] = (off["whole_state"]
+                                                == on["whole_state"])
         if mesh.rank == 0:
             res["rows"] = off["rows"]
             res["moe_blocks"] = off["moe_blocks"]
@@ -5188,7 +5271,26 @@ def mesh_compare(arch: str, base: dict, ranks: list[dict]) -> dict:
     mine = [r["models"][arch] for r in ranks]
     if len({m["digest"] for m in mine}) != 1:
         raise AssertionError(f"[mesh] {arch}: the ranks' rows differ")
-    deferring = cfg.encoder is None and not cfg.cross_attn_every
+    # a context (whisper's encoder output, llama-vision's patches) defers
+    # nothing, nor does rwkv6 (no FFN combine to defer), as in the
+    # reference
+    deferring = (cfg.encoder is None and not cfg.cross_attn_every
+                 and cfg.family != "ssm")
+    if cfg.family in ("ssm", "hybrid"):
+        mix = base["mix"]
+        if not (mix["prefix_hits"] >= 1 and mix["prefill_chunks"] >= 1
+                and mix["defrag_moves"] >= 1):
+            raise AssertionError(f"[mesh] {arch}: the mix ran no prefix "
+                                 f"hit, chunk or compaction: {mix}")
+        states = [m["whole_state"] for m in mine]
+        if any(s != states[0] for s in states) or not all(
+                m["whole_state_overlap_equal"] for m in mine):
+            raise AssertionError(f"[mesh] {arch}: a state leaf held whole "
+                                 f"differs between ranks or runs")
+        for m in mine:
+            if m["mix"] != mix:
+                raise AssertionError(f"[mesh] {arch}: a rank's mix {m['mix']}"
+                                     f" differs from the unsharded {mix}")
     for r, m in zip(ranks, mine):
         if not m["overlap_equal"]:
             raise AssertionError(f"[mesh] {arch} rank {r['rank']}: "
@@ -5198,7 +5300,8 @@ def mesh_compare(arch: str, base: dict, ranks: list[dict]) -> dict:
             raise AssertionError(
                 f"[mesh] {arch} rank {r['rank']}: {m['deferred']} deferred "
                 f"collectives, want {want}")
-        need = ["decode_attention"] + (["ragged_gemv"] if cfg.moe else [])
+        need = ((["pim_gemv"] if cfg.attn_free else ["decode_attention"])
+                + (["ragged_gemv"] if cfg.moe else []))
         for k in need:
             if m["launches"][k] <= 0:
                 raise AssertionError(f"[mesh] {arch} rank {r['rank']}: "
@@ -5265,10 +5368,12 @@ def mesh_moe_blocks(arch: str, policy, blocks: list, dev) -> dict:
 
 def check_mesh_kernels(dev) -> list[dict]:
     """[mesh kernels]: ``pim_gemv`` / ``splitk_gemv`` at each per-rank
-    decode GEMV shape (batch 8; llama-vision's from ``rank_config``),
+    decode GEMV shape (batch 8; llama-vision's from ``rank_config``;
+    rwkv6's head and hymba's gate+up and down among them),
     ``ragged_gemv`` on each per-rank expert stack (a rank's rows first,
     the rest past the offsets), ``decode_attention`` at G 6 (24 over 4
-    and 48 over 8, D 128, C 1024) and at the multimodal models' rank
+    and 48 over 8, D 128, C 1024), at hymba's G 5 (25 over 5, D 64: its
+    heads whole on a rank) and at the multimodal models' rank
     shapes (:func:`mesh_mm_attention_shapes`), each held against its
     plain version, then timed beside its bound (and the library call
     where there is one); and the h100 picks at whisper's rank shapes,
@@ -5338,11 +5443,11 @@ def check_mesh_kernels(dev) -> list[dict]:
             f"bound={row['bound_ms']:.4f} plain={row['plain_ms']:.4f}")
         del ws
         torch.cuda.empty_cache()
-    B, C, D, G = 8, MESH_MAX_LEN, 128, 6
+    B, C = 8, MESH_MAX_LEN
     lengths = [n + MESH_TOKENS // 2 for n in MESH_LENGTHS]
     tvalid = torch.tensor(lengths, dtype=torch.int32, device=dev)
     tpos = (tvalid - 1).long()[:, None]
-    for shape, (Hkv, per_step) in MESH_ATTN.items():
+    for shape, (Hkv, G, D, per_step) in MESH_ATTN.items():
         H = Hkv * G
         q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(
             torch.bfloat16)
@@ -5355,7 +5460,7 @@ def check_mesh_kernels(dev) -> list[dict]:
             torch.bfloat16) for _ in range(n_copies)]
         if not kernel_applies(q, ks[0], vs[0], causal=True):
             raise AssertionError(f"decode_attention {shape}: the routing "
-                                 f"rule refuses G 6")
+                                 f"rule refuses G {G}")
         args = dict(q_positions=tpos, kv_valid_len=tvalid)
         want = decode_attention_plain(q, ks[0], vs[0], **args)
         atol = 2.0**-8 * vs[0].float().abs().max().item()
@@ -5388,7 +5493,7 @@ def check_mesh_kernels(dev) -> list[dict]:
                 vs[i % n_copies].transpose(1, 2), attn_mask=mask,
                 enable_gqa=True), 100), **bound)
         rows.append(row)
-        log(f"  decode_attention {shape}: G 6, {H} heads over {Hkv}, D {D}, "
+        log(f"  decode_attention {shape}: G {G}, {H} heads over {Hkv}, D {D}, "
             f"C {C}, splits {splits}: err {row['max_abs_err']:.2e} at every "
             f"split count; ms={row['ms']:.4f} bound={row['bound_ms']:.4f} "
             f"plain={row['plain_ms']:.4f} sdpa={row['library_ms']:.4f}")
@@ -5796,23 +5901,30 @@ def run_train(dev) -> dict:
 # (name, arch, optimizer, layers; None: all): each run on its mesh
 # against the one-process step on the card, full width, f32, TF32 off;
 # whisper-small at full depth too (12 + 12 layers, 0.24 B params: its
-# encoder and every layer's cross-attention as rank blocks)
+# encoder and every layer's cross-attention as rank blocks); rwkv6-3b
+# (time-mix on a rank's heads, channel-mix on its d_ff columns) and
+# hymba-1.5b (attention whole, the Mamba mixer on a rank's channels,
+# w_in as [x1_r | z_r]) at 2 layers; olmo-1b AdamW on (2, 2) alone (its
+# Adafactor run covers (1, 2))
 TRAIN_MESH_LAYERS, TRAIN_MESH_BATCH = 2, 2
 TRAIN_MESH_RUNS = {
-    (1, 2): (("olmo-1b adamw", "olmo-1b", "adamw", TRAIN_MESH_LAYERS),
-             ("deepseek-moe-16b adamw", "deepseek-moe-16b", "adamw",
+    (1, 2): (("deepseek-moe-16b adamw", "deepseek-moe-16b", "adamw",
               TRAIN_MESH_LAYERS),
              ("olmo-1b adafactor", "olmo-1b", "adafactor",
               TRAIN_MESH_LAYERS),
-             ("whisper-small adamw", "whisper-small", "adamw", None)),
+             ("whisper-small adamw", "whisper-small", "adamw", None),
+             ("rwkv6-3b adamw", "rwkv6-3b", "adamw", TRAIN_MESH_LAYERS),
+             ("hymba-1.5b adamw", "hymba-1.5b", "adamw",
+              TRAIN_MESH_LAYERS)),
     (2, 2): (("olmo-1b adamw", "olmo-1b", "adamw", TRAIN_MESH_LAYERS),),
 }
 TRAIN_MESH_CKPT = ROOT / "build" / "train_mesh_ckpt"
 TRAIN_MESH_SAVED = "olmo-1b adamw"      # the (2, 2) run it checkpoints
-# the (1, 2) run checkpointed and restored onto one process
-TRAIN_MESH_MM_CKPT = ROOT / "build" / "train_mesh_mm_ckpt"
-TRAIN_MESH_MM_SAVED = "whisper-small adamw"
-TRAIN_MESH_AIM_S = 130
+# the (1, 2) runs checkpointed and each restored onto one process
+TRAIN_MESH_ONE_SAVED = {
+    "whisper-small adamw": ROOT / "build" / "train_mesh_mm_ckpt",
+    "hymba-1.5b adamw": ROOT / "build" / "train_mesh_state_ckpt"}
+TRAIN_MESH_AIM_S = 160
 
 
 def leaf_digests(tree, keep=None) -> list[str | None]:
@@ -5849,13 +5961,18 @@ def train_mesh_setup(arch: str, opt: str, layers: int | None):
     return cfg, tcfg, data.batch_at(0)
 
 
-def train_mesh_reference(cfg, tcfg, batch, grads, new, dev) -> dict:
+def train_mesh_reference(cfg, tcfg, batch, grads, new, norm: float,
+                         dev) -> dict:
     """Rank 0's checks against the one-process step on the card: the
-    gathered gradients, loss and aux against its own; the mesh step's
-    updated params against the one-process clip and update of the mesh's
-    gathered gradients; and, printed only, against the one-process
-    step's own params (at step 1 AdamW moves a weight by about ``sign(g)
-    * lr``: a gradient within its rounding of zero moves either way)."""
+    gathered gradients, loss and aux against its own; the mesh's global
+    norm (``norm``, summed across shards) against the one-process norm of
+    the mesh's gathered gradients; the mesh step's updated params against
+    the one-process update of those gradients clipped by the mesh's norm
+    (a norm that differs in its last bit moves a weight of |p| ~ 10^4
+    times its step by one f32 ulp of p: hymba's ``A_log`` at step 1); and,
+    printed only, against the one-process step's own params (at step 1
+    AdamW moves a weight by about ``sign(g) * lr``: a gradient within its
+    rounding of zero moves either way)."""
     step, opt_init = build_train_step(cfg, tcfg)
     params = lm.init_lm(cfg, seed=SEED, device=dev)
     g1, loss1, aux1 = step.grads(params, batch)
@@ -5863,8 +5980,15 @@ def train_mesh_reference(cfg, tcfg, batch, grads, new, dev) -> dict:
     out["grad_share"], out["grad_leaf"] = share(grads, g1)
     del g1
     _, update = make_optimizer(tcfg.opt, cfg)
-    clipped, _ = clip_by_global_norm(tree_map(lambda t: t.to(dev), grads),
-                                     tcfg.opt.grad_clip)
+    on_dev = tree_map(lambda t: t.to(dev), grads)
+    out["norm_one"] = float(global_norm(on_dev))
+    out["norm_rel"] = abs(norm - out["norm_one"]) / out["norm_one"]
+    # the clip as the step computes it (optimizer.clip_by_global_norm), on
+    # the mesh's norm
+    scale = torch.clamp(tcfg.opt.grad_clip / (torch.tensor(
+        norm, dtype=torch.float32, device=dev) + 1e-9), max=1.0)
+    clipped = tree_map(lambda g: g * scale.to(g.dtype), on_dev)
+    del on_dev
     upd, _ = update(tcfg.opt, clipped, opt_init(params), params)
     del clipped
     gc.collect()
@@ -5945,7 +6069,8 @@ def train_mesh_case(mesh, name: str, arch: str, opt: str,
     dist.barrier()
     if mesh.rank == 0:
         res["free_gb_at_reference"] = torch.cuda.mem_get_info(dev)[0] / 1e9
-        res["check"] = train_mesh_reference(cfg, tcfg, batch, *full, dev)
+        res["check"] = train_mesh_reference(cfg, tcfg, batch, *full,
+                                            m["grad_norm"], dev)
         log(f"[train mesh] {name}, mesh {tuple(mesh.shape.values())}: rank "
             f"0 done ({time.perf_counter() - t_case:.1f} s; "
             f"{res['free_gb_at_reference']:.2f} GB of the card free at its "
@@ -6038,7 +6163,8 @@ def run_train_mesh(dev) -> dict:
     log(f"[train mesh] the card: {free / 1e9:.2f} of {total / 1e9:.2f} GB "
         f"free; this process holds "
         f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved")
-    for d in (TRAIN_MESH_CKPT, TRAIN_MESH_MM_CKPT):
+    dirs = (TRAIN_MESH_CKPT, *TRAIN_MESH_ONE_SAVED.values())
+    for d in dirs:
         shutil.rmtree(d, ignore_errors=True)
     out = {"card": card, "meshes": {}}
     try:
@@ -6046,7 +6172,8 @@ def run_train_mesh(dev) -> dict:
             kw = ({"saves": {TRAIN_MESH_SAVED: str(TRAIN_MESH_CKPT)}}
                   if shape == (2, 2) else
                   {"restore_dir": str(TRAIN_MESH_CKPT),
-                   "saves": {TRAIN_MESH_MM_SAVED: str(TRAIN_MESH_MM_CKPT)}})
+                   "saves": {k: str(v)
+                             for k, v in TRAIN_MESH_ONE_SAVED.items()}})
             t0 = time.perf_counter()
             ranks = spawn(train_mesh_rank, shape, timeout_s=MESH_TIMEOUT_S,
                           args=(TRAIN_MESH_RUNS[shape],), kwargs=kw)
@@ -6061,19 +6188,21 @@ def run_train_mesh(dev) -> dict:
         one_digests = leaf_digests(restored)
         del params, restored
         saved = saved_digests(TRAIN_MESH_CKPT)
-        # the (1, 2) whisper checkpoint restored onto one process
-        run = next(r for r in TRAIN_MESH_RUNS[(1, 2)]
-                   if r[0] == TRAIN_MESH_MM_SAVED)
-        cfg, tcfg, _ = train_mesh_setup(*run[1:])
-        _, opt_init = build_train_step(cfg, tcfg)
-        params = lm.init_lm(cfg, seed=SEED + 1, device=dev)
-        restored, _ = CheckpointManager(str(TRAIN_MESH_MM_CKPT)).restore(
-            {"params": params, "opt": opt_init(params)})
-        mm_digests = leaf_digests(restored)
-        del params, restored
-        mm_saved = saved_digests(TRAIN_MESH_MM_CKPT)
+        # each (1, 2) checkpoint restored onto one process: {run: (the
+        # restored leaves' digests, the saved files')}
+        one_saved = {}
+        for name, directory in TRAIN_MESH_ONE_SAVED.items():
+            run = next(r for r in TRAIN_MESH_RUNS[(1, 2)] if r[0] == name)
+            cfg, tcfg, _ = train_mesh_setup(*run[1:])
+            _, opt_init = build_train_step(cfg, tcfg)
+            params = lm.init_lm(cfg, seed=SEED + 1, device=dev)
+            restored, _ = CheckpointManager(str(directory)).restore(
+                {"params": params, "opt": opt_init(params)})
+            one_saved[name] = (leaf_digests(restored),
+                               saved_digests(directory))
+            del params, restored
     finally:
-        for d in (TRAIN_MESH_CKPT, TRAIN_MESH_MM_CKPT):
+        for d in dirs:
             shutil.rmtree(d, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6091,6 +6220,7 @@ def run_train_mesh(dev) -> dict:
             launched = {k: v for r in ranks
                         for k, v in r["runs"][name]["launches"].items() if v}
             ok = (loss_rel <= TRAIN_LOSS_RTOL and aux_rel <= TRAIN_LOSS_RTOL
+                  and c["norm_rel"] <= TRAIN_LOSS_RTOL
                   and c["grad_share"] <= TRAIN_GRAD_RTOL
                   and c["update_share"] <= TRAIN_GRAD_RTOL and not launched
                   and checked > 0)
@@ -6105,12 +6235,15 @@ def run_train_mesh(dev) -> dict:
                 f"{TRAIN_MESH_BATCH} x {TRAIN_CHECK_SEQ}: loss "
                 f"{r0['loss']:.6f} vs one process {c['loss_one']:.6f} (rel "
                 f"{loss_rel:.2e}, tolerance {TRAIN_LOSS_RTOL}), aux rel "
-                f"{aux_rel:.2e}; gathered gradients worst max|diff| / "
+                f"{aux_rel:.2e}; global norm {r0['metrics']['grad_norm']:.6g} "
+                f"vs one process {c['norm_one']:.6g} (rel "
+                f"{c['norm_rel']:.2e}); gathered gradients worst max|diff| / "
                 f"max|g| {c['grad_share']:.2e} at {c['grad_leaf']}; updated "
                 f"params worst max|diff| / max|dp| {c['update_share']:.2e} "
                 f"at {c['update_leaf']} against the one-process update of "
-                f"these gradients (tolerance {TRAIN_GRAD_RTOL}); against "
-                f"the one-process step's own params "
+                f"these gradients clipped by the mesh's norm (tolerance "
+                f"{TRAIN_GRAD_RTOL}); against the one-process step's own "
+                f"params "
                 f"{c['own_step_share']:.2e} at {c['own_step_leaf']}, "
                 f"{c['own_step_elements_over']} of {c['elements']} "
                 f"elements over the tolerance (printed, not held); "
@@ -6129,18 +6262,20 @@ def run_train_mesh(dev) -> dict:
                    for r in out["meshes"]["1x2"]["ranks"]]
     restore_ok = (all(d == saved for d in restored_12)
                   and one_digests == saved)
-    mm_restore_ok = mm_digests == mm_saved
+    one_ok = {name: got == want for name, (got, want) in one_saved.items()}
     log(f"[train mesh] the (2, 2) checkpoint ({len(saved)} leaves: "
         f"{TRAIN_MESH_SAVED}'s params and AdamW state) restored onto (1, 2) "
         f"(each rank's blocks, e.g. "
         f"{out['meshes']['1x2']['ranks'][0]['restore']['block_shapes'][-1]})"
         f" and onto one process: full leaves bit-equal to the saved ones "
-        f"{restore_ok}; the (1, 2) checkpoint of {TRAIN_MESH_MM_SAVED} "
-        f"({len(mm_saved)} leaves, its encoder's among them) restored onto "
-        f"one process: bit-equal {mm_restore_ok}")
+        f"{restore_ok}; the (1, 2) checkpoints restored onto one process, "
+        f"bit-equal: " + ", ".join(
+            f"{name} ({len(one_saved[name][1])} leaves) {ok}"
+            for name, ok in one_ok.items())
+        + " (whisper's encoder and hymba's w_in as [x1 | z] among them)")
     out["restore_bit_equal"] = restore_ok
-    out["mm_restore_bit_equal"] = mm_restore_ok
-    restore_ok = restore_ok and mm_restore_ok
+    out["one_process_restore_bit_equal"] = one_ok
+    restore_ok = restore_ok and all(one_ok.values())
     for m in out["meshes"].values():        # digests stay out of the report
         for r in m["ranks"]:
             for rr in r["runs"].values():
@@ -6576,27 +6711,29 @@ def main() -> int:
 
     t_mesh = time.perf_counter()
     log("[mesh kernels] per-rank decode GEMV shapes of olmo-1b, "
-        "deepseek-moe-16b, grok-1-314b and llama-3.2-vision-11b on a (1, 2) "
-        "mesh (pim_gemv / splitk_gemv at B 8, ragged_gemv on a rank's "
-        "experts), decode_attention at G 6 and at whisper-small's and "
-        "llama-vision's rank heads, each against its plain version, timed")
+        "deepseek-moe-16b, grok-1-314b, llama-3.2-vision-11b, rwkv6-3b and "
+        "hymba-1.5b on a (1, 2) mesh (pim_gemv / splitk_gemv at B 8, "
+        "ragged_gemv on a rank's experts), decode_attention at G 6, at "
+        "hymba's G 5 and at whisper-small's and llama-vision's rank heads, "
+        "each against its plain version, timed")
     rows += check_mesh_kernels(dev)
     log("[mesh] olmo-1b, deepseek-moe-16b, grok-1-314b (2 of 64 layers), "
         "whisper-small, llama-3.2-vision-11b (10 of 40 layers, cross_gate "
-        f"{MM_GATE}) at full width, bf16: unsharded here (eager), then two "
-        "ranks of a (1, 2) mesh sharing this card over gloo")
+        f"{MM_GATE}), rwkv6-3b (12 of 32) and hymba-1.5b (16 of 32) at "
+        "full width, bf16: unsharded here (eager), then two ranks of a "
+        "(1, 2) mesh sharing this card over gloo")
     mesh = run_mesh(dev)
     mesh["with_kernels_s"] = time.perf_counter() - t_mesh
     log(f"[mesh] {mesh['seconds']:.1f} s ({mesh['with_kernels_s']:.1f} s "
         f"with [mesh kernels]) on {card}")
 
     train = run_train(dev)
-    log("[train mesh] olmo-1b (AdamW, Adafactor) and deepseek-moe-16b at "
-        "full width and 2 layers, whisper-small at full width and depth, "
-        "f32: a (1, 2) and a (2, 2) mesh of ranks sharing this card over "
-        "gloo, against the one-process step; the (2, 2) checkpoint restored "
-        "onto (1, 2) and one process, whisper's (1, 2) one onto one "
-        "process")
+    log("[train mesh] olmo-1b (AdamW, Adafactor), deepseek-moe-16b, "
+        "rwkv6-3b and hymba-1.5b at full width and 2 layers, whisper-small "
+        "at full width and depth, f32: a (1, 2) and a (2, 2) mesh of ranks "
+        "sharing this card over gloo, against the one-process step; the "
+        "(2, 2) checkpoint restored onto (1, 2) and one process, whisper's "
+        "and hymba's (1, 2) ones onto one process")
     train_mesh = run_train_mesh(dev)
 
     launch_counts = {**{n: engine["launches"][n] for n in FLOAT_KERNELS},

@@ -20,9 +20,15 @@ inserts the collectives.  The port holds each rank's block itself:
   spec where it is the leaf's row placement (heads, FFN columns and the
   down projection's rows, whole experts, the vocab), else the leaf whole;
   whisper's encoder layers by the encoder's own heads and FFN width and
-  a cross-attention layer by its heads (:func:`leaf_config`);
-  the slot cache (``serving.kv_cache``) holds :func:`serve_cache_spec`'s
-  block.  Deliberate differences from the reference, each named in
+  a cross-attention layer by its heads (:func:`leaf_config`); a
+  recurrent mixer's leaves by their path (:data:`STATE_LEAVES`: rwkv6's
+  time-mix by its heads, channel-mix by ``d_ff``, hymba's Mamba mixer by
+  its inner width, ``w_in`` as the pair ``[x1_r | z_r]``, a spec with
+  ``pairs``);
+  the slot cache (``serving.kv_cache``) holds :func:`slot_cache_spec`'s
+  block (K/V by :func:`serve_cache_spec`, the recurrent state by name,
+  the token-shift carries whole).  Deliberate differences from the
+  reference, each named in
   :func:`serve_spec`: the fused leaves (``wqkv``, ``w_gateup``) keep the
   spec's axis and, where KV is sharded, its shard size, but a rank's
   block is ``[q_r | k_r | v_r]`` and ``[gate_r | up_r]`` (its own heads
@@ -36,8 +42,10 @@ inserts the collectives.  The port holds each rank's block itself:
   dim (the first other dim the data size divides);
   :func:`shard_train_tree` / :func:`gather_train_tree` cut a full tree
   (params, optimizer state, or both) to a rank's blocks and put it
-  back together, and :class:`TrainLayout` gives the optimizer the sums
-  across the ranks that hold a leaf's other blocks.  Deliberate
+  back together (a paired leaf's parts put back side by side: full
+  leaves are in the reference's layout), and :class:`TrainLayout` gives
+  the optimizer the sums across the ranks that hold a leaf's other
+  blocks.  Deliberate
   difference: the reference plans its stacked ``[L, ...]`` leaves as if
   unstacked (``wq`` gets 'model' on ``d``, ``w_up`` / ``w_down`` /
   ``wo`` on the layer dim), which GSPMD computes under; the port's
@@ -60,13 +68,24 @@ from repro_torch.tree import flatten_with_paths, leaves, unflatten_like
 class P(tuple):
     """A partition spec: one entry per dim, an axis name, a tuple of axis
     names or None (the reference's ``PartitionSpec``, which compares equal
-    to it element by element)."""
+    to it element by element).
 
-    def __new__(cls, *parts):
-        return super().__new__(cls, parts)
+    ``pairs`` (the port's, for Mamba's ``w_in [d, 2 di]``): the dim cut on
+    'model' is ``pairs`` equal parts side by side, and a rank's block is
+    its block of each part in turn (``[x1_r | z_r]``), where a contiguous
+    block would hold other ranks' channels; equality ignores it."""
+
+    pairs = 1
+
+    def __new__(cls, *parts, pairs: int = 1):
+        spec = super().__new__(cls, parts)
+        if pairs != 1:
+            spec.pairs = pairs
+        return spec
 
     def __repr__(self) -> str:
-        return f"PartitionSpec{tuple.__repr__(self)}"
+        tail = f", pairs={self.pairs}" if self.pairs != 1 else ""
+        return f"PartitionSpec{tuple.__repr__(self)[:-1]}{tail})"
 
     __str__ = __repr__
 
@@ -122,7 +141,7 @@ def _model_prefs(name: str, shape: tuple[int, ...]) -> list[int]:
         prefs = [0, 2, 1] if len(shape) == 3 else [1, 0]
     elif name == "w_down":                  # [(E,) f, d] -> E, then f
         prefs = [0, 1, 2] if len(shape) == 3 else [0, 1]
-    elif name in ("wr", "wk_cm", "wg"):     # rwkv square proj
+    elif name in ("wr", "wg"):              # rwkv square proj
         prefs = [1, 0]
     elif name == "w_in":                    # mamba [d, 2di]
         prefs = [1, 0]
@@ -301,6 +320,14 @@ def _block(t: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
         memory_format=torch.contiguous_format)
 
 
+def _count(mesh, axes) -> int:
+    """The ranks along ``axes`` (an axis, a tuple of them, or None: 1)."""
+    axes = () if axes is None else (
+        axes if isinstance(axes, tuple) else (axes,))
+    return int(np.prod([mesh.shape.get(a, 1) for a in axes],
+                       dtype=np.int64))
+
+
 def _axis_index(mesh, axes) -> tuple[int, int]:
     """(count, this rank's index) over one or several mesh axes (the
     first named axis is the major one)."""
@@ -311,19 +338,37 @@ def _axis_index(mesh, axes) -> tuple[int, int]:
     return n, i
 
 
+def _pairs(spec, axes) -> int:
+    """The parts a dim cut on ``axes`` under ``spec`` is made of (``P``'s
+    ``pairs``: only the 'model' dim is paired)."""
+    return getattr(spec, "pairs", 1) if axes == "model" else 1
+
+
 def shard_tensor(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     """This rank's block of ``t`` under ``spec`` (every named axis; a dim
-    over several axes splits by their product, the first axis major)."""
+    over several axes splits by their product, the first axis major; a
+    paired dim, its block of each part, side by side)."""
     for dim, axes in enumerate(spec):
         if axes is None:
             continue
         n, i = _axis_index(mesh, axes)
-        if t.shape[dim] % n:
+        k = _pairs(spec, axes)
+        if t.shape[dim] % (n * k):
             raise ValueError(f"dim {dim} of {tuple(t.shape)} does not "
-                             f"split over {axes} ({n})")
-        if n > 1:
+                             f"split over {axes} ({n})"
+                             + (f" in {k} parts" if k > 1 else ""))
+        if n > 1 and k > 1:
+            t = torch.cat([_block(part, dim, n, i)
+                           for part in t.chunk(k, dim=dim)], dim=dim)
+        elif n > 1:
             t = _block(t, dim, n, i)
     return t
+
+
+def block_shape(shape: tuple[int, ...], spec, mesh) -> tuple[int, ...]:
+    """The shape of a rank's block of a tensor of ``shape`` under
+    ``spec``."""
+    return tuple(s // _count(mesh, a) for s, a in zip(shape, spec))
 
 
 # the leaves a serving layer runs sharded, each on its row placement (the
@@ -358,6 +403,52 @@ def attention_shardable(cfg: ModelConfig, n: int) -> bool:
             and (Hkv % n == 0 or (H // Hkv) % (H // n) == 0))
 
 
+# the recurrent mixers' leaves, by the parent that holds them: the dim a
+# rank's block is cut on (None: whole on every rank).  rwkv6's time-mix by
+# its heads (``ssm.rwkv_heads``): the r / k / v / g projections and the
+# decay LoRA's ``w_b`` on their output columns, ``w0`` / ``ln_scale`` /
+# ``u`` on their head rows, ``wo`` on its input rows (a partial sum);
+# channel-mix by ``d_ff`` (``wk``'s columns, ``wv``'s rows; ``wr`` reads
+# the whole input and multiplies the reduced ``k @ wv``); Mamba by its
+# inner width ``di`` (``w_in`` as the pair ``[x1_r | z_r]``)
+STATE_LEAVES = {
+    "time_mix": {"wr": 1, "wk": 1, "wv": 1, "wg": 1, "w_b": 1, "w0": 0,
+                 "ln_scale": 0, "u": 0, "wo": 0, "mu": None, "w_a": None},
+    "channel_mix": {"wk": 1, "wv": 0, "wr": None, "mu": None},
+    "mamba": {"w_in": 1, "conv_w": 1, "dt_hi": 1, "dt_bias": 0, "D": 0,
+              "dt_lo": 0, "w_B": 0, "w_C": 0, "A_log": 0, "w_out": 0},
+}
+
+
+def state_width(parent: str, cfg: ModelConfig) -> int:
+    """The count a recurrent mixer's rank blocks split: rwkv6's heads
+    (time-mix), ``d_ff`` (channel-mix), Mamba's ``di``."""
+    from repro_torch.models import ssm
+
+    if parent == "time_mix":
+        return ssm.rwkv_heads(cfg)[0]
+    if parent == "channel_mix":
+        return cfg.d_ff
+    return ssm.mamba_dims(cfg)[0]
+
+
+def _state_spec(path: str, shape: tuple[int, ...], n: int,
+                cfg: ModelConfig) -> P | None:
+    """:data:`STATE_LEAVES`' spec of the leaf at ``path`` on a 'model'
+    axis of ``n`` (whole where the mixer's width does not divide), or None
+    for a leaf no recurrent mixer holds."""
+    parts = path.split("/")
+    if len(parts) < 2 or parts[-2] not in STATE_LEAVES:
+        return None
+    parent, name = parts[-2], parts[-1]
+    dim = STATE_LEAVES[parent].get(name)
+    spec: list[Any] = [None] * len(shape)
+    if dim is not None and _divides(state_width(parent, cfg), n):
+        spec[dim] = "model"
+    return P(*spec, pairs=2 if name == "w_in" and dim is not None
+             and spec[dim] else 1)
+
+
 def serve_spec(path: str, shape: tuple[int, ...], mesh,
                cfg: ModelConfig) -> P:
     """The spec a serving rank cuts the leaf at ``path`` by:
@@ -372,10 +463,20 @@ def serve_spec(path: str, shape: tuple[int, ...], mesh,
     router, a cross layer's ``cross_gate``, whisper's ``proj``) stays
     whole; attention (self, cross, the encoder's) stays whole unless
     :func:`attention_shardable` by the heads of the layer that holds it
-    (:func:`leaf_config`)."""
+    (:func:`leaf_config`).  The recurrent mixers' leaves are placed by
+    their path (:data:`STATE_LEAVES`), where names collide with
+    attention's; deliberate differences: channel-mix's ``wr`` whole
+    (``_leaf_spec`` cuts its output ``d``, which multiplies the reduced
+    ``k @ wv``) and ``w_in`` cut as the pair ``[x1_r | z_r]``
+    (``_leaf_spec`` cuts contiguous columns: x1 on one rank, z on the
+    other)."""
     n = mesh.shape.get("model", 1)
     name = path.split("/")[-1]
     spec: list[Any] = [None] * len(shape)
+    if n > 1:
+        state = _state_spec(path, shape, n, cfg)
+        if state is not None:
+            return state
     if n <= 1 or name not in SERVE_LEAVES or (
             name in ATTN_LEAVES
             and not attention_shardable(leaf_config(path, cfg), n)):
@@ -386,31 +487,59 @@ def serve_spec(path: str, shape: tuple[int, ...], mesh,
     return P(*spec)
 
 
-def serve_cache_heads(cfg: ModelConfig, mesh) -> int:
-    """A rank's kv heads in the serving cache: the head dim of K/V's
-    block under :func:`serve_cache_spec`."""
-    shape = (cfg.n_layers, 1, 1, cfg.n_kv_heads, cfg.hd)
-    spec = serve_cache_spec(mesh, cfg, shape, "k")
-    return cfg.n_kv_heads // (mesh.shape.get("model", 1)
-                              if spec[3] == "model" else 1)
+# a recurrent state leaf of the serving cache ``[L, B, ...]``: the
+# mixer whose width cuts it and the dim it is cut on (the token-shift
+# carries are the layer's whole input, which every rank reads: whole)
+STATE_CACHE_DIMS = {"rwkv_s": ("time_mix", 2), "mamba_h": ("mamba", 2),
+                    "mamba_conv": ("mamba", 3), "rwkv_x_tm": None,
+                    "rwkv_x_cm": None}
 
 
-MESH_FAMILIES = ("dense", "moe", "audio", "vlm")
-# the ROADMAP queue 1 item that puts each refused family on a mesh
-MESH_FAMILY_ITEMS = {"ssm": "2b", "hybrid": "2b"}
+def slot_cache_spec(mesh, cfg: ModelConfig, shape: tuple[int, ...],
+                    name: str) -> P:
+    """The placement the port's slot cache holds (``serving.kv_cache``;
+    ``lm.init_cache(mesh=)``): :func:`serve_cache_spec` for K/V, their
+    scales and ``pos``; a recurrent state leaf by its name
+    (:data:`STATE_CACHE_DIMS`), on the dim of the heads or channels its
+    mixer's rank blocks hold.  Deliberate difference from the reference's
+    first divisible dim: the token-shift carries ``rwkv_x_tm`` /
+    ``rwkv_x_cm [L, B, d]`` stay whole (every rank reads the layer's
+    whole input), and ``mamba_conv [L, B, cw - 1, di]`` is cut on ``di``
+    whatever ``cw - 1`` divides."""
+    n = mesh.shape.get("model", 1)
+    if n <= 1 or name not in STATE_CACHE_DIMS:
+        return serve_cache_spec(mesh, cfg, shape, name)
+    spec: list[Any] = [None] * len(shape)
+    cut = STATE_CACHE_DIMS[name]
+    if cut is not None and _divides(state_width(cut[0], cfg), n):
+        spec[cut[1]] = "model"
+    return P(*spec)
+
+
+def slot_cache_scales(mesh, cfg: ModelConfig, shapes: dict) -> dict:
+    """{leaf: the ranks its whole leaf is cut into} for a cache of
+    ``shapes`` ({leaf: whole shape}) under :func:`slot_cache_spec`: a
+    rank's bytes of the leaf times its scale are the whole leaf's."""
+    out = {}
+    for name, shape in shapes.items():
+        spec = slot_cache_spec(mesh, cfg, tuple(shape), name)
+        out[name] = int(np.prod([_count(mesh, a) for a in spec],
+                                dtype=np.int64))
+    return out
+
+
+MESH_FAMILIES = ("dense", "moe", "audio", "vlm", "ssm", "hybrid")
 
 
 def check_mesh_family(cfg: ModelConfig) -> None:
-    """Sharded serving runs the dense and MoE decoders, whisper (its
-    encoder and cross-attention as rank blocks) and llama-vision (its
-    cross-attention layers); raise for the others (recurrent state is not
-    sharded yet), naming the ROADMAP queue 1 item that ports them."""
-    if cfg.family not in MESH_FAMILIES or cfg.parallel_ssm:
-        item = MESH_FAMILY_ITEMS.get(cfg.family, "2")
+    """Sharded serving runs every family the port runs: the dense and MoE
+    decoders, whisper (its encoder and cross-attention as rank blocks),
+    llama-vision (its cross-attention layers), rwkv6 and hymba (their
+    recurrent mixers and state as rank blocks); raise for any other."""
+    if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"sharded serving of family {cfg.family!r} ({cfg.name}) is not "
-            f"ported yet: ROADMAP queue 1 item {item} (the mesh runs "
-            f"{', '.join(MESH_FAMILIES)})")
+            f"ported (the mesh runs {', '.join(MESH_FAMILIES)})")
 
 
 def _repack(tree: dict, cfg: ModelConfig) -> dict:
@@ -478,20 +607,13 @@ def shard_layer(p: dict, mesh, cfg: ModelConfig) -> dict:
 def check_train_mesh(mesh, cfg: ModelConfig) -> None:
     """Raise for a mesh the training step does not take: a 'pod' axis
     (the step's 'data' group is one axis), or a 'model' axis larger than
-    1 under a family the mesh does not run yet."""
+    1 under a family the mesh does not run."""
     if mesh.size("pod") > 1:
         raise NotImplementedError(
             f"training on mesh {mesh.shape}: the step reduces over one "
             f"'data' axis; a 'pod' axis is not ported")
     if mesh.size("model") > 1:
-        try:
-            check_mesh_family(cfg)
-        except NotImplementedError:
-            item = MESH_FAMILY_ITEMS.get(cfg.family, "2")
-            raise NotImplementedError(
-                f"model-parallel training of family {cfg.family!r} "
-                f"({cfg.name}) is ROADMAP queue 1 item {item}; the mesh "
-                f"runs {', '.join(MESH_FAMILIES)}") from None
+        check_mesh_family(cfg)
 
 
 def train_spec(path: str, shape: tuple[int, ...], mesh,
@@ -506,14 +628,15 @@ def train_spec(path: str, shape: tuple[int, ...], mesh,
     were unstacked, which can put 'model' on ``d`` or on the layer dim;
     GSPMD computes under any placement, explicit tensor parallelism only
     under the one its layers hold."""
-    spec = list(serve_spec(path, shape, mesh, cfg))
+    served = serve_spec(path, shape, mesh, cfg)
+    spec = list(served)
     n = mesh.size("data")
     if n > 1:
         for d in range(len(shape)):
             if spec[d] is None and _divides(shape[d], n):
                 spec[d] = "data"
                 break
-    return P(*spec)
+    return P(*spec, pairs=served.pairs)
 
 
 def plan_train(params, mesh, cfg: ModelConfig) -> list[P]:
@@ -547,7 +670,8 @@ def state_specs(tree, params, param_specs: list) -> list[P]:
                 spec = by_path[path[k:]]
                 break
             if path[-1] in _STAT_DIMS and path[k:-1] in by_path:
-                spec = P(*_STAT_DIMS[path[-1]](tuple(by_path[path[k:-1]])))
+                of = by_path[path[k:-1]]
+                spec = P(*_STAT_DIMS[path[-1]](tuple(of)), pairs=of.pairs)
                 break
         out.append(spec if spec is not None
                    else P(*[None] * len(_shape(leaf))))
@@ -572,8 +696,9 @@ def train_specs_of(tree, mesh, cfg: ModelConfig) -> list[P]:
 
 def gather_tensor(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     """The whole tensor from this rank's block under ``spec``: each cut
-    dim all-gathered over its axis's group in rank order (collective:
-    every rank of the mesh calls it with the same spec)."""
+    dim all-gathered over its axis's group in rank order, a paired dim's
+    parts put back side by side (collective: every rank of the mesh calls
+    it with the same spec)."""
     for dim, axes in enumerate(spec):
         if axes is None or mesh.size(axes) <= 1:
             continue
@@ -581,6 +706,11 @@ def gather_tensor(t: torch.Tensor, spec, mesh) -> torch.Tensor:
             raise ValueError(f"spec {spec}: a dim over several axes")
         with torch.no_grad():
             t = all_gather_cat(t, mesh.group(axes), dim=dim)
+        k = _pairs(spec, axes)
+        if k > 1:       # [a_0 b_0 | a_1 b_1 | ...] -> [a_0 a_1 ... | b_0 ...]
+            n = mesh.size(axes)
+            t = t.unflatten(dim, (n, k, -1)).transpose(dim, dim + 1) \
+                .flatten(dim, dim + 2).contiguous()
     return t
 
 

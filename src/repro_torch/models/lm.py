@@ -114,24 +114,8 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
             layer["time_mix"] = S.init_rwkv_time_mix(g, cfg, dtype, device)
             layer["channel_mix"] = S.init_rwkv_channel_mix(g, cfg, dtype,
                                                            device)
-            params["layers"].append(layer)
-            continue
-        layer["attn"] = L.init_attention(g, cfg, dtype, device)
-        if cfg.parallel_ssm:     # hymba: Mamba heads beside attention
-            layer["mamba"] = S.init_mamba(g, cfg, dtype, device)
-            layer["beta_attn"] = torch.ones(cfg.d_model, dtype=dtype,
-                                            device=device)
-            layer["beta_ssm"] = torch.ones(cfg.d_model, dtype=dtype,
-                                           device=device)
-        if cfg.moe is not None:
-            layer["moe"] = L.init_moe(g, cfg, dtype, device)
         else:
-            layer["mlp"] = L.init_mlp(g, cfg, dtype, device)
-        if cfg.is_cross_layer(len(params["layers"])):
-            layer["ln_cross"] = L.init_norm(cfg, cfg.d_model, dtype, device)
-            layer["cross"] = L.init_cross_attention(g, cfg, cfg.d_model,
-                                                    dtype, device)
-            layer["cross_gate"] = torch.zeros(1, dtype=dtype, device=device)
+            _init_block(g, cfg, layer, len(params["layers"]), dtype, device)
         if mesh is not None and train:
             layer = shd.shard_train_layer(layer, len(params["layers"]),
                                           mesh, cfg)
@@ -151,6 +135,28 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
         params = shd.shard_params({**params, "layers": []}, mesh, cfg)
         params["layers"] = layers
     return params
+
+
+def _init_block(g, cfg: ModelConfig, layer: dict, i: int, dtype,
+                device) -> None:
+    """Layer ``i``'s attention (and hymba's Mamba heads and betas), FFN or
+    MoE, and cross-attention, drawn into ``layer``."""
+    layer["attn"] = L.init_attention(g, cfg, dtype, device)
+    if cfg.parallel_ssm:     # hymba: Mamba heads beside attention
+        layer["mamba"] = S.init_mamba(g, cfg, dtype, device)
+        layer["beta_attn"] = torch.ones(cfg.d_model, dtype=dtype,
+                                        device=device)
+        layer["beta_ssm"] = torch.ones(cfg.d_model, dtype=dtype,
+                                       device=device)
+    if cfg.moe is not None:
+        layer["moe"] = L.init_moe(g, cfg, dtype, device)
+    else:
+        layer["mlp"] = L.init_mlp(g, cfg, dtype, device)
+    if cfg.is_cross_layer(i):
+        layer["ln_cross"] = L.init_norm(cfg, cfg.d_model, dtype, device)
+        layer["cross"] = L.init_cross_attention(g, cfg, cfg.d_model, dtype,
+                                                device)
+        layer["cross_gate"] = torch.zeros(1, dtype=dtype, device=device)
 
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
@@ -208,7 +214,7 @@ def _init_encoder(g, cfg: ModelConfig, dtype, device) -> dict:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                per_slot_pos: bool = False, kv_store: str = "fp",
-               device=None) -> dict:
+               device=None, mesh=None) -> dict:
     """Decode state: ``pos`` (a scalar, or ``[batch]`` with
     ``per_slot_pos``) and ``k``/``v`` leaves ``[L, batch, max_len, Hkv,
     hd]``; for rwkv6 no ``k``/``v`` but ``rwkv_s [L, batch, H, hd, hd]``
@@ -222,41 +228,46 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     codes at ``stored_head_dim`` plus f32 ``k_scale``/``v_scale`` leaves
     ``[L, batch, max_len, Hkv]`` (all ones: an all-zero page round-trips
     exactly under scale 1.0).
+
+    With ``mesh`` every leaf is shaped as this rank's block of it under
+    ``sharding.slot_cache_spec`` (the rank's kv heads where they divide,
+    the rank's rwkv heads and Mamba channels; ``pos`` and the token-shift
+    carries whole), zeros (ones for the scales) as unsharded.
     """
     validate_kv_store(kv_store)
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.param_dtype)
     n, hkv = cfg.n_layers, cfg.n_kv_heads
-    cache = {"pos": torch.zeros((batch,) if per_slot_pos else (),
-                                dtype=torch.int32, device=device)}
+    f32 = torch.float32
+    # name: (whole shape, dtype, fill)
+    leaves = {"pos": ((batch,) if per_slot_pos else (), torch.int32, 0)}
     if cfg.family == "ssm":
         H, hd = S.rwkv_heads(cfg)
-        cache["rwkv_s"] = torch.zeros((n, batch, H, hd, hd),
-                                      dtype=torch.float32, device=device)
+        leaves["rwkv_s"] = ((n, batch, H, hd, hd), f32, 0)
         for name in ("rwkv_x_tm", "rwkv_x_cm"):
-            cache[name] = torch.zeros((n, batch, cfg.d_model), dtype=dtype,
-                                      device=device)
-        return cache
-    if kv_store == "fp":
-        kv_shape = (n, batch, max_len, hkv, cfg.hd)
-        cache["k"] = torch.zeros(kv_shape, dtype=dtype, device=device)
-        cache["v"] = torch.zeros(kv_shape, dtype=dtype, device=device)
-    else:
-        kv_shape = (n, batch, max_len, hkv,
-                    stored_head_dim(kv_store, cfg.hd))
+            leaves[name] = ((n, batch, cfg.d_model), dtype, 0)
+    elif kv_store == "fp":
         for name in ("k", "v"):
-            cache[name] = torch.zeros(kv_shape, dtype=torch.int8,
-                                      device=device)
+            leaves[name] = ((n, batch, max_len, hkv, cfg.hd), dtype, 0)
+    else:
+        for name in ("k", "v"):
+            leaves[name] = ((n, batch, max_len, hkv,
+                             stored_head_dim(kv_store, cfg.hd)), torch.int8,
+                            0)
         for name in ("k_scale", "v_scale"):
-            cache[name] = torch.ones((n, batch, max_len, hkv),
-                                     dtype=torch.float32, device=device)
+            leaves[name] = ((n, batch, max_len, hkv), f32, 1)
     if cfg.parallel_ssm:
         di, st, cw = S.mamba_dims(cfg)
-        cache["mamba_conv"] = torch.zeros((n, batch, cw - 1, di),
-                                          dtype=dtype, device=device)
-        cache["mamba_h"] = torch.zeros((n, batch, di, st),
-                                       dtype=torch.float32, device=device)
-    return cache
+        leaves["mamba_conv"] = ((n, batch, cw - 1, di), dtype, 0)
+        leaves["mamba_h"] = ((n, batch, di, st), f32, 0)
+    if mesh is not None:
+        from repro_torch.distributed import sharding as shd
+
+        leaves = {name: (shd.block_shape(shape, shd.slot_cache_spec(
+            mesh, cfg, shape, name), mesh), dt, fill)
+            for name, (shape, dt, fill) in leaves.items()}
+    return {name: torch.full(shape, fill, dtype=dt, device=device)
+            for name, (shape, dt, fill) in leaves.items()}
 
 
 # --------------------------------------------------------------------------
@@ -282,10 +293,12 @@ def prepack_decode_params(params: dict, cfg: ModelConfig,
     tree is first cut to this rank's blocks (``sharding.shard_params``;
     a tree cut already passes through), so the fused leaves are the
     rank's own ``[q_r | k_r | v_r]`` and ``[gate_r | up_r]``.  An rwkv6
-    model's
-    layers pass through unchanged (its projections stay plain matmuls, as
-    in the JAX package); only its head gets ``head_t``.  A hymba layer's
-    ``mamba`` weights and betas are carried as they are.  Returns a NEW
+    model's layers pass through unchanged (its projections stay plain
+    matmuls, as in the JAX package; under a mesh the rank's heads and
+    ``d_ff`` columns); only its head gets ``head_t`` (the rank's vocab
+    columns where the vocab divides).  A hymba layer's ``mamba`` weights
+    (under a mesh the rank's ``di`` channels, ``w_in`` as ``[x1_r |
+    z_r]``) and betas (whole) are carried as they are.  Returns a NEW
     dict; ``params``' own tensors are shared, not copied.
     """
     if mesh is not None:

@@ -24,6 +24,26 @@ caller's tensors.  A decode step over the serving cache's views therefore
 leaves nothing to copy back, and a captured decode graph keeps reading the
 same leaves.  Without a state (a forward with no cache) the recurrence
 starts from zeros and the final state is returned as new tensors.
+
+Under a mesh a mixer's leaves are a rank's blocks
+(``distributed.sharding.STATE_LEAVES``) and it runs the rank's share: a
+time-mix the rank's rwkv heads (their recurrence, group norm and gate;
+its state ``[B, H / n, hd, hd]``), a channel-mix the rank's ``d_ff``
+columns, a Mamba mixer the rank's ``di`` channels (its state ``[B, di /
+n, n_state]`` and window ``[B, cw - 1, di / n]``).  Each product over
+the cut dim is a partial sum, all-reduced in f32 and cast once: ``y_r @
+wo_r`` of the time-mix, ``k_r @ wv_r`` of the channel-mix (before the
+gate ``sigmoid(xr @ wr)``, whose ``wr`` is whole), and Mamba's ``x1_r @
+dt_lo_r``, ``x1_r @ w_B_r``, ``x1_r @ w_C_r`` and ``y_r @ w_out_r``.
+The token-shift carries are the layer's whole input, the same on every
+rank.  Under autograd each replicated tensor that goes into a rank's
+block passes ``collectives.enter`` (its gradient summed over the
+ranks): the mixes into ``wr`` / ``wk`` / ``wv`` / ``wg``, the decay
+LoRA's ``tanh`` output into ``w_b``, the channel-mix's ``xk``, Mamba's
+input into ``w_in`` and the reduced ``dt_lo`` / ``B`` / ``C`` products
+into the rank's channels (one all-reduce for the three); the whole
+leaves (``mu``, ``w_a``, the channel-mix's ``wr``) then get the whole
+gradient on every rank.
 """
 
 from __future__ import annotations
@@ -32,7 +52,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init
+from repro_torch.distributed.collectives import all_reduce_sum, enter
+from repro_torch.models.layers import dense_init, model_group
 
 LORA = 32   # rank of the decay's low-rank projection
 
@@ -101,18 +122,24 @@ def apply_rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     With ``state = (s, x_prev)`` the recurrence continues from them and
     both are advanced in place (the returned tensors are ``state``'s)."""
     B, S, d = x.shape
-    H, hd = rwkv_heads(cfg)
+    _, hd = rwkv_heads(cfg)
+    d_l = p["wr"].shape[1]              # a rank's heads' width under a mesh
+    H = d_l // hd
+    sharded = d_l != d
     xx = _token_shift(x, state[1] if state is not None else None)
 
     def mix(i):
         return x + (xx - x) * p["mu"][i].to(x.dtype)
 
-    r = (mix(0) @ p["wr"]).reshape(B, S, H, hd)
-    k = (mix(1) @ p["wk"]).reshape(B, S, H, hd)
-    v = (mix(2) @ p["wv"]).reshape(B, S, H, hd)
-    g = mix(3) @ p["wg"]
+    def block_in(t):    # under autograd, the input of the rank's heads
+        return enter(t, model_group()) if sharded else t
+
+    r = (block_in(mix(0)) @ p["wr"]).reshape(B, S, H, hd)
+    k = (block_in(mix(1)) @ p["wk"]).reshape(B, S, H, hd)
+    v = (block_in(mix(2)) @ p["wv"]).reshape(B, S, H, hd)
+    g = block_in(mix(3)) @ p["wg"]
     # the data-dependent decay, in f32
-    wx = torch.tanh(mix(4).float() @ p["w_a"]) @ p["w_b"]
+    wx = block_in(torch.tanh(mix(4).float() @ p["w_a"])) @ p["w_b"]
     w = torch.exp(-torch.exp(p["w0"] + wx)).reshape(B, S, H, hd)
 
     rf, kf, vf = r.float(), k.float(), v.float()
@@ -132,11 +159,14 @@ def apply_rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     # per-head group norm
     var = y.square().mean(dim=-1, keepdim=True)
-    y = (y * torch.rsqrt(var + 1e-6)).reshape(B, S, d)
+    y = (y * torch.rsqrt(var + 1e-6)).reshape(B, S, d_l)
     y = y * p["ln_scale"].float()
     y = y.to(x.dtype) * F.silu(g)
     x_last = _carry(x[:, -1], state[1] if state is not None else None)
-    return y @ p["wo"], (s, x_last)
+    out = y @ p["wo"]
+    # wo holds the rank's heads' rows: its product is a partial sum
+    return (all_reduce_sum(out, model_group()) if sharded else out,
+            (s, x_last))
 
 
 def apply_rwkv_channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -147,8 +177,14 @@ def apply_rwkv_channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     xx = _token_shift(x, prev_x)
     xk = x + (xx - x) * p["mu"][0].to(x.dtype)
     xr = x + (xx - x) * p["mu"][1].to(x.dtype)
+    sharded = p["wk"].shape[1] != cfg.d_ff     # a rank's d_ff columns
+    if sharded:     # under autograd, the input of the rank's columns
+        xk = enter(xk, model_group())
     k = torch.square(torch.relu(xk @ p["wk"]))
-    out = torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    kv = k @ p["wv"]
+    if sharded:     # wv holds the rank's rows: a partial sum
+        kv = all_reduce_sum(kv, model_group())
+    out = torch.sigmoid(xr @ p["wr"]) * kv
     return out, _carry(x[:, -1], prev_x)
 
 
@@ -218,15 +254,24 @@ def apply_mamba(p: dict, x: torch.Tensor, cfg: ModelConfig,
     tensor and then copied into ``conv``: shifting it in place would be a
     copy between overlapping memory."""
     B, S, _ = x.shape
-    di, n, _ = mamba_dims(cfg)
-    x1, z = (x @ p["w_in"]).chunk(2, dim=-1)
+    _, n, _ = mamba_dims(cfg)
+    di = p["w_in"].shape[1] // 2        # a rank's channels under a mesh
+    sharded = di != mamba_dims(cfg)[0]
+
+    if sharded:     # under autograd, the input of the rank's channels
+        x = enter(x, model_group())
+    x1, z = (x @ p["w_in"]).chunk(2, dim=-1)      # [x1_r | z_r] on a rank
     x1, window = _causal_dw_conv(x1, p["conv_w"],
                                  state[0] if state is not None else None)
     x1 = F.silu(x1)
-    dt = F.softplus(((x1 @ p["dt_lo"]) @ p["dt_hi"]).float()
-                    + p["dt_bias"])                    # [B, S, di]
-    Bm = (x1 @ p["w_B"]).float()                       # [B, S, n]
-    Cm = (x1 @ p["w_C"]).float()                       # [B, S, n]
+    lo, Bm, Cm = x1 @ p["dt_lo"], x1 @ p["w_B"], x1 @ p["w_C"]
+    if sharded:     # three sums over the channels in one all-reduce, each
+        # then the input of the rank's channels again
+        parts = enter(all_reduce_sum(torch.cat([lo, Bm, Cm], dim=-1),
+                                     model_group()), model_group())
+        lo, Bm, Cm = parts.split([lo.shape[-1], n, n], dim=-1)
+    dt = F.softplus((lo @ p["dt_hi"]).float() + p["dt_bias"])  # [B, S, di]
+    Bm, Cm = Bm.float(), Cm.float()                    # [B, S, n]
     A = -torch.exp(p["A_log"])                         # [di, n]
     xf = x1.float()
     h = (state[1] if state is not None
@@ -243,4 +288,7 @@ def apply_mamba(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y = torch.matmul(hs, Cm[..., None])[..., 0] + p["D"] * xf
     y = y.to(x.dtype) * F.silu(z)
     conv = _carry(window, state[0] if state is not None else None)
-    return y @ p["w_out"], (conv, h)
+    out = y @ p["w_out"]
+    # w_out holds the rank's channels' rows: its product is a partial sum
+    return (all_reduce_sum(out, model_group()) if sharded else out,
+            (conv, h))

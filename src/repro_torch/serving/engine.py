@@ -115,9 +115,11 @@ process, ``launch.mesh.spawn`` or ``torchrun``), the engine runs the same
 serving loop on this rank's blocks of the model
 (``distributed.sharding.shard_params``: the PIMnast mesh planner's
 placement, the fused leaves packed per rank), its shard of the slot cache
-(``serve_cache_spec``: kv heads on 'model', slots and ``pos`` whole) and
-of every prefix segment, with ``DispatchPolicy.model_shards`` the 'model'
-axis size: each GEMV is selected at the shape its rank runs.  The layers
+(``slot_cache_spec``: kv heads on 'model', rwkv6's wkv state on the
+rank's heads, hymba's Mamba state on its channels; slots, ``pos`` and
+the token-shift carries whole) and of every prefix segment, with
+``DispatchPolicy.model_shards`` the 'model' axis size: each GEMV is
+selected at the shape its rank runs.  The layers
 issue the collectives (``models/layers.py``); ``overlap_collectives=True``
 defers each decode layer's FFN all-reduce by one layer (bit-equal
 tokens).  Every host decision must be the same on every rank, or one rank
@@ -128,7 +130,8 @@ is rank 0's, broadcast once at construction
 (``distributed.tuning.share_autotune_table``) so every rank selects the
 same kernels, and only rank 0 writes tables and traces (its tracer; the
 others get none); the prefix
-cache counts global bytes; sampling reads the all-gathered logits, the
+cache counts global bytes (each leaf's rank bytes times its blocks,
+``SlotKVCache.scales``); sampling reads the all-gathered logits, the
 same on every rank.  A 'data' axis above 1 replicates the serving state,
 and (a deliberate difference) the parameters too.  Under gloo (ranks
 sharing a card) decode and prefill run eagerly: gloo collectives cannot
@@ -136,11 +139,15 @@ be captured in a CUDA graph (``Engine.graphs`` is None and
 ``Engine.graphs_reason`` says why); under NCCL too, until a machine with a
 card a rank has checked the captured collectives (a pre-warmed
 communicator, and the deferred collectives counted at replay).
-Sharded serving runs the dense and MoE decoders, whisper (its encoder
-and cross-attention as rank blocks) and llama-vision (its cross-attention
-layers), without ``async_prefill``; every rank draws the same per-slot
-features (``make_features``) and a compaction swaps their rows by the
-same moves on every rank.  ssm and hybrid models raise on a mesh.
+Sharded serving runs every family: the dense and MoE decoders, whisper
+(its encoder and cross-attention as rank blocks), llama-vision (its
+cross-attention layers), rwkv6 (each time-mix on the rank's heads, each
+channel-mix on its ``d_ff`` columns) and hymba (its Mamba mixers on the
+rank's channels beside attention, cut where its heads divide); all
+without ``async_prefill``.  Every rank draws the same per-slot features
+(``make_features``) and a compaction swaps their rows by the same moves
+on every rank; a recurrent model's state rows are zeroed, saved,
+restored, snapshotted and spliced on every rank alike, each its block.
 """
 
 from __future__ import annotations
@@ -367,7 +374,7 @@ class Engine:
                     prefix_cache if isinstance(prefix_cache,
                                                PrefixCacheConfig) else None,
                     has_state=bool(self.kv.state_names),
-                    byte_scale=self.kv.shards)
+                    byte_scale=self.kv.scales)
             # admission prices a cached prefix as near-zero prefill
             self.scheduler.prefill_cost = self._prefill_cost
         self.active: dict[int, Request] = {}   # slot -> request
@@ -407,10 +414,9 @@ class Engine:
         # the prefill sub-cache and its feature rows: row 0 stages every
         # chunk, rows [0, nb) a wave, row 1 + i an async chain's; and each
         # chain's first-token logits
-        self.sub = lm.init_cache(self.kv.cache_cfg, batch_slots + 1,
-                                 max_len,
+        self.sub = lm.init_cache(cfg, batch_slots + 1, max_len,
                                  per_slot_pos=True, kv_store=self.kv_store,
-                                 device=self.device)
+                                 device=self.device, mesh=mesh)
         self.sub_features = {
             k: torch.zeros((batch_slots + 1, *v.shape[1:]), dtype=v.dtype,
                            device=self.device)

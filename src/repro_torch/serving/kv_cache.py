@@ -32,12 +32,16 @@ Host-side per-slot metadata (``slot_meta``, one dict per active slot: the
 prefix cache keeps its segment pins there) moves with its slot through
 :meth:`compact` and is dropped on :meth:`free`.
 
-Under a mesh (``mesh=``) the cache holds this rank's block of the
-reference's placement (``distributed.sharding.serve_cache_spec``): the
-slot axis and ``pos`` whole on every rank, K/V and their scales on the
-rank's kv heads when they divide the 'model' axis (else every kv head).
-Every mutation below is then local to the shard, as the reference's
-explicit shardings make it: no defrag or splice moves data between ranks.
+Under a mesh (``mesh=``) the cache holds this rank's block of each leaf
+(``distributed.sharding.slot_cache_spec``): the slot axis and ``pos``
+whole on every rank, K/V and their scales on the rank's kv heads when
+they divide the 'model' axis (else every kv head), rwkv6's wkv state on
+the rank's heads and hymba's Mamba state and conv window on its ``di``
+channels (the token-shift carries whole).  Every mutation below is then
+local to the shard, as the reference's explicit shardings make it: no
+defrag or splice moves data between ranks.  ``scales`` gives each
+leaf's count of blocks, by which a segment's bytes are the unsharded
+segment's.
 
 Unlike the JAX package, whose arrays are immutable, every mutation here
 writes the cache tensors IN PLACE and no leaf is ever reassigned (the
@@ -55,7 +59,6 @@ overwrite the segment.
 from __future__ import annotations
 
 import bisect
-import dataclasses
 
 import numpy as np
 import torch
@@ -91,19 +94,20 @@ class SlotKVCache:
         self.batch_slots = batch_slots
         self.max_len = max_len
         self.device = torch.device(device)
-        # the config the leaves are shaped by (a rank's kv heads), and the
-        # shards each positional leaf is cut into
-        self.cache_cfg, self.shards = cfg, 1
-        if mesh is not None:
-            from repro_torch.distributed.sharding import serve_cache_heads
-
-            heads = serve_cache_heads(cfg, mesh)
-            self.cache_cfg = dataclasses.replace(cfg, n_kv_heads=heads)
-            self.shards = cfg.n_kv_heads // heads
-        self.cache = lm.init_cache(self.cache_cfg, batch_slots, max_len,
-                                   dtype,
+        self.cache = lm.init_cache(cfg, batch_slots, max_len, dtype,
                                    per_slot_pos=True, kv_store=kv_store,
-                                   device=self.device)
+                                   device=self.device, mesh=mesh)
+        # the ranks each leaf is cut into: a rank's bytes of a leaf times
+        # its scale are the unsharded leaf's (the prefix cache's count)
+        self.scales = {name: 1 for name in self.cache}
+        if mesh is not None:
+            from repro_torch.distributed.sharding import slot_cache_scales
+
+            whole = lm.init_cache(cfg, batch_slots, max_len, dtype,
+                                  per_slot_pos=True, kv_store=kv_store,
+                                  device="meta")
+            self.scales = slot_cache_scales(
+                mesh, cfg, {k: tuple(v.shape) for k, v in whole.items()})
         # the state leaves, and one save buffer each (empty for a pure-KV
         # family): a decode step over a row mid-prefill must leave it as
         # it was

@@ -45,8 +45,10 @@ heads, the block ``distributed.sharding.segment_spec`` gives of the
 unsharded segment, and a splice is local to the shard.  Every rank must
 take the same decisions: the
 index is the same on every rank, and capacity and eviction count global
-bytes, a rank's bytes times ``byte_scale`` (the shards a segment is cut
-into), never the rank's share.
+bytes, a rank's bytes of each leaf times its ``byte_scale`` (the blocks
+the leaf is cut into, ``SlotKVCache.scales``: K/V and a recurrent
+state's leaves may be cut while another leaf is whole), never the
+rank's share.
 """
 
 from __future__ import annotations
@@ -96,7 +98,7 @@ class _Node:
                  "refcount", "last_used", "nbytes", "scale")
 
     def __init__(self, tokens: np.ndarray, kv: dict, state: dict | None,
-                 parent: "_Node | None", scale: int = 1):
+                 parent: "_Node | None", scale: dict | None = None):
         self.tokens = np.asarray(tokens, np.int32)
         self.kv = kv
         self.state = state
@@ -105,16 +107,20 @@ class _Node:
         self.refcount = 0
         self.last_used = 0
         self.scale = scale
-        self.nbytes = scale * _payload_bytes(kv, state)
+        self.nbytes = _payload_bytes(kv, state, scale)
 
     def recount_bytes(self) -> None:
-        self.nbytes = self.scale * _payload_bytes(self.kv, self.state)
+        self.nbytes = _payload_bytes(self.kv, self.state, self.scale)
 
 
-def _payload_bytes(kv: dict, state: dict | None) -> int:
-    n = sum(leaf.nbytes for leaf in (kv or {}).values())
+def _payload_bytes(kv: dict, state: dict | None,
+                   scale: dict | None = None) -> int:
+    """A payload's bytes, each leaf's times its scale ({leaf: scale}; 1
+    for a leaf it does not name)."""
+    scale = scale or {}
+    n = sum(scale.get(k, 1) * leaf.nbytes for k, leaf in (kv or {}).items())
     if state:
-        n += sum(leaf.nbytes for leaf in state.values())
+        n += sum(scale.get(k, 1) * leaf.nbytes for k, leaf in state.items())
     return int(n)
 
 
@@ -140,7 +146,7 @@ class PrefixCache:
     """Radix index + refcounted segment store (one per engine)."""
 
     def __init__(self, config: PrefixCacheConfig | None = None, *,
-                 has_state: bool = False, byte_scale: int = 1):
+                 has_state: bool = False, byte_scale: dict | None = None):
         self.config = config or PrefixCacheConfig()
         self.has_state = has_state
         self.byte_scale = byte_scale
@@ -307,7 +313,7 @@ class PrefixCache:
         # snapshot if that boundary lacks one (a split dropped it)
         if self.has_state and state and node is not self.root \
                 and node.state is None:
-            extra = self.byte_scale * _payload_bytes({}, state)
+            extra = _payload_bytes({}, state, self.byte_scale)
             if self._make_room(extra, keep=node):
                 node.state = dict(state)
                 node.recount_bytes()

@@ -371,6 +371,136 @@ def run_mm_cases(mesh, names) -> dict:
 
 
 # --------------------------------------------------------------------------
+# Sharded recurrent serving (test_torch_sharded_state.py)
+# --------------------------------------------------------------------------
+
+STATE_KW = dict(prefill_chunk=8, prefix_cache=True)
+# name: (arch, config overrides, plan); rwkv6 (2 heads of 32: one a rank)
+# and hymba (4 heads and 4 kv heads: attention cut beside the Mamba
+# channels), hymba with 5 heads (attention whole on every rank, the
+# Mamba mixer cut: the full width's placement), and a preemption (hymba:
+# its K/V and its state rows re-prefilled)
+STATE_CASES = {
+    "rwkv": ("rwkv6-3b", {}, "mix"),
+    "hymba": ("hymba-1.5b", {}, "mix"),
+    "hymba_h5": ("hymba-1.5b", {"n_heads": 5, "n_kv_heads": 5}, "mix"),
+    "hymba_preempt": ("hymba-1.5b", {}, "preempt"),
+}
+
+
+def state_config(name: str):
+    arch, over, _ = STATE_CASES[name]
+    return dataclasses.replace(get_config(arch).reduced(), **over)
+
+
+def perturb_state(params: dict, cfg, seed: int = 0) -> dict:
+    """``params`` (the whole tree) with the leaves the init leaves
+    constant drawn afresh from ``seed``, in place, as the state families'
+    tests perturb the JAX tree: rwkv6's ``u``, every ``mu``, ``w0``,
+    ``ln_scale`` (time-mix projections x4); hymba's betas, ``D``,
+    ``dt_bias``, ``A_log``.  The same values on every rank."""
+    rng = np.random.default_rng(seed)
+
+    def draw(t, x):
+        t.copy_(torch.from_numpy(np.asarray(x, np.float32)).to(t.dtype))
+
+    for p in params["layers"]:
+        if "time_mix" in p:
+            tm, cm = p["time_mix"], p["channel_mix"]
+            draw(tm["u"], rng.standard_normal(tm["u"].shape))
+            draw(tm["mu"], rng.uniform(0, 1, tm["mu"].shape))
+            draw(tm["w0"], rng.standard_normal(tm["w0"].shape) - 0.5)
+            draw(tm["ln_scale"], rng.uniform(0.5, 1.5, tm["ln_scale"].shape))
+            for k in ("wr", "wk", "wv", "wg", "wo"):
+                tm[k].mul_(4)
+            draw(cm["mu"], rng.uniform(0, 1, cm["mu"].shape))
+        if "mamba" in p:
+            m = p["mamba"]
+            for k in ("beta_attn", "beta_ssm"):
+                draw(p[k], rng.uniform(2, 6, p[k].shape))
+            draw(m["D"], rng.standard_normal(m["D"].shape))
+            draw(m["dt_bias"], rng.standard_normal(m["dt_bias"].shape) - 2)
+            draw(m["A_log"], rng.standard_normal(m["A_log"].shape) - 1)
+    return params
+
+
+def state_params(name: str) -> dict:
+    """Case ``name``'s whole weights: the port's seeded init, perturbed."""
+    cfg = state_config(name)
+    return perturb_state(lm.init_lm(cfg, seed=0, device="cpu"), cfg)
+
+
+def state_plan(name: str, vocab: int) -> list[tuple]:
+    return mix_plan(vocab) if STATE_CASES[name][2] == "mix" \
+        else preempt_plan(vocab)
+
+
+def state_serve(name: str, mesh=None) -> dict:
+    """Case ``name`` on the port's engine from the whole perturbed tree
+    (cut to this rank's blocks by the engine with ``mesh``): tokens,
+    sampled logits rows, counters, compaction moves, the prefix cache's
+    stats and bytes, the state rows saved and restored, the cache leaves
+    at the end, the shapes the engine holds, and (with ``mesh``) the
+    blocks ``init_lm(mesh=)`` draws."""
+    from repro_torch.tree import flatten_with_paths, path_str
+
+    cfg = state_config(name)
+    clk = FakeClock()
+    dispatch.clear_plan_cache()
+    preempt = STATE_CASES[name][2] == "preempt"
+    eng = Engine(cfg, state_params(name), max_len=MAX_LEN, device="cpu",
+                 clock=clk, mesh=mesh, batch_slots=2 if preempt else 4,
+                 scheduler=(SchedulerConfig(**PREEMPT) if preempt
+                            else "fcfs"), **STATE_KW)
+    rows: dict[int, list] = {}
+    sample = eng._sample
+
+    def recorded(r, row):
+        rows.setdefault(r.rid, []).append(np.array(row))
+        return sample(r, row)
+
+    eng._sample = recorded
+    moves, compact = [], eng.kv.compact
+
+    def counted():
+        m = compact()
+        moves.append(len(m))
+        return m
+
+    eng.kv.compact = counted
+    saves, save = [], eng.kv.save_state
+
+    def saved(slots):
+        saves.append(len(list(slots)))
+        return save(slots)
+
+    eng.kv.save_state = saved
+    reqs = drive(eng, Request, state_plan(name, cfg.vocab), clk)
+    out = {"tokens": {rid: list(r.generated) for rid, r in reqs.items()},
+           "rows": rows, "counters": dict(eng.metrics.counters),
+           "defrag_moves": sum(moves), "saves": sum(saves),
+           "prefix": eng.prefix.stats() if eng.prefix is not None else None,
+           "prefix_bytes": (eng.prefix.bytes_used if eng.prefix is not None
+                            else None),
+           "cache": {k: v.clone() for k, v in eng.kv.cache.items()},
+           "scales": dict(eng.kv.scales),
+           "held": {path_str(p): tuple(t.shape)
+                    for p, t in flatten_with_paths(eng.params)
+                    if isinstance(t, torch.Tensor)}}
+    if mesh is not None:
+        out["drawn"] = {path_str(p): t for p, t in flatten_with_paths(
+            lm.init_lm(cfg, seed=0, device="cpu", mesh=mesh))}
+    return out
+
+
+def run_state_cases(mesh, names) -> dict:
+    """Every recurrent case in ``names`` on this rank."""
+    out = {name: state_serve(name, mesh) for name in names}
+    out["coords"] = dict(mesh.coords)
+    return out
+
+
+# --------------------------------------------------------------------------
 # Data-parallel training (test_torch_train_mesh.py)
 # --------------------------------------------------------------------------
 
@@ -442,7 +572,12 @@ def train_launcher_argv(ckpt_dir: str,
 # every rank, each rank reading the kv head its query heads share;
 # whisper-small (its encoder and every layer's cross-attention as rank
 # blocks) and llama-vision at 2 groups (also with one kv head: the cross
-# layers' K / V weights whole on every rank), every cross_gate at MM_GATE
+# layers' K / V weights whole on every rank), every cross_gate at MM_GATE;
+# rwkv6 (each time-mix on a rank's heads, each channel-mix on its d_ff
+# columns) and hymba with 5 heads (attention whole on every rank beside
+# the Mamba mixer's channels, w_in as [x1_r | z_r]: the full width's
+# placement) under Adafactor factored at 8, so that w_in's column
+# statistic is cut as the pair
 TP_CASES = {"olmo": ("olmo-1b", {}, {}),
             "olmo_kv1": ("olmo-1b", {"n_kv_heads": 1}, {}),
             "deepseek": ("deepseek-moe-16b", {}, {}),
@@ -450,11 +585,17 @@ TP_CASES = {"olmo": ("olmo-1b", {}, {}),
             "whisper": ("whisper-small", {}, {}),
             "vision": ("llama-3.2-vision-11b", {"n_layers": 4}, {}),
             "vision_kv1": ("llama-3.2-vision-11b",
-                           {"n_layers": 4, "n_kv_heads": 1}, {})}
+                           {"n_layers": 4, "n_kv_heads": 1}, {}),
+            "rwkv": ("rwkv6-3b", {}, {}),
+            "hymba": ("hymba-1.5b", {"n_heads": 5, "n_kv_heads": 5,
+                                     "optimizer": "adafactor"},
+                      {"factored_min_dim": 8})}
 TP_BATCH, TP_SEQ = 4, 16        # global rows, positions
 TP_CKPT_CASE = "grok"           # the state a (2, 2) mesh checkpoints
 TP_MM_CKPT_CASE = "whisper"     # and of a multimodal model
 TP_MM_CASES = ("whisper", "vision")
+TP_STATE_CKPT_CASE = "hymba"    # and of a recurrent model (w_in's pair)
+TP_STATE_CASES = ("rwkv", "hymba")
 
 
 def tp_config(name: str, **over):
@@ -683,7 +824,9 @@ def tp_ranks(mesh, bridged=None, ckpt_dir: str | None = None,
              launcher_dir: str | None = None, bridged_mm=None,
              mm_ckpt_dir: str | None = None,
              mm_restore_from: str | None = None,
-             mm_launcher_dirs: dict | None = None) -> dict:
+             mm_launcher_dirs: dict | None = None,
+             state_ckpt_dir: str | None = None,
+             state_restore_from: str | None = None) -> dict:
     """Every model-parallel training case on this rank.  On any mesh:
     each ``TP_CASES`` step, and the update on the same gradients.  With
     ``bridged`` (the JAX package's deepseek-moe-16b tree as numpy) its
@@ -695,7 +838,10 @@ def tp_ranks(mesh, bridged=None, ckpt_dir: str | None = None,
     with ``restore_from`` (``mm_restore_from``) the state saved there is
     restored onto this mesh.  With ``launcher_dir`` ``launch/train.py
     --mesh DxM`` runs through a fault at step 3, and with
-    ``mm_launcher_dirs`` ({arch: directory}) so does each arch's."""
+    ``mm_launcher_dirs`` ({arch: directory}) so does each arch's.
+    ``state_ckpt_dir`` / ``state_restore_from`` save and restore
+    ``TP_STATE_CKPT_CASE``'s state as the others; ``bridged_mm`` may hold
+    the recurrent cases' trees too."""
     from repro_torch.bridge import params_from_numpy
     from repro_torch.launch import train as launcher
 
@@ -735,6 +881,12 @@ def tp_ranks(mesh, bridged=None, ckpt_dir: str | None = None,
     if mm_restore_from is not None:
         out["mm_restored"] = tp_restore(mesh, TP_MM_CKPT_CASE,
                                         mm_restore_from)
+    if state_ckpt_dir is not None:
+        tp_save(mesh, TP_STATE_CKPT_CASE,
+                out[TP_STATE_CKPT_CASE]["blocks"], state_ckpt_dir)
+    if state_restore_from is not None:
+        out["state_restored"] = tp_restore(mesh, TP_STATE_CKPT_CASE,
+                                           state_restore_from)
     if launcher_dir is not None:
         out["launcher"] = launcher.run_on_mesh(
             mesh, train_launcher_argv(launcher_dir) + ["--mesh", f"{d}x{m}"],

@@ -499,7 +499,9 @@ def test_serving_cache_shard_is_the_spec_block(arch, kv_heads):
         mesh = _rank_mesh({"data": 1, "model": 2}, r)
         kv = SlotKVCache(cfg, 4, 32, kv_store="int8", device="cpu",
                          mesh=mesh)
-        assert kv.shards == (2 if kv_heads == 2 else 1)
+        assert kv.scales["k"] == kv.scales["v_scale"] == (
+            2 if kv_heads == 2 else 1)
+        assert kv.scales["pos"] == 1
         assert shd.attention_shardable(cfg, 2)
         wk = shd.serve_spec("layers/0/attn/wk",
                             (cfg.d_model, kv_heads, cfg.hd), mesh, cfg)
@@ -543,12 +545,16 @@ def test_serve_plan_keeps_whole_what_does_not_divide():
     assert spec(g, 2, "layers/0/ln1", (d,)) == (None,)
     gem = get_config("gemma3-1b")                     # 4 heads over 1
     assert shd.attention_shardable(gem, 2)
-    assert shd.serve_cache_heads(gem, FakeMesh({"data": 1, "model": 2})) \
-        == 1
+    # its one kv head whole in the slot cache
+    assert shd.slot_cache_spec(FakeMesh({"data": 1, "model": 2}), gem,
+                               (26, 8, 64, 1, 256), "k") == (None,) * 5
     hym = get_config("hymba-1.5b")                    # 25 heads
     assert not shd.attention_shardable(hym, 2)
-    with pytest.raises(NotImplementedError, match="not ported.*item 2b"):
-        shd.check_mesh_family(hym)
+    # its attention whole, its Mamba mixer cut on di (3200 over 2)
+    shd.check_mesh_family(hym)
+    assert spec(hym, 2, "layers/0/attn/wq", (1600, 25, 64)) == (None,) * 3
+    assert spec(hym, 2, "layers/0/mamba/w_out", (3200, 1600)) == (
+        "model", None)
     assert not shd.attention_shardable(g, 1)
     assert spec(g, 1, "embed", (g.vocab, d)) == (None, None)
 
@@ -696,7 +702,7 @@ def test_prefix_segments_are_the_segment_spec_block(kv_heads):
                                              tuple(seg.shape), name)
             assert torch.equal(got["kv"][name],
                                shd.shard_tensor(seg, spec, mesh))
-        store = PrefixCache(has_state=False, byte_scale=kv.shards)
+        store = PrefixCache(has_state=False, byte_scale=kv.scales)
         store.insert(np.arange(12), got)
         ref = PrefixCache(has_state=False)
         ref.insert(np.arange(12), want)
@@ -719,3 +725,118 @@ def test_a_ranks_blocks_own_their_memory():
         assert t.untyped_storage().nbytes() == t.numel() * t.element_size(), \
             path
     assert stored(mine) < 0.6 * stored(full)
+
+
+# where a recurrent mixer's placement differs from the reference's
+# ``_leaf_spec`` ('model' dim of the per-layer leaf; None: whole), and why
+STATE_DIFFERENCES = {
+    # the pair [x1_r | z_r]: the same dim, cut in two parts (the port's
+    # P.pairs); contiguous columns would give x1 to one rank, z to another
+    "mamba/w_in": 1,
+    # multiplies the reduced k @ wv: whole (the reference cuts output d)
+    "channel_mix/wr": None,
+    # the down projection's d_ff rows, a partial sum (reference: d)
+    "channel_mix/wv": 0,
+    # the per-head bonus on its head rows (reference: the largest dim)
+    "time_mix/u": 0,
+    # the token-shift mixes and the decay LoRA's input side read the whole
+    # input on every rank (the reference cuts their largest dim)
+    "time_mix/mu": None, "channel_mix/mu": None, "time_mix/w_a": None,
+    # hymba's combine weights: read whole, as the norm scales are
+    "beta_attn": None, "beta_ssm": None,
+}
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "hymba-1.5b"])
+def test_recurrent_placement_against_the_references_plan(arch):
+    """rwkv6-3b and hymba-1.5b at full width on (1, 2), (1, 4) and (2,
+    2), leaf by leaf: each layer's leaf under ``serve_spec`` (and
+    ``train_spec``, which adds 'data') beside the reference's
+    ``plan_params`` of the same per-layer leaf.  'model' lands on the
+    reference's dim except at the pinned differences
+    (``STATE_DIFFERENCES``); ``w_in`` alone is paired.  The slot cache's
+    state (``slot_cache_spec``) is the reference's ``serve_cache_spec``
+    but for the token-shift carries, whole (the reference cuts their
+    ``d``)."""
+    cfg, jcfg = get_config(arch), ARCHS[arch]
+    full = lm.init_lm(cfg, device="meta")
+    cache = lm.init_cache(cfg, 8, 1024, per_slot_pos=True, device="meta")
+    seen = set()
+    for mshape in ({"data": 1, "model": 2}, {"data": 1, "model": 4},
+                   {"data": 2, "model": 2}):
+        mesh = FakeMesh(mshape)
+        for path, t in _tensors(full):
+            parts = path.split("/")
+            if parts[0] != "layers" or parts[1] != "0":
+                continue
+            key = "/".join(parts[2:])
+            shape = tuple(t.shape)
+            got = shd.serve_spec(path, shape, mesh, cfg)
+            ref = jshd._leaf_spec(path, shape, mesh, jcfg)
+            dim = got.index("model") if "model" in got else None
+            ref_dim = ref.index("model") if "model" in ref else None
+            want = STATE_DIFFERENCES.get(key, ref_dim)
+            if key.startswith(("attn/", "mlp/", "ln")):
+                continue        # pinned by the dense families' tests
+            assert dim == want, (key, got, ref)
+            assert got.pairs == (2 if key == "mamba/w_in" else 1), key
+            if key in STATE_DIFFERENCES and want != ref_dim:
+                seen.add(key)
+            train = shd.train_spec(path, shape, _rank_mesh(mshape, 0), cfg)
+            assert tuple(train)[dim] == "model" if dim is not None \
+                else "model" not in train
+            assert train.pairs == got.pairs
+        for name, leaf in cache.items():
+            shape = tuple(leaf.shape)
+            got = shd.slot_cache_spec(mesh, cfg, shape, name)
+            ref = jshd.serve_cache_spec(mesh, jcfg, shape, name)
+            if name in ("rwkv_x_tm", "rwkv_x_cm"):
+                assert got == (None,) * 3 and "model" in ref, name
+            else:
+                assert got == ref, name
+    assert seen == ({"channel_mix/wr", "channel_mix/wv", "time_mix/u",
+                     "time_mix/mu", "channel_mix/mu", "time_mix/w_a"}
+                    if arch == "rwkv6-3b" else {"beta_attn", "beta_ssm"})
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "hymba-1.5b"])
+def test_recurrent_cache_and_segments_are_the_rank_blocks(arch):
+    """``SlotKVCache(mesh=)`` of a recurrent model: each leaf is
+    ``shard_tensor`` of the whole leaf under ``slot_cache_spec`` (the wkv
+    state on the rank's heads, the Mamba state and window on its
+    channels, the carries whole), the state rows a rank snapshots are its
+    blocks of the unsharded snapshot (the slot cache's spec less the slot
+    axis), and a store counting each leaf's bytes times its ``scales``
+    counts the unsharded engine's bytes."""
+    from repro_torch.serving.prefix_cache import PrefixCache
+
+    cfg = get_config(arch).reduced()
+    whole = SlotKVCache(cfg, 2, 32, device="cpu")
+    for leaf in whole.cache.values():
+        leaf.copy_(torch.randint(-100, 100, leaf.shape).to(leaf.dtype))
+    want = whole.extract_prefix(1, 12)
+    ref = PrefixCache(has_state=True)
+    ref.insert(np.arange(12), want)
+    for r in range(2):
+        mesh = _rank_mesh({"data": 1, "model": 2}, r)
+        kv = SlotKVCache(cfg, 2, 32, device="cpu", mesh=mesh)
+        for name, leaf in kv.cache.items():
+            spec = shd.slot_cache_spec(mesh, cfg, tuple(
+                whole.cache[name].shape), name)
+            block = shd.shard_tensor(whole.cache[name], spec, mesh)
+            assert leaf.shape == block.shape, name
+            assert kv.scales[name] == whole.cache[name].numel() \
+                // leaf.numel(), name
+            leaf.copy_(block)
+        got = kv.extract_prefix(1, 12)
+        for name, seg in want["state"].items():
+            spec = shd.slot_cache_spec(mesh, cfg, tuple(
+                whole.cache[name].shape), name)
+            assert torch.equal(got["state"][name], shd.shard_tensor(
+                seg, (spec[0],) + tuple(spec[2:]), mesh)), name
+        cut = {n for n, s in kv.scales.items() if s > 1}
+        assert cut == ({"rwkv_s"} if arch == "rwkv6-3b"
+                       else {"k", "v", "mamba_conv", "mamba_h"})
+        store = PrefixCache(has_state=True, byte_scale=kv.scales)
+        store.insert(np.arange(12), got)
+        assert store.bytes_used == ref.bytes_used

@@ -227,19 +227,31 @@ def test_gloo_ranks_run_eagerly_without_a_prefix_cache(ranks):
 @pytest.mark.parametrize("arch, item", [("rwkv6-3b", "2b"),
                                         ("hymba-1.5b", "2b")])
 def test_recurrent_families_and_async_prefill_stay_refused(arch, item):
-    """ssm and hybrid raise on a mesh naming their ROADMAP item, and
-    ``async_prefill`` on a mesh raises for every family (before any
-    collective: this mesh has no process groups)."""
+    """Since ROADMAP queue 1 item 2b ssm and hybrid run on a mesh: the
+    family check passes and a rank's serving tree cuts their mixers (a
+    time-mix on the rank's heads, a Mamba mixer on its channels), with no
+    collective.  ``async_prefill`` on a mesh still raises for every
+    family, these two included (before any collective: this mesh has no
+    process groups)."""
     from repro_torch.configs.registry import get_config
 
     mesh = Mesh(shape={"data": 1, "model": 2}, rank=0,
                 coords={"data": 0, "model": 0})
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        shd.check_mesh_family(cfg)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        Engine(cfg, lm.init_lm(cfg, seed=0, device="cpu"), device="cpu",
-               mesh=mesh)
+    shd.check_mesh_family(cfg)
+    params = lm.init_lm(cfg, seed=0, device="cpu")
+    mine = shd.shard_params(params, mesh, cfg)
+    layer, whole = mine["layers"][0], params["layers"][0]
+    if item == "2b" and cfg.family == "ssm":
+        assert layer["time_mix"]["wr"].shape[1] == cfg.d_model // 2
+        assert layer["channel_mix"]["wr"] is whole["channel_mix"]["wr"]
+    else:
+        w_in = whole["mamba"]["w_in"]
+        x1, z = w_in.chunk(2, dim=-1)
+        assert torch.equal(layer["mamba"]["w_in"], torch.cat(
+            [x1.chunk(2, dim=-1)[0], z.chunk(2, dim=-1)[0]], dim=-1))
+    with pytest.raises(NotImplementedError, match="async_prefill"):
+        Engine(cfg, params, device="cpu", mesh=mesh, async_prefill=True)
     for name in ("whisper", "vision"):
         mcfg = W.mm_config(name)
         shd.check_mesh_family(mcfg)

@@ -441,24 +441,28 @@ def test_the_step_returns_new_tensors_that_need_no_grad():
                                         ("whisper-small", "2a"),
                                         ("llama-3.2-vision-11b", "2a")])
 def test_a_model_parallel_mesh_raises(arch, item):
-    """A 'model' axis of 2 trains the dense and MoE families, and since
-    ROADMAP queue 1 item 2a whisper and llama-vision (the step builds, on
-    its layout); ssm and hybrid raise with the item that puts them on a
-    mesh, 2b (before any collective: this mesh has no process groups),
-    and so does a 'pod' axis."""
+    """A 'model' axis of 2 trains every family: since ROADMAP queue 1 item
+    2a whisper and llama-vision, since item 2b rwkv6 and hymba (the step
+    builds, on its layout, whose specs cut their mixers: a time-mix's
+    ``wr`` on its heads' columns, a Mamba ``w_in`` as the pair ``[x1_r |
+    z_r]``).  What still raises is a 'pod' axis (before any collective:
+    these meshes have no process groups)."""
     from repro_torch.distributed import sharding as shd
 
     mesh = Mesh(shape={"data": 1, "model": 2}, rank=0,
                 coords={"data": 0, "model": 0})
     cfg = get_config(arch).reduced()
-    if item == "2a":
-        assert cfg.family in shd.MESH_FAMILIES
-        step, _ = tts.build_train_step(cfg, _tcfg(), mesh=mesh)
-        assert step.layout is not None
-    else:
-        assert cfg.family not in shd.MESH_FAMILIES
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tts.build_train_step(cfg, _tcfg(), mesh=mesh)
+    assert cfg.family in shd.MESH_FAMILIES
+    step, _ = tts.build_train_step(cfg, _tcfg(), mesh=mesh)
+    assert step.layout is not None
+    full, specs = shd.model_specs(cfg, mesh)
+    cut = {"/".join(map(str, p)): s
+           for (p, _), s in zip(shd.flatten_with_paths(full), specs)}
+    if item == "2b":
+        mixer = ("layers/0/time_mix/wr" if cfg.family == "ssm"
+                 else "layers/0/mamba/w_in")
+        assert cut[mixer] == (None, "model")
+        assert cut[mixer].pairs == (2 if cfg.family == "hybrid" else 1)
     pod = Mesh(shape={"pod": 2, "data": 1, "model": 1}, rank=0,
                coords={"pod": 0, "data": 0, "model": 0})
     with pytest.raises(NotImplementedError, match="'pod' axis"):

@@ -75,9 +75,15 @@ def mm_ckpt_dir(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def tp22(ckpt_dir, mm_ckpt_dir):
+def state_ckpt_dir(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("tp_state_ckpt"))
+
+
+@pytest.fixture(scope="module")
+def tp22(ckpt_dir, mm_ckpt_dir, state_ckpt_dir):
     return spawn(W.tp_ranks, (2, 2), device="cpu",
-                 kwargs=dict(ckpt_dir=ckpt_dir, mm_ckpt_dir=mm_ckpt_dir),
+                 kwargs=dict(ckpt_dir=ckpt_dir, mm_ckpt_dir=mm_ckpt_dir,
+                             state_ckpt_dir=state_ckpt_dir),
                  timeout_s=SPAWN_TIMEOUT_S)
 
 
@@ -112,19 +118,35 @@ def bridged_mm():
     return out
 
 
+@pytest.fixture(scope="module")
+def bridged_state():
+    """The JAX package's reduced rwkv6-3b and hymba-1.5b params as numpy:
+    {case: (jcfg, tree)}."""
+    init = jax.jit(jlm.init_lm, static_argnums=1)
+    out = {}
+    for name in W.TP_STATE_CASES:
+        arch, over, _ = W.TP_CASES[name]
+        jcfg = dataclasses.replace(ARCHS[arch].reduced(), **over)
+        out[name] = (jcfg, jax.tree.map(np.asarray,
+                                        init(jax.random.PRNGKey(0), jcfg)))
+    return out
+
+
 MM_ARCHS = ("whisper-small", "llama-3.2-vision-11b")
+STATE_ARCHS = ("rwkv6-3b", "hymba-1.5b")
 
 
 @pytest.fixture(scope="module")
-def tp12(tp22, ckpt_dir, mm_ckpt_dir, bridged, bridged_mm,
-         tmp_path_factory):
+def tp12(tp22, ckpt_dir, mm_ckpt_dir, state_ckpt_dir, bridged, bridged_mm,
+         bridged_state, tmp_path_factory):
     return spawn(W.tp_ranks, (1, 2), device="cpu", kwargs=dict(
         bridged=bridged[1], restore_from=ckpt_dir,
         launcher_dir=str(tmp_path_factory.mktemp("tp_launcher")),
-        bridged_mm={k: v[1] for k, v in bridged_mm.items()},
-        mm_restore_from=mm_ckpt_dir,
+        bridged_mm={k: v[1] for k, v in {**bridged_mm,
+                                         **bridged_state}.items()},
+        mm_restore_from=mm_ckpt_dir, state_restore_from=state_ckpt_dir,
         mm_launcher_dirs={a: str(tmp_path_factory.mktemp("tp_mm_launcher"))
-                          for a in MM_ARCHS}),
+                          for a in MM_ARCHS + STATE_ARCHS}),
         timeout_s=SPAWN_TIMEOUT_S)
 
 
@@ -322,6 +344,37 @@ def test_multimodal_gradients_match_jax_value_and_grad(tp12, bridged_mm,
             assert any("encoder" in n and "wq" in n for n in moved)
 
 
+@pytest.mark.parametrize("case", W.TP_STATE_CASES)
+def test_recurrent_gradients_match_jax_value_and_grad(tp12, bridged_state,
+                                                      case):
+    """The (1, 2) mesh's gathered gradients and loss of the JAX package's
+    rwkv6-3b and hymba-1.5b params (each time-mix on a rank's heads, each
+    Mamba mixer on its channels) against ``jax.value_and_grad`` of the
+    reference's ``loss_fn`` on the same batch, every leaf in the
+    reference's layout (``w_in`` as ``[x1 | z]``)."""
+    jcfg, jp = bridged_state[case]
+    cfg = W.tp_config(case)
+    batch = W.tp_batch(cfg)
+    jt = jts.TrainConfig(opt=jopt.OptConfig(name=jcfg.optimizer))
+    (_, (jl, _)), jg = jax.jit(
+        jax.value_and_grad(jts.loss_fn, has_aux=True),
+        static_argnums=(1, 3))(jax.tree.map(jnp.asarray, jp), jcfg,
+                               {k: jnp.asarray(v) for k, v in batch.items()},
+                               jt)
+    ref = jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, jg))[0]
+    for r in tp12:
+        got_r = r[f"bridged_{case}"]
+        np.testing.assert_allclose(got_r["loss"], float(jl), rtol=1e-6)
+        got = jax.tree_util.tree_flatten_with_path(
+            params_to_numpy(got_r["grads"], cfg))[0]
+        assert [p for p, _ in ref] == [p for p, _ in got]
+        for (path, a), (_, b) in zip(ref, got):
+            np.testing.assert_allclose(b, a, rtol=JAX_RTOL, atol=JAX_ATOL,
+                                       err_msg=jax.tree_util.keystr(path))
+        names = {jax.tree_util.keystr(p) for p, _ in got}
+        assert any("w_in" in n for n in names) == (case == "hymba")
+
+
 @pytest.mark.parametrize("case", ["olmo", "deepseek"])
 def test_remat_on_is_bit_equal_to_remat_off(tp12, case):
     """Remat re-runs each layer's forward collectives in the backward;
@@ -461,6 +514,56 @@ def test_a_multimodal_2x2_checkpoint_restores_onto_1x2_and_one_process(
         jax.tree.leaves(as_numpy), jax.tree.leaves(jrestored)))
 
 
+def test_a_recurrent_2x2_checkpoint_restores_w_in_in_the_references_layout(
+        tp22, tp12, state_ckpt_dir):
+    """hymba-1.5b's stepped params and Adafactor state, saved from the (2,
+    2) mesh: each rank's stored ``w_in`` block is its 'data' rows of
+    ``[x1_r | z_r]`` (its own channels of both halves) of the saved
+    ``[x1 | z]``, and so is the column statistic ``vc``; restored onto
+    (1, 2) (other blocks) and onto one process, and read by the JAX
+    manager, the full leaves bit-equal to the saved ones."""
+    from repro.checkpoint.manager import CheckpointManager as JaxManager
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import make_optimizer
+
+    case = W.TP_STATE_CKPT_CASE
+    saved = {"params": tp22[0][case]["params"], "opt": tp22[0][case]["opt"]}
+    paired = 0
+    for r in tp22:
+        dr, mr = r["coords"]["data"], r["coords"]["model"]
+        blocks = {"params": r[case]["blocks"]["params"],
+                  "opt": r[case]["blocks"]["opt"]}
+        mine = dict((path_str(p), t) for p, t in flatten_with_paths(blocks))
+        for path, full in flatten_with_paths(saved):
+            key = path_str(path)
+            if "w_in" not in key or key.endswith("vr"):
+                continue
+            x1, z = full.chunk(2, dim=-1)
+            want = torch.cat([x1.chunk(2, dim=-1)[mr],
+                              z.chunk(2, dim=-1)[mr]], dim=-1)
+            if want.ndim == 2:      # 'data' on d
+                want = want.chunk(2, dim=0)[dr]
+            assert torch.equal(mine[key], want), key
+            paired += 1
+    # every rank: w_in and its vc, a layer
+    assert paired == len(tp22) * 2 * W.tp_config(case).n_layers
+    for r in tp12:
+        assert _equal(r["state_restored"]["full"], saved)
+        assert r["state_restored"]["shapes"] != [tuple(t.shape)
+                                                 for t in leaves(saved)]
+    cfg = W.tp_config(case)
+    init, _ = make_optimizer(W.tp_train_config(case, cfg).opt, cfg)
+    params = lm.init_lm(cfg, seed=1, device="cpu")
+    restored, _ = CheckpointManager(state_ckpt_dir).restore(
+        {"params": params, "opt": init(params)})
+    assert _equal(restored, saved)
+    as_numpy = jax.tree.map(lambda t: t.numpy(), saved)
+    jrestored, _ = JaxManager(state_ckpt_dir).restore(as_numpy)
+    assert all(np.array_equal(x, np.asarray(y)) for x, y in zip(
+        jax.tree.leaves(as_numpy), jax.tree.leaves(jrestored)))
+
+
 def test_the_reference_restores_a_checkpoint_written_from_a_mesh(
         tp22, ckpt_dir):
     """The (2, 2) mesh's checkpoint is in the reference's layout: the JAX
@@ -501,6 +604,25 @@ def test_launcher_trains_a_multimodal_model_on_a_mesh_and_recovers(
     --mesh 1x2`` (frames or patches from the synthetic data) through a
     fault at step 3: both ranks restore step 2 and replay to the same
     bits, and the losses track the one-process run's."""
+    l0, l1 = tp12[0][f"launcher {arch}"], tp12[1][f"launcher {arch}"]
+    for r in (l0, l1):
+        assert r["stats"].restarts == 1 and r["stats"].restored_steps == [2]
+    assert _equal(l0["params"], l1["params"])
+    assert _equal(l0["opt"], l1["opt"])
+    assert l0["losses"] == l1["losses"]
+    one = launcher.main(W.train_launcher_argv(str(tmp_path), arch))
+    np.testing.assert_allclose(l0["losses"][-1], one["losses"][-1],
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", STATE_ARCHS)
+def test_launcher_trains_a_recurrent_model_on_a_mesh_and_recovers(
+        tp12, tmp_path, arch):
+    """``launch/train.py --arch rwkv6-3b`` / ``hymba-1.5b --mesh 1x2``
+    through a fault at step 3: both ranks restore step 2 onto their
+    blocks (hymba's ``w_in`` cut as ``[x1_r | z_r]`` from the full
+    ``[x1 | z]`` leaf) and replay to the same bits, and the losses track
+    the one-process run's."""
     l0, l1 = tp12[0][f"launcher {arch}"], tp12[1][f"launcher {arch}"]
     for r in (l0, l1):
         assert r["stats"].restarts == 1 and r["stats"].restored_steps == [2]
