@@ -38,7 +38,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    timed beside the bound of the codes and scales;
 4. engine  -- olmo-1b at full width, bf16, seeded random weights, through
    ``Engine(batch_slots=8, max_len=1024)``: 8 requests with prompts of 32
-   to 512 tokens, 64 greedy tokens each.  Every engine phase runs twice:
+   to 512 tokens, 32 greedy tokens each.  Every engine phase runs twice:
    with the decode step as one replayed CUDA graph a bucket and each
    prefill shape captured (the main path) and under ``disable_graphs()``
    (eager); fails unless the greedy
@@ -61,7 +61,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    eager route's tokens (every engine phase but the state families',
    whose waves run eagerly by design).  TTFT p50 with
    prefill attention's scores from K cast to f32 and from the bf16
-   operands, in turns, greedy tokens equal (as in every ``h100`` engine
+   operands, one engine each, greedy tokens equal (as in every ``h100`` engine
    phase);
 5. logits  -- one decode step of the same engine state through the
    dispatcher and through ``torch.matmul`` (policy pinned to ``ref``);
@@ -70,7 +70,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    gate+up, ``dispatch_gemv`` for down and the head) on int8 and then int4
    weights: fails unless every GEMV took the quant kernel, each program
    shape agrees with its plain version, and the launch counts equal the
-   GEMV counts; timed beside the bf16 pass of the same GEMVs;
+   GEMV counts; timed beside the bf16 pass of the same GEMVs; the int8
+   and int4 outputs and the fingerprints of each rank's
+   ``sharding.shard_packed`` blocks of the weights are kept for ``[mesh
+   quant]``;
 7. kv      -- the engine's 8 requests again with ``kv_store="int8"`` and
    ``"int4"``: every request completes, every logit is finite, every
    decode step launches ``decode_attention`` once a layer on the codes in
@@ -144,10 +147,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit-equal to the eager call and both are within the kernel tolerance
    of the per-expert loop;
 11. moe grouped -- ``Engine(batch_slots=1, gemv_expert_shape="grouped")``
-   serves 2 of the requests, 16 tokens each, both ways: fails unless
+   serves 2 of the requests, 8 tokens each, both ways: fails unless
    ``grouped_gemv`` launched three times a layer on each counted step;
    greedy tokens are compared with the ragged
-   engine's; then ``[moe gpu]``: the 8 requests, 16 tokens each, on
+   engine's; then ``[moe gpu]``: the 8 requests, 8 tokens each, on
    ``Engine(gemv_backend="gpu")``: fails unless every decode step
    launches ``ragged_gemv`` three times a layer under mode
    ``gpu:ragged_triton`` and ``triton_gemv`` as the picks predict; then
@@ -166,10 +169,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    slots past the end (one past C + window - 1), at every split count,
    and on int8 / int4 pages bit-identical to the fp kernel; the two
    windows must differ on a row longer than 1024; timed per window.
-   ``[families engine]``: each family at full width (minitron-8b and
-   gemma3-1b at full depth, gemma3-27b at 12 of 62 layers), bf16, seed
+   ``[families engine]``: each family at full width (minitron-8b at 16
+   of 32 layers, gemma3-1b at full depth, gemma3-27b at 6 of 62), bf16, seed
    0, ``Engine(batch_slots=8, max_len=2048)``, 8 requests of 64 to 1536
-   tokens (three longer than the window), 32 greedy tokens each, both
+   tokens (three longer than the window), 16 greedy tokens each, both
    routes; the engine phase's rules (tokens equal, ``decode_attention``
    once a layer, ``pim_gemv`` / ``splitk_gemv`` as the picks predict --
    an ungated FFN's up is its own site and gemma3-1b's QKV stays on
@@ -191,7 +194,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    width and depth, bf16, seed 0, every ``cross_gate`` set to 1.0 (the
    init's zeros switch llama-vision's cross-attention off),
    ``Engine(batch_slots=8, max_len=1024)``, the 8 requests of 32 to 512
-   tokens, 32 greedy tokens each, both routes, the engine phase's rules
+   tokens, 16 greedy tokens each, both routes, the engine phase's rules
    (tokens equal, ``decode_attention`` once a layer and once a
    cross-attending layer -- 24 a step for whisper-small, 48 for
    llama-vision -- ``pim_gemv`` / ``splitk_gemv`` as the picks predict:
@@ -209,14 +212,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    state of 40 heads of 64, channel-mix), bf16, seed 0, with the
    parameters the init hides drawn afresh and the time-mix projections
    scaled by 4 (as the CPU tests do) so that the state matters;
-   ``Engine(batch_slots=8, max_len=1024)``, the 8 requests of 32 to 512
-   tokens (each prefilled alone at its exact length), 32 greedy tokens
+   ``Engine(batch_slots=8, max_len=1024)``, the 8 requests at half the
+   engine phases' lengths, 16 to 256 tokens (each prefilled alone at its
+   exact length), 16 greedy tokens
    each, both routes, the engine phase's rules: tokens equal, one
    ``pim_gemv`` launch a decode step (the head) and no other port
    kernel, the replayed window's port kernels; ``[state logits]``: one
    decode step through the kernel and through ``kernel="ref"``; ``[state
-   drift]``: one 448-token prompt prefilled whole and in chunks of 128,
-   16 greedy tokens each way, in bf16 (as perturbed, and with the
+   drift]``: one 256-token prompt prefilled whole and in chunks of 128,
+   8 greedy tokens each way, in bf16 (as perturbed, and with the
    projections unscaled) and in f32: how far the two batchings drift
    apart; then ``[state serving]``, with the first 12 of the 32 layers'
    weights cast to f32 (the bf16 model's drift is O(1); the depth keeps
@@ -239,8 +243,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    in a 1024-position window, beside Mamba heads of inner width 3200 over
    an f32 state of 16 a channel), bf16, seed 0, with the betas, ``D``,
    ``dt_bias`` and ``A_log`` drawn afresh as the CPU tests draw them;
-   ``Engine(batch_slots=8, max_len=2048)``, the families' 8 prompts of 64
-   to 1536 tokens (each prefilled alone at its exact length), 32 greedy
+   ``Engine(batch_slots=8, max_len=2048)``, 8 prompts of 64 to 1100
+   tokens (two past the window; each prefilled alone at its exact
+   length), 16 greedy
    tokens each, both routes, the engine phase's rules (tokens equal,
    ``decode_attention`` 32 a step, ``pim_gemv`` / ``splitk_gemv`` as the
    picks predict: 32 + 32, QKV and the head stay on ``ref``; no
@@ -320,15 +325,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    patches) and whisper-small (self G 1, 6 heads of 64; cross over 1500
    frames), each against its plain version and timed beside its bound;
    the h100 picks at whisper's rank shapes, logged; then ``[mesh]``:
-   each model at full width (grok at 2 of 64 layers, whisper-small whole,
-   llama-vision at 10 of 40: cross layers 4 and 9; every ``cross_gate``
+   each model at full width (deepseek at 14 of 28 layers, grok at 2 of
+   64, whisper-small whole,
+   llama-vision at 5 of 40: cross layer 4; every ``cross_gate``
    1.0; rwkv6-3b at 12 of 32, hymba-1.5b at 16 of 32, their seeded init
    unperturbed) first on the unsharded engine here, eagerly, then on the two
    ranks of one (1, 2) mesh started by ``launch.mesh.spawn``, sharing
    this card over gloo (eager: gloo collectives cannot be captured), with
    ``overlap_collectives`` off and on: 8 prompts of 64-512 tokens (the
-   512-token one chunked by 128), 8 greedy tokens (whisper-small: 4 of
-   the prompts; rwkv6 and hymba: 6 of them with the prefix cache on, one
+   512-token one chunked by 128), 4 greedy tokens (whisper-small: 2
+   prompts; rwkv6 and hymba: 6, the longest 256, with the prefix cache on, one
    done after 3 tokens (a compaction), and at step 2 a prompt that
    starts with the first one whole (a hit on its state snapshot); each
    rank's whole state leaves (``pos``, the carries, hymba's K/V) the same
@@ -345,27 +351,46 @@ Phases, in order; any failure raises and the script exits non-zero:
    backend, world size and device, its launches, ``sharded_axes`` and
    ``shard_picks`` (the per-rank shapes), and per-token p50 unsharded
    and per rank (two ranks sharing one card over gloo: not a mesh's
-   speed); the phase alone: ``python3 -c "import torch, chip_smoke as
-   cs; from repro_torch.kernels import _build; _build.build(force=True);
-   d = torch.device('cuda', 0); cs.check_mesh_kernels(d);
-   cs.run_mesh(d)"``;
+   speed); in the same spawn ``[mesh async]``: olmo-1b and hymba-1.5b
+   once more with ``async_prefill`` on the params each rank drew (its
+   chains on the side stream, their collectives on a group of their
+   own), fails unless its tokens equal the rank's serial run's and the
+   unsharded run's up to a near tie, rank 0's rows are within 16 bf16
+   ulps of both (bit-equal rows counted), every rank's rows are the
+   same, issued = awaited with none in flight and the same counts on
+   every rank, and whole state leaves are the same bits on every rank;
+   prints the overlap span of rank 0's tracer, not as a speed; and
+   ``[mesh quant]``: each rank quantizes olmo-1b's decode weights as it
+   holds them (int8, int4) and runs one dispatcher pass with ``shard=``
+   at ``[quant]``'s inputs (down's K partial in f32, all-reduced over
+   gloo, cast once); fails unless its blocks' fingerprints equal
+   ``sharding.shard_packed``'s cuts of ``[quant]``'s weights, each
+   launches only its kernel once a GEMV and picks it on both axes, and
+   every output is within the kernel tolerance of ``[quant]``'s
+   unsharded pass; the phase alone: ``python3 -c "import torch,
+   chip_smoke as cs; from repro_torch.kernels import _build;
+   _build.build(force=True); d = torch.device('cuda', 0); c =
+   cs.get_config('olmo-1b'); p = cs.lm.init_lm(c, seed=0, device=d); q =
+   cs.run_quant_dispatch(c, p, d); r = q.pop('rank_reference'); del p;
+   cs.check_mesh_kernels(d); cs.run_mesh(d, r)"``;
 21. ``[train]``: training on the card, where no port kernel runs (the
    reference's train step reaches no Pallas kernel; every wrapper
    refuses autograd).  olmo-1b at full width and depth in f32 (TF32
-   off), AdamW, 20 steps of ``build_train_step`` at batch 8 x 128 on
-   ``SyntheticLM`` with remat on, then 5 with it off: fails unless the
+   off), AdamW, 10 steps of ``build_train_step`` at batch 8 x 128 on
+   ``SyntheticLM`` with remat on, then 3 with it off: fails unless the
    loss of the last 5 steps is below that of the first 5 and every
    ``grad_norm`` is finite; prints step-time p50, tokens/s and peak
-   memory each way (a step's, and one forward and backward's alone).  Card against CPU: olmo-1b and deepseek-moe-16b at
-   full width and 2 layers, one step's loss and every gradient at batch
+   memory each way (a step's, and one forward and backward's alone).
+   Card against CPU: olmo-1b and deepseek-moe-16b at full width and 2
+   layers (deepseek 1), one step's loss and every gradient at batch
    2 x 32 from the same params (remat off), within the tolerance
    printed; no port kernel launched under grad (deepseek's MoE runs the
    capacity einsum, no ``ragged_gemv``).  Recovery: ``launch.train.main``
-   (olmo-1b, 2 layers, 12 steps, a checkpoint every 5) with a fault at
-   step 7 against an uninterrupted run: final params and state bit for
+   (olmo-1b, 2 layers, 8 steps, a checkpoint every 3) with a fault at
+   step 5 against an uninterrupted run: final params and state bit for
    bit (deterministic algorithms on).  Data parallel: two ranks of a
    (2, 1) mesh through ``spawn`` on this card over gloo, one step of
-   olmo-1b at full width and 2 layers on a global batch of 4 x 32:
+   olmo-1b at full width and 1 layer on a global batch of 4 x 32:
    params bit-equal across ranks, loss and averaged gradients against
    the one-process step's.  The phase alone: ``python3 -c "import
    torch, chip_smoke as cs; cs.run_train(torch.device('cuda', 0))"``;
@@ -376,9 +401,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    deepseek-moe-16b (AdamW, experts cut over 'model') and olmo-1b with
    Adafactor on (1, 2), rwkv6-3b and hymba-1.5b (AdamW: a time-mix on a
    rank's heads, a Mamba mixer on its channels) on (1, 2), at full width
-   and 2 layers, and whisper-small
+   and 1 layer, and whisper-small
    (AdamW, its encoder and cross-attention as rank blocks) on (1, 2) at
-   full width and depth, in f32 (TF32 off), one step at batch 2 x 32.
+   full width and 4 of its 12 + 12 layers, in f32 (TF32 off), one step
+   at batch 2 x 32.
    Each against the one-process step on the
    card (rank 0 computes it): the gathered gradients within
    ``TRAIN_GRAD_RTOL`` of each leaf's max |g|, loss, aux and the global
@@ -395,10 +421,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    hymba's (1, 2) runs (``w_in`` gathered as ``[x1 | z]``) onto one
    process.  Prints each rank's
    step time and peak memory (ranks sharing a card over gloo: not a
-   mesh's speed) and the phase's seconds against its 160 s aim.  The
+   mesh's speed) and the phase's seconds against its 120 s aim.  The
    phase alone: ``python3 -c "import torch, chip_smoke as cs;
    cs.run_train_mesh(torch.device('cuda', 0))"`` (no build needed);
-23. the ``{"kernels": [...]}`` line (``decode_attention_g5``: the G 5
+23. ``[phases]``: each phase's seconds (a lap from the end of the one
+   before), parts timed inside phases (profiled windows, warm-ups,
+   repeated waves, the eager routes, ...), the host-bound phases
+   (``[mesh kernels]``, ``[mesh]``, ``[train mesh]``, ``[train]``'s
+   data-parallel spawn, rwkv6-3b's and hymba-1.5b's eager routes) and
+   their sum against ``HOST_BOUND_AIM_S``, and the total against
+   ``TOTAL_AIM_S`` (printed; no phase reads the clock to decide what
+   runs); the same in ``chiprun_out/chip_smoke.json`` (``phase_s``);
+24. the ``{"kernels": [...]}`` line (``decode_attention_g5``: the G 5
    instance over one hymba-1.5b step; ``decode_attention_g6``: the G 6
    instance over one grok-1-314b step of a rank), the card line, and the
    last line ``{"ok": true, "device": {...}}``.
@@ -541,7 +575,7 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.layers import GATED  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.distributed.collectives import all_reduce_sum  # noqa: E402
-from repro_torch.launch.mesh import spawn  # noqa: E402
+from repro_torch.launch.mesh import Mesh, spawn  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.train.optimizer import (  # noqa: E402
@@ -649,8 +683,8 @@ MOE_E, MOE_TOPK = 64, 6
 # (gate and up in each of 28 layers, down in each)
 MOE_SHAPES = {"gate_up": (2048, 1408, 56), "down": (1408, 2048, 28)}
 MOE_C = 8          # grouped rows per expert at one decode slot (_capacity)
-MOE_GROUPED_TOKENS = 16
-MOE_GPU_TOKENS = 16
+MOE_GROUPED_TOKENS = 8
+MOE_GPU_TOKENS = 8
 
 # triton_gemv: olmo-1b's four decode GEMV shapes and deepseek-moe-16b's
 # head (K, M, calls per decode step on its path; the gpu backend sends
@@ -674,6 +708,73 @@ AUTOTUNE_TABLE = ROOT / "build" / "autotune_smoke.json"
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+# The script's time budget: the whole run and the phases the host's speed
+# sets (gloo's host staging, the eager routes), each within its aim, so
+# that a host twice as slow in those phases still ends inside a 1200 s
+# limit.  Printed, never acted on: no phase reads the clock to decide
+# what runs.
+TOTAL_AIM_S, HOST_BOUND_AIM_S = 650, 250
+# seconds of each phase in the order it ran ([phases], ``phase_s``): a
+# phase's clock runs from the end of the phase before it
+PHASE_S: dict[str, float] = {}
+# seconds of parts inside a phase (a model's eager routes, the [train]
+# data-parallel spawn), summed by name
+PART_S: collections.Counter = collections.Counter()
+
+
+class PhaseClock:
+    """Laps of the script's phases into :data:`PHASE_S`."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        PHASE_S[name] = PHASE_S.get(name, 0.0) + now - self.t
+        self.t = now
+
+    def total(self) -> float:
+        return time.perf_counter() - self.t0
+
+
+@contextlib.contextmanager
+def part(name: str):
+    """Add the seconds of the ``with`` body to ``PART_S[name]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PART_S[name] += time.perf_counter() - t0
+
+
+def eager_part(cfg, route: str):
+    """The eager route of ``cfg``'s model, timed as its part (the graph
+    route untimed)."""
+    return (part(f"{cfg.name} eager") if route == "eager"
+            else contextlib.nullcontext())
+
+
+def phases_report(total_s: float) -> dict:
+    """The ``[phases]`` line: each phase's seconds, the parts timed inside
+    phases, the host-bound ones and their sum (``[mesh kernels]``,
+    ``[mesh]``, ``[train mesh]``, ``[train]``'s data-parallel spawn, the
+    eager routes of ``[state]`` and ``[hybrid]``), the total, and both
+    aims."""
+    host = {k: PHASE_S.get(k, 0.0)
+            for k in ("mesh kernels", "mesh", "train mesh")}
+    host["train data parallel"] = PART_S["train data parallel"]
+    for arch in (STATE_ARCH, HYBRID_ARCH):
+        host[f"{arch} eager"] = PART_S[f"{arch} eager"]
+    return {"phase_s": {k: round(v, 1) for k, v in PHASE_S.items()},
+            # parts of phases, summed over the run (they may nest: an
+            # eager route holds its profiled window)
+            "part_s": {k: round(v, 1) for k, v in PART_S.items()},
+            "host_bound_s": {k: round(v, 1) for k, v in host.items()},
+            "host_bound_total_s": round(sum(host.values()), 1),
+            "host_bound_aim_s": HOST_BOUND_AIM_S,
+            "total_s": round(total_s, 1), "total_aim_s": TOTAL_AIM_S}
 
 
 def nvidia_smi_line() -> str:
@@ -922,20 +1023,25 @@ def quant_copies(K, M) -> int:
     return max(2, math.ceil(2 * L2_BYTES / int4_bytes) + 1)
 
 
-def check_quant_kernels(dev, sms: int) -> list[dict]:
+def check_quant_kernels(dev, sms: int, shapes=SHAPES,
+                        batches=QUANT_BATCHES,
+                        arch: str = "olmo-1b") -> list[dict]:
     """quant_gemv / quant4_gemv at olmo-1b's decode GEMV shapes and batch
-    1, 4, 8, 11, bf16 x, block 32, at the plan for the card's SMs: each
-    against its plain version, then timed like the float kernels.
-    ``bf16_matmul_ms`` is ``torch.matmul`` on the bf16 weight the codes
-    came from at the same shape: a reference point, not the same function
-    (no single PyTorch call computes a block-scaled int8/int4 GEMV).  At
-    batch 8 also f32 x, checked."""
+    1, 4, 8, 11 (or ``shapes`` at ``batches``: rows of another ``arch``
+    name their shape ``arch/name``), bf16 x, block 32, at the plan for the
+    card's SMs: each against its plain version, then timed like the float
+    kernels.  ``bf16_matmul_ms`` is ``torch.matmul`` on the bf16 weight
+    the codes came from at the same shape: a reference point, not the
+    same function (no single PyTorch call computes a block-scaled
+    int8/int4 GEMV).  At batch 8 also f32 x, checked."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     rows = []
-    for shape, (K, M, per_step) in SHAPES.items():
+    for shape, (K, M, per_step) in shapes.items():
+        if arch != "olmo-1b":
+            shape = f"{arch}/{shape}"
         n_copies = quant_copies(K, M)
         packs, ws_t = quant_packs(gen, dev, K, M, n_copies)
-        for B in QUANT_BATCHES:
+        for B in batches:
             x = torch.randn((B, K), generator=gen, device=dev).to(
                 torch.bfloat16)
             for name in QUANT_KERNELS:
@@ -965,8 +1071,8 @@ def check_quant_kernels(dev, sms: int) -> list[dict]:
 
                 io_bytes = code_bytes + (B * K + B * M) * 2
                 row = dict(
-                    kernel=name, shape=shape, K=K, M=M, B=B, bits=bits,
-                    per_step=per_step, plan=quant_plan_dict(plan),
+                    kernel=name, arch=arch, shape=shape, K=K, M=M, B=B,
+                    bits=bits, per_step=per_step, plan=quant_plan_dict(plan),
                     max_abs_err=max_err,
                     ms=graph_ms(run, calls),
                     plain_ms=graph_ms(run_plain, max(calls // 4, 10)),
@@ -1542,7 +1648,7 @@ def profile_fresh(make_eng, step_ms: float) -> dict | None:
         return prof
 
 
-def profile_decode(eng, step_ms: float, steps: int = 3,
+def profile_decode(eng, step_ms: float, steps: int = 1,
                    step=None, host: bool = True) -> dict | None:
     """Device time of a few decode steps by kernel name (torch.profiler);
     None when the profiler reports no device time here.  The idle share
@@ -1558,6 +1664,12 @@ def profile_decode(eng, step_ms: float, steps: int = 3,
     ``step`` runs one engine step (default ``eng.step``); ``host=False``
     records the device alone (no ATen ops, no shapes, no cache copies:
     cheap over steps of many host ops)."""
+    with part("profiled windows"):
+        return _profile_decode(eng, step_ms, steps, step, host)
+
+
+def _profile_decode(eng, step_ms: float, steps: int, step,
+                    host: bool) -> dict | None:
     from torch.profiler import ProfilerActivity, profile
 
     cfg = eng.cfg
@@ -1806,7 +1918,7 @@ def counted_batches(route: str, batches: list[int]) -> list[int]:
 
 
 def run_engine(cfg, params, dev, kv_store: str = "fp", *,
-               backend: str = "h100", new_tokens: int = 64,
+               backend: str = "h100", new_tokens: int = 32,
                lengths=ENGINE_LENGTHS, max_len: int = 1024,
                ttft: bool = True) -> dict:
     """The engine phase both ways: with replayed graphs (the main path,
@@ -1817,13 +1929,14 @@ def run_engine(cfg, params, dev, kv_store: str = "fp", *,
     ``ttft`` adds the TTFT comparison of the prefill scores."""
     kw = dict(gemv_backend=backend, max_len=max_len)
     # warm-up: first calls of every op and both decode buckets
-    warm = serve(cfg, params, dev, [16, 40, 24, 8, 64, 32, 12, 20], 3, 1,
-                 kv_store, **kw)
-    warm.run_until_drained()
-    del warm
+    with part("engine warm-ups"):
+        warm = serve(cfg, params, dev, [16, 40, 24, 8, 64, 32, 12, 20], 3,
+                     1, kv_store, **kw)
+        warm.run_until_drained()
+        del warm
     routes = {}
     for route in ROUTES:
-        with route_ctx(route):
+        with route_ctx(route), eager_part(cfg, route):
             routes[route] = run_route(cfg, params, dev, kv_store, backend,
                                       new_tokens, route, lengths, max_len)
     if routes["graph"]["generated"] != routes["eager"]["generated"]:
@@ -1841,7 +1954,9 @@ def run_engine(cfg, params, dev, kv_store: str = "fp", *,
            "replay": compare_replay(routes["graph"]["profile"],
                                     routes["eager"]["profile"], cfg)}
     if backend == "h100" and ttft:
-        res["prefill_scores"] = ttft_both_ways(cfg, params, dev, kv_store)
+        with part("prefill scores"):
+            res["prefill_scores"] = ttft_both_ways(cfg, params, dev,
+                                                   kv_store)
     return res
 
 
@@ -1981,8 +2096,9 @@ def run_route(cfg, params, dev, kv_store: str, backend: str,
     # the same prompts again on the same engine: their wave's (nb, Lpad)
     # key, captured in the run, now replays (a state family's waves run
     # eagerly by design)
-    rewave = (replay_wave(eng, cfg, lengths)
-              if route == "graph" and not eng.exact_prefill else None)
+    with part("repeated waves"):
+        rewave = (replay_wave(eng, cfg, lengths)
+                  if route == "graph" and not eng.exact_prefill else None)
     kv_leaves = {n: t for n, t in eng.kv.cache.items() if n != "pos"}
     res = {
         "route": route,
@@ -2009,7 +2125,7 @@ def run_route(cfg, params, dev, kv_store: str, backend: str,
     }
     del eng
     gc.collect()
-    # device-time breakdown over three decode steps at batch 8 (replays on
+    # device-time breakdown over one decode step at batch 8 (replays on
     # the graph route: the first step captured the bucket)
     res["profile"] = profile_fresh(
         lambda: serve(cfg, params, dev, lengths, 8, SEED + 1, kv_store,
@@ -2035,10 +2151,10 @@ PLAIN_ATTENTION = L.decode_attention_plain
 def ttft_both_ways(cfg, params, dev, kv_store: str) -> dict:
     """TTFT p50 of the 8 requests (2 tokens each) with prefill attention's
     scores from the bf16 operands (the port's path) and from K cast to f32
-    (the earlier path), in turns (cast, bf16, bf16, cast); the greedy
-    tokens of the two must agree."""
+    (the earlier path), one engine each; the greedy tokens of the two
+    must agree."""
     ttft, tokens = {"f32_cast": [], "bf16_bmm": []}, {}
-    for route in ("f32_cast", "bf16_bmm", "bf16_bmm", "f32_cast"):
+    for route in ("f32_cast", "bf16_bmm"):
         L.decode_attention_plain = (f32_scores_plain if route == "f32_cast"
                                     else PLAIN_ATTENTION)
         try:
@@ -2137,19 +2253,74 @@ def gemv_pass(layers, head, xs, splits) -> list[torch.Tensor]:
     return outs
 
 
-def run_quant_dispatch(cfg, params, dev) -> dict:
-    pp = lm.prepack_decode_params(params, cfg)
+# the axis the planner places each of olmo-1b's decode weights on over
+# 'model' (``sharding.serve_spec``): the fused QKV and gate+up and the
+# head on their columns, down on its rows (a K partial)
+QUANT_AXES = {"qkv": "M", "gate_up": "M", "down": "K", "head": "M"}
+
+
+def fingerprint(t: torch.Tensor) -> tuple[int, int]:
+    """Two sums over the bytes of ``t``, on its device: plain, and each
+    byte weighted by its position (mod 65521, plus 1).  Equal tensors give
+    equal fingerprints; a block cut elsewhere would not."""
+    b = t.contiguous().view(torch.uint8).flatten().to(torch.int64)
+    w = torch.arange(b.numel(), device=b.device) % 65521 + 1
+    return int(b.sum()), int((b * w).sum())
+
+
+def quant_splits(cfg, n: int = 1) -> dict[str, tuple[int, ...]]:
+    """The members of olmo-1b's fused QKV and gate+up, on a rank of ``n``
+    (its heads and FFN columns)."""
     hd, f = cfg.hd, cfg.d_ff
-    splits = {"qkv": (cfg.n_heads * hd, cfg.n_kv_heads * hd,
-                      cfg.n_kv_heads * hd), "gate_up": (f, f)}
+    return {"qkv": (cfg.n_heads * hd // n, cfg.n_kv_heads * hd // n,
+                    cfg.n_kv_heads * hd // n), "gate_up": (f // n, f // n)}
+
+
+def quant_inputs(dev) -> dict[str, torch.Tensor]:
+    """The quantized pass's inputs at batch ``QUANT_BATCH``, one a shape,
+    seeded: ``[quant]`` and every rank of ``[mesh quant]`` draw the same."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
-    xs = {name: torch.randn((QUANT_BATCH, K), generator=gen, device=dev).to(
-        torch.bfloat16) for name, (K, _, _) in SHAPES.items()}
+    return {name: torch.randn((QUANT_BATCH, K), generator=gen,
+                              device=dev).to(torch.bfloat16)
+            for name, (K, _, _) in SHAPES.items()}
+
+
+def rank_block_prints(layers, head, cfg) -> list[list]:
+    """For each rank of ``MESH_SHAPE``, the fingerprints of its blocks of
+    the quantized pass's weights, cut by ``sharding.shard_packed`` on
+    ``QUANT_AXES`` (the fused weights member by member): what ``[mesh
+    quant]``'s ranks must hold."""
+    out = []
+    for r in range(MESH_SHAPE[1]):
+        m = Mesh(shape=dict(zip(("data", "model"), MESH_SHAPE)), rank=r,
+                 coords={"data": 0, "model": r})
+        prints = []
+        for w in layers + [{"head": head}]:
+            for name, pw in w.items():
+                blk, axis = shd.shard_packed(pw, m, QUANT_AXES[name],
+                                             quant_splits(cfg).get(name))
+                prints.append([name, axis, fingerprint(blk.w_t),
+                               fingerprint(blk.scales)])
+                del blk
+        out.append(prints)
+    return out
+
+
+def run_quant_dispatch(cfg, params, dev) -> dict:
+    """``[quant]``: one dispatcher pass over olmo-1b's decode GEMVs on
+    bf16, int8 and int4 weights (see the module's docstring); the int8 /
+    int4 passes' outputs and the fingerprints of each rank's
+    ``shard_packed`` blocks are kept (``rank_reference``) for ``[mesh
+    quant]``."""
+    pp = lm.prepack_decode_params(params, cfg)
+    splits = quant_splits(cfg)
+    xs = quant_inputs(dev)
     n_gemv = sum(n for _, _, n in SHAPES.values())
     weights = {bits: decode_weights(pp, bits) for bits in (16, 8, 4)}
     del pp
     torch.cuda.empty_cache()
-    res = {"batch": QUANT_BATCH, "gemvs": n_gemv, "passes": {}}
+    res = {"batch": QUANT_BATCH, "gemvs": n_gemv, "passes": {},
+           "rank_reference": {}}
     for bits, kname in ((16, None), (8, "quant_gemv"), (4, "quant4_gemv")):
         layers, head = weights[bits]
         dispatch.clear_plan_cache()
@@ -2191,6 +2362,9 @@ def run_quant_dispatch(cfg, params, dev) -> dict:
                 kname, "dispatched head", outs[-1],
                 plain(xs["head"], head.w_t, head.scales, BLOCK))
             entry["max_abs_err"] = errs
+            res["rank_reference"][f"w{bits}"] = {
+                "outs": [o.cpu() for o in outs],
+                "prints": rank_block_prints(layers, head, cfg)}
         if not all(torch.isfinite(o.float()).all() for o in outs):
             raise AssertionError(f"int{bits} pass: non-finite outputs")
         res["passes"][f"w{bits}"] = entry
@@ -2259,7 +2433,7 @@ SERVE_DEADLINE_S, SERVE_MARGIN_S = 60.0, 120.0
 SERVE_PREFIX_BYTES = 2 ** 30
 # the profiled window: the first urgent request's arrival (a preemption,
 # its first chunk with its row in the decode bucket) and the next 2 steps
-SERVE_WINDOW = (SERVE_URGENT_STEPS[0], 3)
+SERVE_WINDOW = (SERVE_URGENT_STEPS[0], 1)
 SERVE_RUNS = {  # tag: (arch, kv_store, requests, tenants, new tokens)
     "olmo-1b fp": ("olmo-1b", "fp", 24, 4, 24),
     "olmo-1b int8": ("olmo-1b", "int8", 24, 4, 24),
@@ -2609,8 +2783,11 @@ def run_serving(cfg, params, dev, tag: str) -> dict:
     while not wdrv.done():
         wdrv.step()
     del warm, wdrv
-    routes = {r: serve_route_measured(cfg, params, dev, kv_store, plan, r)
-              for r in ROUTES}
+    routes = {}
+    for r in ROUTES:
+        with eager_part(cfg, r):
+            routes[r] = serve_route_measured(cfg, params, dev, kv_store,
+                                             plan, r)
     g, e = routes["graph"], routes["eager"]
     if g["generated"] != e["generated"]:
         raise AssertionError(
@@ -2656,8 +2833,9 @@ def run_serving(cfg, params, dev, tag: str) -> dict:
         raise AssertionError(f"[serving {tag}] the profiler reported no "
                              f"device time in the window")
     replay = compare_replay(g["profile"], e["profile"], cfg)
-    plain = serve_route(cfg, params, dev, kv_store, plan, "graph",
-                        plain=True)
+    with part("serving plain engines"):
+        plain = serve_route(cfg, params, dev, kv_store, plan, "graph",
+                            plain=True)
     first_div = {}
     for rid, toks in g["generated"].items():
         other = plain["generated"][rid]
@@ -3459,15 +3637,16 @@ def run_grouped_route(cfg, params, dev, route: str) -> dict:
 
 FAMILIES = ("minitron-8b", "gemma3-1b", "gemma3-27b")
 # gemma3-27b's 62 layers of bf16 weights (54 GB) and their prepacked
-# copies do not fit the card's 80 GB: full width, its first 12 layers
-# (layers 5 and 11 global)
-FAMILY_DEPTH = {"gemma3-27b": 12}
+# copies do not fit the card's 80 GB: full width, its first 6 layers
+# (layer 5 global); minitron-8b at 16 of its 32: depth cut to keep the
+# script inside its time
+FAMILY_DEPTH = {"gemma3-27b": 6, "minitron-8b": 16}
 FAMILY_BATCHES = (1, 8)
 FAMILY_MAX_LEN = 2048
 # 8 prompts of 64 to 1536 tokens, three longer than the 1024-position
 # window of gemma3's local layers
 FAMILY_LENGTHS = [64, 1536, 300, 1100, 700, 1300, 128, 900]
-FAMILY_TOKENS = 32
+FAMILY_TOKENS = 16
 FAMILY_WINDOWS = (1024, 0)      # a local layer's window, a global layer's
 
 
@@ -3677,7 +3856,7 @@ MULTIMODAL = ("whisper-small", "llama-3.2-vision-11b")
 # every cross_gate after init_lm: the init's zeros make tanh(gate) 0 and
 # switch llama-vision's cross-attention off (whisper applies no gate)
 MM_GATE = 1.0
-MM_TOKENS = 32
+MM_TOKENS = 16
 MM_MAX_LEN = 1024
 
 
@@ -3939,8 +4118,13 @@ def run_multimodal(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 STATE_ARCH = "rwkv6-3b"
-STATE_TOKENS = 32
+STATE_TOKENS = 16
 STATE_MAX_LEN = 1024
+# a recurrent model prefills each prompt alone, position by position:
+# the engine phases' prompts and the logits check's at half their
+# lengths keep [state] and [hybrid] inside the script's time
+STATE_LENGTHS = [n // 2 for n in ENGINE_LENGTHS]
+STATE_LOGIT_LENGTHS = (150, 20, 65, 4, 256, 32, 125, 45)
 # the f32 traffic mixes of [state] and [hybrid] run the first 12 of the
 # model's 32 layers: the mix's rules (chunks, snapshots, preemption,
 # tokens equal to the plain engine's) hold at any depth, and the whole
@@ -3976,7 +4160,7 @@ def perturb_rwkv(params: dict, seed: int) -> None:
         cm["mu"].uniform_(0, 1, generator=g)
 
 
-STATE_DRIFT_LEN = 448          # one prompt: a tenant's prefix and a tail
+STATE_DRIFT_LEN = 256          # one prompt, two chunks of SERVE_CHUNK
 
 
 def to_f32(node):
@@ -3988,7 +4172,7 @@ def to_f32(node):
     return node.float()
 
 
-def state_drift(cfg, params: dict, dev, new_tokens: int = 16) -> dict:
+def state_drift(cfg, params: dict, dev, new_tokens: int = 8) -> dict:
     """How far two batchings of the same work drift apart: one prompt of
     ``STATE_DRIFT_LEN`` tokens through ``lm.forward`` whole and in chunks
     of ``SERVE_CHUNK``, then ``new_tokens`` greedy tokens each way at
@@ -4022,7 +4206,7 @@ def state_drift(cfg, params: dict, dev, new_tokens: int = 16) -> dict:
                 "top2_margin": (top2[0] - top2[1]).item(),
                 "first_divergent_token": next(
                     (i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
-                    None),
+                    None), "tokens": new_tokens,
                 "distinct_tokens": len(set(ta))}
 
     projections = [p["time_mix"][n] for p in params["layers"]
@@ -4073,7 +4257,7 @@ def run_state(dev) -> dict:
     log(f"  init {time.perf_counter() - t0:.1f} s (with the kernel checks), "
         f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
     res = run_engine(cfg, params, dev, new_tokens=STATE_TOKENS,
-                     lengths=ENGINE_LENGTHS, max_len=STATE_MAX_LEN,
+                     lengths=STATE_LENGTHS, max_len=STATE_MAX_LEN,
                      ttft=False)
     want = {n: (1.0 if n == "pim_gemv" else 0.0) for n in KERNELS}
     for route in ROUTES:
@@ -4090,7 +4274,8 @@ def run_state(dev) -> dict:
         f"{res['kv_bytes_per_slot'] / 1e6:.2f} MB a slot; launches a "
         f"counted decode step {res['routes']['eager']['launches_per_step']}"
         f", as the picks predict {res['float_launches_by_batch']}")
-    res["logits"] = logits_check(cfg, params, dev, max_len=STATE_MAX_LEN,
+    res["logits"] = logits_check(cfg, params, dev, STATE_LOGIT_LENGTHS,
+                                 max_len=STATE_MAX_LEN,
                                  strict=False)
     lg = res["logits"]
     log(f"[state logits] {cfg.name}: batch {lg['batch']}: max |kernels - "
@@ -4101,13 +4286,15 @@ def run_state(dev) -> dict:
     # between chunked and whole prefill of one prompt, so no two engines
     # that batch the work differently could agree; in f32 they drift by
     # less than 1e-3 (measured here)
-    res["drift"] = state_drift(cfg, params, dev)
+    with part("state drift"):
+        res["drift"] = state_drift(cfg, params, dev)
     for tag, d in res["drift"].items():
         log(f"[state drift] {tag}: {STATE_DRIFT_LEN} tokens whole vs chunks "
             f"of {SERVE_CHUNK}: first logits max |diff| "
             f"{d['max_abs_diff']:.4g} at |logit| max "
             f"{d['logit_absmax']:.3g}, top-2 margin {d['top2_margin']:.4g}; "
-            f"streams part at token {d['first_divergent_token']} of 16 "
+            f"streams part at token {d['first_divergent_token']} of "
+            f"{d['tokens']} "
             f"({d['distinct_tokens']} distinct tokens)")
     cfg32, params = serve_mix_model(cfg, params)
     gc.collect()
@@ -4134,7 +4321,10 @@ def run_state(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 HYBRID_ARCH = "hymba-1.5b"
-HYBRID_TOKENS = 32
+HYBRID_TOKENS = 16
+# the families' prompts cut to half their tokens, two still past the
+# 1024-token window of hymba's local layers
+HYBRID_LENGTHS = [64, 1100, 300, 128, 200, 1030, 96, 150]
 
 
 def perturb_hymba(params: dict, seed: int) -> None:
@@ -4158,7 +4348,7 @@ def run_hybrid(dev) -> dict:
     kernels]``, ``pim_gemv`` / ``splitk_gemv`` at each of its decode GEMV
     shapes and ``decode_attention`` at G 5 (windows 1024 and 0) against
     their plain versions, timed; ``[hybrid engine]``, ``Engine(batch_slots
-    =8, max_len=2048)`` on the families' prompts of 64-1536 tokens,
+    =8, max_len=2048)`` on ``HYBRID_LENGTHS``' prompts of 64-1100 tokens,
     ``HYBRID_TOKENS`` greedy tokens each, both routes and the engine
     phase's rules (``decode_attention`` once a layer, ``pim_gemv`` /
     ``splitk_gemv`` as the picks predict); ``[hybrid logits]``; then, with
@@ -4197,7 +4387,7 @@ def run_hybrid(dev) -> dict:
     log(f"  init {time.perf_counter() - t0:.1f} s (with the kernel checks), "
         f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
     res = run_engine(cfg, params, dev, new_tokens=HYBRID_TOKENS,
-                     lengths=FAMILY_LENGTHS, max_len=FAMILY_MAX_LEN,
+                     lengths=HYBRID_LENGTHS, max_len=FAMILY_MAX_LEN,
                      ttft=False)
     log_routes(cfg.name, res)
     pt = res["per_token_ms"]
@@ -4208,7 +4398,8 @@ def run_hybrid(dev) -> dict:
         f"{res['kv_bytes_per_slot'] / 1e6:.2f} MB a slot; launches a "
         f"counted decode step {res['routes']['eager']['launches_per_step']}"
         f", as the picks predict {res['float_launches_by_batch']}")
-    res["logits"] = logits_check(cfg, params, dev, max_len=FAMILY_MAX_LEN,
+    res["logits"] = logits_check(cfg, params, dev, STATE_LOGIT_LENGTHS,
+                                 max_len=FAMILY_MAX_LEN,
                                  strict=False)
     lg = res["logits"]
     log(f"[hybrid logits] {cfg.name}: batch {lg['batch']}: max |kernels - "
@@ -4610,6 +4801,7 @@ def run_pim(dev) -> dict:
 
 
 CALIBRATION_DIR = ROOT / "build" / "calibration"
+CALIBRATE_TRIALS = 3        # timed trials a record (the sweep's default 5)
 # the kernels the reference's sweep reaches (every one but quant4_gemv)
 CALIBRATED_KERNELS = ("pim_gemv", "splitk_gemv", "quant_gemv",
                       "grouped_gemv", "ragged_gemv", "triton_gemv")
@@ -4668,7 +4860,8 @@ def run_calibrate(dev) -> dict:
     sweeps = {}
     for name in ("h100", "gpu"):
         t1 = time.perf_counter()
-        sweeps[name] = (run_sweep(name, device=dev),
+        sweeps[name] = (run_sweep(name, device=dev,
+                                  trials=CALIBRATE_TRIALS),
                         time.perf_counter() - t1)
     res["launches"] = {k: v for k, v in launches().items()
                        if k in CALIBRATED_KERNELS}
@@ -4955,15 +5148,15 @@ def run_trace_fitted(dev, kw: dict, fitted: dict, seed_run: dict) -> dict:
 MESH_SHAPE = (1, 2)
 # 8 greedy tokens: ten decode steps of rows to hold, and gloo's host
 # staging (which sets a rank's step) kept to what the time limit allows
-MESH_SLOTS, MESH_MAX_LEN, MESH_TOKENS, MESH_CHUNK = 8, 1024, 8, 128
+MESH_SLOTS, MESH_MAX_LEN, MESH_TOKENS, MESH_CHUNK = 8, 1024, 4, 128
 # 8 prompts of 64-512 tokens: only the 512-token one is longer than a chunk
 MESH_LENGTHS = [64, 512, 96, 128, 100, 72, 120, 80]
 # whisper-small re-runs its encoder over 1500 frames a slot every step,
 # and on a rank all-reduces each encoder layer's two partial sums (B x
 # 1500 x 768 f32, 37 MB at batch 8) through gloo's host staging (0.5 to
-# 2 s a step at batch 8 on an H100, by the host): it serves 4 of the
-# prompts (the 512-token one cut to 200, two chunks)
-MESH_MIXES = {"whisper-small": ([64, 200, 96, 128], MESH_TOKENS)}
+# 2 s a step at batch 8 on an H100, by the host): it serves 2 prompts
+# (the second 200 tokens, two chunks)
+MESH_MIXES = {"whisper-small": ([64, 200], MESH_TOKENS)}
 
 
 def mesh_mix(arch: str) -> tuple[list[int], int]:
@@ -4971,23 +5164,24 @@ def mesh_mix(arch: str) -> tuple[list[int], int]:
     return MESH_MIXES.get(arch, (MESH_LENGTHS, MESH_TOKENS))
 
 
-# (arch, layers kept; None: all): grok-1-314b at 2 of its 64 layers,
+# (arch, layers kept; None: all): deepseek-moe-16b at 14 of its 28
+# layers, grok-1-314b at 2 of its 64 layers,
 # whisper-small whole (12 + 12 layers, 1500 frames), llama-3.2-vision-11b
-# at 10 of its 40 (two groups of five: cross layers 4 and 9), every
+# at 5 of its 40 (one group of five: cross layer 4), every
 # cross_gate at MM_GATE (mesh_params); rwkv6-3b at 12 of its 32 layers and
 # hymba-1.5b at 16 of 32 (its layer 15 global; not 8, the depth whose
 # state rows have a decode batch's shape)
-MESH_MODELS = (("olmo-1b", None), ("deepseek-moe-16b", None),
+MESH_MODELS = (("olmo-1b", None), ("deepseek-moe-16b", 14),
                ("grok-1-314b", 2), ("whisper-small", None),
-               ("llama-3.2-vision-11b", 10), ("rwkv6-3b", 12),
+               ("llama-3.2-vision-11b", 5), ("rwkv6-3b", 12),
                ("hymba-1.5b", 16))
 # the recurrent models' mix (prompt lengths, greedy tokens each): the
-# 512-token prompt chunked by MESH_CHUNK, the third request done first (a
+# 256-token prompt chunked by MESH_CHUNK, the third request done first (a
 # slot below busy ones: a compaction); at step 2 a prompt that starts
 # with the first one whole and MESH_STATE_HIT_TAIL tokens more, for
 # MESH_STATE_HIT_TOKENS tokens (a hit on the first one's state snapshot)
-MESH_STATE_MIX = ([64, 512, 96, 128, 100, 72], [8, 8, 3, 8, 8, 8])
-MESH_STATE_HIT_STEP, MESH_STATE_HIT_TAIL, MESH_STATE_HIT_TOKENS = 2, 40, 6
+MESH_STATE_MIX = ([64, 256, 96, 128, 100, 72], [6, 6, 3, 6, 6, 6])
+MESH_STATE_HIT_STEP, MESH_STATE_HIT_TAIL, MESH_STATE_HIT_TOKENS = 2, 40, 4
 MESH_TIMEOUT_S = 900
 # bf16 logits of the sharded dense engine against the unsharded one: each
 # layer's sharded sums (wo, down; whisper's encoder layers and every
@@ -5004,6 +5198,12 @@ MESH_TIMEOUT_S = 900
 # ulps at the block's max |output| (moe_logits_check's 8, for the same
 # roundings in another order, plus each rank's partial rounded once)
 MESH_LOGIT_ULPS = 16
+# [mesh async]: the models served once more with async_prefill on the
+# params each rank drew (a dense model, and the hybrid one whose chains
+# carry KV pages and Mamba state blocks); [mesh quant]: the model whose
+# weights each rank quantizes into its blocks
+MESH_ASYNC = ("olmo-1b", "hymba-1.5b")
+MESH_QUANT_ARCH = "olmo-1b"
 MESH_MOE_LAYER_ULPS = 8
 # per-rank decode GEMV shapes (K, M, calls a decode step) on a (1, 2)
 # mesh: QKV over a rank's heads, gate+up over its FFN columns, down over
@@ -5094,19 +5294,23 @@ def mesh_mm_attention_shapes() -> dict[str, dict]:
 
 
 def mesh_serve(cfg, params, dev, mesh=None, overlap: bool = False,
-               moe_blocks: bool = False) -> dict:
+               moe_blocks: bool = False, async_prefill: bool = False,
+               tracer=None) -> dict:
     """The [mesh] mix on one engine (this rank's share with ``mesh``),
     eagerly: tokens, every sampled logits row and its top-2 margin, the
     wrappers' launches (reset just before the run), the dispatcher's
     counters and the engine's policy.  With ``moe_blocks`` (a rank of an
     MoE model) also each layer's MoE input and its all-reduced output on
     the first decode step (``moe_blocks``: the extra all-reduce runs on
-    every rank at the same call)."""
+    every rank at the same call).  With ``async_prefill`` every miss
+    chains its chunks on the engine's side stream (``[mesh async]``);
+    ``tracer`` (rank 0's) records the chains' overlap spans."""
     dispatch.clear_plan_cache()
     recurrent = cfg.family in ("ssm", "hybrid")
     eng = Engine(cfg, params, device=dev, batch_slots=MESH_SLOTS,
                  max_len=MESH_MAX_LEN, prefill_chunk=MESH_CHUNK, mesh=mesh,
-                 overlap_collectives=overlap, prefix_cache=recurrent)
+                 overlap_collectives=overlap, prefix_cache=recurrent,
+                 async_prefill=async_prefill, tracer=tracer)
     blocks, real = [], L.moe_partial
 
     def spy(p, x, cfg_, gemv=None, **kw):
@@ -5123,7 +5327,9 @@ def mesh_serve(cfg, params, dev, mesh=None, overlap: bool = False,
     sample = eng._sample
 
     def recorded(r, row):
-        rows.setdefault(r.rid, []).append(np.asarray(row, np.float32))
+        # a copy: a harvested chain's row on the CPU is a view of the
+        # engine's first-token buffer, which a later chain overwrites
+        rows.setdefault(r.rid, []).append(np.array(row, np.float32))
         return sample(r, row)
 
     eng._sample = recorded
@@ -5159,6 +5365,8 @@ def mesh_serve(cfg, params, dev, mesh=None, overlap: bool = False,
         eng.run_until_drained()
     finally:
         L.moe_partial = real
+        if tracer is not None:
+            uninstall_tracer(tracer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if not all(r.done for r in reqs):
@@ -5180,6 +5388,13 @@ def mesh_serve(cfg, params, dev, mesh=None, overlap: bool = False,
                    "defrag_moves": sum(moves)}}
     if recurrent and mesh is not None:
         out["whole_state"] = whole_state_digests(eng)
+    if async_prefill:
+        out["inflight_left"] = len(eng._inflight)
+        if tracer is not None:
+            ov = export.summary(tracer).get("overlap") or {}
+            out["overlap_span"] = {k: ov.get(k) for k in (
+                "n_spans", "total_us", "blocked_us", "hidden_us",
+                "hidden_fraction")}
     return out
 
 
@@ -5205,10 +5420,14 @@ def rows_digest(rows: dict) -> str:
     return h.hexdigest()
 
 
-def mesh_rank(mesh, plan) -> dict:
+def mesh_rank(mesh, plan, async_archs=(), quant_arch=None) -> dict:
     """One rank of [mesh]: each model of ``plan`` drawn from the seed with
     this rank's blocks kept, served with ``overlap_collectives`` off and
-    then on.  Rank 0 returns its rows; every rank their digest."""
+    then on; a model of ``async_archs`` once more with ``async_prefill``
+    (``[mesh async]``), and ``quant_arch``'s weights quantized into rank
+    blocks for one dispatcher pass (``[mesh quant]``: :func:`mesh_quant`),
+    on the params already drawn.  Rank 0 returns its rows; every rank
+    their digest."""
     out = {"rank": mesh.rank, "backend": mesh.backend,
            "device": str(mesh.device), "world": mesh.world_size,
            "coords": dict(mesh.coords), "models": {}}
@@ -5223,6 +5442,13 @@ def mesh_rank(mesh, plan) -> dict:
         off = mesh_serve(cfg, params, mesh.device, mesh, overlap=False,
                          moe_blocks=cfg.moe is not None)
         on = mesh_serve(cfg, params, mesh.device, mesh, overlap=True)
+        chained = None
+        if arch in async_archs:
+            chained = mesh_serve(cfg, params, mesh.device, mesh,
+                                 async_prefill=True,
+                                 tracer=Tracer() if mesh.rank == 0 else None)
+        quant = (mesh_quant(mesh, cfg, params) if arch == quant_arch
+                 else None)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -5252,7 +5478,83 @@ def mesh_rank(mesh, plan) -> dict:
         if mesh.rank == 0:
             res["rows"] = off["rows"]
             res["moe_blocks"] = off["moe_blocks"]
+        if chained is not None:
+            res["async"] = {k: chained[k] for k in (
+                "tokens", "per_token_ms", "wall_s", "decode_steps", "mix",
+                "inflight_left")}
+            res["async"].update(
+                digest=rows_digest(chained["rows"]),
+                counters=chained["stats"]["overlap"]["async_prefill"],
+                launches=chained["launches"],
+                whole_state=chained.get("whole_state"),
+                overlap_span=chained.get("overlap_span"))
+            if mesh.rank == 0:
+                res["async"]["rows"] = chained["rows"]
+        if quant is not None:
+            res["quant"] = quant
         out["models"][arch] = res
+    return out
+
+
+def mesh_quant(mesh, cfg, params) -> dict:
+    """``[mesh quant]`` on one rank: olmo-1b's decode GEMV weights as this
+    rank holds them (the prepacked ``[q_r | k_r | v_r]`` and ``[gate_r |
+    up_r]`` columns, down's rows, the head's vocab columns), quantized to
+    int8 and int4 codes (whole columns and whole 32-row scale blocks keep
+    the scales of the whole weight's: these are ``shard_packed``'s blocks
+    of ``[quant]``'s weights, which the fingerprints show), then one
+    dispatcher pass each at ``[quant]``'s inputs with ``shard=`` the
+    weight's axis under a 2-shard policy: the M outputs kept as the rank's
+    columns, down's partial computed from the rank's rows of x in f32 (the
+    kernel's f32 output: no rounding before the sum), all-reduced in f32
+    over gloo and cast to bf16 once.  Returns the outputs, fingerprints,
+    launches and picks of each pass."""
+    dev, n = mesh.device, mesh.size("model")
+    pp = lm.prepack_decode_params(params, cfg, mesh=mesh)
+    splits = quant_splits(cfg, n)
+    xs = quant_inputs(dev)
+    x_down = xs["down"].chunk(n, dim=1)[mesh.index("model")].float()
+    policy = DispatchPolicy(model_shards=n)
+    group = mesh.group("model")
+    out = {}
+    for bits in (8, 4):
+        def q(w_t):
+            return quantize_weight(w_t.t(), bits=bits, block=BLOCK)
+
+        layers = [{"qkv": q(p["attn"]["wqkv"]),
+                   "gate_up": q(p["mlp"]["w_gateup"]),
+                   "down": q(p["mlp"]["w_down"])} for p in pp["layers"]]
+        head = q(pp["head_t"])
+        prints = [[name, fingerprint(pw.w_t), fingerprint(pw.scales)]
+                  for w in layers + [{"head": head}]
+                  for name, pw in w.items()]
+        dispatch.clear_plan_cache()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = []
+        for w in layers:
+            for name in ("qkv", "gate_up"):
+                outs.append(torch.cat(dispatch.dispatch_prepacked(
+                    xs[name], w[name], splits[name], policy=policy,
+                    shard="M"), dim=-1))
+            part = dispatch.dispatch_dense(x_down[:, None], w["down"],
+                                           policy=policy, shard="K")[:, 0]
+            outs.append(all_reduce_sum(part, group).to(torch.bfloat16))
+        outs.append(dispatch.dispatch_dense(
+            xs["head"][:, None], head, policy=policy, shard="M")[:, 0])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        stats = dispatch.dispatch_stats()
+        out[f"w{bits}"] = {
+            "outs": [o.cpu() for o in outs], "prints": prints,
+            "launches": launches(), "wall_ms": wall_ms,
+            "partial_dtype": str(part.dtype),
+            **{k: stats[k] for k in ("sharded_axes", "shard_picks",
+                                     "kernel_picks", "program_kernels")}}
+        del layers, head, outs
+        torch.cuda.empty_cache()
+    del pp
     return out
 
 
@@ -5306,35 +5608,204 @@ def mesh_compare(arch: str, base: dict, ranks: list[dict]) -> dict:
             if m["launches"][k] <= 0:
                 raise AssertionError(f"[mesh] {arch} rank {r['rank']}: "
                                      f"{k} never launched")
-    rows0 = mine[0]["rows"]
-    stops, worst, absmax, compared = {}, 0.0, 0.0, 0
-    for rid, want in base["tokens"].items():
-        got = mine[0]["tokens"][rid]
+    cmp = rows_against(base["tokens"], base["rows"], base["margins"],
+                       mine[0]["tokens"], mine[0]["rows"], f"[mesh] {arch}")
+    worst, absmax = cmp["max_abs_diff"], cmp["logit_absmax"]
+    held = cfg.moe is None
+    tol = MESH_LOGIT_ULPS * (bf16_ulp(absmax) if absmax else 0.0) \
+        if held else None
+    if held and worst > tol:
+        raise AssertionError(f"[mesh] {arch}: max |logit diff| {worst:.4f} "
+                             f"> {MESH_LOGIT_ULPS} bf16 ulps at |logit| max "
+                             f"{absmax:.2f} ({tol:.4f})")
+    return {**cmp, "tolerance_ulps": MESH_LOGIT_ULPS if held else None,
+            "tolerance": tol}
+
+
+def log_mesh_async(arch: str, a: dict) -> None:
+    sv, un, span = a["vs_serial"], a["vs_unsharded"], a["overlap_span"]
+    log(f"[mesh async] {arch}: async_prefill on both ranks, tokens equal "
+        f"the rank's serial run and the unsharded run ({len(un['stops'])} "
+        f"requests stopped at a near tie); rows vs the rank's serial run "
+        f"max |diff| {sv['max_abs_diff']:.4f} ({sv['max_diff_ulps']:.1f} "
+        f"bf16 ulps, held at {MESH_LOGIT_ULPS}; {sv['rows_bit_equal']}/"
+        f"{sv['rows_compared']} rows bit-equal), vs unsharded "
+        f"{un['max_diff_ulps']:.1f} ulps ({un['rows_bit_equal']}/"
+        f"{un['rows_compared']} bit-equal); issued {a['counters']['issued']}"
+        f" = awaited {a['counters']['awaited']} on every rank, max in flight "
+        f"{a['counters']['max_inflight']}; mix {json.dumps(a['mix'])}; "
+        f"whole state leaves equal across ranks")
+    log(f"  overlap span (rank 0, gloo: the host blocks in each collective, "
+        f"printed, not held, not a speed): {json.dumps(span)}; per-token "
+        f"p50 a rank {[round(p['p50'], 2) for p in a['per_token_ms']]} ms "
+        f"(serial {[round(p['p50'], 2) for p in a['serial_per_token_ms']]});"
+        f" launches rank 0 "
+        f"{json.dumps({k: v for k, v in a['launches'][0].items() if v})}")
+
+
+def log_mesh_quant(q: dict) -> None:
+    for tag, r in q.items():
+        log(f"[mesh quant] olmo-1b {tag}: each rank's blocks are "
+            f"shard_packed's cuts of [quant]'s weights (fingerprints "
+            f"equal); {r['gemvs']} GEMVs a rank at its shapes, max abs err "
+            f"vs the "
+            f"unsharded pass {json.dumps({k: float(f'{v:.3e}') for k, v in r['max_abs_err'].items()})}"
+            f" (rtol 2^-7, atol 1e-3); down's K partial "
+            f"{r['ranks'][0]['partial_dtype']}, all-reduced over gloo; "
+            f"launches rank 0 "
+            f"{json.dumps({k: v for k, v in r['ranks'][0]['launches'].items() if v})}"
+            f"; sharded_axes {json.dumps(r['ranks'][0]['sharded_axes'])}; "
+            f"shard_picks {json.dumps(r['ranks'][0]['shard_picks'])}; pass "
+            f"wall {[round(x['wall_ms'], 2) for x in r['ranks']]} ms")
+
+
+def rows_against(want_tokens: dict, want_rows: dict, margins: dict,
+                 got_tokens: dict, got_rows: dict, what: str) -> dict:
+    """``got``'s tokens against ``want``'s, each request up to its first
+    near tie (a top-2 margin of the unsharded run below ``NEAR_TIE``),
+    and its rows there: max |diff|, |logit| max, the rows compared and
+    the rows bit-equal."""
+    stops, worst, absmax, compared, same = {}, 0.0, 0.0, 0, 0
+    for rid, want in want_tokens.items():
+        got = got_tokens[rid]
         n = len(want)
-        for i, m in enumerate(base["margins"][rid]):
+        for i, m in enumerate(margins[rid]):
             if m < NEAR_TIE:
                 stops[rid] = {"step": i, "margin": m}
                 n = i
                 break
         if got[:n] != want[:n]:
-            raise AssertionError(f"[mesh] {arch} request {rid}: tokens "
-                                 f"differ before any near tie: {got} vs "
-                                 f"{want}")
-        for a, b in zip(rows0[rid][:n + 1], base["rows"][rid][:n + 1]):
+            raise AssertionError(f"{what} request {rid}: tokens differ "
+                                 f"before any near tie: {got} vs {want}")
+        for a, b in zip(got_rows[rid][:n + 1], want_rows[rid][:n + 1]):
             worst = max(worst, float(np.abs(a - b).max()))
             absmax = max(absmax, float(np.abs(b).max()))
             compared += 1
+            same += int(np.array_equal(a, b))
     ulp = bf16_ulp(absmax) if absmax else 0.0
-    held = cfg.moe is None
-    tol = MESH_LOGIT_ULPS * ulp if held else None
-    if held and worst > tol:
-        raise AssertionError(f"[mesh] {arch}: max |logit diff| {worst:.4f} "
-                             f"> {MESH_LOGIT_ULPS} bf16 ulps at |logit| max "
-                             f"{absmax:.2f} ({tol:.4f})")
     return {"stops": stops, "max_abs_diff": worst, "logit_absmax": absmax,
             "max_diff_ulps": worst / ulp if ulp else 0.0,
-            "tolerance_ulps": MESH_LOGIT_ULPS if held else None,
-            "tolerance": tol, "rows_compared": compared}
+            "rows_compared": compared, "rows_bit_equal": same}
+
+
+def mesh_async_compare(arch: str, base: dict, ranks: list[dict]) -> dict:
+    """``[mesh async]`` of one model: every rank's chained run against its
+    own serial run and the unsharded run (tokens equal up to a near tie,
+    rank 0's rows within ``MESH_LOGIT_ULPS`` bf16 ulps, bit-equal rows
+    counted), the same rows on every rank (digest), issued = awaited with
+    nothing in flight and the same counts on every rank, the same mix
+    (chunks, hits, compactions), whole state leaves the same bits on
+    every rank."""
+    mine = [r["models"][arch] for r in ranks]
+    chained = [m["async"] for m in mine]
+    if len({c["digest"] for c in chained}) != 1:
+        raise AssertionError(f"[mesh async] {arch}: the ranks' rows differ")
+    counts = [c["counters"] for c in chained]
+    for r, c in zip(ranks, chained):
+        ap = c["counters"]
+        if not (ap["issued"] == ap["awaited"] >= 1 and ap["inflight"] == 0
+                and c["inflight_left"] == 0):
+            raise AssertionError(f"[mesh async] {arch} rank {r['rank']}: "
+                                 f"issued / awaited {ap}, chains left "
+                                 f"{c['inflight_left']}")
+        if c["mix"] != chained[0]["mix"] or ap != counts[0]:
+            raise AssertionError(f"[mesh async] {arch}: the ranks' chains "
+                                 f"differ: {counts}, {c['mix']}")
+    if any(c["whole_state"] != chained[0]["whole_state"] for c in chained):
+        raise AssertionError(f"[mesh async] {arch}: a state leaf held "
+                             f"whole differs between ranks")
+    if cfg_recurrent(arch) and not (chained[0]["mix"]["prefix_hits"] >= 1
+                                    and chained[0]["mix"]["defrag_moves"]
+                                    >= 1):
+        raise AssertionError(f"[mesh async] {arch}: the mix ran no prefix "
+                             f"hit or compaction: {chained[0]['mix']}")
+    rows = chained[0]["rows"]
+    serial = rows_against(mine[0]["tokens"], mine[0]["rows"],
+                          base["margins"], chained[0]["tokens"], rows,
+                          f"[mesh async] {arch} vs the rank's serial run")
+    unsharded = rows_against(base["tokens"], base["rows"], base["margins"],
+                             chained[0]["tokens"], rows,
+                             f"[mesh async] {arch} vs the unsharded run")
+    for tag, cmp in (("serial", serial), ("unsharded", unsharded)):
+        absmax = cmp["logit_absmax"]
+        tol = MESH_LOGIT_ULPS * (bf16_ulp(absmax) if absmax else 0.0)
+        cmp["tolerance"] = tol
+        if cmp["max_abs_diff"] > tol:
+            raise AssertionError(
+                f"[mesh async] {arch} vs the {tag} run: max |logit diff| "
+                f"{cmp['max_abs_diff']:.4f} > {MESH_LOGIT_ULPS} bf16 ulps "
+                f"at |logit| max {cmp['logit_absmax']:.2f} ({tol:.4f})")
+    return {"vs_serial": serial, "vs_unsharded": unsharded,
+            "counters": counts[0], "mix": chained[0]["mix"],
+            "overlap_span": chained[0]["overlap_span"],
+            "per_token_ms": [c["per_token_ms"] for c in chained],
+            "serial_per_token_ms": [m["per_token_ms"] for m in mine],
+            "launches": [c["launches"] for c in chained]}
+
+
+def cfg_recurrent(arch: str) -> bool:
+    return get_config(arch).family in ("ssm", "hybrid")
+
+
+def rank_columns(splits: tuple[int, ...], n: int, r: int) -> torch.Tensor:
+    """The columns of a fused output ``[m_0 | m_1 | ...]`` that rank ``r``
+    of ``n`` computes: each member's r-th block, side by side."""
+    cols, off = [], 0
+    for m in splits:
+        cols.append(torch.arange(off + r * m // n, off + (r + 1) * m // n))
+        off += m
+    return torch.cat(cols)
+
+
+def mesh_quant_compare(arch: str, ref: dict, ranks: list[dict]) -> dict:
+    """``[mesh quant]``: each rank's blocks are ``shard_packed``'s cuts of
+    ``[quant]``'s weights (fingerprints equal, on the planned axes); its
+    pass launched only the pass's kernel, once a GEMV, and picked it for
+    every weight on both axes; each output is within the kernel tolerance
+    of the unsharded pass's (M: the rank's columns; down: the sum)."""
+    n = MESH_SHAPE[1]
+    splits = quant_splits(mesh_config(arch, None))
+    n_gemv = sum(c for _, _, c in SHAPES.values())
+    out = {}
+    for bits, kname in ((8, "quant_gemv"), (4, "quant4_gemv")):
+        tag, want = f"w{bits}", "quant" if bits == 8 else "quant4"
+        whole = ref[tag]
+        errs = collections.defaultdict(float)
+        per_rank = []
+        for r, rank in enumerate(ranks):
+            got = rank["models"][arch]["quant"][tag]
+            mine = [[name, wp, sp] for name, _, wp, sp in whole["prints"][r]]
+            axes = {name: ax for name, ax, _, _ in whole["prints"][r]}
+            if got["prints"] != mine or axes != QUANT_AXES:
+                raise AssertionError(f"[mesh quant] int{bits} rank {r}: its "
+                                     f"blocks are not shard_packed's cuts "
+                                     f"(axes {axes})")
+            expect = {k: (n_gemv if k == kname else 0) for k in KERNELS}
+            if got["launches"] != expect:
+                raise AssertionError(f"[mesh quant] int{bits} rank {r}: "
+                                     f"launches {got['launches']}, expected "
+                                     f"{expect}")
+            if (got["kernel_picks"] != {f"h100:{want}": 2}
+                    or got["program_kernels"] != {f"h100:{want}": 2}
+                    or set(got["sharded_axes"]) != {"M", "K"}):
+                raise AssertionError(f"[mesh quant] int{bits} rank {r}: "
+                                     f"picks {got['kernel_picks']}, "
+                                     f"{got['program_kernels']}, axes "
+                                     f"{got['sharded_axes']}")
+            names = [name for name, _, _ in got["prints"]]
+            for name, o, w in zip(names, got["outs"], whole["outs"]):
+                if name in splits:
+                    w = w[:, rank_columns(splits[name], n, r)]
+                elif name == "head":
+                    w = w.chunk(n, dim=-1)[r]
+                errs[name] = max(errs[name], check_close(
+                    kname, f"[mesh quant] rank {r} {name}", o, w))
+            per_rank.append({k: got[k] for k in (
+                "launches", "sharded_axes", "shard_picks", "wall_ms",
+                "partial_dtype")})
+        out[tag] = {"max_abs_err": dict(errs), "ranks": per_rank,
+                    "gemvs": n_gemv}
+    return out
 
 
 def mesh_moe_blocks(arch: str, policy, blocks: list, dev) -> dict:
@@ -5370,6 +5841,8 @@ def check_mesh_kernels(dev) -> list[dict]:
     """[mesh kernels]: ``pim_gemv`` / ``splitk_gemv`` at each per-rank
     decode GEMV shape (batch 8; llama-vision's from ``rank_config``;
     rwkv6's head and hymba's gate+up and down among them),
+    ``quant_gemv`` / ``quant4_gemv`` at olmo-1b's (beside the bf16
+    weight's ``torch.matmul``, and in f32),
     ``ragged_gemv`` on each per-rank expert stack (a rank's rows first,
     the rest past the offsets), ``decode_attention`` at G 6 (24 over 4
     and 48 over 8, D 128, C 1024), at hymba's G 5 (25 over 5, D 64: its
@@ -5383,6 +5856,10 @@ def check_mesh_kernels(dev) -> list[dict]:
     rows = []
     for arch, shapes in MESH_GEMV_SHAPES.items():
         rows += check_kernels(dev, shapes, (8,), f"{arch}/rank")
+    # the quant kernels at olmo-1b's rank shapes ([mesh quant]'s blocks)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows += check_quant_kernels(dev, sms, MESH_GEMV_SHAPES["olmo-1b"], (8,),
+                                "olmo-1b/rank")
     # llama-vision's rank GEMVs are timed; whisper's, logged with the
     # h100 picks at batches 1 and 8
     vision = "llama-3.2-vision-11b"
@@ -5502,13 +5979,17 @@ def check_mesh_kernels(dev) -> list[dict]:
     return rows
 
 
-def run_mesh(dev) -> dict:
+def run_mesh(dev, quant_ref: dict) -> dict:
     """[mesh]: each model first on the unsharded engine here, eagerly
     (gloo ranks run eagerly), its tokens, rows and margins kept on the
     host and its params freed; then one (1, 2) mesh through ``spawn``:
     two ranks on this card over gloo serve every model with
     ``overlap_collectives`` off, then on (``mesh_rank``), and each is
-    held against the unsharded run (``mesh_compare``)."""
+    held against the unsharded run (``mesh_compare``); in the same spawn
+    ``[mesh async]`` (``MESH_ASYNC``'s models with ``async_prefill``,
+    ``mesh_async_compare``) and ``[mesh quant]`` (olmo-1b's quantized
+    rank blocks against ``quant_ref``, ``[quant]``'s unsharded passes:
+    ``mesh_quant_compare``)."""
     t_all = time.perf_counter()
     base = {}
     for arch, layers in MESH_MODELS:
@@ -5526,7 +6007,7 @@ def run_mesh(dev) -> dict:
             f"{json.dumps({k: v for k, v in base[arch]['launches'].items() if v})}")
     t0 = time.perf_counter()
     ranks = spawn(mesh_rank, MESH_SHAPE, timeout_s=MESH_TIMEOUT_S,
-                  args=(MESH_MODELS,))
+                  args=(MESH_MODELS, MESH_ASYNC, MESH_QUANT_ARCH))
     spawn_s = time.perf_counter() - t0
     for r in ranks:
         log(f"[mesh] rank {r['rank']} {r['coords']}: backend {r['backend']}, "
@@ -5545,9 +6026,14 @@ def run_mesh(dev) -> dict:
             k: base[arch][k] for k in ("tokens", "launches", "per_token_ms",
                                        "wall_s", "decode_steps")},
             "ranks": []}
+        if arch in MESH_ASYNC:
+            res["async"] = mesh_async_compare(arch, base[arch], ranks)
+        if arch == MESH_QUANT_ARCH:
+            res["quant"] = mesh_quant_compare(arch, quant_ref, ranks)
         for r in ranks:
             m = r["models"][arch]
-            res["ranks"].append({k: v for k, v in m.items() if k != "rows"})
+            res["ranks"].append({k: v for k, v in m.items()
+                                 if k not in ("rows", "async", "quant")})
             for k, n in m["launches"].items():
                 picks_seen[f"{r['rank']}:{k}"] += n
             log(f"[mesh] {arch} rank {r['rank']}: launches "
@@ -5580,6 +6066,10 @@ def run_mesh(dev) -> dict:
             f"({cmp['max_diff_ulps']:.1f} bf16 ulps) {held}; "
             f"{cmp['rows_compared']} rows; unsharded per-token p50 "
             f"{base[arch]['per_token_ms']['p50']:.2f} ms (eager, one card)")
+        if "async" in res:
+            log_mesh_async(arch, res["async"])
+        if "quant" in res:
+            log_mesh_quant(res["quant"])
         out["models"][arch] = res
     for r in ranks:
         for k in ("pim_gemv", "splitk_gemv"):
@@ -5595,23 +6085,27 @@ def run_mesh(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "olmo-1b"
-TRAIN_STEPS, TRAIN_OFF_STEPS = 20, 5    # remat on, then off
+TRAIN_STEPS, TRAIN_OFF_STEPS = 10, 3    # remat on, then off
 TRAIN_BATCH, TRAIN_SEQ = 8, 128
-TRAIN_CHECK = (("olmo-1b", 2), ("deepseek-moe-16b", 2))   # (arch, layers)
+TRAIN_CHECK = (("olmo-1b", 2), ("deepseek-moe-16b", 1))   # (arch, layers)
 # 32 positions: the card-vs-CPU check's CPU side and the mesh runs' gloo
 # traffic grow with them, and the script must stay inside its time limit
 TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 32
 # card against CPU, f32 with TF32 off, the sums in other orders: the loss
 # within 1e-5 relative, each gradient leaf within 1e-3 of its own max |g|
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
-TRAIN_RECOVERY = dict(layers=2, steps=12, every=5, fail_at=7)
-TRAIN_DP_SHAPE, TRAIN_DP_BATCH = (2, 1), 4
+TRAIN_RECOVERY = dict(layers=2, steps=8, every=3, fail_at=5)
+TRAIN_DP_SHAPE, TRAIN_DP_BATCH, TRAIN_DP_LAYERS = (2, 1), 4, 1
 TRAIN_CKPT = ROOT / "build" / "train_ckpt"
 
 
 def train_config(arch: str, layers: int | None = None, **kw):
-    """``arch`` in f32 (the launcher's numerics), cut to ``layers``."""
+    """``arch`` in f32 (the launcher's numerics), cut to ``layers`` (an
+    encoder too: whisper's, to as many of its layers)."""
     cfg = get_config(arch)
+    if layers and cfg.encoder is not None:
+        kw["encoder"] = dataclasses.replace(
+            cfg.encoder, n_layers=min(layers, cfg.encoder.n_layers))
     return dataclasses.replace(
         cfg, param_dtype="float32", compute_dtype="float32",
         n_layers=layers or cfg.n_layers, **kw)
@@ -5752,13 +6246,13 @@ def train_recovery(dev) -> dict:
 
 def train_dp_rank(mesh) -> dict:
     """One rank of the data-parallel check: one step of olmo-1b (full
-    width, 2 layers) on its rows of the global batch and its FSDP blocks
+    width, 1 layer) on its rows of the global batch and its FSDP blocks
     of the params; the averaged gradients (gathered) on the host, the
     digest of the updated params (gathered)."""
     import hashlib
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = train_config(TRAIN_ARCH, 2, remat=False)
+    cfg = train_config(TRAIN_ARCH, TRAIN_DP_LAYERS, remat=False)
     tcfg, data = train_setup(cfg, TRAIN_DP_BATCH, TRAIN_CHECK_SEQ)
     step, opt_init = build_train_step(cfg, tcfg, mesh=mesh)
     params = lm.init_lm(cfg, seed=SEED, device=mesh.device, mesh=mesh,
@@ -5781,7 +6275,7 @@ def train_dp_rank(mesh) -> dict:
 def train_data_parallel(dev) -> dict:
     """Two ranks of a (2, 1) mesh on this card against the one-process
     step on the whole batch."""
-    cfg = train_config(TRAIN_ARCH, 2, remat=False)
+    cfg = train_config(TRAIN_ARCH, TRAIN_DP_LAYERS, remat=False)
     tcfg, data = train_setup(cfg, TRAIN_DP_BATCH, TRAIN_CHECK_SEQ)
     step, _ = build_train_step(cfg, tcfg)
     params = lm.init_lm(cfg, seed=SEED, device=dev)
@@ -5877,7 +6371,8 @@ def run_train(dev) -> dict:
         f"and state bit-equal to the uninterrupted run's {rec['bit_equal']}"
         f" (final loss {rec['final_loss']:.4f}); faulted run "
         f"{rec['faulted_s']:.1f} s; {card}")
-    dp = train_data_parallel(dev)
+    with part("train data parallel"):
+        dp = train_data_parallel(dev)
     log(f"[train] data parallel: (2, 1) mesh, ranks "
         f"{[(r['rank'], r['backend'], r['device']) for r in dp['ranks']]}: "
         f"params bit-equal {dp['params_bit_equal']}, averaged gradients "
@@ -5900,19 +6395,20 @@ def run_train(dev) -> dict:
 
 # (name, arch, optimizer, layers; None: all): each run on its mesh
 # against the one-process step on the card, full width, f32, TF32 off;
-# whisper-small at full depth too (12 + 12 layers, 0.24 B params: its
-# encoder and every layer's cross-attention as rank blocks); rwkv6-3b
-# (time-mix on a rank's heads, channel-mix on its d_ff columns) and
-# hymba-1.5b (attention whole, the Mamba mixer on a rank's channels,
-# w_in as [x1_r | z_r]) at 2 layers; olmo-1b AdamW on (2, 2) alone (its
-# Adafactor run covers (1, 2))
-TRAIN_MESH_LAYERS, TRAIN_MESH_BATCH = 2, 2
+# whisper-small at 4 of its 12 layers and 4 of its 12 encoder layers
+# (its encoder and every layer's cross-attention as rank blocks);
+# rwkv6-3b (time-mix on a rank's heads, channel-mix on its d_ff columns)
+# and hymba-1.5b (attention whole, the Mamba mixer on a rank's channels,
+# w_in as [x1_r | z_r]), deepseek-moe-16b (every layer MoE) and olmo-1b
+# (AdamW on (2, 2) alone; its Adafactor run covers (1, 2)) at 1 layer:
+# depth cut to keep the script inside its time
+TRAIN_MESH_LAYERS, TRAIN_MESH_BATCH = 1, 2
 TRAIN_MESH_RUNS = {
     (1, 2): (("deepseek-moe-16b adamw", "deepseek-moe-16b", "adamw",
               TRAIN_MESH_LAYERS),
              ("olmo-1b adafactor", "olmo-1b", "adafactor",
               TRAIN_MESH_LAYERS),
-             ("whisper-small adamw", "whisper-small", "adamw", None),
+             ("whisper-small adamw", "whisper-small", "adamw", 4),
              ("rwkv6-3b adamw", "rwkv6-3b", "adamw", TRAIN_MESH_LAYERS),
              ("hymba-1.5b adamw", "hymba-1.5b", "adamw",
               TRAIN_MESH_LAYERS)),
@@ -5924,7 +6420,7 @@ TRAIN_MESH_SAVED = "olmo-1b adamw"      # the (2, 2) run it checkpoints
 TRAIN_MESH_ONE_SAVED = {
     "whisper-small adamw": ROOT / "build" / "train_mesh_mm_ckpt",
     "hymba-1.5b adamw": ROOT / "build" / "train_mesh_state_ckpt"}
-TRAIN_MESH_AIM_S = 160
+TRAIN_MESH_AIM_S = 120     # of the script's host-bound 250 s
 
 
 def leaf_digests(tree, keep=None) -> list[str | None]:
@@ -6433,7 +6929,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
+    clock = PhaseClock()
 
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     card = nvidia_smi_line()
@@ -6453,6 +6949,7 @@ def main() -> int:
     for r in ptxas:
         log(f"  {r['source']}: {r.get('demangled', r['function'])}: "
             f"{r['line']}")
+    clock.lap("build")
 
     log("[kernels] each against its plain version (rtol 2^-7, atol 1e-3), "
         "then timed")
@@ -6460,6 +6957,7 @@ def main() -> int:
     log(f"[stages] pim_gemv and splitk_gemv at B=8, every ring depth up to "
         f"{MAX_STAGES} the card holds: bit-identical to the default, timed")
     stages = stage_sweep(dev)
+    clock.lap("kernels")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     log("[quant kernels] quant_gemv and quant4_gemv against their plain "
         "versions (rtol 2^-7, atol 1e-3), then timed beside torch.matmul "
@@ -6472,16 +6970,19 @@ def main() -> int:
     log("[quant plans] both at B=8 at every split degree and column block, "
         "each against its plain version, timed")
     quant_plans = quant_plan_sweep(dev, sms)
+    clock.lap("quant kernels")
     log("[gpu kernels] triton_gemv against its plain version (rtol 2^-7, "
         "atol 1e-3), then timed beside pim_gemv and torch.matmul")
     rows += check_triton_kernels(dev)
     log("[gpu stages] triton_gemv at B=8 on both heads, every ring depth "
         "the card holds: bit-identical to the default, timed")
     stages += triton_stage_sweep(dev)
+    clock.lap("gpu kernels")
     log("[attention] decode_attention against its plain version (rtol "
         "2^-7, atol 2^-8 max|v|), then timed beside "
         "scaled_dot_product_attention")
     rows += check_attention(dev, layers=get_config("olmo-1b").n_layers)
+    clock.lap("attention")
 
     warm_profiler()
     cfg = get_config("olmo-1b")
@@ -6500,17 +7001,21 @@ def main() -> int:
     log_routes("engine", engine)
     log_ttft(engine)
 
+    clock.lap("engine")
     logits = logits_check(cfg, params, dev)
     log(f"[logits] batch {logits['batch']}: max |kernels - ref| "
         f"{logits['max_abs_diff']:.4f} (tolerance {logits['tolerance']}; "
         f"|logit| max "
         f"{logits['logit_absmax']:.2f}; argmax agree "
         f"{logits['argmax_agree']}/{logits['batch']})")
+    clock.lap("logits")
 
     n_gemv = sum(n for _, _, n in SHAPES.values())
     log(f"[quant] every olmo-1b decode GEMV (x{n_gemv}) at batch "
         f"{QUANT_BATCH} through the dispatcher, bf16 / int8 / int4 weights")
     quant = run_quant_dispatch(cfg, params, dev)
+    quant_ref = quant.pop("rank_reference")
+    clock.lap("quant")
 
     kv = {}
     for store in ("int8", "int4"):
@@ -6528,6 +7033,7 @@ def main() -> int:
             f"agreeing with fp {e['agreement_with_fp']}")
         log_routes(f"kv {store}", e)
         log_ttft(e)
+    clock.lap("kv")
 
     gpu = run_engine(cfg, params, dev, backend="gpu")
     gpu["agreement_with_h100"] = token_agreement(engine["generated"],
@@ -6545,6 +7051,7 @@ def main() -> int:
         f"{json.dumps(gpu['triton_picks_by_batch'])}; greedy tokens "
         f"agreeing with the h100 engine {gpu['agreement_with_h100']}")
     log_routes("gpu engine", gpu)
+    clock.lap("gpu engine")
 
     serving = {}
     for tag in ("olmo-1b fp", "olmo-1b int8"):
@@ -6552,12 +7059,14 @@ def main() -> int:
             f"cache and preemption, both routes, then the plain engine")
         serving[tag] = run_serving(cfg, params, dev, tag)
         log_serving(serving[tag])
+    clock.lap("serving olmo-1b")
     async_runs = {}
     tag = "olmo-1b fp"
     log(f"[async] {tag}: the [serving] mix with async_prefill off and on "
         f"(graph route, traced)")
     async_runs[tag] = run_async(cfg, params, dev, tag)
     log_async(async_runs[tag])
+    clock.lap("async olmo-1b")
 
     del params
     gc.collect()
@@ -6568,6 +7077,7 @@ def main() -> int:
     moe_rows, moe_stages = check_moe_kernels(dev)
     rows += moe_rows
     stages += moe_stages
+    clock.lap("moe kernels")
 
     mcfg = get_config(MOE_ARCH)
     log(f"[moe engine] {mcfg.name}: {mcfg.n_layers} layers, d={mcfg.d_model}"
@@ -6590,6 +7100,7 @@ def main() -> int:
         f"expert_load {json.dumps(moe['dispatch']['expert_load'])}")
     log_routes("moe engine", moe)
     log_ttft(moe)
+    clock.lap("moe engine")
 
     moe_logits = moe_logits_check(mcfg, mparams, dev)
     log(f"[moe logits] batch {moe_logits['batch']}: max |kernels - ref| "
@@ -6616,6 +7127,7 @@ def main() -> int:
             f"launches, err {r['max_abs_err']:.2e}, replay "
             f"{r['ms']:.3f} ms, loop {r['plain_ms']:.3f} ms"
             for r in moe_prefill))
+    clock.lap("moe logits and prefill")
 
     grouped = run_moe_grouped(mcfg, mparams, dev, moe["generated"])
     log(f"[moe grouped] 1 slot, {grouped['requests']} requests x "
@@ -6625,6 +7137,7 @@ def main() -> int:
         f"{json.dumps(grouped['program_modes'])}; greedy tokens agreeing "
         f"with the ragged engine {grouped['agreement_with_ragged']}")
     log_routes("moe grouped", grouped)
+    clock.lap("moe grouped")
 
     moe_gpu = run_engine(mcfg, mparams, dev, backend="gpu",
                          new_tokens=MOE_GPU_TOKENS)
@@ -6641,15 +7154,18 @@ def main() -> int:
         f"{json.dumps(moe_gpu['triton_picks_by_batch'])}; greedy tokens "
         f"agreeing with the h100 engine {moe_gpu['agreement_with_h100']}")
     log_routes("moe gpu", moe_gpu)
+    clock.lap("moe gpu")
     tag = "deepseek-moe-16b ragged"
     log(f"[serving] {tag}: chunked prefill ({SERVE_CHUNK}), the prefix "
         f"cache and preemption, both routes, then the plain engine")
     serving[tag] = run_serving(mcfg, mparams, dev, tag)
     log_serving(serving[tag])
+    clock.lap("serving deepseek")
     log(f"[async] {tag}: the [serving] mix with async_prefill off and on "
         f"(graph route, traced)")
     async_runs[tag] = run_async(mcfg, mparams, dev, tag)
     log_async(async_runs[tag])
+    clock.lap("async deepseek")
     del mparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -6667,6 +7183,7 @@ def main() -> int:
     families = run_families(dev)
     families_s = time.perf_counter() - t_fam
     log(f"[families] {families_s:.1f} s")
+    clock.lap("families")
 
     t_mm = time.perf_counter()
     log(f"[multimodal kernels] decode_attention at whisper-small's self and "
@@ -6680,14 +7197,17 @@ def main() -> int:
     multimodal = run_multimodal(dev)
     multimodal_s = time.perf_counter() - t_mm
     log(f"[multimodal] {multimodal_s:.1f} s")
+    clock.lap("multimodal")
 
     state = run_state(dev)
     rows += state.pop("kernel_rows")
     log(f"[state] {state['seconds']:.1f} s on {state['card']}")
+    clock.lap("state")
 
     hybrid = run_hybrid(dev)
     rows += hybrid.pop("kernel_rows")
     log(f"[hybrid] {hybrid['seconds']:.1f} s on {hybrid['card']}")
+    clock.lap("hybrid")
 
     log(f"[autotune] olmo-1b's decode GEMVs at batch 8, a fused QKV and a "
         f"ragged expert program, on h100 and gpu, into {AUTOTUNE_TABLE}")
@@ -6695,19 +7215,23 @@ def main() -> int:
     log(f"[autotune] a table written before the streaming kernels, "
         f"replayed from {STALE_TABLE}")
     autotune["stale_replay"] = replay_stale_table(dev)
+    clock.lap("autotune")
 
     log("[pim] the paper's LPDDR5X-PIM model (modeled, not this card), then "
         "PIMnast's placement of olmo-1b's gate+up materialized on the card")
     pim = run_pim(dev)
     log(f"[pim] {pim['seconds']:.1f} s")
+    clock.lap("pim")
     log(f"[calibrate] the full sweep on h100 and gpu (replayed graphs, bf16), "
         f"fit, artifacts under {CALIBRATION_DIR}")
     calibrate = run_calibrate(dev)
     log(f"[calibrate] {calibrate['seconds']:.1f} s on {card}")
+    clock.lap("calibrate")
     log(f"[trace] olmo-1b at full width, bf16: run_serve_trace(trace_out="
         f"{TRACE_OUT.relative_to(ROOT)}, trace_timing=True), then untraced")
     trace = run_trace(dev, calibrate["backends"]["h100"]["constants"])
     log(f"[trace] {trace['seconds']:.1f} s on {card}")
+    clock.lap("trace")
 
     t_mesh = time.perf_counter()
     log("[mesh kernels] per-rank decode GEMV shapes of olmo-1b, "
@@ -6717,24 +7241,31 @@ def main() -> int:
         "hymba's G 5 and at whisper-small's and llama-vision's rank heads, "
         "each against its plain version, timed")
     rows += check_mesh_kernels(dev)
-    log("[mesh] olmo-1b, deepseek-moe-16b, grok-1-314b (2 of 64 layers), "
-        "whisper-small, llama-3.2-vision-11b (10 of 40 layers, cross_gate "
+    clock.lap("mesh kernels")
+    log("[mesh] olmo-1b, deepseek-moe-16b (14 of 28 layers), grok-1-314b "
+        "(2 of 64), whisper-small, llama-3.2-vision-11b (5 of 40 layers, cross_gate "
         f"{MM_GATE}), rwkv6-3b (12 of 32) and hymba-1.5b (16 of 32) at "
         "full width, bf16: unsharded here (eager), then two ranks of a "
-        "(1, 2) mesh sharing this card over gloo")
-    mesh = run_mesh(dev)
+        "(1, 2) mesh sharing this card over gloo; [mesh async] olmo-1b and "
+        "hymba-1.5b once more with async_prefill, [mesh quant] olmo-1b's "
+        "int8 / int4 rank blocks, in the same spawn")
+    mesh = run_mesh(dev, quant_ref)
+    clock.lap("mesh")
     mesh["with_kernels_s"] = time.perf_counter() - t_mesh
     log(f"[mesh] {mesh['seconds']:.1f} s ({mesh['with_kernels_s']:.1f} s "
         f"with [mesh kernels]) on {card}")
 
     train = run_train(dev)
+    clock.lap("train")
     log("[train mesh] olmo-1b (AdamW, Adafactor), deepseek-moe-16b, "
-        "rwkv6-3b and hymba-1.5b at full width and 2 layers, whisper-small "
-        "at full width and depth, f32: a (1, 2) and a (2, 2) mesh of ranks "
+        "rwkv6-3b and hymba-1.5b at full width and 1 layer, whisper-small "
+        "at full width and 4 + 4 layers, "
+        "f32: a (1, 2) and a (2, 2) mesh of ranks "
         "sharing this card over gloo, against the one-process step; the "
         "(2, 2) checkpoint restored onto (1, 2) and one process, whisper's "
         "and hymba's (1, 2) ones onto one process")
     train_mesh = run_train_mesh(dev)
+    clock.lap("train mesh")
 
     launch_counts = {**{n: engine["launches"][n] for n in FLOAT_KERNELS},
                      "quant_gemv":
@@ -6767,6 +7298,8 @@ def main() -> int:
               launches=grok_rank0["launches"]["decode_attention"],
               launches_per_step=mesh_config(*MESH_MODELS[2]).n_layers)
     line = kernels_line(rows, launch_counts, per_step, [g5, g6])
+    clock.lap("report")
+    phases = phases_report(clock.total())
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
@@ -6783,9 +7316,10 @@ def main() -> int:
         hybrid=hybrid,
         autotune=autotune, pim=pim, calibrate=calibrate, trace=trace,
         mesh=mesh, train=train, train_mesh=train_mesh,
-        kernels=line["kernels"],
-        total_s=time.perf_counter() - t_start), indent=1))
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        kernels=line["kernels"], phase_s=phases["phase_s"],
+        phases=phases), indent=1))
+    log(f"[phases] {json.dumps(phases)}")
+    log(f"[done] {phases['total_s']:.1f} s")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

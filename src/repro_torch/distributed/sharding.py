@@ -15,6 +15,8 @@ The reference hands its specs to GSPMD, which partitions each op and
 inserts the collectives.  The port holds each rank's block itself:
 
 * :func:`shard_tensor` cuts this rank's block of one tensor by its spec;
+  :func:`shard_packed` a quantized weight's (:func:`packed_axis`: M, or
+  K on whole scale blocks only, as the planner places the float weight);
 * :func:`shard_params` places a model's (prepacked) tree for serving:
   each leaf is ``shard_tensor`` of its :func:`serve_spec`, the planner's
   spec where it is the leaf's row placement (heads, FFN columns and the
@@ -61,6 +63,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import all_gather_cat, all_reduce_sum
+from repro_torch.kernels.ops import PackedWeights
 from repro_torch.launch.mesh import data_axes
 from repro_torch.tree import flatten_with_paths, leaves, unflatten_like
 
@@ -363,6 +366,67 @@ def shard_tensor(t: torch.Tensor, spec, mesh) -> torch.Tensor:
         elif n > 1:
             t = _block(t, dim, n, i)
     return t
+
+
+def packed_axis(pw: PackedWeights, n: int, prefer: str | None = None,
+                m_splits=None) -> str:
+    """The axis a rank's block of the :class:`PackedWeights` ``pw`` (a
+    matrix or an expert stack) is cut on over ``n`` ranks: ``prefer``
+    (the axis the planner placed the float weight on: 'M' its columns,
+    'K' its rows) where the weight can be cut there, else 'M' where its
+    columns divide (:meth:`ShardedPlan.place`'s order), else 'K', else
+    "replicated" (whole on every rank).  A quantized weight's K cut takes
+    whole scale blocks only (``K / n`` a multiple of ``block``: an int4
+    byte's two rows lie in one block), so a K cut that would split a
+    block, or a packed byte pair, is never made.  A fused weight of
+    members ``m_splits`` is cut on M only where every member's columns
+    divide (:func:`shard_packed` cuts each member)."""
+    if n <= 1:
+        return "replicated"
+    K, M = pw.shape
+    if m_splits is not None and any(m % n for m in m_splits):
+        M = 1
+    # a K block a rank may take: whole scale blocks, of whole int4 bytes
+    k_unit = (1 if pw.bits == 16 else
+              int(np.lcm(pw.block, 2)) if pw.bits == 4 else pw.block)
+
+    def cuts(axis):
+        return (M % n == 0 if axis == "M"
+                else K % n == 0 and (K // n) % k_unit == 0)
+
+    order = ((prefer,) if prefer in ("M", "K") else ()) + ("M", "K")
+    return next((a for a in order if cuts(a)), "replicated")
+
+
+def shard_packed(pw: PackedWeights, mesh, prefer: str | None = None,
+                 m_splits=None) -> tuple[PackedWeights, str]:
+    """This rank's block of the :class:`PackedWeights` ``pw`` along the
+    mesh's 'model' axis, on :func:`packed_axis`: an M cut takes its
+    columns of the codes and of the scales ``[K // block, M]``; a K cut
+    its whole scale blocks (rows of int8 codes, byte rows of packed int4
+    codes, two rows a byte) and their scale rows.  A fused weight of
+    members ``m_splits`` (``wqkv``, ``w_gateup``) cut on M is each
+    member's block side by side (``[q_r | k_r | v_r]``, as the float
+    fused leaves of :func:`serve_spec`).  Returns ``(block, axis)``; the
+    block is ``pw`` itself when the weight stays whole."""
+    n, i = mesh.size("model"), mesh.index("model")
+    axis = packed_axis(pw, n, prefer, m_splits)
+    if axis == "replicated":
+        return pw, axis
+    if axis == "M" and m_splits is not None and len(m_splits) > 1:
+        offs = np.cumsum([0, *m_splits])
+        parts = [shard_packed(pw.columns(int(lo), int(hi)), mesh, "M")[0]
+                 for lo, hi in zip(offs[:-1], offs[1:])]
+        return PackedWeights(
+            w_t=torch.cat([q.w_t for q in parts], dim=-1),
+            scales=(None if pw.scales is None else
+                    torch.cat([q.scales for q in parts], dim=-1)),
+            bits=pw.bits, block=pw.block), axis
+    dim = -1 if axis == "M" else -2
+    return PackedWeights(
+        w_t=_block(pw.w_t, dim, n, i),
+        scales=None if pw.scales is None else _block(pw.scales, dim, n, i),
+        bits=pw.bits, block=pw.block), axis
 
 
 def block_shape(shape: tuple[int, ...], spec, mesh) -> tuple[int, ...]:

@@ -657,15 +657,18 @@ def dispatch_gemv(x: torch.Tensor, weights, *,
                              policy or DEFAULT_POLICY, plan)
 
 
-def dispatch_dense(x: torch.Tensor, w_t: torch.Tensor, *,
+def dispatch_dense(x: torch.Tensor, w_t, *,
                    policy: DispatchPolicy | None = None,
                    shard: str | None = None) -> torch.Tensor:
     """Dense-layer adapter: x [B, S, d_in] @ w_t [d_in, d_out] -> [B, S,
     d_out].  Model layers store projections K-major already, so this wraps
-    without a transpose and flattens (B, S) into the GEMV batch."""
+    without a transpose and flattens (B, S) into the GEMV batch.  ``w_t``
+    may be a :class:`PackedWeights` (quantized ones too: a rank's block
+    from ``sharding.shard_packed``, with ``shard`` its axis)."""
     B, S, d = x.shape
+    pw = w_t if isinstance(w_t, PackedWeights) else from_transposed(w_t)
     out = _dispatch_request(
-        GemvRequest(x=x.reshape(B * S, d), weights=from_transposed(w_t)),
+        GemvRequest(x=x.reshape(B * S, d), weights=pw),
         policy or DEFAULT_POLICY, shard=shard)
     return out.reshape(B, S, out.shape[-1])
 

@@ -20,6 +20,7 @@ share it.  Under ``torchrun --nproc-per-node N``, :func:`make_mesh` reads
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import itertools
 import math
@@ -56,6 +57,8 @@ class Mesh:
     groups: dict[str, object] = field(default_factory=dict)
     device: torch.device | None = None
     backend: str | None = None
+    _side: "Mesh | None" = field(default=None, init=False, repr=False,
+                                 compare=False)
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -73,6 +76,25 @@ class Mesh:
 
     def group(self, axis: str):
         return self.groups.get(axis)
+
+    def side_mesh(self) -> "Mesh":
+        """This mesh with a second process group of its own on the
+        'model' axis, over the same ranks: collectives issued on a side
+        stream (``Engine(async_prefill=True)``'s chains) never share a
+        communicator with the main stream's, which under NCCL could order
+        the two streams' collectives differently on different ranks.
+        Made once (collectively, on the first call: every rank must make
+        it in the same order) and kept; a mesh without process groups is
+        its own side mesh."""
+        if self._side is None:
+            if self.groups.get("model") is None:
+                self._side = self
+            else:
+                shape = tuple(self.shape.values())
+                self._side = dataclasses.replace(
+                    self, groups={**self.groups, "model": _axis_group(
+                        self.rank, shape, self.axis_names, "model")})
+        return self._side
 
 
 def _coords(rank: int, shape: tuple[int, ...]) -> tuple[int, ...]:
@@ -119,6 +141,26 @@ def _init_from_env(device: torch.device) -> None:
     dist.init_process_group(backend, init_method="env://")
 
 
+def _axis_group(rank: int, shape: tuple[int, ...], axes: tuple[str, ...],
+                axis: str):
+    """``rank``'s process group along ``axis``: the ranks that share its
+    every other coordinate.  Collective: every rank creates every group
+    of the axis, in the same order, and keeps its own."""
+    i = axes.index(axis)
+    mine = None
+    others = [range(m) for j, m in enumerate(shape) if j != i]
+    for rest in itertools.product(*others):
+        ranks = []
+        for c in range(shape[i]):
+            full = list(rest)
+            full.insert(i, c)
+            ranks.append(_rank_of(tuple(full), shape))
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            mine = g
+    return mine
+
+
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
               device=None) -> Mesh:
     """The mesh ``shape`` over ``axes`` for this process, e.g. ``((1, 2),
@@ -143,21 +185,8 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
     if n != world:
         raise ValueError(f"mesh {shape} needs {n} processes, have {world}")
     mine = _coords(rank, shape)
-    groups: dict[str, object] = {}
-    for i, axis in enumerate(axes):
-        groups[axis] = None
-        if world == 1:
-            continue
-        others = [range(m) for j, m in enumerate(shape) if j != i]
-        for rest in itertools.product(*others):
-            ranks = []
-            for c in range(shape[i]):
-                full = list(rest)
-                full.insert(i, c)
-                ranks.append(_rank_of(tuple(full), shape))
-            g = dist.new_group(ranks)
-            if rank in ranks:
-                groups[axis] = g
+    groups = {axis: None if world == 1 else
+              _axis_group(rank, shape, axes, axis) for axis in axes}
     return Mesh(shape=dict(zip(axes, shape)), rank=rank,
                 coords=dict(zip(axes, mine)), groups=groups, device=dev,
                 backend=dist.get_backend() if dist.is_initialized()

@@ -143,11 +143,18 @@ Sharded serving runs every family: the dense and MoE decoders, whisper
 (its encoder and cross-attention as rank blocks), llama-vision (its
 cross-attention layers), rwkv6 (each time-mix on the rank's heads, each
 channel-mix on its ``d_ff`` columns) and hymba (its Mamba mixers on the
-rank's channels beside attention, cut where its heads divide); all
-without ``async_prefill``.  Every rank draws the same per-slot features
-(``make_features``) and a compaction swaps their rows by the same moves
-on every rank; a recurrent model's state rows are zeroed, saved,
-restored, snapshotted and spliced on every rank alike, each its block.
+rank's channels beside attention, cut where its heads divide).  Every
+rank draws the same per-slot features (``make_features``) and a
+compaction swaps their rows by the same moves on every rank; a recurrent
+model's state rows are zeroed, saved, restored, snapshotted and spliced
+on every rank alike, each its block.  With ``async_prefill`` every rank
+issues, moves and harvests the same chains at the same steps (a harvest
+waits for each chain fully issued: no readiness query decides), each on
+its row of the rank's prefill sub-cache (the rank's blocks of K/V, their
+scales and the state), the chains' collectives on a 'model' group of
+their own (``Mesh.side_mesh``): on the side stream they never share a
+communicator with the decode step's, which under NCCL could order the
+two streams' collectives differently on different ranks.
 """
 
 from __future__ import annotations
@@ -299,9 +306,6 @@ class Engine:
             from repro_torch.launch.mesh import model_axis_size
 
             shd.check_mesh_family(cfg)
-            if async_prefill:
-                raise NotImplementedError(
-                    "async_prefill under a mesh is not ported yet")
             model_shards = model_axis_size(mesh)
             device = device if device is not None else mesh.device
             # one writer of traces: rank 0
@@ -431,6 +435,15 @@ class Engine:
         self.side = (torch.cuda.Stream(self.device)
                      if self.async_prefill and self.device.type == "cuda"
                      else None)
+        # under a mesh the chains' collectives run on a 'model' group of
+        # their own (``Mesh.side_mesh``): on the side stream they never
+        # share a communicator with the decode step's.  Every rank issues
+        # and harvests the same chains in step: the host decisions are
+        # rank 0's (its clock), and a harvest waits for every chain fully
+        # issued, never on a readiness query
+        self.chain_mesh = (mesh.side_mesh()
+                           if mesh is not None and self.async_prefill
+                           else None)
         # the prefill forwards' captured graphs, one per (rows, length),
         # sharing one memory pool
         pbody = weakref.WeakMethod(self._prefill_body)
@@ -890,9 +903,12 @@ class Engine:
             if self.side is not None:
                 self.side.wait_stream(torch.cuda.current_stream(self.device))
         row = inf["row"]
-        ctx = (torch.cuda.stream(self.side) if self.side is not None
-               else contextlib.nullcontext())
-        with ctx:
+        stream = (torch.cuda.stream(self.side) if self.side is not None
+                  else contextlib.nullcontext())
+        chain_mesh = (activation_mesh(self.chain_mesh)
+                      if self.chain_mesh is not None
+                      else contextlib.nullcontext())
+        with stream, chain_mesh:
             last = self._run_chunk(
                 self.sub, row,
                 {k: v[row] for k, v in self.sub_features.items()}, chunk,

@@ -898,3 +898,241 @@ def tp_ranks(mesh, bridged=None, ckpt_dir: str | None = None,
             mesh, train_launcher_argv(directory, arch)
             + ["--mesh", f"{d}x{m}"], fail_at=(3,))
     return out
+
+
+# --------------------------------------------------------------------------
+# async_prefill and quantized rank blocks on a mesh
+# (test_torch_sharded_async.py)
+# --------------------------------------------------------------------------
+
+ASYNC_KW = dict(async_prefill=True, prefill_chunk=8, prefix_cache=True)
+# name: (arch, plan); every family of MESH_FAMILIES' kinds, each weight
+# tree as its family's mesh tests draw it (the recurrent ones perturbed,
+# whisper gated)
+ASYNC_CASES = {
+    "olmo": ("olmo-1b", "amix"),
+    "olmo_preempt": ("olmo-1b", "apreempt"),
+    "deepseek": ("deepseek-moe-16b", "amix"),
+    "rwkv": ("rwkv6-3b", "amix"),
+    "hymba": ("hymba-1.5b", "amix"),
+    "hymba_preempt": ("hymba-1.5b", "apreempt"),
+    "whisper": ("whisper-small", "amix"),
+}
+
+
+def async_plan(vocab: int) -> list[tuple]:
+    """Chunk 8, 4 slots: a 20-token prompt (three chunks) and two short
+    ones that finish at step 1, when a 30-token prompt's chain, issued in
+    the slot above them, is in flight: the compaction moves it; at step 4
+    a prompt that starts with the first one whole (landed at step 3) and
+    7 tokens more: a prefix hit (a state snapshot for a recurrent model),
+    whose tail chains from the slot's spliced row."""
+    p = prompts(vocab, [20, 3, 4, 30, 7], seed=43)
+    return [(0, 0, p[0], 6, None), (0, 1, p[1], 2, None),
+            (0, 2, p[2], 2, None), (1, 3, p[3], 4, None),
+            (4, 4, np.concatenate([p[0], p[4]]), 4, None)]
+
+
+def async_preempt_plan(vocab: int) -> list[tuple]:
+    """One slot, chunk 4: a 20-token prompt mid-chain when a request
+    whose deadline (3.0 on rank 0's clock) is inside the margin arrives
+    at step 1: the chain lands, is filed and its slot freed."""
+    p = prompts(vocab, [20, 4], seed=23)
+    return [(0, 0, p[0], 3, None), (1, 1, p[1], 2, 3.0)]
+
+
+def async_config(name: str):
+    arch = ASYNC_CASES[name][0]
+    if arch == "whisper-small":
+        return mm_config("whisper")
+    return get_config(arch).reduced()
+
+
+def async_params(name: str) -> dict:
+    """Case ``name``'s whole weights: the port's seeded init (perturbed
+    for a recurrent model, every ``cross_gate`` at ``MM_GATE``)."""
+    cfg = async_config(name)
+    params = lm.init_lm(cfg, seed=0, device="cpu")
+    if cfg.family in ("ssm", "hybrid") or cfg.parallel_ssm:
+        return perturb_state(params, cfg)
+    return gated(params)
+
+
+def async_engine_kw(name: str) -> dict:
+    """The engine's arguments beside ``ASYNC_KW``: slots, chunk and
+    scheduler of the case's plan (the JAX engine takes the same)."""
+    if ASYNC_CASES[name][1] == "apreempt":
+        return dict(batch_slots=1, prefill_chunk=4)
+    return dict(batch_slots=4)
+
+
+def async_plan_of(name: str, vocab: int) -> list[tuple]:
+    return (async_preempt_plan(vocab) if ASYNC_CASES[name][1] == "apreempt"
+            else async_plan(vocab))
+
+
+def async_serve(name: str, mesh=None, async_prefill: bool = True) -> dict:
+    """Case ``name`` on the port's engine with ``async_prefill`` (this
+    rank's share with ``mesh``), from the whole tree: tokens, sampled
+    rows, counters, the overlap counters, the chains a compaction moved,
+    each chain that started past position 0 (a prefix hit) with whether
+    its row started as the slot's spliced row (every state leaf and the
+    landed positions, bit for bit), the sub-cache's and slot cache's leaf
+    shapes."""
+    cfg = async_config(name)
+    kw = {**ASYNC_KW, **async_engine_kw(name),
+          **(MOE_KW if cfg.moe is not None else {})}
+    kw["async_prefill"] = async_prefill
+    preempt = ASYNC_CASES[name][1] == "apreempt"
+    clk = FakeClock()
+    dispatch.clear_plan_cache()
+    eng = Engine(cfg, async_params(name), max_len=MAX_LEN, device="cpu",
+                 clock=clk, mesh=mesh,
+                 scheduler=(SchedulerConfig(**PREEMPT) if preempt
+                            else "fcfs"), **kw)
+    rows: dict[int, list] = {}
+    sample = eng._sample
+
+    def recorded(r, row):
+        rows.setdefault(r.rid, []).append(np.array(row))
+        return sample(r, row)
+
+    eng._sample = recorded
+    moved, compact = [], eng._compact
+
+    def spied_compact():
+        before = set(eng._inflight)
+        compact()
+        moved.extend(sorted(before - set(eng._inflight)))
+
+    eng._compact = spied_compact
+    starts, issue = [], eng._issue_chain_chunk
+
+    def spied_issue(slot, chunk, consumed, chunk_limit, *, final):
+        fresh = slot not in eng._inflight
+        if fresh and consumed > 0:
+            row = eng._free_rows[0]
+            run = eng._run_chunk
+
+            def first_chunk(cache, r, features, ch, cons, limit):
+                same = all(torch.equal(cache[n][:, r], eng.kv.cache[n][:, slot])
+                           for n in eng.kv.state_names)
+                same = same and all(
+                    torch.equal(cache[n][:, r, :cons],
+                                eng.kv.cache[n][:, slot, :cons])
+                    for n in cache if n not in eng.kv.state_names
+                    and n != "pos")
+                starts.append({"consumed": consumed, "row": r,
+                               "state_leaves": len(eng.kv.state_names),
+                               "from_slot": bool(same),
+                               "state_nonzero": all(
+                                   bool(cache[n][:, r].any())
+                                   for n in eng.kv.state_names)})
+                eng._run_chunk = run
+                return run(cache, r, features, ch, cons, limit)
+
+            assert row >= 1
+            eng._run_chunk = first_chunk
+        return issue(slot, chunk, consumed, chunk_limit, final=final)
+
+    if async_prefill:
+        eng._issue_chain_chunk = spied_issue
+    reqs = drive(eng, Request, async_plan_of(name, cfg.vocab), clk)
+    stats = dispatch.dispatch_stats()
+    return {"tokens": {rid: list(r.generated) for rid, r in reqs.items()},
+            "rows": rows, "counters": dict(eng.metrics.counters),
+            "overlap": stats["overlap"]["async_prefill"],
+            "chains_moved": moved, "hit_chains": starts,
+            "evictions": {rid: r.evictions for rid, r in reqs.items()},
+            "inflight": len(eng._inflight),
+            "chain_group": (eng.chain_mesh.group("model")
+                            is not (mesh.group("model") if mesh else None)
+                            if eng.chain_mesh is not None else None),
+            "sub": {k: tuple(v.shape) for k, v in eng.sub.items()},
+            "cache": {k: v.clone() for k, v in eng.kv.cache.items()}}
+
+
+# quantized rank blocks: name: (K, M, bits, the float weight's axis);
+# the K cuts on an odd M (a K cut or none), the last two where a K cut
+# would split a 32-row scale block (K / 2 = 48): M is taken instead, or
+# the weight stays whole
+QUANT_CASES = {
+    "int8_M": (128, 96, 8, "M"),
+    "int8_K": (128, 45, 8, "K"),
+    "int4_M": (128, 96, 4, "M"),
+    "int4_K": (128, 45, 4, "K"),
+    "int8_K_to_M": (96, 64, 8, "K"),
+    "int4_whole": (96, 45, 4, "K"),
+}
+QUANT_B = 3
+
+
+def quant_inputs(name: str) -> tuple[np.ndarray, np.ndarray]:
+    """Case ``name``'s whole float weight ``w [M, K]`` and ``x [B, K]``
+    (numpy, seeded by the case's shape)."""
+    K, M, bits, _ = QUANT_CASES[name]
+    rng = np.random.default_rng(K * 1000 + M + bits)
+    return (rng.standard_normal((M, K)).astype(np.float32) / np.sqrt(K),
+            rng.standard_normal((QUANT_B, K)).astype(np.float32))
+
+
+def quant_blocks(mesh) -> dict:
+    """Every ``QUANT_CASES`` weight quantized whole, cut to this rank's
+    block (``sharding.shard_packed``) and dispatched with ``shard=`` its
+    axis under a 2-shard policy on the ``cpu`` backend: through
+    ``dispatch_dense`` alone, and the M cuts also as one fused program of
+    two members (``dispatch_fused``); an M output gathered over 'model',
+    a K partial all-reduced in f32.  Also each block against the block
+    of the float weight quantized on its own."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.backends import DispatchPolicy
+    from repro_torch.kernels.ops import quantize_weight
+
+    group = mesh.group("model")
+    policy = DispatchPolicy(model_shards=2, backend="cpu")
+    out = {}
+    for name, (K, M, bits, prefer) in QUANT_CASES.items():
+        w, x = quant_inputs(name)
+        pw = quantize_weight(torch.from_numpy(w), bits=bits)
+        block, axis = shd.shard_packed(pw, mesh, prefer)
+        xt = torch.from_numpy(x)
+        if axis == "K":
+            xt = xt.chunk(2, dim=1)[mesh.index("model")]
+        dispatch.clear_plan_cache()
+        y = dispatch.dispatch_dense(xt[:, None], block, policy=policy,
+                                    shard=axis)[:, 0]
+        if axis == "M":
+            y = coll.all_gather_cat(y, group, dim=-1)
+        elif axis == "K":
+            y = coll.all_reduce_sum(y, group)
+        res = {"axis": axis, "y": y, "stats": dispatch.dispatch_stats(),
+               "block_shape": (tuple(block.w_t.shape),
+                               tuple(block.scales.shape))}
+        # the same block as the rank's own float block quantized: a cut
+        # of whole scale blocks changes no scale
+        wf = torch.from_numpy(w)
+        own = quantize_weight(
+            wf.chunk(2, dim=0)[mesh.index("model")] if axis == "M" else
+            wf.chunk(2, dim=1)[mesh.index("model")] if axis == "K" else wf,
+            bits=bits)
+        res["equals_own"] = (torch.equal(own.w_t, block.w_t)
+                             and torch.equal(own.scales, block.scales))
+        if axis == "M":
+            dispatch.clear_plan_cache()
+            a, b = dispatch.dispatch_fused(
+                torch.from_numpy(x), [block, block], policy=policy,
+                shard=axis)
+            res["fused"] = (coll.all_gather_cat(a, group, dim=-1),
+                            coll.all_gather_cat(b, group, dim=-1))
+            res["fused_stats"] = dispatch.dispatch_stats()
+        out[name] = res
+    return out
+
+
+def run_async_cases(mesh, names) -> dict:
+    """Every async case in ``names`` on this rank, then the quantized
+    rank blocks."""
+    out = {name: async_serve(name, mesh) for name in names}
+    out["quant"] = quant_blocks(mesh)
+    out["coords"] = dict(mesh.coords)
+    return out

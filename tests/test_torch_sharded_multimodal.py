@@ -226,14 +226,24 @@ def test_gloo_ranks_run_eagerly_without_a_prefix_cache(ranks):
 
 @pytest.mark.parametrize("arch, item", [("rwkv6-3b", "2b"),
                                         ("hymba-1.5b", "2b")])
-def test_recurrent_families_and_async_prefill_stay_refused(arch, item):
+def test_recurrent_families_and_async_prefill_stay_refused(arch, item,
+                                                           monkeypatch):
     """Since ROADMAP queue 1 item 2b ssm and hybrid run on a mesh: the
     family check passes and a rank's serving tree cuts their mixers (a
     time-mix on the rank's heads, a Mamba mixer on its channels), with no
-    collective.  ``async_prefill`` on a mesh still raises for every
-    family, these two included (before any collective: this mesh has no
-    process groups)."""
+    collective.  Since item 2c ``async_prefill`` runs on a mesh too: the
+    engine builds for these two families and for whisper and
+    llama-vision, and the prefill sub-cache its chains run on holds the
+    rank's block of every leaf (``slot_cache_spec``), with a row more
+    than the slots.  This mesh has no process groups: the chains' side
+    mesh is the mesh itself, and construction's one collective, rank
+    0's autotune table broadcast, is recorded instead of made (the
+    engine on a gloo group: ``test_torch_sharded_async.py``)."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.serving import engine as engine_mod
+
+    shared = []
+    monkeypatch.setattr(engine_mod, "share_autotune_table", shared.append)
 
     mesh = Mesh(shape={"data": 1, "model": 2}, rank=0,
                 coords={"data": 0, "model": 0})
@@ -250,11 +260,22 @@ def test_recurrent_families_and_async_prefill_stay_refused(arch, item):
         x1, z = w_in.chunk(2, dim=-1)
         assert torch.equal(layer["mamba"]["w_in"], torch.cat(
             [x1.chunk(2, dim=-1)[0], z.chunk(2, dim=-1)[0]], dim=-1))
-    with pytest.raises(NotImplementedError, match="async_prefill"):
-        Engine(cfg, params, device="cpu", mesh=mesh, async_prefill=True)
-    for name in ("whisper", "vision"):
-        mcfg = W.mm_config(name)
-        shd.check_mesh_family(mcfg)
-        with pytest.raises(NotImplementedError, match="async_prefill"):
-            Engine(mcfg, lm.init_lm(mcfg, seed=0, device="cpu"),
-                   device="cpu", mesh=mesh, async_prefill=True)
+    for c, p in [(cfg, params)] + [
+            (W.mm_config(n), lm.init_lm(W.mm_config(n), seed=0,
+                                        device="cpu"))
+            for n in ("whisper", "vision")]:
+        shd.check_mesh_family(c)
+        eng = Engine(c, p, device="cpu", mesh=mesh, async_prefill=True,
+                     batch_slots=2, max_len=W.MAX_LEN)
+        assert eng.async_prefill and eng.chain_mesh is mesh
+        whole_sub = lm.init_cache(c, 3, W.MAX_LEN, per_slot_pos=True,
+                                  device="cpu")
+        assert eng.sub.keys() == whole_sub.keys()
+        cut = 0
+        for name, leaf in whole_sub.items():
+            spec = shd.slot_cache_spec(mesh, c, tuple(leaf.shape), name)
+            assert eng.sub[name].shape == shd.block_shape(
+                tuple(leaf.shape), spec, mesh), (c.name, name)
+            cut += "model" in spec
+        assert cut > 0, c.name
+    assert shared == [mesh] * 3
