@@ -325,10 +325,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    patches) and whisper-small (self G 1, 6 heads of 64; cross over 1500
    frames), each against its plain version and timed beside its bound;
    the h100 picks at whisper's rank shapes, logged; then ``[mesh]``:
-   each model at full width (deepseek at 14 of 28 layers, grok at 2 of
+   each model at full width (deepseek at 7 of 28 layers, grok at 2 of
    64, whisper-small whole,
    llama-vision at 5 of 40: cross layer 4; every ``cross_gate``
-   1.0; rwkv6-3b at 12 of 32, hymba-1.5b at 16 of 32, their seeded init
+   1.0; rwkv6-3b at 6 of 32, hymba-1.5b at 16 of 32, their seeded init
    unperturbed) first on the unsharded engine here, eagerly, then on the two
    ranks of one (1, 2) mesh started by ``launch.mesh.spawn``, sharing
    this card over gloo (eager: gloo collectives cannot be captured), with
@@ -395,9 +395,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    the one-process step's.  The phase alone: ``python3 -c "import
    torch, chip_smoke as cs; cs.run_train(torch.device('cuda', 0))"``;
 22. ``[train mesh]``: model-parallel training, where no port kernel runs
-   either.  Ranks of a (1, 2) and a (2, 2) mesh share this card over
-   gloo through ``spawn``, each holding its stored blocks
-   (``sharding.train_spec``).  olmo-1b (AdamW) on (2, 2),
+   either.  The four ranks of one (2, 2) spawn share this card over
+   gloo, each holding its stored blocks (``sharding.train_spec``); in
+   the same world they then make a (2, 1, 2) mesh over ``("pod", "data",
+   "model")`` ('pod' folded into data parallelism: the FSDP entry
+   ``("pod", "data")``), and ranks 0 and 1 a (1, 2) mesh of their own.
+   olmo-1b (AdamW) on (2, 2) and on (2, 1, 2),
    deepseek-moe-16b (AdamW, experts cut over 'model') and olmo-1b with
    Adafactor on (1, 2), rwkv6-3b and hymba-1.5b (AdamW: a time-mix on a
    rank's heads, a Mamba mixer on its channels) on (1, 2), at full width
@@ -415,7 +418,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    much larger than its step by an ulp of the weight; against the
    one-process step's own params only printed: AdamW's first step moves a
    weight by about ``sign(g) * lr``), every block two ranks both hold
-   bit-equal, no port kernel launched.  The (2, 2) run's params and
+   bit-equal, no port kernel launched.  The (2, 1, 2) run's params and
    state are checkpointed (full leaves) and restored onto (1, 2) and onto
    one process, bit-equal to the saved leaves; so are whisper's and
    hymba's (1, 2) runs (``w_in`` gathered as ``[x1 | z]``) onto one
@@ -575,7 +578,12 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.layers import GATED  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.distributed.collectives import all_reduce_sum  # noqa: E402
-from repro_torch.launch.mesh import Mesh, spawn  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    MULTI_POD_AXES,
+    Mesh,
+    make_mesh,
+    spawn,
+)
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.train.optimizer import (  # noqa: E402
@@ -5164,16 +5172,18 @@ def mesh_mix(arch: str) -> tuple[list[int], int]:
     return MESH_MIXES.get(arch, (MESH_LENGTHS, MESH_TOKENS))
 
 
-# (arch, layers kept; None: all): deepseek-moe-16b at 14 of its 28
+# (arch, layers kept; None: all): deepseek-moe-16b at 7 of its 28
 # layers, grok-1-314b at 2 of its 64 layers,
 # whisper-small whole (12 + 12 layers, 1500 frames), llama-3.2-vision-11b
 # at 5 of its 40 (one group of five: cross layer 4), every
-# cross_gate at MM_GATE (mesh_params); rwkv6-3b at 12 of its 32 layers and
+# cross_gate at MM_GATE (mesh_params); rwkv6-3b at 6 of its 32 layers and
 # hymba-1.5b at 16 of 32 (its layer 15 global; not 8, the depth whose
-# state rows have a decode batch's shape)
-MESH_MODELS = (("olmo-1b", None), ("deepseek-moe-16b", 14),
+# state rows have a decode batch's shape).  deepseek's and rwkv6's depth
+# is what keeps the script inside its time beside [train mesh]'s (2, 1,
+# 2) case: each layer repeats the same rank blocks and gloo sums
+MESH_MODELS = (("olmo-1b", None), ("deepseek-moe-16b", 7),
                ("grok-1-314b", 2), ("whisper-small", None),
-               ("llama-3.2-vision-11b", 5), ("rwkv6-3b", 12),
+               ("llama-3.2-vision-11b", 5), ("rwkv6-3b", 6),
                ("hymba-1.5b", 16))
 # the recurrent models' mix (prompt lengths, greedy tokens each): the
 # 256-token prompt chunked by MESH_CHUNK, the third request done first (a
@@ -6413,9 +6423,13 @@ TRAIN_MESH_RUNS = {
              ("hymba-1.5b adamw", "hymba-1.5b", "adamw",
               TRAIN_MESH_LAYERS)),
     (2, 2): (("olmo-1b adamw", "olmo-1b", "adamw", TRAIN_MESH_LAYERS),),
+    # 'pod' folded into data parallelism beside 'model': a mesh of its own
+    # on the (2, 2) spawn's four ranks, in the same world (no new spawn)
+    (2, 1, 2): (("olmo-1b adamw", "olmo-1b", "adamw", TRAIN_MESH_LAYERS),),
 }
+TRAIN_MESH_POD = (2, 1, 2)
 TRAIN_MESH_CKPT = ROOT / "build" / "train_mesh_ckpt"
-TRAIN_MESH_SAVED = "olmo-1b adamw"      # the (2, 2) run it checkpoints
+TRAIN_MESH_SAVED = "olmo-1b adamw"      # the (2, 1, 2) run it checkpoints
 # the (1, 2) runs checkpointed and each restored onto one process
 TRAIN_MESH_ONE_SAVED = {
     "whisper-small adamw": ROOT / "build" / "train_mesh_mm_ckpt",
@@ -6509,13 +6523,17 @@ def train_mesh_reference(cfg, tcfg, batch, grads, new, norm: float,
 
 
 def train_mesh_case(mesh, name: str, arch: str, opt: str,
-                    layers: int | None, save_dir: str | None) -> dict:
+                    layers: int | None, save_dir: str | None,
+                    world=None) -> dict:
     """One run on this rank: a step's gradients alone, then the step, on
     the rank's stored blocks; their digests (and the specs they are cut
     by) for the whole-leaf check; the whole gradients and params
     gathered for rank 0's checks; with ``save_dir`` the stepped params
-    and state saved there (full leaves, rank 0 writing)."""
+    and state saved there (full leaves, rank 0 writing).  ``world`` is
+    the process group of the mesh's ranks (None: every rank)."""
     import torch.distributed as dist
+
+    world = world or dist.group.WORLD
 
     t_case = time.perf_counter()
     dev = mesh.device
@@ -6543,12 +6561,12 @@ def train_mesh_case(mesh, name: str, arch: str, opt: str,
                     for k, v in trees.items()}
     # the blocks another rank holds too: a leaf not cut along some axis
     axes = {a for a, n in mesh.shape.items() if n > 1}
-    res["digests"] = {k: leaf_digests(v, [bool(axes - set(x))
+    res["digests"] = {k: leaf_digests(v, [bool(axes - spec_axes(x))
                                           for x in res["specs"][k]])
                       for k, v in trees.items()}
     if save_dir is not None:
         saved = {"params": new, "opt": new_state}
-        CheckpointManager(save_dir, group=dist.group.WORLD).save(
+        CheckpointManager(save_dir, group=world).save(
             1, saved, shardings=shd.train_specs_of(saved, mesh, cfg),
             mesh=mesh)
     del params, state, new_state
@@ -6562,7 +6580,7 @@ def train_mesh_case(mesh, name: str, arch: str, opt: str,
     # every rank has let go of its blocks before rank 0's reference takes
     # the card (on a slow host a rank that freed late left deepseek's
     # reference out of memory)
-    dist.barrier()
+    dist.barrier(group=world)
     if mesh.rank == 0:
         res["free_gb_at_reference"] = torch.cuda.mem_get_info(dev)[0] / 1e9
         res["check"] = train_mesh_reference(cfg, tcfg, batch, *full,
@@ -6574,15 +6592,15 @@ def train_mesh_case(mesh, name: str, arch: str, opt: str,
     del full
     gc.collect()
     torch.cuda.empty_cache()
-    dist.barrier()      # the ranks start the next run together
+    dist.barrier(group=world)   # the ranks start the next run together
     return res
 
 
 def train_mesh_restore(mesh, restore_dir: str) -> dict:
-    """The (2, 2) mesh's checkpoint restored onto this mesh (each rank
+    """The (2, 1, 2) mesh's checkpoint restored onto this mesh (each rank
     cutting its blocks from the full leaves): the digests of the full
     leaves, gathered back."""
-    cfg, tcfg, _ = train_mesh_setup(*TRAIN_MESH_RUNS[(2, 2)][0][1:])
+    cfg, tcfg, _ = train_mesh_setup(*TRAIN_MESH_RUNS[TRAIN_MESH_POD][0][1:])
     _, opt_init = build_train_step(cfg, tcfg, mesh=mesh)
     params = lm.init_lm(cfg, seed=SEED + 1, device=mesh.device, mesh=mesh,
                         train=True)
@@ -6595,20 +6613,61 @@ def train_mesh_restore(mesh, restore_dir: str) -> dict:
     return {"digests": leaf_digests(full), "block_shapes": shapes}
 
 
-def train_mesh_rank(mesh, runs, saves=None, restore_dir=None) -> dict:
-    """Every run of ``runs`` on this rank (a run named in ``saves``
-    checkpointed into its directory there), then with ``restore_dir``
-    the restore."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def train_mesh_runs(mesh, runs, saves=None, world=None) -> dict:
+    """Every run of ``runs`` on this rank of ``mesh`` (a run named in
+    ``saves`` checkpointed into its directory there; ``world`` the
+    mesh's process group, as ``train_mesh_case``'s)."""
     out = {"rank": mesh.rank, "coords": dict(mesh.coords),
            "backend": mesh.backend, "device": str(mesh.device), "runs": {}}
     for name, arch, opt, layers in runs:
         out["runs"][name] = train_mesh_case(
-            mesh, name, arch, opt, layers, (saves or {}).get(name))
-    if restore_dir is not None:
-        out["restore"] = train_mesh_restore(mesh, restore_dir)
+            mesh, name, arch, opt, layers, (saves or {}).get(name), world)
     return out
+
+
+def train_mesh_sub(mesh):
+    """``(mesh', group)``: a (1, 2) mesh over ranks 0 and 1 of the world
+    (None on the other ranks) and its process group, which every rank
+    creates."""
+    import torch.distributed as dist
+
+    group = dist.new_group([0, 1])
+    if mesh.rank > 1:
+        return None, group
+    return Mesh(shape={"data": 1, "model": 2}, rank=mesh.rank,
+                coords={"data": 0, "model": mesh.rank},
+                groups={"data": None, "model": group}, device=mesh.device,
+                backend=mesh.backend), group
+
+
+def train_mesh_rank(mesh, runs, pod_runs, pod_saves, sub_runs, sub_saves,
+                    restore_dir) -> dict:
+    """On this rank of the (2, 2) spawn: every run of ``runs``; then the
+    same ranks make a ``TRAIN_MESH_POD`` mesh in their world and run
+    ``pod_runs`` there (``out["pod"]``, ``pod_saves`` as ``saves``);
+    then ranks 0 and 1 run ``sub_runs`` on a (1, 2) mesh of their own
+    (``out["sub"]``) and restore ``restore_dir`` onto it, while ranks 2
+    and 3 wait: one spawn for the three meshes."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = train_mesh_runs(mesh, runs)
+    pod = make_mesh(TRAIN_MESH_POD, MULTI_POD_AXES, device=mesh.device)
+    out["pod"] = train_mesh_runs(pod, pod_runs, pod_saves)
+    sub, group = train_mesh_sub(mesh)
+    if sub is not None:
+        out["sub"] = train_mesh_runs(sub, sub_runs, sub_saves, group)
+        out["sub"]["restore"] = train_mesh_restore(sub, restore_dir)
+    dist.barrier()
+    return out
+
+
+def spec_axes(spec) -> set:
+    """The mesh axes a spec cuts by (an entry over several axes, each of
+    them: ``("pod", "data")`` cuts along both)."""
+    return {a for e in spec if e is not None
+            for a in (e if isinstance(e, (tuple, list)) else (e,))}
 
 
 def whole_leaves_equal(ranks: list[dict], name: str) -> int:
@@ -6625,7 +6684,7 @@ def whole_leaves_equal(ranks: list[dict], name: str) -> int:
                 di = ranks[i]["runs"][name]["digests"][key]
                 dj = ranks[j]["runs"][name]["digests"][key]
                 for a, b, spec in zip(di, dj, specs):
-                    if a is not None and not differ & set(spec):
+                    if a is not None and not differ & spec_axes(spec):
                         if a != b:
                             raise AssertionError(
                                 f"[train mesh] {name}: a {key} leaf held "
@@ -6664,19 +6723,25 @@ def run_train_mesh(dev) -> dict:
         shutil.rmtree(d, ignore_errors=True)
     out = {"card": card, "meshes": {}}
     try:
-        for shape in ((2, 2), (1, 2)):
-            kw = ({"saves": {TRAIN_MESH_SAVED: str(TRAIN_MESH_CKPT)}}
-                  if shape == (2, 2) else
-                  {"restore_dir": str(TRAIN_MESH_CKPT),
-                   "saves": {k: str(v)
-                             for k, v in TRAIN_MESH_ONE_SAVED.items()}})
-            t0 = time.perf_counter()
-            ranks = spawn(train_mesh_rank, shape, timeout_s=MESH_TIMEOUT_S,
-                          args=(TRAIN_MESH_RUNS[shape],), kwargs=kw)
-            out["meshes"][f"{shape[0]}x{shape[1]}"] = {
-                "ranks": ranks, "spawn_s": time.perf_counter() - t0}
-        # the (2, 2) checkpoint restored onto one process, on the card
-        cfg, tcfg, _ = train_mesh_setup(*TRAIN_MESH_RUNS[(2, 2)][0][1:])
+        t0 = time.perf_counter()
+        ranks = spawn(train_mesh_rank, (2, 2), timeout_s=MESH_TIMEOUT_S,
+                      args=(TRAIN_MESH_RUNS[(2, 2)],), kwargs={
+                          "pod_runs": TRAIN_MESH_RUNS[TRAIN_MESH_POD],
+                          "pod_saves": {TRAIN_MESH_SAVED:
+                                        str(TRAIN_MESH_CKPT)},
+                          "sub_runs": TRAIN_MESH_RUNS[(1, 2)],
+                          "sub_saves": {k: str(v) for k, v in
+                                        TRAIN_MESH_ONE_SAVED.items()},
+                          "restore_dir": str(TRAIN_MESH_CKPT)})
+        out["meshes"] = {
+            "2x2": {"ranks": ranks, "spawn_s": time.perf_counter() - t0},
+            "x".join(map(str, TRAIN_MESH_POD)): {
+                "ranks": [r.pop("pod") for r in ranks], "spawn_s": None},
+            "1x2": {"ranks": [r.pop("sub") for r in ranks[:2]],
+                    "spawn_s": None}}
+        # the (2, 1, 2) checkpoint restored onto one process, on the card
+        cfg, tcfg, _ = train_mesh_setup(
+            *TRAIN_MESH_RUNS[TRAIN_MESH_POD][0][1:])
         _, opt_init = build_train_step(cfg, tcfg)
         params = lm.init_lm(cfg, seed=SEED + 1, device=dev)
         restored, _ = CheckpointManager(str(TRAIN_MESH_CKPT)).restore(
@@ -6753,13 +6818,15 @@ def run_train_mesh(dev) -> dict:
                     f"ms, step {rr['step_s'] * 1e3:.1f} ms, peak "
                     f"{rr['peak_gb']:.2f} GB (ranks share one card over "
                     f"gloo: not a mesh's speed)")
-        log(f"  spawn ({mname}) {mres['spawn_s']:.1f} s")
+        log(f"  spawn ({mname}) {mres['spawn_s']:.1f} s"
+            if mres["spawn_s"] is not None else
+            f"  ({mname}: on the (2, 2) spawn's ranks, a mesh of their own)")
     restored_12 = [r["restore"]["digests"]
                    for r in out["meshes"]["1x2"]["ranks"]]
     restore_ok = (all(d == saved for d in restored_12)
                   and one_digests == saved)
     one_ok = {name: got == want for name, (got, want) in one_saved.items()}
-    log(f"[train mesh] the (2, 2) checkpoint ({len(saved)} leaves: "
+    log(f"[train mesh] the (2, 1, 2) checkpoint ({len(saved)} leaves: "
         f"{TRAIN_MESH_SAVED}'s params and AdamW state) restored onto (1, 2) "
         f"(each rank's blocks, e.g. "
         f"{out['meshes']['1x2']['ranks'][0]['restore']['block_shapes'][-1]})"
@@ -7242,9 +7309,9 @@ def main() -> int:
         "each against its plain version, timed")
     rows += check_mesh_kernels(dev)
     clock.lap("mesh kernels")
-    log("[mesh] olmo-1b, deepseek-moe-16b (14 of 28 layers), grok-1-314b "
+    log("[mesh] olmo-1b, deepseek-moe-16b (7 of 28 layers), grok-1-314b "
         "(2 of 64), whisper-small, llama-3.2-vision-11b (5 of 40 layers, cross_gate "
-        f"{MM_GATE}), rwkv6-3b (12 of 32) and hymba-1.5b (16 of 32) at "
+        f"{MM_GATE}), rwkv6-3b (6 of 32) and hymba-1.5b (16 of 32) at "
         "full width, bf16: unsharded here (eager), then two ranks of a "
         "(1, 2) mesh sharing this card over gloo; [mesh async] olmo-1b and "
         "hymba-1.5b once more with async_prefill, [mesh quant] olmo-1b's "
@@ -7260,10 +7327,11 @@ def main() -> int:
     log("[train mesh] olmo-1b (AdamW, Adafactor), deepseek-moe-16b, "
         "rwkv6-3b and hymba-1.5b at full width and 1 layer, whisper-small "
         "at full width and 4 + 4 layers, "
-        "f32: a (1, 2) and a (2, 2) mesh of ranks "
-        "sharing this card over gloo, against the one-process step; the "
-        "(2, 2) checkpoint restored onto (1, 2) and one process, whisper's "
-        "and hymba's (1, 2) ones onto one process")
+        "f32: a (2, 2), a (2, 1, 2) ('pod' x 'model') and a (1, 2) mesh, "
+        "all on one spawn's ranks sharing this card over gloo, against "
+        "the one-process step; the (2, 1, 2) checkpoint restored onto "
+        "(1, 2) and one process, whisper's and hymba's (1, 2) ones onto "
+        "one process")
     train_mesh = run_train_mesh(dev)
     clock.lap("train mesh")
 

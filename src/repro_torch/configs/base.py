@@ -6,7 +6,8 @@ frame embeddings), vlm (llama-3.2-vision: gated cross-attention over
 stub patch embeddings), ssm (rwkv6: attention-free time-mix and
 channel-mix over a recurrent state) or hybrid (hymba: Mamba heads in
 parallel with sliding-window attention, ``parallel_ssm``) decoder needs;
-``hd``, ``attn_free``, ``is_global_layer``, ``is_cross_layer`` and
+``hd``, ``attn_free``, ``sub_quadratic``, ``param_count``,
+``active_param_count``, ``is_global_layer``, ``is_cross_layer`` and
 ``reduced()``; and the training fields ``optimizer`` and ``remat``.
 """
 
@@ -87,6 +88,62 @@ class ModelConfig:
     @property
     def attn_free(self) -> bool:
         return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the dry run's long_500k shape (the reference's
+        rule: recurrent families, or local/global attention)."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.attn_pattern == "local_global"
+
+    def param_count(self) -> int:
+        """The reference's analytic parameter count (its 6·N·D roofline
+        terms), formula for formula."""
+        d, hd = self.d_model, self.hd
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+            + self.n_heads * hd * d
+        gated = self.act in ("silu", "geglu")
+        ffn = (3 if gated else 2) * d * self.d_ff
+        per_layer = attn if not self.attn_free else 0
+        if self.moe is not None:
+            e = self.moe
+            nm = 3 if gated else 2
+            per_layer += e.n_experts * (nm * d * e.d_expert) \
+                + e.n_shared * (nm * d * e.d_expert) + d * e.n_experts
+        else:
+            per_layer += ffn
+        if self.family == "ssm" and self.ssm and self.ssm.kind == "rwkv6":
+            per_layer = 5 * d * d + d * d + 2 * d * self.d_ff + d * self.d_ff
+        if self.parallel_ssm and self.ssm:
+            di = self.ssm.expand * d
+            per_layer += 2 * d * di + di * d + di * self.ssm.state_dim * 2
+        if self.cross_attn_every > 0:
+            frac = 1.0 / self.cross_attn_every
+            per_layer += int(frac * (2 * d * self.n_kv_heads * hd
+                                     + 2 * d * self.n_heads * hd))
+        total = self.n_layers * per_layer + self.vocab * d
+        if not self.tie_embeddings:
+            total += self.vocab * d
+        if self.encoder is not None:
+            enc = self.encoder
+            total += enc.n_layers * (4 * enc.d_model ** 2
+                                     + 2 * enc.d_model * enc.d_ff)
+            total += self.n_layers * 4 * d * d
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params a token (MoE: the routed top-k and the shared
+        experts only), the reference's formula."""
+        if self.moe is None:
+            return self.param_count()
+        e = self.moe
+        nm = 3 if self.act in ("silu", "geglu") else 2
+        dense_like = self.param_count() - self.n_layers * (
+            e.n_experts * nm * self.d_model * e.d_expert)
+        active_moe = self.n_layers * (e.top_k * nm * self.d_model
+                                      * e.d_expert)
+        return dense_like + active_moe
 
     def is_global_layer(self, i: int) -> bool:
         if self.attn_pattern != "local_global" or self.global_every <= 0:

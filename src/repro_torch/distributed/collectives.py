@@ -25,14 +25,132 @@ Three kinds:
   gradient mean with a compressed payload (:func:`compressed_psum_mean`:
   ``"none"``, ``"bf16"``, ``"int8"`` with an error-feedback residual that
   stays on the rank).
+
+The counting mode (:func:`counting`, the counterpart of the reference's
+``parse_collective_bytes`` over post-SPMD HLO, for ``launch.dryrun``):
+a mesh *description* (shape and coordinates, no processes) gets a
+:class:`CountedGroup` for each axis and for the data axes' product.  A
+collective over such a group communicates nothing and returns a tensor
+of the right shape: an all-reduce its input's values, an all-gather
+``n`` copies of the input concatenated, :func:`reduce_scatter_mean` the
+rank's slice; and it records its kind and its per-participant result
+bytes (:class:`CollectiveCount`).  A real process group takes the same
+code as without the mode.
 """
 
 from __future__ import annotations
+
+import contextlib
+import dataclasses
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.tree import tree_map
+
+
+# --------------------------------------------------------------------------
+# The counting mode
+# --------------------------------------------------------------------------
+
+
+class CollectiveCount:
+    """The collectives a counting run issued: ``calls`` and ``bytes`` by
+    kind (``"all-reduce"``, ``"all-gather"``: the reference's HLO names),
+    each call's per-participant result bytes, as the reference counts
+    them.  The port's :func:`reduce_scatter_mean` is an all-reduce of the
+    whole f32 buffer and a slice, and is counted as what it sends."""
+
+    def __init__(self):
+        self.bytes: dict[str, int] = {}
+        self.calls: dict[str, int] = {}
+        self.open = True
+
+    def record(self, kind: str, nbytes: int) -> None:
+        if not self.open:
+            raise RuntimeError("a counted group used after its counting "
+                               "run ended")
+        self.bytes[kind] = self.bytes.get(kind, 0) + int(nbytes)
+        self.calls[kind] = self.calls.get(kind, 0) + 1
+
+    @property
+    def total(self) -> int:
+        return sum(self.bytes.values())
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CountedGroup:
+    """A process group as a description, for the counting mode: the mesh
+    axes it spans (``axes``), its ``size`` and this rank's index in it
+    (pod-major over several axes), and the :class:`CollectiveCount` its
+    collectives record into."""
+
+    axes: tuple
+    size: int
+    rank: int
+    count: CollectiveCount
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def group_size(group) -> int:
+    """The ranks of ``group`` (a process group or a :class:`CountedGroup`)."""
+    if isinstance(group, CountedGroup):
+        return group.size
+    return dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This rank's index in ``group``."""
+    if isinstance(group, CountedGroup):
+        return group.rank
+    return dist.get_rank(group)
+
+
+def _all_reduce(buf: torch.Tensor, group, *, async_op: bool = False):
+    """``dist.all_reduce`` of ``buf`` in place; over a counted group
+    ``buf`` keeps its values and the call is recorded."""
+    if isinstance(group, CountedGroup):
+        group.count.record("all-reduce", _nbytes(buf))
+        return None
+    return dist.all_reduce(buf, group=group, async_op=async_op)
+
+
+def _all_gather(parts: list, t: torch.Tensor, group) -> None:
+    """``dist.all_gather`` of ``t`` into ``parts``; over a counted group
+    every part is ``t`` and the call is recorded."""
+    if isinstance(group, CountedGroup):
+        group.count.record("all-gather", len(parts) * _nbytes(t))
+        for p in parts:
+            p.copy_(t)
+        return
+    dist.all_gather(parts, t, group=group)
+
+
+@contextlib.contextmanager
+def counting(mesh):
+    """``(mesh', count)``: ``mesh`` (a description: its shape and this
+    rank's coordinates; any process groups it holds are set aside) with a
+    :class:`CountedGroup` for each axis, and for the data axes' product
+    where it has a 'pod' axis, all recording into ``count``.  Run a step
+    under ``activation_mesh(mesh')`` inside the block; after it the
+    groups refuse every collective."""
+    from repro_torch.launch.mesh import data_axes
+
+    count = CollectiveCount()
+    keys = list(mesh.axis_names)
+    daxes = data_axes(mesh)
+    if len(daxes) > 1:
+        keys.append(daxes)
+    groups = {k: CountedGroup(k if isinstance(k, tuple) else (k,),
+                              mesh.size(k), mesh.index(k), count)
+              for k in keys}
+    try:
+        yield dataclasses.replace(mesh, groups=groups), count
+    finally:
+        count.open = False
 
 
 class Reduction:
@@ -44,8 +162,7 @@ class Reduction:
         self.dtype = t.dtype
         self.buf = t.to(torch.float32, memory_format=torch.contiguous_format,
                         copy=True)
-        self.work = dist.all_reduce(self.buf, group=group,
-                                    async_op=async_op)
+        self.work = _all_reduce(self.buf, group, async_op=async_op)
 
     def wait(self) -> torch.Tensor:
         if self.work is not None:
@@ -66,9 +183,8 @@ def _sum_f32(t: torch.Tensor, group) -> torch.Tensor:
 
 def _gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     t = t.contiguous()
-    parts = [torch.empty_like(t)
-             for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t, group=group)
+    parts = [torch.empty_like(t) for _ in range(group_size(group))]
+    _all_gather(parts, t, group)
     return torch.cat(parts, dim=dim)
 
 
@@ -109,7 +225,7 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        i = dist.get_rank(ctx.group)
+        i = group_rank(ctx.group)
         return g.narrow(ctx.dim, i * ctx.size, ctx.size), None, None
 
 
@@ -145,11 +261,11 @@ def reduce_scatter_mean(t: torch.Tensor, group, dim: int | None
     rank, whichever block it keeps (gloo's ``reduce_scatter_tensor`` is
     not relied on for CUDA tensors)."""
     buf = t.float().clone()
-    dist.all_reduce(buf, group=group)
-    buf = (buf / dist.get_world_size(group)).to(t.dtype)
+    _all_reduce(buf, group)
+    buf = (buf / group_size(group)).to(t.dtype)
     if dim is None:
         return buf
-    n, i = dist.get_world_size(group), dist.get_rank(group)
+    n, i = group_size(group), group_rank(group)
     size = t.shape[dim] // n
     return buf.narrow(dim, i * size, size).clone(
         memory_format=torch.contiguous_format)
@@ -189,17 +305,17 @@ def compressed_psum_mean(grads, group, method: str = "none",
     the new residual, and all-gathers codes and scales (peers' scales
     differ, so codes cannot be summed): each peer dequantized, summed in
     rank order."""
-    n = dist.get_world_size(group)
+    n = group_size(group)
     if method == "none":
         def one(g):
             buf = g.float().clone()
-            dist.all_reduce(buf, group=group)
+            _all_reduce(buf, group)
             return buf / n
         return tree_map(one, grads), error_feedback
     if method == "bf16":
         def one(g):
             buf = g.to(torch.bfloat16).clone()
-            dist.all_reduce(buf, group=group)
+            _all_reduce(buf, group)
             return buf.float() / n
         return tree_map(one, grads), error_feedback
     if method == "int8":
@@ -210,9 +326,9 @@ def compressed_psum_mean(grads, group, method: str = "none",
             q, scale = quantize_int8(target)
             new_e = target - dequantize_int8(q, scale)   # stays here
             qs = [torch.empty_like(q) for _ in range(n)]
-            dist.all_gather(qs, q, group=group)
+            _all_gather(qs, q, group)
             ss = [torch.empty_like(scale.reshape(1)) for _ in range(n)]
-            dist.all_gather(ss, scale.reshape(1), group=group)
+            _all_gather(ss, scale.reshape(1), group)
             total = qs[0].float() * ss[0]
             for qw, sw in zip(qs[1:], ss[1:]):
                 total = total + qw.float() * sw

@@ -40,8 +40,9 @@ inserts the collectives.  The port holds each rank's block itself:
   rule does not apply; and a leaf placed on a fallback dim, or read whole
   by its layer (norm scales, the router), stays whole;
 * for training, :func:`train_spec` stores each leaf as its 'model' block
-  by :func:`serve_spec`, cut again over 'data' on ``_leaf_spec``'s FSDP
-  dim (the first other dim the data size divides);
+  by :func:`serve_spec`, cut again over the data axes on ``_leaf_spec``'s
+  FSDP dim (the first other dim their product divides; 'pod' folds into
+  data parallelism: :func:`fsdp_entry`);
   :func:`shard_train_tree` / :func:`gather_train_tree` cut a full tree
   (params, optimizer state, or both) to a rank's blocks and put it
   back together (a paired leaf's parts put back side by side: full
@@ -669,15 +670,21 @@ def shard_layer(p: dict, mesh, cfg: ModelConfig) -> dict:
 # --------------------------------------------------------------------------
 
 def check_train_mesh(mesh, cfg: ModelConfig) -> None:
-    """Raise for a mesh the training step does not take: a 'pod' axis
-    (the step's 'data' group is one axis), or a 'model' axis larger than
-    1 under a family the mesh does not run."""
-    if mesh.size("pod") > 1:
-        raise NotImplementedError(
-            f"training on mesh {mesh.shape}: the step reduces over one "
-            f"'data' axis; a 'pod' axis is not ported")
+    """Raise for a mesh the training step does not take: a 'model' axis
+    larger than 1 under a family the mesh does not run.  A 'pod' axis
+    folds into data parallelism (:func:`fsdp_entry`), as in the
+    reference."""
     if mesh.size("model") > 1:
         check_mesh_family(cfg)
+
+
+def fsdp_entry(mesh):
+    """The spec entry of a training leaf's FSDP dim, the data axes over
+    which the step splits its batch and averages its gradients:
+    ``("pod", "data")`` (their product, pod-major) on a mesh whose 'pod'
+    axis is larger than 1, as the reference's ``_leaf_spec`` puts its
+    data axes; else ``"data"``."""
+    return ("pod", "data") if mesh.size("pod") > 1 else "data"
 
 
 def train_spec(path: str, shape: tuple[int, ...], mesh,
@@ -686,19 +693,20 @@ def train_spec(path: str, shape: tuple[int, ...], mesh,
     leaf, ``"layers/3/attn/wq"``) by: 'model' on :func:`serve_spec`'s dim
     (the row placement the layers compute with: heads, FFN columns and
     the down projection's rows, whole experts, the vocab; else the leaf
-    whole over 'model'), then 'data' on :func:`_leaf_spec`'s FSDP dim,
-    the first other dim the data size divides.  Deliberate difference:
-    the reference plans its stacked ``[L, ...]`` leaves as though they
-    were unstacked, which can put 'model' on ``d`` or on the layer dim;
-    GSPMD computes under any placement, explicit tensor parallelism only
-    under the one its layers hold."""
+    whole over 'model'), then :func:`fsdp_entry` on :func:`_leaf_spec`'s
+    FSDP dim, the first other dim the data axes' product divides.
+    Deliberate difference: the reference plans its stacked ``[L, ...]``
+    leaves as though they were unstacked, which can put 'model' on ``d``
+    or on the layer dim; GSPMD computes under any placement, explicit
+    tensor parallelism only under the one its layers hold."""
     served = serve_spec(path, shape, mesh, cfg)
     spec = list(served)
-    n = mesh.size("data")
+    entry = fsdp_entry(mesh)
+    n = mesh.size(entry)
     if n > 1:
         for d in range(len(shape)):
             if spec[d] is None and _divides(shape[d], n):
-                spec[d] = "data"
+                spec[d] = entry
                 break
     return P(*spec, pairs=served.pairs)
 
@@ -760,14 +768,13 @@ def train_specs_of(tree, mesh, cfg: ModelConfig) -> list[P]:
 
 def gather_tensor(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     """The whole tensor from this rank's block under ``spec``: each cut
-    dim all-gathered over its axis's group in rank order, a paired dim's
+    dim all-gathered over its axis's group in rank order (a dim over
+    several axes over their product's group, pod-major), a paired dim's
     parts put back side by side (collective: every rank of the mesh calls
     it with the same spec)."""
     for dim, axes in enumerate(spec):
         if axes is None or mesh.size(axes) <= 1:
             continue
-        if isinstance(axes, tuple):
-            raise ValueError(f"spec {spec}: a dim over several axes")
         with torch.no_grad():
             t = all_gather_cat(t, mesh.group(axes), dim=dim)
         k = _pairs(spec, axes)
@@ -815,19 +822,20 @@ class TrainLayout:
     """Where each param leaf of a training rank lives: its spec (in the
     param tree's flattening order) on ``mesh``, and the sums across the
     ranks that hold a leaf's other blocks, which the optimizer's means
-    and norms need."""
+    and norms need.  An entry over several axes (``("pod", "data")``) is
+    one cut over their product, summed over its group."""
 
     def __init__(self, mesh, specs: list):
         self.mesh = mesh
         self.specs = list(specs)
 
-    def cut_axes(self, j: int) -> tuple[str, ...]:
-        """The axes that cut leaf ``j`` (in dim order)."""
+    def cut_axes(self, j: int) -> tuple:
+        """The entries that cut leaf ``j`` (in dim order)."""
         return tuple(a for a in self.specs[j]
                      if a is not None and self.mesh.size(a) > 1)
 
     def axis_of(self, j: int, dim: int):
-        """The axis that cuts dim ``dim`` of leaf ``j``, or None."""
+        """The entry that cuts dim ``dim`` of leaf ``j``, or None."""
         a = self.specs[j][dim]
         return a if a is not None and self.mesh.size(a) > 1 else None
 
@@ -836,7 +844,7 @@ class TrainLayout:
                      for n, a in zip(shape, self.specs[j]))
 
     def sum_over(self, t: torch.Tensor, axes) -> torch.Tensor:
-        """``t`` summed over the ranks of each axis in ``axes`` (f32,
+        """``t`` summed over the ranks of each entry in ``axes`` (f32,
         every rank the same bits)."""
         for a in axes:
             if a is not None and self.mesh.size(a) > 1:

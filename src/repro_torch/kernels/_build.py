@@ -182,6 +182,19 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
+def runs_plain(name: str, t: torch.Tensor) -> bool:
+    """Whether the wrapper ``name`` runs its kernel's plain version on
+    ``t``: on a CPU tensor (the tests) and on a meta tensor (the dry run:
+    shapes and dtypes, no values); never on a CUDA tensor, where the
+    wrapper launches its kernel (False); any other device raises."""
+    if t.device.type in ("cpu", "meta"):
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda, cpu or meta, not "
+                         f"{t.device}")
+    return False
+
+
 def refuse_grad(name: str, *tensors) -> None:
     """Raise when autograd would record through a kernel wrapper: grad
     mode is on and an input requires grad.  The hand kernels have no

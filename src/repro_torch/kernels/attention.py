@@ -34,8 +34,9 @@ over 8, 24 over 4 a rank of two), D a whole number of
 16-byte vectors on at most 32 lanes, aligned rows, and a cache whose
 scores fit shared memory.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  ``decode_attention.launches`` counts kernel launches.
+A CPU or meta tensor (the dry run) takes the plain version; a CUDA
+tensor launches the kernel or raises.  ``decode_attention.launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -292,16 +293,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bits = _bits(k, D, k_scale)
     qpos = q_positions.reshape(B, -1)[:, -1] if q_positions.ndim == 2 \
         else q_positions
-    if q.device.type == "cpu":
+    if _build.runs_plain("decode_attention", q):
         if bits < 16:
             k = dequantize_page(k, k_scale, hd=D, out_dtype=q.dtype)
             v = dequantize_page(v, v_scale, hd=D, out_dtype=q.dtype)
         return decode_attention_plain(q, k, v, q_positions=qpos[:, None],
                                       kv_valid_len=kv_valid_len, causal=True,
                                       window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention runs on cuda or cpu, not "
-                         f"{q.device}")
     fit = dict(elem_bytes=q.element_size(), bits=bits)
     if splits is None:
         splits = plan_splits(B, Hkv, C, G, D, _sms(q.device), **fit)

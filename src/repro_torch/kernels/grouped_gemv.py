@@ -31,9 +31,9 @@ backend does.  The CUDA kernels tile with their own plans:
 ``gemv_plan.plan_ragged_stream`` (column block and split degree from T,
 E and the SM count) for ``ragged_gemv``.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  ``grouped_gemv.launches`` / ``ragged_gemv.launches`` count kernel
-launches.
+A CPU or meta tensor (the dry run) takes the plain version; a CUDA
+tensor launches the kernel or raises.  ``grouped_gemv.launches`` /
+``ragged_gemv.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -166,11 +166,8 @@ def grouped_gemv(xs: torch.Tensor, w_t: torch.Tensor, *,
     if C and not grouped_plan_fits(plan, M, K, C, xs.element_size()):
         raise ValueError(f"plan {plan} does not tile M={M}, K={K} at C={C} "
                          f"within the card's shared memory")
-    if xs.device.type == "cpu":
+    if _build.runs_plain("grouped_gemv", xs):
         return grouped_gemv_plain(xs, w_t)
-    if xs.device.type != "cuda":
-        raise ValueError(f"grouped_gemv runs on cuda or cpu, not "
-                         f"{xs.device}")
     out = torch.empty((E, C, M), dtype=xs.dtype, device=xs.device)
     if C == 0:
         return out
@@ -197,8 +194,13 @@ def ragged_gemv_plain(x: torch.Tensor, offsets: torch.Tensor,
     """The same function in plain PyTorch: each expert's row range times its
     matrix in f32, cast to x.dtype; rows from ``offsets[E]`` on are zero.
     Reads the offsets on the host: a test and comparison twin, never on
-    the decode path."""
+    the decode path.  On the meta device, where no offset can be read,
+    every row is one product with a ``[K, M]`` matrix (the experts'
+    sum): the shape, the products' operations, and each expert's weight
+    read once."""
     T, M = x.shape[0], w_t.shape[2]
+    if x.device.type == "meta":
+        return torch.matmul(x.float(), w_t.float().sum(0)).to(x.dtype)
     out = torch.zeros((T, M), dtype=torch.float32, device=x.device)
     offs = [min(max(int(o), 0), T) for o in offsets.tolist()]
     for e in range(w_t.shape[0]):
@@ -235,10 +237,8 @@ def ragged_gemv(x: torch.Tensor, offsets: torch.Tensor, w_t: torch.Tensor,
     if offsets.device != x.device or not offsets.is_contiguous():
         raise ValueError(f"offsets must be contiguous on {x.device}")
     T, K = x.shape
-    if x.device.type == "cpu":
+    if _build.runs_plain("ragged_gemv", x):
         return ragged_gemv_plain(x, offsets, w_t)
-    if x.device.type != "cuda":
-        raise ValueError(f"ragged_gemv runs on cuda or cpu, not {x.device}")
     out = torch.empty((T, M), dtype=x.dtype, device=x.device)
     if T == 0:
         return out

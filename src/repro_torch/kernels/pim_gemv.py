@@ -12,8 +12,9 @@ runs bf16 on the tensor cores (``csrc/gemv_stream.cuh``); the plan
 (``gemv_plan.plan_gemv``) sizes the column block and the ring so the grid
 is resident on the card's SMs.
 
-A CPU tensor takes the plain version (:func:`pim_gemv_plain`); a CUDA tensor
-launches the kernel or raises.  ``pim_gemv.launches`` counts kernel launches.
+A CPU or meta tensor (the dry run) takes the plain version
+(:func:`pim_gemv_plain`); a CUDA tensor launches the kernel or raises.
+``pim_gemv.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -96,10 +97,8 @@ def pim_gemv(x: torch.Tensor, w_t: torch.Tensor, *,
     B, K, M, ld = check_inputs(x, w_t, plan)
     if plan.split_k != 1:
         raise ValueError(f"pim_gemv takes a plan with split_k=1, got {plan}")
-    if x.device.type == "cpu":
+    if _build.runs_plain("pim_gemv", x):
         return pim_gemv_plain(x, w_t)
-    if x.device.type != "cuda":
-        raise ValueError(f"pim_gemv runs on cuda or cpu, not {x.device}")
     lib = _build.load("pim_gemv")
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
     fn = getattr(lib, f"pim_gemv_{DTYPES[x.dtype]}")

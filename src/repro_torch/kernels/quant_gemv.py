@@ -18,9 +18,10 @@ summed apart and scaled into the f32 sum, and a split-K cluster where the
 plan asks for one (``gemv_plan.plan_quant``).  One launch holds up to 64
 rows of bf16 x (8 of f32); more run in row chunks inside the call.
 
-A CPU tensor takes the plain version (:func:`quant_gemv_plain`,
-:func:`quant4_gemv_plain`); a CUDA tensor launches the kernel or raises.
-``quant_gemv.launches`` / ``quant4_gemv.launches`` count kernel calls.
+A CPU or meta tensor (the dry run) takes the plain version
+(:func:`quant_gemv_plain`, :func:`quant4_gemv_plain`); a CUDA tensor
+launches the kernel or raises.  ``quant_gemv.launches`` /
+``quant4_gemv.launches`` count kernel calls.
 """
 
 from __future__ import annotations
@@ -110,10 +111,8 @@ def quant_gemv(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor, *,
     """x [B, K], int8 codes [K, M], scales [K / block, M] -> [B, M]."""
     _build.refuse_grad("quant_gemv", x, w_q, scales)
     B, K, M, ldw, lds = check_quant_inputs(x, w_q, scales, block, 8, plan)
-    if x.device.type == "cpu":
+    if _build.runs_plain("quant_gemv", x):
         return quant_gemv_plain(x, w_q, scales, block)
-    if x.device.type != "cuda":
-        raise ValueError(f"quant_gemv runs on cuda or cpu, not {x.device}")
     return _launch("quant_gemv", quant_gemv, x, w_q, scales, block, plan,
                    B, K, M, ldw, lds)
 
@@ -126,10 +125,8 @@ def quant4_gemv(x: torch.Tensor, w_packed: torch.Tensor,
     _build.refuse_grad("quant4_gemv", x, w_packed, scales)
     B, K, M, ldw, lds = check_quant_inputs(x, w_packed, scales, block, 4,
                                            plan)
-    if x.device.type == "cpu":
+    if _build.runs_plain("quant4_gemv", x):
         return quant4_gemv_plain(x, w_packed, scales, block)
-    if x.device.type != "cuda":
-        raise ValueError(f"quant4_gemv runs on cuda or cpu, not {x.device}")
     return _launch("quant4_gemv", quant4_gemv, x, w_packed, scales, block,
                    plan, B, K, M, ldw, lds)
 

@@ -12,9 +12,9 @@ SMs; splitting K multiplies the CTA count by the degree.  Each part runs
 thread block cluster and sum their partials in shared memory, part 0
 first (no atomics, nothing in HBM), in the same launch.
 
-A CPU tensor takes the plain version (:func:`splitk_gemv_plain`); a CUDA
-tensor launches the kernel or raises.  ``splitk_gemv.launches`` counts
-kernel launches.
+A CPU or meta tensor (the dry run) takes the plain version
+(:func:`splitk_gemv_plain`); a CUDA tensor launches the kernel or
+raises.  ``splitk_gemv.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -51,10 +51,8 @@ def splitk_gemv(x: torch.Tensor, w_t: torch.Tensor, *,
     if deg < 2:
         raise ValueError(f"splitk_gemv takes a plan with split_k >= 2, "
                          f"got {plan}")
-    if x.device.type == "cpu":
+    if _build.runs_plain("splitk_gemv", x):
         return splitk_gemv_plain(x, w_t, deg)
-    if x.device.type != "cuda":
-        raise ValueError(f"splitk_gemv runs on cuda or cpu, not {x.device}")
     lib = _build.load("splitk_gemv")
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
     fn = getattr(lib, f"splitk_gemv_{DTYPES[x.dtype]}")

@@ -23,9 +23,9 @@ each weight sub-tile (64 rows a launch; row chunks of 64 beyond); f32
 runs row chunks of 8.  The plain version walks K in ``k_blk`` chunks and
 adds their f32 products in order, as the Pallas body does.
 
-A CPU tensor takes the plain version (:func:`triton_gemv_plain`); a CUDA
-tensor launches the kernel or raises.  ``triton_gemv.launches`` counts
-kernel launches.
+A CPU or meta tensor (the dry run) takes the plain version
+(:func:`triton_gemv_plain`); a CUDA tensor launches the kernel or
+raises.  ``triton_gemv.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -129,10 +129,8 @@ def triton_gemv(x: torch.Tensor, w_t: torch.Tensor, *,
     """x [B, K], w_t [K, M] -> [B, M] through the column-block kernel."""
     _build.refuse_grad("triton_gemv", x, w_t)
     B, K, M, ld = check_inputs(x, w_t, plan)
-    if x.device.type == "cpu":
+    if _build.runs_plain("triton_gemv", x):
         return triton_gemv_plain(x, w_t, plan.k_blk)
-    if x.device.type != "cuda":
-        raise ValueError(f"triton_gemv runs on cuda or cpu, not {x.device}")
     lib = _build.load("triton_gemv")
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
     fn = getattr(lib, f"triton_gemv_{DTYPES[x.dtype]}")

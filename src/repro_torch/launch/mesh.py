@@ -49,7 +49,16 @@ class Mesh:
     reference's ``mesh.shape``); ``coords`` is this rank's index along
     each axis (rank-major: the last axis varies fastest); ``groups`` holds
     one process group per axis: the ranks that share every other
-    coordinate (None on a one-process mesh)."""
+    coordinate (None on a one-process mesh, and on a description: a mesh
+    made without process groups).  A mesh with a 'pod' axis holds one
+    more, under the key ``("pod", "data")`` (:func:`data_axes`): the
+    ranks that share the 'model' coordinate, over which training folds
+    'pod' into data parallelism.
+
+    ``size``, ``index`` and ``group`` take an axis name or a tuple of
+    them (a spec entry over several axes): the size is the product, the
+    index pod-major (``pod · D + data``, GSPMD's order for a tuple axis
+    and the one ``sharding.shard_tensor`` cuts by)."""
 
     shape: dict[str, int]
     rank: int = 0
@@ -68,14 +77,21 @@ class Mesh:
     def world_size(self) -> int:
         return math.prod(self.shape.values())
 
-    def size(self, axis: str) -> int:
-        return self.shape.get(axis, 1)
+    def size(self, axes) -> int:
+        if isinstance(axes, tuple):
+            return math.prod(self.shape.get(a, 1) for a in axes)
+        return self.shape.get(axes, 1)
 
-    def index(self, axis: str) -> int:
-        return self.coords.get(axis, 0)
+    def index(self, axes) -> int:
+        if not isinstance(axes, tuple):
+            return self.coords.get(axes, 0)
+        i = 0
+        for a in axes:
+            i = i * self.shape.get(a, 1) + self.coords.get(a, 0)
+        return i
 
-    def group(self, axis: str):
-        return self.groups.get(axis)
+    def group(self, axes):
+        return self.groups.get(axes)
 
     def side_mesh(self) -> "Mesh":
         """This mesh with a second process group of its own on the
@@ -142,19 +158,23 @@ def _init_from_env(device: torch.device) -> None:
 
 
 def _axis_group(rank: int, shape: tuple[int, ...], axes: tuple[str, ...],
-                axis: str):
-    """``rank``'s process group along ``axis``: the ranks that share its
-    every other coordinate.  Collective: every rank creates every group
-    of the axis, in the same order, and keeps its own."""
-    i = axes.index(axis)
+                axis):
+    """``rank``'s process group along ``axis`` (a name, or a tuple of
+    names: their product): the ranks that share its every other
+    coordinate, in rank order (over a tuple, the first axis major).
+    Collective: every rank creates every group of the axis, in the same
+    order, and keeps its own."""
+    along = {axes.index(a) for a in (axis if isinstance(axis, tuple)
+                                     else (axis,))}
     mine = None
-    others = [range(m) for j, m in enumerate(shape) if j != i]
+    others = [range(m) if j not in along else (None,)
+              for j, m in enumerate(shape)]
     for rest in itertools.product(*others):
-        ranks = []
-        for c in range(shape[i]):
-            full = list(rest)
-            full.insert(i, c)
-            ranks.append(_rank_of(tuple(full), shape))
+        ranks = [_rank_of(tuple(c if c is not None else x for c, x in
+                                zip(rest, sub)), shape)
+                 for sub in itertools.product(*[
+                     range(m) if j in along else (None,)
+                     for j, m in enumerate(shape)])]
         g = dist.new_group(ranks)
         if rank in ranks:
             mine = g
@@ -170,7 +190,8 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
     :func:`rank_device` (a card unless ``device="cpu"``; raises without
     one), and under ``torchrun`` joins the group with the backend that
     device gives (:func:`choose_backend`).  Every rank must call it, in
-    the same order: each axis group is created collectively."""
+    the same order: each axis group is created collectively (the data
+    axes' product of a mesh with a 'pod' axis last)."""
     shape, axes = tuple(int(n) for n in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh {shape} does not match axes {axes}")
@@ -187,19 +208,41 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
     mine = _coords(rank, shape)
     groups = {axis: None if world == 1 else
               _axis_group(rank, shape, axes, axis) for axis in axes}
+    daxes = tuple(a for a in ("pod", "data") if a in axes)
+    if len(daxes) > 1:
+        groups[daxes] = (None if world == 1 else
+                         _axis_group(rank, shape, axes, daxes))
     return Mesh(shape=dict(zip(axes, shape)), rank=rank,
                 coords=dict(zip(axes, mine)), groups=groups, device=dev,
                 backend=dist.get_backend() if dist.is_initialized()
                 else None)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+def describe_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
+                  rank: int = 0) -> Mesh:
+    """The mesh ``shape`` over ``axes`` as a description: rank ``rank``'s
+    coordinates and no process groups (every group None; nothing is
+    started or joined).  Placement reads it as it reads a real mesh;
+    ``collectives.counting`` gives it groups that count instead of
+    communicating (the dry run's)."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh {shape} does not match axes {axes}")
+    return Mesh(shape=dict(zip(axes, shape)), rank=rank,
+                coords=dict(zip(axes, _coords(rank, shape))))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         description: bool = False) -> Mesh:
     """The reference's production shapes: ``(16, 16)`` over ``("data",
     "model")``, or ``(2, 16, 16)`` over ``("pod", "data", "model")``;
-    raises unless the world is that many ranks."""
-    if multi_pod:
-        return make_mesh(MULTI_POD_SHAPE, MULTI_POD_AXES, device=device)
-    return make_mesh(PRODUCTION_SHAPE, PRODUCTION_AXES, device=device)
+    raises unless the world is that many ranks.  With ``description``
+    rank 0's view of it without processes (:func:`describe_mesh`)."""
+    shape, axes = ((MULTI_POD_SHAPE, MULTI_POD_AXES) if multi_pod
+                   else (PRODUCTION_SHAPE, PRODUCTION_AXES))
+    if description:
+        return describe_mesh(shape, axes)
+    return make_mesh(shape, axes, device=device)
 
 
 def single_device_mesh(device=None) -> Mesh:

@@ -41,6 +41,7 @@ from repro_torch.distributed.axes import current_mesh
 from repro_torch.distributed.collectives import (
     all_reduce_sum,
     enter,
+    group_size,
     records_grad,
 )
 from repro_torch.kernels.attention import (
@@ -565,7 +566,7 @@ def _aux_loss(probs: torch.Tensor, counts: torch.Tensor,
     n_tok = probs.shape[0] * probs.shape[1]
     if batch_group is not None:
         counts = all_reduce_sum(counts, batch_group)
-        n_tok *= torch.distributed.get_world_size(batch_group)
+        n_tok *= group_size(batch_group)
     me = probs.mean(dim=(0, 1))
     ce = counts.float() / n_tok / e.top_k
     return e.n_experts * (me * ce).sum() * e.router_aux_weight

@@ -3,7 +3,9 @@ the Mamba-style selective SSM heads that hymba runs beside attention
 (counterpart of ``repro/models/ssm.py``).
 
 Each recurrence runs in f32 in the JAX package's order (its
-``jax.lax.scan`` becomes a Python loop over positions).  RWKV6, per head:
+``jax.lax.scan`` becomes a Python loop over positions; on the meta
+device, where the dry run computes shapes and no values, each op of the
+loop runs once over every position).  RWKV6, per head:
 
     y_t = r_t · (s + u ⊙ k_tᵀ v_t),    then    s ← w_t ⊙ s + k_tᵀ v_t,
 
@@ -151,11 +153,15 @@ def apply_rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     # the reference's per-step order: y_t from the old s, then s in place
     kv = kf[..., :, None] * vf[..., None, :]           # [B, S, H, hd, hd]
     ukv = u[:, None] * kv
-    ys = []
-    for t in range(S):
-        ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t], s + ukv[:, t]))
-        s.mul_(w[:, t, :, :, None]).add_(kv[:, t])
-    y = torch.stack(ys, dim=1)                         # [B, S, H, hd]
+    if x.device.type == "meta":     # the dry run: shapes, no values
+        y = _scan_shapes_rwkv(rf, s, kv, ukv, w)
+    else:
+        ys = []
+        for t in range(S):
+            ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t],
+                                   s + ukv[:, t]))
+            s.mul_(w[:, t, :, :, None]).add_(kv[:, t])
+        y = torch.stack(ys, dim=1)                     # [B, S, H, hd]
 
     # per-head group norm
     var = y.square().mean(dim=-1, keepdim=True)
@@ -167,6 +173,21 @@ def apply_rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     # wo holds the rank's heads' rows: its product is a partial sum
     return (all_reduce_sum(out, model_group()) if sharded else out,
             (s, x_last))
+
+
+def _scan_shapes_rwkv(rf, s, kv, ukv, w) -> torch.Tensor:
+    """The wkv loop on the meta device (``launch.dryrun``), where no value
+    is computed: each of its ops over all S positions at once, the state
+    before each step standing in as ``s + kv ⊙ w``, so that the output
+    and ``s`` (advanced in place) have the loop's shapes, its products'
+    operations (one ``[hd] x [hd, hd]`` product a head and position) and
+    its elementwise traffic over ``[B, S, H, hd, hd]``, in one dispatch
+    an op instead of S; and under autograd every input gets a
+    gradient."""
+    sp = s[:, None] + kv * w[..., None]
+    y = torch.einsum("bshi,bshij->bshj", rf, sp + ukv)
+    s.copy_(sp[:, -1])
+    return y
 
 
 def apply_rwkv_channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -281,10 +302,16 @@ def apply_mamba(p: dict, x: torch.Tensor, cfg: ModelConfig,
     # each step's h, so that y = h·C is one product over every position
     da = torch.exp(dt[..., None] * A)                  # [B, S, di, n]
     dbx = dt[..., None] * Bm[:, :, None, :] * xf[..., None]
-    hs = torch.empty_like(da)
-    for t in range(S):
-        h.mul_(da[:, t]).add_(dbx[:, t])
-        hs[:, t].copy_(h)
+    if x.device.type == "meta":     # the dry run: shapes, no values
+        # each op of the loop over all S positions at once (its shapes
+        # and elementwise traffic, one dispatch an op instead of S)
+        hs = h[:, None] * da + dbx
+        h.copy_(hs[:, -1])
+    else:
+        hs = torch.empty_like(da)
+        for t in range(S):
+            h.mul_(da[:, t]).add_(dbx[:, t])
+            hs[:, t].copy_(h)
     y = torch.matmul(hs, Cm[..., None])[..., 0] + p["D"] * xf
     y = y.to(x.dtype) * F.silu(z)
     conv = _carry(window, state[0] if state is not None else None)

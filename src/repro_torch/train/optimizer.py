@@ -79,7 +79,8 @@ def global_norm(tree, layout=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's f32 squares (on the leaves'
     device).  With ``layout`` the leaves are a rank's blocks: the leaves
     cut by the same axes are summed here, each such sum over those axes'
-    ranks, and the sums added in a fixed order."""
+    ranks (an entry over several axes, over their product), and the sums
+    added in a fixed order."""
     sq = [torch.sum(torch.square(g.float())) for g in leaves(tree)]
     if layout is None:
         return torch.sqrt(torch.stack(sq).sum())
@@ -87,8 +88,15 @@ def global_norm(tree, layout=None) -> torch.Tensor:
     for j, s in enumerate(sq):
         by_axes.setdefault(layout.cut_axes(j), []).append(s)
     total = [layout.sum_over(torch.stack(by_axes[a]).sum(), a)
-             for a in sorted(by_axes)]
+             for a in sorted(by_axes, key=_entries_key)]
     return torch.sqrt(torch.stack(total).sum())
+
+
+def _entries_key(entries: tuple) -> tuple[str, ...]:
+    """A sort key of a leaf's cut entries: an entry over several axes
+    (``("pod", "data")``) as one name, ``"pod+data"``, so that names and
+    tuples sort together, in the same order on every rank."""
+    return tuple(a if isinstance(a, str) else "+".join(a) for a in entries)
 
 
 def clip_by_global_norm(tree, max_norm: float, layout=None):

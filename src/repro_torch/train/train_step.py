@@ -17,22 +17,27 @@ kernels have none, and their wrappers refuse to run under autograd).
   reference's ``lax.scan``);
 * ``grad_compress="bf16"``: each gradient is rounded to bf16 and back
   (``_compress``), then reduced in f32;
-* on a ``(D, M)`` mesh (``launch.mesh``) each rank holds its stored
-  blocks of the params and optimizer state (``sharding.train_spec``:
-  its 'model' block of each leaf, cut again over 'data'), and ``step``
-  takes and returns those blocks.  The step takes the global batch; a
-  rank computes on its 'data' row block of it.  It gathers the rank's
-  blocks over 'data' (FSDP) into its 'model' blocks, runs the forward
-  and backward on them under the mesh (the layers' rank blocks, their
-  collectives' backwards: ``models/layers.py``), accumulates and
-  compresses as above, and reduces the f32 mean over 'data' to each
-  rank's stored block (``collectives.reduce_scatter_mean``: the
-  counterpart of the reference's ``_constrain_like_params``).  Then it
-  clips (the global norm counts each element once) and applies the
-  optimizer to the blocks (``make_optimizer(layout=)``).  The MoE
-  load-balance loss counts the global batch's routing over 'data'
-  (``layers._aux_loss``); loss and aux are averaged over 'data' only,
-  since every 'model' rank holds the same value.  So the step computes
+* on a ``(D, M)`` or ``(pod, D, M)`` mesh (``launch.mesh``) each rank
+  holds its stored blocks of the params and optimizer state
+  (``sharding.train_spec``: its 'model' block of each leaf, cut again
+  over the data axes), and ``step`` takes and returns those blocks.
+  'pod' folds into data parallelism, as in the reference: "the data
+  axes" are 'data', or the product ``("pod", "data")`` (pod-major;
+  ``sharding.fsdp_entry``) where 'pod' is larger than 1.  The step
+  takes the global batch; a rank computes on its row block of it over
+  the data axes.  It gathers the rank's blocks over the data axes (FSDP)
+  into its 'model' blocks, runs the forward and backward on them under
+  the mesh (the layers' rank blocks, their collectives' backwards:
+  ``models/layers.py``), accumulates and compresses as above (each
+  rank's gradients rounded before the mean, on every mesh), and reduces
+  the f32 mean over the data axes to each rank's stored block
+  (``collectives.reduce_scatter_mean``: the counterpart of the
+  reference's ``_constrain_like_params``).  Then it clips (the global
+  norm counts each element once) and applies the optimizer to the
+  blocks (``make_optimizer(layout=)``).  The MoE load-balance loss
+  counts the global batch's routing over the data axes
+  (``layers._aux_loss``); loss and aux are averaged over the data axes
+  only, since every 'model' rank holds the same value.  So the step computes
   the unsharded step's loss, gradients and update, each on the rank
   that holds its block (``sharding.gather_train_tree`` puts them
   together).
@@ -44,13 +49,13 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.axes import activation_mesh
 from repro_torch.distributed.collectives import (
     all_gather_cat,
+    all_reduce_sum,
     reduce_scatter_mean,
 )
 from repro_torch.models import lm
@@ -128,11 +133,14 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None):
     ``step.layout`` is their ``sharding.TrainLayout``."""
     layout = train_layout(cfg, mesh)
     opt_init, opt_update = make_optimizer(tcfg.opt, cfg, layout)
-    group = (mesh.group("data") if layout is not None
-             and mesh.size("data") > 1 else None)
-    n_ranks = mesh.size("data") if group is not None else 1
-    rank = mesh.index("data") if group is not None else 0
-    data_dims = ([s.index("data") if "data" in s else None
+    # the data axes ('pod' folded in): the FSDP entry of the stored
+    # blocks, the rows of the batch, the gradient and loss means
+    entry = shd.fsdp_entry(mesh) if layout is not None else None
+    group = (mesh.group(entry) if entry is not None
+             and mesh.size(entry) > 1 else None)
+    n_ranks = mesh.size(entry) if group is not None else 1
+    rank = mesh.index(entry) if group is not None else 0
+    data_dims = ([s.index(entry) if entry in s else None
                   for s in layout.specs] if group is not None
                  else None)
     accum = tcfg.accum_steps
@@ -196,8 +204,7 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None):
         if group is not None:
             grads = [reduce_scatter_mean(g, group, d)
                      for g, d in zip(grads, data_dims)]
-            la = torch.stack([loss, aux]).float()
-            dist.all_reduce(la, group=group)
+            la = all_reduce_sum(torch.stack([loss, aux]).float(), group)
             loss, aux = la[0] / n_ranks, la[1] / n_ranks
         return grads, loss, aux
 

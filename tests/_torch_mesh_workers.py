@@ -1136,3 +1136,138 @@ def run_async_cases(mesh, names) -> dict:
     out["quant"] = quant_blocks(mesh)
     out["coords"] = dict(mesh.coords)
     return out
+
+
+# --------------------------------------------------------------------------
+# Training on a 'pod' axis (test_torch_train_pod.py)
+# --------------------------------------------------------------------------
+
+# each case on the spawn's (2, 2, 1) mesh (pod x data: the FSDP entry
+# ("pod", "data") over 4 ranks) and on a (2, 1, 2) mesh made in the same
+# world (pod beside 'model'); names are TP_CASES'
+POD_CASES = ("olmo", "deepseek", "hymba")
+POD_MESHES = {"2x2x1": (2, 2, 1), "2x1x2": (2, 1, 2)}
+POD_CKPT_CASE = "hymba"        # saved from (2, 1, 2), restored onto (1, 2)
+POD_SUB_CKPT_CASE = "olmo"     # saved from (1, 2), restored onto (2, 1, 2)
+
+
+def pod_sub_mesh(mesh):
+    """This rank's (1, 2) mesh over ranks {0, 1} or {2, 3} of a 4-rank
+    world (every rank creates both groups, in the same order)."""
+    from repro_torch.launch.mesh import Mesh
+
+    groups = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    r = mesh.rank
+    return Mesh(shape={"data": 1, "model": 2}, rank=r % 2,
+                coords={"data": 0, "model": r % 2},
+                groups={"data": None, "model": groups[r // 2]},
+                device=mesh.device, backend=mesh.backend)
+
+
+def pod_counts(mesh) -> list:
+    """Case "deepseek"'s gradients on ``mesh`` with ``layers._aux_loss``
+    watched: each call's routing counts summed over its ``batch_group``
+    (the counts ``ce`` is formed from) and that group's size."""
+    from repro_torch.distributed.collectives import all_reduce_sum, \
+        group_size
+    from repro_torch.models import layers as L
+    from repro_torch.train.train_step import build_train_step
+
+    cfg = tp_config("deepseek")
+    step, _ = build_train_step(cfg, tp_train_config("deepseek", cfg),
+                               mesh=mesh)
+    params = lm.init_lm(cfg, seed=0, device="cpu", mesh=mesh, train=True)
+    seen, plain = [], L._aux_loss
+
+    def watch(probs, counts, cfg, batch_group=None):
+        total = (counts if batch_group is None
+                 else all_reduce_sum(counts, batch_group))
+        seen.append((total.clone(), 1 if batch_group is None
+                     else group_size(batch_group)))
+        return plain(probs, counts, cfg, batch_group)
+
+    L._aux_loss = watch
+    try:
+        step.grads(params, tp_batch(cfg))
+    finally:
+        L._aux_loss = plain
+    return seen
+
+
+def pod_bf16(mesh) -> dict:
+    """Case "olmo"'s gradients with and without ``grad_compress="bf16"``
+    on a batch whose row blocks are the same rows on every rank of the
+    data axes (so each rank's gradients are the same bits), and with it
+    on the usual batch."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train.train_step import build_train_step
+
+    cfg = tp_config("olmo")
+    params = lm.init_lm(cfg, seed=0, device="cpu", mesh=mesh, train=True)
+    batch = tp_batch(cfg)
+    n = mesh.size(shd.fsdp_entry(mesh))
+    same = {k: np.concatenate([v[: TP_BATCH // n]] * n)
+            for k, v in batch.items()}
+    out = {}
+    for key, how, b in (("plain", "none", same), ("bf16", "bf16", same),
+                        ("bf16_batch", "bf16", batch)):
+        step, _ = build_train_step(
+            cfg, tp_train_config("olmo", cfg, grad_compress=how), mesh=mesh)
+        grads, _, _ = step.grads(params, b)
+        out[key] = shd.gather_train_tree(grads, mesh, cfg)
+    return out
+
+
+def pod_ranks(mesh, one_grads: dict, bridged: dict, ckpt_dir: str,
+              sub_ckpt_dir: str) -> dict:
+    """Every 'pod' case on this rank of the spawn's (2, 2, 1) mesh and of
+    a (2, 1, 2) mesh made in the same world: each ``POD_CASES`` step
+    (``tp_step``), the update of the one-process gradients ``one_grads``
+    on the rank's blocks of them, the gradients of the JAX package's
+    trees ``bridged`` ({case: numpy tree}), the watched routing counts
+    and the bf16 rule.  Then case ``POD_CKPT_CASE``'s (2, 1, 2) state is
+    saved into ``ckpt_dir`` and restored onto a (1, 2) mesh (ranks {0, 1}
+    and {2, 3}), and case ``POD_SUB_CKPT_CASE``'s state, stepped and
+    saved from ranks {0, 1} as a (1, 2) mesh into ``sub_ckpt_dir``, is
+    restored onto (2, 1, 2)."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import MULTI_POD_AXES, make_mesh
+
+    meshes = {"2x2x1": mesh,
+              "2x1x2": make_mesh((2, 1, 2), MULTI_POD_AXES,
+                                 device=mesh.device)}
+    sub = pod_sub_mesh(mesh)
+    out = {"coords": {k: dict(m.coords) for k, m in meshes.items()}}
+    for key, m in meshes.items():
+        res = {}
+        for name in POD_CASES:
+            res[name] = tp_step(name, m)
+            res[name]["same_grads"] = tp_update(name, one_grads[name], m)
+            res[name]["bridged"] = tp_step(
+                name, m, full_step=False,
+                params=params_from_numpy(bridged[name], tp_config(name),
+                                         "cpu"))["grads"]
+        res["counts"] = pod_counts(m)
+        res["bf16"] = pod_bf16(m)
+        # the data axes' group, pod-major: every member's (pod, data)
+        entry = shd.fsdp_entry(m)
+        me = torch.tensor([[m.index("pod"), m.index("data")]])
+        res["data_group"] = coll.all_gather_cat(me, m.group(entry), dim=0)
+        out[key] = res
+    m212 = meshes["2x1x2"]
+    tp_save(m212, POD_CKPT_CASE, out["2x1x2"][POD_CKPT_CASE]["blocks"],
+            ckpt_dir)
+    out["restored_12"] = tp_restore(sub, POD_CKPT_CASE, ckpt_dir)
+    if mesh.rank < 2:
+        blocks = tp_step(POD_SUB_CKPT_CASE, sub)["blocks"]
+        state = {"params": blocks["params"], "opt": blocks["opt"]}
+        CheckpointManager(sub_ckpt_dir, group=sub.group("model")).save(
+            1, state, shardings=shd.train_specs_of(
+                state, sub, tp_config(POD_SUB_CKPT_CASE)), mesh=sub)
+        out["sub_saved"] = shd.gather_train_tree(
+            state, sub, tp_config(POD_SUB_CKPT_CASE))
+    dist.barrier()
+    out["restored_212"] = tp_restore(m212, POD_SUB_CKPT_CASE, sub_ckpt_dir)
+    return out

@@ -445,8 +445,10 @@ def test_a_model_parallel_mesh_raises(arch, item):
     2a whisper and llama-vision, since item 2b rwkv6 and hymba (the step
     builds, on its layout, whose specs cut their mixers: a time-mix's
     ``wr`` on its heads' columns, a Mamba ``w_in`` as the pair ``[x1_r |
-    z_r]``).  What still raises is a 'pod' axis (before any collective:
-    these meshes have no process groups)."""
+    z_r]``).  A 'pod' axis folds into data parallelism, as in the
+    reference: the step builds on a ``{"pod": 2, "data": 1, "model": 1}``
+    mesh too, and its layout's FSDP entries read ``("pod", "data")``
+    (these meshes have no process groups: nothing is communicated)."""
     from repro_torch.distributed import sharding as shd
 
     mesh = Mesh(shape={"data": 1, "model": 2}, rank=0,
@@ -465,9 +467,10 @@ def test_a_model_parallel_mesh_raises(arch, item):
         assert cut[mixer].pairs == (2 if cfg.family == "hybrid" else 1)
     pod = Mesh(shape={"pod": 2, "data": 1, "model": 1}, rank=0,
                coords={"pod": 0, "data": 0, "model": 0})
-    with pytest.raises(NotImplementedError, match="'pod' axis"):
-        tts.build_train_step(get_config("olmo-1b").reduced(), _tcfg(),
-                             mesh=pod)
+    step, _ = tts.build_train_step(get_config("olmo-1b").reduced(), _tcfg(),
+                                   mesh=pod)
+    entries = {a for s in step.layout.specs for a in s if a is not None}
+    assert entries == {("pod", "data")}
 
 
 # --------------------------------------------------------------------------
