@@ -35,7 +35,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel's fixed cost); then on int8 and int4 pages of the
    same caches, read in place: bit-identical to the fp kernel on
    ``dequantize_page``'s tensor at every split count, in both cases, and
-   timed beside the bound of the codes and scales;
+   timed beside the bound of the codes and scales; ``[bench]``: the
+   kernel bench's kernel rows (the reference's five decode GEMV shapes,
+   bf16 and int8, through the dispatcher) and olmo-1b's dispatch rows
+   (the h100 pick and every fixed kernel, modeled and measured), each
+   held against the plain product (rtol 2^-7, atol 1e-3) and printed
+   (``benchmarks/kernel_bench_torch.py``);
 4. engine  -- olmo-1b at full width, bf16, seeded random weights, through
    ``Engine(batch_slots=8, max_len=1024)``: 8 requests with prompts of 32
    to 512 tokens, 32 greedy tokens each.  Every engine phase runs twice:
@@ -123,7 +128,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    version, then timed: ragged on four routings (8 tokens top-6, T=48; 1
    token, T=6; 8 rows on one expert; counts short of T, tail rows) at the
    plan for the card's SMs (live CTAs and split degree printed; equal from
-   run to run), beside padded ``torch.bmm``; on both top-6 routings at
+   run to run), beside ``torch._grouped_mm`` (the library call, its
+   rows held against the plain version) and padded ``torch.bmm``; on
+   both top-6 routings at
    every ring depth (bit-identical) and every split degree (within
    tolerance), timed; grouped at C=8 (and C=16, 64 checked); the bound
    counts only the experts that have rows; grouped at C=8 at every ring
@@ -318,7 +325,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    grok-1-314b, llama-3.2-vision-11b, rwkv6-3b's head, hymba-1.5b's
    gate+up and down; batch 8), ``ragged_gemv`` on a
    rank's expert stacks (deepseek 32 of 64 experts, grok 4 of 8; the
-   other ranks' rows past the offsets, zero), ``decode_attention`` at G
+   other ranks' rows past the offsets, zero; and grok's blocks on a
+   16-wide 'model' axis, where 8 experts do not divide: all 8 over
+   2048 of ``f`` each, every row the rank's; each beside
+   ``torch._grouped_mm``), ``decode_attention`` at G
    6 (grok's 24 over 4 a rank and 48 over 8), at hymba's G 5 (its 25
    heads over 5 whole on a rank, D 64) and at a rank's heads of
    llama-vision (self G 4, 4 kv heads of 128, C 1024; cross over 1601
@@ -1351,6 +1361,20 @@ def attention_bound(valid, B, H, Hkv, D, elem=2, bits=16) -> dict:
     return dict(bytes_ms=bytes_ms, ops_ms=ops_ms,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def run_bench(dev) -> dict:
+    """``[bench]``: the kernel bench's kernel rows and olmo-1b's dispatch
+    rows on the card, printed as the bench prints them; the bench raises
+    where a kernel is off the plain product."""
+    from benchmarks import kernel_bench_torch as kb
+
+    krows = kb.kernel_rows(dev)
+    kb.print_kernel_rows(krows)
+    drows = kb.dispatch_rows(True, "h100", dev, archs=("olmo-1b",))
+    kb.print_dispatch_table(drows)
+    sys.stdout.flush()
+    return {"kernel_rows": krows, "dispatch_rows": drows}
 
 
 def check_attention(dev, layers: int) -> list[dict]:
@@ -3141,6 +3165,22 @@ def moe_bounds(K, M, active, rows, T, x_rows) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def grouped_mm_ms(x, offsets, ws, ref, live: int, what: str,
+                  calls: int) -> float:
+    """Device time of ``torch._grouped_mm`` on a ``ragged_gemv`` row's
+    inputs, the one PyTorch call that computes the same expert products
+    (it leaves the rows past the last offset unwritten, where the kernel
+    writes zeros), after its first ``live`` rows are held against the
+    plain version at the kernel tolerance."""
+    ends = offsets[1:].contiguous()
+    got = torch._grouped_mm(x, ws[0], offs=ends)
+    torch.cuda.synchronize()
+    check_close("torch._grouped_mm", what, got[:live], ref[:live])
+    n = len(ws)
+    return graph_ms(lambda i: torch._grouped_mm(x, ws[i % n], offs=ends),
+                    calls)
+
+
 def ragged_plan_at(plan, deg: int, M: int, K: int, T: int):
     """``plan``'s column block at split degree ``deg`` (None where the
     kernel does not take it), at the default depth."""
@@ -3270,7 +3310,10 @@ def check_moe_kernels(dev) -> tuple[list[dict], list[dict]]:
                                  ctas=min(MOE_E, T) * plan.n_m
                                  * plan.split_k),
                        max_abs_err=err, ms=graph_ms(run, 40),
-                       plain_ms=event_ms(run_plain, 5), library_ms=None,
+                       plain_ms=event_ms(run_plain, 5),
+                       library_ms=grouped_mm_ms(
+                           x, offsets, ws, ref, int(counts.sum()),
+                           f"{shape} {name}", 40),
                        bmm_ref_ms=graph_ms(run_bmm, 40),
                        **moe_bounds(K, M, len(active), int(counts.sum()), T,
                                     T))
@@ -3282,6 +3325,7 @@ def check_moe_kernels(dev) -> tuple[list[dict], list[dict]]:
                 f"{plan.m_blk}, split {plan.split_k}) err={err:.2e} "
                 f"ms={row['ms']:.4f} bound={row['bound_ms']:.4f} "
                 f"({row['hbm_share']:.0%}) plain={row['plain_ms']:.4f} "
+                f"grouped_mm={row['library_ms']:.4f} "
                 f"bmm ref={row['bmm_ref_ms']:.4f}")
             if name in ("top6_b8", "top6_b1"):
                 sweep += ragged_sweeps(shape, name, x, offsets, ws,
@@ -5238,7 +5282,15 @@ MESH_RAGGED_SHAPES = {
     "deepseek-moe-16b/down": (32, 6, 1408, 2048, 28),
     "grok-1-314b/gate_up": (4, 2, 6144, 32768, 4),
     "grok-1-314b/down": (4, 2, 32768, 6144, 2),
+    # grok's blocks on a 16-wide 'model' axis, where its 8 experts do not
+    # divide (``sharding.serve_spec``): all 8 experts a rank, each over
+    # its 2048 of 32768 columns (gate / up) or rows (down)
+    "grok-1-314b/f16/gate_up": (8, 2, 6144, 2048, 4),
+    "grok-1-314b/f16/down": (8, 2, 2048, 6144, 2),
 }
+# the stacks above that hold every expert (an f cut): every routed row is
+# the rank's, where an E cut's rank owns half of them
+MESH_F_CUT = ("grok-1-314b/f16/gate_up", "grok-1-314b/f16/down")
 # decode attention (kv heads, G, head dim, launches a step): grok's, a
 # rank's 24 query heads over 4 kv heads (the main path, 2 layers a step)
 # and the whole model's 48 over 8 (G 6); hymba's on a rank, its 25 heads
@@ -5854,7 +5906,8 @@ def check_mesh_kernels(dev) -> list[dict]:
     ``quant_gemv`` / ``quant4_gemv`` at olmo-1b's (beside the bf16
     weight's ``torch.matmul``, and in f32),
     ``ragged_gemv`` on each per-rank expert stack (a rank's rows first,
-    the rest past the offsets), ``decode_attention`` at G 6 (24 over 4
+    the rest past the offsets; grok's f-cut blocks of a 16-wide axis,
+    every row the rank's), ``decode_attention`` at G 6 (24 over 4
     and 48 over 8, D 128, C 1024), at hymba's G 5 (25 over 5, D 64: its
     heads whole on a rank) and at the multimodal models' rank
     shapes (:func:`mesh_mm_attention_shapes`), each held against its
@@ -5888,8 +5941,9 @@ def check_mesh_kernels(dev) -> list[dict]:
     rng = np.random.default_rng(SEED + 7)
     for shape, (E, k, K, M, per_step) in MESH_RAGGED_SHAPES.items():
         T = 8 * k
-        picks = rng.choice(2 * E, size=(8, k), replace=True)
-        counts = np.bincount(picks.reshape(-1), minlength=2 * E)[:E]
+        experts = E if shape in MESH_F_CUT else 2 * E
+        picks = rng.choice(experts, size=(8, k), replace=True)
+        counts = np.bincount(picks.reshape(-1), minlength=experts)[:E]
         offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
                                dtype=torch.int32, device=dev)
         x = torch.randn((T, K), generator=gen, device=dev).to(torch.bfloat16)
@@ -5900,8 +5954,8 @@ def check_mesh_kernels(dev) -> list[dict]:
         plan = plan_ragged_stream(M, K, T, E=E, elem_bytes=2)
         out = ragged_gemv(x, offsets, ws[0], plan=plan)
         torch.cuda.synchronize()
-        err = check_close("ragged_gemv", shape, out,
-                          ragged_gemv_plain(x, offsets, ws[0]))
+        ref = ragged_gemv_plain(x, offsets, ws[0])
+        err = check_close("ragged_gemv", shape, out, ref)
         live = int(counts.sum())
         if live < T and out[live:].abs().max().item() != 0:
             raise AssertionError(f"ragged_gemv {shape}: rows past the "
@@ -5909,7 +5963,9 @@ def check_mesh_kernels(dev) -> list[dict]:
         with_rows = int((counts > 0).sum())
         io = (with_rows * K * M + live * K + T * M) * 2
         row = dict(kernel="ragged_gemv", arch=shape.split("/")[0] + "/rank",
-                   shape=shape, routing="rank", E=E, T=T, K=K, M=M,
+                   shape=shape,
+                   routing="f cut" if shape in MESH_F_CUT else "rank",
+                   E=E, T=T, K=K, M=M,
                    rank_rows=live, experts_with_rows=with_rows,
                    per_step=per_step, plan=plan_dict(plan),
                    max_abs_err=err, bmm_ref_ms=None,
@@ -5918,7 +5974,8 @@ def check_mesh_kernels(dev) -> list[dict]:
                    # the plain version reads the offsets on the host
                    plain_ms=event_ms(lambda i: ragged_gemv_plain(
                        x, offsets, ws[i % n_copies]), 3),
-                   library_ms=None,
+                   library_ms=grouped_mm_ms(x, offsets, ws, ref, live,
+                                            shape, 20),
                    bytes_ms=io / HBM_BYTES_PER_S * 1e3,
                    ops_ms=2 * live * K * M / BF16_FLOPS * 1e3)
         row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
@@ -5927,8 +5984,9 @@ def check_mesh_kernels(dev) -> list[dict]:
         rows.append(row)
         log(f"  ragged_gemv  {shape}: E={E} rows {live}/{T} experts with "
             f"rows {with_rows} err={err:.2e} ms={row['ms']:.4f} "
-            f"bound={row['bound_ms']:.4f} plain={row['plain_ms']:.4f}")
-        del ws
+            f"bound={row['bound_ms']:.4f} plain={row['plain_ms']:.4f} "
+            f"grouped_mm={row['library_ms']:.4f}")
+        del ws, ref
         torch.cuda.empty_cache()
     B, C = 8, MESH_MAX_LEN
     lengths = [n + MESH_TOKENS // 2 for n in MESH_LENGTHS]
@@ -6927,11 +6985,10 @@ def kernels_line(rows: list[dict], launch_counts: dict,
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            # no single PyTorch call computes a block-scaled int8/int4 GEMV
-            # or a ragged expert GEMV; decode_attention's is
-            # scaled_dot_product_attention on the same inputs
-            "library_ms": (None if quant or name == "ragged_gemv"
-                           else total("library_ms")),
+            # no single PyTorch call computes a block-scaled int8/int4
+            # GEMV; ragged_gemv's is torch._grouped_mm, decode_attention's
+            # scaled_dot_product_attention, on the same inputs
+            "library_ms": None if quant else total("library_ms"),
             "basis": basis,
             "shapes": [{key: r[key] for key in keys} for r in mine],
         }
@@ -7050,6 +7107,11 @@ def main() -> int:
         "scaled_dot_product_attention")
     rows += check_attention(dev, layers=get_config("olmo-1b").n_layers)
     clock.lap("attention")
+    log("[bench] kernel_bench_torch's kernel rows and olmo-1b's dispatch "
+        "rows on h100, each kernel against the plain product (rtol 2^-7, "
+        "atol 1e-3)")
+    bench = run_bench(dev)
+    clock.lap("bench")
 
     warm_profiler()
     cfg = get_config("olmo-1b")
@@ -7304,7 +7366,8 @@ def main() -> int:
     log("[mesh kernels] per-rank decode GEMV shapes of olmo-1b, "
         "deepseek-moe-16b, grok-1-314b, llama-3.2-vision-11b, rwkv6-3b and "
         "hymba-1.5b on a (1, 2) mesh (pim_gemv / splitk_gemv at B 8, "
-        "ragged_gemv on a rank's experts), decode_attention at G 6, at "
+        "ragged_gemv on a rank's experts and on grok's f-cut blocks of a "
+        "16-wide axis), decode_attention at G 6, at "
         "hymba's G 5 and at whisper-small's and llama-vision's rank heads, "
         "each against its plain version, timed")
     rows += check_mesh_kernels(dev)
@@ -7383,7 +7446,7 @@ def main() -> int:
         multimodal=multimodal, multimodal_s=multimodal_s, state=state,
         hybrid=hybrid,
         autotune=autotune, pim=pim, calibrate=calibrate, trace=trace,
-        mesh=mesh, train=train, train_mesh=train_mesh,
+        mesh=mesh, train=train, train_mesh=train_mesh, bench=bench,
         kernels=line["kernels"], phase_s=phases["phase_s"],
         phases=phases), indent=1))
     log(f"[phases] {json.dumps(phases)}")

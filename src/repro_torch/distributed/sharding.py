@@ -20,7 +20,9 @@ inserts the collectives.  The port holds each rank's block itself:
 * :func:`shard_params` places a model's (prepacked) tree for serving:
   each leaf is ``shard_tensor`` of its :func:`serve_spec`, the planner's
   spec where it is the leaf's row placement (heads, FFN columns and the
-  down projection's rows, whole experts, the vocab), else the leaf whole;
+  down projection's rows, whole experts, the vocab; an expert stack
+  whose E the axis does not divide, on every expert's ``f``), else the
+  leaf whole;
   whisper's encoder layers by the encoder's own heads and FFN width and
   a cross-attention layer by its heads (:func:`leaf_config`); a
   recurrent mixer's leaves by their path (:data:`STATE_LEAVES`: rwkv6's
@@ -409,7 +411,11 @@ def shard_packed(pw: PackedWeights, mesh, prefer: str | None = None,
     members ``m_splits`` (``wqkv``, ``w_gateup``) cut on M is each
     member's block side by side (``[q_r | k_r | v_r]``, as the float
     fused leaves of :func:`serve_spec`).  Returns ``(block, axis)``; the
-    block is ``pw`` itself when the weight stays whole."""
+    block is ``pw`` itself when the weight stays whole.  An expert stack
+    ``[E, K, M]`` (``[E, K // 2, M]`` int4) whose experts
+    :func:`serve_spec` cuts on ``f`` is cut as a matrix, every expert
+    alike: gate / up with ``prefer="M"`` (their ``f`` columns), down with
+    ``prefer="K"`` (its ``f`` rows, in whole scale blocks)."""
     n, i = mesh.size("model"), mesh.index("model")
     axis = packed_axis(pw, n, prefer, m_splits)
     if axis == "replicated":
@@ -438,7 +444,7 @@ def block_shape(shape: tuple[int, ...], spec, mesh) -> tuple[int, ...]:
 
 # the leaves a serving layer runs sharded, each on its row placement (the
 # planner's first choice): heads, the FFN's columns (the down projection
-# its rows), whole experts, the vocab
+# its rows), whole experts (else their f: ``is_expert_stack``), the vocab
 SERVE_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                 "embed", "lm_head")
 ATTN_LEAVES = ("wq", "wk", "wv", "wo")
@@ -514,17 +520,31 @@ def _state_spec(path: str, shape: tuple[int, ...], n: int,
              and spec[dim] else 1)
 
 
+def is_expert_stack(path: str, shape: tuple[int, ...]) -> bool:
+    """The leaf at ``path`` is an MoE layer's expert stack: ``w_gate`` /
+    ``w_up [E, d, f]`` or ``w_down [E, f, d]`` (not its shared experts'
+    MLP, nor the reference's stacked ``[L, d, f]`` dense leaves)."""
+    parts = path.split("/")
+    return (len(shape) == 3 and len(parts) >= 2 and parts[-2] == "moe"
+            and parts[-1] in ("w_gate", "w_up", "w_down"))
+
+
 def serve_spec(path: str, shape: tuple[int, ...], mesh,
                cfg: ModelConfig) -> P:
     """The spec a serving rank cuts the leaf at ``path`` by:
     :func:`_leaf_spec`'s 'model' entry where it is the leaf's row
     placement (its first choice, which the layers run sharded), else the
-    leaf whole.  So it differs from ``_leaf_spec`` only where named:
+    leaf whole.  An expert stack (:func:`is_expert_stack`) takes 'model'
+    on E where the axis divides E (whole experts), else on its ``f`` where
+    the axis divides that (every expert's columns of gate and up, rows of
+    down: ``_leaf_spec``'s 3-D order without its third choice, ``d``,
+    which would be split-K), else it stays whole.  So it differs from
+    ``_leaf_spec`` only where named:
     'data' is dropped (parameters are replicated over it); the tiny-leaf
     rule does not apply (the serving cache shards kv heads at every
     width, and the attention that writes it must hold the same heads); a
-    leaf the planner would cut on a fallback dim (``hd``, ``d``, an
-    expert's ``f``) or that the layer reads whole (norm scales, the
+    leaf the planner would cut on a fallback dim (``hd``, ``d``) or that
+    the layer reads whole (norm scales, the
     router, a cross layer's ``cross_gate``, whisper's ``proj``) stays
     whole; attention (self, cross, the encoder's) stays whole unless
     :func:`attention_shardable` by the heads of the layer that holds it
@@ -546,8 +566,10 @@ def serve_spec(path: str, shape: tuple[int, ...], mesh,
             name in ATTN_LEAVES
             and not attention_shardable(leaf_config(path, cfg), n)):
         return P(*spec)
-    dim = _model_prefs(name, shape)[0]
-    if _divides(shape[dim], n):
+    prefs = _model_prefs(name, shape)
+    choices = prefs[:2] if is_expert_stack(path, shape) else prefs[:1]
+    dim = next((d for d in choices if _divides(shape[d], n)), None)
+    if dim is not None:
         spec[dim] = "model"
     return P(*spec)
 
@@ -692,8 +714,8 @@ def train_spec(path: str, shape: tuple[int, ...], mesh,
     """The spec a training rank stores the leaf at ``path`` (one layer's
     leaf, ``"layers/3/attn/wq"``) by: 'model' on :func:`serve_spec`'s dim
     (the row placement the layers compute with: heads, FFN columns and
-    the down projection's rows, whole experts, the vocab; else the leaf
-    whole over 'model'), then :func:`fsdp_entry` on :func:`_leaf_spec`'s
+    the down projection's rows, whole experts or else every expert's
+    ``f``, the vocab; else the leaf whole over 'model'), then :func:`fsdp_entry` on :func:`_leaf_spec`'s
     FSDP dim, the first other dim the data axes' product divides.
     Deliberate difference: the reference plans its stacked ``[L, ...]``
     leaves as though they were unstacked, which can put 'model' on ``d``

@@ -572,19 +572,22 @@ def _aux_loss(probs: torch.Tensor, counts: torch.Tensor,
     return e.n_experts * (me * ce).sum() * e.router_aux_weight
 
 
-def _expert_ffn(p: dict, t: torch.Tensor, cfg: ModelConfig, proj):
+def _expert_ffn(p: dict, t: torch.Tensor, cfg: ModelConfig, proj,
+                down=None):
     """The expert FFN over expert-sorted rows; ``proj(t, w)`` runs one
-    projection of the stack.  As in the JAX package, an ungated expert
-    applies ``gelu`` to up whatever ``cfg.act`` says."""
+    projection of the stack (``down``, default ``proj``, the down
+    projection).  As in the JAX package, an ungated expert applies
+    ``gelu`` to up whatever ``cfg.act`` says."""
     if cfg.act in GATED:
         gate = proj(t, p["w_gate"])
         h = activate(cfg.act, proj(t, p["w_up"]), gate)
     else:
         h = activate("gelu", proj(t, p["w_up"]))
-    return proj(h, p["w_down"])
+    return (down or proj)(h, p["w_down"])
 
 
-def _moe_ragged_decode(p, x, cfg, gemv, top_i, top_p, n_local=None):
+def _moe_ragged_decode(p, x, cfg, gemv, top_i, top_p, n_local=None,
+                       axes=("replicated", "replicated")):
     """Decode-step expert FFNs through the ragged program shape.
 
     Tokens flatten to ONE expert-sorted ``[T*k, d]`` buffer (T = B*S): no
@@ -593,7 +596,9 @@ def _moe_ragged_decode(p, x, cfg, gemv, top_i, top_p, n_local=None):
     and one counts vector, device data from end to end: no host sync.
     With ``n_local`` (a rank's experts, numbered first in ``top_i``) the
     program runs the stack's ``n_local`` experts over their rows, the
-    buffer's first ones; the rows past them come back zero.
+    buffer's first ones; the rows past them come back zero.  ``axes`` are
+    the mesh axes gate / up and down are counted under (a rank's f block
+    of every expert: "M" and "K").
     """
     from repro_torch.kernels.dispatch import dispatch_ragged, \
         record_expert_load
@@ -609,13 +614,12 @@ def _moe_ragged_decode(p, x, cfg, gemv, top_i, top_p, n_local=None):
                        max_tokens=bound, padded_slots=0)
 
     own = counts if n_local is None else counts[:n_local]
-    axis = "replicated" if n_local is None else "E"
 
-    def proj(t, w):
-        return dispatch_ragged(t, own, w, bound=bound, policy=gemv,
-                               shard=axis)
+    def proj(axis):
+        return lambda t, w: dispatch_ragged(t, own, w, bound=bound,
+                                            policy=gemv, shard=axis)
 
-    out = _expert_ffn(p, xr, cfg, proj)          # [T*k, d]
+    out = _expert_ffn(p, xr, cfg, *map(proj, axes))     # [T*k, d]
     y = _combine(out, sw, st, B * S, e.top_k)
     return y.reshape(B, S, d), counts
 
@@ -698,22 +702,35 @@ def moe_partial(p: dict, x: torch.Tensor, cfg: ModelConfig,
     are the unsharded ones.  The router runs whole on every rank; the
     tokens and ``top_p`` go into the rank's experts through ``enter``,
     so the router's gradient sums every rank's experts' share of it.
+
+    A stack of all the experts narrower than ``d_expert`` is a rank's
+    block of every expert's ``f`` (``sharding.serve_spec`` where E does
+    not divide 'model'), run as the dense FFN's columns are
+    (:func:`mlp_partial`): routing, capacity and drops whole and the same
+    on every rank, gate and up on the rank's columns (counted "M"), down
+    on its rows ("K"), and ``y`` the rank's partial sum, summed in f32
+    over 'model' and cast once.
     """
     e = cfg.moe
     B, S, d = x.shape
     probs, top_p, top_i = _router(p, x, cfg)
     n_local = p["w_up"].shape[0]
+    cols = p["w_up"].shape[-1] != e.d_expert     # a rank's f of each
     shift = 0
     x_shared = x
     if n_local != e.n_experts:
         shift = model_index() * n_local
         top_i = (top_i - shift) % e.n_experts
-        # under autograd, the tokens and the weights that go into the
-        # rank's experts (the router's gradient through top_p comes only
-        # from the rank's own experts here)
-        x, top_p = enter(x, model_group()), enter(top_p, model_group())
+        axes = ("E", "E")
     else:
         n_local = None
+        axes = ("M", "K") if cols else ("replicated", "replicated")
+    partial = n_local is not None or cols
+    if partial:
+        # under autograd, the tokens and the weights that go into the
+        # rank's blocks (the router's gradient through top_p comes only
+        # from the rank's own experts or columns here)
+        x, top_p = enter(x, model_group()), enter(top_p, model_group())
     expert_shape = gemv.expert_shape if gemv is not None else "einsum"
     if expert_shape not in ("ragged", "grouped", "einsum"):
         raise ValueError(f"unknown expert_shape {expert_shape!r}")
@@ -721,10 +738,10 @@ def moe_partial(p: dict, x: torch.Tensor, cfg: ModelConfig,
                     and expert_shape != "einsum")
     if use_programs and expert_shape == "ragged":
         y, counts = _moe_ragged_decode(p, x, cfg, gemv, top_i, top_p,
-                                       n_local)
+                                       n_local, axes)
     elif use_programs:
         y, counts = _moe_grouped_decode(p, x, cfg, gemv, top_i, top_p,
-                                        n_local)
+                                        n_local, axes)
     elif records_grad(x, p["w_up"]):
         y, counts = _moe_capacity_buffers(p, x, cfg, top_i, top_p,
                                           torch.matmul, n_local)
@@ -733,7 +750,6 @@ def moe_partial(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if shift:
         counts = torch.roll(counts, shift)      # back to the experts' ids
     aux = _aux_loss(probs, counts, cfg, batch_group)
-    partial = n_local is not None
     if e.n_shared:
         sh, sh_partial = mlp_partial(p["shared"], x_shared, cfg, gemv,
                                      d_ff=e.n_shared * e.d_expert)
@@ -746,9 +762,11 @@ def moe_partial(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return y, aux, partial
 
 
-def _moe_grouped_decode(p, x, cfg, gemv, top_i, top_p, n_local=None):
+def _moe_grouped_decode(p, x, cfg, gemv, top_i, top_p, n_local=None,
+                        axes=("replicated", "replicated")):
     """Decode through grouped programs: the capacity buffers, one grouped
-    program per projection (:func:`_moe_capacity_buffers`)."""
+    program per projection (:func:`_moe_capacity_buffers`), gate / up
+    and down counted under ``axes``."""
     from repro_torch.kernels.dispatch import dispatch_grouped, \
         record_expert_load
 
@@ -759,19 +777,22 @@ def _moe_grouped_decode(p, x, cfg, gemv, top_i, top_p, n_local=None):
                        max_tokens=C,
                        padded_slots=max(B * e.n_experts * C
                                         - B * S * e.top_k, 0))
-    axis = "replicated" if n_local is None else "E"
-    return _moe_capacity_buffers(
-        p, x, cfg, top_i, top_p,
-        lambda t, w: dispatch_grouped(t, w, policy=gemv, shard=axis),
-        n_local)
+
+    def proj(axis):
+        return lambda t, w: dispatch_grouped(t, w, policy=gemv, shard=axis)
+
+    return _moe_capacity_buffers(p, x, cfg, top_i, top_p, proj(axes[0]),
+                                 n_local, proj(axes[1]))
 
 
-def _moe_capacity_buffers(p, x, cfg, top_i, top_p, proj, n_local=None):
+def _moe_capacity_buffers(p, x, cfg, top_i, top_p, proj, n_local=None,
+                          down=None):
     """The capacity buffers of the JAX package, laid out ``[E, B*C, d]``
     (row ``b*C + slot`` of expert e), ``proj(t, w)`` once per projection
     over the whole stack, then the capacity combine.  Device data from end
     to end: no host sync.  With ``n_local`` the buffers hold the first
-    ``n_local`` experts only (a rank's); the other pairs weigh zero."""
+    ``n_local`` experts only (a rank's); the other pairs weigh zero.
+    ``down`` (default ``proj``) runs the down projection."""
     e = cfg.moe
     B, S, d = x.shape
     C = _capacity(S, cfg)
@@ -787,7 +808,7 @@ def _moe_capacity_buffers(p, x, cfg, top_i, top_p, proj, n_local=None):
     buf = torch.zeros((E * rows + 1, d), dtype=x.dtype, device=x.device)
     buf[dest] = x.reshape(B * S, d)[st]
     buf = buf[:-1].view(E, rows, d)
-    out = _expert_ffn(p, buf, cfg, proj).reshape(E * rows, d)
+    out = _expert_ffn(p, buf, cfg, proj, down).reshape(E * rows, d)
     y = _combine(out[at], sw * kept.to(sw.dtype), st, B * S, e.top_k)
     return y.reshape(B, S, d), counts
 

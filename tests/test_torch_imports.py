@@ -19,7 +19,10 @@ SCRIPTS = ("examples/placement_explorer_torch.py",
            "examples/serve_decode_torch.py",
            "examples/train_e2e_torch.py",
            "benchmarks/paper_figs_torch.py",
-           "benchmarks/kernel_bench_torch.py")
+           "benchmarks/kernel_bench_torch.py",
+           "benchmarks/run_torch.py",
+           "benchmarks/roofline_torch.py",
+           "benchmarks/embed_tables_torch.py")
 # ``import repro`` / ``from repro.x import`` -- but not ``repro_torch``
 FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.|\s)(?!_))",

@@ -517,8 +517,9 @@ def test_serving_cache_shard_is_the_spec_block(arch, kv_heads):
 
 def test_serve_plan_keeps_whole_what_does_not_divide():
     """Attention is sharded when the heads divide and either the kv heads
-    do or a rank's heads share one kv head; experts when they divide; the
-    vocab when it does.  Otherwise the leaf stays whole on every rank."""
+    do or a rank's heads share one kv head; experts when they divide,
+    else every expert's ``f`` where that divides; the vocab when it
+    does.  Otherwise the leaf stays whole on every rank."""
     def spec(cfg, n, path, shape):
         return shd.serve_spec(path, shape, FakeMesh({"data": 1,
                                                      "model": n}), cfg)
@@ -532,7 +533,8 @@ def test_serve_plan_keeps_whole_what_does_not_divide():
     assert spec(g, 2, "layers/0/moe/w_up", (E, d, f)) == ("model", None,
                                                           None)
     assert spec(g, 2, "embed", (g.vocab, d)) == ("model", None)
-    assert spec(g, 16, "layers/0/moe/w_up", (E, d, f)) == (None,) * 3
+    assert spec(g, 16, "layers/0/moe/w_up", (E, d, f)) == (None, None,
+                                                           "model")
     assert spec(g, 16, "layers/0/attn/wk", (d, Hkv, hd)) == (None,) * 3
     # 3 query heads a rank, half of one kv head's group of 6: KV
     # replicated, the query heads sharded
